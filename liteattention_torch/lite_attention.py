@@ -58,7 +58,8 @@ def lite_attention_init(
     device=None,
 ) -> SkipMaskState:
     """Create the initial (all-do) skip-mask state at the fine 128 x 128
-    granularity (independent of the compute tile)."""
+    granularity (independent of the compute tile), on ``device`` (default
+    ``cuda``)."""
     del head_dim, dtype_bytes, block_sizes
     return init_mask(
         batch, heads, seqlen_q, seqlen_k, VOTE_TILE, VOTE_TILE,

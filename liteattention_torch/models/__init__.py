@@ -1,6 +1,13 @@
 """Model library: the Wan video DiT (text-to-video) and its denoising
-pipeline."""
+pipeline; the GPT family (training path)."""
 
+from liteattention_torch.models.gpt import (
+    GPTConfig,
+    GPTLMHeadModel,
+    GPTModel,
+    gpt_loss_fn,
+    gpt_state_dict_from_jax,
+)
 from liteattention_torch.models.pipeline import (
     denoise,
     flow_timesteps,
@@ -14,6 +21,11 @@ from liteattention_torch.models.wan import (
 )
 
 __all__ = [
+    "GPTConfig",
+    "GPTLMHeadModel",
+    "GPTModel",
+    "gpt_loss_fn",
+    "gpt_state_dict_from_jax",
     "WanConfig",
     "WanModel",
     "init_skip_states",

@@ -1,0 +1,248 @@
+"""GPT-family causal transformer on the flash kernels.
+
+Counterpart of ``liteattention_tpu/models/gpt.py`` (``GPTConfig``,
+``GPTModel``, ``GPTLMHeadModel``, ``gpt_loss_fn``). One configurable
+backbone: learned positions, GQA, plain or gated MLP, pre-norm with an
+fp32 residual stream, post-norm (OPT-350m, with projected embeddings),
+the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head.
+Parameters are fp32 and every product runs in ``cfg.dtype``; the
+embedding is looked up in ``cfg.dtype``, the tied head computes
+``hidden @ wte.T`` in ``cfg.dtype`` and the logits come back fp32, as in
+the JAX model. Every attention call is causal B1 forward and B7 backward.
+
+Not ported yet (the model raises on them): rotary positions (so no
+LLaMA-family config runs yet), ALiBi, MoE, dropout; ``generate`` and the
+tensor-parallel forward are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from liteattention_torch.device import resolve_device
+from liteattention_torch.losses.cross_entropy import cross_entropy_loss
+from liteattention_torch.models.convert import state_dict_from_flax
+from liteattention_torch.modules.block import Block
+from liteattention_torch.modules.dense import Dense
+from liteattention_torch.modules.mha import MHA
+from liteattention_torch.modules.mlp import GatedMlp, Mlp
+from liteattention_torch.ops.activations import gelu_approx
+from liteattention_torch.ops.norms import layer_norm, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """Geometry knobs of the GPT family (the JAX ``GPTConfig``'s fields)."""
+
+    vocab_size: int = 50304
+    max_position_embeddings: int = 2048  # 0 = rotary only
+    dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_heads_kv: Optional[int] = None
+    ffn_dim: Optional[int] = None
+    rotary_emb_dim: int = 0
+    rotary_emb_base: float = 10000.0
+    rotary_emb_interleaved: bool = False
+    mlp_relu: bool = False
+    word_embed_proj_dim: Optional[int] = None
+    prenorm: bool = True
+    lm_head_bias: bool = False
+    gated_mlp: bool = False
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    parallel_block: bool = False
+    parallel_block_tied_norm: bool = True
+    attn_bias: bool = True
+    mlp_bias: bool = True
+    mlp_gelu_exact: bool = False
+    use_rms_norm: bool = False
+    use_alibi: bool = False
+    embeddings_multiplier: float = 1.0
+    logits_multiplier: float = 1.0
+    scale_qk_dot_by_d: bool = False
+    tie_embeddings: bool = True
+    dropout: float = 0.0
+    eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    # Recompute each block's activations in the backward
+    # (torch.utils.checkpoint) instead of storing them.
+    remat: bool = False
+
+    @staticmethod
+    def llama(dim=512, num_layers=4, num_heads=8, vocab=32000):
+        return GPTConfig(
+            vocab_size=vocab, max_position_embeddings=0, dim=dim,
+            num_layers=num_layers, num_heads=num_heads,
+            ffn_dim=int(dim * 8 / 3) // 64 * 64, rotary_emb_dim=dim // num_heads,
+            gated_mlp=True, use_rms_norm=True, tie_embeddings=False,
+        )
+
+    @staticmethod
+    def tiny():
+        return GPTConfig(
+            vocab_size=512, max_position_embeddings=256, dim=128,
+            num_layers=2, num_heads=2,
+        )
+
+
+def _check_supported(cfg: GPTConfig) -> None:
+    unported = {
+        "rotary_emb_dim (layers/rotary.py)": cfg.rotary_emb_dim > 0,
+        "use_alibi": cfg.use_alibi,
+        "moe_experts": cfg.moe_experts > 0,
+        "dropout": cfg.dropout > 0.0,
+    }
+    missing = [name for name, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(f"GPT: {missing} not ported yet")
+
+
+def _block(cfg: GPTConfig, device) -> Block:
+    head_dim = cfg.dim // cfg.num_heads
+    mha = MHA(
+        cfg.dim, cfg.num_heads, num_heads_kv=cfg.num_heads_kv, causal=True,
+        qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias,
+        softmax_scale=1.0 / head_dim if cfg.scale_qk_dot_by_d else None,
+        dtype=cfg.dtype, device=device,
+    )
+    ffn = cfg.ffn_dim or 4 * cfg.dim
+    if cfg.gated_mlp:
+        mlp = GatedMlp(cfg.dim, ffn, bias1=cfg.mlp_bias, bias2=cfg.mlp_bias,
+                       dtype=cfg.dtype, device=device)
+    else:
+        if cfg.mlp_relu:
+            act = F.relu
+        elif cfg.mlp_gelu_exact:
+            act = F.gelu
+        else:
+            act = gelu_approx
+        mlp = Mlp(cfg.dim, ffn, activation=act, bias1=cfg.mlp_bias,
+                  bias2=cfg.mlp_bias, dtype=cfg.dtype, device=device)
+    return Block(
+        cfg.dim, mha, mlp, prenorm=cfg.prenorm, parallel_block=cfg.parallel_block,
+        parallel_block_tied_norm=cfg.parallel_block_tied_norm,
+        use_rms_norm=cfg.use_rms_norm, residual_in_fp32=True, eps=cfg.eps,
+        dtype=cfg.dtype, device=device,
+    )
+
+
+class GPTModel(nn.Module):
+    """Embedding + block stack + final norm; ``forward(input_ids)`` ->
+    hidden ``[B, S, dim]`` in ``cfg.dtype``."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        f32 = dict(dtype=torch.float32, device=device)
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.word_embed_proj_dim or cfg.dim, **f32)
+        if cfg.word_embed_proj_dim:
+            self.project_in = Dense(cfg.word_embed_proj_dim, cfg.dim, False, cfg.dtype, device)
+        if cfg.max_position_embeddings:
+            self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.dim, **f32)
+        self.blocks = nn.ModuleList(_block(cfg, device) for _ in range(cfg.num_layers))
+        if cfg.prenorm:  # the post-norm stack ends normalized already
+            self.ln_f_scale = nn.Parameter(torch.ones(cfg.dim, device=device))
+            if not cfg.use_rms_norm:
+                self.ln_f_bias = nn.Parameter(torch.zeros(cfg.dim, device=device))
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
+        if cfg.embeddings_multiplier != 1.0:
+            x = x * cfg.embeddings_multiplier
+        if cfg.word_embed_proj_dim:
+            x = self.project_in(x)
+        if cfg.max_position_embeddings:
+            pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+            x = x + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None]
+        residual = None
+        for blk in self.blocks:
+            if cfg.remat and torch.is_grad_enabled():
+                out = checkpoint(blk, x, residual, use_reentrant=False)
+            else:
+                out = blk(x, residual)
+            x, residual = out if cfg.prenorm else (out, None)
+        if not cfg.prenorm:
+            return x
+        final = (x.float() + residual).to(cfg.dtype)
+        if cfg.use_rms_norm:
+            return rms_norm(final, self.ln_f_scale, eps=cfg.eps)
+        return layer_norm(final, self.ln_f_scale, self.ln_f_bias, eps=cfg.eps)
+
+
+class GPTLMHeadModel(nn.Module):
+    """``GPTModel`` + LM head; ``forward(input_ids)`` -> fp32 logits
+    ``[B, S, vocab]``. Parameters go on ``device`` (default ``cuda``)."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.transformer = GPTModel(cfg, device)
+        if cfg.word_embed_proj_dim:
+            self.project_out = Dense(cfg.dim, cfg.word_embed_proj_dim, False, cfg.dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.dim, cfg.vocab_size, cfg.lm_head_bias, cfg.dtype, device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random weights from ``generator``, the JAX model's initializers
+        up to truncation: ``N(0, 1/fan_in)`` for Dense kernels and
+        embedding tables (fan_in = the row width either way), zero biases,
+        unit norm scales."""
+        for name, p in self.named_parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+            elif name.endswith("scale"):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        hidden = self.transformer(input_ids)
+        if cfg.word_embed_proj_dim:
+            hidden = self.project_out(hidden)
+        if cfg.tie_embeddings:
+            logits = hidden @ self.transformer.wte.weight.to(hidden.dtype).T
+        else:
+            logits = self.lm_head(hidden)
+        if cfg.logits_multiplier != 1.0:
+            logits = logits * cfg.logits_multiplier
+        return logits.float()
+
+
+def gpt_loss_fn(model: GPTLMHeadModel, input_ids: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy: logits at position i predict label i+1."""
+    logits = model(input_ids)
+    return cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+
+
+def gpt_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """Flax ``GPTLMHeadModel`` params -> this module's ``state_dict``
+    (``transformer/wte/embedding`` -> ``transformer.wte.weight``,
+    ``block_i/mha/Wqkv/kernel`` -> ``blocks.i.mha.Wqkv.weight``
+    transposed, ``norm1_scale`` and ``ln_f_bias`` as they are; see
+    :func:`~liteattention_torch.models.convert.state_dict_from_flax`)."""
+    return state_dict_from_flax(params)
+
+
+__all__ = [
+    "GPTConfig",
+    "GPTModel",
+    "GPTLMHeadModel",
+    "gpt_loss_fn",
+    "gpt_state_dict_from_jax",
+]

@@ -24,15 +24,16 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from liteattention_torch.device import resolve_device
 from liteattention_torch.lite_attention import (
     lite_attention_init,
     lite_attention_step,
 )
+from liteattention_torch.models.convert import state_dict_from_flax
 from liteattention_torch.ops.flash_fwd import flash_attention
 from liteattention_torch.ops.tile_sizes import BlockSizes, get_block_sizes
 
@@ -279,11 +280,13 @@ class WanModel(nn.Module):
     ``[B, F, H, W, C]``, timesteps ``t`` ``[B]``, text ``[B, L,
     text_dim]`` and optional per-layer skip states ``{layer:
     SkipMaskState}``. Returns (velocity prediction ``[B, F, H, W,
-    C_out]``, new skip states or None).
+    C_out]``, new skip states or None). Parameters go on ``device``
+    (default ``cuda``).
     """
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         if cfg.i2v_decoupled or cfg.remat or cfg.attn_probe_rows or cfg.sp_axis:
             raise NotImplementedError(
                 "WanModel: i2v_decoupled, remat, attn_probe_rows and sp_axis "
@@ -372,7 +375,7 @@ def init_skip_states(
     cfg: WanConfig, batch: int, grid: Tuple[int, int, int], device=None
 ) -> Dict[int, Any]:
     """Per-layer skip-mask states for a latent grid (one persistent
-    LiteAttention state per block)."""
+    LiteAttention state per block), on ``device`` (default ``cuda``)."""
     n = (
         (grid[0] // cfg.patch_size[0])
         * (grid[1] // cfg.patch_size[1])
@@ -388,36 +391,9 @@ def init_skip_states(
 
 
 def wan_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """Flax ``WanModel`` params -> this module's ``state_dict``.
-
-    ``params`` is the Flax variable tree (or its ``"params"`` subtree) as
-    nested dicts of numpy-convertible arrays. Flax ``Dense`` kernels are
-    ``[in, out]`` and become ``[out, in]`` Linear weights; norm ``scale``
-    becomes ``weight``; ``block_i`` becomes ``blocks.i``. Tensors come
-    back fp32 on the CPU; ``load_state_dict`` casts them to each
-    parameter's dtype and device.
-    """
-    if "params" in params:
-        params = params["params"]
-    out: Dict[str, torch.Tensor] = {}
-
-    def walk(tree, prefix):
-        for name, val in tree.items():
-            if name.startswith("block_"):
-                name = "blocks." + name[len("block_"):]
-            if isinstance(val, dict):
-                walk(val, f"{prefix}{name}.")
-                continue
-            arr = torch.from_numpy(np.array(val, dtype=np.float32))
-            if name == "kernel":
-                out[prefix + "weight"] = arr.T.contiguous()
-            elif name == "scale":
-                out[prefix + "weight"] = arr
-            else:
-                out[prefix + name] = arr
-
-    walk(params, "")
-    return out
+    """Flax ``WanModel`` params -> this module's ``state_dict``
+    (:func:`~liteattention_torch.models.convert.state_dict_from_flax`)."""
+    return state_dict_from_flax(params)
 
 
 __all__ = [

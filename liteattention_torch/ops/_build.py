@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects link into one shared library with a
+plain C interface, loaded with ``ctypes``. The
 library lands in ``liteattention_torch/_build/<hash>/``, keyed by a hash
 of the sources and flags, so a stale build is never loaded. Nothing is
 built or loaded at import time: the first CUDA launch calls
@@ -24,10 +25,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "liblite_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,9 +36,9 @@ _F = ctypes.c_float
 # C entry points: name -> argument types. Every entry returns the CUDA
 # error of its launch (0 = success).
 SIGNATURES = {
-    "lite_flash_fwd_dense": (
-        [_P] * 5 + [_I] * 6 + [_F, _I, _P]
-    ),
+    "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "lite_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "lite_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_gather": (
         [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P]
     ),
@@ -85,17 +85,33 @@ def build_kernels() -> Build:
         log = log_path.read_text() if log_path.exists() else ""
         return Build(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        procs.append((obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    logs, failed = [], []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {obj.stem}.cu\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *(str(o) for o, _ in procs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return Build(lib, seconds, log)

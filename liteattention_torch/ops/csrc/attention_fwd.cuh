@@ -10,6 +10,12 @@
 //   SPARSE = false: visit every k-tile 0..ceil(Sk/128)-1 (dense forward, B1);
 //   SPARSE = true:  visit fidx[0..count) of this (b, h, q-tile) row, the
 //                   compacted live fine k-tiles in increasing order (B3).
+// CAUSAL (dense only) adds the bottom-right-aligned causal mask: key col is
+// valid for q row r iff col <= r + causal_offset (causal_offset = Sk - Sq).
+// The walk stops at the last k-tile that the q-tile's last row reaches, so
+// tiles above the diagonal cost no load and no math, and q-tiles are taken
+// in reverse block order so the longest walks start first. A row with no
+// valid key keeps its running max at -inf and ends with out 0, lse -inf.
 // VOTES (SPARSE only) adds the skip vote of every visited tile: with m_prev
 // the running row max from before the tile's vote step (a step is `gsize`
 // consecutive schedule entries), the tile votes "do" (0) iff some valid
@@ -49,6 +55,7 @@ struct FwdParams {
   int* votes;              // [B, H, Qt, Kt]   (VOTES)
   int heads, kv_heads, seqlen_q, seqlen_k;
   int qtiles, ktiles, gsize;
+  int causal_offset;  // Sk - Sq (CAUSAL)
   float scale_log2;  // softmax scale * log2(e)
   float thr;         // vote threshold, log2 space
 };
@@ -127,16 +134,17 @@ __device__ __forceinline__ void load_kv_tile(const FwdParams& p,
   }
 }
 
-template <int D, bool SPARSE, bool VOTES>
+template <int D, bool SPARSE, bool VOTES, bool CAUSAL = false>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const FwdParams p) {
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
   static_assert(SPARSE || !VOTES, "votes need the sparse schedule");
+  static_assert(!(SPARSE && CAUSAL), "causal is a channel of the dense schedule");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int kTileElems = kBlockK * (D + 8);
 
-  const int qt = blockIdx.x;
+  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (p.heads / p.kv_heads);
@@ -159,6 +167,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool hi_valid = r_hi < p.seqlen_q;
 
   int n_tiles = p.ktiles;
+  if constexpr (CAUSAL) {
+    // Last key that the q-tile's last (padded) row may see.
+    const int last = qt * kBlockQ + kBlockQ - 1 + p.causal_offset;
+    n_tiles = last < 0 ? 0 : min(p.ktiles, last / kBlockK + 1);
+  }
   const int* sched = nullptr;
   if constexpr (SPARSE) {
     sched = p.fidx + row_id * p.ktiles;
@@ -231,13 +244,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Log2-space scores; columns past seqlen_k never contribute.
     const int col0 = tile * kBlockK;
     const bool ragged = col0 + kBlockK > p.seqlen_k;
+    // Only tiles that cross the diagonal need the per-element causal test.
+    const bool diag =
+        CAUSAL && col0 + kBlockK - 1 > qt * kBlockQ + warp * 16 + p.causal_offset;
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int nb = 0; nb < 16; ++nb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nb][e] * p.scale_log2;
-        if (ragged && col0 + nb * 8 + 2 * t + (e & 1) >= p.seqlen_k) x = -INFINITY;
+        const int col = col0 + nb * 8 + 2 * t + (e & 1);
+        if (ragged && col >= p.seqlen_k) x = -INFINITY;
+        if (diag && col > (e < 2 ? r_lo : r_hi) + p.causal_offset) x = -INFINITY;
         s[nb][e] = x;
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
@@ -349,10 +367,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Host-side launch of one instantiation on `stream`; returns the CUDA error
 // of the launch (0 on success).
-template <int D, bool SPARSE, bool VOTES>
+template <int D, bool SPARSE, bool VOTES, bool CAUSAL = false>
 cudaError_t launch_attention_fwd(const FwdParams& p, int batch,
                                  cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<D, SPARSE, VOTES>;
+  auto kernel = attention_fwd_kernel<D, SPARSE, VOTES, CAUSAL>;
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from liteattention_torch.device import resolve_device
+
 
 class SkipMaskState(NamedTuple):
     """Skip-mask state carried across denoising timesteps.
@@ -61,7 +63,8 @@ def init_mask(
 
     ``must_skip_ranges`` are half-open ``[lo, hi)`` sequence-index
     ranges to pre-skip; only k-tiles fully inside a range are skipped,
-    and a row that would go empty keeps its first tile.
+    and a row that would go empty keeps its first tile. The mask goes on
+    ``device`` (default ``cuda``).
     """
     qtiles = cdiv(seqlen_q, block_q)
     ktiles = cdiv(seqlen_k, block_k)
@@ -75,7 +78,9 @@ def init_mask(
         empty_rows = ~mask.any(axis=-1)
         if empty_rows.any():
             mask[empty_rows, 0] = True
-    return SkipMaskState(do_mask=torch.from_numpy(mask).to(device), step=0)
+    return SkipMaskState(
+        do_mask=torch.from_numpy(mask).to(resolve_device(device)), step=0
+    )
 
 
 def must_do_mask(
@@ -87,7 +92,8 @@ def must_do_mask(
     """Expand must-do sequence ranges to a per-k-tile protection mask.
 
     Any k-tile overlapping a half-open ``[lo, hi)`` range is protected.
-    Returns bool ``[Kt]``, broadcastable against ``do_mask``.
+    Returns bool ``[Kt]`` on ``device`` (default ``cuda``), broadcastable
+    against ``do_mask``.
     """
     ktiles = cdiv(seqlen_k, block_k)
     mask = np.zeros((ktiles,), dtype=bool)
@@ -95,7 +101,7 @@ def must_do_mask(
     tile_hi = np.minimum(tile_lo + block_k, seqlen_k)
     for lo, hi in must_do_ranges:
         mask |= (tile_hi > lo) & (tile_lo < hi)
-    return torch.from_numpy(mask).to(device)
+    return torch.from_numpy(mask).to(resolve_device(device))
 
 
 def update_mask(

@@ -23,14 +23,16 @@ from liteattention_torch.ops.tile_sizes import BlockSizes  # noqa: E402
 
 
 @pytest.mark.parametrize(
-    "b,h,hk,sq,sk,d,dtype,tol",
+    "b,h,hk,sq,sk,d,dtype,tol,causal",
     [
-        (1, 4, 2, 300, 555, 64, "float32", 2e-5),  # ragged Sq/Sk, GQA 2
-        (2, 2, 2, 256, 130, 128, "float32", 2e-5),  # D 128, ragged Sk
-        (1, 4, 1, 200, 384, 64, "bfloat16", 2e-2),  # MQA, bf16
+        (1, 4, 2, 300, 555, 64, "float32", 2e-5, False),  # ragged Sq/Sk, GQA 2
+        (2, 2, 2, 256, 130, 128, "float32", 2e-5, False),  # D 128, ragged Sk
+        (1, 4, 1, 200, 384, 64, "bfloat16", 2e-2, False),  # MQA, bf16
+        (1, 4, 2, 300, 555, 64, "float32", 2e-5, True),  # causal, Sq < Sk
+        (1, 2, 2, 256, 256, 128, "bfloat16", 2e-2, True),  # causal, bf16
     ],
 )
-def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol):
+def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol, causal):
     rng = np.random.RandomState(sq + sk)
     q = rng.randn(b, h, sq, d).astype(np.float32)
     k = rng.randn(b, hk, sk, d).astype(np.float32)
@@ -38,18 +40,18 @@ def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol):
     jd = jnp.dtype(dtype)
     jo, jl = jflash(
         jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
-        return_lse=True, block_sizes=JBS(128, 128),
+        return_lse=True, block_sizes=JBS(128, 128), causal=causal,
     )
     td = getattr(torch, dtype)
     po, pl = flash_attention(
         t(q).to(td), t(k).to(td), t(v).to(td), return_lse=True,
-        block_sizes=BlockSizes(128, 128),
+        block_sizes=BlockSizes(128, 128), causal=causal,
     )
     assert po.dtype == td and pl.dtype == torch.float32
     np.testing.assert_allclose(
-        po.float().numpy(), np.asarray(jo, np.float32), atol=tol, rtol=0
+        po.detach().float().numpy(), np.asarray(jo, np.float32), atol=tol, rtol=0
     )
-    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=tol, rtol=0)
+    np.testing.assert_allclose(pl.detach().numpy(), np.asarray(jl), atol=tol, rtol=0)
     assert flash_attention.launches == 0  # CPU tensors never launch
 
 
@@ -69,9 +71,10 @@ def test_attention_ref_matches_jax():
 
 
 def test_unported_channels_raise():
+    # Causal is ported (test_torch_flash_bwd.py); dropout and qv are not.
     x = torch.zeros(1, 1, 128, 64)
     with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, causal=True)
+        flash_attention(x, x, x, qv=x)
     with pytest.raises(NotImplementedError):
         flash_attention(x, x, x, dropout_p=0.1)
     with pytest.raises(ValueError):

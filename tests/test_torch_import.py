@@ -1,5 +1,6 @@
-"""The port imports torch and never jax or flax: it must import with jax
-blocked, and no module of the package may name them in an import."""
+"""The port imports torch and never jax, flax or the JAX package: it must
+import with them blocked, and no module of the package (nor
+chip_smoke.py) may name them in an import."""
 
 import ast
 import pathlib
@@ -8,21 +9,26 @@ import sys
 
 import pytest
 
-PKG = pathlib.Path(__file__).resolve().parent.parent / "liteattention_torch"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "liteattention_torch"
+BLOCKED = ("jax", "flax", "liteattention_tpu")
 
 
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
-        "import liteattention_torch, liteattention_torch.models\n"
-        "from liteattention_torch.ops import _build\n"
-        "assert 'jax' not in {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
+        "for m in ('jax', 'flax', 'liteattention_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import liteattention_torch, liteattention_torch.models, liteattention_torch.train\n"
+        "import liteattention_torch.modules, liteattention_torch.training\n"
+        "from liteattention_torch.ops import _build, flash_bwd, norms, activations\n"
+        "import chip_smoke\n"
+        "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
+        "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -30,7 +36,8 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: p.name,
 )
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text())
@@ -41,4 +48,4 @@ def test_no_jax_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names = [node.module]
         for name in names:
-            assert name.split(".")[0] not in ("jax", "flax"), (path, name)
+            assert name.split(".")[0] not in BLOCKED, (path, name)

@@ -19,7 +19,7 @@ from liteattention_torch.ops import mask as tmask  # noqa: E402
 )
 def test_init_mask(ranges):
     j = jmask.init_mask(2, 3, 700, 1100, 128, 128, must_skip_ranges=ranges)
-    p = tmask.init_mask(2, 3, 700, 1100, 128, 128, must_skip_ranges=ranges)
+    p = tmask.init_mask(2, 3, 700, 1100, 128, 128, must_skip_ranges=ranges, device="cpu")
     np.testing.assert_array_equal(p.do_mask.numpy(), np.asarray(j.do_mask))
     assert p.step == int(j.step) == 0
 
@@ -27,7 +27,7 @@ def test_init_mask(ranges):
 def test_must_do_mask():
     ranges = [(5, 6), (300, 513), (1000, 1100)]
     j = jmask.must_do_mask(ranges, 1100, 128)
-    p = tmask.must_do_mask(ranges, 1100, 128)
+    p = tmask.must_do_mask(ranges, 1100, 128, device="cpu")
     np.testing.assert_array_equal(p.numpy(), np.asarray(j))
 
 

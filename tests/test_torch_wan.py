@@ -50,7 +50,7 @@ def models():
         jax.random.PRNGKey(2), jnp.asarray(lat),
         jnp.full((1,), 999.0, jnp.float32), jnp.asarray(text),
     )
-    pmodel = WanModel(pcfg)
+    pmodel = WanModel(pcfg, device="cpu")
     pmodel.load_state_dict(
         wan_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
     )  # strict: every key converted, none left over
@@ -64,7 +64,7 @@ def test_wan_forward_matches_jax(models, threshold):
     jst = pst = None
     if threshold is not None:
         jst = jinit_states(jmodel.cfg, 1, GRID)
-        pst = init_skip_states(pmodel.cfg, 1, GRID)
+        pst = init_skip_states(pmodel.cfg, 1, GRID, device="cpu")
     jo, jns = jmodel.apply(
         params, jnp.asarray(lat), jnp.asarray(tt), jnp.asarray(text), jst,
         threshold if threshold is not None else -10.0,
@@ -144,8 +144,8 @@ def test_denoise_dense_equals_full_mask_lite(models):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        WanModel(dataclasses.replace(WanConfig.tiny(), i2v_decoupled=True))
-    pmodel = WanModel(WanConfig.tiny())
+        WanModel(dataclasses.replace(WanConfig.tiny(), i2v_decoupled=True), device="cpu")
+    pmodel = WanModel(WanConfig.tiny(), device="cpu")
     lat = torch.zeros(1, 1, 2, 2, 16)
     with pytest.raises(NotImplementedError):
         pmodel(lat, torch.zeros(1), torch.zeros(1, 16, 64),
