@@ -34,8 +34,27 @@ Phases (any failure exits non-zero and prints no result line):
    12 launches per step of each of causal B1, B7a and B7b, and the loss
    must stay finite and fall. Then ms/step, tokens/s and the attention
    share (torch.profiler).
-5. A JSON line of kernel results, the nvidia-smi line, and the result
-   line ``{"ok": true, "device": {...}}``.
+5. The serving slice. First causal B1 at the serving path's prefill and
+   verify shapes, and the decode kernel (B8 contiguous, B9a/B9b
+   paged) against its plain versions at the kvcache API's shape (batch 8,
+   32 q-heads on 8 KV heads, D 128, cache 4096, pages of 256, ragged
+   lengths): contiguous bf16 and int8, paged bf16 and int8, head-major
+   pools, D 64 / group 1, causal Sq 4 paged; timed beside its bound, its
+   plain version and SDPA (``enable_gqa``, uniform full lengths). A small
+   LLaMA's card decode is held against the CPU plain path, teacher-forced.
+   Then a Llama-3-8B-width server (full width and depth, random weights
+   from a seed) answers 8 requests of 1024-token prompts: greedy decoding
+   of 64 tokens into a 2048-token cache, the same with the int8 cache,
+   batch-1 speculative decoding with a 2-layer draft (lookahead 3, 32
+   tokens), and the kvcache API in its four forms plus the head-major
+   paged entry. The decode kernel must launch once per layer per decode
+   step. Reported: prefill and decode ms, tokens/s, peak memory, the
+   decode logits against a full recompute (and that two faults planted
+   in the cache read above its limit), int8 against bf16 logits, the
+   speculative acceptance, and where a decode step's time goes.
+6. A JSON line of kernel results (launches read on each path's counted
+   run, every counter set to 0 just before it), the nvidia-smi line, and
+   the result line ``{"ok": true, "device": {...}}``.
 
 It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 """
@@ -73,6 +92,27 @@ SLICE_GRID = (21, 60, 104)
 SLICE_LAYERS = 2
 # GPT-2 small training: batch x sequence, steps of the counted run.
 GPT_BATCH, GPT_SEQ, GPT_STEPS = 8, 1024, 10
+# Serving at Meta-Llama-3-8B's geometry: requests x prompt, new tokens,
+# cache capacity, depth; the speculative run; the kvcache API's shape.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_CAPACITY = 8, 1024, 64, 2048
+SERVE_LAYERS = 32
+SPEC_NEW, SPEC_LOOKAHEAD, SPEC_DRAFT_LAYERS = 32, 3, 2
+API_B, API_HQ, API_HK, API_D, API_CACHE, API_PAGE = 8, 32, 8, 128, 4096, 256
+# Decode kernel against its plain version: max abs error and rel-L2 of the
+# outputs (bf16 output, P rounded to bf16 before PV); lse as LSE_TOL.
+DECODE_TOL = 2e-2
+DECODE_REL_TOL = 1e-2
+# rel-L2 of a small LLaMA's step logits, bf16 card vs fp32 CPU.
+SMALL_DECODE_TOL = 3e-2
+# rel-L2 of the 8B-width server's incremental-decode logits against a full
+# recompute without a cache, both bf16 on the card: they differ only in
+# rounding (decode kernel against B1 over the same keys), 1.1e-2 measured
+# on an H100. Faults planted in the cache read 3.6e-2 (one K/V row zeroed)
+# and 2.2e-1 (every step one position late); the run checks that both
+# still read above the limit.
+SERVE_RECOMPUTE_TOL = 2e-2
+FAULT_STEPS = 8  # decode steps of each planted-fault run
+DECODE_KERNELS = ("flash_decode_kernel", "decode_merge_kernel")
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -115,6 +155,31 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20, names=()):
+    """Device time per call of ``fn`` from torch.profiler (after one
+    warm-up call): every CUDA kernel the call launches, and those whose
+    name holds one of ``names``. For calls whose host side outlasts their
+    device work, where CUDA events would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = picked = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+            e, "is_user_annotation", False
+        ):
+            total += e.self_device_time_total / 1e3
+            picked += e.self_device_time_total / 1e3 if any(n in e.key for n in names) else 0.0
+    check(total > 0, "torch.profiler recorded no device time")
+    return total / reps, picked / reps
 
 
 def bound(flops, nbytes):
@@ -167,6 +232,40 @@ def banded_mask(b, h, qt, kt, sparsity, device):
     keep = (kpos >= start[:, None]) & (kpos < start[:, None] + width)
     keep[:, 0] = True
     return keep.expand(b, h, qt, kt).contiguous().to(device)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by its name in the kernels line.
+    Each counts the launches of its kernel; the decode wrappers also count
+    the launches of their split-merge kernel."""
+    from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+    from liteattention_torch.ops.paged_attention import paged_attention, paged_attention_folded
+    from liteattention_torch.ops.schedule_pack import pack_schedule
+
+    return {"flash_fwd": flash_attention, "schedule_pack": pack_schedule,
+            "lite_flash_fwd": lite_flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "flash_decode": flash_attention_decode,
+            "paged_decode": paged_attention, "paged_decode_folded": paged_attention_folded}
+
+
+def reset_counts():
+    """Set every wrapper's launch counts to 0 (just before a path's
+    counted run)."""
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "merge_launches"):
+            fn.merge_launches = 0
+
+
+def read_counts():
+    """Every wrapper's launch count, and the merge launches of those
+    that merge (just after a path's counted run)."""
+    wrappers = kernel_wrappers()
+    return ({name: fn.launches for name, fn in wrappers.items()},
+            {name: fn.merge_launches for name, fn in wrappers.items()
+             if hasattr(fn, "merge_launches")})
 
 
 # ---------------------------------------------------------------- phase 2
@@ -547,10 +646,7 @@ def small_model_check(dev):
 def slice_phase(dev, card, full, grid):
     import torch
     from liteattention_torch.models import WanModel, denoise
-    from liteattention_torch.ops.flash_fwd import flash_attention
-    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
     from liteattention_torch.ops.mask import SkipMaskState
-    from liteattention_torch.ops.schedule_pack import pack_schedule
 
     small_model_check(dev)
 
@@ -588,8 +684,7 @@ def slice_phase(dev, card, full, grid):
 
     # Warm-up (cuBLAS handles, kernel library load) outside the counted run.
     denoise(model, noise, text, null, num_steps=1, enable_skipping=False)
-    for fn in (flash_attention, pack_schedule, lite_flash_attention):
-        fn.launches = 0
+    reset_counts()
     xa, _, ms_a = run("a: dense", enable_skipping=False)
     xb, sp_b, ms_b = run("b: lite, full mask, thr -inf", thresholds=[-math.inf] * steps)
     e_ab = rel_l2(xb.float(), xa.float())
@@ -607,16 +702,13 @@ def slice_phase(dev, card, full, grid):
     check(sp_c1[0] >= band_sparsity - 1e-6, "banded run lost its sparsity")
     _, sp_c2, ms_c2 = run("c2: lite, thresholds 0, 0, 1, 1", thresholds=[0.0, 0.0, 1.0, 1.0])
     check(all(a <= b for a, b in zip(sp_c2, sp_c2[1:])), "sparsity not monotone")
-    launches = {
-        "flash_fwd": flash_attention.launches,
-        "schedule_pack": pack_schedule.launches,
-        "lite_flash_fwd": lite_flash_attention.launches,
-    }
-    log(f"  launches during the slice: {launches}")
-    check(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
+    counts = read_counts()
+    log(f"  launches during the slice: {counts[0]}; merge launches {counts[1]}")
+    check(all(counts[0][n] > 0 for n in ("flash_fwd", "schedule_pack", "lite_flash_fwd")),
+          "a kernel of the path never launched")
     log(f"  ms/step [{card}]: (a) {ms_a:.1f}, (b) {ms_b:.1f}, (c1) {ms_c1:.1f}, "
         f"(c2) {ms_c2:.1f}")
-    return launches
+    return counts
 
 
 # ---------------------------------------------------------------- phase 4
@@ -668,10 +760,6 @@ def train_phase(dev, card):
 
     from liteattention_torch import train as train_cli
     from liteattention_torch.models.configs import gpt2_config
-    from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
-    from liteattention_torch.ops.flash_fwd import flash_attention
-    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
-    from liteattention_torch.ops.schedule_pack import pack_schedule
     from liteattention_torch.training import synthetic_lm_batches
 
     small_gpt_check(dev)
@@ -688,19 +776,14 @@ def train_phase(dev, card):
         f"{cfg.dim // cfg.num_heads}, vocab {cfg.vocab_size} (fp32 master, bf16 compute); "
         f"batch {GPT_BATCH} x {GPT_SEQ}, one repeated synthetic batch, {GPT_STEPS} AdamW steps")
     tokens = GPT_BATCH * GPT_SEQ
-    counters = {
-        "flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
-        "flash_bwd_dkv": flash_bwd_dkv, "schedule_pack": pack_schedule,
-        "lite_flash_fwd": lite_flash_attention,
-    }
     recs = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     trainer = train_cli.run(argv, log_fn=recs.append)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"  launches during the training run: {launches}")
+    counts = read_counts()
+    launches = counts[0]
+    log(f"  launches during the training run: {launches}; merge launches {counts[1]}")
     want = cfg.num_layers * GPT_STEPS
     check(all(launches[n] == want for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"training: expected {want} launches of each of B1, B7a, B7b")
@@ -755,7 +838,542 @@ def train_phase(dev, card):
     else:
         log("  profiler: no device time recorded; attention share not measured")
 
-    return {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}, stats
+    return counts, stats
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def api_inputs(dev, seed=2468):
+    """The kvcache API's shape: q, one new K/V row per batch, a contiguous
+    [B, S, Hk, D] cache, native and head-major page pools with a shuffled
+    page table, ragged lengths (the first full), bf16 and int8."""
+    import torch
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache, quantize_kv_pages
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hk, d, s, psz = API_B, API_HQ, API_HK, API_D, API_CACHE, API_PAGE
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    n_pages = b * s // psz
+    x = {"q": rnd(b, 1, hq, d), "k": rnd(b, 1, hk, d), "v": rnd(b, 1, hk, d),
+         "kc": rnd(b, s, hk, d), "vc": rnd(b, s, hk, d),
+         "kp": rnd(n_pages, psz, hk, d), "vp": rnd(n_pages, psz, hk, d)}
+    x["table"] = torch.randperm(n_pages, generator=g, device=dev).reshape(b, s // psz).int()
+    lens = torch.randint(s // 4, s, (b,), generator=g, device=dev).int()
+    lens[0] = s - 1  # with the appended row: the whole cache
+    x["lens"] = lens
+    x["kh"], x["vh"] = (p.permute(2, 0, 1, 3).contiguous() for p in (x["kp"], x["vp"]))
+    c8, p8 = quantize_kv_cache(x["kc"], x["vc"]), quantize_kv_pages(x["kp"], x["vp"])
+    x.update(kc8=c8.k, vc8=c8.v, ks=c8.k_scale, vs=c8.v_scale,
+             kp8=p8.k, vp8=p8.v, kps=p8.k_scale, vps=p8.v_scale)
+    return x
+
+
+def run_api(x):
+    """The kvcache API traffic: one decode step in each form, through the
+    entry points a server calls (appends in place; int8 forms append with
+    the kv_quant helpers first, as the API documents)."""
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+    from liteattention_torch.ops.kv_quant import (
+        QuantizedKVCache,
+        QuantizedKVPages,
+        quantize_kv_append,
+        quantize_pages_append,
+    )
+    from liteattention_torch.ops.paged_attention import paged_attention
+
+    lens = x["lens"]
+    out = {"contiguous bf16": flash_attn_with_kvcache(
+        x["q"], x["kc"], x["vc"], x["k"], x["v"], cache_seqlens=lens, causal=True)[0]}
+    quantize_kv_append(QuantizedKVCache(x["kc8"], x["vc8"], x["ks"], x["vs"]),
+                       x["k"], x["v"], lens)
+    out["contiguous int8"] = flash_attn_with_kvcache(
+        x["q"], x["kc8"], x["vc8"], cache_seqlens=lens + 1, causal=True,
+        k_cache_scale=x["ks"], v_cache_scale=x["vs"])
+    out["paged bf16"] = flash_attn_with_kvcache(
+        x["q"], x["kp"], x["vp"], x["k"], x["v"], cache_seqlens=lens,
+        page_table=x["table"], causal=True)[0]
+    quantize_pages_append(QuantizedKVPages(x["kp8"], x["vp8"], x["kps"], x["vps"]),
+                          x["k"], x["v"], x["table"], lens)
+    out["paged int8"] = flash_attn_with_kvcache(
+        x["q"], x["kp8"], x["vp8"], cache_seqlens=lens + 1, page_table=x["table"],
+        causal=True, k_cache_scale=x["kps"], v_cache_scale=x["vps"])
+    # B9a: head-major pools (the same pages as the native pool, before its
+    # append), the JAX per-head entry point.
+    out["paged head-major bf16"] = paged_attention(
+        x["q"][:, 0], x["kh"], x["vh"], lens, x["table"])
+    return out
+
+
+def check_decode(label, fn, plain, args, kw, need, time_it=False, library=None):
+    """A decode wrapper against its plain version on the same inputs
+    (and, with ``time_it``, its time beside its bound and the plain
+    version's). ``need`` = (bytes, flops) this input needs."""
+    import torch
+
+    out, lse = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ro, rl = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ro.float()).abs().max().item()
+    rel = rel_l2(out.float(), ro.float())
+    fin = torch.isfinite(rl)
+    check(torch.equal(fin, torch.isfinite(lse)), f"decode {label}: lse -inf rows differ")
+    err_l = (lse[fin] - rl[fin]).abs().max().item() if fin.any() else 0.0
+    log(f"  decode {label}: max|out| err {err:.3e}, rel-L2 {rel:.2e}, max|lse| err {err_l:.3e}"
+        + (f", {int((~fin).sum())} rows with no valid key" if not fin.all() else ""))
+    check(err < DECODE_TOL and rel < DECODE_REL_TOL and err_l < LSE_TOL,
+          f"decode {label} disagrees")
+    res = {"err": err, "rel_l2": rel}
+    if time_it:
+        # Device time of a call (the wrapper's packing and int8 folds
+        # included) and of the decode and merge kernels alone; the call's
+        # CUDA-event time is host-bound at this size.
+        res["ms"], res["kernel_ms"] = device_ms(lambda: fn(*args, **kw), names=DECODE_KERNELS)
+        res["call_ms"] = cuda_ms(lambda: fn(*args, **kw), reps=20)
+        res["plain_ms"] = device_ms(lambda: plain(*args, **kw), reps=3)[0]
+        res["bound_ms"], res["bound_by"] = bound(need[1], need[0])
+        res["library_ms"] = None if library is None else device_ms(library)[0]
+        lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
+        log(f"  decode {label}: device {res['ms']:.4f} ms per call (decode + merge kernels "
+            f"{res['kernel_ms']:.4f} ms; events over back-to-back calls {res['call_ms']:.4f} ms), "
+            f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), library {lib}")
+    return res
+
+
+def serve_flash_check(dev):
+    """Causal B1 at the serving path's shapes (Llama-3-8B heads, GQA): the
+    prefill (every request's prompt) and a speculative verify step
+    (lookahead + 1 rows against the prompt and the tokens so far,
+    bottom-right causal). Returns the larger max abs error."""
+    import torch
+
+    cfg = llama3_8b_config(1)
+    hq, hk, d = cfg.num_heads, cfg.num_heads_kv, cfg.dim // cfg.num_heads
+    g = torch.Generator(device=dev).manual_seed(8642)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    sk = SERVE_PROMPT + SPEC_NEW + SPEC_LOOKAHEAD
+    shapes = (("prefill", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT),
+              ("verify", 1, SPEC_LOOKAHEAD + 1, sk))
+    err = 0.0
+    for label, b, sq, sk in shapes:
+        q, k, v = rnd(b, hq, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d)
+        label = f"causal {label} {b}x{hq}/{hk}, Sq {sq} Sk {sk} D {d}"
+        err = max(err, check_flash(q, k, v, label, causal=True)["err"])
+    return err
+
+
+def decode_kernel_phase(dev):
+    """B8, B9a and B9b against their plain versions at the kvcache API's
+    shape (ragged lengths), timed; plus D 64 / group 1 and causal Sq 4."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_folded,
+        paged_attention_folded_plain,
+        paged_attention_plain,
+    )
+
+    x = api_inputs(dev)
+    b, hq, hk, d, s = API_B, API_HQ, API_HK, API_D, API_CACHE
+    group = hq // hk
+    q4 = x["q"].transpose(1, 2)  # [B, H, 1, D]
+    lens = x["lens"] + 1
+    keys = int(lens.sum())
+
+    def need(elsize, n_keys=keys, extra=0):
+        """Bytes (K and V rows needed, q, out, lse) and FLOPs (QK and PV)."""
+        kv = 2 * n_keys * hk * d * elsize
+        return kv + 2 * nbytes(x["q"]) + 4 * b * hq + extra, 4 * group * d * hk * n_keys
+
+    shape = f"{b}x{hq}/{hk}x{d}, cache {s}, lengths {lens.min().item()}-{lens.max().item()}"
+    res = {}
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    kc_h, vc_h = x["kc"].transpose(1, 2), x["vc"].transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["flash_decode"] = check_decode(
+        f"B8 contiguous bf16 {shape}", flash_attention_decode, flash_attention_decode_plain,
+        (q4, x["kc"], x["vc"]), dict(kv_bound=lens), need(2), time_it=True,
+    )
+    # At uniform full lengths, beside SDPA (enable_gqa) on the same cache.
+    r = res["flash_decode"]
+    r["ms_full_lengths"] = device_ms(
+        lambda: flash_attention_decode(q4, x["kc"], x["vc"], kv_bound=full))[0]
+    r["bound_ms_full_lengths"] = bound(need(2, b * s)[1], need(2, b * s)[0])[0]
+    r["library_ms"] = device_ms(lambda: sdpa(q4, kc_h, vc_h, enable_gqa=True))[0]
+    r["library"] = "torch SDPA enable_gqa, uniform full lengths"
+    log(f"  decode B8 full lengths: device {r['ms_full_lengths']:.4f} ms, bound "
+        f"{r['bound_ms_full_lengths']:.4f} ms; SDPA (enable_gqa) {r['library_ms']:.4f} ms")
+    r["int8"] = check_decode(
+        f"B8 contiguous int8 {shape}", flash_attention_decode, flash_attention_decode_plain,
+        (q4, x["kc8"], x["vc8"]),
+        dict(kv_bound=lens, k_scale=x["ks"], v_scale=x["vs"]),
+        need(1, extra=2 * nbytes(x["ks"])), time_it=True,
+    )
+    tbl_bytes = nbytes(x["table"])
+    res["paged_decode_folded"] = check_decode(
+        f"B9b paged bf16 {shape}, pages {API_PAGE}", paged_attention_folded,
+        paged_attention_folded_plain, (x["q"], x["kp"], x["vp"], lens, x["table"]),
+        dict(return_lse=True), need(2, extra=tbl_bytes), time_it=True,
+    )
+    res["paged_decode_folded"]["int8"] = check_decode(
+        f"B9b paged int8 {shape}", paged_attention_folded, paged_attention_folded_plain,
+        (x["q"], x["kp8"], x["vp8"], lens, x["table"]),
+        dict(return_lse=True, k_scale=x["kps"], v_scale=x["vps"]),
+        need(1, extra=tbl_bytes + 2 * nbytes(x["kps"])), time_it=True,
+    )
+    res["paged_decode"] = check_decode(
+        f"B9a paged head-major bf16 {shape}", paged_attention, paged_attention_plain,
+        (x["q"][:, 0], x["kh"], x["vh"], lens, x["table"]), dict(return_lse=True),
+        need(2, extra=tbl_bytes), time_it=True,
+    )
+    for r in res.values():
+        r.setdefault("library_ms", None)
+    # D 64 with one q head per KV head (GPT-2-class MHA), and causal Sq 4
+    # paged appends (the multi-token rows of a verify step).
+    g = torch.Generator(device=dev).manual_seed(97)
+    q64 = torch.randn(b, 8, 1, 64, generator=g, device=dev).bfloat16()
+    k64 = torch.randn(b, s, 8, 64, generator=g, device=dev).bfloat16()
+    v64 = torch.randn(b, s, 8, 64, generator=g, device=dev).bfloat16()
+    e = check_decode("B8 D 64 group 1", flash_attention_decode, flash_attention_decode_plain,
+                     (q64, k64, v64), dict(kv_bound=lens), None)
+    res["flash_decode"]["err"] = max(res["flash_decode"]["err"], e["err"])
+    q_sq4 = torch.randn(b, 4, hq, d, generator=g, device=dev).bfloat16()
+    e = check_decode("B9b causal Sq 4 paged", paged_attention_folded,
+                     paged_attention_folded_plain, (q_sq4, x["kp"], x["vp"], lens, x["table"]),
+                     dict(return_lse=True, causal=True), None)
+    res["paged_decode_folded"]["err"] = max(res["paged_decode_folded"]["err"], e["err"])
+    return res
+
+
+def teacher_forced_logits(model, tokens, prompt_len, capacity, quantize=False, fault=None):
+    """Prefill ``tokens[:, :prompt_len]``, then feed the rest one token
+    at a time through the cache; returns the fp32 logits that predict
+    each token after the prompt, ``[B, n, V]``, and the cache.
+    ``fault(inference_params)``, if given, plants a fault in the cache
+    state after the prefill."""
+    import torch
+    from liteattention_torch.modules.mha import InferenceParams
+    from liteattention_torch.utils.generation import quantize_inference_cache
+
+    with torch.inference_mode():
+        inf = InferenceParams(max_seqlen=capacity, max_batch_size=tokens.shape[0])
+        # A copy: a view would keep the whole prefill's logits alive.
+        out = [model(tokens[:, :prompt_len], inf)[:, -1].clone()]
+        inf.seqlen_offset = prompt_len
+        if quantize:
+            quantize_inference_cache(inf)
+        if fault is not None:
+            fault(inf)
+        for i in range(prompt_len, tokens.shape[1] - 1):
+            out.append(model(tokens[:, i : i + 1], inf)[:, -1])
+            inf.seqlen_offset += 1
+        return torch.stack(out, dim=1).float(), inf
+
+
+def small_llama_check(dev):
+    """A small LLaMA (rotary, GQA, head dims 64 and 128) decoding on the
+    card (bf16, the decode kernel) against greedy decoding on the CPU
+    (fp32, the plain versions), teacher-forced on the CPU's tokens."""
+    import torch
+    from liteattention_torch.models.configs import llama_config
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.ops.flash_fwd import flash_attention_decode
+    from liteattention_torch.utils.generation import greedy_decode
+
+    prompt, new = 100, 12
+    for heads in (8, 4):
+        cfg = llama_config(dim=512, num_layers=2, num_heads=heads, num_heads_kv=2,
+                           vocab=1000, ffn_dim=1024)
+        cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+        cpu.reset_parameters(torch.Generator().manual_seed(11))
+        gpu = GPTLMHeadModel(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        ids = torch.randint(0, 1000, (2, prompt), generator=torch.Generator().manual_seed(12))
+        rec = StepTimer(cpu)
+        toks = greedy_decode(rec, ids, new, 128)
+        ref = rec.logits()
+        n0 = flash_attention_decode.launches
+        got, _ = teacher_forced_logits(gpu, toks.to(dev), prompt, 128)
+        torch.cuda.synchronize()
+        n = flash_attention_decode.launches - n0
+        check(n == cfg.num_layers * (new - 1), f"small LLaMA: {n} decode launches")
+        err = rel_l2(got.float().cpu(), ref)
+        same = (got.argmax(-1).cpu() == ref.argmax(-1)).float().mean().item()
+        log(f"  small LLaMA (dim 512, 2 layers, {heads} heads of {512 // heads} on 2 KV heads), "
+            f"{new} tokens teacher-forced, bf16 card vs fp32 CPU: logits rel-L2 {err:.2e}, "
+            f"argmax agreement {same:.3f}, {n} decode launches")
+        check(err < SMALL_DECODE_TOL, "small LLaMA decode disagrees")
+
+
+class StepTimer:
+    """The model as greedy decoding calls it, with each call's wall time
+    (synchronized) recorded beside its token count, and an fp32 copy of
+    its last-position logits (those the next token is chosen from)."""
+
+    def __init__(self, model):
+        self.model, self.calls, self.rows = model, [], []
+
+    def __call__(self, ids, inference_params):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.model(ids, inference_params)
+        torch.cuda.synchronize()
+        self.calls.append((ids.shape[1], (time.perf_counter() - t0) * 1e3))
+        self.rows.append(out[:, -1].to(torch.float32, copy=True))
+        return out
+
+    def logits(self):
+        """``[B, calls, V]``: the logits each new token was chosen from."""
+        import torch
+
+        return torch.stack(self.rows, dim=1)
+
+
+def llama3_8b_config(layers):
+    """Meta-Llama-3-8B (config.json): hidden 4096, 32 heads on 8 KV heads
+    of 128, intermediate 14336, vocab 128256, rope_theta 5e5, RMSNorm
+    eps 1e-5, untied head."""
+    from liteattention_torch.models.configs import llama_config
+
+    cfg = llama_config(dim=4096, num_layers=layers, num_heads=32, num_heads_kv=8,
+                       vocab=128256, ffn_dim=14336)
+    return dataclasses.replace(cfg, rotary_emb_base=500000.0)
+
+
+def profile_decode_steps(model, inf, steps, card):
+    """Device time of ``steps`` decode steps by kernel class."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = torch.zeros(inf.max_batch_size, 1, dtype=torch.long,
+                      device=next(model.parameters()).device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model(tok, inf).argmax(-1)
+            inf.seqlen_offset += 1
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kern = {
+        e.key: e.self_device_time_total / 1e3
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    }
+    busy = sum(kern.values())
+    if busy == 0:
+        log("  profiler: no device time recorded; the decode breakdown is not measured")
+        return None
+    classes = {"attention (decode kernel)": ("flash_decode", "decode_merge"),
+               "GEMM": ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk"),
+               "casts and copies": ("copy",),
+               "sampling (argmax)": ("argmax",)}
+    split = dict.fromkeys([*classes, "other elementwise"], 0.0)
+    for name, ms in kern.items():
+        low = name.lower()
+        cls = next((c for c, keys in classes.items() if any(k in low for k in keys)),
+                   "other elementwise")
+        split[cls] += ms
+    log(f"  profiler, {steps} decode steps: wall {wall:.1f} ms (profiler on), device busy "
+        f"{busy:.1f} ms ({busy / wall:.1%}); host gaps {wall - busy:.1f} ms [{card}]")
+    for cls, ms in split.items():
+        log(f"    {ms / steps:8.3f} ms/step  {ms / busy:6.1%}  {cls}")
+    for name, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms / steps:8.3f} ms/step  {name[:100]}")
+    return {"busy_ms_per_step": busy / steps, "wall_ms_per_step_profiled": wall / steps,
+            **{f"{c}_ms_per_step": ms / steps for c, ms in split.items()}}
+
+
+def recompute_fault_readings(model, toks, full, step_logits):
+    """What the recompute comparison can see: the first FAULT_STEPS decode
+    steps, teacher-forced, with one fault planted in the cache after the
+    prefill, against the same full recompute, beside the sound run over
+    the same steps. Faults: (late) every step one position late, so
+    rotary is one position off and a zero row lies at the prompt's end;
+    (row) the prompt's last K and V rows zeroed in every layer."""
+
+    def late(inf):
+        inf.seqlen_offset += 1
+
+    def row(inf):
+        for kc, vc, *_ in inf.key_value_memory_dict.values():
+            kc[:, :, SERVE_PROMPT - 1] = 0
+            vc[:, :, SERVE_PROMPT - 1] = 0
+
+    n = FAULT_STEPS
+    ref = full[:, 1:n]
+    res = {"recompute_rel_l2_sound_first_steps": rel_l2(step_logits[:, 1:n], ref)}
+    for name, fault in (("late", late), ("row", row)):
+        got, _ = teacher_forced_logits(model, toks[:, : SERVE_PROMPT + n], SERVE_PROMPT,
+                                       SERVE_CAPACITY, fault=fault)
+        res[f"recompute_rel_l2_fault_{name}"] = rel_l2(got[:, 1:], ref)
+        res[f"recompute_argmax_agreement_fault_{name}"] = (
+            (got[:, 1:].argmax(-1) == ref.argmax(-1)).float().mean().item())
+    log(f"  recompute comparison over decode steps 1-{n - 1}: sound rel-L2 "
+        f"{res['recompute_rel_l2_sound_first_steps']:.3e}; planted faults: one position late "
+        f"{res['recompute_rel_l2_fault_late']:.3e} (argmax agreement "
+        f"{res['recompute_argmax_agreement_fault_late']:.3f}), prompt's last K/V row zeroed "
+        f"{res['recompute_rel_l2_fault_row']:.3e} (argmax agreement "
+        f"{res['recompute_argmax_agreement_fault_row']:.3f})")
+    for name in ("late", "row"):
+        check(res[f"recompute_rel_l2_fault_{name}"] > SERVE_RECOMPUTE_TOL,
+              f"the recompute comparison no longer sees the planted fault '{name}'")
+    return res
+
+
+def serve_phase(dev, card):
+    """The serving traffic at Llama-3-8B width (the counted main path),
+    then its checks."""
+    import statistics
+
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import decode_speculative, greedy_decode
+
+    small_llama_check(dev)
+    cfg = llama3_8b_config(SERVE_LAYERS)
+    log(f"  Llama-3-8B width: dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} q heads on "
+        f"{cfg.num_heads_kv} KV heads x {cfg.dim // cfg.num_heads}, ffn {cfg.ffn_dim}, vocab "
+        f"{cfg.vocab_size}, rope base {cfg.rotary_emb_base:g}; fp32 master weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    draft = GPTLMHeadModel(dataclasses.replace(cfg, num_layers=SPEC_DRAFT_LAYERS), device=dev)
+    # The draft: the main model's embedding, first blocks, final norm and head.
+    draft.load_state_dict(model.state_dict(), strict=False)
+    draft.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g, device=dev)
+    api = api_inputs(dev, seed=1357)
+    api_cpu = {k: v.cpu() for k, v in api.items()}
+    log(f"  {n_params / 1e9:.2f} B parameters; {SERVE_BATCH} requests x {SERVE_PROMPT} prompt "
+        f"tokens, {SERVE_NEW} new tokens each, cache capacity {SERVE_CAPACITY}")
+    # Warm-up outside the counted run (cuBLAS handles, kernel library).
+    greedy_decode(model, ids[:1, :16], 2, 32)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timer = StepTimer(model)
+    toks = greedy_decode(timer, ids, SERVE_NEW, SERVE_CAPACITY)
+    torch.cuda.synchronize()
+    wall_bf16 = (time.perf_counter() - t0) * 1e3
+    n_decode = len(timer.calls) - 1
+    timer8 = StepTimer(model)
+    toks8 = greedy_decode(timer8, ids, SERVE_NEW, SERVE_CAPACITY, quantize_cache=True)
+    torch.cuda.synchronize()
+    spec, stats = decode_speculative(model, draft, ids[:1], SPEC_NEW, SERVE_CAPACITY,
+                                     speculative_lookahead=SPEC_LOOKAHEAD, return_stats=True)
+    api_out = run_api(api)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches, merges = counts
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the serving run: {launches}; merge launches {merges}")
+    want = 2 * cfg.num_layers * n_decode
+    check(launches["flash_decode"] >= want,
+          f"serving: expected at least {want} decode-kernel launches (one per layer per step)")
+    check(all(launches[n] > 0 for n in ("flash_fwd", "flash_decode", "paged_decode",
+                                        "paged_decode_folded")),
+          "serving: a kernel of the path never launched")
+
+    prefill_ms = timer.calls[0][1]
+    step_ms = [ms for _, ms in timer.calls[1:]]
+    step8_ms = [ms for _, ms in timer8.calls[1:]]
+    dec_ms, dec8_ms = statistics.median(step_ms), statistics.median(step8_ms)
+    stats_out = {
+        "prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+        "decode_ms_per_step_int8": dec8_ms, "prefill_ms_int8": timer8.calls[0][1],
+        "decode_tokens_per_s": SERVE_BATCH * 1e3 / dec_ms,
+        "decode_tokens_per_s_int8": SERVE_BATCH * 1e3 / dec8_ms,
+        "end_to_end_tokens_per_s": SERVE_BATCH * SERVE_NEW * 1e3 / wall_bf16,
+        "peak_gb": peak_gb, "decode_steps": n_decode,
+    }
+    log(f"  bf16 cache: prefill {prefill_ms:.1f} ms ({SERVE_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {stats_out['decode_tokens_per_s']:.0f} "
+        f"tokens/s; end to end {wall_bf16:.0f} ms = {stats_out['end_to_end_tokens_per_s']:.0f} "
+        f"new tokens/s [{card}]")
+    log(f"  int8 cache: prefill {timer8.calls[0][1]:.1f} ms, decode {dec8_ms:.2f} ms/step = "
+        f"{stats_out['decode_tokens_per_s_int8']:.0f} tokens/s; peak memory {peak_gb:.2f} GB")
+    acc = stats["accepted_per_round"]
+    drafted = sum(min(SPEC_LOOKAHEAD, SPEC_NEW - 1 - sum(acc[:i])) for i in range(len(acc)))
+    rate = (sum(acc) - len(acc)) / max(drafted, 1)
+    n_cmp = SERVE_PROMPT + min(SPEC_NEW, SERVE_NEW)
+    agree = (spec[0, SERVE_PROMPT:n_cmp] == toks[0, SERVE_PROMPT:n_cmp]).float()
+    stats_out.update(spec_rounds=len(acc), spec_tokens_per_round=sum(acc) / len(acc),
+                     spec_acceptance=rate, spec_agreement_with_greedy=agree.mean().item())
+    log(f"  speculative (batch 1, {SPEC_DRAFT_LAYERS}-layer draft, lookahead {SPEC_LOOKAHEAD}, "
+        f"{SPEC_NEW} tokens): {len(acc)} rounds, {sum(acc) / len(acc):.2f} tokens per round, "
+        f"draft acceptance {rate:.3f}; tokens equal to the batch-8 greedy row "
+        f"{agree.mean().item():.3f}")
+    check(spec.shape == (1, SERVE_PROMPT + SPEC_NEW), "speculative output has the wrong shape")
+
+    # Checks (their launches are not counted).
+    step_logits = timer.logits()
+    check(toks.shape == (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW) and torch.isfinite(step_logits).all(),
+          "serving: bad greedy output")
+    with torch.inference_mode():
+        full = torch.cat([model(toks[i : i + 2, :-1])[:, SERVE_PROMPT - 1 :].clone()
+                          for i in range(0, SERVE_BATCH, 2)])
+    e_full = rel_l2(step_logits, full)
+    agree_full = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    log(f"  incremental decode vs full recompute without a cache: logits rel-L2 {e_full:.3e}, "
+        f"argmax agreement {agree_full:.3f}")
+    check(e_full < SERVE_RECOMPUTE_TOL, "incremental decode disagrees with the full recompute")
+    stats_out.update(recompute_rel_l2=e_full, recompute_argmax_agreement=agree_full,
+                     **recompute_fault_readings(model, toks, full, step_logits))
+    del full
+    logits8, _ = teacher_forced_logits(model, toks, SERVE_PROMPT, SERVE_CAPACITY, quantize=True)
+    e_int8 = rel_l2(logits8, step_logits)
+    agree8 = (logits8.argmax(-1) == step_logits.argmax(-1)).float().mean().item()
+    same8 = (toks8 == toks).float()[:, SERVE_PROMPT:].mean().item()
+    log(f"  int8 vs bf16 cache, teacher-forced on the bf16 tokens: logits rel-L2 {e_int8:.3e}, "
+        f"argmax agreement {agree8:.3f}; free-running tokens equal {same8:.3f}")
+    stats_out.update(int8_rel_l2=e_int8, int8_argmax_agreement=agree8)
+    del logits8
+    refs = run_api(api_cpu)
+    for name, out in api_out.items():
+        e = rel_l2(out.float().cpu(), refs[name].float())
+        log(f"  kvcache API {name}: card vs the CPU plain path rel-L2 {e:.2e}")
+        check(e < DECODE_REL_TOL, f"kvcache API {name} disagrees with the CPU")
+
+    _, inf = teacher_forced_logits(model, toks[:, : SERVE_PROMPT + 8], SERVE_PROMPT,
+                                   SERVE_CAPACITY)
+    stats_out["profile"] = profile_decode_steps(model, inf, 5, card)
+    # B1 takes contiguous inputs, so prefill and multi-token steps copy the
+    # cache prefix (K and V, every layer): its device time at the prefill
+    # (8 x 1024 keys) and at a verify step (1 x prompt + 32 keys).
+    kc, vc = inf.key_value_memory_dict[0][:2]
+
+    def prefix_copy(rows, n):
+        with torch.inference_mode():
+            kc[:rows, :, :n].contiguous(), vc[:rows, :, :n].contiguous()
+
+    copy_prefill = device_ms(lambda: prefix_copy(SERVE_BATCH, SERVE_PROMPT))[0] * cfg.num_layers
+    copy_verify = device_ms(lambda: prefix_copy(1, SERVE_PROMPT + SPEC_NEW))[0] * cfg.num_layers
+    stats_out.update(prefix_copy_ms_prefill=copy_prefill, prefix_copy_ms_verify=copy_verify)
+    log(f"  cache-prefix copies for B1, all {cfg.num_layers} layers: {copy_prefill:.3f} ms per "
+        f"prefill ({copy_prefill / prefill_ms:.2%} of it), {copy_verify:.3f} ms per verify step")
+    return counts, stats_out
 
 
 def main() -> int:
@@ -791,38 +1409,44 @@ def main() -> int:
         log("phase 2: kernels against their plain versions (bf16)")
         kres = kernel_phase(dev, cfg, n_tok)
         kres.update(gpt_kernel_phase(dev))
+        kres["flash_fwd_causal"]["err"] = max(kres["flash_fwd_causal"]["err"],
+                                              serve_flash_check(dev))
+        kres.update(decode_kernel_phase(dev))
         log("phase 3: Wan2.1-14B-width denoising slice")
-        wan_launches = slice_phase(dev, card, cfg, SLICE_GRID)
+        counts = {"wan_denoise": slice_phase(dev, card, cfg, SLICE_GRID)}
         log("phase 4: GPT-2 small training slice")
-        gpt_launches, train_stats = train_phase(dev, card)
+        counts["gpt2_train"], train_stats = train_phase(dev, card)
+        log("phase 5: Llama-3-8B-width serving slice")
+        counts["serve"], serve_stats = serve_phase(dev, card)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    # flash_fwd's own numbers are the Wan shape's; the causal ones (both
-    # GPT shapes for the error) sit under causal_gpt2.
+    # flash_fwd's own numbers are the Wan shape's; the causal ones sit
+    # under causal_gpt2 (times at GPT-2's shape; the error over both GPT
+    # shapes and the serving path's prefill and verify shapes).
     causal = kres["flash_fwd_causal"]
     kres["flash_fwd"]["causal_gpt2"] = {
         "max_abs_err": causal["err"],
         **{k: causal[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
     kres["flash_bwd_dq"]["fwd_bwd"] = kres["fwd_bwd"]
-    launches = {
-        "flash_fwd": wan_launches["flash_fwd"] + gpt_launches["flash_fwd"],
-        "schedule_pack": wan_launches["schedule_pack"],
-        "lite_flash_fwd": wan_launches["lite_flash_fwd"],
-        "flash_bwd_dq": gpt_launches["flash_bwd_dq"],
-        "flash_bwd_dkv": gpt_launches["flash_bwd_dkv"],
-    }
-    by_path = {
-        name: {"wan_denoise": wan_launches.get(name, 0), "gpt2_train": gpt_launches.get(name, 0)}
-        for name in launches
-    }
+    # Each path's counted run read every wrapper's count (reset just before).
+    by_path = {name: {path: c[0][name] for path, c in counts.items()}
+               for name in kernel_wrappers()}
+    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
+    for name in counts["serve"][1]:
+        merges = {path: c[1][name] for path, c in counts.items()}
+        kres[name]["merge_launches"] = sum(merges.values())
+        kres[name]["merge_launches_by_path"] = merges
     sources = {
         "flash_fwd": ("flash_fwd.cu", "liteattention_tpu/ops/flash_fwd.py:84"),
         "schedule_pack": ("schedule_pack.cu", "liteattention_tpu/ops/schedule_pack.py:52"),
         "lite_flash_fwd": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:376"),
         "flash_bwd_dq": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_bwd_dkv": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:238"),
+        "flash_decode": ("flash_decode.cu", "liteattention_tpu/ops/flash_fwd.py:843"),
+        "paged_decode": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:40"),
+        "paged_decode_folded": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:276"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -841,6 +1465,7 @@ def main() -> int:
         entry.update({k: v for k, v in r.items() if k not in keys and k != "err"})
         kernels.append(entry)
     log(f"training: {json.dumps(train_stats)}")
+    log(f"serving: {json.dumps(serve_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,0 +1,181 @@
+"""The kvcache entry of the flash-attention API.
+
+Counterpart of ``liteattention_tpu/flash_attn_interface.py:
+flash_attn_with_kvcache`` (same argument order). Its routes, on the
+decode kernel of :mod:`liteattention_torch.ops.flash_decode`:
+
+* **Contiguous cache** (``kv_cache_layout`` "bshd" ``[B, S_max, Hk, D]``
+  or "bhsd" ``[B, Hk, S_max, D]``): new ``k``/``v`` ``[B, S_new, Hk, D]``
+  are written at ``cache_seqlens``, then
+  :func:`~liteattention_torch.ops.flash_fwd.flash_attention_decode`
+  (kernel B8) attends over ``[cache_leftpad, cache_seqlens + S_new)``
+  with bottom-right causality per q position when ``causal``, optional
+  ``softcap``, int8 caches with ``k_cache_scale``/``v_cache_scale``
+  ``[B, Hk, D]``. Every ``S_new`` goes through the kernel; its rows are
+  tiled 16 at a time.
+* **Paged cache** (``page_table``): the pools ``[num_pages, page_size,
+  Hk, D]`` take the new rows by a scatter, then
+  :func:`~liteattention_torch.ops.paged_attention.paged_attention_folded`
+  (kernel B9b), bf16 or int8 with ``[Hk, D]`` scales.
+
+``num_splits`` 0 or 1 takes the kernel's own split heuristic; n > 1
+forces n KV splits (the result equals the unsplit one up to rounding).
+
+Unlike JAX, the caches are updated in place (a copy of a multi-GB cache
+per step would cost more than the step); the return value keeps JAX's
+shape: ``out`` [, ``lse``] [, ``(k_cache, v_cache)`` when ``k`` is given].
+
+Not ported yet (ROADMAP A13); each raises ``NotImplementedError`` naming
+itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
+``rotary_cos``/``rotary_sin``, ``cache_batch_idx``, ``window_size``,
+``attention_chunk``, ``qv``, the fp8 descales and ``int8_mma``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from liteattention_torch.ops.flash_fwd import flash_attention_decode
+from liteattention_torch.ops.paged_attention import paged_attention_folded
+
+
+def _unported(**used) -> None:
+    names = [name for name, on in used.items() if on]
+    if names:
+        raise NotImplementedError(
+            f"flash_attn_with_kvcache: {', '.join(names)} not ported yet (ROADMAP A13)"
+        )
+
+
+def flash_attn_with_kvcache(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k: Optional[torch.Tensor] = None,
+    v: Optional[torch.Tensor] = None,
+    qv=None,
+    rotary_cos: Optional[torch.Tensor] = None,
+    rotary_sin: Optional[torch.Tensor] = None,
+    cache_seqlens: Optional[Union[int, torch.Tensor]] = None,
+    cache_batch_idx: Optional[torch.Tensor] = None,
+    cache_leftpad: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,
+    cu_seqlens_q: Optional[torch.Tensor] = None,
+    cu_seqlens_k_new: Optional[torch.Tensor] = None,
+    max_seqlen_q: Optional[int] = None,
+    rotary_seqlens: Optional[torch.Tensor] = None,
+    q_descale=None,
+    k_descale=None,
+    v_descale=None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    attention_chunk: int = 0,
+    softcap: float = 0.0,
+    rotary_interleaved: bool = True,
+    scheduler_metadata=None,
+    num_splits: int = 1,
+    pack_gqa=None,
+    sm_margin: int = 0,
+    return_softmax_lse: bool = False,
+    block_sizes=None,
+    kv_cache_layout: str = "bshd",
+    k_cache_scale: Optional[torch.Tensor] = None,
+    v_cache_scale: Optional[torch.Tensor] = None,
+    max_seqlen_k_new: Optional[int] = None,
+    int8_mma: bool = False,
+):
+    """Decode / append attention against a fixed-capacity KV cache.
+
+    ``q`` ``[B, S_new, H, D]``; caches as the module docstring says;
+    optional ``k``/``v`` ``[B, S_new_k, Hk, D]`` are appended at
+    ``cache_seqlens`` (an int or ``[B]``; default 0) and attended.
+    Bottom-right causality: q row ``i`` sees positions ``< cache_seqlens +
+    S_new_k - S_new + i + 1``. ``scheduler_metadata``, ``pack_gqa``,
+    ``sm_margin``, ``max_seqlen_q``, ``rotary_seqlens``,
+    ``rotary_interleaved``, ``block_sizes`` and ``max_seqlen_k_new`` are
+    scheduling or tiling knobs of other backends, accepted and ignored.
+    """
+    _unported(
+        cu_seqlens_q=cu_seqlens_q is not None,
+        cu_seqlens_k_new=cu_seqlens_k_new is not None,
+        rotary_cos=rotary_cos is not None or rotary_sin is not None,
+        cache_batch_idx=cache_batch_idx is not None,
+        window_size=tuple(window_size) != (-1, -1),
+        attention_chunk=bool(attention_chunk),
+        qv=qv is not None,
+        descales=any(x is not None for x in (q_descale, k_descale, v_descale)),
+        int8_mma=int8_mma,
+    )
+    if kv_cache_layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown kv_cache_layout {kv_cache_layout!r}")
+    if (k is None) != (v is None):
+        raise ValueError("k and v are appended together")
+    b, s_new = q.shape[:2]
+    dev = q.device
+    int8 = k_cache.dtype == torch.int8
+    if int8:
+        if k_cache_scale is None or v_cache_scale is None:
+            raise ValueError(
+                "int8 caches need k_cache_scale/v_cache_scale "
+                "(ops/kv_quant: [B, Hk, D] contiguous, [Hk, D] paged)"
+            )
+        if k is not None or s_new != 1:
+            raise ValueError(
+                "int8 KV caches take the single-token decode step; append with "
+                "ops/kv_quant.quantize_kv_append / quantize_pages_append before the call"
+            )
+    elif k_cache_scale is not None or v_cache_scale is not None:
+        raise ValueError("cache scales go with int8 caches only")
+    if cache_seqlens is None:
+        cache_seqlens = 0
+    if isinstance(cache_seqlens, int):
+        cache_seqlens = torch.full((b,), cache_seqlens, dtype=torch.int32, device=dev)
+    cache_seqlens = cache_seqlens.to(device=dev, dtype=torch.int32)
+    appended = 0 if k is None else k.shape[1]
+    pos = cache_seqlens.long()[:, None] + torch.arange(appended, device=dev)[None]
+
+    if page_table is not None:
+        if kv_cache_layout != "bshd":
+            raise ValueError("page pools have their own layout; kv_cache_layout does not apply")
+        if cache_leftpad is not None or softcap:
+            raise ValueError("cache_leftpad / softcap do not apply to the paged route")
+        num_pages, page_size, hk, d = k_cache.shape
+        if k is not None:
+            page_of = torch.gather(page_table.to(dev).long(), 1, pos // page_size).reshape(-1)
+            slot = (pos % page_size).reshape(-1)
+            k_cache[page_of, slot] = k.reshape(-1, hk, d).to(k_cache.dtype)
+            v_cache[page_of, slot] = v.reshape(-1, hk, d).to(v_cache.dtype)
+        res = paged_attention_folded(
+            q, k_cache, v_cache, cache_seqlens + appended, page_table,
+            scale=softmax_scale, causal=causal, return_lse=True,
+            k_scale=k_cache_scale, v_scale=v_cache_scale, num_splits=num_splits,
+        )
+        out, lse = res
+    else:
+        # The kernel reads [B, S, Hk, D] through strides: a head-major
+        # cache passes as a transposed view.
+        kv = k_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else k_cache
+        vv = v_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else v_cache
+        if k is not None:
+            bi = torch.arange(b, device=dev)[:, None]
+            kv[bi, pos] = k.to(kv.dtype)
+            vv[bi, pos] = v.to(vv.dtype)
+        out, lse = flash_attention_decode(
+            q.transpose(1, 2), kv, vv, kv_bound=cache_seqlens + appended,
+            kv_low=cache_leftpad, scale=softmax_scale, softcap=softcap,
+            k_scale=k_cache_scale, v_scale=v_cache_scale, causal=causal,
+            num_splits=num_splits,
+        )
+        out = out.transpose(1, 2)
+    result = [out]
+    if return_softmax_lse:
+        result.append(lse)
+    if k is not None:
+        result.append((k_cache, v_cache))
+    return result[0] if len(result) == 1 else tuple(result)
+
+
+__all__ = ["flash_attn_with_kvcache"]

@@ -2,8 +2,7 @@
 
 Counterpart of ``liteattention_tpu/models/configs.py``: each constructor
 encodes one family's geometry as a :class:`GPTConfig`. They are only
-data; the model raises on the features it does not take yet (rotary
-positions for GPT-J, NeoX, Falcon, LLaMA, Baichuan-7B; ALiBi for
+data; the model raises on the features it does not take yet (ALiBi for
 Baichuan-13B and BTLM).
 """
 

@@ -8,11 +8,19 @@ the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head.
 Parameters are fp32 and every product runs in ``cfg.dtype``; the
 embedding is looked up in ``cfg.dtype``, the tied head computes
 ``hidden @ wte.T`` in ``cfg.dtype`` and the logits come back fp32, as in
-the JAX model. Every attention call is causal B1 forward and B7 backward.
+the JAX model. Rotary positions (LLaMA, GPT-J, NeoX, Falcon) rotate q
+and k inside ``MHA``. Every training attention call is causal B1 forward
+and B7 backward.
 
-Not ported yet (the model raises on them): rotary positions (so no
-LLaMA-family config runs yet), ALiBi, MoE, dropout; ``generate`` and the
-tensor-parallel forward are left out.
+Decoding: ``forward(input_ids, inference_params)`` threads an
+:class:`~liteattention_torch.modules.mha.InferenceParams` cache through
+the blocks (learned positions and rotary start at its
+``seqlen_offset``); ``GPTLMHeadModel.generate`` runs
+:func:`~liteattention_torch.utils.generation.greedy_decode`, whose
+single-token steps go through the decode kernel B8.
+
+Not ported yet (the model raises on them): ALiBi, MoE, dropout; the
+tensor-parallel forward is left out.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from liteattention_torch.losses.cross_entropy import cross_entropy_loss
 from liteattention_torch.models.convert import state_dict_from_flax
 from liteattention_torch.modules.block import Block
 from liteattention_torch.modules.dense import Dense
-from liteattention_torch.modules.mha import MHA
+from liteattention_torch.modules.mha import MHA, InferenceParams
 from liteattention_torch.modules.mlp import GatedMlp, Mlp
 from liteattention_torch.ops.activations import gelu_approx
 from liteattention_torch.ops.norms import layer_norm, rms_norm
@@ -96,7 +104,6 @@ class GPTConfig:
 
 def _check_supported(cfg: GPTConfig) -> None:
     unported = {
-        "rotary_emb_dim (layers/rotary.py)": cfg.rotary_emb_dim > 0,
         "use_alibi": cfg.use_alibi,
         "moe_experts": cfg.moe_experts > 0,
         "dropout": cfg.dropout > 0.0,
@@ -106,12 +113,14 @@ def _check_supported(cfg: GPTConfig) -> None:
         raise NotImplementedError(f"GPT: {missing} not ported yet")
 
 
-def _block(cfg: GPTConfig, device) -> Block:
+def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
     head_dim = cfg.dim // cfg.num_heads
     mha = MHA(
         cfg.dim, cfg.num_heads, num_heads_kv=cfg.num_heads_kv, causal=True,
         qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias,
         softmax_scale=1.0 / head_dim if cfg.scale_qk_dot_by_d else None,
+        rotary_emb_dim=cfg.rotary_emb_dim, rotary_emb_base=cfg.rotary_emb_base,
+        rotary_emb_interleaved=cfg.rotary_emb_interleaved, layer_idx=layer_idx,
         dtype=cfg.dtype, device=device,
     )
     ffn = cfg.ffn_dim or 4 * cfg.dim
@@ -150,13 +159,14 @@ class GPTModel(nn.Module):
             self.project_in = Dense(cfg.word_embed_proj_dim, cfg.dim, False, cfg.dtype, device)
         if cfg.max_position_embeddings:
             self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.dim, **f32)
-        self.blocks = nn.ModuleList(_block(cfg, device) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(_block(cfg, i, device) for i in range(cfg.num_layers))
         if cfg.prenorm:  # the post-norm stack ends normalized already
             self.ln_f_scale = nn.Parameter(torch.ones(cfg.dim, device=device))
             if not cfg.use_rms_norm:
                 self.ln_f_bias = nn.Parameter(torch.zeros(cfg.dim, device=device))
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
         cfg = self.cfg
         x = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
         if cfg.embeddings_multiplier != 1.0:
@@ -164,14 +174,16 @@ class GPTModel(nn.Module):
         if cfg.word_embed_proj_dim:
             x = self.project_in(x)
         if cfg.max_position_embeddings:
-            pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+            offset = inference_params.seqlen_offset if inference_params is not None else 0
+            pos = torch.arange(offset, offset + input_ids.shape[1], device=input_ids.device)
             x = x + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None]
         residual = None
+        kw = {} if inference_params is None else {"inference_params": inference_params}
         for blk in self.blocks:
-            if cfg.remat and torch.is_grad_enabled():
+            if cfg.remat and torch.is_grad_enabled() and inference_params is None:
                 out = checkpoint(blk, x, residual, use_reentrant=False)
             else:
-                out = blk(x, residual)
+                out = blk(x, residual, **kw)
             x, residual = out if cfg.prenorm else (out, None)
         if not cfg.prenorm:
             return x
@@ -209,9 +221,10 @@ class GPTLMHeadModel(nn.Module):
             else:
                 p.zero_()
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
         cfg = self.cfg
-        hidden = self.transformer(input_ids)
+        hidden = self.transformer(input_ids, inference_params)
         if cfg.word_embed_proj_dim:
             hidden = self.project_out(hidden)
         if cfg.tie_embeddings:
@@ -221,6 +234,30 @@ class GPTLMHeadModel(nn.Module):
         if cfg.logits_multiplier != 1.0:
             logits = logits * cfg.logits_multiplier
         return logits.float()
+
+    def generate(
+        self,
+        input_ids: torch.Tensor,
+        max_length: int,
+        top_k: int = 1,
+        top_p: float = 0.0,
+        temperature: float = 1.0,
+        rng: Optional[torch.Generator] = None,
+        eos_token_id: Optional[int] = None,
+        **kwargs,
+    ) -> torch.Tensor:
+        """KV-cached decoding up to ``max_length`` total tokens (JAX
+        ``GPTLMHeadModel.generate``): ``top_k=1`` (the default) is greedy;
+        pass ``rng`` with temperature / top_k / top_p to sample."""
+        from liteattention_torch.utils.generation import greedy_decode
+
+        greedy = rng is None or temperature == 0.0 or top_k == 1
+        return greedy_decode(
+            self, input_ids, max_new_tokens=max_length - input_ids.shape[1],
+            max_seqlen=max_length, rng=None if greedy else rng,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, **kwargs,
+        )
 
 
 def gpt_loss_fn(model: GPTLMHeadModel, input_ids: torch.Tensor,

@@ -1,24 +1,58 @@
 """Multi-head self-attention over the flash kernels (counterpart of
-``liteattention_tpu/modules/mha.py:MHA``, its training path).
+``liteattention_tpu/modules/mha.py:MHA`` and ``InferenceParams``).
 
 A fused ``Wqkv`` projection packs q | k | v along its output (GQA when
-``num_heads_kv < num_heads``); the heads go ``[B, S, H, D]`` ->
-``[B, H, S, D]`` around :func:`~liteattention_torch.ops.flash_fwd.flash_attention`
-(kernel B1 forward, B7 backward) and back through ``out_proj``.
+``num_heads_kv < num_heads``); rotary embeddings rotate q and k at the
+decode offset; the heads go ``[B, S, H, D]`` -> ``[B, H, S, D]`` around
+the attention and back through ``out_proj``.
 
-Not ported yet: cross-attention; the decoding cache
-(``inference_params``), rotary, ALiBi and attention dropout raise.
+* Training / full forward: causal
+  :func:`~liteattention_torch.ops.flash_fwd.flash_attention` (kernel B1
+  forward, B7 backward).
+* Decoding (``inference_params``): a cache per layer, keyed by
+  ``layer_idx``, in the head-major layout ``[B, Hk, S_max, D]``. The new
+  rows are written in place at ``seqlen_offset`` (quantized with the
+  frozen scales when the entry is int8). A single-token step goes to
+  :func:`~liteattention_torch.ops.flash_fwd.flash_attention_decode`
+  (kernel B8) with the ``group`` q heads packed as rows over each KV head;
+  the cache is handed over as a strided view, never copied. Prefill and
+  multi-token steps run causal B1 over the cache prefix ``[:offset +
+  s_new]``: the bound is the same for every batch row, so bottom-right
+  causality against it is exactly causal attention on that prefix. B1
+  takes contiguous inputs, so the prefix is copied there (inference
+  only). A multi-token step on an int8 cache raises, as in JAX.
+
+Not ported yet: cross-attention, ALiBi and attention dropout raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
+from liteattention_torch.layers.rotary import RotaryEmbedding
 from liteattention_torch.modules.dense import Dense
-from liteattention_torch.ops.flash_fwd import flash_attention
+from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+from liteattention_torch.ops.kv_quant import quantize_rows_native
+
+
+@dataclasses.dataclass
+class InferenceParams:
+    """Decoding-time KV cache holder: ``key_value_memory_dict`` maps a
+    layer's ``layer_idx`` to ``(k, v)`` ``[B, Hk, S_max, D]`` or, once
+    int8-quantized, ``(k_i8, v_i8, k_scale, v_scale)``."""
+
+    max_seqlen: int
+    max_batch_size: int
+    seqlen_offset: int = 0
+    key_value_memory_dict: dict = dataclasses.field(default_factory=dict)
+
+    def reset(self):
+        self.seqlen_offset = 0
+        self.key_value_memory_dict.clear()
 
 
 class MHA(nn.Module):
@@ -33,15 +67,15 @@ class MHA(nn.Module):
         softmax_scale: Optional[float] = None,
         causal: bool = False,
         rotary_emb_dim: int = 0,
+        rotary_emb_base: float = 10000.0,
+        rotary_emb_interleaved: bool = False,
         use_alibi: bool = False,
+        layer_idx: Optional[int] = None,
         dtype=torch.bfloat16,
         device=None,
     ):
         super().__init__()
-        unported = {
-            "dropout": dropout > 0.0,
-            "rotary_emb_dim": rotary_emb_dim > 0, "use_alibi": use_alibi,
-        }
+        unported = {"dropout": dropout > 0.0, "use_alibi": use_alibi}
         if any(unported.values()):
             raise NotImplementedError(
                 f"MHA: {[k for k, v in unported.items() if v]} not ported yet"
@@ -51,24 +85,75 @@ class MHA(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.softmax_scale = softmax_scale
         self.causal = causal
+        self.layer_idx = layer_idx
+        self.rotary = (
+            RotaryEmbedding(rotary_emb_dim, rotary_emb_base, rotary_emb_interleaved)
+            if rotary_emb_dim > 0 else None
+        )
         qkv = (self.num_heads + 2 * self.num_heads_kv) * self.head_dim
         self.Wqkv = Dense(embed_dim, qkv, qkv_proj_bias, dtype, device)
         self.out_proj = Dense(self.num_heads * self.head_dim, embed_dim,
                               out_proj_bias, dtype, device)
 
-    def forward(self, x: torch.Tensor, inference_params=None) -> torch.Tensor:
-        if inference_params is not None:
-            raise NotImplementedError("MHA: the decoding cache is not ported yet")
+    def forward(self, x: torch.Tensor,
+                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         q, k, v = self.Wqkv(x).split([h * d, hk * d, hk * d], dim=-1)
-        out = flash_attention(
-            q.reshape(b, s, h, d).transpose(1, 2),
-            k.reshape(b, s, hk, d).transpose(1, 2),
-            v.reshape(b, s, hk, d).transpose(1, 2),
-            scale=self.softmax_scale, causal=self.causal,
-        )
+        q, k, v = q.reshape(b, s, h, d), k.reshape(b, s, hk, d), v.reshape(b, s, hk, d)
+        offset = inference_params.seqlen_offset if inference_params is not None else 0
+        if self.rotary is not None:
+            q, k = self.rotary(q, k, seqlen_offset=offset)
+        if inference_params is None:
+            out = flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=self.softmax_scale, causal=self.causal,
+            )
+        else:
+            out = self._decode(q, k, v, inference_params, offset)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
 
+    def _decode(self, q, k, v, inference_params, offset):
+        """Append k/v ``[B, S_new, Hk, D]`` to this layer's cache and attend
+        over it; returns ``[B, H, S_new, D]``."""
+        if self.layer_idx is None:
+            raise ValueError("MHA: decoding with a cache needs layer_idx")
+        b, s_new, hk, d = k.shape
+        cache = inference_params.key_value_memory_dict
+        if self.layer_idx not in cache:
+            shape = (b, hk, inference_params.max_seqlen, d)
+            cache[self.layer_idx] = (
+                torch.zeros(shape, dtype=k.dtype, device=k.device),
+                torch.zeros(shape, dtype=v.dtype, device=v.device),
+            )
+        entry = cache[self.layer_idx]
+        quantized = len(entry) == 4
+        kc, vc = entry[0], entry[1]
+        kn, vn = k.transpose(1, 2), v.transpose(1, 2)
+        if quantized:
+            kn, vn = quantize_rows_native(kn, entry[2]), quantize_rows_native(vn, entry[3])
+        kc[:, :, offset : offset + s_new] = kn
+        vc[:, :, offset : offset + s_new] = vn
+        qh = q.transpose(1, 2)
+        if s_new == 1:
+            bound = torch.full((b,), offset + 1, dtype=torch.int32, device=q.device)
+            out, _ = flash_attention_decode(
+                qh, kc.transpose(1, 2), vc.transpose(1, 2), kv_bound=bound,
+                scale=self.softmax_scale,
+                k_scale=entry[2] if quantized else None,
+                v_scale=entry[3] if quantized else None,
+            )
+            return out
+        if quantized:
+            raise NotImplementedError(
+                "MHA: the int8 decode cache takes single-token steps only "
+                "(quantize after prefill)"
+            )
+        total = offset + s_new
+        return flash_attention(
+            qh, kc[:, :, :total], vc[:, :, :total], scale=self.softmax_scale,
+            causal=self.causal,
+        )
 
-__all__ = ["MHA"]
+
+__all__ = ["MHA", "InferenceParams"]

@@ -33,9 +33,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argument types. Every entry returns the CUDA
 # error of its launch (0 = success).
 SIGNATURES = {
+    "lite_flash_decode": [_P] * 10 + [_L] * 6 + [_I] * 12 + [_F, _F, _I, _P],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],

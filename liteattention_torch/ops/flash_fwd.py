@@ -20,6 +20,11 @@ GQA, causal or not. The other JAX mask channels (segments, bound/low,
 window, softcap, ALiBi, dropout, ``qv``) are not ported and raise. The
 wrapper runs the plain PyTorch version for CPU tensors and the kernel for
 CUDA tensors.
+
+:func:`flash_attention_decode` is the decode entry (kernel B8, replacing
+``liteattention_tpu/ops/flash_fwd.py:_decode_folded_kernel``): a few q rows
+against a KV cache with per-batch bounds, through the split-KV kernel of
+:mod:`liteattention_torch.ops.flash_decode`.
 """
 
 from __future__ import annotations
@@ -30,6 +35,12 @@ import torch
 
 from liteattention_torch.ops import _build
 from liteattention_torch.ops.flash_bwd import causal_mask, flash_attention_bwd
+from liteattention_torch.ops.flash_decode import (
+    decode_plain,
+    launch_decode,
+    pack_rows,
+    unpack_rows,
+)
 from liteattention_torch.ops.tile_sizes import BlockSizes
 
 LOG2E = 1.4426950408889634
@@ -169,4 +180,114 @@ def _launch(q, k, v, scale, causal):
 
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+
+def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
+            v_scale, int8_mma, causal, num_splits, plain):
+    if int8_mma:
+        raise NotImplementedError(
+            "flash_attention_decode: int8_mma (int8 x int8 QK) is not ported (ROADMAP B8)"
+        )
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError("q must be [B, H, Sq, D], the caches [B, S, Hk, D] alike")
+    b, h, sq, d = q.shape
+    s_max, hk = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % hk:
+        raise ValueError(f"incompatible shapes {q.shape} / {k_cache.shape}")
+    group = h // hk
+    if scale is None:
+        scale = d**-0.5
+    if k_cache.dtype == torch.int8:
+        if k_scale is None or v_scale is None:
+            raise ValueError("int8 caches need k_scale/v_scale [B, Hk, D] (ops/kv_quant)")
+        qf = q.float().reshape(b, hk, group, sq, d) * k_scale[:, :, None, None, :]
+        q = qf.to(q.dtype).reshape(b, h, sq, d)
+    qp = pack_rows(q, hk)
+    if kv_bound is None:
+        kv_bound = torch.full((b,), s_max, dtype=torch.int32, device=q.device)
+    if plain or q.device.type == "cpu":
+        o, lse = decode_plain(
+            qp, k_cache.transpose(1, 2), v_cache.transpose(1, 2), kv_bound, kv_low,
+            group, causal, scale, softcap, num_splits,
+        )
+    else:
+        strides = (k_cache.stride(0), k_cache.stride(1), k_cache.stride(2))
+        o, lse, merged = launch_decode(
+            qp, k_cache, v_cache, strides,
+            (v_cache.stride(0), v_cache.stride(1), v_cache.stride(2)), kv_bound, kv_low,
+            group=group, causal=causal, scale=scale, softcap=softcap,
+            num_splits=num_splits, capacity=s_max,
+        )
+        flash_attention_decode.launches += 1
+        flash_attention_decode.merge_launches += int(merged)
+    if v_scale is not None:
+        o = (o.float() * v_scale[:, :, None, :]).to(o.dtype)
+    return unpack_rows(o, lse, h, sq)
+
+
+def flash_attention_decode(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    kv_bound: Optional[torch.Tensor] = None,
+    kv_low: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    int8_mma: bool = False,
+    causal: bool = False,
+    num_splits: int = 0,
+):
+    """Decode with a short q against a KV cache (kernel B8), inference only.
+
+    Counterpart of ``liteattention_tpu/ops/flash_fwd.py:
+    flash_attention_decode``. ``q`` ``[B, H, Sq, D]`` (a few query tokens
+    and/or packed GQA rows); ``k_cache``/``v_cache`` ``[B, S_max, Hk, D]``
+    in any strides with a unit channel stride, so a head-major ``[B, Hk,
+    S_max, D]`` cache passes as ``cache.transpose(1, 2)`` without a
+    copy. ``kv_bound``/``kv_low`` ``[B]`` bound the valid keys per batch
+    (default all of ``S_max``). ``softcap`` > 0 caps the scores as
+    ``cap * tanh(s / cap)``.
+
+    int8 caches (``ops/kv_quant``) take ``k_scale``/``v_scale`` ``[B, Hk,
+    D]``: q is multiplied by ``k_scale`` before the kernel and the
+    output by ``v_scale`` after it, as in JAX; the kernel only casts int8
+    to bf16 after the load. ``int8_mma`` (an int8 x int8 QK product, a
+    reduced-precision mode of the TPU kernel) is not ported and raises.
+
+    Port extensions: ``causal`` adds bottom-right causality per q
+    position (row ``qi`` sees ``col < bound - Sq + qi + 1``), used by
+    ``flash_attn_with_kvcache`` for appends; ``num_splits`` forces that
+    many KV splits on the card (0 or 1: the kernel's heuristic). The JAX
+    function's TPU knobs (``block_sizes``, ``interpret``, ``folded``)
+    have no counterpart.
+
+    Returns ``(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32)``. A
+    row with no valid key gives out 0 and lse -inf. The wrapper runs the
+    plain version for CPU tensors and the kernel for CUDA tensors (bf16
+    q, bf16 or int8 caches, D 64 or 128).
+    """
+    return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
+                   v_scale, int8_mma, causal, num_splits, plain=False)
+
+
+def flash_attention_decode_plain(
+    q, k_cache, v_cache, kv_bound=None, kv_low=None, scale=None, softcap=0.0,
+    k_scale=None, v_scale=None, int8_mma=False, causal=False, num_splits=0,
+):
+    """Plain PyTorch version of :func:`flash_attention_decode` on any
+    device (fp32 scores, exact softmax; ``num_splits > 1`` merges equal
+    key chunks through ``combine_attention``)."""
+    return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
+                   v_scale, int8_mma, causal, num_splits, plain=True)
+
+
+flash_attention_decode.launches = 0
+flash_attention_decode.merge_launches = 0
+
+__all__ = [
+    "flash_attention",
+    "flash_attention_plain",
+    "flash_attention_decode",
+    "flash_attention_decode_plain",
+]

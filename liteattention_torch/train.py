@@ -9,8 +9,9 @@ the card (``cuda``) unless ``--device cpu`` is given.
   python -m liteattention_torch.train --device cpu --dim 128 --layers 2 \\
       --heads 2 --vocab 512 --seqlen 128 --batch-size 2 --steps 4 --log-every 1
 
-Not ported yet: ``--model llama`` (needs rotary positions,
-``layers/rotary.py``) and ``--config`` (needs ``training/config_tree.py``).
+``--model llama`` trains the LLaMA geometry (rotary, RMSNorm, SwiGLU)
+of ``models/configs.py:llama_config``. Not ported yet: ``--config``
+(needs ``training/config_tree.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import itertools
 import numpy as np
 import torch
 
-from liteattention_torch.models.configs import gpt2_config
+from liteattention_torch.models.configs import gpt2_config, llama_config
 from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
 from liteattention_torch.training.data import memmap_lm_batches, synthetic_lm_batches
 from liteattention_torch.training.logging import JsonlLogger, TeeLogger
@@ -59,11 +60,13 @@ def run(argv=None, log_fn=None) -> Trainer:
     args = parse_args(argv)
     if args.config:
         raise NotImplementedError("--config: training/config_tree.py is not ported yet")
-    if args.model == "llama":
-        raise NotImplementedError("--model llama: rotary positions (layers/rotary.py) are not ported yet")
     device = torch.device(args.device)
-    cfg = gpt2_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
-                      vocab=args.vocab, max_pos=max(args.seqlen, 1024))
+    if args.model == "gpt2":
+        cfg = gpt2_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
+                          vocab=args.vocab, max_pos=max(args.seqlen, 1024))
+    else:
+        cfg = llama_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
+                           vocab=args.vocab)
     model = GPTLMHeadModel(cfg, device=device)
     model.reset_parameters(torch.Generator(device=device).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())

@@ -184,6 +184,115 @@ def test_lite_fwd_kernel(dev, gsize, d):
         assert 0 < rv[m].float().mean().item() < 1
 
 
+def _check_decode(out, lse, ro, rl):
+    """Decode kernel against its plain version: out within 2e-2 absolute
+    and 1e-2 rel-L2 (bf16 output, P rounded to bf16 before PV), lse within
+    1e-3, rows with no valid key out 0 / lse -inf in both."""
+    assert out.dtype == ro.dtype and out.shape == ro.shape and lse.shape == rl.shape
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (out.float() - ro.float()).abs().max().item() < 2e-2
+    assert _rel_l2(out.float(), ro.float())[0] < 1e-2
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    if not fin.all():
+        assert out[~fin].abs().max().item() == 0.0
+
+
+# (b, h, hk, sq, s_max, d, int8, layout, causal, softcap, splits)
+DECODE_CASES = [
+    (8, 32, 8, 1, 4096, 128, False, "bshd", False, 0.0, 0),  # the serving shape
+    (8, 32, 8, 1, 4096, 128, True, "bshd", False, 0.0, 0),
+    (2, 8, 8, 1, 1000, 64, False, "bhsd", False, 0.0, 0),  # MHA, D 64, head-major
+    (3, 16, 2, 1, 777, 128, False, "bhsd", False, 30.0, 5),  # group 8, softcap
+    (2, 8, 2, 4, 600, 128, False, "bshd", True, 0.0, 3),  # causal sq 4
+    (2, 4, 1, 16, 300, 64, True, "bhsd", True, 0.0, 0),  # 64 rows, 4 row tiles
+]
+
+
+@pytest.mark.parametrize("b,h,hk,sq,s_max,d,int8,layout,causal,softcap,splits", DECODE_CASES)
+def test_flash_decode_kernel(dev, b, h, hk, sq, s_max, d, int8, layout, causal, softcap, splits):
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache
+
+    g = torch.Generator(device=dev).manual_seed(b * s_max + d)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+    kc = torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
+    vc = torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
+    bound = torch.randint(sq, s_max + 1, (b,), generator=g, device=dev).int()
+    bound[0] = s_max
+    low = torch.randint(0, 50, (b,), generator=g, device=dev).int()
+    low[-1] = bound[-1]  # a batch row with no valid key
+    kw = dict(kv_bound=bound, kv_low=low, softcap=softcap, causal=causal)
+    if int8:
+        cache = quantize_kv_cache(kc, vc)
+        kc, vc = cache.k, cache.v
+        kw.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    if layout == "bhsd":  # a head-major cache passed as a strided view
+        kc, vc = kc.transpose(1, 2).contiguous().transpose(1, 2), vc.transpose(1, 2).contiguous().transpose(1, 2)
+    n0 = flash_attention_decode.launches
+    out, lse = flash_attention_decode(q, kc, vc, num_splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_decode.launches == n0 + 1
+    ro, rl = flash_attention_decode_plain(q, kc, vc, **kw)
+    assert not torch.isfinite(rl[-1]).any()
+    _check_decode(out, lse, ro, rl)
+    # Any number of splits gives the same result.
+    for n in (1, 2, 7):
+        o2, l2 = flash_attention_decode(q, kc, vc, num_splits=n, **kw)
+        _check_decode(o2, l2, ro, rl)
+
+
+@pytest.mark.parametrize("folded,int8,page_size,sq,d,group", [
+    (True, False, 256, 1, 128, 4),
+    (True, True, 256, 1, 128, 4),
+    (True, False, 16, 4, 128, 4),  # causal appends, pages smaller than a tile
+    (False, False, 64, 1, 64, 1),
+    (False, False, 16, 3, 128, 8),
+])
+def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
+    from liteattention_torch.ops.kv_quant import quantize_kv_pages
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_folded,
+        paged_attention_folded_plain,
+        paged_attention_plain,
+    )
+
+    b, hk, pages_per_seq = 4, 2, 8
+    n_pages = b * pages_per_seq + 3
+    g = torch.Generator(device=dev).manual_seed(page_size + sq)
+    q = torch.randn(b, sq, hk * group, d, generator=g, device=dev).bfloat16()
+    shape = (n_pages, page_size, hk, d) if folded else (hk, n_pages, page_size, d)
+    kp = torch.randn(*shape, generator=g, device=dev).bfloat16()
+    vp = torch.randn(*shape, generator=g, device=dev).bfloat16()
+    table = torch.randperm(n_pages, generator=g, device=dev)[: b * pages_per_seq]
+    table = table.reshape(b, pages_per_seq).int()
+    lengths = torch.randint(sq, pages_per_seq * page_size + 1, (b,), generator=g, device=dev)
+    lengths = lengths.int()
+    lengths[0] = pages_per_seq * page_size
+    kw = dict(return_lse=True, causal=True)
+    if folded:
+        fn, plain = paged_attention_folded, paged_attention_folded_plain
+        if int8:
+            pool = quantize_kv_pages(kp, vp)
+            kp, vp = pool.k, pool.v
+            kw.update(k_scale=pool.k_scale, v_scale=pool.v_scale)
+    else:
+        fn, plain = paged_attention, paged_attention_plain
+    n0 = fn.launches
+    out, lse = fn(q, kp, vp, lengths, table, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ro, rl = plain(q, kp, vp, lengths, table, **kw)
+    assert out.shape == (b, sq, hk * group, d) and lse.shape == (b, hk * group, sq)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert (out.float() - ro.float()).abs().max().item() < 2e-2
+    assert (lse - rl).abs().max().item() < 1e-3
+
+
 def test_entry_points_default_to_the_card(dev):
     from liteattention_torch.models import GPTConfig, GPTLMHeadModel, WanConfig, WanModel
     from liteattention_torch.ops.mask import init_mask

@@ -22,6 +22,9 @@ def test_imports_with_jax_blocked():
         "import liteattention_torch, liteattention_torch.models, liteattention_torch.train\n"
         "import liteattention_torch.modules, liteattention_torch.training\n"
         "from liteattention_torch.ops import _build, flash_bwd, norms, activations\n"
+        "from liteattention_torch.ops import flash_decode, paged_attention, kv_quant, combine\n"
+        "import liteattention_torch.flash_attn_interface, liteattention_torch.layers\n"
+        "import liteattention_torch.utils.generation\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"

@@ -170,8 +170,12 @@ def test_cli_runs_on_cpu(tmp_path):
     recs = read_jsonl(str(metrics))
     assert [r["step"] for r in recs] == [1, 2, 3]
     assert all(np.isfinite(r["loss"]) for r in recs)
-    with pytest.raises(NotImplementedError, match="rotary"):
-        train.main(["--model", "llama", "--device", "cpu"])
+    # --model llama (rotary, RMSNorm, SwiGLU) runs since rotary is ported.
+    llama = tmp_path / "llama.jsonl"
+    assert train.main(["--model", "llama", "--device", "cpu", "--dim", "64", "--layers", "1",
+                       "--heads", "2", "--vocab", "128", "--seqlen", "16", "--batch-size", "2",
+                       "--steps", "2", "--log-every", "1", "--metrics-jsonl", str(llama)]) == 0
+    assert all(np.isfinite(r["loss"]) for r in read_jsonl(str(llama)))
     with pytest.raises(NotImplementedError, match="config_tree"):
         train.main(["--config", "configs/config.yaml", "--device", "cpu"])
 
