@@ -52,11 +52,31 @@ Phases (any failure exits non-zero and prints no result line):
    decode logits against a full recompute (and that two faults planted
    in the cache read above its limit), int8 against bf16 logits, the
    speculative acceptance, and where a decode step's time goes.
-6. A JSON line of kernel results (launches read on each path's counted
+6. The rest of the LiteAttention engine at the Wan2.1-14B attention width
+   (40 heads x 128, bf16): (a) ``LiteAttention`` over 1 x 32 768 tokens
+   with the back half of the keys pre-skipped (union density 0.5, so the
+   K/V compaction gate engages), 4 calls at thr -6 with ``kv_compact``
+   True and False, which must agree bit for bit; (b) ``denoise(kv_compact=
+   True)`` on the 2-block slice over the 480p 61-frame latent (16 x 60 x
+   104 -> 24 960 tokens), CFG, 4 steps, ``vote_stride`` 2, banded initial
+   masks, bit-identical to ``kv_compact=False``; (c) ``flash_attn_func``
+   at 1 x 32 760 x 40 x 128 with a fine mask (B2 + B3), a coarse mask at
+   ``BlockSizes(256, 256)`` (B4) and super-tile bits (B4), each against
+   its plain version; (d) ``fold_h=8`` (B5) equal to unfolded B3; (e)
+   ``FlashBlocksparseAttention``'s kernel route against the plain exact path and
+   ``SeqParallelLiteAttention``'s two merged splits against one call. Then
+   B4, B5 and B6 (beside ``index_select``) timed, and B2 / B3 with their
+   new channels.
+7. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
 
 It needs nothing but the repository, PyTorch built for CUDA and nvcc.
+
+    python3 chip_smoke.py --ab DIR [REPS]
+
+times B1 and B3 of the checkout at DIR instead (see ``ab_times``): to
+compare two checkouts on one card, run it for each in turns in one job.
 """
 
 from __future__ import annotations
@@ -235,26 +255,35 @@ def banded_mask(b, h, qt, kt, sparsity, device):
 
 
 def kernel_wrappers():
-    """Every kernel wrapper of the port, by its name in the kernels line.
-    Each counts the launches of its kernel; the decode wrappers also count
-    the launches of their split-merge kernel."""
+    """Every kernel entry of the port, by its name in the kernels line: the
+    wrapper and the attribute that counts its launches (the lite wrapper
+    counts B3, B5 and B4 apart); the decode wrappers also count the
+    launches of their split-merge kernel."""
     from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.ops.kv_compact import compact_kv
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
     from liteattention_torch.ops.paged_attention import paged_attention, paged_attention_folded
     from liteattention_torch.ops.schedule_pack import pack_schedule
 
-    return {"flash_fwd": flash_attention, "schedule_pack": pack_schedule,
-            "lite_flash_fwd": lite_flash_attention, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkv": flash_bwd_dkv, "flash_decode": flash_attention_decode,
-            "paged_decode": paged_attention, "paged_decode_folded": paged_attention_folded}
+    return {"flash_fwd": (flash_attention, "launches"),
+            "schedule_pack": (pack_schedule, "launches"),
+            "lite_flash_fwd": (lite_flash_attention, "launches"),
+            "lite_flash_fwd_coarse": (lite_flash_attention, "coarse_launches"),
+            "lite_flash_fwd_hfold": (lite_flash_attention, "hfold_launches"),
+            "kv_compact": (compact_kv, "launches"),
+            "flash_bwd_dq": (flash_bwd_dq, "launches"),
+            "flash_bwd_dkv": (flash_bwd_dkv, "launches"),
+            "flash_decode": (flash_attention_decode, "launches"),
+            "paged_decode": (paged_attention, "launches"),
+            "paged_decode_folded": (paged_attention_folded, "launches")}
 
 
 def reset_counts():
     """Set every wrapper's launch counts to 0 (just before a path's
     counted run)."""
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_wrappers().values():
+        setattr(fn, attr, 0)
         if hasattr(fn, "merge_launches"):
             fn.merge_launches = 0
 
@@ -263,8 +292,8 @@ def read_counts():
     """Every wrapper's launch count, and the merge launches of those
     that merge (just after a path's counted run)."""
     wrappers = kernel_wrappers()
-    return ({name: fn.launches for name, fn in wrappers.items()},
-            {name: fn.merge_launches for name, fn in wrappers.items()
+    return ({name: getattr(fn, attr) for name, (fn, attr) in wrappers.items()},
+            {name: fn.merge_launches for name, (fn, _) in wrappers.items()
              if hasattr(fn, "merge_launches")})
 
 
@@ -1376,6 +1405,394 @@ def serve_phase(dev, card):
     return counts, stats_out
 
 
+# ---------------------------------------------------------------- phase 6
+
+# The rest of the engine at the Wan2.1-14B attention width (40 heads x 128,
+# bf16): LiteAttention over 32 768 keys with the back half pre-skipped
+# (union density 0.5, so the compaction gate engages), 4 calls at thr -6;
+# the denoising slice over the 480p 61-frame latent (16 x 60 x 104 -> 24 960
+# tokens, a multiple of 128); flash_attn_func and the super-tile mode over
+# the slice's 32 760 tokens at the (256, 256) compute tile; fold_h 8.
+ENGINE_SEQ, ENGINE_CALLS, ENGINE_THR = 32768, 4, -6.0
+ENGINE_GRID = (16, 60, 104)
+ENGINE_TILE = (256, 256)
+FOLD_H = 8
+SMALL_SEQ, SMALL_HEADS = 4096, 8  # the blocksparse and sequence-parallel checks
+
+
+def timed(fn):
+    """One call of ``fn``: its result and its device time in ms (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lite_attention_path(dev, h, d):
+    """(a) LiteAttention with kv_compact True and False over the same
+    calls: out, lse and masks must be equal. Returns the wall ms per call
+    (median of calls 2..) of each and the last mask."""
+    import statistics
+
+    import torch
+    from liteattention_torch import LiteAttention
+    from liteattention_torch.ops.kv_compact import kv_union_map
+
+    g = torch.Generator(device=dev).manual_seed(2025)
+    s = ENGINE_SEQ
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    base = rnd(1, s, 1, d)
+    calls = []
+    for _ in range(ENGINE_CALLS):  # a slowly drifting trajectory
+        base = base + 0.05 * rnd(1, s, 1, d)
+        calls.append(tuple((base + 0.5 * rnd(1, s, h, d)).bfloat16() for _ in range(2))
+                     + (rnd(1, s, h, d).bfloat16(),))
+    skip = [s - 1, s // 2]  # keys s/2 .. s-1 pre-skipped
+    runs = {}
+    for flag in (True, False):
+        attn = LiteAttention(threshold=ENGINE_THR, kv_compact=flag)
+        res, ms = [], []
+        for q, k, v in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, lse = attn(q, k, v, return_softmax_lse=True, must_skip_list=skip)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            res.append((out, lse, attn.state.do_mask.clone()))
+        runs[flag] = (res, statistics.median(ms[1:]), attn)
+    same = all(torch.equal(a, b) for ra, rb in zip(runs[True][0], runs[False][0])
+               for a, b in zip(ra, rb))
+    mask = runs[True][2].state.do_mask
+    density = (kv_union_map(mask, hk=h)[2].float().mean() / mask.shape[3]).item()
+    sparsity = runs[True][2].get_skip_percentage()
+    log(f"  (a) LiteAttention 1x{s}x{h}x{d}, {ENGINE_CALLS} calls at thr {ENGINE_THR}, keys "
+        f"{s // 2}-{s - 1} pre-skipped: union density {density:.3f}, sparsity {sparsity:.3f}; "
+        f"kv_compact True vs False: out, lse and masks equal {same}; ms per call "
+        f"{runs[True][1]:.2f} (compacted) vs {runs[False][1]:.2f}")
+    check(same, "(a) kv_compact changed LiteAttention's results")
+    check(density < 0.75, "(a) the compaction gate did not engage")
+    return {"ms_per_call_compacted": runs[True][1], "ms_per_call_plain_schedule": runs[False][1],
+            "union_density": density, "sparsity": sparsity}, calls[-1], mask
+
+
+def denoise_compact_path(dev, full, card):
+    """(b) denoise(kv_compact=True) against kv_compact=False on the 2-block
+    Wan slice: the latents and masks must be bit-identical."""
+    import torch
+    from liteattention_torch.models import WanModel, denoise
+    from liteattention_torch.ops.mask import SkipMaskState
+
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS)
+    model = WanModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames, hh, ww = ENGINE_GRID
+    noise = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    n_tok = frames * (hh // cfg.patch_size[1]) * (ww // cfg.patch_size[2])
+    kt = math.ceil(n_tok / 128)
+    band = banded_mask(1, cfg.num_heads, kt, kt, 0.5, dev)
+    states = {i: SkipMaskState(band, 0) for i in range(cfg.num_layers)}
+    steps = 4
+    runs = {}
+    for flag in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, tel = denoise(model, noise, text, null, num_steps=steps, guidance_scale=5.0,
+                         vote_stride=2, thresholds=[ENGINE_THR] * steps,
+                         initial_states=dict(states), initial_states_uncond=dict(states),
+                         kv_compact=flag)
+        torch.cuda.synchronize()
+        runs[flag] = (x, tel, (time.perf_counter() - t0) * 1e3 / steps)
+    (xc, tc, msc), (xp, tp, msp) = runs[True], runs[False]
+    same = torch.equal(xc, xp) and all(
+        torch.equal(tc[key][i].do_mask, tp[key][i].do_mask)
+        for key in ("final_states", "final_states_uncond") for i in range(cfg.num_layers))
+    sp = [round(float(v), 4) for v in tc["sparsity_per_step"]]
+    log(f"  (b) denoise, {frames}x{hh}x{ww} -> {n_tok} tokens, CFG, {steps} steps, vote_stride 2, "
+        f"banded masks, thr {ENGINE_THR}: sparsity per step {sp}; kv_compact True vs False "
+        f"latents and masks bit-identical {same}; ms/step {msc:.1f} vs {msp:.1f} [{card}]")
+    check(same and bool(torch.isfinite(xc).all()), "(b) denoise(kv_compact=True) differs")
+    return {"ms_per_step_compacted": msc, "ms_per_step_plain_schedule": msp, "tokens": n_tok}
+
+
+def median_thr(headroom):
+    """A threshold at which about half of the voting tiles skip."""
+    import torch
+
+    return headroom[torch.isfinite(headroom)].float().median().item()
+
+
+def engine_phase(dev, full, card):
+    """Phase 6: the counted run of the engine's paths (a)-(e), then each
+    kernel against its plain version, then the kernels' times."""
+    import torch
+    from liteattention_torch import LiteAttention, SeqParallelLiteAttention
+    from liteattention_torch.flash_attn_interface import flash_attn_func
+    from liteattention_torch.flash_blocksparse import (
+        FlashBlocksparseAttention,
+        _blockmask_elementwise,
+        _exact_attention,
+    )
+    from liteattention_torch.ops.combine import combine_attention
+    from liteattention_torch.ops.kv_compact import compact_kv, compact_kv_plain, kv_union_map
+    from liteattention_torch.ops.lite_flash_fwd import (
+        lite_flash_attention,
+        lite_flash_attention_coarse_plain,
+        lite_flash_attention_plain,
+        vote_headroom,
+    )
+    from liteattention_torch.ops.mask import (
+        SkipMaskState,
+        compact_mask,
+        compact_mask_fine,
+        update_mask,
+    )
+    from liteattention_torch.ops.schedule_pack import pack_schedule, pack_schedule_plain
+    from liteattention_torch.ops.tile_sizes import BlockSizes
+
+    h, d = full.num_heads, full.head_dim
+    frames, hh, ww = SLICE_GRID
+    s = frames * (hh // full.patch_size[1]) * (ww // full.patch_size[2])
+    g = torch.Generator(device=dev).manual_seed(777)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    # (c)'s inputs, masks and thresholds, chosen from the plain versions.
+    q, k, v = rnd(1, s, h, d), rnd(1, s, h, d), rnd(1, s, h, d)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kt = math.ceil(s / 128)
+    bq, bk = ENGINE_TILE
+    band = banded_mask(1, h, kt, kt, 0.5, dev)
+    fidx, count = pack_schedule_plain(band)
+    head_f = vote_headroom(qh, kh, fidx, count)
+    valid = torch.arange(kt, device=dev) < count[..., None]
+    thr_f = median_thr(head_f[valid])
+    (ro_f, rl_f, rv_f), plain_f_ms = timed(
+        lambda: lite_flash_attention_plain(qh, kh, vh, fidx, count, thr_f, band))
+    mask_c = banded_mask(1, h, math.ceil(s / bq), math.ceil(s / bk), 0.5, dev)
+    idx_c, count_c = compact_mask(mask_c)
+    (ro_c, rl_c, _, hr_c), plain_c_ms = timed(lambda: lite_flash_attention_coarse_plain(
+        qh, kh, vh, idx_c, count_c, 0.0, qsub=bq // 128, ksub=bk // 128, return_headroom=True))
+    thr_c = median_thr(hr_c[mask_c])
+    idx_s, count_s, bits_s = compact_mask_fine(band, bq // 128, bk // 128)
+    (ro_s, rl_s, _, hr_s), plain_s_ms = timed(lambda: lite_flash_attention_coarse_plain(
+        qh, kh, vh, idx_s, count_s, 0.0, bits_s, qsub=bq // 128, ksub=bk // 128,
+        return_headroom=True))
+    thr_s = median_thr(hr_s[:, :, :kt, :kt][band])
+    small = torch.Generator(device=dev).manual_seed(778)
+    qkv_small = torch.randn(1, SMALL_SEQ, 3, SMALL_HEADS, 64, generator=small,
+                            device=dev).bfloat16()
+    layout = torch.rand(SMALL_SEQ // 128, SMALL_SEQ // 256, generator=small, device=dev) < 0.5
+    layout[:, 0] = True
+    layout = layout.repeat_interleave(8, dim=0).cpu().numpy()  # uniform per 8 rows
+    qs_ = [rnd(1, SMALL_SEQ, SMALL_HEADS, 128) for _ in range(3)]
+
+    # The counted run: every path of the engine through its entry points.
+    torch.cuda.synchronize()
+    reset_counts()
+    res = {}
+    res["lite_attention"], (qa, ka, va), mask_a = lite_attention_path(dev, h, d)
+    res["denoise"] = denoise_compact_path(dev, full, card)
+    fo, fl, fm = flash_attn_func(q, k, v, attn_read_list=band, thr=thr_f,
+                                 return_softmax_lse=True, return_skip_mask=True)
+    co, cl, cm = flash_attn_func(q, k, v, attn_read_list=mask_c, thr=thr_c,
+                                 block_sizes=BlockSizes(bq, bk), return_softmax_lse=True,
+                                 return_skip_mask=True)
+    so, sl, sv = lite_flash_attention(qh, kh, vh, idx_s, count_s, thr_s, kv_bits=bits_s,
+                                      block_sizes=BlockSizes(bq, bk), fine_schedule=False)
+    fold = lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band, fold_h=FOLD_H)
+    bs_mod = FlashBlocksparseAttention(layout, max_seq_length=SMALL_SEQ)
+    bso, _ = bs_mod(qkv_small)
+    sp = SeqParallelLiteAttention(2, threshold=-math.inf)
+    half = SMALL_SEQ // 2
+    parts = [sp(qs_[0], qs_[1][:, sl_], qs_[2][:, sl_], i, return_softmax_lse=True)
+             for i, sl_ in enumerate((slice(0, half), slice(half, None)))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches during the engine run: {counts[0]}")
+    check(all(counts[0][n] > 0 for n in ("schedule_pack", "lite_flash_fwd", "lite_flash_fwd_coarse",
+                                         "lite_flash_fwd_hfold", "kv_compact")),
+          "engine: a kernel of the path never launched")
+
+    # Checks (their launches are not counted).
+    def check_attn(label, out, lse, ro, rl):
+        err_o = (out.float() - ro.float()).abs().max().item()
+        fin = torch.isfinite(rl)
+        check(torch.equal(fin, torch.isfinite(lse)), f"{label}: lse -inf rows differ")
+        err_l = (lse[fin] - rl[fin]).abs().max().item()
+        check(err_o < OUT_TOL and err_l < LSE_TOL, f"{label} disagrees")
+        return err_o, err_l
+
+    def check_votes(label, got, want, near, live):
+        diff = (got != want) & live
+        bad = int((diff & ~near).sum())
+        check(bad == 0, f"{label}: votes disagree outside the margin")
+        return f"votes differ at {int(diff.sum())} ({int((near & live).sum())} within {MARGIN} of thr)"
+
+    err_f = check_attn("(c) fine B3", fo.transpose(1, 2), fl, ro_f, rl_f)
+    margin = torch.where(valid, (head_f - thr_f).abs(), torch.full_like(head_f, math.inf))
+    near_f = torch.full(band.shape, math.inf, device=dev)
+    near_f.scatter_reduce_(-1, fidx.long(), margin, reduce="amin")
+    near_f = near_f < MARGIN
+    want_fm = update_mask(SkipMaskState(band, 0), rv_f).do_mask
+    msg_f = check_votes("(c) fine B3 mask", fm, want_fm, near_f, band)
+    err_c = check_attn("(c) coarse B4", co.transpose(1, 2), cl, ro_c, rl_c)
+    rv_c = torch.where((hr_c > thr_c) | (hr_c == math.inf), 0, 1).int()
+    want_cm = update_mask(SkipMaskState(mask_c, 0), rv_c).do_mask
+    msg_c = check_votes("(c) coarse B4 mask", cm, want_cm, (hr_c - thr_c).abs() < MARGIN, mask_c)
+    err_s = check_attn("(c) super-tile B4", so, sl, ro_s, rl_s)
+    rv_s = torch.where((hr_s > thr_s) | (hr_s == math.inf), 0, 1).int()
+    live_s = torch.zeros_like(hr_s, dtype=torch.bool)
+    live_s[:, :, :kt, :kt] = band
+    msg_s = check_votes("(c) super-tile B4 votes", sv, rv_s, (hr_s - thr_s).abs() < MARGIN, live_s)
+    log(f"  (c) flash_attn_func 1x{s}x{h}x{d}: fine banded mask (B3) thr {thr_f:.3f}: max|out| "
+        f"err {err_f[0]:.3e}, max|lse| err {err_f[1]:.3e}, mask {msg_f}; coarse mask at "
+        f"BlockSizes{ENGINE_TILE} (B4) thr {thr_c:.3f}: {err_c[0]:.3e}, {err_c[1]:.3e}, mask "
+        f"{msg_c}; super-tile bits (B4) thr {thr_s:.3f}: {err_s[0]:.3e}, {err_s[1]:.3e}, {msg_s}")
+    base = lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band)
+    same_fold = all(torch.equal(a, b) for a, b in zip(fold, base))
+    log(f"  (d) fold_h={FOLD_H} (B5) vs unfolded (B3): out, lse, votes equal {same_fold}")
+    check(same_fold, "(d) fold_h changed the results")
+    exact = _exact_attention(*qkv_small.unbind(2),
+                             _blockmask_elementwise(layout, SMALL_SEQ, SMALL_SEQ, dev), None, False)
+    err_bs = (bso.float() - exact.float()).abs().max().item()
+    merged, _ = combine_attention(torch.stack([o.transpose(1, 2) for o, _ in parts]),
+                                  torch.stack([l_ for _, l_ in parts]))
+    one = LiteAttention(threshold=-math.inf)(*qs_)
+    err_sp = (merged.transpose(1, 2).float() - one.float()).abs().max().item()
+    log(f"  (e) FlashBlocksparseAttention kernel route vs the plain exact 16x256 path 1x{SMALL_SEQ}x"
+        f"{SMALL_HEADS}x64: max|out| err {err_bs:.3e}; SeqParallelLiteAttention 2 splits merged "
+        f"vs one call at thr -inf, 1x{SMALL_SEQ}x{SMALL_HEADS}x128: {err_sp:.3e}")
+    check(err_bs < OUT_TOL and err_sp < OUT_TOL, "(e) disagrees")
+
+    # The kernels' times beside their bounds, plain versions and libraries.
+    kres = {}
+    rows = (s - torch.arange(math.ceil(s / bq), device=dev) * bq).clamp(max=bq)
+    cols = (s - torch.arange(math.ceil(s / bk), device=dev) * bk).clamp(max=bk)
+    live_c = int((mask_c.long() * rows[:, None] * cols[None, :]).sum())
+    rows_f = (s - torch.arange(kt, device=dev) * 128).clamp(max=128)
+    live_f = int((band.long() * rows_f[:, None] * rows_f[None, :]).sum())
+    io = nbytes(qh, kh, vh, qh, fl)  # q, k, v in; out (q's size), lse out
+    coarse = {"err": max(err_c[0], err_s[0]), "library_ms": None}
+    coarse["ms"] = cuda_ms(lambda: lite_flash_attention(
+        qh, kh, vh, idx_c, count_c, thr_c, block_sizes=BlockSizes(bq, bk), fine_schedule=False))
+    coarse["plain_ms"] = plain_c_ms
+    coarse["bound_ms"], coarse["bound_by"] = bound(
+        4 * d * live_c, io + nbytes(idx_c, count_c) + 4 * mask_c.numel())
+    sup = {"max_abs_err": err_s[0], "plain_ms": plain_s_ms}
+    sup["ms"] = cuda_ms(lambda: lite_flash_attention(
+        qh, kh, vh, idx_s, count_s, thr_s, kv_bits=bits_s, block_sizes=BlockSizes(bq, bk),
+        fine_schedule=False))
+    sup["bound_ms"], sup["bound_by"] = bound(
+        4 * d * live_f, io + nbytes(idx_s, count_s, bits_s) + 4 * hr_s.numel())
+    coarse["super_tile"] = sup
+    coarse["coarse_sparsity"] = 1 - mask_c.float().mean().item()
+    kres["lite_flash_fwd_coarse"] = coarse
+    unfolded = cuda_ms(lambda: lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band))
+    hf = {"err": err_f[0], "library_ms": None, "plain_ms": plain_f_ms, "ms_unfolded_b3": unfolded}
+    hf["ms"] = cuda_ms(lambda: lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band,
+                                                    fold_h=FOLD_H))
+    hf["bound_ms"], hf["bound_by"] = bound(
+        4 * d * live_f, io + nbytes(fidx, count, band) + 4 * band.numel())
+    kres["lite_flash_fwd_hfold"] = hf
+    # B6 and the compacted B2/B3 at (a)'s shape and final mask.
+    qa, ka, va = (x.transpose(1, 2).contiguous() for x in (qa, ka, va))
+    kv_map, inv, _ = kv_union_map(mask_a, hk=h)
+    kc, vc = compact_kv(ka, va, inv)
+    (pk, pv_), plain_kv_ms = timed(lambda: compact_kv_plain(ka, va, inv))
+    check(torch.equal(kc, pk) and torch.equal(vc, pv_), "B6 disagrees with its plain version")
+    b_, hk_, sa, _ = ka.shape
+    flat_idx = (inv.long() + torch.arange(b_ * hk_, device=dev).reshape(b_, hk_, 1)
+                * (sa // 128)).reshape(-1)
+    fk, fv = ka.reshape(-1, 128 * d), va.reshape(-1, 128 * d)
+    kvc = {"err": 0.0, "plain_ms": plain_kv_ms,
+           "library": "torch.index_select of K and V over the tile view (2 calls)"}
+    kvc["ms"] = cuda_ms(lambda: compact_kv(ka, va, inv), reps=20)
+    kvc["library_ms"] = cuda_ms(lambda: (torch.index_select(fk, 0, flat_idx),
+                                         torch.index_select(fv, 0, flat_idx)), reps=20)
+    kvc["bound_ms"], kvc["bound_by"] = bound(0, 2 * nbytes(ka, va) + nbytes(inv))
+    kres["kv_compact"] = kvc
+    fa, ca, cia = pack_schedule(mask_a, kv_map)
+    ext = {"pack_ms_kv_map": cuda_ms(lambda: pack_schedule(mask_a, kv_map), reps=20),
+           "pack_ms": cuda_ms(lambda: pack_schedule(mask_a), reps=20),
+           "pack_bound_ms_kv_map": bound(0, nbytes(mask_a, fa, ca, cia, kv_map))[0],
+           "lite_ms_compacted": cuda_ms(lambda: lite_flash_attention(
+               qa, kc, vc, fa, ca, ENGINE_THR, mask_a, cidx=cia)),
+           "lite_ms_uncompacted": cuda_ms(lambda: lite_flash_attention(
+               qa, ka, va, fa, ca, ENGINE_THR, mask_a)),
+           "a_sparsity": 1 - mask_a.float().mean().item()}
+    log(f"  B4 coarse {ENGINE_TILE} banded {coarse['coarse_sparsity']:.3f}: kernel "
+        f"{coarse['ms']:.3f} ms, plain {coarse['plain_ms']:.3f} ms, bound {coarse['bound_ms']:.3f} "
+        f"ms ({coarse['bound_by']}); super-tile {sup['ms']:.3f} ms, plain {sup['plain_ms']:.3f} "
+        f"ms, bound {sup['bound_ms']:.3f} ms ({sup['bound_by']})")
+    log(f"  B5 fold_h={FOLD_H}: {hf['ms']:.3f} ms vs B3 {unfolded:.3f} ms, bound "
+        f"{hf['bound_ms']:.3f} ms ({hf['bound_by']})")
+    log(f"  B6 compact_kv 1x{h}x{sa}x{d} K and V: kernel {kvc['ms']:.4f} ms, plain "
+        f"{kvc['plain_ms']:.3f} ms, index_select {kvc['library_ms']:.4f} ms, bound "
+        f"{kvc['bound_ms']:.4f} ms ({kvc['bound_by']})")
+    log(f"  at (a)'s mask (sparsity {ext['a_sparsity']:.3f}): B2 {ext['pack_ms']:.4f} ms, with "
+        f"kv_map {ext['pack_ms_kv_map']:.4f} ms; B3 on compacted K/V {ext['lite_ms_compacted']:.3f}"
+        f" ms vs on K/V {ext['lite_ms_uncompacted']:.3f} ms (+ B6 {kvc['ms']:.4f} ms) [{card}]")
+    return counts, kres, ext, res
+
+
+def ab_times(reps):
+    """``--ab DIR``: one JSON line for the checkout at DIR (whose
+    ``liteattention_torch`` is imported): the card, the registers and
+    spills ptxas reported per forward kernel, and the device time of B1
+    and of B3 with and without votes at the Wan slice's shape (1 x 40 x
+    32 760 x 128 bf16, banded ~50 % mask). It calls only entry points
+    every version of the port has, so checkouts can be timed in turns on
+    one card (older, newer, newer, older)."""
+    import re
+
+    import torch
+    from liteattention_torch.ops import _build
+    from liteattention_torch.ops.flash_fwd import flash_attention
+    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+    from liteattention_torch.ops.schedule_pack import pack_schedule
+
+    card = nvidia_smi_line()
+    regs, name = {}, None
+    for line in _build.build_kernels().log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        name = m.group(1) if m else name
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "attention_fwd_kernel" in name:
+            regs[name] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and "attention_fwd_kernel" in name and int(m.group(1)):
+            regs[name + " spill bytes"] = int(m.group(1))
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    h, s, d = 40, 32760, 128
+    q, k, v = (torch.randn(1, h, s, d, generator=g, device=dev).bfloat16() for _ in range(3))
+    kt = math.ceil(s / 128)
+    mask = banded_mask(1, h, kt, kt, 0.5, dev)
+    fidx, count = pack_schedule(mask)[:2]
+    print(json.dumps({
+        "root": sys.path[0], "card": card, "registers": regs,
+        "b1_ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
+        "b3_ms": cuda_ms(lambda: lite_flash_attention(q, k, v, fidx, count, -1.0, mask), reps),
+        "b3_novote_ms": cuda_ms(lambda: lite_flash_attention(
+            q, k, v, fidx, count, -1.0, mask, emit_votes=False), reps),
+        "sparsity": 1.0 - mask.float().mean().item(),
+    }))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1385,6 +1802,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab"]:
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        return ab_times(int(sys.argv[3]) if len(sys.argv) > 3 else 10)
     sys.path.insert(0, str(ROOT))
     try:
         from liteattention_torch.models import WanConfig
@@ -1418,6 +1838,9 @@ def main() -> int:
         counts["gpt2_train"], train_stats = train_phase(dev, card)
         log("phase 5: Llama-3-8B-width serving slice")
         counts["serve"], serve_stats = serve_phase(dev, card)
+        log("phase 6: the rest of the LiteAttention engine at Wan2.1-14B attention width")
+        counts["engine"], eres, ext, engine_stats = engine_phase(dev, cfg, card)
+        kres.update(eres)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1430,6 +1853,13 @@ def main() -> int:
         **{k: causal[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
     kres["flash_bwd_dq"]["fwd_bwd"] = kres["fwd_bwd"]
+    # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
+    kres["schedule_pack"]["kv_map"] = {
+        "ms": ext["pack_ms_kv_map"], "ms_without": ext["pack_ms"],
+        "bound_ms": ext["pack_bound_ms_kv_map"], "shape": f"(a)'s mask, sparsity {ext['a_sparsity']:.4f}"}
+    kres["lite_flash_fwd"]["compacted_kv"] = {
+        "ms": ext["lite_ms_compacted"], "ms_same_mask_uncompacted": ext["lite_ms_uncompacted"],
+        "kv_compact_ms": kres["kv_compact"]["ms"], "shape": "(a)'s inputs and final mask"}
     # Each path's counted run read every wrapper's count (reset just before).
     by_path = {name: {path: c[0][name] for path, c in counts.items()}
                for name in kernel_wrappers()}
@@ -1442,6 +1872,9 @@ def main() -> int:
         "flash_fwd": ("flash_fwd.cu", "liteattention_tpu/ops/flash_fwd.py:84"),
         "schedule_pack": ("schedule_pack.cu", "liteattention_tpu/ops/schedule_pack.py:52"),
         "lite_flash_fwd": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:376"),
+        "lite_flash_fwd_coarse": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:123"),
+        "lite_flash_fwd_hfold": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:885"),
+        "kv_compact": ("kv_compact.cu", "liteattention_tpu/ops/kv_compact.py:81"),
         "flash_bwd_dq": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_bwd_dkv": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:238"),
         "flash_decode": ("flash_decode.cu", "liteattention_tpu/ops/flash_fwd.py:843"),
@@ -1466,6 +1899,7 @@ def main() -> int:
         kernels.append(entry)
     log(f"training: {json.dumps(train_stats)}")
     log(f"serving: {json.dumps(serve_stats)}")
+    log(f"engine: {json.dumps(engine_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

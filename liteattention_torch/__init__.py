@@ -15,6 +15,7 @@ __version__ = "0.1.0"
 from liteattention_torch import ops
 from liteattention_torch.lite_attention import (
     LiteAttention,
+    SeqParallelLiteAttention,
     lite_attention_init,
     lite_attention_step,
 )
@@ -22,6 +23,7 @@ from liteattention_torch.lite_attention import (
 __all__ = [
     "ops",
     "LiteAttention",
+    "SeqParallelLiteAttention",
     "lite_attention_init",
     "lite_attention_step",
 ]

@@ -1,8 +1,25 @@
-"""The kvcache entry of the flash-attention API.
+"""The flash-attention functional API: ``flash_attn_func`` and its packed
+forms, and ``flash_attn_with_kvcache``.
 
-Counterpart of ``liteattention_tpu/flash_attn_interface.py:
-flash_attn_with_kvcache`` (same argument order). Its routes, on the
-decode kernel of :mod:`liteattention_torch.ops.flash_decode`:
+Counterpart of ``liteattention_tpu/flash_attn_interface.py`` (same
+argument order), taking the reference's ``[batch, seq, heads, dim]``
+layout.
+
+``flash_attn_func`` (and ``flash_attn_qkvpacked_func`` /
+``flash_attn_kvpacked_func``) is the original LiteAttention's kernel API:
+FA3 with the skip extras ``attn_read_list`` and ``thr``. Without a mask
+it is dense attention through
+:func:`~liteattention_torch.ops.flash_fwd.flash_attention_masked` (kernel
+B1, plain or causal). With a dense bool tile mask ``attn_read_list`` its
+granularity is read from its shape, as in JAX: at fine 128 x 128 tiles
+the packer B2 and the gather kernel B3 run (one 128-row q-tile per CTA,
+vote step ``block_k / 128``); at the ``block_sizes`` compute tile the
+coarse kernel B4 runs. The votes are folded into the returned mask by
+``update_mask`` (JAX returns the mask instead of writing
+``attn_write_list`` in place; so does the port).
+
+``flash_attn_with_kvcache`` routes on the decode kernel of
+:mod:`liteattention_torch.ops.flash_decode`:
 
 * **Contiguous cache** (``kv_cache_layout`` "bshd" ``[B, S_max, Hk, D]``
   or "bhsd" ``[B, Hk, S_max, D]``): new ``k``/``v`` ``[B, S_new, Hk, D]``
@@ -37,8 +54,154 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from liteattention_torch.ops.flash_fwd import flash_attention_decode
+from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
+from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+from liteattention_torch.ops.mask import SkipMaskState, cdiv, compact_mask, update_mask
 from liteattention_torch.ops.paged_attention import paged_attention_folded
+from liteattention_torch.ops.schedule_pack import pack_schedule
+from liteattention_torch.ops.tile_sizes import VOTE_TILE, BlockSizes, get_block_sizes
+
+
+def _bhsd(x):
+    return None if x is None else x.transpose(1, 2)
+
+
+def flash_attn_func(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    qv=None,
+    q_descale=None,
+    k_descale=None,
+    v_descale=None,
+    window_size: Tuple[int, int] = (-1, -1),
+    attention_chunk: int = 0,
+    softcap: float = 0.0,
+    num_splits: int = 1,
+    pack_gqa=None,
+    deterministic: bool = False,
+    sm_margin: int = 0,
+    attn_read_list: Optional[torch.Tensor] = None,
+    attn_must_do_list: Optional[torch.Tensor] = None,
+    attn_write_list=None,
+    thr: float = -3.0,
+    return_softmax_lse: bool = False,
+    return_skip_mask: bool = False,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    block_sizes: Optional[BlockSizes] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
+):
+    """Attention forward, dense or skip-masked.
+
+    Args:
+      q, k, v: ``[batch, seqlen, heads, head_dim]``; GQA/MQA by fewer KV
+        heads.
+      attn_read_list: optional bool skip mask ``[B, H, Qt, Kt]`` at fine
+        (128 x 128) or ``block_sizes`` granularity; the sparse kernels run
+        and the votes evolve the returned mask.
+      attn_must_do_list: bool, broadcastable to the mask: tiles never newly
+        skipped.
+      thr: skip threshold (log2 space).
+      return_skip_mask: also return the evolved mask.
+      num_splits, pack_gqa, deterministic, sm_margin, attn_write_list:
+        scheduling knobs and the in-place write list of other backends,
+        accepted and ignored.
+
+    Returns:
+      ``out`` plus optionally ``lse`` (fp32 ``[B, H, S]``) and the evolved
+      mask, in that order.
+    """
+    del num_splits, pack_gqa, deterministic, sm_margin, attn_write_list
+    if q_descale is not None or k_descale is not None or v_descale is not None:
+        raise NotImplementedError("flash_attn_func: fp8 descales are not supported")
+    qh, kh, vh = _bhsd(q), _bhsd(k), _bhsd(v)
+    window = None if tuple(window_size) == (-1, -1) else tuple(window_size)
+    if attn_read_list is None:
+        if qv is not None and softmax_scale is None:
+            softmax_scale = (q.shape[-1] + qv.shape[-1]) ** -0.5
+        out, lse = flash_attention_masked(
+            qh, kh, vh, alibi_slopes=alibi_slopes, scale=softmax_scale,
+            causal=causal, window=window, attention_chunk=int(attention_chunk),
+            softcap=softcap, return_lse=True, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, qv=_bhsd(qv),
+        )
+        new_mask = None
+    else:
+        others = [name for name, used in (
+            ("causal", causal), ("qv", qv is not None), ("window_size", window is not None),
+            ("attention_chunk", bool(attention_chunk)), ("softcap", bool(softcap)),
+            ("alibi_slopes", alibi_slopes is not None), ("dropout", dropout_p > 0.0),
+        ) if used]
+        if others:
+            raise ValueError(
+                f"skip-masked attention composes with none of: {', '.join(others)}"
+            )
+        read = attn_read_list.bool()
+        sq, sk = q.shape[1], k.shape[1]
+        bs = block_sizes or get_block_sizes(q.shape[-1], q.element_size(), kind="lite")
+        bq = min(bs.block_q, max(VOTE_TILE, cdiv(sq, VOTE_TILE) * VOTE_TILE))
+        bk = min(bs.block_k, max(VOTE_TILE, cdiv(sk, VOTE_TILE) * VOTE_TILE))
+        grid = tuple(read.shape[-2:])
+        fine_shape = (cdiv(sq, VOTE_TILE), cdiv(sk, VOTE_TILE))
+        coarse_shape = (cdiv(sq, bq), cdiv(sk, bk))
+        if grid == fine_shape:
+            # One CTA per fine q-row: block_q 128, vote step block_k / 128.
+            fidx, count = pack_schedule(read)
+            out, lse, votes = lite_flash_attention(
+                qh, kh, vh, fidx, count, thr, read, scale=softmax_scale,
+                block_sizes=BlockSizes(VOTE_TILE, bk),
+            )
+        elif grid == coarse_shape:
+            kv_idx, count = compact_mask(read)
+            out, lse, votes = lite_flash_attention(
+                qh, kh, vh, kv_idx, count, thr, scale=softmax_scale,
+                block_sizes=BlockSizes(bq, bk), fine_schedule=False,
+            )
+        else:
+            raise ValueError(
+                f"attn_read_list tile grid {grid} matches neither fine "
+                f"{fine_shape} nor coarse {coarse_shape} granularity"
+            )
+        must_do = None if attn_must_do_list is None else attn_must_do_list.bool()
+        new_mask = update_mask(SkipMaskState(read, 0), votes, must_do=must_do).do_mask
+    result = [out.transpose(1, 2)]
+    if return_softmax_lse:
+        result.append(lse)
+    if return_skip_mask:
+        result.append(new_mask)
+    return result[0] if len(result) == 1 else tuple(result)
+
+
+def flash_attn_qkvpacked_func(
+    qkv: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    return_softmax_lse: bool = False,
+    **kwargs,
+):
+    """Packed-QKV attention: ``qkv`` ``[B, S, 3, H, D]``."""
+    return flash_attn_func(
+        qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], softmax_scale=softmax_scale,
+        causal=causal, return_softmax_lse=return_softmax_lse, **kwargs,
+    )
+
+
+def flash_attn_kvpacked_func(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    return_softmax_lse: bool = False,
+    **kwargs,
+):
+    """Packed-KV attention: ``kv`` ``[B, S, 2, Hk, D]``."""
+    return flash_attn_func(
+        q, kv[:, :, 0], kv[:, :, 1], softmax_scale=softmax_scale, causal=causal,
+        return_softmax_lse=return_softmax_lse, **kwargs,
+    )
 
 
 def _unported(**used) -> None:
@@ -178,4 +341,9 @@ def flash_attn_with_kvcache(
     return result[0] if len(result) == 1 else tuple(result)
 
 
-__all__ = ["flash_attn_with_kvcache"]
+__all__ = [
+    "flash_attn_func",
+    "flash_attn_kvpacked_func",
+    "flash_attn_qkvpacked_func",
+    "flash_attn_with_kvcache",
+]

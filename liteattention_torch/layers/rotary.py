@@ -18,6 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from liteattention_torch.device import resolve_device
+
 
 def rotary_freqs(
     seqlen: int,
@@ -27,8 +29,9 @@ def rotary_freqs(
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables of shape ``[seqlen, rotary_dim // 2]`` (fp32) for
-    positions ``offset .. offset + seqlen - 1``."""
-    f32 = dict(dtype=torch.float32, device=device)
+    positions ``offset .. offset + seqlen - 1``, on ``device`` (default
+    ``cuda``)."""
+    f32 = dict(dtype=torch.float32, device=resolve_device(device))
     inv = 1.0 / (base ** (torch.arange(0, rotary_dim, 2, **f32) / rotary_dim))
     pos = torch.arange(offset, offset + seqlen, **f32)
     freqs = torch.outer(pos, inv)

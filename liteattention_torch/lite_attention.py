@@ -12,10 +12,14 @@ persistent skip mask across denoising timesteps.
   (``__call__``, ``set_threshold``, ``reset_skip_state``,
   ``enable_skip_optimization``, ``get_skip_percentage``).
 
+* :class:`SeqParallelLiteAttention`: one independent wrapper per KV
+  split; the caller merges the splits with
+  :func:`~liteattention_torch.ops.combine.combine_attention`.
+
 The wrapper takes ``[B, S, H, D]`` tensors; the kernels run on
 ``[B, H, S, D]``. On CUDA tensors every attention call goes through the
-port's kernels (dense B1, packer B2, lite B3); on CPU tensors through
-their plain versions.
+port's kernels (dense B1, packer B2, lite B3, K/V compaction B6); on CPU
+tensors through their plain versions.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from liteattention_torch.ops.flash_fwd import flash_attention
+from liteattention_torch.ops.kv_compact import compact_kv, kv_union_map
 from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
 from liteattention_torch.ops.mask import (
     SkipMaskState,
@@ -79,7 +84,7 @@ def lite_attention_step(
     block_sizes: Optional[BlockSizes] = None,
     return_lse: bool = False,
     emit_votes: bool = True,
-    schedule: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    schedule: Optional[Tuple[torch.Tensor, ...]] = None,
 ):
     """One denoising-step attention call with skip-mask evolution.
 
@@ -97,8 +102,14 @@ def lite_attention_step(
         unchanged.
       emit_votes: False compiles the vote chain out and carries the mask
         over unchanged (the ``vote_stride`` amortization).
-      schedule: optional cached ``pack_schedule(state.do_mask)``; callers
-        reuse it between vote steps, when the mask cannot change.
+      schedule: optional cached ``(fidx, count) = pack_schedule(state.
+        do_mask)``; callers reuse it between vote steps, when the mask
+        cannot change. A union-compacted schedule is ``(fidx, count, cidx,
+        inv)`` (``kv_map, inv, _ = kv_union_map(do_mask, hk)``, ``fidx,
+        count, cidx = pack_schedule(do_mask, kv_map)``): K and V then pass
+        through ``compact_kv(k, v, inv)`` and the kernel loads their tiles
+        at ``cidx`` -- the port's form of JAX's 6-tuple schedule. It needs
+        ``Sk % 128 == 0``.
 
     Returns:
       ``(out, new_state)`` or ``(out, lse, new_state)``.
@@ -115,10 +126,15 @@ def lite_attention_step(
     else:
         if schedule is None:
             schedule = pack_schedule(state.do_mask)
-        fidx, count = schedule
+        cidx = None
+        if len(schedule) == 4:
+            fidx, count, cidx, inv = schedule
+            k, v = compact_kv(k, v, inv)
+        else:
+            fidx, count = schedule
         out, lse, votes = lite_flash_attention(
             q, k, v, fidx, count, threshold, state.do_mask, scale=scale,
-            block_sizes=bs, emit_votes=emit_votes,
+            block_sizes=bs, emit_votes=emit_votes, cidx=cidx,
         )
         if emit_votes:
             new_state = update_mask(state, votes, must_do=must_do)
@@ -165,8 +181,14 @@ class LiteAttention:
         narrower compute tile when the union over a tile's fine q-rows is
         loose; on Hopper a CTA already owns one fine q-row (qsubs = 1),
         so there is no union and the flag is an exact no-op.
-      kv_compact: accepted for API parity and a no-op: K/V union
-        compaction (kernel B6 of the JAX package) is not ported yet.
+      kv_compact: stage K and V through a union-compacted buffer (kernel
+        B6) when the mask's cross-q-tile union leaves holes: gated per mask
+        epoch, as in JAX, on a union density below 0.75 and on
+        ``seqlen_k % 128 == 0``. The outputs and masks do not change. The
+        default follows JAX, although on an H100 the compacted schedule
+        has measured slower (B3 already gathers tiles by index, so the
+        copy buys nothing; ``PERF.md``): pass ``kv_compact=False`` for the
+        plain schedule.
     """
 
     def __init__(
@@ -248,6 +270,16 @@ class LiteAttention:
     def state(self) -> Optional[SkipMaskState]:
         return self._state
 
+    def _compact(self, do_mask, kv_heads, sk):
+        """The schedule of a mask epoch: union-compacted when ``kv_compact``
+        and the union leaves real holes (a host readback, once per epoch)."""
+        if self.kv_compact and sk % VOTE_TILE == 0:
+            kv_map, inv, ucount = kv_union_map(do_mask, hk=kv_heads)
+            density = float(ucount.float().mean()) / do_mask.shape[3]
+            if density < 0.75:
+                return (*pack_schedule(do_mask, kv_map), inv)
+        return pack_schedule(do_mask)
+
     def __call__(
         self,
         query: torch.Tensor,
@@ -312,7 +344,7 @@ class LiteAttention:
             self._read_mask = state.do_mask
             # The mask only changes on vote calls: reuse the schedule.
             if self._sched_cache is None:
-                self._sched_cache = pack_schedule(state.do_mask)
+                self._sched_cache = self._compact(state.do_mask, k.shape[1], sk)
         # Vote on the first call after (re)init, then every vote_stride-th
         # call (or on the adaptive backoff cadence).
         if self.vote_backoff_cap > 0:
@@ -356,8 +388,64 @@ class LiteAttention:
         return out
 
 
+class SeqParallelLiteAttention:
+    """Per-KV-split LiteAttention instances for sequence parallelism.
+
+    One independent skip state per KV split: the caller splits K/V, calls
+    with ``split_idx``, and merges the partial outputs by their lse with
+    :func:`~liteattention_torch.ops.combine.combine_attention`. No kernel
+    of its own: each split runs :class:`LiteAttention`'s path.
+    """
+
+    def __init__(
+        self,
+        num_nodes: int,
+        enable_skipping: bool = True,
+        threshold: float = -10.0,
+        max_batch_size: int = 4,
+        block_sizes: Optional[BlockSizes] = None,
+        vote_stride: int = 1,
+    ):
+        self.num_nodes = num_nodes
+        self.lite_attention = [
+            LiteAttention(
+                enable_skipping, threshold, max_batch_size, block_sizes,
+                vote_stride=vote_stride,
+            )
+            for _ in range(num_nodes)
+        ]
+
+    def __call__(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        split_idx: int,
+        scale: Optional[float] = None,
+        return_softmax_lse: bool = False,
+    ):
+        if not 0 <= split_idx < self.num_nodes:
+            raise ValueError("split_idx must be in [0, num_nodes)")
+        return self.lite_attention[split_idx](
+            query, key, value, scale, return_softmax_lse
+        )
+
+    def reset_skip_state(self):
+        for la in self.lite_attention:
+            la.reset_skip_state()
+
+    def set_threshold(self, threshold: float):
+        for la in self.lite_attention:
+            la.set_threshold(threshold)
+
+    def enable_skip_optimization(self, enable: bool = True):
+        for la in self.lite_attention:
+            la.enable_skip_optimization(enable)
+
+
 __all__ = [
     "LiteAttention",
+    "SeqParallelLiteAttention",
     "effective_blocks",
     "lite_attention_init",
     "lite_attention_step",

@@ -7,7 +7,8 @@ to step, each step consumes the masks written by the previous one, and
 the cond and uncond passes of classifier-free guidance keep separate
 states. With ``vote_stride`` N only every N-th step votes; the compacted
 schedules are rebuilt (kernel B2) only after a vote step, when the masks
-can have changed.
+can have changed. With ``kv_compact`` they are union-compacted schedules
+(kernel B6 relays K and V in every self-attention call).
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from liteattention_torch.models.wan import WanModel, init_skip_states
+from liteattention_torch.ops.kv_compact import kv_union_map
 from liteattention_torch.ops.schedule_pack import pack_schedule
+from liteattention_torch.ops.tile_sizes import VOTE_TILE
 
 
 def linear_threshold_schedule(
@@ -42,10 +45,19 @@ def _sparsity_of(states) -> torch.Tensor:
     ).mean()
 
 
-def _compact(states):
+def _compact(states, kv_compact):
+    """Each layer's schedule: ``(fidx, count)``, or with ``kv_compact`` the
+    union-compacted ``(fidx, count, cidx, inv)``."""
     if states is None:
         return None
-    return {i: pack_schedule(st.do_mask) for i, st in states.items()}
+    out = {}
+    for i, st in states.items():
+        if kv_compact:
+            kv_map, inv, _ = kv_union_map(st.do_mask)
+            out[i] = (*pack_schedule(st.do_mask, kv_map), inv)
+        else:
+            out[i] = pack_schedule(st.do_mask)
+    return out
 
 
 @torch.no_grad()
@@ -79,15 +91,17 @@ def denoise(
       step_range: run only steps ``[lo, hi)`` of the schedule.
       initial_states(_uncond): skip states to start from.
       vote_stride: vote (and evolve the masks) on every N-th step.
-      kv_compact: accepted for API parity; a no-op until K/V union
-        compaction (kernel B6 of the JAX package) is ported.
+      kv_compact: union-compact K/V (kernel B6) in every self-attention
+        call, when the token count is a multiple of 128 (JAX's static
+        gate: there is no union-density readback, unlike
+        :class:`~liteattention_torch.LiteAttention`). The latents do not
+        change.
 
     Returns:
       (denoised latents, telemetry with ``sparsity_per_step`` (sparsity
       of the cond states after each step), ``final_sparsity``,
       ``final_states``, ``final_states_uncond``).
     """
-    del kv_compact
     if image_ctx is not None or latent_cond is not None:
         raise NotImplementedError("denoise: I2V inputs are not ported yet")
     cfg = model.cfg
@@ -114,7 +128,10 @@ def denoise(
     thresholds = thresholds[lo:hi]
     n = len(ts)
     stride = max(1, min(vote_stride, n)) if enable_skipping else 1
-    sched_c, sched_u = _compact(states_c), _compact(states_u)
+    pt, ph, pw = cfg.patch_size
+    n_tok = (grid[0] // pt) * (grid[1] // ph) * (grid[2] // pw)
+    use_kvc = kv_compact and n_tok % VOTE_TILE == 0
+    sched_c, sched_u = _compact(states_c, use_kvc), _compact(states_u, use_kvc)
 
     x = noise
     trace = []
@@ -138,7 +155,7 @@ def denoise(
         x = (x.float() + dt * v.float()).to(x.dtype)
         if enable_skipping and emit and j + 1 < n:
             # The masks may have shrunk: recompact for the next steps.
-            sched_c, sched_u = _compact(states_c), _compact(states_u)
+            sched_c, sched_u = _compact(states_c, use_kvc), _compact(states_u, use_kvc)
         trace.append(
             _sparsity_of(states_c) if enable_skipping
             else torch.zeros((), device=x.device)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from liteattention_torch.device import resolve_device
 from liteattention_torch.modules.mha import MHA
 from liteattention_torch.modules.mlp import Mlp
 from liteattention_torch.ops.norms import dropout_add_norm
@@ -42,6 +43,7 @@ class Block(nn.Module):
         super().__init__()
         if resid_dropout1 > 0.0 or resid_dropout2 > 0.0:
             raise NotImplementedError("Block: residual dropout is not ported yet")
+        device = resolve_device(device)
         self.prenorm = prenorm
         self.parallel_block = parallel_block
         self.parallel_block_tied_norm = parallel_block_tied_norm

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from liteattention_torch.device import resolve_device
 from liteattention_torch.layers.rotary import RotaryEmbedding
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
@@ -80,6 +81,7 @@ class MHA(nn.Module):
             raise NotImplementedError(
                 f"MHA: {[k for k, v in unported.items() if v]} not ported yet"
             )
+        device = resolve_device(device)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
         self.head_dim = embed_dim // num_heads

@@ -1,7 +1,8 @@
 """MLP blocks (counterpart of ``liteattention_tpu/modules/mlp.py``).
 
 ``Mlp`` (Dense -> activation -> Dense) and ``GatedMlp`` (SwiGLU/GeGLU),
-fp32 parameters computing in ``dtype``. The tensor-parallel MLP waits for
+fp32 parameters computing in ``dtype``, on the card unless a ``device``
+is given. The tensor-parallel MLP waits for
 the port's tensor parallelism.
 """
 
@@ -13,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from liteattention_torch.device import resolve_device
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.activations import gelu_approx
 
@@ -23,6 +25,7 @@ class Mlp(nn.Module):
                  activation: Callable = gelu_approx, bias1: bool = True,
                  bias2: bool = True, dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.activation = activation
         self.fc1 = Dense(in_features, hidden_features, bias1, dtype, device)
         self.fc2 = Dense(hidden_features, out_features or in_features, bias2, dtype, device)
@@ -39,6 +42,7 @@ class GatedMlp(nn.Module):
                  activation: Callable = F.silu, bias1: bool = False,
                  bias2: bool = False, dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.activation = activation
         self.fc1 = Dense(in_features, 2 * hidden_features, bias1, dtype, device)
         self.fc2 = Dense(hidden_features, out_features or in_features, bias2, dtype, device)

@@ -6,10 +6,12 @@ from liteattention_torch.ops.attention_ref import (
     skip_votes_ref_gather,
 )
 from liteattention_torch.ops.flash_fwd import flash_attention
+from liteattention_torch.ops.kv_compact import compact_kv, kv_union_map
 from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
 from liteattention_torch.ops.mask import (
     SkipMaskState,
     compact_mask,
+    compact_mask_fine,
     compact_mask_gather,
     init_mask,
     must_do_mask,
@@ -20,6 +22,8 @@ from liteattention_torch.ops.schedule_pack import pack_schedule
 from liteattention_torch.ops.tile_sizes import BlockSizes, get_block_sizes
 
 __all__ = [
+    "compact_kv",
+    "kv_union_map",
     "pack_schedule",
     "attention_ref",
     "skip_votes_ref_gather",
@@ -27,6 +31,7 @@ __all__ = [
     "lite_flash_attention",
     "SkipMaskState",
     "compact_mask",
+    "compact_mask_fine",
     "compact_mask_gather",
     "init_mask",
     "must_do_mask",

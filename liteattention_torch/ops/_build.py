@@ -41,10 +41,10 @@ SIGNATURES = {
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
-    "lite_flash_fwd_gather": (
-        [_P] * 9 + [_I] * 7 + [_F, _F, _I, _I, _P]
-    ),
-    "lite_pack_schedule": [_P] * 3 + [_I] * 3 + [_P],
+    "lite_flash_fwd_gather": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
+    "lite_flash_fwd_coarse": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
+    "lite_kv_compact": [_P] * 5 + [_I] * 5 + [_P],
+    "lite_pack_schedule": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -1,33 +1,63 @@
-// Shared forward mainloop of the dense (B1) and lite (B3) attention kernels.
+// Shared forward mainloop of the dense (B1) and lite (B3, B4, B5) attention
+// kernels.
 //
-// One CTA owns one 128-row q-tile of one (batch, head): 8 warps, 16 q rows
-// each. K and V are walked in 128-key tiles through a two-stage cp.async ring
-// in shared memory; QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32
+// One CTA owns one 128-row q-tile of one (batch, head) -- or, folded, of
+// `fold` consecutive heads one after the other: 8 warps, 16 q rows each. K
+// and V are walked in 128-key tiles through a two-stage cp.async ring in
+// shared memory; QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32
 // accumulate). Scores live in log2 space (s * scale * log2e) so the online
 // softmax uses exp2; the lse written out is natural log.
 //
-// The schedule policy is a template parameter:
-//   SPARSE = false: visit every k-tile 0..ceil(Sk/128)-1 (dense forward, B1);
-//   SPARSE = true:  visit fidx[0..count) of this (b, h, q-tile) row, the
-//                   compacted live fine k-tiles in increasing order (B3).
-// CAUSAL (dense only) adds the bottom-right-aligned causal mask: key col is
-// valid for q row r iff col <= r + causal_offset (causal_offset = Sk - Sq).
-// The walk stops at the last k-tile that the q-tile's last row reaches, so
-// tiles above the diagonal cost no load and no math, and q-tiles are taken
-// in reverse block order so the longest walks start first. A row with no
-// valid key keeps its running max at -inf and ends with out 0, lse -inf.
-// VOTES (SPARSE only) adds the skip vote of every visited tile: with m_prev
-// the running row max from before the tile's vote step (a step is `gsize`
-// consecutive schedule entries), the tile votes "do" (0) iff some valid
-// q row has (max_col s - m_prev) > thr, strict, and "skip" (1) otherwise.
-// The first schedule entry always votes 0. Votes go straight into the fine
-// [B, H, Qt, Kt] int32 array (pre-filled with 1 by the caller).
+// The walk over k-tiles is the template parameter MODE. A walk visits
+// positions (e, s): entry e of the CTA's schedule row, fine k-tile s of it.
+//   kDense:  every k-tile 0..ceil(Sk/128)-1 in order (B1). CAUSAL adds the
+//            bottom-right-aligned causal mask (key col valid for q row r iff
+//            col <= r + causal_offset, causal_offset = Sk - Sq); the walk
+//            stops at the last k-tile the q-tile's last row reaches, and
+//            q-tiles run in reverse block order so the longest walks start
+//            first.
+//   kGather: fidx[0..count) of this (b, h, q-tile) row, the compacted live
+//            fine k-tiles in increasing order (B3; `fold` > 1 heads per CTA is
+//            B5, whose per-head arithmetic is B3's exactly). With `lidx`, the
+//            K/V of entry j is loaded from tile lidx[j] of a union-compacted
+//            buffer (B6's output) while fidx[j] still names its key columns
+//            and its vote.
+//   kCoarse: kv_idx[0..count) of the coarse row (block_q = 128 * qsub rows,
+//            block_k = 128 * ksub keys) that holds this fine q-tile; entry e
+//            is the ksub fine k-tiles of coarse tile kv_idx[e] (B4).
+//   kSuper:  as kCoarse, but fine k-tile s of entry e is visited only if bit
+//            (qs * ksub + s) of bits[e] is set, qs the place of this q-tile in
+//            its coarse row (B4's super-tile mode).
+// A row with no valid key keeps its running max at -inf and ends with out 0,
+// lse -inf.
+//
+// VOTES (sparse walks) adds the skip votes. A vote step is `gsize`
+// consecutive entries (kGather) or one entry (kCoarse, kSuper); m_prev is the
+// running row max from before the step, and a fine tile passes for a valid q
+// row iff (max_col s - m_prev) > thr, strict.
+//   kGather: each visited tile votes "do" (0) iff some row passes, else
+//            "skip" (1), into the fine [B, H, Qt, Kt] array; the first entry
+//            always votes 0.
+//   kCoarse: the coarse tile votes 0 iff some row of its 128 * qsub rows
+//            passes on some of its fine tiles, AND-ed over the qsub CTAs of
+//            the coarse row with atomicAnd into votes pre-filled with 1 (exact:
+//            the fine tiles of one step share m_prev); the first entry votes 0.
+//   kSuper:  each visited fine tile votes into the fine [B, H, Qt_c * qsub,
+//            Kt_c * ksub] array; in the first entry, the lowest live fine tile
+//            of this q-tile votes 0.
+// The coarse walks test the JAX kernel's values exactly: it masks dead
+// columns with the finite kMaskValue, not -inf, so its running max is
+// max(m, kMaskValue) once an entry was visited and a fully masked fine tile's
+// max is kMaskValue. The vote clamps both to kMaskValue the same way (the
+// softmax itself keeps -inf: the outputs do not depend on the sentinel).
 //
 // What bounds it on the H100: at 128x128 tiles each K/V byte loaded feeds
 // 128 q rows, so the kernel is bound by tensor-core issue, and mma.sync
 // reaches well under the wgmma rate. This first version keeps the design
 // simple (no TMA, no warp specialization, no wgmma); skipped tiles cost no
-// load and no math, which is what turns sparsity into time.
+// load and no math, which is what turns sparsity into time. A folded CTA
+// fetches the next head's first K/V tile while the current head's last tile
+// computes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +72,10 @@ constexpr int kBlockK = 128;  // keys per k-tile = one fine k-tile
 constexpr int kWarps = 8;     // 16 q rows per warp
 constexpr int kThreads = kWarps * 32;
 constexpr float kLn2 = 0.6931471805599453f;
+// The JAX kernels' finite mask value, -0.7 * FLT_MAX rounded to fp32.
+constexpr float kMaskValue = -0x1.666664p+127f;
+
+enum Mode { kDense = 0, kGather = 1, kCoarse = 2, kSuper = 3 };
 
 struct FwdParams {
   const __nv_bfloat16* q;  // [B, H, Sq, D]
@@ -49,15 +83,22 @@ struct FwdParams {
   const __nv_bfloat16* v;  // [B, Hk, Sk, D]
   __nv_bfloat16* out;      // [B, H, Sq, D]
   float* lse;              // [B, H, Sq]
-  const int* fidx;         // [B, H, Qt, Kt]   (SPARSE)
-  const int* count;        // [B, H, Qt]       (SPARSE)
-  const uint8_t* mask;     // [B, H, Qt, Kt]   (SPARSE)
-  int* votes;              // [B, H, Qt, Kt]   (VOTES)
+  const int* fidx;         // schedule entries [B, H, sched_q, sched_k]
+  const int* count;        // entries per schedule row [B, H, sched_q]
+  const int* lidx;         // kGather: load positions aligned with fidx, or null
+  const int* bits;         // kSuper: sub-tile liveness aligned with fidx
+  const uint8_t* mask;     // kGather: the fine mask [B, H, Qt, Kt]
+  int* votes;              // [B, H, vote_q, vote_k] (VOTES)
   int heads, kv_heads, seqlen_q, seqlen_k;
-  int qtiles, ktiles, gsize;
-  int causal_offset;  // Sk - Sq (CAUSAL)
-  float scale_log2;  // softmax scale * log2(e)
-  float thr;         // vote threshold, log2 space
+  int qtiles, ktiles;      // fine 128-row / 128-key tiles
+  int sched_q, sched_k;    // schedule grid per (b, h)
+  int qsub, ksub;          // fine tiles per schedule tile (1, 1 unless coarse)
+  int vote_q, vote_k;      // vote grid per (b, h)
+  int gsize;               // kGather: entries per vote step
+  int fold;                // kGather: heads per CTA
+  int causal_offset;       // Sk - Sq (CAUSAL)
+  float scale_log2;        // softmax scale * log2(e)
+  float thr;               // vote threshold, log2 space
 };
 
 template <int D>
@@ -134,120 +175,141 @@ __device__ __forceinline__ void load_kv_tile(const FwdParams& p,
   }
 }
 
-template <int D, bool SPARSE, bool VOTES, bool CAUSAL = false>
-__global__ void __launch_bounds__(kThreads, 1)
-    attention_fwd_kernel(const FwdParams p) {
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static_assert(SPARSE || !VOTES, "votes need the sparse schedule");
-  static_assert(!(SPARSE && CAUSAL), "causal is a channel of the dense schedule");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int kTileElems = kBlockK * (D + 8);
+// The k-tile list of one (b, h, q-tile) row on the dense and gather walks.
+struct ListRow {
+  const int* sched;   // kGather: fine k-tiles, fidx[0..n)
+  const int* lsched;  // kGather: the tiles to load (lidx, or fidx itself)
+  const __nv_bfloat16* kbase;
+  const __nv_bfloat16* vbase;
+  int n;
+};
 
-  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row within an 8-row group
-  const int t = lane % 4;  // fragment column pair
-
+template <int D, int MODE, bool CAUSAL>
+__device__ __forceinline__ ListRow list_row(const FwdParams& p, int b, int h, int qt) {
+  ListRow r{};
   const size_t bh = static_cast<size_t>(b) * p.heads + h;
-  const size_t row_id = bh * p.qtiles + qt;  // (b, h, q-tile) schedule row
-  const __nv_bfloat16* kbase =
-      p.k + (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
-  const __nv_bfloat16* vbase =
-      p.v + (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
-
-  // Rows of this thread: r_lo (fragment rows g) and r_hi (g + 8).
-  const int r_lo = qt * kBlockQ + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-  const bool lo_valid = r_lo < p.seqlen_q;
-  const bool hi_valid = r_hi < p.seqlen_q;
-
-  int n_tiles = p.ktiles;
+  const int hk = h / (p.heads / p.kv_heads);
+  const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
+  r.kbase = p.k + kv;
+  r.vbase = p.v + kv;
+  r.n = p.ktiles;
   if constexpr (CAUSAL) {
     // Last key that the q-tile's last (padded) row may see.
     const int last = qt * kBlockQ + kBlockQ - 1 + p.causal_offset;
-    n_tiles = last < 0 ? 0 : min(p.ktiles, last / kBlockK + 1);
+    r.n = last < 0 ? 0 : min(p.ktiles, last / kBlockK + 1);
   }
-  const int* sched = nullptr;
-  if constexpr (SPARSE) {
-    sched = p.fidx + row_id * p.ktiles;
-    n_tiles = p.count[row_id];
-    // count is max(live, 1): a row with no live tile lists tile fidx[0]
-    // as a dead anchor. It contributes nothing (out 0, lse -inf).
-    if (!p.mask[row_id * p.ktiles + sched[0]]) n_tiles = 0;
-    if constexpr (VOTES) {
-      if (threadIdx.x == 0) p.votes[row_id * p.ktiles + sched[0]] = 0;
+  if constexpr (MODE == kGather) {
+    const size_t row = (bh * p.qtiles + qt) * p.ktiles;
+    r.sched = p.fidx + row;
+    r.lsched = p.lidx ? p.lidx + row : r.sched;
+    r.n = p.count[bh * p.qtiles + qt];
+    // count is max(live, 1): a row with no live tile lists tile fidx[0] as
+    // a dead anchor. It contributes nothing (out 0, lse -inf).
+    if (!p.mask[row + r.sched[0]]) r.n = 0;
+  }
+  return r;
+}
+
+// The coarse walks: positions (e, s), entry e of the coarse schedule row and
+// fine k-tile s of it, in order; kSuper visits only live fine tiles.
+template <int MODE>
+struct CoarseWalk {
+  const int* sched;  // coarse tiles, kv_idx[0..n)
+  const int* bits;   // kSuper: sub-tile liveness per entry
+  int n;             // entries
+  int ksub;          // fine k-tiles per entry
+  int shift;         // kSuper: bit offset of this q-tile's sub-tiles
+
+  __device__ __forceinline__ unsigned live(int e) const {
+    const unsigned full = ksub >= 32 ? 0xffffffffu : (1u << ksub) - 1u;
+    if constexpr (MODE == kSuper) {
+      return (static_cast<unsigned>(bits[e]) >> shift) & full;
+    } else {
+      return full;
     }
   }
 
-  // Q fragments straight from global memory (A operand, row-major).
-  uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* qrow_lo = p.q + (bh * p.seqlen_q + r_lo) * D;
-    const __nv_bfloat16* qrow_hi = p.q + (bh * p.seqlen_q + r_hi) * D;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qf[kk][0] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c) : 0u;
-      qf[kk][1] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c) : 0u;
-      qf[kk][2] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c + 8) : 0u;
-      qf[kk][3] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c + 8) : 0u;
-    }
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
-  float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
-  float mv_lo = -INFINITY, mv_hi = -INFINITY;  // row max before the vote step
-
-  auto tile_at = [&](int j) { return SPARSE ? sched[j] : j; };
-
-  if (n_tiles > 0) {
-    load_kv_tile<D>(p, kbase, vbase, smem, smem + kTileElems, tile_at(0));
-  }
-  cp_async_commit();
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
-      load_kv_tile<D>(p, kbase, vbase, nxt, nxt + kTileElems, tile_at(j + 1));
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
-    const __nv_bfloat16* vs = ks + kTileElems;
-    const int tile = tile_at(j);
-
-    // S = Q K^T for this warp's 16 rows x 128 keys.
-    float s[16][4];
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nb = 0; nb < 16; ++nb) {
-        const __nv_bfloat16* kp = ks + (nb * 8 + g) * (D + 8) + kk * 16 + 2 * t;
-        mma_bf16(s[nb], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+  // Step (e, s) to the next visited position; false past the end. The
+  // first call (s = -1) finds the first position.
+  __device__ __forceinline__ bool advance(int& e, int& s) const {
+    for (++s; e < n; ++e, s = 0) {
+      if (s < ksub) {
+        const unsigned rest = live(e) >> s;
+        if (rest) {
+          s += __ffs(rest) - 1;
+          return true;
+        }
       }
     }
+    return false;
+  }
 
-    // Log2-space scores; columns past seqlen_k never contribute.
-    const int col0 = tile * kBlockK;
-    const bool ragged = col0 + kBlockK > p.seqlen_k;
-    // Only tiles that cross the diagonal need the per-element causal test.
-    const bool diag =
-        CAUSAL && col0 + kBlockK - 1 > qt * kBlockQ + warp * 16 + p.causal_offset;
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  __device__ __forceinline__ int tile(int e, int s) const { return sched[e] * ksub + s; }
+};
+
+template <int D>
+__device__ __forceinline__ void load_q(const FwdParams& p, size_t bh, int r_lo,
+                                       int r_hi, uint32_t (&qf)[D / 16][4]) {
+  // Q fragments straight from global memory (A operand, row-major).
+  const int t = threadIdx.x % 4;
+  const bool lo_valid = r_lo < p.seqlen_q;
+  const bool hi_valid = r_hi < p.seqlen_q;
+  const __nv_bfloat16* qrow_lo = p.q + (bh * p.seqlen_q + r_lo) * D;
+  const __nv_bfloat16* qrow_hi = p.q + (bh * p.seqlen_q + r_hi) * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    qf[kk][0] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c) : 0u;
+    qf[kk][1] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c) : 0u;
+    qf[kk][2] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c + 8) : 0u;
+    qf[kk][3] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c + 8) : 0u;
+  }
+}
+
+// One k-tile of the mainloop: S = Q K^T for this warp's 16 rows x 128 keys
+// (log2 space; columns past seqlen_k, and above the diagonal with CAUSAL,
+// masked to -inf), then `vote(mx_lo, mx_hi)` with the tile's row maxima
+// before the running max absorbs them, then the online softmax update and
+// O += P V.
+template <int D, bool CAUSAL, typename Vote>
+__device__ __forceinline__ void attend_tile(
+    const FwdParams& p, const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4],
+    float& m_lo, float& m_hi, float& l_lo, float& l_hi, const __nv_bfloat16* ks,
+    const __nv_bfloat16* vs, int tile, int qt, int r_lo, int r_hi, Vote&& vote) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float s[16][4];
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+      const __nv_bfloat16* kp = ks + (nb * 8 + g) * (D + 8) + kk * 16 + 2 * t;
+      mma_bf16(s[nb], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
+               *reinterpret_cast<const uint32_t*>(kp + 8));
+    }
+  }
+
+  const int col0 = tile * kBlockK;
+  const bool ragged = col0 + kBlockK > p.seqlen_k;
+  // Only tiles that cross the diagonal need the per-element causal test.
+  const bool diag =
+      CAUSAL && col0 + kBlockK - 1 > qt * kBlockQ + warp * 16 + p.causal_offset;
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+  // The common tile needs no per-element test. Written out by hand: left to
+  // the compiler, the one masked loop cost B1 2 % and B3 4-7 % on an H100.
+  if (!ragged && !diag) {
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= p.scale_log2;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
+    }
+  } else {
 #pragma unroll
     for (int nb = 0; nb < 16; ++nb) {
 #pragma unroll
@@ -261,76 +323,70 @@ __global__ void __launch_bounds__(kThreads, 1)
       mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
     }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-
-    if constexpr (VOTES) {
-      if (j % p.gsize == 0) {  // a new vote step starts: snapshot m_prev
-        mv_lo = m_lo;
-        mv_hi = m_hi;
-      }
-      const bool keep = (lo_valid && mx_lo - mv_lo > p.thr) ||
-                        (hi_valid && mx_hi - mv_hi > p.thr);
-      // CTA-wide OR over all 128 rows (every warp walks the same tiles).
-      const int any_keep = __syncthreads_or(keep);
-      if (threadIdx.x == 0 && j > 0) {
-        p.votes[row_id * p.ktiles + tile] = any_keep ? 0 : 1;
-      }
-    }
-
-    // Online softmax update.
-    const float mn_lo = fmaxf(m_lo, mx_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-    const float alpha_lo = fast_exp2(m_lo - base_lo);
-    const float alpha_hi = fast_exp2(m_hi - base_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
-      s[nb][0] = fast_exp2(s[nb][0] - base_lo);
-      s[nb][1] = fast_exp2(s[nb][1] - base_lo);
-      s[nb][2] = fast_exp2(s[nb][2] - base_hi);
-      s[nb][3] = fast_exp2(s[nb][3] - base_hi);
-      sum_lo += s[nb][0] + s[nb][1];
-      sum_hi += s[nb][2] + s[nb][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha_lo;
-      acc[i][1] *= alpha_lo;
-      acc[i][2] *= alpha_hi;
-      acc[i][3] *= alpha_hi;
-    }
-
-    // O += P V: P's accumulator layout is reused as the A operand.
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int db = 0; db < D / 16; ++db) {
-        uint32_t bfrag[4];
-        ldmatrix_x4_trans(bfrag, vs + key * (D + 8) + db * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * db], a, bfrag[0], bfrag[1]);
-        mma_bf16(acc[2 * db + 1], a, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration
   }
-  cp_async_wait<0>();
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
 
-  // Epilogue: full row sums, normalize, natural-log lse.
+  vote(mx_lo, mx_hi);
+
+  // Online softmax update.
+  const float mn_lo = fmaxf(m_lo, mx_lo);
+  const float mn_hi = fmaxf(m_hi, mx_hi);
+  const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+  const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+  const float alpha_lo = fast_exp2(m_lo - base_lo);
+  const float alpha_hi = fast_exp2(m_hi - base_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < 16; ++nb) {
+    s[nb][0] = fast_exp2(s[nb][0] - base_lo);
+    s[nb][1] = fast_exp2(s[nb][1] - base_lo);
+    s[nb][2] = fast_exp2(s[nb][2] - base_hi);
+    s[nb][3] = fast_exp2(s[nb][3] - base_hi);
+    sum_lo += s[nb][0] + s[nb][1];
+    sum_hi += s[nb][2] + s[nb][3];
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    acc[i][0] *= alpha_lo;
+    acc[i][1] *= alpha_lo;
+    acc[i][2] *= alpha_hi;
+    acc[i][3] *= alpha_hi;
+  }
+
+  // O += P V: P's accumulator layout is reused as the A operand.
+#pragma unroll
+  for (int kc = 0; kc < kBlockK / 16; ++kc) {
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+    a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+    a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+    a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+    const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int db = 0; db < D / 16; ++db) {
+      uint32_t bfrag[4];
+      ldmatrix_x4_trans(bfrag, vs + key * (D + 8) + db * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * db], a, bfrag[0], bfrag[1]);
+      mma_bf16(acc[2 * db + 1], a, bfrag[2], bfrag[3]);
+    }
+  }
+}
+
+// Epilogue: full row sums, normalize, natural-log lse.
+template <int D>
+__device__ __forceinline__ void store_out(const FwdParams& p, size_t bh, int r_lo,
+                                          int r_hi, float (&acc)[D / 8][4], float m_lo,
+                                          float m_hi, float l_lo, float l_hi) {
+  const int t = threadIdx.x % 4;
+  const bool lo_valid = r_lo < p.seqlen_q;
+  const bool hi_valid = r_hi < p.seqlen_q;
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
@@ -355,27 +411,200 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (t == 0) {
     if (lo_valid) {
-      p.lse[bh * p.seqlen_q + r_lo] =
-          empty_lo ? -INFINITY : m_lo * kLn2 + logf(l_lo);
+      p.lse[bh * p.seqlen_q + r_lo] = empty_lo ? -INFINITY : m_lo * kLn2 + logf(l_lo);
     }
     if (hi_valid) {
-      p.lse[bh * p.seqlen_q + r_hi] =
-          empty_hi ? -INFINITY : m_hi * kLn2 + logf(l_hi);
+      p.lse[bh * p.seqlen_q + r_hi] = empty_hi ? -INFINITY : m_hi * kLn2 + logf(l_hi);
     }
   }
 }
 
-// Host-side launch of one instantiation on `stream`; returns the CUDA error
-// of the launch (0 on success).
-template <int D, bool SPARSE, bool VOTES, bool CAUSAL = false>
+template <int D, int MODE, bool VOTES, bool CAUSAL = false, bool FOLD = false>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_fwd_kernel(const FwdParams p) {
+  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static_assert(MODE != kDense || !VOTES, "votes need a sparse walk");
+  static_assert(MODE == kDense || !CAUSAL, "causal is a channel of the dense walk");
+  static_assert(MODE == kGather || !FOLD, "heads fold on the gather walk");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int kTileElems = kBlockK * (D + 8);
+
+  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  // Rows of this thread: r_lo (fragment rows g) and r_hi (g + 8).
+  const int r_lo = qt * kBlockQ + warp * 16 + g;
+  const int r_hi = r_lo + 8;
+  const bool lo_valid = r_lo < p.seqlen_q;
+  const bool hi_valid = r_hi < p.seqlen_q;
+
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+  if constexpr (MODE == kDense || MODE == kGather) {
+    const int fold = FOLD ? p.fold : 1;
+    bool primed = false;  // this head's first K/V tile is already in flight
+    int it = 0;           // tiles walked by this CTA (FOLD): the ring stage
+    for (int hl = 0; hl < fold; ++hl) {
+      const int h = blockIdx.y * fold + hl;
+      const size_t bh = static_cast<size_t>(b) * p.heads + h;
+      const ListRow row = list_row<D, MODE, CAUSAL>(p, b, h, qt);
+      auto col_at = [&](int j) { return MODE == kGather ? row.sched[j] : j; };
+      auto load_at = [&](int j) { return MODE == kGather ? row.lsched[j] : j; };
+      int* vrow = nullptr;
+      if constexpr (VOTES) {
+        vrow = p.votes + (bh * p.qtiles + qt) * p.ktiles;
+        if (threadIdx.x == 0) vrow[row.sched[0]] = 0;
+      }
+      if (!primed) {
+        if (row.n > 0) {
+          __nv_bfloat16* cur = smem + (it & 1) * 2 * kTileElems;
+          load_kv_tile<D>(p, row.kbase, row.vbase, cur, cur + kTileElems, load_at(0));
+        }
+        cp_async_commit();
+      }
+      primed = false;
+      load_q<D>(p, bh, r_lo, r_hi, qf);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
+      float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
+      float mv_lo = -INFINITY, mv_hi = -INFINITY;  // row max before the vote step
+
+      for (int j = 0; j < row.n; ++j) {
+        const int stage = (FOLD ? it : j) & 1;
+        __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
+        if (j + 1 < row.n) {
+          load_kv_tile<D>(p, row.kbase, row.vbase, nxt, nxt + kTileElems, load_at(j + 1));
+        } else if (FOLD && hl + 1 < fold) {
+          // Fetch the next head's first tile while this head finishes.
+          const ListRow next = list_row<D, MODE, CAUSAL>(p, b, h + 1, qt);
+          if (next.n > 0) {
+            load_kv_tile<D>(p, next.kbase, next.vbase, nxt, nxt + kTileElems,
+                            MODE == kGather ? next.lsched[0] : 0);
+          }
+          primed = true;
+        }
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();
+        const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
+        const int tile = col_at(j);
+        // A new vote step starts: snapshot m_prev. Taken here, before the
+        // tile's math, the step test stays off the path between the row
+        // maxima and the barrier below (inside the vote it cost B3 ~2 %).
+        if (VOTES && j % p.gsize == 0) {
+          mv_lo = m_lo;
+          mv_hi = m_hi;
+        }
+        attend_tile<D, CAUSAL>(
+            p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, qt, r_lo,
+            r_hi, [&](float mx_lo, float mx_hi) {
+              if constexpr (VOTES) {
+                // Bitwise, not short-circuit: no branch before the barrier.
+                const bool keep = (lo_valid & (mx_lo - mv_lo > p.thr)) |
+                                  (hi_valid & (mx_hi - mv_hi > p.thr));
+                // CTA-wide OR over all 128 rows (every warp walks the same tiles).
+                const int any_keep = __syncthreads_or(keep);
+                if (threadIdx.x == 0 && j > 0) vrow[tile] = any_keep ? 0 : 1;
+              }
+            });
+        __syncthreads();  // this stage is refilled by the next iteration
+        if (FOLD) ++it;
+      }
+      store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
+    }
+  } else {
+    // kCoarse / kSuper: one head per CTA, the coarse row of this q-tile.
+    const int h = blockIdx.y;
+    const size_t bh = static_cast<size_t>(b) * p.heads + h;
+    const int hk = h / (p.heads / p.kv_heads);
+    const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
+    const size_t srow = bh * p.sched_q + qt / p.qsub;
+    CoarseWalk<MODE> w{};
+    w.sched = p.fidx + srow * p.sched_k;
+    w.n = p.count[srow];
+    w.ksub = p.ksub;
+    if constexpr (MODE == kSuper) {
+      w.bits = p.bits + srow * p.sched_k;
+      w.shift = (qt % p.qsub) * p.ksub;
+    }
+    int* vrow = p.votes +
+                (bh * p.vote_q + (MODE == kCoarse ? qt / p.qsub : qt)) * p.vote_k;
+    // kSuper: the lowest live fine tile of entry 0 votes 0.
+    const int anchor = MODE == kSuper && w.n > 0 ? __ffs(w.live(0)) - 1 : -1;
+    int e = 0, s = -1;
+    bool have = w.advance(e, s);
+    if (have) load_kv_tile<D>(p, p.k + kv, p.v + kv, smem, smem + kTileElems, w.tile(e, s));
+    cp_async_commit();
+    load_q<D>(p, bh, r_lo, r_hi, qf);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    float l_lo = 0.f, l_hi = 0.f;
+    float mv_lo = -INFINITY, mv_hi = -INFINITY;
+    int step = -1;      // entry of the previous position
+    int step_keep = 0;  // kCoarse: some fine tile of the entry passed
+    for (int it = 0; have; ++it) {
+      int ne = e, ns = s;
+      const bool more = w.advance(ne, ns);
+      const int stage = it & 1;
+      __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
+      if (more) load_kv_tile<D>(p, p.k + kv, p.v + kv, nxt, nxt + kTileElems, w.tile(ne, ns));
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
+      const int tile = w.tile(e, s);
+      attend_tile<D, false>(
+          p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, qt, r_lo, r_hi,
+          [&](float mx_lo, float mx_hi) {
+            if (e != step) {  // a new entry: snapshot m_prev
+              step = e;
+              mv_lo = m_lo;
+              mv_hi = m_hi;
+              step_keep = 0;
+            }
+            const float mp_lo = e == 0 ? -INFINITY : fmaxf(mv_lo, kMaskValue);
+            const float mp_hi = e == 0 ? -INFINITY : fmaxf(mv_hi, kMaskValue);
+            const bool keep = (lo_valid & (fmaxf(mx_lo, kMaskValue) - mp_lo > p.thr)) |
+                              (hi_valid & (fmaxf(mx_hi, kMaskValue) - mp_hi > p.thr));
+            const int any_keep = __syncthreads_or(keep);
+            if (threadIdx.x == 0) {
+              if constexpr (MODE == kSuper) {
+                vrow[tile] = (any_keep || (e == 0 && s == anchor)) ? 0 : 1;
+              } else {
+                step_keep |= any_keep;
+                if (!(more && ne == e)) {  // the entry's last fine tile
+                  atomicAnd(vrow + w.sched[e], (e == 0 || step_keep) ? 0 : 1);
+                }
+              }
+            }
+          });
+      __syncthreads();
+      e = ne;
+      s = ns;
+      have = more;
+    }
+    store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
+  }
+  cp_async_wait<0>();
+}
+
+// Host-side launch of one instantiation on `stream`: one CTA per fine q-tile
+// and head, or group of `fold` heads with FOLD (a separate instantiation, so
+// that the unfolded walk carries no head loop). Returns the CUDA error of the
+// launch (0 on success).
+template <int D, int MODE, bool VOTES, bool CAUSAL = false, bool FOLD = false>
 cudaError_t launch_attention_fwd(const FwdParams& p, int batch,
                                  cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<D, SPARSE, VOTES, CAUSAL>;
+  auto kernel = attention_fwd_kernel<D, MODE, VOTES, CAUSAL, FOLD>;
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.qtiles, p.heads, batch);
+  dim3 grid(p.qtiles, p.heads / (FOLD ? p.fold : 1), batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -29,16 +29,18 @@ extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
   p.qtiles = (seqlen_q + lite::kBlockQ - 1) / lite::kBlockQ;
   p.ktiles = (seqlen_k + lite::kBlockK - 1) / lite::kBlockK;
   p.gsize = 1;
+  p.fold = 1;
   p.scale_log2 = scale * 1.4426950408889634f;
   p.thr = 0.f;
   p.causal_offset = seqlen_k - seqlen_q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kDense = lite::kDense;
   if (head_dim == 64) {
-    err = causal ? lite::launch_attention_fwd<64, false, false, true>(p, batch, s)
-                 : lite::launch_attention_fwd<64, false, false>(p, batch, s);
+    err = causal ? lite::launch_attention_fwd<64, kDense, false, true>(p, batch, s)
+                 : lite::launch_attention_fwd<64, kDense, false>(p, batch, s);
   } else if (head_dim == 128) {
-    err = causal ? lite::launch_attention_fwd<128, false, false, true>(p, batch, s)
-                 : lite::launch_attention_fwd<128, false, false>(p, batch, s);
+    err = causal ? lite::launch_attention_fwd<128, kDense, false, true>(p, batch, s)
+                 : lite::launch_attention_fwd<128, kDense, false>(p, batch, s);
   } else {
     err = cudaErrorInvalidValue;
   }

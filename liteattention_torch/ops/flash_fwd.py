@@ -181,6 +181,54 @@ def _launch(q, k, v, scale, causal):
 flash_attention.launches = 0
 
 
+def flash_attention_masked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_segments=None,
+    kv_segments=None,
+    kv_bound=None,
+    kv_low=None,
+    alibi_slopes=None,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    bound_causal: bool = False,
+    window=None,
+    attention_chunk: int = 0,
+    softcap: float = 0.0,
+    block_sizes: Optional[BlockSizes] = None,
+    return_lse: bool = False,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
+    qv=None,
+):
+    """Counterpart of ``liteattention_tpu/ops/flash_fwd.py:
+    flash_attention_masked`` (same arguments). The port routes the plain
+    and causal forms to :func:`flash_attention` (kernel B1, with its
+    backward); every other mask channel raises ``NotImplementedError``
+    naming itself (ROADMAP A11). ``block_sizes`` is a tiling knob of the
+    JAX kernel, accepted and ignored (B1 runs 128 x 128)."""
+    unported = [
+        name for name, used in (
+            ("segments", q_segments is not None or kv_segments is not None),
+            ("kv_bound", kv_bound is not None or bound_causal),
+            ("kv_low", kv_low is not None),
+            ("alibi_slopes", alibi_slopes is not None),
+            ("window", window is not None),
+            ("attention_chunk", bool(attention_chunk)),
+            ("softcap", bool(softcap)),
+            ("dropout", dropout_p > 0.0 or dropout_seed is not None),
+            ("qv", qv is not None),
+        ) if used
+    ]
+    if unported:
+        raise NotImplementedError(
+            f"flash_attention_masked: {', '.join(unported)} not ported yet (ROADMAP A11)"
+        )
+    del block_sizes
+    return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse)
+
+
 def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
             v_scale, int8_mma, causal, num_splits, plain):
     if int8_mma:
@@ -287,6 +335,7 @@ flash_attention_decode.merge_launches = 0
 
 __all__ = [
     "flash_attention",
+    "flash_attention_masked",
     "flash_attention_plain",
     "flash_attention_decode",
     "flash_attention_decode_plain",

@@ -144,6 +144,48 @@ def compact_mask(do_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return kv_idx.int(), count.int()
 
 
+def compact_mask_fine(
+    do_mask: torch.Tensor, qsubs: int, ksubs: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hierarchical compaction of a fine mask for the super-tile schedule.
+
+    A compute tile covers ``qsubs x ksubs`` fine tiles; it is scheduled iff
+    any of them is live.
+
+    Args:
+      do_mask: bool ``[B, H, Qtf, Ktf]`` fine mask.
+      qsubs, ksubs: fine tiles per compute tile along q / k
+        (``qsubs * ksubs <= 32``: the sub-mask is one int32 per tile).
+
+    Returns:
+      kv_idx: int32 ``[B, H, Qt, Kt]`` live super-tile indices
+        (:func:`compact_mask`'s contract).
+      count: int32 ``[B, H, Qt]`` live super-tiles (>= 1).
+      kv_bits: int32 ``[B, H, Qt, Kt]`` aligned with ``kv_idx``: bit
+        ``qs * ksubs + ks`` is the liveness of fine tile (qs, ks) inside
+        super-tile ``kv_idx[..., j]``.
+    """
+    if qsubs * ksubs > 32:
+        raise ValueError("qsubs * ksubs must be <= 32 (one int32 per tile)")
+    b, h, qtf, ktf = do_mask.shape
+    qt, kt = cdiv(qtf, qsubs), cdiv(ktf, ksubs)
+    fine = torch.zeros(
+        (b, h, qt * qsubs, kt * ksubs), dtype=torch.bool, device=do_mask.device
+    )
+    fine[:, :, :qtf, :ktf] = do_mask  # padded fine tiles are dead
+    fine = fine.reshape(b, h, qt, qsubs, kt, ksubs)
+    kv_idx, count = compact_mask(fine.any(dim=5).any(dim=3))
+    shifts = (
+        torch.arange(qsubs, device=do_mask.device)[:, None] * ksubs
+        + torch.arange(ksubs, device=do_mask.device)[None, :]
+    )
+    weights = torch.ones_like(shifts, dtype=torch.int64) << shifts
+    bits = (fine.long() * weights[:, None, :]).sum(dim=(3, 5))
+    kv_bits = torch.gather(bits, -1, kv_idx.long())
+    # Bit 31 set reads back negative, as JAX's int32 sum wraps.
+    return kv_idx, count, kv_bits.to(torch.int32)
+
+
 def compact_mask_gather(
     do_mask: torch.Tensor, qsubs: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -229,6 +271,7 @@ __all__ = [
     "must_do_mask",
     "update_mask",
     "compact_mask",
+    "compact_mask_fine",
     "compact_mask_gather",
     "sparsity",
     "mask_to_range_list",

@@ -13,11 +13,18 @@ TPU wire format (qbits, step flags, 128-lane rows) is not carried over.
 Output contract (``compact_mask_gather(mask, 1)[:2]``): ``fidx`` lists
 the live k-tile indices in increasing order and repeats the last one in
 the tail; ``count = max(live, 1)``; a row with no live tile lists tile 0.
+
+With ``kv_map`` (:func:`~liteattention_torch.ops.kv_compact.kv_union_map`)
+the packer also returns ``cidx = kv_map[fidx]``, each entry's position in
+the union-compacted K/V buffer (0 throughout for a row with no live tile).
+JAX's packer writes these compact positions in place of the fine indices
+and hands ``kv_map`` to its vote decode; the port keeps both lists, so the
+kernel loads at ``cidx`` and votes at ``fidx``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,32 +32,60 @@ from liteattention_torch.ops import _build
 from liteattention_torch.ops.mask import compact_mask
 
 
-def pack_schedule_plain(do_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _compact_positions(kv_map, fidx, count_live):
+    b, h, qt, kt = fidx.shape
+    group = h // kv_map.shape[1]
+    rows = kv_map.repeat_interleave(group, dim=1)[:, :, None].expand(b, h, qt, kt)
+    cidx = torch.gather(rows, -1, fidx.long())
+    return torch.where(count_live[..., None] > 0, cidx, 0).int()
+
+
+def pack_schedule_plain(do_mask: torch.Tensor, kv_map: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the kernel (stable argsort compaction)."""
-    return compact_mask(do_mask)
+    fidx, count = compact_mask(do_mask)
+    if kv_map is None:
+        return fidx, count
+    return fidx, count, _compact_positions(kv_map, fidx, do_mask.sum(-1))
 
 
-def pack_schedule(do_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def pack_schedule(
+    do_mask: torch.Tensor, kv_map: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, ...]:
     """Fine mask bool ``[B, H, Qt, Kt]`` -> (fidx int32 ``[B, H, Qt, Kt]``,
-    count int32 ``[B, H, Qt]``)."""
+    count int32 ``[B, H, Qt]``), and with ``kv_map`` int32 ``[B, Hk, Kt]``
+    also cidx int32 ``[B, H, Qt, Kt]``."""
     if do_mask.dim() != 4 or do_mask.dtype != torch.bool:
         raise ValueError("do_mask must be a bool [B, H, Qt, Kt] tensor")
+    b, h, qt, kt = do_mask.shape
+    if kv_map is not None:
+        if (kv_map.dim() != 3 or kv_map.shape[0] != b or kv_map.shape[2] != kt
+                or h % kv_map.shape[1]):
+            raise ValueError(f"kv_map {tuple(kv_map.shape)} does not match the mask")
     if do_mask.device.type == "cpu":
-        return pack_schedule_plain(do_mask)
+        return pack_schedule_plain(do_mask, kv_map)
     if do_mask.device.type != "cuda":
         raise ValueError(f"no kernel for device {do_mask.device}")
     mask = do_mask.contiguous()
-    b, h, qt, kt = mask.shape
     fidx = torch.empty((b, h, qt, kt), dtype=torch.int32, device=mask.device)
     count = torch.empty((b, h, qt), dtype=torch.int32, device=mask.device)
+    cidx = kmap = None
+    group = 1
+    if kv_map is not None:
+        if kv_map.dtype != torch.int32:
+            raise TypeError("kv_map must be int32")
+        kmap = kv_map.contiguous()
+        cidx = torch.empty_like(fidx)
+        group = h // kv_map.shape[1]
     lib = _build.load_kernels()
     err = lib.lite_pack_schedule(
-        mask.data_ptr(), fidx.data_ptr(), count.data_ptr(), b * h * qt, kt,
+        mask.data_ptr(), fidx.data_ptr(), count.data_ptr(),
+        None if kmap is None else kmap.data_ptr(),
+        None if cidx is None else cidx.data_ptr(), b * h * qt, kt, qt, group,
         mask.device.index, torch.cuda.current_stream(mask.device).cuda_stream,
     )
     _build.check(err, "schedule_pack")
     pack_schedule.launches += 1
-    return fidx, count
+    return (fidx, count) if cidx is None else (fidx, count, cidx)
 
 
 pack_schedule.launches = 0

@@ -10,7 +10,9 @@ re-derived from measurements on the H100.
   live k-tiles (``qsubs = 1``: no union over several fine q-rows).
   ``block_k = 128 * gsize`` sets how many live fine k-tiles form one
   vote step (the running max used by the vote test is refreshed once per
-  step); ``gsize = 1`` by default.
+  step); ``gsize = 1`` by default. The coarse and super-tile modes take
+  any ``(128 * qsub, 128 * ksub)`` compute tile: its ``qsub`` CTAs walk
+  one coarse row.
 * Dense kernel: 128 x 128 tiles, the first geometry of the port.
 
 No timing is recorded here yet.

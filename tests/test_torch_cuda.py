@@ -10,7 +10,10 @@ rounded to bf16 before PV), and causal out within 2e-2 of max(1, |plain|)
 (causal rows with few keys reach |v|); lse within 1e-3 (fp32 with
 approximate exp2); packed schedules exactly equal; votes equal except
 where a tile's fp32 margin ``|headroom - thr|`` is below 1e-3 (summation
-order can flip those). Backward (B7): each of dq, dk, dv within rel-L2
+order can flip those; the coarse modes B4 are checked where the plain
+vote is the same at thr -/+ 1e-3). B5 (heads folded per CTA) and B3
+loading union-compacted K/V equal B3 bit for bit; B6 and B2's compact
+positions equal their plain versions exactly. Backward (B7): each of dq, dk, dv within rel-L2
 1e-2 over the tensor and 2e-2 over every (b, h, 128-row block), so that
 one wrong tile cannot hide (bf16 outputs, P and dS rounded to bf16 before
 their products; dK/dV sum the GQA group in fp32 first).
@@ -184,6 +187,145 @@ def test_lite_fwd_kernel(dev, gsize, d):
         assert 0 < rv[m].float().mean().item() < 1
 
 
+def _stable_votes(plain, thr):
+    """Tiles whose plain vote is the same at thr -/+ 1e-3: outside the
+    margin where fp32 summation order can flip a vote."""
+    return plain(thr - 1e-3)[2] == plain(thr + 1e-3)[2]
+
+
+# (bq, bk, super-tile): coarse votes AND-ed over 2 CTAs (bq 256), coarse
+# steps of 2 fine tiles (bk 256), super-tile bitmaps; Sq 700 / Sk 900
+# leave ragged tails and a coarse tile hanging past the keys.
+@pytest.mark.parametrize("bq,bk,fine", [
+    (256, 256, False), (128, 256, False), (256, 128, False), (256, 256, True), (128, 384, True),
+])
+def test_lite_coarse_kernel(dev, bq, bk, fine):
+    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention_coarse_plain
+    from liteattention_torch.ops.mask import compact_mask, compact_mask_fine
+
+    q, k, v = _qkv(dev, 1, 4, 2, 700, 900, 128, seed=bq + bk)
+    g = torch.Generator(device=dev).manual_seed(bk)
+    qs, ks = bq // 128, bk // 128
+    if fine:
+        m = torch.rand(1, 4, 6, 8, generator=g, device=dev) < 0.45
+        m[0, 1, 2] = False  # a fine row with nothing live
+        idx, count, bits = compact_mask_fine(m, qs, ks)
+    else:
+        m = torch.rand(1, 4, -(-700 // bq), -(-900 // bk), generator=g, device=dev) < 0.6
+        m[0, 1, 1] = False  # a coarse row with nothing live: tile 0 computed
+        (idx, count), bits = compact_mask(m), None
+
+    def plain(thr):
+        return lite_flash_attention_coarse_plain(q, k, v, idx, count, thr, bits, qsub=qs, ksub=ks)
+
+    for thr in (-1.0, float("inf")):
+        n0 = lite_flash_attention.coarse_launches
+        out, lse, votes = lite_flash_attention(
+            q, k, v, idx, count, thr, kv_bits=bits, block_sizes=BlockSizes(bq, bk),
+            fine_schedule=False,
+        )
+        torch.cuda.synchronize()
+        assert lite_flash_attention.coarse_launches == n0 + 1
+        ro, rl, rv = plain(thr)
+        assert (out.float() - ro.float()).abs().max().item() < 2e-2
+        fin = torch.isfinite(rl)
+        assert torch.equal(fin, torch.isfinite(lse)) and fin.all() != fine
+        assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+        stable = _stable_votes(plain, thr) if thr < float("inf") else torch.ones_like(rv, dtype=bool)
+        bad = (votes != rv) & stable
+        assert not bad.any(), int(bad.sum())
+        if thr < float("inf"):
+            assert 0 < rv.float().mean().item() < 1
+
+
+def test_lite_fold_kernel(dev):
+    # B5: fold_h heads per CTA, bit-identical to B3, with GQA and a dead row.
+    q, k, v = _qkv(dev, 1, 8, 2, 700, 900, 128, seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    m = torch.rand(1, 8, 6, 8, generator=g, device=dev) < 0.5
+    m[..., 0] = True
+    m[0, 3, 2] = False
+    fidx, count = pack_schedule(m)
+    for emit in (True, False):
+        base = lite_flash_attention(q, k, v, fidx, count, -1.0, m, emit_votes=emit)
+        for fold in (2, 8):
+            n0 = lite_flash_attention.hfold_launches
+            got = lite_flash_attention(q, k, v, fidx, count, -1.0, m, emit_votes=emit, fold_h=fold)
+            torch.cuda.synchronize()
+            assert lite_flash_attention.hfold_launches == n0 + 1
+            for a, b in zip(got, base):
+                assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(ValueError):
+        lite_flash_attention(q, k, v, fidx, count, -1.0, m, fold_h=3)
+
+
+def test_kv_compact_kernels(dev):
+    # B6 exactly equal to its plain version; B2's kv_map channel exact; B3
+    # loading from the compacted buffer bit-identical to B3 on K/V.
+    from liteattention_torch.ops.kv_compact import compact_kv, compact_kv_plain, kv_union_map
+
+    q, k, v = _qkv(dev, 2, 6, 3, 700, 1024, 128, seed=6)
+    g = torch.Generator(device=dev).manual_seed(6)
+    m = torch.rand(2, 6, 6, 8, generator=g, device=dev) < 0.3
+    m[..., :, 4:] = False  # the back half dead: a sparse union
+    m[0, 2, 1] = False  # a row with nothing live
+    kv_map, inv, _ = kv_union_map(m, hk=3)
+    n0 = compact_kv.launches
+    kc, vc = compact_kv(k, v, inv)
+    torch.cuda.synchronize()
+    assert compact_kv.launches == n0 + 1
+    rk, rv = compact_kv_plain(k, v, inv)
+    assert torch.equal(kc, rk) and torch.equal(vc, rv)
+    fidx, count, cidx = pack_schedule(m, kv_map)
+    for got, want in zip((fidx, count, cidx), pack_schedule_plain(m, kv_map)):
+        assert torch.equal(got, want)
+    for emit in (True, False):
+        base = lite_flash_attention(q, k, v, fidx, count, -1.0, m, emit_votes=emit)
+        for fold in (None, 2):  # B3 and B5 on the compacted buffer
+            got = lite_flash_attention(q, kc, vc, fidx, count, -1.0, m, emit_votes=emit,
+                                       cidx=cidx, fold_h=fold)
+            for a, b in zip(got, base):
+                assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_blocksparse_without_kernel_raises(dev):
+    # The block-sparse cases that have no kernel raise on the card rather
+    # than run the plain exact path; the kernel route matches that path.
+    from liteattention_torch.flash_blocksparse import (
+        FlashBlocksparseAttention,
+        _blockmask_elementwise,
+        _exact_attention,
+        flash_blocksparse_attn_func,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    s, h = 512, 2
+    qkv = torch.randn(2 * s, 3, h, 64, generator=g, device=dev).bfloat16()
+    cu = torch.tensor([0, s, 2 * s])
+    layout = torch.rand(s // 128, s // 256, generator=g, device=dev) < 0.6
+    layout = layout.cpu().repeat_interleave(8, 0).numpy()  # uniform per 8 rows
+    layout[:, 0] = True
+    out = flash_blocksparse_attn_func(qkv, cu, layout, max_s=s)
+    q, k, v = qkv.reshape(2, s, 3, h, 64).unbind(2)
+    ref = _exact_attention(q, k, v, _blockmask_elementwise(layout, s, s, dev), None, False)
+    assert (out.float() - ref.reshape(out.shape).float()).abs().max().item() < 2e-2
+    ragged = torch.tensor([0, s, 2 * s - 100])
+    uneven = layout.copy()
+    uneven[3, 1] = not uneven[3, 1]
+    for kw in (dict(cu_seqlens=ragged, blockmask=layout), dict(blockmask=uneven),
+               dict(causal=True), dict(dropout_p=0.1, generator=torch.Generator(device=dev)),
+               dict(return_attn_probs=True), dict(trainable=True)):
+        args = {"cu_seqlens": cu, "blockmask": layout, **kw}
+        with pytest.raises(NotImplementedError):
+            flash_blocksparse_attn_func(qkv[: int(args["cu_seqlens"][-1])], max_s=s, **args)
+    mod = FlashBlocksparseAttention(layout, attention_dropout=0.1, max_seq_length=s)
+    x = qkv.reshape(2, s, 3, h, 64)
+    with pytest.raises(NotImplementedError):
+        mod(x, key_padding_mask=torch.ones(2, s, dtype=torch.bool, device=dev))
+    with pytest.raises(NotImplementedError):
+        mod(x, training=True, generator=torch.Generator(device=dev))
+
+
 def _check_decode(out, lse, ro, rl):
     """Decode kernel against its plain version: out within 2e-2 absolute
     and 1e-2 rel-L2 (bf16 output, P rounded to bf16 before PV), lse within
@@ -294,12 +436,17 @@ def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
 
 
 def test_entry_points_default_to_the_card(dev):
+    from liteattention_torch.layers.rotary import rotary_freqs
     from liteattention_torch.models import GPTConfig, GPTLMHeadModel, WanConfig, WanModel
+    from liteattention_torch.modules import MHA, Block, Dense, GatedMlp, Mlp
     from liteattention_torch.ops.mask import init_mask
     from liteattention_torch.training import TrainConfig, Trainer
 
     gpt = GPTLMHeadModel(GPTConfig.tiny())
     assert all(p.device == dev for p in gpt.parameters())
     assert all(p.device == dev for p in WanModel(WanConfig.tiny()).parameters())
+    for module in (MHA(64, 2), Block(64), Mlp(64, 128), GatedMlp(64, 128), Dense(64, 32)):
+        assert all(p.device == dev for p in module.parameters())
+    assert all(x.device == dev for x in rotary_freqs(16, 32))
     assert init_mask(1, 2, 256, 256, 128, 128).do_mask.device == dev
     assert Trainer(gpt, lambda m, x: m(x).sum(), TrainConfig()).device == dev

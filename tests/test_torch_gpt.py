@@ -212,13 +212,22 @@ def test_block_matches_jax():
 def test_entry_points_default_to_the_card():
     # With no device the port's entry points take cuda: on a machine
     # without a GPU they fail loudly instead of running on the CPU.
+    from liteattention_torch.layers.rotary import rotary_freqs
     from liteattention_torch.lite_attention import lite_attention_init
     from liteattention_torch.models.wan import WanConfig, WanModel, init_skip_states
+    from liteattention_torch.modules import Block, Dense, GatedMlp, Mlp
     from liteattention_torch.ops.mask import init_mask, must_do_mask
     from liteattention_torch.training import TrainConfig, Trainer
 
     calls = [
         lambda: GPTLMHeadModel(GPTConfig.tiny()),
+        lambda: MHA(64, 2),
+        lambda: Block(64, MHA(64, 2), Mlp(64, 128)),
+        lambda: Block(64),
+        lambda: Mlp(64, 128),
+        lambda: GatedMlp(64, 128),
+        lambda: Dense(64, 32),
+        lambda: rotary_freqs(16, 32),
         lambda: WanModel(WanConfig.tiny()),
         lambda: init_skip_states(WanConfig.tiny(), 1, (1, 4, 4)),
         lambda: lite_attention_init(1, 2, 256, 256, 64),
@@ -230,6 +239,7 @@ def test_entry_points_default_to_the_card():
             out = call()
             tensors = list(out.parameters()) if isinstance(out, torch.nn.Module) else (
                 [s.do_mask for s in out.values()] if isinstance(out, dict)
+                else list(out) if isinstance(out, tuple)
                 else [getattr(out, "do_mask", out)])
             assert all(x.device.type == "cuda" for x in tensors)
         model = GPTLMHeadModel(GPTConfig.tiny())

@@ -24,6 +24,8 @@ def test_imports_with_jax_blocked():
         "from liteattention_torch.ops import _build, flash_bwd, norms, activations\n"
         "from liteattention_torch.ops import flash_decode, paged_attention, kv_quant, combine\n"
         "import liteattention_torch.flash_attn_interface, liteattention_torch.layers\n"
+        "import liteattention_torch.flash_blocksparse\n"
+        "from liteattention_torch.ops import kv_compact, lite_flash_fwd, schedule_pack\n"
         "import liteattention_torch.utils.generation\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"

@@ -28,7 +28,7 @@ from liteattention_torch.layers.rotary import (  # noqa: E402
 ])
 def test_rotary_freqs_match_jax(seqlen, rotary_dim, base, offset):
     jc, js = jrot.rotary_freqs(seqlen, rotary_dim, base, offset)
-    pc, ps = rotary_freqs(seqlen, rotary_dim, base, offset)
+    pc, ps = rotary_freqs(seqlen, rotary_dim, base, offset, device="cpu")
     assert pc.shape == (seqlen, rotary_dim // 2) and pc.dtype == torch.float32
     np.testing.assert_allclose(pc.numpy(), np.asarray(jc), atol=1e-6, rtol=0)
     np.testing.assert_allclose(ps.numpy(), np.asarray(js), atol=1e-6, rtol=0)
@@ -56,7 +56,7 @@ def test_rotary_bf16_matches_jax():
     rng = np.random.RandomState(1)
     x = rng.randn(1, 6, 2, 64).astype(np.float32)
     jc, js = jrot.rotary_freqs(6, 64, offset=3)
-    pc, ps = rotary_freqs(6, 64, offset=3)
+    pc, ps = rotary_freqs(6, 64, offset=3, device="cpu")
     j = jrot.apply_rotary_emb(jnp.asarray(x, jnp.bfloat16), jc, js)
     p = apply_rotary_emb(t(x).bfloat16(), pc, ps)
     assert p.dtype == torch.bfloat16
