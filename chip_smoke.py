@@ -67,7 +67,22 @@ Phases (any failure exits non-zero and prints no result line):
    ``SeqParallelLiteAttention``'s two merged splits against one call. Then
    B4, B5 and B6 (beside ``index_select``) timed, and B2 / B3 with their
    new channels.
-7. A JSON line of kernel results (launches read on each path's counted
+7. MLA at DeepSeek-V3's published widths (128 heads, kv_lora_rank 512 +
+   rope 64 = 576 latent channels, v 128; random bf16 inputs from a seed):
+   (a) ``flash_mla_with_kvcache`` (kernel B10) for 64 requests of one
+   token with ragged cache lengths in 1024-8192 over one layer's pool of
+   64-token pages (604 MB), in four cache forms -- contiguous, paged with
+   an identity table, paged with a random permutation, and a 640-lane
+   contiguous cache, which must equal the 576 one -- each against
+   ``mla_decode_plain`` by rel-L2 over the outputs and over each request;
+   a causal Sq 2 x Hq 32 step with a request of length 0 (out 0, lse
+   -inf); (b) ``flash_attn_func`` at the prefill shape, 2 prompts x 4096
+   tokens x 128 heads at (q/k 192, v 128), causal (B1's MLA
+   instantiation), against its plain version over all heads, and the
+   (576, 512) and (64, 512) + qv shapes at a small size; (c) the two
+   kernels' times beside their bounds, plain versions and SDPA (the
+   backend that ran is named).
+8. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -178,28 +193,59 @@ def cuda_ms(fn, reps=5):
 
 
 def device_ms(fn, reps=20, names=()):
-    """Device time per call of ``fn`` from torch.profiler (after one
-    warm-up call): every CUDA kernel the call launches, and those whose
-    name holds one of ``names``. For calls whose host side outlasts their
-    device work, where CUDA events would time the host."""
+    """Device time per call of ``fn`` (after one warm-up call): (every
+    CUDA kernel the call launches, those whose name holds one of
+    ``names``, the timer). For calls whose host side outlasts their device
+    work, where CUDA events would time the host. The timer is
+    ``"profiler"`` (torch.profiler). A profile that recorded no device
+    time (seen on an H100 under torch 2.11, midway through a run; cause
+    not found) is taken again, up to three times; then CUDA events behind
+    a busy wait time the whole call (``queued_ms``), the named kernels'
+    share is not measured (None) and the timer is ``"queued_events"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = picked = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-            e, "is_user_annotation", False
-        ):
-            total += e.self_device_time_total / 1e3
-            picked += e.self_device_time_total / 1e3 if any(n in e.key for n in names) else 0.0
-    check(total > 0, "torch.profiler recorded no device time")
-    return total / reps, picked / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = picked = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False
+            ):
+                total += e.self_device_time_total / 1e3
+                picked += e.self_device_time_total / 1e3 if any(n in e.key for n in names) else 0.0
+        if total > 0:
+            return total / reps, picked / reps, "profiler"
+    log("  torch.profiler recorded no device time in 3 tries: CUDA events behind a busy wait")
+    return queued_ms(fn, reps), None, "queued_events"
+
+
+def fmt_ms(ms, digits=4):
+    """A time for the log, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.{digits}f} ms"
+
+
+def queued_ms(fn, reps):
+    """Device time per call of ``fn`` by CUDA events, with the device held
+    in a busy wait (~50 ms) while the host enqueues every call, so that
+    host time between calls does not count."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(flops, nbytes):
@@ -257,16 +303,19 @@ def banded_mask(b, h, qt, kt, sparsity, device):
 def kernel_wrappers():
     """Every kernel entry of the port, by its name in the kernels line: the
     wrapper and the attribute that counts its launches (the lite wrapper
-    counts B3, B5 and B4 apart); the decode wrappers also count the
-    launches of their split-merge kernel."""
+    counts B3, B5 and B4 apart, flash_attention B1 and its MLA
+    instantiation); the decode wrappers also count the launches of their
+    split-merge kernel."""
     from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+    from liteattention_torch.ops.mla import mla_decode
     from liteattention_torch.ops.paged_attention import paged_attention, paged_attention_folded
     from liteattention_torch.ops.schedule_pack import pack_schedule
 
     return {"flash_fwd": (flash_attention, "launches"),
+            "flash_fwd_mla": (flash_attention, "mla_launches"),
             "schedule_pack": (pack_schedule, "launches"),
             "lite_flash_fwd": (lite_flash_attention, "launches"),
             "lite_flash_fwd_coarse": (lite_flash_attention, "coarse_launches"),
@@ -276,7 +325,8 @@ def kernel_wrappers():
             "flash_bwd_dkv": (flash_bwd_dkv, "launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
-            "paged_decode_folded": (paged_attention_folded, "launches")}
+            "paged_decode_folded": (paged_attention_folded, "launches"),
+            "mla_decode": (mla_decode, "launches")}
 
 
 def reset_counts():
@@ -961,14 +1011,17 @@ def check_decode(label, fn, plain, args, kw, need, time_it=False, library=None):
         # Device time of a call (the wrapper's packing and int8 folds
         # included) and of the decode and merge kernels alone; the call's
         # CUDA-event time is host-bound at this size.
-        res["ms"], res["kernel_ms"] = device_ms(lambda: fn(*args, **kw), names=DECODE_KERNELS)
+        # "timer" names how each time was taken (see device_ms).
+        res["ms"], res["kernel_ms"], t_ms = device_ms(lambda: fn(*args, **kw),
+                                                      names=DECODE_KERNELS)
         res["call_ms"] = cuda_ms(lambda: fn(*args, **kw), reps=20)
-        res["plain_ms"] = device_ms(lambda: plain(*args, **kw), reps=3)[0]
+        res["plain_ms"], _, t_plain = device_ms(lambda: plain(*args, **kw), reps=3)
         res["bound_ms"], res["bound_by"] = bound(need[1], need[0])
-        res["library_ms"] = None if library is None else device_ms(library)[0]
+        res["library_ms"], _, t_lib = (None, None, None) if library is None else device_ms(library)
+        res["timer"] = {"ms": t_ms, "call_ms": "events", "plain_ms": t_plain, "library_ms": t_lib}
         lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
         log(f"  decode {label}: device {res['ms']:.4f} ms per call (decode + merge kernels "
-            f"{res['kernel_ms']:.4f} ms; events over back-to-back calls {res['call_ms']:.4f} ms), "
+            f"{fmt_ms(res['kernel_ms'])}; events over back-to-back calls {res['call_ms']:.4f} ms), "
             f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}), library {lib}")
     return res
@@ -1037,10 +1090,11 @@ def decode_kernel_phase(dev):
     )
     # At uniform full lengths, beside SDPA (enable_gqa) on the same cache.
     r = res["flash_decode"]
-    r["ms_full_lengths"] = device_ms(
-        lambda: flash_attention_decode(q4, x["kc"], x["vc"], kv_bound=full))[0]
+    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
+        lambda: flash_attention_decode(q4, x["kc"], x["vc"], kv_bound=full))
     r["bound_ms_full_lengths"] = bound(need(2, b * s)[1], need(2, b * s)[0])[0]
-    r["library_ms"] = device_ms(lambda: sdpa(q4, kc_h, vc_h, enable_gqa=True))[0]
+    r["library_ms"], _, r["timer"]["library_ms"] = device_ms(
+        lambda: sdpa(q4, kc_h, vc_h, enable_gqa=True))
     r["library"] = "torch SDPA enable_gqa, uniform full lengths"
     log(f"  decode B8 full lengths: device {r['ms_full_lengths']:.4f} ms, bound "
         f"{r['bound_ms_full_lengths']:.4f} ms; SDPA (enable_gqa) {r['library_ms']:.4f} ms")
@@ -1748,19 +1802,289 @@ def engine_phase(dev, full, card):
     return counts, kres, ext, res
 
 
+# ---------------------------------------------------------------- phase 7
+
+# MLA at DeepSeek-V3's published widths (config.json: num_attention_heads
+# 128, kv_lora_rank 512, qk_rope_head_dim 64, qk_nope_head_dim 128,
+# v_head_dim 128; random bf16 inputs from a seed). Absorbed decode: every
+# head attends one latent row of 512 + 64 = 576 channels, V its first 512;
+# 64 requests with ragged cache lengths in 1024-8192 over one layer's pool
+# of 64-token pages (64 x 8192 x 576 bf16, 604 MB). Prefill: 2 prompts x
+# 4096 tokens through flash_attn_func at (q/k 192 = 128 + 64, v 128), causal.
+MLA_HEADS, MLA_D, MLA_DV = 128, 576, 512
+MLA_BATCH, MLA_MIN_LEN, MLA_MAX_LEN, MLA_PAGE = 64, 1024, 8192, 64
+MLA_PREFILL_BATCH, MLA_PREFILL_SEQ, MLA_QK, MLA_V = 2, 4096, 192, 128
+# B10 against its plain version: rel-L2 of the outputs over the tensor and
+# over each request's block of rows (bf16 output, P rounded to bf16 before
+# PV); lse as LSE_TOL. B1-MLA: as check_flash, plus the same rel-L2 over
+# every (b, h, 128-row block).
+MLA_REL_TOL = 1e-2
+MLA_BLOCK_TOL = 2e-2
+MLA_KERNELS = ("mla_decode_kernel", "decode_merge_kernel")
+
+
+def sdpa_backend_ms(label, call):
+    """The first of SDPA's backends that takes ``call`` (flash, efficient,
+    cuDNN, math): its name, its device time per call and the timer
+    (device_ms); (None, None, None), with each backend's refusal logged,
+    when none does."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    refused = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                call()
+                torch.cuda.synchronize()
+                ms, _, timer = device_ms(call, reps=10)
+                return backend.name, ms, timer
+        except RuntimeError as e:  # a backend that refuses the call, or runs out of memory
+            refused.append(f"{backend.name}: {str(e).strip().splitlines()[0][:200]}")
+            torch.cuda.empty_cache()
+    log(f"  SDPA {label}: no backend took the call ({'; '.join(refused)})")
+    return None, None, None
+
+
+def mla_inputs(dev, seed=5151):
+    """q, one layer's latent pool, ragged lengths, and the four cache forms
+    of phase 7 (a): contiguous, paged with an identity table, paged with a
+    random permutation, and a 640-lane contiguous cache."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, ps = MLA_BATCH, MLA_MAX_LEN, MLA_PAGE
+    pages = b * s // ps
+    x = {"q": torch.randn(b, 1, MLA_HEADS, MLA_D, generator=g, device=dev).bfloat16(),
+         "pool": torch.randn(pages, ps, 1, MLA_D, generator=g, device=dev).bfloat16()}
+    x["lens"] = torch.randint(MLA_MIN_LEN, s + 1, (b,), generator=g, device=dev).int()
+    x["lens"][0] = s
+    wide = torch.randn(b, s, 1, 640, generator=g, device=dev).bfloat16() * 50
+    wide[..., :MLA_D] = x["pool"].reshape(b, s, 1, MLA_D)
+    ident = torch.arange(pages, device=dev).reshape(b, s // ps).int()
+    perm = torch.randperm(pages, generator=g, device=dev).reshape(b, s // ps).int()
+    x["forms"] = {"contiguous": (x["pool"].reshape(b, s, 1, MLA_D), None),
+                  "paged identity": (x["pool"], ident),
+                  "paged permuted": (x["pool"], perm),
+                  "640-lane contiguous": (wide, None)}
+    return x
+
+
+def check_mla(label, out, lse, ro, rl):
+    """B10 against its plain version (module constants); returns max abs
+    error and the worst per-request rel-L2."""
+    import torch
+
+    fin = torch.isfinite(rl)
+    check(torch.equal(fin, torch.isfinite(lse)), f"{label}: lse -inf rows differ")
+    check(torch.isfinite(out).all().item(), f"{label}: non-finite output")
+    err = (out.float() - ro.float()).abs().max().item()
+    rel = rel_l2(out.float(), ro.float())
+    per = [rel_l2(out[i].float(), ro[i].float()) for i in range(out.shape[0])
+           if ro[i].abs().max().item() > 0]
+    worst = max(per) if per else 0.0
+    err_l = (lse[fin] - rl[fin]).abs().max().item() if fin.any() else 0.0
+    msg = (f"  {label}: max|out| err {err:.3e}, rel-L2 {rel:.2e}, worst request "
+           f"{worst:.2e}, max|lse| err {err_l:.3e}")
+    if not fin.all():
+        check(out.float()[~fin.transpose(1, 2)].abs().max().item() == 0.0,
+              f"{label}: a row with no key is not 0")
+        msg += f", {int((~fin).sum())} rows with no valid key (out 0, lse -inf)"
+    log(msg)
+    check(rel < MLA_REL_TOL and worst < MLA_REL_TOL and err_l < LSE_TOL,
+          f"{label} disagrees")
+    return err
+
+
+def check_flash_mla(q, k, v, label, causal=False, qv=None):
+    """B1's MLA instantiation against the plain version: out within
+    OUT_TOL (over max(1, |plain|) when causal), lse within LSE_TOL, rel-L2
+    over each (b, h, 128-row block) within MLA_BLOCK_TOL."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+
+    out, lse = flash_attention(q, k, v, causal=causal, qv=qv, return_lse=True)
+    torch.cuda.synchronize()
+    ro, rl = flash_attention_plain(q, k, v, 1.0 / q.shape[-1] ** 0.5, causal, qv=qv)
+    diff = (out.float() - ro.float()).abs()
+    err = diff.max().item()
+    err_chk = (diff / ro.float().abs().clamp_min(1.0)).max().item() if causal else err
+    fin = torch.isfinite(rl)
+    check(torch.equal(fin, torch.isfinite(lse)), f"B1-MLA {label}: lse -inf rows differ")
+    err_l = (lse[fin] - rl[fin]).abs().max().item()
+    rel, blk = block_rel_l2(out, ro)
+    log(f"  B1-MLA {label}: max|out| err {err:.3e}, rel-L2 {rel:.2e}, worst 128-row block "
+        f"{blk:.2e}, max|lse| err {err_l:.3e}")
+    check(err_chk < OUT_TOL and err_l < LSE_TOL and blk < MLA_BLOCK_TOL,
+          f"B1-MLA {label} disagrees")
+    return err
+
+
+def mla_phase(dev, card):
+    """Phase 7: the counted run of the MLA path through its entry points
+    (flash_mla_with_kvcache in four cache forms, flash_attn_func at the
+    prefill shape), each against its plain version, small causal, empty-row
+    and other-width checks, then the kernels' times."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_func, flash_mla_with_kvcache
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+    from liteattention_torch.ops.mla import mla_decode, mla_decode_plain
+
+    x = mla_inputs(dev)
+    q, lens = x["q"], x["lens"]
+    g = torch.Generator(device=dev).manual_seed(6262)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    b, hp, sp = MLA_PREFILL_BATCH, MLA_HEADS, MLA_PREFILL_SEQ
+    pq, pk, pv = rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_V)
+
+    # The counted run: the MLA path through the entry points a server calls.
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = {name: flash_mla_with_kvcache(q, cache, table, lens, MLA_DV)
+            for name, (cache, table) in x["forms"].items()}
+    prefill = flash_attn_func(pq, pk, pv, causal=True, return_softmax_lse=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches during the MLA run: {counts[0]}")
+    check(counts[0]["mla_decode"] == len(outs) and counts[0]["flash_fwd_mla"] == 1,
+          "mla: a kernel of the path did not launch as often as the path calls it")
+
+    # Checks (their launches are not counted).
+    shape = (f"{MLA_BATCH}x{MLA_HEADS}x{MLA_D}/{MLA_DV}, lengths "
+             f"{lens.min().item()}-{lens.max().item()}, pages of {MLA_PAGE}")
+    err = 0.0
+    for name, (cache, table) in x["forms"].items():
+        ro, rl = mla_decode_plain(q, cache, lens, MLA_DV, page_table=table, return_lse=True)
+        err = max(err, check_mla(f"B10 {name} {shape}", *outs[name], ro, rl))
+        del ro, rl
+    same = all(torch.equal(a, c) for a, c in zip(outs["640-lane contiguous"],
+                                                outs["contiguous"]))
+    log(f"  B10 640-lane cache equals the 576 one: {same}")
+    check(same, "B10: the 640-lane cache changed the result")
+    # Causal Sq 2 x Hq 32 on the permuted pages, with a request of length 0.
+    q2 = rnd(MLA_BATCH, 2, 32, MLA_D)
+    lens2 = lens.clone()
+    lens2[1] = 0
+    cache, table = x["forms"]["paged permuted"]
+    o2 = mla_decode(q2, cache, lens2, MLA_DV, page_table=table, return_lse=True)
+    r2 = mla_decode_plain(q2, cache, lens2, MLA_DV, page_table=table, return_lse=True)
+    err = max(err, check_mla("B10 causal Sq 2 x Hq 32, one request of length 0", *o2, *r2))
+    check(bool((o2[0][1] == 0).all()) and bool(torch.isneginf(o2[1][1]).all()),
+          "B10: the empty request is not out 0 / lse -inf")
+
+    po, pl = prefill
+    ro, rl = flash_attention_plain(*(a.transpose(1, 2) for a in (pq, pk, pv)), MLA_QK**-0.5,
+                                   True)
+    diff = (po.transpose(1, 2).float() - ro.float()).abs()
+    err_f = diff.max().item()
+    rel, blk = block_rel_l2(po.transpose(1, 2), ro)
+    err_l = (pl - rl).abs().max().item()
+    log(f"  B1-MLA flash_attn_func causal {b}x{sp}x{hp}, ({MLA_QK}, {MLA_V}), all heads: max|out|"
+        f" err {err_f:.3e}, rel-L2 {rel:.2e}, worst 128-row block {blk:.2e}, max|lse| err "
+        f"{err_l:.3e}")
+    check((diff / ro.float().abs().clamp_min(1.0)).max().item() < OUT_TOL
+          and err_l < LSE_TOL and blk < MLA_BLOCK_TOL, "B1-MLA prefill disagrees")
+    del ro, rl, diff
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (pq, pk, pv))
+    for causal in (False, True):
+        err_f = max(err_f, check_flash_mla(rnd(1, 8, 700, 576), rnd(1, 8, 900, 576),
+                                           rnd(1, 8, 900, 512), f"(576, 512) {causal=}", causal))
+        err_f = max(err_f, check_flash_mla(rnd(2, 4, 300, 64), rnd(2, 2, 555, 64),
+                                           rnd(2, 2, 555, 512), f"(64, 512) + qv {causal=}",
+                                           causal, qv=rnd(2, 4, 300, 512)))
+
+    # The kernels' times beside their bounds, plain versions and SDPA.
+    res = {}
+    keys = int(lens.clamp(max=MLA_MAX_LEN).sum())
+
+    def need(n_keys, extra=0):
+        """(FLOPs, bytes) of a call: QK over D and PV over Dv for every
+        (row, key); each latent row read once, q, out and lse once."""
+        flops = 2 * (MLA_D + MLA_DV) * MLA_HEADS * n_keys
+        return flops, n_keys * MLA_D * 2 + nbytes(q) + MLA_BATCH * MLA_HEADS * (MLA_DV * 2 + 4) + extra
+
+    forms = {}
+    for name, (cache, table) in x["forms"].items():
+        call = lambda c=cache, tb=table: mla_decode(q, c, lens, MLA_DV, page_table=tb)  # noqa: E731
+        f = dict(zip(("ms", "kernel_ms", "timer"), device_ms(call, names=MLA_KERNELS)))
+        f["bound_ms"], f["bound_by"] = bound(*need(keys, 0 if table is None else nbytes(table)))
+        forms[name] = f
+        log(f"  B10 {name}: device {f['ms']:.4f} ms per call (kernels {fmt_ms(f['kernel_ms'])}, "
+            f"timer {f['timer']}), "
+            f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), {f['bound_ms'] / f['ms']:.1%} of it")
+    cache, table = x["forms"]["paged permuted"]
+    r = {"err": err, **forms["paged permuted"], "forms": forms, "shape": shape}
+    r["timer"] = {"ms": r["timer"]}
+    r["plain_ms"], _, r["timer"]["plain_ms"] = device_ms(
+        lambda: mla_decode_plain(q, cache, lens, MLA_DV, page_table=table), reps=3)
+    full = torch.full_like(lens, MLA_MAX_LEN)
+    cont = x["forms"]["contiguous"][0][:, :, 0]
+    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
+        lambda: mla_decode(q, cont, full, MLA_DV))
+    r["bound_ms_full_lengths"] = bound(*need(MLA_BATCH * MLA_MAX_LEN))[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4 = q.transpose(1, 2), cont[:, None]
+    torch.cuda.empty_cache()
+    # SDPA over the same cache at full lengths: the heads as GQA heads of
+    # one KV head, and the same function with the heads as query rows of
+    # one head; the first that some backend takes is the library call.
+    calls = {"enable_gqa": lambda: sdpa(q4, k4, k4[..., :MLA_DV], enable_gqa=True),
+             "heads as query rows": lambda: sdpa(q, k4, k4[..., :MLA_DV])}
+    lib = {name: sdpa_backend_ms(name, call) for name, call in calls.items()}
+    r["library_calls"] = {name: {"backend": be, "ms": ms, "timer": t}
+                          for name, (be, ms, t) in lib.items()}
+    name, (backend, r["library_ms"], r["timer"]["library_ms"]) = next(
+        ((n, v) for n, v in lib.items() if v[1] is not None), ("none", (None, None, None)))
+    r["library"] = f"torch SDPA {name} ({backend} backend), full lengths"
+    libs = ", ".join(f"{n} ({be}) {'n/a' if ms is None else f'{ms:.4f} ms'}"
+                     for n, (be, ms, _) in lib.items())
+    log(f"  B10 plain {r['plain_ms']:.3f} ms; at full lengths {MLA_MAX_LEN}: kernel "
+        f"{r['ms_full_lengths']:.4f} ms, bound {r['bound_ms_full_lengths']:.4f} ms; SDPA "
+        f"{libs} [{card}]")
+    res["mla_decode"] = r
+
+    flops = 2 * (MLA_QK + MLA_V) * attn_pairs(sp, sp, True) * b * hp
+    f = {"err": err_f, "shape": f"{b}x{hp}x{sp}, ({MLA_QK}, {MLA_V}), causal"}
+    f["ms"] = cuda_ms(lambda: flash_attention(qh, kh, vh, causal=True))
+    f["plain_ms"] = cuda_ms(lambda: flash_attention_plain(qh, kh, vh, None, True), reps=1)
+    f["bound_ms"], f["bound_by"] = bound(flops, nbytes(qh, kh, vh, po, pl))
+    backend, f["library_ms"], t_lib = sdpa_backend_ms(
+        "prefill", lambda: sdpa(qh, kh, vh, is_causal=True))
+    f["timer"] = {"ms": "events", "plain_ms": "events", "library_ms": t_lib}
+    f["library"] = f"torch SDPA ({backend} backend), V of its own head dim"
+    f["tflops"] = flops / f["ms"] / 1e9
+    lib = "n/a" if f["library_ms"] is None else f"{f['library_ms']:.3f} ms"
+    log(f"  B1-MLA prefill: kernel {f['ms']:.3f} ms ({f['tflops']:.1f} TFLOP/s), plain "
+        f"{f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms ({f['bound_by']}), "
+        f"{f['library']} {lib} [{card}]")
+    res["flash_fwd_mla"] = f
+    return counts, res
+
+
+# Kernels whose ptxas registers and spills ab_times reports.
+AB_KERNELS = ("attention_fwd_kernel", "flash_decode_kernel", "mla_fwd_kernel",
+              "mla_decode_kernel")
+
+
 def ab_times(reps):
     """``--ab DIR``: one JSON line for the checkout at DIR (whose
     ``liteattention_torch`` is imported): the card, the registers and
-    spills ptxas reported per forward kernel, and the device time of B1
-    and of B3 with and without votes at the Wan slice's shape (1 x 40 x
-    32 760 x 128 bf16, banded ~50 % mask). It calls only entry points
-    every version of the port has, so checkouts can be timed in turns on
-    one card (older, newer, newer, older)."""
+    spills ptxas reported per kernel of ``AB_KERNELS``, the device time
+    of B1 and of B3 with and without votes at the Wan slice's shape (1 x
+    40 x 32 760 x 128 bf16, banded ~50 % mask), and of the decode kernel
+    B8 with its split merge at the kvcache API's shape (device_ms). It
+    calls only entry points every version of the port has since the
+    decode kernel, so checkouts can be timed in turns on one card (older,
+    newer, newer, older)."""
     import re
 
     import torch
     from liteattention_torch.ops import _build
-    from liteattention_torch.ops.flash_fwd import flash_attention
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
     from liteattention_torch.ops.schedule_pack import pack_schedule
 
@@ -1770,10 +2094,10 @@ def ab_times(reps):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         name = m.group(1) if m else name
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "attention_fwd_kernel" in name:
+        if m and name and any(k in name for k in AB_KERNELS):
             regs[name] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name and "attention_fwd_kernel" in name and int(m.group(1)):
+        if m and name and any(k in name for k in AB_KERNELS) and int(m.group(1)):
             regs[name + " spill bytes"] = int(m.group(1))
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1782,6 +2106,11 @@ def ab_times(reps):
     kt = math.ceil(s / 128)
     mask = banded_mask(1, h, kt, kt, 0.5, dev)
     fidx, count = pack_schedule(mask)[:2]
+    dq = torch.randn(API_B, API_HQ, 1, API_D, generator=g, device=dev).bfloat16()
+    dk, dv = (torch.randn(API_B, API_CACHE, API_HK, API_D, generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    b8_ms, b8_kernel_ms, b8_timer = device_ms(lambda: flash_attention_decode(dq, dk, dv),
+                                              names=DECODE_KERNELS)
     print(json.dumps({
         "root": sys.path[0], "card": card, "registers": regs,
         "b1_ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
@@ -1789,6 +2118,7 @@ def ab_times(reps):
         "b3_novote_ms": cuda_ms(lambda: lite_flash_attention(
             q, k, v, fidx, count, -1.0, mask, emit_votes=False), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
+        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer,
     }))
     return 0
 
@@ -1841,6 +2171,9 @@ def main() -> int:
         log("phase 6: the rest of the LiteAttention engine at Wan2.1-14B attention width")
         counts["engine"], eres, ext, engine_stats = engine_phase(dev, cfg, card)
         kres.update(eres)
+        log("phase 7: MLA at DeepSeek-V3 width")
+        counts["mla"], mres = mla_phase(dev, card)
+        kres.update(mres)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1880,6 +2213,8 @@ def main() -> int:
         "flash_decode": ("flash_decode.cu", "liteattention_tpu/ops/flash_fwd.py:843"),
         "paged_decode": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:40"),
         "paged_decode_folded": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:276"),
+        "flash_fwd_mla": ("flash_fwd.cu", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "mla_decode": ("mla_decode.cu", "liteattention_tpu/ops/mla.py:52"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -13,6 +13,19 @@ nothing: the kernels compile with ``nvcc`` at their first CUDA launch.
 __version__ = "0.1.0"
 
 from liteattention_torch import ops
+from liteattention_torch.flash_attn_interface import (
+    flash_attn_combine,
+    flash_attn_func,
+    flash_attn_kvpacked_func,
+    flash_attn_qkvpacked_func,
+    flash_attn_with_kvcache,
+    flash_mla_with_kvcache,
+)
+from liteattention_torch.flash_blocksparse import (
+    FlashBlocksparseAttention,
+    convert_blockmask,
+    flash_blocksparse_attn_func,
+)
 from liteattention_torch.lite_attention import (
     LiteAttention,
     SeqParallelLiteAttention,
@@ -20,10 +33,21 @@ from liteattention_torch.lite_attention import (
     lite_attention_step,
 )
 
+# The JAX package's public names that the port has; the varlen functions
+# are still to port (ROADMAP A13).
 __all__ = [
     "ops",
     "LiteAttention",
     "SeqParallelLiteAttention",
     "lite_attention_init",
     "lite_attention_step",
+    "flash_attn_func",
+    "flash_attn_qkvpacked_func",
+    "flash_attn_kvpacked_func",
+    "flash_attn_with_kvcache",
+    "flash_mla_with_kvcache",
+    "flash_attn_combine",
+    "flash_blocksparse_attn_func",
+    "FlashBlocksparseAttention",
+    "convert_blockmask",
 ]

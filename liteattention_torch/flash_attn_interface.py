@@ -1,5 +1,6 @@
 """The flash-attention functional API: ``flash_attn_func`` and its packed
-forms, and ``flash_attn_with_kvcache``.
+forms, ``flash_attn_with_kvcache``, ``flash_mla_with_kvcache``,
+``flash_attn_combine`` and ``get_scheduler_metadata``.
 
 Counterpart of ``liteattention_tpu/flash_attn_interface.py`` (same
 argument order), taking the reference's ``[batch, seq, heads, dim]``
@@ -16,7 +17,9 @@ the packer B2 and the gather kernel B3 run (one 128-row q-tile per CTA,
 vote step ``block_k / 128``); at the ``block_sizes`` compute tile the
 coarse kernel B4 runs. The votes are folded into the returned mask by
 ``update_mask`` (JAX returns the mask instead of writing
-``attn_write_list`` in place; so does the port).
+``attn_write_list`` in place; so does the port). ``qv`` and a V of its own
+head dim (the MLA shapes, dense only) go to B1's MLA instantiation, with
+the default scale ``(D + Dv)^-0.5`` when ``qv`` is given, as in JAX.
 
 ``flash_attn_with_kvcache`` routes on the decode kernel of
 :mod:`liteattention_torch.ops.flash_decode`:
@@ -45,7 +48,12 @@ shape: ``out`` [, ``lse``] [, ``(k_cache, v_cache)`` when ``k`` is given].
 Not ported yet (ROADMAP A13); each raises ``NotImplementedError`` naming
 itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
 ``rotary_cos``/``rotary_sin``, ``cache_batch_idx``, ``window_size``,
-``attention_chunk``, ``qv``, the fp8 descales and ``int8_mma``.
+``attention_chunk``, the fp8 descales and ``int8_mma``. ``qv`` and a
+``v_cache`` of another head dim than ``k_cache`` raise too: JAX serves
+them through B1's per-batch bound channel (ROADMAP A11).
+
+``flash_mla_with_kvcache`` is absorbed-MLA decode over one latent cache
+(:func:`~liteattention_torch.ops.mla.mla_decode`, kernel B10).
 """
 
 from __future__ import annotations
@@ -54,9 +62,11 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from liteattention_torch.ops.combine import combine_attention
 from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
 from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
 from liteattention_torch.ops.mask import SkipMaskState, cdiv, compact_mask, update_mask
+from liteattention_torch.ops.mla import mla_decode
 from liteattention_torch.ops.paged_attention import paged_attention_folded
 from liteattention_torch.ops.schedule_pack import pack_schedule
 from liteattention_torch.ops.tile_sizes import VOTE_TILE, BlockSizes, get_block_sizes
@@ -204,11 +214,11 @@ def flash_attn_kvpacked_func(
     )
 
 
-def _unported(**used) -> None:
+def _unported(roadmap="A13", **used) -> None:
     names = [name for name, on in used.items() if on]
     if names:
         raise NotImplementedError(
-            f"flash_attn_with_kvcache: {', '.join(names)} not ported yet (ROADMAP A13)"
+            f"flash_attn_with_kvcache: {', '.join(names)} not ported yet (ROADMAP {roadmap})"
         )
 
 
@@ -268,9 +278,12 @@ def flash_attn_with_kvcache(
         cache_batch_idx=cache_batch_idx is not None,
         window_size=tuple(window_size) != (-1, -1),
         attention_chunk=bool(attention_chunk),
-        qv=qv is not None,
         descales=any(x is not None for x in (q_descale, k_descale, v_descale)),
         int8_mma=int8_mma,
+    )
+    _unported(
+        "A11", qv=qv is not None,
+        v_cache_head_dim=v_cache.shape[-1] != k_cache.shape[-1],
     )
     if kv_cache_layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown kv_cache_layout {kv_cache_layout!r}")
@@ -341,9 +354,66 @@ def flash_attn_with_kvcache(
     return result[0] if len(result) == 1 else tuple(result)
 
 
+def flash_mla_with_kvcache(
+    q: torch.Tensor,
+    kv_cache: torch.Tensor,
+    page_table: Optional[torch.Tensor],
+    cache_seqlens: torch.Tensor,
+    head_dim_v: int,
+    *metadata,
+    softmax_scale: Optional[float] = None,
+    causal: bool = True,
+    return_softmax_lse: bool = True,
+):
+    """Absorbed-MLA decode against one latent KV cache (kernel B10).
+
+    The signature of the external ``flash_mla_with_kvcache``: ``kv_cache``
+    holds one latent row per token (one KV head); K is the whole row and V
+    its first ``head_dim_v`` channels. ``page_table`` may be None for a
+    contiguous ``[B, S, 1, D]`` cache. The tile-scheduler ``*metadata`` of
+    other backends is accepted and ignored. Returns ``(out, lse)`` (out
+    only with ``return_softmax_lse=False``); see
+    :func:`~liteattention_torch.ops.mla.mla_decode`.
+    """
+    del metadata
+    return mla_decode(
+        q, kv_cache, cache_seqlens, head_dim_v, page_table=page_table,
+        scale=softmax_scale, causal=causal, return_lse=return_softmax_lse,
+    )
+
+
+def flash_attn_combine(
+    out_partial: torch.Tensor,
+    lse_partial: torch.Tensor,
+    return_lse: bool = False,
+):
+    """LSE-weighted merge of partial attentions over KV splits.
+
+    ``out_partial`` ``[N, B, S, H, D]``, ``lse_partial`` ``[N, B, H, S]``
+    (natural log). Returns out ``[B, S, H, D]`` in ``out_partial``'s dtype
+    (and lse ``[B, H, S]`` fp32 with ``return_lse``); a row whose every
+    split is empty gives out 0 and lse -inf.
+    """
+    out, lse = combine_attention(out_partial.movedim(3, 2), lse_partial, axis=0)
+    out = out.movedim(1, 2)
+    if return_lse:
+        return out, lse
+    return out
+
+
+def get_scheduler_metadata(attn_read_list: torch.Tensor):
+    """The compacted ``(kv_idx, count)`` schedule of a skip mask ``[B, H,
+    Qt, Kt]`` (:func:`~liteattention_torch.ops.mask.compact_mask`), to
+    amortize compaction when one mask drives several calls."""
+    return compact_mask(attn_read_list)
+
+
 __all__ = [
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
     "flash_attn_with_kvcache",
+    "flash_mla_with_kvcache",
+    "flash_attn_combine",
+    "get_scheduler_metadata",
 ]

@@ -18,6 +18,7 @@ from liteattention_torch.ops.mask import (
     sparsity,
     update_mask,
 )
+from liteattention_torch.ops.mla import mla_decode
 from liteattention_torch.ops.schedule_pack import pack_schedule
 from liteattention_torch.ops.tile_sizes import BlockSizes, get_block_sizes
 
@@ -29,6 +30,7 @@ __all__ = [
     "skip_votes_ref_gather",
     "flash_attention",
     "lite_flash_attention",
+    "mla_decode",
     "SkipMaskState",
     "compact_mask",
     "compact_mask_fine",

@@ -39,6 +39,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "lite_flash_decode": [_P] * 10 + [_L] * 6 + [_I] * 12 + [_F, _F, _I, _P],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "lite_flash_fwd_mla": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
+    "lite_mla_decode": [_P] * 8 + [_L] * 2 + [_I] * 12 + [_F, _I, _P],
     "lite_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_gather": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],

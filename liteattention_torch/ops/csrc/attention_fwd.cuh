@@ -128,6 +128,18 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address the
+// rows of matrix i, and lane l receives row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each: the A fragment of m16n8k16 from a row-major tile,
+// or two B fragments from the rows of K.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
                                                   const void* smem) {
   uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -152,6 +164,191 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Row steps of the online softmax, shared by the forward mainloop below, the
+// decode kernel (flash_decode.cu) and the MLA kernels (mla_decode.cu,
+// flash_fwd.cu). A warp owns 16 q rows of an m16n8k16 tile: lane (g, t) =
+// (lane / 4, lane % 4) holds accumulator elements 0-1 of row g ("lo") and
+// 2-3 of row g + 8 ("hi"), at columns 8 i + 2 t (+1) of block i. Scores s
+// are NB blocks of 8 keys; m is the running row max (log2 space), l this
+// thread's partial row sum.
+
+// Scale raw scores to log2 space and, with `mask`, set every column at or
+// past its row's limit (key col0 + 8 nb + 2 t + (e & 1) >= lim) to -inf;
+// returns the rows' maxima over the tile in mx_lo / mx_hi (quad-reduced).
+// The unmasked tile takes its own loop with no per-element test: left to the
+// compiler, the one masked loop cost B1 2 % and B3 4-7 % on an H100.
+template <int NB>
+__device__ __forceinline__ void mask_scores(float (&s)[NB][4], float scale_log2, bool mask,
+                                            int col0, int lim_lo, int lim_hi, float& mx_lo,
+                                            float& mx_hi) {
+  const int t = threadIdx.x % 4;
+  mx_lo = -INFINITY;
+  mx_hi = -INFINITY;
+  if (!mask) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= scale_log2;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
+    }
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + nb * 8 + 2 * t + (e & 1);
+        s[nb][e] = col < (e < 2 ? lim_lo : lim_hi) ? s[nb][e] * scale_log2 : -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
+    }
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+}
+
+// Fold a tile's log2-space scores (row maxima mx_lo / mx_hi) into the running
+// state: s becomes the tile's probabilities relative to the new max, l
+// absorbs their sums and the NACC accumulator blocks are rescaled. A row
+// whose max is still -inf keeps base 0, so it never produces NaN.
+template <int NB, int NACC>
+__device__ __forceinline__ void softmax_update(float (&s)[NB][4], float (&acc)[NACC][4],
+                                               float mx_lo, float mx_hi, float& m_lo,
+                                               float& m_hi, float& l_lo, float& l_hi) {
+  const float mn_lo = fmaxf(m_lo, mx_lo);
+  const float mn_hi = fmaxf(m_hi, mx_hi);
+  const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+  const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+  const float alpha_lo = fast_exp2(m_lo - base_lo);
+  const float alpha_hi = fast_exp2(m_hi - base_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    s[nb][0] = fast_exp2(s[nb][0] - base_lo);
+    s[nb][1] = fast_exp2(s[nb][1] - base_lo);
+    s[nb][2] = fast_exp2(s[nb][2] - base_hi);
+    s[nb][3] = fast_exp2(s[nb][3] - base_hi);
+    sum_lo += s[nb][0] + s[nb][1];
+    sum_hi += s[nb][2] + s[nb][3];
+  }
+  l_lo = l_lo * alpha_lo + sum_lo;
+  l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    acc[i][0] *= alpha_lo;
+    acc[i][1] *= alpha_lo;
+    acc[i][2] *= alpha_hi;
+    acc[i][3] *= alpha_hi;
+  }
+}
+
+// P of keys 16 kc .. 16 kc + 15 as the A operand of m16n8k16: the
+// accumulator layout of two 8-key blocks is the A fragment layout.
+template <int NB>
+__device__ __forceinline__ void p_operand(const float (&s)[NB][4], int kc, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+  a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+  a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+  a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+}
+
+// O += P V over the tile's 8 NB keys and 8 NACC output columns: vs points at
+// the tile's first key row and first output column in shared memory (pitch
+// elements per key row); V^T's B fragments come by ldmatrix.trans.
+template <int NB, int NACC>
+__device__ __forceinline__ void pv_product(float (&acc)[NACC][4], const float (&s)[NB][4],
+                                           const __nv_bfloat16* vs, int pitch) {
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* vp =
+      vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * pitch + (lane >> 4) * 8;
+#pragma unroll
+  for (int kc = 0; kc < NB / 2; ++kc) {
+    uint32_t a[4];
+    p_operand(s, kc, a);
+#pragma unroll
+    for (int db = 0; db < NACC / 2; ++db) {
+      uint32_t bfrag[4];
+      ldmatrix_x4_trans(bfrag, vp + kc * 16 * pitch + db * 16);
+      mma_bf16(acc[2 * db], a, bfrag[0], bfrag[1]);
+      mma_bf16(acc[2 * db + 1], a, bfrag[2], bfrag[3]);
+    }
+  }
+}
+
+// End of a walk: the rows' full sums (quad-reduced), 1 / l and the
+// natural-log lse; a row with no valid key gets 0 and -inf.
+__device__ __forceinline__ void finish_rows(float m_lo, float m_hi, float l_lo, float l_hi,
+                                            float& inv_lo, float& inv_hi, float& lse_lo,
+                                            float& lse_hi) {
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const bool empty_lo = !(l_lo > 0.f) || m_lo == -INFINITY;
+  const bool empty_hi = !(l_hi > 0.f) || m_hi == -INFINITY;
+  inv_lo = empty_lo ? 0.f : 1.f / l_lo;
+  inv_hi = empty_hi ? 0.f : 1.f / l_hi;
+  lse_lo = empty_lo ? -INFINITY : m_lo * kLn2 + logf(l_lo);
+  lse_hi = empty_hi ? -INFINITY : m_hi * kLn2 + logf(l_hi);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<uint32_t*>(o) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+
+// Write the 16 x 8 NACC accumulator block, scaled by inv, to the rows at
+// o_lo / o_hi (their first column; bf16 or fp32).
+template <int NACC, typename T>
+__device__ __forceinline__ void store_rows(T* o_lo, T* o_hi, const float (&acc)[NACC][4],
+                                           float inv_lo, float inv_hi, bool lo_valid,
+                                           bool hi_valid) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int c = i * 8 + 2 * t;
+    if (lo_valid) store_pair(o_lo + c, acc[i][0] * inv_lo, acc[i][1] * inv_lo);
+    if (hi_valid) store_pair(o_hi + c, acc[i][2] * inv_hi, acc[i][3] * inv_hi);
+  }
+}
+
+// Merge of split-KV partials (decode and MLA decode): out = sum_s w_s o_s /
+// sum_s w_s with w_s = exp(lse_s - max lse) over the splits whose lse is
+// finite (a split with no valid key writes lse -inf and may leave its o
+// unwritten); no valid key in any split -> out 0, lse -inf. One CTA of D
+// threads per row of o_part [splits, n_rows, D].
+template <int D>
+__global__ void __launch_bounds__(D) decode_merge_kernel(const float* o_part,
+                                                         const float* lse_part,
+                                                         __nv_bfloat16* out, float* lse,
+                                                         int splits, int n_rows) {
+  const size_t row = blockIdx.x;
+  const int d = threadIdx.x;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse_part[s * static_cast<size_t>(n_rows) + row]);
+  float l = 0.f, o = 0.f;
+  if (mx != -INFINITY) {
+    for (int s = 0; s < splits; ++s) {
+      const size_t idx = s * static_cast<size_t>(n_rows) + row;
+      if (lse_part[idx] == -INFINITY) continue;
+      const float w = expf(lse_part[idx] - mx);
+      l += w;
+      o += w * o_part[idx * D + d];
+    }
+  }
+  const bool empty = !(l > 0.f);
+  out[row * D + d] = __float2bfloat16_rn(empty ? 0.f : o / l);
+  if (d == 0) lse[row] = empty ? -INFINITY : mx + logf(l);
 }
 
 // Copy k-tile `tile` of K and V (rows past seqlen_k are zero-filled).
@@ -298,85 +495,15 @@ __device__ __forceinline__ void attend_tile(
   // Only tiles that cross the diagonal need the per-element causal test.
   const bool diag =
       CAUSAL && col0 + kBlockK - 1 > qt * kBlockQ + warp * 16 + p.causal_offset;
-  float mx_lo = -INFINITY, mx_hi = -INFINITY;
-  // The common tile needs no per-element test. Written out by hand: left to
-  // the compiler, the one masked loop cost B1 2 % and B3 4-7 % on an H100.
-  if (!ragged && !diag) {
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] *= p.scale_log2;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
-    }
-  } else {
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nb][e] * p.scale_log2;
-        const int col = col0 + nb * 8 + 2 * t + (e & 1);
-        if (ragged && col >= p.seqlen_k) x = -INFINITY;
-        if (diag && col > (e < 2 ? r_lo : r_hi) + p.causal_offset) x = -INFINITY;
-        s[nb][e] = x;
-      }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
-    }
-  }
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  const int lim_lo = CAUSAL ? min(p.seqlen_k, r_lo + p.causal_offset + 1) : p.seqlen_k;
+  const int lim_hi = CAUSAL ? min(p.seqlen_k, r_hi + p.causal_offset + 1) : p.seqlen_k;
+  float mx_lo, mx_hi;
+  mask_scores(s, p.scale_log2, ragged || diag, col0, lim_lo, lim_hi, mx_lo, mx_hi);
 
   vote(mx_lo, mx_hi);
 
-  // Online softmax update.
-  const float mn_lo = fmaxf(m_lo, mx_lo);
-  const float mn_hi = fmaxf(m_hi, mx_hi);
-  const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-  const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-  const float alpha_lo = fast_exp2(m_lo - base_lo);
-  const float alpha_hi = fast_exp2(m_hi - base_hi);
-  m_lo = mn_lo;
-  m_hi = mn_hi;
-  float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-  for (int nb = 0; nb < 16; ++nb) {
-    s[nb][0] = fast_exp2(s[nb][0] - base_lo);
-    s[nb][1] = fast_exp2(s[nb][1] - base_lo);
-    s[nb][2] = fast_exp2(s[nb][2] - base_hi);
-    s[nb][3] = fast_exp2(s[nb][3] - base_hi);
-    sum_lo += s[nb][0] + s[nb][1];
-    sum_hi += s[nb][2] + s[nb][3];
-  }
-  l_lo = l_lo * alpha_lo + sum_lo;
-  l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] *= alpha_lo;
-    acc[i][1] *= alpha_lo;
-    acc[i][2] *= alpha_hi;
-    acc[i][3] *= alpha_hi;
-  }
-
-  // O += P V: P's accumulator layout is reused as the A operand.
-#pragma unroll
-  for (int kc = 0; kc < kBlockK / 16; ++kc) {
-    uint32_t a[4];
-    a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-    a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-    a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-    a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-    const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int db = 0; db < D / 16; ++db) {
-      uint32_t bfrag[4];
-      ldmatrix_x4_trans(bfrag, vs + key * (D + 8) + db * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * db], a, bfrag[0], bfrag[1]);
-      mma_bf16(acc[2 * db + 1], a, bfrag[2], bfrag[3]);
-    }
-  }
+  softmax_update(s, acc, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi);
+  pv_product(acc, s, vs, D + 8);
 }
 
 // Epilogue: full row sums, normalize, natural-log lse.
@@ -384,38 +511,15 @@ template <int D>
 __device__ __forceinline__ void store_out(const FwdParams& p, size_t bh, int r_lo,
                                           int r_hi, float (&acc)[D / 8][4], float m_lo,
                                           float m_hi, float l_lo, float l_hi) {
-  const int t = threadIdx.x % 4;
   const bool lo_valid = r_lo < p.seqlen_q;
   const bool hi_valid = r_hi < p.seqlen_q;
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const bool empty_lo = !(l_lo > 0.f) || m_lo == -INFINITY;
-  const bool empty_hi = !(l_hi > 0.f) || m_hi == -INFINITY;
-  const float inv_lo = empty_lo ? 0.f : 1.f / l_lo;
-  const float inv_hi = empty_hi ? 0.f : 1.f / l_hi;
-  __nv_bfloat16* orow_lo = p.out + (bh * p.seqlen_q + r_lo) * D;
-  __nv_bfloat16* orow_hi = p.out + (bh * p.seqlen_q + r_hi) * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (lo_valid) {
-      *reinterpret_cast<uint32_t*>(orow_lo + c) =
-          pack_bf16(acc[i][0] * inv_lo, acc[i][1] * inv_lo);
-    }
-    if (hi_valid) {
-      *reinterpret_cast<uint32_t*>(orow_hi + c) =
-          pack_bf16(acc[i][2] * inv_hi, acc[i][3] * inv_hi);
-    }
-  }
-  if (t == 0) {
-    if (lo_valid) {
-      p.lse[bh * p.seqlen_q + r_lo] = empty_lo ? -INFINITY : m_lo * kLn2 + logf(l_lo);
-    }
-    if (hi_valid) {
-      p.lse[bh * p.seqlen_q + r_hi] = empty_hi ? -INFINITY : m_hi * kLn2 + logf(l_hi);
-    }
+  float inv_lo, inv_hi, lse_lo, lse_hi;
+  finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
+  store_rows(p.out + (bh * p.seqlen_q + r_lo) * D, p.out + (bh * p.seqlen_q + r_hi) * D, acc,
+             inv_lo, inv_hi, lo_valid, hi_valid);
+  if (threadIdx.x % 4 == 0) {
+    if (lo_valid) p.lse[bh * p.seqlen_q + r_lo] = lse_lo;
+    if (hi_valid) p.lse[bh * p.seqlen_q + r_hi] = lse_hi;
   }
 }
 

@@ -27,8 +27,9 @@
 // softmax over the CTA's 16 rows (mma.sync m16n8k16, bf16 in, fp32
 // accumulate); at the end the warps merge through shared memory. With more
 // than one split, each split writes (o fp32, lse) and decode_merge_kernel
-// combines them (ops/combine.py is its plain version). A split or a row with
-// no valid key gives weight 0 / out 0 and lse -inf, never NaN.
+// (attention_fwd.cuh) combines them (ops/combine.py is its plain version). A
+// split or a row with no valid key gives weight 0 / out 0 and lse -inf, never
+// NaN.
 //
 // int8 caches: the ring holds the int8 rows (half the bytes of bf16), and
 // the values become bf16 (exactly: |x| <= 127) in registers as the mma
@@ -51,10 +52,11 @@ namespace decode {
 using lite::cp_async16;
 using lite::cp_async_commit;
 using lite::cp_async_wait;
-using lite::fast_exp2;
 using lite::ldmatrix_x4_trans;
 using lite::mma_bf16;
+using lite::p_operand;
 using lite::pack_bf16;
+using lite::softmax_update;
 
 constexpr int kRows = 16;  // q rows per CTA (one mma row tile)
 constexpr int kWarps = 4;  // a quarter of every key tile per warp
@@ -257,33 +259,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
 
     // Online softmax update of this warp's state.
-    const float mn_lo = fmaxf(m_lo, mx_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi);
-    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
-    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-    const float alpha_lo = fast_exp2(m_lo - base_lo);
-    const float alpha_hi = fast_exp2(m_hi - base_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < kNb; ++nb) {
-      s[nb][0] = fast_exp2(s[nb][0] - base_lo);
-      s[nb][1] = fast_exp2(s[nb][1] - base_lo);
-      s[nb][2] = fast_exp2(s[nb][2] - base_hi);
-      s[nb][3] = fast_exp2(s[nb][3] - base_hi);
-      sum_lo += s[nb][0] + s[nb][1];
-      sum_hi += s[nb][2] + s[nb][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha_lo;
-      acc[i][1] *= alpha_lo;
-      acc[i][2] *= alpha_hi;
-      acc[i][3] *= alpha_hi;
-    }
+    softmax_update(s, acc, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi);
 
     // O += P V over this warp's keys, 16 at a time: P's accumulator layout
     // is the A operand; the B fragments of V^T come by ldmatrix.trans
@@ -291,10 +267,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
 #pragma unroll
     for (int sb = 0; sb < kNb / 2; ++sb) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * sb][0], s[2 * sb][1]);
-      a[1] = pack_bf16(s[2 * sb][2], s[2 * sb][3]);
-      a[2] = pack_bf16(s[2 * sb + 1][0], s[2 * sb + 1][1]);
-      a[3] = pack_bf16(s[2 * sb + 1][2], s[2 * sb + 1][3]);
+      p_operand(s, sb, a);
       const int key0 = kw + sb * 16;
 #pragma unroll
       for (int db = 0; db < D / 16; ++db) {
@@ -380,32 +353,6 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Params p) 
   }
 }
 
-// Merge of the per-split partials: out = sum_s w_s o_s / sum_s w_s with
-// w_s = exp(lse_s - max lse); every split empty -> out 0, lse -inf.
-// One CTA of D threads per packed row.
-template <int D>
-__global__ void __launch_bounds__(D) decode_merge_kernel(const float* o_part,
-                                                         const float* lse_part,
-                                                         __nv_bfloat16* out, float* lse,
-                                                         int splits, int n_rows) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse_part[s * static_cast<size_t>(n_rows) + row]);
-  float l = 0.f, o = 0.f;
-  if (mx != -INFINITY) {
-    for (int s = 0; s < splits; ++s) {
-      const size_t idx = s * static_cast<size_t>(n_rows) + row;
-      const float w = expf(lse_part[idx] - mx);
-      l += w;
-      o += w * o_part[idx * D + d];
-    }
-  }
-  const bool empty = !(l > 0.f);
-  out[row * D + d] = __float2bfloat16_rn(empty ? 0.f : o / l);
-  if (d == 0) lse[row] = empty ? -INFINITY : mx + logf(l);
-}
-
 template <int D, typename T>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   auto kernel = flash_decode_kernel<D, T>;
@@ -418,7 +365,7 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   const int n_rows = batch * p.kv_heads * p.rows;
-  decode_merge_kernel<D><<<n_rows, D, 0, stream>>>(p.o_part, p.lse_part, p.out, p.lse,
+  lite::decode_merge_kernel<D><<<n_rows, D, 0, stream>>>(p.o_part, p.lse_part, p.out, p.lse,
                                                    p.splits, n_rows);
   return cudaGetLastError();
 }

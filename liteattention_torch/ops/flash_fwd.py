@@ -17,9 +17,17 @@ cotangent is ignored, as in the JAX ``custom_vjp``.
 
 Takes bf16 on the card (any float dtype on the CPU), head dim 64 or 128,
 GQA, causal or not. The other JAX mask channels (segments, bound/low,
-window, softcap, ALiBi, dropout, ``qv``) are not ported and raise. The
+window, softcap, ALiBi, dropout) are not ported and raise. The
 wrapper runs the plain PyTorch version for CPU tensors and the kernel for
 CUDA tensors.
+
+MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
+``qv . v`` to the scores -- are forward only, as in JAX: they run the MLA
+instantiation of B1 (``lite_flash_fwd_mla`` in ``csrc/flash_fwd.cu``:
+one CTA per q-tile and 128-wide chunk of V's channels, q held in shared
+memory), built for (D, Dv, qv) = (192, 128, no), (576, 512, no) and (64,
+512, yes); other pairs raise on the card (ROADMAP A11) and the backward
+raises.
 
 :func:`flash_attention_decode` is the decode entry (kernel B8, replacing
 ``liteattention_tpu/ops/flash_fwd.py:_decode_folded_kernel``): a few q rows
@@ -55,14 +63,17 @@ def flash_attention_plain(
     v: torch.Tensor,
     scale: Optional[float] = None,
     causal: bool = False,
+    qv: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel: fp32 scores, exact softmax in
     log2 space (the kernel's and the plain lite version's form).
 
-    ``q`` ``[B, H, Sq, D]``, ``k``/``v`` ``[B, Hk, Sk, D]``. Returns
-    (out in q's dtype, lse fp32 natural log). A row with no valid key
-    (causal with Sq > Sk) gives out 0 and lse -inf. Query rows are
-    processed in chunks so long sequences fit in memory.
+    ``q`` ``[B, H, Sq, D]``, ``k`` ``[B, Hk, Sk, D]``, ``v`` ``[B, Hk, Sk,
+    Dv]``; with ``qv`` ``[B, H, Sq, Dv]`` the scores are ``q . k + qv .
+    v``. Returns (out ``[B, H, Sq, Dv]`` in q's dtype, lse fp32 natural
+    log). A row with no valid key (causal with Sq > Sk) gives out 0 and lse
+    -inf. Query rows are processed in chunks so long sequences fit in
+    memory.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -73,7 +84,10 @@ def flash_attention_plain(
     outs, lses = [], []
     for q0 in range(0, sq, PLAIN_Q_CHUNK):
         qf = q[:, :, q0 : q0 + PLAIN_Q_CHUNK].float()
-        s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
+        s = torch.matmul(qf, kf.transpose(-1, -2))
+        if qv is not None:
+            s = s + torch.matmul(qv[:, :, q0 : q0 + PLAIN_Q_CHUNK].float(), vf.transpose(-1, -2))
+        s = s * (scale * LOG2E)
         if causal:
             s = s.masked_fill(causal_mask(q0, qf.shape[2], sq, sk, q.device), -torch.inf)
         m = s.amax(dim=-1, keepdim=True)
@@ -87,14 +101,16 @@ def flash_attention_plain(
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
-def _check_inputs(q, k, v):
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q, k, v must be [B, H, S, D] with k.shape == v.shape")
-    b, h, _, d = q.shape
+def _check_inputs(q, k, v, qv=None):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError("q, k, v must be [B, H, S, D] with v [B, Hk, Sk, Dv] beside k")
+    b, h, sq, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
         raise ValueError(f"incompatible shapes {q.shape} / {k.shape}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
+    if qv is not None and qv.shape != (b, h, sq, v.shape[3]):
+        raise ValueError(f"qv must be [B, H, Sq, Dv] = {(b, h, sq, v.shape[3])}, got {qv.shape}")
+    if any(x is not None and x.device != q.device for x in (k, v, qv)):
+        raise ValueError("q, k, v (and qv) must be on one device")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -140,20 +156,81 @@ def flash_attention(
       block_sizes: only the 128 x 128 geometry is built.
       return_lse: also return the natural-log LSE ``[B, H, Sq]`` fp32.
 
-    ``dropout_p`` and ``qv`` are channels of the JAX kernel that the port
-    does not take yet; they raise.
+    MLA shapes (inference only, as in JAX): ``v`` ``[B, Hk, Sk, Dv]``
+    with its own head dim, and/or ``qv`` ``[B, H, Sq, Dv]``, which adds
+    ``qv . v`` to the scores; the output is ``[B, H, Sq, Dv]``. Their
+    backward raises.
+
+    ``dropout_p`` is a channel of the JAX kernel that the port does not
+    take yet; it raises.
     """
-    if dropout_p or qv is not None:
-        raise NotImplementedError("flash_attention: dropout and qv are not ported yet")
+    if dropout_p:
+        raise NotImplementedError("flash_attention: dropout is not ported yet")
     if block_sizes is not None and block_sizes != BlockSizes(128, 128):
         raise ValueError(f"only BlockSizes(128, 128) is built, got {block_sizes}")
-    _check_inputs(q, k, v)
+    _check_inputs(q, k, v, qv)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    out, lse = _FlashAttention.apply(q, k, v, float(scale), bool(causal))
+    if v.shape[-1] != q.shape[-1] or qv is not None:
+        out, lse = _FlashAttentionMLA.apply(q, k, v, qv, float(scale), bool(causal))
+    else:
+        out, lse = _FlashAttention.apply(q, k, v, float(scale), bool(causal))
     if return_lse:
         return out, lse
     return out
+
+
+class _FlashAttentionMLA(torch.autograd.Function):
+    """Forward through B1's MLA instantiation (or the plain version); the
+    MLA shapes are inference-only, so the backward raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qv, scale, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        qv = None if qv is None else qv.contiguous()
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale, causal, qv=qv)
+        else:
+            out, lse = _launch_mla(q, k, v, qv, scale, causal)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        raise NotImplementedError(
+            "flash_attention: MLA shapes (V's own head dim, qv) are forward-only, as in JAX"
+        )
+
+
+# (D, Dv, qv) pairs of B1's MLA instantiation.
+MLA_SHAPES = ((192, 128, False), (576, 512, False), (64, 512, True))
+
+
+def _launch_mla(q, k, v, qv, scale, causal):
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    tensors = [x for x in (q, k, v, qv) if x is not None]
+    if any(x.dtype != torch.bfloat16 for x in tensors):
+        raise TypeError("the CUDA kernel takes bf16 q, k, v (and qv)")
+    b, h, sq, d = q.shape
+    dv = v.shape[-1]
+    if (d, dv, qv is not None) not in MLA_SHAPES:
+        raise NotImplementedError(
+            f"flash_attention: no MLA kernel for D {d}, Dv {dv}, qv {qv is not None}; "
+            f"built (D, Dv, qv): {MLA_SHAPES} (ROADMAP A11)"
+        )
+    _build.check_aligned(*tensors)
+    out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _build.load_kernels().lite_flash_fwd_mla(
+        q.data_ptr(), None if qv is None else qv.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, dv,
+        float(scale), int(causal), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_fwd_mla")
+    flash_attention.mla_launches += 1
+    return out, lse
 
 
 def _launch(q, k, v, scale, causal):
@@ -179,6 +256,7 @@ def _launch(q, k, v, scale, causal):
 
 
 flash_attention.launches = 0
+flash_attention.mla_launches = 0
 
 
 def flash_attention_masked(
@@ -206,8 +284,10 @@ def flash_attention_masked(
     flash_attention_masked`` (same arguments). The port routes the plain
     and causal forms to :func:`flash_attention` (kernel B1, with its
     backward); every other mask channel raises ``NotImplementedError``
-    naming itself (ROADMAP A11). ``block_sizes`` is a tiling knob of the
-    JAX kernel, accepted and ignored (B1 runs 128 x 128)."""
+    naming itself (ROADMAP A11), except ``qv`` and a V of its own head
+    dim, the MLA shapes of :func:`flash_attention`. ``block_sizes`` is a
+    tiling knob of the JAX kernel, accepted and ignored (B1 runs 128 x
+    128)."""
     unported = [
         name for name, used in (
             ("segments", q_segments is not None or kv_segments is not None),
@@ -218,7 +298,6 @@ def flash_attention_masked(
             ("attention_chunk", bool(attention_chunk)),
             ("softcap", bool(softcap)),
             ("dropout", dropout_p > 0.0 or dropout_seed is not None),
-            ("qv", qv is not None),
         ) if used
     ]
     if unported:
@@ -226,7 +305,7 @@ def flash_attention_masked(
             f"flash_attention_masked: {', '.join(unported)} not ported yet (ROADMAP A11)"
         )
     del block_sizes
-    return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse)
+    return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
 
 
 def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,

@@ -450,3 +450,107 @@ def test_entry_points_default_to_the_card(dev):
     assert all(x.device == dev for x in rotary_freqs(16, 32))
     assert init_mask(1, 2, 256, 256, 128, 128).do_mask.device == dev
     assert Trainer(gpt, lambda m, x: m(x).sum(), TrainConfig()).device == dev
+
+
+# (form, sq, hq, pages per request): the DeepSeek decode shape in every cache
+# form, the causal 2-token verify. 24 pages of 64 (1536 keys) take the split
+# path and its merge (3 splits at 5 requests), 12 pages (768 keys) one split.
+MLA_DECODE_CASES = [
+    ("contiguous", 1, 128, 24), ("paged", 1, 128, 24), ("permuted", 1, 128, 24),
+    ("wide", 1, 128, 24), ("contiguous", 2, 32, 24), ("paged", 1, 128, 12),
+    ("permuted", 2, 16, 12),
+]
+
+
+@pytest.mark.parametrize("form,sq,hq,pps", MLA_DECODE_CASES)
+def test_mla_decode_kernel(dev, form, sq, hq, pps):
+    """B10 against its plain version: out within 2e-2 absolute and 1e-2
+    rel-L2, lse within 1e-3; a request of length 0 gives out 0 and lse
+    -inf; a 640-lane cache reads only its first 576 channels."""
+    from liteattention_torch.ops.mla import mla_decode, mla_decode_plain
+
+    b, d, dv, ps = 5, 576, 512, 64
+    g = torch.Generator(device=dev).manual_seed(sq * hq + pps)
+    q = torch.randn(b, sq, hq, d, generator=g, device=dev).bfloat16()
+    lanes = 640 if form == "wide" else d
+    n_pages = b * pps + 2
+    pool = torch.randn(n_pages, ps, lanes, generator=g, device=dev).bfloat16()
+    lens = torch.randint(1, pps * ps + 1, (b,), generator=g, device=dev).int()
+    lens[0], lens[1] = pps * ps, 0
+    table = None
+    if form in ("paged", "permuted"):
+        perm = torch.randperm(n_pages, generator=g, device=dev) if form == "permuted" \
+            else torch.arange(n_pages, device=dev)
+        table = perm[: b * pps].reshape(b, pps).int()
+        cache = pool
+    else:
+        cache = pool[: b * pps].reshape(b, pps * ps, lanes)
+    n0, m0 = mla_decode.launches, mla_decode.merge_launches
+    out, lse = mla_decode(q, cache, lens, dv, page_table=table, return_lse=True)
+    torch.cuda.synchronize()
+    assert mla_decode.launches == n0 + 1
+    assert mla_decode.merge_launches == m0 + int(pps * ps >= 1024)
+    ro, rl = mla_decode_plain(q, cache, lens, dv, page_table=table, return_lse=True)
+    assert out.shape == (b, sq, hq, dv) and lse.shape == (b, hq, sq)
+    _check_decode(out.transpose(1, 2), lse, ro.transpose(1, 2), rl)
+    assert (out[1] == 0).all() and torch.isneginf(lse[1]).all()
+    if form == "wide":
+        tight = mla_decode(q, cache[..., :d].contiguous(), lens, dv, return_lse=True)
+        assert torch.equal(tight[0], out) and torch.equal(tight[1], lse)
+
+
+def test_mla_decode_kernel_raises_on_what_it_does_not_take(dev):
+    from liteattention_torch.ops.mla import mla_decode
+
+    q = torch.zeros(2, 1, 16, 256, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 128, 256, device=dev, dtype=torch.bfloat16)
+    lens = torch.full((2,), 128, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="D 576 / Dv 512"):
+        mla_decode(q, kv, lens, 128)
+    with pytest.raises(TypeError, match="bf16"):
+        mla_decode(q.float(), kv.float(), lens, 128)
+
+
+# (b, h, hk, sq, sk, d, dv, qv): DeepSeek's prefill shape with GQA, the
+# absorbed widths, the qv term; ragged tiles and Sq > Sk.
+MLA_FWD_CASES = [
+    (2, 4, 2, 300, 555, 192, 128, False),
+    (1, 2, 2, 1000, 640, 192, 128, False),
+    (1, 3, 3, 200, 333, 576, 512, False),
+    (2, 2, 1, 130, 97, 64, 512, True),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,h,hk,sq,sk,d,dv,use_qv", MLA_FWD_CASES)
+def test_flash_fwd_mla_kernel(dev, b, h, hk, sq, sk, d, dv, use_qv, causal):
+    """B1's MLA instantiation against the plain version, with B1's own
+    tolerances (out 2e-2, over max(1, |plain|) when causal; lse 1e-3)."""
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(d + dv + sq)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, k, v = mk(b, h, sq, d), mk(b, hk, sk, d), mk(b, hk, sk, dv)
+    qv = mk(b, h, sq, dv) if use_qv else None
+    n0 = flash_attention.mla_launches
+    out, lse = flash_attention(q, k, v, causal=causal, qv=qv, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.mla_launches == n0 + 1
+    ro, rl = flash_attention_plain(q, k, v, 1.0 / d**0.5, causal, qv=qv)
+    assert out.shape == (b, h, sq, dv)
+    diff = (out.float() - ro.float()).abs()
+    if causal:
+        diff = diff / ro.float().abs().clamp_min(1.0)
+    assert diff.max().item() < 2e-2
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    if causal and sq > sk:
+        assert out[~fin].abs().max().item() == 0.0
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+
+
+def test_flash_fwd_mla_kernel_raises_on_other_shapes(dev):
+    q = torch.zeros(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
+    v = torch.zeros(1, 2, 64, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A11"):
+        flash_attention(q, q, v)

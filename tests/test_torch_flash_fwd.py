@@ -71,10 +71,9 @@ def test_attention_ref_matches_jax():
 
 
 def test_unported_channels_raise():
-    # Causal is ported (test_torch_flash_bwd.py); dropout and qv are not.
+    # Causal (test_torch_flash_bwd.py) and qv (test_torch_flash_fwd_mla.py)
+    # are ported; dropout is not.
     x = torch.zeros(1, 1, 128, 64)
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, qv=x)
     with pytest.raises(NotImplementedError):
         flash_attention(x, x, x, dropout_p=0.1)
     with pytest.raises(ValueError):

@@ -54,3 +54,32 @@ def test_no_jax_imports(path):
             names = [node.module]
         for name in names:
             assert name.split(".")[0] not in BLOCKED, (path, name)
+
+
+def _jax_all(relpath):
+    """``__all__`` of a JAX-package module, read from its source (JAX is
+    not imported here)."""
+    tree = ast.parse((ROOT / "liteattention_tpu" / relpath).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", "") == "__all__":
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"no __all__ in {relpath}")
+
+
+# Public names of the JAX package that the port does not have yet (ROADMAP A13).
+NOT_PORTED = {
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_qkvpacked_func",
+    "flash_attn_varlen_kvpacked_func",
+}
+
+
+@pytest.mark.parametrize("relpath", ["__init__.py", "flash_attn_interface.py"])
+def test_exports_match_the_jax_package(relpath):
+    import importlib
+
+    module = "liteattention_torch" + ("" if relpath == "__init__.py" else ".flash_attn_interface")
+    port = importlib.import_module(module)
+    want = set(_jax_all(relpath)) - NOT_PORTED
+    assert set(port.__all__) == want
+    assert all(callable(getattr(port, name)) or name == "ops" for name in want)
