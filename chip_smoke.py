@@ -11,13 +11,16 @@ Phases (any failure exits non-zero and prints no result line):
 2. Kernels against their plain PyTorch versions on the card, bf16: the
    dense forward (B1), the schedule packer (B2) and the sparse forward
    with votes (B3) at moderate shapes and at the Wan slice's shapes; the
-   causal B1 and the backward kernels B7a (dQ) and B7b (dK/dV) at the
-   GPT-2 small shape (8 x 12 x 1024 x 64) and at Sq 1000 / Sk 640, D 128,
+   causal B1 and the one-pass backward B7 (``flash_attention_bwd``: delta,
+   one kernel for dQ, dK and dV, dQ to bf16; it serves B7a and B7b) at the
+   GPT-2 small shape (8 x 12 x 1024 x 64), at Sq 1000 / Sk 640, D 128,
    8 q-heads on 2 kv-heads (bottom-right offset, rows with no key, ragged
-   tails, GQA); B7 is held by rel-L2 over each tensor and over every
-   128-row block. Times of each kernel beside its plain version, its
+   tails, GQA) and at the Wan2.1-14B attention width (1 x 40 x 8192 x 128,
+   non-causal); B7 is held against B7a's and B7b's plain versions by
+   rel-L2 over each tensor and over every 128-row block, dK and dV bit for
+   bit over two runs. Times of each kernel beside its plain version, its
    bound and SDPA's flash kernels where one call computes the same
-   function (aten's flash backward for the B7 pair).
+   function (aten's flash backward for B7).
 3. The denoising slice: the Wan2.1-14B DiT (full width, depth cut to 2
    blocks, random weights from a seed) denoising a 480p 81-frame latent
    (21 x 60 x 104 -> 32 760 tokens) with CFG, 4 steps, vote_stride 2,
@@ -31,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
    (``liteattention_torch.train``) trains GPT-2 small (124M, full width
    and depth, random weights from a seed) for 10 AdamW steps on one
    repeated synthetic batch of 8 x 1024 tokens. The counters must show
-   12 launches per step of each of causal B1, B7a and B7b, and the loss
+   12 launches per step of each of causal B1 and B7, and the loss
    must stay finite and fall. Then ms/step, tokens/s and the attention
    share (torch.profiler).
 5. The serving slice. First causal B1 at the serving path's prefill and
@@ -90,8 +93,9 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
     python3 chip_smoke.py --ab DIR [REPS]
 
-times B1 and B3 of the checkout at DIR instead (see ``ab_times``): to
-compare two checkouts on one card, run it for each in turns in one job.
+times B1, B3, B8 and the backward B7 of the checkout at DIR instead (see
+``ab_times``): to compare two checkouts on one card, run it for each in
+turns in one job.
 """
 
 from __future__ import annotations
@@ -120,6 +124,8 @@ SMALL_DENOISE_TOL = 5e-2  # same for a 3-step CFG denoise (CFG amplifies error)
 # P and dS rounded to bf16 before their products).
 BWD_TOL = 1e-2
 BWD_BLOCK_TOL = 2e-2
+# B7 at the Wan2.1-14B attention width: batch, heads, tokens, head dim.
+WAN_BWD_SHAPE = (1, 40, 8192, 128)
 SMALL_LOSS_TOL = 1e-2  # small GPT, bf16 card vs fp32 CPU: relative loss error
 SMALL_GRAD_TOL = 5e-2  # ... and rel-L2 of each parameter's gradient
 # The 480p Wan latent for 81 frames; depth of the 14B model cut for time.
@@ -306,7 +312,7 @@ def kernel_wrappers():
     counts B3, B5 and B4 apart, flash_attention B1 and its MLA
     instantiation); the decode wrappers also count the launches of their
     split-merge kernel."""
-    from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
@@ -321,8 +327,8 @@ def kernel_wrappers():
             "lite_flash_fwd_coarse": (lite_flash_attention, "coarse_launches"),
             "lite_flash_fwd_hfold": (lite_flash_attention, "hfold_launches"),
             "kv_compact": (compact_kv, "launches"),
-            "flash_bwd_dq": (flash_bwd_dq, "launches"),
-            "flash_bwd_dkv": (flash_bwd_dkv, "launches"),
+            "flash_bwd_dq": (flash_bwd, "launches"),
+            "flash_bwd_dkv": (flash_bwd, "launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
@@ -425,87 +431,88 @@ def sdpa_bwd(q, k, v, dout, causal):
 
 
 def check_bwd(q, k, v, dout, label, causal, time_it=False):
-    """B7a/B7b against their plain versions on the forward kernel's
-    out / lse (the inputs the training path gives them)."""
+    """The one-pass backward B7 (``flash_attention_bwd``: delta, the main
+    kernel, dQ to bf16) on the forward kernel's out / lse (the inputs the
+    training path gives it): dq against B7a's plain version, dk / dv
+    against B7b's; dk / dv bit-stable over two runs, dq (summed across CTAs
+    by atomics in no fixed order) held by the same rel-L2 again."""
     import torch
     from liteattention_torch.ops.flash_bwd import (
-        flash_bwd_dkv,
+        flash_attention_bwd,
         flash_bwd_dkv_plain,
-        flash_bwd_dq,
         flash_bwd_dq_plain,
+        flash_bwd_plain,
     )
     from liteattention_torch.ops.flash_fwd import flash_attention
 
     b, h, sq, d = q.shape
     sk, scale = k.shape[2], d**-0.5
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-    delta = (out.float() * dout.float()).sum(-1)
-    args = (q, k, v, dout, lse, delta, scale, causal)
-    dq = flash_bwd_dq(*args)
-    dk, dv = flash_bwd_dkv(*args)
+    args = (q, k, v, out, lse, dout, scale, causal)
+    dq, dk, dv = flash_attention_bwd(*args)
     torch.cuda.synchronize()
-    rq = flash_bwd_dq_plain(*args)
-    rk, rv = flash_bwd_dkv_plain(*args)
+    delta = (out.float() * dout.float()).sum(-1)
+    plain_args = (q, k, v, dout, lse, delta, scale, causal)
+    rq = flash_bwd_dq_plain(*plain_args)
+    rk, rv = flash_bwd_dkv_plain(*plain_args)
     errs, rels = {}, {}
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         errs[name] = (got.float() - ref.float()).abs().max().item()
         rels[name] = block_rel_l2(got, ref)
-    check(torch.equal(dk, flash_bwd_dkv(*args)[0]), f"B7 {label}: dK not bit-stable")
+    dq2, dk2, dv2 = flash_attention_bwd(*args)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2), f"B7 {label}: dK/dV not bit-stable")
+    rels["dq (2nd run)"] = block_rel_l2(dq2, rq)
+    del dq2, dk2, dv2
     log(f"  B7 {label}: rel-L2 tensor / worst (b, h, 128-row block): "
         + ", ".join(f"{n} {t:.2e} / {w:.2e}" for n, (t, w) in rels.items())
         + "; max abs err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + " (bit-stable over two runs)")
+        + " (dK, dV bit-stable over two runs)")
     for name, (tensor, block) in rels.items():
         check(tensor < BWD_TOL and block < BWD_BLOCK_TOL,
               f"B7 {label}: {name} rel-L2 {tensor:.3e} / block {block:.3e}")
     res = {
-        "flash_bwd_dq": {"err": errs["dq"], "rel_l2": rels["dq"][0],
-                         "worst_block_rel_l2": rels["dq"][1]},
+        "flash_bwd_dq": {"err": errs["dq"], "rel_l2": max(rels["dq"][0], rels["dq (2nd run)"][0]),
+                         "worst_block_rel_l2": max(rels["dq"][1], rels["dq (2nd run)"][1])},
         "flash_bwd_dkv": {"err": max(errs["dk"], errs["dv"]),
                           "rel_l2": max(rels["dk"][0], rels["dv"][0]),
                           "worst_block_rel_l2": max(rels["dk"][1], rels["dv"][1])},
     }
     if time_it:
-        pairs = attn_pairs(sq, sk, causal) * b * h
-        ins = nbytes(q, k, v, dout, lse, delta)
-        rq_ = res["flash_bwd_dq"]
-        rq_["ms"] = cuda_ms(lambda: flash_bwd_dq(*args), reps=20)
-        rq_["plain_ms"] = cuda_ms(lambda: flash_bwd_dq_plain(*args), reps=1)
-        rq_["bound_ms"], rq_["bound_by"] = bound(6 * d * pairs, ins + nbytes(dq))
-        rk_ = res["flash_bwd_dkv"]
-        rk_["ms"] = cuda_ms(lambda: flash_bwd_dkv(*args), reps=20)
-        rk_["plain_ms"] = cuda_ms(lambda: flash_bwd_dkv_plain(*args), reps=1)
-        rk_["bound_ms"], rk_["bound_by"] = bound(8 * d * pairs, ins + nbytes(dk, dv))
-
-        def pair():  # the backward as the autograd Function runs it
-            dl = (out.float() * dout.float()).sum(-1)
-            flash_bwd_dq(q, k, v, dout, lse, dl, scale, causal)
-            flash_bwd_dkv(q, k, v, dout, lse, dl, scale, causal)
-
-        pair_ms = cuda_ms(pair, reps=20)
-        # No PyTorch call computes dQ alone or dK/dV alone: aten's flash
-        # backward computes the three together, and is the library time of
-        # both, beside the port's delta + B7a + B7b.
+        del rq, rk, rv
+        # The whole backward (pre + main + post) as the autograd Function
+        # runs it; its bound counts the work the inputs need: S, dP, dV, dK
+        # and dQ (10 d FLOPs per pair), q, k, v, o, dO, lse read once and
+        # dq, dk, dv written once.
+        ms = cuda_ms(lambda: flash_attention_bwd(*args), reps=20)
+        # Device time of the three launches, and the main kernel's share.
+        dev_ms, main_ms, timer = device_ms(lambda: flash_attention_bwd(*args),
+                                           names=("flash_bwd_kernel",))
+        plain_ms = cuda_ms(lambda: flash_bwd_plain(*args), reps=1)
+        bound_ms, bound_by = bound(10 * d * attn_pairs(sq, sk, causal) * b * h,
+                                   nbytes(q, k, v, out, dout, lse, dq, dk, dv))
+        # aten's flash backward computes dq, dk and dv in one call.
         lib = lib_err = None
         if k.shape[1] == h and sq == sk:
             lib_fn = sdpa_bwd(q, k, v, dout, causal)
             lib = cuda_ms(lib_fn, reps=20)
-            lib_err = max(rel_l2(x, r) for x, r in zip(lib_fn(), (rq, rk, rv)))
-        for r in (rq_, rk_):
-            r["library_ms"] = lib
-            r["library_covers"] = "dq, dk and dv in one call (aten flash backward)"
-            r["pair_ms"] = pair_ms
+            lib_err = max(rel_l2(x, r) for x, r in zip(lib_fn(), (dq, dk, dv)))
+        for r in res.values():
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib, device_ms=dev_ms, main_kernel_ms=main_ms,
+                     timer={"ms": "events", "device_ms": timer, "main_kernel_ms": timer},
+                     timed="the whole backward (pre + main + post), "
+                     "one kernel for dq, dk and dv",
+                     library_covers="dq, dk and dv in one call (aten flash backward)")
         ours = fwd_bwd_ms(
             lambda a, b_, c: flash_attention(a, b_, c, causal=causal), q, k, v, dout
         )
         sdpa_fb = sdpa_ms(q, k, v, causal, dout) if lib is not None else None
         res["fwd_bwd"] = {"ms": ours, "sdpa_ms": sdpa_fb}
-        for name, r in (("B7a dQ", rq_), ("B7b dK/dV", rk_)):
-            log(f"  {name} {label}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-                f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
         na = lambda x, f: "n/a" if x is None else f.format(x)  # noqa: E731
-        log(f"  B7 pair {label}: delta + B7a + B7b {pair_ms:.3f} ms; aten flash backward "
-            f"{na(lib, '{:.3f} ms')} (its grads vs plain rel-L2 {na(lib_err, '{:.2e}')})")
+        log(f"  B7 {label}: backward {ms:.4f} ms (device {dev_ms:.4f} ms, of which the main "
+            f"kernel {fmt_ms(main_ms)}, {timer}), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); aten flash backward {na(lib, '{:.4f} ms')} "
+            f"(its grads vs ours rel-L2 {na(lib_err, '{:.2e}')})")
         log(f"  B1+B7 {label}: forward + backward through autograd {ours:.3f} ms; "
             f"SDPA flash {na(sdpa_fb, '{:.3f} ms')}")
     return res
@@ -649,8 +656,9 @@ def kernel_phase(dev, cfg, n_tok):
 
 
 def gpt_kernel_phase(dev):
-    """Causal B1 and B7 at the GPT-2 small shape (timed) and at a shape
-    with a bottom-right offset, rows with no key, ragged tails and GQA."""
+    """Causal B1 and B7 at the GPT-2 small shape (timed), at a shape with a
+    bottom-right offset, rows with no key, ragged tails and GQA, and B7 at
+    the Wan2.1-14B attention width (timed)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -673,6 +681,19 @@ def gpt_kernel_phase(dev):
         for name, r in check_bwd(q, k, v, do, label, causal=causal).items():
             for key, val in r.items():
                 res[name][key] = max(res[name][key], val)
+    # B7 at the Wan2.1-14B attention width (the gradient of A12's
+    # calibration), non-causal: checked and timed.
+    b, h, s, d = WAN_BWD_SHAPE
+    q, k, v, do = (rnd(b, h, s, d) for _ in range(4))
+    wan = check_bwd(q, k, v, do, f"dense {b}x{h}x{s}x{d}", causal=False, time_it=True)
+    wan.pop("fwd_bwd")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+             "main_kernel_ms", "timer")
+    for name, r in wan.items():
+        res[name]["wan_width"] = {"shape": f"{b}x{h}x{s}x{d} non-causal",
+                                  **{key: r[key] for key in timed}}
+        for key in ("err", "rel_l2", "worst_block_rel_l2"):
+            res[name][key] = max(res[name][key], r[key])
     return res
 
 
@@ -799,10 +820,10 @@ def small_gpt_check(dev):
     versions), from the same weights."""
     import torch
     from liteattention_torch.models.gpt import GPTConfig, GPTLMHeadModel, gpt_loss_fn
-    from liteattention_torch.ops.flash_bwd import flash_bwd_dkv, flash_bwd_dq
+    from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention
 
-    counters = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
+    counters = (flash_attention, flash_bwd)
     for heads in (4, 2):
         cfg = GPTConfig(vocab_size=512, max_position_embeddings=512, dim=256,
                         num_layers=2, num_heads=heads)
@@ -818,7 +839,7 @@ def small_gpt_check(dev):
         loss = gpt_loss_fn(gpu, ids, ids)
         loss.backward()
         torch.cuda.synchronize()
-        check([fn.launches - n for fn, n in zip(counters, n0)] == [2, 2, 2],
+        check([fn.launches - n for fn, n in zip(counters, n0)] == [2, 2],
               "small GPT: the kernels did not run")
         e_loss = abs(loss.item() - ref.item()) / abs(ref.item())
         grads = {n: p.grad for n, p in cpu.named_parameters()}
@@ -864,8 +885,9 @@ def train_phase(dev, card):
     launches = counts[0]
     log(f"  launches during the training run: {launches}; merge launches {counts[1]}")
     want = cfg.num_layers * GPT_STEPS
+    # B7a and B7b are one kernel now: both names read its launches.
     check(all(launches[n] == want for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-          f"training: expected {want} launches of each of B1, B7a, B7b")
+          f"training: expected {want} launches of each of B1 and B7")
     losses = [r["loss"] for r in recs]
     log(f"  loss per step: {[round(x, 4) for x in losses]}")
     check(all(math.isfinite(x) for x in losses), "training loss is not finite")
@@ -897,7 +919,7 @@ def train_phase(dev, card):
         and not getattr(e, "is_user_annotation", False)
     }
     busy = sum(kern.values())
-    attn = sum(t for k, t in kern.items() if "attention_fwd_kernel" in k or "flash_bwd" in k)
+    attn = sum(t for k, t in kern.items() if "attention_fwd_kernel" in k or "lite::bwd::" in k)
     # Model FLOPs of a step: 6 N per token for the matmuls with the
     # parameters, 6 L S d per token for causal attention (half of 12 L S d).
     flops = 6 * n_params * tokens + 6 * cfg.num_layers * GPT_SEQ * cfg.dim * tokens
@@ -2065,9 +2087,10 @@ def mla_phase(dev, card):
     return counts, res
 
 
-# Kernels whose ptxas registers and spills ab_times reports.
+# Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
+# names the one-pass backward kernel and the two kernels it replaced).
 AB_KERNELS = ("attention_fwd_kernel", "flash_decode_kernel", "mla_fwd_kernel",
-              "mla_decode_kernel")
+              "mla_decode_kernel", "flash_bwd")
 
 
 def ab_times(reps):
@@ -2075,8 +2098,10 @@ def ab_times(reps):
     ``liteattention_torch`` is imported): the card, the registers and
     spills ptxas reported per kernel of ``AB_KERNELS``, the device time
     of B1 and of B3 with and without votes at the Wan slice's shape (1 x
-    40 x 32 760 x 128 bf16, banded ~50 % mask), and of the decode kernel
-    B8 with its split merge at the kvcache API's shape (device_ms). It
+    40 x 32 760 x 128 bf16, banded ~50 % mask), of the decode kernel B8
+    with its split merge at the kvcache API's shape (device_ms), and of
+    the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
+    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal). It
     calls only entry points every version of the port has since the
     decode kernel, so checkouts can be timed in turns on one card (older,
     newer, newer, older)."""
@@ -2084,6 +2109,7 @@ def ab_times(reps):
 
     import torch
     from liteattention_torch.ops import _build
+    from liteattention_torch.ops.flash_bwd import flash_attention_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
     from liteattention_torch.ops.schedule_pack import pack_schedule
@@ -2111,6 +2137,16 @@ def ab_times(reps):
               for _ in range(2))
     b8_ms, b8_kernel_ms, b8_timer = device_ms(lambda: flash_attention_decode(dq, dk, dv),
                                               names=DECODE_KERNELS)
+
+    def bwd_ms(shape, causal):
+        bq, bk, bv, bdo = (torch.randn(*shape, generator=g, device=dev).bfloat16()
+                           for _ in range(4))
+        bo, blse = flash_attention(bq, bk, bv, causal=causal, return_lse=True)
+        scale = shape[-1] ** -0.5
+        return cuda_ms(lambda: flash_attention_bwd(bq, bk, bv, bo, blse, bdo, scale, causal), reps)
+
+    bwd = {"bwd_gpt2_ms": bwd_ms((GPT_BATCH, 12, GPT_SEQ, 64), True),
+           "bwd_wan_ms": bwd_ms(WAN_BWD_SHAPE, False)}
     print(json.dumps({
         "root": sys.path[0], "card": card, "registers": regs,
         "b1_ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
@@ -2118,7 +2154,7 @@ def ab_times(reps):
         "b3_novote_ms": cuda_ms(lambda: lite_flash_attention(
             q, k, v, fidx, count, -1.0, mask, emit_votes=False), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
-        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer,
+        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **bwd,
     }))
     return 0
 

@@ -1,5 +1,6 @@
-"""Port parity: the flash backward (liteattention_torch.ops.flash_bwd, the
-plain versions of kernels B7a/B7b on CPU) and autograd through the port's
+"""Port parity: the flash backward (liteattention_torch.ops.flash_bwd: on
+CPU the plain version of kernel B7's one pass, and B7a's / B7b's plain
+versions that the card is held against) and autograd through the port's
 flash_attention, against the JAX package (Pallas kernels in interpret mode).
 
 fp32 inputs. Tolerances: dq, dk, dv within 1e-4 absolute of JAX, whose
@@ -21,8 +22,10 @@ from liteattention_tpu.ops.flash_fwd import flash_attention as jflash  # noqa: E
 from liteattention_tpu.ops.tile_sizes import BlockSizes as JBS  # noqa: E402
 from liteattention_torch.ops.flash_bwd import (  # noqa: E402
     flash_attention_bwd,
-    flash_bwd_dkv,
-    flash_bwd_dq,
+    flash_bwd,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq_plain,
+    flash_bwd_plain,
 )
 from liteattention_torch.ops.flash_fwd import flash_attention  # noqa: E402
 
@@ -64,7 +67,27 @@ def test_flash_bwd_matches_jax(b, h, hk, sq, sk, d, causal):
     for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
         assert g.shape == r.shape and g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_TOL, rtol=0, err_msg=name)
-    assert flash_bwd_dq.launches == 0 and flash_bwd_dkv.launches == 0  # CPU never launches
+    assert flash_bwd.launches == 0  # CPU never launches
+
+
+@pytest.mark.parametrize("b,h,hk,sq,sk,d,causal", CASES)
+def test_one_pass_plain_matches_jax(b, h, hk, sq, sk, d, causal):
+    # The one pass over 128-key tiles (dQ summed tile after tile), and
+    # B7a's / B7b's plain versions, against JAX's backward.
+    q, k, v, do = _inputs(b, h, hk, sq, sk, d, seed=3 * sq + sk + d)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    jo, jl = jflash(jq, jk, jv, causal=causal, block_sizes=BS, return_lse=True, interpret=True)
+    scale = d**-0.5
+    ref = jbwd(jq, jk, jv, jo, jl, jnp.asarray(do), scale, causal, block_sizes=BS, interpret=True)
+    o, lse, tdo = t(jo), t(jl), t(do)
+    got = flash_bwd_plain(t(q), t(k), t(v), o, lse, tdo, scale, causal)
+    delta = (o * tdo).sum(-1)
+    args = (t(q), t(k), t(v), tdo, lse, delta, scale, causal)
+    two = (flash_bwd_dq_plain(*args), *flash_bwd_dkv_plain(*args))
+    for g, g2, r, name in zip(got, two, ref, ("dq", "dk", "dv")):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_TOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(g2.numpy(), np.asarray(r), atol=GRAD_TOL, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize(
