@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
    rel-L2 over each tensor and over every 128-row block, dK and dV bit for
    bit over two runs. Times of each kernel beside its plain version, its
    bound and SDPA's flash kernels where one call computes the same
-   function (aten's flash backward for B7).
+   function (aten's flash backward for B7); B1 at the Wan self- and
+   cross-attention shapes, causal at GPT-2 small and at the serving
+   prefill (beside SDPA ``enable_gqa`` where a backend takes it), by CUDA
+   events and by profiler device time.
 3. The denoising slice: the Wan2.1-14B DiT (full width, depth cut to 2
    blocks, random weights from a seed) denoising a 480p 81-frame latent
    (21 x 60 x 104 -> 32 760 tokens) with CFG, 4 steps, vote_stride 2,
@@ -93,9 +96,9 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
     python3 chip_smoke.py --ab DIR [REPS]
 
-times B1, B3, B8 and the backward B7 of the checkout at DIR instead (see
-``ab_times``): to compare two checkouts on one card, run it for each in
-turns in one job.
+times B1 (at four shapes), B3, B8 and the backward B7 of the checkout at
+DIR instead (see ``ab_times``): to compare two checkouts on one card, run
+it for each in turns in one job.
 """
 
 from __future__ import annotations
@@ -377,6 +380,7 @@ def fwd_bwd_ms(fn, q, k, v, dout):
 def check_flash(q, k, v, label, causal=False, time_it=False):
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
@@ -400,7 +404,11 @@ def check_flash(q, k, v, label, causal=False, time_it=False):
     if time_it:
         b, h, sq, d = q.shape
         sk = k.shape[2]
-        res["ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+        call = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        res["ms"] = cuda_ms(call)
+        # Device time beside the events: at small shapes the events follow
+        # the host.
+        res["device_ms"], _, res["timer"] = device_ms(call)
         res["plain_ms"] = cuda_ms(
             lambda: flash_attention_plain(q, k, v, causal=causal), reps=1
         )
@@ -408,11 +416,22 @@ def check_flash(q, k, v, label, causal=False, time_it=False):
             4 * d * attn_pairs(sq, sk, causal) * b * h, nbytes(q, k, v, out, lse)
         )
         # SDPA aligns causal masks top-left: comparable only when Sq == Sk.
-        same = k.shape[1] == h and (sq == sk or not causal)
-        res["library_ms"] = sdpa_ms(q, k, v, causal) if same else None
-        lib = "n/a" if res["library_ms"] is None else f"{res['library_ms']:.3f} ms"
-        log(f"  B1 {label}: kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
-            f"bound {res['bound_ms']:.3f} ms ({res['bound_by']}), SDPA flash {lib}")
+        res["library_ms"], res["library"] = None, None
+        if sq == sk or not causal:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            if k.shape[1] == h:
+                res["library_ms"], res["library"] = sdpa_ms(q, k, v, causal), "SDPA flash (events)"
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    res["library_device_ms"] = device_ms(lambda: sdpa(q, k, v, is_causal=causal))[0]
+            else:
+                backend, res["library_ms"], timer = sdpa_backend_ms(
+                    f"B1 {label}", lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+                if backend is not None:
+                    res["library"] = f"SDPA {backend} enable_gqa ({timer})"
+        lib = "n/a" if res["library"] is None else f"{res['library_ms']:.4f} ms {res['library']}"
+        log(f"  B1 {label}: kernel {res['ms']:.4f} ms (events), {fmt_ms(res['device_ms'])} "
+            f"({res['timer']}), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), library {lib}")
     return res
 
 
@@ -1053,7 +1072,8 @@ def serve_flash_check(dev):
     """Causal B1 at the serving path's shapes (Llama-3-8B heads, GQA): the
     prefill (every request's prompt) and a speculative verify step
     (lookahead + 1 rows against the prompt and the tokens so far,
-    bottom-right causal). Returns the larger max abs error."""
+    bottom-right causal), the prefill timed. Returns the larger max abs
+    error and the prefill's times."""
     import torch
 
     cfg = llama3_8b_config(1)
@@ -1066,12 +1086,16 @@ def serve_flash_check(dev):
     sk = SERVE_PROMPT + SPEC_NEW + SPEC_LOOKAHEAD
     shapes = (("prefill", SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT),
               ("verify", 1, SPEC_LOOKAHEAD + 1, sk))
-    err = 0.0
+    err, prefill = 0.0, None
     for label, b, sq, sk in shapes:
         q, k, v = rnd(b, hq, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d)
-        label = f"causal {label} {b}x{hq}/{hk}, Sq {sq} Sk {sk} D {d}"
-        err = max(err, check_flash(q, k, v, label, causal=True)["err"])
-    return err
+        name = f"causal {label} {b}x{hq}/{hk}, Sq {sq} Sk {sk} D {d}"
+        r = check_flash(q, k, v, name, causal=True, time_it=label == "prefill")
+        err = max(err, r["err"])
+        if label == "prefill":
+            prefill = {"shape": f"{b}x{hq}/{hk}x{sq}x{d} causal", **r}
+            prefill.pop("err")
+    return err, prefill
 
 
 def decode_kernel_phase(dev):
@@ -2088,9 +2112,11 @@ def mla_phase(dev, card):
 
 
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
-# names the one-pass backward kernel and the two kernels it replaced).
-AB_KERNELS = ("attention_fwd_kernel", "flash_decode_kernel", "mla_fwd_kernel",
-              "mla_decode_kernel", "flash_bwd")
+# names the one-pass backward kernel and the two kernels it replaced;
+# "flash_fwd_kernel" B1's wgmma kernel, whose parent ran B1 on
+# attention_fwd_kernel).
+AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
+              "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd")
 
 
 def ab_times(reps):
@@ -2098,8 +2124,11 @@ def ab_times(reps):
     ``liteattention_torch`` is imported): the card, the registers and
     spills ptxas reported per kernel of ``AB_KERNELS``, the device time
     of B1 and of B3 with and without votes at the Wan slice's shape (1 x
-    40 x 32 760 x 128 bf16, banded ~50 % mask), of the decode kernel B8
-    with its split merge at the kvcache API's shape (device_ms), and of
+    40 x 32 760 x 128 bf16, banded ~50 % mask), of B1 at the Wan
+    cross-attention (Sk 512), causal at GPT-2 small (8 x 12 x 1024 x 64)
+    and at the serving prefill (8 x 32/8 x 1024 x 128; these three by
+    device_ms), of the decode kernel B8 with its split merge at the
+    kvcache API's shape (device_ms), and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
     (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal). It
     calls only entry points every version of the port has since the
@@ -2147,6 +2176,16 @@ def ab_times(reps):
 
     bwd = {"bwd_gpt2_ms": bwd_ms((GPT_BATCH, 12, GPT_SEQ, 64), True),
            "bwd_wan_ms": bwd_ms(WAN_BWD_SHAPE, False)}
+
+    def b1_device_ms(b, hq, hk, sq, sk, d, causal):
+        bq = torch.randn(b, hq, sq, d, generator=g, device=dev).bfloat16()
+        bk, bv = (torch.randn(b, hk, sk, d, generator=g, device=dev).bfloat16() for _ in range(2))
+        return device_ms(lambda: flash_attention(bq, bk, bv, causal=causal), reps)[0]
+
+    b1 = {"b1_cross_device_ms": b1_device_ms(1, h, h, s, 512, d, False),
+          "b1_gpt2_device_ms": b1_device_ms(GPT_BATCH, 12, 12, GPT_SEQ, GPT_SEQ, 64, True),
+          "b1_prefill_device_ms": b1_device_ms(SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT,
+                                               128, True)}
     print(json.dumps({
         "root": sys.path[0], "card": card, "registers": regs,
         "b1_ms": cuda_ms(lambda: flash_attention(q, k, v), reps),
@@ -2154,7 +2193,7 @@ def ab_times(reps):
         "b3_novote_ms": cuda_ms(lambda: lite_flash_attention(
             q, k, v, fidx, count, -1.0, mask, emit_votes=False), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
-        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **bwd,
+        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **bwd, **b1,
     }))
     return 0
 
@@ -2195,8 +2234,8 @@ def main() -> int:
         log("phase 2: kernels against their plain versions (bf16)")
         kres = kernel_phase(dev, cfg, n_tok)
         kres.update(gpt_kernel_phase(dev))
-        kres["flash_fwd_causal"]["err"] = max(kres["flash_fwd_causal"]["err"],
-                                              serve_flash_check(dev))
+        serve_err, serve_prefill = serve_flash_check(dev)
+        kres["flash_fwd_causal"]["err"] = max(kres["flash_fwd_causal"]["err"], serve_err)
         kres.update(decode_kernel_phase(dev))
         log("phase 3: Wan2.1-14B-width denoising slice")
         counts = {"wan_denoise": slice_phase(dev, card, cfg, SLICE_GRID)}
@@ -2215,11 +2254,18 @@ def main() -> int:
         return 1
     # flash_fwd's own numbers are the Wan shape's; the causal ones sit
     # under causal_gpt2 (times at GPT-2's shape; the error over both GPT
-    # shapes and the serving path's prefill and verify shapes).
+    # shapes and the serving path's prefill and verify shapes), the serving
+    # prefill's and the Wan cross-attention's under their names.
     causal = kres["flash_fwd_causal"]
+    timed_keys = ("ms", "device_ms", "timer", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library", "library_device_ms")
     kres["flash_fwd"]["causal_gpt2"] = {
-        "max_abs_err": causal["err"],
-        **{k: causal[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_abs_err": causal["err"], **{k: causal[k] for k in timed_keys if k in causal},
+    }
+    kres["flash_fwd"]["serving_prefill"] = serve_prefill
+    cross = kres["flash_fwd_cross"]
+    kres["flash_fwd"]["wan_cross"] = {
+        "max_abs_err": cross["err"], **{k: cross[k] for k in timed_keys if k in cross},
     }
     kres["flash_bwd_dq"]["fwd_bwd"] = kres["fwd_bwd"]
     # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
@@ -2237,29 +2283,39 @@ def main() -> int:
         merges = {path: c[1][name] for path, c in counts.items()}
         kres[name]["merge_launches"] = sum(merges.values())
         kres[name]["merge_launches_by_path"] = merges
+    # name -> (source, CUDA kernel, the TPU kernel it replaces)
     sources = {
-        "flash_fwd": ("flash_fwd.cu", "liteattention_tpu/ops/flash_fwd.py:84"),
-        "schedule_pack": ("schedule_pack.cu", "liteattention_tpu/ops/schedule_pack.py:52"),
-        "lite_flash_fwd": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:376"),
-        "lite_flash_fwd_coarse": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:123"),
-        "lite_flash_fwd_hfold": ("lite_flash_fwd.cu", "liteattention_tpu/ops/lite_flash_fwd.py:885"),
-        "kv_compact": ("kv_compact.cu", "liteattention_tpu/ops/kv_compact.py:81"),
-        "flash_bwd_dq": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:55"),
-        "flash_bwd_dkv": ("flash_bwd.cu", "liteattention_tpu/ops/flash_bwd.py:238"),
-        "flash_decode": ("flash_decode.cu", "liteattention_tpu/ops/flash_fwd.py:843"),
-        "paged_decode": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:40"),
-        "paged_decode_folded": ("flash_decode.cu", "liteattention_tpu/ops/paged_attention.py:276"),
-        "flash_fwd_mla": ("flash_fwd.cu", "liteattention_tpu/ops/flash_fwd.py:84"),
-        "mla_decode": ("mla_decode.cu", "liteattention_tpu/ops/mla.py:52"),
+        "flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "schedule_pack": ("schedule_pack.cu", "pack_schedule_kernel",
+                          "liteattention_tpu/ops/schedule_pack.py:52"),
+        "lite_flash_fwd": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+                           "liteattention_tpu/ops/lite_flash_fwd.py:376"),
+        "lite_flash_fwd_coarse": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+                                  "liteattention_tpu/ops/lite_flash_fwd.py:123"),
+        "lite_flash_fwd_hfold": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+                                 "liteattention_tpu/ops/lite_flash_fwd.py:885"),
+        "kv_compact": ("kv_compact.cu", "kv_compact_kernel", "liteattention_tpu/ops/kv_compact.py:81"),
+        "flash_bwd_dq": ("flash_bwd.cu", "flash_bwd_kernel", "liteattention_tpu/ops/flash_bwd.py:55"),
+        "flash_bwd_dkv": ("flash_bwd.cu", "flash_bwd_kernel",
+                          "liteattention_tpu/ops/flash_bwd.py:238"),
+        "flash_decode": ("flash_decode.cu", "flash_decode_kernel",
+                         "liteattention_tpu/ops/flash_fwd.py:843"),
+        "paged_decode": ("flash_decode.cu", "flash_decode_kernel",
+                         "liteattention_tpu/ops/paged_attention.py:40"),
+        "paged_decode_folded": ("flash_decode.cu", "flash_decode_kernel",
+                                "liteattention_tpu/ops/paged_attention.py:276"),
+        "flash_fwd_mla": ("flash_fwd.cu", "mla_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "mla_decode": ("mla_decode.cu", "mla_decode_kernel", "liteattention_tpu/ops/mla.py:52"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, kernel, replaces) in sources.items():
         r = kres[name]
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"liteattention_torch/ops/csrc/{src}",
+            "kernel": kernel,
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": r["err"],

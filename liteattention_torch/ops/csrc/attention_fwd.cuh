@@ -1,5 +1,6 @@
-// Shared forward mainloop of the dense (B1) and lite (B3, B4, B5) attention
-// kernels.
+// Shared forward mainloop of the lite (B3, B4, B5) attention kernels, and
+// the online-softmax row steps that B1 (flash_fwd.cu), the decode kernels
+// and the MLA kernels share with it.
 //
 // One CTA owns one 128-row q-tile of one (batch, head) -- or, folded, of
 // `fold` consecutive heads one after the other: 8 warps, 16 q rows each. K
@@ -10,12 +11,6 @@
 //
 // The walk over k-tiles is the template parameter MODE. A walk visits
 // positions (e, s): entry e of the CTA's schedule row, fine k-tile s of it.
-//   kDense:  every k-tile 0..ceil(Sk/128)-1 in order (B1). CAUSAL adds the
-//            bottom-right-aligned causal mask (key col valid for q row r iff
-//            col <= r + causal_offset, causal_offset = Sk - Sq); the walk
-//            stops at the last k-tile the q-tile's last row reaches, and
-//            q-tiles run in reverse block order so the longest walks start
-//            first.
 //   kGather: fidx[0..count) of this (b, h, q-tile) row, the compacted live
 //            fine k-tiles in increasing order (B3; `fold` > 1 heads per CTA is
 //            B5, whose per-head arithmetic is B3's exactly). With `lidx`, the
@@ -51,19 +46,24 @@
 // max is kMaskValue. The vote clamps both to kMaskValue the same way (the
 // softmax itself keeps -inf: the outputs do not depend on the sentinel).
 //
+// Keys past Sk are masked by key_mask.cuh's test, the one B1 and B7 use.
+//
 // What bounds it on the H100: at 128x128 tiles each K/V byte loaded feeds
 // 128 q rows, so the kernel is bound by tensor-core issue, and mma.sync
 // reaches well under the wgmma rate. This first version keeps the design
 // simple (no TMA, no warp specialization, no wgmma); skipped tiles cost no
 // load and no math, which is what turns sparsity into time. A folded CTA
 // fetches the next head's first K/V tile while the current head's last tile
-// computes.
+// computes. B1's wgmma/TMA mainloop (flash_fwd.cu) is the one these walks
+// move onto next (ROADMAP B-ii R1b).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "key_mask.cuh"
 
 namespace lite {
 
@@ -75,7 +75,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // The JAX kernels' finite mask value, -0.7 * FLT_MAX rounded to fp32.
 constexpr float kMaskValue = -0x1.666664p+127f;
 
-enum Mode { kDense = 0, kGather = 1, kCoarse = 2, kSuper = 3 };
+enum Mode { kGather = 1, kCoarse = 2, kSuper = 3 };
 
 struct FwdParams {
   const __nv_bfloat16* q;  // [B, H, Sq, D]
@@ -96,7 +96,6 @@ struct FwdParams {
   int vote_q, vote_k;      // vote grid per (b, h)
   int gsize;               // kGather: entries per vote step
   int fold;                // kGather: heads per CTA
-  int causal_offset;       // Sk - Sq (CAUSAL)
   float scale_log2;        // softmax scale * log2(e)
   float thr;               // vote threshold, log2 space
 };
@@ -174,14 +173,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // are NB blocks of 8 keys; m is the running row max (log2 space), l this
 // thread's partial row sum.
 
-// Scale raw scores to log2 space and, with `mask`, set every column at or
-// past its row's limit (key col0 + 8 nb + 2 t + (e & 1) >= lim) to -inf;
-// returns the rows' maxima over the tile in mx_lo / mx_hi (quad-reduced).
-// The unmasked tile takes its own loop with no per-element test: left to the
-// compiler, the one masked loop cost B1 2 % and B3 4-7 % on an H100.
-template <int NB>
+// Scale raw scores to log2 space and, with `mask`, set every column that
+// `hidden(col, hi)` hides (key col = col0 + 8 nb + 2 t + (e & 1) of the lo
+// row, or with hi of the hi row) to -inf; returns the rows' maxima over the
+// tile in mx_lo / mx_hi (quad-reduced). The unmasked tile takes its own loop
+// with no per-element test: left to the compiler, the one masked loop cost
+// B1 2 % and B3 4-7 % on an H100.
+template <int NB, typename Hidden>
 __device__ __forceinline__ void mask_scores(float (&s)[NB][4], float scale_log2, bool mask,
-                                            int col0, int lim_lo, int lim_hi, float& mx_lo,
+                                            int col0, Hidden&& hidden, float& mx_lo,
                                             float& mx_hi) {
   const int t = threadIdx.x % 4;
   mx_lo = -INFINITY;
@@ -200,7 +200,7 @@ __device__ __forceinline__ void mask_scores(float (&s)[NB][4], float scale_log2,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = col0 + nb * 8 + 2 * t + (e & 1);
-        s[nb][e] = col < (e < 2 ? lim_lo : lim_hi) ? s[nb][e] * scale_log2 : -INFINITY;
+        s[nb][e] = hidden(col, e >= 2) ? -INFINITY : s[nb][e] * scale_log2;
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[nb][0], s[nb][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[nb][2], s[nb][3]));
@@ -212,34 +212,55 @@ __device__ __forceinline__ void mask_scores(float (&s)[NB][4], float scale_log2,
   mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
 }
 
+// The same with a key limit per row (key col hidden iff col >= lim): the
+// decode kernels' per-request bounds.
+template <int NB>
+__device__ __forceinline__ void mask_scores(float (&s)[NB][4], float scale_log2, bool mask,
+                                            int col0, int lim_lo, int lim_hi, float& mx_lo,
+                                            float& mx_hi) {
+  mask_scores(s, scale_log2, mask, col0,
+              [&](int col, bool hi) { return col >= (hi ? lim_hi : lim_lo); }, mx_lo, mx_hi);
+}
+
 // Fold a tile's log2-space scores (row maxima mx_lo / mx_hi) into the running
-// state: s becomes the tile's probabilities relative to the new max, l
-// absorbs their sums and the NACC accumulator blocks are rescaled. A row
-// whose max is still -inf keeps base 0, so it never produces NaN.
-template <int NB, int NACC>
-__device__ __forceinline__ void softmax_update(float (&s)[NB][4], float (&acc)[NACC][4],
-                                               float mx_lo, float mx_hi, float& m_lo,
-                                               float& m_hi, float& l_lo, float& l_hi) {
-  const float mn_lo = fmaxf(m_lo, mx_lo);
-  const float mn_hi = fmaxf(m_hi, mx_hi);
+// state: s becomes the tile's probabilities relative to the new max and l
+// absorbs their sums; alpha_lo / alpha_hi are the factors that rescale the
+// accumulator (rescale_rows). With `scale`, s and the maxima are raw scores
+// that reach log2 space here, in each exp2's own FFMA: B1 and B3-B5 leave
+// mask_scores' scale at 1 and pass theirs here, which saves an instruction a
+// score and keeps their probabilities bit for bit alike (a dense and a lite
+// forward over the same keys agree exactly). A row whose max is still -inf
+// keeps base 0, so it never produces NaN.
+template <int NB>
+__device__ __forceinline__ void softmax_rows(float (&s)[NB][4], float mx_lo, float mx_hi,
+                                             float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+                                             float& alpha_lo, float& alpha_hi,
+                                             float scale = 1.f) {
+  const float mn_lo = fmaxf(m_lo, mx_lo * scale);
+  const float mn_hi = fmaxf(m_hi, mx_hi * scale);
   const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
   const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
-  const float alpha_lo = fast_exp2(m_lo - base_lo);
-  const float alpha_hi = fast_exp2(m_hi - base_hi);
+  alpha_lo = fast_exp2(m_lo - base_lo);
+  alpha_hi = fast_exp2(m_hi - base_hi);
   m_lo = mn_lo;
   m_hi = mn_hi;
   float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
-    s[nb][0] = fast_exp2(s[nb][0] - base_lo);
-    s[nb][1] = fast_exp2(s[nb][1] - base_lo);
-    s[nb][2] = fast_exp2(s[nb][2] - base_hi);
-    s[nb][3] = fast_exp2(s[nb][3] - base_hi);
+    s[nb][0] = fast_exp2(fmaf(s[nb][0], scale, -base_lo));
+    s[nb][1] = fast_exp2(fmaf(s[nb][1], scale, -base_lo));
+    s[nb][2] = fast_exp2(fmaf(s[nb][2], scale, -base_hi));
+    s[nb][3] = fast_exp2(fmaf(s[nb][3], scale, -base_hi));
     sum_lo += s[nb][0] + s[nb][1];
     sum_hi += s[nb][2] + s[nb][3];
   }
   l_lo = l_lo * alpha_lo + sum_lo;
   l_hi = l_hi * alpha_hi + sum_hi;
+}
+
+template <int NACC>
+__device__ __forceinline__ void rescale_rows(float (&acc)[NACC][4], float alpha_lo,
+                                             float alpha_hi) {
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     acc[i][0] *= alpha_lo;
@@ -247,6 +268,16 @@ __device__ __forceinline__ void softmax_update(float (&s)[NB][4], float (&acc)[N
     acc[i][2] *= alpha_hi;
     acc[i][3] *= alpha_hi;
   }
+}
+
+// softmax_rows, then the accumulator rescaled at once.
+template <int NB, int NACC>
+__device__ __forceinline__ void softmax_update(float (&s)[NB][4], float (&acc)[NACC][4],
+                                               float mx_lo, float mx_hi, float& m_lo,
+                                               float& m_hi, float& l_lo, float& l_hi) {
+  float alpha_lo, alpha_hi;
+  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
+  rescale_rows(acc, alpha_lo, alpha_hi);
 }
 
 // P of keys 16 kc .. 16 kc + 15 as the A operand of m16n8k16: the
@@ -372,7 +403,7 @@ __device__ __forceinline__ void load_kv_tile(const FwdParams& p,
   }
 }
 
-// The k-tile list of one (b, h, q-tile) row on the dense and gather walks.
+// The k-tile list of one (b, h, q-tile) row on the gather walk.
 struct ListRow {
   const int* sched;   // kGather: fine k-tiles, fidx[0..n)
   const int* lsched;  // kGather: the tiles to load (lidx, or fidx itself)
@@ -381,7 +412,7 @@ struct ListRow {
   int n;
 };
 
-template <int D, int MODE, bool CAUSAL>
+template <int D>
 __device__ __forceinline__ ListRow list_row(const FwdParams& p, int b, int h, int qt) {
   ListRow r{};
   const size_t bh = static_cast<size_t>(b) * p.heads + h;
@@ -389,21 +420,13 @@ __device__ __forceinline__ ListRow list_row(const FwdParams& p, int b, int h, in
   const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
   r.kbase = p.k + kv;
   r.vbase = p.v + kv;
-  r.n = p.ktiles;
-  if constexpr (CAUSAL) {
-    // Last key that the q-tile's last (padded) row may see.
-    const int last = qt * kBlockQ + kBlockQ - 1 + p.causal_offset;
-    r.n = last < 0 ? 0 : min(p.ktiles, last / kBlockK + 1);
-  }
-  if constexpr (MODE == kGather) {
-    const size_t row = (bh * p.qtiles + qt) * p.ktiles;
-    r.sched = p.fidx + row;
-    r.lsched = p.lidx ? p.lidx + row : r.sched;
-    r.n = p.count[bh * p.qtiles + qt];
-    // count is max(live, 1): a row with no live tile lists tile fidx[0] as
-    // a dead anchor. It contributes nothing (out 0, lse -inf).
-    if (!p.mask[row + r.sched[0]]) r.n = 0;
-  }
+  const size_t row = (bh * p.qtiles + qt) * p.ktiles;
+  r.sched = p.fidx + row;
+  r.lsched = p.lidx ? p.lidx + row : r.sched;
+  r.n = p.count[bh * p.qtiles + qt];
+  // count is max(live, 1): a row with no live tile lists tile fidx[0] as
+  // a dead anchor. It contributes nothing (out 0, lse -inf).
+  if (!p.mask[row + r.sched[0]]) r.n = 0;
   return r;
 }
 
@@ -464,16 +487,14 @@ __device__ __forceinline__ void load_q(const FwdParams& p, size_t bh, int r_lo,
 }
 
 // One k-tile of the mainloop: S = Q K^T for this warp's 16 rows x 128 keys
-// (log2 space; columns past seqlen_k, and above the diagonal with CAUSAL,
-// masked to -inf), then `vote(mx_lo, mx_hi)` with the tile's row maxima
-// before the running max absorbs them, then the online softmax update and
-// O += P V.
-template <int D, bool CAUSAL, typename Vote>
+// (columns past seqlen_k masked to -inf), then `vote(mx_lo, mx_hi)` with the
+// tile's row maxima in log2 space before the running max absorbs them, then
+// the online softmax update (the scale inside each exp2, as B1) and O += P V.
+template <int D, typename Vote>
 __device__ __forceinline__ void attend_tile(
     const FwdParams& p, const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4],
     float& m_lo, float& m_hi, float& l_lo, float& l_hi, const __nv_bfloat16* ks,
-    const __nv_bfloat16* vs, int tile, int qt, int r_lo, int r_hi, Vote&& vote) {
-  const int warp = threadIdx.x / 32;
+    const __nv_bfloat16* vs, int tile, int r_lo, int r_hi, Vote&& vote) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
@@ -491,18 +512,17 @@ __device__ __forceinline__ void attend_tile(
   }
 
   const int col0 = tile * kBlockK;
-  const bool ragged = col0 + kBlockK > p.seqlen_k;
-  // Only tiles that cross the diagonal need the per-element causal test.
-  const bool diag =
-      CAUSAL && col0 + kBlockK - 1 > qt * kBlockQ + warp * 16 + p.causal_offset;
-  const int lim_lo = CAUSAL ? min(p.seqlen_k, r_lo + p.causal_offset + 1) : p.seqlen_k;
-  const int lim_hi = CAUSAL ? min(p.seqlen_k, r_hi + p.causal_offset + 1) : p.seqlen_k;
   float mx_lo, mx_hi;
-  mask_scores(s, p.scale_log2, ragged || diag, col0, lim_lo, lim_hi, mx_lo, mx_hi);
+  mask_scores(
+      s, 1.f, col0 + kBlockK > p.seqlen_k, col0,
+      [&](int col, bool hi) { return key_masked<false>(col, hi ? r_hi : r_lo, p.seqlen_k, 0); },
+      mx_lo, mx_hi);
 
-  vote(mx_lo, mx_hi);
+  vote(mx_lo * p.scale_log2, mx_hi * p.scale_log2);
 
-  softmax_update(s, acc, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi);
+  float alpha_lo, alpha_hi;
+  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
+  rescale_rows(acc, alpha_lo, alpha_hi);
   pv_product(acc, s, vs, D + 8);
 }
 
@@ -523,18 +543,16 @@ __device__ __forceinline__ void store_out(const FwdParams& p, size_t bh, int r_l
   }
 }
 
-template <int D, int MODE, bool VOTES, bool CAUSAL = false, bool FOLD = false>
+template <int D, int MODE, bool VOTES, bool FOLD = false>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const FwdParams p) {
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static_assert(MODE != kDense || !VOTES, "votes need a sparse walk");
-  static_assert(MODE == kDense || !CAUSAL, "causal is a channel of the dense walk");
   static_assert(MODE == kGather || !FOLD, "heads fold on the gather walk");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int kTileElems = kBlockK * (D + 8);
 
-  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
+  const int qt = blockIdx.x;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) / 4;
@@ -546,16 +564,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   uint32_t qf[D / 16][4];
   float acc[D / 8][4];
-  if constexpr (MODE == kDense || MODE == kGather) {
+  if constexpr (MODE == kGather) {
     const int fold = FOLD ? p.fold : 1;
     bool primed = false;  // this head's first K/V tile is already in flight
     int it = 0;           // tiles walked by this CTA (FOLD): the ring stage
     for (int hl = 0; hl < fold; ++hl) {
       const int h = blockIdx.y * fold + hl;
       const size_t bh = static_cast<size_t>(b) * p.heads + h;
-      const ListRow row = list_row<D, MODE, CAUSAL>(p, b, h, qt);
-      auto col_at = [&](int j) { return MODE == kGather ? row.sched[j] : j; };
-      auto load_at = [&](int j) { return MODE == kGather ? row.lsched[j] : j; };
+      const ListRow row = list_row<D>(p, b, h, qt);
       int* vrow = nullptr;
       if constexpr (VOTES) {
         vrow = p.votes + (bh * p.qtiles + qt) * p.ktiles;
@@ -564,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!primed) {
         if (row.n > 0) {
           __nv_bfloat16* cur = smem + (it & 1) * 2 * kTileElems;
-          load_kv_tile<D>(p, row.kbase, row.vbase, cur, cur + kTileElems, load_at(0));
+          load_kv_tile<D>(p, row.kbase, row.vbase, cur, cur + kTileElems, row.lsched[0]);
         }
         cp_async_commit();
       }
@@ -580,13 +596,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int stage = (FOLD ? it : j) & 1;
         __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
         if (j + 1 < row.n) {
-          load_kv_tile<D>(p, row.kbase, row.vbase, nxt, nxt + kTileElems, load_at(j + 1));
+          load_kv_tile<D>(p, row.kbase, row.vbase, nxt, nxt + kTileElems, row.lsched[j + 1]);
         } else if (FOLD && hl + 1 < fold) {
           // Fetch the next head's first tile while this head finishes.
-          const ListRow next = list_row<D, MODE, CAUSAL>(p, b, h + 1, qt);
+          const ListRow next = list_row<D>(p, b, h + 1, qt);
           if (next.n > 0) {
-            load_kv_tile<D>(p, next.kbase, next.vbase, nxt, nxt + kTileElems,
-                            MODE == kGather ? next.lsched[0] : 0);
+            load_kv_tile<D>(p, next.kbase, next.vbase, nxt, nxt + kTileElems, next.lsched[0]);
           }
           primed = true;
         }
@@ -594,7 +609,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         cp_async_wait<1>();
         __syncthreads();
         const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
-        const int tile = col_at(j);
+        const int tile = row.sched[j];
         // A new vote step starts: snapshot m_prev. Taken here, before the
         // tile's math, the step test stays off the path between the row
         // maxima and the barrier below (inside the vote it cost B3 ~2 %).
@@ -602,9 +617,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           mv_lo = m_lo;
           mv_hi = m_hi;
         }
-        attend_tile<D, CAUSAL>(
-            p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, qt, r_lo,
-            r_hi, [&](float mx_lo, float mx_hi) {
+        attend_tile<D>(
+            p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
+            [&](float mx_lo, float mx_hi) {
               if constexpr (VOTES) {
                 // Bitwise, not short-circuit: no branch before the barrier.
                 const bool keep = (lo_valid & (mx_lo - mv_lo > p.thr)) |
@@ -661,8 +676,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
       const int tile = w.tile(e, s);
-      attend_tile<D, false>(
-          p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, qt, r_lo, r_hi,
+      attend_tile<D>(
+          p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
           [&](float mx_lo, float mx_hi) {
             if (e != step) {  // a new entry: snapshot m_prev
               step = e;
@@ -700,10 +715,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // and head, or group of `fold` heads with FOLD (a separate instantiation, so
 // that the unfolded walk carries no head loop). Returns the CUDA error of the
 // launch (0 on success).
-template <int D, int MODE, bool VOTES, bool CAUSAL = false, bool FOLD = false>
+template <int D, int MODE, bool VOTES, bool FOLD = false>
 cudaError_t launch_attention_fwd(const FwdParams& p, int batch,
                                  cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<D, MODE, VOTES, CAUSAL, FOLD>;
+  auto kernel = attention_fwd_kernel<D, MODE, VOTES, FOLD>;
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -35,7 +35,8 @@
 // As in the JAX kernels P and dS are rounded to bf16 before they feed a
 // product, and every product accumulates in fp32. Masks: ragged Sq / Sk and
 // the bottom-right-aligned causal channel (key col valid for q row r iff
-// col <= r + Sk - Sq), tested in one place (key_masked).
+// col <= r + Sk - Sq), tested by key_mask.cuh's key_masked, the test the
+// forward kernels use.
 //
 // What bounds it on the H100: tensor-core throughput (10 d FLOPs per
 // (q row, key) pair, against bytes read once that are a small share at
@@ -49,6 +50,7 @@
 // threads with up to 255 registers.
 #include <math.h>
 
+#include "key_mask.cuh"
 #include "sm90.cuh"
 
 namespace lite {
@@ -62,6 +64,7 @@ constexpr int kStages = 3;  // Q/dO ring depth
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kThreads = kConsumers;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kNoBound = 1 << 30;  // a key bound no key or row reaches
 
 struct Params {
   float* dq_accum;     // [B, H, Sq_pad, D] fp32, per 64-row block in thread order
@@ -100,14 +103,6 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ float lse_log2(float lse) {
   return lse == -INFINITY ? INFINITY : lse * kLog2e;
-}
-
-// The mask of one (key, q row) entry: key past Sk, or above the diagonal.
-// Later mask channels (segments, window, bounds) add their tests here.
-template <bool CAUSAL>
-__device__ __forceinline__ bool key_masked(const Params& p, int key, int row, bool ragged,
-                                           bool diag) {
-  return (ragged && key >= p.seqlen_k) || (CAUSAL && diag && key > row + p.causal_offset);
 }
 
 // ------------------------------------------------------------ (a) pre
@@ -290,7 +285,11 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
       for (int e = 8 * k; e < 8 * k + 8; ++e) {
         const int qc = 8 * (e / 4) + 2 * t + (e & 1);
         const int key = key_lo + 8 * ((e >> 1) & 1);
-        s[e] = key_masked<CAUSAL>(p, key, row0 + qc, ragged, diag)
+        // Off the ragged tile and the tiles that cross the diagonal, that
+        // channel's bound moves out of reach: one branch-free test on every
+        // tile (on an H100 faster than testing the tile flags per element).
+        s[e] = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
+                                  diag ? p.causal_offset : kNoBound)
                    ? 0.f
                    : ex2(s[e] * p.scale_log2 - lse2[qc]);
         dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;

@@ -1,13 +1,365 @@
-// B1: dense flash-attention forward on Hopper (replaces the Pallas kernel
-// liteattention_tpu/ops/flash_fwd.py:_fwd_kernel).
+// B1: dense flash-attention forward on Hopper (flash_fwd_kernel), replacing
+// the Pallas kernel liteattention_tpu/ops/flash_fwd.py:_fwd_kernel; below
+// it, B1's MLA channels (mla_fwd_kernel).
 //
 // bf16 q/k/v in [B, H, S, D] (D = 64 or 128), GQA by h / group, optionally
-// causal (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk are masked
-// inside the kernel. Out in bf16, lse fp32 natural log. The mainloop is
-// shared with the lite kernel (attention_fwd.cuh) under the dense schedule:
-// every k-tile in order (up to the diagonal when causal).
+// causal (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out in
+// bf16, lse fp32 natural log; a row with no valid key gets out 0, lse -inf.
+//
+// What bounds it on the H100: tensor-core issue (4 D FLOPs per (q row, key)
+// pair; each K/V byte loaded feeds 128 q rows), and close behind it the
+// MUFU: a 128 x 128 tile at D 128 is 8.4 MFLOP, ~1.1 us of one SM's tensor
+// cores, and its 16 384 exp2 take ~0.6 us at 16 a clock (at D 64 the two
+// are about equal). So the products run on wgmma, the loads take no issue
+// slots (TMA), and a tile's softmax runs while products are in flight.
+//
+// One CTA per (b, h, 128-row q-tile), 256 threads: two consumer warpgroups
+// of 64 q rows each. O, S and P take 186 of a thread's 255 registers at D
+// 128; with a producer warp (288 threads) ptxas gives 166 and spills
+// (b1_ablation.py, producer_warp), so thread 0 also issues the TMA loads
+// (128-byte swizzle; 3-D tensor maps over [B * H, S, D], so a ragged tail
+// reads zeros, never the next head's rows): Q once, K and V per 128-key
+// tile into a ring of kStages stages. Each stage has a full barrier
+// (expect-tx bytes) and an empty barrier that every warp arrives on once
+// its wgmmas that read the stage have retired. No __syncthreads in the
+// loop. Per warpgroup and k-tile j of the walk:
+//   S_{j+1} = Q K_{j+1}^T   wgmma m64n128k16, both operands in shared memory
+//   O += P_j V_j            wgmma RS: P_j bf16 in registers, V MN-major
+//   (thread 0: refill tile j - 1's stage with tile j + 2 under the products)
+//   wait for S_{j+1}; mask and online softmax (the row steps of
+//   attention_fwd.cuh on the accumulator as it lies; the softmax scale is
+//   folded into each exp2's FFMA) while PV_j runs; wait for PV_j; rescale
+//   O; P_{j+1} to bf16 registers; release stage j.
+// The warpgroups take turns to issue their products (two named barriers),
+// so that one's softmax runs under the other's products. Every wgmma is
+// issued outside a branch: the walk visits at least one tile, and the last
+// tile's PV is peeled off the loop (under a branch ptxas serialises them
+// and says so in a performance advisory; b1_ablation.py,
+// wgmma_under_branch). Only the ragged last tile and tiles that cross a
+// warp's diagonal pay the per-element mask (key_mask.cuh, B7's test).
+// Causal walks stop at the q-tile's diagonal, and q-tiles run in reverse
+// order so the longest walks start first. Epilogue: each warpgroup writes
+// its normalised rows into its own half of the Q buffer and stores them by
+// TMA (rows >= Sq are clipped); lse from each quad's first lane. An
+// mbarrier wait traps after 2^28 tries, so a pipeline fault fails the
+// launch instead of holding the card.
 #include "attention_fwd.cuh"
+#include "sm90.cuh"
 
+namespace lite {
+namespace fwd {
+
+using sm90::desc_sw128;
+
+constexpr int kRowsQ = 128;  // q rows per CTA, 64 per warpgroup
+constexpr int kKeys = 128;   // keys per k-tile
+constexpr int kStages = 3;   // K/V ring depth
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1: the warpgroups' turns to issue
+
+struct Params {
+  float* lse;  // [B, H, Sq]
+  int heads, kv_heads, seqlen_q, seqlen_k, qtiles, ktiles;
+  int causal_offset;  // Sk - Sq
+  float scale_log2;   // softmax scale * log2(e)
+};
+
+// Shared-memory layout (byte offsets from a 1024-byte aligned base). Each
+// tile is stored as 64-value atoms of 128-byte rows (TMA's 128-byte
+// swizzle), atom a at a * rows * 128.
+template <int D>
+struct Smem {
+  static constexpr int kQ = kRowsQ * D * 2;  // the Q tile
+  static constexpr int kKV = kKeys * D * 2;  // one K or V tile
+  static constexpr int kStage = 2 * kKV;     // K, then V
+  static constexpr int q = 0;
+  static constexpr int ring = q + kQ;        // [kStages]
+  static constexpr int bars = ring + kStages * kStage;  // full, empty [kStages]; q_full
+  static constexpr int bytes = bars + (2 * kStages + 1) * 8;
+};
+
+// The k-tiles a CTA visits, in order: n >= 1 of them, so that every wgmma
+// of the mainloop is issued outside a branch (ptxas serialises wgmmas in a
+// path it cannot prove uniform). The dense walk: tile j = j for j < n, n
+// ending at the last tile the q-tile's last row reaches when causal; a
+// q-tile whose rows see no key still visits tile 0, where the mask hides
+// every key (out 0, lse -inf). A sparse walk (B3's live-tile list) takes
+// its place on the same mainloop.
+struct DenseWalk {
+  int n;
+  __device__ __forceinline__ int tile(int j) const { return j; }
+};
+
+template <bool CAUSAL>
+__device__ __forceinline__ DenseWalk dense_walk(const Params& p, int q0) {
+  if constexpr (CAUSAL) {
+    const int last = q0 + kRowsQ - 1 + p.causal_offset;  // the last row's last key
+    return {min(p.ktiles, max(last, 0) / kKeys + 1)};
+  }
+  return {p.ktiles};
+}
+
+// K and V of k-tile `tile` into ring stage `stage` (thread 0).
+template <int D>
+__device__ __forceinline__ void load_tile(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                                          unsigned char* smem, uint64_t* full, int stage,
+                                          int tile, int bhk) {
+  using L = Smem<D>;
+  unsigned char* dst = smem + L::ring + stage * L::kStage;
+  sm90::mbar_expect_tx(full + stage, 2 * L::kKV);
+#pragma unroll
+  for (int a = 0; a < D / 64; ++a) {
+    sm90::tma_load_3d(dst + a * kKeys * 128, &tm_k, full + stage, 64 * a, tile * kKeys, bhk);
+    sm90::tma_load_3d(dst + L::kKV + a * kKeys * 128, &tm_v, full + stage, 64 * a,
+                      tile * kKeys, bhk);
+  }
+}
+
+// S = Q K^T over the warpgroup's 64 rows (q_desc) and the 128 keys of the
+// K tile at k_addr, both K-major: a 16-deep step moves 32 bytes inside an
+// atom, then to the next atom (kRowsQ == kKeys rows on).
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t q_desc, uint32_t k_addr) {
+  const uint64_t k_desc = desc_sw128(k_addr, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+    sm90::wgmma_ss_n128<0, 0>(s, sm90::desc_add(q_desc, off), sm90::desc_add(k_desc, off),
+                              kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P V: P from registers, V at v_addr as the MN-major B operand (rows
+// of 64 values of D, atoms kKeys * 128 bytes apart), 16 keys a step.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kKeys / 16][4],
+                                         uint32_t v_addr) {
+  const uint64_t v_desc = desc_sw128(v_addr, kKeys * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint64_t db = sm90::desc_add(v_desc, kk * 2048);
+    if constexpr (D == 128) {
+      sm90::wgmma_rs_n128<1>(o, pf[kk], db, 1);
+    } else {
+      sm90::wgmma_rs_n64<1>(o, pf[kk], db, 1);
+    }
+  }
+  sm90::wgmma_commit();
+}
+
+// Tile `tile`'s scores, masked only on the ragged tile and on tiles that
+// cross this warp's diagonal, folded into the running row state; they stay
+// raw until softmax_rows takes them to log2 space inside each exp2's FFMA
+// (one instruction a score fewer than scaling first). alpha is the
+// accumulator's rescale.
+template <bool CAUSAL>
+__device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p, int tile,
+                                             int warp_row0, int r_lo, int r_hi, float& m_lo,
+                                             float& m_hi, float& l_lo, float& l_hi,
+                                             float& alpha_lo, float& alpha_hi) {
+  const int col0 = tile * kKeys;
+  const bool mask = col0 + kKeys > p.seqlen_k ||
+                    (CAUSAL && col0 + kKeys - 1 > warp_row0 + p.causal_offset);
+  float mx_lo, mx_hi;
+  mask_scores(
+      s, 1.f, mask, col0,
+      [&](int col, bool hi) {
+        return key_masked<CAUSAL>(col, hi ? r_hi : r_lo, p.seqlen_k, p.causal_offset);
+      },
+      mx_lo, mx_hi);
+  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_o, const Params p) {
+  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static_assert(kRowsQ == kKeys, "Q and K tiles step through D alike");
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
+  const int h = blockIdx.y;
+  const int bh = blockIdx.z * p.heads + h;
+  const int bhk = blockIdx.z * p.kv_heads + h / (p.heads / p.kv_heads);
+  const int q0 = qt * kRowsQ;
+  const DenseWalk walk = dense_walk<CAUSAL>(p, q0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWarps);
+    }
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(q_full, L::kQ);
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a) {
+      sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
+    }
+    for (int j = 0; j < kStages && j < walk.n; ++j) {  // walk.n >= 1
+      load_tile<D>(tm_k, tm_v, smem, full, j, walk.tile(j), bhk);
+    }
+  }
+
+  const int ct = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, ct / 128, 0);  // warp-uniform to the compiler
+  const int tw = ct % 128;
+  const int warp = tw / 32;
+  const int lane = ct % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int warp_row0 = q0 + 64 * wg + 16 * warp;
+  const int r_lo = warp_row0 + g;  // this thread's rows: r_lo, r_lo + 8
+  const int r_hi = r_lo + 8;
+  const uint64_t q_desc = desc_sw128(sm90::smem_u32(smem + L::q) + 64 * wg * 128, 16, 1024);
+  const uint32_t ring = sm90::smem_u32(smem + L::ring);
+
+  // S and O in the accumulator layout (sm90.cuh), as the row steps take
+  // them: s[j][2 i + c] is d[4 j + 2 i + c].
+  float s[kKeys / 8][4];
+  float o[D / 8][4];
+  uint32_t pf[kKeys / 16][4];  // P_j, bf16 pairs: the A operand of PV
+  float(&sd)[kKeys / 2] = reinterpret_cast<float(&)[kKeys / 2]>(s);
+  float(&od)[D / 2] = reinterpret_cast<float(&)[D / 2]>(o);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) od[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
+  float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
+  float alpha_lo, alpha_hi;
+
+  // S of the first tile, then per tile j: S_{j+1} and P_j V_j in flight,
+  // the softmax of S_{j+1} under P_j V_j, O rescaled once P_j V_j retires.
+  // The warpgroups take turns to issue their products (named barriers
+  // kTurn + wg), so that one's softmax runs under the other's products;
+  // warpgroup 0 goes first.
+  sm90::mbar_wait(q_full, 0);
+  if (wg == 1) sm90::named_arrive(kTurn, kThreads);
+  sm90::mbar_wait(&full[0], 0);
+  sm90::wgmma_fence();
+  issue_s<D>(sd, q_desc, ring);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sd);
+  tile_softmax<CAUSAL>(s, p, walk.tile(0), warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                       alpha_lo, alpha_hi);
+#pragma unroll
+  for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
+  for (int j = 0; j + 1 < walk.n; ++j) {
+    const int stage = j % kStages;
+    const int next = (j + 1) % kStages;
+    sm90::mbar_wait(&full[next], ((j + 1) / kStages) & 1);
+    sm90::named_sync(kTurn + wg, kThreads);
+    sm90::wgmma_fence();
+    issue_s<D>(sd, q_desc, ring + next * L::kStage);
+    issue_pv<D>(od, pf, ring + stage * L::kStage + L::kKV);
+    // Thread 0 refills tile j - 1's stage (all eight warps released it at
+    // the end of their step j - 1) while the products run.
+    if (ct == 0 && j > 0 && j - 1 + kStages < walk.n) {
+      const int free = (j - 1) % kStages;
+      sm90::mbar_wait(&empty[free], ((j - 1) / kStages) & 1);
+      load_tile<D>(tm_k, tm_v, smem, full, free, walk.tile(j - 1 + kStages), bhk);
+    }
+    sm90::named_arrive(kTurn + 1 - wg, kThreads);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sd);
+    tile_softmax<CAUSAL>(s, p, walk.tile(j + 1), warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                         alpha_lo, alpha_hi);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(od);
+    sm90::fence_regs(pf);
+    rescale_rows(o, alpha_lo, alpha_hi);
+#pragma unroll
+    for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
+    if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j
+  }
+  // P V of the last tile (its stage is never refilled).
+  sm90::wgmma_fence();
+  issue_pv<D>(od, pf, ring + (walk.n - 1) % kStages * L::kStage + L::kKV);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(od);
+
+  // Epilogue: the warpgroup's normalised rows, bf16, into its own half of
+  // the Q buffer (its wgmmas are done with it) in the 128-byte swizzle, then
+  // one TMA store per 64-value atom; lse from each quad's first lane.
+  float inv_lo, inv_hi, lse_lo, lse_hi;
+  finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
+  unsigned char* ob = smem + L::q + 64 * wg * 128;
+  const int row = 16 * warp + g;
+#pragma unroll
+  for (int jb = 0; jb < D / 8; ++jb) {
+    unsigned char* chunk = ob + (jb / 8) * kRowsQ * 128 + (((jb % 8) ^ g) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(chunk + row * 128) =
+        sm90::pack_bf16x2(o[jb][0] * inv_lo, o[jb][1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(chunk + (row + 8) * 128) =
+        sm90::pack_bf16x2(o[jb][2] * inv_hi, o[jb][3] * inv_hi);
+  }
+  if (t == 0) {
+    const size_t base = static_cast<size_t>(bh) * p.seqlen_q;
+    if (r_lo < p.seqlen_q) p.lse[base + r_lo] = lse_lo;
+    if (r_hi < p.seqlen_q) p.lse[base + r_hi] = lse_hi;
+  }
+  sm90::fence_proxy_async();
+  sm90::named_sync(1 + wg, 128);
+  if (tw == 0 && q0 + 64 * wg < p.seqlen_q) {
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a) {
+      sm90::tma_store_3d(&tm_o, ob + a * kRowsQ * 128, 64 * a, q0 + 64 * wg, bh);
+    }
+    sm90::bulk_commit();
+    sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t run(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+                int heads, int kv_heads, int seqlen_q, int seqlen_k, float scale,
+                cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  const int bh = batch * heads, bhk = batch * kv_heads;
+  cudaError_t err;
+  if ((err = sm90::make_tensor_map_3d(&tm_q, q, D, seqlen_q, bh, 64, kRowsQ)) ||
+      (err = sm90::make_tensor_map_3d(&tm_k, k, D, seqlen_k, bhk, 64, kKeys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_v, v, D, seqlen_k, bhk, 64, kKeys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_o, out, D, seqlen_q, bh, 64, 64))) {
+    return err;
+  }
+  Params p{};
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.seqlen_q = seqlen_q;
+  p.seqlen_k = seqlen_k;
+  p.qtiles = (seqlen_q + kRowsQ - 1) / kRowsQ;
+  p.ktiles = (seqlen_k + kKeys - 1) / kKeys;
+  p.causal_offset = seqlen_k - seqlen_q;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  auto kernel = flash_fwd_kernel<D, CAUSAL>;
+  constexpr int smem = Smem<D>::bytes + 1024;  // + alignment of the base
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.qtiles, heads, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
+}  // namespace lite
+
+// q [B, H, Sq, D], k and v [B, Hk, Sk, D], out [B, H, Sq, D], all bf16; lse
+// [B, H, Sq] fp32. Returns the CUDA error of the launch (0 = success).
 extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     int batch, int heads, int kv_heads,
@@ -16,31 +368,14 @@ extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lite::FwdParams p{};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.heads = heads;
-  p.kv_heads = kv_heads;
-  p.seqlen_q = seqlen_q;
-  p.seqlen_k = seqlen_k;
-  p.qtiles = (seqlen_q + lite::kBlockQ - 1) / lite::kBlockQ;
-  p.ktiles = (seqlen_k + lite::kBlockK - 1) / lite::kBlockK;
-  p.gsize = 1;
-  p.fold = 1;
-  p.scale_log2 = scale * 1.4426950408889634f;
-  p.thr = 0.f;
-  p.causal_offset = seqlen_k - seqlen_q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kDense = lite::kDense;
+  using namespace lite::fwd;
   if (head_dim == 64) {
-    err = causal ? lite::launch_attention_fwd<64, kDense, false, true>(p, batch, s)
-                 : lite::launch_attention_fwd<64, kDense, false>(p, batch, s);
+    err = causal ? run<64, true>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s)
+                 : run<64, false>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s);
   } else if (head_dim == 128) {
-    err = causal ? lite::launch_attention_fwd<128, kDense, false, true>(p, batch, s)
-                 : lite::launch_attention_fwd<128, kDense, false>(p, batch, s);
+    err = causal ? run<128, true>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s)
+                 : run<128, false>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -46,8 +46,8 @@ void fill_common(lite::FwdParams& p, const void* q, const void* k,
 template <int D, bool FOLD>
 cudaError_t launch_gather(const lite::FwdParams& p, int batch, bool votes,
                           cudaStream_t s) {
-  return votes ? lite::launch_attention_fwd<D, lite::kGather, true, false, FOLD>(p, batch, s)
-               : lite::launch_attention_fwd<D, lite::kGather, false, false, FOLD>(p, batch, s);
+  return votes ? lite::launch_attention_fwd<D, lite::kGather, true, FOLD>(p, batch, s)
+               : lite::launch_attention_fwd<D, lite::kGather, false, FOLD>(p, batch, s);
 }
 
 template <int D>

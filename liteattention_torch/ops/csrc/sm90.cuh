@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA loads and bulk copies,
+// Hopper (sm_90a) building blocks: mbarriers, TMA loads, stores and bulk copies,
 // the bulk reduce-add, and wgmma with its shared-memory descriptors.
 //
 // Every tile that wgmma reads from shared memory here is stored with the
@@ -59,6 +59,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Wait until the phase of parity `parity` has completed. A wait that
 // never ends (a fault in the pipeline) traps after 2^28 tries, so the
 // launch fails with an error instead of holding the card.
@@ -83,6 +88,11 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive on a named barrier without waiting (the other side bar.syncs).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -------------------------------------------------------- TMA and bulk
 
 // Tile of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
@@ -93,6 +103,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The shared-memory tile at `src` (laid out as a load of the same box
+// writes it) to the 3-D tensor map at (c0, c1, c2); parts of the box past
+// the map's dimensions are not written. Completes in this thread's bulk
+// group (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -222,6 +245,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : LITE_WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : LITE_WG_OUT64(d)
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

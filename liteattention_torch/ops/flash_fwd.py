@@ -2,14 +2,15 @@
 
 Counterpart of ``liteattention_tpu/ops/flash_fwd.py:flash_attention``.
 
-Kernel: ``csrc/flash_fwd.cu`` + ``csrc/attention_fwd.cuh``, replacing the
-Pallas kernel ``liteattention_tpu/ops/flash_fwd.py:_fwd_kernel``. One CTA
-per (b, h, 128-row q-tile) walks the 128-key tiles through a two-stage
-cp.async ring, with mma.sync bf16 matmuls and an exp2 online softmax.
-With ``causal`` it stops at the diagonal (bottom-right aligned, offset
-``Sk - Sq``), so the tiles above it cost nothing. What bounds it on the
-H100: tensor-core throughput (each K/V byte feeds 128 q rows); mma.sync runs
-below the wgmma rate, which later PRs take on.
+Kernel: ``csrc/flash_fwd.cu:flash_fwd_kernel``, replacing the Pallas
+kernel ``liteattention_tpu/ops/flash_fwd.py:_fwd_kernel``. One CTA per (b,
+h, 128-row q-tile), two warpgroups of 64 rows: TMA loads Q once and the
+128-key K/V tiles through a three-stage mbarrier ring, S = Q K^T and
+O += P V run on wgmma, and each warpgroup's exp2 online softmax of tile
+j + 1 runs while its P V of tile j is in flight. With ``causal`` it stops
+at the diagonal (bottom-right aligned, offset ``Sk - Sq``), so the tiles
+above it cost nothing. What bounds it on the H100: tensor-core issue (each
+K/V byte feeds 128 q rows), then the exp2 of the softmax.
 
 The gradient is a ``torch.autograd.Function`` whose backward is the pair
 of kernels B7a/B7b (:mod:`liteattention_torch.ops.flash_bwd`); the lse

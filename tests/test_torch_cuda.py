@@ -20,6 +20,7 @@ tile cannot hide (bf16 outputs, P and dS rounded to bf16 before their
 products; dK/dV sum the GQA group in fp32 first). dK and dV are
 bit-stable (the group sum stays in one CTA); dQ is summed across CTAs by
 atomics in no fixed order, so a second run is held by the same rel-L2.
+The dense forward B1 has no atomics: two launches give the same bits.
 """
 
 import pytest
@@ -85,14 +86,35 @@ SHAPES = [
 ]
 
 
+# B1's edges besides: Sq <= 64 (one of the CTA's two warpgroups has rows),
+# Sq 1 and 4 against Sk 1059 (the serving verify step), Sk 1, 64, 128 and
+# 129 (the 128-key TMA box's edges), Sq > Sk at GQA group 4 and D 128
+# (causal rows with no key), GQA group 8 at D 64.
+FWD_SHAPES = SHAPES + [
+    (2, 4, 2, 50, 300, 128),
+    (1, 2, 1, 64, 64, 64),
+    (1, 32, 8, 1, 1059, 128),
+    (1, 32, 8, 4, 1059, 128),
+    (1, 4, 4, 200, 1, 64),
+    (1, 4, 2, 300, 64, 128),
+    (1, 4, 2, 300, 128, 128),
+    (1, 4, 2, 300, 129, 64),
+    (1, 8, 2, 700, 300, 128),
+    (2, 16, 2, 500, 700, 64),
+]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,h,hk,sq,sk,d", SHAPES)
+@pytest.mark.parametrize("b,h,hk,sq,sk,d", FWD_SHAPES)
 def test_flash_fwd_kernel(dev, b, h, hk, sq, sk, d, causal):
     q, k, v = _qkv(dev, b, h, hk, sq, sk, d)
     n0 = flash_attention.launches
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
+    # The forward has no atomics: a second launch gives the same bits.
+    out2, lse2 = flash_attention(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     ro, rl = flash_attention_plain(q, k, v, causal=causal)
     diff = (out.float() - ro.float()).abs()
     if causal:

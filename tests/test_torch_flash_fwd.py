@@ -30,6 +30,9 @@ from liteattention_torch.ops.tile_sizes import BlockSizes  # noqa: E402
         (1, 4, 1, 200, 384, 64, "bfloat16", 2e-2, False),  # MQA, bf16
         (1, 4, 2, 300, 555, 64, "float32", 2e-5, True),  # causal, Sq < Sk
         (1, 2, 2, 256, 256, 128, "bfloat16", 2e-2, True),  # causal, bf16
+        (1, 8, 2, 300, 200, 128, "float32", 2e-5, True),  # rows with no key, serving GQA
+        (1, 8, 2, 4, 1059, 128, "bfloat16", 2e-2, True),  # the verify step
+        (2, 4, 1, 1000, 77, 64, "float32", 2e-5, False),  # Sk < one tile, MQA
     ],
 )
 def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol, causal):

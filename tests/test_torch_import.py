@@ -41,7 +41,7 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "b1_ablation.py"],
     ids=lambda p: p.name,
 )
 def test_no_jax_imports(path):
