@@ -34,37 +34,49 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "liteattention_torch" / "ops" / "csrc"
 FWD = "flash_fwd.cu"
 
-REFILL = """    if (ct == 0 && j > 0 && j - 1 + kStages < walk.n) {
-      const int free = (j - 1) % kStages;
-      sm90::mbar_wait(&empty[free], ((j - 1) / kStages) & 1);
-      load_tile<D>(tm_k, tm_v, smem, full, free, walk.tile(j - 1 + kStages), bhk);
-    }
+REFILL = "      refill(f);  // while the products run\n"
+RELEASE = "      if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j\n"
+TURN_SYNC = "      sm90::named_sync(kTurn + wg, kThreads);\n"
+TURN_ARRIVE = "      sm90::named_arrive(kTurn + 1 - wg, kThreads);\n"
+TURN_FIRST = "    if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);\n"
+FULL_WAIT = "      sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);\n"
+SOFTMAX = """      tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                           alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
+                             if constexpr (VOTES) {
+                               // Some valid row of this warp passes: the tile is kept.
+                               // Bitwise, not short-circuit: no branch on the way.
+                               const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
+                                                 ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
+                               if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
+                             }
+                           });
 """
-RELEASE = "    if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j\n"
-TURN_SYNC = "    sm90::named_sync(kTurn + wg, kThreads);\n"
-TURN_ARRIVE = "    sm90::named_arrive(kTurn + 1 - wg, kThreads);\n"
-TURN_FIRST = "  if (wg == 1) sm90::named_arrive(kTurn, kThreads);\n"
-FULL_WAIT = "    sm90::mbar_wait(&full[next], ((j + 1) / kStages) & 1);\n"
-SOFTMAX = """    tile_softmax<CAUSAL>(s, p, walk.tile(j + 1), warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                         alpha_lo, alpha_hi);
+LOOP_HEAD = """    for (int j = 0; j + 1 < walk.n; ++j) {
+      const int f = f0 + j;
+      const int stage = f % kStages;
+      const int next = (f + 1) % kStages;
 """
-LOOP_HEAD = """  for (int j = 0; j + 1 < walk.n; ++j) {
-    const int stage = j % kStages;
-    const int next = (j + 1) % kStages;
-"""
-LOOP_BODY_AFTER_SOFTMAX = """    sm90::wgmma_wait<0>();
-    sm90::fence_regs(od);
-    sm90::fence_regs(pf);
-    rescale_rows(o, alpha_lo, alpha_hi);
+LOOP_BODY_AFTER_SOFTMAX = """      sm90::wgmma_wait<0>();
+      sm90::fence_regs(od);
+      sm90::fence_regs(pf);
+      rescale_rows(o, alpha_lo, alpha_hi);
 #pragma unroll
-    for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
+      for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
 """
-LAST_PV = """  // P V of the last tile (its stage is never refilled).
-  sm90::wgmma_fence();
-  issue_pv<D>(od, pf, ring + (walk.n - 1) % kStages * L::kStage + L::kKV);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(od);
+LAST_PV = """    sm90::wgmma_fence();
+    issue_pv<D>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kKV);
+    if constexpr (FOLD) refill(f0 + walk.n - 1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(od);
 """
+LAUNCH = """  kernel<<<dim3(p.qtiles, p.heads / fold, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
+                                                                            tm_o, p);
+  return cudaGetLastError();"""
+STORE_END = """      sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it
+    }
+    f_head += walk.n;
+  }
+}"""
 
 
 def edit(text, old, new, count=1):
@@ -76,25 +88,23 @@ def edit(text, old, new, count=1):
 def wgmma_under_branch(s):
     """The first version's loop: one trip per tile, S_{j+1} and the rest of
     the step under `if (more)`, the last PV inside the loop."""
-    s = edit(s, LOOP_HEAD, """  for (int j = 0; j < walk.n; ++j) {
-    const int stage = j % kStages;
-    const int next = (j + 1) % kStages;
-    const bool more = j + 1 < walk.n;
-""")
-    s = edit(s, FULL_WAIT, "    if (more) sm90::mbar_wait(&full[next], ((j + 1) / kStages) & 1);\n")
-    s = edit(s, "    issue_s<D>(sd, q_desc, ring + next * L::kStage);\n",
-             "    if (more) issue_s<D>(sd, q_desc, ring + next * L::kStage);\n")
-    s = edit(s, "    sm90::wgmma_wait<1>();\n    sm90::fence_regs(sd);\n" + SOFTMAX,
-             "    if (more) {\n      sm90::wgmma_wait<1>();\n      sm90::fence_regs(sd);\n"
-             "  " + SOFTMAX.replace("\n    ", "\n      ") + "    }\n")
-    s = edit(s, LOOP_BODY_AFTER_SOFTMAX, """    sm90::wgmma_wait<0>();
-    sm90::fence_regs(od);
-    sm90::fence_regs(pf);
-    if (more) {
-      rescale_rows(o, alpha_lo, alpha_hi);
+    s = edit(s, LOOP_HEAD, LOOP_HEAD.replace("j + 1 < walk.n", "j < walk.n")
+             + "      const bool more = j + 1 < walk.n;\n")
+    s = edit(s, FULL_WAIT, "      if (more) sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);\n")
+    s = edit(s, "      issue_s<D>(sd, q_desc, ring + next * L::kStage);\n",
+             "      if (more) issue_s<D>(sd, q_desc, ring + next * L::kStage);\n")
+    s = edit(s, "      sm90::wgmma_wait<1>();\n      sm90::fence_regs(sd);\n" + SOFTMAX,
+             "      if (more) {\n        sm90::wgmma_wait<1>();\n        sm90::fence_regs(sd);\n"
+             "  " + SOFTMAX.replace("\n      ", "\n        ").replace("\n  ", "\n    ")
+             + "      }\n")
+    s = edit(s, LOOP_BODY_AFTER_SOFTMAX, """      sm90::wgmma_wait<0>();
+      sm90::fence_regs(od);
+      sm90::fence_regs(pf);
+      if (more) {
+        rescale_rows(o, alpha_lo, alpha_hi);
 #pragma unroll
-      for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
-    }
+        for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
+      }
 """)
     return edit(s, LAST_PV, "")
 
@@ -109,10 +119,10 @@ def late_refill(s):
     """Thread 0 refills stage j with tile j + kStages at the end of its
     step j, once all eight warps have released it."""
     s = edit(s, REFILL, "")
-    return edit(s, RELEASE, RELEASE + """    if (ct == 0 && j + kStages < walk.n) {
-      sm90::mbar_wait(&empty[stage], (j / kStages) & 1);
-      load_tile<D>(tm_k, tm_v, smem, full, stage, walk.tile(j + kStages), bhk);
-    }
+    return edit(s, RELEASE, RELEASE + """      if (ct == 0 && f + kStages < n_dense) {
+        sm90::mbar_wait(&empty[stage], (f / kStages) & 1);
+        load_tile<D>(tm_k, tm_v, smem, full, stage, f + kStages, bhk0);
+      }
 """)
 
 
@@ -128,19 +138,19 @@ def producer_warp(s):
     s = edit(s, REFILL, "")
     s = edit(s, "__global__ void __launch_bounds__(kThreads, 1)",
              "__global__ void __launch_bounds__(kThreads + 32, 1)")
-    s = edit(s, "kernel<<<dim3(p.qtiles, heads, batch), kThreads, smem, stream>>>",
-             "kernel<<<dim3(p.qtiles, heads, batch), kThreads + 32, smem, stream>>>")
+    s = edit(s, LAUNCH, LAUNCH.replace("kThreads, smem", "kThreads + 32, smem"))
     return edit(s, """  if (threadIdx.x == 0) {
     sm90::mbar_expect_tx(q_full, L::kQ);""", """  if (__shfl_sync(0xffffffffu, threadIdx.x / 32, 0) == kWarps) {
     if (threadIdx.x == kThreads) {
       sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
       for (int a = 0; a < D / 64; ++a) {
-        sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
+        sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0,
+                          b * p.heads + h0);
       }
-      for (int j = 0; j < walk.n; ++j) {
+      for (int j = 0; j < n_dense; ++j) {
         if (j >= kStages) sm90::mbar_wait(&empty[j % kStages], ((j - kStages) / kStages) & 1);
-        load_tile<D>(tm_k, tm_v, smem, full, j % kStages, walk.tile(j), bhk);
+        load_tile<D>(tm_k, tm_v, smem, full, j % kStages, j, bhk0);
       }
     }
     return;
@@ -210,20 +220,17 @@ template <int D, bool MC = false>
     s = edit(s, "    sm90::mbar_fence_init();\n  }\n  __syncthreads();\n",
              "    sm90::mbar_fence_init();\n  }\n  if constexpr (kCluster > 1) {\n    cluster_sync();\n"
              "  } else {\n    __syncthreads();\n  }\n")
-    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, j, walk.tile(j), bhk);",
-             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, j, walk.tile(j), bhk, rank);")
-    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, free, walk.tile(j - 1 + kStages), bhk);",
-             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, free, walk.tile(j - 1 + kStages), "
-             "bhk, rank);")
-    s = edit(s, RELEASE, "    if (lane == 0) {\n      sm90::mbar_arrive(&empty[stage]);\n"
-             "      if constexpr (kCluster > 1) arrive_peer(&empty[stage], rank ^ 1);\n    }\n")
-    s = edit(s, "    sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it\n  }\n}",
-             "    sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it\n  }\n"
-             "  if constexpr (kCluster > 1) cluster_sync();\n}")
-    return edit(s, """  kernel<<<dim3(p.qtiles, heads, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
-  return cudaGetLastError();""", """  constexpr int kCluster = CAUSAL ? 1 : 2;
+    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, j, j, bhk0);",
+             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, j, j, bhk0, rank);")
+    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);",
+             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0, "
+             "rank);")
+    s = edit(s, RELEASE, "      if (lane == 0) {\n        sm90::mbar_arrive(&empty[stage]);\n"
+             "        if constexpr (kCluster > 1) arrive_peer(&empty[stage], rank ^ 1);\n      }\n")
+    s = edit(s, STORE_END, STORE_END[:-2] + "\n  if constexpr (kCluster > 1) cluster_sync();\n}")
+    return edit(s, LAUNCH, """  constexpr int kCluster = CAUSAL ? 1 : 2;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.qtiles + kCluster - 1) / kCluster * kCluster, heads, batch);
+  cfg.gridDim = dim3((p.qtiles + kCluster - 1) / kCluster * kCluster, p.heads / fold, batch);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -244,7 +251,7 @@ def no_softmax(s):
 
 def no_refill(s):
     s = edit(s, REFILL, "")
-    return edit(s, FULL_WAIT, "    if (j + 1 < kStages) sm90::mbar_wait(&full[next], 0);\n")
+    return edit(s, FULL_WAIT, "      if (f + 1 < kStages) sm90::mbar_wait(&full[next], 0);\n")
 
 
 VARIANTS = {
@@ -293,7 +300,8 @@ def build(names, work):
         for line in log.splitlines():
             m = re.search(r"(?:Compiling entry function|in the function) '(\w+)'", line)
             kernel = m.group(1) if m else kernel
-            if not kernel or "flash_fwd_kernel" not in kernel:
+            # B1's dense instantiations (the list walks of B3 and B5 share the file).
+            if not kernel or not re.search(r"flash_fwd_kernelILi\d+ELb\dELb0E", kernel):
                 continue
             key = re.sub(r".*flash_fwd_kernelILi(\d+)ELb(\d).*", r"D\1 causal\2", kernel)
             m = re.search(r"Used (\d+) registers", line)

@@ -46,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
    32 q-heads on 8 KV heads, D 128, cache 4096, pages of 256, ragged
    lengths): contiguous bf16 and int8, paged bf16 and int8, head-major
    pools, D 64 / group 1, causal Sq 4 paged; timed beside its bound, its
-   plain version and SDPA (``enable_gqa``, uniform full lengths). A small
+   plain version and SDPA (``enable_gqa``: with a boolean key-padding mask
+   at the ragged lengths, and at uniform full lengths). A small
    LLaMA's card decode is held against the CPU plain path, teacher-forced.
    Then a Llama-3-8B-width server (full width and depth, random weights
    from a seed) answers 8 requests of 1024-token prompts: greedy decoding
@@ -54,7 +55,8 @@ Phases (any failure exits non-zero and prints no result line):
    batch-1 speculative decoding with a 2-layer draft (lookahead 3, 32
    tokens), and the kvcache API in its four forms plus the head-major
    paged entry. The decode kernel must launch once per layer per decode
-   step. Reported: prefill and decode ms, tokens/s, peak memory, the
+   step, with its split merge inside it (no merge kernel in the
+   profile). Reported: prefill and decode ms, tokens/s, peak memory, the
    decode logits against a full recompute (and that two faults planted
    in the cache read above its limit), int8 against bf16 logits, the
    speculative acceptance, and where a decode step's time goes.
@@ -96,9 +98,10 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
     python3 chip_smoke.py --ab DIR [REPS]
 
-times B1 (at four shapes), B3, B8 and the backward B7 of the checkout at
-DIR instead (see ``ab_times``): to compare two checkouts on one card, run
-it for each in turns in one job.
+times B1 (at four shapes), B3, B5, the decode kernel (B8 full and ragged,
+bf16 and int8, B9b paged) and the backward B7 of the checkout at DIR
+instead (see ``ab_times``): to compare two checkouts on one card, run it
+for each in turns in one job.
 """
 
 from __future__ import annotations
@@ -156,6 +159,7 @@ SMALL_DECODE_TOL = 3e-2
 # still read above the limit.
 SERVE_RECOMPUTE_TOL = 2e-2
 FAULT_STEPS = 8  # decode steps of each planted-fault run
+# The decode kernel, and the merge kernel older checkouts launch after it.
 DECODE_KERNELS = ("flash_decode_kernel", "decode_merge_kernel")
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, HBM3.
 PEAK_BF16 = 989e12
@@ -313,8 +317,8 @@ def kernel_wrappers():
     """Every kernel entry of the port, by its name in the kernels line: the
     wrapper and the attribute that counts its launches (the lite wrapper
     counts B3, B5 and B4 apart, flash_attention B1 and its MLA
-    instantiation); the decode wrappers also count the launches of their
-    split-merge kernel."""
+    instantiation); the MLA decode wrapper also counts the launches of its
+    split-merge kernel (B8/B9's merge runs inside their one launch)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -1050,8 +1054,8 @@ def check_decode(label, fn, plain, args, kw, need, time_it=False, library=None):
     res = {"err": err, "rel_l2": rel}
     if time_it:
         # Device time of a call (the wrapper's packing and int8 folds
-        # included) and of the decode and merge kernels alone; the call's
-        # CUDA-event time is host-bound at this size.
+        # included) and of the decode kernel alone (its merge inside); the
+        # call's CUDA-event time is host-bound at this size.
         # "timer" names how each time was taken (see device_ms).
         res["ms"], res["kernel_ms"], t_ms = device_ms(lambda: fn(*args, **kw),
                                                       names=DECODE_KERNELS)
@@ -1061,7 +1065,7 @@ def check_decode(label, fn, plain, args, kw, need, time_it=False, library=None):
         res["library_ms"], _, t_lib = (None, None, None) if library is None else device_ms(library)
         res["timer"] = {"ms": t_ms, "call_ms": "events", "plain_ms": t_plain, "library_ms": t_lib}
         lib = "none" if library is None else f"{res['library_ms']:.4f} ms"
-        log(f"  decode {label}: device {res['ms']:.4f} ms per call (decode + merge kernels "
+        log(f"  decode {label}: device {res['ms']:.4f} ms per call (decode kernel "
             f"{fmt_ms(res['kernel_ms'])}; events over back-to-back calls {res['call_ms']:.4f} ms), "
             f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}), library {lib}")
@@ -1134,16 +1138,23 @@ def decode_kernel_phase(dev):
         f"B8 contiguous bf16 {shape}", flash_attention_decode, flash_attention_decode_plain,
         (q4, x["kc"], x["vc"]), dict(kv_bound=lens), need(2), time_it=True,
     )
-    # At uniform full lengths, beside SDPA (enable_gqa) on the same cache.
+    # The library call at this shape: SDPA (enable_gqa) with a boolean
+    # key-padding mask at the ragged lengths, by whichever backend takes it;
+    # at uniform full lengths, beside SDPA (enable_gqa) with no mask.
     r = res["flash_decode"]
+    pad = (torch.arange(s, device=dev) < lens[:, None])[:, None, None]  # [B, 1, 1, S]
+    backend, r["library_ms"], r["timer"]["library_ms"] = sdpa_backend_ms(
+        "B8 ragged", lambda: sdpa(q4, kc_h, vc_h, attn_mask=pad, enable_gqa=True))
+    r["library"] = f"torch SDPA enable_gqa, boolean key-padding mask ({backend} backend)"
     r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
         lambda: flash_attention_decode(q4, x["kc"], x["vc"], kv_bound=full))
     r["bound_ms_full_lengths"] = bound(need(2, b * s)[1], need(2, b * s)[0])[0]
-    r["library_ms"], _, r["timer"]["library_ms"] = device_ms(
+    r["library_ms_full_lengths"], _, r["timer"]["library_ms_full_lengths"] = device_ms(
         lambda: sdpa(q4, kc_h, vc_h, enable_gqa=True))
-    r["library"] = "torch SDPA enable_gqa, uniform full lengths"
-    log(f"  decode B8 full lengths: device {r['ms_full_lengths']:.4f} ms, bound "
-        f"{r['bound_ms_full_lengths']:.4f} ms; SDPA (enable_gqa) {r['library_ms']:.4f} ms")
+    log(f"  decode B8 ragged: SDPA (enable_gqa, key-padding mask, {backend}) "
+        f"{fmt_ms(r['library_ms'])}; full lengths: device {r['ms_full_lengths']:.4f} ms, bound "
+        f"{r['bound_ms_full_lengths']:.4f} ms; SDPA (enable_gqa) "
+        f"{r['library_ms_full_lengths']:.4f} ms")
     r["int8"] = check_decode(
         f"B8 contiguous int8 {shape}", flash_attention_decode, flash_attention_decode_plain,
         (q4, x["kc8"], x["vc8"]),
@@ -1298,12 +1309,12 @@ def profile_decode_steps(model, inf, steps, card):
             inf.seqlen_offset += 1
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    kern = {
-        e.key: e.self_device_time_total / 1e3
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not getattr(e, "is_user_annotation", False)
-    }
+    kern, calls = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            kern[e.key] = e.self_device_time_total / 1e3
+            calls[e.key] = e.count
     busy = sum(kern.values())
     if busy == 0:
         log("  profiler: no device time recorded; the decode breakdown is not measured")
@@ -1324,7 +1335,13 @@ def profile_decode_steps(model, inf, steps, card):
         log(f"    {ms / steps:8.3f} ms/step  {ms / busy:6.1%}  {cls}")
     for name, ms in sorted(kern.items(), key=lambda kv: -kv[1])[:10]:
         log(f"    {ms / steps:8.3f} ms/step  {name[:100]}")
+    launches = {k: sum(n for name, n in calls.items() if k in name)
+                for k in ("flash_decode_kernel", "decode_merge_kernel")}
+    log(f"    decode-kernel launches {launches['flash_decode_kernel']}, merge launches "
+        f"{launches['decode_merge_kernel']} in {steps} steps")
     return {"busy_ms_per_step": busy / steps, "wall_ms_per_step_profiled": wall / steps,
+            "decode_kernel_launches": launches["flash_decode_kernel"],
+            "decode_merge_launches": launches["decode_merge_kernel"],
             **{f"{c}_ms_per_step": ms / steps for c, ms in split.items()}}
 
 
@@ -1487,7 +1504,11 @@ def serve_phase(dev, card):
 
     _, inf = teacher_forced_logits(model, toks[:, : SERVE_PROMPT + 8], SERVE_PROMPT,
                                    SERVE_CAPACITY)
-    stats_out["profile"] = profile_decode_steps(model, inf, 5, card)
+    stats_out["profile"] = prof = profile_decode_steps(model, inf, 5, card)
+    if prof is not None:  # one launch per layer per step, the merge inside it
+        check(prof["decode_kernel_launches"] == 5 * cfg.num_layers
+              and prof["decode_merge_launches"] == 0,
+              "serving: the decode step should launch the decode kernel once per layer, no merge")
     # B1 takes contiguous inputs, so prefill and multi-token steps copy the
     # cache prefix (K and V, every layer): its device time at the prefill
     # (8 x 1024 keys) and at a verify step (1 x prompt + 32 keys).
@@ -2113,8 +2134,9 @@ def mla_phase(dev, card):
 
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
-# "flash_fwd_kernel" B1's wgmma kernel, whose parent ran B1 on
-# attention_fwd_kernel).
+# "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list, B3 and
+# B5; "attention_fwd_kernel" the mma.sync loop B4 keeps, where B3 and B5
+# ran before).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
               "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd")
 
@@ -2123,12 +2145,14 @@ def ab_times(reps):
     """``--ab DIR``: one JSON line for the checkout at DIR (whose
     ``liteattention_torch`` is imported): the card, the registers and
     spills ptxas reported per kernel of ``AB_KERNELS``, the device time
-    of B1 and of B3 with and without votes at the Wan slice's shape (1 x
-    40 x 32 760 x 128 bf16, banded ~50 % mask), of B1 at the Wan
-    cross-attention (Sk 512), causal at GPT-2 small (8 x 12 x 1024 x 64)
-    and at the serving prefill (8 x 32/8 x 1024 x 128; these three by
-    device_ms), of the decode kernel B8 with its split merge at the
-    kvcache API's shape (device_ms), and of
+    of B1, of B3 with and without votes and of B5 (``fold_h`` 8) at the
+    Wan slice's shape (1 x 40 x 32 760 x 128 bf16, banded ~50 % mask), of
+    B1 at the Wan cross-attention (Sk 512), causal at GPT-2 small (8 x 12 x
+    1024 x 64) and at the serving prefill (8 x 32/8 x 1024 x 128; these
+    three by device_ms), of the decode kernel (with its split merge, where
+    a version has one) at the kvcache API's shape (device_ms) at full
+    lengths, at ragged lengths as B8 bf16 and int8 and as B9b over pages
+    of 256 keys, beside SDPA (enable_gqa) at full lengths, and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
     (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal). It
     calls only entry points every version of the port has since the
@@ -2140,7 +2164,9 @@ def ab_times(reps):
     from liteattention_torch.ops import _build
     from liteattention_torch.ops.flash_bwd import flash_attention_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+    from liteattention_torch.ops.paged_attention import paged_attention_folded
     from liteattention_torch.ops.schedule_pack import pack_schedule
 
     card = nvidia_smi_line()
@@ -2166,6 +2192,25 @@ def ab_times(reps):
               for _ in range(2))
     b8_ms, b8_kernel_ms, b8_timer = device_ms(lambda: flash_attention_decode(dq, dk, dv),
                                               names=DECODE_KERNELS)
+    # The decode kernel at the main path's ragged lengths: B8 bf16 and int8,
+    # B9b over native pools of 256-key pages (a shuffled table); and SDPA
+    # (enable_gqa) at full lengths, whose spread this gives beside B8's.
+    lens = torch.randint(API_CACHE // 4, API_CACHE, (API_B,), generator=g, device=dev).int()
+    lens[0] = API_CACHE
+    c8 = quantize_kv_cache(dk, dv)
+    n_pages = API_B * API_CACHE // API_PAGE
+    kp, vp = (x.reshape(n_pages, API_PAGE, API_HK, API_D) for x in (dk, dv))
+    table = torch.randperm(n_pages, generator=g, device=dev).reshape(API_B, -1).int()
+    q3 = dq[:, :, 0]
+    decode = {
+        "b8_ragged_ms": lambda: flash_attention_decode(dq, dk, dv, kv_bound=lens),
+        "b8_int8_ragged_ms": lambda: flash_attention_decode(
+            dq, c8.k, c8.v, kv_bound=lens, k_scale=c8.k_scale, v_scale=c8.v_scale),
+        "b9b_ragged_ms": lambda: paged_attention_folded(q3, kp, vp, lens, table),
+        "sdpa_gqa_full_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
+            dq, dk.transpose(1, 2), dv.transpose(1, 2), enable_gqa=True),
+    }
+    decode = {k: device_ms(fn, reps)[0] for k, fn in decode.items()}
 
     def bwd_ms(shape, causal):
         bq, bk, bv, bdo = (torch.randn(*shape, generator=g, device=dev).bfloat16()
@@ -2192,8 +2237,11 @@ def ab_times(reps):
         "b3_ms": cuda_ms(lambda: lite_flash_attention(q, k, v, fidx, count, -1.0, mask), reps),
         "b3_novote_ms": cuda_ms(lambda: lite_flash_attention(
             q, k, v, fidx, count, -1.0, mask, emit_votes=False), reps),
+        "b5_fold8_ms": cuda_ms(lambda: lite_flash_attention(
+            q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
-        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **bwd, **b1,
+        "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
+        **b1,
     }))
     return 0
 
@@ -2288,11 +2336,11 @@ def main() -> int:
         "flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
         "schedule_pack": ("schedule_pack.cu", "pack_schedule_kernel",
                           "liteattention_tpu/ops/schedule_pack.py:52"),
-        "lite_flash_fwd": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+        "lite_flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel",
                            "liteattention_tpu/ops/lite_flash_fwd.py:376"),
         "lite_flash_fwd_coarse": ("lite_flash_fwd.cu", "attention_fwd_kernel",
                                   "liteattention_tpu/ops/lite_flash_fwd.py:123"),
-        "lite_flash_fwd_hfold": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+        "lite_flash_fwd_hfold": ("flash_fwd.cu", "flash_fwd_kernel",
                                  "liteattention_tpu/ops/lite_flash_fwd.py:885"),
         "kv_compact": ("kv_compact.cu", "kv_compact_kernel", "liteattention_tpu/ops/kv_compact.py:81"),
         "flash_bwd_dq": ("flash_bwd.cu", "flash_bwd_kernel", "liteattention_tpu/ops/flash_bwd.py:55"),

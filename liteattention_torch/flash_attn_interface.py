@@ -38,8 +38,9 @@ the default scale ``(D + Dv)^-0.5`` when ``qv`` is given, as in JAX.
   :func:`~liteattention_torch.ops.paged_attention.paged_attention_folded`
   (kernel B9b), bf16 or int8 with ``[Hk, D]`` scales.
 
-``num_splits`` 0 or 1 takes the kernel's own split heuristic; n > 1
-forces n KV splits (the result equals the unsplit one up to rounding).
+``num_splits`` 0 or 1 sizes the kernel's grid at one CTA per SM, its
+splits balanced over the keys present; n > 1 at n CTAs per (batch, KV
+head, 16-row tile) (the result equals the unsplit one up to rounding).
 
 Unlike JAX, the caches are updated in place (a copy of a multi-GB cache
 per step would cost more than the step); the return value keeps JAX's

@@ -3,8 +3,9 @@
 Counterpart of ``liteattention_tpu/ops/combine.py:combine_attention``:
 partial (out, lse) pairs computed over disjoint KV splits merge into
 the attention over their union. Plain PyTorch; it is also the plain
-version of the split merge inside the decode kernel
-(``csrc/flash_decode.cu:decode_merge_kernel``).
+version of the split merges of the decode kernels (the last piece's merge
+inside ``csrc/flash_decode.cu``, and ``decode_merge_kernel`` after the
+MLA decode).
 """
 
 from __future__ import annotations

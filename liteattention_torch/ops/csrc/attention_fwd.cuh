@@ -1,38 +1,32 @@
-// Shared forward mainloop of the lite (B3, B4, B5) attention kernels, and
-// the online-softmax row steps that B1 (flash_fwd.cu), the decode kernels
-// and the MLA kernels share with it.
+// Shared forward mainloop of the coarse lite attention kernel (B4), and the
+// online-softmax row steps that B1, B3 and B5 (flash_fwd.cu), the decode
+// kernels and the MLA kernels share with it.
 //
-// One CTA owns one 128-row q-tile of one (batch, head) -- or, folded, of
-// `fold` consecutive heads one after the other: 8 warps, 16 q rows each. K
-// and V are walked in 128-key tiles through a two-stage cp.async ring in
-// shared memory; QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32
+// One CTA owns one 128-row q-tile of one (batch, head): 8 warps, 16 q rows
+// each. K and V are walked in 128-key tiles through a two-stage cp.async
+// ring in shared memory; QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32
 // accumulate). Scores live in log2 space (s * scale * log2e) so the online
 // softmax uses exp2; the lse written out is natural log.
 //
 // The walk over k-tiles is the template parameter MODE. A walk visits
 // positions (e, s): entry e of the CTA's schedule row, fine k-tile s of it.
-//   kGather: fidx[0..count) of this (b, h, q-tile) row, the compacted live
-//            fine k-tiles in increasing order (B3; `fold` > 1 heads per CTA is
-//            B5, whose per-head arithmetic is B3's exactly). With `lidx`, the
-//            K/V of entry j is loaded from tile lidx[j] of a union-compacted
-//            buffer (B6's output) while fidx[j] still names its key columns
-//            and its vote.
 //   kCoarse: kv_idx[0..count) of the coarse row (block_q = 128 * qsub rows,
 //            block_k = 128 * ksub keys) that holds this fine q-tile; entry e
 //            is the ksub fine k-tiles of coarse tile kv_idx[e] (B4).
 //   kSuper:  as kCoarse, but fine k-tile s of entry e is visited only if bit
 //            (qs * ksub + s) of bits[e] is set, qs the place of this q-tile in
 //            its coarse row (B4's super-tile mode).
+// (The fine gather walk, B3 and with folded heads B5, runs on B1's
+// wgmma/TMA mainloop in flash_fwd.cu.)
 // A row with no valid key keeps its running max at -inf and ends with out 0,
 // lse -inf.
 //
-// VOTES (sparse walks) adds the skip votes. A vote step is `gsize`
-// consecutive entries (kGather) or one entry (kCoarse, kSuper); m_prev is the
-// running row max from before the step, and a fine tile passes for a valid q
-// row iff (max_col s - m_prev) > thr, strict.
-//   kGather: each visited tile votes "do" (0) iff some row passes, else
-//            "skip" (1), into the fine [B, H, Qt, Kt] array; the first entry
-//            always votes 0.
+// VOTES. A vote step is one entry (the gather walk's `gsize` entries: see
+// flash_fwd.cu); m_prev is the running row max from before the step, and a
+// fine tile passes for a valid q row iff (max_col s - m_prev) > thr, strict.
+//   gather (B3/B5, flash_fwd.cu): each visited tile votes "do" (0) iff some row
+//            passes, else "skip" (1), into the fine [B, H, Qt, Kt] array; the
+//            first entry always votes 0.
 //   kCoarse: the coarse tile votes 0 iff some row of its 128 * qsub rows
 //            passes on some of its fine tiles, AND-ed over the qsub CTAs of
 //            the coarse row with atomicAnd into votes pre-filled with 1 (exact:
@@ -52,10 +46,9 @@
 // 128 q rows, so the kernel is bound by tensor-core issue, and mma.sync
 // reaches well under the wgmma rate. This first version keeps the design
 // simple (no TMA, no warp specialization, no wgmma); skipped tiles cost no
-// load and no math, which is what turns sparsity into time. A folded CTA
-// fetches the next head's first K/V tile while the current head's last tile
-// computes. B1's wgmma/TMA mainloop (flash_fwd.cu) is the one these walks
-// move onto next (ROADMAP B-ii R1b).
+// load and no math, which is what turns sparsity into time. The coarse walks
+// move onto B1's wgmma/TMA mainloop next, as the gather walk did (ROADMAP
+// B-ii R1c).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,7 +68,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // The JAX kernels' finite mask value, -0.7 * FLT_MAX rounded to fp32.
 constexpr float kMaskValue = -0x1.666664p+127f;
 
-enum Mode { kGather = 1, kCoarse = 2, kSuper = 3 };
+enum Mode { kCoarse = 2, kSuper = 3 };
 
 struct FwdParams {
   const __nv_bfloat16* q;  // [B, H, Sq, D]
@@ -85,17 +78,13 @@ struct FwdParams {
   float* lse;              // [B, H, Sq]
   const int* fidx;         // schedule entries [B, H, sched_q, sched_k]
   const int* count;        // entries per schedule row [B, H, sched_q]
-  const int* lidx;         // kGather: load positions aligned with fidx, or null
   const int* bits;         // kSuper: sub-tile liveness aligned with fidx
-  const uint8_t* mask;     // kGather: the fine mask [B, H, Qt, Kt]
-  int* votes;              // [B, H, vote_q, vote_k] (VOTES)
+  int* votes;              // [B, H, vote_q, vote_k]
   int heads, kv_heads, seqlen_q, seqlen_k;
   int qtiles, ktiles;      // fine 128-row / 128-key tiles
   int sched_q, sched_k;    // schedule grid per (b, h)
-  int qsub, ksub;          // fine tiles per schedule tile (1, 1 unless coarse)
+  int qsub, ksub;          // fine tiles per schedule tile
   int vote_q, vote_k;      // vote grid per (b, h)
-  int gsize;               // kGather: entries per vote step
-  int fold;                // kGather: heads per CTA
   float scale_log2;        // softmax scale * log2(e)
   float thr;               // vote threshold, log2 space
 };
@@ -353,7 +342,7 @@ __device__ __forceinline__ void store_rows(T* o_lo, T* o_hi, const float (&acc)[
   }
 }
 
-// Merge of split-KV partials (decode and MLA decode): out = sum_s w_s o_s /
+// Merge of split-KV partials (the MLA decode's): out = sum_s w_s o_s /
 // sum_s w_s with w_s = exp(lse_s - max lse) over the splits whose lse is
 // finite (a split with no valid key writes lse -inf and may leave its o
 // unwritten); no valid key in any split -> out 0, lse -inf. One CTA of D
@@ -401,33 +390,6 @@ __device__ __forceinline__ void load_kv_tile(const FwdParams& p,
     cp_async16(ks + r * (D + 8) + col, kbase + src, valid);
     cp_async16(vs + r * (D + 8) + col, vbase + src, valid);
   }
-}
-
-// The k-tile list of one (b, h, q-tile) row on the gather walk.
-struct ListRow {
-  const int* sched;   // kGather: fine k-tiles, fidx[0..n)
-  const int* lsched;  // kGather: the tiles to load (lidx, or fidx itself)
-  const __nv_bfloat16* kbase;
-  const __nv_bfloat16* vbase;
-  int n;
-};
-
-template <int D>
-__device__ __forceinline__ ListRow list_row(const FwdParams& p, int b, int h, int qt) {
-  ListRow r{};
-  const size_t bh = static_cast<size_t>(b) * p.heads + h;
-  const int hk = h / (p.heads / p.kv_heads);
-  const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
-  r.kbase = p.k + kv;
-  r.vbase = p.v + kv;
-  const size_t row = (bh * p.qtiles + qt) * p.ktiles;
-  r.sched = p.fidx + row;
-  r.lsched = p.lidx ? p.lidx + row : r.sched;
-  r.n = p.count[bh * p.qtiles + qt];
-  // count is max(live, 1): a row with no live tile lists tile fidx[0] as
-  // a dead anchor. It contributes nothing (out 0, lse -inf).
-  if (!p.mask[row + r.sched[0]]) r.n = 0;
-  return r;
 }
 
 // The coarse walks: positions (e, s), entry e of the coarse schedule row and
@@ -543,11 +505,11 @@ __device__ __forceinline__ void store_out(const FwdParams& p, size_t bh, int r_l
   }
 }
 
-template <int D, int MODE, bool VOTES, bool FOLD = false>
+template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const FwdParams p) {
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static_assert(MODE == kGather || !FOLD, "heads fold on the gather walk");
+  static_assert(MODE == kCoarse || MODE == kSuper, "the coarse walks");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   constexpr int kTileElems = kBlockK * (D + 8);
@@ -564,166 +526,92 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   uint32_t qf[D / 16][4];
   float acc[D / 8][4];
-  if constexpr (MODE == kGather) {
-    const int fold = FOLD ? p.fold : 1;
-    bool primed = false;  // this head's first K/V tile is already in flight
-    int it = 0;           // tiles walked by this CTA (FOLD): the ring stage
-    for (int hl = 0; hl < fold; ++hl) {
-      const int h = blockIdx.y * fold + hl;
-      const size_t bh = static_cast<size_t>(b) * p.heads + h;
-      const ListRow row = list_row<D>(p, b, h, qt);
-      int* vrow = nullptr;
-      if constexpr (VOTES) {
-        vrow = p.votes + (bh * p.qtiles + qt) * p.ktiles;
-        if (threadIdx.x == 0) vrow[row.sched[0]] = 0;
-      }
-      if (!primed) {
-        if (row.n > 0) {
-          __nv_bfloat16* cur = smem + (it & 1) * 2 * kTileElems;
-          load_kv_tile<D>(p, row.kbase, row.vbase, cur, cur + kTileElems, row.lsched[0]);
-        }
-        cp_async_commit();
-      }
-      primed = false;
-      load_q<D>(p, bh, r_lo, r_hi, qf);
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
-      float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
-      float mv_lo = -INFINITY, mv_hi = -INFINITY;  // row max before the vote step
-
-      for (int j = 0; j < row.n; ++j) {
-        const int stage = (FOLD ? it : j) & 1;
-        __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
-        if (j + 1 < row.n) {
-          load_kv_tile<D>(p, row.kbase, row.vbase, nxt, nxt + kTileElems, row.lsched[j + 1]);
-        } else if (FOLD && hl + 1 < fold) {
-          // Fetch the next head's first tile while this head finishes.
-          const ListRow next = list_row<D>(p, b, h + 1, qt);
-          if (next.n > 0) {
-            load_kv_tile<D>(p, next.kbase, next.vbase, nxt, nxt + kTileElems, next.lsched[0]);
-          }
-          primed = true;
-        }
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();
-        const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
-        const int tile = row.sched[j];
-        // A new vote step starts: snapshot m_prev. Taken here, before the
-        // tile's math, the step test stays off the path between the row
-        // maxima and the barrier below (inside the vote it cost B3 ~2 %).
-        if (VOTES && j % p.gsize == 0) {
-          mv_lo = m_lo;
-          mv_hi = m_hi;
-        }
-        attend_tile<D>(
-            p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
-            [&](float mx_lo, float mx_hi) {
-              if constexpr (VOTES) {
-                // Bitwise, not short-circuit: no branch before the barrier.
-                const bool keep = (lo_valid & (mx_lo - mv_lo > p.thr)) |
-                                  (hi_valid & (mx_hi - mv_hi > p.thr));
-                // CTA-wide OR over all 128 rows (every warp walks the same tiles).
-                const int any_keep = __syncthreads_or(keep);
-                if (threadIdx.x == 0 && j > 0) vrow[tile] = any_keep ? 0 : 1;
-              }
-            });
-        __syncthreads();  // this stage is refilled by the next iteration
-        if (FOLD) ++it;
-      }
-      store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
-    }
-  } else {
-    // kCoarse / kSuper: one head per CTA, the coarse row of this q-tile.
-    const int h = blockIdx.y;
-    const size_t bh = static_cast<size_t>(b) * p.heads + h;
-    const int hk = h / (p.heads / p.kv_heads);
-    const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
-    const size_t srow = bh * p.sched_q + qt / p.qsub;
-    CoarseWalk<MODE> w{};
-    w.sched = p.fidx + srow * p.sched_k;
-    w.n = p.count[srow];
-    w.ksub = p.ksub;
-    if constexpr (MODE == kSuper) {
-      w.bits = p.bits + srow * p.sched_k;
-      w.shift = (qt % p.qsub) * p.ksub;
-    }
-    int* vrow = p.votes +
-                (bh * p.vote_q + (MODE == kCoarse ? qt / p.qsub : qt)) * p.vote_k;
-    // kSuper: the lowest live fine tile of entry 0 votes 0.
-    const int anchor = MODE == kSuper && w.n > 0 ? __ffs(w.live(0)) - 1 : -1;
-    int e = 0, s = -1;
-    bool have = w.advance(e, s);
-    if (have) load_kv_tile<D>(p, p.k + kv, p.v + kv, smem, smem + kTileElems, w.tile(e, s));
-    cp_async_commit();
-    load_q<D>(p, bh, r_lo, r_hi, qf);
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    float m_lo = -INFINITY, m_hi = -INFINITY;
-    float l_lo = 0.f, l_hi = 0.f;
-    float mv_lo = -INFINITY, mv_hi = -INFINITY;
-    int step = -1;      // entry of the previous position
-    int step_keep = 0;  // kCoarse: some fine tile of the entry passed
-    for (int it = 0; have; ++it) {
-      int ne = e, ns = s;
-      const bool more = w.advance(ne, ns);
-      const int stage = it & 1;
-      __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
-      if (more) load_kv_tile<D>(p, p.k + kv, p.v + kv, nxt, nxt + kTileElems, w.tile(ne, ns));
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
-      const int tile = w.tile(e, s);
-      attend_tile<D>(
-          p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
-          [&](float mx_lo, float mx_hi) {
-            if (e != step) {  // a new entry: snapshot m_prev
-              step = e;
-              mv_lo = m_lo;
-              mv_hi = m_hi;
-              step_keep = 0;
-            }
-            const float mp_lo = e == 0 ? -INFINITY : fmaxf(mv_lo, kMaskValue);
-            const float mp_hi = e == 0 ? -INFINITY : fmaxf(mv_hi, kMaskValue);
-            const bool keep = (lo_valid & (fmaxf(mx_lo, kMaskValue) - mp_lo > p.thr)) |
-                              (hi_valid & (fmaxf(mx_hi, kMaskValue) - mp_hi > p.thr));
-            const int any_keep = __syncthreads_or(keep);
-            if (threadIdx.x == 0) {
-              if constexpr (MODE == kSuper) {
-                vrow[tile] = (any_keep || (e == 0 && s == anchor)) ? 0 : 1;
-              } else {
-                step_keep |= any_keep;
-                if (!(more && ne == e)) {  // the entry's last fine tile
-                  atomicAnd(vrow + w.sched[e], (e == 0 || step_keep) ? 0 : 1);
-                }
-              }
-            }
-          });
-      __syncthreads();
-      e = ne;
-      s = ns;
-      have = more;
-    }
-    store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
+  // One head per CTA, the coarse row of this q-tile.
+  const int h = blockIdx.y;
+  const size_t bh = static_cast<size_t>(b) * p.heads + h;
+  const int hk = h / (p.heads / p.kv_heads);
+  const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
+  const size_t srow = bh * p.sched_q + qt / p.qsub;
+  CoarseWalk<MODE> w{};
+  w.sched = p.fidx + srow * p.sched_k;
+  w.n = p.count[srow];
+  w.ksub = p.ksub;
+  if constexpr (MODE == kSuper) {
+    w.bits = p.bits + srow * p.sched_k;
+    w.shift = (qt % p.qsub) * p.ksub;
   }
+  int* vrow = p.votes +
+              (bh * p.vote_q + (MODE == kCoarse ? qt / p.qsub : qt)) * p.vote_k;
+  // kSuper: the lowest live fine tile of entry 0 votes 0.
+  const int anchor = MODE == kSuper && w.n > 0 ? __ffs(w.live(0)) - 1 : -1;
+  int e = 0, s = -1;
+  bool have = w.advance(e, s);
+  if (have) load_kv_tile<D>(p, p.k + kv, p.v + kv, smem, smem + kTileElems, w.tile(e, s));
+  cp_async_commit();
+  load_q<D>(p, bh, r_lo, r_hi, qf);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  float l_lo = 0.f, l_hi = 0.f;
+  float mv_lo = -INFINITY, mv_hi = -INFINITY;
+  int step = -1;      // entry of the previous position
+  int step_keep = 0;  // kCoarse: some fine tile of the entry passed
+  for (int it = 0; have; ++it) {
+    int ne = e, ns = s;
+    const bool more = w.advance(ne, ns);
+    const int stage = it & 1;
+    __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
+    if (more) load_kv_tile<D>(p, p.k + kv, p.v + kv, nxt, nxt + kTileElems, w.tile(ne, ns));
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
+    const int tile = w.tile(e, s);
+    attend_tile<D>(
+        p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
+        [&](float mx_lo, float mx_hi) {
+          if (e != step) {  // a new entry: snapshot m_prev
+            step = e;
+            mv_lo = m_lo;
+            mv_hi = m_hi;
+            step_keep = 0;
+          }
+          const float mp_lo = e == 0 ? -INFINITY : fmaxf(mv_lo, kMaskValue);
+          const float mp_hi = e == 0 ? -INFINITY : fmaxf(mv_hi, kMaskValue);
+          const bool keep = (lo_valid & (fmaxf(mx_lo, kMaskValue) - mp_lo > p.thr)) |
+                            (hi_valid & (fmaxf(mx_hi, kMaskValue) - mp_hi > p.thr));
+          const int any_keep = __syncthreads_or(keep);
+          if (threadIdx.x == 0) {
+            if constexpr (MODE == kSuper) {
+              vrow[tile] = (any_keep || (e == 0 && s == anchor)) ? 0 : 1;
+            } else {
+              step_keep |= any_keep;
+              if (!(more && ne == e)) {  // the entry's last fine tile
+                atomicAnd(vrow + w.sched[e], (e == 0 || step_keep) ? 0 : 1);
+              }
+            }
+          }
+        });
+    __syncthreads();
+    e = ne;
+    s = ns;
+    have = more;
+  }
+  store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
   cp_async_wait<0>();
 }
 
 // Host-side launch of one instantiation on `stream`: one CTA per fine q-tile
-// and head, or group of `fold` heads with FOLD (a separate instantiation, so
-// that the unfolded walk carries no head loop). Returns the CUDA error of the
-// launch (0 on success).
-template <int D, int MODE, bool VOTES, bool FOLD = false>
+// and head. Returns the CUDA error of the launch (0 on success).
+template <int D, int MODE>
 cudaError_t launch_attention_fwd(const FwdParams& p, int batch,
                                  cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<D, MODE, VOTES, FOLD>;
+  auto kernel = attention_fwd_kernel<D, MODE>;
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.qtiles, p.heads / (FOLD ? p.fold : 1), batch);
+  dim3 grid(p.qtiles, p.heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -1,5 +1,8 @@
 // B1: dense flash-attention forward on Hopper (flash_fwd_kernel), replacing
-// the Pallas kernel liteattention_tpu/ops/flash_fwd.py:_fwd_kernel; below
+// the Pallas kernel liteattention_tpu/ops/flash_fwd.py:_fwd_kernel. The same
+// kernel, walking a list of live k-tiles, is B3 (lite_flash_fwd_gather),
+// replacing liteattention_tpu/ops/lite_flash_fwd.py:_lite_gather_kernel, and
+// with `fold` heads per CTA B5, replacing _lite_gather_kernel_hfold. Below
 // it, B1's MLA channels (mla_fwd_kernel).
 //
 // bf16 q/k/v in [B, H, S, D] (D = 64 or 128), GQA by h / group, optionally
@@ -43,6 +46,38 @@
 // TMA (rows >= Sq are clipped); lse from each quad's first lane. An
 // mbarrier wait traps after 2^28 tries, so a pipeline fault fails the
 // launch instead of holding the card.
+//
+// The walk is a template parameter. The dense walk (B1) visits tiles 0 ..
+// n - 1. The list walk (B3) visits the entries fidx[0 .. count) of its (b,
+// h, q-tile) row, the live fine k-tiles in increasing order, and loads
+// entry j from tile lidx[j] of a union-compacted K/V buffer when the caller
+// passes one (B6's output; the tensor maps then describe that buffer), else
+// from fidx[j]. Skipped tiles cost no load and no math: what was 3.5x its
+// bound on the first version's mma.sync loop runs at B1's rate on half the
+// tiles. The list stays in global memory (at D 128 B1's Q buffer and ring
+// leave under 2 KB of shared memory, a row of 576 tiles needs 2.3 KB): each
+// thread reads entry j + 2 one step ahead, and thread 0 the entry it loads
+// next. A row with no live tile (count 0, or fidx[0] dead in the mask) still
+// visits one tile, with every key hidden: out 0, lse -inf.
+//
+// The votes (VOTES), as the JAX kernel's contract (attention_fwd.cuh): a
+// vote step is gsize entries; m_prev, the running row max before the step,
+// is snapshotted at the top of the step's first entry, before that tile's
+// math; the tile's raw row maxima x scale_log2 are compared with it before
+// softmax_rows absorbs them, strictly (> thr), on valid rows only. The OR
+// over the tile's 128 rows takes no CTA barrier (the warpgroups run out of
+// phase): the wrapper fills the votes with 1 (skip) and every warp with a
+// passing row stores 0 (__any_sync), idempotent stores in any order; the
+// first entry is stored 0 by thread 0 at the start. emit_votes=False
+// compiles the vote chain out.
+//
+// Folded heads (FOLD, B5): one CTA walks `fold` heads' rows in turn. The
+// ring runs on across heads: the walks are one flat sequence of tiles, so
+// the next head's first tiles load under the current head's last products,
+// and each head's last stage is released when its last P V retires. Q of
+// the next head loads only after both warpgroups' epilogue stores have read
+// the Q buffer (bulk_wait_read, then a CTA barrier). Out, lse and votes are
+// B3's bit for bit: the per-head arithmetic is the same.
 #include "attention_fwd.cuh"
 #include "sm90.cuh"
 
@@ -63,6 +98,15 @@ struct Params {
   int heads, kv_heads, seqlen_q, seqlen_k, qtiles, ktiles;
   int causal_offset;  // Sk - Sq
   float scale_log2;   // softmax scale * log2(e)
+  // The list walk (B3, B5).
+  const int* fidx;      // [B, H, Qt, Kt] live fine k-tiles per row, increasing
+  const int* count;     // [B, H, Qt] entries per row
+  const int* lidx;      // load positions aligned with fidx, or null
+  const uint8_t* mask;  // [B, H, Qt, Kt] the fine mask the list came from
+  int* votes;           // [B, H, Qt, Kt] (VOTES), pre-filled with 1
+  int gsize;            // entries per vote step
+  int fold;             // heads per CTA (FOLD)
+  float thr;            // vote threshold, log2 space
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base). Each
@@ -84,10 +128,10 @@ struct Smem {
 // path it cannot prove uniform). The dense walk: tile j = j for j < n, n
 // ending at the last tile the q-tile's last row reaches when causal; a
 // q-tile whose rows see no key still visits tile 0, where the mask hides
-// every key (out 0, lse -inf). A sparse walk (B3's live-tile list) takes
-// its place on the same mainloop.
+// every key (out 0, lse -inf).
 struct DenseWalk {
   int n;
+  static constexpr bool dead = false;
   __device__ __forceinline__ int tile(int j) const { return j; }
 };
 
@@ -99,6 +143,50 @@ __device__ __forceinline__ DenseWalk dense_walk(const Params& p, int q0) {
   }
   return {p.ktiles};
 }
+
+// The list walk of row (b, h, q-tile): entries fidx[0 .. n), n >= 1; a
+// row with no live tile visits fidx[0] with every key hidden.
+struct ListWalk {
+  const int* sched;
+  int n;
+  bool dead;
+  __device__ __forceinline__ int tile(int j) const { return __ldg(sched + j); }
+};
+
+__device__ __forceinline__ ListWalk list_walk(const Params& p, size_t row) {
+  ListWalk w;
+  w.sched = p.fidx + row * p.ktiles;
+  const int count = __ldg(p.count + row);
+  w.n = max(count, 1);
+  w.dead = count < 1 || !p.mask[row * p.ktiles + w.tile(0)];
+  return w;
+}
+
+// What thread 0 loads for the list walks, in order: their load positions
+// (lidx, or fidx), head by head. (The dense walk loads tile f at step f.)
+struct ListFeed {
+  int hl, j, n, bhk;
+  const int* lrow;
+
+  __device__ __forceinline__ void open(const Params& p, int b, int h, int qt) {
+    const size_t row = (static_cast<size_t>(b) * p.heads + h) * p.qtiles + qt;
+    j = 0;
+    n = max(__ldg(p.count + row), 1);
+    bhk = b * p.kv_heads + h / (p.heads / p.kv_heads);
+    lrow = (p.lidx != nullptr ? p.lidx : p.fidx) + row * p.ktiles;
+  }
+
+  __device__ __forceinline__ bool more(int fold) const { return hl < fold; }
+
+  // The next tile to load and its (b, kv head) in bhk_out.
+  __device__ __forceinline__ int take(const Params& p, int b, int h0, int qt, int fold,
+                                      int& bhk_out) {
+    bhk_out = bhk;
+    const int tile = __ldg(lrow + j);
+    if (++j == n && ++hl < fold) open(p, b, h0 + hl, qt);
+    return tile;
+  }
+};
 
 // K and V of k-tile `tile` into ring stage `stage` (thread 0).
 template <int D>
@@ -149,30 +237,32 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)
   sm90::wgmma_commit();
 }
 
-// Tile `tile`'s scores, masked only on the ragged tile and on tiles that
-// cross this warp's diagonal, folded into the running row state; they stay
-// raw until softmax_rows takes them to log2 space inside each exp2's FFMA
-// (one instruction a score fewer than scaling first). alpha is the
-// accumulator's rescale.
-template <bool CAUSAL>
-__device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p, int tile,
+// Tile `tile`'s scores, masked only on the ragged tile, on tiles that cross
+// this warp's diagonal and on a dead row's tile, then `vote` with the rows'
+// maxima in log2 space before the running max absorbs them, then folded
+// into the running row state; they stay raw until softmax_rows takes them
+// to log2 space inside each exp2's FFMA (one instruction a score fewer than
+// scaling first). alpha is the accumulator's rescale.
+template <bool CAUSAL, typename Vote>
+__device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p, int tile, bool dead,
                                              int warp_row0, int r_lo, int r_hi, float& m_lo,
                                              float& m_hi, float& l_lo, float& l_hi,
-                                             float& alpha_lo, float& alpha_hi) {
+                                             float& alpha_lo, float& alpha_hi, Vote&& vote) {
   const int col0 = tile * kKeys;
-  const bool mask = col0 + kKeys > p.seqlen_k ||
+  const bool mask = dead || col0 + kKeys > p.seqlen_k ||
                     (CAUSAL && col0 + kKeys - 1 > warp_row0 + p.causal_offset);
   float mx_lo, mx_hi;
   mask_scores(
       s, 1.f, mask, col0,
       [&](int col, bool hi) {
-        return key_masked<CAUSAL>(col, hi ? r_hi : r_lo, p.seqlen_k, p.causal_offset);
+        return dead || key_masked<CAUSAL>(col, hi ? r_hi : r_lo, p.seqlen_k, p.causal_offset);
       },
       mx_lo, mx_hi);
+  vote(mx_lo * p.scale_log2, mx_hi * p.scale_log2);
   softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool LIST, bool VOTES, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -180,6 +270,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_o, const Params p) {
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
   static_assert(kRowsQ == kKeys, "Q and K tiles step through D alike");
+  static_assert(LIST || !(VOTES || FOLD), "votes and folded heads take the list walk");
+  static_assert(!(LIST && CAUSAL), "the list walk is not causal");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -189,11 +281,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* q_full = empty + kStages;
 
   const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y;
-  const int bh = blockIdx.z * p.heads + h;
-  const int bhk = blockIdx.z * p.kv_heads + h / (p.heads / p.kv_heads);
+  const int b = blockIdx.z;
+  const int fold = FOLD ? p.fold : 1;
+  const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
-  const DenseWalk walk = dense_walk<CAUSAL>(p, q0);
+  // The dense walk: its tiles and (b, kv head), uniform over the CTA.
+  const int n_dense = LIST ? 0 : dense_walk<CAUSAL>(p, q0).n;
+  const int bhk0 = b * p.kv_heads + h0 / (p.heads / p.kv_heads);
+  ListFeed feed;
+  feed.hl = 0;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -209,10 +305,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
     for (int a = 0; a < D / 64; ++a) {
-      sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
+      sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0,
+                        b * p.heads + h0);
     }
-    for (int j = 0; j < kStages && j < walk.n; ++j) {  // walk.n >= 1
-      load_tile<D>(tm_k, tm_v, smem, full, j, walk.tile(j), bhk);
+    if constexpr (LIST) {
+      feed.open(p, b, h0, qt);
+      for (int j = 0; j < kStages && feed.more(fold); ++j) {  // a walk has n >= 1
+        int bhk;
+        const int tile = feed.take(p, b, h0, qt, fold, bhk);
+        load_tile<D>(tm_k, tm_v, smem, full, j, tile, bhk);
+      }
+    } else {
+      for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
+        load_tile<D>(tm_k, tm_v, smem, full, j, j, bhk0);
+      }
     }
   }
 
@@ -236,123 +342,196 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t pf[kKeys / 16][4];  // P_j, bf16 pairs: the A operand of PV
   float(&sd)[kKeys / 2] = reinterpret_cast<float(&)[kKeys / 2]>(s);
   float(&od)[D / 2] = reinterpret_cast<float(&)[D / 2]>(o);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) od[i] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
-  float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
-  float alpha_lo, alpha_hi;
 
-  // S of the first tile, then per tile j: S_{j+1} and P_j V_j in flight,
-  // the softmax of S_{j+1} under P_j V_j, O rescaled once P_j V_j retires.
-  // The warpgroups take turns to issue their products (named barriers
-  // kTurn + wg), so that one's softmax runs under the other's products;
-  // warpgroup 0 goes first.
-  sm90::mbar_wait(q_full, 0);
-  if (wg == 1) sm90::named_arrive(kTurn, kThreads);
-  sm90::mbar_wait(&full[0], 0);
-  sm90::wgmma_fence();
-  issue_s<D>(sd, q_desc, ring);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(sd);
-  tile_softmax<CAUSAL>(s, p, walk.tile(0), warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                       alpha_lo, alpha_hi);
-#pragma unroll
-  for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
-  for (int j = 0; j + 1 < walk.n; ++j) {
-    const int stage = j % kStages;
-    const int next = (j + 1) % kStages;
-    sm90::mbar_wait(&full[next], ((j + 1) / kStages) & 1);
-    sm90::named_sync(kTurn + wg, kThreads);
-    sm90::wgmma_fence();
-    issue_s<D>(sd, q_desc, ring + next * L::kStage);
-    issue_pv<D>(od, pf, ring + stage * L::kStage + L::kKV);
-    // Thread 0 refills tile j - 1's stage (all eight warps released it at
-    // the end of their step j - 1) while the products run.
-    if (ct == 0 && j > 0 && j - 1 + kStages < walk.n) {
-      const int free = (j - 1) % kStages;
-      sm90::mbar_wait(&empty[free], ((j - 1) / kStages) & 1);
-      load_tile<D>(tm_k, tm_v, smem, full, free, walk.tile(j - 1 + kStages), bhk);
+  // Thread 0 refills tile f - 1's stage (all eight warps released it at the
+  // end of their step f - 1) with the next tile of the CTA's flat walk: on
+  // the dense walk tile f - 1 + kStages, from uniform values (TMA takes its
+  // coordinates in uniform registers).
+  auto refill = [&](int f) {
+    const int free = (f - 1) % kStages;
+    if constexpr (LIST) {
+      if (ct == 0 && f > 0 && feed.more(fold)) {
+        sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
+        int bhk;
+        const int load = feed.take(p, b, h0, qt, fold, bhk);
+        load_tile<D>(tm_k, tm_v, smem, full, free, load, bhk);
+      }
+    } else if (ct == 0 && f > 0 && f - 1 + kStages < n_dense) {
+      sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
+      load_tile<D>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);
     }
-    sm90::named_arrive(kTurn + 1 - wg, kThreads);
-    sm90::wgmma_wait<1>();
-    sm90::fence_regs(sd);
-    tile_softmax<CAUSAL>(s, p, walk.tile(j + 1), warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                         alpha_lo, alpha_hi);
+  };
+  int f_head = 0;  // the head's first tile in the CTA's flat walk
+  for (int hl = 0; hl < fold; ++hl) {
+    const int f0 = FOLD ? f_head : 0;
+    const int h = h0 + hl;
+    const int bh = b * p.heads + h;
+    const size_t row = static_cast<size_t>(bh) * p.qtiles + qt;
+    const auto walk = [&] {
+      if constexpr (LIST) {
+        return list_walk(p, row);
+      } else {
+        return dense_walk<CAUSAL>(p, q0);
+      }
+    }();
+    if (FOLD && hl > 0) {
+      __syncthreads();  // both warpgroups' stores have read the Q buffer
+      if (ct == 0) {
+        sm90::mbar_expect_tx(q_full, L::kQ);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a) {
+          sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
+        }
+      }
+    }
+    int* vrow = nullptr;
+    float mv_lo = -INFINITY, mv_hi = -INFINITY;  // running row max before the vote step
+    int gpos = 0;  // place of entry j + 1 in its vote step
+    if constexpr (VOTES) {
+      vrow = p.votes + row * p.ktiles;
+      if (ct == 0) vrow[walk.tile(0)] = 0;  // the first entry votes 0
+      gpos = 1 % p.gsize;
+    }
+    auto no_vote = [](float, float) {};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) od[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
+    float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
+    float alpha_lo, alpha_hi;
+
+    // S of the first tile, then per tile j: S_{j+1} and P_j V_j in flight,
+    // the softmax of S_{j+1} under P_j V_j, O rescaled once P_j V_j retires.
+    // The warpgroups take turns to issue their products (named barriers
+    // kTurn + wg), so that one's softmax runs under the other's products;
+    // warpgroup 0 goes first.
+    sm90::mbar_wait(q_full, hl & 1);
+    if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);
+    sm90::mbar_wait(&full[f0 % kStages], (f0 / kStages) & 1);
+    sm90::wgmma_fence();
+    issue_s<D>(sd, q_desc, ring + f0 % kStages * L::kStage);
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(od);
-    sm90::fence_regs(pf);
-    rescale_rows(o, alpha_lo, alpha_hi);
+    sm90::fence_regs(sd);
+    tile_softmax<CAUSAL>(s, p, walk.tile(0), walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo,
+                         l_hi, alpha_lo, alpha_hi, no_vote);
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
-    if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j
-  }
-  // P V of the last tile (its stage is never refilled).
-  sm90::wgmma_fence();
-  issue_pv<D>(od, pf, ring + (walk.n - 1) % kStages * L::kStage + L::kKV);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(od);
-
-  // Epilogue: the warpgroup's normalised rows, bf16, into its own half of
-  // the Q buffer (its wgmmas are done with it) in the 128-byte swizzle, then
-  // one TMA store per 64-value atom; lse from each quad's first lane.
-  float inv_lo, inv_hi, lse_lo, lse_hi;
-  finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
-  unsigned char* ob = smem + L::q + 64 * wg * 128;
-  const int row = 16 * warp + g;
+    int tile_next = walk.n > 1 ? walk.tile(1) : 0;
+    for (int j = 0; j + 1 < walk.n; ++j) {
+      const int f = f0 + j;
+      const int stage = f % kStages;
+      const int next = (f + 1) % kStages;
+      const int tile = LIST ? tile_next : j + 1;  // entry j + 1; j + 2 is read a step ahead
+      if constexpr (LIST) tile_next = j + 2 < walk.n ? walk.tile(j + 2) : 0;
+      if (VOTES && gpos == 0) {  // a vote step starts at entry j + 1: snapshot m_prev
+        mv_lo = m_lo;
+        mv_hi = m_hi;
+      }
+      sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);
+      sm90::named_sync(kTurn + wg, kThreads);
+      sm90::wgmma_fence();
+      issue_s<D>(sd, q_desc, ring + next * L::kStage);
+      issue_pv<D>(od, pf, ring + stage * L::kStage + L::kKV);
+      refill(f);  // while the products run
+      sm90::named_arrive(kTurn + 1 - wg, kThreads);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sd);
+      tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                           alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
+                             if constexpr (VOTES) {
+                               // Some valid row of this warp passes: the tile is kept.
+                               // Bitwise, not short-circuit: no branch on the way.
+                               const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
+                                                 ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
+                               if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
+                             }
+                           });
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(od);
+      sm90::fence_regs(pf);
+      rescale_rows(o, alpha_lo, alpha_hi);
 #pragma unroll
-  for (int jb = 0; jb < D / 8; ++jb) {
-    unsigned char* chunk = ob + (jb / 8) * kRowsQ * 128 + (((jb % 8) ^ g) << 4) + 4 * t;
-    *reinterpret_cast<uint32_t*>(chunk + row * 128) =
-        sm90::pack_bf16x2(o[jb][0] * inv_lo, o[jb][1] * inv_lo);
-    *reinterpret_cast<uint32_t*>(chunk + (row + 8) * 128) =
-        sm90::pack_bf16x2(o[jb][2] * inv_hi, o[jb][3] * inv_hi);
-  }
-  if (t == 0) {
-    const size_t base = static_cast<size_t>(bh) * p.seqlen_q;
-    if (r_lo < p.seqlen_q) p.lse[base + r_lo] = lse_lo;
-    if (r_hi < p.seqlen_q) p.lse[base + r_hi] = lse_hi;
-  }
-  sm90::fence_proxy_async();
-  sm90::named_sync(1 + wg, 128);
-  if (tw == 0 && q0 + 64 * wg < p.seqlen_q) {
-#pragma unroll
-    for (int a = 0; a < D / 64; ++a) {
-      sm90::tma_store_3d(&tm_o, ob + a * kRowsQ * 128, 64 * a, q0 + 64 * wg, bh);
+      for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j
+      if constexpr (VOTES) gpos = gpos + 1 == p.gsize ? 0 : gpos + 1;
     }
-    sm90::bulk_commit();
-    sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it
+    // P V of the last tile. Folded, the flat walk goes on into the next
+    // heads: this step refills too and then releases its stage (which is
+    // otherwise never refilled).
+    sm90::wgmma_fence();
+    issue_pv<D>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kKV);
+    if constexpr (FOLD) refill(f0 + walk.n - 1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(od);
+    if (FOLD && lane == 0) sm90::mbar_arrive(&empty[(f0 + walk.n - 1) % kStages]);
+
+    // Epilogue: the warpgroup's normalised rows, bf16, into its own half of
+    // the Q buffer (its wgmmas are done with it) in the 128-byte swizzle, then
+    // one TMA store per 64-value atom; lse from each quad's first lane.
+    float inv_lo, inv_hi, lse_lo, lse_hi;
+    finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
+    unsigned char* ob = smem + L::q + 64 * wg * 128;
+    const int orow = 16 * warp + g;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      unsigned char* chunk = ob + (jb / 8) * kRowsQ * 128 + (((jb % 8) ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(chunk + orow * 128) =
+          sm90::pack_bf16x2(o[jb][0] * inv_lo, o[jb][1] * inv_lo);
+      *reinterpret_cast<uint32_t*>(chunk + (orow + 8) * 128) =
+          sm90::pack_bf16x2(o[jb][2] * inv_hi, o[jb][3] * inv_hi);
+    }
+    if (t == 0) {
+      const size_t base = static_cast<size_t>(bh) * p.seqlen_q;
+      if (r_lo < p.seqlen_q) p.lse[base + r_lo] = lse_lo;
+      if (r_hi < p.seqlen_q) p.lse[base + r_hi] = lse_hi;
+    }
+    sm90::fence_proxy_async();
+    sm90::named_sync(1 + wg, 128);
+    if (tw == 0 && q0 + 64 * wg < p.seqlen_q) {
+#pragma unroll
+      for (int a = 0; a < D / 64; ++a) {
+        sm90::tma_store_3d(&tm_o, ob + a * kRowsQ * 128, 64 * a, q0 + 64 * wg, bh);
+      }
+      sm90::bulk_commit();
+      sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it
+    }
+    f_head += walk.n;
   }
 }
 
-template <int D, bool CAUSAL>
-cudaError_t run(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
-                int heads, int kv_heads, int seqlen_q, int seqlen_k, float scale,
-                cudaStream_t stream) {
+// Tensor maps of q, k, v (k and v with `kv_rows` rows per (b, kv head)) and
+// out, then one launch of instantiation <D, CAUSAL, LIST, VOTES, FOLD> over
+// (q-tiles, heads / fold, batch).
+template <int D, bool CAUSAL, bool LIST = false, bool VOTES = false, bool FOLD = false>
+cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p, int batch,
+                float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  const int bh = batch * heads, bhk = batch * kv_heads;
+  const int bh = batch * p.heads, bhk = batch * p.kv_heads;
   cudaError_t err;
-  if ((err = sm90::make_tensor_map_3d(&tm_q, q, D, seqlen_q, bh, 64, kRowsQ)) ||
-      (err = sm90::make_tensor_map_3d(&tm_k, k, D, seqlen_k, bhk, 64, kKeys)) ||
-      (err = sm90::make_tensor_map_3d(&tm_v, v, D, seqlen_k, bhk, 64, kKeys)) ||
-      (err = sm90::make_tensor_map_3d(&tm_o, out, D, seqlen_q, bh, 64, 64))) {
+  if ((err = sm90::make_tensor_map_3d(&tm_q, q, D, p.seqlen_q, bh, 64, kRowsQ)) ||
+      (err = sm90::make_tensor_map_3d(&tm_k, k, D, p.seqlen_k, bhk, 64, kKeys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_v, v, D, p.seqlen_k, bhk, 64, kKeys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_o, out, D, p.seqlen_q, bh, 64, 64))) {
     return err;
   }
-  Params p{};
-  p.lse = static_cast<float*>(lse);
-  p.heads = heads;
-  p.kv_heads = kv_heads;
-  p.seqlen_q = seqlen_q;
-  p.seqlen_k = seqlen_k;
-  p.qtiles = (seqlen_q + kRowsQ - 1) / kRowsQ;
-  p.ktiles = (seqlen_k + kKeys - 1) / kKeys;
-  p.causal_offset = seqlen_k - seqlen_q;
+  p.qtiles = (p.seqlen_q + kRowsQ - 1) / kRowsQ;
+  p.ktiles = (p.seqlen_k + kKeys - 1) / kKeys;
+  p.causal_offset = p.seqlen_k - p.seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = flash_fwd_kernel<D, CAUSAL>;
+  auto kernel = flash_fwd_kernel<D, CAUSAL, LIST, VOTES, FOLD>;
   constexpr int smem = Smem<D>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.qtiles, heads, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  const int fold = FOLD ? p.fold : 1;
+  kernel<<<dim3(p.qtiles, p.heads / fold, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
+                                                                            tm_o, p);
   return cudaGetLastError();
+}
+
+template <int D, bool VOTES>
+cudaError_t run_list(const void* q, const void* k, const void* v, void* out, const Params& p,
+                     int batch, float scale, cudaStream_t stream) {
+  return p.fold > 1 ? run<D, false, true, VOTES, true>(q, k, v, out, p, batch, scale, stream)
+                    : run<D, false, true, VOTES, false>(q, k, v, out, p, batch, scale, stream);
 }
 
 }  // namespace fwd
@@ -370,12 +549,62 @@ extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using namespace lite::fwd;
+  Params p{};
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.seqlen_q = seqlen_q;
+  p.seqlen_k = seqlen_k;
   if (head_dim == 64) {
-    err = causal ? run<64, true>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s)
-                 : run<64, false>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s);
+    err = causal ? run<64, true>(q, k, v, out, p, batch, scale, s)
+                 : run<64, false>(q, k, v, out, p, batch, scale, s);
   } else if (head_dim == 128) {
-    err = causal ? run<128, true>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s)
-                 : run<128, false>(q, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k, scale, s);
+    err = causal ? run<128, true>(q, k, v, out, p, batch, scale, s)
+                 : run<128, false>(q, k, v, out, p, batch, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// B3 / B5: q [B, H, Sq, D], k and v [B, Hk, Sk, D] (or the union-compacted
+// buffers of that shape with lidx), out [B, H, Sq, D], all bf16; lse [B, H,
+// Sq] fp32; fidx, lidx (or null) [B, H, Qt, Kt] and count [B, H, Qt] int32;
+// mask [B, H, Qt, Kt] bool; votes [B, H, Qt, Kt] int32 pre-filled with 1
+// (written with emit_votes). `fold` heads per CTA (must divide H). Returns
+// the CUDA error of the launch (0 = success).
+extern "C" int lite_flash_fwd_gather(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* fidx, const void* count, const void* lidx, const void* mask,
+    void* votes, int batch, int heads, int kv_heads, int seqlen_q,
+    int seqlen_k, int head_dim, int gsize, int fold, float scale, float thr,
+    int emit_votes, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fold < 1 || heads % fold || gsize < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace lite::fwd;
+  Params p{};
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.seqlen_q = seqlen_q;
+  p.seqlen_k = seqlen_k;
+  p.fidx = static_cast<const int*>(fidx);
+  p.count = static_cast<const int*>(count);
+  p.lidx = static_cast<const int*>(lidx);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.votes = static_cast<int*>(votes);
+  p.gsize = gsize;
+  p.fold = fold;
+  p.thr = thr;
+  const bool v8 = emit_votes != 0;
+  if (head_dim == 64) {
+    err = v8 ? run_list<64, true>(q, k, v, out, p, batch, scale, s)
+             : run_list<64, false>(q, k, v, out, p, batch, scale, s);
+  } else if (head_dim == 128) {
+    err = v8 ? run_list<128, true>(q, k, v, out, p, batch, scale, s)
+             : run_list<128, false>(q, k, v, out, p, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -29,7 +29,7 @@
 // accumulator does not fit one warp, and 128 x 512 (256 KB) not one SM.
 // Budget: 72 KB of q + 2 x 72 KB of ring = 219 KB of the 227 KB a CTA may use.
 // With more than one split each split writes (o fp32, lse) and
-// decode_merge_kernel (attention_fwd.cuh, B8/B9's merge) combines them
+// decode_merge_kernel (attention_fwd.cuh) combines them
 // (ops/combine.py is its plain version); a split past a request's length
 // writes lse -inf and nothing else, and the merge skips it. The softmax
 // steps, P V and the epilogue are attention_fwd.cuh's row helpers.

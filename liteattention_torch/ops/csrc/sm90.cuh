@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA loads, stores and bulk copies,
+// Hopper (sm_90a) building blocks: mbarriers, TMA loads (3-D and 4-D), stores and bulk copies,
 // the bulk reduce-add, and wgmma with its shared-memory descriptors.
 //
 // Every tile that wgmma reads from shared memory here is stored with the
@@ -95,6 +95,12 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 
 // -------------------------------------------------------- TMA and bulk
 
+// Fetch a tensor map (a __grid_constant__ kernel parameter) into the cache
+// ahead of its first load.
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // Tile of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
 // shared memory; completes `bytes` of the barrier's transaction count.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -103,6 +109,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Tile of a 4-D tensor map at coordinates (c0 innermost, ..., c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -295,17 +312,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 // ---------------------------------------------------------------- host
 
-// A 3-D bf16 tensor map over [dim2][dim1][dim0] (dim0 contiguous) with
-// boxes of box1 x box0 values (box0 * 2 = 128 bytes), 128-byte swizzle;
-// reads past dim1 fill zeros. Returns a CUDA error code (0 = success).
-inline cudaError_t make_tensor_map_3d(CUtensorMap* map, const void* base, uint64_t dim0,
-                                      uint64_t dim1, uint64_t dim2, uint32_t box0,
-                                      uint32_t box1) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// cuTensorMapEncodeTiled, fetched once through the runtime's driver entry
+// point (so the library links without -lcuda); null if the driver lacks it.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline TensorMapEncode tensor_map_encoder() {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -315,19 +330,46 @@ inline cudaError_t make_tensor_map_3d(CUtensorMap* map, const void* base, uint64
 #else
     cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
 #endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
-  const cuuint64_t dims[3] = {dim0, dim1, dim2};
-  const cuuint64_t strides[2] = {dim0 * 2, dim0 * dim1 * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {box0, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode;
+}
+
+// A tiled tensor map of `rank` dims (dims[0] contiguous; strides in bytes of
+// dims 1 .. rank - 1, each a multiple of 16) with boxes of box[] values;
+// reads past a dimension fill zeros. Returns a CUDA error code (0 = success).
+inline cudaError_t make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                                   const void* base, const uint64_t* dims,
+                                   const uint64_t* strides, const uint32_t* box,
+                                   CUtensorMapSwizzle swizzle) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    elem[i] = 1;
+    if (i > 0) st[i - 1] = strides[i - 1];
+  }
+  CUresult res = encode(map, type, rank, const_cast<void*>(base), d, st, bx, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D bf16 tensor map over [dim2][dim1][dim0] (dim0 contiguous) with
+// boxes of box1 x box0 values (box0 * 2 = 128 bytes), 128-byte swizzle;
+// reads past dim1 fill zeros. Returns a CUDA error code (0 = success).
+inline cudaError_t make_tensor_map_3d(CUtensorMap* map, const void* base, uint64_t dim0,
+                                      uint64_t dim1, uint64_t dim2, uint32_t box0,
+                                      uint32_t box1) {
+  const uint64_t dims[3] = {dim0, dim1, dim2};
+  const uint64_t strides[2] = {dim0 * 2, dim0 * dim1 * 2};  // bytes, dims 1 and 2
+  const uint32_t box[3] = {box0, box1, 1};
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -1,8 +1,8 @@
 """Split-KV decode over a contiguous or paged cache: the core that the
 decode wrappers of kernels B8, B9a and B9b share.
 
-Kernel: ``csrc/flash_decode.cu`` (one kernel and its split merge),
-replacing the Pallas kernels ``liteattention_tpu/ops/flash_fwd.py:
+Kernel: ``csrc/flash_decode.cu`` (one launch per call, the split merge
+folded in), replacing the Pallas kernels ``liteattention_tpu/ops/flash_fwd.py:
 _decode_folded_kernel`` (B8), ``ops/paged_attention.py:_paged_kernel``
 (B9a) and ``_paged_folded_kernel`` (B9b). The wrappers
 (:func:`~liteattention_torch.ops.flash_fwd.flash_attention_decode`,
@@ -10,20 +10,26 @@ _decode_folded_kernel`` (B8), ``ops/paged_attention.py:_paged_kernel``
 :func:`~liteattention_torch.ops.paged_attention.paged_attention_folded`)
 pack the q rows of each KV head as ``[B, Hk, R, D]`` with ``R = sq *
 group`` ordered (q position, group member), fold int8 scales, and hand
-this module the cache with its (page, slot, head) strides. Row ``r`` is
-q position ``r // group``; it sees key ``col`` iff ``low <= col <
-bound`` and, when causal, ``col < bound - sq + r // group + 1``
-(bottom-right aligned).
+this module the cache with the sizes and strides of its (page, slot, head)
+dims. Row ``r`` is q position ``r // group``; it sees key ``col`` iff
+``low <= col < bound`` and, when causal, ``col < bound - sq + r // group +
+1`` (bottom-right aligned).
 
-What bounds the kernel on the H100 is bytes (see the source's header);
-it splits each KV head's key range over enough CTAs to fill the two CTA
-slots of every SM and merges the splits in a second small kernel.
+What bounds the kernel on the H100 is bytes (see the source's header). Its
+work is cut on the device, with no host sync: a unit is one (b, kv head,
+16-row tile), its keys run from ``low`` to the bound of its last row in key
+tiles of ``TILE_KEYS`` aligned to absolute positions, and CTA
+``c`` of the ``grid`` takes the c-th of equal chunks of the flat sequence
+of all units' tiles (:func:`split_plan` is the same chunking in Python).
+The last piece of a split unit to finish merges the pieces; the ticket
+buffer it counts with lives here, per device and stream.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,9 +38,10 @@ from liteattention_torch.ops.combine import combine_attention
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-MIN_SPLIT_KEYS = 256  # the least keys a split gets at full capacity
-ROWS_PER_CTA = 16
-MAX_SPLITS = 64
+ROWS_PER_UNIT = 16  # q rows of a unit (one mma row tile)
+TILE_KEYS = 128  # keys per tile of the kernel's ring
+MIN_SPLIT_KEYS = 256  # the least keys a chunk holds (unless chunks would be fewer than units)
+MAX_GRID = 512  # the kernel's most CTAs (a unit's pieces are merged in shared memory)
 
 
 def pack_rows(q: torch.Tensor, hk: int) -> torch.Tensor:
@@ -67,6 +74,56 @@ def _partial(s, valid, vf):
     return out, lse
 
 
+def split_plan(
+    bound: torch.Tensor,
+    low: Optional[torch.Tensor],
+    rows: int,
+    group: int,
+    causal: bool,
+    capacity: int,
+    kv_heads: int,
+    keys_per_tile: int,
+    grid: int,
+    min_tiles: int = 1,
+) -> List[Tuple[int, int, int, List[Tuple[int, int]]]]:
+    """The kernel's split of the work: per unit (b, kv head, 16-row tile),
+    in the kernel's order, the key ranges ``[k0, k1)`` of its pieces (one
+    per chunk it meets; none for a unit with no key). Units' tiles are laid
+    end to end (pair (b, row tile) by pair, the heads of a pair in turn)
+    and cut into ``G`` equal chunks, chunk ``c`` holding tiles ``[c T / G,
+    (c + 1) T / G)``: ``G`` is ``grid`` rounded down to a whole multiple of
+    the units (``grid`` itself when the units are more), at least the units
+    and at least ``min_tiles`` tiles a chunk."""
+    bound = [int(x) for x in bound.tolist()]
+    low = [0] * len(bound) if low is None else [max(int(x), 0) for x in low.tolist()]
+    kt = keys_per_tile
+    rtiles = -(-rows // ROWS_PER_UNIT)
+    units, starts, total = [], [], 0
+    for b, (bd, lo) in enumerate(zip(bound, low)):
+        for rt in range(rtiles):
+            last = min(rows, (rt + 1) * ROWS_PER_UNIT) - 1
+            hi = min(bd - rows // group + 1 + last // group if causal else bd, capacity)
+            n = -(-hi // kt) - lo // kt if hi > lo else 0
+            for h in range(kv_heads):
+                units.append((b, h, rt, lo, hi, n))
+                starts.append(total)
+                total += n
+    n_units = len(units)
+    chunks = min(grid if n_units > grid else n_units * (grid // n_units),
+                 max(n_units, total // max(min_tiles, 1)))
+    edges = [c * total // chunks for c in range(chunks + 1)]
+    plan = []
+    for (b, h, rt, lo, hi, n), x0 in zip(units, starts):
+        pieces = []
+        for c in range(chunks):
+            a, z = max(edges[c], x0), min(edges[c + 1], x0 + n)
+            if a < z:
+                t0 = lo // kt + a - x0
+                pieces.append((max(t0 * kt, lo), min((t0 + z - a) * kt, hi)))
+        plan.append((b, h, rt, pieces))
+    return plan
+
+
 def decode_plain(
     qp: torch.Tensor,
     k: torch.Tensor,
@@ -78,11 +135,16 @@ def decode_plain(
     scale: float,
     softcap: float = 0.0,
     num_splits: int = 1,
+    grid: Optional[int] = None,
+    keys_per_tile: int = TILE_KEYS,
+    min_tiles: int = 1,
 ):
     """Plain PyTorch version of the kernel on dense ``[B, Hk, S, D]`` K/V
     (any strides; int8 values as they are): fp32 scores in log2 space,
-    exact softmax. With ``num_splits > 1`` the keys are cut into that
-    many equal chunks whose partials merge through
+    exact softmax. With ``grid`` (or ``num_splits`` n > 1: a grid of n CTAs
+    per unit, as the kernel sizes it) the keys are cut into the kernel's
+    own pieces (:func:`split_plan` with ``keys_per_tile``, ``grid`` and
+    ``min_tiles``), whose partials merge through
     :func:`~liteattention_torch.ops.combine.combine_attention`, the plain
     version of the kernel's merge. Returns (out ``[B, Hk, R, D]`` in
     ``qp``'s dtype, lse fp32 ``[B, Hk, R]``)."""
@@ -102,21 +164,31 @@ def decode_plain(
     valid = col < lim[..., None]
     if low is not None:
         valid = valid & (col >= low.to(dev).long()[:, None, None])
-    valid = valid[:, None]  # over the KV heads
+    valid = valid[:, None].expand(b, hk, rows, s_len)  # over the KV heads
     vf = v.float()
-    n = max(1, num_splits)
-    chunk = -(-s_len // n)
-    parts = [
-        _partial(s[..., i : i + chunk], valid[..., i : i + chunk], vf[:, :, i : i + chunk])
-        for i in range(0, s_len, chunk)
-    ]
-    if len(parts) == 1:
-        out, lse = parts[0]
-    else:
-        out, lse = combine_attention(
-            torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts])
-        )
-    return out.to(qp.dtype), lse
+    if grid is None and num_splits > 1:
+        grid = num_splits * b * hk * -(-rows // ROWS_PER_UNIT)
+    if grid is None:
+        out, lse = _partial(s, valid, vf)
+        return out.to(qp.dtype), lse
+    return _plan_plain(s, valid, vf, qp.dtype, split_plan(
+        bound, low, rows, group, causal, s_len, hk, keys_per_tile, grid, min_tiles))
+
+
+def _plan_plain(s, valid, vf, dtype, plan):
+    """decode_plain over the pieces of ``plan``, unit by unit."""
+    b, hk, rows, _ = s.shape
+    out = torch.zeros((b, hk, rows, vf.shape[-1]), device=s.device)
+    lse = torch.full((b, hk, rows), -math.inf, device=s.device)
+    for bi, h, rt, pieces in plan:
+        r = slice(rt * ROWS_PER_UNIT, (rt + 1) * ROWS_PER_UNIT)
+        parts = [_partial(s[bi, h, r, k0:k1], valid[bi, h, r, k0:k1], vf[bi, h, k0:k1])
+                 for k0, k1 in pieces]
+        if parts:
+            o, l = combine_attention(torch.stack([o for o, _ in parts]),
+                                     torch.stack([l for _, l in parts]))
+            out[bi, h, r], lse[bi, h, r] = o, l
+    return out.to(dtype), lse
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,20 +196,41 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def num_splits_heuristic(ctas: int, capacity: int, device: torch.device) -> int:
-    """KV splits so that the grid fills the two CTA slots of every SM in
-    one wave (rounded down: a second, partial wave would cost a whole
-    CTA's time), with at least ``MIN_SPLIT_KEYS`` keys per split at full
-    capacity, at most 64."""
-    want = 2 * _sm_count(device.index) // max(ctas, 1)
-    most = max(1, capacity // MIN_SPLIT_KEYS)
-    return max(1, min(want, most, MAX_SPLITS))
+# Per (device, stream): the tickets (int32, zero between launches: the
+# kernel puts each back) and the pieces' scratch of the last launch's size.
+_WORKSPACE = {}
+
+
+def _workspace(dev: torch.device, stream: int, units: int, slots: int, d: int):
+    key = (dev.index, stream)
+    tickets, parts = _WORKSPACE.get(key, (None, None))
+    if tickets is None or tickets.numel() < units:
+        tickets = torch.zeros(max(units, 1024), dtype=torch.int32, device=dev)
+    need = slots * ROWS_PER_UNIT * (d + 1)
+    if parts is None or parts.numel() < need:
+        parts = torch.empty(need, dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = (tickets, parts)
+    n_o = slots * ROWS_PER_UNIT * d
+    return tickets, parts[:n_o], parts[n_o:need]
+
+
+def _map_dims(sizes: Sequence[int], strides: Sequence[int]):
+    """The cache's (page, slot, head) dims as the kernel's tensor map takes
+    them: sizes and element strides in increasing stride (a dim of size 1
+    last, given a stride past the others), and where slot, head and page
+    sit among them (2 bits each, dims 1-3)."""
+    kinds = sorted(range(3), key=lambda i: (sizes[i] == 1, strides[i]))
+    span = max(sz * st for sz, st in zip(sizes, strides))
+    st = [strides[i] if sizes[i] > 1 else span for i in kinds]
+    pos = {kind: n + 1 for n, kind in enumerate(kinds)}
+    return [sizes[i] for i in kinds], st, pos[1] | pos[2] << 2 | pos[0] << 4
 
 
 def launch_decode(
     qp: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
+    k_sizes: Sequence[int],
     k_strides: Sequence[int],
     v_strides: Sequence[int],
     bound: torch.Tensor,
@@ -153,10 +246,15 @@ def launch_decode(
     page_size: int = 0,
 ):
     """Launch the kernel on packed rows ``qp`` ``[B, Hk, R, D]`` (bf16)
-    against the cache at ``k``/``v`` with element strides (page or batch,
-    slot or position, head) and a unit channel stride. ``num_splits`` 0
-    or 1 takes the heuristic. Returns (out bf16 ``[B, Hk, R, D]``, lse
-    fp32 ``[B, Hk, R]``, whether the merge kernel ran)."""
+    against the cache at ``k``/``v``, whose (page or batch, slot or
+    position, head) dims have sizes ``k_sizes`` and element strides
+    ``k_strides`` / ``v_strides``, with a unit channel stride. With
+    ``num_splits`` 0 or 1 the grid is one CTA per SM, and the work is cut
+    into as many chunks as whole multiples of the units fit (at least one
+    chunk per unit, chunks of at least ``MIN_SPLIT_KEYS`` keys);
+    ``num_splits`` n > 1 sizes the grid at n CTAs per unit (at most
+    ``MAX_GRID``), chunks of one tile or more. Adds no host sync. Returns (out bf16
+    ``[B, Hk, R, D]``, lse fp32 ``[B, Hk, R]``)."""
     dev = qp.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -169,43 +267,49 @@ def launch_decode(
         raise ValueError(f"head dim {d} not built (64 or 128)")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the caches need a unit channel stride")
-    if any(s * k.element_size() % 16 for s in (*k_strides, *v_strides)):
-        raise ValueError("cache rows must start on 16-byte boundaries")
-    if b * hk > 65535:
-        raise ValueError("batch * kv heads above 65535")
+    el = k.element_size()
+    kt = TILE_KEYS
+    if capacity // kt >= 1 << 16:
+        raise ValueError(f"a cache of {capacity} keys: the kernel counts a unit's tiles in 16 bits")
+    if page_size and math.gcd(page_size, kt) < 8:
+        raise ValueError(f"pages of {page_size} keys: the kernel's TMA boxes need a multiple of 8")
+    k_n, k_st, k_dims = _map_dims(k_sizes, k_strides)
+    v_n, v_st, v_dims = _map_dims(k_sizes, v_strides)
+    if any(x * el % 16 for x in (*k_st, *v_st)) or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("TMA needs 16-byte aligned cache bases and strides")
     qp = qp.contiguous()
-    _build.check_aligned(qp, k, v)
+    _build.check_aligned(qp)
     i32 = dict(device=dev, dtype=torch.int32)
     bound = bound.to(**i32).contiguous()
     low = None if low is None else low.to(**i32).contiguous()
     table = None if table is None else table.to(**i32).contiguous()
-    ctas = b * hk * -(-rows // ROWS_PER_CTA)
-    splits = num_splits if num_splits > 1 else num_splits_heuristic(ctas, capacity, dev)
+    units = b * hk * -(-rows // ROWS_PER_UNIT)
+    if num_splits > 1:
+        grid, min_tiles = min(num_splits * units, MAX_GRID), 1
+    else:
+        grid, min_tiles = _sm_count(dev.index), max(1, MIN_SPLIT_KEYS // kt)  # one CTA per SM
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets, o_part, lse_part = _workspace(dev, stream, units, units + grid, d)
     out = torch.empty_like(qp)
     lse = torch.empty((b, hk, rows), dtype=torch.float32, device=dev)
-    o_part = lse_part = None
-    if splits > 1:
-        o_part = torch.empty((splits, b, hk, rows, d), dtype=torch.float32, device=dev)
-        lse_part = torch.empty((splits, b, hk, rows), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = _build.load_kernels().lite_flash_decode(
         qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(table), bound.data_ptr(),
-        ptr(low), out.data_ptr(), lse.data_ptr(), ptr(o_part), ptr(lse_part),
-        *(int(s) for s in k_strides), *(int(s) for s in v_strides),
+        ptr(low), out.data_ptr(), lse.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
+        tickets.data_ptr(), *k_n, *k_st, k_dims, *v_n, *v_st, v_dims,
         b, hk, rows, group, d, capacity,
-        0 if table is None else table.shape[1], page_size,
-        int(causal), 1 - rows // group, splits, int(k.dtype == torch.int8),
-        float(scale), float(softcap), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        0 if table is None else table.shape[1], page_size, int(k_sizes[0]),
+        int(causal), 1 - rows // group, grid, min_tiles, int(k.dtype == torch.int8),
+        float(scale), float(softcap), dev.index, stream,
     )
     _build.check(err, "flash_decode")
-    return out, lse, splits > 1
+    return out, lse
 
 
 __all__ = [
     "decode_plain",
     "launch_decode",
-    "num_splits_heuristic",
     "pack_rows",
+    "split_plan",
     "unpack_rows",
 ]

@@ -338,15 +338,12 @@ def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
             group, causal, scale, softcap, num_splits,
         )
     else:
-        strides = (k_cache.stride(0), k_cache.stride(1), k_cache.stride(2))
-        o, lse, merged = launch_decode(
-            qp, k_cache, v_cache, strides,
-            (v_cache.stride(0), v_cache.stride(1), v_cache.stride(2)), kv_bound, kv_low,
-            group=group, causal=causal, scale=scale, softcap=softcap,
+        o, lse = launch_decode(
+            qp, k_cache, v_cache, (b, s_max, hk), k_cache.stride()[:3], v_cache.stride()[:3],
+            kv_bound, kv_low, group=group, causal=causal, scale=scale, softcap=softcap,
             num_splits=num_splits, capacity=s_max,
         )
         flash_attention_decode.launches += 1
-        flash_attention_decode.merge_launches += int(merged)
     if v_scale is not None:
         o = (o.float() * v_scale[:, :, None, :]).to(o.dtype)
     return unpack_rows(o, lse, h, sq)
@@ -385,10 +382,11 @@ def flash_attention_decode(
 
     Port extensions: ``causal`` adds bottom-right causality per q
     position (row ``qi`` sees ``col < bound - Sq + qi + 1``), used by
-    ``flash_attn_with_kvcache`` for appends; ``num_splits`` forces that
-    many KV splits on the card (0 or 1: the kernel's heuristic). The JAX
-    function's TPU knobs (``block_sizes``, ``interpret``, ``folded``)
-    have no counterpart.
+    ``flash_attn_with_kvcache`` for appends; ``num_splits`` n > 1 sizes
+    the kernel's grid at n CTAs per (b, KV head, 16-row tile), about n
+    splits each at uniform lengths (0 or 1: one CTA per SM, the splits
+    balanced over the keys present). The JAX function's TPU knobs
+    (``block_sizes``, ``interpret``, ``folded``) have no counterpart.
 
     Returns ``(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32)``. A
     row with no valid key gives out 0 and lse -inf. The wrapper runs the
@@ -404,14 +402,14 @@ def flash_attention_decode_plain(
     k_scale=None, v_scale=None, int8_mma=False, causal=False, num_splits=0,
 ):
     """Plain PyTorch version of :func:`flash_attention_decode` on any
-    device (fp32 scores, exact softmax; ``num_splits > 1`` merges equal
-    key chunks through ``combine_attention``)."""
+    device (fp32 scores, exact softmax; ``num_splits > 1`` cuts the keys
+    into the kernel's pieces at that grid and merges them through
+    ``combine_attention``)."""
     return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
                    v_scale, int8_mma, causal, num_splits, plain=True)
 
 
 flash_attention_decode.launches = 0
-flash_attention_decode.merge_launches = 0
 
 __all__ = [
     "flash_attention",

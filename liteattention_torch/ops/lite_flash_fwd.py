@@ -19,13 +19,19 @@ in its three schedule modes:
   schedule lists compute tiles, dead fine tiles inside them are skipped,
   and every live fine tile votes on its own.
 
-Kernels: ``csrc/lite_flash_fwd.cu`` + ``csrc/attention_fwd.cuh``. One CTA
-per (b, h, 128-row q-tile) walks its schedule row, so a skipped tile costs
-no load and no math; a coarse row of ``block_q = 128 * qsub`` rows is
-walked by its ``qsub`` CTAs, which AND their coarse votes with atomics.
-What bounds them on the H100: tensor-core issue on the visited tiles, as
-for the dense kernel they share their mainloop with; the vote adds one
-row-max compare per tile and one CTA-wide OR (a barrier) per visited tile.
+Kernels: the gather walk (B3, B5) is the dense kernel B1 itself,
+``csrc/flash_fwd.cu:flash_fwd_kernel`` (two wgmma warpgroups fed by TMA
+through a three-stage mbarrier ring) walking the row's live-tile list,
+entry ``lite_flash_fwd_gather``; the coarse walks (B4) are
+``csrc/lite_flash_fwd.cu`` + ``csrc/attention_fwd.cuh`` (mma.sync). One
+CTA per (b, h, 128-row q-tile) -- or ``fold_h`` heads in turn -- walks its
+schedule row, so a skipped tile costs no load and no math; a coarse row of
+``block_q = 128 * qsub`` rows is walked by its ``qsub`` CTAs, which AND
+their coarse votes with atomics. What bounds them on the H100:
+tensor-core issue on the visited tiles. The gather vote adds one row-max
+compare per tile and, per warp with a passing row, one store of 0 into the
+votes the wrapper fills with 1 (no barrier); the coarse vote one CTA-wide
+OR per visited tile.
 
 Vote contract (kept exactly from the JAX kernels):
 

@@ -139,9 +139,9 @@ def _plain(c: _Call):
 
 def _num_splits(ctas: int, capacity: int, device: torch.device) -> int:
     """KV splits per request: about four waves of the grid at full capacity
-    (a CTA takes a whole SM here, against two for the decode kernel's
-    ``num_splits_heuristic``, and ragged lengths leave the splits past a
-    request's end empty), with at least 512 keys per split."""
+    (a CTA takes a whole SM here, against two for the decode kernel of
+    B8/B9, and ragged lengths leave the splits past a request's end
+    empty), with at least 512 keys per split."""
     want = -(-4 * _sm_count(device.index) // max(ctas, 1))
     return max(1, min(want, max(1, capacity // 512)))
 

@@ -12,11 +12,11 @@ lives in fixed-size pages and each sequence owns a row of a page table.
 Both launch the split-KV decode kernel of
 :mod:`liteattention_torch.ops.flash_decode` with the page table and the
 pools' strides: the pool is read in place, never transposed or copied,
-and pages of any size (not only multiples of the kernel's 64-key tile)
-are followed row by row. The q rows of each KV head are packed (q
-position, group member), so appends and paged prefill keep bottom-right
-causality per q position (``causal``: q row ``i`` sees positions
-``< length - Sq + i + 1``). ``pages_per_step`` (a TPU DMA batching knob)
+one TMA box per page where pages are smaller than the kernel's key tile
+(pages of a multiple of 8 keys; others raise on the card). The q rows of
+each KV head are packed (q position, group member), so appends and paged
+prefill keep bottom-right causality per q position (``causal``: q row
+``i`` sees positions ``< length - Sq + i + 1``). ``pages_per_step`` (a TPU DMA batching knob)
 is accepted and ignored; ``int8_mma`` is not ported and raises.
 
 Each wrapper runs its plain PyTorch version (the pages gathered into a
@@ -43,7 +43,7 @@ def _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal, return_lse
         strides = lambda x: (x.stride(1), x.stride(2), x.stride(0))  # noqa: E731
     else:
         num_pages, page_size, hk, _ = k_pages.shape
-        strides = lambda x: (x.stride(0), x.stride(1), x.stride(2))  # noqa: E731
+        strides = lambda x: x.stride()[:3]  # noqa: E731
     if v_pages.shape != k_pages.shape or hq % hk or k_pages.shape[-1] != d:
         raise ValueError(f"incompatible shapes {q.shape} / {k_pages.shape} / {v_pages.shape}")
     group = hq // hk
@@ -68,14 +68,13 @@ def _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal, return_lse
         o, lse = decode_plain(qp, dense(k_pages), dense(v_pages), lengths, None, group,
                               causal, scale, 0.0, num_splits)
     else:
-        o, lse, merged = launch_decode(
-            qp, k_pages, v_pages, strides(k_pages), strides(v_pages), lengths, None,
-            group=group, causal=causal, scale=scale, softcap=0.0,
-            num_splits=num_splits, capacity=page_indices.shape[1] * page_size,
+        o, lse = launch_decode(
+            qp, k_pages, v_pages, (num_pages, page_size, hk), strides(k_pages),
+            strides(v_pages), lengths, None, group=group, causal=causal, scale=scale,
+            softcap=0.0, num_splits=num_splits, capacity=page_indices.shape[1] * page_size,
             table=page_indices, page_size=page_size,
         )
         counter.launches += 1
-        counter.merge_launches += int(merged)
     if v_scale is not None:
         o = (o.float() * v_scale[None, :, None, :]).to(o.dtype)
     out = o.reshape(b, hk, sq, group, d).transpose(1, 2).reshape(b, sq, hq, d)
@@ -146,7 +145,8 @@ def paged_attention_folded(
     before the kernel and the output by ``v_scale`` after it.
     ``pages_per_step`` is a TPU DMA knob, accepted and ignored;
     ``int8_mma`` raises (not ported, ROADMAP B9). ``num_splits``: KV
-    splits on the card (0 or 1: the kernel's heuristic).
+    splits on the card (n > 1: n CTAs per unit; 0 or 1: one CTA per SM,
+    balanced over the keys present).
     """
     del pages_per_step
     if int8_mma:
@@ -170,9 +170,7 @@ def paged_attention_folded_plain(q, k_pages, v_pages, lengths, page_indices, sca
 
 
 paged_attention.launches = 0
-paged_attention.merge_launches = 0
 paged_attention_folded.launches = 0
-paged_attention_folded.merge_launches = 0
 
 __all__ = [
     "paged_attention",

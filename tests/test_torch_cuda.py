@@ -471,6 +471,126 @@ def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
     assert (lse - rl).abs().max().item() < 1e-3
 
 
+# (int8, causal, grid): ragged lengths with an empty row, a row shorter than
+# one key tile and a full one; the grid at one CTA per SM (0) or
+# forced to 3 CTAs per unit, so units are split and merged in the kernel.
+@pytest.mark.parametrize("int8,causal,splits", [
+    (False, False, 0), (True, False, 0), (False, True, 3), (True, True, 3),
+])
+def test_flash_decode_ragged_one_launch(dev, int8, causal, splits):
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache
+
+    b, h, hk, sq, s_max, d = 6, 16, 4, 2 if causal else 1, 2048, 128
+    g = torch.Generator(device=dev).manual_seed(11 + int8)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+    kc = torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
+    vc = torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
+    # Rows past a request's bound hold NaN: they must never reach the output.
+    bound = torch.tensor([s_max, 0, 37, 1500, 64, 700], dtype=torch.int32, device=dev)
+    for i, n in enumerate(bound.tolist()):
+        kc[i, n:] = float("nan")
+        vc[i, n:] = float("nan")
+    kw = dict(kv_bound=bound, causal=causal)
+    if int8:
+        cache = quantize_kv_cache(kc.nan_to_num(0.0), vc.nan_to_num(0.0))
+        kc, vc = cache.k, cache.v
+        kw.update(k_scale=cache.k_scale, v_scale=cache.v_scale)
+    n0 = flash_attention_decode.launches
+    out, lse = flash_attention_decode(q, kc, vc, num_splits=splits, **kw)
+    again = flash_attention_decode(q, kc, vc, num_splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_decode.launches == n0 + 2  # one launch a call, the merge inside
+    # The tickets were put back: a second call gives the same bits.
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ro, rl = flash_attention_decode_plain(q, kc.nan_to_num(0.0) if not int8 else kc,
+                                          vc.nan_to_num(0.0) if not int8 else vc, **kw)
+    assert torch.isfinite(out).all()
+    assert not torch.isfinite(rl[1]).any() and out[1].abs().max().item() == 0.0
+    _check_decode(out, lse, ro, rl)
+
+
+def test_paged_decode_small_pages_and_raises(dev):
+    # Pages of 8 keys: one TMA box per page, 8 (bf16) or 16 (int8) a tile;
+    # a page of 12 keys cannot be cut into 8-row boxes and raises.
+    from liteattention_torch.ops.kv_quant import quantize_kv_pages
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention_folded,
+        paged_attention_folded_plain,
+    )
+
+    b, hk, group, d, pps = 3, 2, 4, 128, 40
+    g = torch.Generator(device=dev).manual_seed(12)
+    for page_size, int8 in ((8, False), (8, True), (24, False)):
+        n_pages = b * pps + 5
+        q = torch.randn(b, 1, hk * group, d, generator=g, device=dev).bfloat16()
+        kp = torch.randn(n_pages, page_size, hk, d, generator=g, device=dev).bfloat16()
+        vp = torch.randn(n_pages, page_size, hk, d, generator=g, device=dev).bfloat16()
+        table = torch.randperm(n_pages, generator=g, device=dev)[: b * pps].reshape(b, pps).int()
+        lengths = torch.tensor([pps * page_size, 5, 0], dtype=torch.int32, device=dev)
+        kw = dict(return_lse=True)
+        if int8:
+            pool = quantize_kv_pages(kp, vp)
+            kp, vp = pool.k, pool.v
+            kw.update(k_scale=pool.k_scale, v_scale=pool.v_scale)
+        out, lse = paged_attention_folded(q, kp, vp, lengths, table, **kw)
+        ro, rl = paged_attention_folded_plain(q, kp, vp, lengths, table, **kw)
+        torch.cuda.synchronize()
+        assert (out.float() - ro.float()).abs().max().item() < 2e-2
+        fin = torch.isfinite(rl)
+        assert torch.equal(fin, torch.isfinite(lse)) and not fin[2].any()
+        assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    kp = torch.randn(b * pps, 12, hk, d, device=dev).bfloat16()
+    table = torch.arange(b * pps, device=dev).reshape(b, pps).int()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention_folded(q, kp, kp, lengths, table)
+
+
+@pytest.mark.parametrize("gsize", [1, 2])
+def test_lite_fwd_kernel_dead_row_and_compacted(dev, gsize):
+    # B3 on B1's mainloop: a row with no live tile (out 0, lse -inf), vote
+    # steps of gsize entries, loads from the union-compacted K/V at cidx
+    # (bit for bit as from K/V), and B5 at fold 2 and 4 equal to B3.
+    from liteattention_torch.ops.kv_compact import compact_kv, kv_union_map
+
+    q, k, v = _qkv(dev, 1, 8, 2, 640, 1024, 128, seed=20 + gsize)
+    g = torch.Generator(device=dev).manual_seed(21)
+    m = torch.rand(1, 8, 5, 8, generator=g, device=dev) < 0.5
+    m[..., :, 6:] = False  # a sparse union, so the compacted buffer is shorter
+    m[..., 0] = True
+    m[0, 3, 2] = False  # dead row
+    fidx, count = pack_schedule(m)
+    bs = BlockSizes(128, 128 * gsize)
+    head = vote_headroom(q, k, fidx, count, gsize=gsize)
+    valid = torch.arange(8, device=dev) < count[..., None]
+    thr = head[valid & (head > -1e30)].median().item()
+    ro, rl, rv = lite_flash_attention_plain(q, k, v, fidx, count, thr, m, gsize=gsize)
+    out, lse, votes = lite_flash_attention(q, k, v, fidx, count, thr, m, block_sizes=bs)
+    torch.cuda.synchronize()
+    assert (out.float() - ro.float()).abs().max().item() < 2e-2
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse)) and not fin[0, 3, 256:384].any()
+    assert out[0, 3, 256:384].abs().max().item() == 0.0
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    margin = torch.where(valid, (head - thr).abs(), torch.full_like(head, float("inf")))
+    fine_margin = torch.full(m.shape, float("inf"), device=dev)
+    fine_margin.scatter_reduce_(-1, fidx.long(), margin, reduce="amin")
+    assert not ((votes != rv) & (fine_margin >= 1e-3)).any()
+    kv_map, inv, _ = kv_union_map(m, hk=2)
+    kc, vc = compact_kv(k, v, inv)
+    fidx_c, count_c, cidx = pack_schedule(m, kv_map)
+    base = (out, lse, votes)
+    for fold in (None, 2, 4):
+        got = lite_flash_attention(q, kc, vc, fidx_c, count_c, thr, m, block_sizes=bs,
+                                   cidx=cidx, fold_h=fold)
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+        got = lite_flash_attention(q, k, v, fidx, count, thr, m, block_sizes=bs, fold_h=fold)
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+
+
 def test_entry_points_default_to_the_card(dev):
     from liteattention_torch.layers.rotary import rotary_freqs
     from liteattention_torch.models import GPTConfig, GPTLMHeadModel, WanConfig, WanModel

@@ -7,7 +7,11 @@ Inputs are fp32 numpy arrays from a seed. Tolerance: 2e-5 absolute on
 outputs and lse (O(1) values; the two differ in summation order only:
 one exact softmax against an online softmax over chunks or pages); the
 int8 paths compare the same int8 values and scales, so the same bound
-holds. Rows with no valid key give out 0 and lse -inf in both.
+holds. Rows with no valid key give out 0 and lse -inf in both. The
+kernel's own split of the work (``split_plan``: units' key tiles end to
+end, cut into equal chunks over its grid) and merge, in ``decode_plain(
+grid=...)``, are held against the same references and against the
+unsplit plain result.
 """
 
 import numpy as np
@@ -26,6 +30,12 @@ from liteattention_tpu.ops.paged_attention import (  # noqa: E402
     paged_attention_folded as jpaged_folded,
 )
 from liteattention_torch.ops.combine import combine_attention  # noqa: E402
+from liteattention_torch.ops.flash_decode import (  # noqa: E402
+    decode_plain,
+    pack_rows,
+    split_plan,
+    unpack_rows,
+)
 from liteattention_torch.ops.flash_fwd import flash_attention_decode  # noqa: E402
 from liteattention_torch.ops.kv_quant import quantize_kv_cache, quantize_kv_pages  # noqa: E402
 from liteattention_torch.ops.paged_attention import (  # noqa: E402
@@ -187,3 +197,99 @@ def test_combine_attention_matches_jax():
     _close(po, jo)
     _close(pl, jl)
     assert po[0, 1, 2].abs().max() == 0
+
+
+# (group, d, sq, keys per tile, grid, min tiles): the kernel's 128-key tiles
+# and 64- and 256-key ones, grids from one chunk to more chunks than tiles,
+# the default's 2-tile floor and a multi-row-tile unit (sq 5 x group 4 = 20
+# rows).
+SPLIT_CASES = [
+    (4, 128, 1, 128, 7, 1),
+    (4, 128, 1, 128, 132, 2),
+    (1, 64, 1, 256, 3, 1),
+    (8, 64, 1, 128, 1, 1),
+    (4, 64, 5, 64, 11, 1),
+    (2, 128, 2, 256, 40, 1),
+]
+
+
+def _split_inputs(rng, group, d, sq, b=5, hk=2, s=700):
+    q = _rand(rng, b, hk * group, sq, d)
+    k, v = _rand(rng, b, s, hk, d), _rand(rng, b, s, hk, d)
+    # A full row, an empty one, one shorter than a tile, two ragged ones.
+    bound = np.array([s, 0, 37, 650, 400], np.int32)
+    low = np.array([0, 0, 3, 70, 129], np.int32)
+    return q, k, v, bound, low
+
+
+@pytest.mark.parametrize("group,d,sq,kt,grid,min_tiles", SPLIT_CASES)
+def test_split_plan_matches_jax_and_unsplit(group, d, sq, kt, grid, min_tiles):
+    rng = np.random.RandomState(group * d + kt + grid)
+    q, k, v, bound, low = _split_inputs(rng, group, d, sq)
+    hk, s = k.shape[2], k.shape[1]
+    qp = pack_rows(t(q), hk)
+    kh, vh = t(k).transpose(1, 2), t(v).transpose(1, 2)
+    scale = d**-0.5
+    args = (qp, kh, vh, t(bound), t(low), group, False, scale)
+    so, sl = decode_plain(*args, grid=grid, keys_per_tile=kt, min_tiles=min_tiles)
+    uo, ul = decode_plain(*args)
+    np.testing.assert_allclose(so.numpy(), uo.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_array_equal(np.isfinite(sl.numpy()), np.isfinite(ul.numpy()))
+    fin = np.isfinite(ul.numpy())
+    np.testing.assert_allclose(sl.numpy()[fin], ul.numpy()[fin], atol=TOL, rtol=0)
+    jo, jl = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_bound=jnp.asarray(bound),
+                     kv_low=jnp.asarray(low), interpret=True)
+    po, pl = unpack_rows(so, sl, hk * group, sq)
+    _close(po, jo)
+    _close(pl, jl)
+    plan = split_plan(t(bound), t(low), qp.shape[2], group, False, s, hk, kt, grid, min_tiles)
+    rtiles = -(-qp.shape[2] // 16)
+    assert len(plan) == q.shape[0] * hk * rtiles
+    # The empty row has no piece; the pieces of a unit tile its keys.
+    for bi, h, rt, pieces in plan:
+        if bound[bi] <= low[bi]:
+            assert pieces == []
+        else:
+            assert pieces[0][0] == low[bi] and pieces[-1][1] == bound[bi]
+            assert all(a[1] == b_[0] for a, b_ in zip(pieces, pieces[1:]))
+    if grid > 1:
+        assert any(len(pieces) > 1 for *_, pieces in plan)
+
+
+@pytest.mark.parametrize("psz,grid", [(16, 9), (64, 132)])
+def test_split_plan_paged_matches_jax(psz, grid):
+    # The chunking over a page table's dense view against JAX's paged
+    # kernels (head-major pools), causal append rows included.
+    rng = np.random.RandomState(psz + grid)
+    b, hk, pps, group, sq, d = 4, 2, 8, 4, 2, 64
+    kp, vp, table = _pages(rng, b * pps + 3, psz, hk, d, b, pps)
+    q = _rand(rng, b, sq, hk * group, d)
+    lengths = np.array([pps * psz, sq, psz // 2 + sq, 3 * psz + 5], np.int32)
+    kh = np.ascontiguousarray(kp.transpose(2, 0, 1, 3))
+    vh = np.ascontiguousarray(vp.transpose(2, 0, 1, 3))
+    jo, jl = jpaged(jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh), jnp.asarray(lengths),
+                    jnp.asarray(table), return_lse=True, interpret=True)
+    tbl = t(table).long()
+    dense = lambda x: t(x)[tbl].reshape(b, pps * psz, hk, d).transpose(1, 2)  # noqa: E731
+    qp = pack_rows(t(q).transpose(1, 2), hk)
+    so, sl = decode_plain(qp, dense(kp), dense(vp), t(lengths), None, group, True, d**-0.5,
+                          grid=grid, keys_per_tile=128, min_tiles=1)
+    po, pl = unpack_rows(so, sl, hk * group, sq)
+    _close(po.transpose(1, 2), jo)
+    _close(pl, jl)
+
+
+def test_split_plan_causal_rows_match_unsplit():
+    # Bottom-right causal rows (a port extension): the chunking of rows
+    # whose limits differ within a 16-row tile, against the unsplit result.
+    rng = np.random.RandomState(31)
+    q, k, v, bound, low = _split_inputs(rng, 4, 64, 6)
+    qp = pack_rows(t(q), 2)
+    args = (qp, t(k).transpose(1, 2), t(v).transpose(1, 2), t(bound), t(low), 4, True, 0.125)
+    uo, ul = decode_plain(*args)
+    for grid in (2, 13, 300):
+        so, sl = decode_plain(*args, grid=grid, keys_per_tile=128)
+        np.testing.assert_allclose(so.numpy(), uo.numpy(), atol=TOL, rtol=0)
+        fin = np.isfinite(ul.numpy())
+        np.testing.assert_array_equal(np.isfinite(sl.numpy()), fin)
+        np.testing.assert_allclose(sl.numpy()[fin], ul.numpy()[fin], atol=TOL, rtol=0)
