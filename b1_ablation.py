@@ -42,7 +42,9 @@ TURN_FIRST = "    if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);\n
 FULL_WAIT = "      sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);\n"
 SOFTMAX = """      tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                            alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
-                             if constexpr (VOTES) {
+                             if constexpr (COARSE) {
+                               coarse_vote(at, mx_lo, mx_hi);
+                             } else if constexpr (VOTES) {
                                // Some valid row of this warp passes: the tile is kept.
                                // Bitwise, not short-circuit: no branch on the way.
                                const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |

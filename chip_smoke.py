@@ -84,7 +84,9 @@ Phases (any failure exits non-zero and prints no result line):
    contiguous cache, which must equal the 576 one -- each against
    ``mla_decode_plain`` by rel-L2 over the outputs and over each request;
    a causal Sq 2 x Hq 32 step with a request of length 0 (out 0, lse
-   -inf); (b) ``flash_attn_func`` at the prefill shape, 2 prompts x 4096
+   -inf); the run must launch B10 once a call and, as torch.profiler
+   counts the kernels of its decode calls, no merge kernel (the split
+   merge runs inside the launch); (b) ``flash_attn_func`` at the prefill shape, 2 prompts x 4096
    tokens x 128 heads at (q/k 192, v 128), causal (B1's MLA
    instantiation), against its plain version over all heads, and the
    (576, 512) and (64, 512) + qv shapes at a small size; (c) the two
@@ -98,10 +100,11 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
     python3 chip_smoke.py --ab DIR [REPS]
 
-times B1 (at four shapes), B3, B5, the decode kernel (B8 full and ragged,
-bf16 and int8, B9b paged) and the backward B7 of the checkout at DIR
-instead (see ``ab_times``): to compare two checkouts on one card, run it
-for each in turns in one job.
+times B1 (at four shapes), B3, B4 (coarse and super-tile), B5, the decode
+kernel (B8 full and ragged, bf16 and int8, B9b paged), the MLA decode B10
+(ragged permuted pages and full lengths, beside SDPA) and the backward B7
+of the checkout at DIR instead (see ``ab_times``): to compare two
+checkouts on one card, run it for each in turns in one job.
 """
 
 from __future__ import annotations
@@ -210,11 +213,13 @@ def device_ms(fn, reps=20, names=()):
     CUDA kernel the call launches, those whose name holds one of
     ``names``, the timer). For calls whose host side outlasts their device
     work, where CUDA events would time the host. The timer is
-    ``"profiler"`` (torch.profiler). A profile that recorded no device
-    time (seen on an H100 under torch 2.11, midway through a run; cause
-    not found) is taken again, up to three times; then CUDA events behind
-    a busy wait time the whole call (``queued_ms``), the named kernels'
-    share is not measured (None) and the timer is ``"queued_events"``."""
+    ``"profiler"`` (torch.profiler). A profile that recorded fewer
+    launches than calls (of the named kernels, where names are given) is
+    taken again, up to three times (seen on an H100 under torch 2.11: no
+    device time at all midway through a run, or one call's worth of
+    twenty; cause not found); then CUDA events behind a busy wait time
+    the whole call (``queued_ms``), the named kernels' share is not
+    measured (None) and the timer is ``"queued_events"``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,15 +231,20 @@ def device_ms(fn, reps=20, names=()):
                 fn()
             torch.cuda.synchronize()
         total = picked = 0.0
+        launches = picked_launches = 0
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
                 e, "is_user_annotation", False
             ):
+                named = any(n in e.key for n in names)
                 total += e.self_device_time_total / 1e3
-                picked += e.self_device_time_total / 1e3 if any(n in e.key for n in names) else 0.0
-        if total > 0:
+                picked += e.self_device_time_total / 1e3 if named else 0.0
+                launches += e.count
+                picked_launches += e.count if named else 0
+        if total > 0 and (picked_launches if names else launches) >= reps:
             return total / reps, picked / reps, "profiler"
-    log("  torch.profiler recorded no device time in 3 tries: CUDA events behind a busy wait")
+    log("  torch.profiler recorded fewer launches than calls in 3 tries: CUDA events behind a "
+        "busy wait")
     return queued_ms(fn, reps), None, "queued_events"
 
 
@@ -317,8 +327,7 @@ def kernel_wrappers():
     """Every kernel entry of the port, by its name in the kernels line: the
     wrapper and the attribute that counts its launches (the lite wrapper
     counts B3, B5 and B4 apart, flash_attention B1 and its MLA
-    instantiation); the MLA decode wrapper also counts the launches of its
-    split-merge kernel (B8/B9's merge runs inside their one launch)."""
+    instantiation)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -347,17 +356,25 @@ def reset_counts():
     counted run)."""
     for fn, attr in kernel_wrappers().values():
         setattr(fn, attr, 0)
-        if hasattr(fn, "merge_launches"):
-            fn.merge_launches = 0
 
 
 def read_counts():
-    """Every wrapper's launch count, and the merge launches of those
-    that merge (just after a path's counted run)."""
-    wrappers = kernel_wrappers()
-    return ({name: getattr(fn, attr) for name, (fn, attr) in wrappers.items()},
-            {name: fn.merge_launches for name, (fn, _) in wrappers.items()
-             if hasattr(fn, "merge_launches")})
+    """Every wrapper's launch count (just after a path's counted run)."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_wrappers().items()}
+
+
+def kernel_launches(fn):
+    """``fn()`` under torch.profiler: (its result, {CUDA kernel name:
+    launches recorded})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ret = fn()
+        torch.cuda.synchronize()
+    return ret, {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -826,8 +843,8 @@ def slice_phase(dev, card, full, grid):
     _, sp_c2, ms_c2 = run("c2: lite, thresholds 0, 0, 1, 1", thresholds=[0.0, 0.0, 1.0, 1.0])
     check(all(a <= b for a, b in zip(sp_c2, sp_c2[1:])), "sparsity not monotone")
     counts = read_counts()
-    log(f"  launches during the slice: {counts[0]}; merge launches {counts[1]}")
-    check(all(counts[0][n] > 0 for n in ("flash_fwd", "schedule_pack", "lite_flash_fwd")),
+    log(f"  launches during the slice: {counts}")
+    check(all(counts[n] > 0 for n in ("flash_fwd", "schedule_pack", "lite_flash_fwd")),
           "a kernel of the path never launched")
     log(f"  ms/step [{card}]: (a) {ms_a:.1f}, (b) {ms_b:.1f}, (c1) {ms_c1:.1f}, "
         f"(c2) {ms_c2:.1f}")
@@ -904,9 +921,8 @@ def train_phase(dev, card):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     trainer = train_cli.run(argv, log_fn=recs.append)
-    counts = read_counts()
-    launches = counts[0]
-    log(f"  launches during the training run: {launches}; merge launches {counts[1]}")
+    counts = launches = read_counts()
+    log(f"  launches during the training run: {launches}")
     want = cfg.num_layers * GPT_STEPS
     # B7a and B7b are one kernel now: both names read its launches.
     check(all(launches[n] == want for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
@@ -942,7 +958,7 @@ def train_phase(dev, card):
         and not getattr(e, "is_user_annotation", False)
     }
     busy = sum(kern.values())
-    attn = sum(t for k, t in kern.items() if "attention_fwd_kernel" in k or "lite::bwd::" in k)
+    attn = sum(t for k, t in kern.items() if "lite::fwd::" in k or "lite::bwd::" in k)
     # Model FLOPs of a step: 6 N per token for the matmuls with the
     # parameters, 6 L S d per token for causal attention (half of 12 L S d).
     flops = 6 * n_params * tokens + 6 * cfg.num_layers * GPT_SEQ * cfg.dim * tokens
@@ -1430,10 +1446,9 @@ def serve_phase(dev, card):
                                      speculative_lookahead=SPEC_LOOKAHEAD, return_stats=True)
     api_out = run_api(api)
     torch.cuda.synchronize()
-    counts = read_counts()
-    launches, merges = counts
+    counts = launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  launches during the serving run: {launches}; merge launches {merges}")
+    log(f"  launches during the serving run: {launches}")
     want = 2 * cfg.num_layers * n_decode
     check(launches["flash_decode"] >= want,
           f"serving: expected at least {want} decode-kernel launches (one per layer per step)")
@@ -1742,8 +1757,8 @@ def engine_phase(dev, full, card):
              for i, sl_ in enumerate((slice(0, half), slice(half, None)))]
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"  launches during the engine run: {counts[0]}")
-    check(all(counts[0][n] > 0 for n in ("schedule_pack", "lite_flash_fwd", "lite_flash_fwd_coarse",
+    log(f"  launches during the engine run: {counts}")
+    check(all(counts[n] > 0 for n in ("schedule_pack", "lite_flash_fwd", "lite_flash_fwd_coarse",
                                          "lite_flash_fwd_hfold", "kv_compact")),
           "engine: a kernel of the path never launched")
 
@@ -1887,6 +1902,8 @@ MLA_PREFILL_BATCH, MLA_PREFILL_SEQ, MLA_QK, MLA_V = 2, 4096, 192, 128
 # every (b, h, 128-row block).
 MLA_REL_TOL = 1e-2
 MLA_BLOCK_TOL = 2e-2
+# B10's kernel, and the merge kernel that ran after it before the merge
+# moved into the launch (kept, so that an older checkout's time holds it).
 MLA_KERNELS = ("mla_decode_kernel", "decode_merge_kernel")
 
 
@@ -2008,17 +2025,35 @@ def mla_phase(dev, card):
     b, hp, sp = MLA_PREFILL_BATCH, MLA_HEADS, MLA_PREFILL_SEQ
     pq, pk, pv = rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_V)
 
-    # The counted run: the MLA path through the entry points a server calls.
+    def decode():
+        return {name: flash_mla_with_kvcache(q, cache, table, lens, MLA_DV)
+                for name, (cache, table) in x["forms"].items()}
+
+    # The counted run: the MLA path through the entry points a server calls,
+    # its decode calls under torch.profiler, which counts the kernels they
+    # launch by name.
     torch.cuda.synchronize()
     reset_counts()
-    outs = {name: flash_mla_with_kvcache(q, cache, table, lens, MLA_DV)
-            for name, (cache, table) in x["forms"].items()}
+    outs, seen = kernel_launches(decode)
     prefill = flash_attn_func(pq, pk, pv, causal=True, return_softmax_lse=True)
     torch.cuda.synchronize()
     counts = read_counts()
-    log(f"  launches during the MLA run: {counts[0]}")
-    check(counts[0]["mla_decode"] == len(outs) and counts[0]["flash_fwd_mla"] == 1,
+    log(f"  launches during the MLA run: {counts}")
+    check(counts["mla_decode"] == len(outs) and counts["flash_fwd_mla"] == 1,
           "mla: a kernel of the path did not launch as often as the path calls it")
+    # The profiler can miss launches (see device_ms): then the same calls
+    # again, uncounted, up to twice.
+    for _ in range(2):
+        if sum(n for k, n in seen.items() if "mla_decode_kernel" in k) >= len(outs):
+            break
+        _, seen = kernel_launches(decode)
+    b10 = sum(n for k, n in seen.items() if "mla_decode_kernel" in k)
+    merges = sum(n for k, n in seen.items() if "merge" in k) if b10 >= len(outs) else None
+    log(f"  profiler over the {len(outs)} decode calls: {b10} B10 launches, merge-kernel "
+        f"launches {'not measured' if merges is None else merges}; kernels {seen}")
+    if merges is not None:
+        check(b10 == len(outs) and merges == 0,
+              "mla: a decode call launched other than one B10 kernel and no merge kernel")
 
     # Checks (their launches are not counted).
     shape = (f"{MLA_BATCH}x{MLA_HEADS}x{MLA_D}/{MLA_DV}, lengths "
@@ -2112,6 +2147,7 @@ def mla_phase(dev, card):
     log(f"  B10 plain {r['plain_ms']:.3f} ms; at full lengths {MLA_MAX_LEN}: kernel "
         f"{r['ms_full_lengths']:.4f} ms, bound {r['bound_ms_full_lengths']:.4f} ms; SDPA "
         f"{libs} [{card}]")
+    r["merge_launches"] = merges
     res["mla_decode"] = r
 
     flops = 2 * (MLA_QK + MLA_V) * attn_pairs(sp, sp, True) * b * hp
@@ -2134,9 +2170,10 @@ def mla_phase(dev, card):
 
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
-# "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list, B3 and
-# B5; "attention_fwd_kernel" the mma.sync loop B4 keeps, where B3 and B5
-# ran before).
+# "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
+# coarse schedule, B3, B4 and B5; "attention_fwd_kernel" the mma.sync loop
+# that B4 ran on before, kept for older checkouts; "mla_decode_kernel"
+# B10).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
               "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd")
 
@@ -2152,7 +2189,12 @@ def ab_times(reps):
     three by device_ms), of the decode kernel (with its split merge, where
     a version has one) at the kvcache API's shape (device_ms) at full
     lengths, at ragged lengths as B8 bf16 and int8 and as B9b over pages
-    of 256 keys, beside SDPA (enable_gqa) at full lengths, and of
+    of 256 keys, beside SDPA (enable_gqa) at full lengths, of B4 at the
+    slice's shape (coarse at BlockSizes(256, 256) over a banded ~50 %
+    coarse mask, and super-tile bits of the fine band), of B10 at phase
+    7's shape (ragged lengths over permuted 64-token pages, and full
+    lengths contiguous, with any merge kernel it launches; device_ms)
+    beside SDPA enable_gqa at full lengths, and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
     (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal). It
     calls only entry points every version of the port has since the
@@ -2166,8 +2208,11 @@ def ab_times(reps):
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_quant import quantize_kv_cache
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
+    from liteattention_torch.ops.mask import compact_mask, compact_mask_fine
+    from liteattention_torch.ops.mla import mla_decode
     from liteattention_torch.ops.paged_attention import paged_attention_folded
     from liteattention_torch.ops.schedule_pack import pack_schedule
+    from liteattention_torch.ops.tile_sizes import BlockSizes
 
     card = nvidia_smi_line()
     regs, name = {}, None
@@ -2227,6 +2272,41 @@ def ab_times(reps):
         bk, bv = (torch.randn(b, hk, sk, d, generator=g, device=dev).bfloat16() for _ in range(2))
         return device_ms(lambda: flash_attention(bq, bk, bv, causal=causal), reps)[0]
 
+    # B4 at the slice's shape: a banded coarse mask at (256, 256), and the
+    # fine band's super-tile bits.
+    bq, bk = ENGINE_TILE
+    mask_c = banded_mask(1, h, math.ceil(s / bq), math.ceil(s / bk), 0.5, dev)
+    idx_c, count_c = compact_mask(mask_c)
+    idx_s, count_s, bits_s = compact_mask_fine(mask, bq // 128, bk // 128)
+    tile = BlockSizes(bq, bk)
+    b4 = {"b4_coarse_ms": cuda_ms(lambda: lite_flash_attention(
+              q, k, v, idx_c, count_c, 0.0, block_sizes=tile, fine_schedule=False), reps),
+          "b4_super_ms": cuda_ms(lambda: lite_flash_attention(
+              q, k, v, idx_s, count_s, 0.0, kv_bits=bits_s, block_sizes=tile,
+              fine_schedule=False), reps),
+          "b4_coarse_sparsity": 1.0 - mask_c.float().mean().item()}
+    # B10 at phase 7's shape: ragged lengths over permuted pages, and full
+    # lengths contiguous beside SDPA on the same cache.
+    x = mla_inputs(dev)
+    mq, mlens = x["q"], x["lens"]
+    pool, perm = x["forms"]["paged permuted"]
+    cont = x["forms"]["contiguous"][0][:, :, 0]
+    full = torch.full_like(mlens, MLA_MAX_LEN)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k4 = cont[:, None]
+    b10 = {"b10_ragged_ms": device_ms(lambda: mla_decode(mq, pool, mlens, MLA_DV, page_table=perm),
+                                      reps, MLA_KERNELS)[0],
+           "b10_full_ms": device_ms(lambda: mla_decode(mq, cont, full, MLA_DV), reps,
+                                    MLA_KERNELS)[0]}
+    calls = {"enable_gqa": lambda: sdpa(mq.transpose(1, 2), k4, k4[..., :MLA_DV], enable_gqa=True),
+             "heads as query rows": lambda: sdpa(mq, k4, k4[..., :MLA_DV])}
+    for name, call in calls.items():  # the first that some backend takes, as phase 7
+        backend, b10["sdpa_mla_full_ms"], _ = sdpa_backend_ms(name, call)
+        b10["sdpa_mla_backend"] = f"{name} ({backend})"
+        if backend is not None:
+            break
+    del x, pool, cont, k4
+    torch.cuda.empty_cache()
     b1 = {"b1_cross_device_ms": b1_device_ms(1, h, h, s, 512, d, False),
           "b1_gpt2_device_ms": b1_device_ms(GPT_BATCH, 12, 12, GPT_SEQ, GPT_SEQ, 64, True),
           "b1_prefill_device_ms": b1_device_ms(SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT,
@@ -2241,7 +2321,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1,
+        **b1, **b4, **b10,
     }))
     return 0
 
@@ -2324,13 +2404,9 @@ def main() -> int:
         "ms": ext["lite_ms_compacted"], "ms_same_mask_uncompacted": ext["lite_ms_uncompacted"],
         "kv_compact_ms": kres["kv_compact"]["ms"], "shape": "(a)'s inputs and final mask"}
     # Each path's counted run read every wrapper's count (reset just before).
-    by_path = {name: {path: c[0][name] for path, c in counts.items()}
+    by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_wrappers()}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
-    for name in counts["serve"][1]:
-        merges = {path: c[1][name] for path, c in counts.items()}
-        kres[name]["merge_launches"] = sum(merges.values())
-        kres[name]["merge_launches_by_path"] = merges
     # name -> (source, CUDA kernel, the TPU kernel it replaces)
     sources = {
         "flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
@@ -2338,7 +2414,7 @@ def main() -> int:
                           "liteattention_tpu/ops/schedule_pack.py:52"),
         "lite_flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel",
                            "liteattention_tpu/ops/lite_flash_fwd.py:376"),
-        "lite_flash_fwd_coarse": ("lite_flash_fwd.cu", "attention_fwd_kernel",
+        "lite_flash_fwd_coarse": ("flash_fwd.cu", "flash_fwd_kernel",
                                   "liteattention_tpu/ops/lite_flash_fwd.py:123"),
         "lite_flash_fwd_hfold": ("flash_fwd.cu", "flash_fwd_kernel",
                                  "liteattention_tpu/ops/lite_flash_fwd.py:885"),

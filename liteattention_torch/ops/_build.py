@@ -41,7 +41,7 @@ SIGNATURES = {
     + [_F, _F, _I, _P],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_mla": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
-    "lite_mla_decode": [_P] * 8 + [_L] * 2 + [_I] * 12 + [_F, _I, _P],
+    "lite_mla_decode": [_P] * 9 + [_L] * 2 + [_I] * 14 + [_F, _I, _P],
     "lite_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_gather": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "lite_flash_fwd_coarse": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],

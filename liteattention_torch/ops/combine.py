@@ -4,8 +4,7 @@ Counterpart of ``liteattention_tpu/ops/combine.py:combine_attention``:
 partial (out, lse) pairs computed over disjoint KV splits merge into
 the attention over their union. Plain PyTorch; it is also the plain
 version of the split merges of the decode kernels (the last piece's merge
-inside ``csrc/flash_decode.cu``, and ``decode_merge_kernel`` after the
-MLA decode).
+inside ``csrc/flash_decode.cu`` and inside ``csrc/mla_decode.cu``).
 """
 
 from __future__ import annotations

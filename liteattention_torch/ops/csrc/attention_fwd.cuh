@@ -1,54 +1,34 @@
-// Shared forward mainloop of the coarse lite attention kernel (B4), and the
-// online-softmax row steps that B1, B3 and B5 (flash_fwd.cu), the decode
-// kernels and the MLA kernels share with it.
+// The online-softmax row steps and small mma.sync helpers that the forward
+// kernels share: B1, B3, B4 and B5 (flash_fwd.cu:flash_fwd_kernel, wgmma),
+// B1's MLA channels (flash_fwd.cu:mla_fwd_kernel, mma.sync with a cp.async
+// ring), the decode kernel B8/B9 (flash_decode.cu) and the MLA decode B10
+// (mla_decode.cu), and the decode kernels' chunk arithmetic. No kernel
+// lives here: what bounds each kernel on the H100 is in its own header.
 //
-// One CTA owns one 128-row q-tile of one (batch, head): 8 warps, 16 q rows
-// each. K and V are walked in 128-key tiles through a two-stage cp.async
-// ring in shared memory; QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate). Scores live in log2 space (s * scale * log2e) so the online
-// softmax uses exp2; the lse written out is natural log.
+// Scores live in log2 space (s * scale * log2e), so the online softmax uses
+// exp2; the lse written out is natural log. A row with no valid key keeps
+// its running max at -inf and ends with out 0, lse -inf, never NaN.
 //
-// The walk over k-tiles is the template parameter MODE. A walk visits
-// positions (e, s): entry e of the CTA's schedule row, fine k-tile s of it.
-//   kCoarse: kv_idx[0..count) of the coarse row (block_q = 128 * qsub rows,
-//            block_k = 128 * ksub keys) that holds this fine q-tile; entry e
-//            is the ksub fine k-tiles of coarse tile kv_idx[e] (B4).
-//   kSuper:  as kCoarse, but fine k-tile s of entry e is visited only if bit
-//            (qs * ksub + s) of bits[e] is set, qs the place of this q-tile in
-//            its coarse row (B4's super-tile mode).
-// (The fine gather walk, B3 and with folded heads B5, runs on B1's
-// wgmma/TMA mainloop in flash_fwd.cu.)
-// A row with no valid key keeps its running max at -inf and ends with out 0,
-// lse -inf.
-//
-// VOTES. A vote step is one entry (the gather walk's `gsize` entries: see
-// flash_fwd.cu); m_prev is the running row max from before the step, and a
-// fine tile passes for a valid q row iff (max_col s - m_prev) > thr, strict.
-//   gather (B3/B5, flash_fwd.cu): each visited tile votes "do" (0) iff some row
-//            passes, else "skip" (1), into the fine [B, H, Qt, Kt] array; the
-//            first entry always votes 0.
-//   kCoarse: the coarse tile votes 0 iff some row of its 128 * qsub rows
-//            passes on some of its fine tiles, AND-ed over the qsub CTAs of
-//            the coarse row with atomicAnd into votes pre-filled with 1 (exact:
-//            the fine tiles of one step share m_prev); the first entry votes 0.
-//   kSuper:  each visited fine tile votes into the fine [B, H, Qt_c * qsub,
-//            Kt_c * ksub] array; in the first entry, the lowest live fine tile
-//            of this q-tile votes 0.
+// The vote contract of the sparse forwards (B3, B4, B5; the JAX kernels'):
+// a vote step is `gsize` list entries (B3, B5) or one coarse entry (B4);
+// m_prev is the running row max from before the step, and a fine tile passes
+// for a valid q row iff (max_col s - m_prev) > thr, strictly.
+//   list (B3/B5): each visited tile votes "do" (0) iff some row passes, else
+//            "skip" (1), into the fine [B, H, Qt, Kt] array; the first entry
+//            always votes 0.
+//   coarse (B4): the coarse tile votes 0 iff some row of its 128 * qsub rows
+//            passes on some of its fine tiles (the qsub CTAs of the coarse
+//            row each store 0 into votes pre-filled with 1: their AND); the
+//            first entry votes 0.
+//   super-tile (B4): each visited fine tile votes into the fine [B, H, Qt_c
+//            * qsub, Kt_c * ksub] array; in the first entry, the lowest live
+//            fine tile of this q-tile votes 0.
 // The coarse walks test the JAX kernel's values exactly: it masks dead
 // columns with the finite kMaskValue, not -inf, so its running max is
 // max(m, kMaskValue) once an entry was visited and a fully masked fine tile's
 // max is kMaskValue. The vote clamps both to kMaskValue the same way (the
 // softmax itself keeps -inf: the outputs do not depend on the sentinel).
-//
 // Keys past Sk are masked by key_mask.cuh's test, the one B1 and B7 use.
-//
-// What bounds it on the H100: at 128x128 tiles each K/V byte loaded feeds
-// 128 q rows, so the kernel is bound by tensor-core issue, and mma.sync
-// reaches well under the wgmma rate. This first version keeps the design
-// simple (no TMA, no warp specialization, no wgmma); skipped tiles cost no
-// load and no math, which is what turns sparsity into time. The coarse walks
-// move onto B1's wgmma/TMA mainloop next, as the gather walk did (ROADMAP
-// B-ii R1c).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,41 +40,9 @@
 
 namespace lite {
 
-constexpr int kBlockQ = 128;  // q rows per CTA = one fine q-tile
-constexpr int kBlockK = 128;  // keys per k-tile = one fine k-tile
-constexpr int kWarps = 8;     // 16 q rows per warp
-constexpr int kThreads = kWarps * 32;
 constexpr float kLn2 = 0.6931471805599453f;
 // The JAX kernels' finite mask value, -0.7 * FLT_MAX rounded to fp32.
 constexpr float kMaskValue = -0x1.666664p+127f;
-
-enum Mode { kCoarse = 2, kSuper = 3 };
-
-struct FwdParams {
-  const __nv_bfloat16* q;  // [B, H, Sq, D]
-  const __nv_bfloat16* k;  // [B, Hk, Sk, D]
-  const __nv_bfloat16* v;  // [B, Hk, Sk, D]
-  __nv_bfloat16* out;      // [B, H, Sq, D]
-  float* lse;              // [B, H, Sq]
-  const int* fidx;         // schedule entries [B, H, sched_q, sched_k]
-  const int* count;        // entries per schedule row [B, H, sched_q]
-  const int* bits;         // kSuper: sub-tile liveness aligned with fidx
-  int* votes;              // [B, H, vote_q, vote_k]
-  int heads, kv_heads, seqlen_q, seqlen_k;
-  int qtiles, ktiles;      // fine 128-row / 128-key tiles
-  int sched_q, sched_k;    // schedule grid per (b, h)
-  int qsub, ksub;          // fine tiles per schedule tile
-  int vote_q, vote_k;      // vote grid per (b, h)
-  float scale_log2;        // softmax scale * log2(e)
-  float thr;               // vote threshold, log2 space
-};
-
-template <int D>
-constexpr int smem_bytes() {
-  // Two stages of (K tile, V tile), rows padded by 8 elements so the
-  // fragment loads of 8 consecutive rows hit 8 distinct bank groups.
-  return 2 * 2 * kBlockK * (D + 8) * 2;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -154,9 +102,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Row steps of the online softmax, shared by the forward mainloop below, the
-// decode kernel (flash_decode.cu) and the MLA kernels (mla_decode.cu,
-// flash_fwd.cu). A warp owns 16 q rows of an m16n8k16 tile: lane (g, t) =
+// Row steps of the online softmax, shared by the forward kernels
+// (flash_fwd.cu), the decode kernel (flash_decode.cu) and the MLA decode
+// (mla_decode.cu). A warp owns 16 q rows of an m16n8k16 tile: lane (g, t) =
 // (lane / 4, lane % 4) holds accumulator elements 0-1 of row g ("lo") and
 // 2-3 of row g + 8 ("hi"), at columns 8 i + 2 t (+1) of block i. Scores s
 // are NB blocks of 8 keys; m is the running row max (log2 space), l this
@@ -342,278 +290,11 @@ __device__ __forceinline__ void store_rows(T* o_lo, T* o_hi, const float (&acc)[
   }
 }
 
-// Merge of split-KV partials (the MLA decode's): out = sum_s w_s o_s /
-// sum_s w_s with w_s = exp(lse_s - max lse) over the splits whose lse is
-// finite (a split with no valid key writes lse -inf and may leave its o
-// unwritten); no valid key in any split -> out 0, lse -inf. One CTA of D
-// threads per row of o_part [splits, n_rows, D].
-template <int D>
-__global__ void __launch_bounds__(D) decode_merge_kernel(const float* o_part,
-                                                         const float* lse_part,
-                                                         __nv_bfloat16* out, float* lse,
-                                                         int splits, int n_rows) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, lse_part[s * static_cast<size_t>(n_rows) + row]);
-  float l = 0.f, o = 0.f;
-  if (mx != -INFINITY) {
-    for (int s = 0; s < splits; ++s) {
-      const size_t idx = s * static_cast<size_t>(n_rows) + row;
-      if (lse_part[idx] == -INFINITY) continue;
-      const float w = expf(lse_part[idx] - mx);
-      l += w;
-      o += w * o_part[idx * D + d];
-    }
-  }
-  const bool empty = !(l > 0.f);
-  out[row * D + d] = __float2bfloat16_rn(empty ? 0.f : o / l);
-  if (d == 0) lse[row] = empty ? -INFINITY : mx + logf(l);
-}
-
-// Copy k-tile `tile` of K and V (rows past seqlen_k are zero-filled).
-template <int D>
-__device__ __forceinline__ void load_kv_tile(const FwdParams& p,
-                                             const __nv_bfloat16* kbase,
-                                             const __nv_bfloat16* vbase,
-                                             __nv_bfloat16* ks,
-                                             __nv_bfloat16* vs, int tile) {
-  constexpr int kChunksPerRow = D / 8;  // 16-byte chunks
-  constexpr int kChunks = kBlockK * kChunksPerRow;
-  const int row0 = tile * kBlockK;
-#pragma unroll
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * 8;
-    const bool valid = row0 + r < p.seqlen_k;
-    const size_t src = static_cast<size_t>(valid ? row0 + r : 0) * D + col;
-    cp_async16(ks + r * (D + 8) + col, kbase + src, valid);
-    cp_async16(vs + r * (D + 8) + col, vbase + src, valid);
-  }
-}
-
-// The coarse walks: positions (e, s), entry e of the coarse schedule row and
-// fine k-tile s of it, in order; kSuper visits only live fine tiles.
-template <int MODE>
-struct CoarseWalk {
-  const int* sched;  // coarse tiles, kv_idx[0..n)
-  const int* bits;   // kSuper: sub-tile liveness per entry
-  int n;             // entries
-  int ksub;          // fine k-tiles per entry
-  int shift;         // kSuper: bit offset of this q-tile's sub-tiles
-
-  __device__ __forceinline__ unsigned live(int e) const {
-    const unsigned full = ksub >= 32 ? 0xffffffffu : (1u << ksub) - 1u;
-    if constexpr (MODE == kSuper) {
-      return (static_cast<unsigned>(bits[e]) >> shift) & full;
-    } else {
-      return full;
-    }
-  }
-
-  // Step (e, s) to the next visited position; false past the end. The
-  // first call (s = -1) finds the first position.
-  __device__ __forceinline__ bool advance(int& e, int& s) const {
-    for (++s; e < n; ++e, s = 0) {
-      if (s < ksub) {
-        const unsigned rest = live(e) >> s;
-        if (rest) {
-          s += __ffs(rest) - 1;
-          return true;
-        }
-      }
-    }
-    return false;
-  }
-
-  __device__ __forceinline__ int tile(int e, int s) const { return sched[e] * ksub + s; }
-};
-
-template <int D>
-__device__ __forceinline__ void load_q(const FwdParams& p, size_t bh, int r_lo,
-                                       int r_hi, uint32_t (&qf)[D / 16][4]) {
-  // Q fragments straight from global memory (A operand, row-major).
-  const int t = threadIdx.x % 4;
-  const bool lo_valid = r_lo < p.seqlen_q;
-  const bool hi_valid = r_hi < p.seqlen_q;
-  const __nv_bfloat16* qrow_lo = p.q + (bh * p.seqlen_q + r_lo) * D;
-  const __nv_bfloat16* qrow_hi = p.q + (bh * p.seqlen_q + r_hi) * D;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c) : 0u;
-    qf[kk][1] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c) : 0u;
-    qf[kk][2] = lo_valid ? *reinterpret_cast<const uint32_t*>(qrow_lo + c + 8) : 0u;
-    qf[kk][3] = hi_valid ? *reinterpret_cast<const uint32_t*>(qrow_hi + c + 8) : 0u;
-  }
-}
-
-// One k-tile of the mainloop: S = Q K^T for this warp's 16 rows x 128 keys
-// (columns past seqlen_k masked to -inf), then `vote(mx_lo, mx_hi)` with the
-// tile's row maxima in log2 space before the running max absorbs them, then
-// the online softmax update (the scale inside each exp2, as B1) and O += P V.
-template <int D, typename Vote>
-__device__ __forceinline__ void attend_tile(
-    const FwdParams& p, const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4],
-    float& m_lo, float& m_hi, float& l_lo, float& l_hi, const __nv_bfloat16* ks,
-    const __nv_bfloat16* vs, int tile, int r_lo, int r_hi, Vote&& vote) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  float s[16][4];
-#pragma unroll
-  for (int nb = 0; nb < 16; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nb = 0; nb < 16; ++nb) {
-      const __nv_bfloat16* kp = ks + (nb * 8 + g) * (D + 8) + kk * 16 + 2 * t;
-      mma_bf16(s[nb], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-               *reinterpret_cast<const uint32_t*>(kp + 8));
-    }
-  }
-
-  const int col0 = tile * kBlockK;
-  float mx_lo, mx_hi;
-  mask_scores(
-      s, 1.f, col0 + kBlockK > p.seqlen_k, col0,
-      [&](int col, bool hi) { return key_masked<false>(col, hi ? r_hi : r_lo, p.seqlen_k, 0); },
-      mx_lo, mx_hi);
-
-  vote(mx_lo * p.scale_log2, mx_hi * p.scale_log2);
-
-  float alpha_lo, alpha_hi;
-  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
-  rescale_rows(acc, alpha_lo, alpha_hi);
-  pv_product(acc, s, vs, D + 8);
-}
-
-// Epilogue: full row sums, normalize, natural-log lse.
-template <int D>
-__device__ __forceinline__ void store_out(const FwdParams& p, size_t bh, int r_lo,
-                                          int r_hi, float (&acc)[D / 8][4], float m_lo,
-                                          float m_hi, float l_lo, float l_hi) {
-  const bool lo_valid = r_lo < p.seqlen_q;
-  const bool hi_valid = r_hi < p.seqlen_q;
-  float inv_lo, inv_hi, lse_lo, lse_hi;
-  finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
-  store_rows(p.out + (bh * p.seqlen_q + r_lo) * D, p.out + (bh * p.seqlen_q + r_hi) * D, acc,
-             inv_lo, inv_hi, lo_valid, hi_valid);
-  if (threadIdx.x % 4 == 0) {
-    if (lo_valid) p.lse[bh * p.seqlen_q + r_lo] = lse_lo;
-    if (hi_valid) p.lse[bh * p.seqlen_q + r_hi] = lse_hi;
-  }
-}
-
-template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads, 1)
-    attention_fwd_kernel(const FwdParams p) {
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static_assert(MODE == kCoarse || MODE == kSuper, "the coarse walks");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int kTileElems = kBlockK * (D + 8);
-
-  const int qt = blockIdx.x;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4;
-  // Rows of this thread: r_lo (fragment rows g) and r_hi (g + 8).
-  const int r_lo = qt * kBlockQ + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-  const bool lo_valid = r_lo < p.seqlen_q;
-  const bool hi_valid = r_hi < p.seqlen_q;
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-  // One head per CTA, the coarse row of this q-tile.
-  const int h = blockIdx.y;
-  const size_t bh = static_cast<size_t>(b) * p.heads + h;
-  const int hk = h / (p.heads / p.kv_heads);
-  const size_t kv = (static_cast<size_t>(b) * p.kv_heads + hk) * p.seqlen_k * D;
-  const size_t srow = bh * p.sched_q + qt / p.qsub;
-  CoarseWalk<MODE> w{};
-  w.sched = p.fidx + srow * p.sched_k;
-  w.n = p.count[srow];
-  w.ksub = p.ksub;
-  if constexpr (MODE == kSuper) {
-    w.bits = p.bits + srow * p.sched_k;
-    w.shift = (qt % p.qsub) * p.ksub;
-  }
-  int* vrow = p.votes +
-              (bh * p.vote_q + (MODE == kCoarse ? qt / p.qsub : qt)) * p.vote_k;
-  // kSuper: the lowest live fine tile of entry 0 votes 0.
-  const int anchor = MODE == kSuper && w.n > 0 ? __ffs(w.live(0)) - 1 : -1;
-  int e = 0, s = -1;
-  bool have = w.advance(e, s);
-  if (have) load_kv_tile<D>(p, p.k + kv, p.v + kv, smem, smem + kTileElems, w.tile(e, s));
-  cp_async_commit();
-  load_q<D>(p, bh, r_lo, r_hi, qf);
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;
-  float l_lo = 0.f, l_hi = 0.f;
-  float mv_lo = -INFINITY, mv_hi = -INFINITY;
-  int step = -1;      // entry of the previous position
-  int step_keep = 0;  // kCoarse: some fine tile of the entry passed
-  for (int it = 0; have; ++it) {
-    int ne = e, ns = s;
-    const bool more = w.advance(ne, ns);
-    const int stage = it & 1;
-    __nv_bfloat16* nxt = smem + (stage ^ 1) * 2 * kTileElems;
-    if (more) load_kv_tile<D>(p, p.k + kv, p.v + kv, nxt, nxt + kTileElems, w.tile(ne, ns));
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* ks = smem + stage * 2 * kTileElems;
-    const int tile = w.tile(e, s);
-    attend_tile<D>(
-        p, qf, acc, m_lo, m_hi, l_lo, l_hi, ks, ks + kTileElems, tile, r_lo, r_hi,
-        [&](float mx_lo, float mx_hi) {
-          if (e != step) {  // a new entry: snapshot m_prev
-            step = e;
-            mv_lo = m_lo;
-            mv_hi = m_hi;
-            step_keep = 0;
-          }
-          const float mp_lo = e == 0 ? -INFINITY : fmaxf(mv_lo, kMaskValue);
-          const float mp_hi = e == 0 ? -INFINITY : fmaxf(mv_hi, kMaskValue);
-          const bool keep = (lo_valid & (fmaxf(mx_lo, kMaskValue) - mp_lo > p.thr)) |
-                            (hi_valid & (fmaxf(mx_hi, kMaskValue) - mp_hi > p.thr));
-          const int any_keep = __syncthreads_or(keep);
-          if (threadIdx.x == 0) {
-            if constexpr (MODE == kSuper) {
-              vrow[tile] = (any_keep || (e == 0 && s == anchor)) ? 0 : 1;
-            } else {
-              step_keep |= any_keep;
-              if (!(more && ne == e)) {  // the entry's last fine tile
-                atomicAnd(vrow + w.sched[e], (e == 0 || step_keep) ? 0 : 1);
-              }
-            }
-          }
-        });
-    __syncthreads();
-    e = ne;
-    s = ns;
-    have = more;
-  }
-  store_out<D>(p, bh, r_lo, r_hi, acc, m_lo, m_hi, l_lo, l_hi);
-  cp_async_wait<0>();
-}
-
-// Host-side launch of one instantiation on `stream`: one CTA per fine q-tile
-// and head. Returns the CUDA error of the launch (0 on success).
-template <int D, int MODE>
-cudaError_t launch_attention_fwd(const FwdParams& p, int batch,
-                                 cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<D, MODE>;
-  constexpr int smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.qtiles, p.heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The split decode kernels' (B8/B9, B10) cut of T flat key tiles into C
+// equal chunks, chunk c holding tiles [c T / C, (c + 1) T / C): the chunk
+// that holds tile x.
+__device__ __forceinline__ int chunk_of(long long x, long long total, long long chunks) {
+  return static_cast<int>(((x + 1) * chunks + total - 1) / total) - 1;
 }
 
 }  // namespace lite

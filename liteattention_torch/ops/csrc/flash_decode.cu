@@ -220,21 +220,6 @@ struct Cursor {
   }
 };
 
-// *addr += v at GPU scope with release semantics; the old value.
-__device__ __forceinline__ int atomic_add_release(int* addr, int v) {
-  int old;
-  asm volatile("atom.release.gpu.global.add.s32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(addr), "r"(v)
-               : "memory");
-  return old;
-}
-
-// The chunk that holds flat tile x: chunk c is [c T / G, (c + 1) T / G).
-__device__ __forceinline__ int owner(long long x, long long total, long long chunks) {
-  return static_cast<int>(((x + 1) * chunks + total - 1) / total) - 1;
-}
-
 // Tensor-map coordinate `which` (1-3) of (slot, head, page) under `dims`.
 __device__ __forceinline__ int coord(int dims, int which, int slot, int head, int page) {
   return (dims & 3) == which ? slot : ((dims >> 2) & 3) == which ? head : page;
@@ -628,7 +613,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // chunk holds at most two pieces: its first unit and its last.
         lite::sm90::named_sync(kMergeBar, kThreads);
         if (ct == 0) {
-          const int done = atomic_add_release(p.tickets + u, cur.j - j0 + 1);
+          const int done = lite::sm90::atomic_add_release(p.tickets + u, cur.j - j0 + 1);
           dones |= static_cast<uint32_t>(done + cur.j - j0 + 1) << (16 * pieces);
           sm_flag[2 + pieces] = u;
         }
@@ -676,8 +661,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int h = u % hk;
     const int n = (prefix[pr + 1] - prefix[pr]) / hk;
     const int start = prefix[pr] + h * n;
-    const int c0 = owner(start, total, chunks);
-    const int np = owner(start + n - 1, total, chunks) - c0 + 1;
+    const int c0 = lite::chunk_of(start, total, chunks);
+    const int np = lite::chunk_of(start + n - 1, total, chunks) - c0 + 1;
     const int rt_u = pr % p.rtiles;
     const int nrows = min(kRows, p.rows - rt_u * kRows);
     const size_t row0 = (static_cast<size_t>(pr / p.rtiles) * hk + h) * p.rows + rt_u * kRows;

@@ -2,8 +2,9 @@
 // the Pallas kernel liteattention_tpu/ops/flash_fwd.py:_fwd_kernel. The same
 // kernel, walking a list of live k-tiles, is B3 (lite_flash_fwd_gather),
 // replacing liteattention_tpu/ops/lite_flash_fwd.py:_lite_gather_kernel, and
-// with `fold` heads per CTA B5, replacing _lite_gather_kernel_hfold. Below
-// it, B1's MLA channels (mla_fwd_kernel).
+// with `fold` heads per CTA B5, replacing _lite_gather_kernel_hfold; walking
+// a coarse schedule's entries it is B4 (lite_flash_fwd_coarse), replacing
+// _lite_kernel. Below it, B1's MLA channels (mla_fwd_kernel).
 //
 // bf16 q/k/v in [B, H, S, D] (D = 64 or 128), GQA by h / group, optionally
 // causal (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out in
@@ -14,7 +15,9 @@
 // MUFU: a 128 x 128 tile at D 128 is 8.4 MFLOP, ~1.1 us of one SM's tensor
 // cores, and its 16 384 exp2 take ~0.6 us at 16 a clock (at D 64 the two
 // are about equal). So the products run on wgmma, the loads take no issue
-// slots (TMA), and a tile's softmax runs while products are in flight.
+// slots (TMA), and a tile's softmax runs while products are in flight. The
+// sparse walks (B3, B4, B5) are bound the same way on the tiles they visit:
+// a skipped tile costs no load and no math.
 //
 // One CTA per (b, h, 128-row q-tile), 256 threads: two consumer warpgroups
 // of 64 q rows each. O, S and P take 186 of a thread's 255 registers at D
@@ -60,16 +63,29 @@
 // next. A row with no live tile (count 0, or fidx[0] dead in the mask) still
 // visits one tile, with every key hidden: out 0, lse -inf.
 //
-// The votes (VOTES), as the JAX kernel's contract (attention_fwd.cuh): a
-// vote step is gsize entries; m_prev, the running row max before the step,
-// is snapshotted at the top of the step's first entry, before that tile's
-// math; the tile's raw row maxima x scale_log2 are compared with it before
-// softmax_rows absorbs them, strictly (> thr), on valid rows only. The OR
-// over the tile's 128 rows takes no CTA barrier (the warpgroups run out of
-// phase): the wrapper fills the votes with 1 (skip) and every warp with a
-// passing row stores 0 (__any_sync), idempotent stores in any order; the
-// first entry is stored 0 by thread 0 at the start. emit_votes=False
-// compiles the vote chain out.
+// The coarse walks (B4) visit the entries kv_idx[0 .. count) of the coarse
+// row (block_q = 128 qsub, block_k = 128 ksub) that holds the CTA's fine
+// q-tile: entry e is the fine k-tiles kv_idx[e] ksub + s inside [0, Kt), and
+// in super-tile mode only those whose bit of bits[e] is set for this q-tile.
+// The CTA counts its visits before the loop (a popcount per entry), so n is
+// known and every wgmma stays outside a branch; thread 0's feed and each
+// thread's place step (entry, sub-tile) with __ffs, the threads' one step
+// ahead under the products. A walk with no visit computes tile 0 with every
+// key hidden (out 0, lse -inf) and votes nothing.
+//
+// The votes (VOTES), as the JAX kernels' contract (attention_fwd.cuh): a
+// vote step is gsize list entries, or one coarse entry; m_prev, the running
+// row max before the step, is snapshotted at the top of the step's first
+// tile, before that tile's math; the tile's raw row maxima x scale_log2 are
+// compared with it before softmax_rows absorbs them, strictly (> thr), on
+// valid rows only. The OR over the tile's 128 rows takes no CTA barrier (the
+// warpgroups run out of phase): the wrapper fills the votes with 1 (skip)
+// and every warp with a passing row stores 0 (__any_sync), idempotent stores
+// in any order; the first entry is stored 0 by thread 0 at the start. Coarse
+// votes go to the coarse tile, so the plain stores of a coarse row's qsub
+// CTAs are the AND of their votes; the coarse walks clamp both sides to the
+// JAX kernel's finite mask value. emit_votes=False compiles the vote chain
+// out of B3.
 //
 // Folded heads (FOLD, B5): one CTA walks `fold` heads' rows in turn. The
 // ring runs on across heads: the walks are one flat sequence of tiles, so
@@ -93,12 +109,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1: the warpgroups' turns to issue
 
+// The walk over k-tiles: dense (B1), a live-tile list (B3, B5), or the
+// coarse schedule's entries (B4), in coarse or super-tile mode.
+enum Walk { kDense, kList, kCoarse, kSuper };
+
 struct Params {
   float* lse;  // [B, H, Sq]
   int heads, kv_heads, seqlen_q, seqlen_k, qtiles, ktiles;
   int causal_offset;  // Sk - Sq
   float scale_log2;   // softmax scale * log2(e)
-  // The list walk (B3, B5).
+  // The list walk (B3, B5); fidx and count are also the coarse schedule.
   const int* fidx;      // [B, H, Qt, Kt] live fine k-tiles per row, increasing
   const int* count;     // [B, H, Qt] entries per row
   const int* lidx;      // load positions aligned with fidx, or null
@@ -107,6 +127,11 @@ struct Params {
   int gsize;            // entries per vote step
   int fold;             // heads per CTA (FOLD)
   float thr;            // vote threshold, log2 space
+  // The coarse walks (B4): kv_idx [B, H, sched_q, sched_k] (fidx) and count
+  // [B, H, sched_q] at block_q = 128 qsub, block_k = 128 ksub; votes [B, H,
+  // vote_q, vote_k], coarse (kCoarse) or fine (kSuper).
+  const int* bits;  // kSuper: sub-tile liveness aligned with kv_idx
+  int qsub, ksub, sched_q, sched_k, vote_q, vote_k;
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base). Each
@@ -188,6 +213,76 @@ struct ListFeed {
   }
 };
 
+// The coarse walks (B4) of fine q-tile qt: entry e of its coarse row qt /
+// qsub (kv_idx[e], e < count) covers fine k-tiles kv_idx[e] * ksub + s for s
+// < ksub, inside [0, Kt); in super-tile mode tile s only if bit (qt % qsub)
+// ksub + s of bits[e] is set (the order _coarse_walk gives the plain
+// version). n, the tiles visited, is counted before the loop (a popcount of
+// each entry's slice, the warp's lanes over the entries); a walk with none
+// visits tile 0 with every key hidden, and votes nothing.
+template <bool SUPER>
+struct CoarseWalk {
+  const int* sched;
+  const int* bits;
+  int count, ksub, shift, ktiles;
+  int n;
+  bool dead;
+
+  // Entry e's coarse tile (idx) and the fine tiles of it this q-tile visits.
+  __device__ __forceinline__ unsigned live(int e, int& idx) const {
+    idx = __ldg(sched + e);
+    const int inside = max(min(ktiles - idx * ksub, ksub), 0);
+    unsigned m = inside >= 32 ? 0xffffffffu : (1u << inside) - 1u;
+    if constexpr (SUPER) m &= static_cast<unsigned>(__ldg(bits + e)) >> shift;
+    return m;
+  }
+};
+
+template <bool SUPER>
+__device__ __forceinline__ CoarseWalk<SUPER> coarse_walk(const Params& p, size_t bh, int qt) {
+  CoarseWalk<SUPER> w;
+  const size_t srow = bh * p.sched_q + qt / p.qsub;
+  w.sched = p.fidx + srow * p.sched_k;
+  w.bits = SUPER ? p.bits + srow * p.sched_k : nullptr;
+  w.count = __ldg(p.count + srow);
+  w.ksub = p.ksub;
+  w.shift = (qt % p.qsub) * p.ksub;
+  w.ktiles = p.ktiles;
+  int visits = 0;
+  for (int e = threadIdx.x % 32; e < w.count; e += 32) {
+    int idx;
+    visits += __popc(w.live(e, idx));
+  }
+  visits = __reduce_add_sync(0xffffffffu, visits);
+  w.n = max(visits, 1);
+  w.dead = visits == 0;
+  return w;
+}
+
+// A place on a coarse walk: entry e, its coarse tile idx, the fine tile,
+// whether it is the first the walk visits of its entry (a vote step starts
+// there); rest holds the entry's visited sub-tiles from this one on.
+struct CoarsePos {
+  int e, idx, tile;
+  unsigned rest;
+  bool start;
+};
+
+// Step `at` to the walk's next place (from e = -1 and rest = 0, the first);
+// false past the end.
+template <bool SUPER>
+__device__ __forceinline__ bool coarse_next(const CoarseWalk<SUPER>& w, CoarsePos& at) {
+  at.rest &= at.rest - 1u;
+  at.start = false;
+  while (at.rest == 0) {
+    if (++at.e >= w.count) return false;
+    at.rest = w.live(at.e, at.idx);
+    at.start = true;
+  }
+  at.tile = at.idx * w.ksub + __ffs(at.rest) - 1;
+  return true;
+}
+
 // K and V of k-tile `tile` into ring stage `stage` (thread 0).
 template <int D>
 __device__ __forceinline__ void load_tile(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
@@ -262,16 +357,20 @@ __device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p,
   softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
 }
 
-template <int D, bool CAUSAL, bool LIST, bool VOTES, bool FOLD>
+template <int D, bool CAUSAL, int WALK, bool VOTES, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_o, const Params p) {
+  constexpr bool LIST = WALK == kList;
+  constexpr bool COARSE = WALK == kCoarse || WALK == kSuper;
+  constexpr bool SUPER = WALK == kSuper;
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
   static_assert(kRowsQ == kKeys, "Q and K tiles step through D alike");
-  static_assert(LIST || !(VOTES || FOLD), "votes and folded heads take the list walk");
-  static_assert(!(LIST && CAUSAL), "the list walk is not causal");
+  static_assert(WALK != kDense || !VOTES, "the dense walk does not vote");
+  static_assert(LIST || !FOLD, "folded heads take the list walk");
+  static_assert(WALK == kDense || !CAUSAL, "the sparse walks are not causal");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -286,10 +385,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
   // The dense walk: its tiles and (b, kv head), uniform over the CTA.
-  const int n_dense = LIST ? 0 : dense_walk<CAUSAL>(p, q0).n;
+  const int n_dense = WALK == kDense ? dense_walk<CAUSAL>(p, q0).n : 0;
   const int bhk0 = b * p.kv_heads + h0 / (p.heads / p.kv_heads);
   ListFeed feed;
   feed.hl = 0;
+  // The coarse walk (one head per CTA), and thread 0's place on it.
+  CoarseWalk<SUPER> cwalk{};
+  if constexpr (COARSE) cwalk = coarse_walk<SUPER>(p, static_cast<size_t>(b) * p.heads + h0, qt);
+  CoarsePos fpos{-1, 0, 0, 0u, false};
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -314,6 +417,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         int bhk;
         const int tile = feed.take(p, b, h0, qt, fold, bhk);
         load_tile<D>(tm_k, tm_v, smem, full, j, tile, bhk);
+      }
+    } else if constexpr (COARSE) {
+      for (int j = 0; j < kStages && j < cwalk.n; ++j) {  // a dead walk loads tile 0
+        load_tile<D>(tm_k, tm_v, smem, full, j, coarse_next(cwalk, fpos) ? fpos.tile : 0, bhk0);
       }
     } else {
       for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
@@ -356,6 +463,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int load = feed.take(p, b, h0, qt, fold, bhk);
         load_tile<D>(tm_k, tm_v, smem, full, free, load, bhk);
       }
+    } else if constexpr (COARSE) {
+      if (ct == 0 && f > 0 && f - 1 + kStages < cwalk.n) {
+        sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
+        coarse_next(cwalk, fpos);
+        load_tile<D>(tm_k, tm_v, smem, full, free, fpos.tile, bhk0);
+      }
     } else if (ct == 0 && f > 0 && f - 1 + kStages < n_dense) {
       sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
       load_tile<D>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);
@@ -370,6 +483,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const auto walk = [&] {
       if constexpr (LIST) {
         return list_walk(p, row);
+      } else if constexpr (COARSE) {
+        return cwalk;
       } else {
         return dense_walk<CAUSAL>(p, q0);
       }
@@ -387,12 +502,48 @@ __global__ void __launch_bounds__(kThreads, 1)
     int* vrow = nullptr;
     float mv_lo = -INFINITY, mv_hi = -INFINITY;  // running row max before the vote step
     int gpos = 0;  // place of entry j + 1 in its vote step
-    if constexpr (VOTES) {
+    if constexpr (LIST && VOTES) {
       vrow = p.votes + row * p.ktiles;
       if (ct == 0) vrow[walk.tile(0)] = 0;  // the first entry votes 0
       gpos = 1 % p.gsize;
     }
-    auto no_vote = [](float, float) {};
+    // The coarse walks: this q-tile's place (cpos; the tile being computed,
+    // then one ahead), and its votes. The first entry votes 0: coarse, its
+    // coarse tile; super-tile, the entry's lowest tile this q-tile visits.
+    CoarsePos cpos{-1, 0, 0, 0u, false};
+    int tile0 = 0;
+    if constexpr (COARSE) {
+      vrow = p.votes + (static_cast<size_t>(bh) * p.vote_q + (SUPER ? qt : qt / p.qsub)) * p.vote_k;
+      if (coarse_next(walk, cpos)) tile0 = cpos.tile;
+      if (ct == 0 && walk.count > 0) {
+        int idx;
+        const unsigned live0 = walk.live(0, idx);
+        if (!SUPER) {
+          vrow[idx] = 0;
+        } else if (live0 != 0) {
+          vrow[idx * walk.ksub + __ffs(live0) - 1] = 0;
+        }
+      }
+    } else {
+      tile0 = walk.tile(0);
+    }
+    // A coarse vote, as the JAX kernel's: the tile's row maxima in log2
+    // space against m_prev of its entry, both clamped to the JAX kernel's
+    // finite mask value (m_prev -inf at entry 0), strictly, on valid rows
+    // only. Every warp with a passing row stores 0 into the coarse tile's
+    // vote (kCoarse: the stores of a coarse row's qsub CTAs are the AND of
+    // their votes, with no atomic) or the fine tile's (kSuper).
+    auto coarse_vote = [&](const CoarsePos& at, float mx_lo, float mx_hi) {
+      const float mp_lo = at.e == 0 ? -INFINITY : fmaxf(mv_lo, kMaskValue);
+      const float mp_hi = at.e == 0 ? -INFINITY : fmaxf(mv_hi, kMaskValue);
+      const bool keep = !walk.dead &
+                        (((r_lo < p.seqlen_q) & (fmaxf(mx_lo, kMaskValue) - mp_lo > p.thr)) |
+                         ((r_hi < p.seqlen_q) & (fmaxf(mx_hi, kMaskValue) - mp_hi > p.thr)));
+      if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[SUPER ? at.tile : at.idx] = 0;
+    };
+    auto first_vote = [&](float mx_lo, float mx_hi) {
+      if constexpr (COARSE) coarse_vote(cpos, mx_lo, mx_hi);
+    };
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) od[i] = 0.f;
     float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
@@ -411,18 +562,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     issue_s<D>(sd, q_desc, ring + f0 % kStages * L::kStage);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sd);
-    tile_softmax<CAUSAL>(s, p, walk.tile(0), walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo,
-                         l_hi, alpha_lo, alpha_hi, no_vote);
+    tile_softmax<CAUSAL>(s, p, tile0, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                         alpha_lo, alpha_hi, first_vote);
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
-    int tile_next = walk.n > 1 ? walk.tile(1) : 0;
+    int tile_next = 0;
+    if constexpr (LIST) tile_next = walk.n > 1 ? walk.tile(1) : 0;
+    if constexpr (COARSE) coarse_next(walk, cpos);
     for (int j = 0; j + 1 < walk.n; ++j) {
       const int f = f0 + j;
       const int stage = f % kStages;
       const int next = (f + 1) % kStages;
-      const int tile = LIST ? tile_next : j + 1;  // entry j + 1; j + 2 is read a step ahead
+      // Entry j + 1; j + 2 is read a step ahead (the coarse walks step
+      // their place under the products).
+      const int tile = LIST ? tile_next : COARSE ? cpos.tile : j + 1;
       if constexpr (LIST) tile_next = j + 2 < walk.n ? walk.tile(j + 2) : 0;
-      if (VOTES && gpos == 0) {  // a vote step starts at entry j + 1: snapshot m_prev
+      const CoarsePos at = cpos;
+      if (VOTES && (COARSE ? at.start : gpos == 0)) {  // a vote step starts: snapshot m_prev
         mv_lo = m_lo;
         mv_hi = m_hi;
       }
@@ -433,11 +589,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue_pv<D>(od, pf, ring + stage * L::kStage + L::kKV);
       refill(f);  // while the products run
       sm90::named_arrive(kTurn + 1 - wg, kThreads);
+      if constexpr (COARSE) coarse_next(walk, cpos);
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sd);
       tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                            alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
-                             if constexpr (VOTES) {
+                             if constexpr (COARSE) {
+                               coarse_vote(at, mx_lo, mx_hi);
+                             } else if constexpr (VOTES) {
                                // Some valid row of this warp passes: the tile is kept.
                                // Bitwise, not short-circuit: no branch on the way.
                                const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
@@ -452,7 +611,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
       if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j
-      if constexpr (VOTES) gpos = gpos + 1 == p.gsize ? 0 : gpos + 1;
+      if constexpr (LIST && VOTES) gpos = gpos + 1 == p.gsize ? 0 : gpos + 1;
     }
     // P V of the last tile. Folded, the flat walk goes on into the next
     // heads: this step refills too and then releases its stage (which is
@@ -499,9 +658,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Tensor maps of q, k, v (k and v with `kv_rows` rows per (b, kv head)) and
-// out, then one launch of instantiation <D, CAUSAL, LIST, VOTES, FOLD> over
+// out, then one launch of instantiation <D, CAUSAL, WALK, VOTES, FOLD> over
 // (q-tiles, heads / fold, batch).
-template <int D, bool CAUSAL, bool LIST = false, bool VOTES = false, bool FOLD = false>
+template <int D, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false>
 cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p, int batch,
                 float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -517,7 +676,7 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
   p.ktiles = (p.seqlen_k + kKeys - 1) / kKeys;
   p.causal_offset = p.seqlen_k - p.seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = flash_fwd_kernel<D, CAUSAL, LIST, VOTES, FOLD>;
+  auto kernel = flash_fwd_kernel<D, CAUSAL, WALK, VOTES, FOLD>;
   constexpr int smem = Smem<D>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -530,8 +689,15 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
 template <int D, bool VOTES>
 cudaError_t run_list(const void* q, const void* k, const void* v, void* out, const Params& p,
                      int batch, float scale, cudaStream_t stream) {
-  return p.fold > 1 ? run<D, false, true, VOTES, true>(q, k, v, out, p, batch, scale, stream)
-                    : run<D, false, true, VOTES, false>(q, k, v, out, p, batch, scale, stream);
+  return p.fold > 1 ? run<D, false, kList, VOTES, true>(q, k, v, out, p, batch, scale, stream)
+                    : run<D, false, kList, VOTES, false>(q, k, v, out, p, batch, scale, stream);
+}
+
+template <int D>
+cudaError_t run_coarse(const void* q, const void* k, const void* v, void* out, const Params& p,
+                       int batch, float scale, cudaStream_t stream) {
+  return p.bits != nullptr ? run<D, false, kSuper, true>(q, k, v, out, p, batch, scale, stream)
+                           : run<D, false, kCoarse, true>(q, k, v, out, p, batch, scale, stream);
 }
 
 }  // namespace fwd
@@ -605,6 +771,52 @@ extern "C" int lite_flash_fwd_gather(
   } else if (head_dim == 128) {
     err = v8 ? run_list<128, true>(q, k, v, out, p, batch, scale, s)
              : run_list<128, false>(q, k, v, out, p, batch, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// B4: q [B, H, Sq, D], k and v [B, Hk, Sk, D], out [B, H, Sq, D], all bf16;
+// lse [B, H, Sq] fp32; the coarse schedule kv_idx [B, H, Qt_c, Kt_c] and
+// count [B, H, Qt_c] int32 at block_q = 128 qsub, block_k = 128 ksub; bits
+// (super-tile mode) aligned with kv_idx, or null; votes int32 pre-filled
+// with 1, [B, H, Qt_c, Kt_c] (coarse) or [B, H, Qt_c qsub, Kt_c ksub]
+// (super-tile). Returns the CUDA error of the launch (0 = success).
+extern "C" int lite_flash_fwd_coarse(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* kv_idx, const void* count, const void* bits, void* votes,
+    int batch, int heads, int kv_heads, int seqlen_q, int seqlen_k,
+    int head_dim, int qsub, int ksub, float scale, float thr, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (qsub < 1 || ksub < 1 || ksub > 32 || (bits != nullptr && qsub * ksub > 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace lite::fwd;
+  Params p{};
+  p.lse = static_cast<float*>(lse);
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.seqlen_q = seqlen_q;
+  p.seqlen_k = seqlen_k;
+  p.fidx = static_cast<const int*>(kv_idx);
+  p.count = static_cast<const int*>(count);
+  p.bits = static_cast<const int*>(bits);
+  p.votes = static_cast<int*>(votes);
+  p.thr = thr;
+  p.qsub = qsub;
+  p.ksub = ksub;
+  p.sched_q = ((seqlen_q + kRowsQ - 1) / kRowsQ + qsub - 1) / qsub;
+  p.sched_k = ((seqlen_k + kKeys - 1) / kKeys + ksub - 1) / ksub;
+  p.vote_q = bits != nullptr ? p.sched_q * qsub : p.sched_q;
+  p.vote_k = bits != nullptr ? p.sched_k * ksub : p.sched_k;
+  if (head_dim == 64) {
+    err = run_coarse<64>(q, k, v, out, p, batch, scale, s);
+  } else if (head_dim == 128) {
+    err = run_coarse<128>(q, k, v, out, p, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA loads (3-D and 4-D), stores and bulk copies,
-// the bulk reduce-add, and wgmma with its shared-memory descriptors.
+// the bulk reduce-add, a release atomic, and wgmma with its shared-memory descriptors.
 //
 // Every tile that wgmma reads from shared memory here is stored with the
 // 128-byte swizzle, the layout a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -168,6 +168,16 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// *addr += v at GPU scope with release semantics; returns the old value.
+__device__ __forceinline__ int atomic_add_release(int* addr, int v) {
+  int old;
+  asm volatile("atom.release.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(addr), "r"(v)
+               : "memory");
+  return old;
+}
+
 // Orders this thread's ordinary shared-memory writes before later reads
 // by the async proxy (wgmma operands, bulk copies).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -307,6 +317,50 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : LITE_WG_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+#define LITE_WG_OUT128(d) \
+  LITE_WG_OUT64(d), LITE_WG_OUT8(d, 64), LITE_WG_OUT8(d, 72), LITE_WG_OUT8(d, 80), \
+      LITE_WG_OUT8(d, 88), LITE_WG_OUT8(d, 96), LITE_WG_OUT8(d, 104), LITE_WG_OUT8(d, 112), \
+      LITE_WG_OUT8(d, 120)
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], A and B in shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : LITE_WG_OUT128(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], A in registers (a[4], the
+// accumulator layout rounded to bf16 pairs), B in shared memory.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : LITE_WG_OUT128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 

@@ -19,19 +19,19 @@ in its three schedule modes:
   schedule lists compute tiles, dead fine tiles inside them are skipped,
   and every live fine tile votes on its own.
 
-Kernels: the gather walk (B3, B5) is the dense kernel B1 itself,
+Kernels: all three are the dense kernel B1 itself,
 ``csrc/flash_fwd.cu:flash_fwd_kernel`` (two wgmma warpgroups fed by TMA
-through a three-stage mbarrier ring) walking the row's live-tile list,
-entry ``lite_flash_fwd_gather``; the coarse walks (B4) are
-``csrc/lite_flash_fwd.cu`` + ``csrc/attention_fwd.cuh`` (mma.sync). One
-CTA per (b, h, 128-row q-tile) -- or ``fold_h`` heads in turn -- walks its
-schedule row, so a skipped tile costs no load and no math; a coarse row of
-``block_q = 128 * qsub`` rows is walked by its ``qsub`` CTAs, which AND
-their coarse votes with atomics. What bounds them on the H100:
-tensor-core issue on the visited tiles. The gather vote adds one row-max
-compare per tile and, per warp with a passing row, one store of 0 into the
-votes the wrapper fills with 1 (no barrier); the coarse vote one CTA-wide
-OR per visited tile.
+through a three-stage mbarrier ring), walking the row's live-tile list
+(B3, B5; entry ``lite_flash_fwd_gather``) or the coarse schedule's entries
+in the order :func:`_coarse_walk` gives (B4; entry
+``lite_flash_fwd_coarse``). One CTA per (b, h, 128-row q-tile) -- or
+``fold_h`` heads in turn -- walks its schedule row, so a skipped tile
+costs no load and no math; a coarse row of ``block_q = 128 * qsub`` rows
+is walked by its ``qsub`` CTAs. What bounds them on the H100: tensor-core
+issue on the visited tiles. A vote adds one row-max compare per tile and,
+per warp with a passing row, one store of 0 into the votes the wrapper
+fills with 1 (no barrier, no atomic: the coarse stores of a coarse row's
+``qsub`` CTAs are the AND of their votes).
 
 Vote contract (kept exactly from the JAX kernels):
 
@@ -219,7 +219,9 @@ def lite_flash_attention_plain(
 
 def _coarse_walk(kv_idx, count, kv_bits, qsub, ksub, qtf):
     """Per fine q-tile: the fine k-tiles of each coarse entry ``[B, H, Qtf,
-    E, ksub]`` and whether the q-tile visits them."""
+    E, ksub]`` and whether the q-tile visits them (entries in order, sub-tiles
+    in order within each: the kernel's walk, which skips as well the tiles
+    at or past the fine k-tile count; those hold no key)."""
     dev = kv_idx.device
     fq = torch.arange(qtf, device=dev)
     crow = fq // qsub

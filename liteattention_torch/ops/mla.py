@@ -7,14 +7,18 @@ absorption K is the whole latent row and V its first ``Dv`` channels, and
 every q head shares the one latent head.
 
 Kernel: ``csrc/mla_decode.cu``, replacing the Pallas kernel
-``liteattention_tpu/ops/mla.py:_mla_kernel``. One CTA per (KV split,
-64-row block, request) walks its keys in 64-key tiles (one 64-token page)
-through a cp.async ring; each tile is loaded once and feeds both QK^T (all
-D channels) and PV (the first Dv channels of the same tile). Splits merge
-in the decode kernel's merge (B8/B9's), whose plain version is
-:func:`~liteattention_torch.ops.combine.combine_attention`. What bounds it
-on the H100: bytes at ~242 FLOP per cache byte at 128 heads, with the
-tensor cores close behind (see the source's header).
+``liteattention_tpu/ops/mla.py:_mla_kernel``. One CTA per 64 q rows of a
+chunk of the keys: two wgmma warpgroups (S computed once, P handed from
+one to the other through shared memory), 64-key tiles loaded once by TMA
+through the cache's own strides, feeding both QK^T (all D channels) and PV
+(the first Dv). The work is cut on the device, with no host sync: the
+requests' 64-key tiles laid end to end are cut into equal chunks, one CTA
+per chunk and row block (:func:`split_plan` is the same cut in Python),
+and the last piece of a split request merges the pieces inside the same
+launch (:func:`~liteattention_torch.ops.combine.combine_attention` is the
+plain version of that merge). What
+bounds it on the H100: bytes at ~242 FLOP per cache byte at 128 heads,
+with the tensor cores close behind (see the source's header).
 
 The TPU kernel's 128-lane padding of the cache, its identity page table
 for a contiguous cache and its multi-page DMA runs (``pages_per_step``)
@@ -28,20 +32,21 @@ dtype or shape raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from liteattention_torch.ops import _build
-from liteattention_torch.ops.flash_decode import _sm_count
+from liteattention_torch.ops.flash_decode import _partial, _sm_count
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 MIN_LANES = 128
 MAX_ROWS = 128  # Sq * Hq, the JAX kernel's limit
 KERNEL_D, KERNEL_DV = 576, 512  # the shape the kernel is built for
-TILE_KEYS = 64  # keys per ring stage; a split is a whole number of tiles
-ROWS_PER_CTA = 64
+TILE_KEYS = 64  # keys per ring stage; a piece is a whole number of tiles
+ROWS_PER_CTA = 64  # q rows of a row block
+MIN_SPLIT_TILES = 8  # the least tiles a chunk holds (512 keys), unless there are fewer
 
 
 @dataclasses.dataclass
@@ -127,23 +132,57 @@ def _plain(c: _Call):
     if c.causal and c.sq > 1:
         qi = torch.arange(c.sq * c.hq, device=dev) // c.hq
         lim = lim - c.sq + 1 + qi[None, :]  # [B, R]
-    s = s.masked_fill(col >= lim[..., None], -torch.inf)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
-    l = p.sum(dim=-1, keepdim=True)
-    live = l > 0
-    out = torch.matmul(p, kf[..., : c.dv]) / torch.where(live, l, 1.0)
-    lse = torch.where(live, m * LN2 + torch.log(l), -torch.inf)[..., 0]
+    valid = (col < lim[..., None]).expand(s.shape)
+    out, lse = _partial(s, valid, kf[..., : c.dv])
     return out.to(c.q_rows.dtype), lse
 
 
-def _num_splits(ctas: int, capacity: int, device: torch.device) -> int:
-    """KV splits per request: about four waves of the grid at full capacity
-    (a CTA takes a whole SM here, against two for the decode kernel of
-    B8/B9, and ragged lengths leave the splits past a request's end
-    empty), with at least 512 keys per split."""
-    want = -(-4 * _sm_count(device.index) // max(ctas, 1))
-    return max(1, min(want, max(1, capacity // 512)))
+def split_plan(
+    lens: torch.Tensor, capacity: int, rows: int, sms: int, min_tiles: int = MIN_SPLIT_TILES
+) -> List[List[Tuple[int, int]]]:
+    """The kernel's split of the work: per request, the key ranges ``[k0,
+    k1)`` of its pieces in order (none for a request with no key; every
+    row block of a request has the same pieces). Each request's
+    ``TILE_KEYS``-key tiles (``ceil(min(len, capacity) / 64)`` of them)
+    are laid end to end, request by request, and cut into ``C`` equal
+    chunks, chunk ``c`` holding tiles ``[c T / C, (c + 1) T / C)``: ``C``
+    is the grid's width, ``sms`` over the row blocks, and fewer where a
+    chunk would hold under ``min_tiles`` tiles. It depends on the lengths,
+    the rows and the SM count only, never on the cache's form."""
+    lens = [min(max(int(x), 0), capacity) for x in lens.tolist()]
+    tiles = [-(-n // TILE_KEYS) for n in lens]
+    grid = max(1, sms // -(-rows // ROWS_PER_CTA))
+    total = sum(tiles)
+    chunks = min(grid, max(1, total // min_tiles))
+    edges = [c * total // chunks for c in range(chunks + 1)]
+    plan, x0 = [], 0
+    for n, length in zip(tiles, lens):
+        pieces = []
+        for c in range(chunks):
+            a, z = max(edges[c], x0), min(edges[c + 1], x0 + n)
+            if a < z:
+                pieces.append(((a - x0) * TILE_KEYS, min((z - x0) * TILE_KEYS, length)))
+        plan.append(pieces)
+        x0 += n
+    return plan
+
+
+# Per (device, stream): the tickets (int32, zero between launches: the
+# kernel puts each back) and the pieces' scratch of the last launch's size.
+_WORKSPACE = {}
+
+
+def _workspace(dev: torch.device, stream: int, tickets_n: int, slots: int):
+    key = (dev.index, stream)
+    tickets, parts = _WORKSPACE.get(key, (None, None))
+    if tickets is None or tickets.numel() < tickets_n:
+        tickets = torch.zeros(max(tickets_n, 1024), dtype=torch.int32, device=dev)
+    need = slots * ROWS_PER_CTA * (KERNEL_DV + 1)
+    if parts is None or parts.numel() < need:
+        parts = torch.empty(need, dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = (tickets, parts)
+    n_o = slots * ROWS_PER_CTA * KERNEL_DV
+    return tickets, parts[:n_o], parts[n_o:need]
 
 
 def _launch(c: _Call):
@@ -168,30 +207,23 @@ def _launch(c: _Call):
     lens = c.lens.to(**i32).contiguous()
     table = None if c.table is None else c.table.to(**i32).contiguous()
     rows = c.sq * c.hq
-    capacity = c.capacity
-    ctas = c.b * -(-rows // ROWS_PER_CTA)
-    splits = _num_splits(ctas, capacity, dev)
-    split_keys = -(-max(capacity, 1) // splits)
-    split_keys = -(-split_keys // TILE_KEYS) * TILE_KEYS
-    splits = -(-max(capacity, 1) // split_keys)  # no split past the capacity
+    grid = max(1, _sm_count(dev.index) // -(-rows // ROWS_PER_CTA))  # one CTA per SM
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    row_blocks = -(-rows // ROWS_PER_CTA)
+    tickets, o_part, lse_part = _workspace(dev, stream, row_blocks * c.b, row_blocks * grid * 2)
     out = torch.empty((c.b, rows, c.dv), dtype=q.dtype, device=dev)
     lse = torch.empty((c.b, rows), dtype=torch.float32, device=dev)
-    o_part = lse_part = None
-    if splits > 1:
-        o_part = torch.empty((splits, c.b, rows, c.dv), dtype=torch.float32, device=dev)
-        lse_part = torch.empty((splits, c.b, rows), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = _build.load_kernels().lite_mla_decode(
         q.data_ptr(), kv.data_ptr(), ptr(table), lens.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), ptr(o_part), ptr(lse_part), kv.stride(0), kv.stride(1),
-        c.b, rows, c.hq, c.sq, c.d, c.dv, capacity,
+        lse.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), tickets.data_ptr(),
+        kv.stride(0), kv.stride(1), kv.shape[0], kv.shape[1],
+        c.b, rows, c.hq, c.sq, c.d, c.dv, c.capacity,
         0 if table is None else table.shape[1], kv.shape[1] if table is not None else 0,
-        int(c.causal), split_keys, splits, c.scale, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        int(c.causal), grid, MIN_SPLIT_TILES, c.scale, dev.index, stream,
     )
     _build.check(err, "mla_decode")
     mla_decode.launches += 1
-    mla_decode.merge_launches += int(splits > 1)
     return out, lse
 
 
@@ -252,6 +284,5 @@ def mla_decode_plain(
 
 
 mla_decode.launches = 0
-mla_decode.merge_launches = 0
 
-__all__ = ["mla_decode", "mla_decode_plain"]
+__all__ = ["mla_decode", "mla_decode_plain", "split_plan"]

@@ -229,17 +229,22 @@ def _stable_votes(plain, thr):
     return plain(thr - 1e-3)[2] == plain(thr + 1e-3)[2]
 
 
-# (bq, bk, super-tile): coarse votes AND-ed over 2 CTAs (bq 256), coarse
-# steps of 2 fine tiles (bk 256), super-tile bitmaps; Sq 700 / Sk 900
-# leave ragged tails and a coarse tile hanging past the keys.
-@pytest.mark.parametrize("bq,bk,fine", [
-    (256, 256, False), (128, 256, False), (256, 128, False), (256, 256, True), (128, 384, True),
+# (bq, bk, super-tile, D, Sk): coarse votes AND-ed over 2 CTAs (bq 256),
+# coarse steps of 2 fine tiles (bk 256), super-tile bitmaps; Sq 700 / Sk 900
+# leave ragged tails and a coarse tile hanging past the keys; D 64; Sk 1024,
+# a multiple of 128 but not of bk 384, a coarse tile hanging past whole
+# fine tiles.
+@pytest.mark.parametrize("bq,bk,fine,d,sk", [
+    (256, 256, False, 128, 900), (128, 256, False, 128, 900), (256, 128, False, 128, 900),
+    (256, 256, True, 128, 900), (128, 384, True, 128, 900),
+    (256, 256, False, 64, 900), (256, 256, True, 64, 900),
+    (256, 384, False, 128, 1024), (128, 384, True, 64, 1024),
 ])
-def test_lite_coarse_kernel(dev, bq, bk, fine):
+def test_lite_coarse_kernel(dev, bq, bk, fine, d, sk):
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention_coarse_plain
     from liteattention_torch.ops.mask import compact_mask, compact_mask_fine
 
-    q, k, v = _qkv(dev, 1, 4, 2, 700, 900, 128, seed=bq + bk)
+    q, k, v = _qkv(dev, 1, 4, 2, 700, sk, d, seed=bq + bk)
     g = torch.Generator(device=dev).manual_seed(bk)
     qs, ks = bq // 128, bk // 128
     if fine:
@@ -247,7 +252,7 @@ def test_lite_coarse_kernel(dev, bq, bk, fine):
         m[0, 1, 2] = False  # a fine row with nothing live
         idx, count, bits = compact_mask_fine(m, qs, ks)
     else:
-        m = torch.rand(1, 4, -(-700 // bq), -(-900 // bk), generator=g, device=dev) < 0.6
+        m = torch.rand(1, 4, -(-700 // bq), -(-sk // bk), generator=g, device=dev) < 0.6
         m[0, 1, 1] = False  # a coarse row with nothing live: tile 0 computed
         (idx, count), bits = compact_mask(m), None
 
@@ -608,24 +613,30 @@ def test_entry_points_default_to_the_card(dev):
     assert Trainer(gpt, lambda m, x: m(x).sum(), TrainConfig()).device == dev
 
 
-# (form, sq, hq, pages per request): the DeepSeek decode shape in every cache
-# form, the causal 2-token verify. 24 pages of 64 (1536 keys) take the split
-# path and its merge (3 splits at 5 requests), 12 pages (768 keys) one split.
+# (form, sq, hq, pages per request, page size): the DeepSeek decode shape in
+# every cache form, the causal 2-token verify; the requests' keys split over
+# the SMs, their pieces merged inside the launch. Then pages of 96 keys (64
+# does not divide them: boxes of 32 rows), of 24 (boxes of 8) and of 20
+# (under 8 rows a box: row by row), and a contiguous cache of 3 x 64 keys,
+# each with a request shorter than one 64-key tile.
 MLA_DECODE_CASES = [
-    ("contiguous", 1, 128, 24), ("paged", 1, 128, 24), ("permuted", 1, 128, 24),
-    ("wide", 1, 128, 24), ("contiguous", 2, 32, 24), ("paged", 1, 128, 12),
-    ("permuted", 2, 16, 12),
+    ("contiguous", 1, 128, 24, 64), ("paged", 1, 128, 24, 64), ("permuted", 1, 128, 24, 64),
+    ("wide", 1, 128, 24, 64), ("contiguous", 2, 32, 24, 64), ("paged", 1, 128, 12, 64),
+    ("permuted", 2, 16, 12, 64),
+    ("permuted", 1, 128, 16, 96), ("permuted", 2, 32, 40, 24), ("paged", 1, 64, 30, 20),
+    ("contiguous", 1, 128, 3, 64), ("paged", 3, 32, 12, 64),
 ]
 
 
-@pytest.mark.parametrize("form,sq,hq,pps", MLA_DECODE_CASES)
-def test_mla_decode_kernel(dev, form, sq, hq, pps):
+@pytest.mark.parametrize("form,sq,hq,pps,ps", MLA_DECODE_CASES)
+def test_mla_decode_kernel(dev, form, sq, hq, pps, ps):
     """B10 against its plain version: out within 2e-2 absolute and 1e-2
     rel-L2, lse within 1e-3; a request of length 0 gives out 0 and lse
-    -inf; a 640-lane cache reads only its first 576 channels."""
+    -inf; a 640-lane cache reads only its first 576 channels; one launch,
+    and torch.profiler sees one B10 kernel and no merge kernel."""
     from liteattention_torch.ops.mla import mla_decode, mla_decode_plain
 
-    b, d, dv, ps = 5, 576, 512, 64
+    b, d, dv = 5, 576, 512
     g = torch.Generator(device=dev).manual_seed(sq * hq + pps)
     q = torch.randn(b, sq, hq, d, generator=g, device=dev).bfloat16()
     lanes = 640 if form == "wide" else d
@@ -633,6 +644,8 @@ def test_mla_decode_kernel(dev, form, sq, hq, pps):
     pool = torch.randn(n_pages, ps, lanes, generator=g, device=dev).bfloat16()
     lens = torch.randint(1, pps * ps + 1, (b,), generator=g, device=dev).int()
     lens[0], lens[1] = pps * ps, 0
+    if ps != 64 or pps < 6:
+        lens[2] = 37  # under one tile
     table = None
     if form in ("paged", "permuted"):
         perm = torch.randperm(n_pages, generator=g, device=dev) if form == "permuted" \
@@ -641,11 +654,16 @@ def test_mla_decode_kernel(dev, form, sq, hq, pps):
         cache = pool
     else:
         cache = pool[: b * pps].reshape(b, pps * ps, lanes)
-    n0, m0 = mla_decode.launches, mla_decode.merge_launches
-    out, lse = mla_decode(q, cache, lens, dv, page_table=table, return_lse=True)
-    torch.cuda.synchronize()
+    n0 = mla_decode.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out, lse = mla_decode(q, cache, lens, dv, page_table=table, return_lse=True)
+        torch.cuda.synchronize()
     assert mla_decode.launches == n0 + 1
-    assert mla_decode.merge_launches == m0 + int(pps * ps >= 1024)
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(n for k, n in kernels.items() if "mla_decode_kernel" in k) == 1, kernels
+    assert not any("merge" in k for k in kernels), kernels
     ro, rl = mla_decode_plain(q, cache, lens, dv, page_table=table, return_lse=True)
     assert out.shape == (b, sq, hq, dv) and lse.shape == (b, hq, sq)
     _check_decode(out.transpose(1, 2), lse, ro.transpose(1, 2), rl)
@@ -653,6 +671,66 @@ def test_mla_decode_kernel(dev, form, sq, hq, pps):
     if form == "wide":
         tight = mla_decode(q, cache[..., :d].contiguous(), lens, dv, return_lse=True)
         assert torch.equal(tight[0], out) and torch.equal(tight[1], lse)
+
+
+def test_mla_decode_kernel_many_short_requests(dev):
+    """B10 over 300 requests of 0-200 keys (a CTA's scan covers two
+    requests a thread, a chunk many whole requests): against its plain
+    version, twice with equal results (the tickets are back at 0)."""
+    from liteattention_torch.ops.mla import mla_decode, mla_decode_plain
+
+    b, hq, d, dv = 300, 16, 576, 512
+    g = torch.Generator(device=dev).manual_seed(300)
+    q = torch.randn(b, 1, hq, d, generator=g, device=dev).bfloat16()
+    cache = torch.randn(b, 200, d, generator=g, device=dev).bfloat16()
+    lens = torch.randint(0, 201, (b,), generator=g, device=dev).int()
+    lens[:3] = torch.tensor([0, 200, 1])
+    out, lse = mla_decode(q, cache, lens, dv, return_lse=True)
+    again = mla_decode(q, cache, lens, dv, return_lse=True)
+    torch.cuda.synchronize()
+    ro, rl = mla_decode_plain(q, cache, lens, dv, return_lse=True)
+    _check_decode(out.transpose(1, 2), lse, ro.transpose(1, 2), rl)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert (out[0] == 0).all() and torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.parametrize("ps", [0, 64, 96, 20])
+def test_mla_decode_kernel_ignores_the_cache_past_the_lengths(dev, ps):
+    """Rows of the cache past a request's length hold NaN (contiguous, ps
+    0, or pages of 64, 96 and 20 keys, unused table entries out of range):
+    out and lse equal B10 over the same cache with those rows set to 0."""
+    from liteattention_torch.ops.mla import mla_decode
+
+    b, hq, d, dv, s = 4, 32, 576, 512, 480
+    g = torch.Generator(device=dev).manual_seed(ps + 7)
+    q = torch.randn(b, 1, hq, d, generator=g, device=dev).bfloat16()
+    lens = torch.tensor([480, 33, 0, 301], device=dev, dtype=torch.int32)
+    clean = torch.randn(b, s, d, generator=g, device=dev).bfloat16()
+    clean[torch.arange(s, device=dev)[None] >= lens[:, None].long()] = 0
+    dirty = clean.clone()
+    dirty[torch.arange(s, device=dev)[None] >= lens[:, None].long()] = float("nan")
+    table = None
+    if ps:
+        pps = -(-s // ps)
+        pad = pps * ps - s
+        perm = torch.randperm(b * pps, generator=g, device=dev)
+        table = perm.reshape(b, pps).int()
+
+        def pool(c):
+            c = torch.nn.functional.pad(c, (0, 0, 0, pad), value=float("nan"))
+            out = torch.empty(b * pps, ps, d, device=dev, dtype=c.dtype)
+            out[perm] = c.reshape(b * pps, ps, d)
+            return out
+
+        clean, dirty = pool(clean), pool(dirty)
+        clean = torch.nan_to_num(clean, nan=0.0)
+        for i, n in enumerate(lens.tolist()):  # unused entries point nowhere
+            table[i, -(-n // ps):] = 1 << 20
+    want = mla_decode(q, clean, lens, dv, page_table=table, return_lse=True)
+    got = mla_decode(q, dirty, lens, dv, page_table=table, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_mla_decode_kernel_raises_on_what_it_does_not_take(dev):

@@ -25,7 +25,15 @@ from liteattention_tpu.ops.mask import compact_mask as jcompact  # noqa: E402
 from liteattention_tpu.ops.mask import compact_mask_fine as jcompact_fine  # noqa: E402
 from liteattention_tpu.ops.mask import compact_mask_gather as jcompact_gather  # noqa: E402
 from liteattention_tpu.ops.tile_sizes import BlockSizes as JBS  # noqa: E402
-from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention  # noqa: E402
+from liteattention_torch.ops.attention_ref import DEFAULT_MASK_VALUE  # noqa: E402
+from liteattention_torch.ops.lite_flash_fwd import (  # noqa: E402
+    LN2,
+    PLAIN_Q_TILES,
+    _chunk_scores,
+    _coarse_walk,
+    lite_flash_attention,
+    lite_flash_attention_coarse_plain,
+)
 from liteattention_torch.ops.mask import compact_mask, compact_mask_fine  # noqa: E402
 from liteattention_torch.ops.schedule_pack import pack_schedule  # noqa: E402
 from liteattention_torch.ops.tile_sizes import BlockSizes  # noqa: E402
@@ -204,3 +212,135 @@ def test_mode_arguments_are_checked():
     with pytest.raises(ValueError):  # a coarse grid that does not match
         lite_flash_attention(t(q), t(k), t(v), fidx, count, -2.0, fine_schedule=False,
                              block_sizes=BlockSizes(256, 256))
+
+
+def _walk_plan(kv_idx, count, kv_bits, qsub, ksub, seqlen_q, seqlen_k):
+    """The order in which B4's kernel walks (``flash_fwd.cu``'s coarse walks),
+    per fine q-tile: ``plan[b][h][qt]``
+    is the list of visited places ``(e, coarse tile, fine k-tile, start)`` in
+    order, ``start`` True at the first place of each entry (a vote step
+    starts there), from :func:`_coarse_walk` with the fine tiles at or past
+    the fine k-tile count left out (they hold no key). The kernel visits
+    ``max(len(places), 1)`` tiles: a walk with no place computes tile 0 with
+    every key hidden and votes nothing."""
+    qtf, ktf = -(-seqlen_q // 128), -(-seqlen_k // 128)
+    tiles, live = _coarse_walk(kv_idx, count, kv_bits, qsub, ksub, qtf)
+    live = (live & (tiles < ktf)).tolist()
+    tiles, idx = tiles.tolist(), kv_idx.tolist()
+    plan = []
+    for b, rows_b in enumerate(live):
+        plan.append([])
+        for h, rows_h in enumerate(rows_b):
+            plan[b].append([])
+            for qt, entries in enumerate(rows_h):
+                places = []
+                for e, subs in enumerate(entries):
+                    visits = [s for s, on in enumerate(subs) if on]
+                    places += [(e, idx[b][h][qt // qsub][e], tiles[b][h][qt][e][s], s == visits[0])
+                               for s in visits]
+                plan[b][h].append(places)
+    return plan
+
+
+def _walk_reference(q, k, v, idx, count, thr, bits, qsub, ksub):
+    """B4's kernel on the CPU, place by place along _walk_plan: per
+    fine q-tile the visited tiles' keys only, m_prev the running row max
+    (log2) from before each step's first place, votes stored as the kernel
+    stores them (0 into votes filled with 1; the first entry 0). Scores are
+    computed as the plain version computes them, so maxima agree exactly."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    group = h // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    step = PLAIN_Q_TILES * 128
+    s = torch.cat([_chunk_scores(q[:, :, r:r + step], kf, scale) for r in range(0, sq, step)], 2)
+    plan = _walk_plan(idx, count, bits, qsub, ksub, sq, sk)
+    qtc, ktc = idx.shape[2], idx.shape[3]
+    votes = torch.ones((b, h, qtc, ktc) if bits is None else (b, h, qtc * qsub, ktc * ksub),
+                       dtype=torch.int32)
+    out = torch.zeros(q.shape)
+    lse = torch.full((b, h, sq), -INF)
+    mask_value = DEFAULT_MASK_VALUE
+    for bi in range(b):
+        for hi in range(h):
+            for qt, places in enumerate(plan[bi][hi]):
+                rows = slice(qt * 128, min(sq, qt * 128 + 128))
+                crow = qt // qsub
+                if not places:  # one tile with every key hidden: out 0, lse -inf, no vote
+                    continue
+                if bits is None and count[bi, hi, crow] > 0:
+                    votes[bi, hi, crow, idx[bi, hi, crow, 0]] = 0
+                elif bits is not None and places[0][0] == 0:
+                    votes[bi, hi, qt, places[0][2]] = 0
+                m = torch.full((rows.stop - rows.start,), -INF)
+                m_prev, cols = m, []
+                for e, ci, tile, start in places:
+                    c = torch.arange(tile * 128, min(sk, tile * 128 + 128))
+                    mx = s[bi, hi, rows][:, c].amax(-1)
+                    if start:
+                        m_prev = m
+                    mp = torch.full_like(m, -INF) if e == 0 else m_prev.clamp(min=mask_value)
+                    if bool(((mx.clamp(min=mask_value) - mp) > thr).any()):
+                        votes[bi, hi, qt if bits is not None else crow,
+                              tile if bits is not None else ci] = 0
+                    m = torch.maximum(m, mx)
+                    cols.append(c)
+                c = torch.cat(cols)
+                x = s[bi, hi, rows][:, c]
+                p = torch.exp2(x - m[:, None])
+                l = p.sum(-1)
+                out[bi, hi, rows] = (p @ vf[bi, hi, c]) / l[:, None]
+                lse[bi, hi, rows] = m * LN2 + torch.log(l)
+    return out, lse, votes
+
+
+# Sq 700 (6 fine q-tiles), Sk 600 (5 fine k-tiles): at block_k 256 and 384
+# the last coarse tile hangs past the keys. Super-tile masks get a fine row
+# with no bit set.
+@pytest.mark.parametrize("mode,bq,bk", [
+    ("coarse", 256, 256), ("coarse", 128, 256), ("coarse", 256, 384),
+    ("super", 256, 256), ("super", 128, 384),
+])
+def test_coarse_walk_plan_gives_the_plain_result(mode, bq, bk):
+    """The walk B4's kernel follows (_walk_plan: visited tiles in
+    increasing order, a step start at each entry's first place, n >= 1 per
+    fine q-tile) gives lite_flash_attention_coarse_plain's out and lse
+    (within 2e-5) and its votes exactly, at a threshold inside the
+    headroom and at -inf and +inf."""
+    sq, sk = 700, 600
+    q, k, v = (t(x) for x in coherent_qkv(np.random.RandomState(bq + bk), 1, 4, sq, sk, 64, hk=2))
+    rng = np.random.RandomState(bk)
+    qs, ks = bq // 128, bk // 128
+    qtf, ktf = -(-sq // 128), -(-sk // 128)
+    if mode == "super":
+        fine = t(rng.rand(1, 4, qtf, ktf) < 0.45)
+        fine[0, 1, 2] = False  # a fine row with nothing live
+        idx, count, bits = compact_mask_fine(fine, qs, ks)
+    else:
+        idx, count = compact_mask(t(rng.rand(1, 4, -(-sq // bq), -(-sk // bk)) < 0.6))
+        bits = None
+    plan = _walk_plan(idx, count, bits, qs, ks, sq, sk)
+    for places in (p for head in plan[0] for p in head):
+        assert max(len(places), 1) >= 1
+        assert [pl[3] for pl in places] == [i == 0 or places[i - 1][0] != pl[0]
+                                           for i, pl in enumerate(places)]
+        assert all(a[2] < b[2] for a, b in zip(places, places[1:]))
+        assert all(pl[2] < ktf for pl in places)
+    if mode == "super":
+        assert plan[0][1][2] == []
+    else:
+        assert any(c * ks + ks > ktf for c in idx.unique().tolist())  # a tile hangs past Sk
+    head = lite_flash_attention_coarse_plain(q, k, v, idx, count, 0.0, bits, qsub=qs, ksub=ks,
+                                             return_headroom=True)[3]
+    mid = head[torch.isfinite(head)].median().item()
+    for thr in (mid, -INF, INF):
+        ro, rl, rv = lite_flash_attention_coarse_plain(q, k, v, idx, count, thr, bits,
+                                                       qsub=qs, ksub=ks)
+        wo, wl, wv = _walk_reference(q, k, v, idx, count, thr, bits, qs, ks)
+        np.testing.assert_allclose(wo.numpy(), ro.numpy(), atol=2e-5, rtol=0)
+        assert torch.equal(torch.isinf(wl), torch.isinf(rl))
+        fin = torch.isfinite(rl)
+        np.testing.assert_allclose(wl[fin].numpy(), rl[fin].numpy(), atol=2e-5, rtol=0)
+        assert torch.equal(wv, rv)

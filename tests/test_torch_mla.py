@@ -22,7 +22,14 @@ from liteattention_tpu.flash_attn_interface import (  # noqa: E402
 )
 from liteattention_tpu.ops.mla import mla_decode as jmla  # noqa: E402
 from liteattention_torch.flash_attn_interface import flash_mla_with_kvcache  # noqa: E402
-from liteattention_torch.ops.mla import mla_decode, mla_decode_plain  # noqa: E402
+from liteattention_torch.ops.combine import combine_attention  # noqa: E402
+from liteattention_torch.ops.mla import (  # noqa: E402
+    MIN_SPLIT_TILES,
+    TILE_KEYS,
+    mla_decode,
+    mla_decode_plain,
+    split_plan,
+)
 
 OUT_TOL, LSE_TOL = 2e-5, 2e-4
 
@@ -147,3 +154,79 @@ def test_flash_mla_with_kvcache_matches_jax():
     assert torch.equal(only, po)
     ro, rl = mla_decode_plain(t(q), t(kv4), t(lens), dv, return_lse=True)
     assert torch.equal(ro, po) and torch.equal(rl, pl)
+
+
+# Ragged lengths with an empty request, one under a 64-key tile and some
+# ending mid-page; pages of 64, of 16 (several a tile) and of 48 (64 does
+# not divide it: a tile spans pages).
+SPLIT_LENS = [0, 37, 200, 333, 450]
+
+
+def _split_plain(q, pool, table, lens, dv, plan):
+    """B10's split and in-kernel merge in plain PyTorch: each piece [k0,
+    k1) of a request's keys (``plan``, from split_plan) attended alone by
+    mla_decode_plain, a request's pieces merged by combine_attention."""
+    b, sq, hq, _ = q.shape
+    keys = pool[table.long()].reshape(b, -1, pool.shape[-1])
+    out = torch.zeros(b, sq, hq, dv)
+    lse = torch.full((b, hq, sq), -torch.inf)
+    for i, pieces in enumerate(plan):
+        parts = [mla_decode_plain(q[i : i + 1], keys[i : i + 1, k0:k1],
+                                  torch.tensor([k1 - k0], dtype=torch.int32), dv,
+                                  return_lse=True) for k0, k1 in pieces]
+        if parts:
+            o, l = combine_attention(torch.stack([o[0] for o, _ in parts]),
+                                     torch.stack([l[0].transpose(0, 1) for _, l in parts]))
+            out[i], lse[i] = o, l.transpose(0, 1)
+    return out, lse
+
+
+@pytest.mark.parametrize("page_size", [64, 16, 48])
+def test_mla_decode_split_plain_matches_jax(page_size):
+    """B10's device split (split_plan for a card of 8 SMs: its pieces cut
+    the requests at 64-key tiles across chunks) and its in-kernel merge
+    (combine_attention) against JAX's mla_decode, and against the unsplit
+    plain result within 1e-5 (the merge's arithmetic)."""
+    b, hq, d, dv, sms = len(SPLIT_LENS), 8, 256, 128, 8
+    pps = -(-512 // page_size)
+    rng = np.random.RandomState(page_size)
+    q = rng.randn(b, 1, hq, d).astype(np.float32)
+    pool = rng.randn(b * pps + 1, page_size, d).astype(np.float32)
+    table = rng.permutation(b * pps + 1)[: b * pps].astype(np.int32).reshape(b, pps)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    plan = split_plan(t(lens), pps * page_size, hq, sms)
+    assert plan[0] == [] and max(len(pieces) for pieces in plan) > 1
+    jo, jl = jmla(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(lens), dv,
+                  page_table=jnp.asarray(table), return_lse=True, interpret=True)
+    so, sl = _split_plain(t(q), t(pool), t(table), t(lens), dv, plan)
+    _close((np.asarray(jo), np.asarray(jl)), (so.numpy(), sl.numpy()))
+    wo, wl = mla_decode_plain(t(q), t(pool), t(lens), dv, page_table=t(table), return_lse=True)
+    np.testing.assert_allclose(so.numpy(), wo.numpy(), atol=1e-5, rtol=0)
+    fin = torch.isfinite(wl)
+    assert torch.equal(fin, torch.isfinite(sl)) and not fin[0].any()
+    np.testing.assert_allclose(sl[fin].numpy(), wl[fin].numpy(), atol=1e-5, rtol=0)
+    assert (so[0] == 0).all()
+
+
+@pytest.mark.parametrize("rows,sms,capacity", [(16, 8, 512), (128, 132, 8192), (128, 16, 4096)])
+def test_mla_split_plan_cuts_every_request(rows, sms, capacity):
+    """split_plan's pieces cover each request's keys [0, len) in order, cut
+    at 64-key tiles, and its chunks hold equal tile counts (within one) of
+    at least MIN_SPLIT_TILES tiles where there are enough."""
+    rng = np.random.RandomState(rows + sms)
+    lens = rng.randint(0, capacity + 1, size=37)
+    lens[:3] = [0, 1, capacity + 100]  # empty, one key, past the capacity
+    plan = split_plan(torch.as_tensor(lens), capacity, rows, sms)
+    total = sum(-(-n // TILE_KEYS) for n in np.minimum(lens, capacity))
+    chunks = min(max(1, sms // -(-rows // 64)), max(1, total // MIN_SPLIT_TILES))
+    lo, hi = total // chunks, -(-total // chunks)
+    tiles = []
+    for n, pieces in zip(np.minimum(lens, capacity), plan):
+        starts = [k0 for k0, _ in pieces]
+        assert starts == ([0] + [k1 for _, k1 in pieces[:-1]] if n else [])
+        assert (pieces[-1][1] if pieces else 0) == n
+        assert all(k0 % TILE_KEYS == 0 for k0, _ in pieces)
+        sizes = [-(-(k1 - k0) // TILE_KEYS) for k0, k1 in pieces]
+        assert all(x <= hi for x in sizes) and all(lo <= x for x in sizes[1:-1])
+        tiles += sizes
+    assert sum(tiles) == total and len(tiles) >= chunks
