@@ -5,7 +5,8 @@
 
 Each variant undoes one decision of ``liteattention_torch/ops/csrc/
 flash_fwd.cu:flash_fwd_kernel`` in a copy of the sources, builds that copy
-alone (``nvcc``, as ``liteattention_torch.ops._build`` does) and loads its
+alone (``nvcc``, as ``liteattention_torch.ops._build`` does, with
+``mla_fwd.cu``, which the file's MLA entry calls) and loads its
 ``lite_flash_fwd_dense`` entry. All variants are timed in turns (order
 reversed every other round) at B1's four shapes on the main paths -- the
 Wan self- and cross-attention, causal GPT-2 small and the causal serving
@@ -35,7 +36,7 @@ CSRC = ROOT / "liteattention_torch" / "ops" / "csrc"
 FWD = "flash_fwd.cu"
 
 REFILL = "      refill(f);  // while the products run\n"
-RELEASE = "      if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j\n"
+RELEASE = "      if (lane == 0) sm90::mbar_arrive(&vempty[stage]);  // this warp is done with stage j\n"
 TURN_SYNC = "      sm90::named_sync(kTurn + wg, kThreads);\n"
 TURN_ARRIVE = "      sm90::named_arrive(kTurn + 1 - wg, kThreads);\n"
 TURN_FIRST = "    if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);\n"
@@ -65,8 +66,11 @@ LOOP_BODY_AFTER_SOFTMAX = """      sm90::wgmma_wait<0>();
 #pragma unroll
       for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
 """
-LAST_PV = """    sm90::wgmma_fence();
-    issue_pv<D>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kKV);
+K_RELEASE = (
+    "      if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[next]);  // this warp is done with K_{j+1}\n")
+LAST_PV = """    if constexpr (SPLIT) sm90::mbar_wait(&vfull[(walk.n - 1) % 2], ((walk.n - 1) / 2) & 1);
+    sm90::wgmma_fence();
+    issue_pv<DV, kKeys>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kK);
     if constexpr (FOLD) refill(f0 + walk.n - 1);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(od);
@@ -93,11 +97,11 @@ def wgmma_under_branch(s):
     s = edit(s, LOOP_HEAD, LOOP_HEAD.replace("j + 1 < walk.n", "j < walk.n")
              + "      const bool more = j + 1 < walk.n;\n")
     s = edit(s, FULL_WAIT, "      if (more) sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);\n")
-    s = edit(s, "      issue_s<D>(sd, q_desc, ring + next * L::kStage);\n",
-             "      if (more) issue_s<D>(sd, q_desc, ring + next * L::kStage);\n")
-    s = edit(s, "      sm90::wgmma_wait<1>();\n      sm90::fence_regs(sd);\n" + SOFTMAX,
+    s = edit(s, "      issue_s<DK, kKeys>(sd, q_desc, ring + next * L::kStage);\n",
+             "      if (more) issue_s<DK, kKeys>(sd, q_desc, ring + next * L::kStage);\n")
+    s = edit(s, "      sm90::wgmma_wait<1>();\n      sm90::fence_regs(sd);\n" + K_RELEASE + SOFTMAX,
              "      if (more) {\n        sm90::wgmma_wait<1>();\n        sm90::fence_regs(sd);\n"
-             "  " + SOFTMAX.replace("\n      ", "\n        ").replace("\n  ", "\n    ")
+             "  " + K_RELEASE + "  " + SOFTMAX.replace("\n      ", "\n        ").replace("\n  ", "\n    ")
              + "      }\n")
     s = edit(s, LOOP_BODY_AFTER_SOFTMAX, """      sm90::wgmma_wait<0>();
       sm90::fence_regs(od);
@@ -123,7 +127,7 @@ def late_refill(s):
     s = edit(s, REFILL, "")
     return edit(s, RELEASE, RELEASE + """      if (ct == 0 && f + kStages < n_dense) {
         sm90::mbar_wait(&empty[stage], (f / kStages) & 1);
-        load_tile<D>(tm_k, tm_v, smem, full, stage, f + kStages, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, stage, f + kStages, bhk0);
       }
 """)
 
@@ -146,13 +150,13 @@ def producer_warp(s):
     if (threadIdx.x == kThreads) {
       sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-      for (int a = 0; a < D / 64; ++a) {
+      for (int a = 0; a < DK / 64; ++a) {
         sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0,
                           b * p.heads + h0);
       }
       for (int j = 0; j < n_dense; ++j) {
         if (j >= kStages) sm90::mbar_wait(&empty[j % kStages], ((j - kStages) / kStages) & 1);
-        load_tile<D>(tm_k, tm_v, smem, full, j % kStages, j, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j % kStages, j, bhk0);
       }
     }
     return;
@@ -166,7 +170,8 @@ def multicast(s):
     multicasts each K tile and rank 1 each V tile into both CTAs, which
     halves the K/V bytes read from L2; every warp releases a stage in both
     CTAs."""
-    s = edit(s, "// K and V of k-tile `tile` into ring stage `stage` (thread 0).\ntemplate <int D>\n",
+    s = edit(s, "// K and V of k-tile `tile` into ring stage `stage` on one barrier (thread 0).\n"
+             "template <int DK, int DV>\n",
              """__device__ __forceinline__ void tma_load_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -195,40 +200,39 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   return r;
 }
 
-// K and V of k-tile `tile` into ring stage `stage` (thread 0).
-template <int D, bool MC = false>
+// K and V of k-tile `tile` into ring stage `stage` on one barrier (thread 0).
+template <int DK, int DV, bool MC = false>
 """)
     s = edit(s, """                                          int tile, int bhk) {
-  using L = Smem<D>;
-  unsigned char* dst = smem + L::ring + stage * L::kStage;
-  sm90::mbar_expect_tx(full + stage, 2 * L::kKV);
+  sm90::mbar_expect_tx(full + stage, Smem<DK, DV>::kStage);
 """, """                                          int tile, int bhk, uint32_t rank = 0) {
-  using L = Smem<D>;
-  unsigned char* dst = smem + L::ring + stage * L::kStage;
-  sm90::mbar_expect_tx(full + stage, 2 * L::kKV);
+  sm90::mbar_expect_tx(full + stage, Smem<DK, DV>::kStage);
   if constexpr (MC) {
+    using L = Smem<DK, DV>;
+    constexpr int kKeys = Tiles<DK, DV>::kKeys;
+    unsigned char* dst = smem + L::ring + stage * L::kStage + rank * L::kK;
 #pragma unroll
-    for (int a = 0; a < D / 64; ++a) {
-      tma_load_mc(dst + rank * L::kKV + a * kKeys * 128, rank == 0 ? &tm_k : &tm_v, full + stage,
-                  64 * a, tile * kKeys, bhk);
+    for (int a = 0; a < (rank == 0 ? DK : DV) / 64; ++a) {
+      tma_load_mc(dst + a * kKeys * 128, rank == 0 ? &tm_k : &tm_v, full + stage, 64 * a,
+                  tile * kKeys, bhk);
     }
     return;
   }
 """)
-    s = edit(s, "  using L = Smem<D>;\n  extern __shared__",
-             "  using L = Smem<D>;\n  constexpr int kCluster = CAUSAL ? 1 : 2;\n"
+    s = edit(s, "  using L = Smem<DK, DV>;\n  extern __shared__",
+             "  using L = Smem<DK, DV>;\n  constexpr int kCluster = CAUSAL ? 1 : 2;\n"
              "  const uint32_t rank = kCluster == 1 ? 0 : cluster_rank();\n  extern __shared__")
     s = edit(s, "sm90::mbar_init(&empty[s], kWarps);", "sm90::mbar_init(&empty[s], kWarps * kCluster);")
     s = edit(s, "    sm90::mbar_fence_init();\n  }\n  __syncthreads();\n",
              "    sm90::mbar_fence_init();\n  }\n  if constexpr (kCluster > 1) {\n    cluster_sync();\n"
              "  } else {\n    __syncthreads();\n  }\n")
-    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, j, j, bhk0);",
-             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, j, j, bhk0, rank);")
-    s = edit(s, "load_tile<D>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);",
-             "load_tile<D, kCluster == 2>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0, "
+    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, j, j, bhk0);",
+             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, j, j, bhk0, rank);")
+    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);",
+             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0, "
              "rank);")
-    s = edit(s, RELEASE, "      if (lane == 0) {\n        sm90::mbar_arrive(&empty[stage]);\n"
-             "        if constexpr (kCluster > 1) arrive_peer(&empty[stage], rank ^ 1);\n      }\n")
+    s = edit(s, RELEASE, "      if (lane == 0) {\n        sm90::mbar_arrive(&vempty[stage]);\n"
+             "        if constexpr (kCluster > 1) arrive_peer(&vempty[stage], rank ^ 1);\n      }\n")
     s = edit(s, STORE_END, STORE_END[:-2] + "\n  if constexpr (kCluster > 1) cluster_sync();\n}")
     return edit(s, LAUNCH, """  constexpr int kCluster = CAUSAL ? 1 : 2;
   cudaLaunchConfig_t cfg = {};
@@ -290,7 +294,7 @@ def build(names, work):
         if VARIANTS[name] is not None:
             (d / FWD).write_text(VARIANTS[name]((d / FWD).read_text()))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-o",
-               str(d / "lib.so"), str(d / FWD)]
+               str(d / "lib.so"), str(d / FWD), str(d / "mla_fwd.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     out = {}
@@ -303,9 +307,10 @@ def build(names, work):
             m = re.search(r"(?:Compiling entry function|in the function) '(\w+)'", line)
             kernel = m.group(1) if m else kernel
             # B1's dense instantiations (the list walks of B3 and B5 share the file).
-            if not kernel or not re.search(r"flash_fwd_kernelILi\d+ELb\dELb0E", kernel):
+            m = re.search(r"flash_fwd_kernelILi(\d+)ELi(\d+)ELb(\d)ELi0E", kernel or "")
+            if not m:
                 continue
-            key = re.sub(r".*flash_fwd_kernelILi(\d+)ELb(\d).*", r"D\1 causal\2", kernel)
+            key = f"D{m.group(1)}/{m.group(2)} causal{m.group(3)}"
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 report[key + " registers"] = int(m.group(1))

@@ -87,9 +87,11 @@ Phases (any failure exits non-zero and prints no result line):
    -inf); the run must launch B10 once a call and, as torch.profiler
    counts the kernels of its decode calls, no merge kernel (the split
    merge runs inside the launch); (b) ``flash_attn_func`` at the prefill shape, 2 prompts x 4096
-   tokens x 128 heads at (q/k 192, v 128), causal (B1's MLA
-   instantiation), against its plain version over all heads, and the
-   (576, 512) and (64, 512) + qv shapes at a small size; (c) the two
+   tokens x 128 heads at (q/k 192, v 128), causal (B1's kernel at D 192
+   and Dv 128), and at the absorbed shapes at V 512, one 4096-token
+   prompt x 128 heads on one KV head, causal: (576, 512) and (64, 512) +
+   qv (the split-O kernel), each against its plain version over all
+   heads, plus small checks (Sq > Sk, GQA, ragged tails); (c) the
    kernels' times beside their bounds, plain versions and SDPA (the
    backend that ran is named).
 8. A JSON line of kernel results (launches read on each path's counted
@@ -102,14 +104,17 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
 times B1 (at four shapes), B3, B4 (coarse and super-tile), B5, the decode
 kernel (B8 full and ragged, bf16 and int8, B9b paged), the MLA decode B10
-(ragged permuted pages and full lengths, beside SDPA) and the backward B7
-of the checkout at DIR instead (see ``ab_times``): to compare two
-checkouts on one card, run it for each in turns in one job.
+(ragged permuted pages and full lengths, beside SDPA), B1's MLA kernels
+at phase 7's three shapes, B6 (beside ``index_select``) and the backward
+B7 of the checkout at DIR instead, with digests of B1's, B3's and B5's
+outputs (see ``ab_times``): to compare two checkouts on one card, run it
+for each in turns in one job.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -326,8 +331,8 @@ def banded_mask(b, h, qt, kt, sparsity, device):
 def kernel_wrappers():
     """Every kernel entry of the port, by its name in the kernels line: the
     wrapper and the attribute that counts its launches (the lite wrapper
-    counts B3, B5 and B4 apart, flash_attention B1 and its MLA
-    instantiation)."""
+    counts B3, B5 and B4 apart, flash_attention B1, B1 at the MLA prefill
+    shape (192, 128) and the split-O MLA kernel at V 512)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -338,6 +343,7 @@ def kernel_wrappers():
 
     return {"flash_fwd": (flash_attention, "launches"),
             "flash_fwd_mla": (flash_attention, "mla_launches"),
+            "flash_fwd_mla_v512": (flash_attention, "mla_v512_launches"),
             "schedule_pack": (pack_schedule, "launches"),
             "lite_flash_fwd": (lite_flash_attention, "launches"),
             "lite_flash_fwd_coarse": (lite_flash_attention, "coarse_launches"),
@@ -1892,10 +1898,13 @@ def engine_phase(dev, full, card):
 # head attends one latent row of 512 + 64 = 576 channels, V its first 512;
 # 64 requests with ragged cache lengths in 1024-8192 over one layer's pool
 # of 64-token pages (64 x 8192 x 576 bf16, 604 MB). Prefill: 2 prompts x
-# 4096 tokens through flash_attn_func at (q/k 192 = 128 + 64, v 128), causal.
+# 4096 tokens through flash_attn_func at (q/k 192 = 128 + 64, v 128), causal;
+# and the absorbed forms of a 4096-token prompt at V 512, every head on one
+# KV head (the latent row): (576, 512), and (64, 512) with the qv term.
 MLA_HEADS, MLA_D, MLA_DV = 128, 576, 512
 MLA_BATCH, MLA_MIN_LEN, MLA_MAX_LEN, MLA_PAGE = 64, 1024, 8192, 64
 MLA_PREFILL_BATCH, MLA_PREFILL_SEQ, MLA_QK, MLA_V = 2, 4096, 192, 128
+MLA_ABS_BATCH, MLA_ABS_SEQ, MLA_ROPE = 1, 4096, 64
 # B10 against its plain version: rel-L2 of the outputs over the tensor and
 # over each request's block of rows (bf16 output, P rounded to bf16 before
 # PV); lse as LSE_TOL. B1-MLA: as check_flash, plus the same rel-L2 over
@@ -1981,16 +1990,19 @@ def check_mla(label, out, lse, ro, rl):
     return err
 
 
-def check_flash_mla(q, k, v, label, causal=False, qv=None):
-    """B1's MLA instantiation against the plain version: out within
-    OUT_TOL (over max(1, |plain|) when causal), lse within LSE_TOL, rel-L2
-    over each (b, h, 128-row block) within MLA_BLOCK_TOL."""
+def check_flash_mla(q, k, v, label, causal=False, qv=None, got=None, scale=None):
+    """B1's MLA kernels against the plain version: out within OUT_TOL (over
+    max(1, |plain|) when causal), lse within LSE_TOL, rel-L2 over each (b,
+    h, 128-row block) within MLA_BLOCK_TOL. ``got``: the kernel's (out,
+    lse) from an earlier call with these inputs and ``scale`` (default
+    1/sqrt(D)), else it is called here."""
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
 
-    out, lse = flash_attention(q, k, v, causal=causal, qv=qv, return_lse=True)
+    scale = 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
+    out, lse = got or flash_attention(q, k, v, scale, causal=causal, qv=qv, return_lse=True)
     torch.cuda.synchronize()
-    ro, rl = flash_attention_plain(q, k, v, 1.0 / q.shape[-1] ** 0.5, causal, qv=qv)
+    ro, rl = flash_attention_plain(q, k, v, scale, causal, qv=qv)
     diff = (out.float() - ro.float()).abs()
     err = diff.max().item()
     err_chk = (diff / ro.float().abs().clamp_min(1.0)).max().item() if causal else err
@@ -1998,18 +2010,80 @@ def check_flash_mla(q, k, v, label, causal=False, qv=None):
     check(torch.equal(fin, torch.isfinite(lse)), f"B1-MLA {label}: lse -inf rows differ")
     err_l = (lse[fin] - rl[fin]).abs().max().item()
     rel, blk = block_rel_l2(out, ro)
+    dead = int((~fin).sum())
+    if dead:
+        check(out[~fin].abs().max().item() == 0.0, f"B1-MLA {label}: a row with no key is not 0")
     log(f"  B1-MLA {label}: max|out| err {err:.3e}, rel-L2 {rel:.2e}, worst 128-row block "
-        f"{blk:.2e}, max|lse| err {err_l:.3e}")
+        f"{blk:.2e}, max|lse| err {err_l:.3e}" + (f", {dead} rows with no key" if dead else ""))
     check(err_chk < OUT_TOL and err_l < LSE_TOL and blk < MLA_BLOCK_TOL,
           f"B1-MLA {label} disagrees")
     return err
 
 
+def mla_abs_inputs(dev, seed=7373):
+    """phase 7's absorbed prefill inputs in flash_attn_func's [B, S, H, D]
+    layout: (576, 512) as (q, k, v) and (64, 512) + qv as (q, k, v, qv),
+    every head on one KV head."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, h = MLA_ABS_BATCH, MLA_ABS_SEQ, MLA_HEADS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    return {"(576, 512)": (rnd(b, s, h, MLA_D), rnd(b, s, 1, MLA_D), rnd(b, s, 1, MLA_DV)),
+            "(64, 512) + qv": (rnd(b, s, h, MLA_ROPE), rnd(b, s, 1, MLA_ROPE),
+                               rnd(b, s, 1, MLA_DV), rnd(b, s, h, MLA_DV))}
+
+
+def mla_fwd_timed(label, q, k, v, qv, card):
+    """B1's MLA kernel at one shape ([B, H, S, D], causal, default scale)
+    by CUDA events, beside its bound, its plain version and SDPA (the
+    first backend that takes it; with qv on the concatenated [q | qv], [k
+    | v], concatenated before the timer; KV heads expanded to the q heads
+    where they differ)."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+
+    b, h, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[3]
+    ds = d + (dv if qv is not None else 0)
+    scale = d**-0.5
+    f = {"shape": f"{b}x{h}/{k.shape[1]}x{sq}, ({d}, {dv}){' + qv' if qv is not None else ''}, "
+                  "causal"}
+    f["ms"] = cuda_ms(lambda: flash_attention(q, k, v, scale, causal=True, qv=qv))
+    f["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, scale, True, qv=qv), reps=1)
+    torch.cuda.empty_cache()
+    flops = 2 * (ds + dv) * attn_pairs(sq, sk, True) * b * h
+    out_bytes = b * h * sq * (dv * 2 + 4)
+    f["bound_ms"], f["bound_by"] = bound(
+        flops, nbytes(q, k, v) + (0 if qv is None else nbytes(qv)) + out_bytes)
+    f["tflops"] = flops / f["ms"] / 1e9
+    qs, ks = (q, k) if qv is None else (torch.cat([q, qv], -1), torch.cat([k, v], -1))
+    ks, vs = (x.expand(b, h, sk, x.shape[-1]) for x in (ks, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend, f["library_ms"], t_lib = sdpa_backend_ms(
+        label, lambda: sdpa(qs, ks, vs, is_causal=True, scale=scale))
+    f["timer"] = {"ms": "events", "plain_ms": "events", "library_ms": t_lib}
+    f["library"] = (f"torch SDPA ({backend} backend)" if backend else "none") + (
+        ", [q | qv] and [k | v] concatenated" if qv is not None else "") + (
+        ", KV heads expanded" if k.shape[1] != h else "")
+    lib = "n/a" if f["library_ms"] is None else f"{f['library_ms']:.3f} ms"
+    log(f"  B1-MLA {label} {f['shape']}: kernel {f['ms']:.3f} ms ({f['tflops']:.1f} TFLOP/s), "
+        f"plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms ({f['bound_by']}, "
+        f"{f['bound_ms'] / f['ms']:.1%} of it), {f['library']} {lib} [{card}]")
+    del qs, ks, vs
+    torch.cuda.empty_cache()
+    return f
+
+
 def mla_phase(dev, card):
     """Phase 7: the counted run of the MLA path through its entry points
     (flash_mla_with_kvcache in four cache forms, flash_attn_func at the
-    prefill shape), each against its plain version, small causal, empty-row
-    and other-width checks, then the kernels' times."""
+    prefill shape and at the absorbed shapes at V 512), each against its
+    plain version, small causal, empty-row and other-width checks, then the
+    kernels' times."""
     import torch
     from liteattention_torch.flash_attn_interface import flash_attn_func, flash_mla_with_kvcache
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
@@ -2024,6 +2098,7 @@ def mla_phase(dev, card):
 
     b, hp, sp = MLA_PREFILL_BATCH, MLA_HEADS, MLA_PREFILL_SEQ
     pq, pk, pv = rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_QK), rnd(b, sp, hp, MLA_V)
+    ab = mla_abs_inputs(dev)
 
     def decode():
         return {name: flash_mla_with_kvcache(q, cache, table, lens, MLA_DV)
@@ -2036,10 +2111,14 @@ def mla_phase(dev, card):
     reset_counts()
     outs, seen = kernel_launches(decode)
     prefill = flash_attn_func(pq, pk, pv, causal=True, return_softmax_lse=True)
+    absorbed = {name: flash_attn_func(*xs[:3], causal=True, qv=xs[3] if len(xs) > 3 else None,
+                                      return_softmax_lse=True)
+                for name, xs in ab.items()}
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches during the MLA run: {counts}")
-    check(counts["mla_decode"] == len(outs) and counts["flash_fwd_mla"] == 1,
+    check(counts["mla_decode"] == len(outs) and counts["flash_fwd_mla"] == 1
+          and counts["flash_fwd_mla_v512"] == len(absorbed),
           "mla: a kernel of the path did not launch as often as the path calls it")
     # The profiler can miss launches (see device_ms): then the same calls
     # again, uncounted, up to twice.
@@ -2092,12 +2171,28 @@ def mla_phase(dev, card):
           and err_l < LSE_TOL and blk < MLA_BLOCK_TOL, "B1-MLA prefill disagrees")
     del ro, rl, diff
     qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (pq, pk, pv))
+    # The absorbed prefill forms, as flash_attn_func returned them (its
+    # default scale covers the score's 576 channels).
+    abh = {name: [a.transpose(1, 2).contiguous() for a in xs] for name, xs in ab.items()}
+    del ab
+    err_v = 0.0
+    for name, xs in abh.items():
+        o_, l_ = absorbed.pop(name)
+        err_v = max(err_v, check_flash_mla(
+            *xs[:3], f"flash_attn_func {name} causal {MLA_ABS_BATCH}x{MLA_ABS_SEQ}x"
+            f"{MLA_HEADS}, one KV head", True, qv=xs[3] if len(xs) > 3 else None,
+            got=(o_.transpose(1, 2), l_), scale=MLA_D**-0.5))
+        del o_, l_
+    torch.cuda.empty_cache()
     for causal in (False, True):
-        err_f = max(err_f, check_flash_mla(rnd(1, 8, 700, 576), rnd(1, 8, 900, 576),
+        err_v = max(err_v, check_flash_mla(rnd(1, 8, 700, 576), rnd(1, 8, 900, 576),
                                            rnd(1, 8, 900, 512), f"(576, 512) {causal=}", causal))
-        err_f = max(err_f, check_flash_mla(rnd(2, 4, 300, 64), rnd(2, 2, 555, 64),
+        err_v = max(err_v, check_flash_mla(rnd(2, 4, 300, 64), rnd(2, 2, 555, 64),
                                            rnd(2, 2, 555, 512), f"(64, 512) + qv {causal=}",
                                            causal, qv=rnd(2, 4, 300, 512)))
+        err_v = max(err_v, check_flash_mla(rnd(1, 4, 300, 576), rnd(1, 1, 100, 576),
+                                           rnd(1, 1, 100, 512), f"(576, 512) Sq > Sk {causal=}",
+                                           causal))
 
     # The kernels' times beside their bounds, plain versions and SDPA.
     res = {}
@@ -2150,21 +2245,12 @@ def mla_phase(dev, card):
     r["merge_launches"] = merges
     res["mla_decode"] = r
 
-    flops = 2 * (MLA_QK + MLA_V) * attn_pairs(sp, sp, True) * b * hp
-    f = {"err": err_f, "shape": f"{b}x{hp}x{sp}, ({MLA_QK}, {MLA_V}), causal"}
-    f["ms"] = cuda_ms(lambda: flash_attention(qh, kh, vh, causal=True))
-    f["plain_ms"] = cuda_ms(lambda: flash_attention_plain(qh, kh, vh, None, True), reps=1)
-    f["bound_ms"], f["bound_by"] = bound(flops, nbytes(qh, kh, vh, po, pl))
-    backend, f["library_ms"], t_lib = sdpa_backend_ms(
-        "prefill", lambda: sdpa(qh, kh, vh, is_causal=True))
-    f["timer"] = {"ms": "events", "plain_ms": "events", "library_ms": t_lib}
-    f["library"] = f"torch SDPA ({backend} backend), V of its own head dim"
-    f["tflops"] = flops / f["ms"] / 1e9
-    lib = "n/a" if f["library_ms"] is None else f"{f['library_ms']:.3f} ms"
-    log(f"  B1-MLA prefill: kernel {f['ms']:.3f} ms ({f['tflops']:.1f} TFLOP/s), plain "
-        f"{f['plain_ms']:.3f} ms, bound {f['bound_ms']:.3f} ms ({f['bound_by']}), "
-        f"{f['library']} {lib} [{card}]")
-    res["flash_fwd_mla"] = f
+    del prefill, po, pl
+    res["flash_fwd_mla"] = {"err": err_f, **mla_fwd_timed("prefill", qh, kh, vh, None, card)}
+    del qh, kh, vh
+    abs_t = {name: mla_fwd_timed(name, *xs[:3], xs[3] if len(xs) > 3 else None, card)
+             for name, xs in abh.items()}
+    res["flash_fwd_mla_v512"] = {"err": err_v, **abs_t["(576, 512)"], "qv": abs_t["(64, 512) + qv"]}
     return counts, res
 
 
@@ -2175,7 +2261,7 @@ def mla_phase(dev, card):
 # that B4 ran on before, kept for older checkouts; "mla_decode_kernel"
 # B10).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
-              "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd")
+              "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel")
 
 
 def ab_times(reps):
@@ -2194,9 +2280,15 @@ def ab_times(reps):
     coarse mask, and super-tile bits of the fine band), of B10 at phase
     7's shape (ragged lengths over permuted 64-token pages, and full
     lengths contiguous, with any merge kernel it launches; device_ms)
-    beside SDPA enable_gqa at full lengths, and of
+    beside SDPA enable_gqa at full lengths, of B1's MLA kernels at phase
+    7's three causal shapes (the prefill at (192, 128) and the absorbed
+    (576, 512) and (64, 512) + qv over one KV head), of B6 beside
+    index_select at phase 6's shape (1 x 40 x 32 768 x 128 K and V, a
+    random tile order), and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
-    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal). It
+    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal); and a
+    digest of the bytes of B1's, B3's and B5's outputs at the Wan shape, so
+    that two checkouts can be seen to compute the same bits. It
     calls only entry points every version of the port has since the
     decode kernel, so checkouts can be timed in turns on one card (older,
     newer, newer, older)."""
@@ -2206,6 +2298,7 @@ def ab_times(reps):
     from liteattention_torch.ops import _build
     from liteattention_torch.ops.flash_bwd import flash_attention_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.ops.kv_compact import compact_kv
     from liteattention_torch.ops.kv_quant import quantize_kv_cache
     from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
     from liteattention_torch.ops.mask import compact_mask, compact_mask_fine
@@ -2307,6 +2400,45 @@ def ab_times(reps):
             break
     del x, pool, cont, k4
     torch.cuda.empty_cache()
+    # B1's MLA kernels at phase 7's shapes.
+    pq, pk, pv = (torch.randn(MLA_PREFILL_BATCH, MLA_HEADS, MLA_PREFILL_SEQ, w, generator=g,
+                              device=dev).bfloat16() for w in (MLA_QK, MLA_QK, MLA_V))
+    mla = {"b1mla_prefill_ms": cuda_ms(lambda: flash_attention(pq, pk, pv, causal=True), reps)}
+    for key, x in zip(("b1mla_576_ms", "b1mla_qv_ms"), mla_abs_inputs(dev).values()):
+        xh = [a.transpose(1, 2).contiguous() for a in x]
+        mla[key] = cuda_ms(lambda: flash_attention(
+            xh[0], xh[1], xh[2], causal=True, qv=xh[3] if len(xh) > 3 else None), reps)
+    del pq, pk, pv, x, xh
+    torch.cuda.empty_cache()
+    # B6 at phase 6's shape, beside index_select over the tile view.
+    kt6 = 32768 // 128
+    ka, va = (torch.randn(1, h, kt6 * 128, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    inv = torch.stack([torch.randperm(kt6, generator=g, device=dev) for _ in range(h)])
+    inv = inv.reshape(1, h, kt6).int()
+    flat = (inv.long() + torch.arange(h, device=dev).reshape(1, h, 1) * kt6).reshape(-1)
+    fk, fv = ka.reshape(-1, 128 * d), va.reshape(-1, 128 * d)
+    kc, vc = torch.empty_like(ka), torch.empty_like(va)
+    b6 = {"b6_ms": cuda_ms(lambda: compact_kv(ka, va, inv), reps),
+          "b6_index_select_ms": cuda_ms(lambda: (torch.index_select(fk, 0, flat),
+                                                 torch.index_select(fv, 0, flat)), reps),
+          # The same bytes in order: a plain copy of K and V.
+          "b6_copy_ms": cuda_ms(lambda: (kc.copy_(ka), vc.copy_(va)), reps)}
+    del ka, va, fk, fv, kc, vc
+    torch.cuda.empty_cache()
+
+    def digest(*tensors):
+        """The first 16 hex digits of the SHA-1 of the tensors' bytes."""
+        sha = hashlib.sha1()
+        for x in tensors:
+            if x is not None:
+                sha.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return sha.hexdigest()[:16]
+
+    digests = {
+        "b1_digest": digest(*flash_attention(q, k, v, return_lse=True)),
+        "b3_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask)),
+        "b5_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H)),
+    }
     b1 = {"b1_cross_device_ms": b1_device_ms(1, h, h, s, 512, d, False),
           "b1_gpt2_device_ms": b1_device_ms(GPT_BATCH, 12, 12, GPT_SEQ, GPT_SEQ, 64, True),
           "b1_prefill_device_ms": b1_device_ms(SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT,
@@ -2321,7 +2453,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1, **b4, **b10,
+        **b1, **b4, **b10, **mla, **b6, **digests,
     }))
     return 0
 
@@ -2428,7 +2560,8 @@ def main() -> int:
                          "liteattention_tpu/ops/paged_attention.py:40"),
         "paged_decode_folded": ("flash_decode.cu", "flash_decode_kernel",
                                 "liteattention_tpu/ops/paged_attention.py:276"),
-        "flash_fwd_mla": ("flash_fwd.cu", "mla_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_fwd_mla": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_fwd_mla_v512": ("mla_fwd.cu", "mla_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
         "mla_decode": ("mla_decode.cu", "mla_decode_kernel", "liteattention_tpu/ops/mla.py:52"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

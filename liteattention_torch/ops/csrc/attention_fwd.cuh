@@ -1,9 +1,9 @@
 // The online-softmax row steps and small mma.sync helpers that the forward
 // kernels share: B1, B3, B4 and B5 (flash_fwd.cu:flash_fwd_kernel, wgmma),
-// B1's MLA channels (flash_fwd.cu:mla_fwd_kernel, mma.sync with a cp.async
-// ring), the decode kernel B8/B9 (flash_decode.cu) and the MLA decode B10
-// (mla_decode.cu), and the decode kernels' chunk arithmetic. No kernel
-// lives here: what bounds each kernel on the H100 is in its own header.
+// B1's MLA channels at V 512 (mla_fwd.cu), the decode kernel B8/B9
+// (flash_decode.cu, mma.sync) and the MLA decode B10 (mla_decode.cu), and
+// the decode kernels' chunk arithmetic. No kernel lives here: what bounds
+// each kernel on the H100 is in its own header.
 //
 // Scores live in log2 space (s * scale * log2e), so the online softmax uses
 // exp2; the lse written out is natural log. A row with no valid key keeps
@@ -85,26 +85,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(addr));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int bytes = pred ? 16 : 0;  // 0 source bytes = zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Row steps of the online softmax, shared by the forward kernels
-// (flash_fwd.cu), the decode kernel (flash_decode.cu) and the MLA decode
-// (mla_decode.cu). A warp owns 16 q rows of an m16n8k16 tile: lane (g, t) =
+// (flash_fwd.cu, mla_fwd.cu), the decode kernel (flash_decode.cu) and the
+// MLA decode (mla_decode.cu). A warp owns 16 q rows of an m16n8k16 tile: lane (g, t) =
 // (lane / 4, lane % 4) holds accumulator elements 0-1 of row g ("lo") and
 // 2-3 of row g + 8 ("hi"), at columns 8 i + 2 t (+1) of block i. Scores s
 // are NB blocks of 8 keys; m is the running row max (log2 space), l this
@@ -207,16 +190,6 @@ __device__ __forceinline__ void rescale_rows(float (&acc)[NACC][4], float alpha_
   }
 }
 
-// softmax_rows, then the accumulator rescaled at once.
-template <int NB, int NACC>
-__device__ __forceinline__ void softmax_update(float (&s)[NB][4], float (&acc)[NACC][4],
-                                               float mx_lo, float mx_hi, float& m_lo,
-                                               float& m_hi, float& l_lo, float& l_hi) {
-  float alpha_lo, alpha_hi;
-  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi);
-  rescale_rows(acc, alpha_lo, alpha_hi);
-}
-
 // P of keys 16 kc .. 16 kc + 15 as the A operand of m16n8k16: the
 // accumulator layout of two 8-key blocks is the A fragment layout.
 template <int NB>
@@ -225,29 +198,6 @@ __device__ __forceinline__ void p_operand(const float (&s)[NB][4], int kc, uint3
   a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
   a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
   a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-}
-
-// O += P V over the tile's 8 NB keys and 8 NACC output columns: vs points at
-// the tile's first key row and first output column in shared memory (pitch
-// elements per key row); V^T's B fragments come by ldmatrix.trans.
-template <int NB, int NACC>
-__device__ __forceinline__ void pv_product(float (&acc)[NACC][4], const float (&s)[NB][4],
-                                           const __nv_bfloat16* vs, int pitch) {
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* vp =
-      vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * pitch + (lane >> 4) * 8;
-#pragma unroll
-  for (int kc = 0; kc < NB / 2; ++kc) {
-    uint32_t a[4];
-    p_operand(s, kc, a);
-#pragma unroll
-    for (int db = 0; db < NACC / 2; ++db) {
-      uint32_t bfrag[4];
-      ldmatrix_x4_trans(bfrag, vp + kc * 16 * pitch + db * 16);
-      mma_bf16(acc[2 * db], a, bfrag[0], bfrag[1]);
-      mma_bf16(acc[2 * db + 1], a, bfrag[2], bfrag[3]);
-    }
-  }
 }
 
 // End of a walk: the rows' full sums (quad-reduced), 1 / l and the

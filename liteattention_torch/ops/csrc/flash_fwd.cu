@@ -4,11 +4,15 @@
 // replacing liteattention_tpu/ops/lite_flash_fwd.py:_lite_gather_kernel, and
 // with `fold` heads per CTA B5, replacing _lite_gather_kernel_hfold; walking
 // a coarse schedule's entries it is B4 (lite_flash_fwd_coarse), replacing
-// _lite_kernel. Below it, B1's MLA channels (mla_fwd_kernel).
+// _lite_kernel. With V of its own head dim, (DK, DV) = (192, 128), it is
+// B1's MLA channels at DeepSeek's non-absorbed prefill shape (the MLA
+// shapes at V 512 run on mla_fwd.cu's split-O kernel).
 //
-// bf16 q/k/v in [B, H, S, D] (D = 64 or 128), GQA by h / group, optionally
-// causal (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out in
-// bf16, lse fp32 natural log; a row with no valid key gets out 0, lse -inf.
+// bf16 q/k in [B, H, S, DK] and v in [B, Hk, S, DV] ((DK, DV) = (64, 64),
+// (128, 128) or (192, 128)), GQA by h / group, optionally causal
+// (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out [B, H, Sq,
+// DV] in bf16, lse fp32 natural log; a row with no valid key gets out 0,
+// lse -inf.
 //
 // What bounds it on the H100: tensor-core issue (4 D FLOPs per (q row, key)
 // pair; each K/V byte loaded feeds 128 q rows), and close behind it the
@@ -25,10 +29,16 @@
 // (b1_ablation.py, producer_warp), so thread 0 also issues the TMA loads
 // (128-byte swizzle; 3-D tensor maps over [B * H, S, D], so a ragged tail
 // reads zeros, never the next head's rows): Q once, K and V per 128-key
-// tile into a ring of kStages stages. Each stage has a full barrier
-// (expect-tx bytes) and an empty barrier that every warp arrives on once
-// its wgmmas that read the stage have retired. No __syncthreads in the
-// loop. Per warpgroup and k-tile j of the walk:
+// tile into a ring of kStages stages (Q and operands step through DK and
+// DV in 64-value atoms). Each stage has a full barrier (expect-tx bytes)
+// and an empty barrier that every warp arrives on once its wgmmas that
+// read the stage have retired. No __syncthreads in the loop. At (192, 128)
+// a stage is 80 KB and only two fit beside Q (48 KB); two stages would
+// leave no tile to prefetch (S_{j+1} and P_j V_j hold both), so there K
+// and V take barriers of their own (a split ring): K of tile j + 2 loads
+// once S_j has read it, V of tile j + 1 once P_{j-1} V_{j-1} has, each a
+// step ahead as in the three-stage ring. Per warpgroup and k-tile j of the
+// walk:
 //   S_{j+1} = Q K_{j+1}^T   wgmma m64n128k16, both operands in shared memory
 //   O += P_j V_j            wgmma RS: P_j bf16 in registers, V MN-major
 //   (thread 0: refill tile j - 1's stage with tile j + 2 under the products)
@@ -103,8 +113,7 @@ namespace fwd {
 using sm90::desc_sw128;
 
 constexpr int kRowsQ = 128;  // q rows per CTA, 64 per warpgroup
-constexpr int kKeys = 128;   // keys per k-tile
-constexpr int kStages = 3;   // K/V ring depth
+constexpr int kKeys = 128;   // keys per fine k-tile (the sparse walks' tiles)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1: the warpgroups' turns to issue
@@ -134,18 +143,30 @@ struct Params {
   int qsub, ksub, sched_q, sched_k, vote_q, vote_k;
 };
 
+// Keys per k-tile and ring depth of the (DK, DV) instantiation. (192, 128)
+// takes two 128-key stages with split barriers; 64-key tiles in three
+// stages (kKeys 64 there: the helpers take either) ran slower on the H100.
+template <int DK, int DV>
+struct Tiles {
+  static constexpr int kKeys = 128;
+  static constexpr int kStages = DK + DV <= 256 ? 3 : 2;
+};
+
 // Shared-memory layout (byte offsets from a 1024-byte aligned base). Each
 // tile is stored as 64-value atoms of 128-byte rows (TMA's 128-byte
 // swizzle), atom a at a * rows * 128.
-template <int D>
+template <int DK, int DV>
 struct Smem {
-  static constexpr int kQ = kRowsQ * D * 2;  // the Q tile
-  static constexpr int kKV = kKeys * D * 2;  // one K or V tile
-  static constexpr int kStage = 2 * kKV;     // K, then V
+  using T = Tiles<DK, DV>;
+  static constexpr int kQ = kRowsQ * DK * 2;   // the Q tile
+  static constexpr int kK = T::kKeys * DK * 2;  // one K tile
+  static constexpr int kV = T::kKeys * DV * 2;  // one V tile
+  static constexpr int kStage = kK + kV;       // K, then V
   static constexpr int q = 0;
-  static constexpr int ring = q + kQ;        // [kStages]
-  static constexpr int bars = ring + kStages * kStage;  // full, empty [kStages]; q_full
-  static constexpr int bytes = bars + (2 * kStages + 1) * 8;
+  static constexpr int ring = q + kQ;          // [kStages]
+  // full, empty [kStages]; q_full; the split ring's V barriers vfull, vempty [kStages]
+  static constexpr int bars = ring + T::kStages * kStage;
+  static constexpr int bytes = bars + (4 * T::kStages + 1) * 8;
 };
 
 // The k-tiles a CTA visits, in order: n >= 1 of them, so that every wgmma
@@ -160,11 +181,11 @@ struct DenseWalk {
   __device__ __forceinline__ int tile(int j) const { return j; }
 };
 
-template <bool CAUSAL>
+template <bool CAUSAL, int KEYS>
 __device__ __forceinline__ DenseWalk dense_walk(const Params& p, int q0) {
   if constexpr (CAUSAL) {
     const int last = q0 + kRowsQ - 1 + p.causal_offset;  // the last row's last key
-    return {min(p.ktiles, max(last, 0) / kKeys + 1)};
+    return {min(p.ktiles, max(last, 0) / KEYS + 1)};
   }
   return {p.ktiles};
 }
@@ -283,47 +304,72 @@ __device__ __forceinline__ bool coarse_next(const CoarseWalk<SUPER>& w, CoarsePo
   return true;
 }
 
-// K and V of k-tile `tile` into ring stage `stage` (thread 0).
-template <int D>
-__device__ __forceinline__ void load_tile(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
-                                          unsigned char* smem, uint64_t* full, int stage,
-                                          int tile, int bhk) {
-  using L = Smem<D>;
+// K of k-tile `tile` into ring stage `stage`, completing on `bar` (thread 0).
+template <int DK, int DV>
+__device__ __forceinline__ void load_k(const CUtensorMap& tm_k, unsigned char* smem, uint64_t* bar,
+                                       int stage, int tile, int bhk) {
+  using L = Smem<DK, DV>;
+  constexpr int kKeys = Tiles<DK, DV>::kKeys;
   unsigned char* dst = smem + L::ring + stage * L::kStage;
-  sm90::mbar_expect_tx(full + stage, 2 * L::kKV);
 #pragma unroll
-  for (int a = 0; a < D / 64; ++a) {
-    sm90::tma_load_3d(dst + a * kKeys * 128, &tm_k, full + stage, 64 * a, tile * kKeys, bhk);
-    sm90::tma_load_3d(dst + L::kKV + a * kKeys * 128, &tm_v, full + stage, 64 * a,
-                      tile * kKeys, bhk);
+  for (int a = 0; a < DK / 64; ++a) {
+    sm90::tma_load_3d(dst + a * kKeys * 128, &tm_k, bar, 64 * a, tile * kKeys, bhk);
   }
 }
 
-// S = Q K^T over the warpgroup's 64 rows (q_desc) and the 128 keys of the
+// V of k-tile `tile` into ring stage `stage`, completing on `bar` (thread 0).
+template <int DK, int DV>
+__device__ __forceinline__ void load_v(const CUtensorMap& tm_v, unsigned char* smem, uint64_t* bar,
+                                       int stage, int tile, int bhk) {
+  using L = Smem<DK, DV>;
+  constexpr int kKeys = Tiles<DK, DV>::kKeys;
+  unsigned char* dst = smem + L::ring + stage * L::kStage + L::kK;
+#pragma unroll
+  for (int a = 0; a < DV / 64; ++a) {
+    sm90::tma_load_3d(dst + a * kKeys * 128, &tm_v, bar, 64 * a, tile * kKeys, bhk);
+  }
+}
+
+// K and V of k-tile `tile` into ring stage `stage` on one barrier (thread 0).
+template <int DK, int DV>
+__device__ __forceinline__ void load_tile(const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                                          unsigned char* smem, uint64_t* full, int stage,
+                                          int tile, int bhk) {
+  sm90::mbar_expect_tx(full + stage, Smem<DK, DV>::kStage);
+  load_k<DK, DV>(tm_k, smem, full + stage, stage, tile, bhk);
+  load_v<DK, DV>(tm_v, smem, full + stage, stage, tile, bhk);
+}
+
+// S = Q K^T over the warpgroup's 64 rows (q_desc) and the KEYS keys of the
 // K tile at k_addr, both K-major: a 16-deep step moves 32 bytes inside an
-// atom, then to the next atom (kRowsQ == kKeys rows on).
-template <int D>
-__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t q_desc, uint32_t k_addr) {
+// atom, then to the next atom (kRowsQ rows on in Q, KEYS in K).
+template <int DK, int KEYS>
+__device__ __forceinline__ void issue_s(float (&s)[KEYS / 2], uint64_t q_desc, uint32_t k_addr) {
   const uint64_t k_desc = desc_sw128(k_addr, 16, 1024);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
-    sm90::wgmma_ss_n128<0, 0>(s, sm90::desc_add(q_desc, off), sm90::desc_add(k_desc, off),
-                              kk > 0);
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t in_atom = (kk % 4) * 32;
+    const uint64_t qd = sm90::desc_add(q_desc, (kk / 4) * kRowsQ * 128 + in_atom);
+    const uint64_t kd = sm90::desc_add(k_desc, (kk / 4) * KEYS * 128 + in_atom);
+    if constexpr (KEYS == 128) {
+      sm90::wgmma_ss_n128<0, 0>(s, qd, kd, kk > 0);
+    } else {
+      sm90::wgmma_ss_n64<0, 0>(s, qd, kd, kk > 0);
+    }
   }
   sm90::wgmma_commit();
 }
 
 // O += P V: P from registers, V at v_addr as the MN-major B operand (rows
-// of 64 values of D, atoms kKeys * 128 bytes apart), 16 keys a step.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kKeys / 16][4],
+// of 64 values of DV, atoms KEYS * 128 bytes apart), 16 keys a step.
+template <int DV, int KEYS>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pf)[KEYS / 16][4],
                                          uint32_t v_addr) {
-  const uint64_t v_desc = desc_sw128(v_addr, kKeys * 128, 1024);
+  const uint64_t v_desc = desc_sw128(v_addr, KEYS * 128, 1024);
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
+  for (int kk = 0; kk < KEYS / 16; ++kk) {
     const uint64_t db = sm90::desc_add(v_desc, kk * 2048);
-    if constexpr (D == 128) {
+    if constexpr (DV == 128) {
       sm90::wgmma_rs_n128<1>(o, pf[kk], db, 1);
     } else {
       sm90::wgmma_rs_n64<1>(o, pf[kk], db, 1);
@@ -338,11 +384,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)
 // into the running row state; they stay raw until softmax_rows takes them
 // to log2 space inside each exp2's FFMA (one instruction a score fewer than
 // scaling first). alpha is the accumulator's rescale.
-template <bool CAUSAL, typename Vote>
-__device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p, int tile, bool dead,
+template <bool CAUSAL, int NB, typename Vote>
+__device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p, int tile, bool dead,
                                              int warp_row0, int r_lo, int r_hi, float& m_lo,
                                              float& m_hi, float& l_lo, float& l_hi,
                                              float& alpha_lo, float& alpha_hi, Vote&& vote) {
+  constexpr int kKeys = 8 * NB;
   const int col0 = tile * kKeys;
   const bool mask = dead || col0 + kKeys > p.seqlen_k ||
                     (CAUSAL && col0 + kKeys - 1 > warp_row0 + p.causal_offset);
@@ -357,7 +404,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[16][4], const Params& p,
   softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
 }
 
-template <int D, bool CAUSAL, int WALK, bool VOTES, bool FOLD>
+template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -366,18 +413,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr bool LIST = WALK == kList;
   constexpr bool COARSE = WALK == kCoarse || WALK == kSuper;
   constexpr bool SUPER = WALK == kSuper;
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
-  static_assert(kRowsQ == kKeys, "Q and K tiles step through D alike");
+  // This instantiation's tile geometry (the sparse walks' tiles are kKeys
+  // = 128 keys). With two stages the ring splits: K and V of a stage
+  // complete and are released on barriers of their own (vfull, vempty);
+  // otherwise vfull and vempty are full and empty.
+  constexpr int kKeys = Tiles<DK, DV>::kKeys;
+  constexpr int kStages = Tiles<DK, DV>::kStages;
+  constexpr bool SPLIT = kStages == 2;
+  static_assert((DK == DV && (DK == 64 || DK == 128)) || (DK == 192 && DV == 128),
+                "(DK, DV) must be (64, 64), (128, 128) or (192, 128)");
+  static_assert(DV <= DK, "the Q buffer holds the output");
   static_assert(WALK != kDense || !VOTES, "the dense walk does not vote");
   static_assert(LIST || !FOLD, "folded heads take the list walk");
   static_assert(WALK == kDense || !CAUSAL, "the sparse walks are not causal");
-  using L = Smem<D>;
+  static_assert(WALK == kDense || (DK == DV && kKeys == 128 && !SPLIT),
+                "the sparse walks visit 128-key fine tiles through a ring of three");
+  using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
+  uint64_t* vfull = SPLIT ? q_full + 1 : full;
+  uint64_t* vempty = SPLIT ? vfull + kStages : empty;
 
   const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
   const int b = blockIdx.z;
@@ -385,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
   // The dense walk: its tiles and (b, kv head), uniform over the CTA.
-  const int n_dense = WALK == kDense ? dense_walk<CAUSAL>(p, q0).n : 0;
+  const int n_dense = WALK == kDense ? dense_walk<CAUSAL, kKeys>(p, q0).n : 0;
   const int bhk0 = b * p.kv_heads + h0 / (p.heads / p.kv_heads);
   ListFeed feed;
   feed.hl = 0;
@@ -399,6 +458,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], kWarps);
+      if constexpr (SPLIT) {
+        sm90::mbar_init(&vfull[s], 1);
+        sm90::mbar_init(&vempty[s], kWarps);
+      }
     }
     sm90::mbar_init(q_full, 1);
     sm90::mbar_fence_init();
@@ -407,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-    for (int a = 0; a < D / 64; ++a) {
+    for (int a = 0; a < DK / 64; ++a) {
       sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0,
                         b * p.heads + h0);
     }
@@ -416,15 +479,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < kStages && feed.more(fold); ++j) {  // a walk has n >= 1
         int bhk;
         const int tile = feed.take(p, b, h0, qt, fold, bhk);
-        load_tile<D>(tm_k, tm_v, smem, full, j, tile, bhk);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j, tile, bhk);
       }
     } else if constexpr (COARSE) {
       for (int j = 0; j < kStages && j < cwalk.n; ++j) {  // a dead walk loads tile 0
-        load_tile<D>(tm_k, tm_v, smem, full, j, coarse_next(cwalk, fpos) ? fpos.tile : 0, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j, coarse_next(cwalk, fpos) ? fpos.tile : 0,
+                          bhk0);
+      }
+    } else if constexpr (SPLIT) {
+      for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
+        sm90::mbar_expect_tx(&full[j], L::kK);
+        load_k<DK, DV>(tm_k, smem, &full[j], j, j, bhk0);
+        sm90::mbar_expect_tx(&vfull[j], L::kV);
+        load_v<DK, DV>(tm_v, smem, &vfull[j], j, j, bhk0);
       }
     } else {
       for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
-        load_tile<D>(tm_k, tm_v, smem, full, j, j, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j, j, bhk0);
       }
     }
   }
@@ -445,15 +516,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   // S and O in the accumulator layout (sm90.cuh), as the row steps take
   // them: s[j][2 i + c] is d[4 j + 2 i + c].
   float s[kKeys / 8][4];
-  float o[D / 8][4];
+  float o[DV / 8][4];
   uint32_t pf[kKeys / 16][4];  // P_j, bf16 pairs: the A operand of PV
   float(&sd)[kKeys / 2] = reinterpret_cast<float(&)[kKeys / 2]>(s);
-  float(&od)[D / 2] = reinterpret_cast<float(&)[D / 2]>(o);
+  float(&od)[DV / 2] = reinterpret_cast<float(&)[DV / 2]>(o);
 
   // Thread 0 refills tile f - 1's stage (all eight warps released it at the
   // end of their step f - 1) with the next tile of the CTA's flat walk: on
   // the dense walk tile f - 1 + kStages, from uniform values (TMA takes its
-  // coordinates in uniform registers).
+  // coordinates in uniform registers). The split ring: K of tile f + 2 into
+  // tile f's stage (every warp's S_f has read it), V of tile f + 1 into tile
+  // f - 1's (every warp's P_{f-1} V_{f-1} has read it).
   auto refill = [&](int f) {
     const int free = (f - 1) % kStages;
     if constexpr (LIST) {
@@ -461,17 +534,28 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
         int bhk;
         const int load = feed.take(p, b, h0, qt, fold, bhk);
-        load_tile<D>(tm_k, tm_v, smem, full, free, load, bhk);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, free, load, bhk);
       }
     } else if constexpr (COARSE) {
       if (ct == 0 && f > 0 && f - 1 + kStages < cwalk.n) {
         sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
         coarse_next(cwalk, fpos);
-        load_tile<D>(tm_k, tm_v, smem, full, free, fpos.tile, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, free, fpos.tile, bhk0);
+      }
+    } else if constexpr (SPLIT) {
+      if (ct == 0 && f + 2 < n_dense) {
+        sm90::mbar_wait(&empty[f % 2], (f / 2) & 1);
+        sm90::mbar_expect_tx(&full[f % 2], L::kK);
+        load_k<DK, DV>(tm_k, smem, &full[f % 2], f % 2, f + 2, bhk0);
+      }
+      if (ct == 0 && f > 0 && f + 1 < n_dense) {
+        sm90::mbar_wait(&vempty[free], ((f - 1) / 2) & 1);
+        sm90::mbar_expect_tx(&vfull[free], L::kV);
+        load_v<DK, DV>(tm_v, smem, &vfull[free], free, f + 1, bhk0);
       }
     } else if (ct == 0 && f > 0 && f - 1 + kStages < n_dense) {
       sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
-      load_tile<D>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);
+      load_tile<DK, DV>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);
     }
   };
   int f_head = 0;  // the head's first tile in the CTA's flat walk
@@ -486,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else if constexpr (COARSE) {
         return cwalk;
       } else {
-        return dense_walk<CAUSAL>(p, q0);
+        return dense_walk<CAUSAL, kKeys>(p, q0);
       }
     }();
     if (FOLD && hl > 0) {
@@ -494,7 +578,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ct == 0) {
         sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-        for (int a = 0; a < D / 64; ++a) {
+        for (int a = 0; a < DK / 64; ++a) {
           sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
         }
       }
@@ -545,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (COARSE) coarse_vote(cpos, mx_lo, mx_hi);
     };
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) od[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) od[i] = 0.f;
     float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
     float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
     float alpha_lo, alpha_hi;
@@ -559,9 +643,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);
     sm90::mbar_wait(&full[f0 % kStages], (f0 / kStages) & 1);
     sm90::wgmma_fence();
-    issue_s<D>(sd, q_desc, ring + f0 % kStages * L::kStage);
+    issue_s<DK, kKeys>(sd, q_desc, ring + f0 % kStages * L::kStage);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sd);
+    if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[0]);  // this warp is done with K_0
     tile_softmax<CAUSAL>(s, p, tile0, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                          alpha_lo, alpha_hi, first_vote);
 #pragma unroll
@@ -583,15 +668,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         mv_hi = m_hi;
       }
       sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);
+      if constexpr (SPLIT) sm90::mbar_wait(&vfull[stage], (f / kStages) & 1);
       sm90::named_sync(kTurn + wg, kThreads);
       sm90::wgmma_fence();
-      issue_s<D>(sd, q_desc, ring + next * L::kStage);
-      issue_pv<D>(od, pf, ring + stage * L::kStage + L::kKV);
+      issue_s<DK, kKeys>(sd, q_desc, ring + next * L::kStage);
+      issue_pv<DV, kKeys>(od, pf, ring + stage * L::kStage + L::kK);
       refill(f);  // while the products run
       sm90::named_arrive(kTurn + 1 - wg, kThreads);
       if constexpr (COARSE) coarse_next(walk, cpos);
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sd);
+      if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[next]);  // this warp is done with K_{j+1}
       tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                            alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
                              if constexpr (COARSE) {
@@ -610,14 +697,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       rescale_rows(o, alpha_lo, alpha_hi);
 #pragma unroll
       for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
-      if (lane == 0) sm90::mbar_arrive(&empty[stage]);  // this warp is done with stage j
+      if (lane == 0) sm90::mbar_arrive(&vempty[stage]);  // this warp is done with stage j
       if constexpr (LIST && VOTES) gpos = gpos + 1 == p.gsize ? 0 : gpos + 1;
     }
     // P V of the last tile. Folded, the flat walk goes on into the next
     // heads: this step refills too and then releases its stage (which is
     // otherwise never refilled).
+    if constexpr (SPLIT) sm90::mbar_wait(&vfull[(walk.n - 1) % 2], ((walk.n - 1) / 2) & 1);
     sm90::wgmma_fence();
-    issue_pv<D>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kKV);
+    issue_pv<DV, kKeys>(od, pf, ring + (f0 + walk.n - 1) % kStages * L::kStage + L::kK);
     if constexpr (FOLD) refill(f0 + walk.n - 1);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(od);
@@ -631,7 +719,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     unsigned char* ob = smem + L::q + 64 * wg * 128;
     const int orow = 16 * warp + g;
 #pragma unroll
-    for (int jb = 0; jb < D / 8; ++jb) {
+    for (int jb = 0; jb < DV / 8; ++jb) {
       unsigned char* chunk = ob + (jb / 8) * kRowsQ * 128 + (((jb % 8) ^ g) << 4) + 4 * t;
       *reinterpret_cast<uint32_t*>(chunk + orow * 128) =
           sm90::pack_bf16x2(o[jb][0] * inv_lo, o[jb][1] * inv_lo);
@@ -647,7 +735,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::named_sync(1 + wg, 128);
     if (tw == 0 && q0 + 64 * wg < p.seqlen_q) {
 #pragma unroll
-      for (int a = 0; a < D / 64; ++a) {
+      for (int a = 0; a < DV / 64; ++a) {
         sm90::tma_store_3d(&tm_o, ob + a * kRowsQ * 128, 64 * a, q0 + 64 * wg, bh);
       }
       sm90::bulk_commit();
@@ -657,27 +745,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Tensor maps of q, k, v (k and v with `kv_rows` rows per (b, kv head)) and
-// out, then one launch of instantiation <D, CAUSAL, WALK, VOTES, FOLD> over
-// (q-tiles, heads / fold, batch).
-template <int D, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false>
+// Tensor maps of q, k, v and out, then one launch of instantiation <DK, DV,
+// CAUSAL, WALK, VOTES, FOLD> over (q-tiles, heads / fold, batch).
+template <int DK, int DV, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false>
 cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p, int batch,
                 float scale, cudaStream_t stream) {
+  constexpr int keys = Tiles<DK, DV>::kKeys;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   const int bh = batch * p.heads, bhk = batch * p.kv_heads;
   cudaError_t err;
-  if ((err = sm90::make_tensor_map_3d(&tm_q, q, D, p.seqlen_q, bh, 64, kRowsQ)) ||
-      (err = sm90::make_tensor_map_3d(&tm_k, k, D, p.seqlen_k, bhk, 64, kKeys)) ||
-      (err = sm90::make_tensor_map_3d(&tm_v, v, D, p.seqlen_k, bhk, 64, kKeys)) ||
-      (err = sm90::make_tensor_map_3d(&tm_o, out, D, p.seqlen_q, bh, 64, 64))) {
+  if ((err = sm90::make_tensor_map_3d(&tm_q, q, DK, p.seqlen_q, bh, 64, kRowsQ)) ||
+      (err = sm90::make_tensor_map_3d(&tm_k, k, DK, p.seqlen_k, bhk, 64, keys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_v, v, DV, p.seqlen_k, bhk, 64, keys)) ||
+      (err = sm90::make_tensor_map_3d(&tm_o, out, DV, p.seqlen_q, bh, 64, 64))) {
     return err;
   }
   p.qtiles = (p.seqlen_q + kRowsQ - 1) / kRowsQ;
-  p.ktiles = (p.seqlen_k + kKeys - 1) / kKeys;
+  p.ktiles = (p.seqlen_k + keys - 1) / keys;
   p.causal_offset = p.seqlen_k - p.seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = flash_fwd_kernel<D, CAUSAL, WALK, VOTES, FOLD>;
-  constexpr int smem = Smem<D>::bytes + 1024;  // + alignment of the base
+  auto kernel = flash_fwd_kernel<DK, DV, CAUSAL, WALK, VOTES, FOLD>;
+  constexpr int smem = Smem<DK, DV>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int fold = FOLD ? p.fold : 1;
@@ -689,15 +777,15 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
 template <int D, bool VOTES>
 cudaError_t run_list(const void* q, const void* k, const void* v, void* out, const Params& p,
                      int batch, float scale, cudaStream_t stream) {
-  return p.fold > 1 ? run<D, false, kList, VOTES, true>(q, k, v, out, p, batch, scale, stream)
-                    : run<D, false, kList, VOTES, false>(q, k, v, out, p, batch, scale, stream);
+  return p.fold > 1 ? run<D, D, false, kList, VOTES, true>(q, k, v, out, p, batch, scale, stream)
+                    : run<D, D, false, kList, VOTES, false>(q, k, v, out, p, batch, scale, stream);
 }
 
 template <int D>
 cudaError_t run_coarse(const void* q, const void* k, const void* v, void* out, const Params& p,
                        int batch, float scale, cudaStream_t stream) {
-  return p.bits != nullptr ? run<D, false, kSuper, true>(q, k, v, out, p, batch, scale, stream)
-                           : run<D, false, kCoarse, true>(q, k, v, out, p, batch, scale, stream);
+  return p.bits != nullptr ? run<D, D, false, kSuper, true>(q, k, v, out, p, batch, scale, stream)
+                           : run<D, D, false, kCoarse, true>(q, k, v, out, p, batch, scale, stream);
 }
 
 }  // namespace fwd
@@ -722,11 +810,11 @@ extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
   p.seqlen_q = seqlen_q;
   p.seqlen_k = seqlen_k;
   if (head_dim == 64) {
-    err = causal ? run<64, true>(q, k, v, out, p, batch, scale, s)
-                 : run<64, false>(q, k, v, out, p, batch, scale, s);
+    err = causal ? run<64, 64, true>(q, k, v, out, p, batch, scale, s)
+                 : run<64, 64, false>(q, k, v, out, p, batch, scale, s);
   } else if (head_dim == 128) {
-    err = causal ? run<128, true>(q, k, v, out, p, batch, scale, s)
-                 : run<128, false>(q, k, v, out, p, batch, scale, s);
+    err = causal ? run<128, 128, true>(q, k, v, out, p, batch, scale, s)
+                 : run<128, 128, false>(q, k, v, out, p, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -823,235 +911,17 @@ extern "C" int lite_flash_fwd_coarse(
   return static_cast<int>(err);
 }
 
-// B1's MLA channels (liteattention_tpu/ops/flash_fwd.py:_fwd_kernel with
-// has_qv, or V of its own head dim DV != DK): forward only, as in JAX.
-//
-// The score is q . k (DK channels), plus qv . v (DV channels) with QV; the
-// output takes V's head dim. Neither the 128 x DV accumulator (at DV 512: 256
-// KB) nor q's fragments at DK 576 fit a CTA's registers, so the walk differs
-// from the mainloop above: q (and qv) stay in shared memory for the whole
-// walk (in registers when the score channels are at most 256), and each CTA
-// produces one 128-wide chunk of V's channels, recomputing S for each chunk.
-// That costs (DV / 128 - 1) extra passes of QK^T: at (576, 512) 3 x 2 x 576
-// FLOP per (row, key) on top of the 2 x (576 + 512) needed (x2.6); at
-// (192, 128), DeepSeek's non-absorbed prefill shape, nothing. With QV the
-// ring holds V's whole rows, since S reads them all; the chunk's PV reads its
-// columns from the same tile. mma.sync m16n8k16 with ldmatrix fragments, a
-// two-stage cp.async ring of BK-key tiles, exp2 online softmax (the row steps
-// of attention_fwd.cuh), causal bottom-right (offset Sk - Sq) with the walk
-// stopped at the diagonal and the q-tiles in reverse order. Bound on the H100
-// by tensor-core issue, as B1.
-namespace mla_fwd {
+// The MLA forward at V 512, the split-O kernel of mla_fwd.cu.
+cudaError_t lite_mla_fwd_v512(const void* q, const void* qv, const void* k, const void* v,
+                              void* out, void* lse, int batch, int heads, int kv_heads,
+                              int seqlen_q, int seqlen_k, int head_dim, float scale, bool causal,
+                              cudaStream_t stream);
 
-using lite::cp_async16;
-using lite::cp_async_commit;
-using lite::cp_async_wait;
-using lite::finish_rows;
-using lite::ldmatrix_x4;
-using lite::mask_scores;
-using lite::mma_bf16;
-using lite::pv_product;
-using lite::softmax_update;
-using lite::store_rows;
-
-constexpr int kChunk = 128;  // V channels (output columns) per CTA
-
-struct Params {
-  const __nv_bfloat16* q;   // [B, H, Sq, DK]
-  const __nv_bfloat16* qv;  // [B, H, Sq, DV] (QV)
-  const __nv_bfloat16* k;   // [B, Hk, Sk, DK]
-  const __nv_bfloat16* v;   // [B, Hk, Sk, DV]
-  __nv_bfloat16* out;       // [B, H, Sq, DV]
-  float* lse;               // [B, H, Sq]
-  int heads, kv_heads, seqlen_q, seqlen_k, qtiles, chunks, causal_offset;
-  float scale_log2;
-};
-
-template <int DK, int DV, bool QV, int WARPS, int BK>
-struct Geometry {
-  static constexpr int kRowsQ = 16 * WARPS;        // q rows per CTA
-  static constexpr int kDS = DK + (QV ? DV : 0);   // score channels
-  static constexpr int kQPitch = kDS + 8;          // shared row pitches: odd
-  static constexpr int kKPitch = DK + 8;           // multiples of 16 bytes
-  static constexpr int kVW = QV ? DV : kChunk;     // V channels in the ring
-  static constexpr int kVPitch = kVW + 8;
-  static constexpr bool kQRegs = kDS <= 256;
-  static constexpr int kStage = BK * (kKPitch + kVPitch);  // elements
-  static constexpr int kSmem = (kRowsQ * kQPitch + 2 * kStage) * 2;
-  static_assert(DK % 16 == 0 && DV % kChunk == 0 && BK % 16 == 0, "tile shapes");
-  static_assert(kSmem <= 232448, "shared memory of one CTA");
-};
-
-template <int DK, int DV, bool QV, int WARPS, int BK, bool CAUSAL>
-__global__ void __launch_bounds__(WARPS * 32, 1) mla_fwd_kernel(const Params p) {
-  using G = Geometry<DK, DV, QV, WARPS, BK>;
-  constexpr int kThreads = WARPS * 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRowsQ][kQPitch]
-  __nv_bfloat16* ring = qs + G::kRowsQ * G::kQPitch;                // [2][kStage]
-
-  const int qt = CAUSAL ? p.qtiles - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
-  const int h = blockIdx.y / p.chunks;
-  const int chunk = blockIdx.y % p.chunks;
-  const int b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const size_t bh = static_cast<size_t>(b) * p.heads + h;
-  const size_t bhk = static_cast<size_t>(b) * p.kv_heads + hk;
-  const __nv_bfloat16* qb = p.q + bh * p.seqlen_q * DK;
-  const __nv_bfloat16* qvb = QV ? p.qv + bh * p.seqlen_q * DV : qb;
-  const __nv_bfloat16* kb = p.k + bhk * p.seqlen_k * DK;
-  const __nv_bfloat16* vb = p.v + bhk * p.seqlen_k * DV + (QV ? 0 : chunk * kChunk);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = qt * G::kRowsQ;
-  const int r_lo = q0 + warp * 16 + g;
-  const int r_hi = r_lo + 8;
-  const int lim_lo = CAUSAL ? min(p.seqlen_k, r_lo + p.causal_offset + 1) : p.seqlen_k;
-  const int lim_hi = CAUSAL ? min(p.seqlen_k, r_hi + p.causal_offset + 1) : p.seqlen_k;
-
-  int n = (p.seqlen_k + BK - 1) / BK;
-  if constexpr (CAUSAL) {
-    const int last = q0 + G::kRowsQ - 1 + p.causal_offset;  // the last row's last key
-    n = last < 0 ? 0 : min(n, last / BK + 1);
-  }
-
-  // q | qv rows of this tile (rows past Sq zero-fill), in the first group.
-  constexpr int kQChunks = G::kDS / 8;
-  for (int c = threadIdx.x; c < G::kRowsQ * kQChunks; c += kThreads) {
-    const int r = c / kQChunks;
-    const int col = (c % kQChunks) * 8;
-    const int row = q0 + r;
-    const bool valid = row < p.seqlen_q;
-    const __nv_bfloat16* src = qb;
-    if (valid) src = col < DK ? qb + static_cast<size_t>(row) * DK + col
-                              : qvb + static_cast<size_t>(row) * DV + (col - DK);
-    cp_async16(qs + r * G::kQPitch + col, src, valid);
-  }
-  auto load_tile = [&](int j) {
-    __nv_bfloat16* ks = ring + (j & 1) * G::kStage;
-    __nv_bfloat16* vs = ks + BK * G::kKPitch;
-    for (int c = threadIdx.x; c < BK * (DK / 8); c += kThreads) {
-      const int r = c / (DK / 8);
-      const int col = (c % (DK / 8)) * 8;
-      const int pos = j * BK + r;
-      const bool valid = pos < p.seqlen_k;
-      cp_async16(ks + r * G::kKPitch + col,
-                 kb + static_cast<size_t>(valid ? pos : 0) * DK + col, valid);
-    }
-    for (int c = threadIdx.x; c < BK * (G::kVW / 8); c += kThreads) {
-      const int r = c / (G::kVW / 8);
-      const int col = (c % (G::kVW / 8)) * 8;
-      const int pos = j * BK + r;
-      const bool valid = pos < p.seqlen_k;
-      cp_async16(vs + r * G::kVPitch + col,
-                 vb + static_cast<size_t>(valid ? pos : 0) * DV + col, valid);
-    }
-  };
-
-  uint32_t qf[G::kQRegs ? G::kDS / 16 : 1][4];
-  float acc[kChunk / 8][4];
-#pragma unroll
-  for (int i = 0; i < kChunk / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running row max (log2 space)
-  float l_lo = 0.f, l_hi = 0.f;              // per-thread partial row sums
-
-  if (n > 0) load_tile(0);
-  cp_async_commit();
-
-  const __nv_bfloat16* qa = qs + (warp * 16 + (lane & 15)) * G::kQPitch + (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);  // K (or V) rows as B fragments
-  const int b_col = ((lane >> 3) & 1) * 8;
-  const int v_col = QV ? chunk * kChunk : 0;  // the chunk's first column in the ring
-
-  for (int j = 0; j < n; ++j) {
-    if (j + 1 < n) load_tile(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* ks = ring + (j & 1) * G::kStage;
-    const __nv_bfloat16* vs = ks + BK * G::kKPitch;
-    if constexpr (G::kQRegs) {
-      if (j == 0) {
-#pragma unroll
-        for (int kk = 0; kk < G::kDS / 16; ++kk) ldmatrix_x4(qf[kk], qa + kk * 16);
-      }
-    }
-
-    // S = [q | qv] [k | v]^T for this warp's 16 rows x BK keys.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < G::kDS / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (G::kQRegs) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
-      } else {
-        ldmatrix_x4(a, qa + kk * 16);
-      }
-      const bool in_k = kk < DK / 16;
-      const __nv_bfloat16* src = in_k ? ks + b_row * G::kKPitch + kk * 16 + b_col
-                                      : vs + b_row * G::kVPitch + (kk - DK / 16) * 16 + b_col;
-      const int pitch16 = 16 * (in_k ? G::kKPitch : G::kVPitch);
-#pragma unroll
-      for (int nb2 = 0; nb2 < BK / 16; ++nb2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, src + nb2 * pitch16);
-        mma_bf16(s[2 * nb2], a, bk[0], bk[1]);
-        mma_bf16(s[2 * nb2 + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // Log2-space scores (past Sk, and above the diagonal with CAUSAL, -inf),
-    // the online softmax, and O += P V over this CTA's chunk of V's channels.
-    const int col0 = j * BK;
-    const bool masked = col0 + BK > p.seqlen_k ||
-                        (CAUSAL && col0 + BK - 1 > q0 + warp * 16 + p.causal_offset);
-    float mx_lo, mx_hi;
-    mask_scores(s, p.scale_log2, masked, col0, lim_lo, lim_hi, mx_lo, mx_hi);
-    softmax_update(s, acc, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi);
-    pv_product(acc, s, vs + v_col, G::kVPitch);
-    __syncthreads();  // this stage is refilled next
-  }
-  cp_async_wait<0>();
-
-  float inv_lo, inv_hi, lse_lo, lse_hi;
-  finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
-  const bool lo_valid = r_lo < p.seqlen_q;
-  const bool hi_valid = r_hi < p.seqlen_q;
-  store_rows(p.out + (bh * p.seqlen_q + r_lo) * DV + chunk * kChunk,
-             p.out + (bh * p.seqlen_q + r_hi) * DV + chunk * kChunk, acc, inv_lo, inv_hi,
-             lo_valid, hi_valid);
-  if (t == 0 && chunk == 0) {
-    if (lo_valid) p.lse[bh * p.seqlen_q + r_lo] = lse_lo;
-    if (hi_valid) p.lse[bh * p.seqlen_q + r_hi] = lse_hi;
-  }
-}
-
-template <int DK, int DV, bool QV, int WARPS, int BK>
-cudaError_t launch(Params p, int batch, bool causal, cudaStream_t stream) {
-  using G = Geometry<DK, DV, QV, WARPS, BK>;
-  auto kernel = causal ? mla_fwd_kernel<DK, DV, QV, WARPS, BK, true>
-                       : mla_fwd_kernel<DK, DV, QV, WARPS, BK, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-  if (err != cudaSuccess) return err;
-  p.qtiles = (p.seqlen_q + G::kRowsQ - 1) / G::kRowsQ;
-  p.chunks = DV / kChunk;
-  dim3 grid(p.qtiles, p.heads * p.chunks, batch);
-  kernel<<<grid, WARPS * 32, G::kSmem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace mla_fwd
-
-// q [B, H, Sq, DK], qv [B, H, Sq, DV] or null, k [B, Hk, Sk, DK], v [B, Hk,
-// Sk, DV], all bf16; out [B, H, Sq, DV] bf16, lse [B, H, Sq] fp32. Built for
-// (DK, DV, qv) = (192, 128, no), (576, 512, no) and (64, 512, yes); other
-// shapes return cudaErrorInvalidValue. Returns the CUDA error (0 = success).
+// B1's MLA channels: q [B, H, Sq, DK], qv [B, H, Sq, DV] or null, k [B, Hk,
+// Sk, DK], v [B, Hk, Sk, DV], all bf16; out [B, H, Sq, DV] bf16, lse [B, H,
+// Sq] fp32. Built for (DK, DV, qv) = (192, 128, no) on B1's kernel, and (576,
+// 512, no) and (64, 512, yes) on mla_fwd.cu's; other shapes return
+// cudaErrorInvalidValue. Returns the CUDA error (0 = success).
 extern "C" int lite_flash_fwd_mla(const void* q, const void* qv, const void* k,
                                   const void* v, void* out, void* lse, int batch,
                                   int heads, int kv_heads, int seqlen_q, int seqlen_k,
@@ -1059,27 +929,21 @@ extern "C" int lite_flash_fwd_mla(const void* q, const void* qv, const void* k,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mla_fwd::Params p{};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.qv = static_cast<const __nv_bfloat16*>(qv);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.heads = heads;
-  p.kv_heads = kv_heads;
-  p.seqlen_q = seqlen_q;
-  p.seqlen_k = seqlen_k;
-  p.causal_offset = seqlen_k - seqlen_q;
-  p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_qv = qv != nullptr;
   if (head_dim == 192 && head_dim_v == 128 && !has_qv) {
-    err = mla_fwd::launch<192, 128, false, 8, 64>(p, batch, causal, s);
-  } else if (head_dim == 576 && head_dim_v == 512 && !has_qv) {
-    err = mla_fwd::launch<576, 512, false, 4, 32>(p, batch, causal, s);
-  } else if (head_dim == 64 && head_dim_v == 512 && has_qv) {
-    err = mla_fwd::launch<64, 512, true, 4, 32>(p, batch, causal, s);
+    using namespace lite::fwd;
+    Params p{};
+    p.lse = static_cast<float*>(lse);
+    p.heads = heads;
+    p.kv_heads = kv_heads;
+    p.seqlen_q = seqlen_q;
+    p.seqlen_k = seqlen_k;
+    err = causal ? run<192, 128, true>(q, k, v, out, p, batch, scale, s)
+                 : run<192, 128, false>(q, k, v, out, p, batch, scale, s);
+  } else if (head_dim_v == 512 && ((head_dim == 576 && !has_qv) || (head_dim == 64 && has_qv))) {
+    err = lite_mla_fwd_v512(q, qv, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k,
+                            head_dim, scale, causal != 0, s);
   } else {
     err = cudaErrorInvalidValue;
   }

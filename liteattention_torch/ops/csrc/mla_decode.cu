@@ -19,15 +19,16 @@
 // written from sm90.cuh:
 //
 // * One CTA per 64 q rows (a row block) of a chunk of the keys, 256 threads
-//   in two warpgroups. Warpgroup 0 computes S = Q K^T once (wgmma m64n64k16,
-//   Q and K in shared memory, 36 steps over the 576 channels), masks it,
-//   runs the online softmax (attention_fwd.cuh's row steps, the scale folded
-//   into each exp2) and O[:, 0:256] += P V[:, 0:256] with P from registers.
-//   It also writes P (bf16, 8 KB, 128-byte swizzle) and each row's rescale
-//   factor to shared memory, from where warpgroup 1 runs O[:, 256:512] += P
-//   V[:, 256:512] with both operands in shared memory, under warpgroup 0's
-//   next S. Each accumulator is 64 x 256 fp32, 128 registers a thread. Two
-//   named barriers hand P over (full, empty); the loop has no CTA barrier.
+//   in two warpgroups: mla_step.cuh's split-O tile step. Warpgroup 0
+//   computes S = Q K^T once (wgmma m64n64k16, Q and K in shared memory, 36
+//   steps over the 576 channels), masks it, runs the online softmax
+//   (attention_fwd.cuh's row steps, the scale folded into each exp2) and
+//   O[:, 0:256] += P V[:, 0:256] with P from registers. It also writes P
+//   (bf16, 8 KB, 128-byte swizzle) and each row's rescale factor to shared
+//   memory, from where warpgroup 1 runs O[:, 256:512] += P V[:, 256:512]
+//   with both operands in shared memory, under warpgroup 0's next S. Each
+//   accumulator is 64 x 256 fp32, 128 registers a thread. Two named
+//   barriers hand P over (full, empty); the loop has no CTA barrier.
 // * One load per tile: a 64-key x 576 tile (72 KB) feeds QK^T, and its first
 //   512 channels feed P V from the same 128-byte-swizzled atoms, read
 //   MN-major. Shared memory: Q 72 KB + 2 ring stages of 72 KB + P 8 KB =
@@ -69,6 +70,7 @@
 #include <numeric>
 
 #include "attention_fwd.cuh"
+#include "mla_step.cuh"
 #include "sm90.cuh"
 
 namespace mla {
@@ -78,25 +80,24 @@ using lite::mask_scores;
 using lite::rescale_rows;
 using lite::softmax_rows;
 using lite::store_rows;
-using lite::sm90::desc_add;
 using lite::sm90::desc_sw128;
+
+using lite::mla_step::kAtom;
+using lite::mla_step::kHalf;
+using lite::mla_step::kKeys;
+using lite::mla_step::kPEmpty;
+using lite::mla_step::kPFull;
+using lite::mla_step::kRows;
+using lite::mla_step::kThreads;
+using lite::mla_step::kWarps;
+using lite::mla_step::kWgBar;
 
 constexpr int kD = 576;
 constexpr int kDV = 512;
-constexpr int kRows = 64;           // q rows per CTA (a row block)
-constexpr int kKeys = 64;           // keys per tile
-constexpr int kAtoms = kD / 64;     // 64-channel atoms of a row
-constexpr int kAtom = kKeys * 128;  // bytes of one atom of a tile (kRows == kKeys rows)
-constexpr int kHalf = kDV / 2;      // output channels per warpgroup
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFeeder = 4;  // the warp that feeds the ring
-// Named barriers (0 is __syncthreads): P handed over, P read, one per
-// warpgroup (kWgBar + wg), and a piece's writes done.
-constexpr int kPFull = 1;
-constexpr int kPEmpty = 2;
-constexpr int kWgBar = 3;
-constexpr int kPieceBar = 5;
+constexpr int kAtoms = kD / 64;  // 64-channel atoms of a row
+constexpr int kFeeder = 4;       // the warp that feeds the ring
+constexpr int kPieceBar = 5;     // named barrier: a piece's writes done
+static_assert(kAtoms == lite::mla_step::kSAtoms && kDV == 2 * kHalf, "the split-O step's widths");
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory (byte offsets from a 1024-byte aligned base). Q and each
@@ -373,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int r_hi = r_lo + 8;
   const uint32_t ring_a = lite::sm90::smem_u32(ring);
   const uint64_t q_desc = desc_sw128(lite::sm90::smem_u32(smem + Smem::q), 16, 1024);
-  const uint64_t p_desc = desc_sw128(lite::sm90::smem_u32(smem + Smem::p), 16, 1024);
+  const uint32_t p_addr = lite::sm90::smem_u32(smem + Smem::p);
   // O (this warpgroup's 256 channels) in the accumulator layout (sm90.cuh).
   float o[kHalf / 8][4];
   float(&od)[kHalf / 2] = reinterpret_cast<float(&)[kHalf / 2]>(o);
@@ -429,23 +430,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // warpgroup 1; O[:, 0:256] += P V[:, 0:256].
         float s[kKeys / 8][4];
         float(&sd)[kKeys / 2] = reinterpret_cast<float(&)[kKeys / 2]>(s);
-        // 36 16-deep steps; each step's descriptors are the last ones moved
-        // on, opaque to the compiler, so that it does not compute all 72
-        // ahead into the registers O needs.
-        uint64_t qd = q_desc;
-        uint64_t kd = desc_sw128(tile_a, 16, 1024);
-        lite::sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          lite::sm90::wgmma_ss_n64<0, 0>(sd, qd, kd, kk > 0);
-          const uint32_t step = kk % 4 == 3 ? kAtom - 3 * 32 : 32;  // the next atom, or 16 deeper
-          qd = desc_add(qd, step);
-          kd = desc_add(kd, step);
-          asm volatile("" : "+l"(qd), "+l"(kd));
-        }
-        lite::sm90::wgmma_commit();
-        lite::sm90::wgmma_wait<0>();
-        lite::sm90::fence_regs(sd);
+        lite::mla_step::score(sd, q_desc, tile_a);
         if (jj == n - 1 && b_next >= 0) {
           // Every warp's last S has read Q: the next request's Q loads under
           // this tile's softmax, P V and the piece's end.
@@ -461,46 +446,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint32_t pf[kKeys / 16][4];
 #pragma unroll
         for (int k = 0; k < kKeys / 16; ++k) lite::sm90::frag_a(pf[k], sd, k);
-        lite::sm90::named_sync(kPEmpty, kThreads);  // warpgroup 1 is done with the last P
-        unsigned char* pb = smem + Smem::p;
-#pragma unroll
-        for (int k = 0; k < kKeys / 16; ++k) {  // keys 16 k .. 16 k + 15: chunks 2 k, 2 k + 1
-          *reinterpret_cast<uint32_t*>(pb + r_lo * 128 + (((2 * k) ^ g) << 4) + 4 * t) = pf[k][0];
-          *reinterpret_cast<uint32_t*>(pb + r_hi * 128 + (((2 * k) ^ g) << 4) + 4 * t) = pf[k][1];
-          *reinterpret_cast<uint32_t*>(pb + r_lo * 128 + (((2 * k + 1) ^ g) << 4) + 4 * t) = pf[k][2];
-          *reinterpret_cast<uint32_t*>(pb + r_hi * 128 + (((2 * k + 1) ^ g) << 4) + 4 * t) = pf[k][3];
-        }
-        if (t == 0) {
-          rowv[r_lo] = alpha_lo;
-          rowv[r_hi] = alpha_hi;
-        }
-        lite::sm90::fence_proxy_async();
-        lite::sm90::named_arrive(kPFull, kThreads);
-        const uint64_t v_desc = desc_sw128(tile_a, kAtom, 1024);
-        lite::sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kKeys / 16; ++kk) {
-          lite::sm90::wgmma_rs_n256<1>(od, pf[kk], desc_add(v_desc, kk * 2048), 1);
-        }
-        lite::sm90::wgmma_commit();
-        lite::sm90::wgmma_wait<0>();
-        lite::sm90::fence_regs(od);
-        lite::sm90::fence_regs(pf);
+        lite::mla_step::hand_p(smem + Smem::p, rowv, pf, alpha_lo, alpha_hi, r_lo, r_hi);
+        lite::mla_step::pv_regs(od, pf, tile_a);
       } else {
         // O[:, 256:512] rescaled, then += P V[:, 256:512] (P from shared memory).
-        lite::sm90::named_sync(kPFull, kThreads);
-        rescale_rows(o, rowv[r_lo], rowv[r_hi]);
-        const uint64_t v_desc = desc_sw128(tile_a + 4 * kAtom, kAtom, 1024);
-        lite::sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kKeys / 16; ++kk) {
-          lite::sm90::wgmma_ss_n256<0, 1>(od, desc_add(p_desc, kk * 32),
-                                          desc_add(v_desc, kk * 2048), 1);
-        }
-        lite::sm90::wgmma_commit();
-        lite::sm90::wgmma_wait<0>();
-        lite::sm90::fence_regs(od);
-        lite::sm90::named_arrive(kPEmpty, kThreads);
+        lite::mla_step::pv_smem(o, rowv, r_lo, r_hi, p_addr, tile_a + 4 * kAtom);
       }
       if (lane == 0) lite::sm90::mbar_arrive(&empty[stage]);  // this warp is done with the stage
       if (warp == kFeeder && feed.fed < x1) {

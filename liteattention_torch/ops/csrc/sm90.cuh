@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA loads (3-D and 4-D), stores and bulk copies,
+// Hopper (sm_90a) building blocks: mbarriers, TMA loads (3-D and 4-D), stores, bulk copies both ways,
 // the bulk reduce-add, a release atomic, and wgmma with its shared-memory descriptors.
 //
 // Every tile that wgmma reads from shared memory here is stored with the
@@ -144,6 +144,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Contiguous copy of `bytes` from shared memory to global memory (a
+// multiple of 16, both ends 16-byte aligned); completes in this thread's
+// bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 
 // dst[i] += src[i] in fp32 over `bytes`, done by the TMA unit as atomics.

@@ -23,12 +23,17 @@ wrapper runs the plain PyTorch version for CPU tensors and the kernel for
 CUDA tensors.
 
 MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
-``qv . v`` to the scores -- are forward only, as in JAX: they run the MLA
-instantiation of B1 (``lite_flash_fwd_mla`` in ``csrc/flash_fwd.cu``:
-one CTA per q-tile and 128-wide chunk of V's channels, q held in shared
-memory), built for (D, Dv, qv) = (192, 128, no), (576, 512, no) and (64,
-512, yes); other pairs raise on the card (ROADMAP A11) and the backward
-raises.
+``qv . v`` to the scores -- are forward only, as in JAX (entry
+``lite_flash_fwd_mla``), built for (D, Dv, qv) = (192, 128, no), (576, 512,
+no) and (64, 512, yes). (192, 128), DeepSeek's non-absorbed prefill, runs
+on B1's own kernel with D 192 for Q and K and 128 for V (two ring stages
+with separate K and V barriers; launches counted in
+``flash_attention.mla_launches``). The V-512 shapes run on the split-O
+kernel ``csrc/mla_fwd.cu:mla_fwd_kernel`` (B10's design: one CTA per 64 q
+rows, S over the 576 score channels computed once per 64-key tile by one
+warpgroup, O's 512 channels split over two; counted in
+``flash_attention.mla_v512_launches``). Other pairs raise on the card
+(ROADMAP A11) and the backward raises.
 
 :func:`flash_attention_decode` is the decode entry (kernel B8, replacing
 ``liteattention_tpu/ops/flash_fwd.py:_decode_folded_kernel``): a few q rows
@@ -182,8 +187,8 @@ def flash_attention(
 
 
 class _FlashAttentionMLA(torch.autograd.Function):
-    """Forward through B1's MLA instantiation (or the plain version); the
-    MLA shapes are inference-only, so the backward raises."""
+    """Forward through B1's MLA kernels (or the plain version); the MLA
+    shapes are inference-only, so the backward raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, qv, scale, causal):
@@ -203,7 +208,7 @@ class _FlashAttentionMLA(torch.autograd.Function):
         )
 
 
-# (D, Dv, qv) pairs of B1's MLA instantiation.
+# (D, Dv, qv) pairs of B1's MLA kernels.
 MLA_SHAPES = ((192, 128, False), (576, 512, False), (64, 512, True))
 
 
@@ -230,7 +235,10 @@ def _launch_mla(q, k, v, qv, scale, causal):
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_fwd_mla")
-    flash_attention.mla_launches += 1
+    if dv == 512:
+        flash_attention.mla_v512_launches += 1
+    else:
+        flash_attention.mla_launches += 1
     return out, lse
 
 
@@ -258,6 +266,7 @@ def _launch(q, k, v, scale, causal):
 
 flash_attention.launches = 0
 flash_attention.mla_launches = 0
+flash_attention.mla_v512_launches = 0
 
 
 def flash_attention_masked(

@@ -9,11 +9,14 @@ sparse kernel loads from it. The outputs do not change: the same tiles
 are computed, only their addresses move.
 
 Kernel: ``csrc/kv_compact.cu``, replacing the Pallas kernel
-``liteattention_tpu/ops/kv_compact.py:_copy_kernel``: one CTA per
-(compact position, kv-head, batch) copies one 128-row tile of K and one
-of V. What bounds it on the H100: memory, each tile read once and written
-once. The TPU's K|V lane interleave (``pack_kv``) is not carried over: K
-and V stay separate ``[B, Hk, S, D]`` tensors.
+``liteattention_tpu/ops/kv_compact.py:_copy_kernel``. Each 128-row tile of
+K or V is one contiguous block, so the copy engine moves it: one CTA per
+SM walks the flat list of tile copies, one thread issuing bulk copies
+global -> shared into a ring of stages and shared -> global out of it;
+no byte passes through registers. What bounds it on the H100: memory,
+each tile read once and written once. The TPU's K|V lane interleave
+(``pack_kv``) is not carried over: K and V stay separate ``[B, Hk, S,
+D]`` tensors.
 """
 
 from __future__ import annotations

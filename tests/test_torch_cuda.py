@@ -101,6 +101,8 @@ FWD_SHAPES = SHAPES + [
     (1, 4, 2, 300, 129, 64),
     (1, 8, 2, 700, 300, 128),
     (2, 16, 2, 500, 700, 64),
+    (1, 8, 8, 1024, 1500, 128),
+    (2, 4, 4, 777, 1500, 64),
 ]
 
 
@@ -327,6 +329,32 @@ def test_kv_compact_kernels(dev):
                                        cidx=cidx, fold_h=fold)
             for a, b in zip(got, base):
                 assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("form", ["identity", "reversed", "random"])
+def test_kv_compact_kernel_forms(dev, d, form):
+    # B6 bit-equal to its plain version in one launch: B 2, Hk 3, 139 tiles
+    # a head (each CTA's copies wrap its ring, and 2 x 3 x 139 x 2 copies are
+    # no multiple of the ring's stages), D 256 in two parts a tile.
+    from liteattention_torch.ops.kv_compact import compact_kv, compact_kv_plain
+
+    b, hk, kt = 2, 3, 139
+    g = torch.Generator(device=dev).manual_seed(d)
+    k, v = (torch.randn(b, hk, kt * 128, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    if form == "identity":
+        inv = torch.arange(kt, device=dev).expand(b, hk, kt)
+    elif form == "reversed":
+        inv = torch.arange(kt - 1, -1, -1, device=dev).expand(b, hk, kt)
+    else:
+        inv = torch.stack([torch.randperm(kt, generator=g, device=dev) for _ in range(b * hk)])
+    inv = inv.reshape(b, hk, kt).int().contiguous()
+    n0 = compact_kv.launches
+    kc, vc = compact_kv(k, v, inv)
+    torch.cuda.synchronize()
+    assert compact_kv.launches == n0 + 1
+    rk, rv = compact_kv_plain(k, v, inv)
+    assert torch.equal(kc, rk) and torch.equal(vc, rv)
 
 
 def test_blocksparse_without_kernel_raises(dev):
@@ -746,30 +774,55 @@ def test_mla_decode_kernel_raises_on_what_it_does_not_take(dev):
 
 
 # (b, h, hk, sq, sk, d, dv, qv): DeepSeek's prefill shape with GQA, the
-# absorbed widths, the qv term; ragged tiles and Sq > Sk.
+# absorbed widths, the qv term; ragged tiles and Sq > Sk. Then one KV head
+# under 16 and 128 q heads at the V-512 shapes; Sq > Sk (causal rows with no
+# key); Sq 1, 63 and 65 (a partial 64-row block of the split-O kernel, and
+# of B1's 128-row tile); Sk under one tile (64 keys at V 512, 128 at (192,
+# 128)); long walks through the rings (K and V refilled many times).
 MLA_FWD_CASES = [
     (2, 4, 2, 300, 555, 192, 128, False),
     (1, 2, 2, 1000, 640, 192, 128, False),
     (1, 3, 3, 200, 333, 576, 512, False),
     (2, 2, 1, 130, 97, 64, 512, True),
+    (1, 16, 1, 200, 333, 576, 512, False),
+    (1, 128, 1, 70, 150, 576, 512, False),
+    (1, 16, 1, 130, 200, 64, 512, True),
+    (1, 128, 1, 65, 129, 64, 512, True),
+    (1, 4, 2, 300, 100, 576, 512, False),
+    (2, 2, 1, 200, 70, 64, 512, True),
+    (1, 4, 1, 1, 300, 576, 512, False),
+    (1, 4, 1, 63, 63, 64, 512, True),
+    (1, 4, 4, 65, 129, 576, 512, False),
+    (1, 8, 1, 1, 1059, 192, 128, False),
+    (1, 4, 2, 65, 300, 192, 128, False),
+    (1, 4, 1, 100, 40, 576, 512, False),
+    (1, 4, 2, 70, 1, 64, 512, True),
+    (1, 4, 2, 100, 50, 192, 128, False),
+    (1, 2, 1, 1000, 1500, 576, 512, False),
+    (1, 2, 1, 900, 1200, 64, 512, True),
+    (1, 2, 2, 1500, 1700, 192, 128, False),
 ]
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,h,hk,sq,sk,d,dv,use_qv", MLA_FWD_CASES)
 def test_flash_fwd_mla_kernel(dev, b, h, hk, sq, sk, d, dv, use_qv, causal):
-    """B1's MLA instantiation against the plain version, with B1's own
-    tolerances (out 2e-2, over max(1, |plain|) when causal; lse 1e-3)."""
+    """B1's MLA kernels against the plain version, with B1's own
+    tolerances (out 2e-2, over max(1, |plain|) when causal; lse 1e-3);
+    neither has atomics, so a second launch gives the same bits."""
     from liteattention_torch.ops.flash_fwd import flash_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(d + dv + sq)
     mk = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()  # noqa: E731
     q, k, v = mk(b, h, sq, d), mk(b, hk, sk, d), mk(b, hk, sk, dv)
     qv = mk(b, h, sq, dv) if use_qv else None
-    n0 = flash_attention.mla_launches
+    counter = "mla_v512_launches" if dv == 512 else "mla_launches"
+    n0 = getattr(flash_attention, counter)
     out, lse = flash_attention(q, k, v, causal=causal, qv=qv, return_lse=True)
     torch.cuda.synchronize()
-    assert flash_attention.mla_launches == n0 + 1
+    assert getattr(flash_attention, counter) == n0 + 1
+    out2, lse2 = flash_attention(q, k, v, causal=causal, qv=qv, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     ro, rl = flash_attention_plain(q, k, v, 1.0 / d**0.5, causal, qv=qv)
     assert out.shape == (b, h, sq, dv)
     diff = (out.float() - ro.float()).abs()

@@ -59,7 +59,44 @@ def test_mla_shapes_match_jax(d, dv, use_qv, causal):
     mo = flash_attention_masked(t(q), t(k), t(v), scale=scale, causal=causal,
                                 qv=None if qv is None else t(qv))
     assert torch.equal(mo, po)
-    assert flash_attention.mla_launches == 0  # CPU tensors never launch
+    # CPU tensors never launch.
+    assert flash_attention.mla_launches == 0 and flash_attention.mla_v512_launches == 0
+
+
+@pytest.mark.parametrize(
+    "d,dv,use_qv,h,sq,sk",
+    [
+        (576, 512, False, 3, 100, 200),  # absorbed widths, one KV head, Sq < Sk
+        (576, 512, False, 4, 200, 130),  # ... Sq > Sk: early rows see no key
+        (64, 512, True, 3, 100, 200),  # the qv . v term, one KV head
+        (64, 512, True, 4, 200, 130),
+        (192, 128, False, 3, 70, 257),  # the prefill shape, one KV head, ragged
+    ],
+)
+def test_mla_gqa_causal_matches_jax(d, dv, use_qv, h, sq, sk):
+    """The MLA shapes with every head on one KV head (GQA group 3 or 4),
+    causal bottom-right with Sq != Sk, against JAX in interpret mode at
+    the file's tolerance; rows with no key give out 0 and lse -inf in
+    both."""
+    rng = np.random.RandomState(d + dv + sq)
+    q = rng.randn(1, h, sq, d).astype(np.float32)
+    k = rng.randn(1, 1, sk, d).astype(np.float32)
+    v = rng.randn(1, 1, sk, dv).astype(np.float32)
+    qv = rng.randn(1, h, sq, dv).astype(np.float32) if use_qv else None
+    scale = (d + (dv if use_qv else 0)) ** -0.5
+    jo, jl = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale, causal=True,
+                    qv=None if qv is None else jnp.asarray(qv), return_lse=True, interpret=True)
+    po, pl = flash_attention(t(q), t(k), t(v), scale=scale, causal=True,
+                             qv=None if qv is None else t(qv), return_lse=True)
+    assert po.shape == (1, h, sq, dv) and pl.shape == (1, h, sq)
+    jl = np.asarray(jl)
+    dead = np.isneginf(jl)
+    assert dead.any() == (sq > sk)
+    np.testing.assert_array_equal(np.isneginf(pl.numpy()), dead)
+    assert not po.numpy()[dead].any()
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=TOL, rtol=0)
+    np.testing.assert_allclose(pl.numpy()[~dead], jl[~dead], atol=TOL, rtol=0)
+    assert flash_attention.mla_launches == 0 and flash_attention.mla_v512_launches == 0
 
 
 def test_flash_attn_func_qv_default_scale_matches_jax():
