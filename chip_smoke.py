@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    of every kernel from ``liteattention_torch/ops/csrc`` (one nvcc per
    source, in parallel).
 2. Kernels against their plain PyTorch versions on the card, bf16: the
-   dense forward (B1), the schedule packer (B2) and the sparse forward
+   dense forward (B1), the schedule packer (B2: bit for bit; timed by
+   device time and call time, beside an empty launch through the same
+   ctypes path and one fill of as many bytes) and the sparse forward
    with votes (B3) at moderate shapes and at the Wan slice's shapes; the
    causal B1 and the one-pass backward B7 (``flash_attention_bwd``: delta,
    one kernel for dQ, dK and dV, dQ to bf16; it serves B7a and B7b) at the
@@ -31,6 +33,18 @@ Phases (any failure exits non-zero and prints no result line):
    which must match (a), (c) lite from banded ~50% masks and a
    thresholded run. The launch counters of B1-B3 must move. A small model
    is also checked on the card against the plain versions on the CPU.
+   Then (i) Wan2.1-I2V-14B (in_channels 36 = 16 + 20 conditioning
+   channels, decoupled image K/V over 257 x 1280 CLIP tokens, 2 blocks,
+   the same grid, CFG, 4 steps): B1 at the image branch's shape (1 x 40 x
+   32 760 x 128, Sk 257) against its plain version (out, lse, every
+   128-row block) and timed beside SDPA; dense, lite from a full mask at
+   -inf (must match dense) and lite from banded masks; and (ii) Wan2.2-
+   T2V-A14B, two experts of the 14B geometry (2 blocks each, their own
+   seeds) through ``denoise_two_expert`` (4 steps, boundary 0.875: the
+   switch after step 2): dense, lite at -inf (must match dense), and lite
+   voting at thr 0 before the switch and -10 after it, where the sparsity
+   the high-noise steps reach must not drop at the switch (masks restarted
+   from full would read about 0). B1, B2 and B3 must launch in each.
 4. The training slice: a small GPT (head dims 64 and 128) whose loss
    and gradients on the card are held against the same step through the
    plain versions on the CPU; then the training entry point
@@ -102,12 +116,13 @@ It needs nothing but the repository, PyTorch built for CUDA and nvcc.
 
     python3 chip_smoke.py --ab DIR [REPS]
 
-times B1 (at four shapes), B3, B4 (coarse and super-tile), B5, the decode
+times B1 (at four shapes), B2 (device and call time, with and without
+``kv_map``, beside an empty ctypes launch and a fill of as many bytes), B3, B4 (coarse and super-tile), B5, the decode
 kernel (B8 full and ragged, bf16 and int8, B9b paged), the MLA decode B10
 (ragged permuted pages and full lengths, beside SDPA), B1's MLA kernels
 at phase 7's three shapes, B6 (beside ``index_select``) and the backward
 B7 of the checkout at DIR instead, with digests of B1's, B3's and B5's
-outputs (see ``ab_times``): to compare two checkouts on one card, run it
+outputs and of B2's (see ``ab_times``): to compare two checkouts on one card, run it
 for each in turns in one job.
 """
 
@@ -131,6 +146,10 @@ OUT_TOL = 2e-2
 LSE_TOL = 1e-3  # max abs error of lse (fp32, approximate exp2)
 MARGIN = 1e-3  # votes may differ only where |headroom - thr| is below this
 SLICE_AB_TOL = 1e-2  # rel-L2 of (b) lite-at-thr=-inf against (a) dense
+# rel-L2 of B1's output over every (b, h, 128-row block) against its plain
+# version (bf16 output, P rounded to bf16 before PV), where a shape is
+# checked block by block.
+B1_BLOCK_TOL = 2e-2
 SMALL_FWD_TOL = 2e-2  # rel-L2 of a small bf16 model forward on the card vs fp32 CPU
 SMALL_DENOISE_TOL = 5e-2  # same for a 3-step CFG denoise (CFG amplifies error)
 # B7: rel-L2 of each of dq, dk, dv over the whole tensor, and over every
@@ -216,41 +235,38 @@ def cuda_ms(fn, reps=5):
 def device_ms(fn, reps=20, names=()):
     """Device time per call of ``fn`` (after one warm-up call): (every
     CUDA kernel the call launches, those whose name holds one of
-    ``names``, the timer). For calls whose host side outlasts their device
-    work, where CUDA events would time the host. The timer is
-    ``"profiler"`` (torch.profiler). A profile that recorded fewer
-    launches than calls (of the named kernels, where names are given) is
-    taken again, up to three times (seen on an H100 under torch 2.11: no
-    device time at all midway through a run, or one call's worth of
-    twenty; cause not found); then CUDA events behind a busy wait time
-    the whole call (``queued_ms``), the named kernels' share is not
-    measured (None) and the timer is ``"queued_events"``."""
+    ``names``, the timer). The first is ``queued_ms``: CUDA events around
+    calls queued behind a busy wait, so host time between calls does not
+    count (timer ``"queued_events"``; ``"events"`` for a call that waits
+    on the device itself). The second is torch.profiler's device time of
+    the named kernels, None where no names are given or the profile
+    recorded fewer of their launches than calls (on an H100 under torch
+    2.11 it sometimes records none midway through a run, or one call's
+    worth of twenty; the cause was not found), so that no time is taken
+    from a profile that missed launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    total, timer = queued_ms(fn, reps)
+    if not names:
+        return total, None, timer
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = picked = 0.0
-        launches = picked_launches = 0
+        picked, launches = 0.0, 0
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False
-            ):
-                named = any(n in e.key for n in names)
-                total += e.self_device_time_total / 1e3
-                picked += e.self_device_time_total / 1e3 if named else 0.0
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and any(n in e.key for n in names)):
+                picked += e.self_device_time_total / 1e3
                 launches += e.count
-                picked_launches += e.count if named else 0
-        if total > 0 and (picked_launches if names else launches) >= reps:
-            return total / reps, picked / reps, "profiler"
-    log("  torch.profiler recorded fewer launches than calls in 3 tries: CUDA events behind a "
-        "busy wait")
-    return queued_ms(fn, reps), None, "queued_events"
+        if launches >= reps:
+            return total, picked / reps, timer
+    log("  torch.profiler recorded fewer launches than calls in 3 tries: the named kernels' "
+        "share is not measured")
+    return total, None, timer
 
 
 def fmt_ms(ms, digits=4):
@@ -260,20 +276,34 @@ def fmt_ms(ms, digits=4):
 
 def queued_ms(fn, reps):
     """Device time per call of ``fn`` by CUDA events, with the device held
-    in a busy wait (~50 ms) while the host enqueues every call, so that
-    host time between calls does not count."""
+    in a busy wait while the host enqueues every call, so that host time
+    between calls does not count: (ms, ``"queued_events"``). The wait is
+    sized from one call's host time and must still be running when the
+    last call is queued (checked; one retry with a wait 8x as long). A
+    call that waits on the device itself ends the wait early: it is then
+    timed by plain events over back-to-back calls, (ms, ``"events"``)."""
     import torch
 
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    wait_ms = max(50.0, 4.0 * reps * host_ms)
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(wait_ms * 2e6))  # cycles: >= wait_ms at up to 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()  # the device still waits: every call queued behind it
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps, "queued_events"
+        wait_ms *= 8
+    return cuda_ms(fn, reps), "events"
 
 
 def bound(flops, nbytes):
@@ -404,7 +434,7 @@ def fwd_bwd_ms(fn, q, k, v, dout):
     return cuda_ms(lambda: fn(qg, kg, vg).backward(dout))
 
 
-def check_flash(q, k, v, label, causal=False, time_it=False):
+def check_flash(q, k, v, label, causal=False, time_it=False, blocks=False):
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -428,6 +458,11 @@ def check_flash(q, k, v, label, causal=False, time_it=False):
     log(msg)
     check(err_chk < OUT_TOL and err_l < LSE_TOL, f"B1 {label} disagrees")
     res = {"err": err_o}
+    if blocks:
+        res["rel_l2"], res["worst_block_rel_l2"] = block_rel_l2(out, ro)
+        log(f"  B1 {label}: rel-L2 {res['rel_l2']:.3e}, worst (b, h, 128-row block) "
+            f"{res['worst_block_rel_l2']:.3e} (tolerance {B1_BLOCK_TOL})")
+        check(res["worst_block_rel_l2"] < B1_BLOCK_TOL, f"B1 {label}: a 128-row block disagrees")
     if time_it:
         b, h, sq, d = q.shape
         sk = k.shape[2]
@@ -564,24 +599,45 @@ def check_bwd(q, k, v, dout, label, causal, time_it=False):
     return res
 
 
-def check_pack(m, label, time_it=False):
+def check_pack(m, label, time_it=False, kv_map=None):
+    """B2 bit-equal to its plain version on ``m`` (and ``kv_map``); with
+    ``time_it`` its device time (queued_ms: the kernel alone, host time
+    between calls left out), its call time (CUDA events around back-to-back
+    calls of the wrapper: the host's time per call at this size) and, beside
+    them, an empty kernel launched through the same ctypes path (call and
+    device time) and one fill of as many bytes as B2 writes (device
+    time)."""
     import torch
-    from liteattention_torch.ops.schedule_pack import pack_schedule, pack_schedule_plain
+    from liteattention_torch.ops.schedule_pack import (
+        noop_launch,
+        pack_schedule,
+        pack_schedule_plain,
+    )
 
-    fidx, count = pack_schedule(m)
+    extra = () if kv_map is None else (kv_map,)
+    got = pack_schedule(m, *extra)
     torch.cuda.synchronize()
-    rf, rc = pack_schedule_plain(m)
-    same = torch.equal(fidx, rf) and torch.equal(count, rc)
-    log(f"  B2 {label} {tuple(m.shape)}: exact {same}")
+    same = all(torch.equal(a, b) for a, b in zip(got, pack_schedule_plain(m, *extra)))
+    log(f"  B2 {label} {tuple(m.shape)}{' with kv_map' if extra else ''}: exact {same}")
     check(same, f"B2 {label} disagrees")
     res = {"err": 0.0}
     if time_it:
-        res["ms"] = cuda_ms(lambda: pack_schedule(m), reps=20)
-        res["plain_ms"] = cuda_ms(lambda: pack_schedule_plain(m), reps=5)
-        res["bound_ms"], res["bound_by"] = bound(0, nbytes(m, fidx, count))
+        call = lambda: pack_schedule(m, *extra)  # noqa: E731
+        res["ms"], _, res["timer"] = device_ms(call, reps=50)
+        res["call_ms"] = cuda_ms(call, reps=50)
+        res["noop_call_ms"] = cuda_ms(lambda: noop_launch(m.device), reps=50)
+        res["noop_ms"] = queued_ms(lambda: noop_launch(m.device), 50)[0]
+        # The card's rate for the bytes B2 writes: one fill of as many bytes.
+        sink = torch.empty(sum(x.numel() for x in got), dtype=torch.int32, device=m.device)
+        res["fill_ms"] = queued_ms(lambda: sink.fill_(1), 50)[0]
+        res["plain_ms"] = cuda_ms(lambda: pack_schedule_plain(m, *extra), reps=5)
+        res["bound_ms"], res["bound_by"] = bound(0, nbytes(m, *got, *extra))
         res["library_ms"] = None
-        log(f"  B2 {label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+        log(f"  B2 {label}: device {res['ms']:.5f} ms ({res['timer']}), call {res['call_ms']:.4f} "
+            f"ms (events; an empty launch through ctypes: call {res['noop_call_ms']:.4f} ms, device "
+            f"{res['noop_ms']:.5f} ms; one fill of as many bytes {res['fill_ms']:.5f} ms), plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms ({res['bound_by']}), "
+            f"{res['bound_ms'] / res['ms']:.1%} of it")
     return res
 
 
@@ -855,6 +911,171 @@ def slice_phase(dev, card, full, grid):
     log(f"  ms/step [{card}]: (a) {ms_a:.1f}, (b) {ms_b:.1f}, (c1) {ms_c1:.1f}, "
         f"(c2) {ms_c2:.1f}")
     return counts
+
+
+# Wan2.1-I2V-14B (Wan-Video/Wan2.1 wan/configs/wan_i2v_14B.py): the 14B
+# geometry with in_dim 36 = 16 noise + 20 conditioning channels, decoupled
+# image K/V, and 257 CLIP ViT-H/14 tokens of width 1280. Wan2.2-T2V-A14B:
+# two experts of the 14B geometry, switched at sigma 0.875.
+I2V_COND, I2V_IMAGE_TOKENS, I2V_IMAGE_DIM = 20, 257, 1280
+TWO_EXPERT_BOUNDARY = 0.875
+PHASE3_STEPS = 4
+
+
+def timed_denoise(label, card, call, steps):
+    """``call()`` -> (latents, telemetry), timed on the host around a
+    synchronized run: (latents, sparsity per step, ms/step, telemetry)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, tel = call()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    sp = [float(v) for v in tel["sparsity_per_step"]]
+    finite = bool(torch.isfinite(x).all())
+    log(f"  ({label}) {ms:.1f} ms/step, sparsity per step {[round(v, 4) for v in sp]}, "
+        f"finite {finite} [{card}]")
+    check(finite, f"({label}) output not finite")
+    return x, sp, ms, tel
+
+
+def check_path_counts(label):
+    """The counted run's launches (read just after it): B1, B2 and B3 must
+    each have launched."""
+    counts = read_counts()
+    log(f"  launches during {label}: {counts}")
+    check(all(counts[n] > 0 for n in ("flash_fwd", "schedule_pack", "lite_flash_fwd")),
+          f"{label}: a kernel of the path never launched")
+    return counts
+
+
+def i2v_phase(dev, card, full, grid):
+    """Configuration (i): Wan2.1-I2V-14B at full width, depth cut to 2
+    blocks, random weights from a seed; B1 at the image branch's Sk 257 held
+    against its plain version, then the counted run: (a) dense, (b) lite
+    from a full mask at -inf (must match (a)), (c) lite from banded masks."""
+    import torch
+    from liteattention_torch.models import WanModel, denoise
+    from liteattention_torch.ops.mask import SkipMaskState
+
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS, in_channels=16 + I2V_COND,
+                              i2v_decoupled=True)
+    log(f"  Wan2.1-I2V-14B: dim {cfg.dim}, {cfg.num_heads} heads x {cfg.head_dim}, in_channels "
+        f"{cfg.in_channels} (16 + {I2V_COND}), decoupled image K/V, {I2V_IMAGE_TOKENS} x "
+        f"{I2V_IMAGE_DIM} image tokens; depth cut {full.num_layers} -> {cfg.num_layers} blocks")
+    g = torch.Generator(device=dev).manual_seed(11)
+    frames, hh, ww = grid
+    n_tok = frames * (hh // 2) * (ww // 2)
+    h, d = cfg.num_heads, cfg.head_dim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    b1 = check_flash(rnd(1, h, n_tok, d), rnd(1, h, I2V_IMAGE_TOKENS, d),
+                     rnd(1, h, I2V_IMAGE_TOKENS, d),
+                     f"image cross 1x{h}x{n_tok}x{d} Sk={I2V_IMAGE_TOKENS}", time_it=True,
+                     blocks=True)
+    model = WanModel(cfg, device=dev, image_dim=I2V_IMAGE_DIM)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(10))
+    model.requires_grad_(False)
+    noise = rnd(1, frames, hh, ww, 16)
+    cond = rnd(1, frames, hh, ww, I2V_COND)
+    img = rnd(1, I2V_IMAGE_TOKENS, I2V_IMAGE_DIM)
+    text, null = rnd(1, cfg.text_len, cfg.text_dim), rnd(1, cfg.text_len, cfg.text_dim)
+    steps = PHASE3_STEPS
+    common = dict(num_steps=steps, guidance_scale=5.0, vote_stride=2, image_ctx=img,
+                  latent_cond=cond)
+
+    def run(label, **kw):
+        return timed_denoise(label, card, lambda: denoise(model, noise, text, null, **common,
+                                                           **kw), steps)
+
+    denoise(model, noise, text, null, num_steps=1, enable_skipping=False, image_ctx=img,
+            latent_cond=cond)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    xa, _, ms_a, _ = run("i.a: I2V dense", enable_skipping=False)
+    xb, sp_b, ms_b, _ = run("i.b: I2V lite, full mask, thr -inf", thresholds=[-math.inf] * steps)
+    e_ab = rel_l2(xb.float(), xa.float())
+    log(f"  (i.b) vs (i.a) rel-L2 {e_ab:.3e} (tolerance {SLICE_AB_TOL})")
+    check(xa.shape == noise.shape and e_ab < SLICE_AB_TOL and max(sp_b) == 0.0,
+          "(i.b) does not match (i.a)")
+    kt = math.ceil(n_tok / 128)
+    band = banded_mask(1, h, kt, kt, 0.5, dev)
+    band_sparsity = 1.0 - band.float().mean().item()
+    states = {i: SkipMaskState(band, 0) for i in range(cfg.num_layers)}
+    _, sp_c, ms_c, _ = run(f"i.c: I2V lite, banded masks at {band_sparsity:.3f}, thr -10",
+                           thresholds=[-10.0] * steps, initial_states=dict(states),
+                           initial_states_uncond=dict(states))
+    check(sp_c[0] >= band_sparsity - 1e-6, "(i.c) lost its sparsity")
+    torch.cuda.synchronize()
+    counts = check_path_counts("the I2V run")
+    log(f"  I2V ms/step [{card}]: (a) {ms_a:.1f}, (b) {ms_b:.1f}, (c) {ms_c:.1f}")
+    return counts, b1, {"ms_per_step": {"dense": ms_a, "lite_full_mask": ms_b,
+                                        "lite_banded": ms_c},
+                        "b_vs_a_rel_l2": e_ab, "sparsity_banded": sp_c}
+
+
+def two_expert_phase(dev, card, full, grid):
+    """Configuration (ii): Wan2.2-T2V-A14B's two experts, each the 14B
+    geometry cut to 2 blocks with its own seed, through
+    ``denoise_two_expert`` (4 steps, boundary 0.875: the switch after step
+    2). Dense, lite at -inf (must match dense), and lite voting at thr 0
+    before the switch and -10 after it: the sparsity the high-noise steps
+    reach must not drop at the switch."""
+    import torch
+    from liteattention_torch.models import WanModel, denoise, denoise_two_expert
+
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS)
+    experts = []
+    for seed in (20, 21):
+        m = WanModel(cfg, device=dev)
+        m.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+        experts.append(m.requires_grad_(False))
+    log(f"  Wan2.2-T2V-A14B: two experts of the 14B geometry, depth cut {full.num_layers} -> "
+        f"{cfg.num_layers} blocks each, boundary {TWO_EXPERT_BOUNDARY}")
+    g = torch.Generator(device=dev).manual_seed(22)
+    frames, hh, ww = grid
+    noise = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    steps = PHASE3_STEPS
+
+    def run(label, **kw):
+        return timed_denoise(label, card, lambda: denoise_two_expert(
+            *experts, noise, text, null, num_steps=steps, boundary=TWO_EXPERT_BOUNDARY, **kw),
+            steps)
+
+    for m in experts:  # warm-up, not counted
+        denoise(m, noise, text, null, num_steps=1, enable_skipping=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    xa, _, ms_a, tel_a = run("ii.a: two experts dense", enable_skipping=False)
+    n_high = tel_a["num_high_noise_steps"]
+    log(f"  high-noise steps {n_high} of {steps}")
+    check(n_high == 2, f"(ii) the experts switch after step {n_high}, not 2")
+    xb, sp_b, ms_b, _ = run("ii.b: two experts lite, full mask, thr -inf",
+                            thresholds=[-math.inf] * steps)
+    e_ab = rel_l2(xb.float(), xa.float())
+    log(f"  (ii.b) vs (ii.a) rel-L2 {e_ab:.3e} (tolerance {SLICE_AB_TOL})")
+    check(xa.shape == noise.shape and e_ab < SLICE_AB_TOL and max(sp_b) == 0.0,
+          "(ii.b) does not match (ii.a)")
+    # (ii.c): the high-noise steps vote at thr 0 from full masks, so their
+    # masks gain sparsity; the low-noise steps vote at thr -10, which skips
+    # nothing new. Carried masks keep the high segment's sparsity after the
+    # switch; masks restarted from full would read about 0 there.
+    thr_c = [0.0] * n_high + [-10.0] * (steps - n_high)
+    _, sp_c, ms_c, _ = run(f"ii.c: two experts lite, thresholds {thr_c}", thresholds=thr_c)
+    log(f"  sparsity before the switch {sp_c[n_high - 1]}, after it {sp_c[n_high]}")
+    check(sp_c[n_high - 1] > 0.0 and sp_c[n_high] >= sp_c[n_high - 1],
+          "(ii.c) the masks did not carry across the expert switch")
+    torch.cuda.synchronize()
+    counts = check_path_counts("the two-expert run")
+    log(f"  two-expert ms/step [{card}]: (a) {ms_a:.1f}, (b) {ms_b:.1f}, (c) {ms_c:.1f}")
+    return counts, {"ms_per_step": {"dense": ms_a, "lite_full_mask": ms_b, "lite_voting": ms_c},
+                    "b_vs_a_rel_l2": e_ab, "num_high_noise_steps": n_high,
+                    "sparsity_voting": sp_c}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1867,9 +2088,9 @@ def engine_phase(dev, full, card):
     kvc["bound_ms"], kvc["bound_by"] = bound(0, 2 * nbytes(ka, va) + nbytes(inv))
     kres["kv_compact"] = kvc
     fa, ca, cia = pack_schedule(mask_a, kv_map)
-    ext = {"pack_ms_kv_map": cuda_ms(lambda: pack_schedule(mask_a, kv_map), reps=20),
-           "pack_ms": cuda_ms(lambda: pack_schedule(mask_a), reps=20),
-           "pack_bound_ms_kv_map": bound(0, nbytes(mask_a, fa, ca, cia, kv_map))[0],
+    pack_kv = check_pack(mask_a, "(a)'s mask", time_it=True, kv_map=kv_map)
+    pack = check_pack(mask_a, "(a)'s mask", time_it=True)
+    ext = {"pack_kv_map": pack_kv, "pack": pack,
            "lite_ms_compacted": cuda_ms(lambda: lite_flash_attention(
                qa, kc, vc, fa, ca, ENGINE_THR, mask_a, cidx=cia)),
            "lite_ms_uncompacted": cuda_ms(lambda: lite_flash_attention(
@@ -1884,8 +2105,8 @@ def engine_phase(dev, full, card):
     log(f"  B6 compact_kv 1x{h}x{sa}x{d} K and V: kernel {kvc['ms']:.4f} ms, plain "
         f"{kvc['plain_ms']:.3f} ms, index_select {kvc['library_ms']:.4f} ms, bound "
         f"{kvc['bound_ms']:.4f} ms ({kvc['bound_by']})")
-    log(f"  at (a)'s mask (sparsity {ext['a_sparsity']:.3f}): B2 {ext['pack_ms']:.4f} ms, with "
-        f"kv_map {ext['pack_ms_kv_map']:.4f} ms; B3 on compacted K/V {ext['lite_ms_compacted']:.3f}"
+    log(f"  at (a)'s mask (sparsity {ext['a_sparsity']:.3f}): B2 {pack['ms']:.5f} ms, with "
+        f"kv_map {pack_kv['ms']:.5f} ms; B3 on compacted K/V {ext['lite_ms_compacted']:.3f}"
         f" ms vs on K/V {ext['lite_ms_uncompacted']:.3f} ms (+ B6 {kvc['ms']:.4f} ms) [{card}]")
     return counts, kres, ext, res
 
@@ -2261,7 +2482,8 @@ def mla_phase(dev, card):
 # that B4 ran on before, kept for older checkouts; "mla_decode_kernel"
 # B10).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
-              "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel")
+              "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel",
+              "pack_schedule_kernel")
 
 
 def ab_times(reps):
@@ -2286,8 +2508,11 @@ def ab_times(reps):
     index_select at phase 6's shape (1 x 40 x 32 768 x 128 K and V, a
     random tile order), and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
-    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal); and a
-    digest of the bytes of B1's, B3's and B5's outputs at the Wan shape, so
+    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal), of B2
+    at the slice's mask and, with ``kv_map``, at its front half (device
+    time by queued_ms, call time by events, beside an empty ctypes launch
+    and one fill of as many bytes); and a
+    digest of the bytes of B1's, B2's, B3's and B5's outputs at the Wan shape, so
     that two checkouts can be seen to compute the same bits. It
     calls only entry points every version of the port has since the
     decode kernel, so checkouts can be timed in turns on one card (older,
@@ -2325,6 +2550,28 @@ def ab_times(reps):
     kt = math.ceil(s / 128)
     mask = banded_mask(1, h, kt, kt, 0.5, dev)
     fidx, count = pack_schedule(mask)[:2]
+    # B2 at the slice's mask, and with kv_map at the same band with its
+    # back half of keys dead (a union of half the tiles, as the engine's
+    # pre-skipped run): device time (queued_ms), call time (CUDA events over
+    # back-to-back calls), and an empty kernel launched through the same
+    # ctypes path where the checkout has one.
+    from liteattention_torch.ops import schedule_pack as b2_module
+    from liteattention_torch.ops.kv_compact import kv_union_map
+
+    mask_kv = mask & (torch.arange(kt, device=dev) < kt // 2)
+    kv_map = kv_union_map(mask_kv, hk=h)[0]
+    noop = getattr(b2_module, "noop_launch", None)
+    b2 = dict(zip(("b2_ms", "b2_timer"), queued_ms(lambda: pack_schedule(mask), 50)))
+    b2.update(zip(("b2_kv_map_ms", "b2_kv_map_timer"),
+                  queued_ms(lambda: pack_schedule(mask_kv, kv_map), 50)))
+    sinks = [torch.empty(sum(x.numel() for x in pack_schedule(mask_kv, kv_map)[:n]),
+                         dtype=torch.int32, device=dev) for n in (2, 3)]
+    b2.update({"b2_fill_ms": queued_ms(lambda: sinks[0].fill_(1), 50)[0],
+               "b2_kv_map_fill_ms": queued_ms(lambda: sinks[1].fill_(1), 50)[0],
+               "b2_call_ms": cuda_ms(lambda: pack_schedule(mask), 50),
+               "b2_kv_map_call_ms": cuda_ms(lambda: pack_schedule(mask_kv, kv_map), 50),
+               "noop_call_ms": None if noop is None else cuda_ms(lambda: noop(dev), 50),
+               "noop_ms": None if noop is None else queued_ms(lambda: noop(dev), 50)[0]})
     dq = torch.randn(API_B, API_HQ, 1, API_D, generator=g, device=dev).bfloat16()
     dk, dv = (torch.randn(API_B, API_CACHE, API_HK, API_D, generator=g, device=dev).bfloat16()
               for _ in range(2))
@@ -2435,6 +2682,7 @@ def ab_times(reps):
         return sha.hexdigest()[:16]
 
     digests = {
+        "b2_digest": digest(*pack_schedule(mask), *pack_schedule(mask_kv, kv_map)),
         "b1_digest": digest(*flash_attention(q, k, v, return_lse=True)),
         "b3_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask)),
         "b5_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H)),
@@ -2453,7 +2701,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1, **b4, **b10, **mla, **b6, **digests,
+        **b1, **b2, **b4, **b10, **mla, **b6, **digests,
     }))
     return 0
 
@@ -2499,6 +2747,8 @@ def main() -> int:
         kres.update(decode_kernel_phase(dev))
         log("phase 3: Wan2.1-14B-width denoising slice")
         counts = {"wan_denoise": slice_phase(dev, card, cfg, SLICE_GRID)}
+        counts["wan_i2v"], kres["flash_fwd_i2v"], i2v_stats = i2v_phase(dev, card, cfg, SLICE_GRID)
+        counts["wan_two_expert"], two_expert_stats = two_expert_phase(dev, card, cfg, SLICE_GRID)
         log("phase 4: GPT-2 small training slice")
         counts["gpt2_train"], train_stats = train_phase(dev, card)
         log("phase 5: Llama-3-8B-width serving slice")
@@ -2527,11 +2777,18 @@ def main() -> int:
     kres["flash_fwd"]["wan_cross"] = {
         "max_abs_err": cross["err"], **{k: cross[k] for k in timed_keys if k in cross},
     }
+    image = kres["flash_fwd_i2v"]
+    kres["flash_fwd"]["wan_i2v_image_cross"] = {
+        "max_abs_err": image["err"], **{k: image[k] for k in timed_keys + (
+            "rel_l2", "worst_block_rel_l2") if k in image},
+    }
+    kres["flash_fwd"]["err"] = max(kres["flash_fwd"]["err"], image["err"])
     kres["flash_bwd_dq"]["fwd_bwd"] = kres["fwd_bwd"]
     # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
     kres["schedule_pack"]["kv_map"] = {
-        "ms": ext["pack_ms_kv_map"], "ms_without": ext["pack_ms"],
-        "bound_ms": ext["pack_bound_ms_kv_map"], "shape": f"(a)'s mask, sparsity {ext['a_sparsity']:.4f}"}
+        **{k: ext["pack_kv_map"][k] for k in ("ms", "timer", "call_ms", "bound_ms")},
+        "ms_without": ext["pack"]["ms"], "call_ms_without": ext["pack"]["call_ms"],
+        "shape": f"(a)'s mask, sparsity {ext['a_sparsity']:.4f}"}
     kres["lite_flash_fwd"]["compacted_kv"] = {
         "ms": ext["lite_ms_compacted"], "ms_same_mask_uncompacted": ext["lite_ms_uncompacted"],
         "kv_compact_ms": kres["kv_compact"]["ms"], "shape": "(a)'s inputs and final mask"}
@@ -2584,6 +2841,8 @@ def main() -> int:
     log(f"training: {json.dumps(train_stats)}")
     log(f"serving: {json.dumps(serve_stats)}")
     log(f"engine: {json.dumps(engine_stats)}")
+    log(f"wan i2v: {json.dumps(i2v_stats)}")
+    log(f"wan two-expert: {json.dumps(two_expert_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

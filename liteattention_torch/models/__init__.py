@@ -1,6 +1,15 @@
-"""Model library: the Wan video DiT (text-to-video) and its denoising
-pipeline; the GPT family (training path)."""
+"""Model library: the Wan video DiT (text- and image-to-video) and its
+denoising pipelines; the GPT family and its per-family configurations."""
 
+from liteattention_torch.models.configs import (
+    bigcode_config,
+    falcon_config,
+    gpt2_config,
+    gpt_neox_config,
+    gptj_config,
+    llama_config,
+    opt_config,
+)
 from liteattention_torch.models.gpt import (
     GPTConfig,
     GPTLMHeadModel,
@@ -10,6 +19,7 @@ from liteattention_torch.models.gpt import (
 )
 from liteattention_torch.models.pipeline import (
     denoise,
+    denoise_two_expert,
     flow_timesteps,
     linear_threshold_schedule,
 )
@@ -31,6 +41,14 @@ __all__ = [
     "init_skip_states",
     "wan_state_dict_from_jax",
     "denoise",
+    "denoise_two_expert",
     "flow_timesteps",
     "linear_threshold_schedule",
+    "gpt2_config",
+    "opt_config",
+    "gptj_config",
+    "gpt_neox_config",
+    "falcon_config",
+    "llama_config",
+    "bigcode_config",
 ]

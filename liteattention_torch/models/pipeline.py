@@ -1,11 +1,11 @@
 """Denoising pipeline: flow-matching sampler with skip-state carry.
 
 Counterpart of ``liteattention_tpu/models/pipeline.py`` (``denoise``,
-``flow_timesteps``, ``linear_threshold_schedule``). The JAX ``lax.scan``
-becomes a Python loop: the per-layer skip states are carried from step
-to step, each step consumes the masks written by the previous one, and
-the cond and uncond passes of classifier-free guidance keep separate
-states. With ``vote_stride`` N only every N-th step votes; the compacted
+``denoise_two_expert``, ``flow_timesteps``, ``linear_threshold_schedule``).
+The JAX ``lax.scan`` becomes a Python loop: the per-layer skip states
+are carried from step to step, each step consumes the masks written by
+the previous one, and the cond and uncond passes of classifier-free
+guidance keep separate states. With ``vote_stride`` N only every N-th step votes; the compacted
 schedules are rebuilt (kernel B2) only after a vote step, when the masks
 can have changed. With ``kv_compact`` they are union-compacted schedules
 (kernel B6 relays K and V in every self-attention call).
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from liteattention_torch.models.wan import WanModel, init_skip_states
@@ -91,6 +92,9 @@ def denoise(
       step_range: run only steps ``[lo, hi)`` of the schedule.
       initial_states(_uncond): skip states to start from.
       vote_stride: vote (and evolve the masks) on every N-th step.
+      image_ctx / latent_cond: I2V conditioning (CLIP image tokens and
+        extra latent channels), passed to every model call, both CFG
+        branches included (the negative branch drops only the text).
       kv_compact: union-compact K/V (kernel B6) in every self-attention
         call, when the token count is a multiple of 128 (JAX's static
         gate: there is no union-density readback, unlike
@@ -102,8 +106,6 @@ def denoise(
       of the cond states after each step), ``final_sparsity``,
       ``final_states``, ``final_states_uncond``).
     """
-    if image_ctx is not None or latent_cond is not None:
-        raise NotImplementedError("denoise: I2V inputs are not ported yet")
     cfg = model.cfg
     b = noise.shape[0]
     grid = tuple(noise.shape[1:4])
@@ -133,6 +135,7 @@ def denoise(
     use_kvc = kv_compact and n_tok % VOTE_TILE == 0
     sched_c, sched_u = _compact(states_c, use_kvc), _compact(states_u, use_kvc)
 
+    cond = dict(image_ctx=image_ctx, latent_cond=latent_cond)
     x = noise
     trace = []
     for j in range(n):
@@ -140,12 +143,12 @@ def denoise(
         tt = torch.full((b,), float(ts[j]), dtype=torch.float32, device=x.device)
         v_c, states_c = model(
             x, tt, text, states_c, thresholds[j], emit_votes=emit,
-            schedules=sched_c,
+            schedules=sched_c, **cond,
         )
         if use_cfg:
             v_u, states_u = model(
                 x, tt, null_text, states_u, thresholds[j], emit_votes=emit,
-                schedules=sched_u,
+                schedules=sched_u, **cond,
             )
             v = v_u + guidance_scale * (v_c - v_u)
         else:
@@ -170,4 +173,64 @@ def denoise(
     return x, telemetry
 
 
-__all__ = ["denoise", "flow_timesteps", "linear_threshold_schedule"]
+def denoise_two_expert(
+    model_high: WanModel,
+    model_low: WanModel,
+    noise: torch.Tensor,
+    text: torch.Tensor,
+    null_text: Optional[torch.Tensor] = None,
+    num_steps: int = 50,
+    boundary: float = 0.875,
+    guidance_scale: float = 5.0,
+    guidance_scale_low: Optional[float] = None,
+    thresholds: Optional[Sequence[float]] = None,
+    enable_skipping: bool = True,
+    timestep_shift: float = 5.0,
+    image_ctx: Optional[torch.Tensor] = None,
+    latent_cond: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Wan2.2-A14B two-expert denoising: the high-noise expert runs the
+    steps whose sigma is at least ``boundary``, the low-noise expert the
+    rest, and the skip states of both CFG branches carry across the
+    switch (the masks are not reset).
+
+    The JAX function takes one model and two parameter trees; this one
+    takes the two experts as two :class:`WanModel` s of the same
+    geometry.
+
+    Returns (latents, telemetry with ``sparsity_per_step`` over both
+    segments, ``final_sparsity``, ``final_states`` and
+    ``num_high_noise_steps``).
+    """
+    # The switch step is schedule math: the sigmas of flow_timesteps.
+    sig = np.linspace(1.0, 1.0 / num_steps, num_steps)
+    sig = timestep_shift * sig / (1.0 + (timestep_shift - 1.0) * sig)
+    n_high = int(np.sum(sig >= boundary))
+    if thresholds is None:
+        thresholds = linear_threshold_schedule(num_steps)
+    if guidance_scale_low is None:
+        guidance_scale_low = guidance_scale
+    common = dict(num_steps=num_steps, thresholds=thresholds,
+                  enable_skipping=enable_skipping, timestep_shift=timestep_shift,
+                  image_ctx=image_ctx, latent_cond=latent_cond)
+    x, tel_hi = denoise(
+        model_high, noise, text, null_text, guidance_scale=guidance_scale,
+        step_range=(0, n_high), **common,
+    )
+    x, tel_lo = denoise(
+        model_low, x, text, null_text, guidance_scale=guidance_scale_low,
+        step_range=(n_high, num_steps), initial_states=tel_hi["final_states"],
+        initial_states_uncond=tel_hi["final_states_uncond"], **common,
+    )
+    telemetry = {
+        "sparsity_per_step": torch.cat(
+            [tel_hi["sparsity_per_step"], tel_lo["sparsity_per_step"]]
+        ),
+        "final_sparsity": tel_lo["final_sparsity"],
+        "final_states": tel_lo["final_states"],
+        "num_high_noise_steps": n_high,
+    }
+    return x, telemetry
+
+
+__all__ = ["denoise", "denoise_two_expert", "flow_timesteps", "linear_threshold_schedule"]

@@ -1,10 +1,22 @@
 """Wan2.1-style video-diffusion DiT with LiteAttention self-attention.
 
-Counterpart of ``liteattention_tpu/models/wan.py`` (text-to-video only).
-Patchified 3D latents, adaLN-modulated blocks with 3D-RoPE
-self-attention and text cross-attention, sized by :class:`WanConfig`
-(defaults: Wan2.1-14B geometry, dim 5120, 40 heads x 128, 40 blocks, ffn
-13824, umT5 text dim 4096).
+Counterpart of ``liteattention_tpu/models/wan.py``. Patchified 3D
+latents, adaLN-modulated blocks with 3D-RoPE self-attention and text
+cross-attention, sized by :class:`WanConfig` (defaults: Wan2.1-14B
+geometry, dim 5120, 40 heads x 128, 40 blocks, ffn 13824, umT5 text dim
+4096).
+
+Image-to-video: ``latent_cond`` channels are concatenated to the latents
+before patchify, and CLIP image tokens (``image_ctx``) go through
+:class:`ImgProj`. With ``cfg.i2v_decoupled`` (Wan2.1-I2V) they feed an
+image branch of the cross-attention with its own K/V projections, whose
+output is added to the text branch's; otherwise (the Wan2.2 shared
+context) they are prepended to the text tokens. Unlike the Flax model,
+which sizes its layers from the first inputs, this one needs the widths
+up front: ``cfg.in_channels`` is the patch embedding's input, noise plus
+conditioning channels (36 = 16 + 20 for Wan2.1-I2V-14B), and
+``WanModel(image_dim=)`` is the width of the image tokens (1280 for
+CLIP ViT-H/14).
 
 Self-attention runs the lite (skip) kernel when a mask state is passed
 and the dense kernel otherwise; text cross-attention always runs the
@@ -13,8 +25,7 @@ package left them to XLA. Parameters that the JAX model computes in
 ``cfg.dtype`` are held in ``cfg.dtype``; the time MLPs, modulation
 biases and norm scales stay fp32, as in the JAX model.
 
-Not ported yet (they raise): the I2V branches (``i2v_decoupled``,
-``image_ctx``, ``latent_cond``), sequence parallelism (``sp_axis``),
+Not ported yet (they raise): sequence parallelism (``sp_axis``),
 ``remat`` and the training probe ``attn_probe_rows``.
 """
 
@@ -142,6 +153,28 @@ def _layer_norm(x, eps, dtype, weight=None, bias=None):
     return F.layer_norm(x.float(), (x.shape[-1],), weight, bias, eps).to(dtype)
 
 
+class ImgProj(nn.Module):
+    """Wan-I2V CLIP-token projection (Wan's MLPProj): LayerNorm -> Linear
+    -> exact GELU -> Linear -> LayerNorm, both norms affine at eps 1e-6
+    (Flax ``nn.LayerNorm``'s default, not torch's 1e-5)."""
+
+    eps = 1e-6
+
+    def __init__(self, in_dim: int, dim: int, dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm_in = nn.LayerNorm(in_dim, eps=self.eps, device=device)
+        self.fc1 = nn.Linear(in_dim, in_dim, dtype=dtype, device=device)
+        self.fc2 = nn.Linear(in_dim, dim, dtype=dtype, device=device)
+        self.norm_out = nn.LayerNorm(dim, eps=self.eps, device=device)
+
+    def forward(self, x):
+        x = _layer_norm(x.to(self.dtype), self.eps, self.dtype,
+                        self.norm_in.weight, self.norm_in.bias)
+        x = self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return _layer_norm(x, self.eps, self.dtype, self.norm_out.weight, self.norm_out.bias)
+
+
 class CtxProj(nn.Module):
     """Two-layer tanh-gelu MLP projecting encoder states to model dim."""
 
@@ -206,7 +239,10 @@ class WanSelfAttention(nn.Module):
 
 
 class WanCrossAttention(nn.Module):
-    """Text cross-attention, always dense."""
+    """Text cross-attention, always dense. With ``cfg.i2v_decoupled`` the
+    image tokens take their own ``k_img``/``v_img`` projections (and
+    ``k_img_norm`` under qk_norm), and the two branches' attention outputs
+    are summed before ``o``."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
@@ -220,16 +256,33 @@ class WanCrossAttention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
             self.k_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
+        if cfg.i2v_decoupled:
+            self.k_img = nn.Linear(cfg.dim, inner, **lin)
+            self.v_img = nn.Linear(cfg.dim, inner, **lin)
+            if cfg.qk_norm:
+                self.k_img_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
 
-    def forward(self, x, ctx):
+    def _branch(self, qh, tokens, k_proj, v_proj, k_norm):
         cfg = self.cfg
-        q, k, v = self.q(x), self.k(ctx), self.v(ctx)
+        k = k_proj(tokens)
         if cfg.qk_norm:
-            q, k = self.q_norm(q), self.k_norm(k)
-        oh = flash_attention(
-            _bhsd(q, cfg.num_heads), _bhsd(k, cfg.num_heads),
-            _bhsd(v, cfg.num_heads), block_sizes=cfg.attn_block_sizes("dense"),
+            k = k_norm(k)
+        return flash_attention(
+            qh, _bhsd(k, cfg.num_heads), _bhsd(v_proj(tokens), cfg.num_heads),
+            block_sizes=cfg.attn_block_sizes("dense"),
         )
+
+    def forward(self, x, ctx, ctx_img=None):
+        cfg = self.cfg
+        q = self.q(x)
+        if cfg.qk_norm:
+            q = self.q_norm(q)
+        qh = _bhsd(q, cfg.num_heads)
+        oh = self._branch(qh, ctx, self.k, self.v, getattr(self, "k_norm", None))
+        if cfg.i2v_decoupled:
+            oh = oh + self._branch(
+                qh, ctx_img, self.k_img, self.v_img, getattr(self, "k_img_norm", None)
+            )
         return self.o(_bnhd(oh))
 
 
@@ -253,7 +306,7 @@ class WanBlock(nn.Module):
         self.ffn_down = nn.Linear(cfg.ffn_dim, cfg.dim, **lin)
 
     def forward(self, x, ctx, t_mod, freqs, state=None, threshold=-10.0,
-                emit_votes=True, schedule=None):
+                emit_votes=True, schedule=None, ctx_img=None):
         cfg = self.cfg
         mod = (t_mod + self.mod_bias[None]).float()
         sh1, sc1, g1, sh2, sc2, g2 = [
@@ -266,7 +319,7 @@ class WanBlock(nn.Module):
         x = x + g1 * h_attn
         x = x + self.cross_attn(
             _layer_norm(x, cfg.eps, cfg.dtype, self.norm3.weight, self.norm3.bias),
-            ctx,
+            ctx, ctx_img,
         )
         h = _modulate(_layer_norm(x, cfg.eps, cfg.dtype), sh2, sc2)
         h = self.ffn_down(F.gelu(self.ffn_up(h), approximate="tanh"))
@@ -274,30 +327,37 @@ class WanBlock(nn.Module):
 
 
 class WanModel(nn.Module):
-    """Wan2.x-family DiT backbone (T2V).
+    """Wan2.x-family DiT backbone.
 
-    ``forward(latents, t, text, skip_states, threshold)`` with latents
-    ``[B, F, H, W, C]``, timesteps ``t`` ``[B]``, text ``[B, L,
-    text_dim]`` and optional per-layer skip states ``{layer:
-    SkipMaskState}``. Returns (velocity prediction ``[B, F, H, W,
-    C_out]``, new skip states or None). Parameters go on ``device``
+    ``forward(latents, t, text, skip_states, threshold, image_ctx,
+    latent_cond)`` with latents ``[B, F, H, W, C]``, timesteps ``t``
+    ``[B]``, text ``[B, L, text_dim]``, optional per-layer skip states
+    ``{layer: SkipMaskState}``, and for I2V CLIP tokens ``image_ctx``
+    ``[B, L_img, image_dim]`` and conditioning channels ``latent_cond``
+    ``[B, F, H, W, C_cond]`` (``C + C_cond == cfg.in_channels``). Returns
+    (velocity prediction ``[B, F, H, W, C_out]``, new skip states or
+    None). ``image_dim`` builds the image projection ``img_proj``; it is
+    required with ``cfg.i2v_decoupled``. Parameters go on ``device``
     (default ``cuda``).
     """
 
-    def __init__(self, cfg: WanConfig, device=None):
+    def __init__(self, cfg: WanConfig, device=None, image_dim: Optional[int] = None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.i2v_decoupled or cfg.remat or cfg.attn_probe_rows or cfg.sp_axis:
+        if cfg.remat or cfg.attn_probe_rows or cfg.sp_axis:
             raise NotImplementedError(
-                "WanModel: i2v_decoupled, remat, attn_probe_rows and sp_axis "
-                "are not ported yet"
+                "WanModel: remat, attn_probe_rows and sp_axis are not ported yet"
             )
+        if cfg.i2v_decoupled and image_dim is None:
+            raise ValueError("WanModel: cfg.i2v_decoupled needs image_dim (the image token width)")
         self.cfg = cfg
         pt, ph, pw = cfg.patch_size
         lin = dict(dtype=cfg.dtype, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         self.patch_embed = nn.Linear(pt * ph * pw * cfg.in_channels, cfg.dim, **lin)
         self.text_proj = CtxProj(cfg.text_dim, cfg.dim, cfg.dtype, device)
+        if image_dim is not None:
+            self.img_proj = ImgProj(image_dim, cfg.dim, cfg.dtype, device)
         self.time_mlp_1 = nn.Linear(cfg.freq_dim, cfg.dim, **f32)
         self.time_mlp_2 = nn.Linear(cfg.dim, cfg.dim, **f32)
         self.time_mod = nn.Linear(cfg.dim, 6 * cfg.dim, **f32)
@@ -334,10 +394,15 @@ class WanModel(nn.Module):
         emit_votes: bool = True,
         schedules: Optional[Dict[int, Any]] = None,
     ):
-        if image_ctx is not None or latent_cond is not None:
-            raise NotImplementedError("WanModel: I2V inputs are not ported yet")
         cfg = self.cfg
+        if latent_cond is not None:
+            latents = torch.cat([latents, latent_cond.to(latents.dtype)], dim=-1)
         b, f, hh, ww, c = latents.shape
+        if c != cfg.in_channels:
+            raise ValueError(
+                f"WanModel: latents carry {c} channels (noise plus latent_cond) but "
+                f"cfg.in_channels is {cfg.in_channels}, the patch embedding's input width"
+            )
         pt, ph, pw = cfg.patch_size
         gf, gh, gw = f // pt, hh // ph, ww // pw
 
@@ -346,6 +411,17 @@ class WanModel(nn.Module):
         x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, gf * gh * gw, pt * ph * pw * c)
         x = self.patch_embed(x.to(cfg.dtype))
         ctx = self.text_proj(text)
+        ctx_img = None
+        if image_ctx is not None:
+            if not hasattr(self, "img_proj"):
+                raise ValueError("WanModel: image_ctx needs a model built with image_dim")
+            img = self.img_proj(image_ctx)
+            if cfg.i2v_decoupled:
+                ctx_img = img
+            else:
+                ctx = torch.cat([img, ctx], dim=1)
+        elif cfg.i2v_decoupled:
+            raise ValueError("cfg.i2v_decoupled=True requires image_ctx")
 
         te = timestep_embedding(t, cfg.freq_dim)
         te = self.time_mlp_2(F.silu(self.time_mlp_1(te)))
@@ -356,7 +432,7 @@ class WanModel(nn.Module):
         for i, block in enumerate(self.blocks):
             st = skip_states.get(i) if skip_states is not None else None
             sched = schedules.get(i) if schedules is not None else None
-            x, st_new = block(x, ctx, t_mod, freqs, st, threshold, emit_votes, sched)
+            x, st_new = block(x, ctx, t_mod, freqs, st, threshold, emit_votes, sched, ctx_img)
             if st_new is not None:
                 new_states[i] = st_new
 

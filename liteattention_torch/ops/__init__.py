@@ -5,7 +5,13 @@ from liteattention_torch.ops.attention_ref import (
     attention_ref,
     skip_votes_ref_gather,
 )
-from liteattention_torch.ops.flash_fwd import flash_attention
+from liteattention_torch.ops.combine import combine_attention
+from liteattention_torch.ops.flash_bwd import flash_attention_bwd
+from liteattention_torch.ops.flash_fwd import (
+    flash_attention,
+    flash_attention_decode,
+    flash_attention_masked,
+)
 from liteattention_torch.ops.kv_compact import compact_kv, kv_union_map
 from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
 from liteattention_torch.ops.mask import (
@@ -19,6 +25,7 @@ from liteattention_torch.ops.mask import (
     update_mask,
 )
 from liteattention_torch.ops.mla import mla_decode
+from liteattention_torch.ops.paged_attention import paged_attention
 from liteattention_torch.ops.schedule_pack import pack_schedule
 from liteattention_torch.ops.tile_sizes import BlockSizes, get_block_sizes
 
@@ -29,6 +36,11 @@ __all__ = [
     "attention_ref",
     "skip_votes_ref_gather",
     "flash_attention",
+    "flash_attention_masked",
+    "flash_attention_decode",
+    "flash_attention_bwd",
+    "paged_attention",
+    "combine_attention",
     "lite_flash_attention",
     "mla_decode",
     "SkipMaskState",

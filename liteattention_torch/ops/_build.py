@@ -46,7 +46,8 @@ SIGNATURES = {
     "lite_flash_fwd_gather": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "lite_flash_fwd_coarse": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "lite_kv_compact": [_P] * 5 + [_I] * 5 + [_P],
-    "lite_pack_schedule": [_P] * 5 + [_I] * 5 + [_P],
+    "lite_pack_schedule": [_P] * 5 + [_I] * 4 + [_P],
+    "lite_noop": [_P],
 }
 
 
@@ -139,10 +140,18 @@ def check_aligned(*tensors) -> None:
             raise ValueError("kernel inputs must be 16-byte aligned")
 
 
+def stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, read without
+    building a ``torch.cuda.Stream`` object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a kernel entry reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-__all__ = ["Build", "build_kernels", "load_kernels", "check", "check_aligned"]
+__all__ = ["Build", "build_kernels", "load_kernels", "check", "check_aligned", "stream"]

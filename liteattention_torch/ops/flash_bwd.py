@@ -173,7 +173,7 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_accum.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), b, h, hk, sq, sk, d, float(scale), int(causal),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        q.device.index, _build.stream(q.device),
     )
     _build.check(err, "flash_bwd")
     flash_bwd.launches += 1

@@ -288,7 +288,7 @@ def launch_decode(
         grid, min_tiles = min(num_splits * units, MAX_GRID), 1
     else:
         grid, min_tiles = _sm_count(dev.index), max(1, MIN_SPLIT_KEYS // kt)  # one CTA per SM
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     tickets, o_part, lse_part = _workspace(dev, stream, units, units + grid, d)
     out = torch.empty_like(qp)
     lse = torch.empty((b, hk, rows), dtype=torch.float32, device=dev)

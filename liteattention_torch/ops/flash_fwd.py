@@ -232,7 +232,7 @@ def _launch_mla(q, k, v, qv, scale, causal):
         q.data_ptr(), None if qv is None else qv.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, dv,
         float(scale), int(causal), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.stream(q.device),
     )
     _build.check(err, "flash_fwd_mla")
     if dv == 512:
@@ -257,7 +257,7 @@ def _launch(q, k, v, scale, causal):
     err = lib.lite_flash_fwd_dense(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, float(scale),
-        int(causal), q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), q.device.index, _build.stream(q.device),
     )
     _build.check(err, "flash_fwd")
     flash_attention.launches += 1

@@ -107,7 +107,7 @@ def compact_kv(
     err = lib.lite_kv_compact(
         k.data_ptr(), v.data_ptr(), kc.data_ptr(), vc.data_ptr(), inv.data_ptr(),
         b, hk, s // VOTE_TILE, d * k.element_size(), k.device.index,
-        torch.cuda.current_stream(k.device).cuda_stream,
+        _build.stream(k.device),
     )
     _build.check(err, "kv_compact")
     compact_kv.launches += 1

@@ -438,7 +438,7 @@ def _gather(q, k, v, fidx, count, thr, do_mask, scale, block_sizes, emit_votes, 
         None if cidx is None else cidx.data_ptr(), mask.data_ptr(),
         votes.data_ptr(), b, h, k.shape[1], sq, sk, d, gsize, fold, float(scale),
         thr, int(emit_votes), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.stream(q.device),
     )
     _build.check(err, "lite_flash_fwd")
     if fold > 1:
@@ -483,7 +483,7 @@ def _coarse(q, k, v, kv_idx, count, thr, kv_bits, scale, block_sizes):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         kv_idx.data_ptr(), count.data_ptr(), None if bits is None else bits.data_ptr(),
         votes.data_ptr(), b, h, k.shape[1], sq, sk, d, qsub, ksub, float(scale), thr,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        q.device.index, _build.stream(q.device),
     )
     _build.check(err, "lite_flash_fwd_coarse")
     lite_flash_attention.coarse_launches += 1

@@ -208,7 +208,7 @@ def _launch(c: _Call):
     table = None if c.table is None else c.table.to(**i32).contiguous()
     rows = c.sq * c.hq
     grid = max(1, _sm_count(dev.index) // -(-rows // ROWS_PER_CTA))  # one CTA per SM
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.stream(dev)
     row_blocks = -(-rows // ROWS_PER_CTA)
     tickets, o_part, lse_part = _workspace(dev, stream, row_blocks * c.b, row_blocks * grid * 2)
     out = torch.empty((c.b, rows, c.dv), dtype=q.dtype, device=dev)

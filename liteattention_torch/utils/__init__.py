@@ -1,1 +1,2 @@
-"""Decoding utilities (counterpart of ``liteattention_tpu/utils``)."""
+"""Decoding utilities and the Wan checkpoint remap (counterpart of
+``liteattention_tpu/utils``)."""

@@ -178,14 +178,57 @@ def test_flash_autograd_kernels(dev):
         _check_grad(got, r)
 
 
-@pytest.mark.parametrize("kt", [1, 37, 256, 300])
+# B2's Kt: 1, odd, 15/16 around a 16-byte load, the denoise-compaction
+# path's 195, the Wan slice's 256, 300, and 1024 (two warp-wide passes).
+PACK_KT = [1, 15, 16, 37, 195, 256, 300, 1024]
+
+
+def _pack_mask(dev, kt, b=2, h=3, qt=9, seed=0):
+    """Random rows at ~40 % live, a row with no live tile, an all-live row
+    and a band; 2 x 3 x 9 = 54 rows, not a multiple of a CTA's 8 rows."""
+    g = torch.Generator(device=dev).manual_seed(kt + seed)
+    m = torch.rand(b, h, qt, kt, generator=g, device=dev) < 0.4
+    m[0, 1, 2] = False
+    m[0, h - 1, 3] = True
+    m[1, 0, :, : kt // 2] = True
+    return m
+
+
+@pytest.mark.parametrize("kt", PACK_KT)
 def test_schedule_pack_kernel(dev, kt):
-    g = torch.Generator(device=dev).manual_seed(kt)
-    m = torch.rand(2, 3, 9, kt, generator=g, device=dev) < 0.4
-    m[0, 1, 2] = False  # a row with no live tile
-    m[1, 0, :, : kt // 2] = True  # a band
+    m = _pack_mask(dev, kt)
     fidx, count = pack_schedule(m)
     torch.cuda.synchronize()
+    rf, rc = pack_schedule_plain(m)
+    assert torch.equal(fidx, rf) and torch.equal(count, rc)
+    # A mask view that starts 1 byte into its storage: no row is aligned.
+    store = torch.zeros(m.numel() + 1, dtype=torch.bool, device=dev)
+    store[1:] = m.reshape(-1)
+    view = store[1:].view(m.shape)
+    fidx, count = pack_schedule(view)
+    assert torch.equal(fidx, rf) and torch.equal(count, rc)
+
+
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("kt", PACK_KT)
+def test_schedule_pack_kv_map_kernel(dev, kt, group):
+    from liteattention_torch.ops.kv_compact import kv_union_map
+
+    m = _pack_mask(dev, kt, h=2 * group, seed=group)
+    kv_map, _, _ = kv_union_map(m, hk=2)
+    got = pack_schedule(m, kv_map)
+    torch.cuda.synchronize()
+    for a, want in zip(got, pack_schedule_plain(m, kv_map)):
+        assert torch.equal(a, want)
+
+
+def test_schedule_pack_kernel_wan_shape(dev):
+    # The Wan slice's [1, 40, 256, 256]: 10 240 rows, more than the card
+    # holds resident at 8 rows a CTA; every row of head 7 dead.
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = torch.rand(1, 40, 256, 256, generator=g, device=dev) < 0.5
+    m[0, 7] = False
+    fidx, count = pack_schedule(m)
     rf, rc = pack_schedule_plain(m)
     assert torch.equal(fidx, rf) and torch.equal(count, rc)
 

@@ -26,7 +26,7 @@ def test_imports_with_jax_blocked():
         "import liteattention_torch.flash_attn_interface, liteattention_torch.layers\n"
         "import liteattention_torch.flash_blocksparse\n"
         "from liteattention_torch.ops import kv_compact, lite_flash_fwd, schedule_pack\n"
-        "import liteattention_torch.utils.generation\n"
+        "import liteattention_torch.utils.generation, liteattention_torch.utils.pretrained\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"
@@ -74,12 +74,51 @@ NOT_PORTED = {
 }
 
 
-@pytest.mark.parametrize("relpath", ["__init__.py", "flash_attn_interface.py"])
+# Names of the JAX ops and models packages that the port does not have yet
+# (ROADMAP queue A): the psum-merge and the unmerged vote oracle, the
+# TPU-only schedule unpacker, and the BERT and ViT models.
+NOT_PORTED_SUBPACKAGES = {
+    "skip_votes_ref",
+    "combine_attention_psum",
+    "unpack_schedule",
+    "BertConfig",
+    "BertModel",
+    "BertForPreTraining",
+    "ViTConfig",
+    "VisionTransformer",
+}
+
+
+@pytest.mark.parametrize(
+    "relpath", ["__init__.py", "flash_attn_interface.py", "ops/__init__.py", "models/__init__.py"]
+)
 def test_exports_match_the_jax_package(relpath):
     import importlib
 
-    module = "liteattention_torch" + ("" if relpath == "__init__.py" else ".flash_attn_interface")
+    module = "liteattention_torch." + relpath.removesuffix(".py").replace("/", ".")
+    module = module.removesuffix(".__init__")
     port = importlib.import_module(module)
-    want = set(_jax_all(relpath)) - NOT_PORTED
-    assert set(port.__all__) == want
+    jax_names = set(_jax_all(relpath))
+    if relpath.count("/"):
+        # The subpackages export extras of the port's own (denoise,
+        # skip_votes_ref_gather, ...): every JAX name that is ported must
+        # be there.
+        want = jax_names - NOT_PORTED_SUBPACKAGES
+        assert want <= set(port.__all__), sorted(want - set(port.__all__))
+        assert not NOT_PORTED_SUBPACKAGES & set(port.__all__)
+    else:
+        want = jax_names - NOT_PORTED
+        assert set(port.__all__) == want
     assert all(callable(getattr(port, name)) or name == "ops" for name in want)
+
+
+def test_ops_paged_attention_is_the_function():
+    import types
+
+    import liteattention_torch.ops as ops
+
+    assert callable(ops.paged_attention)
+    assert not isinstance(ops.paged_attention, types.ModuleType)
+    from liteattention_torch.ops.paged_attention import paged_attention
+
+    assert ops.paged_attention is paged_attention

@@ -143,10 +143,8 @@ def test_denoise_dense_equals_full_mask_lite(models):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        WanModel(dataclasses.replace(WanConfig.tiny(), i2v_decoupled=True), device="cpu")
-    pmodel = WanModel(WanConfig.tiny(), device="cpu")
-    lat = torch.zeros(1, 1, 2, 2, 16)
-    with pytest.raises(NotImplementedError):
-        pmodel(lat, torch.zeros(1), torch.zeros(1, 16, 64),
-               image_ctx=torch.zeros(1, 4, 64))
+    # Training-only and multi-chip options; the I2V inputs are ported
+    # (tests/test_torch_wan_i2v.py).
+    for opt in (dict(remat=True), dict(attn_probe_rows=4), dict(sp_axis="sp")):
+        with pytest.raises(NotImplementedError):
+            WanModel(dataclasses.replace(WanConfig.tiny(), **opt), device="cpu")
