@@ -108,7 +108,25 @@ Phases (any failure exits non-zero and prints no result line):
    heads, plus small checks (Sq > Sk, GQA, ragged tails); (c) the
    kernels' times beside their bounds, plain versions and SDPA (the
    backend that ran is named).
-8. A JSON line of kernel results (launches read on each path's counted
+8. Wan training and threshold calibration at Wan2.1-14B width: (a) B7
+   at the training step's shapes, self-attention over the slice's 32 760
+   tokens (a ragged last key tile) and the text cross-attention (Sq 32 760,
+   Sk 512), non-causal, against its plain versions and timed; (b) the
+   rectified-flow step of ``examples/torch_structured_calibration.py`` on
+   the 2-block slice (0.94 B fp32 master weights, bf16 products), 3 AdamW
+   steps with remat on one fixed batch (the loss must fall; 4 B1 and 2 B7
+   launches a block a step), then one forward and backward with and
+   without remat at the same weights (ms, peak memory; gradients in
+   agreement); (c) the attention probe (64 rows) at that width, its
+   entropy's gradient reaching the q projection; (d)
+   ``calibrate_constant_threshold`` on the phase-3 slice (4 steps, CFG,
+   budget 0.05, 3 bisection steps), every probe printed; (e)
+   ``examples/torch_structured_calibration.py`` at its 4096-token
+   settings: the trained proxy's sweep and calibrated schedule; (f)
+   ``examples/torch_wan_e2e_speed.py --modes band --steps 2`` at 73 728
+   tokens. In (b)-(f) every plain version raises: the runs launch the
+   kernels or fail.
+9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -571,9 +589,10 @@ def check_bwd(q, k, v, dout, label, causal, time_it=False):
         plain_ms = cuda_ms(lambda: flash_bwd_plain(*args), reps=1)
         bound_ms, bound_by = bound(10 * d * attn_pairs(sq, sk, causal) * b * h,
                                    nbytes(q, k, v, out, dout, lse, dq, dk, dv))
-        # aten's flash backward computes dq, dk and dv in one call.
+        # aten's flash backward computes dq, dk and dv in one call; it aligns
+        # causal masks top-left, so a causal shape compares only at Sq == Sk.
         lib = lib_err = None
-        if k.shape[1] == h and sq == sk:
+        if k.shape[1] == h and (sq == sk or not causal):
             lib_fn = sdpa_bwd(q, k, v, dout, causal)
             lib = cuda_ms(lib_fn, reps=20)
             lib_err = max(rel_l2(x, r) for x, r in zip(lib_fn(), (dq, dk, dv)))
@@ -2475,6 +2494,370 @@ def mla_phase(dev, card):
     return counts, res
 
 
+# ---------------------------------------------------------------- phase 8
+
+# The Wan training step at Wan2.1-14B width (the slice's depth and grid):
+# AdamW steps with remat, on one fixed batch, at a constant rate small
+# enough for Adam's first steps to lower this random model's loss (the
+# example's schedule starts at 0; at 1e-4 the first step raised the loss
+# 14x, at 1e-5 it fell 14 % and rose 6 % at the next).
+TRAIN_STEPS, TRAIN_LR = 3, 3e-6
+# The remat / no-remat gradients: each leaf scaled by its max, within the
+# bf16 bound of the JAX package's remat test (tests/test_wan_model.py), or
+# within twice the leaf's own run-to-run spread without remat: B7 sums dQ
+# by atomics in no fixed order, and a leaf whose exact gradient is the
+# residue of a cancelling sum (a cross-attention key bias: the rows of dK
+# sum to 0 before the norm) magnifies that spread past the bound.
+REMAT_GRAD_TOL = 2e-2
+PROBE_ROWS = 64
+# Calibration on the phase-3 slice: steps (CFG, vote_stride 2), rel-L2
+# budget, bisection steps.
+CAL_STEPS, CAL_BUDGET, CAL_ITERS = 4, 0.05, 3
+# The trained proxy at the JAX artifact's 4k settings (CALIBRATION_R5_4K.json:
+# 16 frames of 32 x 32 latents -> 4096 tokens).
+PROXY_ARGS = ["--train-steps", "3000", "--eval-steps", "24", "--entropy-reg", "0.05",
+              "--entropy-target", "4.5", "--tile-reg", "0.03"]
+# The headline geometry's band curve (the example's default 73 728 tokens).
+E2E_ARGS = ["--modes", "band", "--steps", "2"]
+
+
+def load_example(name):
+    """The module of ``examples/<name>.py``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class plain_forbidden:
+    """While open, each plain version that a wrapper of this path falls back
+    to for CPU tensors raises: a run inside it launched the kernels or
+    failed."""
+
+    def __enter__(self):
+        from liteattention_torch.ops import flash_bwd, flash_fwd, lite_flash_fwd, schedule_pack
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (flash_fwd, "flash_attention_plain"), (flash_bwd, "flash_bwd_plain"),
+            (lite_flash_fwd, "lite_flash_attention_plain"),
+            (schedule_pack, "pack_schedule_plain"))]
+        for module, name, _ in self.saved:
+            setattr(module, name, self._refuse(name))
+        return self
+
+    @staticmethod
+    def _refuse(name):
+        def refuse(*args, **kwargs):
+            raise SmokeError(f"{name} ran on the card's path")
+        return refuse
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+        return False
+
+
+def events_ms(fn):
+    """(fn's result, its ms by CUDA events after a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wan_train_bwd(dev, cfg, n_tok):
+    """(a) B7 at the shapes the training step launches: self-attention over
+    the slice's tokens (a ragged last key tile) and the text
+    cross-attention (Sq != Sk), non-causal; checked and timed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(8080)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    h, d, sk = cfg.num_heads, cfg.head_dim, cfg.text_len
+    q, k, v, do = (rnd(1, h, n_tok, d) for _ in range(4))
+    self_res = check_bwd(q, k, v, do, f"self 1x{h}x{n_tok}x{d} non-causal ({n_tok % 128} keys "
+                         "in the last tile)", causal=False, time_it=True)
+    del k, v
+    cross_res = check_bwd(q, rnd(1, h, sk, d), rnd(1, h, sk, d), do,
+                          f"cross 1x{h}x{n_tok}x{d}, Sk {sk}, non-causal", causal=False,
+                          time_it=True)
+    return {"wan_train_self": (f"1x{h}x{n_tok}x{d} non-causal, ragged last tile", self_res),
+            "wan_train_cross": (f"1x{h}x{n_tok}x{d}, Sk {sk}, non-causal", cross_res)}
+
+
+def wan_train_step(dev, card, full, grid):
+    """(b) The rectified-flow step of ``examples/torch_structured_calibration.py``
+    at Wan2.1-14B width, the slice's depth and grid, fp32 master weights
+    and bf16 products: AdamW steps with remat on one fixed batch (the
+    counted run), then the gradients with and without remat at the same
+    weights."""
+    import torch
+    from liteattention_torch.models import WanModel
+
+    ex = load_example("torch_structured_calibration")
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS, remat=True)
+    model = WanModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(80))
+    model.float()
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(81)
+    frames, hh, ww = grid
+    x0 = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    noise = torch.randn(x0.shape, generator=g, device=dev)
+    sig = torch.rand(1, 1, 1, 1, 1, generator=g, device=dev)
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, weight_decay=0.01)
+    log(f"  {n_params / 1e9:.3f} B parameters (fp32 master, bf16 products), {SLICE_LAYERS} "
+        f"blocks, batch 1 x {x0.shape[1:4]} latent, sigma {sig.item():.4f}, AdamW lr {TRAIN_LR}")
+
+    def fwd_bwd():
+        loss, _, _ = ex.flow_loss(model, x0, noise, sig, text)
+        loss.backward()
+        return loss.detach()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = fwd_bwd()
+        opt.step()
+        return loss
+
+    fwd_bwd()  # warm-up (cuBLAS handles, allocator), not counted
+    model.zero_grad(set_to_none=True)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with plain_forbidden():
+        for _ in range(TRAIN_STEPS):
+            loss, ms = events_ms(step)
+            losses.append(loss.item())
+            step_ms.append(ms)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_steps = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the training steps: {counts}")
+    log(f"  loss per step {losses}; ms/step (fwd + bwd + AdamW, events) {step_ms}; peak "
+        f"{peak_steps:.2f} GB [{card}]")
+    check(all(math.isfinite(x) for x in losses), "Wan training loss is not finite")
+    check(losses[-1] < losses[0], "Wan training loss does not fall on a fixed batch")
+    # Remat runs each block's forward again inside the backward: B1 four
+    # times a block a step (self and cross, twice), B7 twice.
+    want = {"flash_fwd": 4 * SLICE_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dq": 2 * SLICE_LAYERS * TRAIN_STEPS,
+            "flash_bwd_dkv": 2 * SLICE_LAYERS * TRAIN_STEPS}
+    check(all(counts[n] == c for n, c in want.items()), f"Wan training: expected launches {want}")
+
+    # The same weights, with remat and twice without it: fwd + bwd time,
+    # peak, grads.
+    res = {"ms_per_step": step_ms, "losses": losses, "peak_gb_steps": peak_steps}
+    grads = []
+    for remat in (True, False, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_forbidden():
+            _, ms = events_ms(fwd_bwd)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        key = "remat" if remat else "no_remat"
+        res[f"fwd_bwd_ms_{key}"], res[f"peak_gb_{key}"] = ms, peak
+        log(f"  fwd + bwd {'with' if remat else 'without'} remat: {ms:.1f} ms, peak {peak:.2f} GB "
+            f"(AdamW state resident) [{card}]")
+        if len(grads) < 2:
+            grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    bad, worst = [], {"remat": (-1.0, ""), "spread": (-1.0, "")}
+    for n, p in model.named_parameters():
+        ref = grads[1][n].to(dev).float()
+        scale = ref.abs().max().clamp_min(1e-6)
+        err = ((grads[0][n].to(dev).float() - ref).abs().max() / scale).item()
+        spread = ((p.grad.float() - ref).abs().max() / scale).item()
+        worst["remat"] = max(worst["remat"], (err, n))
+        worst["spread"] = max(worst["spread"], (spread, n))
+        if err >= max(REMAT_GRAD_TOL, 2 * spread):
+            bad.append((n, err, spread))
+    res["remat_grad_scaled_err"], res["no_remat_grad_scaled_spread"] = (
+        worst["remat"][0], worst["spread"][0])
+    log(f"  gradients, max |diff| / max |grad| per leaf: remat vs no remat worst "
+        f"{worst['remat'][0]:.3e} ({worst['remat'][1]}); no remat run to run worst "
+        f"{worst['spread'][0]:.3e} ({worst['spread'][1]}); tolerance {REMAT_GRAD_TOL} or twice "
+        f"the leaf's spread")
+    check(not bad, f"remat and no-remat gradients disagree: {bad[:4]}")
+    return counts, res
+
+
+def wan_probe_check(dev, full, grid):
+    """(c) The attention probe at Wan2.1-14B width: one forward and backward
+    with ``attn_probe_rows``; per-layer entropy and tile excess finite, the
+    entropy's gradient reaching the first block's q projection."""
+    import torch
+    from liteattention_torch.models import WanModel
+
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS, remat=True,
+                              attn_probe_rows=PROBE_ROWS)
+    model = WanModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(80))
+    model.float()
+    g = torch.Generator(device=dev).manual_seed(82)
+    frames, hh, ww = grid
+    x = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    with plain_forbidden():
+        model(x, torch.full((1,), 500.0, device=dev), text)
+        ent = [e for e in model.intermediates["attn_entropy"]]
+        tiles = [e.item() for e in model.intermediates["attn_tile_excess"]]
+        torch.stack(ent).sum().backward()
+    ent = [e.item() for e in ent]
+    gq = model.blocks[0].self_attn.q.weight.grad
+    gnorm = gq.float().norm().item()
+    log(f"  probe ({PROBE_ROWS} rows): entropy per layer {ent} (nats; uniform would be "
+        f"{math.log(x.shape[1] * x.shape[2] * x.shape[3] // 4):.3f}), tile excess {tiles}; "
+        f"|d entropy / d blocks.0.self_attn.q.weight| {gnorm:.3e}")
+    check(len(ent) == len(tiles) == SLICE_LAYERS, "probe: a layer is missing")
+    check(all(math.isfinite(v) for v in ent + tiles), "probe values not finite")
+    check(math.isfinite(gnorm) and gnorm > 0, "probe: the entropy's gradient does not reach q")
+    return {"entropy": ent, "tile_excess": tiles, "q_grad_norm": gnorm}
+
+
+def wan_calibrate(dev, card, full, grid):
+    """(d) ``calibrate_constant_threshold`` on the phase-3 T2V slice (random
+    weights), every probed threshold printed; the counted run."""
+    import torch
+    import liteattention_torch.models.calibrate as calibrate
+    from liteattention_torch.models import WanModel
+
+    cfg = dataclasses.replace(full, num_layers=SLICE_LAYERS)
+    model = WanModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames, hh, ww = grid
+    noise = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    probes, inner = [], calibrate.evaluate_sparsity_quality
+
+    def probed(*args, **kw):
+        r = inner(*args, **kw)
+        probes.append((float(kw["thresholds"][0]), float(r["relative_l2"]),
+                       float(r["mean_sparsity"])))
+        log(f"    threshold {probes[-1][0]}: rel-L2 {probes[-1][1]:.4e}, mean sparsity "
+            f"{probes[-1][2]:.4f}")
+        return r
+
+    calibrate.evaluate_sparsity_quality = probed
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with plain_forbidden():
+            result = calibrate.calibrate_constant_threshold(
+                model, noise, text, target_rel_l2=CAL_BUDGET, iters=CAL_ITERS,
+                num_steps=CAL_STEPS, null_text=null, guidance_scale=5.0, vote_stride=2)
+    finally:
+        calibrate.evaluate_sparsity_quality = inner
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = check_path_counts("the calibration run")
+    log(f"  calibrated: {result} ({seconds:.1f} s) [{card}]")
+    if "warning" not in result:
+        check(result["relative_l2"] <= CAL_BUDGET, "calibrated threshold misses the budget")
+    by_thr = sorted(probes)
+    monotone = all(a[1] <= b[1] for a, b in zip(by_thr, by_thr[1:]))
+    log(f"  rel-L2 non-decreasing in the threshold across the probes (the bisection's "
+        f"premise): {monotone}")
+    return counts, {"result": result, "probes": probes, "rel_l2_monotone": monotone,
+                    "seconds": seconds}
+
+
+def wan_proxy(card):
+    """(e) ``examples/torch_structured_calibration.py`` at the JAX artifact's
+    4k settings: lite's quality on trained weights."""
+    ex = load_example("torch_structured_calibration")
+    out = ROOT / "runs" / "torch_structured_calibration.json"
+    log(f"  python examples/torch_structured_calibration.py {' '.join(PROXY_ARGS)}")
+    reset_counts()
+    t0 = time.perf_counter()
+    with plain_forbidden():
+        art = ex.main(PROXY_ARGS + ["--device", "cuda", "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  launches during the proxy run: {counts} ({seconds:.1f} s) [{card}]")
+    check(all(counts[n] > 0 for n in ("flash_fwd", "flash_bwd_dq", "schedule_pack",
+                                      "lite_flash_fwd")),
+          "the proxy run did not launch B1, B2, B3 and B7")
+    wl, cal = art["workload"], art["calibrated"]
+    log(f"  training loss {wl['first_train_loss']:.4f} -> {wl['final_train_loss']:.4f}, "
+        f"final probed entropy {wl['final_attn_entropy']:.3f}")
+    log("  threshold  mean sparsity  rel-L2  flicker  subject-consistency delta  PSNR dB")
+    for r in art["curve"]:
+        log(f"  {r['threshold']:9.1f}  {r['mean_sparsity']:13.4f}  {r['relative_l2']:.4f}  "
+            f"{r['temporal_flicker']:.4f}  {r['subject_consistency_delta']:.6f}  "
+            f"{r['psnr_db']:.2f}")
+    log(f"  calibrated schedule at rel-L2 <= {art['budget_rel_l2']}: mean sparsity "
+        f"{cal['mean_sparsity']:.4f}, final {cal['final_sparsity']:.4f}, rel-L2 "
+        f"{cal['relative_l2']:.4f}, thr* {cal['threshold']}, +delta {cal['loosen_delta']}"
+        + (f"; WARNING: {cal['warning']}" if "warning" in cal else ""))
+    check(wl["final_train_loss"] < wl["first_train_loss"], "the proxy's loss did not fall")
+    check("warning" in cal or cal["relative_l2"] <= art["budget_rel_l2"],
+          "the calibrated schedule misses the budget")
+    return counts, {"seconds": seconds, **art}
+
+
+def wan_e2e(card):
+    """(f) ``examples/torch_wan_e2e_speed.py --modes band --steps 2`` at its
+    default 73 728 tokens."""
+    ex = load_example("torch_wan_e2e_speed")
+    out = ROOT / "runs" / "torch_wan_e2e_speed.json"
+    log(f"  python examples/torch_wan_e2e_speed.py {' '.join(E2E_ARGS)}")
+    reset_counts()
+    with plain_forbidden():
+        art = ex.main(E2E_ARGS + ["--device", "cuda", "--out", str(out)])
+    counts = check_path_counts("the e2e band run")
+    band = art["banded_curve"]
+    log(f"  {art['tokens']} tokens: dense {art['dense_ms_per_step']:.1f} ms/step; sparsity -> "
+        f"ms/step {[(round(r['sparsity'], 4), round(r['ms_per_step'], 1)) for r in band]} [{card}]")
+    check(len(band) == 5 and all(math.isfinite(r["ms_per_step"]) for r in band),
+          "the band curve is incomplete")
+    return counts, art
+
+
+def wan_train_phase(dev, card, full, grid):
+    """Phase 8: the Wan training and threshold-calibration path."""
+    import torch
+
+    n_tok = grid[0] * (grid[1] // full.patch_size[1]) * (grid[2] // full.patch_size[2])
+    log("  (a) B7 at the training step's shapes")
+    bwd = wan_train_bwd(dev, full, n_tok)
+    torch.cuda.empty_cache()
+    log("  (b) a Wan2.1-14B-width training step")
+    counts = {}
+    counts["wan_train"], train = wan_train_step(dev, card, full, grid)
+    torch.cuda.empty_cache()
+    log("  (c) the attention probe at that width")
+    train["probe"] = wan_probe_check(dev, full, grid)
+    torch.cuda.empty_cache()
+    log(f"  (d) calibrate_constant_threshold on the T2V slice ({CAL_STEPS} steps, CFG, budget "
+        f"{CAL_BUDGET}, iters {CAL_ITERS})")
+    counts["wan_calibrate"], train["calibrate"] = wan_calibrate(dev, card, full, grid)
+    torch.cuda.empty_cache()
+    log("  (e) lite's quality with trained weights: the structured-calibration proxy")
+    counts["wan_proxy"], train["proxy"] = wan_proxy(card)
+    torch.cuda.empty_cache()
+    log("  (f) the band curve at the headline 73 728 tokens")
+    counts["wan_e2e"], train["e2e"] = wan_e2e(card)
+    return counts, bwd, train
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -2759,6 +3142,9 @@ def main() -> int:
         log("phase 7: MLA at DeepSeek-V3 width")
         counts["mla"], mres = mla_phase(dev, card)
         kres.update(mres)
+        log("phase 8: Wan training and threshold calibration")
+        p8_counts, p8_bwd, wan_train_stats = wan_train_phase(dev, card, cfg, SLICE_GRID)
+        counts.update(p8_counts)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2784,6 +3170,14 @@ def main() -> int:
     }
     kres["flash_fwd"]["err"] = max(kres["flash_fwd"]["err"], image["err"])
     kres["flash_bwd_dq"]["fwd_bwd"] = kres["fwd_bwd"]
+    # B7 at the Wan training step's shapes (phase 8 (a)).
+    bwd_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                "main_kernel_ms", "timer", "rel_l2", "worst_block_rel_l2")
+    for key, (shape, r) in p8_bwd.items():
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            kres[name][key] = {"shape": shape, **{k: r[name][k] for k in bwd_keys},
+                               "fwd_bwd": r["fwd_bwd"]}
+            kres[name]["err"] = max(kres[name]["err"], r[name]["err"])
     # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
     kres["schedule_pack"]["kv_map"] = {
         **{k: ext["pack_kv_map"][k] for k in ("ms", "timer", "call_ms", "bound_ms")},
@@ -2843,6 +3237,7 @@ def main() -> int:
     log(f"engine: {json.dumps(engine_stats)}")
     log(f"wan i2v: {json.dumps(i2v_stats)}")
     log(f"wan two-expert: {json.dumps(two_expert_stats)}")
+    log(f"wan training and calibration: {json.dumps(wan_train_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

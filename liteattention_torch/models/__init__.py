@@ -1,5 +1,7 @@
 """Model library: the Wan video DiT (text- and image-to-video) and its
-denoising pipelines; the GPT family and its per-family configurations."""
+denoising pipelines; the GPT family and its per-family configurations.
+Sparse-against-dense quality (``models.eval``) and threshold calibration
+(``models.calibrate``) are submodules, not exported here, as in JAX."""
 
 from liteattention_torch.models.configs import (
     bigcode_config,

@@ -20,13 +20,22 @@ CLIP ViT-H/14).
 
 Self-attention runs the lite (skip) kernel when a mask state is passed
 and the dense kernel otherwise; text cross-attention always runs the
-dense kernel. Linear layers stay ``nn.Linear`` (cuBLAS), as the JAX
-package left them to XLA. Parameters that the JAX model computes in
-``cfg.dtype`` are held in ``cfg.dtype``; the time MLPs, modulation
-biases and norm scales stay fp32, as in the JAX model.
+dense kernel. Linear layers are cuBLAS products, as the JAX package left
+them to XLA. The linears that the JAX model computes in ``cfg.dtype``
+are held in ``cfg.dtype`` for inference and compute in it whatever their
+parameters' dtype (:class:`~liteattention_torch.modules.dense.Dense`), so
+``model.float()`` gives JAX's training setup: fp32 parameters, bf16
+products. The time MLPs, modulation biases and norm scales stay fp32,
+as in the JAX model.
 
-Not ported yet (they raise): sequence parallelism (``sp_axis``),
-``remat`` and the training probe ``attn_probe_rows``.
+Training: ``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) whenever gradients are
+enabled. ``cfg.attn_probe_rows`` makes each self-attention layer compute
+exact fp32 softmax statistics of a strided sample of query rows; after a
+forward, ``WanModel.intermediates`` holds them per layer under the JAX
+names ``attn_entropy`` and ``attn_tile_excess``, differentiable.
+
+Not ported yet (it raises): sequence parallelism (``sp_axis``).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from liteattention_torch.device import resolve_device
 from liteattention_torch.lite_attention import (
@@ -45,8 +55,9 @@ from liteattention_torch.lite_attention import (
     lite_attention_step,
 )
 from liteattention_torch.models.convert import state_dict_from_flax
-from liteattention_torch.ops.flash_fwd import flash_attention
-from liteattention_torch.ops.tile_sizes import BlockSizes, get_block_sizes
+from liteattention_torch.modules.dense import Dense
+from liteattention_torch.ops.flash_fwd import LOG2E, flash_attention
+from liteattention_torch.ops.tile_sizes import VOTE_TILE, BlockSizes, get_block_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +159,12 @@ class RMSNorm(nn.Module):
         return (n * self.weight).to(self.dtype)
 
 
+def _dense(in_dim: int, out_dim: int, dtype, device) -> Dense:
+    """A linear held in ``dtype`` that computes in ``dtype``; after
+    ``model.float()`` its fp32 parameters are cast for each product."""
+    return Dense(in_dim, out_dim, dtype=dtype, device=device, param_dtype=dtype)
+
+
 def _layer_norm(x, eps, dtype, weight=None, bias=None):
     """LayerNorm in fp32, output in ``dtype`` (the JAX model's form)."""
     return F.layer_norm(x.float(), (x.shape[-1],), weight, bias, eps).to(dtype)
@@ -164,8 +181,8 @@ class ImgProj(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.norm_in = nn.LayerNorm(in_dim, eps=self.eps, device=device)
-        self.fc1 = nn.Linear(in_dim, in_dim, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(in_dim, dim, dtype=dtype, device=device)
+        self.fc1 = _dense(in_dim, in_dim, dtype, device)
+        self.fc2 = _dense(in_dim, dim, dtype, device)
         self.norm_out = nn.LayerNorm(dim, eps=self.eps, device=device)
 
     def forward(self, x):
@@ -181,8 +198,8 @@ class CtxProj(nn.Module):
     def __init__(self, in_dim: int, dim: int, dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.fc1 = nn.Linear(in_dim, dim, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(dim, dim, dtype=dtype, device=device)
+        self.fc1 = _dense(in_dim, dim, dtype, device)
+        self.fc2 = _dense(dim, dim, dtype, device)
 
     def forward(self, x):
         x = F.gelu(self.fc1(x.to(self.dtype)), approximate="tanh")
@@ -199,6 +216,38 @@ def _bnhd(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
+def _attention_probe(qh: torch.Tensor, kh: torch.Tensor, rows: int) -> Dict[str, torch.Tensor]:
+    """Exact softmax statistics of ``min(rows, N)`` query rows at stride
+    ``max(N // rows, 1)`` (the JAX model's training probe), differentiable:
+    ``attn_entropy``, the mean row entropy ``lse - sum(p * s)`` in nats,
+    and, when the keys hold more than one 128-key tile,
+    ``attn_tile_excess``, the mean of ``softplus(tile max - row max + 3)``
+    in the kernel's log2 units, comparable to the skip threshold.
+
+    The scores are fp32 at full precision, as JAX's ``Precision.HIGHEST``:
+    on the card the product needs TF32 off (PyTorch's default), and a call
+    with ``torch.backends.cuda.matmul.allow_tf32`` on raises.
+    """
+    if qh.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "attn_probe_rows: TF32 matmuls are on, but the probe's scores are exact "
+            "fp32; set torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+    n, d = qh.shape[2], qh.shape[3]
+    r = min(rows, n)
+    qp = qh[:, :, :: max(n // r, 1)][:, :, :r].float()
+    s = torch.einsum("bhrd,bhnd->bhrn", qp, kh.float()) * (1.0 / float(d) ** 0.5)
+    p = torch.softmax(s, dim=-1)
+    probe = {"attn_entropy": (torch.logsumexp(s, dim=-1) - (p * s).sum(-1)).mean()}
+    nt = n // VOTE_TILE
+    if nt > 1:
+        s2 = s * LOG2E
+        tile_max = s2[..., : nt * VOTE_TILE].unflatten(-1, (nt, VOTE_TILE)).amax(-1)
+        excess = tile_max - s2.amax(-1, keepdim=True)
+        probe["attn_tile_excess"] = F.softplus(excess + 3.0).mean()
+    return probe
+
+
 class WanSelfAttention(nn.Module):
     """3D-RoPE self-attention: lite kernel with a mask state, dense
     kernel without."""
@@ -207,11 +256,10 @@ class WanSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.head_dim
-        lin = dict(dtype=cfg.dtype, device=device)
-        self.q = nn.Linear(cfg.dim, inner, **lin)
-        self.k = nn.Linear(cfg.dim, inner, **lin)
-        self.v = nn.Linear(cfg.dim, inner, **lin)
-        self.o = nn.Linear(inner, cfg.dim, **lin)
+        self.q = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.k = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.v = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.o = _dense(inner, cfg.dim, cfg.dtype, device)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
             self.k_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
@@ -226,6 +274,10 @@ class WanSelfAttention(nn.Module):
         q = apply_rope(q.reshape(b, n, cfg.num_heads, cfg.head_dim), freqs)
         k = apply_rope(k.reshape(b, n, cfg.num_heads, cfg.head_dim), freqs)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), _bhsd(v, cfg.num_heads)
+        self.probe = (
+            _attention_probe(qh, kh, cfg.attn_probe_rows)
+            if cfg.attn_probe_rows > 0 and state is None else {}
+        )
         if state is None:
             oh = flash_attention(qh, kh, vh, block_sizes=cfg.attn_block_sizes("dense"))
             new_state = None
@@ -248,17 +300,16 @@ class WanCrossAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         inner = cfg.num_heads * cfg.head_dim
-        lin = dict(dtype=cfg.dtype, device=device)
-        self.q = nn.Linear(cfg.dim, inner, **lin)
-        self.k = nn.Linear(cfg.dim, inner, **lin)
-        self.v = nn.Linear(cfg.dim, inner, **lin)
-        self.o = nn.Linear(inner, cfg.dim, **lin)
+        self.q = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.k = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.v = _dense(cfg.dim, inner, cfg.dtype, device)
+        self.o = _dense(inner, cfg.dim, cfg.dtype, device)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
             self.k_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
         if cfg.i2v_decoupled:
-            self.k_img = nn.Linear(cfg.dim, inner, **lin)
-            self.v_img = nn.Linear(cfg.dim, inner, **lin)
+            self.k_img = _dense(cfg.dim, inner, cfg.dtype, device)
+            self.v_img = _dense(cfg.dim, inner, cfg.dtype, device)
             if cfg.qk_norm:
                 self.k_img_norm = RMSNorm(inner, cfg.eps, cfg.dtype, device)
 
@@ -301,9 +352,8 @@ class WanBlock(nn.Module):
         self.cross_attn = WanCrossAttention(cfg, device)
         # norm3 is affine (Wan's cross_attn_norm); norm1/norm2 are not.
         self.norm3 = nn.LayerNorm(cfg.dim, eps=cfg.eps, device=device)
-        lin = dict(dtype=cfg.dtype, device=device)
-        self.ffn_up = nn.Linear(cfg.dim, cfg.ffn_dim, **lin)
-        self.ffn_down = nn.Linear(cfg.ffn_dim, cfg.dim, **lin)
+        self.ffn_up = _dense(cfg.dim, cfg.ffn_dim, cfg.dtype, device)
+        self.ffn_down = _dense(cfg.ffn_dim, cfg.dim, cfg.dtype, device)
 
     def forward(self, x, ctx, t_mod, freqs, state=None, threshold=-10.0,
                 emit_votes=True, schedule=None, ctx_img=None):
@@ -326,6 +376,15 @@ class WanBlock(nn.Module):
         return x + g2 * h, new_state
 
 
+def _run_block(block, *args):
+    """``block(*args)`` and the probe its self-attention kept, taken off
+    the module so that a remat recompute in the backward leaves no graph
+    behind (the recompute runs to the end: no early stop): (x, new state,
+    probe)."""
+    x, st = block(*args)
+    return x, st, vars(block.self_attn).pop("probe", {})
+
+
 class WanModel(nn.Module):
     """Wan2.x-family DiT backbone.
 
@@ -339,22 +398,24 @@ class WanModel(nn.Module):
     None). ``image_dim`` builds the image projection ``img_proj``; it is
     required with ``cfg.i2v_decoupled``. Parameters go on ``device``
     (default ``cuda``).
+
+    With ``cfg.attn_probe_rows`` a forward leaves ``self.intermediates``:
+    ``{"attn_entropy": [...], "attn_tile_excess": [...]}``, one 0-d tensor
+    per block whose self-attention ran dense (what JAX sows into its
+    ``intermediates`` collection).
     """
 
     def __init__(self, cfg: WanConfig, device=None, image_dim: Optional[int] = None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.remat or cfg.attn_probe_rows or cfg.sp_axis:
-            raise NotImplementedError(
-                "WanModel: remat, attn_probe_rows and sp_axis are not ported yet"
-            )
+        if cfg.sp_axis:
+            raise NotImplementedError("WanModel: sp_axis is not ported yet")
         if cfg.i2v_decoupled and image_dim is None:
             raise ValueError("WanModel: cfg.i2v_decoupled needs image_dim (the image token width)")
         self.cfg = cfg
         pt, ph, pw = cfg.patch_size
-        lin = dict(dtype=cfg.dtype, device=device)
         f32 = dict(dtype=torch.float32, device=device)
-        self.patch_embed = nn.Linear(pt * ph * pw * cfg.in_channels, cfg.dim, **lin)
+        self.patch_embed = _dense(pt * ph * pw * cfg.in_channels, cfg.dim, cfg.dtype, device)
         self.text_proj = CtxProj(cfg.text_dim, cfg.dim, cfg.dtype, device)
         if image_dim is not None:
             self.img_proj = ImgProj(image_dim, cfg.dim, cfg.dtype, device)
@@ -365,7 +426,7 @@ class WanModel(nn.Module):
             WanBlock(cfg, device) for _ in range(cfg.num_layers)
         )
         self.final_mod_bias = nn.Parameter(torch.zeros(2, cfg.dim, device=device))
-        self.proj_out = nn.Linear(cfg.dim, pt * ph * pw * cfg.out_channels, **lin)
+        self.proj_out = _dense(cfg.dim, pt * ph * pw * cfg.out_channels, cfg.dtype, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -429,12 +490,26 @@ class WanModel(nn.Module):
 
         freqs = rope_3d_freqs((gf, gh, gw), cfg.head_dim, device=latents.device)
         new_states: Dict[int, Any] = {}
+        # Only a pass that builds a graph has activations to drop.
+        remat = cfg.remat and torch.is_grad_enabled()
+        probes = []
         for i, block in enumerate(self.blocks):
             st = skip_states.get(i) if skip_states is not None else None
             sched = schedules.get(i) if schedules is not None else None
-            x, st_new = block(x, ctx, t_mod, freqs, st, threshold, emit_votes, sched, ctx_img)
+            args = (x, ctx, t_mod, freqs, st, threshold, emit_votes, sched, ctx_img)
+            if remat:
+                with set_checkpoint_early_stop(False):
+                    x, st_new, probe = checkpoint(_run_block, block, *args, use_reentrant=False)
+            else:
+                x, st_new, probe = _run_block(block, *args)
+            probes.append(probe)
             if st_new is not None:
                 new_states[i] = st_new
+        if cfg.attn_probe_rows > 0:
+            self.intermediates = {
+                name: [p[name] for p in probes if name in p]
+                for name in ("attn_entropy", "attn_tile_excess")
+            }
 
         # Final modulated projection (shift/scale = bias + raw time
         # embedding) and unpatchify.

@@ -31,3 +31,16 @@ def coherent_qkv(rng, b, h, sq, sk, d, hk=None, noise=0.3):
     k = base[:, :, :sk] + noise * rng.randn(b, hk, sk, d)
     v = rng.randn(b, hk, sk, d)
     return q.astype(np.float32), k.astype(np.float32), v.astype(np.float32)
+
+
+def load_example(name):
+    """The module of ``examples/<name>.py`` (the examples are scripts, not
+    a package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

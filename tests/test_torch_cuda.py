@@ -884,3 +884,48 @@ def test_flash_fwd_mla_kernel_raises_on_other_shapes(dev):
     v = torch.zeros(1, 2, 64, 256, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="A11"):
         flash_attention(q, q, v)
+
+
+def test_wan_training_step_on_card(dev):
+    # fp32 master weights, bf16 products on the card: remat launches B1 a
+    # second time a block and gives the gradients of the stored forward
+    # (each leaf scaled by its max within 2e-2, the JAX remat test's
+    # bound); both within rel-L2 5e-2 of the same step through the plain
+    # versions in fp32 on the CPU; the probe refuses TF32 products.
+    import dataclasses
+
+    from liteattention_torch.models import WanConfig, WanModel
+
+    cfg = dataclasses.replace(WanConfig.tiny(), attn_probe_rows=8)
+    cpu = WanModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    lat = torch.randn(1, 2, 16, 20, 16, generator=g)
+    text = torch.randn(1, 16, 64, generator=g)
+    tt = torch.full((1,), 500.0)
+    (cpu(lat, tt, text)[0] ** 2).mean().backward()
+    ref = {n: p.grad for n, p in cpu.named_parameters()}
+    grads = {}
+    for remat in (False, True):
+        model = WanModel(dataclasses.replace(cfg, remat=remat), device=dev).float()
+        model.load_state_dict(cpu.state_dict())
+        n0, b0 = flash_attention.launches, flash_bwd.launches
+        out, _ = model(lat.to(dev).bfloat16(), tt.to(dev), text.to(dev).bfloat16())
+        (out.float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        assert flash_attention.launches - n0 == (4 if remat else 2) * cfg.num_layers
+        assert flash_bwd.launches - b0 == 2 * cfg.num_layers
+        assert len(model.intermediates["attn_entropy"]) == cfg.num_layers
+        grads[remat] = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+        for n, r in ref.items():
+            assert _rel_l2(grads[remat][n].reshape(1, 1, 1, -1), r.reshape(1, 1, 1, -1))[0] < 5e-2, n
+    for n, a in grads[True].items():
+        b = grads[False][n]
+        assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-6)).item() < 2e-2, n
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32"):
+            model(lat.to(dev).bfloat16(), tt.to(dev), text.to(dev).bfloat16())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
