@@ -41,18 +41,20 @@ TURN_SYNC = "      sm90::named_sync(kTurn + wg, kThreads);\n"
 TURN_ARRIVE = "      sm90::named_arrive(kTurn + 1 - wg, kThreads);\n"
 TURN_FIRST = "    if (hl == 0 && wg == 1) sm90::named_arrive(kTurn, kThreads);\n"
 FULL_WAIT = "      sm90::mbar_wait(&full[next], ((f + 1) / kStages) & 1);\n"
-SOFTMAX = """      tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                           alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
-                             if constexpr (COARSE) {
-                               coarse_vote(at, mx_lo, mx_hi);
-                             } else if constexpr (VOTES) {
-                               // Some valid row of this warp passes: the tile is kept.
-                               // Bitwise, not short-circuit: no branch on the way.
-                               const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
-                                                 ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
-                               if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
-                             }
-                           });
+SOFTMAX = """      auto vote = [&](float mx_lo, float mx_hi) {
+        if constexpr (COARSE) {
+          coarse_vote(at, mx_lo, mx_hi);
+        } else if constexpr (VOTES) {
+          // Some valid row of this warp passes: the tile is kept.
+          // Bitwise, not short-circuit: no branch on the way.
+          const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
+                            ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
+          if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
+        }
+      };
+      tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile, walk.dead, warp_row0,
+                                         r_lo, r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
+                                         vote);
 """
 LOOP_HEAD = """    for (int j = 0; j + 1 < walk.n; ++j) {
       const int f = f0 + j;
@@ -76,7 +78,7 @@ LAST_PV = """    if constexpr (SPLIT) sm90::mbar_wait(&vfull[(walk.n - 1) % 2], 
     sm90::fence_regs(od);
 """
 LAUNCH = """  kernel<<<dim3(p.qtiles, p.heads / fold, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
-                                                                            tm_o, p);
+                                                                            tm_o, p, c);
   return cudaGetLastError();"""
 STORE_END = """      sm90::bulk_wait_read();  // the Q buffer stays until the stores have read it
     }
@@ -127,15 +129,15 @@ def late_refill(s):
     s = edit(s, REFILL, "")
     return edit(s, RELEASE, RELEASE + """      if (ct == 0 && f + kStages < n_dense) {
         sm90::mbar_wait(&empty[stage], (f / kStages) & 1);
-        load_tile<DK, DV>(tm_k, tm_v, smem, full, stage, f + kStages, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, stage, k0 + f + kStages, bhk0);
       }
 """)
 
 
 def scale_then_exp2(s):
     """Scores scaled by mask_scores (FMUL), then exp2(s - max) (FADD)."""
-    s = edit(s, "  mask_scores(\n      s, 1.f, mask, col0,", "  mask_scores(\n      s, p.scale_log2, mask, col0,")
-    return edit(s, "alpha_lo, alpha_hi, p.scale_log2);", "alpha_lo, alpha_hi);")
+    s = edit(s, "  mask_scores(\n      s, 1.f, mask, col0,", "  mask_scores(\n      s, scale, mask, col0,")
+    return edit(s, "alpha_lo, alpha_hi, scale);", "alpha_lo, alpha_hi);")
 
 
 def producer_warp(s):
@@ -156,7 +158,7 @@ def producer_warp(s):
       }
       for (int j = 0; j < n_dense; ++j) {
         if (j >= kStages) sm90::mbar_wait(&empty[j % kStages], ((j - kStages) / kStages) & 1);
-        load_tile<DK, DV>(tm_k, tm_v, smem, full, j % kStages, j, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j % kStages, k0 + j, bhk0);
       }
     }
     return;
@@ -226,11 +228,11 @@ template <int DK, int DV, bool MC = false>
     s = edit(s, "    sm90::mbar_fence_init();\n  }\n  __syncthreads();\n",
              "    sm90::mbar_fence_init();\n  }\n  if constexpr (kCluster > 1) {\n    cluster_sync();\n"
              "  } else {\n    __syncthreads();\n  }\n")
-    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, j, j, bhk0);",
-             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, j, j, bhk0, rank);")
-    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);",
-             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0, "
-             "rank);")
+    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, j, k0 + j, bhk0);",
+             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, j, k0 + j, bhk0, rank);")
+    s = edit(s, "load_tile<DK, DV>(tm_k, tm_v, smem, full, free, k0 + f - 1 + kStages, bhk0);",
+             "load_tile<DK, DV, kCluster == 2>(tm_k, tm_v, smem, full, free, k0 + f - 1 + kStages, "
+             "bhk0, rank);")
     s = edit(s, RELEASE, "      if (lane == 0) {\n        sm90::mbar_arrive(&vempty[stage]);\n"
              "        if constexpr (kCluster > 1) arrive_peer(&vempty[stage], rank ^ 1);\n      }\n")
     s = edit(s, STORE_END, STORE_END[:-2] + "\n  if constexpr (kCluster > 1) cluster_sync();\n}")
@@ -247,7 +249,7 @@ template <int DK, int DV, bool MC = false>
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, tm_o, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, tm_o, p, c);
   return err != cudaSuccess ? err : cudaGetLastError();""")
 
 
@@ -372,7 +374,7 @@ def main() -> int:
                     res[name]["max_abs_diff"][shape] = diff
             for r in range(rounds):
                 for name in names if r % 2 == 0 else names[::-1]:
-                    res[name]["ms"][shape].append(cs.queued_ms(calls[name], reps))
+                    res[name]["ms"][shape].append(cs.queued_ms(calls[name], reps)[0])
             for name in names:
                 print(f"  {shape:32s} {name:20s} "
                       + " ".join(f"{t:.4f}" for t in res[name]["ms"][shape]) + " ms", flush=True)

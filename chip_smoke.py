@@ -126,6 +126,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples/torch_wan_e2e_speed.py --modes band --steps 2`` at 73 728
    tokens. In (b)-(f) every plain version raises: the runs launch the
    kernels or fail.
+10. (Runs after 8, before the result lines of 9.) ALiBi and padded-batch
+   serving, on B1's per-batch channels: (a) B1 with ``kv_bound`` /
+   ``kv_low`` / ``bound_causal`` and with ALiBi against its plain version
+   (out, lse and every 128-row block) at BERT-large's attention (32 x 16 x
+   512 x 64, right-padded lengths), a left-padded cache append (8 x 32/8 x
+   1024 x 128 over 4096 keys), Baichuan2-13B's ALiBi prefill over its cache,
+   its single-token steps at ragged bounds and a verify step (Sq 4), non-
+   causal ALiBi with [B, H] slopes at scale 1/d, and rows that see no key;
+   the paths' shapes timed beside their bounds (visible key pairs only),
+   the plain version and SDPA with the equivalent mask (backend named);
+   (b) Baichuan2-13B (full width and depth: 40 layers, 40 heads of 128,
+   ffn 13 696, vocab 125 696, random weights from a seed, fp32 master
+   weights) serving 4 requests of 1024-token prompts, 64 greedy tokens into
+   a 2048-token cache and batch-1 speculative decoding (a 2-layer draft
+   sharing its weights, lookahead 3): every step on B1's ALiBi channel, no
+   decode-kernel launch; a small 10-head ALiBi model teacher-forced against
+   the CPU; the decode logits against a full recompute, with the two
+   planted cache faults read above its limit; (c) BERT-large
+   (``BertForPreTraining``, 24 layers, 1024 wide) over 32 sequences
+   right-padded to 512: 24 bound launches a forward, each sequence's rows
+   equal to the sequence alone; (d) ``flash_attn_func`` and
+   ``flash_attn_qkvpacked_func`` with ``alibi_slopes`` against the plain
+   version.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -379,8 +402,9 @@ def banded_mask(b, h, qt, kt, sparsity, device):
 def kernel_wrappers():
     """Every kernel entry of the port, by its name in the kernels line: the
     wrapper and the attribute that counts its launches (the lite wrapper
-    counts B3, B5 and B4 apart, flash_attention B1, B1 at the MLA prefill
-    shape (192, 128) and the split-O MLA kernel at V 512)."""
+    counts B3, B5 and B4 apart, flash_attention B1, B1 with its per-batch
+    bound / low channels, B1 with ALiBi, B1 at the MLA prefill shape (192,
+    128) and the split-O MLA kernel at V 512)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -390,6 +414,8 @@ def kernel_wrappers():
     from liteattention_torch.ops.schedule_pack import pack_schedule
 
     return {"flash_fwd": (flash_attention, "launches"),
+            "flash_fwd_bound": (flash_attention, "bound_launches"),
+            "flash_fwd_alibi": (flash_attention, "alibi_launches"),
             "flash_fwd_mla": (flash_attention, "mla_launches"),
             "flash_fwd_mla_v512": (flash_attention, "mla_v512_launches"),
             "schedule_pack": (pack_schedule, "launches"),
@@ -1698,7 +1724,7 @@ def serve_phase(dev, card):
     want = 2 * cfg.num_layers * n_decode
     check(launches["flash_decode"] >= want,
           f"serving: expected at least {want} decode-kernel launches (one per layer per step)")
-    check(all(launches[n] > 0 for n in ("flash_fwd", "flash_decode", "paged_decode",
+    check(all(launches[n] > 0 for n in ("flash_fwd_bound", "flash_decode", "paged_decode",
                                         "paged_decode_folded")),
           "serving: a kernel of the path never launched")
 
@@ -1770,20 +1796,6 @@ def serve_phase(dev, card):
         check(prof["decode_kernel_launches"] == 5 * cfg.num_layers
               and prof["decode_merge_launches"] == 0,
               "serving: the decode step should launch the decode kernel once per layer, no merge")
-    # B1 takes contiguous inputs, so prefill and multi-token steps copy the
-    # cache prefix (K and V, every layer): its device time at the prefill
-    # (8 x 1024 keys) and at a verify step (1 x prompt + 32 keys).
-    kc, vc = inf.key_value_memory_dict[0][:2]
-
-    def prefix_copy(rows, n):
-        with torch.inference_mode():
-            kc[:rows, :, :n].contiguous(), vc[:rows, :, :n].contiguous()
-
-    copy_prefill = device_ms(lambda: prefix_copy(SERVE_BATCH, SERVE_PROMPT))[0] * cfg.num_layers
-    copy_verify = device_ms(lambda: prefix_copy(1, SERVE_PROMPT + SPEC_NEW))[0] * cfg.num_layers
-    stats_out.update(prefix_copy_ms_prefill=copy_prefill, prefix_copy_ms_verify=copy_verify)
-    log(f"  cache-prefix copies for B1, all {cfg.num_layers} layers: {copy_prefill:.3f} ms per "
-        f"prefill ({copy_prefill / prefill_ms:.2%} of it), {copy_verify:.3f} ms per verify step")
     return counts, stats_out
 
 
@@ -2858,6 +2870,462 @@ def wan_train_phase(dev, card, full, grid):
     return counts, bwd, train
 
 
+# ---------------------------------------------------------------- phase 10
+
+# Baichuan2-13B-Base (baichuan-inc/Baichuan2-13B-Base config.json): hidden
+# 5120, 40 layers, 40 heads of 128, intermediate 13 696, vocab 125 696,
+# RMSNorm eps 1e-6, ALiBi, untied normalised head; served like phase 5 at
+# ALIBI_BATCH requests of SERVE_PROMPT tokens, SERVE_NEW greedy tokens into
+# a SERVE_CAPACITY cache, fp32 master weights.
+ALIBI_BATCH, ALIBI_LAYERS = 4, 40
+# BERT-large (google-bert/bert-large-uncased config.json): 1024 wide, 24
+# layers, 16 heads of 64, ffn 4096, vocab 30 522, 512 positions; a batch of
+# BERT_BATCH sequences right-padded to BERT_SEQ, lengths seeded in
+# [BERT_MIN_LEN, BERT_SEQ].
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 32, 512, 64
+# rel-L2 of a padded sequence's valid rows (bf16 MLM logits) against the
+# same sequence run alone: the keys and the tile arithmetic are the same,
+# only the GEMMs may take other algorithms at other row counts.
+BERT_PAD_TOL = 2e-2
+# Phase 10 (a)'s other shapes: a left-padded cache's append (b, h, hk, Sq,
+# Sk, d), and non-causal ALiBi at BTLM's 1/d scale (b, h, Sq, Sk, d) at
+# Baichuan2-13B's heads.
+CACHE_APPEND_SHAPE = (8, 32, 8, 1024, 4096, 128)
+ALIBI_NONCAUSAL_SHAPE = (2, 40, 1000, 1536, 128)
+
+
+def visible_keys(b, sq, sk, dev, causal=False, kv_bound=None, kv_low=None, bound_causal=False):
+    """Bool ``[B, 1, Sq, Sk]``: the keys each q row of B1 with these
+    channels sees (the plain version's rule)."""
+    import torch
+
+    row = torch.arange(sq, device=dev)[:, None]
+    col = torch.arange(sk, device=dev)[None, :]
+    vis = torch.ones(b, 1, sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        vis &= col <= row + (sk - sq)
+    if kv_bound is not None:
+        end = kv_bound.reshape(-1, 1, 1, 1)
+        vis &= col < (end - sq + row + 1 if bound_causal else end)
+    if kv_low is not None:
+        vis &= col >= kv_low.reshape(-1, 1, 1, 1)
+    return vis
+
+
+def check_channels(label, q, k, v, kw, time_it=False):
+    """B1 with its per-batch channels (``kw``: kv_bound, kv_low,
+    bound_causal, alibi_slopes, causal, scale) against its plain version
+    on the same inputs: out within OUT_TOL of max(1, |plain|), lse within
+    LSE_TOL, every (b, h, 128-row block) within B1_BLOCK_TOL. With
+    ``time_it`` also its device time beside its bound (only the visible
+    key pairs and the key rows inside each batch's range), the plain
+    version's time and SDPA's with the equivalent mask (a boolean mask; an
+    additive bias for ALiBi), the backend named."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import flash_attention_masked, flash_attention_plain
+
+    out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ro, rl = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (out.float() - ro.float()).abs()
+    err_o = diff.max().item()
+    err_chk = (diff / ro.float().abs().clamp_min(1.0)).max().item()
+    fin = torch.isfinite(rl)
+    check(torch.equal(fin, torch.isfinite(lse)), f"B1 {label}: lse -inf rows differ")
+    err_l = (lse[fin] - rl[fin]).abs().max().item() if fin.any() else 0.0
+    res = {"err": err_o}
+    res["rel_l2"], res["worst_block_rel_l2"] = block_rel_l2(out, ro)
+    msg = (f"  B1 {label}: max|out| err {err_o:.3e}, max|lse| err {err_l:.3e}, rel-L2 "
+           f"{res['rel_l2']:.3e}, worst 128-row block {res['worst_block_rel_l2']:.3e}")
+    if not fin.all():
+        check(out[~fin].abs().max().item() == 0.0, f"B1 {label}: a row with no key is not 0")
+        msg += f", {int((~fin).sum())} rows with no valid key (out 0, lse -inf)"
+    log(msg)
+    check(err_chk < OUT_TOL and err_l < LSE_TOL and res["worst_block_rel_l2"] < B1_BLOCK_TOL,
+          f"B1 {label} disagrees")
+    if not time_it:
+        return res
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    bound_t, low_t = kw.get("kv_bound"), kw.get("kv_low")
+    vis = visible_keys(b, sq, sk, q.device, kw.get("causal", False), bound_t, low_t,
+                       kw.get("bound_causal", False))
+    pairs = int(vis.sum().item()) * h
+    lim = torch.full((b,), sk, device=q.device) if bound_t is None else bound_t.clamp(0, sk)
+    first = torch.zeros_like(lim) if low_t is None else low_t.clamp(0, sk)
+    key_rows = int((lim - first).clamp_min(0).sum().item())
+    kv_bytes = 2 * key_rows * hk * d * k.element_size()
+    res["bound_ms"], res["bound_by"] = bound(4 * d * pairs, nbytes(q, out, lse) + kv_bytes)
+    res["visible_pairs"] = pairs
+    call = lambda: flash_attention_masked(q, k, v, **kw)  # noqa: E731
+    res["ms"], _, res["timer"] = device_ms(call)
+    res["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = kw.get("scale") or d**-0.5
+    slopes = kw.get("alibi_slopes")
+    if slopes is None:
+        mask, kind = vis, "a boolean mask"
+    else:
+        slopes = slopes.float().reshape(-1, h).expand(b, h)[:, :, None, None]
+        dist = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+                - torch.arange(sk, device=q.device)[None, :]).float()
+        dist = dist if kw.get("causal", False) else dist.abs()
+        mask = (-slopes * dist).masked_fill(~vis, -torch.inf).to(q.dtype)
+        kind = "an additive ALiBi bias"
+    backend, res["library_ms"], t_lib = sdpa_backend_ms(
+        f"B1 {label}", lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=hk < h))
+    res["library"] = None if backend is None else f"SDPA {backend} with {kind} ({t_lib})"
+    del mask
+    lib = "n/a" if backend is None else f"{res['library_ms']:.4f} ms {res['library']}"
+    log(f"  B1 {label}: kernel {res['ms']:.4f} ms ({res['timer']}), plain {res['plain_ms']:.3f} "
+        f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; {pairs} visible pairs), "
+        f"library {lib}")
+    return res
+
+
+def channel_kernel_phase(dev):
+    """Phase 10 (a): B1's bound, low, bound_causal and ALiBi channels at the
+    paths' shapes and at the edges, each against its plain version; the
+    paths' shapes timed. Returns the kernels line's flash_fwd_bound and
+    flash_fwd_alibi entries."""
+    import torch
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    bound_res, alibi_res = {}, {}
+    # BERT-large's attention: right-padded lengths, non-causal.
+    b, h, s, d = BERT_BATCH, 16, BERT_SEQ, 64
+    lens = ints(BERT_MIN_LEN, BERT_SEQ, b)
+    bound_res["bert_large_padded"] = check_channels(
+        f"bound {b}x{h}x{s}x{d}, lengths {BERT_MIN_LEN}-{BERT_SEQ}", rnd(b, h, s, d),
+        rnd(b, h, s, d), rnd(b, h, s, d), dict(kv_bound=lens), time_it=True)
+    # A left-padded cache (kv_low) with an append of Sq rows at its end.
+    b, h, hk, sq, sk, d = CACHE_APPEND_SHAPE
+    low, bound_t = ints(0, sk // 4 - 1, b), ints(sk // 2, sk, b)
+    bound_res["cache_low_bound_causal"] = check_channels(
+        f"bound + low + bound_causal {b}x{h}/{hk}x{sq}x{d} over {sk} keys",
+        rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d),
+        dict(kv_bound=bound_t, kv_low=low, bound_causal=True), time_it=True)
+    # Phase 5's prefill as MHA now runs it: Llama-3-8B's heads over the whole
+    # cache with the bound (beside the causal B1 over the prompt alone that
+    # serve_flash_check times: the same keys and tiles, once copied out).
+    b, h, hk, d = SERVE_BATCH, 32, 8, 128
+    bound_res["serving_prefill_over_cache"] = check_channels(
+        f"bound_causal {b}x{h}/{hk}x{SERVE_PROMPT}x{d} over a {SERVE_CAPACITY}-key cache",
+        rnd(b, h, SERVE_PROMPT, d), rnd(b, hk, SERVE_CAPACITY, d), rnd(b, hk, SERVE_CAPACITY, d),
+        dict(kv_bound=torch.full((b,), SERVE_PROMPT, dtype=torch.int32, device=dev),
+             bound_causal=True), time_it=True)
+    # Rows that see no key: bound 0, bound == low, bound < low, bound_causal
+    # with bound < Sq; and the walk's first tile inside the range.
+    edges = (("no-key rows", dict(kv_bound=torch.tensor([0, 100, 90, 60], device=dev),
+                                  kv_low=torch.tensor([0, 100, 120, 0], device=dev),
+                                  bound_causal=True)),
+             ("low inside a tile, causal", dict(
+                 kv_bound=torch.tensor([260, 200, 255, 129], device=dev),
+                 kv_low=torch.tensor([5, 129, 250, 0], device=dev), causal=True)))
+    bound_res["edges"] = {"err": max(
+        check_channels(f"{label} 4x2x150x64 over 260 keys", rnd(4, 2, 150, 64),
+                       rnd(4, 2, 260, 64), rnd(4, 2, 260, 64), kw)["err"] for label, kw in edges)}
+    # ALiBi at Baichuan2-13B's heads: the prefill over the cache (MHA's
+    # route: causal off, bound_causal on, Sk = the cache), single-token
+    # steps at ragged bounds, a verify step (Sq 4), and non-causal Sq != Sk
+    # with [B, H] slopes at BTLM's 1/d scale.
+    b, h, sq, sk, d = ALIBI_NONCAUSAL_SHAPE
+    cap = SERVE_CAPACITY
+    slopes = alibi_slopes(h).to(dev)
+    b = ALIBI_BATCH
+    full_bound = torch.full((b,), SERVE_PROMPT, dtype=torch.int32, device=dev)
+    alibi_res["prefill_over_cache"] = check_channels(
+        f"ALiBi prefill {b}x{h}x{SERVE_PROMPT}x{d} over a {cap}-key cache, bound_causal",
+        rnd(b, h, SERVE_PROMPT, d), rnd(b, h, cap, d), rnd(b, h, cap, d),
+        dict(kv_bound=full_bound, bound_causal=True, alibi_slopes=slopes), time_it=True)
+    kc, vc = rnd(b, h, cap, d), rnd(b, h, cap, d)
+    alibi_res["decode_sq1"] = check_channels(
+        f"ALiBi single-token step {b}x{h}x1x{d} over {cap} keys, ragged bounds",
+        rnd(b, h, 1, d), kc, vc,
+        dict(kv_bound=ints(SERVE_PROMPT + 1, cap, b), bound_causal=True, alibi_slopes=slopes),
+        time_it=True)
+    verify_bound = torch.tensor([SERVE_PROMPT + SPEC_NEW], dtype=torch.int32, device=dev)
+    alibi_res["verify_sq4"] = check_channels(
+        f"ALiBi verify step 1x{h}x{SPEC_LOOKAHEAD + 1}x{d} over {cap} keys",
+        rnd(1, h, SPEC_LOOKAHEAD + 1, d), kc[:1], vc[:1],
+        dict(kv_bound=verify_bound, bound_causal=True, alibi_slopes=slopes), time_it=True)
+    bh = slopes * torch.linspace(1.0, 0.5, b, device=dev)[:, None]
+    alibi_res["noncausal_bh_scale_d"] = check_channels(
+        f"ALiBi non-causal {b}x{h}x{sq}x{d} over {sk} keys, [B, H] slopes, scale 1/d",
+        rnd(b, h, sq, d), rnd(b, h, sk, d), rnd(b, h, sk, d),
+        dict(alibi_slopes=bh, scale=1.0 / d))
+    r = check_channels("ALiBi causal Sq > Sk 2x10/2x300x64 over 140 keys, 10 heads",
+                       rnd(2, 10, 300, 64), rnd(2, 2, 140, 64), rnd(2, 2, 140, 64),
+                       dict(alibi_slopes=alibi_slopes(10).to(dev), causal=True))
+    alibi_res["edges"] = {"err": r["err"]}
+    torch.cuda.empty_cache()
+    return {"flash_fwd_bound": _channel_entry(bound_res, "bert_large_padded"),
+            "flash_fwd_alibi": _channel_entry(alibi_res, "prefill_over_cache")}
+
+
+def _channel_entry(results, headline):
+    """A kernels-line entry: the headline shape's numbers at the top, every
+    shape's under ``shapes``, the error the largest over all."""
+    return {**results[headline], "shape": headline,
+            "err": max(r["err"] for r in results.values()), "shapes": results}
+
+
+def baichuan2_13b_config(layers):
+    """Baichuan2-13B-Base (config.json): hidden 5120, 40 heads of 128, ALiBi,
+    intermediate 13 696 (baichuan_config's own rounding gives 13 568),
+    vocab 125 696, RMSNorm eps 1e-6, untied head."""
+    from liteattention_torch.models.configs import baichuan_config
+
+    cfg = baichuan_config(dim=5120, num_layers=layers, num_heads=40, vocab=125696)
+    return dataclasses.replace(cfg, ffn_dim=13696)
+
+
+def shared_draft(model, layers):
+    """A draft of ``model`` that shares its embedding, first ``layers``
+    blocks, final norm and head (no copy of the weights)."""
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+
+    draft = GPTLMHeadModel(dataclasses.replace(model.cfg, num_layers=layers), device="meta")
+    draft.transformer.wte = model.transformer.wte
+    draft.transformer.blocks = torch.nn.ModuleList(model.transformer.blocks[:layers])
+    draft.transformer.ln_f_scale = model.transformer.ln_f_scale
+    draft.lm_head = model.lm_head
+    check(all(t.device.type != "meta" for t in [*draft.parameters(), *draft.buffers()]),
+          "the draft kept a tensor of its own")
+    return draft
+
+
+def small_alibi_check(dev):
+    """A small ALiBi model (10 heads of 64: the slopes' non-power-of-two
+    interleave) decoding on the card (bf16, B1's ALiBi channel at every
+    step) against greedy decoding on the CPU (fp32, the plain versions),
+    teacher-forced on the CPU's tokens."""
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.utils.generation import greedy_decode
+
+    prompt, new = 100, 12
+    cfg = dataclasses.replace(baichuan2_13b_config(2), dim=640, num_heads=10, vocab_size=1000,
+                              ffn_dim=1024)
+    cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(11))
+    gpu = GPTLMHeadModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, 1000, (2, prompt), generator=torch.Generator().manual_seed(12))
+    rec = StepTimer(cpu)
+    toks = greedy_decode(rec, ids, new, 128)
+    ref = rec.logits()
+    n0, d0 = flash_attention.alibi_launches, flash_attention_decode.launches
+    got, _ = teacher_forced_logits(gpu, toks.to(dev), prompt, 128)
+    torch.cuda.synchronize()
+    n, nd = flash_attention.alibi_launches - n0, flash_attention_decode.launches - d0
+    check(n == cfg.num_layers * new and nd == 0,
+          f"small ALiBi model: {n} ALiBi B1 launches, {nd} decode-kernel launches")
+    err = rel_l2(got.float().cpu(), ref)
+    same = (got.argmax(-1).cpu() == ref.argmax(-1)).float().mean().item()
+    log(f"  small ALiBi model (dim 640, 2 layers, 10 heads of 64), {new} tokens teacher-forced, "
+        f"bf16 card vs fp32 CPU: logits rel-L2 {err:.2e}, argmax agreement {same:.3f}, {n} "
+        f"ALiBi B1 launches, no decode-kernel launch")
+    check(err < SMALL_DECODE_TOL, "small ALiBi model decode disagrees")
+
+
+def alibi_serve_phase(dev, card):
+    """Phase 10 (b): Baichuan2-13B serving at full width and depth (the
+    counted path: greedy decoding of ALIBI_BATCH requests and batch-1
+    speculative decoding), then its checks."""
+    import statistics
+
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import decode_speculative, greedy_decode
+
+    small_alibi_check(dev)
+    cfg = baichuan2_13b_config(ALIBI_LAYERS)
+    log(f"  Baichuan2-13B: dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads x "
+        f"{cfg.dim // cfg.num_heads}, ALiBi, ffn {cfg.ffn_dim} (published; baichuan_config's "
+        f"rounding gives 13568), vocab {cfg.vocab_size}; fp32 master weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    draft = shared_draft(model, SPEC_DRAFT_LAYERS)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (ALIBI_BATCH, SERVE_PROMPT), generator=g, device=dev)
+    log(f"  {n_params / 1e9:.2f} B parameters; {ALIBI_BATCH} requests x {SERVE_PROMPT} prompt "
+        f"tokens, {SERVE_NEW} new tokens each, cache capacity {SERVE_CAPACITY}")
+    greedy_decode(model, ids[:1, :16], 2, 32)  # warm-up, not counted
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timer = StepTimer(model)
+    toks = greedy_decode(timer, ids, SERVE_NEW, SERVE_CAPACITY)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    n_decode = len(timer.calls) - 1
+    spec, stats = decode_speculative(model, draft, ids[:1], SPEC_NEW, SERVE_CAPACITY,
+                                     speculative_lookahead=SPEC_LOOKAHEAD, return_stats=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the ALiBi serving run: {counts}")
+    want = cfg.num_layers * (1 + n_decode)
+    check(counts["flash_fwd_alibi"] >= want,
+          f"ALiBi serving: expected at least {want} ALiBi B1 launches (one per layer per step)")
+    check(counts["flash_decode"] == 0, "ALiBi serving: a step went to the decode kernel B8")
+
+    prefill_ms = timer.calls[0][1]
+    step_ms = [ms for _, ms in timer.calls[1:]]
+    dec_ms = statistics.median(step_ms)
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+           "decode_tokens_per_s": ALIBI_BATCH * 1e3 / dec_ms,
+           "end_to_end_tokens_per_s": ALIBI_BATCH * SERVE_NEW * 1e3 / wall,
+           "peak_gb": peak_gb, "decode_steps": n_decode, "parameters_b": n_params / 1e9}
+    log(f"  prefill {prefill_ms:.1f} ms ({ALIBI_BATCH * SERVE_PROMPT / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {out['decode_tokens_per_s']:.0f} "
+        f"tokens/s; end to end {wall:.0f} ms = {out['end_to_end_tokens_per_s']:.0f} new "
+        f"tokens/s; peak memory {peak_gb:.2f} GB [{card}]")
+    acc = stats["accepted_per_round"]
+    n_cmp = SERVE_PROMPT + min(SPEC_NEW, SERVE_NEW)
+    agree = (spec[0, SERVE_PROMPT:n_cmp] == toks[0, SERVE_PROMPT:n_cmp]).float().mean().item()
+    out.update(spec_rounds=len(acc), spec_tokens_per_round=sum(acc) / len(acc),
+               spec_agreement_with_greedy=agree)
+    log(f"  speculative (batch 1, {SPEC_DRAFT_LAYERS}-layer draft sharing the model's weights, "
+        f"lookahead {SPEC_LOOKAHEAD}, {SPEC_NEW} tokens; verify steps Sq "
+        f"{SPEC_LOOKAHEAD + 1} through bound_causal + ALiBi): {len(acc)} rounds, "
+        f"{sum(acc) / len(acc):.2f} tokens per round; tokens equal to the batch greedy row "
+        f"{agree:.3f}")
+    check(spec.shape == (1, SERVE_PROMPT + SPEC_NEW), "speculative output has the wrong shape")
+
+    # Checks (their launches are not counted): the incremental decode
+    # against a full recompute without a cache (causal ALiBi at the
+    # sequence's own Sk - Sq distance, where the cached steps take the
+    # cache's), and that two faults planted in the cache read above it.
+    step_logits = timer.logits()
+    check(toks.shape == (ALIBI_BATCH, SERVE_PROMPT + SERVE_NEW)
+          and torch.isfinite(step_logits).all(), "ALiBi serving: bad greedy output")
+    with torch.inference_mode():
+        full = torch.cat([model(toks[i : i + 1, :-1])[:, SERVE_PROMPT - 1 :].clone()
+                          for i in range(ALIBI_BATCH)])
+    e_full = rel_l2(step_logits, full)
+    agree_full = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    log(f"  incremental decode vs full recompute without a cache: logits rel-L2 {e_full:.3e}, "
+        f"argmax agreement {agree_full:.3f}")
+    check(e_full < SERVE_RECOMPUTE_TOL, "ALiBi incremental decode disagrees with the recompute")
+    out.update(recompute_rel_l2=e_full, recompute_argmax_agreement=agree_full,
+               **recompute_fault_readings(model, toks, full, step_logits))
+    del model, draft, full
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def bert_phase(dev, card):
+    """Phase 10 (c): BERT-large over a right-padded batch (the counted
+    path: one forward), then each sequence alone against its rows."""
+    import torch
+    from liteattention_torch.models.bert import BertConfig, BertForPreTraining
+
+    cfg = BertConfig(dim=1024, num_layers=24, num_heads=16, ffn_dim=4096)
+    model = BertForPreTraining(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(3))
+    model.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ), generator=g, device=dev)
+    lens = torch.randint(BERT_MIN_LEN, BERT_SEQ + 1, (BERT_BATCH,), generator=g, device=dev)
+    mask = (torch.arange(BERT_SEQ, device=dev)[None] < lens[:, None]).to(torch.int32)
+    with torch.inference_mode():
+        model(ids[:2, :64])  # warm-up, not counted
+        reset_counts()
+        logits, nsp = model(ids, mask)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts["flash_fwd_bound"] == cfg.num_layers and counts["flash_fwd"] == 0,
+              f"BERT-large: expected {cfg.num_layers} bound B1 launches, got {counts}")
+        check(torch.isfinite(logits).all() and torch.isfinite(nsp).all()
+              and logits.shape == (BERT_BATCH, BERT_SEQ, cfg.vocab_size), "BERT-large: bad output")
+        worst = 0.0
+        for i, n in enumerate(lens.tolist()):
+            alone, _ = model(ids[i : i + 1, :n])
+            worst = max(worst, rel_l2(logits[i, :n], alone[0]))
+        ms = cuda_ms(lambda: model(ids, mask), reps=5)
+    valid = int(lens.sum().item())
+    out = {"ms_per_batch": ms, "valid_tokens_per_s": valid * 1e3 / ms, "valid_tokens": valid,
+           "padded_tokens": BERT_BATCH * BERT_SEQ, "worst_padded_vs_alone_rel_l2": worst}
+    log(f"  BERT-large ({cfg.num_layers} layers, {cfg.num_heads} heads of 64), {BERT_BATCH} "
+        f"sequences right-padded to {BERT_SEQ} ({valid} valid tokens): {counts['flash_fwd_bound']} "
+        f"bound B1 launches a forward; {ms:.2f} ms a batch (events) = "
+        f"{out['valid_tokens_per_s']:.0f} valid tokens/s [{card}]; each sequence alone vs its "
+        f"padded rows: worst rel-L2 {worst:.3e} (limit {BERT_PAD_TOL})")
+    check(worst <= BERT_PAD_TOL, "BERT-large: a padded sequence differs from the sequence alone")
+    del model, logits
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def alibi_api_check(dev):
+    """Phase 10 (d): flash_attn_func and flash_attn_qkvpacked_func with
+    ``alibi_slopes`` on the card (the counted path) against the plain
+    version on the same inputs."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_func, flash_attn_qkvpacked_func
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(99)
+    qkv = torch.randn(2, 600, 3, 40, 128, generator=g, device=dev).to(torch.bfloat16)
+    slopes = alibi_slopes(40).to(dev)
+    reset_counts()
+    outs = {"flash_attn_func causal [B, H] slopes": (
+                flash_attn_func(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=True,
+                                alibi_slopes=slopes.expand(2, 40)), True),
+            "flash_attn_qkvpacked_func [H] slopes": (
+                flash_attn_qkvpacked_func(qkv, alibi_slopes=slopes), False)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["flash_fwd_alibi"] == 2, f"API with alibi_slopes: {counts}")
+    qh, kh, vh = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    err = 0.0
+    for name, (out, causal) in outs.items():
+        ro, _ = flash_attention_plain(qh, kh, vh, causal=causal, alibi_slopes=slopes)
+        e = (out.transpose(1, 2).float() - ro.float()).abs().max().item()
+        err = max(err, e)
+        log(f"  {name} on the card vs the plain version: max|out| err {e:.3e}")
+        check(e < OUT_TOL, f"{name} disagrees")
+    return counts, err
+
+
+def channel_phase(dev, card):
+    """Phase 10: B1's channels, then the ALiBi and padded-batch paths."""
+    import torch
+
+    torch.cuda.empty_cache()
+    log("  (a) B1's bound, low and ALiBi channels against their plain versions")
+    kres = channel_kernel_phase(dev)
+    counts, stats = {}, {}
+    log("  (b) Baichuan2-13B serving at full width and depth")
+    counts["alibi_serve"], stats["baichuan2_13b"] = alibi_serve_phase(dev, card)
+    log("  (c) BERT-large over a right-padded batch")
+    counts["bert"], stats["bert_large"] = bert_phase(dev, card)
+    log("  (d) the flash API with alibi_slopes")
+    counts["alibi_api"], api_err = alibi_api_check(dev)
+    kres["flash_fwd_alibi"]["err"] = max(kres["flash_fwd_alibi"]["err"], api_err)
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -3145,6 +3613,13 @@ def main() -> int:
         log("phase 8: Wan training and threshold calibration")
         p8_counts, p8_bwd, wan_train_stats = wan_train_phase(dev, card, cfg, SLICE_GRID)
         counts.update(p8_counts)
+        log("phase 10: ALiBi and padded-batch serving")
+        t10 = time.perf_counter()
+        p10_counts, p10_kres, p10_stats = channel_phase(dev, card)
+        p10_stats["seconds"] = time.perf_counter() - t10
+        log(f"  phase 10 took {p10_stats['seconds']:.1f} s")
+        counts.update(p10_counts)
+        kres.update(p10_kres)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3193,6 +3668,10 @@ def main() -> int:
     # name -> (source, CUDA kernel, the TPU kernel it replaces)
     sources = {
         "flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_fwd_bound": ("flash_fwd.cu", "flash_fwd_kernel",
+                            "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_fwd_alibi": ("flash_fwd.cu", "flash_fwd_kernel",
+                            "liteattention_tpu/ops/flash_fwd.py:84"),
         "schedule_pack": ("schedule_pack.cu", "pack_schedule_kernel",
                           "liteattention_tpu/ops/schedule_pack.py:52"),
         "lite_flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel",
@@ -3238,6 +3717,7 @@ def main() -> int:
     log(f"wan i2v: {json.dumps(i2v_stats)}")
     log(f"wan two-expert: {json.dumps(two_expert_stats)}")
     log(f"wan training and calibration: {json.dumps(wan_train_stats)}")
+    log(f"alibi and padded-batch serving: {json.dumps(p10_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,10 +1,14 @@
 """Model library: the Wan video DiT (text- and image-to-video) and its
-denoising pipelines; the GPT family and its per-family configurations.
+denoising pipelines; the GPT family and its per-family configurations; the
+BERT encoder.
 Sparse-against-dense quality (``models.eval``) and threshold calibration
 (``models.calibrate``) are submodules, not exported here, as in JAX."""
 
+from liteattention_torch.models.bert import BertConfig, BertForPreTraining, BertModel
 from liteattention_torch.models.configs import (
+    baichuan_config,
     bigcode_config,
+    btlm_config,
     falcon_config,
     gpt2_config,
     gpt_neox_config,
@@ -53,4 +57,9 @@ __all__ = [
     "falcon_config",
     "llama_config",
     "bigcode_config",
+    "baichuan_config",
+    "btlm_config",
+    "BertConfig",
+    "BertModel",
+    "BertForPreTraining",
 ]

@@ -1,9 +1,11 @@
 """Model-family configs on the GPT backbone.
 
 Counterpart of ``liteattention_tpu/models/configs.py``: each constructor
-encodes one family's geometry as a :class:`GPTConfig`. They are only
-data; the model raises on the features it does not take yet (ALiBi for
-Baichuan-13B and BTLM).
+encodes one family's geometry as a :class:`GPTConfig`, equal to JAX's for
+the same arguments. ``baichuan_config`` keeps JAX's ``ffn_dim`` rounding
+(``int(dim * 8 / 3) // 128 * 128``: 13 568 at dim 5120, where
+Baichuan2-13B-Base's ``intermediate_size`` is 13 696); pass ``ffn_dim`` to
+``dataclasses.replace`` for the published width.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Flax ``Dense`` kernels are ``[in, out]`` and become ``[out, in]`` Linear
 weights; ``scale`` (norms) and ``embedding`` (``nn.Embed``) become
-``weight``; ``block_i`` becomes ``blocks.i``; every other leaf keeps its
-name (``bias``, ``norm1_scale``, ``ln_f_bias``, ...). Tensors come back
+``weight``; ``block_i`` (GPT) becomes ``blocks.i`` and ``layer_i`` (BERT)
+``layers.i``; every other leaf keeps its name (``bias``, ``norm1_scale``,
+``ln_f_bias``, ...). Tensors come back
 fp32 on the CPU; ``load_state_dict`` casts them to each parameter's dtype
 and device.
 """
@@ -25,8 +26,9 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 
     def walk(tree, prefix):
         for name, val in tree.items():
-            if name.startswith("block_"):
-                name = "blocks." + name[len("block_"):]
+            stack, _, idx = name.partition("_")
+            if stack in ("block", "layer") and idx.isdigit():
+                name = f"{stack}s.{idx}"
             if isinstance(val, dict):
                 walk(val, f"{prefix}{name}.")
                 continue

@@ -4,7 +4,9 @@ Counterpart of ``liteattention_tpu/models/gpt.py`` (``GPTConfig``,
 ``GPTModel``, ``GPTLMHeadModel``, ``gpt_loss_fn``). One configurable
 backbone: learned positions, GQA, plain or gated MLP, pre-norm with an
 fp32 residual stream, post-norm (OPT-350m, with projected embeddings),
-the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head.
+the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head, ALiBi
+positions (Baichuan-13B, BTLM; inference only: B1's ALiBi channel has no
+backward yet, so a gradient through it raises).
 Parameters are fp32 and every product runs in ``cfg.dtype``; the
 embedding is looked up in ``cfg.dtype``, the tied head computes
 ``hidden @ wte.T`` in ``cfg.dtype`` and the logits come back fp32, as in
@@ -17,9 +19,10 @@ Decoding: ``forward(input_ids, inference_params)`` threads an
 the blocks (learned positions and rotary start at its
 ``seqlen_offset``); ``GPTLMHeadModel.generate`` runs
 :func:`~liteattention_torch.utils.generation.greedy_decode`, whose
-single-token steps go through the decode kernel B8.
+single-token steps go through the decode kernel B8 (with ALiBi, as every
+multi-token step, through B1 over the cache with a per-batch bound).
 
-Not ported yet (the model raises on them): ALiBi, MoE, dropout; the
+Not ported yet (the model raises on them): MoE, dropout; the
 tensor-parallel forward is left out.
 """
 
@@ -104,7 +107,6 @@ class GPTConfig:
 
 def _check_supported(cfg: GPTConfig) -> None:
     unported = {
-        "use_alibi": cfg.use_alibi,
         "moe_experts": cfg.moe_experts > 0,
         "dropout": cfg.dropout > 0.0,
     }
@@ -120,8 +122,8 @@ def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
         qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias,
         softmax_scale=1.0 / head_dim if cfg.scale_qk_dot_by_d else None,
         rotary_emb_dim=cfg.rotary_emb_dim, rotary_emb_base=cfg.rotary_emb_base,
-        rotary_emb_interleaved=cfg.rotary_emb_interleaved, layer_idx=layer_idx,
-        dtype=cfg.dtype, device=device,
+        rotary_emb_interleaved=cfg.rotary_emb_interleaved, use_alibi=cfg.use_alibi,
+        layer_idx=layer_idx, dtype=cfg.dtype, device=device,
     )
     ffn = cfg.ffn_dim or 4 * cfg.dim
     if cfg.gated_mlp:

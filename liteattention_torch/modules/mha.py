@@ -8,26 +8,30 @@ the attention and back through ``out_proj``.
 
 * Training / full forward: causal
   :func:`~liteattention_torch.ops.flash_fwd.flash_attention` (kernel B1
-  forward, B7 backward).
+  forward, B7 backward). With ``use_alibi`` the forward takes B1's ALiBi
+  channel (:func:`~liteattention_torch.ops.flash_fwd.flash_attention_masked`
+  with :func:`alibi_slopes`), whose gradient raises (ROADMAP A11).
 * Decoding (``inference_params``): a cache per layer, keyed by
   ``layer_idx``, in the head-major layout ``[B, Hk, S_max, D]``. The new
   rows are written in place at ``seqlen_offset`` (quantized with the
-  frozen scales when the entry is int8). A single-token step goes to
+  frozen scales when the entry is int8). A single-token step without
+  ALiBi goes to
   :func:`~liteattention_torch.ops.flash_fwd.flash_attention_decode`
   (kernel B8) with the ``group`` q heads packed as rows over each KV head;
-  the cache is handed over as a strided view, never copied. Prefill and
-  multi-token steps run causal B1 over the cache prefix ``[:offset +
-  s_new]``: the bound is the same for every batch row, so bottom-right
-  causality against it is exactly causal attention on that prefix. B1
-  takes contiguous inputs, so the prefix is copied there (inference
-  only). A multi-token step on an int8 cache raises, as in JAX.
+  the cache is handed over as a strided view, never copied. Prefill,
+  multi-token steps and every ALiBi step run B1 over the whole cache with
+  the per-batch bound ``offset + s_new`` and ``bound_causal`` (JAX's
+  route): the walk stops at the bound's diagonal, so the keys past it cost
+  nothing and nothing is copied. A multi-token step on an int8 cache
+  raises, as in JAX.
 
-Not ported yet: cross-attention, ALiBi and attention dropout raise.
+Not ported yet: cross-attention and attention dropout raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -36,7 +40,7 @@ import torch.nn as nn
 from liteattention_torch.device import resolve_device
 from liteattention_torch.layers.rotary import RotaryEmbedding
 from liteattention_torch.modules.dense import Dense
-from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
 from liteattention_torch.ops.kv_quant import quantize_rows_native
 
 
@@ -54,6 +58,23 @@ class InferenceParams:
     def reset(self):
         self.seqlen_offset = 0
         self.key_value_memory_dict.clear()
+
+
+def alibi_slopes(nheads: int) -> torch.Tensor:
+    """The ALiBi slope of each head, fp32 ``[nheads]`` (JAX
+    ``modules/mha.py:alibi_slopes``): geometric from ``2^(-8/n)``; for a
+    head count that is not a power of two, the slopes of the power of two
+    below it, then every other slope of twice that count."""
+
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start**i) for i in range(n)]
+
+    if math.log2(nheads).is_integer():
+        return torch.tensor(pow2(nheads), dtype=torch.float32)
+    closest = 2 ** int(math.floor(math.log2(nheads)))
+    extra = pow2(2 * closest)[0::2][: nheads - closest]
+    return torch.tensor(pow2(closest) + extra, dtype=torch.float32)
 
 
 class MHA(nn.Module):
@@ -76,11 +97,8 @@ class MHA(nn.Module):
         device=None,
     ):
         super().__init__()
-        unported = {"dropout": dropout > 0.0, "use_alibi": use_alibi}
-        if any(unported.values()):
-            raise NotImplementedError(
-                f"MHA: {[k for k, v in unported.items() if v]} not ported yet"
-            )
+        if dropout > 0.0:
+            raise NotImplementedError("MHA: ['dropout'] not ported yet")
         device = resolve_device(device)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
@@ -88,6 +106,11 @@ class MHA(nn.Module):
         self.softmax_scale = softmax_scale
         self.causal = causal
         self.layer_idx = layer_idx
+        # The slopes as a buffer (None without ALiBi), so no step copies them
+        # from the host.
+        self.register_buffer(
+            "alibi", alibi_slopes(num_heads).to(device) if use_alibi else None, persistent=False
+        )
         self.rotary = (
             RotaryEmbedding(rotary_emb_dim, rotary_emb_base, rotary_emb_interleaved)
             if rotary_emb_dim > 0 else None
@@ -107,9 +130,9 @@ class MHA(nn.Module):
         if self.rotary is not None:
             q, k = self.rotary(q, k, seqlen_offset=offset)
         if inference_params is None:
-            out = flash_attention(
+            out = flash_attention_masked(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                scale=self.softmax_scale, causal=self.causal,
+                alibi_slopes=self.alibi, scale=self.softmax_scale, causal=self.causal,
             )
         else:
             out = self._decode(q, k, v, inference_params, offset)
@@ -137,8 +160,8 @@ class MHA(nn.Module):
         kc[:, :, offset : offset + s_new] = kn
         vc[:, :, offset : offset + s_new] = vn
         qh = q.transpose(1, 2)
-        if s_new == 1:
-            bound = torch.full((b,), offset + 1, dtype=torch.int32, device=q.device)
+        bound = torch.full((b,), offset + s_new, dtype=torch.int32, device=q.device)
+        if s_new == 1 and self.alibi is None:
             out, _ = flash_attention_decode(
                 qh, kc.transpose(1, 2), vc.transpose(1, 2), kv_bound=bound,
                 scale=self.softmax_scale,
@@ -148,14 +171,13 @@ class MHA(nn.Module):
             return out
         if quantized:
             raise NotImplementedError(
-                "MHA: the int8 decode cache takes single-token steps only "
+                "MHA: the int8 decode cache takes single-token steps without ALiBi only "
                 "(quantize after prefill)"
             )
-        total = offset + s_new
-        return flash_attention(
-            qh, kc[:, :, :total], vc[:, :, :total], scale=self.softmax_scale,
-            causal=self.causal,
+        return flash_attention_masked(
+            qh, kc, vc, kv_bound=bound, alibi_slopes=self.alibi, scale=self.softmax_scale,
+            bound_causal=self.causal,
         )
 
 
-__all__ = ["MHA", "InferenceParams"]
+__all__ = ["MHA", "InferenceParams", "alibi_slopes"]

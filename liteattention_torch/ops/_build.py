@@ -40,6 +40,7 @@ SIGNATURES = {
     "lite_flash_decode": [_P] * 11 + ([_I] * 3 + [_L] * 3 + [_I]) * 2 + [_I] * 14
     + [_F, _F, _I, _P],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "lite_flash_fwd_masked": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "lite_flash_fwd_mla": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "lite_mla_decode": [_P] * 9 + [_L] * 2 + [_I] * 14 + [_F, _I, _P],
     "lite_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P],

@@ -14,6 +14,31 @@
 // DV] in bf16, lse fp32 natural log; a row with no valid key gets out 0,
 // lse -inf.
 //
+// B1's per-batch channels (the JAX kernel's has_bound, bound_causal, has_low
+// and has_alibi; dense walk at (DK, DV) = (64, 64) or (128, 128)): the keys
+// of batch b are [kv_low[b], min(Sk, kv_bound[b])), with bound_causal the
+// diagonal at kv_bound[b] - Sq (the smaller of the two offsets when causal
+// too); with ALIBI the scores take -slope[b, h] log2(e) |row + Sk - Sq -
+// col| in log2 units. Bound and low are runtime data, uniform over a CTA
+// (its batch is blockIdx.z): the CTA reads them once into a KeyRange, walks
+// only the tiles [low / 128, the last the limit and its diagonal reach),
+// and masks per element only the tiles that cross the start, the limit or
+// the diagonal. Without them the range is [0, Sk) at offset Sk - Sq, and
+// the outputs are bit for bit those of the kernel without the channels.
+// bound_causal without causal runs the CAUSAL instantiation at the bound's
+// offset. ALiBi costs an FFMA a score on every tile, so it is a template
+// flag (the dense walk's only): its tiles scale to log2 units first, as the
+// JAX kernel does, and subtract the bias, then mask; the exp2 then takes
+// scale 1. The bias is JAX's: slope |row + Sk - Sq - col| (under either
+// diagonal a visible key's distance is >= 0, so |.| always). With
+// bound_causal every visible key of batch b is at least shift = Sk -
+// kv_bound[b] away (a KV cache's unused tail), and JAX's scores carry that
+// per-row constant: at a 2048-key cache half full it is ~1200 in log2
+// units, where fp32 keeps 2^-13: with it, Baichuan2-13B's geometry (random
+// weights, 40 layers, an H100) decoded 2.1e-2 from a full recompute, and
+// 4.1e-3 without it. So the kernel subtracts slope (|dist| - shift), which
+// leaves every output the same, and takes slope shift off lse at the end.
+//
 // What bounds it on the H100: tensor-core issue (4 D FLOPs per (q row, key)
 // pair; each K/V byte loaded feeds 128 q rows), and close behind it the
 // MUFU: a 128 x 128 tile at D 128 is 8.4 MFLOP, ~1.1 us of one SM's tensor
@@ -143,6 +168,18 @@ struct Params {
   int qsub, ksub, sched_q, sched_k, vote_q, vote_k;
 };
 
+// B1's per-batch channels (the dense walk; null when absent): keys
+// [kv_low[b], kv_bound[b]), the diagonal at kv_bound[b] - Sq with
+// bound_causal (alone, without causal, when bound_only), ALiBi slopes [B, H]
+// (ALIBI). A kernel argument of their own: grown by these fields, Params
+// cost the list walk (B3) 9 registers and 5 % on an H100 (A/B of the two layouts).
+struct Channels {
+  const int* kv_bound;
+  const int* kv_low;
+  const float* alibi;
+  int bound_causal, bound_only;
+};
+
 // Keys per k-tile and ring depth of the (DK, DV) instantiation. (192, 128)
 // takes two 128-key stages with split barriers; 64-key tiles in three
 // stages (kKeys 64 there: the helpers take either) ran slower on the H100.
@@ -169,25 +206,64 @@ struct Smem {
   static constexpr int bytes = bars + (4 * T::kStages + 1) * 8;
 };
 
+// The diagonal offset of "no diagonal" (bound_causal's offset replaces it).
+constexpr int kNoDiag = 1 << 29;
+
+// The keys of a CTA, uniform over it: [low, lim), and with CAUSAL those at
+// most row + diag. Without B1's channels [0, Sk) at diag Sk - Sq. shift:
+// the least ALiBi distance of a visible key, Sk - kv_bound[b] with
+// bound_causal (else 0).
+struct KeyRange {
+  int low, lim, diag, shift;
+};
+
+// Read once per CTA; each field goes through lane 0 so that the compiler
+// sees it warp-uniform (the walk's length and TMA's coordinates derive from
+// it).
+__device__ __forceinline__ KeyRange key_range(const Params& p, const Channels& c, int b) {
+  KeyRange r{0, p.seqlen_k, c.bound_only ? kNoDiag : p.causal_offset, 0};
+  if (c.kv_bound != nullptr) {
+    const int bound = __ldg(c.kv_bound + b);
+    r.lim = min(r.lim, max(bound, 0));
+    if (c.bound_causal) {
+      r.diag = min(r.diag, bound - p.seqlen_q);
+      r.shift = max(p.seqlen_k - bound, 0);
+    }
+  }
+  if (c.kv_low != nullptr) r.low = max(__ldg(c.kv_low + b), 0);
+  r.low = __shfl_sync(0xffffffffu, r.low, 0);
+  r.lim = __shfl_sync(0xffffffffu, r.lim, 0);
+  r.diag = __shfl_sync(0xffffffffu, r.diag, 0);
+  r.shift = __shfl_sync(0xffffffffu, r.shift, 0);
+  return r;
+}
+
 // The k-tiles a CTA visits, in order: n >= 1 of them, so that every wgmma
 // of the mainloop is issued outside a branch (ptxas serialises wgmmas in a
-// path it cannot prove uniform). The dense walk: tile j = j for j < n, n
-// ending at the last tile the q-tile's last row reaches when causal; a
-// q-tile whose rows see no key still visits tile 0, where the mask hides
-// every key (out 0, lse -inf).
+// path it cannot prove uniform). The dense walk: tile first + j for j < n,
+// from the tile that holds the range's first key to the last tile its limit
+// and (CAUSAL) the q-tile's last row reach; a q-tile whose rows see no key
+// visits tile 0 with its range's limit set to 0, so that every key is
+// hidden (out 0, lse -inf). (Not a dead flag, as the sparse walks keep: a
+// flag tested on every masked score cost causal B1 7 % at GPT-2 small on an
+// H100.)
 struct DenseWalk {
-  int n;
+  int first, n;
   static constexpr bool dead = false;
-  __device__ __forceinline__ int tile(int j) const { return j; }
+  __device__ __forceinline__ int tile(int j) const { return first + j; }
 };
 
 template <bool CAUSAL, int KEYS>
-__device__ __forceinline__ DenseWalk dense_walk(const Params& p, int q0) {
+__device__ __forceinline__ DenseWalk dense_walk(int q0, KeyRange& r) {
+  int end = (r.lim + KEYS - 1) / KEYS;
   if constexpr (CAUSAL) {
-    const int last = q0 + kRowsQ - 1 + p.causal_offset;  // the last row's last key
-    return {min(p.ktiles, max(last, 0) / KEYS + 1)};
+    const int last = q0 + kRowsQ - 1 + r.diag;  // the last row's last key
+    end = min(end, last < 0 ? 0 : last / KEYS + 1);
   }
-  return {p.ktiles};
+  const int first = r.low / KEYS;
+  if (end > first) return {first, end - first};
+  r.lim = 0;
+  return {0, 1};
 }
 
 // The list walk of row (b, h, q-tile): entries fidx[0 .. n), n >= 1; a
@@ -378,38 +454,62 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pf
   sm90::wgmma_commit();
 }
 
-// Tile `tile`'s scores, masked only on the ragged tile, on tiles that cross
-// this warp's diagonal and on a dead row's tile, then `vote` with the rows'
-// maxima in log2 space before the running max absorbs them, then folded
-// into the running row state; they stay raw until softmax_rows takes them
-// to log2 space inside each exp2's FFMA (one instruction a score fewer than
-// scaling first). alpha is the accumulator's rescale.
-template <bool CAUSAL, int NB, typename Vote>
-__device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p, int tile, bool dead,
+// Tile `tile`'s scores, masked only on tiles that cross the range's start
+// or limit (the dense walk's; the sparse walks' range is [0, Sk), read from
+// the params), on tiles that cross this warp's diagonal and on a dead row's
+// tile, then `vote` with the rows' maxima in log2 space before the running
+// max absorbs them, then folded into the running row state; they stay raw
+// until softmax_rows takes them to log2 space inside each exp2's FFMA (one
+// instruction a score fewer than scaling first). With ALIBI (slope_log2 =
+// slope log2(e)) they go to log2 space first and take the bias there. alpha
+// is the accumulator's rescale.
+template <bool CAUSAL, bool DENSE, bool ALIBI, int NB, typename Vote>
+__device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p, const KeyRange& r,
+                                             float slope_log2, int tile, bool dead,
                                              int warp_row0, int r_lo, int r_hi, float& m_lo,
                                              float& m_hi, float& l_lo, float& l_hi,
                                              float& alpha_lo, float& alpha_hi, Vote&& vote) {
   constexpr int kKeys = 8 * NB;
   const int col0 = tile * kKeys;
-  const bool mask = dead || col0 + kKeys > p.seqlen_k ||
-                    (CAUSAL && col0 + kKeys - 1 > warp_row0 + p.causal_offset);
+  if constexpr (ALIBI) {
+    const int t = threadIdx.x % 4;
+    const int d_lo = r_lo + p.causal_offset - col0 - 2 * t;  // the distance to key col0 + 2 t
+    const int d_hi = d_lo + 8;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int dist = abs((e >= 2 ? d_hi : d_lo) - 8 * nb - (e & 1)) - r.shift;
+        s[nb][e] = fmaf(s[nb][e], p.scale_log2, -slope_log2 * static_cast<float>(dist));
+      }
+    }
+  }
+  const float scale = ALIBI ? 1.f : p.scale_log2;
+  const int lim = DENSE ? r.lim : p.seqlen_k;
+  const int diag = DENSE ? r.diag : p.causal_offset;
+  const bool mask = dead || col0 + kKeys > lim || (DENSE && col0 < r.low) ||
+                    (CAUSAL && col0 + kKeys - 1 > warp_row0 + diag);
   float mx_lo, mx_hi;
   mask_scores(
       s, 1.f, mask, col0,
       [&](int col, bool hi) {
-        return dead || key_masked<CAUSAL>(col, hi ? r_hi : r_lo, p.seqlen_k, p.causal_offset);
+        const int row = hi ? r_hi : r_lo;
+        if constexpr (DENSE) return dead || key_masked<CAUSAL>(col, row, lim, diag, r.low);
+        return dead || key_masked<CAUSAL>(col, row, lim, diag);
       },
       mx_lo, mx_hi);
-  vote(mx_lo * p.scale_log2, mx_hi * p.scale_log2);
-  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
+  vote(mx_lo * scale, mx_hi * scale);
+  softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, scale);
 }
 
-template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD>
+template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD, bool ALIBI>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_o, const Params p) {
+                     const __grid_constant__ CUtensorMap tm_o, const Params p,
+                     const Channels c) {
+  constexpr bool DENSE = WALK == kDense;
   constexpr bool LIST = WALK == kList;
   constexpr bool COARSE = WALK == kCoarse || WALK == kSuper;
   constexpr bool SUPER = WALK == kSuper;
@@ -428,6 +528,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(WALK == kDense || !CAUSAL, "the sparse walks are not causal");
   static_assert(WALK == kDense || (DK == DV && kKeys == 128 && !SPLIT),
                 "the sparse walks visit 128-key fine tiles through a ring of three");
+  static_assert(!ALIBI || (WALK == kDense && DK == DV), "ALiBi is a channel of the dense walk");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -443,8 +544,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int fold = FOLD ? p.fold : 1;
   const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
-  // The dense walk: its tiles and (b, kv head), uniform over the CTA.
-  const int n_dense = WALK == kDense ? dense_walk<CAUSAL, kKeys>(p, q0).n : 0;
+  // The dense walk: its keys, tiles and (b, kv head), uniform over the CTA.
+  KeyRange range = DENSE ? key_range(p, c, b) : KeyRange{};
+  const DenseWalk dwalk = DENSE ? dense_walk<CAUSAL, kKeys>(q0, range) : DenseWalk{};
+  const int n_dense = dwalk.n;
+  const int k0 = dwalk.first;  // the dense walk's first tile
+  const float slope = ALIBI ? __ldg(c.alibi + b * p.heads + h0) : 0.f;
+  const float slope_log2 = slope * 1.4426950408889634f;
   const int bhk0 = b * p.kv_heads + h0 / (p.heads / p.kv_heads);
   ListFeed feed;
   feed.hl = 0;
@@ -489,13 +595,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     } else if constexpr (SPLIT) {
       for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
         sm90::mbar_expect_tx(&full[j], L::kK);
-        load_k<DK, DV>(tm_k, smem, &full[j], j, j, bhk0);
+        load_k<DK, DV>(tm_k, smem, &full[j], j, k0 + j, bhk0);
         sm90::mbar_expect_tx(&vfull[j], L::kV);
-        load_v<DK, DV>(tm_v, smem, &vfull[j], j, j, bhk0);
+        load_v<DK, DV>(tm_v, smem, &vfull[j], j, k0 + j, bhk0);
       }
     } else {
       for (int j = 0; j < kStages && j < n_dense; ++j) {  // n_dense >= 1
-        load_tile<DK, DV>(tm_k, tm_v, smem, full, j, j, bhk0);
+        load_tile<DK, DV>(tm_k, tm_v, smem, full, j, k0 + j, bhk0);
       }
     }
   }
@@ -523,10 +629,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Thread 0 refills tile f - 1's stage (all eight warps released it at the
   // end of their step f - 1) with the next tile of the CTA's flat walk: on
-  // the dense walk tile f - 1 + kStages, from uniform values (TMA takes its
-  // coordinates in uniform registers). The split ring: K of tile f + 2 into
-  // tile f's stage (every warp's S_f has read it), V of tile f + 1 into tile
-  // f - 1's (every warp's P_{f-1} V_{f-1} has read it).
+  // the dense walk step f - 1 + kStages (tile k0 + f - 1 + kStages), from
+  // uniform values (TMA takes its coordinates in uniform registers). The
+  // split ring: K of step f + 2 into step f's stage (every warp's S_f has
+  // read it), V of step f + 1 into step f - 1's (every warp's P_{f-1}
+  // V_{f-1} has read it).
   auto refill = [&](int f) {
     const int free = (f - 1) % kStages;
     if constexpr (LIST) {
@@ -546,16 +653,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ct == 0 && f + 2 < n_dense) {
         sm90::mbar_wait(&empty[f % 2], (f / 2) & 1);
         sm90::mbar_expect_tx(&full[f % 2], L::kK);
-        load_k<DK, DV>(tm_k, smem, &full[f % 2], f % 2, f + 2, bhk0);
+        load_k<DK, DV>(tm_k, smem, &full[f % 2], f % 2, k0 + f + 2, bhk0);
       }
       if (ct == 0 && f > 0 && f + 1 < n_dense) {
         sm90::mbar_wait(&vempty[free], ((f - 1) / 2) & 1);
         sm90::mbar_expect_tx(&vfull[free], L::kV);
-        load_v<DK, DV>(tm_v, smem, &vfull[free], free, f + 1, bhk0);
+        load_v<DK, DV>(tm_v, smem, &vfull[free], free, k0 + f + 1, bhk0);
       }
     } else if (ct == 0 && f > 0 && f - 1 + kStages < n_dense) {
       sm90::mbar_wait(&empty[free], ((f - 1) / kStages) & 1);
-      load_tile<DK, DV>(tm_k, tm_v, smem, full, free, f - 1 + kStages, bhk0);
+      load_tile<DK, DV>(tm_k, tm_v, smem, full, free, k0 + f - 1 + kStages, bhk0);
     }
   };
   int f_head = 0;  // the head's first tile in the CTA's flat walk
@@ -570,7 +677,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else if constexpr (COARSE) {
         return cwalk;
       } else {
-        return dense_walk<CAUSAL, kKeys>(p, q0);
+        return dwalk;
       }
     }();
     if (FOLD && hl > 0) {
@@ -647,8 +754,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sd);
     if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[0]);  // this warp is done with K_0
-    tile_softmax<CAUSAL>(s, p, tile0, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                         alpha_lo, alpha_hi, first_vote);
+    tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile0, walk.dead, warp_row0, r_lo,
+                                       r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
+                                       first_vote);
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
     int tile_next = 0;
@@ -660,7 +768,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int next = (f + 1) % kStages;
       // Entry j + 1; j + 2 is read a step ahead (the coarse walks step
       // their place under the products).
-      const int tile = LIST ? tile_next : COARSE ? cpos.tile : j + 1;
+      const int tile = LIST ? tile_next : COARSE ? cpos.tile : k0 + j + 1;
       if constexpr (LIST) tile_next = j + 2 < walk.n ? walk.tile(j + 2) : 0;
       const CoarsePos at = cpos;
       if (VOTES && (COARSE ? at.start : gpos == 0)) {  // a vote step starts: snapshot m_prev
@@ -679,18 +787,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sd);
       if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[next]);  // this warp is done with K_{j+1}
-      tile_softmax<CAUSAL>(s, p, tile, walk.dead, warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
-                           alpha_lo, alpha_hi, [&](float mx_lo, float mx_hi) {
-                             if constexpr (COARSE) {
-                               coarse_vote(at, mx_lo, mx_hi);
-                             } else if constexpr (VOTES) {
-                               // Some valid row of this warp passes: the tile is kept.
-                               // Bitwise, not short-circuit: no branch on the way.
-                               const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
-                                                 ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
-                               if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
-                             }
-                           });
+      auto vote = [&](float mx_lo, float mx_hi) {
+        if constexpr (COARSE) {
+          coarse_vote(at, mx_lo, mx_hi);
+        } else if constexpr (VOTES) {
+          // Some valid row of this warp passes: the tile is kept.
+          // Bitwise, not short-circuit: no branch on the way.
+          const bool keep = ((r_lo < p.seqlen_q) & (mx_lo - mv_lo > p.thr)) |
+                            ((r_hi < p.seqlen_q) & (mx_hi - mv_hi > p.thr));
+          if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
+        }
+      };
+      tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile, walk.dead, warp_row0,
+                                         r_lo, r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
+                                         vote);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(od);
       sm90::fence_regs(pf);
@@ -716,6 +826,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // one TMA store per 64-value atom; lse from each quad's first lane.
     float inv_lo, inv_hi, lse_lo, lse_hi;
     finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
+    if constexpr (ALIBI) {  // the scores left out slope * shift (tile_softmax)
+      lse_lo -= slope * range.shift;
+      lse_hi -= slope * range.shift;
+    }
     unsigned char* ob = smem + L::q + 64 * wg * 128;
     const int orow = 16 * warp + g;
 #pragma unroll
@@ -746,10 +860,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Tensor maps of q, k, v and out, then one launch of instantiation <DK, DV,
-// CAUSAL, WALK, VOTES, FOLD> over (q-tiles, heads / fold, batch).
-template <int DK, int DV, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false>
+// CAUSAL, WALK, VOTES, FOLD, ALIBI> over (q-tiles, heads / fold, batch).
+template <int DK, int DV, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false,
+          bool ALIBI = false>
 cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p, int batch,
-                float scale, cudaStream_t stream) {
+                float scale, cudaStream_t stream, const Channels& c = Channels{}) {
   constexpr int keys = Tiles<DK, DV>::kKeys;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   const int bh = batch * p.heads, bhk = batch * p.kv_heads;
@@ -764,13 +879,13 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
   p.ktiles = (p.seqlen_k + keys - 1) / keys;
   p.causal_offset = p.seqlen_k - p.seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = flash_fwd_kernel<DK, DV, CAUSAL, WALK, VOTES, FOLD>;
+  auto kernel = flash_fwd_kernel<DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI>;
   constexpr int smem = Smem<DK, DV>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int fold = FOLD ? p.fold : 1;
   kernel<<<dim3(p.qtiles, p.heads / fold, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
-                                                                            tm_o, p);
+                                                                            tm_o, p, c);
   return cudaGetLastError();
 }
 
@@ -788,17 +903,30 @@ cudaError_t run_coarse(const void* q, const void* k, const void* v, void* out, c
                            : run<D, D, false, kCoarse, true>(q, k, v, out, p, batch, scale, stream);
 }
 
+// The dense walk at (D, D), with or without the ALiBi bias.
+template <int D, bool CAUSAL>
+cudaError_t run_dense(const void* q, const void* k, const void* v, void* out, const Params& p,
+                      const Channels& c, int batch, float scale, cudaStream_t stream) {
+  if (c.alibi != nullptr) {
+    return run<D, D, CAUSAL, kDense, false, false, true>(q, k, v, out, p, batch, scale, stream, c);
+  }
+  return run<D, D, CAUSAL>(q, k, v, out, p, batch, scale, stream, c);
+}
+
 }  // namespace fwd
 }  // namespace lite
 
-// q [B, H, Sq, D], k and v [B, Hk, Sk, D], out [B, H, Sq, D], all bf16; lse
-// [B, H, Sq] fp32. Returns the CUDA error of the launch (0 = success).
-extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
-                                    const void* v, void* out, void* lse,
-                                    int batch, int heads, int kv_heads,
-                                    int seqlen_q, int seqlen_k, int head_dim,
-                                    float scale, int causal, int device,
-                                    void* stream) {
+// B1 with its per-batch channels: q [B, H, Sq, D], k and v [B, Hk, Sk, D],
+// out [B, H, Sq, D], all bf16 (D 64 or 128); lse [B, H, Sq] fp32; kv_bound
+// and kv_low [B] int32 or null; alibi [B, H] fp32 slopes or null. Keys of
+// batch b: [kv_low[b], min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq;
+// bound_causal (with kv_bound) bottom-right at kv_bound[b] - Sq. Returns the
+// CUDA error of the launch (0 = success).
+extern "C" int lite_flash_fwd_masked(const void* q, const void* k, const void* v, void* out,
+                                     void* lse, const void* kv_bound, const void* kv_low,
+                                     const void* alibi, int batch, int heads, int kv_heads,
+                                     int seqlen_q, int seqlen_k, int head_dim, float scale,
+                                     int causal, int bound_causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -809,16 +937,35 @@ extern "C" int lite_flash_fwd_dense(const void* q, const void* k,
   p.kv_heads = kv_heads;
   p.seqlen_q = seqlen_q;
   p.seqlen_k = seqlen_k;
+  Channels c{};
+  c.kv_bound = static_cast<const int*>(kv_bound);
+  c.kv_low = static_cast<const int*>(kv_low);
+  c.alibi = static_cast<const float*>(alibi);
+  c.bound_causal = bound_causal != 0 && kv_bound != nullptr;
+  const bool diag = causal != 0 || c.bound_causal;  // the CAUSAL instantiation
+  c.bound_only = diag && causal == 0;
   if (head_dim == 64) {
-    err = causal ? run<64, 64, true>(q, k, v, out, p, batch, scale, s)
-                 : run<64, 64, false>(q, k, v, out, p, batch, scale, s);
+    err = diag ? run_dense<64, true>(q, k, v, out, p, c, batch, scale, s)
+               : run_dense<64, false>(q, k, v, out, p, c, batch, scale, s);
   } else if (head_dim == 128) {
-    err = causal ? run<128, 128, true>(q, k, v, out, p, batch, scale, s)
-                 : run<128, 128, false>(q, k, v, out, p, batch, scale, s);
+    err = diag ? run_dense<128, true>(q, k, v, out, p, c, batch, scale, s)
+               : run_dense<128, false>(q, k, v, out, p, c, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// B1 without the channels (the entry b1_ablation.py times): q [B, H, Sq, D],
+// k and v [B, Hk, Sk, D], out [B, H, Sq, D], all bf16; lse [B, H, Sq] fp32.
+// Returns the CUDA error of the launch (0 = success).
+extern "C" int lite_flash_fwd_dense(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int batch, int heads, int kv_heads, int seqlen_q,
+                                    int seqlen_k, int head_dim, float scale, int causal,
+                                    int device, void* stream) {
+  return lite_flash_fwd_masked(q, k, v, out, lse, nullptr, nullptr, nullptr, batch, heads,
+                               kv_heads, seqlen_q, seqlen_k, head_dim, scale, causal, 0, device,
+                               stream);
 }
 
 // B3 / B5: q [B, H, Sq, D], k and v [B, Hk, Sk, D] (or the union-compacted

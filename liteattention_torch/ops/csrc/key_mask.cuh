@@ -8,11 +8,20 @@ namespace lite {
 
 // Key `key` is hidden from q row `row`: past Sk, or, with CAUSAL, above the
 // bottom-right-aligned diagonal (causal_offset = Sk - Sq, key valid iff
-// key <= row + causal_offset). Later mask channels (window, ALiBi bounds,
-// segments) add their tests here.
+// key <= row + causal_offset). Later mask channels (window, segments) add
+// their tests here.
 template <bool CAUSAL>
 __device__ __forceinline__ bool key_masked(int key, int row, int seqlen_k, int causal_offset) {
   return key >= seqlen_k || (CAUSAL && key > row + causal_offset);
+}
+
+// The same with B1's per-batch channels: the key limit min(Sk, kv_bound[b]),
+// the diagonal at kv_bound[b] - Sq with bound_causal, and keys before
+// kv_low[b] hidden too. (B7 takes the four-argument test until it takes
+// these channels.)
+template <bool CAUSAL>
+__device__ __forceinline__ bool key_masked(int key, int row, int lim, int diag, int low) {
+  return key_masked<CAUSAL>(key, row, lim, diag) || key < low;
 }
 
 }  // namespace lite

@@ -17,10 +17,18 @@ of kernels B7a/B7b (:mod:`liteattention_torch.ops.flash_bwd`); the lse
 cotangent is ignored, as in the JAX ``custom_vjp``.
 
 Takes bf16 on the card (any float dtype on the CPU), head dim 64 or 128,
-GQA, causal or not. The other JAX mask channels (segments, bound/low,
-window, softcap, ALiBi, dropout) are not ported and raise. The
-wrapper runs the plain PyTorch version for CPU tensors and the kernel for
-CUDA tensors.
+GQA, causal or not. The wrapper runs the plain PyTorch version for CPU
+tensors and the kernel for CUDA tensors.
+
+:func:`flash_attention_masked` adds B1's per-batch channels, forward only:
+the key range ``[kv_low[b], kv_bound[b])`` with ``bound_causal`` (bottom-
+right causality against the bound: KV caches, right-padded batches) and
+the ALiBi bias (``alibi_slopes`` ``[H]`` or ``[B, H]``), on the same kernel
+(entry ``lite_flash_fwd_masked``; launches counted in
+``flash_attention.bound_launches``, and with ALiBi in
+``flash_attention.alibi_launches``). Their gradient raises: B7's channels
+are ROADMAP A11. The other JAX mask channels (segments, window, softcap,
+dropout) are not ported and raise.
 
 MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
 ``qv . v`` to the scores -- are forward only, as in JAX (entry
@@ -70,32 +78,61 @@ def flash_attention_plain(
     scale: Optional[float] = None,
     causal: bool = False,
     qv: Optional[torch.Tensor] = None,
+    kv_bound: Optional[torch.Tensor] = None,
+    kv_low: Optional[torch.Tensor] = None,
+    bound_causal: bool = False,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel: fp32 scores, exact softmax in
     log2 space (the kernel's and the plain lite version's form).
 
     ``q`` ``[B, H, Sq, D]``, ``k`` ``[B, Hk, Sk, D]``, ``v`` ``[B, Hk, Sk,
     Dv]``; with ``qv`` ``[B, H, Sq, Dv]`` the scores are ``q . k + qv .
-    v``. Returns (out ``[B, H, Sq, Dv]`` in q's dtype, lse fp32 natural
-    log). A row with no valid key (causal with Sq > Sk) gives out 0 and lse
-    -inf. Query rows are processed in chunks so long sequences fit in
-    memory.
+    v``. B1's channels as :func:`flash_attention_masked` takes them: keys
+    ``col < kv_bound[b]`` (``col < kv_bound[b] - Sq + row + 1`` with
+    ``bound_causal``) and ``col >= kv_low[b]``; ALiBi subtracts ``slope *
+    log2(e) * dist`` from the log2-space scores, ``dist = row + Sk - Sq -
+    col`` (``|dist|`` unless ``causal``), as the JAX kernel does, less the
+    constant ``shift = Sk - kv_bound[b]`` with ``bound_causal`` (no visible
+    key is nearer: the kernel's form, which keeps the scores over a large,
+    mostly empty cache precise in fp32), which is added back to lse. Returns
+    (out ``[B, H, Sq, Dv]`` in q's dtype, lse fp32 natural log). A row with
+    no valid key gives out 0 and lse -inf. Query rows are processed in
+    chunks so long sequences fit in memory.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    sq, sk = q.shape[2], k.shape[2]
-    group = q.shape[1] // k.shape[1]
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    group = h // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
+    col = torch.arange(sk, device=q.device)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(q.device, torch.float32).reshape(-1, h).expand(b, h)
+        shift = torch.zeros(b, 1, 1, 1, device=q.device)
+        if kv_bound is not None and bound_causal:
+            shift = (sk - kv_bound.to(q.device)).clamp_min(0).float().reshape(b, 1, 1, 1)
+        lse_shift = slopes[:, :, None, None] * shift
+        slopes = (slopes * LOG2E)[:, :, None, None]
     outs, lses = [], []
     for q0 in range(0, sq, PLAIN_Q_CHUNK):
         qf = q[:, :, q0 : q0 + PLAIN_Q_CHUNK].float()
+        row = torch.arange(q0, q0 + qf.shape[2], device=q.device)[:, None]
         s = torch.matmul(qf, kf.transpose(-1, -2))
         if qv is not None:
             s = s + torch.matmul(qv[:, :, q0 : q0 + PLAIN_Q_CHUNK].float(), vf.transpose(-1, -2))
         s = s * (scale * LOG2E)
+        if alibi_slopes is not None:
+            dist = (row + (sk - sq) - col).float()
+            s = s - slopes * ((dist if causal else dist.abs()) - shift)
         if causal:
             s = s.masked_fill(causal_mask(q0, qf.shape[2], sq, sk, q.device), -torch.inf)
+        if kv_bound is not None:
+            end = kv_bound.to(q.device).reshape(-1, 1, 1, 1)
+            s = s.masked_fill(col >= (end - sq + row + 1 if bound_causal else end), -torch.inf)
+        if kv_low is not None:
+            s = s.masked_fill(col < kv_low.to(q.device).reshape(-1, 1, 1, 1), -torch.inf)
         m = s.amax(dim=-1, keepdim=True)
         # A row with no valid key: every p is 0, not exp2 of the mask.
         p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
@@ -103,6 +140,8 @@ def flash_attention_plain(
         live = l > 0
         outs.append((torch.matmul(p, vf) / torch.where(live, l, 1.0)).to(q.dtype))
         lse = torch.where(live, m * LN2 + torch.log(l), -torch.inf)
+        if alibi_slopes is not None:
+            lse = lse - lse_shift
         lses.append(lse[..., 0])
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
@@ -242,7 +281,11 @@ def _launch_mla(q, k, v, qv, scale, causal):
     return out, lse
 
 
-def _launch(q, k, v, scale, causal):
+def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=False,
+            alibi_slopes=None):
+    """B1 on the card, with or without its per-batch channels; one launch,
+    counted in ``flash_attention.launches``, ``.bound_launches`` (bound or
+    low) or ``.alibi_launches``."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -251,22 +294,62 @@ def _launch(q, k, v, scale, causal):
     if d not in (64, 128):
         raise ValueError(f"head dim {d} not built (64 or 128)")
     _build.check_aligned(q, k, v)
+
+    def per_batch(x):
+        return None if x is None else x.to(q.device, torch.int32).reshape(b).contiguous()
+
+    bound, low = per_batch(kv_bound), per_batch(kv_low)
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(q.device, torch.float32).reshape(-1, h).expand(b, h).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _build.load_kernels()
-    err = lib.lite_flash_fwd_dense(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, float(scale),
-        int(causal), q.device.index, _build.stream(q.device),
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    err = _build.load_kernels().lite_flash_fwd_masked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        ptr(bound), ptr(low), ptr(slopes), b, h, k.shape[1], sq, k.shape[2], d,
+        float(scale), int(causal), int(bound_causal), q.device.index, _build.stream(q.device),
     )
     _build.check(err, "flash_fwd")
-    flash_attention.launches += 1
+    if slopes is not None:
+        flash_attention.alibi_launches += 1
+    elif bound is not None or low is not None:
+        flash_attention.bound_launches += 1
+    else:
+        flash_attention.launches += 1
     return out, lse
 
 
 flash_attention.launches = 0
+flash_attention.bound_launches = 0
+flash_attention.alibi_launches = 0
 flash_attention.mla_launches = 0
 flash_attention.mla_v512_launches = 0
+
+
+class _FlashAttentionMasked(torch.autograd.Function):
+    """Forward through B1 with its per-batch channels (or the plain
+    version); B7 does not take them yet, so the backward raises, on the CPU
+    as on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bound, kv_low, alibi, scale, causal, bound_causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        channels = dict(kv_bound=kv_bound, kv_low=kv_low, bound_causal=bound_causal,
+                        alibi_slopes=alibi)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, scale, causal, **channels)
+        else:
+            out, lse = _launch(q, k, v, scale, causal, **channels)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        raise NotImplementedError(
+            "flash_attention_masked: kv_bound, kv_low and alibi_slopes are forward-only in "
+            "the port; their backward (B7's channels) is ROADMAP A11"
+        )
 
 
 def flash_attention_masked(
@@ -291,19 +374,25 @@ def flash_attention_masked(
     qv=None,
 ):
     """Counterpart of ``liteattention_tpu/ops/flash_fwd.py:
-    flash_attention_masked`` (same arguments). The port routes the plain
-    and causal forms to :func:`flash_attention` (kernel B1, with its
-    backward); every other mask channel raises ``NotImplementedError``
-    naming itself (ROADMAP A11), except ``qv`` and a V of its own head
-    dim, the MLA shapes of :func:`flash_attention`. ``block_sizes`` is a
-    tiling knob of the JAX kernel, accepted and ignored (B1 runs 128 x
-    128)."""
+    flash_attention_masked`` (same arguments). The plain and causal forms
+    go to :func:`flash_attention` (kernel B1, with its backward), and so do
+    ``qv`` and a V of its own head dim, the MLA shapes.
+
+    B1's per-batch channels run on the same kernel, forward only (a
+    gradient through them raises ``NotImplementedError``, ROADMAP A11):
+    ``kv_bound`` ``[B]`` (the total valid key length per batch; with
+    ``bound_causal`` q row ``i`` sees keys ``< kv_bound - Sq + i + 1``, the
+    KV-cache append alignment; ``bound_causal`` without ``kv_bound`` does
+    nothing, as in JAX), ``kv_low`` ``[B]`` (the first valid key) and
+    ``alibi_slopes`` ``[H]`` or ``[B, H]`` fp32 (the bias ``-slope *
+    |row + Sk - Sq - col|``, applied in log2 units as the JAX kernel does,
+    not scaled by ``scale``). They take head dim 64 or 128 and no ``qv``.
+    Every other mask channel raises ``NotImplementedError`` naming itself
+    (ROADMAP A11). ``block_sizes`` is a tiling knob of the JAX kernel,
+    accepted and ignored (B1 runs 128 x 128)."""
     unported = [
         name for name, used in (
             ("segments", q_segments is not None or kv_segments is not None),
-            ("kv_bound", kv_bound is not None or bound_causal),
-            ("kv_low", kv_low is not None),
-            ("alibi_slopes", alibi_slopes is not None),
             ("window", window is not None),
             ("attention_chunk", bool(attention_chunk)),
             ("softcap", bool(softcap)),
@@ -315,7 +404,28 @@ def flash_attention_masked(
             f"flash_attention_masked: {', '.join(unported)} not ported yet (ROADMAP A11)"
         )
     del block_sizes
-    return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
+    if kv_bound is None and kv_low is None and alibi_slopes is None:
+        return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
+    _check_inputs(q, k, v, qv)
+    if qv is not None or v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            "flash_attention_masked: kv_bound, kv_low and alibi_slopes with the MLA shapes "
+            "(qv, V's own head dim) are not ported yet (ROADMAP A11)"
+        )
+    b, h = q.shape[:2]
+    for name, x, shapes in (("kv_bound", kv_bound, [(b,)]), ("kv_low", kv_low, [(b,)]),
+                            ("alibi_slopes", alibi_slopes, [(h,), (b, h)])):
+        if x is not None and tuple(x.shape) not in shapes:
+            raise ValueError(f"{name} must be one of {shapes}, got {tuple(x.shape)}")
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    out, lse = _FlashAttentionMasked.apply(
+        q, k, v, kv_bound, kv_low, alibi_slopes, float(scale), bool(causal),
+        bool(bound_causal and kv_bound is not None),
+    )
+    if return_lse:
+        return out, lse
+    return out
 
 
 def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,

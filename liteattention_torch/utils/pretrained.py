@@ -1,8 +1,11 @@
 """Checkpoint remapping: official Wan2.1/2.2 torch checkpoints -> the
-port's ``WanModel`` state dict.
+port's ``WanModel`` state dict; HF Baichuan and BTLM checkpoints -> the
+port's ``GPTLMHeadModel`` state dict.
 
-Counterpart of ``liteattention_tpu/utils/pretrained.py:remap_state_dict_wan``
-(the other families' remaps are not ported yet). The key layout is
+Counterpart of ``liteattention_tpu/utils/pretrained.py``'s
+``remap_state_dict_wan``, ``remap_state_dict_hf_baichuan`` and
+``remap_state_dict_hf_btlm`` (the other families' remaps are not ported
+yet): the same tensors, under the port's keys. The Wan key layout is
 Wan-Video/Wan2.1 ``wan/modules/model.py``: ``patch_embedding`` (Conv3d),
 ``text_embedding.{0,2}``, ``time_embedding.{0,2}``, ``time_projection.1``,
 ``blocks.N.{self_attn,cross_attn}.{q,k,v,o,norm_q,norm_k}``,
@@ -95,4 +98,57 @@ def remap_state_dict_wan(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.
     return out
 
 
-__all__ = ["remap_state_dict_wan"]
+def remap_state_dict_hf_baichuan(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF Baichuan checkpoint -> ``GPTLMHeadModel(cfg).state_dict()`` keys
+    (fp32 CPU tensors). LLaMA geometry with the fused ``W_pack`` projection,
+    whose rows are already q | k | v; the gated MLP's ``fc1`` is gate | up;
+    no linear biases. A vocabulary above 70 000 is Baichuan2's normalised
+    head (``F.normalize(lm_head.weight)`` every forward in HF): the weights
+    are frozen at inference, so the rows are normalised once here, as JAX
+    does. 7B (rotary) and 13B (ALiBi) differ only in ``cfg``."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["model.embed_tokens.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"model.layers.{i}.", f"transformer.blocks.{i}."
+        out[dst + "norm1_scale"] = sd[src + "input_layernorm.weight"]
+        out[dst + "norm2_scale"] = sd[src + "post_attention_layernorm.weight"]
+        out[dst + "mha.Wqkv.weight"] = sd[src + "self_attn.W_pack.weight"]
+        out[dst + "mha.out_proj.weight"] = sd[src + "self_attn.o_proj.weight"]
+        out[dst + "mlp.fc1.weight"] = torch.cat(
+            [sd[src + "mlp.gate_proj.weight"], sd[src + "mlp.up_proj.weight"]])
+        out[dst + "mlp.fc2.weight"] = sd[src + "mlp.down_proj.weight"]
+    out["transformer.ln_f_scale"] = sd["model.norm.weight"]
+    head = sd["lm_head.weight"]
+    if head.shape[0] > 70000:
+        head = head / head.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    out["lm_head.weight"] = head
+    return out
+
+
+def remap_state_dict_hf_btlm(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF BTLM-3B checkpoint -> ``GPTLMHeadModel(cfg).state_dict()`` keys
+    (fp32 CPU tensors). GPT-2's Conv1D weights are ``[in, out]`` and are
+    transposed; ``c_fc`` is the gate and ``c_fc2`` the up branch of the
+    gated MLP; ALiBi positions (no ``wpe``) and tied embeddings. The muP
+    multipliers live in ``btlm_config``, not in the weights."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["transformer.wte.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"transformer.h.{i}.", f"transformer.blocks.{i}."
+        for j in (1, 2):
+            out[dst + f"norm{j}_scale"] = sd[src + f"ln_{j}.weight"]
+            out[dst + f"norm{j}_bias"] = sd[src + f"ln_{j}.bias"]
+        for name, conv in (("mha.Wqkv", "attn.c_attn"), ("mha.out_proj", "attn.c_proj"),
+                           ("mlp.fc2", "mlp.c_proj")):
+            out[dst + name + ".weight"] = sd[src + conv + ".weight"].T.contiguous()
+            out[dst + name + ".bias"] = sd[src + conv + ".bias"]
+        out[dst + "mlp.fc1.weight"] = torch.cat(
+            [sd[src + "mlp.c_fc.weight"], sd[src + "mlp.c_fc2.weight"]], dim=1).T.contiguous()
+        out[dst + "mlp.fc1.bias"] = torch.cat(
+            [sd[src + "mlp.c_fc.bias"], sd[src + "mlp.c_fc2.bias"]])
+    out["transformer.ln_f_scale"] = sd["transformer.ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["transformer.ln_f.bias"]
+    return out
+
+
+__all__ = ["remap_state_dict_wan", "remap_state_dict_hf_baichuan", "remap_state_dict_hf_btlm"]

@@ -1,0 +1,228 @@
+"""Port parity: the ALiBi model path (MHA(use_alibi), GPT with ALiBi,
+baichuan_config / btlm_config, the Baichuan and BTLM checkpoint remaps)
+against the JAX package, with JAX-initialised weights carried across by
+gpt_state_dict_from_jax, and against the numpy forwards of the HF
+architectures in tests/_hf_minimal.py.
+
+Tolerances, fp32: MHA outputs within 2e-5 absolute (summation order only,
+as tests/test_torch_generation.py); model logits within 1e-4 rel-L2 (as
+tests/test_torch_gpt.py); greedy tokens equal; logits against the HF numpy
+forwards within 2e-3 absolute + 1e-3 relative (tests/test_pretrained.py's
+limit for the same oracles).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from _hf_minimal import baichuan_forward, btlm_forward  # noqa: E402
+from _torch_port import rel_l2, t  # noqa: E402
+from liteattention_tpu.models import configs as jconfigs  # noqa: E402
+from liteattention_tpu.models.gpt import GPTLMHeadModel as JGPT  # noqa: E402
+from liteattention_tpu.modules.mha import MHA as JMHA  # noqa: E402
+from liteattention_tpu.modules.mha import InferenceParams as JInferenceParams  # noqa: E402
+from liteattention_tpu.utils import generation as jgen  # noqa: E402
+from liteattention_tpu.utils import pretrained as jpretrained  # noqa: E402
+from liteattention_torch.models import configs  # noqa: E402
+from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_state_dict_from_jax  # noqa: E402
+from liteattention_torch.modules.mha import MHA, InferenceParams  # noqa: E402
+from liteattention_torch.utils import generation, pretrained  # noqa: E402
+
+PROMPT, NEW, MAX_SEQLEN = 9, 5, 40
+
+
+def _mha_pair(use_alibi, seed=4, dim=256, heads=4, kv_heads=2, **kw):
+    jmha = JMHA(dim, heads, num_heads_kv=kv_heads, causal=True, use_alibi=use_alibi,
+                dtype=jnp.float32, **kw)
+    x0 = np.random.RandomState(seed).randn(2, 5, dim).astype(np.float32)
+    params = jax.tree_util.tree_map(
+        np.asarray, jmha.init(jax.random.PRNGKey(seed), jnp.asarray(x0)))
+    mha = MHA(dim, heads, num_heads_kv=kv_heads, causal=True, use_alibi=use_alibi, layer_idx=0,
+              dtype=torch.float32, device="cpu", **kw)
+    mha.load_state_dict(gpt_state_dict_from_jax(params))
+    return jmha, params, mha
+
+
+def test_mha_alibi_forward_matches_jax():
+    jmha, params, mha = _mha_pair(True)
+    x = np.random.RandomState(1).randn(2, 150, 256).astype(np.float32)
+    jo = jmha.apply(params, jnp.asarray(x))
+    with torch.no_grad():
+        po = mha(t(x))
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("use_alibi", [True, False])
+def test_mha_cached_steps_match_jax(use_alibi):
+    # Prefill, single-token steps and a 3-token step over the cache: with
+    # ALiBi every step runs B1 over the whole cache with kv_bound and
+    # bound_causal; without it the multi-token steps do (the LLaMA-style
+    # rotary path) and the single-token steps the decode kernel B8.
+    jmha, params, mha = _mha_pair(use_alibi, rotary_emb_dim=0 if use_alibi else 64)
+    rng = np.random.RandomState(3)
+    xs = [rng.randn(2, s, 256).astype(np.float32) for s in (5, 1, 1, 3, 1)]
+    jinf = JInferenceParams(max_seqlen=24, max_batch_size=2)
+    pinf = InferenceParams(max_seqlen=24, max_batch_size=2)
+    with torch.no_grad():
+        for x in xs:
+            jo = jmha.apply(params, jnp.asarray(x), inference_params=jinf)
+            po = mha(t(x), inference_params=pinf)
+            np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=2e-5, rtol=0)
+            jinf.seqlen_offset += x.shape[1]
+            pinf.seqlen_offset += x.shape[1]
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(dim=5120, num_layers=40, num_heads=40), dict(dim=64, num_layers=2, num_heads=2,
+                                                          vocab=128),
+])
+def test_baichuan_config_equals_jax(kw):
+    _same_config(configs.baichuan_config(**kw), jconfigs.baichuan_config(**kw))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(dim=64, num_layers=2, num_heads=2, vocab=128)])
+def test_btlm_config_equals_jax(kw):
+    _same_config(configs.btlm_config(**kw), jconfigs.btlm_config(**kw))
+
+
+def _same_config(port, ref):
+    common = {f.name for f in dataclasses.fields(port)} & {f.name for f in dataclasses.fields(ref)}
+    common.discard("dtype")
+    assert {n: getattr(port, n) for n in common} == {n: getattr(ref, n) for n in common}
+
+
+def _tiny(family):
+    """A tiny fp32 config of ``family`` in both packages (same fields)."""
+    if family == "btlm":
+        kw = dict(dim=128, num_layers=2, num_heads=2, vocab=256)
+        return (dataclasses.replace(configs.btlm_config(**kw), ffn_dim=192, dtype=torch.float32),
+                dataclasses.replace(jconfigs.btlm_config(**kw), ffn_dim=192, dtype=jnp.float32))
+    kw = dict(dim=128, num_layers=2, num_heads=2, vocab=256)
+    # baichuan_config picks ALiBi by width (13B) and rotary below it (7B).
+    rotary = family == "baichuan_rotary"
+    extra = dict(rotary_emb_dim=64 if rotary else 0, use_alibi=not rotary)
+    return (dataclasses.replace(configs.baichuan_config(**kw), dtype=torch.float32, **extra),
+            dataclasses.replace(jconfigs.baichuan_config(**kw), dtype=jnp.float32, **extra))
+
+
+@pytest.mark.parametrize("family", ["baichuan_alibi", "baichuan_rotary", "btlm"])
+def test_tiny_models_logits_and_greedy_match_jax(family):
+    pcfg, jcfg = _tiny(family)
+    ids = np.random.RandomState(2).randint(0, 256, (2, PROMPT)).astype(np.int32)
+    jmodel = JGPT(jcfg)
+    params = jax.tree_util.tree_map(
+        np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(3), jnp.asarray(ids)))
+    pmodel = GPTLMHeadModel(pcfg, device="cpu")
+    pmodel.load_state_dict(gpt_state_dict_from_jax(params))  # strict
+    long_ids = np.random.RandomState(5).randint(0, 256, (2, 140)).astype(np.int32)
+    with torch.no_grad():
+        logits = pmodel(t(long_ids).long())
+    assert rel_l2(logits.numpy(), np.asarray(jmodel.apply(params, jnp.asarray(long_ids)))) < 1e-4
+    jtok = np.asarray(jgen.greedy_decode(
+        lambda p, x, inf: jmodel.apply(p, x, inference_params=inf), params, jnp.asarray(ids),
+        NEW, MAX_SEQLEN))
+    ptok = generation.greedy_decode(pmodel, t(ids).long(), NEW, MAX_SEQLEN)
+    np.testing.assert_array_equal(ptok.numpy(), jtok)
+
+
+def _baichuan_sd(dim, nl, vocab, ffn, seed=6):
+    rs = np.random.RandomState(seed)
+    sd = {"model.embed_tokens.weight": rs.randn(vocab, dim) * 0.02,
+          "model.norm.weight": 1 + 0.1 * rs.randn(dim),
+          "lm_head.weight": rs.randn(vocab, dim) * 0.02}
+    for i in range(nl):
+        pre = f"model.layers.{i}."
+        sd[pre + "self_attn.W_pack.weight"] = rs.randn(3 * dim, dim) * 0.02
+        sd[pre + "self_attn.o_proj.weight"] = rs.randn(dim, dim) * 0.02
+        sd[pre + "mlp.gate_proj.weight"] = rs.randn(ffn, dim) * 0.02
+        sd[pre + "mlp.up_proj.weight"] = rs.randn(ffn, dim) * 0.02
+        sd[pre + "mlp.down_proj.weight"] = rs.randn(dim, ffn) * 0.02
+        sd[pre + "input_layernorm.weight"] = 1 + 0.1 * rs.randn(dim)
+        sd[pre + "post_attention_layernorm.weight"] = 1 + 0.1 * rs.randn(dim)
+    return sd
+
+
+def _btlm_sd(dim, nl, vocab, ffn, seed=8):
+    rs = np.random.RandomState(seed)
+    sd = {"transformer.wte.weight": rs.randn(vocab, dim) * 0.02,
+          "transformer.ln_f.weight": 1 + 0.1 * rs.randn(dim),
+          "transformer.ln_f.bias": 0.1 * rs.randn(dim)}
+    shapes = {"attn.c_attn": (dim, 3 * dim), "attn.c_proj": (dim, dim), "mlp.c_fc": (dim, ffn),
+              "mlp.c_fc2": (dim, ffn), "mlp.c_proj": (ffn, dim)}
+    for i in range(nl):
+        pre = f"transformer.h.{i}."
+        for name, shape in shapes.items():
+            sd[pre + name + ".weight"] = rs.randn(*shape) * 0.02
+            sd[pre + name + ".bias"] = 0.1 * rs.randn(shape[1])
+        for j in (1, 2):
+            sd[pre + f"ln_{j}.weight"] = 1 + 0.1 * rs.randn(dim)
+            sd[pre + f"ln_{j}.bias"] = 0.1 * rs.randn(dim)
+    return sd
+
+
+@pytest.mark.parametrize("use_rotary", [True, False])
+def test_baichuan_remap_matches_jax_and_hf(use_rotary):
+    dim, nl, vocab = 64, 2, 128
+    cfg = dataclasses.replace(
+        configs.baichuan_config(dim=dim, num_layers=nl, num_heads=2, vocab=vocab),
+        dtype=torch.float32, rotary_emb_dim=dim // 2 if use_rotary else 0,
+        use_alibi=not use_rotary)
+    sd = _baichuan_sd(dim, nl, vocab, cfg.ffn_dim)
+    got = pretrained.remap_state_dict_hf_baichuan(sd, cfg)
+    ref = gpt_state_dict_from_jax(jpretrained.remap_state_dict_hf_baichuan(sd, cfg))
+    assert set(got) == set(ref)
+    for key in ref:
+        np.testing.assert_allclose(got[key].numpy(), ref[key].numpy(), rtol=1e-7, atol=0)
+    model = GPTLMHeadModel(cfg, device="cpu")
+    model.load_state_dict(got)  # strict
+    ids = np.random.RandomState(7).randint(0, vocab, (2, 24))
+    with torch.no_grad():
+        logits = model(t(ids).long()).numpy()
+    hf = baichuan_forward(sd, ids, num_heads=2, num_layers=nl, use_rotary=use_rotary)
+    np.testing.assert_allclose(logits, hf, atol=2e-3, rtol=1e-3)
+
+
+def test_baichuan2_norm_head_remap():
+    # A vocabulary above 70 000 is Baichuan2's normalised head: unit rows,
+    # equal to JAX's remap.
+    dim, vocab = 16, 70080
+    cfg = configs.baichuan_config(dim=dim, num_layers=1, num_heads=2, vocab=vocab)
+    sd = _baichuan_sd(dim, 1, vocab, cfg.ffn_dim)
+    head = pretrained.remap_state_dict_hf_baichuan(sd, cfg)["lm_head.weight"]
+    np.testing.assert_allclose(head.norm(dim=1).numpy(), np.ones(vocab), atol=1e-6)
+    ref = jpretrained.remap_state_dict_hf_baichuan(sd, cfg)["params"]["lm_head"]["kernel"]
+    np.testing.assert_allclose(head.numpy(), np.asarray(ref).T, rtol=1e-6, atol=1e-9)
+
+
+def test_btlm_remap_matches_jax_and_hf():
+    dim, nl, vocab, ffn = 64, 2, 128, 96
+    cfg = dataclasses.replace(
+        configs.btlm_config(dim=dim, num_layers=nl, num_heads=2, vocab=vocab),
+        ffn_dim=ffn, dtype=torch.float32)
+    sd = _btlm_sd(dim, nl, vocab, ffn)
+    got = pretrained.remap_state_dict_hf_btlm(sd, cfg)
+    ref = gpt_state_dict_from_jax(jpretrained.remap_state_dict_hf_btlm(sd, cfg))
+    assert set(got) == set(ref)
+    for key in ref:
+        np.testing.assert_allclose(got[key].numpy(), ref[key].numpy(), rtol=1e-7, atol=0)
+    model = GPTLMHeadModel(cfg, device="cpu")
+    model.load_state_dict(got)  # strict
+    ids = np.random.RandomState(9).randint(0, vocab, (2, 24))
+    with torch.no_grad():
+        logits = model(t(ids).long()).numpy()
+    np.testing.assert_allclose(logits, btlm_forward(sd, ids, num_heads=2, num_layers=nl),
+                               atol=2e-3, rtol=1e-3)
+
+
+def test_alibi_model_training_raises():
+    # B7 has no ALiBi channel yet: a gradient through the model raises.
+    pcfg, _ = _tiny("baichuan_alibi")
+    model = GPTLMHeadModel(pcfg, device="cpu")
+    ids = torch.randint(0, 256, (1, 16))
+    with pytest.raises(NotImplementedError, match="A11"):
+        model(ids).sum().backward()

@@ -32,7 +32,11 @@ from liteattention_torch.ops.flash_bwd import (
     flash_bwd_dkv_plain,
     flash_bwd_dq_plain,
 )
-from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+from liteattention_torch.ops.flash_fwd import (
+    flash_attention,
+    flash_attention_masked,
+    flash_attention_plain,
+)
 from liteattention_torch.ops.lite_flash_fwd import (
     lite_flash_attention,
     lite_flash_attention_plain,
@@ -128,6 +132,98 @@ def test_flash_fwd_kernel(dev, b, h, hk, sq, sk, d, causal):
         assert not fin.all()  # rows with no valid key: lse -inf, out 0
         assert out[~fin].abs().max().item() == 0.0
     assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+
+
+# B1's per-batch channels: (b, h, hk, sq, sk, d), kv_bound, kv_low, causal,
+# bound_causal, ALiBi slopes ("h": [H], "bh": [B, H]), scale ("d": 1/d).
+# Bounds inside and on tile edges, low inside a tile, rows that see no key
+# (bound 0, bound <= low, bound_causal with bound < Sq), MHA's cached
+# steps (Sq 1, 4 and a prefill over a longer cache, bound_causal + ALiBi).
+CHANNEL_CASES = [
+    ((4, 4, 2, 300, 555, 64), [555, 300, 129, 1], None, False, False, None, None),
+    ((3, 4, 2, 200, 700, 128), [700, 260, 128], [0, 100, 129], False, True, None, None),
+    ((2, 8, 2, 130, 1000, 128), [1000, 500], None, True, True, None, None),
+    ((2, 4, 4, 300, 555, 64), [555, 200], [64, 0], True, False, None, None),
+    ((4, 2, 2, 150, 260, 64), [0, 100, 90, 260], [0, 100, 120, 0], False, True, None, None),
+    ((2, 4, 2, 300, 300, 64), None, None, True, False, "h", None),
+    ((2, 4, 4, 300, 140, 128), None, None, False, False, "bh", "d"),
+    ((2, 6, 2, 257, 700, 64), None, None, False, False, "h", "d"),
+    ((2, 8, 2, 1, 1059, 128), [1059, 500], None, False, True, "h", None),
+    ((2, 8, 2, 4, 1059, 128), [1059, 700], None, False, True, "bh", None),
+    ((2, 10, 2, 256, 1024, 64), [256, 700], None, False, True, "h", None),
+]
+
+
+@pytest.mark.parametrize("shape,bound,low,causal,bound_causal,alibi,scale", CHANNEL_CASES)
+def test_flash_fwd_kernel_channels(dev, shape, bound, low, causal, bound_causal, alibi, scale):
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    b, h, hk, sq, sk, d = shape
+    q, k, v = _qkv(dev, b, h, hk, sq, sk, d, seed=sq + sk)
+    kw = dict(causal=causal, bound_causal=bound_causal, scale=1.0 / d if scale == "d" else None)
+    if bound is not None:
+        kw["kv_bound"] = torch.tensor(bound, dtype=torch.int32, device=dev)
+    if low is not None:
+        kw["kv_low"] = torch.tensor(low, dtype=torch.int32, device=dev)
+    if alibi is not None:
+        slopes = alibi_slopes(h).to(dev)
+        kw["alibi_slopes"] = slopes if alibi == "h" else slopes * torch.linspace(
+            1.0, 2.0, b, device=dev)[:, None]
+    counter = "alibi_launches" if alibi else "bound_launches"
+    n0 = getattr(flash_attention, counter)
+    out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, counter) == n0 + 1
+    out2, lse2 = flash_attention_masked(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    plain = {n: x for n, x in kw.items() if n != "alibi_slopes"}
+    ro, rl = flash_attention_plain(q, k, v, alibi_slopes=kw.get("alibi_slopes"), **plain)
+    diff = (out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)
+    assert diff.max().item() < 2e-2
+    assert _rel_l2(out, ro)[1] < 2e-2
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    if not fin.all():
+        assert out[~fin].abs().max().item() == 0.0
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_kernel_full_bound_is_bit_identical(dev, causal):
+    # A bound of Sk (with bound_causal under causal: the same diagonal) is
+    # the kernel without channels, bit for bit.
+    q, k, v = _qkv(dev, 2, 8, 2, 300, 555, 128, seed=3)
+    full = torch.full((2,), 555, dtype=torch.int32, device=dev)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got, glse = flash_attention_masked(q, k, v, kv_bound=full, kv_low=full * 0, causal=causal,
+                                       bound_causal=causal, return_lse=True)
+    assert torch.equal(out, got) and torch.equal(lse, glse)
+
+
+def test_flash_fwd_kernel_alibi_cache_capacity(dev):
+    # ALiBi over a 2048-key cache with bound_causal and over a cache of the
+    # bound's length: the kernel drops the per-row constant slope * (Sk -
+    # bound) from the scores, so out is the same bits and lse moves by it.
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    q, k, v = _qkv(dev, 2, 40, 40, 4, 2048, 128, seed=7)
+    slopes = alibi_slopes(40).to(dev)
+    bound = torch.tensor([1100, 1900], dtype=torch.int32, device=dev)
+    kw = dict(bound_causal=True, alibi_slopes=slopes, return_lse=True)
+    big_o, big_l = flash_attention_masked(q, k, v, kv_bound=bound, **kw)
+    for i, n in enumerate(bound.tolist()):
+        o, lse = flash_attention_masked(q[i : i + 1], k[i : i + 1, :, :n].contiguous(),
+                                        v[i : i + 1, :, :n].contiguous(), kv_bound=bound[i : i + 1],
+                                        **kw)
+        assert torch.equal(big_o[i : i + 1], o)
+        assert (big_l[i : i + 1] + slopes[None, :, None] * (2048 - n) - lse).abs().max() < 1e-3
+
+
+def test_flash_fwd_kernel_channels_backward_raises(dev):
+    q, k, v = (x.requires_grad_() for x in _qkv(dev, 1, 2, 2, 128, 128, 64))
+    out = flash_attention_masked(q, k, v, kv_bound=torch.tensor([100], device=dev))
+    with pytest.raises(NotImplementedError, match="A11"):
+        out.float().sum().backward()
 
 
 # The backward also at GQA group 4, D 128, Sq > Sk (causal rows with no

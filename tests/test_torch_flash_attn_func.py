@@ -130,6 +130,31 @@ def test_coarse_mask_matches_jax(bq, bk):
     np.testing.assert_array_equal(_stable_mask(run, -2.0).numpy(), np.asarray(jm))
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_alibi_matches_jax(causal):
+    # B1's ALiBi channel through the API: [H] slopes on flash_attn_func and
+    # the packed forms, [B, H] on flash_attn_func (Sq != Sk, GQA).
+    q, k, v = _bshd(4, sq=300, sk=400)
+    slopes = np.asarray([0.5, 0.25, 0.125, 0.0625], np.float32)
+    kw = dict(causal=causal, return_softmax_lse=True)
+    jo, jl = jfunc(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), alibi_slopes=jnp.asarray(
+        slopes[None]), block_sizes=JBS(128, 128), **kw)
+    po, pl = flash_attn_func(t(q), t(k), t(v), alibi_slopes=t(slopes[None]), **kw)
+    _close(po, jo)
+    _close(pl, jl)
+    q, k, v = _bshd(5, sq=300, sk=300, hk=4)
+    qkv = np.stack([q, k, v], axis=2)
+    jo, jl = jqkvpacked(jnp.asarray(qkv), alibi_slopes=jnp.asarray(slopes), **kw)
+    po, pl = flash_attn_qkvpacked_func(t(qkv), alibi_slopes=t(slopes), **kw)
+    _close(po, jo)
+    _close(pl, jl)
+    kv = np.stack([k, v], axis=2)
+    jo, jl = jkvpacked(jnp.asarray(q), jnp.asarray(kv), alibi_slopes=jnp.asarray(slopes), **kw)
+    po, pl = flash_attn_kvpacked_func(t(q), t(kv), alibi_slopes=t(slopes), **kw)
+    _close(po, jo)
+    _close(pl, jl)
+
+
 def test_return_order_and_unported_options():
     q, k, v = _bshd(3, sq=256, sk=256)
     m = t(np.ones((1, 4, 2, 2), bool))
@@ -139,9 +164,11 @@ def test_return_order_and_unported_options():
                                 return_skip_mask=True, thr=float("-inf"))
     assert mask.dtype == torch.bool and mask.all()
     for kw in (dict(window_size=(16, 0)), dict(softcap=5.0), dict(attention_chunk=64),
-               dict(alibi_slopes=torch.ones(4)), dict(dropout_p=0.1)):
+               dict(dropout_p=0.1)):
         with pytest.raises(NotImplementedError, match=next(iter(kw)).split("_")[0]):
             flash_attn_func(t(q), t(k), t(v), **kw)
+    with pytest.raises(ValueError, match="alibi_slopes"):  # not on the skip path
+        flash_attn_func(t(q), t(k), t(v), attn_read_list=m, alibi_slopes=torch.ones(4))
     with pytest.raises(ValueError):  # the skip path is non-causal
         flash_attn_func(t(q), t(k), t(v), attn_read_list=m, causal=True)
     with pytest.raises(ValueError):  # a grid of neither granularity

@@ -119,11 +119,13 @@ def test_gpt_matches_jax_bf16():
 
 
 def test_gpt_raises_on_unported_features():
-    # Rotary is ported (tests/test_torch_rotary.py): LLaMA builds; ALiBi
-    # and dropout still raise.
+    # Rotary (tests/test_torch_rotary.py) and ALiBi (tests/
+    # test_torch_alibi_models.py) are ported: LLaMA and an ALiBi GPT build;
+    # MoE and dropout still raise.
     GPTLMHeadModel(llama_config(dim=128, num_layers=1, num_heads=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="use_alibi"):
-        GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), use_alibi=True), device="cpu")
+    GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), use_alibi=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="moe_experts"):
+        GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), moe_experts=4), device="cpu")
     with pytest.raises(NotImplementedError):
         GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), dropout=0.1), device="cpu")
     cfg = gpt2_config()
