@@ -149,6 +149,28 @@ Phases (any failure exits non-zero and prints no result line):
    equal to the sequence alone; (d) ``flash_attn_func`` and
    ``flash_attn_qkvpacked_func`` with ``alibi_slopes`` against the plain
    version.
+11. (Runs after 10.) Training through B1's and B7's per-batch channels:
+   (a) B7 with ``kv_bound`` / ``kv_low`` / ``bound_causal`` and with ALiBi
+   against B7a's / B7b's plain versions (rel-L2 over each tensor and every
+   128-row block; dK/dV bit-stable over two runs and exactly 0 on keys no
+   row sees, dQ exactly 0 on rows with no key) at BERT-large's attention
+   (32 x 16 x 512 x 64, lengths 64-512), a GQA cache append (8 x 32/8 x
+   1024 x 128 over 4096 keys, bound + low + bound_causal), the edges,
+   Baichuan2-13B's training shape (4 x 40 x 2048 x 128, causal ALiBi),
+   ALiBi + bound_causal over two cache capacities (the valid keys'
+   gradients compared across them), and non-causal ALiBi with [B, H]
+   slopes at scale 1/d; the paths' shapes timed beside their bounds, the
+   plain version and SDPA's backward with the equivalent mask or bias;
+   (b) BERT-large pretraining (MLM + NSP) on phase 10's padded batch, fp32
+   master weights, 5 AdamW steps (24 bound launches of B1 and of B7 a
+   step; the loss falls; a few sequences' gradient alone equals their
+   share of the padded batch's); (c) a Baichuan2-13B-width ALiBi GPT (2
+   of its 40 layers, 1.92 B parameters) on 4 x 2048 tokens, 3 AdamW steps
+   through ``training/trainer.py`` (2 ALiBi launches of B1 and of B7 a
+   step; the loss falls); (d) small ALiBi GPTs (6 heads of 64, 3 of 128)
+   and a small BERT, one step on the card against the CPU; (e) the
+   gradient of ``flash_attn_func`` / ``flash_attn_qkvpacked_func`` with
+   ``alibi_slopes`` against the plain versions.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -173,6 +195,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -198,8 +221,16 @@ SMALL_DENOISE_TOL = 5e-2  # same for a 3-step CFG denoise (CFG amplifies error)
 # P and dS rounded to bf16 before their products).
 BWD_TOL = 1e-2
 BWD_BLOCK_TOL = 2e-2
-# B7 at the Wan2.1-14B attention width: batch, heads, tokens, head dim.
+# B7 with ALiBi: a key block far from every row it meets under a steep slope
+# has P below 2^-126, which the card's exp2 flushes to 0 (ex2.approx.ftz)
+# where the fp32 plain version keeps subnormals. So B7's channel checks take
+# each block's error against at least 2^-100 of the whole tensor's norm:
+# a wrong tile still reads as large as its error.
+BWD_BLOCK_FLOOR = 2.0**-100
+# B7 at the Wan2.1-14B attention width: batch, heads, tokens, head dim;
+# the training step's tokens (the slice's 21 x 30 x 52 patches).
 WAN_BWD_SHAPE = (1, 40, 8192, 128)
+WAN_TRAIN_TOKENS = 32760
 SMALL_LOSS_TOL = 1e-2  # small GPT, bf16 card vs fp32 CPU: relative loss error
 SMALL_GRAD_TOL = 5e-2  # ... and rel-L2 of each parameter's gradient
 # The 480p Wan latent for 81 frames; depth of the 14B model cut for time.
@@ -370,10 +401,11 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def block_rel_l2(got, ref, rows=128):
+def block_rel_l2(got, ref, rows=128, floor=0.0):
     """rel-L2 of ``got`` against ``ref`` ([B, H, S, D]) over the whole
     tensor and the worst over (b, h, ``rows``-row block); a block whose
-    reference is 0 must be 0 too."""
+    reference is 0 must be 0 too. With ``floor`` a block's error is taken
+    against at least ``floor`` times the whole reference's norm."""
     import torch
 
     b, h, s, d = ref.shape
@@ -381,6 +413,8 @@ def block_rel_l2(got, ref, rows=128):
     g = torch.nn.functional.pad(got.double(), pad).reshape(b, h, -1, rows * d)
     r = torch.nn.functional.pad(ref.double(), pad).reshape(b, h, -1, rows * d)
     num, den = (g - r).norm(dim=-1), r.norm(dim=-1)
+    if floor:
+        den = den.clamp_min(floor * r.norm().item())
     blk = torch.where(den > 0, num / den.clamp_min(1e-300), num * math.inf).nan_to_num(0.0)
     return rel_l2(got, ref), blk.max().item()
 
@@ -404,7 +438,8 @@ def kernel_wrappers():
     wrapper and the attribute that counts its launches (the lite wrapper
     counts B3, B5 and B4 apart, flash_attention B1, B1 with its per-batch
     bound / low channels, B1 with ALiBi, B1 at the MLA prefill shape (192,
-    128) and the split-O MLA kernel at V 512)."""
+    128) and the split-O MLA kernel at V 512; flash_bwd B7, B7 with the
+    bound / low channels and B7 with ALiBi)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -425,6 +460,8 @@ def kernel_wrappers():
             "kv_compact": (compact_kv, "launches"),
             "flash_bwd_dq": (flash_bwd, "launches"),
             "flash_bwd_dkv": (flash_bwd, "launches"),
+            "flash_bwd_bound": (flash_bwd, "bound_launches"),
+            "flash_bwd_alibi": (flash_bwd, "alibi_launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
@@ -555,46 +592,77 @@ def sdpa_bwd(q, k, v, dout, causal):
     )
 
 
-def check_bwd(q, k, v, dout, label, causal, time_it=False):
+def verify_bwd(label, q, k, v, dout, kw, floor=0.0):
     """The one-pass backward B7 (``flash_attention_bwd``: delta, the main
-    kernel, dQ to bf16) on the forward kernel's out / lse (the inputs the
-    training path gives it): dq against B7a's plain version, dk / dv
-    against B7b's; dk / dv bit-stable over two runs, dq (summed across CTAs
-    by atomics in no fixed order) held by the same rel-L2 again."""
+    kernel, dQ to bf16) on B1's out / lse with the same channels (``kw``:
+    causal, scale and B1's kv_bound, kv_low, bound_causal, alibi_slopes;
+    the inputs the training path gives it): dq against B7a's plain
+    version, dk / dv against B7b's, by rel-L2 over each tensor and every
+    (b, h, 128-row block) (``floor``: block_rel_l2's); dk / dv bit-stable
+    over two runs and exactly 0 on keys no row sees, dq exactly 0 on rows
+    that see no key and held by the same rel-L2 on a second run (summed
+    across CTAs by atomics in no fixed order). Returns the backward's
+    arguments, its channels, (dq, dk, dv), the max abs errors and the
+    rel-L2s."""
     import torch
     from liteattention_torch.ops.flash_bwd import (
         flash_attention_bwd,
         flash_bwd_dkv_plain,
         flash_bwd_dq_plain,
-        flash_bwd_plain,
     )
-    from liteattention_torch.ops.flash_fwd import flash_attention
+    from liteattention_torch.ops.flash_fwd import flash_attention_masked
 
-    b, h, sq, d = q.shape
-    sk, scale = k.shape[2], d**-0.5
-    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    b, d, sk = q.shape[0], q.shape[-1], k.shape[2]
+    causal = kw.get("causal", False)
+    scale = kw.get("scale") or d**-0.5
+    ch = {n: kw[n] for n in ("kv_bound", "kv_low", "bound_causal", "alibi_slopes") if n in kw}
+    out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
     args = (q, k, v, out, lse, dout, scale, causal)
-    dq, dk, dv = flash_attention_bwd(*args)
+    dq, dk, dv = flash_attention_bwd(*args, **ch)
     torch.cuda.synchronize()
     delta = (out.float() * dout.float()).sum(-1)
-    plain_args = (q, k, v, dout, lse, delta, scale, causal)
-    rq = flash_bwd_dq_plain(*plain_args)
-    rk, rv = flash_bwd_dkv_plain(*plain_args)
+    pargs = (q, k, v, dout, lse, delta, scale, causal)
+    rq = flash_bwd_dq_plain(*pargs, **ch)
+    rk, rv = flash_bwd_dkv_plain(*pargs, **ch)
     errs, rels = {}, {}
     for name, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
         errs[name] = (got.float() - ref.float()).abs().max().item()
-        rels[name] = block_rel_l2(got, ref)
-    dq2, dk2, dv2 = flash_attention_bwd(*args)
+        rels[name] = block_rel_l2(got, ref, floor=floor)
+    del rk, rv
+    dq2, dk2, dv2 = flash_attention_bwd(*args, **ch)
     check(torch.equal(dk, dk2) and torch.equal(dv, dv2), f"B7 {label}: dK/dV not bit-stable")
-    rels["dq (2nd run)"] = block_rel_l2(dq2, rq)
-    del dq2, dk2, dv2
-    log(f"  B7 {label}: rel-L2 tensor / worst (b, h, 128-row block): "
-        + ", ".join(f"{n} {t:.2e} / {w:.2e}" for n, (t, w) in rels.items())
-        + "; max abs err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + " (dK, dV bit-stable over two runs)")
+    rels["dq (2nd run)"] = block_rel_l2(dq2, rq, floor=floor)
+    del dq2, dk2, dv2, rq
+    msg = (f"  B7 {label}: rel-L2 tensor / worst (b, h, 128-row block): "
+           + ", ".join(f"{n} {t:.2e} / {w:.2e}" for n, (t, w) in rels.items())
+           + "; max abs err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+           + " (dK, dV bit-stable over two runs")
+    hidden = hidden_keys(b, sk, q.device, ch.get("kv_bound"), ch.get("kv_low"))
+    if hidden.any():
+        zero = max(g.transpose(1, 2)[hidden].abs().max().item() for g in (dk, dv))
+        check(zero == 0.0, f"B7 {label}: keys no row sees got dK/dV {zero:.3e}, not 0")
+        msg += f"; {int(hidden.sum())} key rows no row sees: dK, dV exactly 0"
+    empty = ~torch.isfinite(lse)
+    if empty.any():
+        check(dq[empty].abs().max().item() == 0.0, f"B7 {label}: a row with no key has dQ != 0")
+        msg += f"; {int(empty.sum())} rows with no key: dQ exactly 0"
+    log(msg + ")")
     for name, (tensor, block) in rels.items():
         check(tensor < BWD_TOL and block < BWD_BLOCK_TOL,
               f"B7 {label}: {name} rel-L2 {tensor:.3e} / block {block:.3e}")
+    return args, ch, (dq, dk, dv), errs, rels
+
+
+def check_bwd(q, k, v, dout, label, causal, time_it=False):
+    """B7 without channels, checked by ``verify_bwd``; with ``time_it``
+    also timed whole and beside aten's flash backward."""
+    from liteattention_torch.ops.flash_bwd import flash_attention_bwd, flash_bwd_plain
+    from liteattention_torch.ops.flash_fwd import flash_attention
+
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    args, _, (dq, dk, dv), errs, rels = verify_bwd(label, q, k, v, dout, dict(causal=causal))
+    out, lse = args[3], args[4]
     res = {
         "flash_bwd_dq": {"err": errs["dq"], "rel_l2": max(rels["dq"][0], rels["dq (2nd run)"][0]),
                          "worst_block_rel_l2": max(rels["dq"][1], rels["dq (2nd run)"][1])},
@@ -603,7 +671,6 @@ def check_bwd(q, k, v, dout, label, causal, time_it=False):
                           "worst_block_rel_l2": max(rels["dk"][1], rels["dv"][1])},
     }
     if time_it:
-        del rq, rk, rv
         # The whole backward (pre + main + post) as the autograd Function
         # runs it; its bound counts the work the inputs need: S, dP, dV, dK
         # and dQ (10 d FLOPs per pair), q, k, v, o, dO, lse read once and
@@ -2514,12 +2581,14 @@ def mla_phase(dev, card):
 # example's schedule starts at 0; at 1e-4 the first step raised the loss
 # 14x, at 1e-5 it fell 14 % and rose 6 % at the next).
 TRAIN_STEPS, TRAIN_LR = 3, 3e-6
-# The remat / no-remat gradients: each leaf scaled by its max, within the
-# bf16 bound of the JAX package's remat test (tests/test_wan_model.py), or
-# within twice the leaf's own run-to-run spread without remat: B7 sums dQ
-# by atomics in no fixed order, and a leaf whose exact gradient is the
-# residue of a cancelling sum (a cross-attention key bias: the rows of dK
-# sum to 0 before the norm) magnifies that spread past the bound.
+# The remat / no-remat gradients: each leaf's difference scaled by the
+# largest gradient of its module (the leaf and its siblings: a key bias
+# with its weight), within the bf16 bound of the JAX package's remat test
+# (tests/test_wan_model.py), or within twice the leaf's own run-to-run
+# spread without remat (scaled alike): B7 sums dQ by atomics in no fixed
+# order. Not by the leaf's own max: a leaf whose exact gradient is 0 (a
+# cross-attention key bias: the rows of dK sum to 0 before the norm) has
+# only that noise for a max, and its difference then reads near 2x itself.
 REMAT_GRAD_TOL = 2e-2
 PROBE_ROWS = 64
 # Calibration on the phase-3 slice: steps (CFG, vote_stride 2), rel-L2
@@ -2688,9 +2757,13 @@ def wan_train_step(dev, card, full, grid):
         if len(grads) < 2:
             grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
     bad, worst = [], {"remat": (-1.0, ""), "spread": (-1.0, "")}
+    module_max = {}
+    for n, gr in grads[1].items():
+        mod = n.rpartition(".")[0]
+        module_max[mod] = max(module_max.get(mod, 0.0), gr.abs().max().item())
     for n, p in model.named_parameters():
         ref = grads[1][n].to(dev).float()
-        scale = ref.abs().max().clamp_min(1e-6)
+        scale = max(module_max[n.rpartition(".")[0]], 1e-6)
         err = ((grads[0][n].to(dev).float() - ref).abs().max() / scale).item()
         spread = ((p.grad.float() - ref).abs().max() / scale).item()
         worst["remat"] = max(worst["remat"], (err, n))
@@ -2699,7 +2772,8 @@ def wan_train_step(dev, card, full, grid):
             bad.append((n, err, spread))
     res["remat_grad_scaled_err"], res["no_remat_grad_scaled_spread"] = (
         worst["remat"][0], worst["spread"][0])
-    log(f"  gradients, max |diff| / max |grad| per leaf: remat vs no remat worst "
+    log(f"  gradients, max |diff| / max |grad of the leaf's module| per leaf: remat vs no "
+        f"remat worst "
         f"{worst['remat'][0]:.3e} ({worst['remat'][1]}); no remat run to run worst "
         f"{worst['spread'][0]:.3e} ({worst['spread'][1]}); tolerance {REMAT_GRAD_TOL} or twice "
         f"the leaf's spread")
@@ -2910,6 +2984,20 @@ def visible_keys(b, sq, sk, dev, causal=False, kv_bound=None, kv_low=None, bound
     if kv_low is not None:
         vis &= col >= kv_low.reshape(-1, 1, 1, 1)
     return vis
+
+
+def hidden_keys(b, sk, dev, kv_bound=None, kv_low=None):
+    """Bool ``[B, Sk]``: keys no q row of the batch sees (at or past the
+    bound, before kv_low)."""
+    import torch
+
+    col = torch.arange(sk, device=dev)[None]
+    hidden = torch.zeros(b, sk, dtype=torch.bool, device=dev)
+    if kv_bound is not None:
+        hidden |= col >= kv_bound.reshape(-1, 1)
+    if kv_low is not None:
+        hidden |= col < kv_low.reshape(-1, 1)
+    return hidden
 
 
 def check_channels(label, q, k, v, kw, time_it=False):
@@ -3326,6 +3414,547 @@ def channel_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 11
+
+# B7's channels at Baichuan2-13B's training shape (b, h, S, d: causal
+# ALiBi), and ALiBi with bound_causal over two cache capacities (b, h, Sq,
+# bounds, capacities, d).
+BAICHUAN_TRAIN_SHAPE = (4, 40, 2048, 128)
+ALIBI_CAPACITY_SHAPE = (2, 40, 512, (1100, 1900), (2048, 4096), 128)
+# BERT-large pretraining on phase 10's batch: AdamW steps, the share of
+# valid tokens masked for MLM, the learning rate (at 1e-4 from random
+# weights, no warm-up, the loss went 11.74, 15.10, 13.67, 14.61, 11.25 on
+# an H100); bert-large-uncased's [MASK] id.
+BERT_TRAIN_STEPS, BERT_MLM_SHARE, BERT_LR = 5, 0.15, 2e-5
+BERT_MASK_ID = 103
+# rel-L2 of each parameter's gradient, those sequences alone against their
+# share of the padded batch: bf16 products on both sides, GEMMs at other
+# row counts (the small models' bf16 gradient bound).
+BERT_PAD_GRAD_TOL = SMALL_GRAD_TOL
+# The Baichuan2-13B-width ALiBi GPT: depth (of 40), batch x tokens, AdamW
+# steps through training/trainer.py, learning rate.
+ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ = 2, 4, 2048
+ALIBI_TRAIN_STEPS, ALIBI_TRAIN_LR = 3, 1e-4
+
+
+def sdpa_bwd_backend_ms(label, q, k, v, dout, mask, scale):
+    """One PyTorch call of the same backward: SDPA's backward (the
+    memory-efficient backend first, then cuDNN and math) with ``mask``
+    (boolean or additive), K/V expanded to the q heads, through
+    torch.autograd.grad of its forward; (backend, device ms of the
+    backward alone, timer), or (None, None, None) when no backend takes
+    it."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[1] // k.shape[1]
+    qg = q.detach().requires_grad_()
+    kg, vg = (x.detach().repeat_interleave(group, dim=1).requires_grad_() for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    refused = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out = sdpa(qg, kg, vg, attn_mask=mask, scale=scale)
+
+            def call():
+                return torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
+
+            call()
+            torch.cuda.synchronize()
+            ms, _, timer = device_ms(call, reps=10)
+            return backend.name, ms, timer
+        except RuntimeError as e:  # a backend that refuses the call, or runs out of memory
+            refused.append(f"{backend.name}: {str(e).strip().splitlines()[0][:200]}")
+            torch.cuda.empty_cache()
+    log(f"  SDPA backward {label}: no backend took the call ({'; '.join(refused)})")
+    return None, None, None
+
+
+def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
+    """B7 with B1's per-batch channels (``kw``: kv_bound, kv_low,
+    bound_causal, alibi_slopes, causal, scale), checked by ``verify_bwd``
+    with the subnormal floor. With ``time_it`` also the whole backward's
+    device time beside its bound (the visible key pairs and the key rows
+    inside each batch's range), the plain version's time and SDPA's
+    backward with the equivalent mask or bias. ``keep``: also return (dq,
+    dk, dv)."""
+    import torch
+    from liteattention_torch.ops.flash_bwd import flash_attention_bwd, flash_bwd_plain
+
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    args, ch, grads, errs, rels = verify_bwd(label, q, k, v, dout, kw, floor=BWD_BLOCK_FLOOR)
+    out, lse, dout, scale, causal = args[3], args[4], args[5], args[6], args[7]
+    dq, dk, dv = grads
+    res = {"err": max(errs.values()), "rel_l2": max(t for t, _ in rels.values()),
+           "worst_block_rel_l2": max(w for _, w in rels.values()),
+           "no_key_rows": int((~torch.isfinite(lse)).sum())}
+    if time_it:
+        bound_t, low_t = ch.get("kv_bound"), ch.get("kv_low")
+        vis = visible_keys(b, sq, sk, q.device, causal, bound_t, low_t,
+                           ch.get("bound_causal", False))
+        pairs = int(vis.sum().item()) * h
+        lim = torch.full((b,), sk, device=q.device) if bound_t is None else bound_t.clamp(0, sk)
+        first = torch.zeros_like(lim) if low_t is None else low_t.clamp(0, sk)
+        key_rows = int((lim - first).clamp_min(0).sum().item())
+        kv_bytes = 2 * key_rows * hk * d * k.element_size()
+        res["bound_ms"], res["bound_by"] = bound(
+            10 * d * pairs, nbytes(q, out, dout, lse, dq, dk, dv) + kv_bytes)
+        res["visible_pairs"] = pairs
+        res["ms"], _, res["timer"] = device_ms(lambda: flash_attention_bwd(*args, **ch))
+        res["plain_ms"] = cuda_ms(lambda: flash_bwd_plain(*args, **ch), reps=1)
+        slopes = ch.get("alibi_slopes")
+        if slopes is None:
+            mask, kind = vis, "a boolean mask"
+        else:
+            slopes = slopes.float().reshape(-1, h).expand(b, h)[:, :, None, None]
+            dist = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+                    - torch.arange(sk, device=q.device)[None, :]).float()
+            dist = dist if causal else dist.abs()
+            mask = (-slopes * dist).masked_fill(~vis, -torch.inf).to(q.dtype)
+            kind = "an additive ALiBi bias"
+        backend, res["library_ms"], t_lib = sdpa_bwd_backend_ms(
+            f"B7 {label}", q, k, v, dout, mask, scale)
+        res["library"] = (None if backend is None
+                          else f"SDPA {backend} backward with {kind} ({t_lib})")
+        del mask
+        torch.cuda.empty_cache()
+        lib = "n/a" if backend is None else f"{res['library_ms']:.4f} ms {res['library']}"
+        log(f"  B7 {label}: backward {res['ms']:.4f} ms ({res['timer']}), plain "
+            f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+            f"{pairs} visible pairs), library {lib}")
+    return (res, (dq, dk, dv)) if keep else res
+
+
+def bwd_capacity_check(rnd, dev):
+    """ALiBi with bound_causal over two cache capacities (MHA's route over
+    a KV cache): each against its plain version, and the valid keys'
+    gradients across the capacities. They cannot be the same bits: B1
+    returns lse less slope * (Sk - bound) and B7 adds it back, so lse
+    comes back rounded at that constant's size, which differs between the
+    capacities; they are held by B7's rel-L2 limits and the share of equal
+    bits is logged."""
+    import torch
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    b, h, sq, bounds, caps, d = ALIBI_CAPACITY_SHAPE
+    q, dout = rnd(b, h, sq, d), rnd(b, h, sq, d)
+    k_all, v_all = rnd(b, h, max(caps), d), rnd(b, h, max(caps), d)
+    bound_t = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    kw = dict(kv_bound=bound_t, bound_causal=True, alibi_slopes=alibi_slopes(h).to(dev))
+    runs = {}
+    for cap in caps:
+        k, v = k_all[:, :, :cap].contiguous(), v_all[:, :, :cap].contiguous()
+        runs[cap] = check_bwd_channels(
+            f"ALiBi + bound_causal {b}x{h}x{sq}x{d} over a {cap}-key cache, bounds {bounds}",
+            q, k, v, dout, kw, keep=True)
+    (small_res, small), (big_res, big) = runs[caps[0]], runs[caps[1]]
+    rels, same = {}, {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        for j, n in enumerate(bounds):
+            got, ref = big[i][j : j + 1], small[i][j : j + 1]
+            if i:  # dK, dV: the keys inside the bound
+                got, ref = got[:, :, :n], ref[:, :, :n]
+            t, w = block_rel_l2(got, ref, floor=BWD_BLOCK_FLOOR)
+            prev = rels.get(name, (0.0, 0.0))
+            rels[name] = (max(prev[0], t), max(prev[1], w))
+            same[name] = same.get(name, 0.0) + (got == ref).float().mean().item() / len(bounds)
+    log(f"  B7 ALiBi + bound_causal, cache {caps[1]} vs {caps[0]} over the valid keys: rel-L2 "
+        + ", ".join(f"{n} {t:.2e} / worst block {w:.2e} ({same[n]:.4f} of the values equal)"
+                    for n, (t, w) in rels.items()))
+    for name, (t, w) in rels.items():
+        check(t < BWD_TOL and w < BWD_BLOCK_TOL,
+              f"B7 ALiBi over two capacities: {name} rel-L2 {t:.3e} / block {w:.3e}")
+    return {"err": max(small_res["err"], big_res["err"]),
+            "capacity_rel_l2": {n: t for n, (t, _) in rels.items()},
+            "capacity_equal_share": same}
+
+
+def bwd_channel_kernel_phase(dev):
+    """Phase 11 (a): B7's bound, low, bound_causal and ALiBi channels at the
+    training paths' shapes and at the edges, each against its plain
+    versions; the paths' shapes timed. Returns the kernels line's
+    flash_bwd_bound and flash_bwd_alibi entries."""
+    import torch
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    bound_res, alibi_res = {}, {}
+    # BERT-large's attention: right-padded lengths, non-causal.
+    b, h, s, d = BERT_BATCH, 16, BERT_SEQ, 64
+    lens = ints(BERT_MIN_LEN, BERT_SEQ, b)
+    bound_res["bert_large_padded"] = check_bwd_channels(
+        f"bound {b}x{h}x{s}x{d}, lengths {BERT_MIN_LEN}-{BERT_SEQ}", rnd(b, h, s, d),
+        rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d), dict(kv_bound=lens), time_it=True)
+    # A left-padded cache (kv_low) with Sq rows at its end, GQA.
+    b, h, hk, sq, sk, d = CACHE_APPEND_SHAPE
+    low, bound_t = ints(0, sk // 4 - 1, b), ints(sk // 2, sk, b)
+    bound_res["cache_low_bound_causal"] = check_bwd_channels(
+        f"bound + low + bound_causal {b}x{h}/{hk}x{sq}x{d} over {sk} keys",
+        rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d), rnd(b, h, sq, d),
+        dict(kv_bound=bound_t, kv_low=low, bound_causal=True), time_it=True)
+    # Rows that see no key (bound 0, bound == low, bound < low, bound_causal
+    # with bound < Sq), whole k-tiles past the bound or below the low key,
+    # and the low key inside a tile under causal.
+    edges = (("no-key rows", dict(kv_bound=torch.tensor([0, 100, 90, 60], device=dev),
+                                  kv_low=torch.tensor([0, 100, 120, 0], device=dev),
+                                  bound_causal=True)),
+             ("low inside a tile, causal", dict(
+                 kv_bound=torch.tensor([260, 200, 255, 129], device=dev),
+                 kv_low=torch.tensor([5, 129, 250, 0], device=dev), causal=True)))
+    bound_res["edges"] = {"err": max(
+        check_bwd_channels(f"{label} 4x2x150x64 over 260 keys", rnd(4, 2, 150, 64),
+                           rnd(4, 2, 260, 64), rnd(4, 2, 260, 64), rnd(4, 2, 150, 64),
+                           kw)["err"] for label, kw in edges)}
+    # ALiBi: Baichuan2-13B's training shape (causal, Sk = Sq), two cache
+    # capacities with bound_causal, non-causal Sq != Sk with [B, H] slopes
+    # at BTLM's 1/d scale, and GQA rows with no key.
+    b, h, s, d = BAICHUAN_TRAIN_SHAPE
+    slopes = alibi_slopes(h).to(dev)
+    alibi_res["baichuan_train"] = check_bwd_channels(
+        f"ALiBi causal {b}x{h}x{s}x{d} (Baichuan2-13B training)", rnd(b, h, s, d),
+        rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d),
+        dict(alibi_slopes=slopes, causal=True), time_it=True)
+    alibi_res["cache_capacities"] = bwd_capacity_check(rnd, dev)
+    b, h, sq, sk, d = ALIBI_NONCAUSAL_SHAPE
+    bh = slopes * torch.linspace(1.0, 0.5, b, device=dev)[:, None]
+    alibi_res["noncausal_bh_scale_d"] = check_bwd_channels(
+        f"ALiBi non-causal {b}x{h}x{sq}x{d} over {sk} keys, [B, H] slopes, scale 1/d",
+        rnd(b, h, sq, d), rnd(b, h, sk, d), rnd(b, h, sk, d), rnd(b, h, sq, d),
+        dict(alibi_slopes=bh, scale=1.0 / d))
+    r = check_bwd_channels(
+        "ALiBi + bound_causal, no-key rows 2x10/2x300x64 over 400 keys",
+        rnd(2, 10, 300, 64), rnd(2, 2, 400, 64), rnd(2, 2, 400, 64), rnd(2, 10, 300, 64),
+        dict(alibi_slopes=alibi_slopes(10).to(dev), bound_causal=True,
+             kv_bound=torch.tensor([100, 400], dtype=torch.int32, device=dev)))
+    check(r["no_key_rows"] > 0, "B7 ALiBi edges: no row without a key was tested")
+    alibi_res["edges"] = {"err": r["err"]}
+    torch.cuda.empty_cache()
+    return {"flash_bwd_bound": _channel_entry(bound_res, "bert_large_padded"),
+            "flash_bwd_alibi": _channel_entry(alibi_res, "baichuan_train")}
+
+
+def pretrain_loss(model, ids, mask, types, pos, labels, nsp, n_mlm, n_seq, rows=None):
+    """BERT's pretraining loss: MLM cross-entropy summed over the masked
+    positions ``pos`` over ``n_mlm``, plus NSP cross-entropy summed over
+    the sequences over ``n_seq`` (fp32). ``rows`` (bool ``[B]``): only
+    those sequences' terms, so that a batch's loss is the sum of its
+    sequences' shares."""
+    import torch.nn.functional as F
+
+    mlm, nsp_logits = model(ids, mask, types)
+    nsp_ce = F.cross_entropy(nsp_logits.float(), nsp, reduction="none")
+    if rows is not None:
+        pos = pos & rows[:, None]
+        nsp_ce = nsp_ce * rows
+    sel = pos.nonzero(as_tuple=True)
+    mlm_sum = F.cross_entropy(mlm[sel].float(), labels[sel], reduction="sum")
+    return mlm_sum / n_mlm + nsp_ce.sum() / n_seq
+
+
+def bert_batch(dev, cfg, b, s, min_len, seed):
+    """A right-padded pretraining batch: ids, mask, segment ids (A then B),
+    lengths, MLM positions (BERT_MLM_SHARE of the valid tokens, [MASK] in
+    the input, the original ids as labels) and NSP labels."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    lens = torch.randint(min_len, s + 1, (b,), generator=g, device=dev)
+    col = torch.arange(s, device=dev)[None]
+    mask = (col < lens[:, None]).to(torch.int32)
+    types = ((col >= (lens // 2)[:, None]) & mask.bool()).long()
+    pos = (torch.rand(b, s, generator=g, device=dev) < BERT_MLM_SHARE) & mask.bool()
+    pos[:, 0] = True  # at least one masked position a sequence
+    inp = ids.masked_fill(pos, BERT_MASK_ID)
+    nsp = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return inp, mask, types, lens, pos, ids, nsp
+
+
+def bert_train_phase(dev, card):
+    """Phase 11 (b): BERT-large pretraining (MLM + NSP) on phase 10's
+    right-padded batch, fp32 master weights, bf16 products, AdamW (the
+    counted path); then the gradient of a few sequences alone against their
+    share of the padded batch's."""
+    import torch
+    from liteattention_torch.models.bert import BertConfig, BertForPreTraining
+
+    cfg = BertConfig(dim=1024, num_layers=24, num_heads=16, ffn_dim=4096)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = BertForPreTraining(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(3))
+    n_params = sum(p.numel() for p in model.parameters())
+    inp, mask, types, lens, pos, labels, nsp = bert_batch(dev, cfg, BERT_BATCH, BERT_SEQ,
+                                                          BERT_MIN_LEN, seed=4)
+    n_mlm, n_seq = int(pos.sum().item()), BERT_BATCH
+    batch = (inp, mask, types, pos, labels, nsp, n_mlm, n_seq)
+    opt = torch.optim.AdamW(model.parameters(), lr=BERT_LR, weight_decay=0.01)
+    log(f"  BERT-large: {n_params / 1e6:.1f} M parameters (fp32 master, bf16 products), "
+        f"{BERT_BATCH} sequences right-padded to {BERT_SEQ} ({int(lens.sum())} valid tokens), "
+        f"MLM on {n_mlm} positions + NSP, AdamW lr {BERT_LR}, {BERT_TRAIN_STEPS} steps on "
+        "the one batch")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = pretrain_loss(model, *batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    pretrain_loss(model, *batch).backward()  # warm-up (cuBLAS, allocator), not counted
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(BERT_TRAIN_STEPS):
+        loss, ms = events_ms(step)
+        losses.append(loss.item())
+        step_ms.append(ms)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the training steps: {counts}")
+    log(f"  loss per step {[round(x, 4) for x in losses]}; ms/step (fwd + bwd + AdamW, events) "
+        f"{[round(x, 2) for x in step_ms]}; peak {peak:.2f} GB [{card}]")
+    check(all(math.isfinite(x) for x in losses), "BERT-large training loss is not finite")
+    check(losses[-1] < losses[0], "BERT-large training loss does not fall on a fixed batch")
+    want = cfg.num_layers * BERT_TRAIN_STEPS
+    check(counts["flash_fwd_bound"] == want and counts["flash_bwd_bound"] == want
+          and counts["flash_fwd"] == 0 and counts["flash_bwd_dq"] == 0,
+          f"BERT-large training: expected {cfg.num_layers} bound launches of B1 and of B7 a step")
+
+    # The padded batch's gradient, the share of a few sequences, against
+    # those sequences run alone (unpadded, no mask: the channel-free
+    # kernels), with the batch's normalisers.
+    order = torch.argsort(lens).tolist()
+    pick = [order[0], order[len(order) // 2], order[-1]]
+    rows = torch.zeros(BERT_BATCH, dtype=torch.bool, device=dev)
+    rows[pick] = True
+    model.zero_grad(set_to_none=True)
+    pretrain_loss(model, *batch, rows=rows).backward()
+    share = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    for i in pick:
+        n = int(lens[i])
+        sl = (slice(i, i + 1), slice(0, n))
+        pretrain_loss(model, inp[sl], None, types[sl], pos[sl], labels[sl], nsp[i : i + 1],
+                      n_mlm, n_seq).backward()
+    errs = {n: rel_l2(p.grad, share[n]) for n, p in model.named_parameters()
+            if share[n].abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    log(f"  gradient of sequences {pick} (lengths {[int(lens[i]) for i in pick]}) alone vs their "
+        f"share of the padded batch: worst parameter rel-L2 {errs[worst]:.3e} ({worst}; limit "
+        f"{BERT_PAD_GRAD_TOL})")
+    check(errs[worst] < BERT_PAD_GRAD_TOL,
+          "BERT-large: a sequence's gradient alone differs from its share of the padded batch")
+    steady = step_ms[1:]
+    out = {"ms_per_step": step_ms, "median_ms_per_step": statistics.median(steady),
+           "valid_tokens_per_s": int(lens.sum()) * 1e3 / statistics.median(steady),
+           "losses": losses, "peak_gb": peak, "parameters_m": n_params / 1e6,
+           "pad_grad_worst_rel_l2": errs[worst]}
+    del model, opt, share
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def alibi_train_phase(dev, card):
+    """Phase 11 (c): a Baichuan2-13B-width ALiBi GPT, its depth cut, trained
+    through training/trainer.py on one repeated batch (the counted path)."""
+    import itertools
+
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
+    from liteattention_torch.training.data import synthetic_lm_batches
+    from liteattention_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = baichuan2_13b_config(ALIBI_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(21))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = ALIBI_TRAIN_BATCH * ALIBI_TRAIN_SEQ
+    batch = next(synthetic_lm_batches(cfg.vocab_size, ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ, seed=22))
+    tcfg = TrainConfig(learning_rate=ALIBI_TRAIN_LR, warmup_steps=0, total_steps=1000,
+                       grad_clip=1.0)
+    trainer = Trainer(model, lambda m, x: gpt_loss_fn(m, x, x), tcfg, device=dev)
+    log(f"  Baichuan2-13B width: dim {cfg.dim}, {cfg.num_layers} of 40 layers, {cfg.num_heads} "
+        f"heads x {cfg.dim // cfg.num_heads}, ALiBi, ffn {cfg.ffn_dim}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.3f} B parameters (fp32 master, bf16 products); "
+        f"{ALIBI_TRAIN_BATCH} x {ALIBI_TRAIN_SEQ} tokens, one repeated batch, "
+        f"{ALIBI_TRAIN_STEPS} AdamW steps (lr {ALIBI_TRAIN_LR}) through Trainer.fit")
+    x = torch.as_tensor(batch, device=dev)
+    gpt_loss_fn(model, x, x).backward()  # warm-up (cuBLAS, allocator), not counted
+    model.zero_grad(set_to_none=True)
+    del x
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = []
+    trainer.fit(itertools.repeat(batch), ALIBI_TRAIN_STEPS, log_every=1,
+                tokens_per_batch=tokens, log_fn=recs.append)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in recs]
+    step_ms = [1e3 / r["steps_per_s"] for r in recs]
+    log(f"  launches during the training steps: {counts}")
+    ms = statistics.median(step_ms)
+    log(f"  loss per step {[round(v, 4) for v in losses]}; ms/step (host clock to the loss) "
+        f"{[round(v, 1) for v in step_ms]}, median {ms:.1f} = {tokens / ms * 1e3:.0f} tokens/s; "
+        f"peak {peak:.2f} GB [{card}]")
+    check(all(math.isfinite(v) for v in losses), "ALiBi GPT training loss is not finite")
+    check(losses[-1] < losses[0], "ALiBi GPT training loss does not fall on a repeated batch")
+    want = cfg.num_layers * ALIBI_TRAIN_STEPS
+    check(counts["flash_fwd_alibi"] == want and counts["flash_bwd_alibi"] == want
+          and counts["flash_fwd"] == 0 and counts["flash_bwd_dq"] == 0,
+          f"ALiBi GPT training: expected {cfg.num_layers} ALiBi launches of B1 and of B7 a step")
+    out = {"ms_per_step": step_ms, "median_ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "losses": losses, "peak_gb": peak, "parameters_b": n_params / 1e9,
+           "layers": cfg.num_layers}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def small_channel_train_check(dev):
+    """Phase 11 (d): one step's loss and gradients of small models on the
+    card (bf16, B1's and B7's channels) against the CPU (fp32, the plain
+    versions), from the same weights: a 2-layer ALiBi GPT at dim 384 with 6
+    heads of 64 and with 3 of 128 (head counts whose slopes take the
+    interleave), and a 2-layer BERT over a right-padded batch."""
+    import torch
+    from liteattention_torch.models.bert import BertConfig, BertForPreTraining
+    from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
+    from liteattention_torch.ops.flash_bwd import flash_bwd
+    from liteattention_torch.ops.flash_fwd import flash_attention
+
+    def compare(label, cpu, gpu, loss_fn, counters, want):
+        ref = loss_fn(cpu, "cpu")
+        ref.backward()
+        n0 = [getattr(fn, attr) for fn, attr in counters]
+        loss = loss_fn(gpu, dev)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = [getattr(fn, attr) - n for (fn, attr), n in zip(counters, n0)]
+        check(got == want, f"{label}: channel launches {got}, expected {want}")
+        e_loss = abs(loss.item() - ref.item()) / abs(ref.item())
+        grads = {n: p.grad for n, p in cpu.named_parameters()}
+        e_grad = {n: rel_l2(p.grad.float().cpu(), grads[n]) for n, p in gpu.named_parameters()
+                  if grads[n].abs().max() > 0}
+        worst = max(e_grad, key=e_grad.get)
+        log(f"  {label}, bf16 card vs fp32 CPU: loss {loss.item():.5f} vs {ref.item():.5f} (rel "
+            f"{e_loss:.2e}), worst grad rel-L2 {e_grad[worst]:.2e} ({worst})")
+        check(e_loss < SMALL_LOSS_TOL, f"{label}: loss disagrees")
+        check(e_grad[worst] < SMALL_GRAD_TOL, f"{label}: gradients disagree")
+        return max(e_loss, e_grad[worst])
+
+    worst = 0.0
+    alibi = ((flash_attention, "alibi_launches"), (flash_bwd, "alibi_launches"))
+    ids = torch.randint(0, 1000, (2, 300), generator=torch.Generator().manual_seed(32))
+    for heads in (6, 3):
+        cfg = dataclasses.replace(baichuan2_13b_config(2), dim=384, num_heads=heads,
+                                  vocab_size=1000, ffn_dim=1024)
+        cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+        cpu.reset_parameters(torch.Generator().manual_seed(31))
+        gpu = GPTLMHeadModel(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        worst = max(worst, compare(
+            f"small ALiBi GPT (dim 384, 2 layers, {heads} heads of {384 // heads}, 2 x 300)",
+            cpu, gpu, lambda m, where: gpt_loss_fn(m, ids.to(where), ids.to(where)), alibi,
+            [2, 2]))
+    cfg = BertConfig(vocab_size=1000, dim=256, num_layers=2, num_heads=4, ffn_dim=1024)
+    cpu = BertForPreTraining(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(33))
+    gpu = BertForPreTraining(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = bert_batch(torch.device("cpu"), cfg, 4, 300, 1, seed=34)
+    inp, mask, types, _, pos, labels, nsp = batch
+    n_mlm = int(pos.sum())
+
+    def bert_loss(m, where):
+        t = [x.to(where) for x in (inp, mask, types, pos, labels, nsp)]
+        return pretrain_loss(m, *t, n_mlm, 4)
+
+    bound = ((flash_attention, "bound_launches"), (flash_bwd, "bound_launches"))
+    worst = max(worst, compare("small BERT (dim 256, 2 layers, 4 heads of 64, 4 x 300 padded)",
+                               cpu, gpu, bert_loss, bound, [2, 2]))
+    return worst
+
+
+def alibi_api_grad_check(dev):
+    """Phase 11 (e): the gradient of flash_attn_func (causal, [B, H]
+    slopes) and flash_attn_qkvpacked_func ([H] slopes) with
+    ``alibi_slopes`` on the card (the counted path) against B7a's / B7b's
+    plain versions on the plain forward's out and lse."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_func, flash_attn_qkvpacked_func
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_bwd import flash_bwd_dkv_plain, flash_bwd_dq_plain
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    g = torch.Generator(device=dev).manual_seed(98)
+    b, s, h, d = 2, 600, 40, 128
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(b, s, h, d, generator=g, device=dev).to(torch.bfloat16)
+    slopes = alibi_slopes(h).to(dev)
+    reset_counts()
+    q, k, v = (qkv[:, :, i].detach().requires_grad_() for i in range(3))
+    flash_attn_func(q, k, v, causal=True, alibi_slopes=slopes.expand(b, h)).backward(dout)
+    packed = qkv.detach().requires_grad_()
+    flash_attn_qkvpacked_func(packed, alibi_slopes=slopes).backward(dout)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["flash_bwd_alibi"] == 2 and counts["flash_fwd_alibi"] == 2,
+          f"API gradient with alibi_slopes: {counts}")
+    heads = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    qh, kh, vh, doh = (heads(x) for x in (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dout))
+    err = 0.0
+    for name, grads, causal in (
+            ("flash_attn_func causal [B, H] slopes", (q.grad, k.grad, v.grad), True),
+            ("flash_attn_qkvpacked_func [H] slopes", packed.grad.unbind(2), False)):
+        o, lse = flash_attention_plain(qh, kh, vh, causal=causal, alibi_slopes=slopes)
+        delta = (o.float() * doh.float()).sum(-1)
+        args = (qh, kh, vh, doh, lse, delta, d**-0.5, causal)
+        refs = (flash_bwd_dq_plain(*args, alibi_slopes=slopes),
+                *flash_bwd_dkv_plain(*args, alibi_slopes=slopes))
+        rels = [block_rel_l2(heads(gr), r, floor=BWD_BLOCK_FLOOR) for gr, r in zip(grads, refs)]
+        err = max(err, max((heads(gr).float() - r.float()).abs().max().item()
+                           for gr, r in zip(grads, refs)))
+        log(f"  {name}: gradient on the card vs the plain versions: rel-L2 tensor / worst "
+            "block " + ", ".join(f"d{n} {t:.2e} / {w:.2e}" for n, (t, w) in zip("qkv", rels)))
+        check(all(t < BWD_TOL and w < BWD_BLOCK_TOL for t, w in rels), f"{name}: gradient disagrees")
+    return counts, err
+
+
+def channel_train_phase(dev, card):
+    """Phase 11: B7's channels, then training through B1's and B7's."""
+    import torch
+
+    torch.cuda.empty_cache()
+    log("  (a) B7's bound, low and ALiBi channels against their plain versions")
+    kres = bwd_channel_kernel_phase(dev)
+    counts, stats = {}, {}
+    log("  (b) BERT-large pretraining over a right-padded batch")
+    counts["bert_train"], stats["bert_large_train"] = bert_train_phase(dev, card)
+    log("  (c) a Baichuan2-13B-width ALiBi GPT (2 of 40 layers) through training/trainer.py")
+    counts["alibi_gpt_train"], stats["baichuan2_13b_width_train"] = alibi_train_phase(dev, card)
+    log("  (d) small models' training step on the card against the CPU")
+    stats["small_models_worst_rel"] = small_channel_train_check(dev)
+    log("  (e) the gradient of the flash API with alibi_slopes")
+    counts["alibi_api_grad"], api_err = alibi_api_grad_check(dev)
+    kres["flash_bwd_alibi"]["err"] = max(kres["flash_bwd_alibi"]["err"], api_err)
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -3335,6 +3964,11 @@ def channel_phase(dev, card):
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
               "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel",
               "pack_schedule_kernel")
+
+
+def digest_of_digests(*digests):
+    """One digest for several (the first 16 hex digits of their SHA-1)."""
+    return hashlib.sha1("".join(digests).encode()).hexdigest()[:16]
 
 
 def ab_times(reps):
@@ -3359,7 +3993,9 @@ def ab_times(reps):
     index_select at phase 6's shape (1 x 40 x 32 768 x 128 K and V, a
     random tile order), and of
     the whole backward ``flash_attention_bwd`` at the GPT-2 small shape
-    (causal) and at the Wan width (1 x 40 x 8192 x 128, non-causal), of B2
+    (causal), at the Wan width (1 x 40 x 8192 x 128, non-causal) and at the
+    Wan training step's self-attention (1 x 40 x 32 760 x 128), with a
+    digest of its dK and dV at the three, of B2
     at the slice's mask and, with ``kv_map``, at its front half (device
     time by queued_ms, call time by events, beside an empty ctypes launch
     and one fill of as many bytes); and a
@@ -3448,15 +4084,29 @@ def ab_times(reps):
     }
     decode = {k: device_ms(fn, reps)[0] for k, fn in decode.items()}
 
-    def bwd_ms(shape, causal):
+    def digest(*tensors):
+        """The first 16 hex digits of the SHA-1 of the tensors' bytes."""
+        sha = hashlib.sha1()
+        for x in tensors:
+            if x is not None:
+                sha.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return sha.hexdigest()[:16]
+
+    def bwd_ms(shape, causal, n=reps):
+        """The whole backward's ms, and the digest of its dK and dV (dQ is
+        summed by atomics, so only they are the same bits run to run)."""
         bq, bk, bv, bdo = (torch.randn(*shape, generator=g, device=dev).bfloat16()
                            for _ in range(4))
         bo, blse = flash_attention(bq, bk, bv, causal=causal, return_lse=True)
         scale = shape[-1] ** -0.5
-        return cuda_ms(lambda: flash_attention_bwd(bq, bk, bv, bo, blse, bdo, scale, causal), reps)
+        call = lambda: flash_attention_bwd(bq, bk, bv, bo, blse, bdo, scale, causal)  # noqa: E731
+        return cuda_ms(call, n), digest(*call()[1:])
 
-    bwd = {"bwd_gpt2_ms": bwd_ms((GPT_BATCH, 12, GPT_SEQ, 64), True),
-           "bwd_wan_ms": bwd_ms(WAN_BWD_SHAPE, False)}
+    gpt2_bwd, wan_bwd = bwd_ms((GPT_BATCH, 12, GPT_SEQ, 64), True), bwd_ms(WAN_BWD_SHAPE, False)
+    wan_train_bwd = bwd_ms((1, WAN_BWD_SHAPE[1], WAN_TRAIN_TOKENS, 128), False, n=max(2, reps // 4))
+    bwd = {"bwd_gpt2_ms": gpt2_bwd[0], "bwd_wan_ms": wan_bwd[0],
+           "bwd_wan_train_ms": wan_train_bwd[0],
+           "b7_dkv_digest": digest_of_digests(gpt2_bwd[1], wan_bwd[1], wan_train_bwd[1])}
 
     def b1_device_ms(b, hq, hk, sq, sk, d, causal):
         bq = torch.randn(b, hq, sq, d, generator=g, device=dev).bfloat16()
@@ -3523,14 +4173,6 @@ def ab_times(reps):
           "b6_copy_ms": cuda_ms(lambda: (kc.copy_(ka), vc.copy_(va)), reps)}
     del ka, va, fk, fv, kc, vc
     torch.cuda.empty_cache()
-
-    def digest(*tensors):
-        """The first 16 hex digits of the SHA-1 of the tensors' bytes."""
-        sha = hashlib.sha1()
-        for x in tensors:
-            if x is not None:
-                sha.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        return sha.hexdigest()[:16]
 
     digests = {
         "b2_digest": digest(*pack_schedule(mask), *pack_schedule(mask_kv, kv_map)),
@@ -3620,6 +4262,13 @@ def main() -> int:
         log(f"  phase 10 took {p10_stats['seconds']:.1f} s")
         counts.update(p10_counts)
         kres.update(p10_kres)
+        log("phase 11: training through B1's and B7's channels")
+        t11 = time.perf_counter()
+        p11_counts, p11_kres, p11_stats = channel_train_phase(dev, card)
+        p11_stats["seconds"] = time.perf_counter() - t11
+        log(f"  phase 11 took {p11_stats['seconds']:.1f} s")
+        counts.update(p11_counts)
+        kres.update(p11_kres)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3684,6 +4333,10 @@ def main() -> int:
         "flash_bwd_dq": ("flash_bwd.cu", "flash_bwd_kernel", "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_bwd_dkv": ("flash_bwd.cu", "flash_bwd_kernel",
                           "liteattention_tpu/ops/flash_bwd.py:238"),
+        "flash_bwd_bound": ("flash_bwd.cu", "flash_bwd_kernel",
+                            "liteattention_tpu/ops/flash_bwd.py:55"),
+        "flash_bwd_alibi": ("flash_bwd.cu", "flash_bwd_kernel",
+                            "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_decode": ("flash_decode.cu", "flash_decode_kernel",
                          "liteattention_tpu/ops/flash_fwd.py:843"),
         "paged_decode": ("flash_decode.cu", "flash_decode_kernel",
@@ -3710,6 +4363,8 @@ def main() -> int:
             "launches_by_path": by_path[name],
         }
         entry.update({k: v for k, v in r.items() if k not in keys and k != "err"})
+        if name in ("flash_bwd_bound", "flash_bwd_alibi"):  # B7a's and B7b's channels
+            entry["replaces_too"] = "liteattention_tpu/ops/flash_bwd.py:238"
         kernels.append(entry)
     log(f"training: {json.dumps(train_stats)}")
     log(f"serving: {json.dumps(serve_stats)}")
@@ -3718,6 +4373,7 @@ def main() -> int:
     log(f"wan two-expert: {json.dumps(two_expert_stats)}")
     log(f"wan training and calibration: {json.dumps(wan_train_stats)}")
     log(f"alibi and padded-batch serving: {json.dumps(p10_stats)}")
+    log(f"alibi and padded-batch training: {json.dumps(p11_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -12,7 +12,7 @@ FA3 with the skip extras ``attn_read_list`` and ``thr``. Without a mask
 it is dense attention through
 :func:`~liteattention_torch.ops.flash_fwd.flash_attention_masked` (kernel
 B1, plain or causal; with ``alibi_slopes`` ``[H]`` or ``[B, H]``, B1's
-ALiBi channel, forward only). With a dense bool tile mask ``attn_read_list`` its
+ALiBi channel, its gradient through B7's). With a dense bool tile mask ``attn_read_list`` its
 granularity is read from its shape, as in JAX: at fine 128 x 128 tiles
 the packer B2 and the gather kernel B3 run (one 128-row q-tile per CTA,
 vote step ``block_k / 128``); at the ``block_sizes`` compute tile the
@@ -53,9 +53,9 @@ itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
 ``attention_chunk``, the fp8 descales and ``int8_mma``. ``qv`` and a
 ``v_cache`` of another head dim than ``k_cache`` raise too: JAX serves
 them through B1's per-batch bound channel at the MLA shapes, which the
-port's B1 does not take with the bound (its bound and ALiBi channels run
-at head dim 64 and 128; ROADMAP A11). ALiBi with ``attn_read_list``
-raises, as every mask channel does on the skip path.
+port's B1 does not take with the bound (its bound and ALiBi channels, and
+B7's, run at head dim 64 and 128; ROADMAP A11). ALiBi with
+``attn_read_list`` raises, as every mask channel does on the skip path.
 
 ``flash_mla_with_kvcache`` is absorbed-MLA decode over one latent cache
 (:func:`~liteattention_torch.ops.mla.mla_decode`, kernel B10).

@@ -8,8 +8,10 @@ per-batch key bound: ``seqlens = attention_mask.sum(-1)`` becomes
 ``kv_bound``, so each row attends only its own sequence's keys and a valid
 row equals the sequence run alone; no unpad / repad round trip. Parameters
 are fp32 and every product runs in ``cfg.dtype``; gelu is the tanh
-approximation, as in JAX. Inference only: B1's bound channel has no
-backward yet, so a gradient raises (ROADMAP A11). The module names are
+approximation, as in JAX. It trains: the gradient runs B7 with the same
+bound (``flash_bwd.bound_launches``), so the padded keys get exactly 0
+and each sequence's gradient is the one it has alone; JAX has no BERT
+loss, so the MLM + NSP loss is the caller's. The module names are
 the Flax tree's, so JAX parameters load through
 :func:`~liteattention_torch.models.convert.state_dict_from_flax`
 (``layer_i`` -> ``layers.i``).

@@ -5,8 +5,10 @@ Counterpart of ``liteattention_tpu/models/gpt.py`` (``GPTConfig``,
 backbone: learned positions, GQA, plain or gated MLP, pre-norm with an
 fp32 residual stream, post-norm (OPT-350m, with projected embeddings),
 the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head, ALiBi
-positions (Baichuan-13B, BTLM; inference only: B1's ALiBi channel has no
-backward yet, so a gradient through it raises).
+positions (Baichuan-13B, BTLM: B1's ALiBi channel forward, B7's backward,
+so they train through :func:`gpt_loss_fn` and ``training/trainer.py``;
+BTLM's head dim 80 runs on the CPU only, and on the card raises naming
+its ROADMAP item).
 Parameters are fp32 and every product runs in ``cfg.dtype``; the
 embedding is looked up in ``cfg.dtype``, the tied head computes
 ``hidden @ wte.T`` in ``cfg.dtype`` and the logits come back fp32, as in

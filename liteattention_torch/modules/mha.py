@@ -10,7 +10,8 @@ the attention and back through ``out_proj``.
   :func:`~liteattention_torch.ops.flash_fwd.flash_attention` (kernel B1
   forward, B7 backward). With ``use_alibi`` the forward takes B1's ALiBi
   channel (:func:`~liteattention_torch.ops.flash_fwd.flash_attention_masked`
-  with :func:`alibi_slopes`), whose gradient raises (ROADMAP A11).
+  with :func:`alibi_slopes`) and the backward B7's. The cached path below
+  is forward-only, as in JAX.
 * Decoding (``inference_params``): a cache per layer, keyed by
   ``layer_idx``, in the head-major layout ``[B, Hk, S_max, D]``. The new
   rows are written in place at ``seqlen_offset`` (quantized with the

@@ -38,6 +38,25 @@
 // col <= r + Sk - Sq), tested by key_mask.cuh's key_masked, the test the
 // forward kernels use.
 //
+// B1's per-batch channels, backwards (entry lite_flash_bwd_masked; the JAX
+// kernels' has_bound, bound_causal, has_low and has_alibi): the keys of
+// batch b are [kv_low[b], min(Sk, kv_bound[b])), with bound_causal the
+// diagonal at kv_bound[b] - Sq (the smaller of the two when causal too;
+// bound_causal alone runs the CAUSAL instantiation at the bound's diagonal).
+// They are the RANGE instantiations: a CTA reads its batch's range once into
+// a KeyRange, folds the limit and the diagonal into the two bounds of the
+// test the channel-free kernel already makes (and adds the low key), starts
+// its causal walk at the bound's diagonal, and walks nothing when its k-tile
+// lies wholly past the limit or below the low key (it still stores its zero
+// dK and dV rows). ALIBI adds the bias -slope[b, h] log2(e) (|r + Sk - Sq -
+// col| - shift) to the log2-space scores, the slope per step of the walk
+// (the walk crosses the GQA group's q-heads; their slopes sit in shared
+// memory), as B1 does: with bound_causal shift = Sk - kv_bound[b], the least
+// distance of a visible key, which B1 drops from the scores and from lse
+// (flash_fwd.cu); bwd_pre_kernel adds slope shift back to lse, so P is
+// recomputed from the same small scores B1 summed. The channel-free
+// instantiations are left as they were.
+//
 // What bounds it on the H100: tensor-core throughput (10 d FLOPs per
 // (q row, key) pair, against bytes read once that are a small share at
 // these shapes). The design keeps every product on wgmma fed by TMA, and
@@ -78,6 +97,13 @@ struct Params {
   float scale_log2;   // scale * log2(e)
 };
 
+// B1's per-batch channels arrive as key_mask.cuh's Channels, a kernel
+// argument of their own so that the channel-free instantiations' Params
+// stay as they were; a CTA reads its batch's KeyRange once.
+
+// The most q-heads per kv-head whose ALiBi slopes a CTA keeps.
+constexpr int kMaxGroup = 256;
+
 // Shared-memory layout (byte offsets from a 1024-byte aligned base).
 template <int D>
 struct Smem {
@@ -93,6 +119,9 @@ struct Smem {
   static constexpr int delta = lse2 + kStages * kRows * 4;
   static constexpr int bars = delta + kStages * kRows * 4;  // kv, full[kStages]
   static constexpr int bytes = bars + (1 + kStages) * 8;
+  // ALIBI only: the group's slopes times log2(e), [kMaxGroup].
+  static constexpr int slopes = bytes;
+  static constexpr int bytes_alibi = slopes + kMaxGroup * 4;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -107,12 +136,21 @@ __device__ __forceinline__ float lse_log2(float lse) {
 
 // ------------------------------------------------------------ (a) pre
 
-template <int D>
+// With SHIFT (ALiBi with bound_causal) lse takes back the constant B1 left
+// out of the scores, slope[b, h] (Sk - kv_bound[b]), before it goes to log2
+// units, so that the main kernel's scores, which leave it out too, meet it.
+struct LseShift {
+  const float* alibi;    // [B, H] slopes
+  const int* kv_bound;   // [B]
+  int heads, seqlen_k;
+};
+
+template <int D, bool SHIFT>
 __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
                                const __nv_bfloat16* __restrict__ dout,
                                const float* __restrict__ lse, float* __restrict__ lse2,
                                float* __restrict__ delta, float* __restrict__ dq_accum,
-                               int seqlen_q, int seqlen_q_pad, int rows) {
+                               int seqlen_q, int seqlen_q_pad, int rows, LseShift sh) {
   constexpr int kLanes = D / 8;  // threads per row, 8 values each
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = gid / kLanes;
@@ -143,7 +181,12 @@ __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
   z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (part == 0) {
     delta[row] = valid ? acc : 0.f;
-    lse2[row] = valid ? lse_log2(lse[static_cast<size_t>(bh) * seqlen_q + r]) : INFINITY;
+    float l = valid ? lse[static_cast<size_t>(bh) * seqlen_q + r] : 0.f;
+    if (SHIFT && valid && l != -INFINITY) {
+      const int shift = max(sh.seqlen_k - __ldg(sh.kv_bound + bh / sh.heads), 0);
+      l += __ldg(sh.alibi + bh) * static_cast<float>(shift);
+    }
+    lse2[row] = valid ? lse_log2(l) : INFINITY;
   }
 }
 
@@ -202,11 +245,13 @@ __device__ __forceinline__ void load_step(const CUtensorMap& tm_q, const CUtenso
 }
 
 // The two warpgroups: wg owns keys k0 + 64 wg .. + 63. Thread 0 also
-// refills the ring and adds each step's dQ part to the accumulator.
-template <int D, bool CAUSAL>
+// refills the ring and adds each step's dQ part to the accumulator. RANGE
+// takes the keys of `r` (B1's channels), ALIBI the bias with the group's
+// slopes from shared memory.
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI>
 __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
                                         const Params& p, unsigned char* smem, const Walk& walk,
-                                        int b, int hk, int k0, int n_iter) {
+                                        const KeyRange& r, int b, int hk, int k0, int n_iter) {
   using L = Smem<D>;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* full = kv_full + 1;
@@ -217,7 +262,12 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   const int g = (tw % 32) / 4;
   const int t = tw % 4;
   const int key_lo = k0 + 64 * wg + 16 * warp + g;  // this thread's rows: key_lo, key_lo + 8
-  const bool ragged = k0 + kKeys > p.seqlen_k;
+  // Tiles that cross the key range's limit (or, RANGE, its low key) test
+  // it per element; the diagonal is the range's (the bound's with
+  // bound_causal).
+  const bool ragged = RANGE ? k0 + kKeys > r.lim || k0 < r.low : k0 + kKeys > p.seqlen_k;
+  const int diag_off = RANGE ? r.diag : p.causal_offset;
+  const float* slopes = reinterpret_cast<const float*>(smem + L::slopes);
   const uint32_t k_addr = sm90::smem_u32(smem + L::k);
   // K and V rows of this warpgroup as K-major A operands; dS and K as the
   // MN-major operands of dQ = dS K (K: this warpgroup's D / 2 columns).
@@ -277,7 +327,9 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     // P^T from lse2 (masked entries 0) and dS^T = P^T (dP^T - delta) scale,
     // each rounded to bf16 as the A operand of its product, 16 rows of the
     // walk at a time.
-    const bool diag = CAUSAL && k0 + 64 * wg + 16 * warp + 15 > row0 + p.causal_offset;
+    const bool diag = CAUSAL && k0 + 64 * wg + 16 * warp + 15 > row0 + diag_off;
+    // ALiBi: this step's q-head's slope (log2 units).
+    const float slope_log2 = ALIBI ? slopes[it / walk.nq] : 0.f;
     uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -288,10 +340,23 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
         // Off the ragged tile and the tiles that cross the diagonal, that
         // channel's bound moves out of reach: one branch-free test on every
         // tile (on an H100 faster than testing the tile flags per element).
-        s[e] = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
-                                  diag ? p.causal_offset : kNoBound)
-                   ? 0.f
-                   : ex2(s[e] * p.scale_log2 - lse2[qc]);
+        bool masked;
+        if constexpr (RANGE) {
+          masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? r.lim : kNoBound,
+                                      diag ? diag_off : kNoBound, ragged ? r.low : 0);
+        } else {
+          masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
+                                      diag ? p.causal_offset : kNoBound);
+        }
+        if constexpr (ALIBI) {
+          // B1's bias: JAX's distance, less the range's least one.
+          const int dist = abs(row0 + qc + p.causal_offset - key) - r.shift;
+          s[e] = masked ? 0.f
+                        : ex2(fmaf(s[e], p.scale_log2, -slope_log2 * static_cast<float>(dist)) -
+                              lse2[qc]);
+        } else {
+          s[e] = masked ? 0.f : ex2(s[e] * p.scale_log2 - lse2[qc]);
+        }
         dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;
       }
       sm90::frag_a(pf[k], s, k);
@@ -414,13 +479,15 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   }
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do, const Params p) {
+                     const __grid_constant__ CUtensorMap tm_do, const Params p,
+                     const Channels c) {
   static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -436,23 +503,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = blockIdx.x % p.kv_heads;
   const int k0 = kt * kKeys;
   const int qtiles = p.seqlen_q_pad / kRows;
+  const int group = p.heads / p.kv_heads;
+  const KeyRange range =
+      RANGE ? key_range(c, b, p.seqlen_q, p.seqlen_k, p.causal_offset)
+            : KeyRange{0, p.seqlen_k, p.causal_offset, 0};
   int q_first = 0;
   if constexpr (CAUSAL) {
     // First q-tile whose last row reaches the k-tile's first key.
-    const int x = k0 - p.causal_offset;
+    const int x = k0 - (RANGE ? range.diag : p.causal_offset);
     q_first = x < 0 ? 0 : min(qtiles, x / kRows);
   }
-  const int nq = qtiles - q_first;
+  int nq = qtiles - q_first;
+  // A k-tile wholly past the range's limit or below its low key sees no q
+  // row: no walk (its dK and dV rows are stored as zeros).
+  if (RANGE && (k0 >= range.lim || k0 + kKeys <= range.low)) nq = 0;
   const int ktiles = (p.seqlen_k + kKeys - 1) / kKeys;
-  const Walk walk{(b * p.heads + hk * (p.heads / p.kv_heads)), q_first, nq,
-                  CAUSAL ? 0 : kt * nq / ktiles};
-  const int n_iter = p.heads / p.kv_heads * nq;
+  const Walk walk{(b * p.heads + hk * group), q_first, nq, CAUSAL ? 0 : kt * nq / ktiles};
+  const int n_iter = group * nq;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 1);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) sm90::mbar_init(&full[s], 1);
     sm90::mbar_fence_init();
+  }
+  if constexpr (ALIBI) {
+    float* slopes = reinterpret_cast<float*>(smem + L::slopes);
+    for (int i = threadIdx.x; i < group; i += kThreads) {
+      slopes[i] = __ldg(c.alibi + walk.bh0 + i) * kLog2e;
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0 && n_iter > 0) {
@@ -461,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_step<D>(tm_q, tm_do, p, smem, it, walk.bh(it), walk.row0(it));
     }
   }
-  consume<D, CAUSAL>(tm_q, tm_do, p, smem, walk, b, hk, k0, n_iter);
+  consume<D, CAUSAL, RANGE, ALIBI>(tm_q, tm_do, p, smem, walk, range, b, hk, k0, n_iter);
 }
 
 // ----------------------------------------------------------- (c) post
@@ -511,17 +590,20 @@ struct Args {
   float scale;
 };
 
-template <int D, bool CAUSAL>
-cudaError_t run(const Args& a, cudaStream_t stream) {
+template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
+cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels{}) {
   const int sq_pad = (a.seqlen_q + kRows - 1) / kRows * kRows;
   const int rows = a.batch * a.heads * sq_pad;
   constexpr int kPreThreads = 256;
   const long long pre_threads = static_cast<long long>(rows) * (D / 8);
-  bwd_pre_kernel<D><<<static_cast<int>((pre_threads + kPreThreads - 1) / kPreThreads),
-                       kPreThreads, 0, stream>>>(
+  const int pre_blocks = static_cast<int>((pre_threads + kPreThreads - 1) / kPreThreads);
+  const LseShift sh{c.alibi, c.kv_bound, a.heads, a.seqlen_k};
+  auto pre = ALIBI && c.bound_causal ? bwd_pre_kernel<D, true> : bwd_pre_kernel<D, false>;
+  pre<<<pre_blocks, kPreThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a.o), static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<float*>(a.lse2),
-      static_cast<float*>(a.delta), static_cast<float*>(a.dq_accum), a.seqlen_q, sq_pad, rows);
+      static_cast<float*>(a.delta), static_cast<float*>(a.dq_accum), a.seqlen_q, sq_pad, rows,
+      sh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -548,18 +630,26 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
   p.causal_offset = a.seqlen_k - a.seqlen_q;
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
-  auto kernel = flash_bwd_kernel<D, CAUSAL>;
-  constexpr int smem = Smem<D>::bytes + 1024;  // + alignment of the base
+  auto kernel = flash_bwd_kernel<D, CAUSAL, RANGE, ALIBI>;
+  // + alignment of the base
+  constexpr int smem = (ALIBI ? Smem<D>::bytes_alibi : Smem<D>::bytes) + 1024;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int ktiles = (a.seqlen_k + kKeys - 1) / kKeys;
-  kernel<<<ktiles * bhk, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  kernel<<<ktiles * bhk, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   bwd_post_kernel<D><<<dim3(sq_pad / kRows, bh), 256, 0, stream>>>(
       static_cast<const float*>(a.dq_accum), static_cast<__nv_bfloat16*>(a.dq), a.seqlen_q,
       sq_pad);
   return cudaGetLastError();
+}
+
+// The RANGE instantiation at D, with or without the ALiBi bias.
+template <int D, bool CAUSAL>
+cudaError_t run_masked(const Args& a, const Channels& c, cudaStream_t stream) {
+  if (c.alibi != nullptr) return run<D, CAUSAL, true, true>(a, stream, c);
+  return run<D, CAUSAL, true, false>(a, stream, c);
 }
 
 }  // namespace bwd
@@ -583,6 +673,45 @@ extern "C" int lite_flash_bwd(const void* q, const void* k, const void* v, const
     err = causal ? run<64, true>(a, s) : run<64, false>(a, s);
   } else if (head_dim == 128) {
     err = causal ? run<128, true>(a, s) : run<128, false>(a, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// B7 with B1's per-batch channels: as lite_flash_bwd, plus kv_bound and
+// kv_low [B] int32 or null and alibi [B, H] fp32 slopes or null (at most
+// 256 q-heads per kv-head with ALiBi). Keys of batch b: [kv_low[b],
+// min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq; bound_causal (with
+// kv_bound) bottom-right at kv_bound[b] - Sq. lse is the forward's (B1's
+// with the same channels).
+extern "C" int lite_flash_bwd_masked(const void* q, const void* k, const void* v, const void* o,
+                                     const void* dout, const void* lse, void* dq, void* dk,
+                                     void* dv, void* dq_accum, void* lse2, void* delta,
+                                     const void* kv_bound, const void* kv_low, const void* alibi,
+                                     int batch, int heads, int kv_heads, int seqlen_q,
+                                     int seqlen_k, int head_dim, float scale, int causal,
+                                     int bound_causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using namespace lite::bwd;
+  if (alibi != nullptr && heads / kv_heads > kMaxGroup) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Args a{q, k, v, o, dout, lse, dq, dk, dv, dq_accum, lse2, delta,
+               batch, heads, kv_heads, seqlen_q, seqlen_k, scale};
+  lite::Channels c{};
+  c.kv_bound = static_cast<const int*>(kv_bound);
+  c.kv_low = static_cast<const int*>(kv_low);
+  c.alibi = static_cast<const float*>(alibi);
+  c.bound_causal = bound_causal != 0 && kv_bound != nullptr;
+  const bool diag = causal != 0 || c.bound_causal;  // the CAUSAL instantiation
+  c.bound_only = diag && causal == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    err = diag ? run_masked<64, true>(a, c, s) : run_masked<64, false>(a, c, s);
+  } else if (head_dim == 128) {
+    err = diag ? run_masked<128, true>(a, c, s) : run_masked<128, false>(a, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -168,17 +168,10 @@ struct Params {
   int qsub, ksub, sched_q, sched_k, vote_q, vote_k;
 };
 
-// B1's per-batch channels (the dense walk; null when absent): keys
-// [kv_low[b], kv_bound[b]), the diagonal at kv_bound[b] - Sq with
-// bound_causal (alone, without causal, when bound_only), ALiBi slopes [B, H]
-// (ALIBI). A kernel argument of their own: grown by these fields, Params
-// cost the list walk (B3) 9 registers and 5 % on an H100 (A/B of the two layouts).
-struct Channels {
-  const int* kv_bound;
-  const int* kv_low;
-  const float* alibi;
-  int bound_causal, bound_only;
-};
+// B1's per-batch channels (the dense walk) arrive as key_mask.cuh's
+// Channels, a kernel argument of their own: grown by these fields, Params
+// cost the list walk (B3) 9 registers and 5 % on an H100 (A/B of the two
+// layouts).
 
 // Keys per k-tile and ring depth of the (DK, DV) instantiation. (192, 128)
 // takes two 128-key stages with split barriers; 64-key tiles in three
@@ -205,38 +198,6 @@ struct Smem {
   static constexpr int bars = ring + T::kStages * kStage;
   static constexpr int bytes = bars + (4 * T::kStages + 1) * 8;
 };
-
-// The diagonal offset of "no diagonal" (bound_causal's offset replaces it).
-constexpr int kNoDiag = 1 << 29;
-
-// The keys of a CTA, uniform over it: [low, lim), and with CAUSAL those at
-// most row + diag. Without B1's channels [0, Sk) at diag Sk - Sq. shift:
-// the least ALiBi distance of a visible key, Sk - kv_bound[b] with
-// bound_causal (else 0).
-struct KeyRange {
-  int low, lim, diag, shift;
-};
-
-// Read once per CTA; each field goes through lane 0 so that the compiler
-// sees it warp-uniform (the walk's length and TMA's coordinates derive from
-// it).
-__device__ __forceinline__ KeyRange key_range(const Params& p, const Channels& c, int b) {
-  KeyRange r{0, p.seqlen_k, c.bound_only ? kNoDiag : p.causal_offset, 0};
-  if (c.kv_bound != nullptr) {
-    const int bound = __ldg(c.kv_bound + b);
-    r.lim = min(r.lim, max(bound, 0));
-    if (c.bound_causal) {
-      r.diag = min(r.diag, bound - p.seqlen_q);
-      r.shift = max(p.seqlen_k - bound, 0);
-    }
-  }
-  if (c.kv_low != nullptr) r.low = max(__ldg(c.kv_low + b), 0);
-  r.low = __shfl_sync(0xffffffffu, r.low, 0);
-  r.lim = __shfl_sync(0xffffffffu, r.lim, 0);
-  r.diag = __shfl_sync(0xffffffffu, r.diag, 0);
-  r.shift = __shfl_sync(0xffffffffu, r.shift, 0);
-  return r;
-}
 
 // The k-tiles a CTA visits, in order: n >= 1 of them, so that every wgmma
 // of the mainloop is issued outside a branch (ptxas serialises wgmmas in a
@@ -545,7 +506,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
   // The dense walk: its keys, tiles and (b, kv head), uniform over the CTA.
-  KeyRange range = DENSE ? key_range(p, c, b) : KeyRange{};
+  KeyRange range = DENSE ? key_range(c, b, p.seqlen_q, p.seqlen_k, p.causal_offset)
+                         : KeyRange{};
   const DenseWalk dwalk = DENSE ? dense_walk<CAUSAL, kKeys>(q0, range) : DenseWalk{};
   const int n_dense = dwalk.n;
   const int k0 = dwalk.first;  // the dense walk's first tile
@@ -937,7 +899,7 @@ extern "C" int lite_flash_fwd_masked(const void* q, const void* k, const void* v
   p.kv_heads = kv_heads;
   p.seqlen_q = seqlen_q;
   p.seqlen_k = seqlen_k;
-  Channels c{};
+  lite::Channels c{};
   c.kv_bound = static_cast<const int*>(kv_bound);
   c.kv_low = static_cast<const int*>(kv_low);
   c.alibi = static_cast<const float*>(alibi);

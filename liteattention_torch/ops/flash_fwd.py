@@ -20,15 +20,17 @@ Takes bf16 on the card (any float dtype on the CPU), head dim 64 or 128,
 GQA, causal or not. The wrapper runs the plain PyTorch version for CPU
 tensors and the kernel for CUDA tensors.
 
-:func:`flash_attention_masked` adds B1's per-batch channels, forward only:
+:func:`flash_attention_masked` adds B1's per-batch channels, differentiable:
 the key range ``[kv_low[b], kv_bound[b])`` with ``bound_causal`` (bottom-
 right causality against the bound: KV caches, right-padded batches) and
 the ALiBi bias (``alibi_slopes`` ``[H]`` or ``[B, H]``), on the same kernel
 (entry ``lite_flash_fwd_masked``; launches counted in
 ``flash_attention.bound_launches``, and with ALiBi in
-``flash_attention.alibi_launches``). Their gradient raises: B7's channels
-are ROADMAP A11. The other JAX mask channels (segments, window, softcap,
-dropout) are not ported and raise.
+``flash_attention.alibi_launches``). Their gradient runs B7 with the same
+channels (``flash_attention_bwd``; counted in ``flash_bwd.bound_launches``
+and ``.alibi_launches``); the channels themselves get no gradient, as in
+JAX. The other JAX mask channels (segments, window, softcap, dropout) are
+not ported and raise.
 
 MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
 ``qv . v`` to the scores -- are forward only, as in JAX (entry
@@ -292,7 +294,8 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     b, h, sq, d = q.shape
     if d not in (64, 128):
-        raise ValueError(f"head dim {d} not built (64 or 128)")
+        raise ValueError(f"head dim {d} not built (64 or 128; head dim 80, BTLM's, is "
+                         "ROADMAP A11's next item)")
     _build.check_aligned(q, k, v)
 
     def per_batch(x):
@@ -329,8 +332,8 @@ flash_attention.mla_v512_launches = 0
 
 class _FlashAttentionMasked(torch.autograd.Function):
     """Forward through B1 with its per-batch channels (or the plain
-    version); B7 does not take them yet, so the backward raises, on the CPU
-    as on the card."""
+    version), backward through B7 with the same channels. The channels get
+    no gradient (None), as JAX's ``_flash_core_bwd`` gives none."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_bound, kv_low, alibi, scale, causal, bound_causal):
@@ -341,15 +344,17 @@ class _FlashAttentionMasked(torch.autograd.Function):
             out, lse = flash_attention_plain(q, k, v, scale, causal, **channels)
         else:
             out, lse = _launch(q, k, v, scale, causal, **channels)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.channels = scale, causal, channels
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        raise NotImplementedError(
-            "flash_attention_masked: kv_bound, kv_low and alibi_slopes are forward-only in "
-            "the port; their backward (B7's channels) is ROADMAP A11"
-        )
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale, ctx.causal,
+                                         **ctx.channels)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_masked(
@@ -378,8 +383,9 @@ def flash_attention_masked(
     go to :func:`flash_attention` (kernel B1, with its backward), and so do
     ``qv`` and a V of its own head dim, the MLA shapes.
 
-    B1's per-batch channels run on the same kernel, forward only (a
-    gradient through them raises ``NotImplementedError``, ROADMAP A11):
+    B1's per-batch channels run on the same kernel, and their gradient
+    on B7 with the same channels (q, k and v get theirs; the channels get
+    none, as in JAX):
     ``kv_bound`` ``[B]`` (the total valid key length per batch; with
     ``bound_causal`` q row ``i`` sees keys ``< kv_bound - Sq + i + 1``, the
     KV-cache append alignment; ``bound_causal`` without ``kv_bound`` does

@@ -7,7 +7,11 @@ Tolerances: fp32 within 1e-4 rel-L2 (summation order only, as
 tests/test_torch_gpt.py holds the GPT forward); bf16 within 2e-2 rel-L2
 (the two frameworks round bf16 products and activations at other
 places). Padding invariance, fp32: each sequence's valid rows in the
-padded batch equal the sequence run alone within 1e-5 absolute.
+padded batch equal the sequence run alone within 1e-5 absolute. Training:
+an MLM + NSP loss (defined here: JAX has no BERT loss) summed over
+sequences, its fp32 gradient within 1e-4 rel-L2 of jax.grad for every
+parameter, and the padded batch's gradient within 1e-5 rel-L2 of the sum
+of its sequences' gradients run alone.
 """
 
 import dataclasses
@@ -28,6 +32,8 @@ from liteattention_torch.models.convert import state_dict_from_flax  # noqa: E40
 
 LENGTHS = [100, 37, 1, 64]
 S = 100
+GRAD_TOL = 1e-4  # rel-L2 of each parameter's fp32 gradient against jax.grad
+PAD_GRAD_TOL = 1e-5  # ... and of the padded batch's against the sequences alone
 
 
 def _batch(seed=0):
@@ -93,10 +99,61 @@ def test_padding_invariance():
             np.testing.assert_allclose(batch[i, :n].numpy(), alone[0].numpy(), atol=1e-5, rtol=0)
 
 
+def _mlm_nsp(seed=5):
+    """MLM positions (15 % of the valid tokens, at least one a sequence),
+    their labels and NSP labels, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    _, mask, _ = _batch()
+    pos = (rng.rand(*mask.shape) < 0.15) & mask.astype(bool)
+    pos[np.arange(len(LENGTHS)), 0] = True
+    labels = rng.randint(0, 256, mask.shape).astype(np.int32)
+    nsp = rng.randint(0, 2, len(LENGTHS)).astype(np.int32)
+    return pos, labels, nsp
+
+
+def _torch_loss(model, ids, mask, types, pos, labels, nsp):
+    """MLM + NSP pretraining loss, summed over sequences (so that a batch's
+    loss is the sum of its sequences')."""
+    mlm, nsp_logits = model(ids, mask, types)
+    ce = torch.nn.functional.cross_entropy(mlm.reshape(-1, mlm.shape[-1]), labels.reshape(-1),
+                                           reduction="none").reshape(labels.shape)
+    return (ce * pos).sum() + torch.nn.functional.cross_entropy(nsp_logits, nsp, reduction="sum")
+
+
 def test_bert_backward_raises():
-    # B1's bound channel has no backward yet (ROADMAP A11).
-    pmodel = BertForPreTraining(dataclasses.replace(BertConfig.tiny(), dtype=torch.float32),
-                                device="cpu")
-    ids, mask, _ = _batch()
-    with pytest.raises(NotImplementedError, match="A11"):
-        pmodel(t(ids).long(), t(mask))[0].sum().backward()
+    # Once pinned the raise of a gradient through B1's bound channel; B7
+    # now takes it, so BertForPreTraining's MLM + NSP gradient (fp32, the
+    # Flax tree converted) is held against jax.grad of the same loss (each
+    # parameter within GRAD_TOL rel-L2), and the padded batch's gradient
+    # against the sum of its sequences' gradients run alone, unpadded
+    # (each parameter within PAD_GRAD_TOL rel-L2).
+    jmodel, params, pmodel = _pair(JBertForPreTraining, BertForPreTraining, "float32")
+    ids, mask, types = _batch()
+    pos, labels, nsp = _mlm_nsp()
+
+    def jloss(p):
+        m, n = jmodel.apply(p, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(types))
+        lm = jax.nn.log_softmax(m, axis=-1)
+        ce = -jnp.take_along_axis(lm, jnp.asarray(labels)[..., None], axis=-1)[..., 0]
+        ln = jax.nn.log_softmax(n, axis=-1)
+        return (jnp.sum(jnp.where(jnp.asarray(pos), ce, 0.0))
+                - jnp.sum(jnp.take_along_axis(ln, jnp.asarray(nsp)[:, None], axis=-1)))
+
+    jl, jgrads = jax.value_and_grad(jloss)(params)
+    jgrads = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jgrads))
+    tid, tmask, ttypes = t(ids).long(), t(mask), t(types).long()
+    tpos, tlab, tnsp = t(pos).float(), t(labels).long(), t(nsp).long()
+    loss = _torch_loss(pmodel, tid, tmask, ttypes, tpos, tlab, tnsp)
+    loss.backward()
+    assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl))
+    batch_grads = {n: p.grad.clone() for n, p in pmodel.named_parameters()}
+    assert set(batch_grads) == set(jgrads)
+    for n, g in batch_grads.items():
+        assert rel_l2(g.numpy(), jgrads[n].numpy()) < GRAD_TOL, n
+    # Padding invariance of the gradient.
+    pmodel.zero_grad()
+    for i, n in enumerate(LENGTHS):
+        sl = (slice(i, i + 1), slice(0, n))
+        _torch_loss(pmodel, tid[sl], None, ttypes[sl], tpos[sl], tlab[sl], tnsp[i : i + 1]).backward()
+    for n, p in pmodel.named_parameters():
+        assert rel_l2(p.grad.numpy(), batch_grads[n].numpy()) < PAD_GRAD_TOL, n

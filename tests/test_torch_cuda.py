@@ -220,10 +220,138 @@ def test_flash_fwd_kernel_alibi_cache_capacity(dev):
 
 
 def test_flash_fwd_kernel_channels_backward_raises(dev):
+    # Once pinned the raise of a gradient through B1's channels; the
+    # gradient now runs B7's RANGE instantiation, held against B7a's / B7b's
+    # plain versions on the forward's out and lse.
     q, k, v = (x.requires_grad_() for x in _qkv(dev, 1, 2, 2, 128, 128, 64))
-    out = flash_attention_masked(q, k, v, kv_bound=torch.tensor([100], device=dev))
-    with pytest.raises(NotImplementedError, match="A11"):
-        out.float().sum().backward()
+    bound = torch.tensor([100], device=dev)
+    out, lse = flash_attention_masked(q, k, v, kv_bound=bound, return_lse=True)
+    n0 = flash_bwd.bound_launches
+    out.float().sum().backward()
+    assert flash_bwd.bound_launches == n0 + 1
+    qd, kd, vd, od = (x.detach() for x in (q, k, v, out))
+    do = torch.ones_like(od)
+    delta = (od.float() * do.float()).sum(-1)
+    args = (qd, kd, vd, do, lse, delta, 64**-0.5, False)
+    refs = (flash_bwd_dq_plain(*args, kv_bound=bound), *flash_bwd_dkv_plain(*args, kv_bound=bound))
+    for got, ref in zip((q.grad, k.grad, v.grad), refs):
+        _check_grad(got, ref)
+    assert k.grad[:, :, 100:].abs().max().item() == 0.0
+
+
+# B7 with B1's channels: (b, h, hk, sq, sk, d), kv_bound, kv_low, causal,
+# bound_causal, ALiBi ("h": [H], "bh": [B, H], None). Bounds inside a tile
+# and on its edge, a k-tile wholly past the bound and one wholly below
+# kv_low (no walk: zero dK/dV), rows that see no key, bound_causal over a
+# cache with and without causal, ALiBi with GQA groups of 2, 4 and 5.
+BWD_CHANNEL_CASES = [
+    ((3, 4, 2, 200, 300, 64), [300, 131, 7], None, False, False, None),
+    ((2, 8, 2, 130, 1059, 128), [1059, 500], None, False, True, None),
+    ((3, 4, 2, 140, 500, 64), [500, 300, 270], [5, 128, 140], False, True, None),
+    ((2, 2, 1, 100, 300, 128), [350, 160], None, True, True, None),
+    ((4, 2, 2, 150, 260, 64), [0, 100, 90, 100], [0, 100, 120, 0], False, True, None),
+    ((2, 4, 2, 130, 300, 64), None, None, False, False, "h"),
+    ((2, 4, 1, 300, 140, 128), None, None, True, False, "bh"),
+    ((2, 10, 2, 256, 1024, 64), [256, 700], None, False, True, "h"),
+    ((2, 8, 2, 4, 1059, 128), [1059, 700], [0, 3], False, True, "bh"),
+    ((2, 6, 3, 257, 700, 64), [600, 257], [0, 200], False, False, "h"),
+]
+
+
+def _bwd_channels(dev, b, h, bound, low, bound_causal, alibi):
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    kw = dict(bound_causal=bound_causal)
+    if bound is not None:
+        kw["kv_bound"] = torch.tensor(bound, dtype=torch.int32, device=dev)
+    if low is not None:
+        kw["kv_low"] = torch.tensor(low, dtype=torch.int32, device=dev)
+    if alibi is not None:
+        slopes = alibi_slopes(h).to(dev)
+        kw["alibi_slopes"] = slopes if alibi == "h" else slopes * torch.linspace(
+            1.0, 2.0, b, device=dev)[:, None]
+    return kw
+
+
+@pytest.mark.parametrize("shape,bound,low,causal,bound_causal,alibi", BWD_CHANNEL_CASES)
+def test_flash_bwd_kernel_channels(dev, shape, bound, low, causal, bound_causal, alibi):
+    b, h, hk, sq, sk, d = shape
+    q, k, v = _qkv(dev, b, h, hk, sq, sk, d, seed=sq + sk)
+    do = _qkv(dev, b, h, hk, sq, sk, d, seed=sq)[0]
+    kw = _bwd_channels(dev, b, h, bound, low, bound_causal, alibi)
+    out, lse = flash_attention_plain(q, k, v, causal=causal, **kw)
+    out = out.to(torch.bfloat16)
+    counter = "alibi_launches" if alibi else "bound_launches"
+    n0 = getattr(flash_bwd, counter)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_bwd, counter) == n0 + 1
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, d**-0.5, causal)
+    rq = flash_bwd_dq_plain(*args, **kw)
+    rk, rv = flash_bwd_dkv_plain(*args, **kw)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _check_grad(got, ref)
+    col = torch.arange(sk, device=dev)[None]
+    hidden = torch.zeros(b, sk, dtype=torch.bool, device=dev)
+    if bound is not None:
+        hidden |= col >= kw["kv_bound"][:, None]
+    if low is not None:
+        hidden |= col < kw["kv_low"][:, None]
+    if hidden.any():
+        for g in (dk, dv):
+            assert g.transpose(1, 2)[hidden].abs().max().item() == 0.0
+    empty = ~torch.isfinite(lse)
+    if empty.any():
+        assert dq[empty].abs().max().item() == 0.0
+    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _check_grad(dq2, rq)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_kernel_full_bound_matches(dev, causal):
+    # A bound of Sk and a low of 0 (bound_causal under causal: the same
+    # diagonal) is the channel-free backward: dK and dV bit for bit, dQ
+    # (atomics) by rel-L2.
+    q, k, v = _qkv(dev, 2, 8, 2, 300, 555, 128, seed=3)
+    do = _qkv(dev, 2, 8, 2, 300, 555, 128, seed=4)[0]
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    full = torch.full((2,), 555, dtype=torch.int32, device=dev)
+    ref = flash_attention_bwd(q, k, v, out, lse, do, 128**-0.5, causal)
+    got = flash_attention_bwd(q, k, v, out, lse, do, 128**-0.5, causal, kv_bound=full,
+                              kv_low=full * 0, bound_causal=causal)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    _check_grad(got[0], ref[0])
+
+
+def test_flash_bwd_kernel_alibi_cache_capacity(dev):
+    # ALiBi with bound_causal over a 2048-key cache and over a cache of the
+    # bound's length, through autograd: the valid keys' gradients agree
+    # (lse comes back from B1 less slope * (Sk - bound) and B7 adds it back,
+    # so the last bits may move), the keys past the bound get 0.
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    slopes = alibi_slopes(40).to(dev)
+    bound = torch.tensor([1100, 1900], dtype=torch.int32, device=dev)
+    q, k, v = _qkv(dev, 2, 40, 40, 64, 2048, 128, seed=7)
+    do = _qkv(dev, 2, 40, 40, 64, 2048, 128, seed=8)[0]
+    kw = dict(bound_causal=True, alibi_slopes=slopes)
+
+    def grads(qx, kx, vx, dox, bnd):
+        qx, kx, vx = (x.detach().clone().requires_grad_() for x in (qx, kx, vx))
+        flash_attention_masked(qx, kx, vx, kv_bound=bnd, **kw).backward(dox)
+        return qx.grad, kx.grad, vx.grad
+
+    big = grads(q, k, v, do, bound)
+    for i, n in enumerate(bound.tolist()):
+        sl = slice(i, i + 1)
+        small = grads(q[sl], k[sl, :, :n], v[sl, :, :n], do[sl], bound[sl])
+        _check_grad(big[0][sl], small[0])
+        for g_big, g_small in zip(big[1:], small[1:]):
+            _check_grad(g_big[sl, :, :n], g_small)
+            assert g_big[sl, :, n:].abs().max().item() == 0.0
 
 
 # The backward also at GQA group 4, D 128, Sq > Sk (causal rows with no

@@ -5,8 +5,9 @@ interpret mode.
 
 Tolerances, fp32: out and lse within 2e-5 absolute (the two differ in
 summation order only: online softmax over 128-key tiles against one exact
-softmax), as tests/test_torch_flash_fwd.py holds the plain forms. Rows
-that see no key must give out 0 and lse -inf in both.
+softmax), as tests/test_torch_flash_fwd.py holds the plain forms, and the
+gradients through each channel within 2e-5 of JAX's VJP. Rows that see no
+key must give out 0 and lse -inf in both.
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from liteattention_torch.modules.mha import alibi_slopes  # noqa: E402
 from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked  # noqa: E402
 
 TOL = 2e-5
+GRAD_TOL = 2e-5  # dq, dk, dv against JAX's VJP (fp32, O(1) entries)
 
 
 def _inputs(seed, b, h, hk, sq, sk, d):
@@ -149,13 +151,25 @@ def test_alibi_slopes_match_jax(n):
 
 @pytest.mark.parametrize("channel", ["kv_bound", "kv_low", "alibi_slopes"])
 def test_gradient_through_a_channel_raises(channel):
-    q, k, v = (t(x).requires_grad_() for x in _inputs(9, 2, 2, 2, 64, 64, 64))
-    kw = {"kv_bound": dict(kv_bound=torch.tensor([64, 30]), bound_causal=True),
-          "kv_low": dict(kv_low=torch.tensor([0, 3])),
-          "alibi_slopes": dict(alibi_slopes=alibi_slopes(2))}[channel]
-    out = flash_attention_masked(q, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="A11"):
-        out.sum().backward()
+    # Once pinned the raise of a gradient through a channel; B7 now takes
+    # the channels, so the gradient through each is held against jax.vjp
+    # of JAX's flash_attention_masked (GRAD_TOL; see
+    # tests/test_torch_flash_bwd_channels.py for every combination).
+    q, k, v = _inputs(9, 2, 2, 2, 64, 64, 64)
+    do = np.random.RandomState(19).randn(*q.shape).astype(np.float32)
+    kw = {"kv_bound": dict(kv_bound=np.asarray([64, 30], np.int32), bound_causal=True),
+          "kv_low": dict(kv_low=np.asarray([0, 3], np.int32)),
+          "alibi_slopes": dict(alibi_slopes=np.asarray(jalibi_slopes(2)))}[channel]
+    jkw = {n: jnp.asarray(x) if isinstance(x, np.ndarray) else x for n, x in kw.items()}
+    _, vjp = jax.vjp(lambda q_, k_, v_: jmasked(q_, k_, v_, block_sizes=JBS(128, 128), **jkw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    pkw = {n: t(x) if isinstance(x, np.ndarray) else x for n, x in kw.items()}
+    flash_attention_masked(tq, tk, tv, **pkw).backward(t(do))
+    for g, r, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_TOL, rtol=0,
+                                   err_msg=f"d{name}")
 
 
 def test_channel_shapes_and_unported_channels():
