@@ -6,7 +6,8 @@
 Each variant undoes one decision of ``liteattention_torch/ops/csrc/
 flash_fwd.cu:flash_fwd_kernel`` in a copy of the sources, builds that copy
 alone (``nvcc``, as ``liteattention_torch.ops._build`` does, with
-``mla_fwd.cu``, which the file's MLA entry calls) and loads its
+``flash_fwd_hd.cu`` and ``mla_fwd.cu``, which the file's entries call)
+and loads its
 ``lite_flash_fwd_dense`` entry. All variants are timed in turns (order
 reversed every other round) at B1's four shapes on the main paths -- the
 Wan self- and cross-attention, causal GPT-2 small and the causal serving
@@ -296,7 +297,8 @@ def build(names, work):
         if VARIANTS[name] is not None:
             (d / FWD).write_text(VARIANTS[name]((d / FWD).read_text()))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-o",
-               str(d / "lib.so"), str(d / FWD), str(d / "mla_fwd.cu")]
+               str(d / "lib.so"), str(d / FWD), str(d / "flash_fwd_hd.cu"),
+               str(d / "mla_fwd.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     out = {}

@@ -171,6 +171,25 @@ Phases (any failure exits non-zero and prints no result line):
    and a small BERT, one step on the card against the CPU; (e) the
    gradient of ``flash_attn_func`` / ``flash_attn_qkvpacked_func`` with
    ``alibi_slopes`` against the plain versions.
+12. (Runs after 11.) Head dims 80 and 96, and BTLM-3B-8K on the card: (a)
+   B1 and B7 against their plain versions (rel-L2 over each tensor and
+   every 128-row block; dK/dV bit for bit over two runs) at BTLM's shapes,
+   head dim 80 -- the ALiBi prefill of 8 x 32 x 4096 over an 8192-key
+   cache with bound_causal, its single-token steps at bounds 4097-4160,
+   causal ALiBi and channel-free causal over one 8192-token training
+   sequence -- and at GPT-NeoX-20B's attention, 4 x 64 x 2048 x 96 causal
+   (head dim 96); each timed beside its bound, its plain version and one
+   SDPA call; (b) a small BTLM at head dim 80 on the card against the CPU
+   (decode teacher-forced, one training step), then BTLM-3B-8K (cerebras/
+   btlm-3b-8k-base config.json: 2560 wide, 32 layers, 32 heads of 80,
+   ALiBi, SwiGLU ffn 6826 passed explicitly, vocab 50 257, muP, scale 1/d;
+   2.65 B random fp32 parameters) serving 8 requests of 4096-token prompts,
+   64 greedy tokens each into an 8192-token cache: one ALiBi B1 launch a
+   layer a model call and no decode-kernel launch; the decode logits
+   against a full recompute, two planted faults read above its limit; (c)
+   the same model trained on one repeated 8192-token sequence through
+   ``training/trainer.py``, remat, AdamW, 3 steps (32 ALiBi B7 launches a
+   step; the loss falls).
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -1700,28 +1719,30 @@ def profile_decode_steps(model, inf, steps, card):
             **{f"{c}_ms_per_step": ms / steps for c, ms in split.items()}}
 
 
-def recompute_fault_readings(model, toks, full, step_logits):
+def recompute_fault_readings(model, toks, full, step_logits, prompt=SERVE_PROMPT,
+                             capacity=SERVE_CAPACITY):
     """What the recompute comparison can see: the first FAULT_STEPS decode
     steps, teacher-forced, with one fault planted in the cache after the
-    prefill, against the same full recompute, beside the sound run over
-    the same steps. Faults: (late) every step one position late, so
-    rotary is one position off and a zero row lies at the prompt's end;
-    (row) the prompt's last K and V rows zeroed in every layer."""
+    prefill of ``prompt`` tokens (a cache of ``capacity``), against the
+    same full recompute, beside the sound run over the same steps. Faults:
+    (late) every step one position late, so rotary is one position off and
+    a zero row lies at the prompt's end; (row) the prompt's last K and V
+    rows zeroed in every layer."""
 
     def late(inf):
         inf.seqlen_offset += 1
 
     def row(inf):
         for kc, vc, *_ in inf.key_value_memory_dict.values():
-            kc[:, :, SERVE_PROMPT - 1] = 0
-            vc[:, :, SERVE_PROMPT - 1] = 0
+            kc[:, :, prompt - 1] = 0
+            vc[:, :, prompt - 1] = 0
 
     n = FAULT_STEPS
     ref = full[:, 1:n]
     res = {"recompute_rel_l2_sound_first_steps": rel_l2(step_logits[:, 1:n], ref)}
     for name, fault in (("late", late), ("row", row)):
-        got, _ = teacher_forced_logits(model, toks[:, : SERVE_PROMPT + n], SERVE_PROMPT,
-                                       SERVE_CAPACITY, fault=fault)
+        got, _ = teacher_forced_logits(model, toks[:, : prompt + n], prompt, capacity,
+                                       fault=fault)
         res[f"recompute_rel_l2_fault_{name}"] = rel_l2(got[:, 1:], ref)
         res[f"recompute_argmax_agreement_fault_{name}"] = (
             (got[:, 1:].argmax(-1) == ref.argmax(-1)).float().mean().item())
@@ -3008,7 +3029,10 @@ def check_channels(label, q, k, v, kw, time_it=False):
     ``time_it`` also its device time beside its bound (only the visible
     key pairs and the key rows inside each batch's range), the plain
     version's time and SDPA's with the equivalent mask (a boolean mask; an
-    additive bias for ALiBi), the backend named."""
+    additive bias for ALiBi), the backend named. Where the channels are the
+    same over the batch the mask is one [1, H, Sq, Sk] that SDPA broadcasts
+    (BTLM's prefill would not fit a [B, H, Sq, Sk] bias beside the plain
+    version)."""
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention_masked, flash_attention_plain
 
@@ -3052,10 +3076,13 @@ def check_channels(label, q, k, v, kw, time_it=False):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     scale = kw.get("scale") or d**-0.5
     slopes = kw.get("alibi_slopes")
+    mb = b
+    if torch.equal(vis, vis[:1].expand_as(vis)) and (slopes is None or slopes.dim() == 1):
+        mb, vis = 1, vis[:1]
     if slopes is None:
         mask, kind = vis, "a boolean mask"
     else:
-        slopes = slopes.float().reshape(-1, h).expand(b, h)[:, :, None, None]
+        slopes = slopes.float().reshape(-1, h).expand(mb, h)[:, :, None, None]
         dist = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
                 - torch.arange(sk, device=q.device)[None, :]).float()
         dist = dist if kw.get("causal", False) else dist.abs()
@@ -3193,19 +3220,21 @@ def shared_draft(model, layers):
     return draft
 
 
-def small_alibi_check(dev):
-    """A small ALiBi model (10 heads of 64: the slopes' non-power-of-two
-    interleave) decoding on the card (bf16, B1's ALiBi channel at every
-    step) against greedy decoding on the CPU (fp32, the plain versions),
-    teacher-forced on the CPU's tokens."""
+def small_alibi_check(dev, cfg=None, label="small ALiBi model (dim 640, 2 layers, 10 heads of 64)"):
+    """A small ALiBi model (``cfg``; by default 10 heads of 64: the slopes'
+    non-power-of-two interleave) decoding on the card (bf16, B1's ALiBi
+    channel at every step) against greedy decoding on the CPU (fp32, the
+    plain versions), teacher-forced on the CPU's tokens; returns the
+    logits' rel-L2."""
     import torch
     from liteattention_torch.models.gpt import GPTLMHeadModel
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.utils.generation import greedy_decode
 
     prompt, new = 100, 12
-    cfg = dataclasses.replace(baichuan2_13b_config(2), dim=640, num_heads=10, vocab_size=1000,
-                              ffn_dim=1024)
+    if cfg is None:
+        cfg = dataclasses.replace(baichuan2_13b_config(2), dim=640, num_heads=10,
+                                  vocab_size=1000, ffn_dim=1024)
     cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
     cpu.reset_parameters(torch.Generator().manual_seed(11))
     gpu = GPTLMHeadModel(cfg, device=dev)
@@ -3219,13 +3248,13 @@ def small_alibi_check(dev):
     torch.cuda.synchronize()
     n, nd = flash_attention.alibi_launches - n0, flash_attention_decode.launches - d0
     check(n == cfg.num_layers * new and nd == 0,
-          f"small ALiBi model: {n} ALiBi B1 launches, {nd} decode-kernel launches")
+          f"{label}: {n} ALiBi B1 launches, {nd} decode-kernel launches")
     err = rel_l2(got.float().cpu(), ref)
     same = (got.argmax(-1).cpu() == ref.argmax(-1)).float().mean().item()
-    log(f"  small ALiBi model (dim 640, 2 layers, 10 heads of 64), {new} tokens teacher-forced, "
-        f"bf16 card vs fp32 CPU: logits rel-L2 {err:.2e}, argmax agreement {same:.3f}, {n} "
-        f"ALiBi B1 launches, no decode-kernel launch")
-    check(err < SMALL_DECODE_TOL, "small ALiBi model decode disagrees")
+    log(f"  {label}, {new} tokens teacher-forced, bf16 card vs fp32 CPU: logits rel-L2 "
+        f"{err:.2e}, argmax agreement {same:.3f}, {n} ALiBi B1 launches, no decode-kernel launch")
+    check(err < SMALL_DECODE_TOL, f"{label}: decode disagrees")
+    return err
 
 
 def alibi_serve_phase(dev, card):
@@ -3825,6 +3854,34 @@ def alibi_train_phase(dev, card):
     return counts, out
 
 
+def check_train_step(dev, label, cpu, gpu, loss_fn, counters, want):
+    """One training step's loss and gradients of ``gpu`` (on the card,
+    bf16) against ``cpu`` (the same weights, fp32, the plain versions):
+    ``loss_fn(model, device)``; the launch counters ``counters`` ((wrapper,
+    attribute) pairs) must move by ``want``. Returns the larger of the
+    loss's relative error and the worst parameter's gradient rel-L2."""
+    import torch
+
+    ref = loss_fn(cpu, "cpu")
+    ref.backward()
+    n0 = [getattr(fn, attr) for fn, attr in counters]
+    loss = loss_fn(gpu, dev)
+    loss.backward()
+    torch.cuda.synchronize()
+    got = [getattr(fn, attr) - n for (fn, attr), n in zip(counters, n0)]
+    check(got == want, f"{label}: channel launches {got}, expected {want}")
+    e_loss = abs(loss.item() - ref.item()) / abs(ref.item())
+    grads = {n: p.grad for n, p in cpu.named_parameters()}
+    e_grad = {n: rel_l2(p.grad.float().cpu(), grads[n]) for n, p in gpu.named_parameters()
+              if grads[n].abs().max() > 0}
+    worst = max(e_grad, key=e_grad.get)
+    log(f"  {label}, bf16 card vs fp32 CPU: loss {loss.item():.5f} vs {ref.item():.5f} (rel "
+        f"{e_loss:.2e}), worst grad rel-L2 {e_grad[worst]:.2e} ({worst})")
+    check(e_loss < SMALL_LOSS_TOL, f"{label}: loss disagrees")
+    check(e_grad[worst] < SMALL_GRAD_TOL, f"{label}: gradients disagree")
+    return max(e_loss, e_grad[worst])
+
+
 def small_channel_train_check(dev):
     """Phase 11 (d): one step's loss and gradients of small models on the
     card (bf16, B1's and B7's channels) against the CPU (fp32, the plain
@@ -3837,26 +3894,6 @@ def small_channel_train_check(dev):
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention
 
-    def compare(label, cpu, gpu, loss_fn, counters, want):
-        ref = loss_fn(cpu, "cpu")
-        ref.backward()
-        n0 = [getattr(fn, attr) for fn, attr in counters]
-        loss = loss_fn(gpu, dev)
-        loss.backward()
-        torch.cuda.synchronize()
-        got = [getattr(fn, attr) - n for (fn, attr), n in zip(counters, n0)]
-        check(got == want, f"{label}: channel launches {got}, expected {want}")
-        e_loss = abs(loss.item() - ref.item()) / abs(ref.item())
-        grads = {n: p.grad for n, p in cpu.named_parameters()}
-        e_grad = {n: rel_l2(p.grad.float().cpu(), grads[n]) for n, p in gpu.named_parameters()
-                  if grads[n].abs().max() > 0}
-        worst = max(e_grad, key=e_grad.get)
-        log(f"  {label}, bf16 card vs fp32 CPU: loss {loss.item():.5f} vs {ref.item():.5f} (rel "
-            f"{e_loss:.2e}), worst grad rel-L2 {e_grad[worst]:.2e} ({worst})")
-        check(e_loss < SMALL_LOSS_TOL, f"{label}: loss disagrees")
-        check(e_grad[worst] < SMALL_GRAD_TOL, f"{label}: gradients disagree")
-        return max(e_loss, e_grad[worst])
-
     worst = 0.0
     alibi = ((flash_attention, "alibi_launches"), (flash_bwd, "alibi_launches"))
     ids = torch.randint(0, 1000, (2, 300), generator=torch.Generator().manual_seed(32))
@@ -3867,8 +3904,8 @@ def small_channel_train_check(dev):
         cpu.reset_parameters(torch.Generator().manual_seed(31))
         gpu = GPTLMHeadModel(cfg, device=dev)
         gpu.load_state_dict(cpu.state_dict())
-        worst = max(worst, compare(
-            f"small ALiBi GPT (dim 384, 2 layers, {heads} heads of {384 // heads}, 2 x 300)",
+        worst = max(worst, check_train_step(
+            dev, f"small ALiBi GPT (dim 384, 2 layers, {heads} heads of {384 // heads}, 2 x 300)",
             cpu, gpu, lambda m, where: gpt_loss_fn(m, ids.to(where), ids.to(where)), alibi,
             [2, 2]))
     cfg = BertConfig(vocab_size=1000, dim=256, num_layers=2, num_heads=4, ffn_dim=1024)
@@ -3885,8 +3922,9 @@ def small_channel_train_check(dev):
         return pretrain_loss(m, *t, n_mlm, 4)
 
     bound = ((flash_attention, "bound_launches"), (flash_bwd, "bound_launches"))
-    worst = max(worst, compare("small BERT (dim 256, 2 layers, 4 heads of 64, 4 x 300 padded)",
-                               cpu, gpu, bert_loss, bound, [2, 2]))
+    worst = max(worst, check_train_step(
+        dev, "small BERT (dim 256, 2 layers, 4 heads of 64, 4 x 300 padded)", cpu, gpu, bert_loss,
+        bound, [2, 2]))
     return worst
 
 
@@ -3952,6 +3990,271 @@ def channel_train_phase(dev, card):
     log("  (e) the gradient of the flash API with alibi_slopes")
     counts["alibi_api_grad"], api_err = alibi_api_grad_check(dev)
     kres["flash_bwd_alibi"]["err"] = max(kres["flash_bwd_alibi"]["err"], api_err)
+    return counts, kres, stats
+
+
+# ---------------------------------------------------------------- phase 12
+
+# BTLM-3B-8K (cerebras/btlm-3b-8k-base config.json: n_embd 2560, n_layer 32,
+# n_head 32, so head dim 80; n_inner 6826, vocab 50 257, n_positions 8192,
+# ALiBi, SwiGLU, muP). btlm_config leaves ffn_dim to its 4 x dim default
+# (10 240), as JAX's does (ROADMAP C), so the published width is passed
+# here. Serving: requests x prompt tokens, greedy tokens, the cache (its
+# context); training: tokens of the one sequence, AdamW steps, rate.
+BTLM_FFN = 6826
+BTLM_BATCH, BTLM_PROMPT, BTLM_NEW, BTLM_CONTEXT = 8, 4096, 64, 8192
+BTLM_TRAIN_TOKENS, BTLM_TRAIN_STEPS, BTLM_TRAIN_LR = 8192, 3, 1e-4
+# GPT-NeoX-20B's attention (config.json: hidden 6144, 64 heads of 96): b,
+# h, S, d, causal. Its model is not run (ROADMAP B-iii 2).
+NEOX_ATTN_SHAPE = (4, 64, 2048, 96)
+
+
+def btlm_3b_8k_config(layers):
+    """BTLM-3B-8K's published geometry at ``layers`` (of 32) layers:
+    btlm_config's widths, muP multipliers and 1/d attention scale, with
+    the published n_inner 6826."""
+    from liteattention_torch.models.configs import btlm_config
+
+    return dataclasses.replace(btlm_config(num_layers=layers), ffn_dim=BTLM_FFN)
+
+
+def btlm_kernel_phase(dev):
+    """Phase 12 (a): B1 and B7 at head dims 80 and 96 against their plain
+    versions at the BTLM paths' shapes and at GPT-NeoX-20B's attention,
+    each timed. Returns {name: result} (check_channels' for B1's ALiBi
+    channel, check_bwd_channels' for B7's, check_flash's and check_bwd's
+    for the channel-free kernels)."""
+    import torch
+    from liteattention_torch.modules.mha import alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(8080)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    b, h, d = BTLM_BATCH, 32, 80
+    slopes = alibi_slopes(h).to(dev)
+    res = {}
+    # MHA's prefill into the cache: causal off, bound_causal on, Sk = the
+    # cache's 8192 keys, the bound the prompt's 4096; BTLM's scale 1/d.
+    kc, vc = rnd(b, h, BTLM_CONTEXT, d), rnd(b, h, BTLM_CONTEXT, d)
+    prompt = torch.full((b,), BTLM_PROMPT, dtype=torch.int32, device=dev)
+    res["fwd_alibi_prefill"] = check_channels(
+        f"ALiBi prefill {b}x{h}x{BTLM_PROMPT}x{d} over a {BTLM_CONTEXT}-key cache, bound_causal, "
+        "scale 1/d (BTLM)", rnd(b, h, BTLM_PROMPT, d), kc, vc,
+        dict(kv_bound=prompt, bound_causal=True, alibi_slopes=slopes, scale=1.0 / d),
+        time_it=True)
+    torch.cuda.empty_cache()
+    # The decode steps: Sq 1 at the bounds 64 greedy steps reach.
+    steps = torch.randint(BTLM_PROMPT + 1, BTLM_PROMPT + BTLM_NEW + 1, (b,), generator=g,
+                          device=dev, dtype=torch.int32)
+    res["fwd_alibi_decode"] = check_channels(
+        f"ALiBi single-token step {b}x{h}x1x{d} over {BTLM_CONTEXT} keys, bounds "
+        f"{BTLM_PROMPT + 1}-{BTLM_PROMPT + BTLM_NEW} (BTLM)", rnd(b, h, 1, d), kc, vc,
+        dict(kv_bound=steps, bound_causal=True, alibi_slopes=slopes, scale=1.0 / d),
+        time_it=True)
+    del kc, vc
+    torch.cuda.empty_cache()
+    # Training: one 8192-token sequence, causal ALiBi; then the channel-free
+    # kernels at the same shape.
+    s = BTLM_TRAIN_TOKENS
+    q, k, v, dout = (rnd(1, h, s, d) for _ in range(4))
+    kw = dict(alibi_slopes=slopes, causal=True, scale=1.0 / d)
+    res["fwd_alibi_train"] = check_channels(
+        f"ALiBi causal 1x{h}x{s}x{d}, scale 1/d (BTLM training)", q, k, v, kw, time_it=True)
+    res["bwd_alibi_train"] = check_bwd_channels(
+        f"ALiBi causal 1x{h}x{s}x{d}, scale 1/d (BTLM training)", q, k, v, dout, kw,
+        time_it=True)
+    torch.cuda.empty_cache()
+    res["fwd_causal_d80"] = check_flash(q, k, v, f"causal 1x{h}x{s}x{d} (head dim 80)",
+                                        causal=True, time_it=True, blocks=True)
+    res["bwd_causal_d80"] = check_bwd(q, k, v, dout, f"causal 1x{h}x{s}x{d} (head dim 80)",
+                                      True, time_it=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    b, h, s, d = NEOX_ATTN_SHAPE
+    q, k, v, dout = (rnd(b, h, s, d) for _ in range(4))
+    res["fwd_causal_d96"] = check_flash(q, k, v, f"causal {b}x{h}x{s}x{d} (GPT-NeoX-20B)",
+                                        causal=True, time_it=True, blocks=True)
+    res["bwd_causal_d96"] = check_bwd(q, k, v, dout, f"causal {b}x{h}x{s}x{d} (GPT-NeoX-20B)",
+                                      True, time_it=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return res
+
+
+def small_btlm_check(dev):
+    """A small BTLM at head dim 80 (5 heads: the slopes' interleave; muP,
+    1/d, biases, ffn of its own) on the card against the CPU: its decode
+    (small_alibi_check), then one training step's loss and gradients
+    (check_train_step; B1 and B7 at D 80)."""
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
+    from liteattention_torch.ops.flash_bwd import flash_bwd
+    from liteattention_torch.ops.flash_fwd import flash_attention
+
+    cfg = dataclasses.replace(btlm_3b_8k_config(2), dim=400, num_heads=5, vocab_size=1000,
+                              ffn_dim=1024)
+    err = small_alibi_check(dev, cfg, "small BTLM (dim 400, 2 layers, 5 heads of 80)")
+    cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(41))
+    gpu = GPTLMHeadModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randint(0, 1000, (2, 300), generator=torch.Generator().manual_seed(43))
+    alibi = ((flash_attention, "alibi_launches"), (flash_bwd, "alibi_launches"))
+    worst = check_train_step(dev, "small BTLM training step (2 x 300)", cpu, gpu,
+                             lambda m, where: gpt_loss_fn(m, x.to(where), x.to(where)), alibi,
+                             [cfg.num_layers, cfg.num_layers])
+    return {"decode_logits_rel_l2": err, "train_step_worst_rel": worst}
+
+
+def btlm_serve_phase(dev, card):
+    """Phase 12 (b): BTLM-3B-8K serving at full width and depth (the counted
+    path: greedy decoding of BTLM_BATCH requests into a BTLM_CONTEXT cache),
+    then its checks."""
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import greedy_decode
+
+    cfg = btlm_3b_8k_config(32)
+    log(f"  BTLM-3B-8K: dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads x "
+        f"{cfg.dim // cfg.num_heads}, ALiBi, SwiGLU ffn {cfg.ffn_dim} (published; btlm_config's "
+        f"default gives {4 * cfg.dim}), vocab {cfg.vocab_size}, muP, scale 1/d; fp32 master "
+        "weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(50))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(51)
+    ids = torch.randint(0, cfg.vocab_size, (BTLM_BATCH, BTLM_PROMPT), generator=g, device=dev)
+    log(f"  {n_params / 1e9:.3f} B parameters; {BTLM_BATCH} requests x {BTLM_PROMPT} prompt "
+        f"tokens, {BTLM_NEW} new tokens each, cache capacity {BTLM_CONTEXT}")
+    greedy_decode(model, ids[:1, :16], 2, 32)  # warm-up, not counted
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timer = StepTimer(model)
+    toks = greedy_decode(timer, ids, BTLM_NEW, BTLM_CONTEXT)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the BTLM serving run: {counts}")
+    want = cfg.num_layers * len(timer.calls)
+    check(counts["flash_fwd_alibi"] == want,
+          f"BTLM serving: expected {want} ALiBi B1 launches (one per layer per model call)")
+    check(counts["flash_decode"] == 0, "BTLM serving: a step went to the decode kernel B8")
+    n_decode = len(timer.calls) - 1
+    prefill_ms = timer.calls[0][1]
+    step_ms = [ms for _, ms in timer.calls[1:]]
+    dec_ms = statistics.median(step_ms)
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+           "decode_tokens_per_s": BTLM_BATCH * 1e3 / dec_ms,
+           "end_to_end_tokens_per_s": BTLM_BATCH * BTLM_NEW * 1e3 / wall,
+           "peak_gb": peak_gb, "decode_steps": n_decode, "parameters_b": n_params / 1e9,
+           "alibi_launches": counts["flash_fwd_alibi"]}
+    log(f"  prefill {prefill_ms:.1f} ms ({BTLM_BATCH * BTLM_PROMPT / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {out['decode_tokens_per_s']:.0f} "
+        f"tokens/s; end to end {wall:.0f} ms = {out['end_to_end_tokens_per_s']:.0f} new "
+        f"tokens/s; peak memory {peak_gb:.2f} GB [{card}]")
+
+    # Checks (their launches are not counted): the incremental decode
+    # against a full recompute without a cache, and two planted faults.
+    step_logits = timer.logits()
+    check(toks.shape == (BTLM_BATCH, BTLM_PROMPT + BTLM_NEW)
+          and torch.isfinite(step_logits).all(), "BTLM serving: bad greedy output")
+    with torch.inference_mode():
+        full = torch.cat([model(toks[i : i + 1, :-1])[:, BTLM_PROMPT - 1 :].clone()
+                          for i in range(BTLM_BATCH)])
+    e_full = rel_l2(step_logits, full)
+    agree_full = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    log(f"  incremental decode vs full recompute without a cache: logits rel-L2 {e_full:.3e}, "
+        f"argmax agreement {agree_full:.3f}")
+    check(e_full < SERVE_RECOMPUTE_TOL, "BTLM incremental decode disagrees with the recompute")
+    out.update(recompute_rel_l2=e_full, recompute_argmax_agreement=agree_full,
+               **recompute_fault_readings(model, toks, full, step_logits, prompt=BTLM_PROMPT,
+                                          capacity=BTLM_CONTEXT))
+    del model, full, step_logits, timer
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def btlm_train_phase(dev, card):
+    """Phase 12 (c): BTLM-3B-8K at full width and depth trained on one
+    repeated 8192-token sequence through training/trainer.py (fp32 master
+    weights, remat, AdamW; the counted path)."""
+    import itertools
+
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
+    from liteattention_torch.training.data import synthetic_lm_batches
+    from liteattention_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(btlm_3b_8k_config(32), remat=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(52))
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = next(synthetic_lm_batches(cfg.vocab_size, 1, BTLM_TRAIN_TOKENS, seed=53))
+    tcfg = TrainConfig(learning_rate=BTLM_TRAIN_LR, warmup_steps=0, total_steps=1000,
+                       grad_clip=1.0)
+    trainer = Trainer(model, lambda m, x: gpt_loss_fn(m, x, x), tcfg, device=dev)
+    log(f"  BTLM-3B-8K: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters (fp32 master, "
+        f"bf16 products), remat; 1 x {BTLM_TRAIN_TOKENS} tokens, one repeated batch, "
+        f"{BTLM_TRAIN_STEPS} AdamW steps (lr {BTLM_TRAIN_LR}) through Trainer.fit")
+    x = torch.as_tensor(batch, device=dev)
+    gpt_loss_fn(model, x, x).backward()  # warm-up (cuBLAS, allocator), not counted
+    model.zero_grad(set_to_none=True)
+    del x
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = []
+    trainer.fit(itertools.repeat(batch), BTLM_TRAIN_STEPS, log_every=1,
+                tokens_per_batch=BTLM_TRAIN_TOKENS, log_fn=recs.append)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in recs]
+    step_ms = [1e3 / r["steps_per_s"] for r in recs]
+    log(f"  launches during the training steps: {counts}")
+    ms = statistics.median(step_ms)
+    log(f"  loss per step {[round(v, 4) for v in losses]}; ms/step (host clock to the loss) "
+        f"{[round(v, 1) for v in step_ms]}, median {ms:.1f} = "
+        f"{BTLM_TRAIN_TOKENS / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GB [{card}]")
+    check(all(math.isfinite(v) for v in losses), "BTLM training loss is not finite")
+    check(losses[-1] < losses[0], "BTLM training loss does not fall on a repeated batch")
+    # remat runs each block's forward again in the backward: two B1 launches
+    # a layer a step, one B7.
+    n = cfg.num_layers * BTLM_TRAIN_STEPS
+    check(counts["flash_bwd_alibi"] == n and counts["flash_fwd_alibi"] == 2 * n
+          and counts["flash_fwd"] == 0 and counts["flash_bwd_dq"] == 0,
+          f"BTLM training: expected {cfg.num_layers} ALiBi launches of B7 and "
+          f"{2 * cfg.num_layers} of B1 a step")
+    out = {"ms_per_step": step_ms, "median_ms_per_step": ms,
+           "tokens_per_s": BTLM_TRAIN_TOKENS / ms * 1e3, "losses": losses, "peak_gb": peak,
+           "parameters_b": n_params / 1e9, "layers": cfg.num_layers}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def btlm_phase(dev, card):
+    """Phase 12: B1 and B7 at head dims 80 and 96, then BTLM-3B-8K served
+    and trained at full width and depth."""
+    log("  (a) B1 and B7 at head dims 80 (BTLM) and 96 (GPT-NeoX-20B) against their plain "
+        "versions")
+    kres = btlm_kernel_phase(dev)
+    counts, stats = {}, {}
+    log("  (b) BTLM-3B-8K serving")
+    stats["small_btlm"] = small_btlm_check(dev)
+    counts["btlm_serve"], stats["btlm_3b_8k_serve"] = btlm_serve_phase(dev, card)
+    log("  (c) BTLM-3B-8K training")
+    counts["btlm_train"], stats["btlm_3b_8k_train"] = btlm_train_phase(dev, card)
     return counts, kres, stats
 
 
@@ -4269,6 +4572,12 @@ def main() -> int:
         log(f"  phase 11 took {p11_stats['seconds']:.1f} s")
         counts.update(p11_counts)
         kres.update(p11_kres)
+        log("phase 12: head dims 80 and 96; BTLM-3B-8K served and trained")
+        t12 = time.perf_counter()
+        p12_counts, p12_kres, p12_stats = btlm_phase(dev, card)
+        p12_stats["seconds"] = time.perf_counter() - t12
+        log(f"  phase 12 took {p12_stats['seconds']:.1f} s")
+        counts.update(p12_counts)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4302,6 +4611,24 @@ def main() -> int:
             kres[name][key] = {"shape": shape, **{k: r[name][k] for k in bwd_keys},
                                "fwd_bwd": r["fwd_bwd"]}
             kres[name]["err"] = max(kres[name]["err"], r[name]["err"])
+    # Phase 12's shapes (head dims 80 and 96) under the kernels they ran.
+    for key, name in (("fwd_alibi_prefill", "flash_fwd_alibi"),
+                      ("fwd_alibi_decode", "flash_fwd_alibi"),
+                      ("fwd_alibi_train", "flash_fwd_alibi"),
+                      ("bwd_alibi_train", "flash_bwd_alibi")):
+        r = p12_kres[key]
+        kres[name]["shapes"][f"btlm_{key}"] = r
+        kres[name]["err"] = max(kres[name]["err"], r["err"])
+    for d, tag in ((80, "btlm_causal_d80"), (96, "neox_causal_d96")):
+        r = p12_kres[f"fwd_causal_d{d}"]
+        kres["flash_fwd"][tag] = {"max_abs_err": r["err"], **{
+            k: r[k] for k in timed_keys + ("rel_l2", "worst_block_rel_l2") if k in r}}
+        kres["flash_fwd"]["err"] = max(kres["flash_fwd"]["err"], r["err"])
+        for name, r in p12_kres[f"bwd_causal_d{d}"].items():
+            if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                kres[name][tag] = {"max_abs_err": r["err"], **{
+                    k: r[k] for k in bwd_keys if k in r}}
+                kres[name]["err"] = max(kres[name]["err"], r["err"])
     # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
     kres["schedule_pack"]["kv_map"] = {
         **{k: ext["pack_kv_map"][k] for k in ("ms", "timer", "call_ms", "bound_ms")},
@@ -4374,6 +4701,7 @@ def main() -> int:
     log(f"wan training and calibration: {json.dumps(wan_train_stats)}")
     log(f"alibi and padded-batch serving: {json.dumps(p10_stats)}")
     log(f"alibi and padded-batch training: {json.dumps(p11_stats)}")
+    log(f"btlm-3b-8k serving and training: {json.dumps(p12_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

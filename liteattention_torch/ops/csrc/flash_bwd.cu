@@ -57,6 +57,21 @@
 // recomputed from the same small scores B1 summed. The channel-free
 // instantiations are left as they were.
 //
+// Head dims 80 (BTLM) and 96 (GPT-NeoX-20B), as in B1: every K, V, Q and
+// dO tile takes two 64-value atoms (sm90.cuh; the second partly filled by
+// TMA, zeros past column D), so shared memory is D 128's; S^T and dP^T run
+// D / 16 k-steps and dV and dK one wgmma at N = D. dQ = dS K splits its
+// columns by atom: warpgroup 0 takes atom 0, warpgroup 1 atom 1 (a
+// wgmma starts an MN-major operand at an atom or 16-byte chunk of one row,
+// and its N columns run on from there, so a split at column D / 2 would
+// have to start warpgroup 1 in the middle of a row and cross into the next
+// atom, which the descriptor cannot express). Warpgroup 1's product then
+// runs over atom 1's zero padding too (48 of its 64 columns at D 80, 32 at
+// D 96: 12 % and 7 % more MMA work a step), so that both warpgroups issue
+// the same instruction outside a branch, and stores only its D - 64 real
+// columns. The RANGE and ALIBI instantiations are built at D 80, not 96
+// (GPT-NeoX-20B has no channel; ROADMAP B-iii).
+//
 // What bounds it on the H100: tensor-core throughput (10 d FLOPs per
 // (q row, key) pair, against bytes read once that are a small share at
 // these shapes). The design keeps every product on wgmma fed by TMA, and
@@ -104,11 +119,12 @@ struct Params {
 // The most q-heads per kv-head whose ALiBi slopes a CTA keeps.
 constexpr int kMaxGroup = 256;
 
-// Shared-memory layout (byte offsets from a 1024-byte aligned base).
+// Shared-memory layout (byte offsets from a 1024-byte aligned base); tiles
+// in 64-value atoms of 128-byte rows (two at D 80 and 96).
 template <int D>
 struct Smem {
-  static constexpr int kKV = kKeys * D * 2;   // one K or V tile
-  static constexpr int kQ = kRows * D * 2;    // one Q or dO tile
+  static constexpr int kKV = kKeys * sm90::atoms(D) * 128;  // one K or V tile
+  static constexpr int kQ = kRows * sm90::atoms(D) * 128;   // one Q or dO tile
   static constexpr int k = 0;
   static constexpr int v = k + kKV;
   static constexpr int q = v + kKV;                // [kStages]
@@ -145,13 +161,18 @@ struct LseShift {
   int heads, seqlen_k;
 };
 
+// Threads per row of bwd_pre_kernel, 8 values each: D / 8 rounded up to a
+// power of two (the row's sum is a butterfly over its lanes; at D 80 and
+// 96 lanes 10-15 and 12-15 hold no values).
+__host__ __device__ constexpr int pre_lanes(int d) { return d / 8 == 8 || d / 8 == 16 ? d / 8 : 16; }
+
 template <int D, bool SHIFT>
 __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
                                const __nv_bfloat16* __restrict__ dout,
                                const float* __restrict__ lse, float* __restrict__ lse2,
                                float* __restrict__ delta, float* __restrict__ dq_accum,
                                int seqlen_q, int seqlen_q_pad, int rows, LseShift sh) {
-  constexpr int kLanes = D / 8;  // threads per row, 8 values each
+  constexpr int kLanes = pre_lanes(D);
   const int gid = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = gid / kLanes;
   const int part = gid % kLanes;
@@ -159,8 +180,9 @@ __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
   const int bh = row / seqlen_q_pad;
   const int r = row % seqlen_q_pad;
   const bool valid = live && r < seqlen_q;
+  const bool chunk = kLanes == D / 8 || part < D / 8;  // this lane holds values
   float acc = 0.f;
-  if (valid) {
+  if (valid && chunk) {
     const size_t off = (static_cast<size_t>(bh) * seqlen_q + r) * D + part * 8;
     const uint4 a = *reinterpret_cast<const uint4*>(o + off);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
@@ -176,9 +198,11 @@ __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
 #pragma unroll
   for (int s = kLanes / 2; s > 0; s /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (!live) return;
-  float4* z = reinterpret_cast<float4*>(dq_accum + static_cast<size_t>(row) * D + part * 8);
-  z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (chunk) {
+    float4* z = reinterpret_cast<float4*>(dq_accum + static_cast<size_t>(row) * D + part * 8);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (part == 0) {
     delta[row] = valid ? acc : 0.f;
     float l = valid ? lse[static_cast<size_t>(bh) * seqlen_q + r] : 0.f;
@@ -217,7 +241,7 @@ __device__ __forceinline__ void load_kv(const CUtensorMap& tm_k, const CUtensorM
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
   sm90::mbar_expect_tx(kv_full, 2 * L::kKV);
 #pragma unroll
-  for (int a = 0; a < D / 64; ++a) {
+  for (int a = 0; a < sm90::atoms(D); ++a) {
     sm90::tma_load_3d(smem + L::k + a * kKeys * 128, &tm_k, kv_full, 64 * a, k0, kvh);
     sm90::tma_load_3d(smem + L::v + a * kKeys * 128, &tm_v, kv_full, 64 * a, k0, kvh);
   }
@@ -233,7 +257,7 @@ __device__ __forceinline__ void load_step(const CUtensorMap& tm_q, const CUtenso
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars) + 1 + stage;
   sm90::mbar_expect_tx(full, 2 * L::kQ + 2 * kRows * 4);
 #pragma unroll
-  for (int a = 0; a < D / 64; ++a) {
+  for (int a = 0; a < sm90::atoms(D); ++a) {
     sm90::tma_load_3d(smem + L::q + stage * L::kQ + a * kRows * 128, &tm_q, full, 64 * a, row0,
                       bh);
     sm90::tma_load_3d(smem + L::dout + stage * L::kQ + a * kRows * 128, &tm_do, full, 64 * a,
@@ -253,6 +277,7 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
                                         const Params& p, unsigned char* smem, const Walk& walk,
                                         const KeyRange& r, int b, int hk, int k0, int n_iter) {
   using L = Smem<D>;
+  constexpr int kDqCols = D == 64 ? 32 : 64;  // dQ columns of each warpgroup's product
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* full = kv_full + 1;
   const int ct = threadIdx.x;
@@ -270,12 +295,13 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   const float* slopes = reinterpret_cast<const float*>(smem + L::slopes);
   const uint32_t k_addr = sm90::smem_u32(smem + L::k);
   // K and V rows of this warpgroup as K-major A operands; dS and K as the
-  // MN-major operands of dQ = dS K (K: this warpgroup's D / 2 columns).
+  // MN-major operands of dQ = dS K (K: this warpgroup's kDqCols columns,
+  // from column wg * kDqCols).
   const uint64_t k_desc = desc_sw128(k_addr + 64 * wg * 128, 16, 1024);
   const uint64_t v_desc = desc_sw128(sm90::smem_u32(smem + L::v) + 64 * wg * 128, 16, 1024);
   const uint64_t ds_desc = desc_sw128(sm90::smem_u32(smem + L::ds), kRows * 128, 1024);
   const uint64_t kt_desc =
-      desc_sw128(k_addr + (D == 128 ? wg * kKeys * 128 : wg * 64), kKeys * 128, 1024);
+      desc_sw128(k_addr + (D == 64 ? wg * 64 : wg * kKeys * 128), kKeys * 128, 1024);
   unsigned char* ds_smem = smem + L::ds;
   float4* dq_smem = reinterpret_cast<float4*>(smem + L::dq);
 
@@ -367,12 +393,7 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = sm90::desc_add(dot_desc, kk * 2048);
-      if constexpr (D == 128) {
-        sm90::wgmma_rs_n128<1>(dv, pf[kk], db, 1);
-      } else {
-        sm90::wgmma_rs_n64<1>(dv, pf[kk], db, 1);
-      }
+      sm90::wgmma_rs<D, 1>(dv, pf[kk], sm90::desc_add(dot_desc, kk * 2048), 1);
     }
     sm90::wgmma_commit();
 
@@ -409,28 +430,23 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = sm90::desc_add(qt_desc, kk * 2048);
-      if constexpr (D == 128) {
-        sm90::wgmma_rs_n128<1>(dk, dsf[kk], db, 1);
-      } else {
-        sm90::wgmma_rs_n64<1>(dk, dsf[kk], db, 1);
-      }
+      sm90::wgmma_rs<D, 1>(dk, dsf[kk], sm90::desc_add(qt_desc, kk * 2048), 1);
     }
     sm90::wgmma_commit();
     if (ct == 0) sm90::bulk_wait_read();  // the dQ buffer is free again
     sm90::named_sync(2, kConsumers);      // dS^T complete
 
-    // dQ_part = dS K over the 128 keys: this warpgroup's D / 2 columns.
-    float dq[D / 4];
+    // dQ_part = dS K over the 128 keys: this warpgroup's kDqCols columns.
+    float dq[kDqCols / 2];
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       const uint64_t da = sm90::desc_add(ds_desc, kk * 2048);
       const uint64_t db = sm90::desc_add(kt_desc, kk * 2048);
-      if constexpr (D == 128) {
-        sm90::wgmma_ss_n64<1, 1>(dq, da, db, kk > 0);
-      } else {
+      if constexpr (D == 64) {
         sm90::wgmma_ss_n32<1, 1>(dq, da, db, kk > 0);
+      } else {
+        sm90::wgmma_ss_n64<1, 1>(dq, da, db, kk > 0);
       }
     }
     sm90::wgmma_commit();
@@ -442,12 +458,15 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     sm90::fence_regs(dsf);
 
     // dQ_part into shared memory in thread order: float4 j of thread tw of
-    // warpgroup wg at (wg * D / 16 + j) * 128 + tw (bwd_post_kernel reads
-    // it back in that order).
+    // warpgroup wg, columns 8 c .. 8 c + 7 (c = wg * kDqCols / 8 + j), at c *
+    // 128 + tw (bwd_post_kernel reads it back in that order); at D 80 and 96
+    // warpgroup 1 stores only its columns below D.
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dq_smem[(wg * (D / 16) + j) * 128 + tw] =
-          make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+    for (int j = 0; j < kDqCols / 8; ++j) {
+      const int c = wg * (kDqCols / 8) + j;
+      if (2 * kDqCols == D || c < D / 8) {
+        dq_smem[c * 128 + tw] = make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+      }
     }
     sm90::fence_proxy_async();
     prev_block = (static_cast<size_t>(bh) * p.seqlen_q_pad + row0) * D;
@@ -486,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_do, const Params p,
                      const Channels c) {
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim must be 64, 80, 96 or 128");
   static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -557,12 +576,10 @@ __global__ void bwd_post_kernel(const float* __restrict__ dq_accum, __nv_bfloat1
   const float4* src =
       reinterpret_cast<const float4*>(dq_accum + (bh * seqlen_q_pad + blk * kRows) * D);
   for (int f = threadIdx.x; f < kRows * D / 4; f += blockDim.x) {
-    const int tw = f % 128;
-    const int j = (f / 128) % (D / 16);
-    const int wg = f / 128 / (D / 16);
+    const int tw = f % 128;  // float4 f: columns 8 (f / 128) .., thread tw's rows
     const float4 x = src[f];
     const int row = 16 * (tw / 32) + (tw % 32) / 4;
-    const int col = wg * (D / 2) + 8 * j + 2 * (tw % 4);
+    const int col = 8 * (f / 128) + 2 * (tw % 4);
     *reinterpret_cast<float2*>(tile + row * kPitch + col) = make_float2(x.x, x.y);
     *reinterpret_cast<float2*>(tile + (row + 8) * kPitch + col) = make_float2(x.z, x.w);
   }
@@ -595,7 +612,7 @@ cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels
   const int sq_pad = (a.seqlen_q + kRows - 1) / kRows * kRows;
   const int rows = a.batch * a.heads * sq_pad;
   constexpr int kPreThreads = 256;
-  const long long pre_threads = static_cast<long long>(rows) * (D / 8);
+  const long long pre_threads = static_cast<long long>(rows) * pre_lanes(D);
   const int pre_blocks = static_cast<int>((pre_threads + kPreThreads - 1) / kPreThreads);
   const LseShift sh{c.alibi, c.kv_bound, a.heads, a.seqlen_k};
   auto pre = ALIBI && c.bound_causal ? bwd_pre_kernel<D, true> : bwd_pre_kernel<D, false>;
@@ -652,8 +669,18 @@ cudaError_t run_masked(const Args& a, const Channels& c, cudaStream_t stream) {
   return run<D, CAUSAL, true, false>(a, stream, c);
 }
 
+// Head dims 80 and 96, defined in flash_bwd_hd.cu (whose nvcc runs beside
+// this file's): the channel-free backward (CAUSAL when `causal`), and the
+// RANGE / ALIBI instantiations at 80 (CAUSAL when `diag`).
+cudaError_t run_hd(int head_dim, bool causal, const Args& a, cudaStream_t stream);
+cudaError_t run_masked_hd(int head_dim, bool diag, const Args& a, const Channels& c,
+                          cudaStream_t stream);
+
 }  // namespace bwd
 }  // namespace lite
+
+// flash_bwd_hd.cu includes the templates above and none of the entries below.
+#ifndef LITE_BWD_TEMPLATES_ONLY
 
 // dq, dk, dv from q, k, v, o, dout, lse (natural log); dq_accum
 // [B, H, Sq_pad, D] fp32 and lse2 / delta [B, H, Sq_pad] fp32 are scratch,
@@ -673,6 +700,8 @@ extern "C" int lite_flash_bwd(const void* q, const void* k, const void* v, const
     err = causal ? run<64, true>(a, s) : run<64, false>(a, s);
   } else if (head_dim == 128) {
     err = causal ? run<128, true>(a, s) : run<128, false>(a, s);
+  } else if (head_dim == 80 || head_dim == 96) {
+    err = run_hd(head_dim, causal != 0, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -712,8 +741,12 @@ extern "C" int lite_flash_bwd_masked(const void* q, const void* k, const void* v
     err = diag ? run_masked<64, true>(a, c, s) : run_masked<64, false>(a, c, s);
   } else if (head_dim == 128) {
     err = diag ? run_masked<128, true>(a, c, s) : run_masked<128, false>(a, c, s);
+  } else if (head_dim == 80) {
+    err = run_masked_hd(head_dim, diag, a, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+
+#endif  // LITE_BWD_TEMPLATES_ONLY

@@ -9,13 +9,14 @@
 // shapes at V 512 run on mla_fwd.cu's split-O kernel).
 //
 // bf16 q/k in [B, H, S, DK] and v in [B, Hk, S, DV] ((DK, DV) = (64, 64),
-// (128, 128) or (192, 128)), GQA by h / group, optionally causal
+// (80, 80), (96, 96), (128, 128) or (192, 128)), GQA by h / group, optionally causal
 // (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out [B, H, Sq,
 // DV] in bf16, lse fp32 natural log; a row with no valid key gets out 0,
 // lse -inf.
 //
 // B1's per-batch channels (the JAX kernel's has_bound, bound_causal, has_low
-// and has_alibi; dense walk at (DK, DV) = (64, 64) or (128, 128)): the keys
+// and has_alibi; dense walk at (DK, DV) = (64, 64), (80, 80) or (128,
+// 128)): the keys
 // of batch b are [kv_low[b], min(Sk, kv_bound[b])), with bound_causal the
 // diagonal at kv_bound[b] - Sq (the smaller of the two offsets when causal
 // too); with ALIBI the scores take -slope[b, h] log2(e) |row + Sk - Sq -
@@ -47,6 +48,15 @@
 // slots (TMA), and a tile's softmax runs while products are in flight. The
 // sparse walks (B3, B4, B5) are bound the same way on the tiles they visit:
 // a skipped tile costs no load and no math.
+//
+// Head dims 80 (BTLM) and 96 (GPT-NeoX-20B): every tile takes two 64-value
+// atoms, as at D 128 (sm90.cuh: the second partly filled), so the shared
+// memory and the ring depth are D 128's. The tensor maps' inner extent is
+// D: the second box reads columns 64 .. D - 1 and TMA fills the rest of
+// the atom with zeros; S = Q K^T runs D / 16 k-steps, P V one wgmma at N =
+// D, and the output's TMA store clips at column D. No product reads the
+// padding. (Padding q, k and v to 128 in the caller, the TPU's 128-lane
+// habit, would copy them and spend 1.6x the MMA work at D 80.)
 //
 // One CTA per (b, h, 128-row q-tile), 256 threads: two consumer warpgroups
 // of 64 q rows each. O, S and P take 186 of a thread's 255 registers at D
@@ -184,13 +194,13 @@ struct Tiles {
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base). Each
 // tile is stored as 64-value atoms of 128-byte rows (TMA's 128-byte
-// swizzle), atom a at a * rows * 128.
+// swizzle), atom a at a * rows * 128; a width of 80 or 96 takes two.
 template <int DK, int DV>
 struct Smem {
   using T = Tiles<DK, DV>;
-  static constexpr int kQ = kRowsQ * DK * 2;   // the Q tile
-  static constexpr int kK = T::kKeys * DK * 2;  // one K tile
-  static constexpr int kV = T::kKeys * DV * 2;  // one V tile
+  static constexpr int kQ = kRowsQ * sm90::atoms(DK) * 128;   // the Q tile
+  static constexpr int kK = T::kKeys * sm90::atoms(DK) * 128;  // one K tile
+  static constexpr int kV = T::kKeys * sm90::atoms(DV) * 128;  // one V tile
   static constexpr int kStage = kK + kV;       // K, then V
   static constexpr int q = 0;
   static constexpr int ring = q + kQ;          // [kStages]
@@ -349,7 +359,7 @@ __device__ __forceinline__ void load_k(const CUtensorMap& tm_k, unsigned char* s
   constexpr int kKeys = Tiles<DK, DV>::kKeys;
   unsigned char* dst = smem + L::ring + stage * L::kStage;
 #pragma unroll
-  for (int a = 0; a < DK / 64; ++a) {
+  for (int a = 0; a < sm90::atoms(DK); ++a) {
     sm90::tma_load_3d(dst + a * kKeys * 128, &tm_k, bar, 64 * a, tile * kKeys, bhk);
   }
 }
@@ -362,7 +372,7 @@ __device__ __forceinline__ void load_v(const CUtensorMap& tm_v, unsigned char* s
   constexpr int kKeys = Tiles<DK, DV>::kKeys;
   unsigned char* dst = smem + L::ring + stage * L::kStage + L::kK;
 #pragma unroll
-  for (int a = 0; a < DV / 64; ++a) {
+  for (int a = 0; a < sm90::atoms(DV); ++a) {
     sm90::tma_load_3d(dst + a * kKeys * 128, &tm_v, bar, 64 * a, tile * kKeys, bhk);
   }
 }
@@ -398,19 +408,15 @@ __device__ __forceinline__ void issue_s(float (&s)[KEYS / 2], uint64_t q_desc, u
 }
 
 // O += P V: P from registers, V at v_addr as the MN-major B operand (rows
-// of 64 values of DV, atoms KEYS * 128 bytes apart), 16 keys a step.
+// of 64 values of DV, atoms KEYS * 128 bytes apart), 16 keys a step, one
+// wgmma at N = DV.
 template <int DV, int KEYS>
 __device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pf)[KEYS / 16][4],
                                          uint32_t v_addr) {
   const uint64_t v_desc = desc_sw128(v_addr, KEYS * 128, 1024);
 #pragma unroll
   for (int kk = 0; kk < KEYS / 16; ++kk) {
-    const uint64_t db = sm90::desc_add(v_desc, kk * 2048);
-    if constexpr (DV == 128) {
-      sm90::wgmma_rs_n128<1>(o, pf[kk], db, 1);
-    } else {
-      sm90::wgmma_rs_n64<1>(o, pf[kk], db, 1);
-    }
+    sm90::wgmma_rs<DV, 1>(o, pf[kk], sm90::desc_add(v_desc, kk * 2048), 1);
   }
   sm90::wgmma_commit();
 }
@@ -481,13 +487,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kKeys = Tiles<DK, DV>::kKeys;
   constexpr int kStages = Tiles<DK, DV>::kStages;
   constexpr bool SPLIT = kStages == 2;
-  static_assert((DK == DV && (DK == 64 || DK == 128)) || (DK == 192 && DV == 128),
-                "(DK, DV) must be (64, 64), (128, 128) or (192, 128)");
+  static_assert((DK == DV && (DK == 64 || DK == 80 || DK == 96 || DK == 128)) ||
+                    (DK == 192 && DV == 128),
+                "(DK, DV) must be (64, 64), (80, 80), (96, 96), (128, 128) or (192, 128)");
   static_assert(DV <= DK, "the Q buffer holds the output");
   static_assert(WALK != kDense || !VOTES, "the dense walk does not vote");
   static_assert(LIST || !FOLD, "folded heads take the list walk");
   static_assert(WALK == kDense || !CAUSAL, "the sparse walks are not causal");
-  static_assert(WALK == kDense || (DK == DV && kKeys == 128 && !SPLIT),
+  static_assert(WALK == kDense || ((DK == 64 || DK == 128) && DK == DV && kKeys == 128 && !SPLIT),
                 "the sparse walks visit 128-key fine tiles through a ring of three");
   static_assert(!ALIBI || (WALK == kDense && DK == DV), "ALiBi is a channel of the dense walk");
   using L = Smem<DK, DV>;
@@ -538,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-    for (int a = 0; a < DK / 64; ++a) {
+    for (int a = 0; a < sm90::atoms(DK); ++a) {
       sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0,
                         b * p.heads + h0);
     }
@@ -647,7 +654,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (ct == 0) {
         sm90::mbar_expect_tx(q_full, L::kQ);
 #pragma unroll
-        for (int a = 0; a < DK / 64; ++a) {
+        for (int a = 0; a < sm90::atoms(DK); ++a) {
           sm90::tma_load_3d(smem + L::q + a * kRowsQ * 128, &tm_q, q_full, 64 * a, q0, bh);
         }
       }
@@ -785,7 +792,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // Epilogue: the warpgroup's normalised rows, bf16, into its own half of
     // the Q buffer (its wgmmas are done with it) in the 128-byte swizzle, then
-    // one TMA store per 64-value atom; lse from each quad's first lane.
+    // one TMA store per 64-value atom (clipped at column DV); lse from each
+    // quad's first lane.
     float inv_lo, inv_hi, lse_lo, lse_hi;
     finish_rows(m_lo, m_hi, l_lo, l_hi, inv_lo, inv_hi, lse_lo, lse_hi);
     if constexpr (ALIBI) {  // the scores left out slope * shift (tile_softmax)
@@ -811,7 +819,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::named_sync(1 + wg, 128);
     if (tw == 0 && q0 + 64 * wg < p.seqlen_q) {
 #pragma unroll
-      for (int a = 0; a < DV / 64; ++a) {
+      for (int a = 0; a < sm90::atoms(DV); ++a) {
         sm90::tma_store_3d(&tm_o, ob + a * kRowsQ * 128, 64 * a, q0 + 64 * wg, bh);
       }
       sm90::bulk_commit();
@@ -875,12 +883,23 @@ cudaError_t run_dense(const void* q, const void* k, const void* v, void* out, co
   return run<D, D, CAUSAL>(q, k, v, out, p, batch, scale, stream, c);
 }
 
+// The dense walk at head dims 80 (with the channels) and 96 (without
+// ALiBi), CAUSAL when `diag`: defined in flash_fwd_hd.cu, whose nvcc runs
+// beside this file's.
+cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, const void* v,
+                         void* out, const Params& p, const Channels& c, int batch, float scale,
+                         cudaStream_t stream);
+
 }  // namespace fwd
 }  // namespace lite
 
+// flash_fwd_hd.cu includes the templates above and none of the entries below.
+#ifndef LITE_FWD_TEMPLATES_ONLY
+
 // B1 with its per-batch channels: q [B, H, Sq, D], k and v [B, Hk, Sk, D],
-// out [B, H, Sq, D], all bf16 (D 64 or 128); lse [B, H, Sq] fp32; kv_bound
-// and kv_low [B] int32 or null; alibi [B, H] fp32 slopes or null. Keys of
+// out [B, H, Sq, D], all bf16 (D 64, 80 or 128; 96 without ALiBi); lse [B,
+// H, Sq] fp32; kv_bound and kv_low [B] int32 or null; alibi [B, H] fp32
+// slopes or null. Keys of
 // batch b: [kv_low[b], min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq;
 // bound_causal (with kv_bound) bottom-right at kv_bound[b] - Sq. Returns the
 // CUDA error of the launch (0 = success).
@@ -912,6 +931,8 @@ extern "C" int lite_flash_fwd_masked(const void* q, const void* k, const void* v
   } else if (head_dim == 128) {
     err = diag ? run_dense<128, true>(q, k, v, out, p, c, batch, scale, s)
                : run_dense<128, false>(q, k, v, out, p, c, batch, scale, s);
+  } else if (head_dim == 80 || head_dim == 96) {
+    err = run_dense_hd(head_dim, diag, q, k, v, out, p, c, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -1058,3 +1079,5 @@ extern "C" int lite_flash_fwd_mla(const void* q, const void* qv, const void* k,
   }
   return static_cast<int>(err);
 }
+
+#endif  // LITE_FWD_TEMPLATES_ONLY

@@ -18,6 +18,13 @@
 //   64-value atoms along M or N; a 16-deep step along K advances the start
 //   by 16 rows (2048 bytes).
 //
+// A tile whose width is not a multiple of 64 (head dims 80 and 96) takes
+// ceil(width / 64) atoms, the last partly filled: a TMA load whose box
+// crosses the tensor's inner extent fills the rest with zeros, a store
+// clips there. An MN-major operand of N = 80 or 96 spans a whole atom and
+// the first 16 or 32 values of the next, LBO apart; a K-major one is read
+// only as deep as its K steps go.
+//
 // The accumulator of an m64nN wgmma is spread over the warpgroup as
 // mma.sync's m16n8 fragments stacked over its four warps: thread (warp w,
 // lane l) holds d[4 j + 2 i + c] = D[16 w + l / 4 + 8 i][8 j + 2 (l % 4) + c].
@@ -328,6 +335,57 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : LITE_WG_OUT64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
+
+// D[64 x 80] (+)= A[64 x 16] B[16 x 80], A in registers (a[4], the
+// accumulator layout rounded to bf16 pairs), B in shared memory.
+#define LITE_WG_OUT40(d) LITE_WG_OUT32(d), LITE_WG_OUT8(d, 32)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : LITE_WG_OUT40(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D[64 x 96] (+)= A[64 x 16] B[16 x 96], A in registers, B in shared memory.
+#define LITE_WG_OUT48(d) LITE_WG_OUT40(d), LITE_WG_OUT8(d, 40)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : LITE_WG_OUT48(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D[64 x N] (+)= A B at the head dims the attention kernels take (N 64,
+// 80, 96 or 128), A in registers, B in shared memory.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128, "no wgmma wrapper at this N");
+  if constexpr (N == 64) {
+    wgmma_rs_n64<TB>(d, a, db, accumulate);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n80<TB>(d, a, db, accumulate);
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96<TB>(d, a, db, accumulate);
+  } else {
+    wgmma_rs_n128<TB>(d, a, db, accumulate);
+  }
+}
+
+// 64-value atoms of a tile `width` values wide (the last partly filled
+// when width is not a multiple of 64).
+__host__ __device__ constexpr int atoms(int width) { return (width + 63) / 64; }
 
 #define LITE_WG_OUT128(d) \
   LITE_WG_OUT64(d), LITE_WG_OUT8(d, 64), LITE_WG_OUT8(d, 72), LITE_WG_OUT8(d, 80), \

@@ -19,9 +19,10 @@ What bounds it on the H100: tensor-core throughput (10 d FLOPs per (q
 row, key) pair: S, dP, dV, dK, dQ). As in the JAX kernels, P and dS are
 rounded to the input dtype (bf16 on the card) before they feed a product.
 
-Takes bf16 on the card (any float dtype on the CPU), head dim 64 or 128,
-GQA, ragged Sq/Sk, ``Sq != Sk``, causal or not, and B1's per-batch
-channels with JAX's meanings: the key range ``[kv_low[b], kv_bound[b])``
+Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96
+or 128 (:func:`check_head_dim`), GQA, ragged Sq/Sk, ``Sq != Sk``, causal
+or not, and B1's per-batch channels (at head dim 64, 80 or 128) with JAX's
+meanings: the key range ``[kv_low[b], kv_bound[b])``
 with ``bound_causal`` and the ALiBi bias (``alibi_slopes`` ``[H]`` or
 ``[B, H]``), on the same kernel's RANGE / ALIBI instantiations (entry
 ``lite_flash_bwd_masked``; launches counted in ``flash_bwd.bound_launches``,
@@ -205,7 +206,25 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_cuda(q, k, v, o, lse, dout):
+# Head dims B1 and B7 are built for (BTLM's 80, GPT-NeoX-20B's 96), and
+# those with B1's per-batch channels (bound, low, ALiBi).
+HEAD_DIMS = (64, 80, 96, 128)
+CHANNEL_HEAD_DIMS = (64, 80, 128)
+
+
+def check_head_dim(d: int, channels: bool, name: str) -> None:
+    """Raise ``ValueError`` unless B1 and B7 are built at head dim ``d``
+    (with B1's per-batch channels when ``channels``), naming the ROADMAP
+    item that would build it. Both wrappers call it before a launch."""
+    if d not in HEAD_DIMS:
+        item = "B-iii 3 (GPT-J)" if d == 256 else "B-iii 4"
+        raise ValueError(f"{name}: head dim {d} not built (built: {HEAD_DIMS}; ROADMAP {item})")
+    if channels and d not in CHANNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: kv_bound, kv_low and alibi_slopes at head dim {d} not built "
+                         f"(built: {CHANNEL_HEAD_DIMS}; ROADMAP B-iii 4)")
+
+
+def _check_cuda(q, k, v, o, lse, dout, channels):
     if any(x.device != q.device for x in (k, v, o, lse, dout)):
         raise ValueError("flash_bwd: all inputs must be on one device")
     if q.device.type != "cuda":
@@ -214,9 +233,7 @@ def _check_cuda(q, k, v, o, lse, dout):
         raise TypeError("the CUDA kernels take bf16 q, k, v, o, dout")
     if lse.dtype != torch.float32:
         raise TypeError("lse must be fp32")
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"head dim {q.shape[-1]} not built (64 or 128; head dim 80, BTLM's, "
-                         "is ROADMAP A11's next item)")
+    check_head_dim(q.shape[-1], channels, "flash_bwd")
     if not all(x.is_contiguous() for x in (q, k, v, o, lse, dout)):
         raise ValueError("the CUDA kernels take contiguous tensors")
     _build.check_aligned(q, k, v, o, dout)
@@ -238,7 +255,8 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
         return flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, kv_bound=kv_bound,
                                kv_low=kv_low, bound_causal=bound_causal,
                                alibi_slopes=alibi_slopes)
-    _check_cuda(q, k, v, o, lse, dout)
+    plain = kv_bound is None and kv_low is None and alibi_slopes is None
+    _check_cuda(q, k, v, o, lse, dout, channels=not plain)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     sq_pad = -(-sq // TILE_Q) * TILE_Q
@@ -252,7 +270,7 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
             lse2.data_ptr(), delta.data_ptr())
     dims = (b, h, hk, sq, sk, d, float(scale), int(causal))
     dev = (q.device.index, _build.stream(q.device))
-    if kv_bound is None and kv_low is None and alibi_slopes is None:
+    if plain:
         _build.check(lib.lite_flash_bwd(*ptrs, *dims, *dev), "flash_bwd")
         flash_bwd.launches += 1
         return dq, dk, dv
@@ -318,7 +336,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
 
 
 __all__ = [
+    "CHANNEL_HEAD_DIMS",
+    "HEAD_DIMS",
     "causal_mask",
+    "check_head_dim",
     "flash_attention_bwd",
     "flash_bwd",
     "flash_bwd_dkv_plain",

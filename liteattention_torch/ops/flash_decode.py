@@ -264,7 +264,8 @@ def launch_decode(
         raise TypeError("the decode kernel takes bf16 or int8 caches (k and v alike)")
     b, hk, rows, d = qp.shape
     if d not in (64, 128):
-        raise ValueError(f"head dim {d} not built (64 or 128)")
+        raise ValueError(f"head dim {d} not built (64 or 128; 80 and 96 are ROADMAP B-iii 2, "
+                         "GPT-J's 256 B-iii 3)")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the caches need a unit channel stride")
     el = k.element_size()

@@ -16,8 +16,10 @@ The gradient is a ``torch.autograd.Function`` whose backward is the pair
 of kernels B7a/B7b (:mod:`liteattention_torch.ops.flash_bwd`); the lse
 cotangent is ignored, as in the JAX ``custom_vjp``.
 
-Takes bf16 on the card (any float dtype on the CPU), head dim 64 or 128,
-GQA, causal or not. The wrapper runs the plain PyTorch version for CPU
+Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96
+or 128 (``flash_bwd.check_head_dim``; at 80 and 96 each tile takes two
+64-value atoms, the second partly filled, and no product reads the
+padding), GQA, causal or not. The wrapper runs the plain PyTorch version for CPU
 tensors and the kernel for CUDA tensors.
 
 :func:`flash_attention_masked` adds B1's per-batch channels, differentiable:
@@ -58,7 +60,7 @@ from typing import Optional
 import torch
 
 from liteattention_torch.ops import _build
-from liteattention_torch.ops.flash_bwd import causal_mask, flash_attention_bwd
+from liteattention_torch.ops.flash_bwd import causal_mask, check_head_dim, flash_attention_bwd
 from liteattention_torch.ops.flash_decode import (
     decode_plain,
     launch_decode,
@@ -293,9 +295,8 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     b, h, sq, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d} not built (64 or 128; head dim 80, BTLM's, is "
-                         "ROADMAP A11's next item)")
+    check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None,
+                   "flash_attention")
     _build.check_aligned(q, k, v)
 
     def per_batch(x):
@@ -392,7 +393,8 @@ def flash_attention_masked(
     nothing, as in JAX), ``kv_low`` ``[B]`` (the first valid key) and
     ``alibi_slopes`` ``[H]`` or ``[B, H]`` fp32 (the bias ``-slope *
     |row + Sk - Sq - col|``, applied in log2 units as the JAX kernel does,
-    not scaled by ``scale``). They take head dim 64 or 128 and no ``qv``.
+    not scaled by ``scale``). They take head dim 64, 80 or 128 on the card
+    (96 raises, ROADMAP B-iii 4) and no ``qv``.
     Every other mask channel raises ``NotImplementedError`` naming itself
     (ROADMAP A11). ``block_sizes`` is a tiling knob of the JAX kernel,
     accepted and ignored (B1 runs 128 x 128)."""

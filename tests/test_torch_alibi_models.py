@@ -111,8 +111,9 @@ def _same_config(port, ref):
 
 def _tiny(family):
     """A tiny fp32 config of ``family`` in both packages (same fields)."""
-    if family == "btlm":
-        kw = dict(dim=128, num_layers=2, num_heads=2, vocab=256)
+    if family in ("btlm", "btlm_d80"):
+        # btlm_d80: BTLM's head dim (2560 / 32 = 80) at two heads.
+        kw = dict(dim=128 if family == "btlm" else 160, num_layers=2, num_heads=2, vocab=256)
         return (dataclasses.replace(configs.btlm_config(**kw), ffn_dim=192, dtype=torch.float32),
                 dataclasses.replace(jconfigs.btlm_config(**kw), ffn_dim=192, dtype=jnp.float32))
     kw = dict(dim=128, num_layers=2, num_heads=2, vocab=256)
@@ -123,7 +124,7 @@ def _tiny(family):
             dataclasses.replace(jconfigs.baichuan_config(**kw), dtype=jnp.float32, **extra))
 
 
-@pytest.mark.parametrize("family", ["baichuan_alibi", "baichuan_rotary", "btlm"])
+@pytest.mark.parametrize("family", ["baichuan_alibi", "baichuan_rotary", "btlm", "btlm_d80"])
 def test_tiny_models_logits_and_greedy_match_jax(family):
     pcfg, jcfg = _tiny(family)
     ids = np.random.RandomState(2).randint(0, 256, (2, PROMPT)).astype(np.int32)
@@ -241,27 +242,38 @@ def _jax_init(jcfg, pcfg, ids):
     return jmodel, params, pmodel
 
 
+def _grads_match_jax(family):
+    """The next-token loss's fp32 gradient of tiny ``family`` against
+    jax.grad of the same loss: the loss within 1e-5 relative, each
+    parameter within GRAD_TOL rel-L2."""
+    pcfg, jcfg = _tiny(family)
+    ids = np.random.RandomState(4).randint(0, 256, (2, 150)).astype(np.int32)
+    jmodel, params, pmodel = _jax_init(jcfg, pcfg, ids)
+
+    def jloss(p):
+        return jce(jmodel.apply(p, jnp.asarray(ids))[:, :-1], jnp.asarray(ids)[:, 1:])
+
+    jl, jgrads = jax.value_and_grad(jloss)(params)
+    jgrads = gpt_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    loss = gpt_loss_fn(pmodel, t(ids).long(), t(ids).long())
+    loss.backward()
+    assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl)), family
+    for name, p in pmodel.named_parameters():
+        assert rel_l2(p.grad.numpy(), jgrads[name].numpy()) < GRAD_TOL, (family, name)
+
+
 def test_alibi_model_training_raises():
     # Once pinned the raise of a gradient through B1's ALiBi channel; B7
-    # now takes it, so the next-token loss's fp32 gradient of tiny
-    # Baichuan (ALiBi) and BTLM (ALiBi, 1/d scale, biases) is held against
-    # jax.grad of the same loss: the loss within 1e-5 relative, each
-    # parameter within GRAD_TOL rel-L2.
+    # now takes it, so tiny Baichuan (ALiBi) and BTLM (ALiBi, 1/d scale,
+    # biases) take their gradients against jax.grad (_grads_match_jax).
     for family in ("baichuan_alibi", "btlm"):
-        pcfg, jcfg = _tiny(family)
-        ids = np.random.RandomState(4).randint(0, 256, (2, 150)).astype(np.int32)
-        jmodel, params, pmodel = _jax_init(jcfg, pcfg, ids)
+        _grads_match_jax(family)
 
-        def jloss(p):
-            return jce(jmodel.apply(p, jnp.asarray(ids))[:, :-1], jnp.asarray(ids)[:, 1:])
 
-        jl, jgrads = jax.value_and_grad(jloss)(params)
-        jgrads = gpt_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
-        loss = gpt_loss_fn(pmodel, t(ids).long(), t(ids).long())
-        loss.backward()
-        assert abs(loss.item() - float(jl)) <= 1e-5 * abs(float(jl)), family
-        for name, p in pmodel.named_parameters():
-            assert rel_l2(p.grad.numpy(), jgrads[name].numpy()) < GRAD_TOL, (family, name)
+def test_btlm_head_dim_80_gradients_match_jax():
+    # BTLM at its own head dim, 80: the gradient B7's D-80 instantiations
+    # compute on the card, through their plain version here.
+    _grads_match_jax("btlm_d80")
 
 
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 3, 2, 64

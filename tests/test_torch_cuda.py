@@ -80,7 +80,7 @@ def _qkv(dev, b, h, hk, sq, sk, d, seed=0):
 
 
 # (b, h, hk, sq, sk, d): ragged, GQA, sq > sk (causal rows with no key),
-# sq < sk, D 64 and 128.
+# sq < sk, D 64 and 128 (FWD_SHAPES and BWD_SHAPES add 80 and 96).
 SHAPES = [
     (1, 4, 2, 300, 555, 64),
     (2, 2, 2, 256, 130, 128),
@@ -107,6 +107,13 @@ FWD_SHAPES = SHAPES + [
     (2, 16, 2, 500, 700, 64),
     (1, 8, 8, 1024, 1500, 128),
     (2, 4, 4, 777, 1500, 64),
+    # Head dims 80 (BTLM) and 96 (GPT-NeoX-20B): two atoms a tile, the
+    # second partly filled; ragged, GQA, Sq > Sk, Sq 1.
+    (1, 4, 2, 300, 555, 80),
+    (1, 8, 2, 700, 300, 80),
+    (1, 32, 32, 1, 1059, 80),
+    (2, 4, 4, 200, 200, 96),
+    (2, 2, 2, 256, 130, 96),
 ]
 
 
@@ -151,6 +158,11 @@ CHANNEL_CASES = [
     ((2, 8, 2, 1, 1059, 128), [1059, 500], None, False, True, "h", None),
     ((2, 8, 2, 4, 1059, 128), [1059, 700], None, False, True, "bh", None),
     ((2, 10, 2, 256, 1024, 64), [256, 700], None, False, True, "h", None),
+    # Head dim 80 (BTLM: ALiBi at scale 1/d, its cached steps).
+    ((3, 4, 2, 200, 700, 80), [700, 260, 128], [0, 100, 129], False, True, None, None),
+    ((2, 4, 2, 300, 300, 80), None, None, True, False, "h", "d"),
+    ((2, 8, 2, 1, 1059, 80), [1059, 500], None, False, True, "h", "d"),
+    ((2, 8, 8, 130, 1000, 80), [1000, 600], None, False, True, "bh", "d"),
 ]
 
 
@@ -255,6 +267,11 @@ BWD_CHANNEL_CASES = [
     ((2, 10, 2, 256, 1024, 64), [256, 700], None, False, True, "h"),
     ((2, 8, 2, 4, 1059, 128), [1059, 700], [0, 3], False, True, "bh"),
     ((2, 6, 3, 257, 700, 64), [600, 257], [0, 200], False, False, "h"),
+    # Head dim 80 (BTLM): bound + low + bound_causal, causal ALiBi, a
+    # cached step with ALiBi.
+    ((3, 4, 2, 140, 500, 80), [500, 300, 270], [5, 128, 140], False, True, None),
+    ((2, 4, 1, 300, 300, 80), None, None, True, False, "bh"),
+    ((2, 8, 2, 4, 1059, 80), [1059, 700], [0, 3], False, True, "bh"),
 ]
 
 
@@ -360,7 +377,30 @@ BWD_SHAPES = SHAPES + [
     (1, 8, 2, 700, 300, 128),
     (1, 1, 1, 256, 256, 64),
     (1, 2, 1, 100, 128, 128),
+    # Head dims 80 and 96 (dQ's second warpgroup over atom 1's padding).
+    (1, 4, 2, 300, 555, 80),
+    (1, 2, 1, 100, 128, 80),
+    (2, 4, 4, 200, 200, 96),
+    (1, 8, 2, 700, 300, 96),
 ]
+
+
+# Head dims B1 and B7 are not built at, and B1's channels at 96: both
+# wrappers raise before a launch, naming the ROADMAP item.
+@pytest.mark.parametrize("d,channels", [(32, False), (72, False), (112, True), (256, False),
+                                        (96, True)])
+def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
+    q, k, v = _qkv(dev, 1, 2, 2, 64, 64, d)
+    kw = dict(kv_bound=torch.tensor([40], dtype=torch.int32, device=dev)) if channels else {}
+    n0 = (flash_attention.launches, flash_attention.bound_launches, flash_bwd.launches,
+          flash_bwd.bound_launches)
+    with pytest.raises(ValueError, match="ROADMAP B-iii"):
+        flash_attention_masked(q, k, v, **kw)
+    lse = torch.zeros(1, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="ROADMAP B-iii"):
+        flash_attention_bwd(q, k, v, q, lse, q, d**-0.5, False, **kw)
+    assert (flash_attention.launches, flash_attention.bound_launches, flash_bwd.launches,
+            flash_bwd.bound_launches) == n0
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -33,7 +33,7 @@ BS = JBS(128, 128)
 GRAD_TOL = 1e-4
 
 # (b, h, hk, sq, sk, d, causal): square, GQA, ragged, sq > sk (causal rows
-# with no valid key), sq < sk, MQA, D 64 and 128.
+# with no valid key), sq < sk, MQA, D 64, 80, 96 and 128.
 CASES = [
     (1, 2, 2, 256, 256, 64, True),
     (1, 2, 2, 256, 256, 64, False),
@@ -41,6 +41,8 @@ CASES = [
     (1, 2, 1, 130, 300, 128, True),
     (2, 2, 2, 200, 333, 128, False),
     (1, 4, 2, 150, 150, 64, True),
+    (1, 4, 2, 300, 200, 80, True),
+    (2, 2, 2, 200, 333, 96, False),
 ]
 
 

@@ -65,6 +65,12 @@ CASES = {
     "alibi_bh_causal_sq_gt_sk": ((2, 4, 1, 300, 140, 128), None, None, True, False, "bh"),
     "alibi_bh_causal_gqa": ((2, 6, 2, 257, 257, 64), None, None, True, False, "bh"),
     "alibi_bound_low_noncausal": ((2, 4, 2, 100, 300, 64), [250, 131], [3, 0], False, False, "h"),
+    # Head dims 80 (BTLM: causal ALiBi, its cached steps) and 96.
+    "all_three_d80": ((3, 4, 2, 140, 500, 80), [500, 300, 270], [5, 128, 140], False, True, None),
+    "alibi_bh_causal_d80": ((2, 4, 2, 257, 257, 80), None, None, True, False, "bh"),
+    "alibi_bound_causal_cache_d80": ((2, 4, 2, 20, 300, 80), [260, 150], None, False, True, "h"),
+    "bound_causal_d96": ((2, 4, 2, 130, 300, 96), [300, 160], None, True, True, None),
+    "alibi_h_noncausal_d96": ((2, 4, 4, 130, 200, 96), None, None, False, False, "h"),
 }
 
 
@@ -167,7 +173,8 @@ def test_split_plain_versions_match_the_one_pass(name):
 
 
 @pytest.mark.parametrize("name", ["bound_causal_mask", "all_three", "alibi_bh_causal_gqa",
-                                  "alibi_bound_low_noncausal"])
+                                  "alibi_bound_low_noncausal", "alibi_bh_causal_d80",
+                                  "bound_causal_d96"])
 def test_masked_autograd_matches_jax_vjp(name):
     q, k, v, do, causal, kw = _case(name)
     jkw = _jax_kw(kw)
@@ -221,6 +228,9 @@ ORACLE_CASES = {
     "alibi_bh_noncausal_sq_lt_sk": ((2, 4, 4, 100, 230, 64), None, None, False, False, "bh"),
     "alibi_bound_causal_cache": ((2, 4, 2, 20, 300, 64), [260, 150], None, False, True, "h"),
     "bound_low_causal": ((2, 2, 1, 140, 200, 128), [200, 100], [0, 7], True, False, None),
+    "alibi_causal_gqa_d80": ((2, 4, 2, 150, 150, 80), None, None, True, False, "h"),
+    "alibi_bound_causal_cache_d80": ((2, 4, 2, 20, 300, 80), [260, 150], None, False, True, "h"),
+    "bound_causal_d96": ((2, 2, 1, 100, 230, 96), [230, 180], None, True, True, None),
 }
 
 

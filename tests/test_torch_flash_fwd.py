@@ -33,6 +33,10 @@ from liteattention_torch.ops.tile_sizes import BlockSizes  # noqa: E402
         (1, 8, 2, 300, 200, 128, "float32", 2e-5, True),  # rows with no key, serving GQA
         (1, 8, 2, 4, 1059, 128, "bfloat16", 2e-2, True),  # the verify step
         (2, 4, 1, 1000, 77, 64, "float32", 2e-5, False),  # Sk < one tile, MQA
+        (1, 4, 2, 300, 555, 80, "float32", 2e-5, False),  # D 80 (BTLM), ragged
+        (1, 8, 2, 300, 200, 80, "float32", 2e-5, True),  # D 80, rows with no key
+        (2, 4, 4, 200, 333, 96, "float32", 2e-5, True),  # D 96 (GPT-NeoX-20B), causal
+        (1, 4, 2, 256, 130, 96, "bfloat16", 2e-2, False),  # D 96, bf16
     ],
 )
 def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol, causal):

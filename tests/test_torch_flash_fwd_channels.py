@@ -22,6 +22,7 @@ from liteattention_tpu.modules.mha import alibi_slopes as jalibi_slopes  # noqa:
 from liteattention_tpu.ops.flash_fwd import flash_attention_masked as jmasked  # noqa: E402
 from liteattention_tpu.ops.tile_sizes import BlockSizes as JBS  # noqa: E402
 from liteattention_torch.modules.mha import alibi_slopes  # noqa: E402
+from liteattention_torch.ops.flash_bwd import HEAD_DIMS, check_head_dim  # noqa: E402
 from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked  # noqa: E402
 
 TOL = 2e-5
@@ -65,6 +66,10 @@ BOUND_CASES = {
     "all_three": ((3, 4, 2, 140, 500, 64), [500, 300, 270], [5, 128, 140], False, True),
     # Rows that see no key: bound 0, bound <= low, bound_causal with bound < Sq.
     "no_key_rows": ((4, 2, 2, 150, 260, 64), [0, 100, 90, 260], [0, 100, 120, 0], False, True),
+    # Head dims 80 (BTLM) and 96 (GPT-NeoX-20B).
+    "bound_causal_d80": ((3, 4, 2, 130, 400, 80), [400, 131, 260], None, False, True),
+    "all_three_d80": ((3, 4, 2, 140, 500, 80), [500, 300, 270], [5, 128, 140], False, True),
+    "bound_low_causal_d96": ((2, 4, 2, 200, 300, 96), [300, 131], [0, 7], True, False),
 }
 
 
@@ -97,6 +102,10 @@ ALIBI_CASES = {
     "bh_causal_sq_gt_sk": ((2, 4, 1, 300, 140, 128), True, True, None),
     "h_noncausal_d128_scale_d": ((1, 4, 2, 200, 200, 128), False, False, "d"),
     "bh_causal_scale_d": ((2, 6, 2, 257, 257, 64), True, True, "d"),
+    # BTLM's attention: head dim 80, causal, scale 1/d; and head dim 96.
+    "h_causal_d80_scale_d": ((2, 4, 2, 257, 257, 80), False, True, "d"),
+    "bh_noncausal_d80_sq_lt_sk": ((2, 4, 4, 130, 300, 80), True, False, "d"),
+    "h_causal_d96": ((1, 4, 2, 200, 300, 96), False, True, None),
 }
 
 
@@ -170,6 +179,27 @@ def test_gradient_through_a_channel_raises(channel):
     for g, r, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_TOL, rtol=0,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_wrappers_take_the_built_head_dims(d):
+    # B1's and B7's wrappers check the head dim with check_head_dim before
+    # any launch: 64, 80, 96 and 128 pass, with B1's channels all but 96.
+    check_head_dim(d, False, "flash_attention")
+    if d == 96:
+        with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
+            check_head_dim(d, True, "flash_attention")
+    else:
+        check_head_dim(d, True, "flash_attention")
+    assert d in HEAD_DIMS
+
+
+@pytest.mark.parametrize("d,item", [(32, "B-iii 4"), (72, "B-iii 4"), (112, "B-iii 4"),
+                                    (192, "B-iii 4"), (256, "B-iii 3")])
+def test_wrappers_raise_at_other_head_dims(d, item):
+    for channels in (False, True):
+        with pytest.raises(ValueError, match=f"head dim {d} not built.*ROADMAP {item}"):
+            check_head_dim(d, channels, "flash_bwd")
 
 
 def test_channel_shapes_and_unported_channels():
