@@ -53,9 +53,9 @@ SOFTMAX = """      auto vote = [&](float mx_lo, float mx_hi) {
           if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
         }
       };
-      tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile, walk.dead, warp_row0,
-                                         r_lo, r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
-                                         vote);
+      tile_softmax<CAUSAL, DENSE, ALIBI, SEG>(s, p, range, seg, slope_log2, tile, walk.dead,
+                                              warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                                              alpha_lo, alpha_hi, vote);
 """
 LOOP_HEAD = """    for (int j = 0; j + 1 < walk.n; ++j) {
       const int f = f0 + j;

@@ -190,6 +190,25 @@ Phases (any failure exits non-zero and prints no result line):
    the same model trained on one repeated 8192-token sequence through
    ``training/trainer.py``, remat, AdamW, 3 steps (32 ALiBi B7 launches a
    step; the loss falls).
+13. (Runs after 12.) Packed documents through the varlen functions, B1's
+   and B7's segment channel: (a) BERT-large's phase-10 batch (32 x 512,
+   8 916 valid tokens, 16 heads of 64) through ``unpad_input`` ->
+   ``flash_attn_varlen_func`` -> ``pad_input`` against B1's and B7's bound
+   channel over the padded batch (valid rows, gradients); Llama-3-8B's
+   attention (32 / 8 heads of 128) over 16 384 tokens of causal documents
+   of seeded lengths 128-4096 and BTLM-3B-8K's (32 heads of 80, scale 1/d)
+   over 8192 tokens of lengths 256-4096, against each document alone
+   through causal B1 / B7 (rel-L2 within 1e-2); at each shape B1 and B7
+   with the segment ids against their plain versions (out, lse and
+   gradients, every 128-row block; dK / dV bit for bit over two runs),
+   timed beside their bound over the visible pairs, the plain versions
+   and SDPA's efficient backend with the block-diagonal mask; at the Llama
+   shape the segment kernel under 0.6x causal B1 over all the tokens as
+   one sequence, ``seqused_q`` / ``seqused_k`` with ``attention_chunk``
+   1024 (dead rows give out 0 and lse -inf) and (b) the kvpacked and
+   qkvpacked forms bit-equal to the unpacked call; then the counted run:
+   the three shapes' varlen calls forward and backward, 3 segment launches
+   each of B1 and B7 and no other B1 / B7 launch.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -212,6 +231,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import statistics
@@ -472,6 +492,7 @@ def kernel_wrappers():
             "flash_fwd_alibi": (flash_attention, "alibi_launches"),
             "flash_fwd_mla": (flash_attention, "mla_launches"),
             "flash_fwd_mla_v512": (flash_attention, "mla_v512_launches"),
+            "flash_fwd_segments": (flash_attention, "segment_launches"),
             "schedule_pack": (pack_schedule, "launches"),
             "lite_flash_fwd": (lite_flash_attention, "launches"),
             "lite_flash_fwd_coarse": (lite_flash_attention, "coarse_launches"),
@@ -481,6 +502,7 @@ def kernel_wrappers():
             "flash_bwd_dkv": (flash_bwd, "launches"),
             "flash_bwd_bound": (flash_bwd, "bound_launches"),
             "flash_bwd_alibi": (flash_bwd, "alibi_launches"),
+            "flash_bwd_segments": (flash_bwd, "segment_launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
@@ -634,7 +656,8 @@ def verify_bwd(label, q, k, v, dout, kw, floor=0.0):
     b, d, sk = q.shape[0], q.shape[-1], k.shape[2]
     causal = kw.get("causal", False)
     scale = kw.get("scale") or d**-0.5
-    ch = {n: kw[n] for n in ("kv_bound", "kv_low", "bound_causal", "alibi_slopes") if n in kw}
+    ch = {n: kw[n] for n in ("kv_bound", "kv_low", "bound_causal", "alibi_slopes", "q_segments",
+                             "kv_segments") if n in kw}
     out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
     args = (q, k, v, out, lse, dout, scale, causal)
     dq, dk, dv = flash_attention_bwd(*args, **ch)
@@ -656,7 +679,8 @@ def verify_bwd(label, q, k, v, dout, kw, floor=0.0):
            + ", ".join(f"{n} {t:.2e} / {w:.2e}" for n, (t, w) in rels.items())
            + "; max abs err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
            + " (dK, dV bit-stable over two runs")
-    hidden = hidden_keys(b, sk, q.device, ch.get("kv_bound"), ch.get("kv_low"))
+    hidden = hidden_keys(b, sk, q.device, ch.get("kv_bound"), ch.get("kv_low"),
+                         ch.get("q_segments"), ch.get("kv_segments"))
     if hidden.any():
         zero = max(g.transpose(1, 2)[hidden].abs().max().item() for g in (dk, dv))
         check(zero == 0.0, f"B7 {label}: keys no row sees got dK/dV {zero:.3e}, not 0")
@@ -2989,9 +3013,11 @@ CACHE_APPEND_SHAPE = (8, 32, 8, 1024, 4096, 128)
 ALIBI_NONCAUSAL_SHAPE = (2, 40, 1000, 1536, 128)
 
 
-def visible_keys(b, sq, sk, dev, causal=False, kv_bound=None, kv_low=None, bound_causal=False):
+def visible_keys(b, sq, sk, dev, causal=False, kv_bound=None, kv_low=None, bound_causal=False,
+                 q_segments=None, kv_segments=None):
     """Bool ``[B, 1, Sq, Sk]``: the keys each q row of B1 with these
-    channels sees (the plain version's rule)."""
+    channels sees (the plain version's rule; segments: the keys of the
+    row's id)."""
     import torch
 
     row = torch.arange(sq, device=dev)[:, None]
@@ -3004,12 +3030,14 @@ def visible_keys(b, sq, sk, dev, causal=False, kv_bound=None, kv_low=None, bound
         vis &= col < (end - sq + row + 1 if bound_causal else end)
     if kv_low is not None:
         vis &= col >= kv_low.reshape(-1, 1, 1, 1)
+    if q_segments is not None:
+        vis &= q_segments.reshape(b, 1, sq, 1) == kv_segments.reshape(b, 1, 1, sk)
     return vis
 
 
-def hidden_keys(b, sk, dev, kv_bound=None, kv_low=None):
+def hidden_keys(b, sk, dev, kv_bound=None, kv_low=None, q_segments=None, kv_segments=None):
     """Bool ``[B, Sk]``: keys no q row of the batch sees (at or past the
-    bound, before kv_low)."""
+    bound, before kv_low, of an id no row carries)."""
     import torch
 
     col = torch.arange(sk, device=dev)[None]
@@ -3018,7 +3046,20 @@ def hidden_keys(b, sk, dev, kv_bound=None, kv_low=None):
         hidden |= col >= kv_bound.reshape(-1, 1)
     if kv_low is not None:
         hidden |= col < kv_low.reshape(-1, 1)
+    if q_segments is not None:
+        hidden |= ~torch.isin(kv_segments.reshape(b, sk), q_segments)
     return hidden
+
+
+def segment_kernel_call(q, k, v, scale, kw):
+    """B1's segment kernel alone on the ids' precomputed walk (no ranges
+    computed in the call)."""
+    from liteattention_torch.ops import flash_fwd
+    from liteattention_torch.ops.segments import segment_walk
+
+    walk = segment_walk(kw["q_segments"], kw["kv_segments"])
+    return lambda: flash_fwd._launch(q, k, v, scale, kw.get("causal", False), walk=walk,
+                                     q_segments=kw["q_segments"], kv_segments=kw["kv_segments"])
 
 
 def check_channels(label, q, k, v, kw, time_it=False):
@@ -3062,7 +3103,7 @@ def check_channels(label, q, k, v, kw, time_it=False):
     hk, sk = k.shape[1], k.shape[2]
     bound_t, low_t = kw.get("kv_bound"), kw.get("kv_low")
     vis = visible_keys(b, sq, sk, q.device, kw.get("causal", False), bound_t, low_t,
-                       kw.get("bound_causal", False))
+                       kw.get("bound_causal", False), kw.get("q_segments"), kw.get("kv_segments"))
     pairs = int(vis.sum().item()) * h
     lim = torch.full((b,), sk, device=q.device) if bound_t is None else bound_t.clamp(0, sk)
     first = torch.zeros_like(lim) if low_t is None else low_t.clamp(0, sk)
@@ -3070,11 +3111,16 @@ def check_channels(label, q, k, v, kw, time_it=False):
     kv_bytes = 2 * key_rows * hk * d * k.element_size()
     res["bound_ms"], res["bound_by"] = bound(4 * d * pairs, nbytes(q, out, lse) + kv_bytes)
     res["visible_pairs"] = pairs
+    scale = kw.get("scale") or d**-0.5
     call = lambda: flash_attention_masked(q, k, v, **kw)  # noqa: E731
+    if "q_segments" in kw:
+        # The whole call computes the segment walk's ranges first (ops/
+        # segments.py); the kernel alone runs on them (as the backward does).
+        res["call_ms"], _, res["call_timer"] = device_ms(call)
+        call = segment_kernel_call(q, k, v, scale, kw)
     res["ms"], _, res["timer"] = device_ms(call)
     res["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    scale = kw.get("scale") or d**-0.5
     slopes = kw.get("alibi_slopes")
     mb = b
     if torch.equal(vis, vis[:1].expand_as(vis)) and (slopes is None or slopes.dim() == 1):
@@ -3088,11 +3134,17 @@ def check_channels(label, q, k, v, kw, time_it=False):
         dist = dist if kw.get("causal", False) else dist.abs()
         mask = (-slopes * dist).masked_fill(~vis, -torch.inf).to(q.dtype)
         kind = "an additive ALiBi bias"
+    kl, vl, gqa = k, v, hk < h
+    if "q_segments" in kw:  # the efficient backend, as the backward's: K/V expanded
+        kl, vl, gqa = k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1), False
     backend, res["library_ms"], t_lib = sdpa_backend_ms(
-        f"B1 {label}", lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=hk < h))
+        f"B1 {label}", lambda: sdpa(q, kl, vl, attn_mask=mask, scale=scale, enable_gqa=gqa))
     res["library"] = None if backend is None else f"SDPA {backend} with {kind} ({t_lib})"
-    del mask
+    del mask, kl, vl
     lib = "n/a" if backend is None else f"{res['library_ms']:.4f} ms {res['library']}"
+    if "call_ms" in res:
+        log(f"  B1 {label}: the whole call (ranges and kernel) {res['call_ms']:.4f} ms "
+            f"({res['call_timer']})")
     log(f"  B1 {label}: kernel {res['ms']:.4f} ms ({res['timer']}), plain {res['plain_ms']:.3f} "
         f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; {pairs} visible pairs), "
         f"library {lib}")
@@ -3510,6 +3562,7 @@ def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
     dk, dv)."""
     import torch
     from liteattention_torch.ops.flash_bwd import flash_attention_bwd, flash_bwd_plain
+    from liteattention_torch.ops.segments import segment_walk
 
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -3522,7 +3575,8 @@ def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
     if time_it:
         bound_t, low_t = ch.get("kv_bound"), ch.get("kv_low")
         vis = visible_keys(b, sq, sk, q.device, causal, bound_t, low_t,
-                           ch.get("bound_causal", False))
+                           ch.get("bound_causal", False), ch.get("q_segments"),
+                           ch.get("kv_segments"))
         pairs = int(vis.sum().item()) * h
         lim = torch.full((b,), sk, device=q.device) if bound_t is None else bound_t.clamp(0, sk)
         first = torch.zeros_like(lim) if low_t is None else low_t.clamp(0, sk)
@@ -3531,7 +3585,12 @@ def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
         res["bound_ms"], res["bound_by"] = bound(
             10 * d * pairs, nbytes(q, out, dout, lse, dq, dk, dv) + kv_bytes)
         res["visible_pairs"] = pairs
-        res["ms"], _, res["timer"] = device_ms(lambda: flash_attention_bwd(*args, **ch))
+        timed = ch
+        if "q_segments" in ch:  # as autograd runs it: on the forward's segment walk
+            res["call_ms"], _, res["call_timer"] = device_ms(lambda: flash_attention_bwd(*args,
+                                                                                       **ch))
+            timed = dict(ch, segment_walk=segment_walk(ch["q_segments"], ch["kv_segments"]))
+        res["ms"], _, res["timer"] = device_ms(lambda: flash_attention_bwd(*args, **timed))
         res["plain_ms"] = cuda_ms(lambda: flash_bwd_plain(*args, **ch), reps=1)
         slopes = ch.get("alibi_slopes")
         if slopes is None:
@@ -3550,6 +3609,9 @@ def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
         del mask
         torch.cuda.empty_cache()
         lib = "n/a" if backend is None else f"{res['library_ms']:.4f} ms {res['library']}"
+        if "call_ms" in res:
+            log(f"  B7 {label}: the whole call (ranges and kernels) {res['call_ms']:.4f} ms "
+                f"({res['call_timer']})")
         log(f"  B7 {label}: backward {res['ms']:.4f} ms ({res['timer']}), plain "
             f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
             f"{pairs} visible pairs), library {lib}")
@@ -4258,6 +4320,280 @@ def btlm_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 13
+
+# Packed documents through the varlen functions (B1's and B7's segment
+# channel). Llama-3-8B's attention (32 q heads, 8 KV heads of 128) over
+# tokens of causal documents of seeded lengths; BTLM-3B-8K's (32 heads of
+# 80, scale 1/d) likewise; each: tokens, heads, KV heads, head dim, the
+# lengths' range, the seed. The last document is cut to fill the tokens.
+LLAMA_PACK = (16384, 32, 8, 128, (128, 4096), 1616)
+BTLM_PACK = (8192, 32, 32, 80, (256, 4096), 8080)
+# The packed documents against each document alone (rel-L2, out and
+# gradients); the segment walk's time over causal B1's over all tokens as
+# one sequence (the visible work is ~0.17 of it at LLAMA_PACK).
+PACKED_DOC_TOL = 1e-2
+SEG_TIME_LIMIT = 0.6
+VARLEN_CHUNK = 1024
+
+
+def bert_padded_mask(dev):
+    """Phase 10's BERT-large batch: its lengths (the generator's draws after
+    the token ids, as bert_phase makes them), the [B, S] int32 mask, the
+    valid total, and the generator to draw on from."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    torch.randint(0, 30522, (BERT_BATCH, BERT_SEQ), generator=g, device=dev)  # the ids
+    lens = torch.randint(BERT_MIN_LEN, BERT_SEQ + 1, (BERT_BATCH,), generator=g, device=dev)
+    mask = (torch.arange(BERT_SEQ, device=dev)[None] < lens[:, None]).to(torch.int32)
+    return lens, mask, int(lens.sum()), g
+
+
+def doc_lengths(total, lo, hi, seed):
+    """Document lengths uniform in [lo, hi] from ``seed``, the last cut so
+    that they sum to ``total``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    while sum(out) < total:
+        out.append(int(torch.randint(lo, hi + 1, (1,), generator=g)))
+    out[-1] -= sum(out) - total
+    return out
+
+
+def packed_docs(dev, pack, grad=True):
+    """Packed q [T, H, D], k, v [T, Hk, D], dO (bf16, from the seed), the
+    document lengths and cu_seqlens of a ``LLAMA_PACK``-like entry."""
+    import torch
+
+    total, h, hk, d, (lo, hi), seed = pack
+    lengths = doc_lengths(total, lo, hi, seed)
+    cu = torch.tensor([0, *itertools.accumulate(lengths)], dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+        return x.requires_grad_() if grad else x
+
+    return rnd(total, h, d), rnd(total, hk, d), rnd(total, hk, d), rnd(total, h, d).detach(), \
+        lengths, cu
+
+
+def heads_first(*xs):
+    """[T, H, D] -> [1, H, T, D], contiguous, detached."""
+    return [x.detach().transpose(0, 1)[None].contiguous() for x in xs]
+
+
+def docs_alone_check(label, q, k, v, dout, lengths, cu, scale):
+    """flash_attn_varlen_func over the packed causal documents (forward and
+    autograd backward) against each document alone through causal B1 / B7
+    (``flash_attention``), concatenated: rel-L2 of out, dq, dk, dv within
+    PACKED_DOC_TOL. Returns the rel-L2s."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.ops.flash_fwd import flash_attention
+
+    out = flash_attn_varlen_func(q, k, v, cu, cu, softmax_scale=scale, causal=True)
+    got = [out.detach(), *torch.autograd.grad(out, (q, k, v), dout)]
+    want = [[], [], [], []]
+    for a, n in zip(cu[:-1].tolist(), lengths):
+        parts = [x.detach()[a : a + n].transpose(0, 1)[None].contiguous().requires_grad_()
+                 for x in (q, k, v)]
+        o = flash_attention(*parts, scale=scale, causal=True)
+        grads = torch.autograd.grad(o, parts, dout[a : a + n].transpose(0, 1)[None])
+        for i, x in enumerate((o, *grads)):
+            want[i].append(x.detach()[0].transpose(0, 1))
+    rels = {n: rel_l2(g_, torch.cat(w)) for n, g_, w in zip(("out", "dq", "dk", "dv"), got, want)}
+    log(f"  {label}: the packed documents vs each alone (causal B1 / B7), rel-L2 "
+        + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()) + f" (limit {PACKED_DOC_TOL})")
+    check(max(rels.values()) < PACKED_DOC_TOL, f"{label}: the packed documents differ from each "
+          "document alone")
+    return rels
+
+
+def varlen_kernel_phase(dev):
+    """Phase 13 (a): B1's and B7's segment channel against their plain
+    versions at three shapes (each timed beside its bound, the plain
+    version and SDPA with the block-diagonal mask), the routes it serves
+    against the channel-free and bound kernels, dead rows, and the packed
+    forms. Returns the kernels line's flash_fwd_segments and
+    flash_bwd_segments entries and the phase's stats."""
+    import torch
+    from liteattention_torch import (
+        flash_attn_varlen_func,
+        flash_attn_varlen_kvpacked_func,
+        flash_attn_varlen_qkvpacked_func,
+    )
+    from liteattention_torch.flash_attn_interface import varlen_segment_ids
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked
+    from liteattention_torch.utils.padding import pad_input, unpad_input
+
+    fwd, bwd, stats = {}, {}, {}
+    # 1. BERT-large's padded batch (phase 10's lengths), unpadded: 16 heads
+    # of 64, non-causal; unpad -> varlen -> pad against B1's and B7's bound
+    # channel over the padded batch (phase 10's route).
+    lens, mask, total, g = bert_padded_mask(dev)
+    h, d = 16, 64
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k, v = (rnd(BERT_BATCH, BERT_SEQ, h, d).requires_grad_() for _ in range(3))
+    dout = rnd(BERT_BATCH, BERT_SEQ, h, d) * mask[..., None, None]
+    packed = [unpad_input(x, mask, max_tokens=total) for x in (q, k, v)]
+    _, idx, cu, _ = packed[0]
+    out = pad_input(flash_attn_varlen_func(packed[0][0], packed[1][0], packed[2][0], cu, cu),
+                    idx, BERT_BATCH, BERT_SEQ)
+    got = [out.detach(), *torch.autograd.grad(out, (q, k, v), dout)]
+    ref = flash_attention_masked(*(x.transpose(1, 2) for x in (q, k, v)), kv_bound=lens)
+    ref = ref.transpose(1, 2)
+    want = [ref.detach(), *torch.autograd.grad(ref, (q, k, v), dout)]
+    valid = mask.bool()
+    err = ((got[0][valid].float() - want[0][valid].float()).abs()
+           / want[0][valid].float().abs().clamp_min(1.0)).max().item()
+    rels = {n: rel_l2(a, b_) for n, a, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:])}
+    log(f"  BERT-large batch ({BERT_BATCH} sequences, {total} valid tokens) unpadded through "
+        f"flash_attn_varlen_func vs B1 / B7's bound channel over the padded batch: valid rows "
+        f"max err {err:.3e} of max(1, |ref|) (limit {OUT_TOL}), gradient rel-L2 "
+        + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()) + f" (limit {BWD_TOL})")
+    check(err < OUT_TOL and max(rels.values()) < BWD_TOL,
+          "the varlen BERT batch differs from the bound-channel route")
+    stats["bert_vs_bound"] = {"out_err": err, **rels, "valid_tokens": total}
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None])
+    qh, kh, vh, dh = heads_first(packed[0][0], packed[1][0], packed[2][0],
+                                 unpad_input(dout, mask, max_tokens=total)[0])
+    label = f"segments 1x{h}x{total}x{d}, BERT-large's {BERT_BATCH} sequences"
+    fwd["bert_large_unpadded"] = check_channels(label, qh, kh, vh, kw, time_it=True)
+    bwd["bert_large_unpadded"] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    del q, k, v, dout, packed, out, got, ref, want, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    # 2. and 3. Llama-3-8B's and BTLM-3B-8K's attention over packed causal
+    # documents: against each document alone, then the kernels against
+    # their plain versions.
+    for key, pack, scale in (("llama3_8b_docs", LLAMA_PACK, None),
+                             ("btlm_3b_8k_docs", BTLM_PACK, 1.0 / BTLM_PACK[3])):
+        total, h, hk, d = pack[:4]
+        q, k, v, dout, lengths, cu = packed_docs(dev, pack)
+        name = key.split("_docs")[0]
+        stats[key] = {"documents": len(lengths), "lengths": lengths,
+                      **docs_alone_check(f"{name} {len(lengths)} documents, {total} tokens",
+                                         q, k, v, dout, lengths, cu, scale)}
+        seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+        kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True, scale=scale)
+        qh, kh, vh, dh = heads_first(q, k, v, dout)
+        label = f"segments causal 1x{h}/{hk}x{total}x{d}, {name}'s {len(lengths)} documents"
+        fwd[key] = check_channels(label, qh, kh, vh, kw, time_it=True)
+        bwd[key] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+        if pack is LLAMA_PACK:
+            # Causal B1 over all the tokens as one sequence: the segment walk
+            # must take much less (a full walk would take as long).
+            full, _, timer = device_ms(lambda: flash_attention(qh, kh, vh, causal=True))
+            ratio = fwd[key]["ms"] / full
+            fwd[key].update(one_sequence_causal_ms=full, one_sequence_timer=timer,
+                            over_one_sequence=ratio)
+            log(f"  B1 {label}: {fwd[key]['ms']:.4f} ms against causal B1 over all {total} "
+                f"tokens as one sequence {full:.4f} ms ({timer}): {ratio:.3f}x (limit "
+                f"{SEG_TIME_LIMIT}x; the visible pairs are "
+                f"{fwd[key]['visible_pairs'] / (h * total * (total + 1) / 2):.3f} of its)")
+            check(ratio < SEG_TIME_LIMIT, "the segment walk takes as long as a full causal walk")
+            # 4. Dead rows and keys (seqused_q / seqused_k) and attention_chunk.
+            gl = torch.Generator().manual_seed(4)
+            used_q = torch.tensor([n - int(torch.randint(0, n // 4 + 1, (1,), generator=gl))
+                                   for n in lengths], dtype=torch.int32, device=dev)
+            used_k = torch.tensor([n - int(torch.randint(0, n // 4 + 1, (1,), generator=gl))
+                                   for n in lengths], dtype=torch.int32, device=dev)
+            seg_q, seg_k = varlen_segment_ids(cu, cu, total, total, used_q, used_k, VARLEN_CHUNK)
+            kw4 = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True)
+            r = check_channels(f"segments causal 1x{h}/{hk}x{total}x{d}, seqused_q / seqused_k "
+                               f"and attention_chunk {VARLEN_CHUNK}", qh, kh, vh, kw4)
+            with torch.no_grad():
+                vo, vl = flash_attn_varlen_func(q, k, v, cu, cu, seqused_q=used_q,
+                                                seqused_k=used_k, causal=True,
+                                                attention_chunk=VARLEN_CHUNK,
+                                                return_softmax_lse=True)
+                mo, ml = flash_attention_masked(qh, kh, vh, return_lse=True, **kw4)
+            dead = seg_q < 0
+            check(torch.equal(vo, mo[0].transpose(0, 1)) and torch.equal(vl, ml[0]),
+                  "flash_attn_varlen_func with seqused and attention_chunk differs from its ids")
+            check(bool(dead.any()) and bool(torch.isneginf(vl[:, dead]).all())
+                  and vo[dead].abs().max().item() == 0.0,
+                  "dead rows (seqused_q) do not give out 0 and lse -inf")
+            log(f"  seqused / attention_chunk: {int(dead.sum())} dead rows give out 0 and lse "
+                f"-inf; {int(torch.isneginf(vl).any(0).sum())} rows without a key in all")
+            fwd[key + "_seqused_chunk"] = {"err": r["err"], "dead_rows": int(dead.sum())}
+            # (b) The packed forms give the unpacked call's bits.
+            with torch.no_grad():
+                kv = torch.stack([k, v], 1)
+                same_kv = torch.equal(flash_attn_varlen_kvpacked_func(q, kv, cu, cu, causal=True),
+                                      flash_attn_varlen_func(q, k, v, cu, cu, causal=True))
+                del kv
+                ke, ve = k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)
+                qkv = torch.stack([q, ke, ve], 1)
+                same_qkv = torch.equal(flash_attn_varlen_qkvpacked_func(qkv, cu, causal=True),
+                                       flash_attn_varlen_func(q, ke, ve, cu, cu, causal=True))
+                del qkv, ke, ve
+            log(f"  (b) flash_attn_varlen_kvpacked_func and _qkvpacked_func equal the unpacked "
+                f"call bit for bit: {same_kv} / {same_qkv}")
+            check(same_kv and same_qkv, "a packed varlen form differs from the unpacked call")
+        del q, k, v, dout, qh, kh, vh, dh
+        torch.cuda.empty_cache()
+    return ({"flash_fwd_segments": _channel_entry(fwd, "llama3_8b_docs"),
+             "flash_bwd_segments": _channel_entry(bwd, "llama3_8b_docs")}, stats)
+
+
+def varlen_counted_run(dev):
+    """Phase 13's counted run, the main path: the three shapes' varlen
+    calls, forward and backward through autograd (BERT's through
+    unpad_input and pad_input). Exactly one segment launch of B1 and of B7
+    each, and no other B1 / B7 launch."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.utils.padding import pad_input, unpad_input
+
+    _, mask, total, g = bert_padded_mask(dev)
+    x = torch.randn(BERT_BATCH, BERT_SEQ, 16, 64, generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    inputs = [("bert", x, None)]
+    for name, pack, scale in (("llama", LLAMA_PACK, None),
+                              ("btlm", BTLM_PACK, 1.0 / BTLM_PACK[3])):
+        inputs.append((name, packed_docs(dev, pack), scale))
+    torch.cuda.synchronize()
+    reset_counts()
+    for name, data, scale in inputs:
+        if name == "bert":
+            p, idx, cu, _ = unpad_input(data, mask, max_tokens=total)
+            out = pad_input(flash_attn_varlen_func(p, p, p, cu, cu), idx, BERT_BATCH, BERT_SEQ)
+            out.float().square().sum().backward()
+        else:
+            q, k, v, dout, _, cu = data
+            flash_attn_varlen_func(q, k, v, cu, cu, softmax_scale=scale, causal=True).backward(dout)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  counted run (BERT unpad -> varlen -> pad, Llama and BTLM documents; forward and "
+        f"backward): {counts}")
+    others = sum(n for name, n in counts.items()
+                 if name.startswith(("flash_fwd", "flash_bwd")) and not name.endswith("segments"))
+    check(counts["flash_fwd_segments"] == 3 and counts["flash_bwd_segments"] == 3 and others == 0,
+          "phase 13's counted run: expected 3 segment launches of B1 and of B7 and no other")
+    del inputs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def varlen_phase(dev):
+    """Phase 13: B1's and B7's segment channel and the varlen functions at
+    BERT-large's, Llama-3-8B's and BTLM-3B-8K's attention."""
+    log("  (a) B1 and B7 with segment ids against their plain versions and the routes they "
+        "serve")
+    kres, stats = varlen_kernel_phase(dev)
+    counts = varlen_counted_run(dev)
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -4303,10 +4639,14 @@ def ab_times(reps):
     time by queued_ms, call time by events, beside an empty ctypes launch
     and one fill of as many bytes); and a
     digest of the bytes of B1's, B2's, B3's and B5's outputs at the Wan shape, so
-    that two checkouts can be seen to compute the same bits. It
-    calls only entry points every version of the port has since the
-    decode kernel, so checkouts can be timed in turns on one card (older,
-    newer, newer, older)."""
+    that two checkouts can be seen to compute the same bits; and, where
+    the checkout has them, B1's and B7's bound and ALiBi instantiations at
+    the BERT-large padded batch and Baichuan2-13B's training shape
+    (``b1_bound_ms``, ``b7_bound_ms``, ``b1_alibi_ms``, ``b7_alibi_ms``,
+    with B7's dK / dV digests). It calls only entry points every version
+    of the port has since the decode kernel (the channels only where they
+    exist), so checkouts can be timed in turns on one card (older, newer,
+    newer, older)."""
     import re
 
     import torch
@@ -4411,6 +4751,34 @@ def ab_times(reps):
            "bwd_wan_train_ms": wan_train_bwd[0],
            "b7_dkv_digest": digest_of_digests(gpt2_bwd[1], wan_bwd[1], wan_train_bwd[1])}
 
+    # B1's and B7's bound and ALiBi instantiations (checkouts since they
+    # exist): the BERT-large padded batch and Baichuan2-13B's training
+    # shape, device time and B7's dK / dV digest.
+    channels = {}
+    if hasattr(flash_attention, "bound_launches"):
+        from liteattention_torch.modules.mha import alibi_slopes
+        from liteattention_torch.ops.flash_fwd import flash_attention_masked
+
+        lens = torch.randint(BERT_MIN_LEN, BERT_SEQ + 1, (BERT_BATCH,), generator=g, device=dev)
+        for name, shape, kw in (
+                ("bound", (BERT_BATCH, 16, BERT_SEQ, 64), dict(kv_bound=lens)),
+                ("alibi", BAICHUAN_TRAIN_SHAPE,
+                 dict(alibi_slopes=alibi_slopes(BAICHUAN_TRAIN_SHAPE[1]).to(dev), causal=True))):
+            cq, ck, cv, cdo = (torch.randn(*shape, generator=g, device=dev).bfloat16()
+                               for _ in range(4))
+            co, clse = flash_attention_masked(cq, ck, cv, return_lse=True, **kw)
+            ch = {n: x for n, x in kw.items() if n != "causal"}
+
+            def cbwd(cq=cq, ck=ck, cv=cv, co=co, clse=clse, cdo=cdo, ch=ch, kw=kw):
+                return flash_attention_bwd(cq, ck, cv, co, clse, cdo, cq.shape[-1] ** -0.5,
+                                           kw.get("causal", False), **ch)
+
+            channels[f"b1_{name}_ms"] = device_ms(
+                lambda: flash_attention_masked(cq, ck, cv, **kw), reps)[0]
+            channels[f"b7_{name}_ms"] = device_ms(cbwd, reps)[0]
+            channels[f"b7_{name}_dkv_digest"] = digest(*cbwd()[1:])
+            del cq, ck, cv, cdo, co, clse
+
     def b1_device_ms(b, hq, hk, sq, sk, d, causal):
         bq = torch.randn(b, hq, sq, d, generator=g, device=dev).bfloat16()
         bk, bv = (torch.randn(b, hk, sk, d, generator=g, device=dev).bfloat16() for _ in range(2))
@@ -4497,7 +4865,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1, **b2, **b4, **b10, **mla, **b6, **digests,
+        **b1, **channels, **b2, **b4, **b10, **mla, **b6, **digests,
     }))
     return 0
 
@@ -4578,6 +4946,13 @@ def main() -> int:
         p12_stats["seconds"] = time.perf_counter() - t12
         log(f"  phase 12 took {p12_stats['seconds']:.1f} s")
         counts.update(p12_counts)
+        log("phase 13: packed documents through the varlen functions (B1's and B7's segment "
+            "channel)")
+        t13 = time.perf_counter()
+        counts["varlen"], p13_kres, p13_stats = varlen_phase(dev)
+        p13_stats["seconds"] = time.perf_counter() - t13
+        log(f"  phase 13 took {p13_stats['seconds']:.1f} s")
+        kres.update(p13_kres)
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4664,6 +5039,10 @@ def main() -> int:
                             "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_bwd_alibi": ("flash_bwd.cu", "flash_bwd_kernel",
                             "liteattention_tpu/ops/flash_bwd.py:55"),
+        "flash_fwd_segments": ("flash_fwd_segments.cu", "flash_fwd_kernel",
+                               "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_bwd_segments": ("flash_bwd_segments.cu", "flash_bwd_segments_kernel",
+                               "liteattention_tpu/ops/flash_bwd.py:55"),
         "flash_decode": ("flash_decode.cu", "flash_decode_kernel",
                          "liteattention_tpu/ops/flash_fwd.py:843"),
         "paged_decode": ("flash_decode.cu", "flash_decode_kernel",
@@ -4690,7 +5069,8 @@ def main() -> int:
             "launches_by_path": by_path[name],
         }
         entry.update({k: v for k, v in r.items() if k not in keys and k != "err"})
-        if name in ("flash_bwd_bound", "flash_bwd_alibi"):  # B7a's and B7b's channels
+        if name in ("flash_bwd_bound", "flash_bwd_alibi", "flash_bwd_segments"):
+            # B7a's and B7b's channels
             entry["replaces_too"] = "liteattention_tpu/ops/flash_bwd.py:238"
         kernels.append(entry)
     log(f"training: {json.dumps(train_stats)}")
@@ -4702,6 +5082,7 @@ def main() -> int:
     log(f"alibi and padded-batch serving: {json.dumps(p10_stats)}")
     log(f"alibi and padded-batch training: {json.dumps(p11_stats)}")
     log(f"btlm-3b-8k serving and training: {json.dumps(p12_stats)}")
+    log(f"packed documents (varlen): {json.dumps(p13_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -18,6 +18,9 @@ from liteattention_torch.flash_attn_interface import (
     flash_attn_func,
     flash_attn_kvpacked_func,
     flash_attn_qkvpacked_func,
+    flash_attn_varlen_func,
+    flash_attn_varlen_kvpacked_func,
+    flash_attn_varlen_qkvpacked_func,
     flash_attn_with_kvcache,
     flash_mla_with_kvcache,
 )
@@ -33,8 +36,8 @@ from liteattention_torch.lite_attention import (
     lite_attention_step,
 )
 
-# The JAX package's public names that the port has; the varlen functions
-# are still to port (ROADMAP A13).
+# The JAX package's public names, all of which the port has (the varlen
+# functions since they run on B1's and B7's segment channel).
 __all__ = [
     "ops",
     "LiteAttention",
@@ -44,6 +47,9 @@ __all__ = [
     "flash_attn_func",
     "flash_attn_qkvpacked_func",
     "flash_attn_kvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_qkvpacked_func",
+    "flash_attn_varlen_kvpacked_func",
     "flash_attn_with_kvcache",
     "flash_mla_with_kvcache",
     "flash_attn_combine",

@@ -1,10 +1,11 @@
 """The flash-attention functional API: ``flash_attn_func`` and its packed
-forms, ``flash_attn_with_kvcache``, ``flash_mla_with_kvcache``,
+forms, ``flash_attn_varlen_func`` and its packed forms,
+``flash_attn_with_kvcache``, ``flash_mla_with_kvcache``,
 ``flash_attn_combine`` and ``get_scheduler_metadata``.
 
 Counterpart of ``liteattention_tpu/flash_attn_interface.py`` (same
 argument order), taking the reference's ``[batch, seq, heads, dim]``
-layout.
+layout (the varlen functions its packed ``[total, heads, dim]``).
 
 ``flash_attn_func`` (and ``flash_attn_qkvpacked_func`` /
 ``flash_attn_kvpacked_func``) is the original LiteAttention's kernel API:
@@ -53,9 +54,16 @@ itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
 ``attention_chunk``, the fp8 descales and ``int8_mma``. ``qv`` and a
 ``v_cache`` of another head dim than ``k_cache`` raise too: JAX serves
 them through B1's per-batch bound channel at the MLA shapes, which the
-port's B1 does not take with the bound (its bound and ALiBi channels, and
-B7's, run at head dim 64 and 128; ROADMAP A11). ALiBi with
-``attn_read_list`` raises, as every mask channel does on the skip path.
+port's B1 does not take with the bound (its bound, ALiBi and segment
+channels, and B7's, run at head dims 64, 80 and 128, and not at the MLA
+shapes; ROADMAP A11). ALiBi with ``attn_read_list`` raises, as every mask
+channel does on the skip path.
+
+``flash_attn_varlen_func`` (and ``flash_attn_varlen_qkvpacked_func`` /
+``flash_attn_varlen_kvpacked_func``) attends over packed sequences
+``[total, H, D]`` with ``cu_seqlens``: the boundaries become segment ids
+(:func:`varlen_segment_ids`, as JAX makes them) and the call runs B1's
+segment channel, and B7's for the gradient.
 
 ``flash_mla_with_kvcache`` is absorbed-MLA decode over one latent cache
 (:func:`~liteattention_torch.ops.mla.mla_decode`, kernel B10).
@@ -68,6 +76,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from liteattention_torch.ops.combine import combine_attention
+from liteattention_torch.ops.flash_bwd import check_head_dim
 from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
 from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention
 from liteattention_torch.ops.mask import SkipMaskState, cdiv, compact_mask, update_mask
@@ -216,6 +225,160 @@ def flash_attn_kvpacked_func(
     return flash_attn_func(
         q, kv[:, :, 0], kv[:, :, 1], softmax_scale=softmax_scale, causal=causal,
         return_softmax_lse=return_softmax_lse, **kwargs,
+    )
+
+
+def varlen_segment_ids(
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    total_q: int,
+    total_k: int,
+    seqused_q: Optional[torch.Tensor] = None,
+    seqused_k: Optional[torch.Tensor] = None,
+    attention_chunk: int = 0,
+):
+    """The segment ids ``[total_q]``, ``[total_k]`` (int32, on the
+    ``cu_seqlens`` device) that :func:`flash_attn_varlen_func` hands B1, as
+    JAX makes them: token -> sequence index by ``searchsorted`` on the
+    prefix sums (tokens past ``cu_seqlens[-1]`` form one more segment, the
+    phantom segment ``B``); q tokens past ``seqused_q[i]`` of their
+    sequence get -1 and keys past ``seqused_k[i]`` -2, ids no key or row
+    carries, as do the phantom segment's tokens when ``seqused_*`` is
+    given; ``attention_chunk`` c refines each live id to ``id * (total_q
+    // c + 2) + local // c`` (chunk membership inside a sequence). No host
+    sync."""
+    ids = []
+    for cu, total, used, dead in ((cu_seqlens_q, total_q, seqused_q, -1),
+                                  (cu_seqlens_k, total_k, seqused_k, -2)):
+        cu = cu.to(torch.int64)
+        pos = torch.arange(total, device=cu.device)
+        seg = torch.searchsorted(cu[1:].contiguous(), pos, right=True)
+        local = pos - cu[seg]
+        if used is not None:
+            # JAX's take fills past the sequences: the phantom segment is dead.
+            n = used.numel()
+            lim = used.to(cu.device, torch.int64)[seg.clamp_max(n - 1)]
+            seg = torch.where((seg < n) & (local < lim), seg, dead)
+        if attention_chunk:
+            chunk = int(attention_chunk)
+            seg = torch.where(seg < 0, seg, seg * (total_q // chunk + 2) + local // chunk)
+        ids.append(seg.to(torch.int32))
+    return ids[0], ids[1]
+
+
+def flash_attn_varlen_func(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    max_seqlen_q: Optional[int] = None,
+    max_seqlen_k: Optional[int] = None,
+    seqused_q: Optional[torch.Tensor] = None,
+    seqused_k: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    qv=None,
+    q_descale=None,
+    k_descale=None,
+    v_descale=None,
+    window_size: Tuple[int, int] = (-1, -1),
+    attention_chunk: int = 0,
+    softcap: float = 0.0,
+    num_splits: int = 1,
+    pack_gqa=None,
+    deterministic: bool = False,
+    sm_margin: int = 0,
+    return_softmax_lse: bool = False,
+    block_sizes: Optional[BlockSizes] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
+):
+    """Attention over packed sequences, differentiable in q, k, v.
+
+    ``q`` ``[total_q, H, D]``, ``k``/``v`` ``[total_k, Hk, D]`` (GQA by
+    fewer KV heads), ``cu_seqlens_*`` ``[B + 1]`` prefix sums. The
+    sequence boundaries become segment ids (:func:`varlen_segment_ids`)
+    and the call runs B1's segment channel (and B7's for the gradient):
+    each q-tile walks only its sequences' keys. ``seqused_q``/``seqused_k``
+    keep each sequence's first tokens (the other q rows give out 0 and lse
+    -inf); ``attention_chunk`` folds chunk membership into the ids, as JAX
+    does, so it is differentiable too. Causal (and the chunk) compare
+    positions on the packed axis, which needs the same packing of q and k:
+    ``cu_seqlens_q`` equal to ``cu_seqlens_k`` (checked on the host when
+    they are not one tensor). ``max_seqlen_*``, ``num_splits``,
+    ``pack_gqa``, ``deterministic``, ``sm_margin`` and ``block_sizes`` are
+    accepted and ignored. Window and softcap (ROADMAP B-i 3), dropout (B-i
+    5), ``qv`` and the fp8 descales raise; so does a head dim the segment
+    kernels are not built for (64, 80 and 128 are; B-iii 4). The packed
+    layout is copied to ``[1, H, total, D]`` for the kernel (reading it in
+    place is ROADMAP B-i 6).
+
+    Returns ``out`` ``[total_q, H, D]`` and, with ``return_softmax_lse``,
+    lse ``[H, total_q]`` fp32.
+    """
+    del max_seqlen_q, max_seqlen_k, num_splits, pack_gqa, deterministic, sm_margin, block_sizes
+    if qv is not None:
+        raise NotImplementedError("flash_attn_varlen_func: qv is not supported (as in JAX)")
+    if q_descale is not None or k_descale is not None or v_descale is not None:
+        raise NotImplementedError("flash_attn_varlen_func: fp8 descales are not supported")
+    window = None if tuple(window_size) == (-1, -1) else tuple(window_size)
+    for name, used, item in (("window_size", window is not None, "B-i 3"),
+                             ("softcap", bool(softcap), "B-i 3"),
+                             ("dropout", dropout_p > 0.0 or dropout_seed is not None, "B-i 5")):
+        if used:
+            raise NotImplementedError(f"flash_attn_varlen_func: {name} is not ported yet "
+                                      f"(ROADMAP {item})")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError("q must be [total_q, H, D] and k, v [total_k, Hk, D]")
+    check_head_dim(q.shape[-1], True, "flash_attn_varlen_func")
+    tq, tk = q.shape[0], k.shape[0]
+    if causal or attention_chunk:
+        if tq != tk or (cu_seqlens_q is not cu_seqlens_k
+                        and not torch.equal(cu_seqlens_q.cpu(), cu_seqlens_k.cpu())):
+            raise ValueError("flash_attn_varlen_func: causal and attention_chunk need the same "
+                             "packing of q and k (cu_seqlens_q == cu_seqlens_k)")
+    seg_q, seg_k = varlen_segment_ids(cu_seqlens_q.to(q.device), cu_seqlens_k.to(q.device),
+                                      tq, tk, seqused_q, seqused_k, attention_chunk)
+    out, lse = flash_attention_masked(
+        q.transpose(0, 1)[None], k.transpose(0, 1)[None], v.transpose(0, 1)[None],
+        q_segments=seg_q[None], kv_segments=seg_k[None], scale=softmax_scale, causal=causal,
+        return_lse=True,
+    )
+    out = out[0].transpose(0, 1).contiguous()
+    return (out, lse[0]) if return_softmax_lse else out
+
+
+def flash_attn_varlen_qkvpacked_func(
+    qkv: torch.Tensor,
+    cu_seqlens: torch.Tensor,
+    max_seqlen: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    **kwargs,
+):
+    """Packed-QKV varlen attention: ``qkv`` ``[total, 3, H, D]``."""
+    return flash_attn_varlen_func(
+        qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens, cu_seqlens, max_seqlen, max_seqlen,
+        softmax_scale=softmax_scale, causal=causal, **kwargs,
+    )
+
+
+def flash_attn_varlen_kvpacked_func(
+    q: torch.Tensor,
+    kv: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: torch.Tensor,
+    max_seqlen_q: Optional[int] = None,
+    max_seqlen_k: Optional[int] = None,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    **kwargs,
+):
+    """Packed-KV varlen attention: ``kv`` ``[total_k, 2, Hk, D]``."""
+    return flash_attn_varlen_func(
+        q, kv[:, 0], kv[:, 1], cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+        softmax_scale=softmax_scale, causal=causal, **kwargs,
     )
 
 
@@ -417,6 +580,9 @@ __all__ = [
     "flash_attn_func",
     "flash_attn_kvpacked_func",
     "flash_attn_qkvpacked_func",
+    "flash_attn_varlen_func",
+    "flash_attn_varlen_kvpacked_func",
+    "flash_attn_varlen_qkvpacked_func",
     "flash_attn_with_kvcache",
     "flash_mla_with_kvcache",
     "flash_attn_combine",

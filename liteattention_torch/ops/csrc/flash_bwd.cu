@@ -57,6 +57,19 @@
 // recomputed from the same small scores B1 summed. The channel-free
 // instantiations are left as they were.
 //
+// The segment channel (the JAX kernels' has_segments, batch 1; kernel
+// flash_bwd_segments_kernel, entry lite_flash_bwd_segments in
+// flash_bwd_segments.cu): a key is seen by the q rows whose segment id
+// equals its own. A CTA walks only the 64-row q-steps inside its k-tile's
+// row range [x, y), which the wrapper computes on the device
+// (ops/segments.py: for ids in order apart from negative markers, exactly
+// the rows of the k-tile's segments, else [0, Sq)), from the causal
+// diagonal on. The element test is B1's (key_mask.cuh), with this
+// thread's two keys' ids read once; a step whose 64 rows and the k-tile's
+// keys all carry one id skips it (each 64-row block's and each k-tile's
+// least and largest id come from the wrapper). Rows with lse -inf (no key
+// of their id) add 0 to dQ, dK and dV.
+//
 // Head dims 80 (BTLM) and 96 (GPT-NeoX-20B), as in B1: every K, V, Q and
 // dO tile takes two 64-value atoms (sm90.cuh; the second partly filled by
 // TMA, zeros past column D), so shared memory is D 128's; S^T and dP^T run
@@ -271,11 +284,12 @@ __device__ __forceinline__ void load_step(const CUtensorMap& tm_q, const CUtenso
 // The two warpgroups: wg owns keys k0 + 64 wg .. + 63. Thread 0 also
 // refills the ring and adds each step's dQ part to the accumulator. RANGE
 // takes the keys of `r` (B1's channels), ALIBI the bias with the group's
-// slopes from shared memory.
-template <int D, bool CAUSAL, bool RANGE, bool ALIBI>
+// slopes from shared memory, SEG the segment ids of `c`.
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
 __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
-                                        const Params& p, unsigned char* smem, const Walk& walk,
-                                        const KeyRange& r, int b, int hk, int k0, int n_iter) {
+                                        const Params& p, const Channels& c, unsigned char* smem,
+                                        const Walk& walk, const KeyRange& r, int b, int hk, int k0,
+                                        int n_iter) {
   using L = Smem<D>;
   constexpr int kDqCols = D == 64 ? 32 : 64;  // dQ columns of each warpgroup's product
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
@@ -287,6 +301,15 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   const int g = (tw % 32) / 4;
   const int t = tw % 4;
   const int key_lo = k0 + 64 * wg + 16 * warp + g;  // this thread's rows: key_lo, key_lo + 8
+  // SEG: this thread's keys' ids and the k-tile's least and largest (the
+  // ids are padded to whole tiles).
+  int kid_lo = 0, kid_hi = 0;
+  int2 k_span{};
+  if constexpr (SEG) {
+    kid_lo = __ldg(c.k_seg + key_lo);
+    kid_hi = __ldg(c.k_seg + key_lo + 8);
+    k_span = __ldg(c.k_span + k0 / kKeys);
+  }
   // Tiles that cross the key range's limit (or, RANGE, its low key) test
   // it per element; the diagonal is the range's (the bound's with
   // bound_causal).
@@ -356,6 +379,8 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     const bool diag = CAUSAL && k0 + 64 * wg + 16 * warp + 15 > row0 + diag_off;
     // ALiBi: this step's q-head's slope (log2 units).
     const float slope_log2 = ALIBI ? slopes[it / walk.nq] : 0.f;
+    // SEG: the step's rows and the k-tile's keys are not all of one segment.
+    const bool seg_test = SEG && !one_segment(k_span, __ldg(c.q_span + row0 / kRows));
     uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -370,6 +395,11 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
         if constexpr (RANGE) {
           masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? r.lim : kNoBound,
                                       diag ? diag_off : kNoBound, ragged ? r.low : 0);
+        } else if constexpr (SEG) {
+          masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
+                                      diag ? p.causal_offset : kNoBound, 0,
+                                      seg_test ? __ldg(c.q_seg + row0 + qc) : 0,
+                                      seg_test ? ((e >> 1) & 1 ? kid_hi : kid_lo) : 0);
         } else {
           masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
                                       diag ? p.causal_offset : kNoBound);
@@ -498,15 +528,15 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   }
 }
 
-template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do, const Params p,
-                     const Channels c) {
+// One CTA of the main kernel (flash_bwd_kernel; with SEG
+// flash_bwd_segments_kernel).
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
+__device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                        const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                        const Params& p, const Channels& c) {
   static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim must be 64, 80, 96 or 128");
   static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
+  static_assert(!SEG || (!RANGE && D != 96), "segments alone, at D 64, 80 and 128");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -533,6 +563,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     q_first = x < 0 ? 0 : min(qtiles, x / kRows);
   }
   int nq = qtiles - q_first;
+  if constexpr (SEG) {  // the q rows whose segments meet the k-tile's keys
+    const int2 rows = segment_range(c, kt);
+    q_first = max(q_first, rows.x / kRows);
+    nq = max(min(qtiles, (rows.y + kRows - 1) / kRows) - q_first, 0);
+  }
   // A k-tile wholly past the range's limit or below its low key sees no q
   // row: no walk (its dK and dV rows are stored as zeros).
   if (RANGE && (k0 >= range.lim || k0 + kKeys <= range.low)) nq = 0;
@@ -559,7 +594,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_step<D>(tm_q, tm_do, p, smem, it, walk.bh(it), walk.row0(it));
     }
   }
-  consume<D, CAUSAL, RANGE, ALIBI>(tm_q, tm_do, p, smem, walk, range, b, hk, k0, n_iter);
+  consume<D, CAUSAL, RANGE, ALIBI, SEG>(tm_q, tm_do, p, c, smem, walk, range, b, hk, k0, n_iter);
+}
+
+template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const Params p,
+                     const Channels c) {
+  bwd_cta<D, CAUSAL, RANGE, ALIBI, false>(tm_q, tm_k, tm_v, tm_do, p, c);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_segments_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do, const Params p,
+                              const Channels c) {
+  bwd_cta<D, CAUSAL, false, false, true>(tm_q, tm_k, tm_v, tm_do, p, c);
 }
 
 // ----------------------------------------------------------- (c) post
@@ -607,7 +662,17 @@ struct Args {
   float scale;
 };
 
-template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
+// The main kernel of an instantiation (only that one is compiled).
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
+auto main_kernel() {
+  if constexpr (SEG) {
+    return flash_bwd_segments_kernel<D, CAUSAL>;
+  } else {
+    return flash_bwd_kernel<D, CAUSAL, RANGE, ALIBI>;
+  }
+}
+
+template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false, bool SEG = false>
 cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels{}) {
   const int sq_pad = (a.seqlen_q + kRows - 1) / kRows * kRows;
   const int rows = a.batch * a.heads * sq_pad;
@@ -647,7 +712,7 @@ cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels
   p.causal_offset = a.seqlen_k - a.seqlen_q;
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
-  auto kernel = flash_bwd_kernel<D, CAUSAL, RANGE, ALIBI>;
+  auto kernel = main_kernel<D, CAUSAL, RANGE, ALIBI, SEG>();
   // + alignment of the base
   constexpr int smem = (ALIBI ? Smem<D>::bytes_alibi : Smem<D>::bytes) + 1024;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -671,7 +736,8 @@ cudaError_t run_masked(const Args& a, const Channels& c, cudaStream_t stream) {
 
 // Head dims 80 and 96, defined in flash_bwd_hd.cu (whose nvcc runs beside
 // this file's): the channel-free backward (CAUSAL when `causal`), and the
-// RANGE / ALIBI instantiations at 80 (CAUSAL when `diag`).
+// RANGE / ALIBI instantiations at 80 (CAUSAL when `diag`). The segment
+// instantiations and their entry are in flash_bwd_segments.cu.
 cudaError_t run_hd(int head_dim, bool causal, const Args& a, cudaStream_t stream);
 cudaError_t run_masked_hd(int head_dim, bool diag, const Args& a, const Channels& c,
                           cudaStream_t stream);

@@ -49,6 +49,21 @@
 // sparse walks (B3, B4, B5) are bound the same way on the tiles they visit:
 // a skipped tile costs no load and no math.
 //
+// The segment walk (kSegment; the JAX kernel's has_segments, batch 1;
+// entry lite_flash_fwd_segments in flash_fwd_segments.cu): a key is seen by
+// the rows whose segment id equals its own. The JAX kernel visits every
+// (q-tile, k-tile) pair and masks by id, total^2 work for a packed batch
+// whose useful work is the sum of its documents' squares (25x at BERT's
+// batch). Here each q-tile walks the dense walk's tiles over a key range
+// [x, y) that the wrapper computes on the device (ops/segments.py): for ids
+// in order apart from negative markers (what the varlen functions make)
+// exactly the keys of the tile's segments, else [0, Sk). Causal stops at
+// the diagonal as the dense walk does. The test is per element only on the
+// tiles where the keys' ids (each k-tile's least and largest, from the
+// wrapper) and the warp's 16 rows' ids (read once per CTA) are not all one
+// id, which inside a document is none but the tiles that cross a boundary.
+// Rows whose id no key carries get out 0, lse -inf.
+//
 // Head dims 80 (BTLM) and 96 (GPT-NeoX-20B): every tile takes two 64-value
 // atoms, as at D 128 (sm90.cuh: the second partly filled), so the shared
 // memory and the ring depth are D 128's. The tensor maps' inner extent is
@@ -153,9 +168,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1: the warpgroups' turns to issue
 
-// The walk over k-tiles: dense (B1), a live-tile list (B3, B5), or the
-// coarse schedule's entries (B4), in coarse or super-tile mode.
-enum Walk { kDense, kList, kCoarse, kSuper };
+// The walk over k-tiles: dense (B1), a live-tile list (B3, B5), the
+// coarse schedule's entries (B4), in coarse or super-tile mode, or the dense
+// walk over a q-tile's segment range (B1's segment channel).
+enum Walk { kDense, kList, kCoarse, kSuper, kSegment };
 
 struct Params {
   float* lse;  // [B, H, Sq]
@@ -421,18 +437,30 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pf
   sm90::wgmma_commit();
 }
 
+// The segment walk's ids: the keys' ids and each k-tile's least and
+// largest (Channels), this thread's rows' ids and its warp's least and
+// largest (read once per CTA).
+struct SegRows {
+  const int* k_seg;
+  const int2* k_span;
+  int q_lo, q_hi;
+  int2 warp;
+};
+
 // Tile `tile`'s scores, masked only on tiles that cross the range's start
 // or limit (the dense walk's; the sparse walks' range is [0, Sk), read from
-// the params), on tiles that cross this warp's diagonal and on a dead row's
-// tile, then `vote` with the rows' maxima in log2 space before the running
-// max absorbs them, then folded into the running row state; they stay raw
-// until softmax_rows takes them to log2 space inside each exp2's FFMA (one
-// instruction a score fewer than scaling first). With ALIBI (slope_log2 =
-// slope log2(e)) they go to log2 space first and take the bias there. alpha
-// is the accumulator's rescale.
-template <bool CAUSAL, bool DENSE, bool ALIBI, int NB, typename Vote>
+// the params), on tiles that cross this warp's diagonal, on a dead row's
+// tile and (SEG) on tiles whose keys and this warp's rows are not all of
+// one segment, then `vote` with the rows' maxima in log2 space before the
+// running max absorbs them, then folded into the running row state; they
+// stay raw until softmax_rows takes them to log2 space inside each exp2's
+// FFMA (one instruction a score fewer than scaling first). With ALIBI
+// (slope_log2 = slope log2(e)) they go to log2 space first and take the
+// bias there. alpha is the accumulator's rescale.
+template <bool CAUSAL, bool DENSE, bool ALIBI, bool SEG, int NB, typename Vote>
 __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p, const KeyRange& r,
-                                             float slope_log2, int tile, bool dead,
+                                             const SegRows& seg, float slope_log2, int tile,
+                                             bool dead,
                                              int warp_row0, int r_lo, int r_hi, float& m_lo,
                                              float& m_hi, float& l_lo, float& l_hi,
                                              float& alpha_lo, float& alpha_hi, Vote&& vote) {
@@ -455,12 +483,17 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p,
   const int lim = DENSE ? r.lim : p.seqlen_k;
   const int diag = DENSE ? r.diag : p.causal_offset;
   const bool mask = dead || col0 + kKeys > lim || (DENSE && col0 < r.low) ||
-                    (CAUSAL && col0 + kKeys - 1 > warp_row0 + diag);
+                    (CAUSAL && col0 + kKeys - 1 > warp_row0 + diag) ||
+                    (SEG && !one_segment(__ldg(seg.k_span + tile), seg.warp));
   float mx_lo, mx_hi;
   mask_scores(
       s, 1.f, mask, col0,
       [&](int col, bool hi) {
         const int row = hi ? r_hi : r_lo;
+        if constexpr (SEG) {
+          return key_masked<CAUSAL>(col, row, lim, diag, r.low, hi ? seg.q_hi : seg.q_lo,
+                                    __ldg(seg.k_seg + col));
+        }
         if constexpr (DENSE) return dead || key_masked<CAUSAL>(col, row, lim, diag, r.low);
         return dead || key_masked<CAUSAL>(col, row, lim, diag);
       },
@@ -476,7 +509,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_o, const Params p,
                      const Channels c) {
-  constexpr bool DENSE = WALK == kDense;
+  constexpr bool SEG = WALK == kSegment;
+  constexpr bool DENSE = WALK == kDense || SEG;
   constexpr bool LIST = WALK == kList;
   constexpr bool COARSE = WALK == kCoarse || WALK == kSuper;
   constexpr bool SUPER = WALK == kSuper;
@@ -491,12 +525,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                     (DK == 192 && DV == 128),
                 "(DK, DV) must be (64, 64), (80, 80), (96, 96), (128, 128) or (192, 128)");
   static_assert(DV <= DK, "the Q buffer holds the output");
-  static_assert(WALK != kDense || !VOTES, "the dense walk does not vote");
+  static_assert(!DENSE || !VOTES, "the dense walks do not vote");
   static_assert(LIST || !FOLD, "folded heads take the list walk");
-  static_assert(WALK == kDense || !CAUSAL, "the sparse walks are not causal");
-  static_assert(WALK == kDense || ((DK == 64 || DK == 128) && DK == DV && kKeys == 128 && !SPLIT),
+  static_assert(DENSE || !CAUSAL, "the sparse walks are not causal");
+  static_assert(DENSE || ((DK == 64 || DK == 128) && DK == DV && kKeys == 128 && !SPLIT),
                 "the sparse walks visit 128-key fine tiles through a ring of three");
   static_assert(!ALIBI || (WALK == kDense && DK == DV), "ALiBi is a channel of the dense walk");
+  static_assert(!SEG || (DK == DV && DK != 96), "segments at D 64, 80 and 128");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -512,9 +547,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int fold = FOLD ? p.fold : 1;
   const int h0 = blockIdx.y * fold;
   const int q0 = qt * kRowsQ;
-  // The dense walk: its keys, tiles and (b, kv head), uniform over the CTA.
+  // The dense walk: its keys, tiles and (b, kv head), uniform over the CTA;
+  // the segment walk's keys are its q-tile's range.
   KeyRange range = DENSE ? key_range(c, b, p.seqlen_q, p.seqlen_k, p.causal_offset)
                          : KeyRange{};
+  if constexpr (SEG) {
+    const int2 keys = segment_range(c, qt);
+    range.low = max(keys.x, 0);
+    range.lim = min(keys.y, p.seqlen_k);
+  }
   const DenseWalk dwalk = DENSE ? dense_walk<CAUSAL, kKeys>(q0, range) : DenseWalk{};
   const int n_dense = dwalk.n;
   const int k0 = dwalk.first;  // the dense walk's first tile
@@ -585,6 +626,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp_row0 = q0 + 64 * wg + 16 * warp;
   const int r_lo = warp_row0 + g;  // this thread's rows: r_lo, r_lo + 8
   const int r_hi = r_lo + 8;
+  SegRows seg{};
+  if constexpr (SEG) {  // rows past Sq carry the last row's id (the wrapper's padding)
+    seg = SegRows{c.k_seg, c.k_span, __ldg(c.q_seg + r_lo), __ldg(c.q_seg + r_hi)};
+    seg.warp = make_int2(__reduce_min_sync(0xffffffffu, min(seg.q_lo, seg.q_hi)),
+                         __reduce_max_sync(0xffffffffu, max(seg.q_lo, seg.q_hi)));
+  }
   const uint64_t q_desc = desc_sw128(sm90::smem_u32(smem + L::q) + 64 * wg * 128, 16, 1024);
   const uint32_t ring = sm90::smem_u32(smem + L::ring);
 
@@ -723,9 +770,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sd);
     if (SPLIT && lane == 0) sm90::mbar_arrive(&empty[0]);  // this warp is done with K_0
-    tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile0, walk.dead, warp_row0, r_lo,
-                                       r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
-                                       first_vote);
+    tile_softmax<CAUSAL, DENSE, ALIBI, SEG>(s, p, range, seg, slope_log2, tile0, walk.dead,
+                                            warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                                            alpha_lo, alpha_hi, first_vote);
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
     int tile_next = 0;
@@ -767,9 +814,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (__any_sync(0xffffffffu, keep) && lane == 0) vrow[tile] = 0;
         }
       };
-      tile_softmax<CAUSAL, DENSE, ALIBI>(s, p, range, slope_log2, tile, walk.dead, warp_row0,
-                                         r_lo, r_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi,
-                                         vote);
+      tile_softmax<CAUSAL, DENSE, ALIBI, SEG>(s, p, range, seg, slope_log2, tile, walk.dead,
+                                              warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
+                                              alpha_lo, alpha_hi, vote);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(od);
       sm90::fence_regs(pf);
@@ -885,7 +932,8 @@ cudaError_t run_dense(const void* q, const void* k, const void* v, void* out, co
 
 // The dense walk at head dims 80 (with the channels) and 96 (without
 // ALiBi), CAUSAL when `diag`: defined in flash_fwd_hd.cu, whose nvcc runs
-// beside this file's.
+// beside this file's. The segment walk's instantiations and entry are in
+// flash_fwd_segments.cu.
 cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, const void* v,
                          void* out, const Params& p, const Channels& c, int batch, float scale,
                          cudaStream_t stream);

@@ -1,8 +1,9 @@
 // The one test of which keys a q row may not see, shared by the forward
 // kernels (B1 in flash_fwd.cu; B3-B5 through attention_fwd.cuh) and the
 // backward (B7, flash_bwd.cu), so that a mask channel added here hides the
-// same keys forwards and backwards; and the per-batch key range of B1's
-// channels, which B1 and B7 read the same way.
+// same keys forwards and backwards; the per-batch key range of B1's
+// channels, which B1 and B7 read the same way; and the segment walks' ids
+// and ranges (B1's and B7's segment channel).
 #pragma once
 
 namespace lite {
@@ -26,6 +27,15 @@ __device__ __forceinline__ bool key_masked(int key, int row, int lim, int diag, 
   return key_masked<CAUSAL>(key, row, lim, diag) || key < low;
 }
 
+// The same with segment ids (the JAX kernels' has_segments): a key is seen
+// only by the rows whose id equals its own. Its own form, so that the
+// channel-free and per-batch instantiations keep theirs.
+template <bool CAUSAL>
+__device__ __forceinline__ bool key_masked(int key, int row, int lim, int diag, int low, int q_id,
+                                           int k_id) {
+  return key_masked<CAUSAL>(key, row, lim, diag, low) || q_id != k_id;
+}
+
 // B1's per-batch channels, forwards (B1's dense walk) and backwards (B7's
 // RANGE / ALIBI instantiations); null when absent: keys [kv_low[b],
 // kv_bound[b]), the diagonal at kv_bound[b] - Sq with bound_causal (alone,
@@ -35,6 +45,15 @@ struct Channels {
   const int* kv_low;
   const float* alibi;
   int bound_causal, bound_only;
+  // The segment walks (batch 1; null elsewhere): q and key ids, each padded
+  // to whole 128-row tiles with its last id; B1's key range [x, y) per
+  // 128-row q-tile, or B7's q-row range per 128-key tile; each 128-key
+  // tile's least and largest id; B7: each 64-row q block's.
+  const int* q_seg;
+  const int* k_seg;
+  const int2* range;
+  const int2* k_span;
+  const int2* q_span;
 };
 
 // The diagonal offset of "no diagonal" (bound_causal's offset replaces it).
@@ -68,6 +87,19 @@ __device__ __forceinline__ KeyRange key_range(const Channels& c, int b, int seql
   r.diag = __shfl_sync(0xffffffffu, r.diag, 0);
   r.shift = __shfl_sync(0xffffffffu, r.shift, 0);
   return r;
+}
+
+// A walk's range [x, y) from the segment walk's `range` entry `tile`, read
+// once per CTA through lane 0 (uniform to the compiler, as key_range's).
+__device__ __forceinline__ int2 segment_range(const Channels& c, int tile) {
+  const int2 r = __ldg(c.range + tile);
+  return make_int2(__shfl_sync(0xffffffffu, r.x, 0), __shfl_sync(0xffffffffu, r.y, 0));
+}
+
+// Whether every key of a span and every row of another carry one id, so
+// that no score between them needs the segment test.
+__device__ __forceinline__ bool one_segment(int2 keys, int2 rows) {
+  return keys.x == keys.y && rows.x == rows.y && keys.x == rows.x;
 }
 
 }  // namespace lite

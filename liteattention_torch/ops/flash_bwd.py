@@ -30,8 +30,12 @@ and with ALiBi in ``flash_bwd.alibi_launches``; ``flash_bwd.launches``
 counts the channel-free kernel). With ``bound_causal`` the ALiBi scores
 leave out the per-row constant ``slope * (Sk - kv_bound[b])`` and lse takes
 it back, as B1 does, so P is recomputed from the scores B1 summed. The
-JAX function's other mask channels (segments, window, softcap, dropout)
-are not ported and raise. :func:`flash_bwd` runs its plain PyTorch version
+segment channel (``q_segments`` / ``kv_segments``, batch 1) runs the
+kernel's segment instantiation (entry ``lite_flash_bwd_segments``, counted
+in ``flash_bwd.segment_launches``): each 128-key tile walks only the q rows
+its ids can meet (:mod:`liteattention_torch.ops.segments`). The JAX
+function's other mask channels (window, softcap, dropout) are not ported
+and raise. :func:`flash_bwd` runs its plain PyTorch version
 (:func:`flash_bwd_plain`, the same one pass over 128-key tiles) for CPU
 tensors and the kernels for CUDA tensors. :func:`flash_bwd_dq_plain` and
 :func:`flash_bwd_dkv_plain` are B7a's and B7b's plain versions, which the
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from liteattention_torch.ops import _build
+from liteattention_torch.ops import _build, segments
 
 LOG2E = 1.4426950408889634
 # q rows per chunk of the plain versions (bounds their score matrices).
@@ -65,8 +69,12 @@ class _Keys:
     max(Sk - kv_bound[b], 0)``)."""
 
     def __init__(self, b, h, sq, sk, device, scale, causal, kv_bound=None, kv_low=None,
-                 bound_causal=False, alibi_slopes=None):
+                 bound_causal=False, alibi_slopes=None, q_segments=None, kv_segments=None):
         self.sq, self.sk, self.scale, self.causal = sq, sk, scale, causal
+        self.q_seg = self.k_seg = None
+        if q_segments is not None:
+            self.q_seg = q_segments.to(device).reshape(b, 1, sq, 1)
+            self.k_seg = kv_segments.to(device).reshape(b, 1, 1, sk)
         self.bound_causal = bound_causal and kv_bound is not None
 
         def per_batch(x):
@@ -96,6 +104,9 @@ class _Keys:
             hidden = hidden | (col >= end)
         if self.low is not None:
             hidden = hidden | (col < self.low)
+        if self.q_seg is not None:
+            rows = row.reshape(-1)
+            hidden = hidden | (self.q_seg[:, :, rows] != self.k_seg[..., col.reshape(-1)])
         return s.masked_fill(hidden, -torch.inf)
 
     def lse2(self, lse):
@@ -207,7 +218,7 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
 
 
 # Head dims B1 and B7 are built for (BTLM's 80, GPT-NeoX-20B's 96), and
-# those with B1's per-batch channels (bound, low, ALiBi).
+# those with B1's channels (bound, low, ALiBi, segments).
 HEAD_DIMS = (64, 80, 96, 128)
 CHANNEL_HEAD_DIMS = (64, 80, 128)
 
@@ -220,8 +231,25 @@ def check_head_dim(d: int, channels: bool, name: str) -> None:
         item = "B-iii 3 (GPT-J)" if d == 256 else "B-iii 4"
         raise ValueError(f"{name}: head dim {d} not built (built: {HEAD_DIMS}; ROADMAP {item})")
     if channels and d not in CHANNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: kv_bound, kv_low and alibi_slopes at head dim {d} not built "
-                         f"(built: {CHANNEL_HEAD_DIMS}; ROADMAP B-iii 4)")
+        raise ValueError(f"{name}: kv_bound, kv_low, alibi_slopes and segments at head dim {d} "
+                         f"not built (built: {CHANNEL_HEAD_DIMS}; ROADMAP B-iii 4)")
+
+
+def check_segments(q_segments, kv_segments, b: int, sq: int, sk: int, per_batch: bool,
+                   name: str) -> None:
+    """Raise unless the segment ids are ``[1, Sq]`` and ``[1, Sk]`` at
+    batch 1 (as JAX asserts), both given, and not combined with B1's
+    per-batch channels (ROADMAP A11)."""
+    if q_segments is None or kv_segments is None:
+        raise ValueError(f"{name}: q_segments and kv_segments go together")
+    if b != 1:
+        raise ValueError(f"{name}: segment ids (varlen) take a packed batch of 1, got {b}")
+    if tuple(q_segments.shape) != (1, sq) or tuple(kv_segments.shape) != (1, sk):
+        raise ValueError(f"{name}: q_segments must be [1, {sq}] and kv_segments [1, {sk}], got "
+                         f"{tuple(q_segments.shape)} and {tuple(kv_segments.shape)}")
+    if per_batch:
+        raise NotImplementedError(f"{name}: segments with kv_bound, kv_low or alibi_slopes are "
+                                  "not ported yet (ROADMAP A11)")
 
 
 def _check_cuda(q, k, v, o, lse, dout, channels):
@@ -245,18 +273,28 @@ MAX_ALIBI_GROUP = 256
 
 
 def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, kv_low=None,
-              bound_causal: bool = False, alibi_slopes=None):
+              bound_causal: bool = False, alibi_slopes=None, q_segments=None, kv_segments=None,
+              segment_walk=None):
     """B7: dq, dk, dv from q, k, v, the forward's o and lse (``[B, H, Sq]``
     fp32, natural log) and dO, in one pass (three launches); with B1's
     per-batch channels (``kv_bound``/``kv_low`` ``[B]``, ``alibi_slopes``
-    ``[B, H]`` or ``[H]``) on the RANGE / ALIBI instantiations."""
+    ``[B, H]`` or ``[H]``) on the RANGE / ALIBI instantiations, with segment
+    ids (``[1, Sq]``, ``[1, Sk]``; ``segment_walk`` their
+    :class:`~liteattention_torch.ops.segments.SegmentWalk` if the forward
+    made it) on the segment kernel."""
     bound_causal = bool(bound_causal and kv_bound is not None)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, kv_bound=kv_bound,
                                kv_low=kv_low, bound_causal=bound_causal,
-                               alibi_slopes=alibi_slopes)
+                               alibi_slopes=alibi_slopes, q_segments=q_segments,
+                               kv_segments=kv_segments)
     plain = kv_bound is None and kv_low is None and alibi_slopes is None
-    _check_cuda(q, k, v, o, lse, dout, channels=not plain)
+    _check_cuda(q, k, v, o, lse, dout, channels=not plain or q_segments is not None)
+    if q_segments is not None:
+        if segment_walk is None:
+            segment_walk = segments.segment_walk(q_segments.to(q.device),
+                                                 kv_segments.to(q.device))
+        return _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, segment_walk)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     sq_pad = -(-sq // TILE_Q) * TILE_Q
@@ -295,17 +333,39 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
     return dq, dk, dv
 
 
+def _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, walk):
+    """B7's segment kernel (batch 1; three launches), counted in
+    ``flash_bwd.segment_launches``."""
+    _, h, sq, d = q.shape
+    sq_pad = -(-sq // TILE_Q) * TILE_Q
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_accum = torch.empty((1, h, sq_pad, d), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty((1, h, sq_pad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse2)
+    err = _build.load_kernels().lite_flash_bwd_segments(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_accum.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), walk.q.data_ptr(), walk.k.data_ptr(), walk.bwd_range.data_ptr(),
+        walk.q_span.data_ptr(), walk.k_span.data_ptr(), h, k.shape[1], sq, k.shape[2], d,
+        float(scale), int(causal), q.device.index, _build.stream(q.device),
+    )
+    _build.check(err, "flash_bwd_segments")
+    flash_bwd.segment_launches += 1
+    return dq, dk, dv
+
+
 flash_bwd.launches = 0
 flash_bwd.bound_launches = 0
 flash_bwd.alibi_launches = 0
+flash_bwd.segment_launches = 0
 
 # Mask channels of the JAX function that the port does not take yet.
-_UNPORTED = ("q_segments", "kv_segments", "window", "softcap", "dropout_p", "dropout_seed")
+_UNPORTED = ("window", "softcap", "dropout_p", "dropout_seed")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_bound=None,
                         bound_causal: bool = False, kv_low=None, alibi_slopes=None,
-                        **channels):
+                        q_segments=None, kv_segments=None, segment_walk=None, **channels):
     """dQ, dK, dV of the dense flash forward.
 
     ``q`` ``[B, H, Sq, D]``, ``k``/``v`` ``[B, Hk, Sk, D]``, ``o``/``do``
@@ -316,23 +376,34 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
     ``bound_causal`` without ``kv_bound`` does nothing), ``kv_low`` ``[B]``
     (the first valid key) and ``alibi_slopes`` ``[H]`` or ``[B, H]`` fp32
     (the bias ``-slope * |row + Sk - Sq - col|`` in log2 units, not scaled
-    by ``scale``). Passing one of the JAX function's other mask channels
-    (segments, window, softcap, dropout), even at its default, raises
+    by ``scale``). ``q_segments`` ``[1, Sq]`` and ``kv_segments`` ``[1,
+    Sk]``: a key is seen only by the rows of its id (batch 1, not with the
+    per-batch channels: ROADMAP A11); ``segment_walk``, the forward's
+    :class:`~liteattention_torch.ops.segments.SegmentWalk` of those ids, if
+    it made one. Passing one of the JAX function's other mask channels
+    (window, softcap, dropout), even at its default, raises
     ``NotImplementedError`` naming it.
     """
     unknown = set(channels) - set(_UNPORTED)
     if unknown:
         raise TypeError(f"flash_attention_bwd: unexpected arguments {sorted(unknown)}")
     if channels:
-        raise NotImplementedError(f"flash_attention_bwd: {sorted(channels)} not ported yet")
+        item = "B-i 5" if all(n.startswith("dropout") for n in channels) else "B-i 3"
+        raise NotImplementedError(
+            f"flash_attention_bwd: {sorted(channels)} not ported yet (ROADMAP A11, {item})")
     b, h = q.shape[:2]
     for name, x, shapes in (("kv_bound", kv_bound, [(b,)]), ("kv_low", kv_low, [(b,)]),
                             ("alibi_slopes", alibi_slopes, [(h,), (b, h)])):
         if x is not None and tuple(x.shape) not in shapes:
             raise ValueError(f"{name} must be one of {shapes}, got {tuple(x.shape)}")
+    if q_segments is not None or kv_segments is not None:
+        check_segments(q_segments, kv_segments, b, q.shape[2], k.shape[2],
+                       kv_bound is not None or kv_low is not None or alibi_slopes is not None,
+                       "flash_attention_bwd")
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
     return flash_bwd(q, k, v, o, lse.contiguous(), do, scale, causal, kv_bound=kv_bound,
-                     kv_low=kv_low, bound_causal=bound_causal, alibi_slopes=alibi_slopes)
+                     kv_low=kv_low, bound_causal=bound_causal, alibi_slopes=alibi_slopes,
+                     q_segments=q_segments, kv_segments=kv_segments, segment_walk=segment_walk)
 
 
 __all__ = [
@@ -340,6 +411,7 @@ __all__ = [
     "HEAD_DIMS",
     "causal_mask",
     "check_head_dim",
+    "check_segments",
     "flash_attention_bwd",
     "flash_bwd",
     "flash_bwd_dkv_plain",

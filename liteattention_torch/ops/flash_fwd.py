@@ -31,8 +31,13 @@ the ALiBi bias (``alibi_slopes`` ``[H]`` or ``[B, H]``), on the same kernel
 ``flash_attention.alibi_launches``). Their gradient runs B7 with the same
 channels (``flash_attention_bwd``; counted in ``flash_bwd.bound_launches``
 and ``.alibi_launches``); the channels themselves get no gradient, as in
-JAX. The other JAX mask channels (segments, window, softcap, dropout) are
-not ported and raise.
+JAX. The segment channel (``q_segments`` / ``kv_segments``, batch 1: a key
+is seen by the rows of its id) runs B1's segment walk (entry
+``lite_flash_fwd_segments``, counted in ``flash_attention.segment_launches``):
+each 128-row q-tile walks only the key range its ids can meet
+(:mod:`liteattention_torch.ops.segments`), and its gradient B7's segment
+kernel (``flash_bwd.segment_launches``). The other JAX mask channels
+(window, softcap, dropout) are not ported and raise.
 
 MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
 ``qv . v`` to the scores -- are forward only, as in JAX (entry
@@ -60,13 +65,19 @@ from typing import Optional
 import torch
 
 from liteattention_torch.ops import _build
-from liteattention_torch.ops.flash_bwd import causal_mask, check_head_dim, flash_attention_bwd
+from liteattention_torch.ops.flash_bwd import (
+    causal_mask,
+    check_head_dim,
+    check_segments,
+    flash_attention_bwd,
+)
 from liteattention_torch.ops.flash_decode import (
     decode_plain,
     launch_decode,
     pack_rows,
     unpack_rows,
 )
+from liteattention_torch.ops.segments import segment_walk
 from liteattention_torch.ops.tile_sizes import BlockSizes
 
 LOG2E = 1.4426950408889634
@@ -86,6 +97,8 @@ def flash_attention_plain(
     kv_low: Optional[torch.Tensor] = None,
     bound_causal: bool = False,
     alibi_slopes: Optional[torch.Tensor] = None,
+    q_segments: Optional[torch.Tensor] = None,
+    kv_segments: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel: fp32 scores, exact softmax in
     log2 space (the kernel's and the plain lite version's form).
@@ -99,10 +112,12 @@ def flash_attention_plain(
     col`` (``|dist|`` unless ``causal``), as the JAX kernel does, less the
     constant ``shift = Sk - kv_bound[b]`` with ``bound_causal`` (no visible
     key is nearer: the kernel's form, which keeps the scores over a large,
-    mostly empty cache precise in fp32), which is added back to lse. Returns
-    (out ``[B, H, Sq, Dv]`` in q's dtype, lse fp32 natural log). A row with
-    no valid key gives out 0 and lse -inf. Query rows are processed in
-    chunks so long sequences fit in memory.
+    mostly empty cache precise in fp32), which is added back to lse. With
+    ``q_segments`` ``[B, Sq]`` and ``kv_segments`` ``[B, Sk]`` a key is
+    seen only by the rows of its id. Returns (out ``[B, H, Sq, Dv]`` in q's
+    dtype, lse fp32 natural log). A row with no valid key gives out 0 and
+    lse -inf. Query rows are processed in chunks so long sequences fit in
+    memory.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -137,6 +152,9 @@ def flash_attention_plain(
             s = s.masked_fill(col >= (end - sq + row + 1 if bound_causal else end), -torch.inf)
         if kv_low is not None:
             s = s.masked_fill(col < kv_low.to(q.device).reshape(-1, 1, 1, 1), -torch.inf)
+        if q_segments is not None:
+            qs = q_segments.to(q.device).reshape(b, 1, sq, 1)[:, :, q0 : q0 + qf.shape[2]]
+            s = s.masked_fill(qs != kv_segments.to(q.device).reshape(b, 1, 1, sk), -torch.inf)
         m = s.amax(dim=-1, keepdim=True)
         # A row with no valid key: every p is 0, not exp2 of the mask.
         p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
@@ -286,18 +304,21 @@ def _launch_mla(q, k, v, qv, scale, causal):
 
 
 def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=False,
-            alibi_slopes=None):
-    """B1 on the card, with or without its per-batch channels; one launch,
-    counted in ``flash_attention.launches``, ``.bound_launches`` (bound or
-    low) or ``.alibi_launches``."""
+            alibi_slopes=None, q_segments=None, kv_segments=None, walk=None):
+    """B1 on the card, with or without its channels; one launch, counted
+    in ``flash_attention.launches``, ``.bound_launches`` (bound or low),
+    ``.alibi_launches`` or ``.segment_launches`` (with segments ``walk``
+    is the ids' :class:`~liteattention_torch.ops.segments.SegmentWalk`)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     b, h, sq, d = q.shape
-    check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None,
-                   "flash_attention")
+    check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None
+                   or q_segments is not None, "flash_attention")
     _build.check_aligned(q, k, v)
+    if q_segments is not None:
+        return _launch_segments(q, k, v, scale, causal, walk)
 
     def per_batch(x):
         return None if x is None else x.to(q.device, torch.int32).reshape(b).contiguous()
@@ -324,29 +345,52 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     return out, lse
 
 
+def _launch_segments(q, k, v, scale, causal, walk):
+    """B1's segment walk (batch 1): one launch, counted in
+    ``flash_attention.segment_launches``."""
+    _, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((1, h, sq), dtype=torch.float32, device=q.device)
+    err = _build.load_kernels().lite_flash_fwd_segments(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        walk.q.data_ptr(), walk.k.data_ptr(), walk.fwd_range.data_ptr(), walk.k_span.data_ptr(),
+        h, k.shape[1], sq, k.shape[2], d, float(scale), int(causal), q.device.index,
+        _build.stream(q.device),
+    )
+    _build.check(err, "flash_fwd_segments")
+    flash_attention.segment_launches += 1
+    return out, lse
+
+
 flash_attention.launches = 0
 flash_attention.bound_launches = 0
 flash_attention.alibi_launches = 0
+flash_attention.segment_launches = 0
 flash_attention.mla_launches = 0
 flash_attention.mla_v512_launches = 0
 
 
 class _FlashAttentionMasked(torch.autograd.Function):
-    """Forward through B1 with its per-batch channels (or the plain
-    version), backward through B7 with the same channels. The channels get
-    no gradient (None), as JAX's ``_flash_core_bwd`` gives none."""
+    """Forward through B1 with its channels (or the plain version),
+    backward through B7 with the same channels. The channels get no
+    gradient (None), as JAX's ``_flash_core_bwd`` gives none. The segment
+    walk's ranges, computed once on the card, serve both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_bound, kv_low, alibi, scale, causal, bound_causal):
+    def forward(ctx, q, k, v, kv_bound, kv_low, alibi, q_seg, kv_seg, scale, causal,
+                bound_causal):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         channels = dict(kv_bound=kv_bound, kv_low=kv_low, bound_causal=bound_causal,
-                        alibi_slopes=alibi)
+                        alibi_slopes=alibi, q_segments=q_seg, kv_segments=kv_seg)
+        walk = None
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, causal, **channels)
         else:
-            out, lse = _launch(q, k, v, scale, causal, **channels)
+            if q_seg is not None:
+                walk = segment_walk(q_seg.to(q.device), kv_seg.to(q.device))
+            out, lse = _launch(q, k, v, scale, causal, walk=walk, **channels)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal, ctx.channels = scale, causal, channels
+        ctx.scale, ctx.causal, ctx.channels, ctx.walk = scale, causal, channels, walk
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -354,8 +398,8 @@ class _FlashAttentionMasked(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale, ctx.causal,
-                                         **ctx.channels)
-        return dq, dk, dv, None, None, None, None, None, None
+                                         segment_walk=ctx.walk, **ctx.channels)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attention_masked(
@@ -393,14 +437,19 @@ def flash_attention_masked(
     nothing, as in JAX), ``kv_low`` ``[B]`` (the first valid key) and
     ``alibi_slopes`` ``[H]`` or ``[B, H]`` fp32 (the bias ``-slope *
     |row + Sk - Sq - col|``, applied in log2 units as the JAX kernel does,
-    not scaled by ``scale``). They take head dim 64, 80 or 128 on the card
-    (96 raises, ROADMAP B-iii 4) and no ``qv``.
-    Every other mask channel raises ``NotImplementedError`` naming itself
-    (ROADMAP A11). ``block_sizes`` is a tiling knob of the JAX kernel,
+    not scaled by ``scale``). ``q_segments`` ``[1, Sq]`` and
+    ``kv_segments`` ``[1, Sk]`` integer ids (batch 1, as in JAX): a key is
+    seen only by the rows of its id (with ``causal``, at or below the
+    bottom-right diagonal too). Any ids are taken; ids in order apart from
+    negative markers (a packed batch) walk only their segments' tiles.
+    The channels take head dim 64, 80 or 128 on the card (96 raises,
+    ROADMAP B-iii 4) and no ``qv``; segments do not combine with the
+    per-batch channels (ROADMAP A11). Window, ``attention_chunk``, softcap
+    and dropout raise ``NotImplementedError`` naming themselves and their
+    ROADMAP items. ``block_sizes`` is a tiling knob of the JAX kernel,
     accepted and ignored (B1 runs 128 x 128)."""
     unported = [
         name for name, used in (
-            ("segments", q_segments is not None or kv_segments is not None),
             ("window", window is not None),
             ("attention_chunk", bool(attention_chunk)),
             ("softcap", bool(softcap)),
@@ -408,28 +457,33 @@ def flash_attention_masked(
         ) if used
     ]
     if unported:
-        raise NotImplementedError(
-            f"flash_attention_masked: {', '.join(unported)} not ported yet (ROADMAP A11)"
-        )
+        item = "B-i 5" if unported == ["dropout"] else "B-i 3"
+        raise NotImplementedError(f"flash_attention_masked: {', '.join(unported)} not ported "
+                                  f"yet (ROADMAP A11, {item})")
     del block_sizes
-    if kv_bound is None and kv_low is None and alibi_slopes is None:
+    segments = q_segments is not None or kv_segments is not None
+    if kv_bound is None and kv_low is None and alibi_slopes is None and not segments:
         return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
     _check_inputs(q, k, v, qv)
     if qv is not None or v.shape[-1] != q.shape[-1]:
         raise NotImplementedError(
-            "flash_attention_masked: kv_bound, kv_low and alibi_slopes with the MLA shapes "
-            "(qv, V's own head dim) are not ported yet (ROADMAP A11)"
+            "flash_attention_masked: kv_bound, kv_low, alibi_slopes and segments with the MLA "
+            "shapes (qv, V's own head dim) are not ported yet (ROADMAP A11)"
         )
     b, h = q.shape[:2]
     for name, x, shapes in (("kv_bound", kv_bound, [(b,)]), ("kv_low", kv_low, [(b,)]),
                             ("alibi_slopes", alibi_slopes, [(h,), (b, h)])):
         if x is not None and tuple(x.shape) not in shapes:
             raise ValueError(f"{name} must be one of {shapes}, got {tuple(x.shape)}")
+    if segments:
+        check_segments(q_segments, kv_segments, q.shape[0], q.shape[2], k.shape[2],
+                       kv_bound is not None or kv_low is not None or alibi_slopes is not None,
+                       "flash_attention_masked")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     out, lse = _FlashAttentionMasked.apply(
-        q, k, v, kv_bound, kv_low, alibi_slopes, float(scale), bool(causal),
-        bool(bound_causal and kv_bound is not None),
+        q, k, v, kv_bound, kv_low, alibi_slopes, q_segments, kv_segments, float(scale),
+        bool(causal), bool(bound_causal and kv_bound is not None),
     )
     if return_lse:
         return out, lse

@@ -48,7 +48,9 @@ def get_block_sizes(
     ``kind`` is ``"dense"`` or ``"lite"``; both start at 128 x 128 on
     Hopper (gsize 1 for the lite kernel). ``head_dim`` and
     ``dtype_bytes`` are accepted for call-site parity with the JAX
-    package; the kernels take head dims 64 and 128 in bf16.
+    package. The kernels take bf16: B1 and B7 at head dims 64, 80, 96
+    and 128 (their channels at 64, 80 and 128), the decode, lite and MLA
+    kernels at the dims their modules name.
     """
     del head_dim, dtype_bytes
     if kind not in ("dense", "lite"):

@@ -442,6 +442,163 @@ def test_flash_autograd_kernels(dev):
         _check_grad(got, r)
 
 
+def _doc_ids(dev, lengths, q_dead=(), k_dead=()):
+    """Packed-document ids [1, sum(lengths)]: document i's tokens carry i;
+    q positions in q_dead carry -1, key positions in k_dead -2."""
+    ids = torch.repeat_interleave(torch.arange(len(lengths), device=dev),
+                                  torch.tensor(lengths, device=dev)).to(torch.int32)
+    q, k = ids.clone(), ids.clone()
+    q[list(q_dead)] = -1
+    k[list(k_dead)] = -2
+    return q[None], k[None]
+
+
+# The segment channel (batch 1): (h, hk, d, causal, ids). "docs": packed
+# documents (boundaries inside and on tiles, one of 1 token, one longer
+# than a tile) with dead rows and keys; "unsorted": ids in no order (the
+# walk takes every tile); "cross": Sq != Sk, non-causal, ids of other
+# lengths; "empty": a q-tile whose rows all carry an id no key has.
+SEG_CASES = [
+    (4, 2, 64, False, "docs"), (4, 2, 64, True, "docs"), (8, 2, 128, True, "docs"),
+    (4, 4, 80, True, "docs"), (4, 1, 128, False, "unsorted"), (2, 2, 80, True, "unsorted"),
+    (4, 2, 64, False, "cross"), (2, 2, 128, False, "empty"),
+]
+
+
+def _seg_inputs(dev, h, hk, d, kind):
+    g = torch.Generator(device=dev).manual_seed(h * d)
+    if kind in ("docs", "unsorted"):
+        lengths = [300, 128, 1, 77, 256, 40, 350]
+        q_seg, k_seg = _doc_ids(dev, lengths, q_dead=range(20, 40), k_dead=range(500, 530))
+        if kind == "unsorted":
+            perm = torch.randperm(q_seg.shape[1], generator=g, device=dev)
+            q_seg, k_seg = q_seg[:, perm], k_seg[:, perm]
+        sq = sk = q_seg.shape[1]
+    elif kind == "cross":
+        q_seg, _ = _doc_ids(dev, [100, 250, 60])
+        k_seg, _ = _doc_ids(dev, [400, 30, 129])
+        sq, sk = q_seg.shape[1], k_seg.shape[1]
+    else:
+        q_seg, k_seg = _doc_ids(dev, [200, 300])
+        q_seg[:, :128] = 7
+        sq = sk = 500
+    q, k, v = _qkv(dev, 1, h, hk, sq, sk, d, seed=sq + d)
+    return q, k, v, dict(q_segments=q_seg, kv_segments=k_seg)
+
+
+@pytest.mark.parametrize("h,hk,d,causal,kind", SEG_CASES)
+def test_flash_fwd_kernel_segments(dev, h, hk, d, causal, kind):
+    q, k, v, seg = _seg_inputs(dev, h, hk, d, kind)
+    n0 = flash_attention.segment_launches
+    out, lse = flash_attention_masked(q, k, v, causal=causal, return_lse=True, **seg)
+    torch.cuda.synchronize()
+    assert flash_attention.segment_launches == n0 + 1
+    out2, lse2 = flash_attention_masked(q, k, v, causal=causal, return_lse=True, **seg)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ro, rl = flash_attention_plain(q, k, v, causal=causal, **seg)
+    diff = (out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)
+    assert diff.max().item() < 2e-2
+    assert _rel_l2(out, ro)[1] < 2e-2
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    if kind in ("docs", "empty"):
+        assert not fin.all() and out[~fin].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("h,hk,d,causal,kind", SEG_CASES)
+def test_flash_bwd_kernel_segments(dev, h, hk, d, causal, kind):
+    q, k, v, seg = _seg_inputs(dev, h, hk, d, kind)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev).to(torch.bfloat16)
+    out, lse = flash_attention_plain(q, k, v, causal=causal, **seg)
+    out = out.to(torch.bfloat16)
+    n0 = flash_bwd.segment_launches
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **seg)
+    torch.cuda.synchronize()
+    assert flash_bwd.segment_launches == n0 + 1
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, d**-0.5, causal)
+    rq = flash_bwd_dq_plain(*args, **seg)
+    rk, rv = flash_bwd_dkv_plain(*args, **seg)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _check_grad(got, ref)
+    # Keys whose id no row carries and rows with no key: exactly 0.
+    unseen = ~torch.isin(seg["kv_segments"][0], seg["q_segments"][0])
+    if unseen.any():
+        assert dk[0][:, unseen].abs().max().item() == 0.0
+        assert dv[0][:, unseen].abs().max().item() == 0.0
+    empty = ~torch.isfinite(lse)
+    if empty.any():
+        assert dq[empty].abs().max().item() == 0.0
+    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **seg)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _check_grad(dq2, rq)
+
+
+def test_varlen_kernels_match_documents_alone(dev):
+    # flash_attn_varlen_func over packed causal documents (GQA) against
+    # each document alone through causal B1 / B7, forward and gradient; the
+    # packed forms give the same bits; unpad / pad round-trip on the card.
+    from liteattention_torch import (
+        flash_attn_varlen_func,
+        flash_attn_varlen_kvpacked_func,
+        flash_attn_varlen_qkvpacked_func,
+    )
+    from liteattention_torch.utils.padding import pad_input, unpad_input
+
+    lengths = [300, 1, 128, 500, 77]
+    cu = torch.tensor([0, *torch.tensor(lengths).cumsum(0).tolist()], dtype=torch.int32,
+                      device=dev)
+    total, h, hk, d = sum(lengths), 8, 2, 128
+    q, k, v = (x[0].transpose(0, 1).contiguous().requires_grad_()
+               for x in _qkv(dev, 1, h, hk, total, total, d, seed=11))
+    do = torch.randn(total, h, d, device=dev).to(torch.bfloat16)
+    n0 = (flash_attention.segment_launches, flash_bwd.segment_launches)
+    out = flash_attn_varlen_func(q, k, v, cu, cu, causal=True)
+    out.backward(do)
+    assert (flash_attention.segment_launches, flash_bwd.segment_launches) == (n0[0] + 1,
+                                                                              n0[1] + 1)
+    refs, grads = [], []
+    for a, n in zip(cu[:-1].tolist(), lengths):
+        qa, ka, va = (x.detach()[a : a + n].transpose(0, 1)[None].contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o = flash_attention(qa, ka, va, causal=True)
+        o.backward(do[a : a + n].transpose(0, 1)[None])
+        refs.append(o.detach()[0].transpose(0, 1))
+        grads.append([x.grad[0].transpose(0, 1) for x in (qa, ka, va)])
+    ref = torch.cat(refs)
+    assert (out.detach().float() - ref.float()).norm() / ref.float().norm() < 1e-2
+    for i, got in enumerate((q.grad, k.grad, v.grad)):
+        want = torch.cat([g[i] for g in grads])
+        assert (got.float() - want.float()).norm() / want.float().norm() < 1e-2
+    with torch.no_grad():
+        qkv = torch.stack([q, k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1)], 1)
+        a = flash_attn_varlen_qkvpacked_func(qkv, cu, causal=True)
+        b = flash_attn_varlen_func(qkv[:, 0], qkv[:, 1], qkv[:, 2], cu, cu, causal=True)
+        assert torch.equal(a, b)
+        kv = torch.stack([k, v], 1)
+        assert torch.equal(flash_attn_varlen_kvpacked_func(q, kv, cu, cu, causal=True),
+                           out.detach())
+    mask = (torch.arange(512, device=dev)[None] < torch.tensor([512, 100, 3], device=dev)[:, None])
+    x = torch.randn(3, 512, 4, 64, device=dev)
+    packed, idx, cu2, tot = unpad_input(x, mask.int())
+    assert int(tot) == 615
+    assert torch.equal(pad_input(packed, idx, 3, 512), x * mask[..., None, None])
+
+
+def test_segments_raise_at_head_dim_96(dev):
+    q, k, v = _qkv(dev, 1, 2, 2, 64, 64, 96)
+    ids = torch.zeros(1, 64, device=dev)
+    seg = dict(q_segments=ids, kv_segments=ids)
+    with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, **seg)
+    with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
+        flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 64, device=dev), q, 96**-0.5, False,
+                            **seg)
+
+
 # B2's Kt: 1, odd, 15/16 around a 16-byte load, the denoise-compaction
 # path's 195, the Wan slice's 256, 300, and 1024 (two warp-wide passes).
 PACK_KT = [1, 15, 16, 37, 195, 256, 300, 1024]

@@ -223,6 +223,70 @@ def test_alibi_bound_causal_at_two_cache_capacities(sq):
             assert g_big[i, :, n:].abs().max().item() == 0.0
 
 
+# The segment channel (batch 1): (h, hk, sq, sk, d), q document lengths,
+# key document lengths (or "random" ids), causal. Dead rows and keys carry
+# -1 / -2; ids of no key leave rows without a key, ids of no row keys
+# without a gradient.
+SEGMENT_CASES = {
+    "docs_causal_gqa": ((4, 2, 300, 300, 64), [120, 1, 130, 49], [120, 1, 130, 49], True),
+    "docs_noncausal": ((2, 1, 257, 257, 64), [128, 129], [128, 129], False),
+    "unsorted_noncausal": ((2, 2, 200, 230, 64), "random", "random", False),
+    "sq_lt_sk_unmatched": ((2, 2, 150, 260, 64), [60, 60, 30], [100, 100, 40, 20], False),
+    "docs_causal_d80": ((4, 4, 200, 200, 80), [57, 143], [57, 143], True),
+    "docs_causal_d128": ((2, 1, 140, 140, 128), [70, 70], [70, 70], True),
+}
+
+
+def _segment_case(name):
+    shape, qdoc, kdoc, causal = SEGMENT_CASES[name]
+    q, k, v, do = _inputs(len(name) + 5, 1, *shape)
+    rng = np.random.RandomState(len(name))
+    ids = []
+    for doc, n, marker in ((qdoc, shape[2], -1), (kdoc, shape[3], -2)):
+        if doc == "random":
+            ids.append(rng.randint(-1, 3, (1, n)).astype(np.int32))
+        else:
+            x = np.repeat(np.arange(len(doc)), doc).astype(np.int32)
+            x[rng.rand(n) < 0.05] = marker
+            ids.append(x[None])
+    return q, k, v, do, causal, dict(q_segments=ids[0], kv_segments=ids[1])
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+def test_segments_bwd_match_jax(name):
+    # flash_attention_bwd (the one pass's plain version) and B7a's / B7b's
+    # plain versions on JAX's forward against JAX's backward; autograd of
+    # flash_attention_masked against jax.vjp; keys of no row's id and rows
+    # of no key's id get exactly 0.
+    q, k, v, do, causal, kw = _segment_case(name)
+    jo, jl, ref = _jax_fwd_bwd(q, k, v, do, causal, kw)
+    d = q.shape[-1]
+    pkw = _port_kw(kw)
+    n0 = flash_bwd.segment_launches
+    got = flash_attention_bwd(t(q), t(k), t(v), t(jo), t(jl), t(do), d**-0.5, causal, **pkw)
+    assert flash_bwd.segment_launches == n0
+    delta = (t(jo) * t(do)).sum(-1)
+    args = (t(q), t(k), t(v), t(do), t(jl), delta, d**-0.5, causal)
+    split = (flash_bwd_dq_plain(*args, **pkw), *flash_bwd_dkv_plain(*args, **pkw))
+    for g, s_, r, n in zip(got, split, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), r, atol=TOL, rtol=0, err_msg=n)
+        np.testing.assert_allclose(s_.numpy(), r, atol=TOL, rtol=0, err_msg=n)
+    unseen = ~np.isin(kw["kv_segments"][0], kw["q_segments"][0])
+    empty = ~np.isfinite(np.asarray(jl))
+    for g in got[1:]:
+        assert np.all(g.numpy()[0][:, unseen] == 0.0)
+    assert np.all(got[0].numpy()[empty] == 0.0)
+    if name == "sq_lt_sk_unmatched":
+        assert unseen.any()
+    jkw = _jax_kw(kw)
+    _, vjp = jax.vjp(lambda a, b, c: jmasked(a, b, c, causal=causal, block_sizes=BS, **jkw),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    flash_attention_masked(tq, tk, tv, causal=causal, **pkw).backward(t(do))
+    for g, r, n in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do)), "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL, rtol=0, err_msg=f"d{n}")
+
+
 ORACLE_CASES = {
     "alibi_causal_gqa": ((2, 4, 2, 150, 150, 64), None, None, True, False, "h"),
     "alibi_bh_noncausal_sq_lt_sk": ((2, 4, 4, 100, 230, 64), None, None, False, False, "bh"),
@@ -279,10 +343,18 @@ def test_unported_channels_and_shapes_raise():
     lse = torch.zeros(2, 2, 128)
     args = (x, x, x, x, lse, x, 0.125, False)
     for name, val in (("window", (4, 4)), ("softcap", 5.0), ("dropout_p", 0.1),
-                      ("dropout_seed", 3), ("q_segments", torch.zeros(1, 128)),
-                      ("kv_segments", torch.zeros(1, 128))):
+                      ("dropout_seed", 3)):
         with pytest.raises(NotImplementedError, match=name):
             flash_attention_bwd(*args, **{name: val})
+    # Segments (ported): batch 1, both ids, not with the per-batch channels.
+    seg = dict(q_segments=torch.zeros(1, 128), kv_segments=torch.zeros(1, 128))
+    with pytest.raises(ValueError, match="batch of 1"):
+        flash_attention_bwd(*args, **seg)
+    one = tuple(a[:1] if torch.is_tensor(a) else a for a in args)
+    with pytest.raises(ValueError, match="go together"):
+        flash_attention_bwd(*one, kv_segments=seg["kv_segments"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        flash_attention_bwd(*one, alibi_slopes=torch.ones(2), **seg)
     with pytest.raises(ValueError, match="kv_bound"):
         flash_attention_bwd(*args, kv_bound=torch.tensor([1, 2, 3]))
     with pytest.raises(ValueError, match="alibi_slopes"):

@@ -151,6 +151,47 @@ def test_alibi_cache_capacity_moves_only_lse():
                                    rtol=0, atol=1e-4)
 
 
+def _doc_ids(lengths, dead=(), marker=-1):
+    ids = np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+    ids[list(dead)] = marker
+    return ids[None]
+
+
+# The segment channel (batch 1): (h, hk, sq, sk, d), q ids, key ids, causal.
+# Packed documents with dead rows (-1) and keys (-2); ids in no order; Sq !=
+# Sk with rows of an id no key has; head dims 80 and 128.
+SEGMENT_CASES = {
+    "docs_noncausal": ((4, 2, 300, 300, 64), ([120, 1, 130, 49], range(5, 9)),
+                       ([120, 1, 130, 49], range(250, 260)), False),
+    "docs_causal_gqa": ((4, 1, 300, 300, 64), ([128, 128, 44], ()), ([128, 128, 44], ()), True),
+    "unsorted_causal": ((2, 2, 200, 200, 64), "random", "random", True),
+    "sq_lt_sk_empty_rows": ((2, 2, 150, 260, 64), ([60, 60, 30], ()), ([100, 160], ()), False),
+    "docs_causal_d80": ((4, 2, 257, 257, 80), ([57, 200], range(0, 3)), ([57, 200], ()), True),
+    "docs_noncausal_d128": ((2, 2, 140, 140, 128), ([70, 70], ()), ([70, 70], ()), False),
+}
+
+
+def _segment_case(name):
+    shape, qdoc, kdoc, causal = SEGMENT_CASES[name]
+    q, k, v = _inputs(len(name) + 2, 1, *shape)
+    rng = np.random.RandomState(len(name))
+    ids = []
+    for doc, n, marker in ((qdoc, shape[2], -1), (kdoc, shape[3], -2)):
+        ids.append(rng.randint(-1, 3, (1, n)).astype(np.int32) if doc == "random"
+                   else _doc_ids(*doc, marker=marker))
+    return q, k, v, ids[0], ids[1], causal
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+def test_segments_match_jax(name):
+    q, k, v, qs, ks, causal = _segment_case(name)
+    n0 = flash_attention.segment_launches
+    lse = _compare(q, k, v, q_segments=qs, kv_segments=ks, causal=causal)
+    assert flash_attention.segment_launches == n0
+    if name == "sq_lt_sk_empty_rows":  # id 2 carries no key
+        assert np.isneginf(lse[0, :, 120:]).all() and np.isfinite(lse[0, :, :120]).all()
+
+
 @pytest.mark.parametrize("n", range(1, 65))
 def test_alibi_slopes_match_jax(n):
     np.testing.assert_allclose(alibi_slopes(n).numpy(), np.asarray(jalibi_slopes(n)),
@@ -209,11 +250,18 @@ def test_channel_shapes_and_unported_channels():
     with pytest.raises(ValueError, match="alibi_slopes"):
         flash_attention_masked(q, k, v, alibi_slopes=torch.ones(3))
     for name, kw in (("window", dict(window=(8, 0))), ("softcap", dict(softcap=5.0)),
-                     ("dropout", dict(dropout_p=0.1)),
-                     ("segments", dict(q_segments=torch.zeros(1, 64),
-                                       kv_segments=torch.zeros(1, 64)))):
+                     ("dropout", dict(dropout_p=0.1))):
         with pytest.raises(NotImplementedError, match=name):
             flash_attention_masked(q, k, v, **kw)
+    # Segments (ported): batch 1 as in JAX, both ids, not with the per-batch
+    # channels.
+    seg = dict(q_segments=torch.zeros(1, 64), kv_segments=torch.zeros(1, 64))
+    with pytest.raises(ValueError, match="batch of 1"):
+        flash_attention_masked(q, k, v, **seg)
+    with pytest.raises(ValueError, match="go together"):
+        flash_attention_masked(q[:1], k[:1], v[:1], q_segments=seg["q_segments"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        flash_attention_masked(q[:1], k[:1], v[:1], kv_bound=torch.tensor([9]), **seg)
     # bound_causal without a bound does nothing, as in JAX.
     torch.testing.assert_close(flash_attention_masked(q, k, v, bound_causal=True),
                                flash_attention(q, k, v), rtol=0, atol=0)

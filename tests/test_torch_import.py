@@ -27,6 +27,7 @@ def test_imports_with_jax_blocked():
         "import liteattention_torch.flash_blocksparse\n"
         "from liteattention_torch.ops import kv_compact, lite_flash_fwd, schedule_pack\n"
         "import liteattention_torch.utils.generation, liteattention_torch.utils.pretrained\n"
+        "import liteattention_torch.utils.padding, liteattention_torch.ops.segments\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"
@@ -66,12 +67,9 @@ def _jax_all(relpath):
     raise AssertionError(f"no __all__ in {relpath}")
 
 
-# Public names of the JAX package that the port does not have yet (ROADMAP A13).
-NOT_PORTED = {
-    "flash_attn_varlen_func",
-    "flash_attn_varlen_qkvpacked_func",
-    "flash_attn_varlen_kvpacked_func",
-}
+# Public names of the JAX package that the port does not have yet: none
+# since the varlen functions.
+NOT_PORTED = set()
 
 
 # Names of the JAX ops and models packages that the port does not have yet
