@@ -6,8 +6,9 @@
 Each variant undoes one decision of ``liteattention_torch/ops/csrc/
 flash_fwd.cu:flash_fwd_kernel`` in a copy of the sources, builds that copy
 alone (``nvcc``, as ``liteattention_torch.ops._build`` does, with
-``flash_fwd_hd.cu`` and ``mla_fwd.cu``, which the file's entries call)
-and loads its
+``flash_fwd_hd.cu`` and ``mla_fwd.cu``, which the file's entries call, and
+the committed ``flash_fwd_d256.cu``, the head-dim-256 instantiations that
+the variants leave as they are) and loads its
 ``lite_flash_fwd_dense`` entry. All variants are timed in turns (order
 reversed every other round) at B1's four shapes on the main paths -- the
 Wan self- and cross-attention, causal GPT-2 small and the causal serving
@@ -298,7 +299,7 @@ def build(names, work):
             (d / FWD).write_text(VARIANTS[name]((d / FWD).read_text()))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-o",
                str(d / "lib.so"), str(d / FWD), str(d / "flash_fwd_hd.cu"),
-               str(d / "mla_fwd.cu")]
+               str(d / "mla_fwd.cu"), str(CSRC / "flash_fwd_d256.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     out = {}

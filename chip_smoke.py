@@ -209,6 +209,29 @@ Phases (any failure exits non-zero and prints no result line):
    qkvpacked forms bit-equal to the unpacked call; then the counted run:
    the three shapes' varlen calls forward and backward, 3 segment launches
    each of B1 and B7 and no other B1 / B7 launch.
+14. (Runs after 13.) Head dim 256 and GPT-J-6B on the card: (a) B1, B7 and
+   the decode kernel at head dim 256 against their plain versions, each
+   timed beside its bound, its plain version and one library call: causal
+   B1 and B7 at GPT-J training's attention (2 x 16 x 2048 x 256; SDPA
+   flash, aten's flash backward), B1 with the bound and bound_causal at its
+   serving prefill (8 x 16 x 1024 over a 2048-slot cache; SDPA with a
+   boolean mask), B8 bf16 over that cache at ragged and full lengths (SDPA
+   with a key-padding mask) and int8, and B9b over native pools of 64-token
+   pages; (b) a small GPT-J-shaped model (dim 512, 2 heads of 256, 2
+   layers, vocab 1000, interleaved rotary 64) on the card against the CPU:
+   the forward, one training step's loss and gradients, and greedy decoding
+   with a cache, teacher-forced; (c) GPT-J-6B (EleutherAI/gpt-j-6b
+   config.json through ``gptj_config()``: 28 layers, 6.05 B random fp32
+   parameters) serving 8 requests of 1024-token prompts, 32 greedy tokens
+   into a 2048-token cache, with a bf16 and with an int8 cache: one bound
+   B1 launch a layer at each prefill and one decode-kernel launch a layer
+   a step; each run's decode logits against a full recompute (and the two
+   planted faults), the device's and the decode kernel's share of five
+   profiled decode steps; (d) its first 8 layers at full width trained
+   with remat, AdamW, on 2 x 2048 tokens for 3 steps through
+   ``training/trainer.py`` (2 B1 and 1 B7 launches a layer a step; finite
+   losses). The kernels line gains the D 256 rows, their launches read on
+   (c)'s and (d)'s counted runs.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -389,12 +412,15 @@ def queued_ms(fn, reps):
     """Device time per call of ``fn`` by CUDA events, with the device held
     in a busy wait while the host enqueues every call, so that host time
     between calls does not count: (ms, ``"queued_events"``). The wait is
-    sized from one call's host time and must still be running when the
-    last call is queued (checked; one retry with a wait 8x as long). A
-    call that waits on the device itself ends the wait early: it is then
-    timed by plain events over back-to-back calls, (ms, ``"events"``)."""
+    sized from one warm call's host time (a first call may load code or
+    build a library's plan, a second or more of host time that would
+    size a wait of minutes) and must still be running when the last call
+    is queued (checked; one retry with a wait 8x as long). A call that
+    waits on the device itself ends the wait early: it is then timed by
+    plain events over back-to-back calls, (ms, ``"events"``)."""
     import torch
 
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -721,7 +747,7 @@ def check_bwd(q, k, v, dout, label, causal, time_it=False):
         ms = cuda_ms(lambda: flash_attention_bwd(*args), reps=20)
         # Device time of the three launches, and the main kernel's share.
         dev_ms, main_ms, timer = device_ms(lambda: flash_attention_bwd(*args),
-                                           names=("flash_bwd_kernel",))
+                                           names=("flash_bwd_kernel", "flash_bwd_d256_kernel"))
         plain_ms = cuda_ms(lambda: flash_bwd_plain(*args), reps=1)
         bound_ms, bound_by = bound(10 * d * attn_pairs(sq, sk, causal) * b * h,
                                    nbytes(q, k, v, out, dout, lse, dq, dk, dv))
@@ -1744,38 +1770,40 @@ def profile_decode_steps(model, inf, steps, card):
 
 
 def recompute_fault_readings(model, toks, full, step_logits, prompt=SERVE_PROMPT,
-                             capacity=SERVE_CAPACITY):
+                             capacity=SERVE_CAPACITY, late_by=1, rows=1, quantize=False):
     """What the recompute comparison can see: the first FAULT_STEPS decode
     steps, teacher-forced, with one fault planted in the cache after the
-    prefill of ``prompt`` tokens (a cache of ``capacity``), against the
-    same full recompute, beside the sound run over the same steps. Faults:
-    (late) every step one position late, so rotary is one position off and
-    a zero row lies at the prompt's end; (row) the prompt's last K and V
-    rows zeroed in every layer."""
+    prefill of ``prompt`` tokens (a cache of ``capacity``, int8 with
+    ``quantize``), against the same full recompute, beside the sound run
+    over the same steps. Faults: (late) every step ``late_by`` positions
+    late, so rotary is that far off and as many zero rows lie at the
+    prompt's end; (row) the prompt's last ``rows`` K and V rows zeroed in
+    every layer. Each must read above the recompute limit."""
 
     def late(inf):
-        inf.seqlen_offset += 1
+        inf.seqlen_offset += late_by
 
     def row(inf):
         for kc, vc, *_ in inf.key_value_memory_dict.values():
-            kc[:, :, prompt - 1] = 0
-            vc[:, :, prompt - 1] = 0
+            kc[:, :, prompt - rows : prompt] = 0
+            vc[:, :, prompt - rows : prompt] = 0
 
     n = FAULT_STEPS
     ref = full[:, 1:n]
     res = {"recompute_rel_l2_sound_first_steps": rel_l2(step_logits[:, 1:n], ref)}
     for name, fault in (("late", late), ("row", row)):
         got, _ = teacher_forced_logits(model, toks[:, : prompt + n], prompt, capacity,
-                                       fault=fault)
+                                       quantize=quantize, fault=fault)
         res[f"recompute_rel_l2_fault_{name}"] = rel_l2(got[:, 1:], ref)
         res[f"recompute_argmax_agreement_fault_{name}"] = (
             (got[:, 1:].argmax(-1) == ref.argmax(-1)).float().mean().item())
-    log(f"  recompute comparison over decode steps 1-{n - 1}: sound rel-L2 "
-        f"{res['recompute_rel_l2_sound_first_steps']:.3e}; planted faults: one position late "
-        f"{res['recompute_rel_l2_fault_late']:.3e} (argmax agreement "
-        f"{res['recompute_argmax_agreement_fault_late']:.3f}), prompt's last K/V row zeroed "
-        f"{res['recompute_rel_l2_fault_row']:.3e} (argmax agreement "
-        f"{res['recompute_argmax_agreement_fault_row']:.3f})")
+    log(f"  recompute comparison over decode steps 1-{n - 1}"
+        f"{' (int8 cache)' if quantize else ''}: sound rel-L2 "
+        f"{res['recompute_rel_l2_sound_first_steps']:.3e}; planted faults: {late_by} "
+        f"position{'s' if late_by > 1 else ''} late {res['recompute_rel_l2_fault_late']:.3e} "
+        f"(argmax agreement {res['recompute_argmax_agreement_fault_late']:.3f}), prompt's last "
+        f"{rows} K/V row{'s' if rows > 1 else ''} zeroed {res['recompute_rel_l2_fault_row']:.3e} "
+        f"(argmax agreement {res['recompute_argmax_agreement_fault_row']:.3f})")
     for name in ("late", "row"):
         check(res[f"recompute_rel_l2_fault_{name}"] > SERVE_RECOMPUTE_TOL,
               f"the recompute comparison no longer sees the planted fault '{name}'")
@@ -4245,10 +4273,14 @@ def btlm_serve_phase(dev, card):
     return counts, out
 
 
-def btlm_train_phase(dev, card):
-    """Phase 12 (c): BTLM-3B-8K at full width and depth trained on one
-    repeated 8192-token sequence through training/trainer.py (fp32 master
-    weights, remat, AdamW; the counted path)."""
+def trainer_run(dev, card, cfg, label, batch, seq, steps, lr, seeds):
+    """``cfg``'s model (fp32 master weights, bf16 products) trained on one
+    repeated synthetic batch of ``batch`` x ``seq`` tokens through
+    training/trainer.py, AdamW at ``lr`` for ``steps`` steps: the counted
+    path (every count set to 0 just before, read just after). ``seeds``:
+    the weights' and the batch's. Returns the counts and {ms_per_step,
+    median_ms_per_step, tokens_per_s, losses, peak_gb, parameters_b,
+    layers}; the losses must be finite."""
     import itertools
 
     import torch
@@ -4256,39 +4288,55 @@ def btlm_train_phase(dev, card):
     from liteattention_torch.training.data import synthetic_lm_batches
     from liteattention_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = dataclasses.replace(btlm_3b_8k_config(32), remat=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = GPTLMHeadModel(cfg, device=dev)
-    model.reset_parameters(torch.Generator(device=dev).manual_seed(52))
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(seeds[0]))
     n_params = sum(p.numel() for p in model.parameters())
-    batch = next(synthetic_lm_batches(cfg.vocab_size, 1, BTLM_TRAIN_TOKENS, seed=53))
-    tcfg = TrainConfig(learning_rate=BTLM_TRAIN_LR, warmup_steps=0, total_steps=1000,
-                       grad_clip=1.0)
+    tokens = batch * seq
+    data = next(synthetic_lm_batches(cfg.vocab_size, batch, seq, seed=seeds[1]))
+    tcfg = TrainConfig(learning_rate=lr, warmup_steps=0, total_steps=1000, grad_clip=1.0)
     trainer = Trainer(model, lambda m, x: gpt_loss_fn(m, x, x), tcfg, device=dev)
-    log(f"  BTLM-3B-8K: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters (fp32 master, "
-        f"bf16 products), remat; 1 x {BTLM_TRAIN_TOKENS} tokens, one repeated batch, "
-        f"{BTLM_TRAIN_STEPS} AdamW steps (lr {BTLM_TRAIN_LR}) through Trainer.fit")
-    x = torch.as_tensor(batch, device=dev)
+    log(f"  {label}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters (fp32 master, "
+        f"bf16 products){', remat' if cfg.remat else ''}; {batch} x {seq} tokens, one repeated "
+        f"batch, {steps} AdamW steps (lr {lr}) through Trainer.fit")
+    x = torch.as_tensor(data, device=dev)
     gpt_loss_fn(model, x, x).backward()  # warm-up (cuBLAS, allocator), not counted
     model.zero_grad(set_to_none=True)
     del x
     torch.cuda.synchronize()
     reset_counts()
     recs = []
-    trainer.fit(itertools.repeat(batch), BTLM_TRAIN_STEPS, log_every=1,
-                tokens_per_batch=BTLM_TRAIN_TOKENS, log_fn=recs.append)
+    trainer.fit(itertools.repeat(data), steps, log_every=1, tokens_per_batch=tokens,
+                log_fn=recs.append)
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [r["loss"] for r in recs]
     step_ms = [1e3 / r["steps_per_s"] for r in recs]
-    log(f"  launches during the training steps: {counts}")
     ms = statistics.median(step_ms)
+    log(f"  launches during the training steps: {counts}")
     log(f"  loss per step {[round(v, 4) for v in losses]}; ms/step (host clock to the loss) "
-        f"{[round(v, 1) for v in step_ms]}, median {ms:.1f} = "
-        f"{BTLM_TRAIN_TOKENS / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GB [{card}]")
-    check(all(math.isfinite(v) for v in losses), "BTLM training loss is not finite")
+        f"{[round(v, 1) for v in step_ms]}, median {ms:.1f} = {tokens / ms * 1e3:.0f} tokens/s; "
+        f"peak {peak:.2f} GB [{card}]")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{label}: the training loss is not finite")
+    out = {"ms_per_step": step_ms, "median_ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "losses": losses, "peak_gb": peak, "parameters_b": n_params / 1e9,
+           "layers": cfg.num_layers}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def btlm_train_phase(dev, card):
+    """Phase 12 (c): BTLM-3B-8K at full width and depth trained on one
+    repeated 8192-token sequence through training/trainer.py (fp32 master
+    weights, remat, AdamW; the counted path)."""
+    cfg = dataclasses.replace(btlm_3b_8k_config(32), remat=True)
+    counts, out = trainer_run(dev, card, cfg, "BTLM-3B-8K", 1, BTLM_TRAIN_TOKENS,
+                              BTLM_TRAIN_STEPS, BTLM_TRAIN_LR, (52, 53))
+    losses = out["losses"]
     check(losses[-1] < losses[0], "BTLM training loss does not fall on a repeated batch")
     # remat runs each block's forward again in the backward: two B1 launches
     # a layer a step, one B7.
@@ -4297,11 +4345,6 @@ def btlm_train_phase(dev, card):
           and counts["flash_fwd"] == 0 and counts["flash_bwd_dq"] == 0,
           f"BTLM training: expected {cfg.num_layers} ALiBi launches of B7 and "
           f"{2 * cfg.num_layers} of B1 a step")
-    out = {"ms_per_step": step_ms, "median_ms_per_step": ms,
-           "tokens_per_s": BTLM_TRAIN_TOKENS / ms * 1e3, "losses": losses, "peak_gb": peak,
-           "parameters_b": n_params / 1e9, "layers": cfg.num_layers}
-    del trainer, model
-    torch.cuda.empty_cache()
     return counts, out
 
 
@@ -4594,6 +4637,332 @@ def varlen_phase(dev):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 14
+
+# GPT-J-6B (EleutherAI/gpt-j-6b config.json: n_embd 4096, n_layer 28, n_head
+# 16, so head dim 256; rotary_dim 64 interleaved, vocab 50 400, n_inner null
+# = 4 x 4096, gelu_new, untied embeddings, a biased lm_head): gptj_config()
+# as it stands. Serving: requests x prompt tokens, greedy tokens, the cache;
+# training: the first layers of its 28 (fp32 parameters, gradients and AdamW
+# state of all 28 would take ~97 GB), batch x tokens, AdamW steps, rate. The
+# decode kernel's native pool (B9b; not on GPT-J's path): tokens a page.
+GPTJ_BATCH, GPTJ_PROMPT, GPTJ_NEW, GPTJ_CONTEXT = 8, 1024, 32, 2048
+GPTJ_TRAIN_LAYERS, GPTJ_TRAIN_BATCH, GPTJ_TRAIN_SEQ, GPTJ_TRAIN_STEPS = 8, 2, 2048, 3
+GPTJ_TRAIN_LR = 1e-4
+GPTJ_PAGE = 64
+# The recompute check's planted faults at GPT-J (recompute_fault_readings):
+# every step this many positions late; the prompt's last rows zeroed (one of
+# the D 256 decode kernel's 64-key tiles). The smallest sizes that read at
+# least 1.5x the limit on both caches (gptj_fault_sweep.py).
+GPTJ_FAULT_LATE, GPTJ_FAULT_ROWS = 64, 64
+
+
+def gptj_kernel_phase(dev):
+    """Phase 14 (a): B1, B7 and the decode kernel at head dim 256 against
+    their plain versions at GPT-J-6B's shapes, each timed beside its bound,
+    its plain version and one library call: causal B1 and B7 at training's
+    2 x 16 x 2048; B1 with the bound and bound_causal at the serving prefill
+    (8 x 16 x 1024 over the 2048-slot cache); the decode kernel over that
+    cache, B8 bf16 (ragged and full lengths) and int8, and B9b over native
+    pools of 64-token pages. Returns {name: result}."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.flash_decode import kernel_tile_keys, tile_keys
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention_folded,
+        paged_attention_folded_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(6256)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    h, d = 16, 256
+    # The plain decode splits as the kernel does only with the kernel's tile.
+    check(kernel_tile_keys(d) == tile_keys(d),
+          f"the decode kernel's key tile at head dim {d} is not the plain version's")
+    res = {}
+    b, s = GPTJ_TRAIN_BATCH, GPTJ_TRAIN_SEQ
+    q, k, v, dout = (rnd(b, h, s, d) for _ in range(4))
+    label = f"causal {b}x{h}x{s}x{d} (GPT-J training, head dim 256)"
+    res["fwd_causal"] = check_flash(q, k, v, label, causal=True, time_it=True, blocks=True)
+    res["bwd_causal"] = check_bwd(q, k, v, dout, label, True, time_it=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    # MHA's prefill into the cache: causal off, bound_causal on, Sk the
+    # cache's 2048 slots, the bound the prompt's 1024.
+    b, cap = GPTJ_BATCH, GPTJ_CONTEXT
+    kc, vc = rnd(b, h, cap, d), rnd(b, h, cap, d)
+    prompt = torch.full((b,), GPTJ_PROMPT, dtype=torch.int32, device=dev)
+    res["fwd_bound"] = check_channels(
+        f"bound_causal prefill {b}x{h}x{GPTJ_PROMPT}x{d} over a {cap}-slot cache (GPT-J)",
+        rnd(b, h, GPTJ_PROMPT, d), kc, vc, dict(kv_bound=prompt, bound_causal=True),
+        time_it=True)
+    # The decode steps: one q row a head against the head-major cache as
+    # MHA passes it ([B, S, H, D] views), at ragged lengths (the first
+    # full) and at full lengths.
+    q = rnd(b, h, 1, d)
+    kcs, vcs = kc.transpose(1, 2), vc.transpose(1, 2)
+    lens = torch.randint(cap // 4, cap + 1, (b,), generator=g, device=dev).int()
+    lens[0] = cap
+    full = torch.full((b,), cap, dtype=torch.int32, device=dev)
+    keys, out_bytes = int(lens.sum()), 2 * nbytes(q) + 4 * b * h
+
+    def need(elsize, n_keys=keys, extra=0):
+        """Bytes (K and V rows needed, q, out, lse) and FLOPs (QK and PV)."""
+        return 2 * n_keys * h * d * elsize + out_bytes + extra, 4 * d * h * n_keys
+
+    shape = f"{b}x{h} rows of {d}, cache {cap}, lengths {lens.min().item()}-{cap}"
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r = res["decode"] = check_decode(
+        f"B8 bf16 {shape}", flash_attention_decode, flash_attention_decode_plain,
+        (q, kcs, vcs), dict(kv_bound=lens), need(2), time_it=True)
+    pad = (torch.arange(cap, device=dev) < lens[:, None])[:, None, None]  # [B, 1, 1, S]
+    backend, r["library_ms"], r["timer"]["library_ms"] = sdpa_backend_ms(
+        "B8 D 256 ragged", lambda: sdpa(q, kc, vc, attn_mask=pad))
+    r["library"] = f"torch SDPA, boolean key-padding mask ({backend} backend)"
+    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
+        lambda: flash_attention_decode(q, kcs, vcs, kv_bound=full))
+    r["bound_ms_full_lengths"] = bound(need(2, b * cap)[1], need(2, b * cap)[0])[0]
+    r["library_ms_full_lengths"], _, r["timer"]["library_ms_full_lengths"] = device_ms(
+        lambda: sdpa(q, kc, vc))
+    log(f"  decode B8 D 256 ragged: SDPA (key-padding mask, {backend}) {fmt_ms(r['library_ms'])}; "
+        f"full lengths: device {r['ms_full_lengths']:.4f} ms, bound "
+        f"{r['bound_ms_full_lengths']:.4f} ms; SDPA {r['library_ms_full_lengths']:.4f} ms")
+    c8 = quantize_kv_cache(kcs, vcs)
+    r["int8"] = check_decode(
+        f"B8 int8 {shape}", flash_attention_decode, flash_attention_decode_plain,
+        (q, c8.k, c8.v), dict(kv_bound=lens, k_scale=c8.k_scale, v_scale=c8.v_scale),
+        need(1, extra=2 * nbytes(c8.k_scale)), time_it=True)
+    r["int8"]["library_ms"] = None
+    del c8
+    n_pages = b * cap // GPTJ_PAGE
+    kp, vp = (x.contiguous().reshape(n_pages, GPTJ_PAGE, h, d) for x in (kcs, vcs))
+    table = torch.randperm(n_pages, generator=g, device=dev).reshape(b, -1).int()
+    res["paged_folded"] = check_decode(
+        f"B9b bf16 {shape}, native pool, pages of {GPTJ_PAGE}", paged_attention_folded,
+        paged_attention_folded_plain, (q[:, :, 0], kp, vp, lens, table),
+        dict(return_lse=True), need(2, extra=nbytes(table)), time_it=True)
+    res["paged_folded"]["library_ms"] = None
+    del kc, vc, kcs, vcs, kp, vp
+    torch.cuda.empty_cache()
+    return res
+
+
+def small_gptj_check(dev):
+    """A small GPT-J-shaped model (dim 512, 2 heads of 256, 2 layers, vocab
+    1000, interleaved rotary over 64) on the card (bf16) against the CPU
+    (fp32, the plain versions): the forward's logits, one training step's
+    loss and gradients (causal B1 and B7 at D 256) and greedy decoding with
+    a cache, teacher-forced on the CPU's tokens (B1's bound at the prefill,
+    the decode kernel at every step)."""
+    import torch
+    from liteattention_torch.models.configs import gptj_config
+    from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
+    from liteattention_torch.ops.flash_bwd import flash_bwd
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
+    from liteattention_torch.utils.generation import greedy_decode
+
+    cfg = gptj_config(dim=512, num_layers=2, num_heads=2, vocab=1000, rotary_dim=64)
+    label = "small GPT-J (dim 512, 2 layers, 2 heads of 256)"
+    cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(61))
+    gpu = GPTLMHeadModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randint(0, 1000, (2, 300), generator=torch.Generator().manual_seed(62))
+    with torch.no_grad():
+        e_fwd = rel_l2(gpu(x.to(dev)).float().cpu(), cpu(x))
+    log(f"  {label}, forward over 2 x 300, bf16 card vs fp32 CPU: logits rel-L2 {e_fwd:.2e}")
+    check(e_fwd < SMALL_FWD_TOL, f"{label}: forward disagrees")
+    worst = check_train_step(dev, f"{label} training step (2 x 300)", cpu, gpu,
+                             lambda m, where: gpt_loss_fn(m, x.to(where), x.to(where)),
+                             ((flash_attention, "launches"), (flash_bwd, "launches")),
+                             [cfg.num_layers, cfg.num_layers])
+    prompt, new = 100, 12
+    ids = torch.randint(0, 1000, (2, prompt), generator=torch.Generator().manual_seed(63))
+    with torch.no_grad():
+        rec = StepTimer(cpu)
+        toks = greedy_decode(rec, ids, new, 128)
+    ref = rec.logits()
+    n0, d0 = flash_attention.bound_launches, flash_attention_decode.launches
+    got, _ = teacher_forced_logits(gpu, toks.to(dev), prompt, 128)
+    torch.cuda.synchronize()
+    n, nd = flash_attention.bound_launches - n0, flash_attention_decode.launches - d0
+    check(n == cfg.num_layers and nd == cfg.num_layers * (new - 1),
+          f"{label}: {n} bound B1 launches, {nd} decode-kernel launches")
+    err = rel_l2(got.float().cpu(), ref)
+    same = (got.argmax(-1).cpu() == ref.argmax(-1)).float().mean().item()
+    log(f"  {label}, {new} tokens teacher-forced, bf16 card vs fp32 CPU: logits rel-L2 "
+        f"{err:.2e}, argmax agreement {same:.3f}, {n} bound B1 and {nd} decode launches")
+    check(err < SMALL_DECODE_TOL, f"{label}: decode disagrees")
+    return {"forward_logits_rel_l2": e_fwd, "train_step_worst_rel": worst,
+            "decode_logits_rel_l2": err}
+
+
+def gptj_serve_phase(dev, card):
+    """Phase 14 (c): GPT-J-6B serving at full width and depth (the counted
+    path: greedy decoding of GPTJ_BATCH requests into a GPTJ_CONTEXT cache,
+    bf16 and int8), then its checks and a profile of its decode steps."""
+    import torch
+    from liteattention_torch.models.configs import gptj_config
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import greedy_decode
+
+    cfg = gptj_config()
+    log(f"  GPT-J-6B: dim {cfg.dim}, {cfg.num_layers} layers, {cfg.num_heads} heads x "
+        f"{cfg.dim // cfg.num_heads}, interleaved rotary over {cfg.rotary_emb_dim}, tied-norm "
+        f"parallel block, ffn {4 * cfg.dim}, vocab {cfg.vocab_size}, biased lm_head; fp32 "
+        "master weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(64))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device=dev).manual_seed(65)
+    ids = torch.randint(0, cfg.vocab_size, (GPTJ_BATCH, GPTJ_PROMPT), generator=g, device=dev)
+    log(f"  {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.1f} GB fp32); {GPTJ_BATCH} "
+        f"requests x {GPTJ_PROMPT} prompt tokens, {GPTJ_NEW} new tokens each, cache capacity "
+        f"{GPTJ_CONTEXT}")
+    greedy_decode(model, ids[:1, :16], 2, 32)  # warm-up, not counted
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timer = StepTimer(model)
+    toks = greedy_decode(timer, ids, GPTJ_NEW, GPTJ_CONTEXT)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    timer8 = StepTimer(model)
+    toks8 = greedy_decode(timer8, ids, GPTJ_NEW, GPTJ_CONTEXT, quantize_cache=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the GPT-J serving run (bf16 and int8 caches): {counts}")
+    n_decode = len(timer.calls) - 1
+    want_b1, want_b8 = 2 * cfg.num_layers, 2 * cfg.num_layers * n_decode
+    check(counts["flash_fwd_bound"] == want_b1 and counts["flash_decode"] == want_b8,
+          f"GPT-J serving: expected {want_b1} bound B1 launches (the prefills) and {want_b8} "
+          "decode-kernel launches (one a layer a step)")
+    prefill_ms, prefill8_ms = timer.calls[0][1], timer8.calls[0][1]
+    step_ms = [ms for _, ms in timer.calls[1:]]
+    step8_ms = [ms for _, ms in timer8.calls[1:]]
+    dec_ms, dec8_ms = statistics.median(step_ms), statistics.median(step8_ms)
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms,
+           "prefill_ms_int8": prefill8_ms, "decode_ms_per_step_int8": dec8_ms,
+           "decode_tokens_per_s": GPTJ_BATCH * 1e3 / dec_ms,
+           "decode_tokens_per_s_int8": GPTJ_BATCH * 1e3 / dec8_ms,
+           "end_to_end_tokens_per_s": GPTJ_BATCH * GPTJ_NEW * 1e3 / wall,
+           "peak_gb": peak_gb, "decode_steps": n_decode, "parameters_b": n_params / 1e9,
+           "layers": cfg.num_layers}
+    log(f"  bf16 cache: prefill {prefill_ms:.1f} ms ({GPTJ_BATCH * GPTJ_PROMPT / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {out['decode_tokens_per_s']:.0f} tokens/s; "
+        f"end to end {wall:.0f} ms; int8 cache: prefill {prefill8_ms:.1f} ms, decode "
+        f"{dec8_ms:.2f} ms/step; peak memory {peak_gb:.2f} GB [{card}]")
+
+    # Checks (their launches are not counted): each run's incremental
+    # decode against a full recompute without a cache over its tokens, and
+    # two planted faults in each cache.
+    with torch.inference_mode():
+        fulls = [torch.cat([model(tk[i : i + 1, :-1])[:, GPTJ_PROMPT - 1 :].clone()
+                            for i in range(GPTJ_BATCH)]) for tk in (toks, toks8)]
+    for name, tm, tk, full in (("bf16", timer, toks, fulls[0]), ("int8", timer8, toks8, fulls[1])):
+        step_logits = tm.logits()
+        check(tk.shape == (GPTJ_BATCH, GPTJ_PROMPT + GPTJ_NEW)
+              and torch.isfinite(step_logits).all(), f"GPT-J serving ({name}): bad greedy output")
+        e_full = rel_l2(step_logits, full)
+        agree = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+        log(f"  {name} cache: incremental decode vs full recompute without a cache: logits "
+            f"rel-L2 {e_full:.3e}, argmax agreement {agree:.3f}")
+        check(e_full < SERVE_RECOMPUTE_TOL,
+              f"GPT-J incremental decode ({name} cache) disagrees with the recompute")
+        sfx = "" if name == "bf16" else "_int8"
+        out[f"recompute_rel_l2{sfx}"], out[f"recompute_argmax_agreement{sfx}"] = e_full, agree
+    # At GPT-J's geometry (rotary over 64 of 256 dims, random weights) one
+    # row zeroed or one position late reads under the limit (7.0e-3 and
+    # 8.8e-3 on an H100 beside 6.0e-3 sound): the attention is near uniform
+    # over the prompt. So the faults here are larger (GPTJ_FAULT_LATE,
+    # GPTJ_FAULT_ROWS), planted in both caches, and held above the limit.
+    for i, (tm, tk) in enumerate(((timer, toks), (timer8, toks8))):
+        res = recompute_fault_readings(model, tk, fulls[i], tm.logits(), prompt=GPTJ_PROMPT,
+                                       capacity=GPTJ_CONTEXT, late_by=GPTJ_FAULT_LATE,
+                                       rows=GPTJ_FAULT_ROWS, quantize=i == 1)
+        out.update({f"{k}{'_int8' if i else ''}": x for k, x in res.items()})
+    del fulls
+    _, inf = teacher_forced_logits(model, toks[:, : GPTJ_PROMPT + 8], GPTJ_PROMPT, GPTJ_CONTEXT)
+    out["profile"] = prof = profile_decode_steps(model, inf, 5, card)
+    if prof is not None:
+        check(prof["decode_kernel_launches"] == 5 * cfg.num_layers,
+              "GPT-J serving: the decode step should launch the decode kernel once a layer")
+        # The device's busy time a step against the unprofiled step (the
+        # profiler itself slows the host), and the decode kernel's share of it.
+        out["device_share_of_step"] = prof["busy_ms_per_step"] / dec_ms
+        out["decode_kernel_share_of_busy"] = (prof["attention (decode kernel)_ms_per_step"]
+                                              / prof["busy_ms_per_step"])
+        log(f"  device busy {prof['busy_ms_per_step']:.2f} ms of the {dec_ms:.2f} ms step "
+            f"({out['device_share_of_step']:.1%}); the decode kernel "
+            f"{out['decode_kernel_share_of_busy']:.1%} of the busy time")
+    del model, inf, timer, timer8
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def gptj_train_phase(dev, card):
+    """Phase 14 (d): GPT-J-6B at full width, its first GPTJ_TRAIN_LAYERS
+    layers, trained on one repeated batch through training/trainer.py (fp32
+    master weights, remat, AdamW; the counted path)."""
+    from liteattention_torch.models.configs import gptj_config
+
+    cfg = dataclasses.replace(gptj_config(num_layers=GPTJ_TRAIN_LAYERS), remat=True)
+    counts, out = trainer_run(dev, card, cfg, "GPT-J-6B width (of 28 layers)", GPTJ_TRAIN_BATCH,
+                              GPTJ_TRAIN_SEQ, GPTJ_TRAIN_STEPS, GPTJ_TRAIN_LR, (66, 67))
+    # remat runs each block's forward again in the backward: two causal B1
+    # launches a layer a step, one B7.
+    n = cfg.num_layers * GPTJ_TRAIN_STEPS
+    check(counts["flash_bwd_dq"] == n and counts["flash_fwd"] == 2 * n,
+          f"GPT-J training: expected {cfg.num_layers} B7 and {2 * cfg.num_layers} B1 launches "
+          "a step")
+    return counts, out
+
+
+def gptj_phase(dev, card):
+    """Phase 14: B1, B7 and the decode kernel at head dim 256, then
+    GPT-J-6B served at full width and depth and trained at full width."""
+    t0 = time.perf_counter()
+    log("  (a) B1, B7 and the decode kernel at head dim 256 against their plain versions")
+    kres = gptj_kernel_phase(dev)
+    secs = {"a": time.perf_counter() - t0}
+    log(f"  (b) a small GPT-J-shaped model, card against CPU ((a) took {secs['a']:.1f} s)")
+    stats = {"small_gptj": small_gptj_check(dev), "part_seconds": secs}
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    counts = {}
+    log(f"  (c) GPT-J-6B serving ((b) took {secs['b']:.1f} s)")
+    counts["gptj_serve"], stats["gptj_6b_serve"] = gptj_serve_phase(dev, card)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (d) GPT-J-6B training, full width ((c) took {secs['c']:.1f} s)")
+    counts["gptj_train"], stats["gptj_6b_train"] = gptj_train_phase(dev, card)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (d) took {secs['d']:.1f} s")
+    # The attention kernels' share of each step, from their times at the
+    # same shapes in (a) (B1 twice a layer a step under remat, B7 once).
+    serve, train = stats["gptj_6b_serve"], stats["gptj_6b_train"]
+    serve["prefill_b1_share_by_kernel_times"] = (serve["layers"] * kres["fwd_bound"]["ms"]
+                                                 / serve["prefill_ms"])
+    train["attention_share_by_kernel_times"] = train["layers"] * (
+        2 * kres["fwd_causal"]["ms"] + kres["bwd_causal"]["flash_bwd_dq"]["ms"]
+    ) / train["median_ms_per_step"]
+    log(f"  attention kernels' share by their times in (a): prefill "
+        f"{serve['prefill_b1_share_by_kernel_times']:.1%}, training step "
+        f"{train['attention_share_by_kernel_times']:.1%}")
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -4643,7 +5012,11 @@ def ab_times(reps):
     the checkout has them, B1's and B7's bound and ALiBi instantiations at
     the BERT-large padded batch and Baichuan2-13B's training shape
     (``b1_bound_ms``, ``b7_bound_ms``, ``b1_alibi_ms``, ``b7_alibi_ms``,
-    with B7's dK / dV digests). It calls only entry points every version
+    with B7's dK / dV digests); digests of causal B1's out and lse and
+    B7's dK / dV at 2 x 16 x 1024 at head dim 64 and at 80, 96 and 256
+    where the checkout builds them (``b1_d80_digest``, ``b7_d80_dkv_digest``,
+    ...; with their times), and of the decode kernel's ragged B8 bf16 and
+    int8 and B9b outputs (``b8_digest``). It calls only entry points every version
     of the port has since the decode kernel (the channels only where they
     exist), so checkouts can be timed in turns on one card (older, newer,
     newer, older)."""
@@ -4725,6 +5098,7 @@ def ab_times(reps):
         "sdpa_gqa_full_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
             dq, dk.transpose(1, 2), dv.transpose(1, 2), enable_gqa=True),
     }
+    decode_calls = [decode[k] for k in ("b8_ragged_ms", "b8_int8_ragged_ms", "b9b_ragged_ms")]
     decode = {k: device_ms(fn, reps)[0] for k, fn in decode.items()}
 
     def digest(*tensors):
@@ -4732,7 +5106,7 @@ def ab_times(reps):
         sha = hashlib.sha1()
         for x in tensors:
             if x is not None:
-                sha.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                sha.update(x.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
         return sha.hexdigest()[:16]
 
     def bwd_ms(shape, causal, n=reps):
@@ -4851,6 +5225,31 @@ def ab_times(reps):
         "b3_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask)),
         "b5_digest": digest(*lite_flash_attention(q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H)),
     }
+    # Digests of B1 (out, lse) and B7 (dK, dV) at every head dim the
+    # checkout builds besides the Wan shape's 128 (causal 2 x 16 x 1024;
+    # 64, and 80, 96 and 256 where its HEAD_DIMS has them), with their
+    # times; and of the decode kernel's outputs at the kvcache API's shape
+    # (B8 bf16 and int8, B9b), so that two checkouts can be seen to compute
+    # the same bits.
+    from liteattention_torch.ops import flash_bwd as bwd_module
+
+    outs = [fn() for fn in decode_calls]
+    hd = {"b8_digest": digest(*(x for o in outs for x in (o if isinstance(o, tuple) else (o,))))}
+    del outs
+    for hd_d in [64] + [x for x in (80, 96, 256) if x in getattr(bwd_module, "HEAD_DIMS", ())]:
+        hq_, hk_, hv_, hdo = (torch.randn(2, 16, 1024, hd_d, generator=g, device=dev).bfloat16()
+                              for _ in range(4))
+        ho, hlse = flash_attention(hq_, hk_, hv_, causal=True, return_lse=True)
+
+        def hbwd(hq_=hq_, hk_=hk_, hv_=hv_, ho=ho, hlse=hlse, hdo=hdo, hd_d=hd_d):
+            return flash_attention_bwd(hq_, hk_, hv_, ho, hlse, hdo, hd_d**-0.5, True)
+
+        hd[f"b1_d{hd_d}_digest"] = digest(ho, hlse)
+        hd[f"b7_d{hd_d}_dkv_digest"] = digest(*hbwd()[1:])
+        hd[f"b1_d{hd_d}_ms"] = device_ms(
+            lambda: flash_attention(hq_, hk_, hv_, causal=True), reps)[0]
+        hd[f"b7_d{hd_d}_ms"] = cuda_ms(hbwd, reps)
+        del hq_, hk_, hv_, hdo, ho, hlse
     b1 = {"b1_cross_device_ms": b1_device_ms(1, h, h, s, 512, d, False),
           "b1_gpt2_device_ms": b1_device_ms(GPT_BATCH, 12, 12, GPT_SEQ, GPT_SEQ, 64, True),
           "b1_prefill_device_ms": b1_device_ms(SERVE_BATCH, 32, 8, SERVE_PROMPT, SERVE_PROMPT,
@@ -4865,7 +5264,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1, **channels, **b2, **b4, **b10, **mla, **b6, **digests,
+        **b1, **channels, **b2, **b4, **b10, **mla, **b6, **digests, **hd,
     }))
     return 0
 
@@ -4891,9 +5290,22 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds, clock = {}, [None, time.perf_counter()]
+
+    def phase(title=None):
+        """Log the seconds the running phase took, then the next one's
+        title (none after the last)."""
+        now = time.perf_counter()
+        if clock[0] is not None:
+            seconds[clock[0]] = now - clock[1]
+            log(f"  {clock[0]} took {seconds[clock[0]]:.1f} s")
+        clock[:] = [title and title.split(":")[0], now]
+        if title:
+            log(title)
+
     try:
         card = nvidia_smi_line()
-        log(f"phase 1: device {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        phase(f"phase 1: device {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         build = _build.build_kernels()
         log(f"  kernels built in {build.seconds:.1f} s -> {build.path.relative_to(ROOT)}")
         for line in build.log.splitlines():
@@ -4903,56 +5315,47 @@ def main() -> int:
         cfg = WanConfig()
         frames, hh, ww = SLICE_GRID
         n_tok = frames * (hh // cfg.patch_size[1]) * (ww // cfg.patch_size[2])
-        log("phase 2: kernels against their plain versions (bf16)")
+        phase("phase 2: kernels against their plain versions (bf16)")
         kres = kernel_phase(dev, cfg, n_tok)
         kres.update(gpt_kernel_phase(dev))
         serve_err, serve_prefill = serve_flash_check(dev)
         kres["flash_fwd_causal"]["err"] = max(kres["flash_fwd_causal"]["err"], serve_err)
         kres.update(decode_kernel_phase(dev))
-        log("phase 3: Wan2.1-14B-width denoising slice")
+        phase("phase 3: Wan2.1-14B-width denoising slice")
         counts = {"wan_denoise": slice_phase(dev, card, cfg, SLICE_GRID)}
         counts["wan_i2v"], kres["flash_fwd_i2v"], i2v_stats = i2v_phase(dev, card, cfg, SLICE_GRID)
         counts["wan_two_expert"], two_expert_stats = two_expert_phase(dev, card, cfg, SLICE_GRID)
-        log("phase 4: GPT-2 small training slice")
+        phase("phase 4: GPT-2 small training slice")
         counts["gpt2_train"], train_stats = train_phase(dev, card)
-        log("phase 5: Llama-3-8B-width serving slice")
+        phase("phase 5: Llama-3-8B-width serving slice")
         counts["serve"], serve_stats = serve_phase(dev, card)
-        log("phase 6: the rest of the LiteAttention engine at Wan2.1-14B attention width")
+        phase("phase 6: the rest of the LiteAttention engine at Wan2.1-14B attention width")
         counts["engine"], eres, ext, engine_stats = engine_phase(dev, cfg, card)
         kres.update(eres)
-        log("phase 7: MLA at DeepSeek-V3 width")
+        phase("phase 7: MLA at DeepSeek-V3 width")
         counts["mla"], mres = mla_phase(dev, card)
         kres.update(mres)
-        log("phase 8: Wan training and threshold calibration")
+        phase("phase 8: Wan training and threshold calibration")
         p8_counts, p8_bwd, wan_train_stats = wan_train_phase(dev, card, cfg, SLICE_GRID)
         counts.update(p8_counts)
-        log("phase 10: ALiBi and padded-batch serving")
-        t10 = time.perf_counter()
+        phase("phase 10: ALiBi and padded-batch serving")
         p10_counts, p10_kres, p10_stats = channel_phase(dev, card)
-        p10_stats["seconds"] = time.perf_counter() - t10
-        log(f"  phase 10 took {p10_stats['seconds']:.1f} s")
         counts.update(p10_counts)
         kres.update(p10_kres)
-        log("phase 11: training through B1's and B7's channels")
-        t11 = time.perf_counter()
+        phase("phase 11: training through B1's and B7's channels")
         p11_counts, p11_kres, p11_stats = channel_train_phase(dev, card)
-        p11_stats["seconds"] = time.perf_counter() - t11
-        log(f"  phase 11 took {p11_stats['seconds']:.1f} s")
         counts.update(p11_counts)
         kres.update(p11_kres)
-        log("phase 12: head dims 80 and 96; BTLM-3B-8K served and trained")
-        t12 = time.perf_counter()
+        phase("phase 12: head dims 80 and 96; BTLM-3B-8K served and trained")
         p12_counts, p12_kres, p12_stats = btlm_phase(dev, card)
-        p12_stats["seconds"] = time.perf_counter() - t12
-        log(f"  phase 12 took {p12_stats['seconds']:.1f} s")
         counts.update(p12_counts)
-        log("phase 13: packed documents through the varlen functions (B1's and B7's segment "
-            "channel)")
-        t13 = time.perf_counter()
+        phase("phase 13: packed documents through the varlen functions (B1's and B7's segment "
+              "channel)")
         counts["varlen"], p13_kres, p13_stats = varlen_phase(dev)
-        p13_stats["seconds"] = time.perf_counter() - t13
-        log(f"  phase 13 took {p13_stats['seconds']:.1f} s")
         kres.update(p13_kres)
+        phase("phase 14: head dim 256; GPT-J-6B served and trained")
+        p14_counts, p14_kres, p14_stats = gptj_phase(dev, card)
+        phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -5013,9 +5416,10 @@ def main() -> int:
         "ms": ext["lite_ms_compacted"], "ms_same_mask_uncompacted": ext["lite_ms_uncompacted"],
         "kv_compact_ms": kres["kv_compact"]["ms"], "shape": "(a)'s inputs and final mask"}
     # Each path's counted run read every wrapper's count (reset just before).
+    # Phase 14's paths run at head dim 256 only, so their counts go to the
+    # D 256 rows below and the rows above count the other paths.
     by_path = {name: {path: c[name] for path, c in counts.items()}
                for name in kernel_wrappers()}
-    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     # name -> (source, CUDA kernel, the TPU kernel it replaces)
     sources = {
         "flash_fwd": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
@@ -5054,25 +5458,52 @@ def main() -> int:
         "mla_decode": ("mla_decode.cu", "mla_decode_kernel", "liteattention_tpu/ops/mla.py:52"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = []
-    for name, (src, kernel, replaces) in sources.items():
-        r = kres[name]
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": f"liteattention_torch/ops/csrc/{src}",
-            "kernel": kernel,
-            "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": r["err"],
-            **{k: r[k] for k in keys},
-            "launches_by_path": by_path[name],
-        }
-        entry.update({k: v for k, v in r.items() if k not in keys and k != "err"})
-        if name in ("flash_bwd_bound", "flash_bwd_alibi", "flash_bwd_segments"):
-            # B7a's and B7b's channels
-            entry["replaces_too"] = "liteattention_tpu/ops/flash_bwd.py:238"
-        kernels.append(entry)
+
+    def entry(name, src, kernel, replaces, r, paths):
+        """A kernels-line row: the result ``r`` of its check and timing,
+        its launches on each path's counted run (``paths``)."""
+        row = {"name": name, "route": "cuda", "source": f"liteattention_torch/ops/csrc/{src}",
+               "kernel": kernel, "replaces": replaces, "launches": sum(paths.values()),
+               "max_abs_err": r["err"], **{k: r[k] for k in keys}, "launches_by_path": paths}
+        row.update({k: v for k, v in r.items() if k not in keys and k != "err"})
+        if name.startswith("flash_bwd") and name not in ("flash_bwd_dq", "flash_bwd_dkv"):
+            # B7a's and B7b's channels, and B7 at 256: one kernel for both
+            row["replaces_too"] = "liteattention_tpu/ops/flash_bwd.py:238"
+        return row
+
+    kernels = [entry(name, src, kernel, replaces, kres[name], by_path[name])
+               for name, (src, kernel, replaces) in sources.items()]
+    # Head dim 256 (phase 14): each row's instantiation source, its kernel,
+    # the TPU kernel it replaces, the counter it shares with its row above,
+    # and phase 14 (a)'s result. B9b at 256 runs on no phase-14 path.
+    d256 = {
+        "flash_fwd_d256": ("flash_fwd_d256.cu", "flash_fwd_kernel<256, 256, ...>",
+                           "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd",
+                           p14_kres["fwd_causal"]),
+        "flash_fwd_bound_d256": ("flash_fwd_d256.cu", "flash_fwd_kernel<256, 256, ...>",
+                                 "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_bound",
+                                 p14_kres["fwd_bound"]),
+        "flash_bwd_d256": ("flash_bwd_d256.cu", "flash_bwd_d256_kernel",
+                           "liteattention_tpu/ops/flash_bwd.py:55", "flash_bwd_dq",
+                           p14_kres["bwd_causal"]["flash_bwd_dq"]),
+        "flash_decode_d256": ("flash_decode_d256.cu", "flash_decode_kernel<256, ...>",
+                              "liteattention_tpu/ops/flash_fwd.py:843", "flash_decode",
+                              p14_kres["decode"]),
+        "paged_decode_folded_d256": ("flash_decode_d256.cu", "flash_decode_kernel<256, ...>",
+                                     "liteattention_tpu/ops/paged_attention.py:276",
+                                     "paged_decode_folded", p14_kres["paged_folded"]),
+    }
+    for name, (src, kernel, replaces, counter, r) in d256.items():
+        row = entry(name, src, kernel, replaces, r,
+                    {path: c[counter] for path, c in p14_counts.items()})
+        if name == "flash_bwd_d256":
+            row.update(dkv=p14_kres["bwd_causal"]["flash_bwd_dkv"],
+                       fwd_bwd=p14_kres["bwd_causal"]["fwd_bwd"])
+        kernels.append(row)
+    for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
+                  (14, p14_stats)):
+        st["seconds"] = seconds[f"phase {n}"]
+    log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
     log(f"serving: {json.dumps(serve_stats)}")
     log(f"engine: {json.dumps(engine_stats)}")
@@ -5083,6 +5514,7 @@ def main() -> int:
     log(f"alibi and padded-batch training: {json.dumps(p11_stats)}")
     log(f"btlm-3b-8k serving and training: {json.dumps(p12_stats)}")
     log(f"packed documents (varlen): {json.dumps(p13_stats)}")
+    log(f"gpt-j-6b serving and training: {json.dumps(p14_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

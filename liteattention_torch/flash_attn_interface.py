@@ -55,8 +55,11 @@ itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
 ``v_cache`` of another head dim than ``k_cache`` raise too: JAX serves
 them through B1's per-batch bound channel at the MLA shapes, which the
 port's B1 does not take with the bound (its bound, ALiBi and segment
-channels, and B7's, run at head dims 64, 80 and 128, and not at the MLA
-shapes; ROADMAP A11). ALiBi with ``attn_read_list`` raises, as every mask
+channels, and B7's, run at head dims 64, 80 and 128, B1's bound also at
+256, and not at the MLA shapes; ROADMAP A11). Head dim 256 (GPT-J) is
+built for ``flash_attn_func`` and ``flash_attn_with_kvcache`` and their
+backward (B1, B7 and the decode kernel); its ALiBi, segments (so the
+varlen functions) and lite walks raise, naming ROADMAP B-iii 4. ALiBi with ``attn_read_list`` raises, as every mask
 channel does on the skip path.
 
 ``flash_attn_varlen_func`` (and ``flash_attn_varlen_qkvpacked_func`` /

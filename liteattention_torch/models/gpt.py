@@ -8,7 +8,8 @@ the parallel block (GPT-J/NeoX), RMSNorm, tied or untied LM head, ALiBi
 positions (Baichuan-13B, BTLM: B1's ALiBi channel forward, B7's backward,
 so they train through :func:`gpt_loss_fn` and ``training/trainer.py``;
 BTLM's head dim 80 runs on the card too, through B1's and B7's D-80
-instantiations).
+instantiations; GPT-J's 256 through B1's, B7's and the decode kernel's
+D-256 ones).
 Parameters are fp32 and every product runs in ``cfg.dtype``; the
 embedding is looked up in ``cfg.dtype``, the tied head computes
 ``hidden @ wte.T`` in ``cfg.dtype`` and the logits come back fp32, as in

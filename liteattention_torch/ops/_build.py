@@ -35,10 +35,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: name -> argument types. Every entry returns the CUDA
-# error of its launch (0 = success).
+# error of its launch (0 = success), but for lite_flash_decode_tile_keys,
+# which returns the decode kernel's key tile at a head dim.
 SIGNATURES = {
     "lite_flash_decode": [_P] * 11 + ([_I] * 3 + [_L] * 3 + [_I]) * 2 + [_I] * 14
     + [_F, _F, _I, _P],
+    "lite_flash_decode_tile_keys": [_I],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_masked": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "lite_flash_fwd_mla": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],

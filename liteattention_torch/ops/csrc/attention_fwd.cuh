@@ -64,6 +64,17 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += A B, mma.sync m16n8k8 (bf16 in, fp32 accumulate): a0 / a1 hold row
+// g / g + 8 of A at k 2 t, 2 t + 1 (an m16n8 accumulator block rounded to
+// bf16 pairs), b holds B at k 2 t, 2 t + 1 of column g.
+__device__ __forceinline__ void mma_bf16_k8(float* c, uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 address the
 // rows of matrix i, and lane l receives row l / 4, columns 2 (l % 4) and
 // 2 (l % 4) + 1 of each: the A fragment of m16n8k16 from a row-major tile,

@@ -176,8 +176,10 @@ struct LseShift {
 
 // Threads per row of bwd_pre_kernel, 8 values each: D / 8 rounded up to a
 // power of two (the row's sum is a butterfly over its lanes; at D 80 and
-// 96 lanes 10-15 and 12-15 hold no values).
-__host__ __device__ constexpr int pre_lanes(int d) { return d / 8 == 8 || d / 8 == 16 ? d / 8 : 16; }
+// 96 lanes 10-15 and 12-15 hold no values; at 256 a whole warp).
+__host__ __device__ constexpr int pre_lanes(int d) {
+  return d / 8 == 8 || d / 8 == 16 || d / 8 == 32 ? d / 8 : 16;
+}
 
 template <int D, bool SHIFT>
 __global__ void bwd_pre_kernel(const __nv_bfloat16* __restrict__ o,
@@ -620,36 +622,43 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ----------------------------------------------------------- (c) post
 
 // One CTA per (64-row block, b * H + h): the accumulator's thread order
-// back to rows through shared memory, then rows of bf16 in 16-byte stores.
+// back to rows through shared memory, then rows of bf16 in 16-byte stores;
+// at D 256 in two passes of 128 columns (the whole tile would take 66 KB of
+// static shared memory).
 template <int D>
 __global__ void bwd_post_kernel(const float* __restrict__ dq_accum, __nv_bfloat16* __restrict__ dq,
                                 int seqlen_q, int seqlen_q_pad) {
-  constexpr int kPitch = D + 4;  // floats per row of the tile
+  constexpr int kCols = D > 128 ? 128 : D;  // columns a pass
+  constexpr int kPitch = kCols + 4;         // floats per row of the tile
   __shared__ float tile[kRows * kPitch];
   const int blk = blockIdx.x;
   const size_t bh = blockIdx.y;
   const float4* src =
       reinterpret_cast<const float4*>(dq_accum + (bh * seqlen_q_pad + blk * kRows) * D);
-  for (int f = threadIdx.x; f < kRows * D / 4; f += blockDim.x) {
-    const int tw = f % 128;  // float4 f: columns 8 (f / 128) .., thread tw's rows
-    const float4 x = src[f];
-    const int row = 16 * (tw / 32) + (tw % 32) / 4;
-    const int col = 8 * (f / 128) + 2 * (tw % 4);
-    *reinterpret_cast<float2*>(tile + row * kPitch + col) = make_float2(x.x, x.y);
-    *reinterpret_cast<float2*>(tile + (row + 8) * kPitch + col) = make_float2(x.z, x.w);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < kRows * D / 8; c += blockDim.x) {
-    const int row = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    if (blk * kRows + row >= seqlen_q) continue;
-    const float* x = tile + row * kPitch + col;
-    uint4 out;
-    out.x = sm90::pack_bf16x2(x[0], x[1]);
-    out.y = sm90::pack_bf16x2(x[2], x[3]);
-    out.z = sm90::pack_bf16x2(x[4], x[5]);
-    out.w = sm90::pack_bf16x2(x[6], x[7]);
-    *reinterpret_cast<uint4*>(dq + (bh * seqlen_q + blk * kRows + row) * D + col) = out;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += kCols) {
+    for (int f = threadIdx.x; f < kRows * kCols / 4; f += blockDim.x) {
+      const int tw = f % 128;  // float4 f: columns c0 + 8 (f / 128) .., thread tw's rows
+      const float4 x = src[c0 / 8 * 128 + f];
+      const int row = 16 * (tw / 32) + (tw % 32) / 4;
+      const int col = 8 * (f / 128) + 2 * (tw % 4);
+      *reinterpret_cast<float2*>(tile + row * kPitch + col) = make_float2(x.x, x.y);
+      *reinterpret_cast<float2*>(tile + (row + 8) * kPitch + col) = make_float2(x.z, x.w);
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < kRows * kCols / 8; c += blockDim.x) {
+      const int row = c / (kCols / 8);
+      const int col = (c % (kCols / 8)) * 8;
+      if (blk * kRows + row >= seqlen_q) continue;
+      const float* x = tile + row * kPitch + col;
+      uint4 out;
+      out.x = sm90::pack_bf16x2(x[0], x[1]);
+      out.y = sm90::pack_bf16x2(x[2], x[3]);
+      out.z = sm90::pack_bf16x2(x[4], x[5]);
+      out.w = sm90::pack_bf16x2(x[6], x[7]);
+      *reinterpret_cast<uint4*>(dq + (bh * seqlen_q + blk * kRows + row) * D + c0 + col) = out;
+    }
+    if (c0 + kCols < D) __syncthreads();  // the tile is read before the next pass writes it
   }
 }
 
@@ -742,6 +751,10 @@ cudaError_t run_hd(int head_dim, bool causal, const Args& a, cudaStream_t stream
 cudaError_t run_masked_hd(int head_dim, bool diag, const Args& a, const Channels& c,
                           cudaStream_t stream);
 
+// Head dim 256, channel-free (CAUSAL when `causal`): the 64-key kernel of
+// flash_bwd_d256.cu, whose nvcc runs beside this file's.
+cudaError_t run_d256(bool causal, const Args& a, cudaStream_t stream);
+
 }  // namespace bwd
 }  // namespace lite
 
@@ -768,6 +781,8 @@ extern "C" int lite_flash_bwd(const void* q, const void* k, const void* v, const
     err = causal ? run<128, true>(a, s) : run<128, false>(a, s);
   } else if (head_dim == 80 || head_dim == 96) {
     err = run_hd(head_dim, causal != 0, a, s);
+  } else if (head_dim == 256) {
+    err = run_d256(causal != 0, a, s);
   } else {
     err = cudaErrorInvalidValue;
   }

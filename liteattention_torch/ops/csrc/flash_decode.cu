@@ -70,6 +70,16 @@
 // 2t + 8 are channels 4t .. 4t + 3, and q is loaded the same way), so one
 // 8-byte (bf16) or 4-byte (int8) load gives both B fragments.
 //
+// Head dim 256 (GPT-J-6B): a 128-key bf16 stage would be 128 KB, so the
+// tiles are 64 keys (8 per warp) and the ring keeps its 192 KB (3 stages of
+// 64 KB in bf16, 6 of 32 KB in int8). P V takes one m16n8k8 step a tile
+// (mma_bf16_k8: the warp's 8 scores are its A operand). The merge scratch
+// no longer fits one stage: the warps' 16 rows x 256 fp32 merge in two
+// rounds of 8 rows through a bf16 stage and four of 4 through an int8 one
+// (Layout::kMergeRows). O is 128 registers a thread; q's fragments (64
+// more) sit in shared memory in fragment order, one 16-byte read a lane a
+// k-step (Layout::qs: in registers ptxas spilled ~350 bytes a thread).
+//
 // int8 caches: the ring holds the int8 rows (half the bytes of bf16), and
 // the values become bf16 (exactly: |x| <= 127) in registers as the mma
 // fragments are built, with no second pass over shared memory: a byte
@@ -121,15 +131,16 @@ struct Params {
   float scale_over_cap;  // scale / softcap
 };
 
-constexpr int kTileKeys = 128;  // keys per ring tile: 16 per warp
+constexpr int kTileKeys = 128;  // keys per ring tile: 16 per warp (64 at D 256: 8 per warp)
 
 // Shared memory (byte offsets from a 1024-byte aligned base). A tile of kT
 // rows is stored as atoms of kT rows x kAtom bytes (128, or 64 for 64-byte
-// rows) in TMA's swizzle; a bf16 row of D 128 spans two atoms.
+// rows) in TMA's swizzle; a bf16 row of D 128 spans two atoms, of D 256
+// four.
 template <int D, typename T>
 struct Layout {
-  static constexpr int kStages = sizeof(T) == 1 ? 6 : 3;  // a ring of 192 KB at D 128
-  static constexpr int kT = kTileKeys;
+  static constexpr int kStages = sizeof(T) == 1 ? 6 : 3;  // a ring of 192 KB at D 128 and 256
+  static constexpr int kT = D == 256 ? 64 : kTileKeys;
   static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
   static constexpr int kAtom = kRowBytes < 128 ? kRowBytes : 128;
   static constexpr int kTile = kT * kRowBytes;  // one K or V tile
@@ -137,10 +148,18 @@ struct Layout {
   static constexpr int bars = kStages * kStage;  // full[kStages], empty[kStages]
   static constexpr int ml = bars + 2 * kStages * 8;  // per warp: m[kRows], l[kRows]
   static constexpr int flag = ml + kWarps * 2 * kRows * 4;
-  static constexpr int prefix = flag + 16;  // [pairs + 1] tiles before each pair, then
-                                            // [pairs][3] their lo, hi and bound
-  static_assert(kStage * (sizeof(T) == 1 ? 2 : 1) == kWarps * kRows * D * 4,
-                "a stage holds the warps' accumulators, or half of them");
+  // D 256: q's fragments of the unit being walked, [D / 16][32 lanes] x 16
+  // bytes (in registers they took 64 a thread beside O's 128, and spilled).
+  static constexpr bool kQShared = D == 256;
+  static constexpr int qs = flag + 16;
+  static constexpr int prefix = qs + (kQShared ? D / 16 * 32 * 16 : 0);  // [pairs + 1] tiles
+                                // before each pair, then [pairs][3] their lo, hi and bound
+  // Accumulator rows of every warp that one stage holds: the merge runs in
+  // kRows / kMergeRows rounds (one at D <= 128 in bf16, two in int8; two
+  // and four at D 256).
+  static constexpr int kMergeRows = kStage / (kWarps * D * 4);
+  static_assert(kMergeRows == 4 || kMergeRows == 8 || kMergeRows == kRows,
+                "a stage holds 4, 8 or 16 rows of the warps' accumulators");
   static_assert((kMaxPieces + 1) * kRows * 4 <= kStages * kStage, "the ring holds the weights");
 };
 
@@ -229,12 +248,12 @@ template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  static_assert(D == 64 || D == 128, "head dim must be 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim must be 64, 128 or 256");
   using L = Layout<D, T>;
   constexpr bool kInt8 = sizeof(T) == 1;
   constexpr int kT = L::kT;
   constexpr int kStages = L::kStages;
-  constexpr int kMergeRows = kInt8 ? 8 : kRows;  // accumulator rows a stage holds
+  constexpr int kMergeRows = L::kMergeRows;  // accumulator rows a stage holds
   constexpr int kKeysW = kT / kWarps;  // keys of a tile per warp
   constexpr int kNb = kKeysW / 8;      // 8-key score blocks per warp
   extern __shared__ unsigned char smem_raw[];
@@ -386,9 +405,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   Cursor cur;
   cur.seek(prefix, pairs, hk, x0);
 
-  // The unit being walked: its rows, keys and q fragments.
+  // The unit being walked: its rows, keys and q fragments (at D 256 in
+  // shared memory, qs[kk][lane], written by the whole CTA as it enters a
+  // unit: every thread enters each unit at the same point).
+  constexpr bool kQShared = L::kQShared;
   int lo = 0, hi = 0, lim_lo = 0, lim_hi = 0, j0 = 0;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[kQShared ? 1 : D / 16][4];
+  uint4* qs = reinterpret_cast<uint4*>(smem + L::qs);
   float acc[D / 8][4];
   float m_lo, m_hi, l_lo, l_hi;
   auto enter = [&]() {
@@ -403,15 +426,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     lim_hi = r_hi < p.rows ? row_limit(p, bound, r_hi) : hi;
     j0 = cur.j;
     const size_t bh = static_cast<size_t>(b) * hk + cur.h;
-    const __nv_bfloat16* q_lo = p.q + (bh * p.rows + r_lo) * D;
-    const __nv_bfloat16* q_hi = p.q + (bh * p.rows + r_hi) * D;
+    if constexpr (kQShared) {
+      // Fragment e = (kk, lane) of the unit's rows, two a thread; the
+      // walk's last reads of the previous unit's came before the merge's
+      // barriers, its first of these come after this one.
+      for (int e = tid; e < D / 16 * 32; e += kThreads) {
+        const int rl = rt * kRows + (e % 32) / 4;
+        const int rh = rl + 8;
+        const int col = (e / 32) * 16 + 4 * (e % 4);
+        const __nv_bfloat16* ql = p.q + (bh * p.rows + rl) * D + col;
+        const __nv_bfloat16* qh = p.q + (bh * p.rows + rh) * D + col;
+        auto word = [](bool live, const __nv_bfloat16* x) {
+          return live ? *reinterpret_cast<const uint32_t*>(x) : 0u;
+        };
+        qs[e] = make_uint4(word(rl < p.rows, ql), word(rh < p.rows, qh),
+                           word(rl < p.rows, ql + 2), word(rh < p.rows, qh + 2));
+      }
+      lite::sm90::named_sync(kMergeBar, kThreads);
+    } else {
+      const __nv_bfloat16* q_lo = p.q + (bh * p.rows + r_lo) * D;
+      const __nv_bfloat16* q_hi = p.q + (bh * p.rows + r_hi) * D;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {  // channels 4t .. 4t + 3 of each 16-wide step
-      const int col = kk * 16 + 4 * t;
-      qf[kk][0] = r_lo < p.rows ? *reinterpret_cast<const uint32_t*>(q_lo + col) : 0u;
-      qf[kk][1] = r_hi < p.rows ? *reinterpret_cast<const uint32_t*>(q_hi + col) : 0u;
-      qf[kk][2] = r_lo < p.rows ? *reinterpret_cast<const uint32_t*>(q_lo + col + 2) : 0u;
-      qf[kk][3] = r_hi < p.rows ? *reinterpret_cast<const uint32_t*>(q_hi + col + 2) : 0u;
+      for (int kk = 0; kk < D / 16; ++kk) {  // channels 4t .. 4t + 3 of each 16-wide step
+        const int col = kk * 16 + 4 * t;
+        qf[kk][0] = r_lo < p.rows ? *reinterpret_cast<const uint32_t*>(q_lo + col) : 0u;
+        qf[kk][1] = r_hi < p.rows ? *reinterpret_cast<const uint32_t*>(q_hi + col) : 0u;
+        qf[kk][2] = r_lo < p.rows ? *reinterpret_cast<const uint32_t*>(q_lo + col + 2) : 0u;
+        qf[kk][3] = r_hi < p.rows ? *reinterpret_cast<const uint32_t*>(q_hi + col + 2) : 0u;
+      }
     }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -456,6 +498,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int nb = 0; nb < kNb; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qk[4];
+      if constexpr (kQShared) {
+        const uint4 w4 = qs[kk * 32 + lane];
+        qk[0] = w4.x;
+        qk[1] = w4.y;
+        qk[2] = w4.z;
+        qk[3] = w4.w;
+      }
+      const uint32_t* qa = kQShared ? qk : qf[kk];
 #pragma unroll
       for (int nb = 0; nb < kNb; ++nb) {
         const int key = kw + nb * 8 + g;
@@ -463,12 +514,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const uint32_t u =
               *reinterpret_cast<const uint32_t*>(ks + tile_off<D, T>(key, kk * 16 + 4 * t)) ^
               0x80808080u;
-          mma_bf16(s[nb], qf[kk], pack_bf16(i8_byte(u, 0), i8_byte(u, 1)),
+          mma_bf16(s[nb], qa, pack_bf16(i8_byte(u, 0), i8_byte(u, 1)),
                    pack_bf16(i8_byte(u, 2), i8_byte(u, 3)));
         } else {
           const uint2 w =
               *reinterpret_cast<const uint2*>(ks + tile_off<D, T>(key, kk * 32 + 8 * t));
-          mma_bf16(s[nb], qf[kk], w.x, w.y);
+          mma_bf16(s[nb], qa, w.x, w.y);
         }
       }
     }
@@ -497,7 +548,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // O += P V over this warp's keys, 16 at a time: P's accumulator layout
-    // is the A operand.
+    // is the A operand. At D 256 a warp has 8 keys of a tile: one m16n8k8
+    // step, its V fragments by ldmatrix.trans over 4 n-blocks at once (bf16)
+    // or from two 4-byte loads of keys 2t, 2t + 1 (int8).
+    if constexpr (kNb == 1) {
+      const uint32_t a0 = pack_bf16(s[0][0], s[0][1]);
+      const uint32_t a1 = pack_bf16(s[0][2], s[0][3]);
+      if constexpr (kInt8) {
+        const int key = kw + 2 * t;
+#pragma unroll
+        for (int qd = 0; qd < D / 32; ++qd) {
+          const int byte = 4 * g + 32 * qd;
+          const uint32_t u0 =
+              *reinterpret_cast<const uint32_t*>(vs + tile_off<D, T>(key, byte)) ^ 0x80808080u;
+          const uint32_t u1 =
+              *reinterpret_cast<const uint32_t*>(vs + tile_off<D, T>(key + 1, byte)) ^ 0x80808080u;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            lite::mma_bf16_k8(acc[4 * qd + r], a0, a1, pack_bf16(i8_byte(u0, r), i8_byte(u1, r)));
+          }
+        }
+      } else {
+        const int key = kw + (lane & 7);
+#pragma unroll
+        for (int db = 0; db < D / 32; ++db) {
+          uint32_t bfrag[4];
+          ldmatrix_x4_trans(bfrag, vs + tile_off<D, T>(key, (db * 32 + (lane >> 3) * 8) * 2));
+#pragma unroll
+          for (int r = 0; r < 4; ++r) lite::mma_bf16_k8(acc[4 * db + r], a0, a1, bfrag[r]);
+        }
+      }
+    }
 #pragma unroll
     for (int sb = 0; sb < kNb / 2; ++sb) {
       uint32_t a[4];
@@ -559,6 +640,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (r0 >= nrows) break;
         lite::sm90::named_sync(kMergeBar, kThreads);  // the stage (or the last round) is read
         float* my = sm_o + warp * kMergeRows * D;
+        if constexpr (kMergeRows == 4) {  // int8 at D 256: the round holds one of g, g + 8, or none
+          const bool hi_row = half >= 2;
+          const int rr = g + (hi_row ? 8 : 0);
+          if (rr / kMergeRows == half) {
+            float* row = my + (rr - r0) * D;
+#pragma unroll
+            for (int jb = 0; jb < D / 8; ++jb) {
+              const int col = 4 * (2 * t + 8 * (jb / 4)) + jb % 4;
+              row[scratch_col(g, col)] = hi_row ? acc[jb][2] : acc[jb][0];
+              row[scratch_col(g, col + 4)] = hi_row ? acc[jb][3] : acc[jb][1];
+            }
+          }
+        }
 #pragma unroll
         for (int hr = 0; hr < kMergeRows / 8; ++hr) {  // this thread's rows g and g + 8
           const bool hi_row = kMergeRows == 8 ? half == 1 : hr == 1;
@@ -751,7 +845,16 @@ cudaError_t launch(Params p, const void* k, const void* v, const int* kn, const 
   return cudaGetLastError();
 }
 
+// Head dim 256 (bf16 or int8 caches), instantiated in flash_decode_d256.cu,
+// whose nvcc runs beside this file's.
+cudaError_t launch_d256(bool int8, const Params& p, const void* k, const void* v, const int* kn,
+                        const long long* kst, const int* vn, const long long* vst, int grid,
+                        cudaStream_t stream);
+
 }  // namespace decode
+
+// flash_decode_d256.cu includes the kernel above and not the entry below.
+#ifndef LITE_DECODE_TEMPLATES_ONLY
 
 // q [B, Hk, R, D] bf16; k/v cache bases (bf16, or int8 when int8 != 0), each
 // described by the sizes and element strides of its three outer dims in
@@ -809,8 +912,24 @@ extern "C" int lite_flash_decode(
   } else if (head_dim == 128) {
     err = int8 ? decode::launch<128, uint8_t>(p, k, v, kn, kst, vn, vst, grid, s)
                : decode::launch<128, __nv_bfloat16>(p, k, v, kn, kst, vn, vst, grid, s);
+  } else if (head_dim == 256) {
+    err = decode::launch_d256(int8 != 0, p, k, v, kn, kst, vn, vst, grid, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+
+// Keys per tile of the kernel's ring at head_dim (0: not built). The wrapper
+// sizes its checks of the page gcd and the 16-bit tile count, and the
+// chunks' least tiles, by it.
+extern "C" int lite_flash_decode_tile_keys(int head_dim) {
+  switch (head_dim) {
+    case 64: return decode::Layout<64, __nv_bfloat16>::kT;
+    case 128: return decode::Layout<128, __nv_bfloat16>::kT;
+    case 256: return decode::Layout<256, __nv_bfloat16>::kT;
+    default: return 0;
+  }
+}
+
+#endif  // LITE_DECODE_TEMPLATES_ONLY

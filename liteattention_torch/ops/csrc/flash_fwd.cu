@@ -9,7 +9,7 @@
 // shapes at V 512 run on mla_fwd.cu's split-O kernel).
 //
 // bf16 q/k in [B, H, S, DK] and v in [B, Hk, S, DV] ((DK, DV) = (64, 64),
-// (80, 80), (96, 96), (128, 128) or (192, 128)), GQA by h / group, optionally causal
+// (80, 80), (96, 96), (128, 128), (256, 256) or (192, 128)), GQA by h / group, optionally causal
 // (bottom-right aligned, offset Sk - Sq); ragged Sq and Sk. Out [B, H, Sq,
 // DV] in bf16, lse fp32 natural log; a row with no valid key gets out 0,
 // lse -inf.
@@ -72,6 +72,15 @@
 // D, and the output's TMA store clips at column D. No product reads the
 // padding. (Padding q, k and v to 128 in the caller, the TPU's 128-lane
 // habit, would copy them and spend 1.6x the MMA work at D 80.)
+//
+// Head dim 256 (GPT-J-6B): four atoms a row, so the Q tile is 64 KB and one
+// 128-key K + V stage 128 KB, and no second stage would fit. The tiles are
+// 64 keys (Tiles) in two stages with (192, 128)'s split K / V barriers, 192
+// KB in all; S = Q K^T is m64n64 over 16 k-steps and P V one wgmma at N =
+// 256. O takes 128 of a thread's registers (64 x 256 fp32 a warpgroup), S 32
+// and P 16. The key range (bound, low, bound_causal) is runtime data, so
+// the two instantiations (causal or not, flash_fwd_d256.cu) take it; ALiBi
+// and segments are not built at 256.
 //
 // One CTA per (b, h, 128-row q-tile), 256 threads: two consumer warpgroups
 // of 64 q rows each. O, S and P take 186 of a thread's 255 registers at D
@@ -202,9 +211,12 @@ struct Params {
 // Keys per k-tile and ring depth of the (DK, DV) instantiation. (192, 128)
 // takes two 128-key stages with split barriers; 64-key tiles in three
 // stages (kKeys 64 there: the helpers take either) ran slower on the H100.
+// (256, 256) takes two 64-key stages with split barriers: the Q tile is 64
+// KB and one 128-key stage 128 KB, so 128-key tiles would leave no second
+// stage; 64 KB stages give 192 KB in all.
 template <int DK, int DV>
 struct Tiles {
-  static constexpr int kKeys = 128;
+  static constexpr int kKeys = DK == 256 ? 64 : 128;
   static constexpr int kStages = DK + DV <= 256 ? 3 : 2;
 };
 
@@ -521,17 +533,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kKeys = Tiles<DK, DV>::kKeys;
   constexpr int kStages = Tiles<DK, DV>::kStages;
   constexpr bool SPLIT = kStages == 2;
-  static_assert((DK == DV && (DK == 64 || DK == 80 || DK == 96 || DK == 128)) ||
+  static_assert((DK == DV && (DK == 64 || DK == 80 || DK == 96 || DK == 128 || DK == 256)) ||
                     (DK == 192 && DV == 128),
-                "(DK, DV) must be (64, 64), (80, 80), (96, 96), (128, 128) or (192, 128)");
+                "(DK, DV) must be (64, 64), (80, 80), (96, 96), (128, 128), (256, 256) or (192, 128)");
   static_assert(DV <= DK, "the Q buffer holds the output");
   static_assert(!DENSE || !VOTES, "the dense walks do not vote");
   static_assert(LIST || !FOLD, "folded heads take the list walk");
   static_assert(DENSE || !CAUSAL, "the sparse walks are not causal");
   static_assert(DENSE || ((DK == 64 || DK == 128) && DK == DV && kKeys == 128 && !SPLIT),
                 "the sparse walks visit 128-key fine tiles through a ring of three");
-  static_assert(!ALIBI || (WALK == kDense && DK == DV), "ALiBi is a channel of the dense walk");
-  static_assert(!SEG || (DK == DV && DK != 96), "segments at D 64, 80 and 128");
+  static_assert(!ALIBI || (WALK == kDense && DK == DV && DK <= 128),
+                "ALiBi is a channel of the dense walk at D <= 128");
+  static_assert(!SEG || (DK == DV && DK != 96 && DK <= 128), "segments at D 64, 80 and 128");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -938,6 +951,13 @@ cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, 
                          void* out, const Params& p, const Channels& c, int batch, float scale,
                          cudaStream_t stream);
 
+// The dense walk at head dim 256 with the key range (bound, low,
+// bound_causal; not ALiBi), CAUSAL when `diag`: defined in
+// flash_fwd_d256.cu, whose nvcc runs beside this file's.
+cudaError_t run_dense_d256(bool diag, const void* q, const void* k, const void* v, void* out,
+                           const Params& p, const Channels& c, int batch, float scale,
+                           cudaStream_t stream);
+
 }  // namespace fwd
 }  // namespace lite
 
@@ -945,7 +965,7 @@ cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, 
 #ifndef LITE_FWD_TEMPLATES_ONLY
 
 // B1 with its per-batch channels: q [B, H, Sq, D], k and v [B, Hk, Sk, D],
-// out [B, H, Sq, D], all bf16 (D 64, 80 or 128; 96 without ALiBi); lse [B,
+// out [B, H, Sq, D], all bf16 (D 64, 80 or 128; 96 and 256 without ALiBi); lse [B,
 // H, Sq] fp32; kv_bound and kv_low [B] int32 or null; alibi [B, H] fp32
 // slopes or null. Keys of
 // batch b: [kv_low[b], min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq;
@@ -981,6 +1001,8 @@ extern "C" int lite_flash_fwd_masked(const void* q, const void* k, const void* v
                : run_dense<128, false>(q, k, v, out, p, c, batch, scale, s);
   } else if (head_dim == 80 || head_dim == 96) {
     err = run_dense_hd(head_dim, diag, q, k, v, out, p, c, batch, scale, s);
+  } else if (head_dim == 256) {
+    err = run_dense_d256(diag, q, k, v, out, p, c, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

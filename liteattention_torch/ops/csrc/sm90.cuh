@@ -367,22 +367,6 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
-// D[64 x N] (+)= A B at the head dims the attention kernels take (N 64,
-// 80, 96 or 128), A in registers, B in shared memory.
-template <int N, int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 80 || N == 96 || N == 128, "no wgmma wrapper at this N");
-  if constexpr (N == 64) {
-    wgmma_rs_n64<TB>(d, a, db, accumulate);
-  } else if constexpr (N == 80) {
-    wgmma_rs_n80<TB>(d, a, db, accumulate);
-  } else if constexpr (N == 96) {
-    wgmma_rs_n96<TB>(d, a, db, accumulate);
-  } else {
-    wgmma_rs_n128<TB>(d, a, db, accumulate);
-  }
-}
-
 // 64-value atoms of a tile `width` values wide (the last partly filled
 // when width is not a multiple of 64).
 __host__ __device__ constexpr int atoms(int width) { return (width + 63) / 64; }
@@ -429,6 +413,24 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : LITE_WG_OUT128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// D[64 x N] (+)= A B at the head dims the attention kernels take (N 64,
+// 80, 96, 128 or 256), A in registers, B in shared memory.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 80 || N == 96 || N == 128 || N == 256, "no wgmma wrapper at this N");
+  if constexpr (N == 64) {
+    wgmma_rs_n64<TB>(d, a, db, accumulate);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n80<TB>(d, a, db, accumulate);
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96<TB>(d, a, db, accumulate);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128<TB>(d, a, db, accumulate);
+  } else {
+    wgmma_rs_n256<TB>(d, a, db, accumulate);
+  }
 }
 
 // ---------------------------------------------------------------- host

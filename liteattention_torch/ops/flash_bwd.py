@@ -19,9 +19,12 @@ What bounds it on the H100: tensor-core throughput (10 d FLOPs per (q
 row, key) pair: S, dP, dV, dK, dQ). As in the JAX kernels, P and dS are
 rounded to the input dtype (bf16 on the card) before they feed a product.
 
-Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96
-or 128 (:func:`check_head_dim`), GQA, ragged Sq/Sk, ``Sq != Sk``, causal
-or not, and B1's per-batch channels (at head dim 64, 80 or 128) with JAX's
+Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96,
+128 or 256 (:func:`check_head_dim`; at 256 the kernel of
+``csrc/flash_bwd_d256.cu``: 64-key CTAs whose two warpgroups split dK, dV
+and dQ by columns, dQ added by float4 atomics), GQA, ragged Sq/Sk, ``Sq !=
+Sk``, causal or not, and B1's per-batch channels (at head dim 64, 80 or
+128) with JAX's
 meanings: the key range ``[kv_low[b], kv_bound[b])``
 with ``bound_causal`` and the ALiBi bias (``alibi_slopes`` ``[H]`` or
 ``[B, H]``), on the same kernel's RANGE / ALIBI instantiations (entry
@@ -217,22 +220,28 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# Head dims B1 and B7 are built for (BTLM's 80, GPT-NeoX-20B's 96), and
-# those with B1's channels (bound, low, ALiBi, segments).
-HEAD_DIMS = (64, 80, 96, 128)
+# Head dims B1 and B7 are built for (BTLM's 80, GPT-NeoX-20B's 96, GPT-J's
+# 256); those of B1 with its key range alone (kv_bound, kv_low,
+# bound_causal: a KV cache's prefill and multi-token steps); those with
+# every channel (ALiBi, segments) forwards, and with any channel backwards.
+HEAD_DIMS = (64, 80, 96, 128, 256)
+RANGE_HEAD_DIMS = (64, 80, 128, 256)
 CHANNEL_HEAD_DIMS = (64, 80, 128)
 
 
-def check_head_dim(d: int, channels: bool, name: str) -> None:
+def check_head_dim(d: int, channels: bool, name: str, key_range_only: bool = False) -> None:
     """Raise ``ValueError`` unless B1 and B7 are built at head dim ``d``
-    (with B1's per-batch channels when ``channels``), naming the ROADMAP
-    item that would build it. Both wrappers call it before a launch."""
+    (with B1's per-batch channels when ``channels``; ``key_range_only``:
+    they are B1's key range alone, forwards), naming the ROADMAP item that
+    would build it. Both wrappers call it before a launch."""
     if d not in HEAD_DIMS:
-        item = "B-iii 3 (GPT-J)" if d == 256 else "B-iii 4"
-        raise ValueError(f"{name}: head dim {d} not built (built: {HEAD_DIMS}; ROADMAP {item})")
-    if channels and d not in CHANNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: kv_bound, kv_low, alibi_slopes and segments at head dim {d} "
-                         f"not built (built: {CHANNEL_HEAD_DIMS}; ROADMAP B-iii 4)")
+        raise ValueError(f"{name}: head dim {d} not built (built: {HEAD_DIMS}; ROADMAP B-iii 4)")
+    built = RANGE_HEAD_DIMS if key_range_only else CHANNEL_HEAD_DIMS
+    if channels and d not in built:
+        what = "kv_bound and kv_low" if key_range_only else \
+            "kv_bound, kv_low, alibi_slopes and segments"
+        raise ValueError(f"{name}: {what} at head dim {d} not built (built: {built}; "
+                         "ROADMAP B-iii 4)")
 
 
 def check_segments(q_segments, kv_segments, b: int, sq: int, sk: int, per_batch: bool,
@@ -409,6 +418,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
 __all__ = [
     "CHANNEL_HEAD_DIMS",
     "HEAD_DIMS",
+    "RANGE_HEAD_DIMS",
     "causal_mask",
     "check_head_dim",
     "check_segments",

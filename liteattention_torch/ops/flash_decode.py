@@ -21,6 +21,9 @@ work is cut on the device, with no host sync: a unit is one (b, kv head,
 tiles of ``TILE_KEYS`` aligned to absolute positions, and CTA
 ``c`` of the ``grid`` takes the c-th of equal chunks of the flat sequence
 of all units' tiles (:func:`split_plan` is the same chunking in Python).
+Head dims 64, 128 and 256 (GPT-J's: 64-key tiles). The kernel decides
+its tile; the launches read it from the library (:func:`kernel_tile_keys`)
+and :func:`tile_keys` is the plain version's copy of it.
 The last piece of a split unit to finish merges the pieces; the ticket
 buffer it counts with lives here, per device and stream.
 """
@@ -39,9 +42,25 @@ from liteattention_torch.ops.combine import combine_attention
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 ROWS_PER_UNIT = 16  # q rows of a unit (one mma row tile)
-TILE_KEYS = 128  # keys per tile of the kernel's ring
+TILE_KEYS = 128  # keys per tile of the kernel's ring (64 at head dim 256)
+HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
 MIN_SPLIT_KEYS = 256  # the least keys a chunk holds (unless chunks would be fewer than units)
 MAX_GRID = 512  # the kernel's most CTAs (a unit's pieces are merged in shared memory)
+
+
+def tile_keys(d: int) -> int:
+    """Keys per tile of the kernel's ring at head dim ``d`` as the plain
+    version splits: 128, or 64 at 256 (a 128-key bf16 K + V stage would be
+    128 KB of shared memory). The card tests hold it equal to
+    :func:`kernel_tile_keys`."""
+    return 64 if d == 256 else TILE_KEYS
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tile_keys(d: int) -> int:
+    """Keys per tile of the built kernel's ring at head dim ``d``, as the
+    library reports it (``flash_decode.cu: Layout::kT``; 0 if not built)."""
+    return _build.load_kernels().lite_flash_decode_tile_keys(d)
 
 
 def pack_rows(q: torch.Tensor, hk: int) -> torch.Tensor:
@@ -136,15 +155,16 @@ def decode_plain(
     softcap: float = 0.0,
     num_splits: int = 1,
     grid: Optional[int] = None,
-    keys_per_tile: int = TILE_KEYS,
+    keys_per_tile: Optional[int] = None,
     min_tiles: int = 1,
 ):
     """Plain PyTorch version of the kernel on dense ``[B, Hk, S, D]`` K/V
     (any strides; int8 values as they are): fp32 scores in log2 space,
     exact softmax. With ``grid`` (or ``num_splits`` n > 1: a grid of n CTAs
     per unit, as the kernel sizes it) the keys are cut into the kernel's
-    own pieces (:func:`split_plan` with ``keys_per_tile``, ``grid`` and
-    ``min_tiles``), whose partials merge through
+    own pieces (:func:`split_plan` with ``keys_per_tile``, by default the
+    kernel's at this head dim, ``grid`` and ``min_tiles``), whose partials
+    merge through
     :func:`~liteattention_torch.ops.combine.combine_attention`, the plain
     version of the kernel's merge. Returns (out ``[B, Hk, R, D]`` in
     ``qp``'s dtype, lse fp32 ``[B, Hk, R]``)."""
@@ -171,8 +191,9 @@ def decode_plain(
     if grid is None:
         out, lse = _partial(s, valid, vf)
         return out.to(qp.dtype), lse
+    kt = keys_per_tile or tile_keys(qp.shape[-1])
     return _plan_plain(s, valid, vf, qp.dtype, split_plan(
-        bound, low, rows, group, causal, s_len, hk, keys_per_tile, grid, min_tiles))
+        bound, low, rows, group, causal, s_len, hk, kt, grid, min_tiles))
 
 
 def _plan_plain(s, valid, vf, dtype, plan):
@@ -263,13 +284,13 @@ def launch_decode(
     if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
         raise TypeError("the decode kernel takes bf16 or int8 caches (k and v alike)")
     b, hk, rows, d = qp.shape
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d} not built (64 or 128; 80 and 96 are ROADMAP B-iii 2, "
-                         "GPT-J's 256 B-iii 3)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not built (built: {HEAD_DIMS}; 80 and 96 are ROADMAP "
+                         "B-iii 2)")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the caches need a unit channel stride")
     el = k.element_size()
-    kt = TILE_KEYS
+    kt = kernel_tile_keys(d)
     if capacity // kt >= 1 << 16:
         raise ValueError(f"a cache of {capacity} keys: the kernel counts a unit's tiles in 16 bits")
     if page_size and math.gcd(page_size, kt) < 8:
@@ -309,8 +330,10 @@ def launch_decode(
 
 __all__ = [
     "decode_plain",
+    "kernel_tile_keys",
     "launch_decode",
     "pack_rows",
     "split_plan",
+    "tile_keys",
     "unpack_rows",
 ]

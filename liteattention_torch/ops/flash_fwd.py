@@ -16,10 +16,11 @@ The gradient is a ``torch.autograd.Function`` whose backward is the pair
 of kernels B7a/B7b (:mod:`liteattention_torch.ops.flash_bwd`); the lse
 cotangent is ignored, as in the JAX ``custom_vjp``.
 
-Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96
-or 128 (``flash_bwd.check_head_dim``; at 80 and 96 each tile takes two
+Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96,
+128 or 256 (``flash_bwd.check_head_dim``; at 80 and 96 each tile takes two
 64-value atoms, the second partly filled, and no product reads the
-padding), GQA, causal or not. The wrapper runs the plain PyTorch version for CPU
+padding; at 256, GPT-J's, 64-key tiles in two stages), GQA, causal or
+not. The wrapper runs the plain PyTorch version for CPU
 tensors and the kernel for CUDA tensors.
 
 :func:`flash_attention_masked` adds B1's per-batch channels, differentiable:
@@ -315,7 +316,8 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     b, h, sq, d = q.shape
     check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None
-                   or q_segments is not None, "flash_attention")
+                   or q_segments is not None, "flash_attention",
+                   key_range_only=alibi_slopes is None and q_segments is None)
     _build.check_aligned(q, k, v)
     if q_segments is not None:
         return _launch_segments(q, k, v, scale, causal, walk)
@@ -442,8 +444,10 @@ def flash_attention_masked(
     seen only by the rows of its id (with ``causal``, at or below the
     bottom-right diagonal too). Any ids are taken; ids in order apart from
     negative markers (a packed batch) walk only their segments' tiles.
-    The channels take head dim 64, 80 or 128 on the card (96 raises,
-    ROADMAP B-iii 4) and no ``qv``; segments do not combine with the
+    The channels take head dim 64, 80 or 128 on the card, and the key
+    range alone (``kv_bound``, ``kv_low``, ``bound_causal``) 256 too,
+    forwards (96, and the other channels or any gradient at 256, raise:
+    ROADMAP B-iii 4), and no ``qv``; segments do not combine with the
     per-batch channels (ROADMAP A11). Window, ``attention_chunk``, softcap
     and dropout raise ``NotImplementedError`` naming themselves and their
     ROADMAP items. ``block_sizes`` is a tiling knob of the JAX kernel,
@@ -572,7 +576,7 @@ def flash_attention_decode(
     Returns ``(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32)``. A
     row with no valid key gives out 0 and lse -inf. The wrapper runs the
     plain version for CPU tensors and the kernel for CUDA tensors (bf16
-    q, bf16 or int8 caches, D 64 or 128).
+    q, bf16 or int8 caches, D 64, 128 or 256).
     """
     return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
                    v_scale, int8_mma, causal, num_splits, plain=False)

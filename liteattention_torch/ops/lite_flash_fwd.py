@@ -334,8 +334,8 @@ def _check_kernel_inputs(q, k, v, *int_tensors):
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     if q.shape[-1] not in (64, 128):
-        raise ValueError(f"head dim {q.shape[-1]} not built (64 or 128; the lite walks at 80 "
-                         "and 96 are ROADMAP B-iii 4)")
+        raise ValueError(f"head dim {q.shape[-1]} not built (64 or 128; the lite walks at 80, "
+                         "96 and 256 are ROADMAP B-iii 4)")
     if any(x.dtype != torch.int32 for x in int_tensors):
         raise TypeError("schedule tensors must be int32")
 

@@ -13,7 +13,9 @@ Both launch the split-KV decode kernel of
 :mod:`liteattention_torch.ops.flash_decode` with the page table and the
 pools' strides: the pool is read in place, never transposed or copied,
 one TMA box per page where pages are smaller than the kernel's key tile
-(pages of a multiple of 8 keys; others raise on the card). The q rows of
+(pages of a multiple of 8 keys; others raise on the card). Head dims 64,
+128 and 256 on the card (``flash_decode.HEAD_DIMS``; the key tile is 64
+at 256). The q rows of
 each KV head are packed (q position, group member), so appends and paged
 prefill keep bottom-right causality per q position (``causal``: q row
 ``i`` sees positions ``< length - Sq + i + 1``). ``pages_per_step`` (a TPU DMA batching knob)

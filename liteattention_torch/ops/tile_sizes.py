@@ -48,9 +48,10 @@ def get_block_sizes(
     ``kind`` is ``"dense"`` or ``"lite"``; both start at 128 x 128 on
     Hopper (gsize 1 for the lite kernel). ``head_dim`` and
     ``dtype_bytes`` are accepted for call-site parity with the JAX
-    package. The kernels take bf16: B1 and B7 at head dims 64, 80, 96
-    and 128 (their channels at 64, 80 and 128), the decode, lite and MLA
-    kernels at the dims their modules name.
+    package. The kernels take bf16: B1 and B7 at head dims 64, 80, 96,
+    128 and 256 (their channels at 64, 80 and 128; B1's key range also at
+    256), the decode kernel at 64, 128 and 256, the lite and MLA kernels
+    at the dims their modules name.
     """
     del head_dim, dtype_bytes
     if kind not in ("dense", "lite"):

@@ -1,4 +1,4 @@
-"""Decoding utilities, the Wan checkpoint remap and the pad / unpad
+"""Decoding utilities, the checkpoint remaps and the pad / unpad
 utilities of variable-length batches (counterpart of
 ``liteattention_tpu/utils``)."""
 
@@ -7,5 +7,6 @@ from liteattention_torch.utils.padding import (
     pad_input,
     unpad_input,
 )
+from liteattention_torch.utils.pretrained import remap_state_dict_hf_gptj
 
-__all__ = ["pad_input", "unpad_input", "index_first_axis"]
+__all__ = ["pad_input", "unpad_input", "index_first_axis", "remap_state_dict_hf_gptj"]

@@ -1,11 +1,12 @@
 """Checkpoint remapping: official Wan2.1/2.2 torch checkpoints -> the
-port's ``WanModel`` state dict; HF Baichuan and BTLM checkpoints -> the
-port's ``GPTLMHeadModel`` state dict.
+port's ``WanModel`` state dict; HF Baichuan, BTLM and GPT-J checkpoints ->
+the port's ``GPTLMHeadModel`` state dict.
 
 Counterpart of ``liteattention_tpu/utils/pretrained.py``'s
-``remap_state_dict_wan``, ``remap_state_dict_hf_baichuan`` and
-``remap_state_dict_hf_btlm`` (the other families' remaps are not ported
-yet): the same tensors, under the port's keys. The Wan key layout is
+``remap_state_dict_wan``, ``remap_state_dict_hf_baichuan``,
+``remap_state_dict_hf_btlm`` and ``remap_state_dict_hf_gptj`` (the other
+families' remaps are not ported yet): the same tensors, under the port's
+keys. The Wan key layout is
 Wan-Video/Wan2.1 ``wan/modules/model.py``: ``patch_embedding`` (Conv3d),
 ``text_embedding.{0,2}``, ``time_embedding.{0,2}``, ``time_projection.1``,
 ``blocks.N.{self_attn,cross_attn}.{q,k,v,o,norm_q,norm_k}``,
@@ -151,4 +152,31 @@ def remap_state_dict_hf_btlm(state_dict: Mapping[str, Any], cfg) -> Dict[str, to
     return out
 
 
-__all__ = ["remap_state_dict_wan", "remap_state_dict_hf_baichuan", "remap_state_dict_hf_btlm"]
+def remap_state_dict_hf_gptj(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF GPT-J checkpoint (``GPTJForCausalLM``) -> ``GPTLMHeadModel(cfg).
+    state_dict()`` keys (fp32 CPU tensors). The tied-norm parallel block:
+    the one ``ln_1`` is ``norm1``; the bias-free ``q_proj`` / ``k_proj`` /
+    ``v_proj`` fuse into ``Wqkv`` (rows q | k | v); ``fc_in`` / ``fc_out``
+    are the biased MLP; the untied ``lm_head`` keeps its bias. Rotary
+    (partial, interleaved) lives in ``gptj_config``, not in the weights."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["transformer.wte.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"transformer.h.{i}.", f"transformer.blocks.{i}."
+        out[dst + "norm1_scale"] = sd[src + "ln_1.weight"]
+        out[dst + "norm1_bias"] = sd[src + "ln_1.bias"]
+        out[dst + "mha.Wqkv.weight"] = torch.cat(
+            [sd[src + f"attn.{w}_proj.weight"] for w in "qkv"])
+        out[dst + "mha.out_proj.weight"] = sd[src + "attn.out_proj.weight"]
+        for name, hf in (("fc1", "fc_in"), ("fc2", "fc_out")):
+            out[dst + f"mlp.{name}.weight"] = sd[src + f"mlp.{hf}.weight"]
+            out[dst + f"mlp.{name}.bias"] = sd[src + f"mlp.{hf}.bias"]
+    out["transformer.ln_f_scale"] = sd["transformer.ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["transformer.ln_f.bias"]
+    out["lm_head.weight"] = sd["lm_head.weight"]
+    out["lm_head.bias"] = sd["lm_head.bias"]
+    return out
+
+
+__all__ = ["remap_state_dict_wan", "remap_state_dict_hf_baichuan", "remap_state_dict_hf_btlm",
+           "remap_state_dict_hf_gptj"]

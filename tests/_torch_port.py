@@ -23,6 +23,32 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+class LastLogits:
+    """A model as greedy_decode calls it, keeping a copy of each call's
+    last-position logits (those the next token is chosen from)."""
+
+    def __init__(self, model):
+        self.model, self.rows = model, []
+
+    def __call__(self, ids, inference_params):
+        out = self.model(ids, inference_params)
+        self.rows.append(out[:, -1].clone())
+        return out
+
+    def logits(self):
+        return torch.stack(self.rows, dim=1)
+
+
+def same_config(port, ref):
+    """The fields two GPTConfigs (the port's and JAX's) share are equal,
+    dtype aside."""
+    import dataclasses
+
+    common = {f.name for f in dataclasses.fields(port)} & {f.name for f in dataclasses.fields(ref)}
+    common.discard("dtype")
+    assert {n: getattr(port, n) for n in common} == {n: getattr(ref, n) for n in common}
+
+
 def coherent_qkv(rng, b, h, sq, sk, d, hk=None, noise=0.3):
     """Temporally coherent q/k (shared base + noise) and random v, f32."""
     hk = hk or h

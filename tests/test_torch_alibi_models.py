@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from _hf_minimal import baichuan_forward, btlm_forward  # noqa: E402
-from _torch_port import rel_l2, t  # noqa: E402
+from _torch_port import rel_l2, same_config, t  # noqa: E402
 from liteattention_tpu.losses.cross_entropy import cross_entropy_loss as jce  # noqa: E402
 from liteattention_tpu.models import configs as jconfigs  # noqa: E402
 from liteattention_tpu.models.gpt import GPTLMHeadModel as JGPT  # noqa: E402
@@ -95,18 +95,12 @@ def test_mha_cached_steps_match_jax(use_alibi):
                                                           vocab=128),
 ])
 def test_baichuan_config_equals_jax(kw):
-    _same_config(configs.baichuan_config(**kw), jconfigs.baichuan_config(**kw))
+    same_config(configs.baichuan_config(**kw), jconfigs.baichuan_config(**kw))
 
 
 @pytest.mark.parametrize("kw", [{}, dict(dim=64, num_layers=2, num_heads=2, vocab=128)])
 def test_btlm_config_equals_jax(kw):
-    _same_config(configs.btlm_config(**kw), jconfigs.btlm_config(**kw))
-
-
-def _same_config(port, ref):
-    common = {f.name for f in dataclasses.fields(port)} & {f.name for f in dataclasses.fields(ref)}
-    common.discard("dtype")
-    assert {n: getattr(port, n) for n in common} == {n: getattr(ref, n) for n in common}
+    same_config(configs.btlm_config(**kw), jconfigs.btlm_config(**kw))
 
 
 def _tiny(family):

@@ -114,6 +114,15 @@ FWD_SHAPES = SHAPES + [
     (1, 32, 32, 1, 1059, 80),
     (2, 4, 4, 200, 200, 96),
     (2, 2, 2, 256, 130, 96),
+    # Head dim 256 (GPT-J): 64-key tiles in two stages; ragged, GQA, Sq >
+    # Sk, Sq 1, and Sk 1, 64 and 65 (the 64-key TMA box's edges).
+    (1, 4, 2, 300, 555, 256),
+    (1, 8, 2, 700, 300, 256),
+    (1, 16, 16, 1, 1059, 256),
+    (2, 2, 2, 256, 130, 256),
+    (1, 4, 4, 200, 1, 256),
+    (1, 2, 1, 64, 64, 256),
+    (1, 4, 2, 300, 65, 256),
 ]
 
 
@@ -163,6 +172,11 @@ CHANNEL_CASES = [
     ((2, 4, 2, 300, 300, 80), None, None, True, False, "h", "d"),
     ((2, 8, 2, 1, 1059, 80), [1059, 500], None, False, True, "h", "d"),
     ((2, 8, 8, 130, 1000, 80), [1000, 600], None, False, True, "bh", "d"),
+    # Head dim 256 (GPT-J): the key range alone (MHA's prefill into the
+    # cache, its multi-token steps, a left-padded append, rows with no key).
+    ((2, 4, 4, 300, 1000, 256), [300, 1000], None, False, True, None, None),
+    ((2, 8, 8, 4, 1059, 256), [1059, 700], None, False, True, None, None),
+    ((3, 4, 2, 200, 700, 256), [700, 260, 64], [0, 100, 65], True, True, None, None),
 ]
 
 
@@ -382,12 +396,20 @@ BWD_SHAPES = SHAPES + [
     (1, 2, 1, 100, 128, 80),
     (2, 4, 4, 200, 200, 96),
     (1, 8, 2, 700, 300, 96),
+    # Head dim 256 (GPT-J): 64-key CTAs, dK / dV / dQ split by columns over
+    # the warpgroups, dQ added by float4 atomics; ragged (Sk 65: a 1-key
+    # tile), GQA, Sq > Sk.
+    (1, 4, 2, 300, 555, 256),
+    (1, 2, 1, 100, 128, 256),
+    (2, 4, 4, 200, 200, 256),
+    (1, 8, 2, 700, 300, 256),
+    (1, 2, 2, 130, 65, 256),
 ]
 
 
 # Head dims B1 and B7 are not built at, and B1's channels at 96: both
 # wrappers raise before a launch, naming the ROADMAP item.
-@pytest.mark.parametrize("d,channels", [(32, False), (72, False), (112, True), (256, False),
+@pytest.mark.parametrize("d,channels", [(32, False), (72, False), (112, True), (160, False),
                                         (96, True)])
 def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
     q, k, v = _qkv(dev, 1, 2, 2, 64, 64, d)
@@ -401,6 +423,40 @@ def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
         flash_attention_bwd(q, k, v, q, lse, q, d**-0.5, False, **kw)
     assert (flash_attention.launches, flash_attention.bound_launches, flash_bwd.launches,
             flash_bwd.bound_launches) == n0
+
+
+def test_head_dim_256_channels_raise(dev):
+    # At head dim 256 B1 takes its key range (above) but not ALiBi or
+    # segments, B7 no channel, the lite walks nothing, and the decode kernel
+    # is not built at 80 or 96: each raises before a launch, naming its
+    # ROADMAP item.
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_fwd import flash_attention_decode
+
+    q, k, v = _qkv(dev, 1, 2, 2, 128, 128, 256)
+    ids = torch.zeros(1, 128, dtype=torch.int32, device=dev)
+    bound = torch.tensor([100], dtype=torch.int32, device=dev)
+    lse = torch.zeros(1, 2, 128, device=dev)
+    n0 = (flash_attention.alibi_launches, flash_attention.segment_launches, flash_bwd.launches,
+          flash_bwd.bound_launches, lite_flash_attention.launches)
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, alibi_slopes=alibi_slopes(2).to(dev))
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, q_segments=ids, kv_segments=ids)
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_bwd(q, k, v, q, lse, q, 256**-0.5, False, kv_bound=bound)
+    mask = torch.ones(1, 2, 1, 1, dtype=torch.bool, device=dev)
+    fidx = torch.zeros(1, 2, 1, 1, dtype=torch.int32, device=dev)
+    count = torch.ones(1, 2, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
+        lite_flash_attention(q, k, v, fidx, count, 0.0, mask)
+    assert (flash_attention.alibi_launches, flash_attention.segment_launches,
+            flash_bwd.launches, flash_bwd.bound_launches, lite_flash_attention.launches) == n0
+    for d in (80, 96):
+        cache = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match=f"head dim {d} not built.*ROADMAP B-iii 2"):
+            flash_attention_decode(torch.zeros(1, 2, 1, d, dtype=torch.bfloat16, device=dev),
+                                   cache, cache)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -881,6 +937,13 @@ DECODE_CASES = [
     (3, 16, 2, 1, 777, 128, False, "bhsd", False, 30.0, 5),  # group 8, softcap
     (2, 8, 2, 4, 600, 128, False, "bshd", True, 0.0, 3),  # causal sq 4
     (2, 4, 1, 16, 300, 64, True, "bhsd", True, 0.0, 0),  # 64 rows, 4 row tiles
+    # Head dim 256 (GPT-J: 16 heads, no GQA): 64-key tiles, the merge in two
+    # rounds (bf16) or four (int8).
+    (8, 16, 16, 1, 2048, 256, False, "bshd", False, 0.0, 0),
+    (8, 16, 16, 1, 2048, 256, True, "bshd", False, 0.0, 0),
+    (3, 16, 2, 1, 777, 256, True, "bhsd", False, 30.0, 5),
+    (2, 8, 2, 4, 600, 256, False, "bshd", True, 0.0, 3),
+    (2, 4, 1, 16, 300, 256, True, "bhsd", True, 0.0, 0),
 ]
 
 
@@ -926,6 +989,10 @@ def test_flash_decode_kernel(dev, b, h, hk, sq, s_max, d, int8, layout, causal, 
     (True, False, 16, 4, 128, 4),  # causal appends, pages smaller than a tile
     (False, False, 64, 1, 64, 1),
     (False, False, 16, 3, 128, 8),
+    (True, False, 64, 1, 256, 1),  # head dim 256: pages of one 64-key tile
+    (True, True, 64, 1, 256, 2),
+    (True, False, 16, 4, 256, 4),
+    (False, False, 128, 1, 256, 1),
 ])
 def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
     from liteattention_torch.ops.kv_quant import quantize_kv_pages
@@ -1008,6 +1075,15 @@ def test_flash_decode_ragged_one_launch(dev, int8, causal, splits):
     assert torch.isfinite(out).all()
     assert not torch.isfinite(rl[1]).any() and out[1].abs().max().item() == 0.0
     _check_decode(out, lse, ro, rl)
+
+
+def test_decode_tile_keys_match_the_kernel(dev):
+    # The plain version splits by tile_keys; the launches size their checks
+    # by the tile the library reports (0 where the kernel is not built).
+    from liteattention_torch.ops.flash_decode import HEAD_DIMS, kernel_tile_keys, tile_keys
+
+    assert [kernel_tile_keys(d) for d in HEAD_DIMS] == [tile_keys(d) for d in HEAD_DIMS]
+    assert kernel_tile_keys(80) == kernel_tile_keys(96) == 0
 
 
 def test_paged_decode_small_pages_and_raises(dev):

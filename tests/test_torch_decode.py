@@ -31,9 +31,11 @@ from liteattention_tpu.ops.paged_attention import (  # noqa: E402
 )
 from liteattention_torch.ops.combine import combine_attention  # noqa: E402
 from liteattention_torch.ops.flash_decode import (  # noqa: E402
+    HEAD_DIMS,
     decode_plain,
     pack_rows,
     split_plan,
+    tile_keys,
     unpack_rows,
 )
 from liteattention_torch.ops.flash_fwd import flash_attention_decode  # noqa: E402
@@ -65,6 +67,8 @@ def _rand(rng, *shape):
     (1, 128, 2, 0.0),
     (4, 64, 2, 0.0),
     (8, 128, 1, 5.0),
+    (1, 256, 1, 0.0),  # GPT-J's head dim: the kernel's 64-key tiles in the split merge
+    (2, 256, 2, 5.0),
 ])
 def test_flash_attention_decode_matches_jax(group, d, sq, softcap):
     rng = np.random.RandomState(group * d + sq)
@@ -109,6 +113,53 @@ def test_flash_attention_decode_int8_matches_jax():
     with pytest.raises(NotImplementedError, match="int8_mma"):
         flash_attention_decode(t(q), pc.k, pc.v, k_scale=pc.k_scale, v_scale=pc.v_scale,
                                int8_mma=True)
+
+
+def test_flash_attention_decode_int8_d256_matches_jax():
+    # GPT-J's head dim on an int8 cache (JAX's decode takes D % 128 == 0),
+    # split as the kernel splits it (64-key tiles).
+    rng = np.random.RandomState(17)
+    b, h, s, d = 2, 4, 200, 256
+    q = _rand(rng, b, h, 1, d)
+    k, v = _rand(rng, b, s, h, d), _rand(rng, b, s, h, d)
+    bound = np.array([200, 77], np.int32)
+    jc = jquant(jnp.asarray(k), jnp.asarray(v))
+    pc = quantize_kv_cache(t(k), t(v))
+    jo, jl = jdecode(jnp.asarray(q), jc.k, jc.v, kv_bound=jnp.asarray(bound), k_scale=jc.k_scale,
+                     v_scale=jc.v_scale, interpret=True, int8_mma=False)
+    for splits in (0, 3):
+        po, pl = flash_attention_decode(t(q), pc.k, pc.v, kv_bound=t(bound), k_scale=pc.k_scale,
+                                        v_scale=pc.v_scale, num_splits=splits)
+        _close(po, jo)
+        _close(pl, jl)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_folded_d256_matches_jax(int8):
+    # B9b at GPT-J's head dim: native pools of 64-token pages, bf16 and int8.
+    rng = np.random.RandomState(19 + int8)
+    b, hk, pps, psz, d = 2, 2, 3, 64, 256
+    kp, vp, table = _pages(rng, 7, psz, hk, d, b, pps)
+    q = _rand(rng, b, 1, hk, d)
+    lengths = np.array([pps * psz, psz + 9], np.int32)
+    jkw, pkw = {}, {}
+    jk, jv, pk, pv = jnp.asarray(kp), jnp.asarray(vp), t(kp), t(vp)
+    if int8:
+        jpool, ppool = jquant_pages(jk, jv), quantize_kv_pages(pk, pv)
+        jk, jv, pk, pv = jpool.k, jpool.v, ppool.k, ppool.v
+        jkw = dict(k_scale=jpool.k_scale, v_scale=jpool.v_scale, int8_mma=False)
+        pkw = dict(k_scale=ppool.k_scale, v_scale=ppool.v_scale)
+    jo, jl = jpaged_folded(jnp.asarray(q), jk, jv, jnp.asarray(lengths), jnp.asarray(table),
+                           return_lse=True, interpret=True, **jkw)
+    po, pl = paged_attention_folded(t(q), pk, pv, t(lengths), t(table), return_lse=True, **pkw)
+    _close(po, jo)
+    _close(pl, jl)
+
+
+def test_decode_tile_keys_per_head_dim():
+    # The kernel's key tile, which sizes its splits (and split_plan's): 64
+    # at head dim 256, 128 at 64 and 128.
+    assert [tile_keys(d) for d in HEAD_DIMS] == [128, 128, 64]
 
 
 def test_flash_attention_decode_causal_rows():

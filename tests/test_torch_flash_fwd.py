@@ -37,6 +37,8 @@ from liteattention_torch.ops.tile_sizes import BlockSizes  # noqa: E402
         (1, 8, 2, 300, 200, 80, "float32", 2e-5, True),  # D 80, rows with no key
         (2, 4, 4, 200, 333, 96, "float32", 2e-5, True),  # D 96 (GPT-NeoX-20B), causal
         (1, 4, 2, 256, 130, 96, "bfloat16", 2e-2, False),  # D 96, bf16
+        (1, 2, 2, 200, 300, 256, "float32", 2e-5, True),  # D 256 (GPT-J), causal, Sq < Sk
+        (1, 4, 2, 130, 200, 256, "bfloat16", 2e-2, False),  # D 256, bf16, GQA
     ],
 )
 def test_flash_attention_matches_jax(b, h, hk, sq, sk, d, dtype, tol, causal):

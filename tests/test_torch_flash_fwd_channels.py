@@ -222,21 +222,27 @@ def test_gradient_through_a_channel_raises(channel):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_wrappers_take_the_built_head_dims(d):
     # B1's and B7's wrappers check the head dim with check_head_dim before
-    # any launch: 64, 80, 96 and 128 pass, with B1's channels all but 96.
+    # any launch: 64, 80, 96, 128 and 256 pass; with B1's channels all but
+    # 96 and 256, and B1's key range alone (forwards) all but 96.
     check_head_dim(d, False, "flash_attention")
-    if d == 96:
+    if d in (96, 256):
         with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
             check_head_dim(d, True, "flash_attention")
     else:
         check_head_dim(d, True, "flash_attention")
+    if d == 96:
+        with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
+            check_head_dim(d, True, "flash_attention", key_range_only=True)
+    else:
+        check_head_dim(d, True, "flash_attention", key_range_only=True)
     assert d in HEAD_DIMS
 
 
 @pytest.mark.parametrize("d,item", [(32, "B-iii 4"), (72, "B-iii 4"), (112, "B-iii 4"),
-                                    (192, "B-iii 4"), (256, "B-iii 3")])
+                                    (192, "B-iii 4"), (512, "B-iii 4")])
 def test_wrappers_raise_at_other_head_dims(d, item):
     for channels in (False, True):
         with pytest.raises(ValueError, match=f"head dim {d} not built.*ROADMAP {item}"):

@@ -21,7 +21,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_port import rel_l2, t  # noqa: E402
+from _torch_port import LastLogits, rel_l2, t  # noqa: E402
 from liteattention_tpu.models.gpt import GPTConfig as JGPTConfig  # noqa: E402
 from liteattention_tpu.models.gpt import GPTLMHeadModel as JGPT  # noqa: E402
 from liteattention_tpu.modules.mha import MHA as JMHA  # noqa: E402
@@ -63,22 +63,6 @@ def _jax_apply(jmodel):
     return lambda p, ids, inf: jmodel.apply(p, ids, inference_params=inf)
 
 
-class _LastLogits:
-    """The model as greedy_decode calls it, keeping a copy of each call's
-    last-position logits (those the next token is chosen from)."""
-
-    def __init__(self, model):
-        self.model, self.rows = model, []
-
-    def __call__(self, ids, inference_params):
-        out = self.model(ids, inference_params)
-        self.rows.append(out[:, -1].clone())
-        return out
-
-    def logits(self):
-        return torch.stack(self.rows, dim=1)
-
-
 @pytest.mark.parametrize("quantized", [False, True])
 def test_mha_decode_steps_match_jax(quantized):
     # GQA 4 -> 2 with rotary: a 5-token prefill, two single-token steps
@@ -118,7 +102,7 @@ def test_greedy_decode_matches_jax(name):
     jmodel, params, pmodel, ids = _models(name)
     jtok = np.asarray(jgen.greedy_decode(_jax_apply(jmodel), params, jnp.asarray(ids), NEW,
                                          MAX_SEQLEN))
-    rec = _LastLogits(pmodel)
+    rec = LastLogits(pmodel)
     ptok = generation.greedy_decode(rec, t(ids).long(), NEW, MAX_SEQLEN)
     plog = rec.logits()
     np.testing.assert_array_equal(ptok.numpy(), jtok)
@@ -137,7 +121,7 @@ def test_greedy_decode_int8_cache_matches_jax(name):
     jmodel, params, pmodel, ids = _models(name, seed=1)
     jtok = jgen.greedy_decode(_jax_apply(jmodel), params, jnp.asarray(ids), NEW, MAX_SEQLEN,
                               quantize_cache=True)
-    rec = _LastLogits(pmodel)
+    rec = LastLogits(pmodel)
     ptok = generation.greedy_decode(rec, t(ids).long(), NEW, MAX_SEQLEN, quantize_cache=True)
     np.testing.assert_array_equal(ptok.numpy(), np.asarray(jtok))
     assert torch.isfinite(rec.logits()).all()

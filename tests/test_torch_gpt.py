@@ -3,7 +3,8 @@ modules under it) against the JAX package, with JAX-initialised weights
 carried across by gpt_state_dict_from_jax.
 
 Tiny GPT-2-shaped config (dim 128, 2 layers, 2 heads of 64, vocab 512, 256
-positions), batch 2 x 100 tokens (a ragged q-tile), causal attention
+positions; the GPT-J variant dim 512, 2 heads of 256), batch 2 x 100 tokens
+(a ragged q-tile), causal attention
 through the port's plain flash forward/backward and the JAX kernels in
 interpret mode. Tolerances, fp32: logits and each parameter's gradient
 within 1e-4 rel-L2, the loss within 1e-5 relative (summation order only).
@@ -45,7 +46,9 @@ B, S = 2, 100
 # Variants of the tiny config (fields shared by both GPTConfigs): GPT-2;
 # gated MLP + RMSNorm + GQA + untied head without biases; the NeoX-style
 # parallel block with separate norms, exact GELU and a biased head; the
-# OPT-350m layout (projected embeddings, post-norm, ReLU).
+# OPT-350m layout (projected embeddings, post-norm, ReLU); GPT-J's layout
+# at its head dim (2 heads of 256, interleaved rotary over 64 of them, the
+# tied-norm parallel block, bias-free attention, biased MLP and head).
 VARIANTS = {
     "gpt2": {},
     "gated_rms_gqa": dict(gated_mlp=True, use_rms_norm=True, num_heads_kv=1,
@@ -53,6 +56,9 @@ VARIANTS = {
     "parallel": dict(parallel_block=True, parallel_block_tied_norm=False,
                      mlp_gelu_exact=True, tie_embeddings=False, lm_head_bias=True),
     "opt350m": dict(word_embed_proj_dim=64, prenorm=False, mlp_relu=True),
+    "gptj": dict(dim=512, num_heads=2, max_position_embeddings=0, rotary_emb_dim=64,
+                 rotary_emb_interleaved=True, parallel_block=True, parallel_block_tied_norm=True,
+                 attn_bias=False, mlp_bias=True, lm_head_bias=True, tie_embeddings=False),
 }
 
 

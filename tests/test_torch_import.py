@@ -42,7 +42,8 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "b1_ablation.py"],
+    "path", sorted(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "b1_ablation.py", ROOT / "gptj_fault_sweep.py"],
     ids=lambda p: p.name,
 )
 def test_no_jax_imports(path):
