@@ -232,6 +232,24 @@ Phases (any failure exits non-zero and prints no result line):
    ``training/trainer.py`` (2 B1 and 1 B7 launches a layer a step; finite
    losses). The kernels line gains the D 256 rows, their launches read on
    (c)'s and (d)'s counted runs.
+15. (Runs after 14.) Attention dropout, B1's and B7's dropout
+   instantiations: (a) B1's keep mask read back through the kernel bit for
+   bit (q = k = 0, V one-hot over 64 keys made visible by kv_low / kv_bound:
+   every output is keep / (1 - p) / 64), against ``dropout_keep_mask`` at
+   every (b, h), rows into the thousands, key offsets 0, 128 and 960, p 0.1
+   and 0.5, head dims 64 and 128, the dropped share within 4 sigma of p;
+   (b) causal B1 and B7 with dropout 0.1 against their plain versions at
+   GPT-2 XL's attention (8 x 25 x 1024 x 64) and Llama-3-8B's (4 x 32/8 x
+   2048 x 128): out, lse (dropout-free), dQ / dK / dV (dK, dV bit-stable),
+   each timed beside its operation and integer-issue bounds, the plain
+   version, the kernel without dropout and SDPA's flash kernels with
+   dropout; (c) GPT-2 XL (openai-community/gpt2-xl config.json through
+   ``gpt2_config(dim=1600, num_layers=48, num_heads=25)``: 1.56 B random
+   fp32 parameters, full width and depth, dropout 0.1) on 8 x 1024 tokens,
+   5 AdamW steps with ``deterministic=False`` and a seeded CUDA generator
+   (48 dropout launches of B1 and of B7 a step; the loss falls), one
+   ``deterministic=True`` forward equal to a dropout-0 model's logits, and
+   the same steps at dropout 0. The kernels line gains the dropout rows.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -503,8 +521,9 @@ def kernel_wrappers():
     wrapper and the attribute that counts its launches (the lite wrapper
     counts B3, B5 and B4 apart, flash_attention B1, B1 with its per-batch
     bound / low channels, B1 with ALiBi, B1 at the MLA prefill shape (192,
-    128) and the split-O MLA kernel at V 512; flash_bwd B7, B7 with the
-    bound / low channels and B7 with ALiBi)."""
+    128), the split-O MLA kernel at V 512 and B1 with dropout; flash_bwd
+    B7, B7 with the bound / low channels, B7 with ALiBi and B7 with
+    dropout)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -529,6 +548,8 @@ def kernel_wrappers():
             "flash_bwd_bound": (flash_bwd, "bound_launches"),
             "flash_bwd_alibi": (flash_bwd, "alibi_launches"),
             "flash_bwd_segments": (flash_bwd, "segment_launches"),
+            "flash_fwd_dropout": (flash_attention, "dropout_launches"),
+            "flash_bwd_dropout": (flash_bwd, "dropout_launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
@@ -645,25 +666,27 @@ def check_flash(q, k, v, label, causal=False, time_it=False, blocks=False):
     return res
 
 
-def sdpa_bwd(q, k, v, dout, causal):
+def sdpa_bwd(q, k, v, dout, causal, dropout_p=0.0):
     """aten's flash-attention backward on ``q, k, v, dout`` (from its own
-    forward's out and lse): dq, dk, dv in one call."""
+    forward's out and lse, with its own Philox dropout at ``dropout_p``):
+    dq, dk, dv in one call."""
     import torch
 
     aten = torch.ops.aten
     out, lse, cq, ck, mq, mk, seed, off, _ = aten._scaled_dot_product_flash_attention(
-        q, k, v, 0.0, causal, False
+        q, k, v, dropout_p, causal, False
     )
     return lambda: aten._scaled_dot_product_flash_attention_backward(
-        dout, q, k, v, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off
+        dout, q, k, v, out, lse, cq, ck, mq, mk, dropout_p, causal, seed, off
     )
 
 
 def verify_bwd(label, q, k, v, dout, kw, floor=0.0):
     """The one-pass backward B7 (``flash_attention_bwd``: delta, the main
     kernel, dQ to bf16) on B1's out / lse with the same channels (``kw``:
-    causal, scale and B1's kv_bound, kv_low, bound_causal, alibi_slopes;
-    the inputs the training path gives it): dq against B7a's plain
+    causal, scale and B1's kv_bound, kv_low, bound_causal, alibi_slopes,
+    segments, dropout_p and dropout_seed; the inputs the training path
+    gives it): dq against B7a's plain
     version, dk / dv against B7b's, by rel-L2 over each tensor and every
     (b, h, 128-row block) (``floor``: block_rel_l2's); dk / dv bit-stable
     over two runs and exactly 0 on keys no row sees, dq exactly 0 on rows
@@ -683,7 +706,7 @@ def verify_bwd(label, q, k, v, dout, kw, floor=0.0):
     causal = kw.get("causal", False)
     scale = kw.get("scale") or d**-0.5
     ch = {n: kw[n] for n in ("kv_bound", "kv_low", "bound_causal", "alibi_slopes", "q_segments",
-                             "kv_segments") if n in kw}
+                             "kv_segments", "dropout_p", "dropout_seed") if n in kw}
     out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
     args = (q, k, v, out, lse, dout, scale, causal)
     dq, dk, dv = flash_attention_bwd(*args, **ch)
@@ -4273,14 +4296,16 @@ def btlm_serve_phase(dev, card):
     return counts, out
 
 
-def trainer_run(dev, card, cfg, label, batch, seq, steps, lr, seeds):
+def trainer_run(dev, card, cfg, label, batch, seq, steps, lr, seeds, loss_fn=None, before=None):
     """``cfg``'s model (fp32 master weights, bf16 products) trained on one
     repeated synthetic batch of ``batch`` x ``seq`` tokens through
     training/trainer.py, AdamW at ``lr`` for ``steps`` steps: the counted
     path (every count set to 0 just before, read just after). ``seeds``:
-    the weights' and the batch's. Returns the counts and {ms_per_step,
-    median_ms_per_step, tokens_per_s, losses, peak_gb, parameters_b,
-    layers}; the losses must be finite."""
+    the weights' and the batch's; ``loss_fn(model, x)`` (default
+    ``gpt_loss_fn(model, x, x)``) the step's loss; ``before(model, x)``
+    runs on the new model and the batch before the warm-up. Returns the
+    counts and {ms_per_step, median_ms_per_step, tokens_per_s, losses,
+    peak_gb, parameters_b, layers}; the losses must be finite."""
     import itertools
 
     import torch
@@ -4290,18 +4315,21 @@ def trainer_run(dev, card, cfg, label, batch, seq, steps, lr, seeds):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    loss_fn = loss_fn or (lambda m, x: gpt_loss_fn(m, x, x))
     model = GPTLMHeadModel(cfg, device=dev)
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seeds[0]))
     n_params = sum(p.numel() for p in model.parameters())
     tokens = batch * seq
     data = next(synthetic_lm_batches(cfg.vocab_size, batch, seq, seed=seeds[1]))
     tcfg = TrainConfig(learning_rate=lr, warmup_steps=0, total_steps=1000, grad_clip=1.0)
-    trainer = Trainer(model, lambda m, x: gpt_loss_fn(m, x, x), tcfg, device=dev)
+    trainer = Trainer(model, loss_fn, tcfg, device=dev)
     log(f"  {label}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters (fp32 master, "
         f"bf16 products){', remat' if cfg.remat else ''}; {batch} x {seq} tokens, one repeated "
         f"batch, {steps} AdamW steps (lr {lr}) through Trainer.fit")
     x = torch.as_tensor(data, device=dev)
-    gpt_loss_fn(model, x, x).backward()  # warm-up (cuBLAS, allocator), not counted
+    if before is not None:
+        before(model, x)
+    loss_fn(model, x).backward()  # warm-up (cuBLAS, allocator), not counted
     model.zero_grad(set_to_none=True)
     del x
     torch.cuda.synchronize()
@@ -4963,15 +4991,287 @@ def gptj_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 15
+
+# GPT-2 XL (openai-community/gpt2-xl config.json: n_embd 1600, n_layer 48,
+# n_head 25, n_positions 1024, attn_pdrop = resid_pdrop = 0.1) through the
+# JAX package's own gpt2_config(dim=1600, num_layers=48, num_heads=25).
+GPT2_XL = dict(dim=1600, num_layers=48, num_heads=25)
+GPT2_XL_DROPOUT = 0.1
+# lr 5e-5: at 1e-4 (no warmup) the dropout run's fifth loss jumped back to
+# 11.04 from 10.38 (first 11.33; H100 80GB HBM3, 700 W).
+GPT2_XL_BATCH, GPT2_XL_SEQ, GPT2_XL_STEPS, GPT2_XL_LR = 8, 1024, 5, 5e-5
+# B1 / B7 with dropout at Llama-3-8B's attention: b, h, hk, s, d (causal).
+DROPOUT_LLAMA_SHAPE = (4, 32, 8, 2048, 128)
+DROPOUT_SEED = -24680
+# The integer-issue bound of the dropout hash: key_mask.cuh's ~11 32-bit
+# integer instructions a score, at an H100 SXM's 132 SMs x 64 integer
+# lanes a clock, at the card's largest SM clock (nvidia-smi).
+DROPOUT_HASH_OPS, H100_SMS, INT_LANES_PER_SM = 11, 132, 64
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def int_bound_ms(scores: int) -> float:
+    """Least time (ms) of the keep hash over ``scores`` scores on the
+    card's integer lanes."""
+    return DROPOUT_HASH_OPS * scores / (H100_SMS * INT_LANES_PER_SM * max_sm_clock_hz()) * 1e3
+
+
+def dropout_readback(dev):
+    """Phase 15 (a): B1's dropout read back through the kernel, bit for bit.
+    q = k = 0, so P is uniform over the keys B1 sees; kv_low = c0 and
+    kv_bound = c0 + 64 leave the 64 keys [c0, c0 + 64) visible and V is
+    one-hot over them, so ``out[i, j] = keep[i, c0 + j] (1 / (1 - p)) /
+    64`` with ``keep`` from ``dropout_keep_mask`` at (seed, b * H + h, row
+    i, key c0 + j): every (b, h), rows 0-4159, c0 in {0, 128, 960}, p 0.1
+    and 0.5, head dims 64 and 128. The dropped share over each p's scores
+    must lie within 4 sigma of p. Returns {p: dropped share}."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import dropout_keep_mask, flash_attention_masked
+
+    b, h, sq, sk = 2, 3, 4160, 1024
+    bounds = {c0: (torch.full((b,), c0, dtype=torch.int32, device=dev),
+                   torch.full((b,), c0 + 64, dtype=torch.int32, device=dev))
+              for c0 in (0, 128, 960)}
+    kept = {0.1: [0, 0], 0.5: [0, 0]}
+    for d in (64, 128):
+        q = torch.zeros(b, h, sq, d, dtype=torch.bfloat16, device=dev)
+        k = torch.zeros(b, h, sk, d, dtype=torch.bfloat16, device=dev)
+        for c0, (low, bound) in bounds.items():
+            v = torch.zeros_like(k)
+            v[:, :, c0 : c0 + 64, :64] = torch.eye(64, dtype=torch.bfloat16, device=dev)
+            for p in kept:
+                out = flash_attention_masked(q, k, v, kv_low=low, kv_bound=bound, dropout_p=p,
+                                             dropout_seed=DROPOUT_SEED)
+                check(not out[..., 64:].any(), f"dropout read-back d {d}: columns past 64 not 0")
+                for bi in range(b):
+                    for hi in range(h):
+                        keep = dropout_keep_mask(DROPOUT_SEED, bi * h + hi, 0, c0, (sq, 64), p,
+                                                 device=dev)
+                        want = (keep.float() * (1.0 / (1.0 - p)) / 64).bfloat16()
+                        check(torch.equal(out[bi, hi, :, :64], want),
+                              f"dropout read-back d {d} c0 {c0} p {p} (b {bi}, h {hi}): B1's "
+                              "keep mask is not dropout_keep_mask's")
+                        kept[p][0] += int(keep.sum())
+                        kept[p][1] += keep.numel()
+    shares = {}
+    for p, (n_kept, n) in kept.items():
+        shares[p] = 1.0 - n_kept / n
+        sigma = (p * (1.0 - p) / n) ** 0.5
+        log(f"  read-back: {n} scores at p {p} (D 64 and 128, c0 0 / 128 / 960, rows 0-{sq - 1}, "
+            f"{b * h} (b, h)) equal to dropout_keep_mask bit for bit; dropped share "
+            f"{shares[p]:.5f} ({(shares[p] - p) / sigma:+.2f} sigma)")
+        check(abs(shares[p] - p) < 4 * sigma, f"dropped share {shares[p]} is not p {p} +- 4 sigma")
+    return {str(p): v for p, v in shares.items()}
+
+
+def check_dropout_kernels(dev, label, q, k, v, dout):
+    """Phase 15 (b) at one shape: causal B1 and B7 with dropout
+    (GPT2_XL_DROPOUT, seed on the card) against their plain versions: out
+    (within OUT_TOL of max(1, |plain|), every 128-row block within
+    B1_BLOCK_TOL), lse (LSE_TOL, and equal to B1's without dropout), dQ /
+    dK / dV by ``verify_bwd`` (dK, dV bit-stable); timed beside their
+    operation bound, their integer-issue bound, the plain versions, the
+    same kernels without dropout and SDPA's flash forward / aten's flash
+    backward with dropout (Philox: another mask, the same work; K and V
+    expanded to the q heads for GQA). Returns the forward's and the
+    backward's results."""
+    import torch
+    from liteattention_torch.ops.flash_bwd import flash_attention_bwd, flash_bwd_plain
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_plain
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, dropout_p=GPT2_XL_DROPOUT, dropout_seed=seed)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    ro, rl = flash_attention_plain(q, k, v, **kw)
+    diff = (out.float() - ro.float()).abs()
+    err_o = diff.max().item()
+    err_chk = (diff / ro.float().abs().clamp_min(1.0)).max().item()
+    err_l = (lse - rl).abs().max().item()
+    _, lse0 = flash_attention(q, k, v, causal=True, return_lse=True)
+    fwd = {"err": err_o}
+    fwd["rel_l2"], fwd["worst_block_rel_l2"] = block_rel_l2(out, ro)
+    del ro, rl
+    log(f"  B1 dropout {label}: max|out| err {err_o:.3e}, max|lse| err {err_l:.3e}, rel-L2 "
+        f"{fwd['rel_l2']:.3e}, worst (b, h, 128-row block) {fwd['worst_block_rel_l2']:.3e}; lse "
+        f"equal to B1's without dropout: {torch.equal(lse, lse0)}")
+    check(err_chk < OUT_TOL and err_l < LSE_TOL, f"B1 dropout {label} disagrees")
+    check(fwd["worst_block_rel_l2"] < B1_BLOCK_TOL, f"B1 dropout {label}: a 128-row block disagrees")
+    check(torch.equal(lse, lse0), f"B1 dropout {label}: lse is not dropout-free")
+    args, ch, (dq, dk, dv), errs, rels = verify_bwd(f"dropout {label}", q, k, v, dout, kw)
+    bwd = {"err": max(errs.values()), "rel_l2": max(t for t, _ in rels.values()),
+           "worst_block_rel_l2": max(w for _, w in rels.values()),
+           "errs": errs, "rel_l2_by_grad": {n: t for n, (t, _) in rels.items()}}
+    # Timing.
+    pairs = attn_pairs(sq, sk, True) * b * h
+    call = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    fwd["ms"] = cuda_ms(call, reps=20)
+    fwd["device_ms"], _, fwd["timer"] = device_ms(call)
+    fwd["ms_without_dropout"] = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=1)
+    fwd["bound_ms"], fwd["bound_by"] = bound(4 * d * pairs, nbytes(q, k, v, out, lse))
+    fwd["int_bound_ms"] = int_bound_ms(pairs)
+    group = h // hk
+    qe, ke, ve = q, k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd["library_ms"] = cuda_ms(
+            lambda: sdpa(qe, ke, ve, is_causal=True, dropout_p=GPT2_XL_DROPOUT), reps=20)
+    fwd["library"] = "SDPA flash, dropout_p 0.1 (Philox)" + (", K/V expanded" if group > 1 else "")
+    bcall = lambda: flash_attention_bwd(*args, **ch)  # noqa: E731
+    bwd["ms"] = cuda_ms(bcall, reps=20)
+    bwd["device_ms"], bwd["main_kernel_ms"], bwd["timer"] = device_ms(
+        bcall, names=("flash_bwd_dropout_kernel",))
+    bwd["ms_without_dropout"] = cuda_ms(lambda: flash_attention_bwd(*args), reps=20)
+    bwd["plain_ms"] = cuda_ms(lambda: flash_bwd_plain(*args, **ch), reps=1)
+    bwd["bound_ms"], bwd["bound_by"] = bound(10 * d * pairs,
+                                             nbytes(q, k, v, out, dout, lse, dq, dk, dv))
+    bwd["int_bound_ms"] = int_bound_ms(pairs)
+    lib_fn = sdpa_bwd(qe, ke, ve, dout, True, GPT2_XL_DROPOUT)
+    bwd["library_ms"] = cuda_ms(lib_fn, reps=20)
+    bwd["library"] = "aten flash backward, dropout_p 0.1 (Philox)" + (
+        ", K/V expanded (dK/dV of the expanded heads)" if group > 1 else "")
+    for r, name in ((fwd, "B1"), (bwd, "B7")):
+        r["shape"] = f"{b}x{h}/{hk}x{sq}x{d} causal, p {GPT2_XL_DROPOUT}"
+        log(f"  {name} dropout {label}: {r['ms']:.4f} ms (events), {fmt_ms(r['device_ms'])} "
+            f"(device), without dropout {r['ms_without_dropout']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), integer-issue "
+            f"bound {r['int_bound_ms']:.4f} ms, library {r['library_ms']:.4f} ms ({r['library']})")
+    del args, dq, dk, dv, out, lse, qe, ke, ve
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def dropout_kernel_phase(dev):
+    """Phase 15 (b): ``check_dropout_kernels`` at GPT-2 XL's attention
+    (GPT2_XL_BATCH x 25 x 1024 x 64, the training batch of (c)) and at
+    Llama-3-8B's (DROPOUT_LLAMA_SHAPE, GQA). Returns the kernels-line
+    results of B1 and B7 with dropout (GPT-2 XL's as the headline, the
+    other under ``shapes``)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1515)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    h, d = GPT2_XL["num_heads"], GPT2_XL["dim"] // GPT2_XL["num_heads"]
+    b, s = GPT2_XL_BATCH, GPT2_XL_SEQ
+    fwd, bwd = check_dropout_kernels(dev, f"GPT-2 XL attention {b}x{h}x{s}x{d}",
+                                     *(rnd(b, h, s, d) for _ in range(4)))
+    b, h, hk, s, d = DROPOUT_LLAMA_SHAPE
+    fwd2, bwd2 = check_dropout_kernels(dev, f"Llama-3-8B attention {b}x{h}/{hk}x{s}x{d}",
+                                       rnd(b, h, s, d), rnd(b, hk, s, d), rnd(b, hk, s, d),
+                                       rnd(b, h, s, d))
+    fwd["shapes"], bwd["shapes"] = {"llama3_8b": fwd2}, {"llama3_8b": bwd2}
+    for r, r2 in ((fwd, fwd2), (bwd, bwd2)):
+        r["err"] = max(r["err"], r2["err"])
+    return {"flash_fwd_dropout": fwd, "flash_bwd_dropout": bwd}
+
+
+def gpt2_xl_phase(dev, card):
+    """Phase 15 (c): GPT-2 XL at full width and depth (1.56 B fp32 master
+    parameters, bf16 products, random weights from a seed) with dropout
+    0.1, trained on one repeated batch of GPT2_XL_BATCH x 1024 tokens
+    through training/trainer.py, AdamW, GPT2_XL_STEPS steps, each forward
+    with ``deterministic=False`` and a seeded CUDA generator (the counted
+    path: 48 launches a step of B1's and of B7's dropout instantiations,
+    none without; the loss falls); first, one ``deterministic=True``
+    forward whose logits equal a dropout-0 model's on the same weights.
+    Then the same steps with dropout 0 (48 causal B1 and B7 launches a
+    step), so that the cost of dropout is recorded. Returns the counts of
+    both runs and their numbers."""
+    import torch
+    from liteattention_torch.losses.cross_entropy import cross_entropy_loss
+    from liteattention_torch.models.configs import gpt2_config
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+
+    cfg = dataclasses.replace(gpt2_config(**GPT2_XL), dropout=GPT2_XL_DROPOUT)
+    gen = torch.Generator(device=dev).manual_seed(7171)
+
+    def dropout_loss(model, x):
+        logits = model(x, deterministic=False, generator=gen)
+        return cross_entropy_loss(logits[:, :-1], x[:, 1:])
+
+    same = {}
+
+    def deterministic_check(model, x):
+        plain = GPTLMHeadModel(dataclasses.replace(cfg, dropout=0.0), device=dev)
+        plain.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            same["equal"] = torch.equal(model(x), plain(x))
+        del plain
+        torch.cuda.empty_cache()
+        log(f"  deterministic=True logits equal a dropout-0 model's on the same weights: "
+            f"{same['equal']}")
+        check(same["equal"], "GPT-2 XL: deterministic=True logits differ from a dropout-0 model's")
+
+    n = cfg.num_layers * GPT2_XL_STEPS
+    args = (GPT2_XL_BATCH, GPT2_XL_SEQ, GPT2_XL_STEPS, GPT2_XL_LR, (91, 92))
+    counts = {}
+    counts["gpt2_xl_dropout_train"], drop = trainer_run(
+        dev, card, cfg, "GPT-2 XL, dropout 0.1", *args, loss_fn=dropout_loss,
+        before=deterministic_check)
+    c = counts["gpt2_xl_dropout_train"]
+    check(c["flash_fwd_dropout"] == n and c["flash_bwd_dropout"] == n and c["flash_fwd"] == 0
+          and c["flash_bwd_dq"] == 0,
+          f"GPT-2 XL with dropout: expected {cfg.num_layers} dropout launches of B1 and of B7 a "
+          "step and no other")
+    check(drop["losses"][-1] < drop["losses"][0], "GPT-2 XL with dropout: the loss does not fall")
+    counts["gpt2_xl_train"], plain = trainer_run(
+        dev, card, dataclasses.replace(cfg, dropout=0.0), "GPT-2 XL, dropout 0", *args)
+    c = counts["gpt2_xl_train"]
+    check(c["flash_fwd"] == n and c["flash_bwd_dq"] == n and c["flash_fwd_dropout"] == 0,
+          f"GPT-2 XL without dropout: expected {cfg.num_layers} B1 and B7 launches a step")
+    cost = drop["median_ms_per_step"] / plain["median_ms_per_step"] - 1.0
+    log(f"  dropout 0.1 costs {cost:+.1%} of the dropout-0 step ({drop['median_ms_per_step']:.1f} "
+        f"vs {plain['median_ms_per_step']:.1f} ms) [{card}]")
+    return counts, {"dropout": drop, "no_dropout": plain, "dropout_step_cost": cost,
+                    "deterministic_logits_equal": same["equal"],
+                    "config": {**GPT2_XL, "dropout": GPT2_XL_DROPOUT, "seq": GPT2_XL_SEQ,
+                               "batch": GPT2_XL_BATCH}}
+
+
+def dropout_phase(dev, card):
+    """Phase 15: attention dropout, B1's and B7's dropout instantiations,
+    then GPT-2 XL trained with dropout 0.1."""
+    t0 = time.perf_counter()
+    log("  (a) B1's keep mask read back through the kernel")
+    stats = {"dropped_share": dropout_readback(dev)}
+    secs = {"a": time.perf_counter() - t0}
+    log(f"  (b) B1 and B7 with dropout against their plain versions ((a) took {secs['a']:.1f} s)")
+    kres = dropout_kernel_phase(dev)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (c) GPT-2 XL with dropout 0.1, full width and depth ((b) took {secs['b']:.1f} s)")
+    counts, stats["gpt2_xl_train"] = gpt2_xl_phase(dev, card)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (c) took {secs['c']:.1f} s")
+    stats["part_seconds"] = secs
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
 # coarse schedule, B3, B4 and B5; "attention_fwd_kernel" the mma.sync loop
 # that B4 ran on before, kept for older checkouts; "mla_decode_kernel"
-# B10).
+# B10; "flash_fwd_dropout_kernel" B1's dropout channel, whose B7 side
+# "flash_bwd" names).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
               "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel",
-              "pack_schedule_kernel")
+              "pack_schedule_kernel", "flash_fwd_dropout_kernel")
 
 
 def digest_of_digests(*digests):
@@ -5355,6 +5655,10 @@ def main() -> int:
         kres.update(p13_kres)
         phase("phase 14: head dim 256; GPT-J-6B served and trained")
         p14_counts, p14_kres, p14_stats = gptj_phase(dev, card)
+        phase("phase 15: attention dropout; GPT-2 XL trained with dropout 0.1")
+        p15_counts, p15_kres, p15_stats = dropout_phase(dev, card)
+        counts.update(p15_counts)
+        kres.update(p15_kres)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -5456,6 +5760,10 @@ def main() -> int:
         "flash_fwd_mla": ("flash_fwd.cu", "flash_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
         "flash_fwd_mla_v512": ("mla_fwd.cu", "mla_fwd_kernel", "liteattention_tpu/ops/flash_fwd.py:84"),
         "mla_decode": ("mla_decode.cu", "mla_decode_kernel", "liteattention_tpu/ops/mla.py:52"),
+        "flash_fwd_dropout": ("flash_fwd_dropout.cu", "flash_fwd_dropout_kernel",
+                              "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_bwd_dropout": ("flash_bwd_dropout.cu", "flash_bwd_dropout_kernel",
+                              "liteattention_tpu/ops/flash_bwd.py:55"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -5501,7 +5809,7 @@ def main() -> int:
                        fwd_bwd=p14_kres["bwd_causal"]["fwd_bwd"])
         kernels.append(row)
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
-                  (14, p14_stats)):
+                  (14, p14_stats), (15, p15_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -5515,6 +5823,7 @@ def main() -> int:
     log(f"btlm-3b-8k serving and training: {json.dumps(p12_stats)}")
     log(f"packed documents (varlen): {json.dumps(p13_stats)}")
     log(f"gpt-j-6b serving and training: {json.dumps(p14_stats)}")
+    log(f"attention dropout, gpt-2 xl training: {json.dumps(p15_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

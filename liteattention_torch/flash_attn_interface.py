@@ -13,7 +13,9 @@ FA3 with the skip extras ``attn_read_list`` and ``thr``. Without a mask
 it is dense attention through
 :func:`~liteattention_torch.ops.flash_fwd.flash_attention_masked` (kernel
 B1, plain or causal; with ``alibi_slopes`` ``[H]`` or ``[B, H]``, B1's
-ALiBi channel, its gradient through B7's). With a dense bool tile mask ``attn_read_list`` its
+ALiBi channel, its gradient through B7's; with ``dropout_p`` and
+``dropout_seed``, B1's and B7's dropout instantiations, the packed forms
+too). With a dense bool tile mask ``attn_read_list`` its
 granularity is read from its shape, as in JAX: at fine 128 x 128 tiles
 the packer B2 and the gather kernel B3 run (one 128-row q-tile per CTA,
 vote step ``block_k / 128``); at the ``block_sizes`` compute tile the
@@ -132,6 +134,8 @@ def flash_attn_func(
       attn_must_do_list: bool, broadcastable to the mask: tiles never newly
         skipped.
       thr: skip threshold (log2 space).
+      dropout_p, dropout_seed: attention dropout of the dense path (the
+        skip path is inference-only and raises with it, as in JAX).
       return_skip_mask: also return the evolved mask.
       num_splits, pack_gqa, deterministic, sm_margin, attn_write_list:
         scheduling knobs and the in-place write list of other backends,
@@ -311,9 +315,13 @@ def flash_attn_varlen_func(
     ``cu_seqlens_q`` equal to ``cu_seqlens_k`` (checked on the host when
     they are not one tensor). ``max_seqlen_*``, ``num_splits``,
     ``pack_gqa``, ``deterministic``, ``sm_margin`` and ``block_sizes`` are
-    accepted and ignored. Window and softcap (ROADMAP B-i 3), dropout (B-i
-    5), ``qv`` and the fp8 descales raise; so does a head dim the segment
-    kernels are not built for (64, 80 and 128 are; B-iii 4). The packed
+    accepted and ignored. ``dropout_p`` / ``dropout_seed``: attention
+    dropout on the packed axis (the keep mask's rows and columns are packed
+    positions, as in JAX); the plain versions take it on the CPU, and on
+    the card it raises (segments with dropout are not built: ROADMAP B-i
+    5). Window and softcap (ROADMAP B-i 3), ``qv`` and the fp8 descales
+    raise; so does a head dim the segment kernels are not built for (64,
+    80 and 128 are; B-iii 4). The packed
     layout is copied to ``[1, H, total, D]`` for the kernel (reading it in
     place is ROADMAP B-i 6).
 
@@ -326,12 +334,10 @@ def flash_attn_varlen_func(
     if q_descale is not None or k_descale is not None or v_descale is not None:
         raise NotImplementedError("flash_attn_varlen_func: fp8 descales are not supported")
     window = None if tuple(window_size) == (-1, -1) else tuple(window_size)
-    for name, used, item in (("window_size", window is not None, "B-i 3"),
-                             ("softcap", bool(softcap), "B-i 3"),
-                             ("dropout", dropout_p > 0.0 or dropout_seed is not None, "B-i 5")):
+    for name, used in (("window_size", window is not None), ("softcap", bool(softcap))):
         if used:
             raise NotImplementedError(f"flash_attn_varlen_func: {name} is not ported yet "
-                                      f"(ROADMAP {item})")
+                                      "(ROADMAP B-i 3)")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError("q must be [total_q, H, D] and k, v [total_k, Hk, D]")
     check_head_dim(q.shape[-1], True, "flash_attn_varlen_func")
@@ -346,7 +352,7 @@ def flash_attn_varlen_func(
     out, lse = flash_attention_masked(
         q.transpose(0, 1)[None], k.transpose(0, 1)[None], v.transpose(0, 1)[None],
         q_segments=seg_q[None], kv_segments=seg_k[None], scale=softmax_scale, causal=causal,
-        return_lse=True,
+        return_lse=True, dropout_p=dropout_p, dropout_seed=dropout_seed,
     )
     out = out[0].transpose(0, 1).contiguous()
     return (out, lse[0]) if return_softmax_lse else out

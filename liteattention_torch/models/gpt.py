@@ -25,8 +25,18 @@ the blocks (learned positions and rotary start at its
 single-token steps go through the decode kernel B8 (with ALiBi, as every
 multi-token step, through B1 over the cache with a per-batch bound).
 
-Not ported yet (the model raises on them): MoE, dropout; the
-tensor-parallel forward is left out.
+Dropout: ``GPTConfig.dropout`` is JAX's attention and residual dropout
+(``MHA(dropout=)``, ``Block(resid_dropout1=, resid_dropout2=)``; no
+embedding dropout, as in JAX). It runs in ``forward(input_ids,
+deterministic=False, generator=g)``, every mask drawn from the
+``torch.Generator`` ``g`` on the model's device; the attention's through
+B1's and B7's dropout instantiations. ``deterministic`` defaults to True,
+as in JAX, and ``gpt_loss_fn`` (so the trainer and the CLI) stays
+deterministic, as JAX's does. With ``remat`` each block's recompute
+replays the block's draws.
+
+Not ported yet (the model raises on it): MoE; the tensor-parallel forward
+is left out.
 """
 
 from __future__ import annotations
@@ -109,13 +119,8 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    unported = {
-        "moe_experts": cfg.moe_experts > 0,
-        "dropout": cfg.dropout > 0.0,
-    }
-    missing = [name for name, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"GPT: {missing} not ported yet")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("GPT: ['moe_experts'] not ported yet")
 
 
 def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
@@ -126,7 +131,7 @@ def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
         softmax_scale=1.0 / head_dim if cfg.scale_qk_dot_by_d else None,
         rotary_emb_dim=cfg.rotary_emb_dim, rotary_emb_base=cfg.rotary_emb_base,
         rotary_emb_interleaved=cfg.rotary_emb_interleaved, use_alibi=cfg.use_alibi,
-        layer_idx=layer_idx, dtype=cfg.dtype, device=device,
+        dropout=cfg.dropout, layer_idx=layer_idx, dtype=cfg.dtype, device=device,
     )
     ffn = cfg.ffn_dim or 4 * cfg.dim
     if cfg.gated_mlp:
@@ -144,9 +149,32 @@ def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
     return Block(
         cfg.dim, mha, mlp, prenorm=cfg.prenorm, parallel_block=cfg.parallel_block,
         parallel_block_tied_norm=cfg.parallel_block_tied_norm,
+        resid_dropout1=cfg.dropout, resid_dropout2=cfg.dropout,
         use_rms_norm=cfg.use_rms_norm, residual_in_fp32=True, eps=cfg.eps,
         dtype=cfg.dtype, device=device,
     )
+
+
+def _replaying(blk: nn.Module, generator: torch.Generator):
+    """``blk`` for ``torch.utils.checkpoint`` with dropout: checkpoint
+    restores the default generators' state for the recompute, not an
+    explicit one's. So the recompute runs ``generator`` from the state the
+    first call began at (it draws the same masks and seeds) and then puts
+    back the state it found."""
+    start, ran = generator.get_state(), []
+
+    def run(*args, **kwargs):
+        if not ran:
+            ran.append(True)
+            return blk(*args, **kwargs)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:  # checkpoint may stop the recompute early by raising inside blk
+            return blk(*args, **kwargs)
+        finally:
+            generator.set_state(now)
+
+    return run
 
 
 class GPTModel(nn.Module):
@@ -171,8 +199,14 @@ class GPTModel(nn.Module):
                 self.ln_f_bias = nn.Parameter(torch.zeros(cfg.dim, device=device))
 
     def forward(self, input_ids: torch.Tensor,
-                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
+                inference_params: Optional[InferenceParams] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
+        drop = cfg.dropout > 0.0 and not deterministic and inference_params is None
+        if drop and generator is None:
+            raise ValueError("GPT: dropout (deterministic=False) requires a torch.Generator "
+                             "(generator=)")
         x = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
         if cfg.embeddings_multiplier != 1.0:
             x = x * cfg.embeddings_multiplier
@@ -184,9 +218,12 @@ class GPTModel(nn.Module):
             x = x + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None]
         residual = None
         kw = {} if inference_params is None else {"inference_params": inference_params}
+        if drop:
+            kw = dict(deterministic=False, generator=generator)
         for blk in self.blocks:
             if cfg.remat and torch.is_grad_enabled() and inference_params is None:
-                out = checkpoint(blk, x, residual, use_reentrant=False)
+                out = checkpoint(_replaying(blk, generator) if drop else blk, x, residual,
+                                 use_reentrant=False, **kw)
             else:
                 out = blk(x, residual, **kw)
             x, residual = out if cfg.prenorm else (out, None)
@@ -227,9 +264,15 @@ class GPTLMHeadModel(nn.Module):
                 p.zero_()
 
     def forward(self, input_ids: torch.Tensor,
-                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
+                inference_params: Optional[InferenceParams] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """fp32 logits; ``deterministic=False`` turns on the config's
+        dropout, drawn from ``generator`` (a ``torch.Generator`` on the
+        model's device, required then), as JAX's ``apply(...,
+        deterministic=False, rngs={"dropout": key})``."""
         cfg = self.cfg
-        hidden = self.transformer(input_ids, inference_params)
+        hidden = self.transformer(input_ids, inference_params, deterministic, generator)
         if cfg.word_embed_proj_dim:
             hidden = self.project_out(hidden)
         if cfg.tie_embeddings:

@@ -6,8 +6,12 @@ Pre-norm (the residual stream threads through, in fp32 with
 (BERT/OPT-350m: residual add, then norm) and the parallel block
 (GPT-J/NeoX: attention and MLP from the same normed input, with tied or
 separate norms). The mixer is held as ``mha`` and the MLP as ``mlp``, the
-names the GPT param tree gives them. Residual dropout is not ported and
-raises.
+names the GPT param tree gives them. Residual dropout (``resid_dropout1``
+on the input of norm1 -- the mixer's output in post-norm --, and
+``resid_dropout2`` on that of norm2) runs in a call with
+``deterministic=False``, its masks drawn from the call's ``generator``
+(which the mixer takes too, for attention dropout), in JAX's order:
+norm1's mask, the mixer's seed, norm2's mask.
 """
 
 from __future__ import annotations
@@ -41,9 +45,8 @@ class Block(nn.Module):
         device=None,
     ):
         super().__init__()
-        if resid_dropout1 > 0.0 or resid_dropout2 > 0.0:
-            raise NotImplementedError("Block: residual dropout is not ported yet")
         device = resolve_device(device)
+        self.resid_dropout1, self.resid_dropout2 = float(resid_dropout1), float(resid_dropout2)
         self.prenorm = prenorm
         self.parallel_block = parallel_block
         self.parallel_block_tied_norm = parallel_block_tied_norm
@@ -64,32 +67,45 @@ class Block(nn.Module):
                     f"{name}_bias", nn.Parameter(torch.zeros(dim, device=device))
                 )
 
-    def _norm(self, name, x, residual, prenorm=True):
+    def _norm(self, name, x, residual, prenorm=True, dropout_p=0.0, **drop):
+        """Norm ``name`` of ``dropout(x) + residual``; ``drop``: the call's
+        ``deterministic`` and ``generator``."""
         return dropout_add_norm(
             x, residual, getattr(self, f"{name}_scale"),
-            getattr(self, f"{name}_bias", None), eps=self.eps, prenorm=prenorm,
+            getattr(self, f"{name}_bias", None), dropout_p, eps=self.eps, prenorm=prenorm,
             residual_in_fp32=self.residual_in_fp32 and prenorm,
-            rms=self.use_rms_norm,
+            rms=self.use_rms_norm, **drop,
         )
 
-    def forward(self, hidden_states, residual=None, **mixer_kwargs):
+    def forward(self, hidden_states, residual=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None, **mixer_kwargs):
         """Pre-norm: returns ``(mlp_out, residual)``; post-norm: the
-        normed output alone."""
+        normed output alone. ``deterministic=False`` turns on residual and
+        attention dropout, drawn from ``generator``."""
+        drop = dict(deterministic=deterministic, generator=generator)
+        if not deterministic:
+            mixer_kwargs.update(deterministic=False, generator=generator)
         if not self.prenorm:
             h = self._norm("norm1", self.mha(hidden_states, **mixer_kwargs),
-                           hidden_states, prenorm=False)
-            return self._norm("norm2", self.mlp(h), h, prenorm=False)
+                           hidden_states, prenorm=False, dropout_p=self.resid_dropout1, **drop)
+            return self._norm("norm2", self.mlp(h), h, prenorm=False,
+                              dropout_p=self.resid_dropout2, **drop)
 
-        normed, new_residual = self._norm("norm1", hidden_states, residual)
+        normed, new_residual = self._norm("norm1", hidden_states, residual,
+                                          dropout_p=self.resid_dropout1, **drop)
         attn_out = self.mha(normed, **mixer_kwargs)
         if self.parallel_block:
             if self.parallel_block_tied_norm:
                 mlp_in = normed
             else:
-                # Separate norms: re-norm the same pre-attention stream.
-                mlp_in, _ = self._norm("norm2", hidden_states, residual)
+                # Separate norms: norm2 of the same pre-attention stream
+                # (norm1's sum, with norm1's dropout mask, as JAX's reuse
+                # of rng1 gives).
+                mlp_in = self._norm("norm2", new_residual.to(hidden_states.dtype), None,
+                                    prenorm=False)
             return attn_out + self.mlp(mlp_in), new_residual
-        normed2, new_residual = self._norm("norm2", attn_out, new_residual)
+        normed2, new_residual = self._norm("norm2", attn_out, new_residual,
+                                           dropout_p=self.resid_dropout2, **drop)
         return self.mlp(normed2), new_residual
 
 

@@ -25,8 +25,14 @@ the attention and back through ``out_proj``.
   route): the walk stops at the bound's diagonal, so the keys past it cost
   nothing and nothing is copied. A multi-token step on an int8 cache
   raises, as in JAX.
+* Attention dropout (``dropout`` > 0, a call with ``deterministic=False``
+  and a ``generator``, JAX's flax "dropout" stream): each call draws an
+  int32 seed from the generator on the device (:func:`draw_dropout_seed`,
+  no host sync) and hands it to B1's and B7's dropout instantiations,
+  which regenerate the keep mask from it. The cached path takes none, as
+  in JAX.
 
-Not ported yet: cross-attention and attention dropout raise.
+Not ported yet: cross-attention raises.
 """
 
 from __future__ import annotations
@@ -78,6 +84,17 @@ def alibi_slopes(nheads: int) -> torch.Tensor:
     return torch.tensor(pow2(closest) + extra, dtype=torch.float32)
 
 
+def draw_dropout_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """An int32 seed ``[1]`` for the attention-dropout kernels, drawn from
+    ``generator`` on ``device`` (JAX draws ``randint(rng, (), -2**31, 2**31
+    - 1, int32)``); a ``generator`` is required, as JAX's ``make_rng``
+    needs an rng."""
+    if generator is None:
+        raise ValueError("attention dropout requires a torch.Generator (generator=)")
+    return torch.randint(-(2**31), 2**31 - 1, (1,), generator=generator, device=device,
+                         dtype=torch.int32)
+
+
 class MHA(nn.Module):
     def __init__(
         self,
@@ -98,9 +115,8 @@ class MHA(nn.Module):
         device=None,
     ):
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError("MHA: ['dropout'] not ported yet")
         device = resolve_device(device)
+        self.dropout = float(dropout)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
         self.head_dim = embed_dim // num_heads
@@ -121,8 +137,11 @@ class MHA(nn.Module):
         self.out_proj = Dense(self.num_heads * self.head_dim, embed_dim,
                               out_proj_bias, dtype, device)
 
-    def forward(self, x: torch.Tensor,
-                inference_params: Optional[InferenceParams] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, inference_params: Optional[InferenceParams] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``x`` ``[B, S, dim]`` -> ``[B, S, dim]``; with ``deterministic=False``
+        attention dropout at ``dropout``, its seed drawn from ``generator``."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         q, k, v = self.Wqkv(x).split([h * d, hk * d, hk * d], dim=-1)
@@ -131,9 +150,12 @@ class MHA(nn.Module):
         if self.rotary is not None:
             q, k = self.rotary(q, k, seqlen_offset=offset)
         if inference_params is None:
+            drop = self.dropout if self.dropout > 0.0 and not deterministic else 0.0
             out = flash_attention_masked(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 alibi_slopes=self.alibi, scale=self.softmax_scale, causal=self.causal,
+                dropout_p=drop,
+                dropout_seed=draw_dropout_seed(generator, x.device) if drop else None,
             )
         else:
             out = self._decode(q, k, v, inference_params, offset)
@@ -181,4 +203,4 @@ class MHA(nn.Module):
         )
 
 
-__all__ = ["MHA", "InferenceParams", "alibi_slopes"]
+__all__ = ["MHA", "InferenceParams", "alibi_slopes", "draw_dropout_seed"]

@@ -43,11 +43,13 @@ SIGNATURES = {
     "lite_flash_decode_tile_keys": [_I],
     "lite_flash_fwd_dense": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_fwd_masked": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "lite_flash_fwd_dropout": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _F, _I, _P],
     "lite_flash_fwd_mla": [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P],
     "lite_flash_fwd_segments": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
     "lite_mla_decode": [_P] * 9 + [_L] * 2 + [_I] * 14 + [_F, _I, _P],
     "lite_flash_bwd": [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P],
     "lite_flash_bwd_masked": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "lite_flash_bwd_dropout": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _I, _F, _I, _P],
     "lite_flash_bwd_segments": [_P] * 17 + [_I] * 5 + [_F, _I, _I, _P],
     "lite_flash_fwd_gather": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _I, _P],
     "lite_flash_fwd_coarse": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],

@@ -70,6 +70,14 @@
 // least and largest id come from the wrapper). Rows with lse -inf (no key
 // of their id) add 0 to dQ, dK and dV.
 //
+// Attention dropout (the DROPOUT instantiations: the RANGE walk at D 64 and
+// 128; kernel flash_bwd_dropout_kernel, entry lite_flash_bwd_dropout in
+// flash_bwd_dropout.cu; the JAX kernels' dropout_p): each score of the step
+// regenerates B1's keep bit (key_mask.cuh's dropout_keep at (seed, the
+// step's b * H + q head, the global q row, the global key)), and, as in
+// JAX's _dkv_kernel and _dq_kernel, dV takes D P and dS = P (D dP - delta)
+// with D = keep / (1 - p); delta is rowsum(O dO) of B1's dropped output.
+//
 // Head dims 80 (BTLM) and 96 (GPT-NeoX-20B), as in B1: every K, V, Q and
 // dO tile takes two 64-value atoms (sm90.cuh; the second partly filled by
 // TMA, zeros past column D), so shared memory is D 128's; S^T and dP^T run
@@ -286,8 +294,9 @@ __device__ __forceinline__ void load_step(const CUtensorMap& tm_q, const CUtenso
 // The two warpgroups: wg owns keys k0 + 64 wg .. + 63. Thread 0 also
 // refills the ring and adds each step's dQ part to the accumulator. RANGE
 // takes the keys of `r` (B1's channels), ALIBI the bias with the group's
-// slopes from shared memory, SEG the segment ids of `c`.
-template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
+// slopes from shared memory, SEG the segment ids of `c`, DROPOUT the
+// dropout of `c`.
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG, bool DROPOUT>
 __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorMap& tm_do,
                                         const Params& p, const Channels& c, unsigned char* smem,
                                         const Walk& walk, const KeyRange& r, int b, int hk, int k0,
@@ -328,6 +337,18 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
   const uint64_t kt_desc =
       desc_sw128(k_addr + (D == 64 ? wg * 64 : wg * kKeys * 128), kKeys * 128, 1024);
   unsigned char* ds_smem = smem + L::ds;
+  // DROPOUT: the seed, the keep test, 1 / (1 - p) and this thread's keys'
+  // share of the hash's position.
+  int drop_seed = 0;
+  uint32_t drop_min = 0, drop_key_lo = 0, drop_key_hi = 0;
+  float drop_scale = 1.f;
+  if constexpr (DROPOUT) {
+    drop_seed = __ldg(c.dropout_seed);
+    drop_min = c.dropout_min;
+    drop_scale = c.dropout_scale;
+    drop_key_lo = static_cast<uint32_t>(key_lo) * kDropCol;
+    drop_key_hi = static_cast<uint32_t>(key_lo + 8) * kDropCol;
+  }
   float4* dq_smem = reinterpret_cast<float4*>(smem + L::dq);
 
   float dk[D / 2], dv[D / 2];
@@ -383,6 +404,12 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
     const float slope_log2 = ALIBI ? slopes[it / walk.nq] : 0.f;
     // SEG: the step's rows and the k-tile's keys are not all of one segment.
     const bool seg_test = SEG && !one_segment(k_span, __ldg(c.q_span + row0 / kRows));
+    // DROPOUT: the step's (seed, bh) term and its rows' share of the position.
+    uint32_t drop_key = 0, drop_row = 0;
+    if constexpr (DROPOUT) {
+      drop_key = dropout_key(drop_seed, bh);
+      drop_row = static_cast<uint32_t>(row0 + 2 * t) * kDropRow;
+    }
     uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -415,7 +442,18 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
         } else {
           s[e] = masked ? 0.f : ex2(s[e] * p.scale_log2 - lse2[qc]);
         }
-        dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;
+        if constexpr (DROPOUT) {
+          // JAX's order: dP and P each dropped and scaled by 1 / (1 - p);
+          // dS from the dropped dP and the undropped P.
+          const uint32_t pos = drop_row + static_cast<uint32_t>(8 * (e / 4) + (e & 1)) * kDropRow +
+                               ((e >> 1) & 1 ? drop_key_hi : drop_key_lo);
+          const bool keep = dropout_keep(pos, drop_key, drop_min);
+          const float dpd = keep ? dp[e] * drop_scale : 0.f;
+          dp[e] = s[e] * (dpd - delta[qc]) * p.scale;
+          s[e] = keep ? s[e] * drop_scale : 0.f;
+        } else {
+          dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;
+        }
       }
       sm90::frag_a(pf[k], s, k);
       sm90::frag_a(dsf[k], dp, k);
@@ -531,14 +569,16 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
 }
 
 // One CTA of the main kernel (flash_bwd_kernel; with SEG
-// flash_bwd_segments_kernel).
-template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
+// flash_bwd_segments_kernel, with DROPOUT flash_bwd_dropout_kernel).
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG, bool DROPOUT = false>
 __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                         const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                         const Params& p, const Channels& c) {
   static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim must be 64, 80, 96 or 128");
   static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
   static_assert(!SEG || (!RANGE && D != 96), "segments alone, at D 64, 80 and 128");
+  static_assert(!DROPOUT || (RANGE && !ALIBI && (D == 64 || D == 128)),
+                "dropout runs in the RANGE instantiations at D 64 and 128");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -596,7 +636,8 @@ __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorM
       load_step<D>(tm_q, tm_do, p, smem, it, walk.bh(it), walk.row0(it));
     }
   }
-  consume<D, CAUSAL, RANGE, ALIBI, SEG>(tm_q, tm_do, p, c, smem, walk, range, b, hk, k0, n_iter);
+  consume<D, CAUSAL, RANGE, ALIBI, SEG, DROPOUT>(tm_q, tm_do, p, c, smem, walk, range, b, hk, k0,
+                                                 n_iter);
 }
 
 template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false>
@@ -607,6 +648,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_do, const Params p,
                      const Channels c) {
   bwd_cta<D, CAUSAL, RANGE, ALIBI, false>(tm_q, tm_k, tm_v, tm_do, p, c);
+}
+
+// The RANGE walk with attention dropout (instantiated in
+// flash_bwd_dropout.cu).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dropout_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do, const Params p,
+                             const Channels c) {
+  bwd_cta<D, CAUSAL, true, false, false, true>(tm_q, tm_k, tm_v, tm_do, p, c);
 }
 
 template <int D, bool CAUSAL>
@@ -672,16 +725,19 @@ struct Args {
 };
 
 // The main kernel of an instantiation (only that one is compiled).
-template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG>
+template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG, bool DROPOUT>
 auto main_kernel() {
   if constexpr (SEG) {
     return flash_bwd_segments_kernel<D, CAUSAL>;
+  } else if constexpr (DROPOUT) {
+    return flash_bwd_dropout_kernel<D, CAUSAL>;
   } else {
     return flash_bwd_kernel<D, CAUSAL, RANGE, ALIBI>;
   }
 }
 
-template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false, bool SEG = false>
+template <int D, bool CAUSAL, bool RANGE = false, bool ALIBI = false, bool SEG = false,
+          bool DROPOUT = false>
 cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels{}) {
   const int sq_pad = (a.seqlen_q + kRows - 1) / kRows * kRows;
   const int rows = a.batch * a.heads * sq_pad;
@@ -721,7 +777,7 @@ cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels
   p.causal_offset = a.seqlen_k - a.seqlen_q;
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
-  auto kernel = main_kernel<D, CAUSAL, RANGE, ALIBI, SEG>();
+  auto kernel = main_kernel<D, CAUSAL, RANGE, ALIBI, SEG, DROPOUT>();
   // + alignment of the base
   constexpr int smem = (ALIBI ? Smem<D>::bytes_alibi : Smem<D>::bytes) + 1024;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -64,6 +64,20 @@
 // id, which inside a document is none but the tiles that cross a boundary.
 // Rows whose id no key carries get out 0, lse -inf.
 //
+// Attention dropout (DROPOUT; the JAX kernel's dropout_p, dense walk at D 64
+// and 128, with the key range; kernel flash_fwd_dropout_kernel and entry
+// lite_flash_fwd_dropout in flash_fwd_dropout.cu): once a tile's P has
+// gone into the row sums l (which, like lse, stay dropout-free), each score
+// keeps its P iff key_mask.cuh's dropout_keep passes for (seed, b * H + h,
+// its global row, its global key), else 0, and the epilogue folds 1 / (1 -
+// p) into 1 / l. The hash takes about eleven integer instructions a score
+// (the row's and the column's products are shared: an add, the xor with
+// the (seed, bh) term, three shift-xors, two multiplies, one compare),
+// issued right after the tile's exp2 while its P V and the next S are in
+// flight. A 128 x 128 tile at D 64 is ~1k clocks of wgmma and ~1k of MUFU
+// exp2, and ~2.8k of integer issue at 64 a clock, so the dropout forward at
+// D 64 is bound by integer issue unless the products hide it.
+//
 // Head dims 80 (BTLM) and 96 (GPT-NeoX-20B): every tile takes two 64-value
 // atoms, as at D 128 (sm90.cuh: the second partly filled), so the shared
 // memory and the ring depth are D 128's. The tensor maps' inner extent is
@@ -514,13 +528,30 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p,
   softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, scale);
 }
 
-template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD, bool ALIBI>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_o, const Params p,
-                     const Channels c) {
+// DROPOUT: tile `tile`'s P (after its row sums) keeps the scores whose
+// dropout_keep passes at this thread's rows (row_lo / row_hi: row *
+// kDropRow) and the tile's keys; the rest become 0.
+template <int NB>
+__device__ __forceinline__ void drop_scores(float (&s)[NB][4], int tile, uint32_t row_lo,
+                                            uint32_t row_hi, uint32_t key, uint32_t keep_min) {
+  const uint32_t col = static_cast<uint32_t>(tile * 8 * NB + 2 * (threadIdx.x % 4)) * kDropCol;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t pos =
+          (e >= 2 ? row_hi : row_lo) + col + static_cast<uint32_t>(8 * nb + (e & 1)) * kDropCol;
+      s[nb][e] = dropout_keep(pos, key, keep_min) ? s[nb][e] : 0.f;
+    }
+  }
+}
+
+// One CTA of B1 (flash_fwd_kernel; with DROPOUT flash_fwd_dropout_kernel,
+// flash_fwd_dropout.cu).
+template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD, bool ALIBI, bool DROPOUT>
+__device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                        const CUtensorMap& tm_v, const CUtensorMap& tm_o,
+                                        const Params& p, const Channels& c) {
   constexpr bool SEG = WALK == kSegment;
   constexpr bool DENSE = WALK == kDense || SEG;
   constexpr bool LIST = WALK == kList;
@@ -545,6 +576,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(!ALIBI || (WALK == kDense && DK == DV && DK <= 128),
                 "ALiBi is a channel of the dense walk at D <= 128");
   static_assert(!SEG || (DK == DV && DK != 96 && DK <= 128), "segments at D 64, 80 and 128");
+  static_assert(!DROPOUT || (WALK == kDense && !ALIBI && DK == DV && (DK == 64 || DK == 128)),
+                "dropout is a channel of the dense walk at D 64 and 128");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -639,6 +672,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp_row0 = q0 + 64 * wg + 16 * warp;
   const int r_lo = warp_row0 + g;  // this thread's rows: r_lo, r_lo + 8
   const int r_hi = r_lo + 8;
+  // DROPOUT: the hash's (seed, b * H + h) term and this thread's rows' terms.
+  uint32_t drop_key = 0, drop_lo = 0, drop_hi = 0;
+  if constexpr (DROPOUT) {
+    drop_key = dropout_key(__ldg(c.dropout_seed), b * p.heads + h0);
+    drop_lo = static_cast<uint32_t>(r_lo) * kDropRow;
+    drop_hi = static_cast<uint32_t>(r_hi) * kDropRow;
+  }
   SegRows seg{};
   if constexpr (SEG) {  // rows past Sq carry the last row's id (the wrapper's padding)
     seg = SegRows{c.k_seg, c.k_span, __ldg(c.q_seg + r_lo), __ldg(c.q_seg + r_hi)};
@@ -786,6 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     tile_softmax<CAUSAL, DENSE, ALIBI, SEG>(s, p, range, seg, slope_log2, tile0, walk.dead,
                                             warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                                             alpha_lo, alpha_hi, first_vote);
+    if constexpr (DROPOUT) drop_scores(s, tile0, drop_lo, drop_hi, drop_key, c.dropout_min);
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) sm90::frag_a(pf[k], sd, k);
     int tile_next = 0;
@@ -830,6 +871,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tile_softmax<CAUSAL, DENSE, ALIBI, SEG>(s, p, range, seg, slope_log2, tile, walk.dead,
                                               warp_row0, r_lo, r_hi, m_lo, m_hi, l_lo, l_hi,
                                               alpha_lo, alpha_hi, vote);
+      if constexpr (DROPOUT) drop_scores(s, tile, drop_lo, drop_hi, drop_key, c.dropout_min);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(od);
       sm90::fence_regs(pf);
@@ -860,6 +902,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse_lo -= slope * range.shift;
       lse_hi -= slope * range.shift;
     }
+    if constexpr (DROPOUT) {  // 1 / (1 - p), as JAX folds it into l_inv
+      inv_lo *= c.dropout_scale;
+      inv_hi *= c.dropout_scale;
+    }
     unsigned char* ob = smem + L::q + 64 * wg * 128;
     const int orow = 16 * warp + g;
 #pragma unroll
@@ -889,12 +935,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Tensor maps of q, k, v and out, then one launch of instantiation <DK, DV,
-// CAUSAL, WALK, VOTES, FOLD, ALIBI> over (q-tiles, heads / fold, batch).
-template <int DK, int DV, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false,
-          bool ALIBI = false>
-cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p, int batch,
-                float scale, cudaStream_t stream, const Channels& c = Channels{}) {
+template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD, bool ALIBI>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_o, const Params p,
+                     const Channels c) {
+  fwd_cta<DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI, false>(tm_q, tm_k, tm_v, tm_o, p, c);
+}
+
+// Tensor maps of q, k, v and out, then one launch of `kernel` (B1's
+// instantiation at (DK, DV), FOLD heads a CTA) over (q-tiles, heads / fold,
+// batch).
+template <int DK, int DV, bool FOLD, typename Kernel>
+cudaError_t launch(Kernel kernel, const void* q, const void* k, const void* v, void* out,
+                   Params p, int batch, float scale, cudaStream_t stream, const Channels& c) {
   constexpr int keys = Tiles<DK, DV>::kKeys;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   const int bh = batch * p.heads, bhk = batch * p.kv_heads;
@@ -909,7 +965,6 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
   p.ktiles = (p.seqlen_k + keys - 1) / keys;
   p.causal_offset = p.seqlen_k - p.seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
-  auto kernel = flash_fwd_kernel<DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI>;
   constexpr int smem = Smem<DK, DV>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -917,6 +972,15 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out, Params p
   kernel<<<dim3(p.qtiles, p.heads / fold, batch), kThreads, smem, stream>>>(tm_q, tm_k, tm_v,
                                                                             tm_o, p, c);
   return cudaGetLastError();
+}
+
+// One launch of instantiation <DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI>.
+template <int DK, int DV, bool CAUSAL, int WALK = kDense, bool VOTES = false, bool FOLD = false,
+          bool ALIBI = false>
+cudaError_t run(const void* q, const void* k, const void* v, void* out, const Params& p,
+                int batch, float scale, cudaStream_t stream, const Channels& c = Channels{}) {
+  return launch<DK, DV, FOLD>(flash_fwd_kernel<DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI>, q, k, v,
+                              out, p, batch, scale, stream, c);
 }
 
 template <int D, bool VOTES>

@@ -2,9 +2,12 @@
 // kernels (B1 in flash_fwd.cu; B3-B5 through attention_fwd.cuh) and the
 // backward (B7, flash_bwd.cu), so that a mask channel added here hides the
 // same keys forwards and backwards; the per-batch key range of B1's
-// channels, which B1 and B7 read the same way; and the segment walks' ids
-// and ranges (B1's and B7's segment channel).
+// channels, which B1 and B7 read the same way; the segment walks' ids and
+// ranges (B1's and B7's segment channel); and the attention-dropout keep
+// test, which B1 and B7 regenerate from one seed.
 #pragma once
+
+#include <stdint.h>
 
 namespace lite {
 
@@ -54,7 +57,41 @@ struct Channels {
   const int2* range;
   const int2* k_span;
   const int2* q_span;
+  // Attention dropout (the DROPOUT instantiations of B1's dense walk and
+  // B7's RANGE one): the int32 seed on the device, the least kept hash
+  // (dropout_keep) and 1 / (1 - p).
+  const int* dropout_seed;
+  uint32_t dropout_min;
+  float dropout_scale;
 };
+
+// The JAX kernels' counter-based dropout mask (liteattention_tpu/ops/
+// flash_fwd.py:dropout_keep_mask, ops/dropout.py in this package): a pure
+// function of (seed, b * H + q head, the global q row, the global key
+// column), so B1's 128-key tiles and B7's 64-row steps regenerate the same
+// bits. Every product is mod 2^32. dropout_key is the (seed, bh) term,
+// dropout_pos the position term row * kDropRow + col * kDropCol (callers
+// add a row's and a column's share, each computed once).
+constexpr uint32_t kDropRow = 0x9E3779B9u;
+constexpr uint32_t kDropCol = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t dropout_key(int seed, int bh) {
+  return static_cast<uint32_t>(seed) * 0xCC9E2D51u + static_cast<uint32_t>(bh) * 0x1B873593u;
+}
+
+// Kept iff murmur3's fmix32 of pos ^ key is at least dropout_min: JAX keeps
+// a score iff (x >> 8) 2^-24 >= float32(p), both sides exact in fp32, that
+// is x >> 8 >= ceil(float32(p) 2^24), that is x >= that << 8 (the host's
+// Channels::dropout_min).
+__device__ __forceinline__ bool dropout_keep(uint32_t pos, uint32_t key, uint32_t keep_min) {
+  uint32_t x = pos ^ key;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= keep_min;
+}
 
 // The diagonal offset of "no diagonal" (bound_causal's offset replaces it).
 constexpr int kNoDiag = 1 << 29;

@@ -36,9 +36,14 @@ it back, as B1 does, so P is recomputed from the scores B1 summed. The
 segment channel (``q_segments`` / ``kv_segments``, batch 1) runs the
 kernel's segment instantiation (entry ``lite_flash_bwd_segments``, counted
 in ``flash_bwd.segment_launches``): each 128-key tile walks only the q rows
-its ids can meet (:mod:`liteattention_torch.ops.segments`). The JAX
-function's other mask channels (window, softcap, dropout) are not ported
-and raise. :func:`flash_bwd` runs its plain PyTorch version
+its ids can meet (:mod:`liteattention_torch.ops.segments`). Attention
+dropout runs the kernel's DROPOUT instantiation (source
+``csrc/flash_bwd_dropout.cu``, entry ``lite_flash_bwd_dropout``, counted in
+``flash_bwd.dropout_launches``; the key range with it): each score
+regenerates B1's keep mask (:func:`~liteattention_torch.ops.dropout.
+dropout_keep_mask`, ``bh`` the q head), dV takes the dropped and rescaled
+P and dS the dropped and rescaled dP, as in JAX. The JAX function's other
+mask channels (window, softcap) are not ported and raise. :func:`flash_bwd` runs its plain PyTorch version
 (:func:`flash_bwd_plain`, the same one pass over 128-key tiles) for CPU
 tensors and the kernels for CUDA tensors. :func:`flash_bwd_dq_plain` and
 :func:`flash_bwd_dkv_plain` are B7a's and B7b's plain versions, which the
@@ -50,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from liteattention_torch.ops import _build, segments
+from liteattention_torch.ops.dropout import dropout_keep, dropout_seed_tensor, dropout_threshold
 
 LOG2E = 1.4426950408889634
 # q rows per chunk of the plain versions (bounds their score matrices).
@@ -67,13 +73,19 @@ def causal_mask(q0: int, rows: int, seqlen_q: int, seqlen_k: int, device):
 class _Keys:
     """B1's channels as the plain versions apply them: the log2-space
     scores of q rows ``row`` against keys ``col`` (ALiBi added, hidden keys
-    -inf) and lse in log2 units (with ALiBi and ``bound_causal`` less the
+    -inf), lse in log2 units (with ALiBi and ``bound_causal`` less the
     per-row constant ``slope * shift`` that the scores leave out, ``shift =
-    max(Sk - kv_bound[b], 0)``)."""
+    max(Sk - kv_bound[b], 0)``) and, with ``dropout_p``, B1's keep mask."""
 
     def __init__(self, b, h, sq, sk, device, scale, causal, kv_bound=None, kv_low=None,
-                 bound_causal=False, alibi_slopes=None, q_segments=None, kv_segments=None):
+                 bound_causal=False, alibi_slopes=None, q_segments=None, kv_segments=None,
+                 dropout_p=0.0, dropout_seed=None):
         self.sq, self.sk, self.scale, self.causal = sq, sk, scale, causal
+        self.dropout_p = dropout_p
+        if dropout_p > 0.0:
+            self.seed = dropout_seed_tensor(dropout_seed, device)
+            self.bh = (torch.arange(b, device=device)[:, None] * h
+                       + torch.arange(h, device=device))[:, :, None, None]
         self.q_seg = self.k_seg = None
         if q_segments is not None:
             self.q_seg = q_segments.to(device).reshape(b, 1, sq, 1)
@@ -112,6 +124,16 @@ class _Keys:
             hidden = hidden | (self.q_seg[:, :, rows] != self.k_seg[..., col.reshape(-1)])
         return s.masked_fill(hidden, -torch.inf)
 
+    def drop(self, p, dp, row, col):
+        """JAX's dropout of the backward: ``(D * P, D * dP)`` with ``D =
+        keep / (1 - p)`` at q rows ``row`` and keys ``col`` (as
+        :meth:`scores` takes them); ``(p, dp)`` without dropout."""
+        if self.dropout_p <= 0.0:
+            return p, dp
+        keep = dropout_keep(self.seed, self.bh, row, col, self.dropout_p)
+        rp = 1.0 / (1.0 - self.dropout_p)
+        return torch.where(keep, p * rp, 0.0), torch.where(keep, dp * rp, 0.0)
+
     def lse2(self, lse):
         """``lse`` ``[B, H, R]`` (natural log, B1's) -> ``[B, H, R, 1]`` in
         log2 units against the scores."""
@@ -125,7 +147,8 @@ def _plain_chunks(q, k, v, dout, lse, delta, scale, causal, **channels):
     """Yield ``(q0, p, ds)`` per chunk of q rows, fp32, with K/V expanded
     to the q heads: P recomputed from lse exactly as the kernels do
     (``p = 0`` where lse is -inf or the key is hidden), ``dS = P * (dP -
-    delta) * scale``."""
+    delta) * scale``; with dropout (JAX's order) ``p`` is the dropped and
+    rescaled P that dV takes and dP is dropped and rescaled before dS."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     group = h // k.shape[1]
@@ -141,13 +164,15 @@ def _plain_chunks(q, k, v, dout, lse, delta, scale, causal, **channels):
         lse2 = keys.lse2(lse[:, :, rows])
         p = torch.where(torch.isfinite(lse2), torch.exp2(s - lse2), 0.0)
         dp = torch.matmul(dout[:, :, rows].float(), vf.transpose(-1, -2))
-        yield q0, p, p * (dp - delta[:, :, rows, None]) * scale
+        pd, dp = keys.drop(p, dp, row, col)
+        yield q0, pd, p * (dp - delta[:, :, rows, None]) * scale
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, scale, causal, **channels):
     """Plain version of B7a: dQ ``[B, H, Sq, D]`` in q's dtype.
     ``channels``: B1's (``kv_bound``, ``kv_low``, ``bound_causal``,
-    ``alibi_slopes``), as :func:`flash_attention_bwd` takes them."""
+    ``alibi_slopes``, segments) and dropout (``dropout_p``,
+    ``dropout_seed``), as :func:`flash_attention_bwd` takes them."""
     group = q.shape[1] // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     dq = [
@@ -184,10 +209,12 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
 
     Walks 128-key tiles in order, as the kernel's CTAs do: per tile, P and
     dS over every q row (P recomputed from lse, 0 where lse is -inf or
-    masked; ``dS = P * (dP - delta) * scale``), each rounded to q's dtype
-    before its product; dK, dV of the tile's keys, and dQ accumulated in
-    fp32 tile after tile. dK, dV sum each kv head's group of q heads.
-    ``channels``: B1's, as :func:`flash_attention_bwd` takes them.
+    masked; ``dS = P * (dP - delta) * scale``; with dropout dV takes the
+    dropped and rescaled P and dS the dropped and rescaled dP), each
+    rounded to q's dtype before its product; dK, dV of the tile's keys,
+    and dQ accumulated in fp32 tile after tile. dK, dV sum each kv head's
+    group of q heads. ``channels``: B1's and dropout, as
+    :func:`flash_attention_bwd` takes them.
     """
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
@@ -210,8 +237,9 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
         s = keys.scores(torch.matmul(qf, kt.transpose(-1, -2)), row, col)
         p = torch.where(live, torch.exp2(s - lse2), 0.0)
         dp = torch.matmul(dof, vt.transpose(-1, -2))
+        pd, dp = keys.drop(p, dp, row, col)
         ds = (p * (dp - delta) * scale).to(q.dtype).float()
-        p = p.to(q.dtype).float()
+        p = pd.to(q.dtype).float()
         dv[:, :, tile] = torch.matmul(p.transpose(-1, -2), dof)
         dk[:, :, tile] = torch.matmul(ds.transpose(-1, -2), qf)
         dq += torch.matmul(ds, kt)
@@ -242,6 +270,24 @@ def check_head_dim(d: int, channels: bool, name: str, key_range_only: bool = Fal
             "kv_bound, kv_low, alibi_slopes and segments"
         raise ValueError(f"{name}: {what} at head dim {d} not built (built: {built}; "
                          "ROADMAP B-iii 4)")
+
+
+# Head dims of B1's and B7's dropout instantiations.
+DROPOUT_HEAD_DIMS = (64, 128)
+
+
+def check_dropout(d: int, alibi: bool, segments: bool, name: str) -> None:
+    """Raise ``NotImplementedError`` unless B1's and B7's dropout
+    instantiations take this call on the card: the dense walk at head dim
+    64 or 128, with or without the key range; not ALiBi or segments with
+    dropout (ROADMAP B-i 5), nor another head dim (B-iii 4)."""
+    if alibi or segments:
+        what = "alibi_slopes" if alibi else "segments (varlen)"
+        raise NotImplementedError(f"{name}: {what} with dropout is not built on the card "
+                                  "(ROADMAP B-i 5)")
+    if d not in DROPOUT_HEAD_DIMS:
+        raise NotImplementedError(f"{name}: dropout at head dim {d} is not built on the card "
+                                  f"(built: {DROPOUT_HEAD_DIMS}; ROADMAP B-iii 4)")
 
 
 def check_segments(q_segments, kv_segments, b: int, sq: int, sk: int, per_batch: bool,
@@ -283,21 +329,26 @@ MAX_ALIBI_GROUP = 256
 
 def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, kv_low=None,
               bound_causal: bool = False, alibi_slopes=None, q_segments=None, kv_segments=None,
-              segment_walk=None):
+              segment_walk=None, dropout_p: float = 0.0, dropout_seed=None):
     """B7: dq, dk, dv from q, k, v, the forward's o and lse (``[B, H, Sq]``
     fp32, natural log) and dO, in one pass (three launches); with B1's
     per-batch channels (``kv_bound``/``kv_low`` ``[B]``, ``alibi_slopes``
     ``[B, H]`` or ``[H]``) on the RANGE / ALIBI instantiations, with segment
     ids (``[1, Sq]``, ``[1, Sk]``; ``segment_walk`` their
     :class:`~liteattention_torch.ops.segments.SegmentWalk` if the forward
-    made it) on the segment kernel."""
+    made it) on the segment kernel, with ``dropout_p`` > 0 (the forward's
+    ``dropout_seed``) on the DROPOUT instantiations (the key range too)."""
     bound_causal = bool(bound_causal and kv_bound is not None)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, kv_bound=kv_bound,
                                kv_low=kv_low, bound_causal=bound_causal,
                                alibi_slopes=alibi_slopes, q_segments=q_segments,
-                               kv_segments=kv_segments)
-    plain = kv_bound is None and kv_low is None and alibi_slopes is None
+                               kv_segments=kv_segments, dropout_p=dropout_p,
+                               dropout_seed=dropout_seed)
+    dropout = dropout_p > 0.0
+    if dropout:
+        check_dropout(q.shape[-1], alibi_slopes is not None, q_segments is not None, "flash_bwd")
+    plain = kv_bound is None and kv_low is None and alibi_slopes is None and not dropout
     _check_cuda(q, k, v, o, lse, dout, channels=not plain or q_segments is not None)
     if q_segments is not None:
         if segment_walk is None:
@@ -332,6 +383,14 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
             raise ValueError(f"flash_bwd: ALiBi takes at most {MAX_ALIBI_GROUP} q-heads per kv-head")
         slopes = alibi_slopes.to(q.device, torch.float32).reshape(-1, h).expand(b, h).contiguous()
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    if dropout:
+        seed = dropout_seed_tensor(dropout_seed, q.device)
+        err = lib.lite_flash_bwd_dropout(*ptrs, ptr(bound), ptr(low), seed.data_ptr(), *dims,
+                                         int(bound_causal), dropout_threshold(dropout_p),
+                                         1.0 / (1.0 - dropout_p), *dev)
+        _build.check(err, "flash_bwd_dropout")
+        flash_bwd.dropout_launches += 1
+        return dq, dk, dv
     err = lib.lite_flash_bwd_masked(*ptrs, ptr(bound), ptr(low), ptr(slopes), *dims,
                                     int(bound_causal), *dev)
     _build.check(err, "flash_bwd")
@@ -367,14 +426,16 @@ flash_bwd.launches = 0
 flash_bwd.bound_launches = 0
 flash_bwd.alibi_launches = 0
 flash_bwd.segment_launches = 0
+flash_bwd.dropout_launches = 0
 
 # Mask channels of the JAX function that the port does not take yet.
-_UNPORTED = ("window", "softcap", "dropout_p", "dropout_seed")
+_UNPORTED = ("window", "softcap")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_bound=None,
                         bound_causal: bool = False, kv_low=None, alibi_slopes=None,
-                        q_segments=None, kv_segments=None, segment_walk=None, **channels):
+                        q_segments=None, kv_segments=None, segment_walk=None,
+                        dropout_p: float = 0.0, dropout_seed=None, **channels):
     """dQ, dK, dV of the dense flash forward.
 
     ``q`` ``[B, H, Sq, D]``, ``k``/``v`` ``[B, Hk, Sk, D]``, ``o``/``do``
@@ -389,17 +450,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
     Sk]``: a key is seen only by the rows of its id (batch 1, not with the
     per-batch channels: ROADMAP A11); ``segment_walk``, the forward's
     :class:`~liteattention_torch.ops.segments.SegmentWalk` of those ids, if
-    it made one. Passing one of the JAX function's other mask channels
-    (window, softcap, dropout), even at its default, raises
-    ``NotImplementedError`` naming it.
+    it made one. ``dropout_p`` and ``dropout_seed``: the forward's
+    attention dropout, whose keep mask B7 regenerates (``o`` is the dropped
+    output, so delta is too); on the card head dim 64 or 128, not with
+    ALiBi or segments (``NotImplementedError`` naming ROADMAP B-i 5 or
+    B-iii 4). Passing one of the JAX function's other mask channels
+    (window, softcap), even at its default, raises ``NotImplementedError``
+    naming it.
     """
     unknown = set(channels) - set(_UNPORTED)
     if unknown:
         raise TypeError(f"flash_attention_bwd: unexpected arguments {sorted(unknown)}")
     if channels:
-        item = "B-i 5" if all(n.startswith("dropout") for n in channels) else "B-i 3"
         raise NotImplementedError(
-            f"flash_attention_bwd: {sorted(channels)} not ported yet (ROADMAP A11, {item})")
+            f"flash_attention_bwd: {sorted(channels)} not ported yet (ROADMAP A11, B-i 3)")
     b, h = q.shape[:2]
     for name, x, shapes in (("kv_bound", kv_bound, [(b,)]), ("kv_low", kv_low, [(b,)]),
                             ("alibi_slopes", alibi_slopes, [(h,), (b, h)])):
@@ -410,16 +474,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
                        kv_bound is not None or kv_low is not None or alibi_slopes is not None,
                        "flash_attention_bwd")
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    if dropout_p > 0.0:
+        dropout_threshold(dropout_p)  # checks 0 <= p < 1
     return flash_bwd(q, k, v, o, lse.contiguous(), do, scale, causal, kv_bound=kv_bound,
                      kv_low=kv_low, bound_causal=bound_causal, alibi_slopes=alibi_slopes,
-                     q_segments=q_segments, kv_segments=kv_segments, segment_walk=segment_walk)
+                     q_segments=q_segments, kv_segments=kv_segments, segment_walk=segment_walk,
+                     dropout_p=dropout_p, dropout_seed=dropout_seed)
 
 
 __all__ = [
     "CHANNEL_HEAD_DIMS",
+    "DROPOUT_HEAD_DIMS",
     "HEAD_DIMS",
     "RANGE_HEAD_DIMS",
     "causal_mask",
+    "check_dropout",
     "check_head_dim",
     "check_segments",
     "flash_attention_bwd",

@@ -37,8 +37,15 @@ is seen by the rows of its id) runs B1's segment walk (entry
 ``lite_flash_fwd_segments``, counted in ``flash_attention.segment_launches``):
 each 128-row q-tile walks only the key range its ids can meet
 (:mod:`liteattention_torch.ops.segments`), and its gradient B7's segment
-kernel (``flash_bwd.segment_launches``). The other JAX mask channels
-(window, softcap, dropout) are not ported and raise.
+kernel (``flash_bwd.segment_launches``). Attention dropout (``dropout_p``,
+``dropout_seed``) runs B1's dropout instantiation (source
+``csrc/flash_fwd_dropout.cu``, entry ``lite_flash_fwd_dropout``, counted in
+``flash_attention.dropout_launches``): the dense walk, with the key range,
+drops each score's P after the row sum by the counter hash of
+:func:`dropout_keep_mask` (about eleven integer instructions a score, one
+integer compare against :func:`dropout_threshold`), and its gradient runs
+B7's. The other JAX mask channels (window, softcap) are not ported and
+raise.
 
 MLA shapes -- V with its own head dim, and/or the ``qv`` term that adds
 ``qv . v`` to the scores -- are forward only, as in JAX (entry
@@ -68,9 +75,16 @@ import torch
 from liteattention_torch.ops import _build
 from liteattention_torch.ops.flash_bwd import (
     causal_mask,
+    check_dropout,
     check_head_dim,
     check_segments,
     flash_attention_bwd,
+)
+from liteattention_torch.ops.dropout import (
+    dropout_keep,
+    dropout_keep_mask,
+    dropout_seed_tensor,
+    dropout_threshold,
 )
 from liteattention_torch.ops.flash_decode import (
     decode_plain,
@@ -100,6 +114,8 @@ def flash_attention_plain(
     alibi_slopes: Optional[torch.Tensor] = None,
     q_segments: Optional[torch.Tensor] = None,
     kv_segments: Optional[torch.Tensor] = None,
+    dropout_p: float = 0.0,
+    dropout_seed=None,
 ):
     """Plain PyTorch version of the kernel: fp32 scores, exact softmax in
     log2 space (the kernel's and the plain lite version's form).
@@ -115,10 +131,14 @@ def flash_attention_plain(
     key is nearer: the kernel's form, which keeps the scores over a large,
     mostly empty cache precise in fp32), which is added back to lse. With
     ``q_segments`` ``[B, Sq]`` and ``kv_segments`` ``[B, Sk]`` a key is
-    seen only by the rows of its id. Returns (out ``[B, H, Sq, Dv]`` in q's
-    dtype, lse fp32 natural log). A row with no valid key gives out 0 and
-    lse -inf. Query rows are processed in chunks so long sequences fit in
-    memory.
+    seen only by the rows of its id. With ``dropout_p`` > 0 the JAX
+    kernel's attention dropout: P, unnormalised, keeps the entries of
+    :func:`dropout_keep_mask` at ``dropout_seed`` (``bh = b * H + h``, the
+    global q row and key column) after its row sum ``l`` is taken, and the
+    output is scaled by ``1 / (1 - p)``; lse stays dropout-free. Returns
+    (out ``[B, H, Sq, Dv]`` in q's dtype, lse fp32 natural log). A row with
+    no valid key gives out 0 and lse -inf. Query rows are processed in
+    chunks so long sequences fit in memory.
     """
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -135,6 +155,10 @@ def flash_attention_plain(
             shift = (sk - kv_bound.to(q.device)).clamp_min(0).float().reshape(b, 1, 1, 1)
         lse_shift = slopes[:, :, None, None] * shift
         slopes = (slopes * LOG2E)[:, :, None, None]
+    if dropout_p > 0.0:
+        seed = dropout_seed_tensor(dropout_seed, q.device)
+        bh = (torch.arange(b, device=q.device)[:, None] * h
+              + torch.arange(h, device=q.device))[:, :, None, None]
     outs, lses = [], []
     for q0 in range(0, sq, PLAIN_Q_CHUNK):
         qf = q[:, :, q0 : q0 + PLAIN_Q_CHUNK].float()
@@ -161,7 +185,12 @@ def flash_attention_plain(
         p = torch.exp2(s - torch.where(torch.isfinite(m), m, 0.0))
         l = p.sum(dim=-1, keepdim=True)
         live = l > 0
-        outs.append((torch.matmul(p, vf) / torch.where(live, l, 1.0)).to(q.dtype))
+        if dropout_p > 0.0:
+            p = torch.where(dropout_keep(seed, bh, row, col, dropout_p), p, 0.0)
+            o = torch.matmul(p, vf) * ((1.0 / (1.0 - dropout_p)) / torch.where(live, l, 1.0))
+        else:
+            o = torch.matmul(p, vf) / torch.where(live, l, 1.0)
+        outs.append(o.to(q.dtype))
         lse = torch.where(live, m * LN2 + torch.log(l), -torch.inf)
         if alibi_slopes is not None:
             lse = lse - lse_shift
@@ -212,6 +241,7 @@ def flash_attention(
     block_sizes: Optional[BlockSizes] = None,
     return_lse: bool = False,
     dropout_p: float = 0.0,
+    dropout_seed=None,
     qv: Optional[torch.Tensor] = None,
 ):
     """Dense flash attention forward, differentiable in q, k, v.
@@ -229,13 +259,17 @@ def flash_attention(
     ``qv . v`` to the scores; the output is ``[B, H, Sq, Dv]``. Their
     backward raises.
 
-    ``dropout_p`` is a channel of the JAX kernel that the port does not
-    take yet; it raises.
+    ``dropout_p`` > 0: the JAX kernel's attention dropout, on B1's and
+    B7's dropout instantiations (:func:`flash_attention_masked`, which
+    says what they take); ``dropout_seed`` an int or int32 scalar (tensor
+    on the device, read there; default 0, as in JAX). The MLA shapes are
+    inference-only and take none.
     """
-    if dropout_p:
-        raise NotImplementedError("flash_attention: dropout is not ported yet")
     if block_sizes is not None and block_sizes != BlockSizes(128, 128):
         raise ValueError(f"only BlockSizes(128, 128) is built, got {block_sizes}")
+    if dropout_p > 0.0:
+        return flash_attention_masked(q, k, v, scale=scale, causal=causal, return_lse=return_lse,
+                                      dropout_p=dropout_p, dropout_seed=dropout_seed, qv=qv)
     _check_inputs(q, k, v, qv)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -305,16 +339,20 @@ def _launch_mla(q, k, v, qv, scale, causal):
 
 
 def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=False,
-            alibi_slopes=None, q_segments=None, kv_segments=None, walk=None):
+            alibi_slopes=None, q_segments=None, kv_segments=None, walk=None, dropout_p=0.0,
+            dropout_seed=None):
     """B1 on the card, with or without its channels; one launch, counted
     in ``flash_attention.launches``, ``.bound_launches`` (bound or low),
-    ``.alibi_launches`` or ``.segment_launches`` (with segments ``walk``
-    is the ids' :class:`~liteattention_torch.ops.segments.SegmentWalk`)."""
+    ``.alibi_launches``, ``.segment_launches`` (with segments ``walk``
+    is the ids' :class:`~liteattention_torch.ops.segments.SegmentWalk`) or
+    ``.dropout_launches`` (dropout, with or without the key range)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("the CUDA kernel takes bf16 q, k, v")
     b, h, sq, d = q.shape
+    if dropout_p > 0.0:
+        check_dropout(d, alibi_slopes is not None, q_segments is not None, "flash_attention")
     check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None
                    or q_segments is not None, "flash_attention",
                    key_range_only=alibi_slopes is None and q_segments is None)
@@ -332,6 +370,17 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    if dropout_p > 0.0:
+        seed = dropout_seed_tensor(dropout_seed, q.device)
+        err = _build.load_kernels().lite_flash_fwd_dropout(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            ptr(bound), ptr(low), seed.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
+            float(scale), int(causal), int(bound_causal), dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p), q.device.index, _build.stream(q.device),
+        )
+        _build.check(err, "flash_fwd_dropout")
+        flash_attention.dropout_launches += 1
+        return out, lse
     err = _build.load_kernels().lite_flash_fwd_masked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         ptr(bound), ptr(low), ptr(slopes), b, h, k.shape[1], sq, k.shape[2], d,
@@ -370,20 +419,24 @@ flash_attention.alibi_launches = 0
 flash_attention.segment_launches = 0
 flash_attention.mla_launches = 0
 flash_attention.mla_v512_launches = 0
+flash_attention.dropout_launches = 0
 
 
 class _FlashAttentionMasked(torch.autograd.Function):
     """Forward through B1 with its channels (or the plain version),
     backward through B7 with the same channels. The channels get no
     gradient (None), as JAX's ``_flash_core_bwd`` gives none. The segment
-    walk's ranges, computed once on the card, serve both."""
+    walk's ranges, computed once on the card, serve both; so does the
+    dropout seed, which B7 reads to regenerate B1's keep mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_bound, kv_low, alibi, q_seg, kv_seg, scale, causal,
-                bound_causal):
+    def forward(ctx, q, k, v, kv_bound, kv_low, alibi, q_seg, kv_seg, seed, scale, causal,
+                bound_causal, dropout_p):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         channels = dict(kv_bound=kv_bound, kv_low=kv_low, bound_causal=bound_causal,
                         alibi_slopes=alibi, q_segments=q_seg, kv_segments=kv_seg)
+        if dropout_p > 0.0:
+            channels.update(dropout_p=dropout_p, dropout_seed=seed)
         walk = None
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, causal, **channels)
@@ -401,7 +454,7 @@ class _FlashAttentionMasked(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.scale, ctx.causal,
                                          segment_walk=ctx.walk, **ctx.channels)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None, None
 
 
 def flash_attention_masked(
@@ -448,32 +501,50 @@ def flash_attention_masked(
     range alone (``kv_bound``, ``kv_low``, ``bound_causal``) 256 too,
     forwards (96, and the other channels or any gradient at 256, raise:
     ROADMAP B-iii 4), and no ``qv``; segments do not combine with the
-    per-batch channels (ROADMAP A11). Window, ``attention_chunk``, softcap
-    and dropout raise ``NotImplementedError`` naming themselves and their
-    ROADMAP items. ``block_sizes`` is a tiling knob of the JAX kernel,
-    accepted and ignored (B1 runs 128 x 128)."""
+    per-batch channels (ROADMAP A11).
+
+    ``dropout_p`` > 0 (with ``dropout_seed``, an int or int32 scalar,
+    default 0): the JAX kernels' attention dropout, differentiable. B1
+    drops P by :func:`dropout_keep_mask` after its row sum and folds ``1 /
+    (1 - p)`` into the output; lse stays dropout-free; B7 regenerates the
+    mask from the seed. On the card it runs B1's and B7's dropout
+    instantiations (counted in ``flash_attention.dropout_launches`` and
+    ``flash_bwd.dropout_launches``): head dim 64 or 128, causal or not,
+    with the key range (``kv_bound``, ``kv_low``, ``bound_causal``) or
+    without; with ALiBi or segments it raises ``NotImplementedError``
+    naming ROADMAP B-i 5, at another head dim B-iii 4. The plain versions
+    take it with every channel. A seed without ``dropout_p`` does
+    nothing, as in JAX. Window, ``attention_chunk`` and softcap raise
+    ``NotImplementedError`` naming themselves and their ROADMAP items.
+    ``block_sizes`` is a tiling knob of the JAX kernel, accepted and
+    ignored (B1 runs 128 x 128)."""
     unported = [
         name for name, used in (
             ("window", window is not None),
             ("attention_chunk", bool(attention_chunk)),
             ("softcap", bool(softcap)),
-            ("dropout", dropout_p > 0.0 or dropout_seed is not None),
         ) if used
     ]
     if unported:
-        item = "B-i 5" if unported == ["dropout"] else "B-i 3"
         raise NotImplementedError(f"flash_attention_masked: {', '.join(unported)} not ported "
-                                  f"yet (ROADMAP A11, {item})")
+                                  "yet (ROADMAP A11, B-i 3)")
     del block_sizes
     segments = q_segments is not None or kv_segments is not None
-    if kv_bound is None and kv_low is None and alibi_slopes is None and not segments:
+    dropout = dropout_p > 0.0
+    if (kv_bound is None and kv_low is None and alibi_slopes is None and not segments
+            and not dropout):
         return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
     _check_inputs(q, k, v, qv)
     if qv is not None or v.shape[-1] != q.shape[-1]:
         raise NotImplementedError(
-            "flash_attention_masked: kv_bound, kv_low, alibi_slopes and segments with the MLA "
-            "shapes (qv, V's own head dim) are not ported yet (ROADMAP A11)"
+            "flash_attention_masked: kv_bound, kv_low, alibi_slopes, segments and dropout with "
+            "the MLA shapes (qv, V's own head dim) are not ported (ROADMAP A11; the MLA shapes "
+            "are inference-only, as in JAX)"
         )
+    seed = None
+    if dropout:
+        dropout_threshold(dropout_p)  # checks 0 <= p < 1
+        seed = dropout_seed_tensor(dropout_seed, q.device)
     b, h = q.shape[:2]
     for name, x, shapes in (("kv_bound", kv_bound, [(b,)]), ("kv_low", kv_low, [(b,)]),
                             ("alibi_slopes", alibi_slopes, [(h,), (b, h)])):
@@ -486,8 +557,8 @@ def flash_attention_masked(
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     out, lse = _FlashAttentionMasked.apply(
-        q, k, v, kv_bound, kv_low, alibi_slopes, q_segments, kv_segments, float(scale),
-        bool(causal), bool(bound_causal and kv_bound is not None),
+        q, k, v, kv_bound, kv_low, alibi_slopes, q_segments, kv_segments, seed, float(scale),
+        bool(causal), bool(bound_causal and kv_bound is not None), float(dropout_p),
     )
     if return_lse:
         return out, lse
@@ -597,6 +668,7 @@ def flash_attention_decode_plain(
 flash_attention_decode.launches = 0
 
 __all__ = [
+    "dropout_keep_mask",
     "flash_attention",
     "flash_attention_masked",
     "flash_attention_plain",

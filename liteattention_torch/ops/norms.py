@@ -1,11 +1,13 @@
-"""Fused-norm semantics: residual-add + LayerNorm / RMSNorm.
+"""Fused-norm semantics: dropout + residual-add + LayerNorm / RMSNorm.
 
 Counterpart of ``liteattention_tpu/ops/norms.py``. Statistics in fp32,
-the IO dtype preserved; ``dropout_add_norm`` adds the residual (in fp32
-with ``residual_in_fp32``) and with ``prenorm`` also returns the pre-norm
-sum, the residual stream of a pre-norm block. None of these is a Pallas
-kernel in the JAX package (XLA fuses them); here they are plain torch.
-Residual dropout is not ported: ``dropout_p > 0`` raises.
+the IO dtype preserved; ``dropout_add_norm`` drops ``x`` (residual
+dropout, when not ``deterministic``), adds the residual (in fp32 with
+``residual_in_fp32``) and with ``prenorm`` also returns the pre-norm sum,
+the residual stream of a pre-norm block. None of these is a Pallas kernel
+in the JAX package (XLA fuses them); here they are plain torch. The keep
+mask is drawn from an explicit ``torch.Generator`` in place of JAX's rng
+key.
 """
 
 from __future__ import annotations
@@ -51,17 +53,26 @@ def dropout_add_norm(
     prenorm: bool = False,
     residual_in_fp32: bool = False,
     rms: bool = False,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ):
-    """``norm(x + residual)``, and with ``prenorm`` also the pre-norm sum.
+    """``norm(dropout(x) + residual)``, and with ``prenorm`` also the
+    pre-norm sum.
 
-    The sum is taken in fp32 when ``residual_in_fp32`` (else in x's
-    dtype) and rounded to x's dtype before the norm, as the JAX function
-    does. ``dropout_p > 0`` raises: residual dropout is not ported.
+    Dropout runs when ``dropout_p > 0`` and not ``deterministic`` (JAX's
+    default, True, leaves ``x`` as it is): each element of ``x`` is kept
+    with probability ``1 - dropout_p`` (:func:`dropout_mask`, drawn from
+    ``generator``, which must then be given, on x's device) and scaled by
+    ``1 / (1 - dropout_p)`` in x's dtype. The sum is taken in fp32 when ``residual_in_fp32`` (else
+    in x's dtype) and rounded to x's dtype before the norm, as the JAX
+    function does.
     """
-    if dropout_p > 0.0:
-        raise NotImplementedError("dropout_add_norm: residual dropout is not ported yet")
+    h = x
+    if dropout_p > 0.0 and not deterministic:
+        keep = dropout_mask(x, dropout_p, generator)
+        h = torch.where(keep, x / (1.0 - dropout_p), 0.0).to(x.dtype)
     acc_dtype = torch.float32 if residual_in_fp32 else x.dtype
-    pre = x.to(acc_dtype)
+    pre = h.to(acc_dtype)
     if residual is not None:
         pre = pre + residual.to(acc_dtype)
     out = _norm_core(pre.to(x.dtype), weight, bias, eps, rms)
@@ -70,4 +81,32 @@ def dropout_add_norm(
     return out
 
 
-__all__ = ["layer_norm", "rms_norm", "dropout_add_norm"]
+def dropout_mask(x: torch.Tensor, dropout_p: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The keep mask of residual dropout over ``x``: bool, True with
+    probability ``1 - dropout_p``, drawn from ``generator`` on x's device
+    (JAX's ``bernoulli(rng, 1 - p, x.shape)``)."""
+    if generator is None:
+        raise ValueError("dropout requires a torch.Generator (generator=), as JAX's needs an "
+                         "rng key")
+    return torch.rand(x.shape, generator=generator, device=x.device) >= dropout_p
+
+
+def dropout_add_layer_norm(*args, **kwargs):
+    """:func:`dropout_add_norm` with LayerNorm."""
+    return dropout_add_norm(*args, rms=False, **kwargs)
+
+
+def dropout_add_rms_norm(*args, **kwargs):
+    """:func:`dropout_add_norm` with RMSNorm."""
+    return dropout_add_norm(*args, rms=True, **kwargs)
+
+
+__all__ = [
+    "layer_norm",
+    "rms_norm",
+    "dropout_add_norm",
+    "dropout_add_layer_norm",
+    "dropout_add_rms_norm",
+    "dropout_mask",
+]

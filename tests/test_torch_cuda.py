@@ -1426,3 +1426,92 @@ def test_wan_training_step_on_card(dev):
             model(lat.to(dev).bfloat16(), tt.to(dev), text.to(dev).bfloat16())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# Attention dropout (B1's and B7's DROPOUT instantiations, head dims 64 and
+# 128, with and without the key range). (b, h, hk, sq, sk, d), causal,
+# kv_bound, kv_low, bound_causal, p.
+DROPOUT_CASES = [
+    ((2, 4, 2, 300, 555, 64), False, None, None, False, 0.1),
+    ((2, 4, 4, 257, 257, 64), True, None, None, False, 0.5),
+    ((1, 8, 2, 1000, 640, 128), True, None, None, False, 0.1),
+    ((2, 4, 1, 200, 200, 128), False, None, None, False, 0.9),
+    ((3, 4, 2, 140, 500, 64), False, [500, 300, 270], [5, 128, 140], True, 0.25),
+    ((2, 8, 2, 4, 1059, 128), False, [1059, 700], [0, 3], True, 0.1),
+]
+
+
+@pytest.mark.parametrize("shape,causal,bound,low,bound_causal,p", DROPOUT_CASES)
+def test_flash_dropout_kernels(dev, shape, causal, bound, low, bound_causal, p):
+    b, h, hk, sq, sk, d = shape
+    q, k, v = _qkv(dev, b, h, hk, sq, sk, d, seed=sq + 3 * sk)
+    do = _qkv(dev, b, h, hk, sq, sk, d, seed=sq + 1)[0]
+    kw = _bwd_channels(dev, b, h, bound, low, bound_causal, None)
+    seed = torch.tensor([-98765], dtype=torch.int32, device=dev)
+    kw.update(dropout_p=p, dropout_seed=seed)
+    n_fwd, n_bwd = flash_attention.dropout_launches, flash_bwd.dropout_launches
+    out, lse = flash_attention_masked(q, k, v, causal=causal, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.dropout_launches == n_fwd + 1
+    ro, rl = flash_attention_plain(q, k, v, causal=causal, **kw)
+    assert (out.float() - ro.float()).abs().max().item() < 2e-2 * max(1.0, 1.0 / (1.0 - p))
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    # lse is dropout-free: B1 without dropout gives the same values.
+    kw0 = {n: x for n, x in kw.items() if not n.startswith("dropout")}
+    _, lse0 = flash_attention_masked(q, k, v, causal=causal, return_lse=True, **kw0)
+    assert torch.equal(lse, lse0)
+    # Two launches give the same bits.
+    assert torch.equal(out, flash_attention_masked(q, k, v, causal=causal, **kw))
+    out = out.to(torch.bfloat16)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **kw)
+    torch.cuda.synchronize()
+    assert flash_bwd.dropout_launches == n_bwd + 1
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, d**-0.5, causal)
+    rq = flash_bwd_dq_plain(*args, **kw)
+    rk, rv = flash_bwd_dkv_plain(*args, **kw)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _check_grad(got, ref)
+    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _check_grad(dq2, rq)
+
+
+@pytest.mark.parametrize("d,c0,p", [(64, 0, 0.1), (64, 960, 0.5), (128, 128, 0.1),
+                                    (128, 960, 0.5)])
+def test_flash_dropout_reads_back_the_keep_mask(dev, d, c0, p):
+    # q = k = 0: P is uniform over the 64 visible keys [c0, c0 + 64); V
+    # one-hot over them, so out[i, j] = keep[i, c0 + j] / (1 - p) / 64.
+    from liteattention_torch.ops.flash_fwd import dropout_keep_mask
+
+    b, h, sq, sk = 2, 3, 1100, 1024
+    q = torch.zeros(b, h, sq, d, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(b, h, sk, d, dtype=torch.bfloat16, device=dev)
+    v = torch.zeros_like(k)
+    v[:, :, c0 : c0 + 64, :64] = torch.eye(64, dtype=torch.bfloat16, device=dev)
+    seed = 13579
+    out = flash_attention_masked(
+        q, k, v, kv_low=torch.full((b,), c0, dtype=torch.int32, device=dev),
+        kv_bound=torch.full((b,), c0 + 64, dtype=torch.int32, device=dev),
+        dropout_p=p, dropout_seed=seed)
+    for bi in range(b):
+        for hi in range(h):
+            keep = dropout_keep_mask(seed, bi * h + hi, 0, c0, (sq, 64), p, device=dev)
+            want = keep.float() * (1.0 / (1.0 - p)) / 64  # the kernel's fp32 1 / (1 - p)
+            assert torch.equal(out[bi, hi, :, :64].float(), want.bfloat16().float())
+
+
+def test_flash_dropout_raises_where_not_built(dev):
+    q, k, v = _qkv(dev, 1, 4, 2, 64, 64, 80)
+    with pytest.raises(NotImplementedError, match="head dim 80.*B-iii 4"):
+        flash_attention(q, k, v, dropout_p=0.1)
+    q, k, v = _qkv(dev, 1, 4, 2, 64, 64, 64)
+    with pytest.raises(NotImplementedError, match="alibi_slopes with dropout.*B-i 5"):
+        flash_attention_masked(q, k, v, alibi_slopes=torch.ones(4, device=dev), dropout_p=0.1)
+    seg = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="segments.*B-i 5"):
+        flash_attention_masked(q[:1], k[:1], v[:1], q_segments=seg, kv_segments=seg,
+                               dropout_p=0.1)

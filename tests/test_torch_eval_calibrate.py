@@ -166,6 +166,10 @@ def test_calibrate_constant_threshold_matches_jax(models, jit_denoise, monkeypat
 
 
 def test_calibrate_schedule_matches_jax(models, jit_denoise, monkeypatch):
+    # The port differs from JAX only where the delta-0 schedule misses the
+    # budget: JAX ships it, the port lowers the constant first (or warns;
+    # test_calibrate_schedule_tightens_a_missing_schedule). Here it fits,
+    # so the two must make the same calls and ship the same schedule.
     jmodel, params, pmodel, lat, text, _ = models
     jcalls, pcalls = _record(monkeypatch, jcal), _record(monkeypatch, pcal)
     kw = dict(num_steps=4, target_rel_l2=5e-3, iters=3, loosen_iters=2)
@@ -182,7 +186,39 @@ def test_calibrate_schedule_matches_jax(models, jit_denoise, monkeypatch):
         np.testing.assert_allclose(got[key], float(ref[key]), rtol=1e-3, atol=1e-6, err_msg=key)
     for key in ("mean_sparsity", "final_sparsity"):
         np.testing.assert_allclose(got[key], float(ref[key]), atol=1e-6, err_msg=key)
-    assert got["relative_l2"] <= 5e-3
+    # JAX's shipped schedule fits too: the case where the two cannot differ.
+    assert got["relative_l2"] <= 5e-3 and float(ref["relative_l2"]) <= 5e-3
+
+
+def test_calibrate_schedule_tightens_a_missing_schedule(models, monkeypatch):
+    # A constant forced past the border (the loosest threshold, 2.0): the
+    # delta-0 schedule built on it misses the budget, which JAX would ship.
+    # The port lowers the constant in steps of 1 until the schedule fits,
+    # and reports the shipped schedule's numbers; a schedule that still
+    # misses after the tries carries a warning.
+    _, _, pmodel, lat, text, _ = models
+    forced = {"threshold": 2.0, "relative_l2": 0.0, "mean_sparsity": 0.0}
+    monkeypatch.setattr(pcal, "calibrate_constant_threshold", lambda *a, **k: dict(forced))
+    calls = _record(monkeypatch, pcal)
+    budget = 1e-3
+    kw = dict(num_steps=4, target_rel_l2=budget, loosen_iters=2)
+    miss = peval.evaluate_sparsity_quality(pmodel, t(lat), t(text), num_steps=4,
+                                           thresholds=[-2.0, 2.0, 2.0, 2.0])
+    assert float(miss["relative_l2"]) > budget  # the forced constant's delta-0 schedule misses
+    for tries in (4, 1):
+        calls.clear()
+        monkeypatch.setattr(pcal, "TIGHTEN_TRIES", tries)
+        sched, got = pcal.calibrate_schedule(pmodel, t(lat), t(text), **kw)
+        delta0 = [c for c in calls if c[-1] == c[1]]  # the delta-0 schedules tried, in order
+        np.testing.assert_allclose(delta0[0], [-2.0, 2.0, 2.0, 2.0])
+        assert 2 <= len(delta0) <= tries + 1
+        assert got["threshold"] == 2.0 - (len(delta0) - 1)
+        shipped = peval.evaluate_sparsity_quality(pmodel, t(lat), t(text), num_steps=4,
+                                                  thresholds=sched.tolist())
+        np.testing.assert_allclose(got["relative_l2"], float(shipped["relative_l2"]), rtol=1e-6)
+        assert ("warning" in got) == (got["relative_l2"] > budget)
+        if tries == 4:
+            assert "warning" not in got and got["relative_l2"] <= budget
 
 
 def test_wan_e2e_speed_main_on_cpu(tmp_path, monkeypatch):

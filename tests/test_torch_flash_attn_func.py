@@ -163,10 +163,14 @@ def test_return_order_and_unported_options():
     out, mask = flash_attn_func(t(q), t(k), t(v), attn_read_list=m,
                                 return_skip_mask=True, thr=float("-inf"))
     assert mask.dtype == torch.bool and mask.all()
-    for kw in (dict(window_size=(16, 0)), dict(softcap=5.0), dict(attention_chunk=64),
-               dict(dropout_p=0.1)):
+    for kw in (dict(window_size=(16, 0)), dict(softcap=5.0), dict(attention_chunk=64)):
         with pytest.raises(NotImplementedError, match=next(iter(kw)).split("_")[0]):
             flash_attn_func(t(q), t(k), t(v), **kw)
+    # Dropout is ported on the dense path (tests/test_torch_dropout.py);
+    # the skip path is inference-only and refuses it, as JAX asserts.
+    assert flash_attn_func(t(q), t(k), t(v), dropout_p=0.1, dropout_seed=4).shape == q.shape
+    with pytest.raises(ValueError, match="dropout"):
+        flash_attn_func(t(q), t(k), t(v), attn_read_list=m, dropout_p=0.1)
     with pytest.raises(ValueError, match="alibi_slopes"):  # not on the skip path
         flash_attn_func(t(q), t(k), t(v), attn_read_list=m, alibi_slopes=torch.ones(4))
     with pytest.raises(ValueError):  # the skip path is non-causal

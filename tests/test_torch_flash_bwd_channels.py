@@ -42,7 +42,7 @@ from liteattention_torch.ops.flash_bwd import (  # noqa: E402
     flash_bwd_dq_plain,
     flash_bwd_plain,
 )
-from liteattention_torch.ops.flash_fwd import flash_attention_masked  # noqa: E402
+from liteattention_torch.ops.flash_fwd import check_dropout, flash_attention_masked  # noqa: E402
 
 TOL = 2e-5
 JAX_SHIFTED_TOL = 1e-4
@@ -342,10 +342,15 @@ def test_unported_channels_and_shapes_raise():
     x = torch.zeros(2, 2, 128, 64)
     lse = torch.zeros(2, 2, 128)
     args = (x, x, x, x, lse, x, 0.125, False)
-    for name, val in (("window", (4, 4)), ("softcap", 5.0), ("dropout_p", 0.1),
-                      ("dropout_seed", 3)):
+    for name, val in (("window", (4, 4)), ("softcap", 5.0)):
         with pytest.raises(NotImplementedError, match=name):
             flash_attention_bwd(*args, **{name: val})
+    # Dropout is ported (tests/test_torch_dropout.py): a seed alone does
+    # nothing, as in JAX; on the card head dims 64 and 128 are built.
+    for a, b in zip(flash_attention_bwd(*args, dropout_seed=3), flash_attention_bwd(*args)):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="head dim 80.*B-iii 4"):
+        check_dropout(80, False, False, "flash_bwd")
     # Segments (ported): batch 1, both ids, not with the per-batch channels.
     seg = dict(q_segments=torch.zeros(1, 128), kv_segments=torch.zeros(1, 128))
     with pytest.raises(ValueError, match="batch of 1"):

@@ -80,10 +80,14 @@ def test_attention_ref_matches_jax():
 
 
 def test_unported_channels_raise():
-    # Causal (test_torch_flash_bwd.py) and qv (test_torch_flash_fwd_mla.py)
-    # are ported; dropout is not.
+    # Causal (test_torch_flash_bwd.py), qv (test_torch_flash_fwd_mla.py)
+    # and dropout (test_torch_dropout.py) are ported; the MLA shapes are
+    # inference-only, so dropout with them raises, as a rate of 1 does.
     x = torch.zeros(1, 1, 128, 64)
-    with pytest.raises(NotImplementedError):
-        flash_attention(x, x, x, dropout_p=0.1)
+    assert flash_attention(x, x, x, dropout_p=0.1).shape == x.shape
+    with pytest.raises(NotImplementedError, match="MLA shapes"):
+        flash_attention(x, x, x[..., :32], dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_p"):
+        flash_attention(x, x, x, dropout_p=1.0)
     with pytest.raises(ValueError):
         flash_attention(x, x, x, block_sizes=BlockSizes(256, 128))

@@ -23,7 +23,11 @@ from liteattention_tpu.ops.flash_fwd import flash_attention_masked as jmasked  #
 from liteattention_tpu.ops.tile_sizes import BlockSizes as JBS  # noqa: E402
 from liteattention_torch.modules.mha import alibi_slopes  # noqa: E402
 from liteattention_torch.ops.flash_bwd import HEAD_DIMS, check_head_dim  # noqa: E402
-from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked  # noqa: E402
+from liteattention_torch.ops.flash_fwd import (  # noqa: E402
+    check_dropout,
+    flash_attention,
+    flash_attention_masked,
+)
 
 TOL = 2e-5
 GRAD_TOL = 2e-5  # dq, dk, dv against JAX's VJP (fp32, O(1) entries)
@@ -255,10 +259,15 @@ def test_channel_shapes_and_unported_channels():
         flash_attention_masked(q, k, v, kv_bound=torch.tensor([1, 2, 3]))
     with pytest.raises(ValueError, match="alibi_slopes"):
         flash_attention_masked(q, k, v, alibi_slopes=torch.ones(3))
-    for name, kw in (("window", dict(window=(8, 0))), ("softcap", dict(softcap=5.0)),
-                     ("dropout", dict(dropout_p=0.1))):
+    for name, kw in (("window", dict(window=(8, 0))), ("softcap", dict(softcap=5.0))):
         with pytest.raises(NotImplementedError, match=name):
             flash_attention_masked(q, k, v, **kw)
+    # Dropout is ported (tests/test_torch_dropout.py); with ALiBi it is not
+    # built on the card (ROADMAP B-i 5), and runs here on the plain version.
+    with pytest.raises(NotImplementedError, match="alibi_slopes with dropout.*B-i 5"):
+        check_dropout(64, True, False, "flash_attention")
+    alibi = flash_attention_masked(q, k, v, alibi_slopes=torch.ones(4), dropout_p=0.1)
+    assert alibi.shape == q.shape and torch.isfinite(alibi).all()
     # Segments (ported): batch 1 as in JAX, both ids, not with the per-batch
     # channels.
     seg = dict(q_segments=torch.zeros(1, 64), kv_segments=torch.zeros(1, 64))

@@ -125,15 +125,17 @@ def test_gpt_matches_jax_bf16():
 
 
 def test_gpt_raises_on_unported_features():
-    # Rotary (tests/test_torch_rotary.py) and ALiBi (tests/
-    # test_torch_alibi_models.py) are ported: LLaMA and an ALiBi GPT build;
-    # MoE and dropout still raise.
+    # Rotary (tests/test_torch_rotary.py), ALiBi (tests/
+    # test_torch_alibi_models.py) and dropout (tests/test_torch_dropout.py)
+    # are ported: LLaMA, an ALiBi GPT and a GPT with dropout build (its
+    # dropout path needs a generator); MoE still raises.
     GPTLMHeadModel(llama_config(dim=128, num_layers=1, num_heads=2), device="cpu")
     GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), use_alibi=True), device="cpu")
     with pytest.raises(NotImplementedError, match="moe_experts"):
         GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), moe_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError):
-        GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), dropout=0.1), device="cpu")
+    model = GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), dropout=0.1), device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        model(torch.zeros(1, 8, dtype=torch.long), deterministic=False)
     cfg = gpt2_config()
     assert (cfg.dim, cfg.num_layers, cfg.num_heads, cfg.vocab_size) == (768, 12, 12, 50257)
 
@@ -169,8 +171,13 @@ def test_norms_match_jax(rms, prenorm, fp32res, dtype):
         np.asarray(jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5)),
         atol=1e-5, rtol=0,
     )
-    with pytest.raises(NotImplementedError):
-        norms.dropout_add_norm(t(x), None, t(w), None, dropout_p=0.1)
+    # Residual dropout is ported (tests/test_torch_dropout.py): by default
+    # (deterministic) it does nothing, and its training form needs a
+    # generator, as JAX's needs an rng key.
+    np.testing.assert_array_equal(norms.dropout_add_norm(t(x), None, t(w), None, dropout_p=0.1),
+                                  norms.dropout_add_norm(t(x), None, t(w), None))
+    with pytest.raises(ValueError, match="Generator"):
+        norms.dropout_add_norm(t(x), None, t(w), None, dropout_p=0.1, deterministic=False)
 
 
 @pytest.mark.parametrize("kw", [

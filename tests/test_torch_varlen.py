@@ -32,7 +32,11 @@ from liteattention_torch.ops.flash_bwd import (  # noqa: E402
     flash_bwd_dkv_plain,
     flash_bwd_dq_plain,
 )
-from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked  # noqa: E402
+from liteattention_torch.ops.flash_fwd import (  # noqa: E402
+    check_dropout,
+    flash_attention,
+    flash_attention_masked,
+)
 from liteattention_torch.ops.segments import id_spans, segment_walk, walk_ranges  # noqa: E402
 
 TOL = 2e-5
@@ -232,7 +236,6 @@ def test_varlen_raises():
     for kw, exc, match in (
         (dict(window_size=(8, 0)), NotImplementedError, "B-i 3"),
         (dict(softcap=5.0), NotImplementedError, "B-i 3"),
-        (dict(dropout_p=0.1), NotImplementedError, "B-i 5"),
         (dict(qv=q), NotImplementedError, "qv"),
         (dict(q_descale=torch.ones(1)), NotImplementedError, "descale"),
     ):
@@ -247,3 +250,11 @@ def test_varlen_raises():
         flash_attn_varlen_func(q, k, v, cu, other, causal=True)
     # Non-causal cross packing is taken.
     assert flash_attn_varlen_func(q, k, v, cu, other).shape == q.shape
+    # Dropout is taken on the packed axis by the plain versions, as JAX's
+    # varlen takes it; segments with dropout are not built on the card
+    # (ROADMAP B-i 5).
+    drop = flash_attn_varlen_func(q, k, v, cu, cu, dropout_p=0.1, dropout_seed=7, causal=True)
+    assert drop.shape == q.shape and not torch.equal(
+        drop, flash_attn_varlen_func(q, k, v, cu, cu, causal=True))
+    with pytest.raises(NotImplementedError, match="segments.*B-i 5"):
+        check_dropout(q.shape[-1], False, True, "flash_attention")
