@@ -238,7 +238,14 @@ template <int DK, int DV, bool MC = false>
     s = edit(s, RELEASE, "      if (lane == 0) {\n        sm90::mbar_arrive(&vempty[stage]);\n"
              "        if constexpr (kCluster > 1) arrive_peer(&vempty[stage], rank ^ 1);\n      }\n")
     s = edit(s, STORE_END, STORE_END[:-2] + "\n  if constexpr (kCluster > 1) cluster_sync();\n}")
-    return edit(s, LAUNCH, """  constexpr int kCluster = CAUSAL ? 1 : 2;
+    # The host launch takes the kernel, not its CAUSAL flag: run() hands it
+    # the cluster size the kernel was built for.
+    s = edit(s, "template <int DK, int DV, bool FOLD, typename Kernel>\ncudaError_t launch(",
+             "template <int DK, int DV, bool FOLD, int CLUSTER = 1, typename Kernel>\n"
+             "cudaError_t launch(")
+    s = edit(s, "  return launch<DK, DV, FOLD>(flash_fwd_kernel<",
+             "  return launch<DK, DV, FOLD, CAUSAL ? 1 : 2>(flash_fwd_kernel<")
+    return edit(s, LAUNCH, """  constexpr int kCluster = CLUSTER;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.qtiles + kCluster - 1) / kCluster * kCluster, p.heads / fold, batch);
   cfg.blockDim = dim3(kThreads);

@@ -274,7 +274,37 @@ Phases (any failure exits non-zero and prints no result line):
    Gemma-2's cap and window: 67 launches of B1's window instantiations
    (every kvcache step, as in JAX), 1 of B7's, none of the decode kernel;
    a single-token step is timed after it on B1 and on the decode kernel
-   over the same keys. The kernels line gains the window rows.
+   over the same keys, and the API's window step and single-token window /
+   chunk steps beside their bounds and SDPA with the band mask over the
+   cache. The kernels line gains the window rows.
+17. (Runs after 16.) The config-tree trainer: ``liteattention_torch.train.
+   run`` with ``--config configs/config.yaml experiment=gpt2s-moe`` at GPT-2
+   small's published width and depth (768 wide, 12 layers of 12 heads,
+   vocab 50 257; 4 experts, top-2, capacity factor 1.25) on 8 x 1024 tokens,
+   12 AdamW steps on one repeated synthetic batch: the composed tree, the
+   loss (finite, falling), the aux loss and the share of (token, slot)
+   pairs dropped, 12 causal B1 and 12 B7 launches a step (the counted run),
+   ms/step and peak memory; then block 0's MoE layer on its input from the
+   trained model, bf16 against fp32 (routing identical, the router in true
+   fp32), and ``check_causal`` on the model's trunk at a capacity that drops
+   no token.
+18. (Runs after 17.) ViT-B/16 (``ViTConfig()``: 224 x 224, patch 16, 768 /
+   12 / 12, ffn 3072, bf16): B1 and B7 at its attention, 64 x 12 x 197 x 64
+   non-causal, against their plain versions and timed; 64 NHWC images, the
+   logits and the first block's gradients of one AdamW step on random
+   labels against the same weights with the plain attention in fp32 (the
+   counted step: 12 B1 and 12 B7 launches); the forward timed by
+   ``utils/benchmark.py:benchmark_forward``, the step by CUDA events.
+19. (Runs after 18.) Falcon-7B (``falcon_config()``: 4544 wide, 32 layers,
+   71 heads of 64 on one KV head, vocab 65 024): B1's bound_causal prefill
+   and the decode kernel at its 71:1 group against their plain versions,
+   timed beside SDPA; then an HF-named state dict built on the card in bf16
+   from a seed (``query_key_value`` grouped (1, 71 + 2, 64)), remapped by
+   ``remap_state_dict_hf_falcon`` and loaded, serving 8 requests of 512
+   prompt tokens and 32 greedy tokens into a bf16 cache (the counted run:
+   32 bound B1 launches for the prefill, 32 decode-kernel launches a step),
+   the step logits against a full recompute, prefill ms, decode ms/step and
+   peak memory.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -3365,7 +3395,9 @@ def check_channels(label, q, k, v, kw, time_it=False):
     takes), the backend named. Where the channels are the
     same over the batch the mask is one [1, H, Sq, Sk] that SDPA broadcasts
     (BTLM's prefill would not fit a [B, H, Sq, Sk] bias beside the plain
-    version)."""
+    version). With a key range (``kv_bound`` / ``kv_low``) the window / chunk
+    rows' library call is SDPA with the band as a boolean mask: FlexAttention
+    takes no key range here."""
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention_masked, flash_attention_plain
 
@@ -3413,12 +3445,14 @@ def check_channels(label, q, k, v, kw, time_it=False):
         call = segment_kernel_call(q, k, v, scale, kw)
     res["ms"], _, res["timer"] = device_ms(call)
     res["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=1)
-    flex = any(kw.get(n) for n in WINDOW_CHANNELS)
+    windowed = any(kw.get(n) for n in WINDOW_CHANNELS)
+    if windowed:
+        mufu_bound(res, kw, pairs)
+    flex = windowed and kw.get("kv_bound") is None and kw.get("kv_low") is None
     if flex:
         # The window / chunk / cap: the MUFU bound beside the tensor cores',
         # and FlexAttention as the library call (SDPA with the band as a
         # boolean mask beside it, for the window and the chunk).
-        mufu_bound(res, kw, pairs)
         res["library_ms"], res["library"], res["library_rel_l2"] = flex_fwd_ms(
             f"B1 {label}", q, k, v, kw, ro)
         lib = f"{res['library_ms']:.4f} ms {res['library']}"
@@ -3457,7 +3491,7 @@ def check_channels(label, q, k, v, kw, time_it=False):
     log(f"  B1 {label}: kernel {res['ms']:.4f} ms ({res['timer']}), plain {res['plain_ms']:.3f} "
         f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}; {pairs} visible pairs"
         + (f"; {bound_shares(res)}), library {lib}, SDPA {sdpa_lib}" if flex
-           else f"), library {sdpa_lib}"))
+           else f"{'; ' + bound_shares(res) if windowed else ''}), library {sdpa_lib}"))
     return res
 
 
@@ -5848,6 +5882,24 @@ def window_serve_run(dev):
             f"{r['b1_call_ms']} ms a call; the decode kernel over the same keys "
             f"{r['b8_ms']:.4f} ms device, {r['b8_call_ms']} ms a call "
             f"({r['b8_with_fold_call_ms']} with the fold's ops); outputs within {err:.3e}")
+    # The kernel table's two kvcache rows: B1's window instantiation on the
+    # API's steps (the 1024-token window step, and single-token steps with
+    # the window and with the chunk) against its plain version, timed beside
+    # its bound over the visible pairs and one PyTorch call of the same
+    # function: SDPA with the band as a boolean mask over the cache
+    # (FlexAttention takes no per-batch key bound).
+    rows = stats["kvcache_rows"] = {}
+    rows["window_step"] = check_channels(
+        f"kvcache {prompt}-token window step {MISTRAL_WINDOW}, {b}x{h}/{hk}x{d} over {cap} slots",
+        q.transpose(1, 2), x["kc"], x["vc"],
+        dict(kv_bound=prior + prompt, bound_causal=True, window=MISTRAL_WINDOW), time_it=True)
+    for name, kw in forms:
+        xs = data[name]
+        rows[f"single_token_{name}"] = check_channels(
+            f"kvcache single-token {name} step, {b}x{h}/{hk}x{d} over {cap} slots",
+            q1.transpose(1, 2), xs["kc"], xs["vc"],
+            dict(kv_bound=bound_t, bound_causal=True, window=kw.get("window_size"),
+                 attention_chunk=kw.get("attention_chunk", 0)), time_it=True)
     del data, train
     torch.cuda.empty_cache()
     return counts, stats
@@ -5866,8 +5918,519 @@ def window_phase(dev, card):
     log(f"  (d) the kvcache API with window and chunk, and the counted run ((a)-(e) took "
         f"{secs['kernels']:.1f} s)")
     counts, stats["kvcache"] = window_serve_run(dev)
+    shapes = kres["flash_fwd_window"]["shapes"]
+    shapes.update({f"kvcache_{n}": r for n, r in stats["kvcache"]["kvcache_rows"].items()})
+    kres["flash_fwd_window"]["err"] = max(r["err"] for r in shapes.values())
     secs["kvcache"] = time.perf_counter() - t0 - secs["kernels"]
     stats["part_seconds"] = secs
+    return counts, kres, stats
+
+
+# ---------------------------------------------------------------- phase 17
+
+# configs/experiment/gpt2s-moe.yaml at GPT-2 small's published width and
+# depth (openai-community/gpt2 config.json: n_embd 768, n_layer 12, n_head
+# 12, vocab 50 257, n_positions 1024): 4 experts, top-2, capacity factor
+# 1.25, 8 x 1024 = 8192 tokens a layer.
+MOE_OVERRIDES = ["experiment=gpt2s-moe", "model.dim=768", "model.num_layers=12",
+                 "model.num_heads=12", "model.vocab=50257", "run.seqlen=1024", "run.batch_size=8",
+                 "run.steps=12", "optimizer.warmup_steps=2"]
+MOE_LAYER_TOL = 2e-2  # rel-L2 of a bf16 MoE layer (fp32 router) against the layer in fp32
+ROUTER_FP32_TOL = 1e-5  # rel-L2 of the router's fp32 probabilities against fp64 (TF32: ~1e-3)
+
+
+def moe_layer_check(layer, x):
+    """One MoE layer on the card as the model runs it (bf16 activations and
+    experts, the fp32 router) against the same layer in fp32 on the same
+    input: the routing (experts, gates, positions, drops) identical, the
+    router's probabilities within ROUTER_FP32_TOL of fp64 (true fp32, no
+    TF32), the output within MOE_LAYER_TOL."""
+    import torch
+    from liteattention_torch.modules.moe import _route_indices, capacity_for, moe_forward
+
+    params = {k: v.detach() for k, v in layer.moe.items()}
+    p32 = {k: v.float() for k, v in params.items()}
+    e = params["router"].shape[1]
+    cap = capacity_for(x.shape[0], e, layer.top_k, layer.capacity_factor)
+    with torch.no_grad():
+        y16, _ = moe_forward(params, x, layer.top_k, capacity=cap)
+        y32, _ = moe_forward(p32, x.float(), layer.top_k, capacity=cap)
+        r16 = _route_indices(x, params["router"], layer.top_k, cap)
+        r32 = _route_indices(x.float(), p32["router"], layer.top_k, cap)
+        p64 = torch.softmax(x.double() @ params["router"].double(), dim=-1)
+    same = all(torch.equal(a, b) for a, b in zip(r16[1:5], r32[1:5]))
+    e_router = rel_l2(r16[0], p64)
+    e_out = rel_l2(y16.float(), y32)
+    dropped = 1.0 - r16[4].float().mean().item()
+    log(f"  one MoE layer (block 0's, its input from the trained model: {tuple(x.shape)} bf16, "
+        f"capacity {cap}): bf16 experts vs fp32 on the same input: routing identical {same}, "
+        f"router probabilities vs fp64 rel-L2 {e_router:.2e} (limit {ROUTER_FP32_TOL}), output "
+        f"rel-L2 {e_out:.2e} (limit {MOE_LAYER_TOL}), (token, slot) pairs dropped {dropped:.4f}")
+    check(same, "MoE layer: bf16 and fp32 route differently")
+    check(e_router < ROUTER_FP32_TOL, "MoE layer: the router does not run in true fp32")
+    check(e_out < MOE_LAYER_TOL, "MoE layer: the bf16 layer disagrees with fp32")
+    return {"routing_identical": same, "router_rel_l2_vs_fp64": e_router,
+            "output_rel_l2_vs_fp32": e_out, "dropped_share": dropped, "capacity": cap}
+
+
+def moe_causality_check(model, dev):
+    """check_causal on the trained model's trunk (blocks and final norm on
+    float inputs, the embedding skipped) with a capacity that drops no token
+    (factor 4: 40 slots an expert for 2 x 10 tokens). Whether a dropping
+    capacity leaks is settled on the CPU against JAX
+    (tests/test_torch_moe.py)."""
+    import torch
+    from liteattention_torch.modules.moe import MoEMlp
+    from liteattention_torch.ops.norms import layer_norm
+    from liteattention_torch.training.diagnostics import causality_leakage
+
+    t, cfg = model.transformer, model.cfg
+    moes = [m for m in model.modules() if isinstance(m, MoEMlp)]
+    saved = [m.capacity_factor for m in moes]
+
+    def trunk(x):
+        h, res = x.to(cfg.dtype), None
+        for blk in t.blocks:
+            h, res = blk(h, res)
+        return layer_norm((h.float() + res).to(cfg.dtype), t.ln_f_scale, t.ln_f_bias,
+                          eps=cfg.eps)
+
+    try:
+        for m in moes:
+            m.capacity_factor = 4.0
+        leak = causality_leakage(trunk, seq_len=10, input_dim=cfg.dim, device=dev)
+        dropped = max(float(m.dropped) for m in moes)
+    finally:
+        for m, f in zip(moes, saved):
+            m.capacity_factor = f
+    worst = leak.max().item()
+    log(f"  check_causal on the trained model's trunk (2 x 10 tokens, capacity factor 4, dropped "
+        f"{dropped:.4f}): the largest future-gradient leak {worst:.3e}")
+    check(dropped == 0.0 and worst < 1e-6, "the MoE GPT leaks gradient from the future")
+    return {"max_leak": worst, "dropped": dropped}
+
+
+def moe_phase(dev, card):
+    """Phase 17: the config-tree trainer on configs/experiment/gpt2s-moe.yaml
+    at GPT-2 small's width and depth, through ``liteattention_torch.train.
+    run`` (the counted path), then one MoE layer against fp32 and the
+    causality monitor."""
+    import torch
+    from liteattention_torch import train as train_cli
+    from liteattention_torch.modules.moe import MoEMlp
+    from liteattention_torch.training.config_tree import load_config
+
+    root = str(ROOT / "configs" / "config.yaml")
+    tree = load_config(root, MOE_OVERRIDES)
+    log(f"  composed tree: {json.dumps(tree, sort_keys=True)}")
+    argv = ["--config", root, *MOE_OVERRIDES, "--device", "cuda", "--log-every", "1",
+            "--overfit-batch"]
+    log(f"  python -m liteattention_torch.train {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    reset_counts()
+    trainer = train_cli.run(argv, log_fn=recs.append)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model, cfg, steps = trainer.model, trainer.model.cfg, tree["run"]["steps"]
+    check(cfg.moe_experts == 4 and cfg.moe_top_k == 2 and cfg.moe_capacity_factor == 1.25
+          and cfg.dim == 768 and cfg.num_layers == 12,
+          f"the composed tree did not reach the model: {cfg}")
+    log(f"  launches during the training run: {counts}")
+    want = cfg.num_layers * steps
+    others = sum(n for name, n in counts.items()
+                 if name.startswith(("flash_fwd", "flash_bwd"))
+                 and name not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    check(counts["flash_fwd"] == want and counts["flash_bwd_dq"] == want and others == 0,
+          f"MoE training: expected {cfg.num_layers} causal B1 and {cfg.num_layers} B7 launches a "
+          f"step ({want} over {steps} steps) and no other B1 / B7 launch")
+    losses = [r["loss"] for r in recs]
+    moes = [m for m in model.modules() if isinstance(m, MoEMlp)]
+    aux = sum(float(m.aux_loss.detach()) for m in moes)
+    dropped = [float(m.dropped) for m in moes]
+    step_ms = [1e3 / r["steps_per_s"] for r in recs]
+    ms = statistics.median(step_ms[2:])
+    tokens = tree["run"]["batch_size"] * tree["run"]["seqlen"]
+    log(f"  loss per step {[round(v, 4) for v in losses]}; the last step's aux loss (sum over "
+        f"{len(moes)} layers) {aux:.4f}; (token, slot) pairs dropped per layer "
+        f"{[round(v, 4) for v in dropped]} (capacity {moes[0].capacity} of {tokens} tokens x 2 "
+        f"slots over 4 experts)")
+    log(f"  ms/step {ms:.1f} (median of steps 3-{steps}; first two {step_ms[0]:.1f}, "
+        f"{step_ms[1]:.1f}), {tokens / ms * 1e3:.0f} tokens/s, {want // steps} B1 and "
+        f"{want // steps} B7 launches a step, peak memory {peak:.2f} GB [{card}]")
+    check(all(math.isfinite(v) for v in losses), "MoE training: a loss is not finite")
+    check(losses[-1] < losses[0], "MoE training: the loss does not fall")
+    check(math.isfinite(aux) and aux > 0, "MoE training: the aux loss is not finite")
+    stats = {"losses": losses, "ms_per_step": step_ms, "median_ms_per_step": ms,
+             "tokens_per_s": tokens / ms * 1e3, "peak_gb": peak, "aux_loss_last_step": aux,
+             "dropped_share_per_layer": dropped, "capacity": moes[0].capacity,
+             "launches_per_step": {"flash_fwd": want // steps, "flash_bwd": want // steps},
+             "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    # One more step on the training batch (the CLI's first synthetic batch),
+    # counted alone: a step's launches.
+    from liteattention_torch.training.data import synthetic_lm_batches
+
+    ids = torch.as_tensor(next(synthetic_lm_batches(cfg.vocab_size, tree["run"]["batch_size"],
+                                                    tree["run"]["seqlen"])), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    trainer.train_step(ids)
+    torch.cuda.synchronize()
+    one = read_counts()
+    log(f"  one more step, counted alone: {one['flash_fwd']} B1 and {one['flash_bwd_dq']} B7 "
+        "launches")
+    check(one["flash_fwd"] == cfg.num_layers and one["flash_bwd_dq"] == cfg.num_layers,
+          f"MoE training: a step should launch B1 and B7 {cfg.num_layers} times each")
+    stats["launches_one_step"] = {"flash_fwd": one["flash_fwd"], "flash_bwd": one["flash_bwd_dq"]}
+    # Block 0's MoE input on that batch, captured by a hook.
+    seen = []
+    hook = moes[0].register_forward_pre_hook(lambda m, a: seen.append(a[0].detach()))
+    with torch.no_grad():
+        model(ids)
+    hook.remove()
+    stats["moe_layer"] = moe_layer_check(moes[0], seen[0].reshape(-1, cfg.dim))
+    stats["causality"] = moe_causality_check(model, dev)
+    del trainer, model, seen
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+# ---------------------------------------------------------------- phase 18
+
+VIT_BATCH = 64  # images of 224 x 224 x 3 (NHWC)
+VIT_SEED = 1818
+
+
+class plain_attention:
+    """While open, MHA's attention runs the plain fp32 version
+    (``flash_attention_plain``: torch ops, differentiable through autograd)
+    instead of B1 / B7: the reference path of a model check on the card."""
+
+    def __enter__(self):
+        from liteattention_torch.modules import mha
+        from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+        self.module, self.saved = mha, mha.flash_attention_masked
+
+        def plain(q, k, v, alibi_slopes=None, scale=None, causal=False, dropout_p=0.0,
+                  dropout_seed=None, **kw):
+            check(alibi_slopes is None and dropout_p == 0.0 and not kw,
+                  "plain_attention: channels are not taken here")
+            return flash_attention_plain(q.float(), k.float(), v.float(), scale=scale,
+                                         causal=causal)[0].to(q.dtype)
+
+        mha.flash_attention_masked = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention_masked = self.saved
+        return False
+
+
+def vit_phase(dev, card):
+    """Phase 18: ViT-B/16 (``ViTConfig()``: 224 x 224, patch 16, 768 / 12 /
+    12, ffn 3072, bf16): (a) B1 and B7 at its attention, 64 x 12 x 197 x 64
+    non-causal (a ragged last tile of 69 rows and keys), against their plain
+    versions and timed; (b) a forward of 64 NHWC images and one AdamW step
+    on random labels (the counted path: 12 B1 and 12 B7 launches), the
+    logits and the first block's gradients against the same weights with
+    the plain attention in fp32; the forward timed by
+    ``utils/benchmark.py:benchmark_forward``, the step by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    from liteattention_torch.models.vit import ViTConfig, VisionTransformer
+    from liteattention_torch.utils.benchmark import benchmark_forward, benchmark_memory
+
+    cfg = ViTConfig()
+    b, n, h, d = VIT_BATCH, cfg.num_tokens, cfg.num_heads, cfg.dim // cfg.num_heads
+    g = torch.Generator(device=dev).manual_seed(VIT_SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    label = f"ViT-B/16 {b}x{h}x{n}x{d} non-causal"
+    q, k, v, dout = (rnd(b, h, n, d) for _ in range(4))
+    kres = {"fwd": check_flash(q, k, v, label, causal=False, time_it=True, blocks=True),
+            "bwd": check_bwd(q, k, v, dout, label, False, time_it=True)}
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = VisionTransformer(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(VIT_SEED + 1))
+    ref = VisionTransformer(dataclasses.replace(cfg, dtype=torch.float32), device=dev)
+    ref.load_state_dict(model.state_dict())
+    h_img, w_img = cfg.image_size
+    images = torch.randn(b, h_img, w_img, cfg.in_chans, generator=g, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=g, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  ViT-B/16: {n_params / 1e6:.1f} M parameters (fp32 master, bf16 products), {b} images "
+        f"{h_img} x {w_img} x {cfg.in_chans} NHWC, {n} tokens, random labels")
+    with plain_attention():
+        ref_logits = ref(images)
+        F.cross_entropy(ref_logits, labels).backward()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+    torch.cuda.synchronize()
+    reset_counts()
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches during the counted step (forward, backward, AdamW): {counts}")
+    others = sum(c for name, c in counts.items() if name.startswith(("flash_fwd", "flash_bwd"))
+                 and name not in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    check(counts["flash_fwd"] == cfg.num_layers and counts["flash_bwd_dq"] == cfg.num_layers
+          and others == 0, f"ViT: expected {cfg.num_layers} B1 and {cfg.num_layers} B7 launches "
+          "and no other B1 / B7 launch")
+    e_fwd = rel_l2(logits.detach().float(), ref_logits.detach())
+    ref_grads = dict(ref.named_parameters())
+    e_grad = {name: rel_l2(p.grad.float(), ref_grads[name].grad)
+              for name, p in model.named_parameters() if name.startswith("blocks.0.")}
+    worst = max(e_grad, key=e_grad.get)
+    log(f"  bf16 kernels vs fp32 plain attention, same weights: logits rel-L2 {e_fwd:.2e} "
+        f"(limit {SMALL_FWD_TOL}), loss {loss.item():.4f}; first block's gradients worst rel-L2 "
+        f"{e_grad[worst]:.2e} ({worst}; limit {SMALL_GRAD_TOL})")
+    check(torch.isfinite(logits).all() and logits.shape == (b, cfg.num_classes),
+          "ViT: bad logits")
+    check(e_fwd < SMALL_FWD_TOL, "ViT: logits disagree with the plain fp32 path")
+    check(e_grad[worst] < SMALL_GRAD_TOL, "ViT: the first block's gradients disagree")
+    del ref, ref_logits, ref_grads
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        fwd_s, fwd_std = benchmark_forward(model, images, repeats=10, warmup=2, verbose=False)
+        fwd_peak = benchmark_memory(model, images)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        F.cross_entropy(model(images), labels).backward()
+        opt.step()
+
+    step()
+    step_ms = cuda_ms(step, reps=5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  forward {fwd_s * 1e3:.2f} ms (+/- {fwd_std * 1e3:.2f}; benchmark_forward, CUDA events) "
+        f"= {b / fwd_s:.0f} images/s, peak {fwd_peak / 1e9:.2f} GB (benchmark_memory); training "
+        f"step {step_ms:.2f} ms = {b / step_ms * 1e3:.0f} images/s; peak memory {peak:.2f} GB "
+        f"[{card}]")
+    stats = {"forward_ms": fwd_s * 1e3, "forward_std_ms": fwd_std * 1e3,
+             "forward_peak_gb": fwd_peak / 1e9, "step_ms": step_ms, "peak_gb": peak,
+             "logits_rel_l2": e_fwd, "first_block_worst_grad_rel_l2": e_grad[worst],
+             "parameters_m": n_params / 1e6, "tokens": n}
+    stats["attention_share_by_kernel_times"] = cfg.num_layers * (
+        kres["fwd"]["ms"] + kres["bwd"]["flash_bwd_dq"]["ms"]) / step_ms
+    log(f"  attention kernels' share of the step by their times in (a): "
+        f"{stats['attention_share_by_kernel_times']:.1%}")
+    del model, opt, images
+    torch.cuda.empty_cache()
+    return counts, kres, stats
+
+
+# ---------------------------------------------------------------- phase 19
+
+# Falcon-7B (tiiuae/falcon-7b config.json: hidden_size 4544, 32 layers, 71
+# heads of 64, multi_query, parallel_attn, vocab 65 024) through
+# falcon_config(); 8 requests of 512 prompt tokens, 32 greedy tokens each.
+FALCON_BATCH, FALCON_PROMPT, FALCON_NEW = 8, 512, 32
+FALCON_CONTEXT = FALCON_PROMPT + FALCON_NEW
+FALCON_SEED = 1919
+
+
+def falcon_kernel_phase(dev):
+    """Phase 19 (a): B1 and the decode kernel at Falcon-7B's group of 71 q
+    heads on one KV head (D 64): the prefill's bound_causal B1 over the
+    serving cache and single-token decode steps over it (ragged and full
+    lengths), against their plain versions, timed beside their bounds and
+    SDPA (``enable_gqa``; a boolean mask for the bound)."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(FALCON_SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    b, h, d, cap = FALCON_BATCH, 71, 64, FALCON_CONTEXT
+    kc, vc = rnd(b, 1, cap, d), rnd(b, 1, cap, d)
+    prompt = torch.full((b,), FALCON_PROMPT, dtype=torch.int32, device=dev)
+    res = {"fwd_bound": check_channels(
+        f"bound_causal prefill {b}x{h}/1x{FALCON_PROMPT}x{d} over a {cap}-slot cache (Falcon-7B)",
+        rnd(b, h, FALCON_PROMPT, d), kc, vc, dict(kv_bound=prompt, bound_causal=True),
+        time_it=True)}
+    q = rnd(b, h, 1, d)
+    kcs, vcs = kc.transpose(1, 2), vc.transpose(1, 2)
+    lens = torch.randint(FALCON_PROMPT + 1, cap + 1, (b,), generator=g, device=dev).int()
+    keys = int(lens.sum())
+    need = (2 * keys * d * 2 + 2 * nbytes(q) + 4 * b * h, 4 * d * h * keys)
+    shape = f"{b}x{h}/1 rows of {d} (71 rows packed over one KV head), cache {cap}"
+    r = res["decode"] = check_decode(
+        f"B8 bf16 {shape}, lengths {lens.min().item()}-{lens.max().item()}",
+        flash_attention_decode, flash_attention_decode_plain, (q, kcs, vcs), dict(kv_bound=lens),
+        need, time_it=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pad = (torch.arange(cap, device=dev) < lens[:, None])[:, None, None]
+    backend, r["library_ms"], r["timer"]["library_ms"] = sdpa_backend_ms(
+        "B8 Falcon ragged", lambda: sdpa(q, kc, vc, attn_mask=pad, enable_gqa=True))
+    r["library"] = f"SDPA enable_gqa, boolean key-padding mask ({backend})"
+    full = torch.full((b,), cap, dtype=torch.int32, device=dev)
+    need_full = (2 * b * cap * d * 2 + 2 * nbytes(q) + 4 * b * h, 4 * d * h * b * cap)
+    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
+        lambda: flash_attention_decode(q, kcs, vcs, kv_bound=full))
+    r["bound_ms_full_lengths"] = bound(need_full[1], need_full[0])[0]
+    backend_full, r["library_ms_full_lengths"], r["timer"]["library_ms_full_lengths"] = (
+        sdpa_backend_ms("B8 Falcon full", lambda: sdpa(q, kc, vc, enable_gqa=True)))
+    log(f"  decode B8 Falcon: SDPA (key-padding mask, {backend}) {fmt_ms(r['library_ms'])}; full "
+        f"lengths: device {r['ms_full_lengths']:.4f} ms, bound {r['bound_ms_full_lengths']:.4f} "
+        f"ms; SDPA ({backend_full}) {fmt_ms(r['library_ms_full_lengths'])}")
+    del kc, vc, kcs, vcs
+    torch.cuda.empty_cache()
+    return res
+
+
+def falcon_hf_state_dict(cfg, dev, seed):
+    """An HF-named Falcon-7B state dict (``FalconForCausalLM``'s keys) of
+    random bf16 tensors on the card from ``seed``: ``query_key_value``
+    grouped as (kv heads, group + 2, head dim) rows, N(0, 1 / fan_in)
+    weights, unit norm scales, zero norm biases."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(out_f, in_f):
+        return (torch.randn(out_f, in_f, generator=g, device=dev, dtype=torch.bfloat16)
+                * in_f**-0.5)
+
+    dim, h = cfg.dim, cfg.num_heads
+    hk, hd = cfg.num_heads_kv, cfg.dim // cfg.num_heads
+    ffn = cfg.ffn_dim or 4 * dim
+    ones = lambda: torch.ones(dim, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda: torch.zeros(dim, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    sd = {"transformer.word_embeddings.weight": w(cfg.vocab_size, dim),
+          "transformer.ln_f.weight": ones(), "transformer.ln_f.bias": zeros()}
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}."
+        sd[pre + "self_attention.query_key_value.weight"] = w(hk * (h // hk + 2) * hd, dim)
+        sd[pre + "self_attention.dense.weight"] = w(dim, h * hd)
+        sd[pre + "mlp.dense_h_to_4h.weight"] = w(ffn, dim)
+        sd[pre + "mlp.dense_4h_to_h.weight"] = w(dim, ffn)
+        sd[pre + "input_layernorm.weight"] = ones()
+        sd[pre + "input_layernorm.bias"] = zeros()
+    return sd
+
+
+def falcon_serve_phase(dev, card):
+    """Phase 19 (b): Falcon-7B at full width and depth from an HF-named state
+    dict through ``remap_state_dict_hf_falcon`` (the checkpoint built on the
+    card in bf16: the one extra copy of the weights beside the model's fp32
+    parameters), serving FALCON_BATCH requests (the counted path: greedy
+    decoding into a bf16 cache), the step logits against a full recompute."""
+    import torch
+    from liteattention_torch.models.configs import falcon_config
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import greedy_decode
+    from liteattention_torch.utils.pretrained import remap_state_dict_hf_falcon
+
+    cfg = falcon_config()
+    h, hk, hd = cfg.num_heads, cfg.num_heads_kv, cfg.dim // cfg.num_heads
+    log(f"  Falcon-7B: dim {cfg.dim}, {cfg.num_layers} layers, {h} heads x {hd} on {hk} KV head, "
+        f"rotary, tied-norm parallel block, ffn {4 * cfg.dim}, vocab {cfg.vocab_size}, no linear "
+        "biases, tied embeddings; fp32 master weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    hf = falcon_hf_state_dict(cfg, dev, FALCON_SEED + 1)
+    sd = remap_state_dict_hf_falcon(hf, cfg)
+    model.load_state_dict(sd)
+    # The remap's grouping on the card: q head j of the one group is rows
+    # [j hd, (j + 1) hd) of query_key_value, k the group's next-to-last slot.
+    qkv = hf["transformer.h.0.self_attention.query_key_value.weight"]
+    wqkv = model.transformer.blocks[0].mha.Wqkv.weight
+    check(torch.equal(wqkv[: h * hd], qkv[: h * hd].float())
+          and torch.equal(wqkv[h * hd : (h + 1) * hd], qkv[h * hd : (h + 1) * hd].float())
+          and torch.equal(wqkv[(h + 1) * hd :], qkv[(h + 1) * hd :].float()),
+          "Falcon remap: Wqkv is not q | k | v of the grouped query_key_value")
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    del hf, sd, qkv
+    torch.cuda.empty_cache()
+    log(f"  {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.1f} GB fp32); the HF-named "
+        f"checkpoint built in bf16 on the card, remapped and loaded in {load_s:.1f} s (peak "
+        f"{load_peak:.2f} GB); {FALCON_BATCH} requests x {FALCON_PROMPT} prompt tokens, "
+        f"{FALCON_NEW} new tokens each, cache capacity {FALCON_CONTEXT}")
+    g = torch.Generator(device=dev).manual_seed(FALCON_SEED + 2)
+    ids = torch.randint(0, cfg.vocab_size, (FALCON_BATCH, FALCON_PROMPT), generator=g, device=dev)
+    greedy_decode(model, ids[:1, :16], 2, 32)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    timer = StepTimer(model)
+    toks = greedy_decode(timer, ids, FALCON_NEW, FALCON_CONTEXT)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the Falcon serving run: {counts}")
+    n_decode = len(timer.calls) - 1
+    want_b1, want_b8 = cfg.num_layers, cfg.num_layers * n_decode
+    check(counts["flash_fwd_bound"] == want_b1 and counts["flash_decode"] == want_b8,
+          f"Falcon serving: expected {want_b1} bound B1 launches (the prefill) and {want_b8} "
+          "decode-kernel launches (one a layer a step)")
+    prefill_ms = timer.calls[0][1]
+    step_ms = [ms for _, ms in timer.calls[1:]]
+    dec_ms = statistics.median(step_ms)
+    with torch.inference_mode():
+        full = torch.cat([model(toks[i : i + 1, :-1])[:, FALCON_PROMPT - 1 :].clone()
+                          for i in range(FALCON_BATCH)])
+    step_logits = timer.logits()
+    check(toks.shape == (FALCON_BATCH, FALCON_CONTEXT) and torch.isfinite(step_logits).all(),
+          "Falcon serving: bad greedy output")
+    e_full = rel_l2(step_logits, full)
+    agree = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+    log(f"  prefill {prefill_ms:.1f} ms ({FALCON_BATCH * FALCON_PROMPT / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {FALCON_BATCH * 1e3 / dec_ms:.0f} "
+        f"tokens/s; end to end {wall:.0f} ms; peak memory {peak:.2f} GB [{card}]")
+    log(f"  incremental decode vs full recompute without a cache: logits rel-L2 {e_full:.3e} "
+        f"(limit {SERVE_RECOMPUTE_TOL}), argmax agreement {agree:.3f}")
+    check(e_full < SERVE_RECOMPUTE_TOL, "Falcon incremental decode disagrees with the recompute")
+    stats = {"prefill_ms": prefill_ms, "decode_ms_per_step": dec_ms, "decode_ms": step_ms,
+             "decode_tokens_per_s": FALCON_BATCH * 1e3 / dec_ms,
+             "end_to_end_tokens_per_s": FALCON_BATCH * FALCON_NEW * 1e3 / wall, "peak_gb": peak,
+             "load_peak_gb": load_peak, "load_s": load_s, "recompute_rel_l2": e_full,
+             "recompute_argmax_agreement": agree, "parameters_b": n_params / 1e9,
+             "decode_steps": n_decode, "layers": cfg.num_layers}
+    del model, timer, full, step_logits
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def falcon_phase(dev, card):
+    """Phase 19: B1 and the decode kernel at Falcon-7B's 71:1 group, then
+    Falcon-7B served at full width and depth from a remapped HF state dict."""
+    t0 = time.perf_counter()
+    log(f"  (a) B1 and the decode kernel at Falcon-7B's group of 71 [{card}]")
+    kres = falcon_kernel_phase(dev)
+    secs = {"a": time.perf_counter() - t0}
+    log(f"  (b) Falcon-7B serving ((a) took {secs['a']:.1f} s)")
+    counts, stats = falcon_serve_phase(dev, card)
+    secs["b"] = time.perf_counter() - t0 - secs["a"]
+    stats["part_seconds"] = secs
+    stats["prefill_b1_share_by_kernel_times"] = (
+        stats["layers"] * kres["fwd_bound"]["ms"] / stats["prefill_ms"])
+    log(f"  (b) took {secs['b']:.1f} s; B1's share of the prefill by its time in (a): "
+        f"{stats['prefill_b1_share_by_kernel_times']:.1%}")
     return counts, kres, stats
 
 
@@ -6273,6 +6836,14 @@ def main() -> int:
               "Llama-4-Scout settings; the kvcache API with them")
         counts["window"], p16_kres, p16_stats = window_phase(dev, card)
         kres.update(p16_kres)
+        phase("phase 17: configs/experiment/gpt2s-moe.yaml trained at GPT-2 small's width through "
+              "the config tree")
+        counts["moe_train"], p17_stats = moe_phase(dev, card)
+        phase("phase 18: ViT-B/16, forward and one training step")
+        counts["vit"], p18_kres, p18_stats = vit_phase(dev, card)
+        phase("phase 19: Falcon-7B served from a remapped HF state dict (71 q heads on one KV "
+              "head)")
+        counts["falcon_serve"], p19_kres, p19_stats = falcon_phase(dev, card)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -6325,6 +6896,23 @@ def main() -> int:
                 kres[name][tag] = {"max_abs_err": r["err"], **{
                     k: r[k] for k in bwd_keys if k in r}}
                 kres[name]["err"] = max(kres[name]["err"], r["err"])
+    # Phase 18's and 19's shapes under the kernels they ran: B1 and B7 at
+    # ViT-B/16's attention (non-causal, 197 tokens), B1's bound and the
+    # decode kernel at Falcon-7B's group of 71.
+    vit_fwd = p18_kres["fwd"]
+    kres["flash_fwd"]["vit_b16_noncausal"] = {"max_abs_err": vit_fwd["err"], **{
+        k: vit_fwd[k] for k in timed_keys + ("rel_l2", "worst_block_rel_l2") if k in vit_fwd}}
+    kres["flash_fwd"]["err"] = max(kres["flash_fwd"]["err"], vit_fwd["err"])
+    for name, r in p18_kres["bwd"].items():
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            kres[name]["vit_b16_noncausal"] = {"max_abs_err": r["err"], **{
+                k: r[k] for k in bwd_keys if k in r}}
+            kres[name]["err"] = max(kres[name]["err"], r["err"])
+    kres["flash_fwd_bound"]["shapes"]["falcon_7b_prefill_group71"] = p19_kres["fwd_bound"]
+    kres["flash_fwd_bound"]["err"] = max(kres["flash_fwd_bound"]["err"],
+                                         p19_kres["fwd_bound"]["err"])
+    kres["flash_decode"]["falcon_7b_group71"] = p19_kres["decode"]
+    kres["flash_decode"]["err"] = max(kres["flash_decode"]["err"], p19_kres["decode"]["err"])
     # The new channels of B2 (kv_map) and B3 (compacted K/V), at (a)'s mask.
     kres["schedule_pack"]["kv_map"] = {
         **{k: ext["pack_kv_map"][k] for k in ("ms", "timer", "call_ms", "bound_ms")},
@@ -6427,7 +7015,8 @@ def main() -> int:
                        fwd_bwd=p14_kres["bwd_causal"]["fwd_bwd"])
         kernels.append(row)
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
-                  (14, p14_stats), (15, p15_stats), (16, p16_stats)):
+                  (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
+                  (18, p18_stats), (19, p19_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -6443,6 +7032,9 @@ def main() -> int:
     log(f"gpt-j-6b serving and training: {json.dumps(p14_stats)}")
     log(f"attention dropout, gpt-2 xl training: {json.dumps(p15_stats)}")
     log(f"window, chunk and softcap: {json.dumps(p16_stats)}")
+    log(f"config-tree MoE training (gpt2s-moe): {json.dumps(p17_stats)}")
+    log(f"vit-b/16: {json.dumps(p18_stats)}")
+    log(f"falcon-7b serving: {json.dumps(p19_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,6 +1,6 @@
 """Model library: the Wan video DiT (text- and image-to-video) and its
 denoising pipelines; the GPT family and its per-family configurations; the
-BERT encoder.
+BERT encoder; the Vision Transformer.
 Sparse-against-dense quality (``models.eval``) and threshold calibration
 (``models.calibrate``) are submodules, not exported here, as in JAX."""
 
@@ -29,6 +29,7 @@ from liteattention_torch.models.pipeline import (
     flow_timesteps,
     linear_threshold_schedule,
 )
+from liteattention_torch.models.vit import ViTConfig, VisionTransformer, vit_state_dict_from_jax
 from liteattention_torch.models.wan import (
     WanConfig,
     WanModel,
@@ -62,4 +63,7 @@ __all__ = [
     "BertConfig",
     "BertModel",
     "BertForPreTraining",
+    "ViTConfig",
+    "VisionTransformer",
+    "vit_state_dict_from_jax",
 ]

@@ -35,8 +35,13 @@ as in JAX, and ``gpt_loss_fn`` (so the trainer and the CLI) stays
 deterministic, as JAX's does. With ``remat`` each block's recompute
 replays the block's draws.
 
-Not ported yet (the model raises on it): MoE; the tensor-parallel forward
-is left out.
+Mixture of experts: ``moe_experts > 0`` replaces each block's MLP by
+:class:`~liteattention_torch.modules.moe.MoEMlp` (top-k routing into a
+fixed capacity, the expert weights in ``cfg.dtype`` and the router in
+fp32, as in JAX), and :func:`gpt_loss_fn` adds the blocks' Switch
+load-balance losses at ``moe_aux_weight``.
+
+Not ported yet: the tensor-parallel forward (``gpt_tp_apply``, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from liteattention_torch.modules.block import Block
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.modules.mha import MHA, InferenceParams
 from liteattention_torch.modules.mlp import GatedMlp, Mlp
+from liteattention_torch.modules.moe import MoEMlp
 from liteattention_torch.ops.activations import gelu_approx
 from liteattention_torch.ops.norms import layer_norm, rms_norm
 
@@ -118,11 +124,6 @@ class GPTConfig:
         )
 
 
-def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError("GPT: ['moe_experts'] not ported yet")
-
-
 def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
     head_dim = cfg.dim // cfg.num_heads
     mha = MHA(
@@ -134,7 +135,10 @@ def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
         dropout=cfg.dropout, layer_idx=layer_idx, dtype=cfg.dtype, device=device,
     )
     ffn = cfg.ffn_dim or 4 * cfg.dim
-    if cfg.gated_mlp:
+    if cfg.moe_experts > 0:
+        mlp = MoEMlp(cfg.dim, ffn, num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype, device=device)
+    elif cfg.gated_mlp:
         mlp = GatedMlp(cfg.dim, ffn, bias1=cfg.mlp_bias, bias2=cfg.mlp_bias,
                        dtype=cfg.dtype, device=device)
     else:
@@ -183,7 +187,6 @@ class GPTModel(nn.Module):
 
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
-        _check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         f32 = dict(dtype=torch.float32, device=device)
@@ -254,14 +257,20 @@ class GPTLMHeadModel(nn.Module):
         """Random weights from ``generator``, the JAX model's initializers
         up to truncation: ``N(0, 1/fan_in)`` for Dense kernels and
         embedding tables (fan_in = the row width either way), zero biases,
-        unit norm scales."""
+        unit norm scales; the experts' as ``init_moe_params`` draws them."""
+        moe = [m for m in self.modules() if isinstance(m, MoEMlp)]
+        skip = {id(p) for m in moe for p in m.parameters()}
         for name, p in self.named_parameters():
+            if id(p) in skip:
+                continue
             if p.dim() == 2:
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
             elif name.endswith("scale"):
                 p.fill_(1.0)
             else:
                 p.zero_()
+        for m in moe:
+            m.reset_parameters(generator)
 
     def forward(self, input_ids: torch.Tensor,
                 inference_params: Optional[InferenceParams] = None,
@@ -309,17 +318,25 @@ class GPTLMHeadModel(nn.Module):
 
 
 def gpt_loss_fn(model: GPTLMHeadModel, input_ids: torch.Tensor,
-                labels: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy: logits at position i predict label i+1."""
+                labels: torch.Tensor, moe_aux_weight: float = 0.01) -> torch.Tensor:
+    """Next-token cross-entropy: logits at position i predict label i+1.
+    With experts, plus ``moe_aux_weight`` times the sum of the blocks'
+    load-balance losses (JAX collects the sown ``losses``)."""
     logits = model(input_ids)
-    return cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+    ce = cross_entropy_loss(logits[:, :-1], labels[:, 1:])
+    if model.cfg.moe_experts > 0:
+        aux = sum(m.aux_loss for m in model.modules() if isinstance(m, MoEMlp))
+        return ce + moe_aux_weight * aux
+    return ce
 
 
 def gpt_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     """Flax ``GPTLMHeadModel`` params -> this module's ``state_dict``
     (``transformer/wte/embedding`` -> ``transformer.wte.weight``,
     ``block_i/mha/Wqkv/kernel`` -> ``blocks.i.mha.Wqkv.weight``
-    transposed, ``norm1_scale`` and ``ln_f_bias`` as they are; see
+    transposed, ``norm1_scale`` and ``ln_f_bias`` as they are, an MoE
+    block's ``mlp/moe/{router,wi,wo}`` -> ``blocks.i.mlp.moe.*`` in JAX's
+    layout; see
     :func:`~liteattention_torch.models.convert.state_dict_from_flax`)."""
     return state_dict_from_flax(params)
 

@@ -1,8 +1,9 @@
 """Training entry point of the port (counterpart of the root ``train.py``).
 
-A flat CLI: model config -> :class:`~liteattention_torch.training.trainer.Trainer`
--> synthetic or memmap token batches -> JSON metric records. It runs on
-the card (``cuda``) unless ``--device cpu`` is given.
+A flat CLI, or the config tree: model config ->
+:class:`~liteattention_torch.training.trainer.Trainer` -> synthetic or
+memmap token batches -> JSON metric records. It runs on the card
+(``cuda``) unless ``--device cpu`` is given.
 
   python -m liteattention_torch.train --model gpt2 --dim 768 --layers 12 \\
       --heads 12 --vocab 50257 --seqlen 1024 --batch-size 8 --steps 100
@@ -10,14 +11,31 @@ the card (``cuda``) unless ``--device cpu`` is given.
       --heads 2 --vocab 512 --seqlen 128 --batch-size 2 --steps 4 --log-every 1
 
 ``--model llama`` trains the LLaMA geometry (rotary, RMSNorm, SwiGLU)
-of ``models/configs.py:llama_config``. Not ported yet: ``--config``
-(needs ``training/config_tree.py``).
+of ``models/configs.py:llama_config``.
+
+``--config configs/config.yaml`` composes the YAML tree
+(``training/config_tree.py``) and reads the positional arguments as its
+overrides (``group=name``, ``key.path=value``, ``+key=value``, ``~key``),
+as the root ``train.py`` does: ``model.*`` (family, dim, num_layers,
+num_heads, vocab, moe_experts) and ``run.*`` (steps, batch_size, seqlen,
+data, metrics_jsonl) take the place of the flags (a key the tree holds
+wins over its flag, null included), and the optimizer and
+trainer groups fill ``TrainConfig`` (``learning_rate`` is ``--lr``,
+``checkpoint_dir`` ``--ckpt-dir``, ``warmup_steps`` defaults to a tenth of
+the steps). Keys of features not ported yet raise: ``run.data_parallel``
+and the trainer's ``shard_opt_state`` / ``shard_grads`` /
+``grad_comm_dtype`` (ROADMAP A15).
+
+  python -m liteattention_torch.train --config configs/config.yaml \\
+      experiment=gpt2s-moe run.steps=20 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
+import json
 
 import numpy as np
 import torch
@@ -25,13 +43,18 @@ import torch
 from liteattention_torch.models.configs import gpt2_config, llama_config
 from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
 from liteattention_torch.training.data import memmap_lm_batches, synthetic_lm_batches
+from liteattention_torch.training.config_tree import load_config, to_flat_kwargs
 from liteattention_torch.training.logging import JsonlLogger, TeeLogger
 from liteattention_torch.training.trainer import TrainConfig, Trainer
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", default=None, help="YAML config tree (not ported yet)")
+    ap.add_argument("--config", default=None,
+                    help="YAML config tree root (configs/config.yaml); positional arguments "
+                         "become its overrides")
+    ap.add_argument("overrides", nargs="*",
+                    help="with --config: group=name / key.path=value / +key=value / ~key")
     ap.add_argument("--model", choices=["gpt2", "llama"], default="gpt2")
     ap.add_argument("--dim", type=int, default=256)
     ap.add_argument("--layers", type=int, default=4)
@@ -53,13 +76,49 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def apply_config_tree(args):
+    """Compose ``args.config`` with ``args.overrides`` and set ``args``' model
+    and run fields from the tree, as the root ``train.py`` does; returns the
+    ``TrainConfig`` keyword arguments of the optimizer and trainer groups
+    (less ``learning_rate`` and ``checkpoint_dir``, which go to ``args``) and
+    the expert count. The composed tree is ``args.config_tree``."""
+    tree = load_config(args.config, args.overrides)
+    args.config_tree = tree
+    m, r = tree.get("model") or {}, tree.get("run") or {}
+    args.model = m.get("family", args.model)
+    args.dim = m.get("dim", args.dim)
+    args.layers = m.get("num_layers", args.layers)
+    args.heads = m.get("num_heads", args.heads)
+    args.vocab = m.get("vocab", args.vocab)
+    args.steps = r.get("steps", args.steps)
+    args.batch_size = r.get("batch_size", args.batch_size)
+    args.seqlen = r.get("seqlen", args.seqlen)
+    args.data = r.get("data", args.data)
+    args.metrics_jsonl = r.get("metrics_jsonl", args.metrics_jsonl)
+    if r.get("data_parallel"):
+        raise NotImplementedError("run.data_parallel: data parallelism is not ported yet "
+                                  "(ROADMAP A15)")
+    if args.model not in ("gpt2", "llama"):
+        raise ValueError(f"model.family {args.model!r}: gpt2 or llama")
+    fields = [f.name for f in dataclasses.fields(TrainConfig)]
+    kwargs = {**to_flat_kwargs(tree.get("optimizer"), fields),
+              **to_flat_kwargs(tree.get("trainer"), fields)}
+    args.lr = kwargs.pop("learning_rate", args.lr)
+    args.ckpt_dir = kwargs.pop("checkpoint_dir", args.ckpt_dir)
+    return kwargs, m.get("moe_experts", 0)
+
+
 def run(argv=None, log_fn=None) -> Trainer:
     """Train as the command line says and return the trainer. Metric
     records go to ``log_fn`` when given (else they are printed), and to
     ``--metrics-jsonl`` too."""
     args = parse_args(argv)
+    tcfg_kwargs, moe_experts = {}, 0
     if args.config:
-        raise NotImplementedError("--config: training/config_tree.py is not ported yet")
+        tcfg_kwargs, moe_experts = apply_config_tree(args)
+        print(f"config tree: {json.dumps(args.config_tree, sort_keys=True)}")
+    elif args.overrides:
+        raise SystemExit(f"overrides without --config: {args.overrides}")
     device = torch.device(args.device)
     if args.model == "gpt2":
         cfg = gpt2_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
@@ -67,13 +126,16 @@ def run(argv=None, log_fn=None) -> Trainer:
     else:
         cfg = llama_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
                            vocab=args.vocab)
+    if moe_experts:
+        cfg = dataclasses.replace(cfg, moe_experts=moe_experts)
     model = GPTLMHeadModel(cfg, device=device)
     model.reset_parameters(torch.Generator(device=device).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {args.model} {n_params / 1e6:.1f}M params on {device}")
 
-    tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=max(args.steps // 10, 1),
-                       total_steps=args.steps, checkpoint_dir=args.ckpt_dir)
+    tcfg = TrainConfig(learning_rate=args.lr,
+                       warmup_steps=tcfg_kwargs.pop("warmup_steps", max(args.steps // 10, 1)),
+                       total_steps=args.steps, checkpoint_dir=args.ckpt_dir, **tcfg_kwargs)
     trainer = Trainer(model, lambda m, batch: gpt_loss_fn(m, batch, batch), tcfg,
                       device=device)
     start = trainer.restore_or_init()

@@ -1,4 +1,7 @@
-"""Training harness (counterpart of ``liteattention_tpu/training``)."""
+"""Training harness (counterpart of ``liteattention_tpu/training``). The
+config tree, metrics and diagnostics are submodules
+(``training.config_tree``, ``training.metrics``, ``training.diagnostics``),
+not exported here, as in JAX."""
 
 from liteattention_torch.training.data import (
     FaultTolerantSampler,
@@ -7,7 +10,7 @@ from liteattention_torch.training.data import (
     synthetic_lm_batches,
 )
 from liteattention_torch.training.logging import JsonlLogger, TeeLogger, read_jsonl
-from liteattention_torch.training.trainer import TrainConfig, Trainer
+from liteattention_torch.training.trainer import TrainConfig, Trainer, TrainState
 
 __all__ = [
     "FaultTolerantSampler",
@@ -19,4 +22,5 @@ __all__ = [
     "read_jsonl",
     "TrainConfig",
     "Trainer",
+    "TrainState",
 ]

@@ -58,6 +58,13 @@ class TrainConfig:
     grad_comm_dtype: Optional[str] = None
 
 
+def TrainState(**kwargs) -> Dict[str, Any]:
+    """The train state as JAX's ``TrainState`` builds it: a plain dict of
+    ``params``, ``opt_state`` and ``step`` (and ``ema_params`` with an
+    EMA)."""
+    return dict(**kwargs)
+
+
 def warmup_cosine_lr(cfg: TrainConfig, count: int) -> float:
     """optax ``warmup_cosine_decay_schedule(0, lr, warmup, decay)`` at
     ``count``: linear from 0, then cosine to 0 at ``decay`` steps."""
@@ -88,7 +95,7 @@ class Trainer:
                 or config.grad_comm_dtype is not None):
             raise NotImplementedError(
                 "Trainer: mesh, shard_opt_state, shard_grads and grad_comm_dtype "
-                "(data parallelism, ZeRO) are not ported yet"
+                "(data parallelism, ZeRO) are not ported yet (ROADMAP A15)"
             )
         self.device = resolve_device(device)
         params = dict(model.named_parameters())
@@ -234,4 +241,4 @@ def _global_norm(tensors) -> torch.Tensor:
     )
 
 
-__all__ = ["TrainConfig", "Trainer", "warmup_cosine_lr"]
+__all__ = ["TrainConfig", "Trainer", "TrainState", "warmup_cosine_lr"]

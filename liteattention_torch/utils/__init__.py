@@ -1,6 +1,7 @@
-"""Decoding utilities, the checkpoint remaps and the pad / unpad
-utilities of variable-length batches (counterpart of
-``liteattention_tpu/utils``)."""
+"""Decoding utilities, the checkpoint remaps, benchmarking helpers and the
+pad / unpad utilities of variable-length batches (counterpart of
+``liteattention_tpu/utils``; ``utils.benchmark``, ``utils.generation`` and
+``utils.pretrained`` are submodules)."""
 
 from liteattention_torch.utils.padding import (
     index_first_axis,

@@ -1,12 +1,11 @@
 """Checkpoint remapping: official Wan2.1/2.2 torch checkpoints -> the
-port's ``WanModel`` state dict; HF Baichuan, BTLM and GPT-J checkpoints ->
-the port's ``GPTLMHeadModel`` state dict.
+port's ``WanModel`` state dict; HF GPT-2, LLaMA, GPT-NeoX, Falcon, OPT,
+GPTBigCode, Baichuan, BTLM and GPT-J checkpoints -> the port's
+``GPTLMHeadModel`` state dict.
 
-Counterpart of ``liteattention_tpu/utils/pretrained.py``'s
-``remap_state_dict_wan``, ``remap_state_dict_hf_baichuan``,
-``remap_state_dict_hf_btlm`` and ``remap_state_dict_hf_gptj`` (the other
-families' remaps are not ported yet): the same tensors, under the port's
-keys. The Wan key layout is
+Counterpart of ``liteattention_tpu/utils/pretrained.py`` (every
+``remap_state_dict_*`` and ``state_dict_from_pretrained``): the same
+tensors, under the port's keys. The Wan key layout is
 Wan-Video/Wan2.1 ``wan/modules/model.py``: ``patch_embedding`` (Conv3d),
 ``text_embedding.{0,2}``, ``time_embedding.{0,2}``, ``time_projection.1``,
 ``blocks.N.{self_attn,cross_attn}.{q,k,v,o,norm_q,norm_k}``,
@@ -16,7 +15,12 @@ Wan-Video/Wan2.1 ``wan/modules/model.py``: ``patch_embedding`` (Conv3d),
 ``[out, in]``, as the port's ``nn.Linear`` keeps them; the Conv3d patch
 kernel ``[dim, C, pt, ph, pw]`` becomes a Linear over features ordered
 (pt, ph, pw, C), the model's patchify order. No checkpoint is fetched:
-the caller hands in a state dict.
+the caller hands in a state dict, or :func:`state_dict_from_pretrained`
+reads a local directory or the local HF cache. Each remap returns the
+checkpoint's tensors where they lie, in their dtype (a key that fuses or
+reorders several is a new tensor there; an array becomes an fp32 CPU
+tensor); ``load_state_dict`` casts them to the model's parameters. A
+checkpoint built on the card is remapped there.
 """
 
 from __future__ import annotations
@@ -28,15 +32,16 @@ import torch
 
 
 def _tensor(x) -> torch.Tensor:
-    """A checkpoint entry (torch tensor or array) as an fp32 CPU tensor."""
+    """A checkpoint entry: a torch tensor as it is (its device and dtype,
+    detached), an array as an fp32 CPU tensor."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).contiguous()
+        return x.detach()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
 def remap_state_dict_wan(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """Official Wan checkpoint -> ``WanModel(cfg).state_dict()`` keys (fp32
-    CPU tensors; ``load_state_dict`` casts them). A checkpoint with the
+    """Official Wan checkpoint -> ``WanModel(cfg).state_dict()`` keys
+    (``load_state_dict`` casts them). A checkpoint with the
     decoupled image K/V (``k_img``) needs ``cfg.i2v_decoupled``, and one
     without needs it off: a mismatch raises ``ValueError``. Build the model
     with ``image_dim`` when the checkpoint has ``img_emb`` keys."""
@@ -100,8 +105,8 @@ def remap_state_dict_wan(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.
 
 
 def remap_state_dict_hf_baichuan(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """HF Baichuan checkpoint -> ``GPTLMHeadModel(cfg).state_dict()`` keys
-    (fp32 CPU tensors). LLaMA geometry with the fused ``W_pack`` projection,
+    """HF Baichuan checkpoint -> ``GPTLMHeadModel(cfg).state_dict()``
+    keys. LLaMA geometry with the fused ``W_pack`` projection,
     whose rows are already q | k | v; the gated MLP's ``fc1`` is gate | up;
     no linear biases. A vocabulary above 70 000 is Baichuan2's normalised
     head (``F.normalize(lm_head.weight)`` every forward in HF): the weights
@@ -127,8 +132,8 @@ def remap_state_dict_hf_baichuan(state_dict: Mapping[str, Any], cfg) -> Dict[str
 
 
 def remap_state_dict_hf_btlm(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """HF BTLM-3B checkpoint -> ``GPTLMHeadModel(cfg).state_dict()`` keys
-    (fp32 CPU tensors). GPT-2's Conv1D weights are ``[in, out]`` and are
+    """HF BTLM-3B checkpoint -> ``GPTLMHeadModel(cfg).state_dict()``
+    keys. GPT-2's Conv1D weights are ``[in, out]`` and are
     transposed; ``c_fc`` is the gate and ``c_fc2`` the up branch of the
     gated MLP; ALiBi positions (no ``wpe``) and tied embeddings. The muP
     multipliers live in ``btlm_config``, not in the weights."""
@@ -154,7 +159,7 @@ def remap_state_dict_hf_btlm(state_dict: Mapping[str, Any], cfg) -> Dict[str, to
 
 def remap_state_dict_hf_gptj(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """HF GPT-J checkpoint (``GPTJForCausalLM``) -> ``GPTLMHeadModel(cfg).
-    state_dict()`` keys (fp32 CPU tensors). The tied-norm parallel block:
+    state_dict()`` keys. The tied-norm parallel block:
     the one ``ln_1`` is ``norm1``; the bias-free ``q_proj`` / ``k_proj`` /
     ``v_proj`` fuse into ``Wqkv`` (rows q | k | v); ``fc_in`` / ``fc_out``
     are the biased MLP; the untied ``lm_head`` keeps its bias. Rotary
@@ -178,5 +183,189 @@ def remap_state_dict_hf_gptj(state_dict: Mapping[str, Any], cfg) -> Dict[str, to
     return out
 
 
-__all__ = ["remap_state_dict_wan", "remap_state_dict_hf_baichuan", "remap_state_dict_hf_btlm",
-           "remap_state_dict_hf_gptj"]
+def _block_keys(i: int) -> str:
+    return f"transformer.blocks.{i}."
+
+
+def remap_state_dict_hf_gpt2(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF GPT-2 checkpoint (``GPT2LMHeadModel.transformer``'s state dict:
+    ``wte``, ``wpe``, ``h.i.*``, ``ln_f``) -> ``GPTLMHeadModel(cfg).
+    state_dict()`` keys. GPT-2's Conv1D weights are
+    ``[in, out]`` and are transposed; embeddings are tied."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["wte.weight"], "transformer.wpe.weight": sd["wpe.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"h.{i}.", _block_keys(i)
+        for j in (1, 2):
+            out[dst + f"norm{j}_scale"] = sd[src + f"ln_{j}.weight"]
+            out[dst + f"norm{j}_bias"] = sd[src + f"ln_{j}.bias"]
+        for name, conv in (("mha.Wqkv", "attn.c_attn"), ("mha.out_proj", "attn.c_proj"),
+                           ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+            out[dst + name + ".weight"] = sd[src + conv + ".weight"].T.contiguous()
+            out[dst + name + ".bias"] = sd[src + conv + ".bias"]
+    out["transformer.ln_f_scale"] = sd["ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["ln_f.bias"]
+    return out
+
+
+def remap_state_dict_hf_llama(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF LLaMA checkpoint -> ``GPTLMHeadModel(cfg).state_dict()``
+    keys: ``q_proj`` / ``k_proj`` / ``v_proj`` fuse into
+    ``Wqkv`` (rows q | k | v), ``gate_proj`` / ``up_proj`` into ``fc1``
+    (gate | up); RMSNorm scales; no biases; an untied ``lm_head``."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["model.embed_tokens.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"model.layers.{i}.", _block_keys(i)
+        out[dst + "norm1_scale"] = sd[src + "input_layernorm.weight"]
+        out[dst + "norm2_scale"] = sd[src + "post_attention_layernorm.weight"]
+        out[dst + "mha.Wqkv.weight"] = torch.cat(
+            [sd[src + f"self_attn.{w}_proj.weight"] for w in "qkv"])
+        out[dst + "mha.out_proj.weight"] = sd[src + "self_attn.o_proj.weight"]
+        out[dst + "mlp.fc1.weight"] = torch.cat(
+            [sd[src + "mlp.gate_proj.weight"], sd[src + "mlp.up_proj.weight"]])
+        out[dst + "mlp.fc2.weight"] = sd[src + "mlp.down_proj.weight"]
+    out["transformer.ln_f_scale"] = sd["model.norm.weight"]
+    out["lm_head.weight"] = sd["lm_head.weight"]
+    return out
+
+
+def remap_state_dict_hf_gpt_neox(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF GPT-NeoX checkpoint -> ``GPTLMHeadModel(cfg).state_dict()``
+    keys. NeoX stores ``query_key_value`` head-interleaved,
+    rows ``(heads, 3, head_dim)``; they are regrouped to q | k | v. The
+    parallel block's norms are separate (``input_layernorm`` -> norm1,
+    ``post_attention_layernorm`` -> norm2); ``embed_out`` is the untied
+    head."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    h = cfg.num_heads
+    d = cfg.dim // h
+    out = {"transformer.wte.weight": sd["gpt_neox.embed_in.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"gpt_neox.layers.{i}.", _block_keys(i)
+        w = sd[src + "attention.query_key_value.weight"]
+        b = sd[src + "attention.query_key_value.bias"]
+        out[dst + "mha.Wqkv.weight"] = (
+            w.reshape(h, 3, d, -1).transpose(0, 1).reshape(3 * h * d, -1).contiguous())
+        out[dst + "mha.Wqkv.bias"] = b.reshape(h, 3, d).transpose(0, 1).reshape(-1).contiguous()
+        out[dst + "mha.out_proj.weight"] = sd[src + "attention.dense.weight"]
+        out[dst + "mha.out_proj.bias"] = sd[src + "attention.dense.bias"]
+        for j, hf in ((1, "input_layernorm"), (2, "post_attention_layernorm")):
+            out[dst + f"norm{j}_scale"] = sd[src + hf + ".weight"]
+            out[dst + f"norm{j}_bias"] = sd[src + hf + ".bias"]
+        for name, hf in (("fc1", "dense_h_to_4h"), ("fc2", "dense_4h_to_h")):
+            out[dst + f"mlp.{name}.weight"] = sd[src + f"mlp.{hf}.weight"]
+            out[dst + f"mlp.{name}.bias"] = sd[src + f"mlp.{hf}.bias"]
+    out["transformer.ln_f_scale"] = sd["gpt_neox.final_layer_norm.weight"]
+    out["transformer.ln_f_bias"] = sd["gpt_neox.final_layer_norm.bias"]
+    out["lm_head.weight"] = sd["embed_out.weight"]
+    return out
+
+
+def remap_state_dict_hf_falcon(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF Falcon (7B-style: MQA, a parallel block with one tied norm, no
+    linear biases, tied embeddings) checkpoint -> ``GPTLMHeadModel(cfg).
+    state_dict()`` keys. Falcon stores
+    ``query_key_value`` grouped, rows ``(kv_heads, group + 2, head_dim)``:
+    each group's q heads, then its k, then its v; they are split to
+    q | k | v."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    h = cfg.num_heads
+    hk = cfg.num_heads_kv or h
+    d = cfg.dim // h
+    out = {"transformer.wte.weight": sd["transformer.word_embeddings.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"transformer.h.{i}.", _block_keys(i)
+        w = sd[src + "self_attention.query_key_value.weight"].reshape(hk, h // hk + 2, d, -1)
+        out[dst + "mha.Wqkv.weight"] = torch.cat([
+            w[:, :-2].reshape(h * d, -1), w[:, -2].reshape(hk * d, -1),
+            w[:, -1].reshape(hk * d, -1)])
+        out[dst + "mha.out_proj.weight"] = sd[src + "self_attention.dense.weight"]
+        out[dst + "norm1_scale"] = sd[src + "input_layernorm.weight"]
+        out[dst + "norm1_bias"] = sd[src + "input_layernorm.bias"]
+        out[dst + "mlp.fc1.weight"] = sd[src + "mlp.dense_h_to_4h.weight"]
+        out[dst + "mlp.fc2.weight"] = sd[src + "mlp.dense_4h_to_h.weight"]
+    out["transformer.ln_f_scale"] = sd["transformer.ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["transformer.ln_f.bias"]
+    return out
+
+
+def remap_state_dict_hf_opt(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF OPT checkpoint -> ``GPTLMHeadModel(cfg).state_dict()`` keys. The
+    position table drops HF's 2 offset rows; the biased
+    q / k / v fuse into ``Wqkv``; ``final_layer_norm`` of a layer is norm2;
+    embeddings are tied. The 350m layout (``project_in`` / ``project_out``,
+    post-norm, no final norm) needs ``GPTConfig(word_embed_proj_dim=...,
+    prenorm=False)``; OPT-175B's ``decoder.layer_norm`` is the final norm."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    pre0 = "model.decoder." if any(k.startswith("model.decoder.") for k in sd) else "decoder."
+    out = {"transformer.wte.weight": sd[pre0 + "embed_tokens.weight"]}
+    if pre0 + "project_in.weight" in sd:
+        if not cfg.word_embed_proj_dim:
+            raise ValueError("checkpoint has project_in/out (the OPT-350m layout); construct "
+                             "GPTConfig(word_embed_proj_dim=..., prenorm=False)")
+        out["transformer.project_in.weight"] = sd[pre0 + "project_in.weight"]
+        out["project_out.weight"] = sd[pre0 + "project_out.weight"]
+    out["transformer.wpe.weight"] = sd[pre0 + "embed_positions.weight"][2:]
+    for i in range(cfg.num_layers):
+        src, dst = f"{pre0}layers.{i}.", _block_keys(i)
+        out[dst + "mha.Wqkv.weight"] = torch.cat(
+            [sd[src + f"self_attn.{w}_proj.weight"] for w in "qkv"])
+        out[dst + "mha.Wqkv.bias"] = torch.cat(
+            [sd[src + f"self_attn.{w}_proj.bias"] for w in "qkv"])
+        out[dst + "mha.out_proj.weight"] = sd[src + "self_attn.out_proj.weight"]
+        out[dst + "mha.out_proj.bias"] = sd[src + "self_attn.out_proj.bias"]
+        for j, hf in ((1, "self_attn_layer_norm"), (2, "final_layer_norm")):
+            out[dst + f"norm{j}_scale"] = sd[src + hf + ".weight"]
+            out[dst + f"norm{j}_bias"] = sd[src + hf + ".bias"]
+        for name in ("fc1", "fc2"):
+            out[dst + f"mlp.{name}.weight"] = sd[src + f"{name}.weight"]
+            out[dst + f"mlp.{name}.bias"] = sd[src + f"{name}.bias"]
+    for final in ("final_layer_norm", "layer_norm"):
+        if pre0 + final + ".weight" in sd:
+            out["transformer.ln_f_scale"] = sd[pre0 + final + ".weight"]
+            out["transformer.ln_f_bias"] = sd[pre0 + final + ".bias"]
+            break
+    else:
+        if cfg.prenorm:
+            raise ValueError("checkpoint has no final layer norm (do_layer_norm_before=False); "
+                             "construct GPTConfig(prenorm=False)")
+    return out
+
+
+def remap_state_dict_hf_bigcode(state_dict: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """HF GPTBigCode (StarCoder) checkpoint -> ``GPTLMHeadModel(cfg).
+    state_dict()`` keys. GPT-2-shaped with MQA:
+    ``c_attn`` is already q | k | v, and its Linear weights are ``[out,
+    in]`` as the port keeps them; learned positions; tied embeddings."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    out = {"transformer.wte.weight": sd["transformer.wte.weight"],
+           "transformer.wpe.weight": sd["transformer.wpe.weight"]}
+    for i in range(cfg.num_layers):
+        src, dst = f"transformer.h.{i}.", _block_keys(i)
+        for j in (1, 2):
+            out[dst + f"norm{j}_scale"] = sd[src + f"ln_{j}.weight"]
+            out[dst + f"norm{j}_bias"] = sd[src + f"ln_{j}.bias"]
+        for name, hf in (("mha.Wqkv", "attn.c_attn"), ("mha.out_proj", "attn.c_proj"),
+                         ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj")):
+            out[dst + name + ".weight"] = sd[src + hf + ".weight"]
+            out[dst + name + ".bias"] = sd[src + hf + ".bias"]
+    out["transformer.ln_f_scale"] = sd["transformer.ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["transformer.ln_f.bias"]
+    return out
+
+
+def state_dict_from_pretrained(model_name: str) -> Dict[str, torch.Tensor]:
+    """A HF causal LM's state dict (CPU tensors), read by ``transformers``
+    (imported here, not at module import) from a local directory or the
+    local HF cache: ``local_files_only``, so nothing is fetched."""
+    from transformers import AutoModelForCausalLM
+
+    model = AutoModelForCausalLM.from_pretrained(model_name, local_files_only=True)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+__all__ = ["remap_state_dict_wan", "remap_state_dict_hf_gpt2", "remap_state_dict_hf_llama",
+           "remap_state_dict_hf_gpt_neox", "remap_state_dict_hf_falcon", "remap_state_dict_hf_opt",
+           "remap_state_dict_hf_bigcode", "remap_state_dict_hf_baichuan",
+           "remap_state_dict_hf_btlm", "remap_state_dict_hf_gptj", "state_dict_from_pretrained"]

@@ -1633,3 +1633,161 @@ def test_flash_window_raises_where_not_built(dev):
     out = flash_attention_masked(qg, kg, vg, attention_chunk=32, causal=True)
     with pytest.raises(NotImplementedError, match="attention_chunk is forward-only"):
         out.float().sum().backward()
+
+
+# ------------------------------------------------- MoE, ViT, Falcon's group
+# The model paths of chip_smoke.py phases 17-19 in small: each on the card
+# (bf16 products, the kernels) against the same module on the CPU (fp32,
+# the plain versions): outputs within 2e-2 rel-L2, gradients within 5e-2
+# (chip_smoke.py's SMALL_FWD_TOL / SMALL_GRAD_TOL), the MoE routing of a
+# layer identical between its bf16 and fp32 forms on the card.
+
+
+def _rel(got, ref):
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def test_moe_layer_routes_alike_in_bf16_and_fp32(dev):
+    from liteattention_torch.modules.moe import MoEMlp, _route_indices, moe_forward
+
+    layer = MoEMlp(256, 1024, num_experts=4, dtype=torch.bfloat16, device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(3))
+    x = torch.randn(2048, 256, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev).to(torch.bfloat16)
+    params = {k: v.detach() for k, v in layer.moe.items()}
+    p32 = {k: v.float() for k, v in params.items()}
+    r16 = _route_indices(x, params["router"], 2, 1280)
+    r32 = _route_indices(x.float(), p32["router"], 2, 1280)
+    assert all(torch.equal(a, b) for a, b in zip(r16[1:5], r32[1:5]))
+    p64 = torch.softmax(x.double() @ params["router"].double(), -1)
+    assert _rel(r16[0], p64) < 1e-5  # the router in true fp32
+    y16, _ = moe_forward(params, x, 2, capacity=1280)
+    y32, _ = moe_forward(p32, x.float(), 2, capacity=1280)
+    assert _rel(y16.float(), y32) < 2e-2
+
+
+def test_moe_gpt_training_step_against_the_cpu(dev):
+    import dataclasses
+
+    from liteattention_torch.models.gpt import GPTConfig, GPTLMHeadModel, gpt_loss_fn
+
+    # Every token to every expert (top-4 of 4, no drops): the bf16 card and
+    # the fp32 CPU would pick different top-2 experts for near-tied tokens;
+    # test_moe_layer_routes_alike_in_bf16_and_fp32 holds the top-2 routing.
+    cfg = GPTConfig(vocab_size=512, max_position_embeddings=512, dim=256, num_layers=2,
+                    num_heads=4, moe_experts=4, moe_top_k=4, moe_capacity_factor=4.0)
+    cpu = GPTLMHeadModel(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(7))
+    gpu = GPTLMHeadModel(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.load_state_dict(gpu.state_dict())  # the experts as bf16 values on both sides
+    ids = torch.randint(0, 512, (2, 300), generator=torch.Generator().manual_seed(8))
+    n0, b0 = flash_attention.launches, flash_bwd.launches
+    ref = gpt_loss_fn(cpu, ids, ids)
+    ref.backward()
+    loss = gpt_loss_fn(gpu, ids.to(dev), ids.to(dev))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n0, flash_bwd.launches - b0) == (2, 2)
+    assert abs(loss.item() - ref.item()) < 1e-2 * abs(ref.item())
+    grads = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        assert _rel(p.grad.float(), grads[name].grad) < 5e-2, name
+
+
+def test_vit_forward_and_gradients_against_the_cpu(dev):
+    import dataclasses
+
+    from liteattention_torch.models.vit import ViTConfig, VisionTransformer
+
+    # 65 tokens (a ragged tile), 2 heads of 64 (B1 / B7 are built at 64).
+    cfg = dataclasses.replace(ViTConfig.tiny(), image_size=(64, 64), dim=128, ffn_dim=256)
+    cpu = VisionTransformer(dataclasses.replace(cfg, dtype=torch.float32), device="cpu")
+    cpu.reset_parameters(torch.Generator().manual_seed(9))
+    gpu = VisionTransformer(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    images = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(10))
+    labels = torch.tensor([1, 2, 3, 4])
+    n0, b0 = flash_attention.launches, flash_bwd.launches
+    ref = cpu(images)
+    torch.nn.functional.cross_entropy(ref, labels).backward()
+    got = gpu(images.to(dev))
+    torch.nn.functional.cross_entropy(got, labels.to(dev)).backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n0, flash_bwd.launches - b0) == (2, 2)
+    assert _rel(got.float(), ref) < 2e-2
+    grads = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        assert _rel(p.grad.float(), grads[name].grad) < 5e-2, name
+
+
+@pytest.mark.parametrize("sq,bound", [(200, 260), (1, 300), (1, 257)])
+def test_falcon_group_of_71_on_b1_and_the_decode_kernel(dev, sq, bound):
+    # 71 q heads on one KV head (Falcon-7B): B1 over the cache with the
+    # bound (the prefill) and the decode kernel (single-token steps, 71
+    # rows packed into 16-row units: the last holds 7).
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    q = torch.randn(2, 71, sq, 64, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(2, 1, 320, 64, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.tensor([bound, bound - 40], dtype=torch.int32, device=dev)
+    if sq > 1:
+        out, lse = flash_attention_masked(q, kc, vc, kv_bound=lens, bound_causal=True,
+                                          return_lse=True)
+        ro, rl = flash_attention_plain(q, kc, vc, kv_bound=lens, bound_causal=True)
+    else:
+        out, lse = flash_attention_decode(q, kc.transpose(1, 2), vc.transpose(1, 2), kv_bound=lens)
+        ro, rl = flash_attention_decode_plain(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                              kv_bound=lens)
+    assert ((out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)).max() < 2e-2
+    assert (lse - rl).abs().max().item() < 1e-3
+
+
+def test_falcon_remap_on_the_card_equals_the_cpu_remap(dev):
+    from liteattention_torch.models.configs import falcon_config
+    from liteattention_torch.utils.pretrained import remap_state_dict_hf_falcon
+
+    cfg = falcon_config(dim=71 * 16, num_layers=2, num_heads=71, vocab=256)
+    g = torch.Generator().manual_seed(5)
+    hf = {"transformer.word_embeddings.weight": torch.randn(256, 1136, generator=g),
+          "transformer.ln_f.weight": torch.randn(1136, generator=g),
+          "transformer.ln_f.bias": torch.randn(1136, generator=g)}
+    for i in range(2):
+        pre = f"transformer.h.{i}."
+        hf[pre + "self_attention.query_key_value.weight"] = torch.randn(73 * 16, 1136, generator=g)
+        hf[pre + "self_attention.dense.weight"] = torch.randn(1136, 1136, generator=g)
+        hf[pre + "mlp.dense_h_to_4h.weight"] = torch.randn(4544, 1136, generator=g)
+        hf[pre + "mlp.dense_4h_to_h.weight"] = torch.randn(1136, 4544, generator=g)
+        hf[pre + "input_layernorm.weight"] = torch.randn(1136, generator=g)
+        hf[pre + "input_layernorm.bias"] = torch.randn(1136, generator=g)
+    on_cpu = remap_state_dict_hf_falcon(hf, cfg)
+    on_card = remap_state_dict_hf_falcon({k: v.to(dev) for k, v in hf.items()}, cfg)
+    assert sorted(on_card) == sorted(on_cpu)
+    assert all(on_card[k].device == dev and torch.equal(on_card[k].cpu(), on_cpu[k])
+               for k in on_cpu)
+
+
+def test_benchmark_helpers_on_the_card(dev, tmp_path):
+    import os
+
+    from liteattention_torch.utils.benchmark import (
+        benchmark_forward,
+        benchmark_memory,
+        hard_sync,
+        profile_trace,
+    )
+
+    x = torch.randn(1024, 1024, device=dev)
+    mean, std = benchmark_forward(torch.matmul, x, x, repeats=5, warmup=1, verbose=False)
+    assert 0 < mean < 1 and std >= 0
+    peak = benchmark_memory(lambda: torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+    assert peak >= 64 << 20
+    hard_sync([x])
+    out = profile_trace(torch.matmul, x, x, log_dir=str(tmp_path))
+    assert os.path.getsize(os.path.join(out, "trace.json")) > 0

@@ -128,11 +128,12 @@ def test_gpt_raises_on_unported_features():
     # Rotary (tests/test_torch_rotary.py), ALiBi (tests/
     # test_torch_alibi_models.py) and dropout (tests/test_torch_dropout.py)
     # are ported: LLaMA, an ALiBi GPT and a GPT with dropout build (its
-    # dropout path needs a generator); MoE still raises.
+    # dropout path needs a generator); so does MoE (tests/test_torch_moe.py),
+    # whose blocks' MLPs are MoEMlp.
     GPTLMHeadModel(llama_config(dim=128, num_layers=1, num_heads=2), device="cpu")
     GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), use_alibi=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), moe_experts=4), device="cpu")
+    moe = GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), moe_experts=4), device="cpu")
+    assert all(type(b.mlp).__name__ == "MoEMlp" for b in moe.transformer.blocks)
     model = GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), dropout=0.1), device="cpu")
     with pytest.raises(ValueError, match="Generator"):
         model(torch.zeros(1, 8, dtype=torch.long), deterministic=False)

@@ -28,6 +28,9 @@ def test_imports_with_jax_blocked():
         "from liteattention_torch.ops import kv_compact, lite_flash_fwd, schedule_pack\n"
         "import liteattention_torch.utils.generation, liteattention_torch.utils.pretrained\n"
         "import liteattention_torch.utils.padding, liteattention_torch.ops.segments\n"
+        "import liteattention_torch.utils.benchmark, liteattention_torch.models.vit\n"
+        "import liteattention_torch.modules.moe, liteattention_torch.layers.patch_embed\n"
+        "from liteattention_torch.training import config_tree, metrics, diagnostics\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"
@@ -73,15 +76,15 @@ def _jax_all(relpath):
 NOT_PORTED = set()
 
 
-# Names of the JAX ops and models packages that the port does not have yet
-# (ROADMAP queue A): the psum-merge and the unmerged vote oracle, the
-# TPU-only schedule unpacker, and the ViT model.
+# Names of the JAX subpackages that the port does not have yet (ROADMAP
+# queue A): the psum-merge and the unmerged vote oracle, the TPU-only
+# schedule unpacker, and the tensor-parallel MHA and MLP (A15).
 NOT_PORTED_SUBPACKAGES = {
     "skip_votes_ref",
     "combine_attention_psum",
     "unpack_schedule",
-    "ViTConfig",
-    "VisionTransformer",
+    "ParallelMHA",
+    "ParallelMLP",
 }
 
 # Names the port's subpackages export beside JAX's: the two ALiBi families'
@@ -90,7 +93,11 @@ PORT_EXTRAS = {"models/__init__.py": {"baichuan_config", "btlm_config"}}
 
 
 @pytest.mark.parametrize(
-    "relpath", ["__init__.py", "flash_attn_interface.py", "ops/__init__.py", "models/__init__.py"]
+    "relpath", ["__init__.py", "flash_attn_interface.py", "ops/__init__.py", "models/__init__.py",
+                "modules/__init__.py", "layers/__init__.py", "training/__init__.py",
+                "utils/__init__.py", "modules/moe.py", "training/config_tree.py",
+                "training/metrics.py", "training/diagnostics.py", "utils/benchmark.py",
+                "utils/pretrained.py", "models/vit.py", "layers/patch_embed.py"]
 )
 def test_exports_match_the_jax_package(relpath):
     import importlib

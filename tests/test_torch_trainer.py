@@ -176,8 +176,14 @@ def test_cli_runs_on_cpu(tmp_path):
                        "--heads", "2", "--vocab", "128", "--seqlen", "16", "--batch-size", "2",
                        "--steps", "2", "--log-every", "1", "--metrics-jsonl", str(llama)]) == 0
     assert all(np.isfinite(r["loss"]) for r in read_jsonl(str(llama)))
-    with pytest.raises(NotImplementedError, match="config_tree"):
-        train.main(["--config", "configs/config.yaml", "--device", "cpu"])
+    # --config (the YAML tree, ported since training/config_tree.py) runs
+    # with its overrides; tests/test_torch_config_tree.py holds the tree.
+    tree = tmp_path / "tree.jsonl"
+    assert train.main(["--config", "configs/config.yaml", "model.dim=32", "model.num_layers=1",
+                       "model.num_heads=2", "model.vocab=64", "run.steps=2", "run.seqlen=16",
+                       "run.batch_size=2", f"run.metrics_jsonl={tree}", "--device", "cpu",
+                       "--log-every", "1"]) == 0
+    assert [r["step"] for r in read_jsonl(str(tree))] == [1, 2]
 
 
 def test_cli_overfit_batch_loss_falls():
