@@ -305,6 +305,29 @@ Phases (any failure exits non-zero and prints no result line):
    32 bound B1 launches for the prefill, 32 decode-kernel launches a step),
    the step logits against a full recompute, prefill ms, decode ms/step and
    peak memory.
+20. (Runs after 19.) The kvcache API's rest, every call through
+   ``flash_attn_with_kvcache`` (the counted run, ``kvcache_rest_run``):
+   (a) a continuous batch at Llama-3-8B's attention (32 q heads on 8 KV
+   heads of 128, bf16) over a pool of 16 slots of 8192 tokens, 8 live ones
+   picked out of order by ``cache_batch_idx``, Llama-3's rotary (theta 500
+   000, half-split, all 128 features): 8 causal steps each packing two
+   prefill chunks of 512-2048 tokens and six single tokens by
+   ``cu_seqlens_q`` / ``cu_seqlens_k_new`` (prior lengths 0-6000; B8 reads
+   the slots in place), 4 single-token steps, one packed step with a
+   window (B1's route, the live slots gathered) and one on a pool of
+   256-token pages (B9b); rows against ``flash_attention_plain`` per
+   sequence and against the sequences run alone, the unpicked slots byte
+   for byte, a decode step's allocations (no copy of the pool), the
+   padding's cost and the gather's; (b) DeepSeek-V3's MLA decode (128
+   heads, rope 64, latent 512, batch 64, lengths 1024-8192) through ``qv``
+   and through a 576 latent cache beside its 512 V (B1-MLA V 512 with the
+   key range; the two must agree), and the non-absorbed (192, 128) step
+   (1024 new rows over a 4096-slot head-major cache, prior 1500-3000; B1's
+   prefill kernel with the key range); (c) ``int8_mma`` on the kvcache
+   API shape's int8 cache and pages of 256, against its plain version and
+   within rel-L2 8e-2 of the exact dequant path. Each new variant is timed
+   beside its bound, its plain version and SDPA with a boolean mask where
+   one call computes the same function.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -579,7 +602,9 @@ def kernel_wrappers():
     128), the split-O MLA kernel at V 512, B1 with dropout and B1 with the
     window / chunk / softcap channels; flash_bwd B7, B7 with the bound /
     low channels, B7 with ALiBi, B7 with dropout and B7 with the window /
-    softcap channels)."""
+    softcap channels; the MLA kernels with B1's key range, the decode kernel
+    reading a slot pool by ``cache_batch_idx``, and its int8_mma
+    instantiation, contiguous and paged)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -611,7 +636,12 @@ def kernel_wrappers():
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
-            "mla_decode": (mla_decode, "launches")}
+            "mla_decode": (mla_decode, "launches"),
+            "flash_fwd_mla_bound": (flash_attention, "mla_bound_launches"),
+            "flash_fwd_mla_v512_bound": (flash_attention, "mla_v512_bound_launches"),
+            "flash_decode_batch_idx": (flash_attention_decode, "batch_idx_launches"),
+            "flash_decode_int8_mma": (flash_attention_decode, "int8_mma_launches"),
+            "paged_decode_folded_int8_mma": (paged_attention_folded, "int8_mma_launches")}
 
 
 def reset_counts():
@@ -6434,6 +6464,538 @@ def falcon_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 20
+
+# Phase 20 (a): a continuous batch at Llama-3-8B's attention (32 q heads on
+# 8 KV heads of 128, bf16; meta-llama/Meta-Llama-3-8B config.json: rope_theta
+# 500 000) over a pool of 16 slots of 8192 tokens (K and V 0.54 GB), 8 of them
+# live; each step packs two prefill chunks and six single tokens.
+KVR = dict(slots=16, capacity=8192, heads=32, kv_heads=8, d=128, live=8, steps=8,
+           chunk=(512, 2048), prior=(0, 6000), decode_steps=4, page=256, theta=500000.0)
+KVR_WINDOW = (4095, 0)
+# (b) the non-absorbed (192, 128) step: batch, new rows, cache slots, prior lengths.
+MLA_BOUND_STEP = (2, 1024, 4096, (1500, 3000))
+# rel-L2 of int8_mma against the exact dequant path (JAX tests/test_kv_quant.py).
+INT8_MMA_TOL = 8e-2
+INPLACE_SLACK = 64 << 20  # bytes a decode step may allocate beside the pool (a gather: 268 MB)
+TIMED_STEPS = 3  # packed steps timed beside their sequences alone (the padding's cost)
+
+
+def llama3_rotary(dev, n, d, theta):
+    """Rotary tables ``[n, d / 2]`` fp32 at base ``theta`` over all ``d``
+    features (the angles of the half-split layout)."""
+    import torch
+
+    inv = 1.0 / theta ** (torch.arange(0, d, 2, device=dev, dtype=torch.float64) / d)
+    ang = torch.arange(n, device=dev, dtype=torch.float64)[:, None] * inv[None]
+    return ang.cos().float(), ang.sin().float()
+
+
+def mixed_steps(dev, rnd, pick, lens, steps):
+    """``steps`` packed steps over sequences at lengths ``lens`` (a list,
+    advanced in place): the two shortest take a prefill chunk of
+    ``KVR["chunk"]`` tokens, the others one token. Each step: packed q, k,
+    v, cu_seqlens, the prior lengths, the q lengths and the longest."""
+    import torch
+
+    cfg, out = KVR, []
+    for _ in range(steps):
+        short = sorted(range(len(lens)), key=lambda i: lens[i])[:2]
+        qlen = [pick.randint(*cfg["chunk"]) if i in short else 1 for i in range(len(lens))]
+        total = sum(qlen)
+        cu = torch.tensor([0] + list(itertools.accumulate(qlen)), dtype=torch.int32, device=dev)
+        out.append(dict(q=rnd(total, cfg["heads"], cfg["d"]),
+                        k=rnd(total, cfg["kv_heads"], cfg["d"]),
+                        v=rnd(total, cfg["kv_heads"], cfg["d"]), cu=cu, qlen=qlen, maxq=max(qlen),
+                        lens=torch.tensor(lens, dtype=torch.int32, device=dev)))
+        for i, n in enumerate(qlen):
+            lens[i] += n
+        check(max(lens) <= cfg["capacity"], "phase 20: a sequence outgrew its slot")
+    return out
+
+
+def api_step(st, kc, vc, rot, **kw):
+    """One packed step through flash_attn_with_kvcache (causal, Llama-3's
+    rotary, half-split): (out ``[total, H, D]``, lse ``[H, total]``)."""
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+
+    out, lse, _ = flash_attn_with_kvcache(
+        st["q"], kc, vc, st["k"], st["v"], rotary_cos=rot[0], rotary_sin=rot[1],
+        cache_seqlens=st["lens"], cu_seqlens_q=st["cu"], cu_seqlens_k_new=st["cu"],
+        max_seqlen_q=st["maxq"], max_seqlen_k_new=st["maxq"], causal=True,
+        rotary_interleaved=False, return_softmax_lse=True, **kw)
+    return out, lse
+
+
+def one_sequence(st, i):
+    """Sequence ``i`` of a packed step as a packed step of its own."""
+    import torch
+
+    a, z = (int(x) for x in st["cu"][i:i + 2])
+    return dict(q=st["q"][a:z], k=st["k"][a:z], v=st["v"][a:z], qlen=[z - a], maxq=z - a,
+                cu=torch.tensor([0, z - a], dtype=torch.int32, device=st["q"].device),
+                lens=st["lens"][i:i + 1]), (a, z)
+
+
+def held_plain(label, st, out, lse, slot_kv, rot, window=None):
+    """A packed step's rows against ``flash_attention_plain`` sequence by
+    sequence: q rotated at its positions, over the sequence's K and V
+    (``slot_kv(i)``: ``[1, Hk, S, D]`` each), bottom-right causal at its
+    new length (and ``window``). out within OUT_TOL of max(1, |plain|), lse
+    within LSE_TOL."""
+    import torch
+    from liteattention_torch.flash_attn_interface import _rotate
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    err = err_l = 0.0
+    for i in range(len(st["qlen"])):
+        sub, (a, z) = one_sequence(st, i)
+        prior = int(sub["lens"][0])
+        pos = torch.arange(prior, prior + z - a, device=out.device)[None]
+        qr = _rotate(sub["q"][None], rot[0], rot[1], pos, False)
+        kc, vc = slot_kv(i)
+        ro, rl = flash_attention_plain(qr.transpose(1, 2), kc, vc, kv_bound=sub["lens"] + (z - a),
+                                       bound_causal=True, window=window)
+        got = out[a:z].transpose(0, 1)[None].float()
+        err = max(err, ((got - ro.float()).abs() / ro.float().abs().clamp_min(1.0)).max().item())
+        err_l = max(err_l, (lse[:, a:z][None] - rl).abs().max().item())
+    log(f"  {label}: against flash_attention_plain sequence by sequence: max|out| err {err:.3e} "
+        f"(over max(1, |plain|)), max|lse| err {err_l:.3e}")
+    check(err < OUT_TOL and err_l < LSE_TOL, f"phase 20 {label} disagrees with the plain version")
+    return err
+
+
+def alone_check(st, out, lse, call, time_it):
+    """The step's sequences one by one through the API (``call(sub, i)``;
+    their appends rewrite the same rows): rows within DECODE_TOL and
+    rel-L2 DECODE_REL_TOL of the packed call's. Returns (max abs error,
+    rel-L2, with ``time_it`` the calls' device time summed, else None)."""
+    import torch
+
+    subs = [one_sequence(st, i) for i in range(len(st["qlen"]))]
+    got, ref, err = [], [], 0.0
+    for i, (sub, (a, z)) in enumerate(subs):
+        o, l1 = call(sub, i)
+        got.append(out[a:z].float())
+        ref.append(o.float())
+        err = max(err, (out[a:z].float() - o.float()).abs().max().item(),
+                  (lse[:, a:z] - l1).abs().max().item())
+    rel = rel_l2(torch.cat(got), torch.cat(ref))
+    check(err < DECODE_TOL and rel < DECODE_REL_TOL,
+          f"phase 20: a packed step differs from its sequences alone ({err:.3e}, {rel:.2e})")
+    if not time_it:
+        return err, rel, None
+    ms = sum(device_ms(lambda sub=sub, i=i: call(sub, i), reps=10)[0]
+             for i, (sub, _) in enumerate(subs))
+    return err, rel, ms
+
+
+def step_need(st, hk, d, elsize=2):
+    """(bytes, flops) a packed step needs: each sequence's K and V rows to
+    its new length read once, the new rows written, q / out / lse; QK and
+    P V over its visible pairs (no padding)."""
+    nbytes_, flops = 0, 0
+    h = KVR["heads"]
+    for prior, n in zip(st["lens"].tolist(), st["qlen"]):
+        keys = prior + n
+        nbytes_ += 2 * keys * hk * d * elsize + 2 * n * hk * d * elsize
+        nbytes_ += n * h * (2 * d * elsize + 4)
+        flops += 4 * d * h * sum(prior + r + 1 for r in range(n))
+    return nbytes_, flops
+
+
+def continuous_batch_inputs(dev):
+    """Phase 20 (a)'s pool, slots, rotary tables and steps (made before the
+    counted run)."""
+    import random
+
+    import torch
+
+    cfg = KVR
+    g = torch.Generator(device=dev).manual_seed(2020)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    pick = random.Random(20)
+    x = {"kc": rnd(cfg["slots"], cfg["capacity"], cfg["kv_heads"], cfg["d"]),
+         "vc": rnd(cfg["slots"], cfg["capacity"], cfg["kv_heads"], cfg["d"])}
+    slots = torch.randperm(cfg["slots"], generator=torch.Generator().manual_seed(21))
+    x["idx"] = slots[: cfg["live"]].to(dev, torch.int32)
+    x["idle"] = slots[cfg["live"]:].to(dev)
+    x["idle_k"], x["idle_v"] = x["kc"][x["idle"]].clone(), x["vc"][x["idle"]].clone()
+    x["rot"] = llama3_rotary(dev, cfg["capacity"], cfg["d"], cfg["theta"])
+    lo, hi = cfg["prior"]
+    lens = [lo + (hi - lo) * i // (cfg["live"] - 1) for i in range(cfg["live"])]
+    pick.shuffle(lens)
+    x["steps"] = mixed_steps(dev, rnd, pick, lens, cfg["steps"])
+    x["decode"] = []
+    for _ in range(cfg["decode_steps"]):
+        x["decode"].append(dict(q=rnd(cfg["live"], 1, cfg["heads"], cfg["d"]),
+                                k=rnd(cfg["live"], 1, cfg["kv_heads"], cfg["d"]),
+                                v=rnd(cfg["live"], 1, cfg["kv_heads"], cfg["d"]),
+                                lens=torch.tensor(lens, dtype=torch.int32, device=dev)))
+        lens = [n + 1 for n in lens]
+    x["window"] = mixed_steps(dev, rnd, pick, lens, 1)[0]
+    # The paged step: its own pool of 256-token pages (8 sequences' worth,
+    # a shuffled table) and prior lengths.
+    n_pages = cfg["live"] * cfg["capacity"] // cfg["page"]
+    x["kp"] = rnd(n_pages, cfg["page"], cfg["kv_heads"], cfg["d"])
+    x["vp"] = rnd(n_pages, cfg["page"], cfg["kv_heads"], cfg["d"])
+    x["table"] = torch.randperm(n_pages, generator=g, device=dev).reshape(cfg["live"], -1).int()
+    plens = [pick.randint(lo, hi) for _ in range(cfg["live"])]
+    x["paged"] = mixed_steps(dev, rnd, pick, plens, 1)[0]
+    return x
+
+
+def mla_step_inputs(dev):
+    """Phase 20 (b)'s inputs: DeepSeek-V3's absorbed decode (rope 64 and
+    latent 512 caches, 128 heads, batch 64, ragged lengths; the same as a
+    576 latent cache beside a 512 V cache) and the non-absorbed (192, 128)
+    step over a head-major cache."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(2022)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    b, s, h = MLA_BATCH, MLA_MAX_LEN, MLA_HEADS
+    x = {"q": rnd(b, 1, h, MLA_ROPE), "qv": rnd(b, 1, h, MLA_DV), "kc": rnd(b, s, 1, MLA_ROPE),
+         "vc": rnd(b, s, 1, MLA_DV)}
+    x["lens"] = torch.randint(MLA_MIN_LEN, s + 1, (b,), generator=g, device=dev).int()
+    x["latent"] = torch.cat([x["vc"], x["kc"]], dim=-1)  # [v 512 | rope 64]
+    x["q576"] = torch.cat([x["qv"], x["q"]], dim=-1)
+    nb, new, cap, (lo, hi) = MLA_BOUND_STEP
+    x["nq"], x["nk"] = rnd(nb, new, h, MLA_QK), rnd(nb, new, h, MLA_QK)
+    x["nv"] = rnd(nb, new, h, MLA_V)
+    x["nkc"], x["nvc"] = rnd(nb, h, cap, MLA_QK), rnd(nb, h, cap, MLA_V)
+    x["nlens"] = torch.randint(lo, hi + 1, (nb,), generator=g, device=dev).int()
+    return x
+
+
+def kvcache_rest_run(dev):
+    """Phase 20's counted run, the main path: every call through
+    ``flash_attn_with_kvcache``. (a) the continuous batch's 8 packed steps
+    over the slot pool (``cache_batch_idx``, rotary, ``cu_seqlens_q`` /
+    ``cu_seqlens_k_new``: B8 reading the slots in place), 4 single-token
+    steps of all 8 sequences, one packed step with a window (B1's route,
+    the live slots gathered) and one on the page pool (B9b); (b) the MLA
+    decode through ``qv`` and through a 576 latent cache (B1-MLA V 512 with
+    the key range), and the (192, 128) step (B1-MLA's prefill kernel with
+    the key range); (c) ``int8_mma`` on the kvcache API shape's int8 cache
+    and pool. The counts are set to 0 just before and read just after."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+
+    cfg = KVR
+    x = continuous_batch_inputs(dev)
+    m = mla_step_inputs(dev)
+    c = api_inputs(dev)
+    rot, idx = x["rot"], x["idx"]
+    torch.cuda.synchronize()
+    reset_counts()
+    for st in x["steps"]:
+        st["out"], st["lse"] = api_step(st, x["kc"], x["vc"], rot, cache_batch_idx=idx)
+    for st in x["decode"]:
+        st["out"], st["lse"], _ = flash_attn_with_kvcache(
+            st["q"], x["kc"], x["vc"], st["k"], st["v"], rotary_cos=rot[0], rotary_sin=rot[1],
+            cache_seqlens=st["lens"], cache_batch_idx=idx, causal=True, rotary_interleaved=False,
+            return_softmax_lse=True)
+    st = x["window"]
+    st["out"], st["lse"] = api_step(st, x["kc"], x["vc"], rot, cache_batch_idx=idx,
+                                    window_size=KVR_WINDOW)
+    st = x["paged"]
+    st["out"], st["lse"] = api_step(st, x["kp"], x["vp"], rot, page_table=x["table"])
+    m["out_qv"], m["lse_qv"] = flash_attn_with_kvcache(
+        m["q"], m["kc"], m["vc"], qv=m["qv"], cache_seqlens=m["lens"], causal=True,
+        return_softmax_lse=True)
+    m["out_576"], m["lse_576"] = flash_attn_with_kvcache(
+        m["q576"], m["latent"], m["vc"], cache_seqlens=m["lens"], causal=True,
+        return_softmax_lse=True)
+    m["out_192"], m["lse_192"], _ = flash_attn_with_kvcache(
+        m["nq"], m["nkc"], m["nvc"], m["nk"], m["nv"], cache_seqlens=m["nlens"], causal=True,
+        kv_cache_layout="bhsd", return_softmax_lse=True)
+    lens8 = c["lens"]
+    c["out_mma"] = flash_attn_with_kvcache(
+        c["q"], c["kc8"], c["vc8"], cache_seqlens=lens8, causal=True, k_cache_scale=c["ks"],
+        v_cache_scale=c["vs"], int8_mma=True)
+    c["out_mma_paged"] = flash_attn_with_kvcache(
+        c["q"], c["kp8"], c["vp8"], cache_seqlens=lens8, page_table=c["table"], causal=True,
+        k_cache_scale=c["kps"], v_cache_scale=c["vps"], int8_mma=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return counts, x, m, c
+
+
+def kvcache_rest_phase(dev, card):
+    """Phase 20: the rest of the kvcache API on the card. The counted run
+    (:func:`kvcache_rest_run`) and its launches, then every output against
+    plain versions on the card, the packed steps against their sequences
+    run alone, the unpicked slots byte for byte, the decode step's
+    allocations (the pool is read in place), and each new kernel variant
+    against its plain version at the run's shapes, timed beside its bound
+    (and SDPA where one call computes the same function). Returns the
+    counts, the kernels-line rows and the stats."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+    from liteattention_torch.ops.flash_decode import row_chunks
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+        flash_attention_masked,
+        flash_attention_plain,
+    )
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention_folded,
+        paged_attention_folded_plain,
+    )
+
+    cfg = KVR
+    hk, d, group = cfg["kv_heads"], cfg["d"], cfg["heads"] // cfg["kv_heads"]
+    t0 = time.perf_counter()
+    counts, x, m, c = kvcache_rest_run(dev)
+    # The launches: one B8 launch a step (several for a long padded q,
+    # flash_decode.row_chunks), B9b's for the paged step, one B1 window
+    # launch, the three B1-MLA calls, one int8_mma launch of each.
+    chunks = lambda st: len(row_chunks(cfg["live"], st["maxq"] * group, group))  # noqa: E731
+    want = {"flash_decode_batch_idx": sum(chunks(st) for st in x["steps"]) + len(x["decode"]),
+            "paged_decode_folded": chunks(x["paged"]), "flash_fwd_window": 1,
+            "flash_fwd_mla_v512_bound": 2, "flash_fwd_mla_bound": 1,
+            "flash_decode_int8_mma": 1, "paged_decode_folded_int8_mma": 1}
+    log(f"  counted run: {json.dumps({k: v for k, v in counts.items() if v})}")
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"phase 20: {n} launches of {name}, want "
+                                      f"{want.get(name, 0)}")
+    stats = {"launches": {k: v for k, v in counts.items() if v}}
+    kres = {}
+
+    # (a) the continuous batch.
+    rot, idx = x["rot"], x["idx"]
+    check(torch.equal(x["kc"][x["idle"]], x["idle_k"]) and torch.equal(x["vc"][x["idle"]],
+                                                                       x["idle_v"]),
+          "phase 20: a slot outside cache_batch_idx changed")
+    log(f"  (a) the {len(x['idle'])} slots outside cache_batch_idx are unchanged, byte for byte")
+
+    def slot_kv(pool_k, pool_v):
+        return lambda i: tuple(p[idx[i]].transpose(0, 1)[None] for p in (pool_k, pool_v))
+
+    err = 0.0
+    for n_step in (0, len(x["steps"]) - 1):
+        st = x["steps"][n_step]
+        err = max(err, held_plain(f"(a) packed step {n_step} ({st['qlen']} tokens)", st,
+                                  st["out"], st["lse"], slot_kv(x["kc"], x["vc"]), rot))
+    st = x["window"]
+    err = max(err, held_plain(f"(a) packed step with window {KVR_WINDOW}", st, st["out"],
+                              st["lse"], slot_kv(x["kc"], x["vc"]), rot, window=KVR_WINDOW))
+    st = x["paged"]
+    tbl = x["table"].long()
+    err = max(err, held_plain(
+        f"(a) packed step on pages of {cfg['page']}", st, st["out"], st["lse"],
+        lambda i: tuple(p[tbl[i]].reshape(-1, hk, d).transpose(0, 1)[None]
+                        for p in (x["kp"], x["vp"])), rot))
+    alone = []
+    for n_step, st in enumerate(x["steps"]):
+        e, r, ms = alone_check(st, st["out"], st["lse"], lambda sub, i: api_step(
+            sub, x["kc"], x["vc"], rot, cache_batch_idx=idx[i:i + 1]), n_step < TIMED_STEPS)
+        alone.append({"step": n_step, "max_abs_err": e, "rel_l2": r, "alone_ms": ms})
+    log(f"  (a) each packed step against its sequences alone: max|err| "
+        f"{max(a['max_abs_err'] for a in alone):.3e}, rel-L2 {max(a['rel_l2'] for a in alone):.2e}")
+    # The decode route reads the pool in place: a step allocates about its
+    # q, outputs and scratch, never a slot's copy.
+    dst = x["decode"][0]
+
+    def decode_call():
+        return flash_attn_with_kvcache(
+            dst["q"], x["kc"], x["vc"], dst["k"], dst["v"], rotary_cos=rot[0], rotary_sin=rot[1],
+            cache_seqlens=dst["lens"], cache_batch_idx=idx, causal=True, rotary_interleaved=False,
+            return_softmax_lse=True)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    decode_call()
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    log(f"  (a) a single-token step allocates {grew / 2**20:.2f} MiB at its peak beside the "
+        f"{2 * nbytes(x['kc']) / 2**30:.2f} GiB pool (a gather of the live slots: "
+        f"{2 * nbytes(x['kc'][idx]) / 2**20:.0f} MiB)")
+    check(grew < INPLACE_SLACK, "phase 20: the decode step copied the pool")
+    stats["decode_step_alloc_bytes"] = grew
+    # Each packed step's device time beside its sequences alone, and the
+    # padding: the padded q rows against the real ones.
+    pad = []
+    for n_step, st in enumerate(x["steps"][:TIMED_STEPS]):
+        ms, kernel_ms, timer = device_ms(lambda st=st: api_step(
+            st, x["kc"], x["vc"], rot, cache_batch_idx=idx), reps=10, names=DECODE_KERNELS)
+        need = step_need(st, hk, d)
+        pad.append({"step": n_step, "q_lengths": st["qlen"], "ms": ms, "kernel_ms": kernel_ms,
+                    "timer": timer, "alone_ms": alone[n_step]["alone_ms"],
+                    "rows_real": sum(st["qlen"]), "rows_padded": st["maxq"] * cfg["live"],
+                    "bound_ms": bound(need[1], need[0])[0]})
+    mixed_ms = sum(p["ms"] for p in pad)
+    alone_ms = sum(p["alone_ms"] for p in pad)
+    log(f"  (a) {TIMED_STEPS} packed steps: {mixed_ms:.3f} ms of device time (decode kernel "
+        f"{fmt_ms(sum(p['kernel_ms'] or 0.0 for p in pad))}) against {alone_ms:.3f} ms for the "
+        f"same sequences run alone; padded rows {sum(p['rows_padded'] for p in pad)} for "
+        f"{sum(p['rows_real'] for p in pad)} real [{card}]")
+    stats["packed_steps"] = pad
+    # B1's window route gathers the live slots: the copy alone.
+    win_ms = device_ms(lambda: api_step(x["window"], x["kc"], x["vc"], rot, cache_batch_idx=idx,
+                                        window_size=KVR_WINDOW), reps=10)[0]
+    gather_ms = device_ms(lambda: (x["kc"].transpose(1, 2)[idx].contiguous(),
+                                   x["vc"].transpose(1, 2)[idx].contiguous()), reps=10)[0]
+    log(f"  (a) the window step: {win_ms:.3f} ms, of which the gather of the live slots "
+        f"{gather_ms:.3f} ms ({gather_ms / win_ms:.1%}) [{card}]")
+    stats["window_step"] = {"ms": win_ms, "slot_gather_ms": gather_ms,
+                            "gathered_bytes": 2 * nbytes(x["kc"][idx])}
+    # B8 with cache_batch_idx against its plain version at the single-token
+    # step's shape, timed.
+    lens1 = dst["lens"] + 1
+    keys = int(lens1.sum())
+    q4 = dst["q"].transpose(1, 2)
+    r = check_decode(
+        f"B8 cache_batch_idx {cfg['live']} of {cfg['slots']} slots x {cfg['heads']}/{hk}x{d}, "
+        f"lengths {lens1.min().item()}-{lens1.max().item()}", flash_attention_decode,
+        flash_attention_decode_plain, (q4, x["kc"], x["vc"]),
+        dict(kv_bound=lens1, causal=True, cache_batch_idx=idx),
+        (2 * keys * hk * d * 2 + 2 * nbytes(q4) + 4 * cfg["live"] * cfg["heads"],
+         4 * group * d * hk * keys), time_it=True)
+    r["library"] = "none (no one call reads a slot pool by index)"
+    r["err"] = max(r["err"], err)
+    r["packed_steps"] = {"ms": mixed_ms, "alone_ms": alone_ms,
+                         "bound_ms": sum(p["bound_ms"] for p in pad)}
+    kres["flash_decode_batch_idx"] = r
+
+    # (b) MLA decode through qv, the 576 latent cache and the (192, 128) step.
+    b, h, s = MLA_BATCH, MLA_HEADS, MLA_MAX_LEN
+    fold = lambda t: t.transpose(1, 2).reshape(b, 1, h, t.shape[-1])  # noqa: E731
+    kh, vh = m["kc"].transpose(1, 2), m["vc"].transpose(1, 2)
+    scale = (MLA_ROPE + MLA_DV) ** -0.5
+    ro, rl = flash_attention_plain(fold(m["q"]), kh, vh, scale, qv=fold(m["qv"]),
+                                   kv_bound=m["lens"])
+    ro, rl = ro.reshape(b, h, 1, MLA_DV).transpose(1, 2), rl.reshape(b, h, 1)
+    e_qv = check_mla("(b) qv decode, B1-MLA (64, 512) + qv with the key range", m["out_qv"],
+                     m["lse_qv"], ro, rl)
+    e_576 = check_mla("(b) the 576 latent cache, B1-MLA (576, 512) with the key range",
+                      m["out_576"], m["lse_576"], ro, rl)
+    same = rel_l2(m["out_576"].float(), m["out_qv"].float())
+    log(f"  (b) the two forms of one latent cache agree: rel-L2 {same:.2e}")
+    check(same < MLA_REL_TOL, "phase 20: the qv and 576 forms differ")
+    keys_mla = int(m["lens"].sum())
+
+    def mla_row(label, call, plain_call, flops, nbytes_, library):
+        res = {"ms": device_ms(call)[0], "plain_ms": cuda_ms(plain_call, reps=1)}
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes_)
+        backend, res["library_ms"], t_lib = sdpa_backend_ms(label, library)
+        res["library"] = f"torch SDPA, boolean key mask ({backend} backend)" if backend else "none"
+        res["timer"] = {"ms": "queued_events", "plain_ms": "events", "library_ms": t_lib}
+        log(f"  {label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}), {res['library']} "
+            f"{fmt_ms(res['library_ms'])} [{card}]")
+        torch.cuda.empty_cache()
+        return res
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    key_mask = (torch.arange(s, device=dev) < m["lens"][:, None])[:, None, None]  # [B, 1, 1, S]
+    qf, qvf = fold(m["q"]), fold(m["qv"])
+    r = mla_row(
+        "(b) B1-MLA (64, 512) + qv, key range", lambda: flash_attention_masked(
+            qf, kh, vh, kv_bound=m["lens"], scale=scale, qv=qvf),
+        lambda: flash_attention_plain(qf, kh, vh, scale, qv=qvf, kv_bound=m["lens"]),
+        2 * (MLA_ROPE + 2 * MLA_DV) * keys_mla * h,
+        keys_mla * (MLA_ROPE + MLA_DV) * 2 + nbytes(qf, qvf) + b * h * (MLA_DV * 2 + 4),
+        lambda: sdpa(torch.cat([qf, qvf], -1), torch.cat([kh, vh], -1), vh, attn_mask=key_mask,
+                     scale=scale))
+    lat = m["latent"].transpose(1, 2)
+    q576 = fold(m["q576"])
+    r["latent_576"] = mla_row(
+        "(b) B1-MLA (576, 512), key range", lambda: flash_attention_masked(
+            q576, lat, vh, kv_bound=m["lens"]),
+        lambda: flash_attention_plain(q576, lat, vh, kv_bound=m["lens"]),
+        2 * (MLA_D + MLA_DV) * keys_mla * h,
+        keys_mla * (MLA_D + MLA_DV) * 2 + nbytes(q576) + b * h * (MLA_DV * 2 + 4),
+        lambda: sdpa(q576, lat, vh, attn_mask=key_mask))
+    r["err"] = max(e_qv, e_576)
+    r["shape"] = f"{b} x {h} heads on 1, lengths {m['lens'].min().item()}-{s}, single token"
+    kres["flash_fwd_mla_v512_bound"] = r
+    nb, new, cap, _ = MLA_BOUND_STEP
+    total = m["nlens"] + new
+    qh = m["nq"].transpose(1, 2)
+    ro, rl = flash_attention_plain(qh, m["nkc"], m["nvc"], kv_bound=total, bound_causal=True)
+    out = m["out_192"].transpose(1, 2)
+    e192 = ((out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)).max().item()
+    e192_l = (m["lse_192"] - rl).abs().max().item()
+    rel, blk = block_rel_l2(out, ro)
+    log(f"  (b) the (192, 128) step with the key range: max|out| err {e192:.3e} (over max(1, "
+        f"|plain|)), rel-L2 {rel:.2e}, worst 128-row block {blk:.2e}, max|lse| err {e192_l:.3e}")
+    check(e192 < OUT_TOL and e192_l < LSE_TOL and blk < MLA_BLOCK_TOL,
+          "phase 20: the (192, 128) step disagrees with the plain version")
+    pairs = sum(p + r_ + 1 for p in m["nlens"].tolist() for r_ in range(new))
+    vis = int(total.sum())
+    last = torch.arange(new, device=dev)[:, None] + m["nlens"][:, None, None]  # a row's last key
+    causal_mask = (torch.arange(cap, device=dev) <= last)[:, None]  # [B, 1, new, cap]
+    r = mla_row(
+        "(b) B1-MLA (192, 128), key range", lambda: flash_attention_masked(
+            qh, m["nkc"], m["nvc"], kv_bound=total, bound_causal=True),
+        lambda: flash_attention_plain(qh, m["nkc"], m["nvc"], kv_bound=total, bound_causal=True),
+        2 * (MLA_QK + MLA_V) * pairs * h,
+        vis * h * (MLA_QK + MLA_V) * 2 + nbytes(qh) + nb * h * new * (MLA_V * 2 + 4),
+        lambda: sdpa(qh, m["nkc"], m["nvc"], attn_mask=causal_mask))
+    r["err"] = e192
+    r["shape"] = (f"{nb} x {h} x {new} new rows, (192, 128), head-major cache {cap}, prior "
+                  f"{m['nlens'].min().item()}-{m['nlens'].max().item()}, causal")
+    kres["flash_fwd_mla_bound"] = r
+    del ro, rl, causal_mask, key_mask
+    torch.cuda.empty_cache()
+
+    # (c) int8_mma against its plain version, and against the exact path.
+    lens8 = c["lens"]
+    keys8 = int(lens8.sum())
+    q4 = c["q"].transpose(1, 2)
+    b8, hq8 = c["q"].shape[0], c["q"].shape[2]
+    need = (2 * keys8 * API_HK * API_D + 2 * nbytes(c["q"]) + 4 * b8 * hq8 + 2 * nbytes(c["ks"]),
+            4 * (API_HQ // API_HK) * API_D * API_HK * keys8)
+    shape = f"{b8}x{hq8}/{API_HK}x{API_D}, cache {API_CACHE}, lengths {lens8.min().item()}-" \
+            f"{lens8.max().item()}"
+    r = check_decode(f"B8 int8_mma {shape}", flash_attention_decode, flash_attention_decode_plain,
+                     (q4, c["kc8"], c["vc8"]),
+                     dict(kv_bound=lens8, k_scale=c["ks"], v_scale=c["vs"], int8_mma=True,
+                          causal=True), need, time_it=True)
+    exact = flash_attention_decode_plain(q4, c["kc8"], c["vc8"], kv_bound=lens8, k_scale=c["ks"],
+                                         v_scale=c["vs"])[0]
+    r["rel_l2_vs_exact"] = rel_l2(c["out_mma"].transpose(1, 2).float(), exact.float())
+    # The dequant path (int8 K cast to bf16 in registers) at the same shape.
+    r["ms_dequant"], r["kernel_ms_dequant"], _ = device_ms(lambda: flash_attention_decode(
+        q4, c["kc8"], c["vc8"], kv_bound=lens8, k_scale=c["ks"], v_scale=c["vs"], causal=True),
+        names=DECODE_KERNELS)
+    log(f"  (c) the dequant path at this shape: device {r['ms_dequant']:.4f} ms per call (decode "
+        f"kernel {fmt_ms(r['kernel_ms_dequant'])}) [{card}]")
+    r["library"] = "none"
+    kres["flash_decode_int8_mma"] = r
+    r = check_decode(f"B9b int8_mma {shape}, pages {API_PAGE}", paged_attention_folded,
+                     paged_attention_folded_plain,
+                     (c["q"], c["kp8"], c["vp8"], lens8, c["table"]),
+                     dict(return_lse=True, k_scale=c["kps"], v_scale=c["vps"], int8_mma=True,
+                          causal=True), (need[0] + nbytes(c["table"]), need[1]), time_it=True)
+    exact_p = paged_attention_folded_plain(c["q"], c["kp8"], c["vp8"], lens8, c["table"],
+                                           k_scale=c["kps"], v_scale=c["vps"])
+    r["rel_l2_vs_exact"] = rel_l2(c["out_mma_paged"].float(), exact_p.float())
+    r["library"] = "none"
+    kres["paged_decode_folded_int8_mma"] = r
+    for name in ("flash_decode_int8_mma", "paged_decode_folded_int8_mma"):
+        rel = kres[name]["rel_l2_vs_exact"]
+        log(f"  (c) {name}: rel-L2 {rel:.3e} against the exact dequant path (JAX's bound "
+            f"{INT8_MMA_TOL})")
+        check(rel < INT8_MMA_TOL, f"phase 20: {name} is off the exact path")
+    for r in kres.values():
+        r.setdefault("library_ms", None)
+    del x, m, c
+    torch.cuda.empty_cache()
+    stats["seconds_checks"] = time.perf_counter() - t0
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -6670,10 +7232,17 @@ def ab_times(reps):
     pq, pk, pv = (torch.randn(MLA_PREFILL_BATCH, MLA_HEADS, MLA_PREFILL_SEQ, w, generator=g,
                               device=dev).bfloat16() for w in (MLA_QK, MLA_QK, MLA_V))
     mla = {"b1mla_prefill_ms": cuda_ms(lambda: flash_attention(pq, pk, pv, causal=True), reps)}
+    mla_outs = [flash_attention(pq, pk, pv, causal=True, return_lse=True)]
     for key, x in zip(("b1mla_576_ms", "b1mla_qv_ms"), mla_abs_inputs(dev).values()):
         xh = [a.transpose(1, 2).contiguous() for a in x]
         mla[key] = cuda_ms(lambda: flash_attention(
             xh[0], xh[1], xh[2], causal=True, qv=xh[3] if len(xh) > 3 else None), reps)
+        mla_outs.append(flash_attention(xh[0], xh[1], xh[2], causal=True,
+                                        qv=xh[3] if len(xh) > 3 else None, return_lse=True))
+    # B1-MLA's outputs (out, lse) at the three shapes, so that two
+    # checkouts can be seen to compute the same bits.
+    mla["b1mla_digest"] = digest(*(t for o in mla_outs for t in o))
+    del mla_outs
     del pq, pk, pv, x, xh
     torch.cuda.empty_cache()
     # B6 at phase 6's shape, beside index_select over the tile view.
@@ -6844,6 +7413,10 @@ def main() -> int:
         phase("phase 19: Falcon-7B served from a remapped HF state dict (71 q heads on one KV "
               "head)")
         counts["falcon_serve"], p19_kres, p19_stats = falcon_phase(dev, card)
+        phase("phase 20: the kvcache API's rest: a continuous batch at Llama-3-8B width "
+              "(varlen q, rotary, cache_batch_idx), DeepSeek-V3 MLA decode through qv, int8_mma")
+        counts["kvcache_rest"], p20_kres, p20_stats = kvcache_rest_phase(dev, card)
+        kres.update(p20_kres)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -6970,6 +7543,17 @@ def main() -> int:
                              "liteattention_tpu/ops/flash_fwd.py:84"),
         "flash_bwd_window": ("flash_bwd_window.cu", "flash_bwd_window_kernel",
                              "liteattention_tpu/ops/flash_bwd.py:55"),
+        "flash_fwd_mla_bound": ("flash_fwd.cu", "flash_fwd_kernel<192, 128, ...> (key range)",
+                                "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_fwd_mla_v512_bound": ("mla_fwd.cu", "mla_fwd_kernel<QV, true, true> (RANGE)",
+                                     "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_decode_batch_idx": ("flash_decode.cu", "flash_decode_kernel (cache_batch_idx)",
+                                   "liteattention_tpu/ops/flash_fwd.py:843"),
+        "flash_decode_int8_mma": ("flash_decode.cu", "flash_decode_kernel<D, uint8_t, true>",
+                                  "liteattention_tpu/ops/flash_fwd.py:843"),
+        "paged_decode_folded_int8_mma": ("flash_decode.cu",
+                                         "flash_decode_kernel<D, uint8_t, true>",
+                                         "liteattention_tpu/ops/paged_attention.py:276"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -7016,7 +7600,7 @@ def main() -> int:
         kernels.append(row)
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
-                  (18, p18_stats), (19, p19_stats)):
+                  (18, p18_stats), (19, p19_stats), (20, p20_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -7035,6 +7619,7 @@ def main() -> int:
     log(f"config-tree MoE training (gpt2s-moe): {json.dumps(p17_stats)}")
     log(f"vit-b/16: {json.dumps(p18_stats)}")
     log(f"falcon-7b serving: {json.dumps(p19_stats)}")
+    log(f"kvcache api rest: {json.dumps(p20_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -38,39 +38,41 @@ the default scale ``(D + Dv)^-0.5`` when ``qv`` is given, as in JAX.
   (kernel B8) attends over ``[cache_leftpad, cache_seqlens + S_new)``
   with bottom-right causality per q position when ``causal``, optional
   ``softcap``, int8 caches with ``k_cache_scale``/``v_cache_scale``
-  ``[B, Hk, D]``. Every ``S_new`` goes through the kernel; its rows are
-  tiled 16 at a time. A step with ``window_size`` or ``attention_chunk``,
-  single-token or not, goes to B1's key range with the window
+  ``[B, Hk, D]`` (``int8_mma``: B8's int8 x int8 QK). Every ``S_new`` goes
+  through the kernel; its rows are tiled 16 at a time. ``cache_batch_idx``
+  picks each q batch row's slot of the caches; B8 reads the slot in place.
+  A step with ``window_size`` or ``attention_chunk``, single-token or
+  not, goes to B1's key range with the window
   (``flash_attention_masked(kv_bound=total, kv_low=cache_leftpad,
   bound_causal=causal, window=, attention_chunk=, softcap=)``), as JAX's
-  does.
+  does; so does a step with ``qv`` or a ``v_cache`` of its own head dim,
+  on B1's MLA kernels (built at ``ops/flash_fwd.py:MLA_SHAPES``; other
+  pairs raise on the card, naming ROADMAP B-i 7). Those routes gather
+  ``cache_batch_idx``'s slots first, as JAX does.
 * **Paged cache** (``page_table``): the pools ``[num_pages, page_size,
   Hk, D]`` take the new rows by a scatter, then
   :func:`~liteattention_torch.ops.paged_attention.paged_attention_folded`
-  (kernel B9b), bf16 or int8 with ``[Hk, D]`` scales. ``window_size`` and
-  ``attention_chunk`` raise there, as JAX asserts.
+  (kernel B9b), bf16 or int8 with ``[Hk, D]`` scales (and ``int8_mma``).
+  ``window_size``, ``attention_chunk``, ``cache_batch_idx``, ``qv`` and a
+  V of its own head dim raise there, as JAX asserts.
 
-``num_splits`` 0 or 1 sizes the kernel's grid at one CTA per SM, its
-splits balanced over the keys present; n > 1 at n CTAs per (batch, KV
-head, 16-row tile) (the result equals the unsplit one up to rounding).
+Rotary (``rotary_cos``/``rotary_sin``, ``rotary_seqlens``,
+``rotary_interleaved``) rotates q and the new k in plain PyTorch before
+the append, at JAX's positions. Varlen q (``cu_seqlens_q``,
+``cu_seqlens_k_new``) pads each sequence right-aligned onto the
+fixed-shape routes, as JAX does. ``num_splits`` 0 or 1 sizes the decode
+kernel's grid at one CTA per SM, its splits balanced over the keys
+present; n > 1 at n CTAs per (batch, KV head, 16-row tile) (the result
+equals the unsplit one up to rounding).
 
 Unlike JAX, the caches are updated in place (a copy of a multi-GB cache
 per step would cost more than the step); the return value keeps JAX's
 shape: ``out`` [, ``lse``] [, ``(k_cache, v_cache)`` when ``k`` is given].
-
-Not ported yet (ROADMAP A13); each raises ``NotImplementedError`` naming
-itself: varlen q (``cu_seqlens_q``, ``cu_seqlens_k_new``),
-``rotary_cos``/``rotary_sin``, ``cache_batch_idx``, the fp8 descales and
-``int8_mma``. ``qv`` and a
-``v_cache`` of another head dim than ``k_cache`` raise too: JAX serves
-them through B1's per-batch bound channel at the MLA shapes, which the
-port's B1 does not take with the bound (its bound, ALiBi and segment
-channels, and B7's, run at head dims 64, 80 and 128, B1's bound also at
-256, and not at the MLA shapes; ROADMAP A11). Head dim 256 (GPT-J) is
-built for ``flash_attn_func`` and ``flash_attn_with_kvcache`` and their
-backward (B1, B7 and the decode kernel); its ALiBi, segments (so the
-varlen functions) and lite walks raise, naming ROADMAP B-iii 4. ALiBi with ``attn_read_list`` raises, as every mask
-channel does on the skip path.
+The fp8 descales raise, as JAX asserts. Head dim 256 (GPT-J) is built for
+``flash_attn_func`` and ``flash_attn_with_kvcache`` and their backward
+(B1, B7 and the decode kernel); its ALiBi, segments (so the varlen
+functions) and lite walks raise, naming ROADMAP B-iii 4. ALiBi with
+``attn_read_list`` raises, as every mask channel does on the skip path.
 
 ``flash_attn_varlen_func`` (and ``flash_attn_varlen_qkvpacked_func`` /
 ``flash_attn_varlen_kvpacked_func``) attends over packed sequences
@@ -400,12 +402,50 @@ def flash_attn_varlen_kvpacked_func(
     )
 
 
-def _unported(roadmap="A13", **used) -> None:
-    names = [name for name, on in used.items() if on]
-    if names:
-        raise NotImplementedError(
-            f"flash_attn_with_kvcache: {', '.join(names)} not ported yet (ROADMAP {roadmap})"
-        )
+def _gather_rotary(tab: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``tab`` ``[seqlen_ro, rd / 2]``, ``pos`` int ``[B, S]`` -> fp32 ``[B,
+    S, rd / 2]`` (JAX ``flash_attn_interface.py:_gather_rotary``). A
+    position past the table (a padding row of a varlen batch, whose values
+    are never used) reads its last row, where JAX's take reads NaN."""
+    return tab.to(pos.device, torch.float32)[pos.long().clamp(0, tab.shape[0] - 1)]
+
+
+def _apply_rotary_batched(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                          interleaved: bool) -> torch.Tensor:
+    """Rotary with per-batch, per-position tables, as JAX's
+    ``_apply_rotary_batched``: ``x`` ``[B, S, H, D]``, ``cos`` / ``sin``
+    ``[B, S, rd / 2]``; the first ``2 (rd / 2)`` features rotate (pairs
+    ``(2i, 2i + 1)`` when ``interleaved``, else the two halves), in fp32,
+    cast back to ``x``'s dtype; the rest pass through."""
+    ro = 2 * cos.shape[-1]
+    xf = x[..., :ro].float()
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
+    if interleaved:
+        x1, x2 = xf[..., 0::2], xf[..., 1::2]
+        rot = torch.stack([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).reshape(xf.shape)
+    else:
+        x1, x2 = xf.chunk(2, dim=-1)
+        rot = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    rot = rot.to(x.dtype)
+    return torch.cat([rot, x[..., ro:]], dim=-1) if ro < x.shape[-1] else rot
+
+
+def _rotate(x, rotary_cos, rotary_sin, pos, interleaved):
+    return _apply_rotary_batched(x, _gather_rotary(rotary_cos, pos),
+                                 _gather_rotary(rotary_sin, pos), interleaved)
+
+
+def _per_batch(x, b: int, dev) -> torch.Tensor:
+    """An int or ``[B]`` tensor (None: 0) as int32 ``[B]`` on ``dev``."""
+    if x is None:
+        x = 0
+    if isinstance(x, int):
+        return torch.full((b,), x, dtype=torch.int32, device=dev)
+    return x.to(device=dev, dtype=torch.int32)
+
+
+def _refuse(message: str) -> None:
+    raise NotImplementedError(f"flash_attn_with_kvcache: {message}")
 
 
 def flash_attn_with_kvcache(
@@ -457,30 +497,54 @@ def flash_attn_with_kvcache(
     S_new_k - S_new + i``: keys ``[pos - left, pos + right]`` and
     ``[floor(pos / c) c, + c)``, on the contiguous route (B1's window
     instantiation, as in JAX), not with int8 caches (window) or
-    ``num_splits`` > 1 (chunk), as JAX asserts. ``scheduler_metadata``,
-    ``pack_gqa``, ``sm_margin``, ``max_seqlen_q``, ``rotary_seqlens``,
-    ``rotary_interleaved``, ``block_sizes`` and ``max_seqlen_k_new`` are
-    scheduling or tiling knobs of other backends, accepted and ignored.
+    ``num_splits`` > 1 (chunk), as JAX asserts.
+
+    ``rotary_cos`` / ``rotary_sin`` ``[seqlen_ro, rd / 2]`` rotate q and the
+    new k before the append, as JAX does (:func:`_apply_rotary_batched`):
+    k at ``rot_base + i`` with ``rot_base`` = ``rotary_seqlens`` when given,
+    else ``cache_seqlens``; q at the same positions when ``causal`` or with
+    a window, else every row at ``rot_base``.
+
+    ``cache_batch_idx`` ``[B]`` (contiguous caches): batch row ``b`` of q
+    reads and appends to the caches' row ``cache_batch_idx[b]`` (a pool of
+    slots); the decode kernel B8 reads the slots in place, B1's window /
+    chunk and MLA routes gather the live slots' rows first, as JAX does.
+
+    ``cu_seqlens_q`` ``[B + 1]`` (with ``max_seqlen_q``, required) takes q
+    packed ``[total_q, H, D]``; ``cu_seqlens_k_new`` the new ``k`` / ``v``
+    packed ``[total_k, Hk, D]`` (``max_seqlen_k_new``: their pad bound,
+    default ``total_k``), with q packed or dense. As JAX does
+    (:func:`_kvcache_varlen_q`), each sequence's q is padded right-aligned
+    to ``max_seqlen_q`` (bottom-right causality is then exact on every real
+    row), the ragged new rows are appended under their validity mask, the
+    fixed-shape route runs, and ``out`` ``[total_q, H, Dv]`` and ``lse``
+    ``[H, total_q]`` are re-packed. int8 caches refuse varlen q, as JAX
+    asserts.
+
+    ``qv`` ``[B, S_new, H, Dv]`` and a ``v_cache`` of its own head dim Dv
+    (contiguous route; MLA decode) go to B1's MLA kernels with the key
+    range (``flash_attention_masked(kv_bound=total, kv_low=cache_leftpad,
+    bound_causal=causal, qv=)``); a single-token step folds the GQA group
+    into q rows there (one CTA then reads each KV head's cache once).
+    ``softmax_scale`` defaults to ``(D + Dv)^-0.5`` with ``qv``. ``qv``
+    refuses ``page_table``, ``num_splits`` > 1 and ``k``, as JAX asserts.
+
+    ``int8_mma`` (int8 caches, single-token steps, contiguous in either
+    layout or paged): the decode kernels' int8 x int8 QK (q quantized per
+    row on the device, as JAX does); JAX's reduced-precision mode.
+
+    ``scheduler_metadata``, ``pack_gqa``, ``sm_margin``, ``block_sizes``
+    are scheduling or tiling knobs of other backends, accepted and
+    ignored. The fp8 descales raise, as JAX asserts.
     """
-    _unported(
-        cu_seqlens_q=cu_seqlens_q is not None,
-        cu_seqlens_k_new=cu_seqlens_k_new is not None,
-        rotary_cos=rotary_cos is not None or rotary_sin is not None,
-        cache_batch_idx=cache_batch_idx is not None,
-        descales=any(x is not None for x in (q_descale, k_descale, v_descale)),
-        int8_mma=int8_mma,
-    )
-    _unported(
-        "A11", qv=qv is not None,
-        v_cache_head_dim=v_cache.shape[-1] != k_cache.shape[-1],
-    )
+    if any(x is not None for x in (q_descale, k_descale, v_descale)):
+        _refuse("fp8 descales are not supported (bf16 / fp32 kernels), as JAX asserts")
     window = window_arg(window_size)
     attention_chunk = int(attention_chunk)
     if page_table is not None and (window is not None or attention_chunk):
         used = [n for n, on in (("window_size", window is not None),
                                 ("attention_chunk", attention_chunk)) if on]
-        raise NotImplementedError(f"flash_attn_with_kvcache: {' and '.join(used)} on the paged "
-                                  "route is not supported, as JAX asserts")
+        _refuse(f"{' and '.join(used)} on the paged route is not supported, as JAX asserts")
     if attention_chunk < 0:
         raise ValueError(f"attention_chunk must be >= 0, got {attention_chunk}")
     if attention_chunk and num_splits > 1:
@@ -490,6 +554,46 @@ def flash_attn_with_kvcache(
         raise ValueError(f"unknown kv_cache_layout {kv_cache_layout!r}")
     if (k is None) != (v is None):
         raise ValueError("k and v are appended together")
+    if qv is not None:
+        used = [n for n, on in (("page_table", page_table is not None),
+                                ("num_splits > 1", num_splits > 1), ("k", k is not None)) if on]
+        if used:
+            _refuse(f"qv with {', '.join(used)} is not supported: qv takes the contiguous unsplit "
+                    "route without an append, as JAX asserts (absorbed MLA over a latent cache: "
+                    "flash_mla_with_kvcache)")
+        if softmax_scale is None:
+            softmax_scale = (q.shape[-1] + qv.shape[-1]) ** -0.5
+    if page_table is not None and cache_batch_idx is not None:
+        _refuse("cache_batch_idx with page_table is not supported (the page table already "
+                "indirects), as JAX asserts")
+    rotary = (rotary_cos, rotary_sin, rotary_seqlens, rotary_interleaved)
+    if (rotary_cos is None) != (rotary_sin is None):
+        raise ValueError("rotary_cos and rotary_sin go together")
+    if cu_seqlens_q is not None:
+        return _kvcache_varlen_q(
+            q, k_cache, v_cache, k, v, qv, rotary, cache_seqlens, cache_batch_idx,
+            cache_leftpad, page_table, cu_seqlens_q, cu_seqlens_k_new, max_seqlen_q,
+            max_seqlen_k_new, softmax_scale, causal, window_size, attention_chunk, softcap,
+            num_splits, return_softmax_lse, kv_cache_layout,
+        )
+    if cu_seqlens_k_new is not None:
+        # Dense q with ragged appends: q as a varlen batch of equal lengths
+        # (its right-aligned padding is the identity). JAX's form fails later
+        # with a reshape error without k; the port names the missing k.
+        if k is None:
+            raise ValueError("cu_seqlens_k_new describes the packed new k / v: pass k and v")
+        b, sq, hq, d = q.shape
+        cu_q = torch.arange(b + 1, dtype=torch.int32, device=q.device) * sq
+        res = _kvcache_varlen_q(
+            q.reshape(b * sq, hq, d), k_cache, v_cache, k, v, qv, rotary, cache_seqlens,
+            cache_batch_idx, cache_leftpad, page_table, cu_q, cu_seqlens_k_new, sq,
+            max_seqlen_k_new, softmax_scale, causal, window_size, attention_chunk, softcap,
+            num_splits, return_softmax_lse, kv_cache_layout,
+        )
+        out, rest = res[0].reshape(b, sq, hq, -1), list(res[1:])
+        if return_softmax_lse:
+            rest[0] = rest[0].reshape(hq, b, sq).transpose(0, 1)  # [Hq, total] -> [B, Hq, Sq]
+        return tuple([out] + rest)
     b, s_new = q.shape[:2]
     dev = q.device
     int8 = k_cache.dtype == torch.int8
@@ -506,14 +610,24 @@ def flash_attn_with_kvcache(
             )
         if window is not None:
             raise ValueError("int8 KV caches take no window_size, as JAX asserts")
+        for name, used in (("cache_batch_idx", cache_batch_idx is not None),
+                           ("rotary_cos", rotary_cos is not None)):
+            if used:
+                _refuse(f"{name} with int8 caches is not supported, as JAX asserts")
     elif k_cache_scale is not None or v_cache_scale is not None:
         raise ValueError("cache scales go with int8 caches only")
-    if cache_seqlens is None:
-        cache_seqlens = 0
-    if isinstance(cache_seqlens, int):
-        cache_seqlens = torch.full((b,), cache_seqlens, dtype=torch.int32, device=dev)
-    cache_seqlens = cache_seqlens.to(device=dev, dtype=torch.int32)
+    cache_seqlens = _per_batch(cache_seqlens, b, dev)
     appended = 0 if k is None else k.shape[1]
+    if rotary_cos is not None:
+        rot_base = cache_seqlens if rotary_seqlens is None else _per_batch(rotary_seqlens, b, dev)
+        if causal or window is not None:
+            pos_q = rot_base[:, None] + torch.arange(s_new, device=dev)[None]
+        else:
+            pos_q = rot_base[:, None].expand(b, s_new)
+        q = _rotate(q, rotary_cos, rotary_sin, pos_q, rotary_interleaved)
+        if k is not None:
+            pos_k = rot_base[:, None] + torch.arange(appended, device=dev)[None]
+            k = _rotate(k, rotary_cos, rotary_sin, pos_k, rotary_interleaved)
     pos = cache_seqlens.long()[:, None] + torch.arange(appended, device=dev)[None]
 
     if page_table is not None:
@@ -521,48 +635,182 @@ def flash_attn_with_kvcache(
             raise ValueError("page pools have their own layout; kv_cache_layout does not apply")
         if cache_leftpad is not None or softcap:
             raise ValueError("cache_leftpad / softcap do not apply to the paged route")
+        if v_cache.shape[-1] != k_cache.shape[-1]:
+            _refuse("a v_cache of its own head dim on the paged route is not supported, as JAX "
+                    "asserts (paged absorbed MLA: flash_mla_with_kvcache)")
         num_pages, page_size, hk, d = k_cache.shape
         if k is not None:
             page_of = torch.gather(page_table.to(dev).long(), 1, pos // page_size).reshape(-1)
             slot = (pos % page_size).reshape(-1)
             k_cache[page_of, slot] = k.reshape(-1, hk, d).to(k_cache.dtype)
             v_cache[page_of, slot] = v.reshape(-1, hk, d).to(v_cache.dtype)
-        res = paged_attention_folded(
+        out, lse = paged_attention_folded(
             q, k_cache, v_cache, cache_seqlens + appended, page_table,
             scale=softmax_scale, causal=causal, return_lse=True,
             k_scale=k_cache_scale, v_scale=v_cache_scale, num_splits=num_splits,
+            int8_mma=int8_mma,
         )
-        out, lse = res
     else:
-        # The kernel reads [B, S, Hk, D] through strides: a head-major
+        # The kernels read [B, S, Hk, D] through strides: a head-major
         # cache passes as a transposed view.
         kv = k_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else k_cache
         vv = v_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else v_cache
+        idx = None if cache_batch_idx is None else cache_batch_idx.to(dev).long()
         if k is not None:
-            bi = torch.arange(b, device=dev)[:, None]
-            kv[bi, pos] = k.to(kv.dtype)
-            vv[bi, pos] = v.to(vv.dtype)
+            rows = torch.arange(b, device=dev) if idx is None else idx
+            kv[rows[:, None], pos] = k.to(kv.dtype)
+            vv[rows[:, None], pos] = v.to(vv.dtype)
         total = cache_seqlens + appended
         kv_low = cache_leftpad
-        if window is not None or attention_chunk:
-            # B1's key range with the window and chunk, as in JAX, for a
-            # single-token step too (head-major [B, Hk, S, D]: a "bshd"
-            # cache is copied).
-            out, lse = flash_attention_masked(
-                q.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2), kv_bound=total,
-                kv_low=kv_low, scale=softmax_scale, bound_causal=causal, window=window,
-                attention_chunk=attention_chunk, softcap=softcap, return_lse=True,
-            )
+        mla = qv is not None or v_cache.shape[-1] != k_cache.shape[-1]
+        if window is not None or attention_chunk or mla:
+            # B1's key range, with the window and chunk or at the MLA
+            # shapes, as in JAX, for a single-token step too (head-major
+            # [B, Hk, S, D]: a "bshd" cache with several KV heads is
+            # copied); the live slots' rows are gathered.
+            kh, vh = kv.transpose(1, 2), vv.transpose(1, 2)
+            if idx is not None:
+                kh, vh = kh[idx], vh[idx]
+            out, lse = _cache_attention_b1(q, kh, vh, qv, total, kv_low, softmax_scale, causal,
+                                           window, attention_chunk, softcap)
         else:
             out, lse = flash_attention_decode(
                 q.transpose(1, 2), kv, vv, kv_bound=total, kv_low=kv_low, scale=softmax_scale,
                 softcap=softcap, k_scale=k_cache_scale, v_scale=v_cache_scale, causal=causal,
-                num_splits=num_splits,
+                num_splits=num_splits, int8_mma=int8_mma, cache_batch_idx=cache_batch_idx,
             )
         out = out.transpose(1, 2)
     result = [out]
     if return_softmax_lse:
         result.append(lse)
+    if k is not None:
+        result.append((k_cache, v_cache))
+    return result[0] if len(result) == 1 else tuple(result)
+
+
+def _cache_attention_b1(q, kh, vh, qv, total, kv_low, scale, causal, window, attention_chunk,
+                        softcap):
+    """B1 over head-major caches ``[B, Hk, S, D]`` with the key range
+    ``[kv_low, total)`` (bottom-right causal against ``total``), the window,
+    chunk and cap; ``qv`` and V's own head dim take B1's MLA kernels. A
+    single-token step without a window or chunk folds the GQA group into
+    q rows, where bottom-right causality is ``col < total`` for every row,
+    as JAX's decode route does. Returns out ``[B, H, S_new, Dv]`` and lse
+    ``[B, H, S_new]``."""
+    qh = q.transpose(1, 2)
+    qvh = None if qv is None else qv.transpose(1, 2)
+    b, h, s_new, d = qh.shape
+    hk = kh.shape[1]
+    if s_new == 1 and window is None and not attention_chunk and hk < h:
+        fold = lambda x: x.reshape(b, hk, h // hk, x.shape[-1])  # noqa: E731
+        out, lse = flash_attention_masked(
+            fold(qh), kh, vh, kv_bound=total, kv_low=kv_low, scale=scale, softcap=softcap,
+            return_lse=True, qv=None if qvh is None else fold(qvh),
+        )
+        return out.reshape(b, h, 1, -1), lse.reshape(b, h, 1)
+    return flash_attention_masked(
+        qh, kh, vh, kv_bound=total, kv_low=kv_low, scale=scale, bound_causal=causal,
+        window=window, attention_chunk=attention_chunk, softcap=softcap, return_lse=True,
+        qv=qvh,
+    )
+
+
+def _kvcache_varlen_q(q, k_cache, v_cache, k, v, qv, rotary, cache_seqlens, cache_batch_idx,
+                      cache_leftpad, page_table, cu_seqlens_q, cu_seqlens_k_new, max_seqlen_q,
+                      max_seqlen_k_new, softmax_scale, causal, window_size, attention_chunk,
+                      softcap, num_splits, return_softmax_lse, kv_cache_layout):
+    """Varlen-q kvcache attention by padding, as JAX's ``_kvcache_varlen_q``.
+
+    ``q`` packed ``[total_q, H, D]`` with ``cu_seqlens_q`` ``[B + 1]``; new
+    ``k`` / ``v`` packed ``[total_k, Hk, D]`` with ``cu_seqlens_k_new``.
+    Each sequence's q rows are padded RIGHT-aligned to ``max_seqlen_q``
+    (row ``r`` holds query ``r - (Lq - lq)``), so the bottom-right causal /
+    window predicate ``col < total - Lq + r + 1`` is exactly ``col < total
+    - lq + i + 1`` at every real row; the new rows are padded to
+    ``max_seqlen_k_new`` and written where valid (contiguous caches in
+    either layout, ``cache_batch_idx``'s slots, or pages); the fixed-shape
+    route runs; the rows are re-packed (lse ``[H, total_q]``)."""
+    rotary_cos, rotary_sin, rotary_seqlens, rotary_interleaved = rotary
+    if max_seqlen_q is None:
+        raise ValueError("cu_seqlens_q needs max_seqlen_q (the pad bound), as JAX requires")
+    if k_cache.dtype == torch.int8:
+        _refuse("varlen q (cu_seqlens_q / cu_seqlens_k_new) with int8 caches is not supported, "
+                "as JAX asserts")
+    dev = q.device
+    b = cu_seqlens_q.numel() - 1
+    lq = int(max_seqlen_q)
+    cu_q = cu_seqlens_q.to(dev, torch.long)
+    seqlens_q = cu_q[1:] - cu_q[:-1]
+    total_q, hq, d = q.shape
+    if softmax_scale is None:
+        softmax_scale = (d + (0 if qv is None else qv.shape[-1])) ** -0.5
+    cache_seqlens = _per_batch(cache_seqlens, b, dev)
+    rows = torch.arange(lq, device=dev)
+    lead = (lq - seqlens_q)[:, None]  # [B, 1] padding rows in front
+    q_valid = rows[None] >= lead
+    src_q = (cu_q[:-1, None] + rows[None] - lead).clamp(0, total_q - 1).reshape(-1)
+
+    def pad_rows(packed):
+        g = packed[src_q].reshape(b, lq, *packed.shape[1:])
+        return torch.where(q_valid.reshape(b, lq, *[1] * (packed.dim() - 1)), g, 0)
+
+    q_pad = pad_rows(q)
+    qv_pad = None if qv is None else pad_rows(qv)
+    rot_base = None
+    if rotary_cos is not None:
+        rot_base = cache_seqlens if rotary_seqlens is None else _per_batch(rotary_seqlens, b, dev)
+    appended = torch.zeros(b, dtype=torch.int32, device=dev)
+    if k is not None:
+        if cu_seqlens_k_new is None:
+            raise ValueError("varlen q with new k / v needs cu_seqlens_k_new")
+        cu_k = cu_seqlens_k_new.to(dev, torch.long)
+        seqlens_k = cu_k[1:] - cu_k[:-1]
+        appended = seqlens_k.to(torch.int32)
+        lk = int(max_seqlen_k_new if max_seqlen_k_new is not None else k.shape[0])
+        rk = torch.arange(lk, device=dev)
+        k_valid = rk[None] < seqlens_k[:, None]  # [B, Lk]
+        src_k = (cu_k[:-1, None] + rk[None]).clamp(0, k.shape[0] - 1).reshape(-1)
+        k_pad = k[src_k].reshape(b, lk, *k.shape[1:])
+        v_pad = v[src_k].reshape(b, lk, *v.shape[1:])
+        if rot_base is not None:
+            pos_k = (rot_base.long()[:, None] + rk[None]).clamp_min(0)
+            k_pad = _rotate(k_pad, rotary_cos, rotary_sin, pos_k, rotary_interleaved)
+        pos = cache_seqlens.long()[:, None] + rk[None]
+        if page_table is not None:
+            psz = k_cache.shape[1]
+            pos_c = pos.clamp(0, page_table.shape[1] * psz - 1)
+            page_of = torch.gather(page_table.to(dev).long(), 1, pos_c // psz)
+            slot = pos_c % psz
+            k_cache[page_of[k_valid], slot[k_valid]] = k_pad[k_valid].to(k_cache.dtype)
+            v_cache[page_of[k_valid], slot[k_valid]] = v_pad[k_valid].to(v_cache.dtype)
+        else:
+            kv = k_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else k_cache
+            vv = v_cache.transpose(1, 2) if kv_cache_layout == "bhsd" else v_cache
+            slots = torch.arange(b, device=dev) if cache_batch_idx is None else \
+                cache_batch_idx.to(dev).long()
+            bi = slots[:, None].expand(b, lk)
+            kv[bi[k_valid], pos[k_valid]] = k_pad[k_valid].to(kv.dtype)
+            vv[bi[k_valid], pos[k_valid]] = v_pad[k_valid].to(vv.dtype)
+    if rot_base is not None:
+        if causal or window_arg(window_size) is not None:
+            pos_q = (rot_base.long()[:, None] + rows[None] - lead).clamp_min(0)
+        else:
+            pos_q = rot_base.long()[:, None].expand(b, lq)
+        q_pad = _rotate(q_pad, rotary_cos, rotary_sin, pos_q, rotary_interleaved)
+    out_pad, lse_pad = flash_attn_with_kvcache(
+        q_pad, k_cache, v_cache, qv=qv_pad, cache_seqlens=cache_seqlens + appended,
+        cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad, page_table=page_table,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        attention_chunk=attention_chunk, softcap=softcap, num_splits=num_splits,
+        return_softmax_lse=True, kv_cache_layout=kv_cache_layout,
+    )
+    # Re-pack: token t of sequence seg sits at padded row Lq - lq[seg] + (t - cu_q[seg]).
+    tok = torch.arange(total_q, device=dev)
+    seg = torch.searchsorted(cu_q[1:].contiguous(), tok, right=True).clamp(0, b - 1)
+    row = (tok - cu_q[seg] + lq - seqlens_q[seg]).clamp(0, lq - 1)
+    result = [out_pad.reshape(b * lq, hq, -1)[seg * lq + row]]
+    if return_softmax_lse:
+        result.append(lse_pad[seg, :, row].T.contiguous())
     if k is not None:
         result.append((k_cache, v_cache))
     return result[0] if len(result) == 1 else tuple(result)

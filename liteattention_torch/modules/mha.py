@@ -1,5 +1,5 @@
-"""Multi-head self-attention over the flash kernels (counterpart of
-``liteattention_tpu/modules/mha.py:MHA`` and ``InferenceParams``).
+"""Multi-head self- and cross-attention over the flash kernels (counterpart
+of ``liteattention_tpu/modules/mha.py:MHA`` and ``InferenceParams``).
 
 A fused ``Wqkv`` projection packs q | k | v along its output (GQA when
 ``num_heads_kv < num_heads``); rotary embeddings rotate q and k at the
@@ -32,7 +32,11 @@ the attention and back through ``out_proj``.
   which regenerate the keep mask from it. The cached path takes none, as
   in JAX.
 
-Not ported yet: cross-attention raises.
+* Cross-attention (``cross_attn=True``), as JAX's: q by ``Wq`` from
+  ``x``, k and v by ``Wkv`` from ``x_kv`` (``[B, S_kv, dim]``), no rotary
+  and no cache (``inference_params`` is not read); the attention is the
+  full forward's (B1, non-causal Sq != Sk unless ``causal``), dropout and
+  ALiBi included.
 """
 
 from __future__ import annotations
@@ -113,8 +117,10 @@ class MHA(nn.Module):
         layer_idx: Optional[int] = None,
         dtype=torch.bfloat16,
         device=None,
+        cross_attn: bool = False,
     ):
         super().__init__()
+        self.cross_attn = cross_attn
         device = resolve_device(device)
         self.dropout = float(dropout)
         self.num_heads = num_heads
@@ -132,22 +138,36 @@ class MHA(nn.Module):
             RotaryEmbedding(rotary_emb_dim, rotary_emb_base, rotary_emb_interleaved)
             if rotary_emb_dim > 0 else None
         )
-        qkv = (self.num_heads + 2 * self.num_heads_kv) * self.head_dim
-        self.Wqkv = Dense(embed_dim, qkv, qkv_proj_bias, dtype, device)
+        hd, kvd = self.num_heads * self.head_dim, self.num_heads_kv * self.head_dim
+        if cross_attn:
+            self.Wq = Dense(embed_dim, hd, qkv_proj_bias, dtype, device)
+            self.Wkv = Dense(embed_dim, 2 * kvd, qkv_proj_bias, dtype, device)
+        else:
+            self.Wqkv = Dense(embed_dim, hd + 2 * kvd, qkv_proj_bias, dtype, device)
         self.out_proj = Dense(self.num_heads * self.head_dim, embed_dim,
                               out_proj_bias, dtype, device)
 
     def forward(self, x: torch.Tensor, inference_params: Optional[InferenceParams] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                x_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x`` ``[B, S, dim]`` -> ``[B, S, dim]``; with ``deterministic=False``
-        attention dropout at ``dropout``, its seed drawn from ``generator``."""
+        attention dropout at ``dropout``, its seed drawn from ``generator``.
+        With ``cross_attn`` k and v come from ``x_kv`` ``[B, S_kv, dim]``
+        (required), with no rotary and no cache."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
-        q, k, v = self.Wqkv(x).split([h * d, hk * d, hk * d], dim=-1)
-        q, k, v = q.reshape(b, s, h, d), k.reshape(b, s, hk, d), v.reshape(b, s, hk, d)
+        if self.cross_attn:
+            if x_kv is None:
+                raise ValueError("MHA(cross_attn=True) needs x_kv")
+            q = self.Wq(x).reshape(b, s, h, d)
+            k, v = self.Wkv(x_kv).reshape(b, x_kv.shape[1], 2, hk, d).unbind(2)
+            inference_params = None  # no cache and no rotary, as in JAX
+        else:
+            q, k, v = self.Wqkv(x).split([h * d, hk * d, hk * d], dim=-1)
+            q, k, v = q.reshape(b, s, h, d), k.reshape(b, s, hk, d), v.reshape(b, s, hk, d)
         offset = inference_params.seqlen_offset if inference_params is not None else 0
-        if self.rotary is not None:
+        if self.rotary is not None and not self.cross_attn:
             q, k = self.rotary(q, k, seqlen_offset=offset)
         if inference_params is None:
             drop = self.dropout if self.dropout > 0.0 and not deterministic else 0.0

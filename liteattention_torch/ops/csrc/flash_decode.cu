@@ -89,6 +89,24 @@
 // a V row feeds four blocks. The per-channel scales are folded outside the
 // kernel by the wrapper (q * k_scale before, out * v_scale after), exactly
 // as the JAX package does.
+//
+// int8_mma (Q8; the JAX kernels' int8_mma, int8 caches only): the wrapper
+// quantizes each packed q row to int8 on the device as JAX does (after the
+// k_scale fold, scale max(|q|, 1e-30) / 127, round half to even), and S =
+// Q K^T runs as mma.sync m16n8k32 s8 x s8 -> s32 on the int8 K rows as they
+// sit in the ring, with no conversion; the int32 score (exact: |s| <= 127 x
+// 127 x D < 2^24) becomes fp32 and takes the row's scale. Each 32-wide step
+// reads K with the channels permuted (logical k 4t .. 4t + 3 and 16 + 4t ..
+// 16 + 4t + 3 are channels 8t .. 8t + 7, q loaded the same way), one 8-byte
+// load a key. P V stays on the dequant path in bf16, as in JAX (quantizing P
+// is unbounded on diffuse rows). q's int8 fragments take half the registers
+// of bf16 ones (at D 256, half the shared memory).
+//
+// cache_batch_idx (IDX; contiguous bf16 caches): batch row b of q reads the
+// cache's row batch_idx[b], read by warp 0 as it enters each unit's tiles and
+// used as the TMA batch coordinate: the cache is read in place, never
+// gathered. A template flag, since the read alone cost the kernel without it
+// 4-8 registers (254 -> 250 at D 128, 198 -> 206 at D 64).
 #include <numeric>
 
 #include "attention_fwd.cuh"
@@ -129,6 +147,8 @@ struct Params {
   float scale_log2;    // scale * log2(e)
   float softcap;       // 0: off
   float scale_over_cap;  // scale / softcap
+  const int* batch_idx;  // [B] the cache's batch row of each q batch row, or null (b)
+  const float* q_scale;  // [B, Hk, R] q's row scales with Q8 (q is int8), else null
 };
 
 constexpr int kTileKeys = 128;  // keys per ring tile: 16 per warp (64 at D 256: 8 per warp)
@@ -239,18 +259,32 @@ struct Cursor {
   }
 };
 
+// c += A B, mma.sync m16n8k32 (s8 in, s32 accumulate): a0 / a1 hold row g /
+// g + 8 of A at k 4 t .. 4 t + 3, a2 / a3 at k 16 + 4 t .., b0 / b1 B at k 4 t
+// .. and 16 + 4 t .. of column g.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Tensor-map coordinate `which` (1-3) of (slot, head, page) under `dims`.
 __device__ __forceinline__ int coord(int dims, int which, int slot, int head, int page) {
   return (dims & 3) == which ? slot : ((dims >> 2) & 3) == which ? head : page;
 }
 
-template <int D, typename T>
+template <int D, typename T, bool Q8 = false, bool IDX = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const Params p) {
   static_assert(D == 64 || D == 128 || D == 256, "head dim must be 64, 128 or 256");
   using L = Layout<D, T>;
   constexpr bool kInt8 = sizeof(T) == 1;
+  static_assert(!Q8 || kInt8, "int8_mma reads int8 caches");
+  static_assert(!IDX || !kInt8, "cache_batch_idx reads bf16 caches");
+  constexpr int kKStep = Q8 ? 32 : 16;  // channels of one S product step
   constexpr int kT = L::kT;
   constexpr int kStages = L::kStages;
   constexpr int kMergeRows = L::kMergeRows;  // accumulator rows a stage holds
@@ -340,6 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       f_lo = ranges[3 * f_pair];
       f_hi = ranges[3 * f_pair + 1];
       f_b = f_pair / p.rtiles;
+      if constexpr (IDX) f_b = p.batch_idx[f_b];  // the cache's row (no page table)
     }
     const int pos = (f_lo / kT + feed.j) * kT + lane * p.box;
     if (p.table != nullptr && lane < nbox && pos < f_hi) {
@@ -410,7 +445,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // unit: every thread enters each unit at the same point).
   constexpr bool kQShared = L::kQShared;
   int lo = 0, hi = 0, lim_lo = 0, lim_hi = 0, j0 = 0;
-  uint32_t qf[kQShared ? 1 : D / 16][4];
+  uint32_t qf[kQShared ? 1 : D / kKStep][4];
+  float qsc_lo = 0.f, qsc_hi = 0.f;  // Q8: the rows' q scales
   uint4* qs = reinterpret_cast<uint4*>(smem + L::qs);
   float acc[D / 8][4];
   float m_lo, m_hi, l_lo, l_hi;
@@ -430,19 +466,44 @@ __global__ void __launch_bounds__(kThreads, 1)
       // Fragment e = (kk, lane) of the unit's rows, two a thread; the
       // walk's last reads of the previous unit's came before the merge's
       // barriers, its first of these come after this one.
-      for (int e = tid; e < D / 16 * 32; e += kThreads) {
+      for (int e = tid; e < D / kKStep * 32; e += kThreads) {
         const int rl = rt * kRows + (e % 32) / 4;
         const int rh = rl + 8;
-        const int col = (e / 32) * 16 + 4 * (e % 4);
-        const __nv_bfloat16* ql = p.q + (bh * p.rows + rl) * D + col;
-        const __nv_bfloat16* qh = p.q + (bh * p.rows + rh) * D + col;
-        auto word = [](bool live, const __nv_bfloat16* x) {
-          return live ? *reinterpret_cast<const uint32_t*>(x) : 0u;
-        };
-        qs[e] = make_uint4(word(rl < p.rows, ql), word(rh < p.rows, qh),
-                           word(rl < p.rows, ql + 2), word(rh < p.rows, qh + 2));
+        if constexpr (Q8) {  // channels 8t .. 8t + 7 of each 32-wide step
+          const int8_t* q8 = reinterpret_cast<const int8_t*>(p.q);
+          const int col = (e / 32) * 32 + 8 * (e % 4);
+          auto words = [&](int r) {
+            return r < p.rows ? *reinterpret_cast<const uint2*>(q8 + (bh * p.rows + r) * D + col)
+                              : make_uint2(0u, 0u);
+          };
+          const uint2 wl = words(rl), wh = words(rh);
+          qs[e] = make_uint4(wl.x, wh.x, wl.y, wh.y);
+        } else {
+          const int col = (e / 32) * 16 + 4 * (e % 4);
+          const __nv_bfloat16* ql = p.q + (bh * p.rows + rl) * D + col;
+          const __nv_bfloat16* qh = p.q + (bh * p.rows + rh) * D + col;
+          auto word = [](bool live, const __nv_bfloat16* x) {
+            return live ? *reinterpret_cast<const uint32_t*>(x) : 0u;
+          };
+          qs[e] = make_uint4(word(rl < p.rows, ql), word(rh < p.rows, qh),
+                             word(rl < p.rows, ql + 2), word(rh < p.rows, qh + 2));
+        }
       }
       lite::sm90::named_sync(kMergeBar, kThreads);
+    } else if constexpr (Q8) {
+      const int8_t* q8 = reinterpret_cast<const int8_t*>(p.q);
+      auto words = [&](int r, int col) {
+        return r < p.rows ? *reinterpret_cast<const uint2*>(q8 + (bh * p.rows + r) * D + col)
+                          : make_uint2(0u, 0u);
+      };
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {  // channels 8t .. 8t + 7 of each 32-wide step
+        const uint2 wl = words(r_lo, kk * 32 + 8 * t), wh = words(r_hi, kk * 32 + 8 * t);
+        qf[kk][0] = wl.x;
+        qf[kk][1] = wh.x;
+        qf[kk][2] = wl.y;
+        qf[kk][3] = wh.y;
+      }
     } else {
       const __nv_bfloat16* q_lo = p.q + (bh * p.rows + r_lo) * D;
       const __nv_bfloat16* q_hi = p.q + (bh * p.rows + r_hi) * D;
@@ -454,6 +515,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         qf[kk][2] = r_lo < p.rows ? *reinterpret_cast<const uint32_t*>(q_lo + col + 2) : 0u;
         qf[kk][3] = r_hi < p.rows ? *reinterpret_cast<const uint32_t*>(q_hi + col + 2) : 0u;
       }
+    }
+    if constexpr (Q8) {
+      qsc_lo = r_lo < p.rows ? p.q_scale[bh * p.rows + r_lo] : 0.f;
+      qsc_hi = r_hi < p.rows ? p.q_scale[bh * p.rows + r_hi] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
@@ -496,8 +561,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     float s[kNb][4];
 #pragma unroll
     for (int nb = 0; nb < kNb; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+    if constexpr (Q8) {  // s8 x s8 -> s32, then fp32 times the row's q scale
+      int si[kNb][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int nb = 0; nb < kNb; ++nb) si[nb][0] = si[nb][1] = si[nb][2] = si[nb][3] = 0;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+        uint32_t qk[4];
+        if constexpr (kQShared) {
+          const uint4 w4 = qs[kk * 32 + lane];
+          qk[0] = w4.x;
+          qk[1] = w4.y;
+          qk[2] = w4.z;
+          qk[3] = w4.w;
+        }
+        const uint32_t* qa = kQShared ? qk : qf[kk];
+#pragma unroll
+        for (int nb = 0; nb < kNb; ++nb) {
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              ks + tile_off<D, T>(kw + nb * 8 + g, kk * 32 + 8 * t));
+          mma_s8(si[nb], qa, w.x, w.y);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < kNb; ++nb) {
+        s[nb][0] = static_cast<float>(si[nb][0]) * qsc_lo;
+        s[nb][1] = static_cast<float>(si[nb][1]) * qsc_lo;
+        s[nb][2] = static_cast<float>(si[nb][2]) * qsc_hi;
+        s[nb][3] = static_cast<float>(si[nb][3]) * qsc_hi;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < (Q8 ? 0 : D / 16); ++kk) {
       uint32_t qk[4];
       if constexpr (kQShared) {
         const uint4 w4 = qs[kk * 32 + lane];
@@ -823,7 +918,7 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const int* n, const lo
       base, size, stride, bx, L::kAtom == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-template <int D, typename T>
+template <int D, typename T, bool Q8 = false, bool IDX = false>
 cudaError_t launch(Params p, const void* k, const void* v, const int* kn, const long long* kst,
                    const int* vn, const long long* vst, int grid, cudaStream_t stream) {
   using L = Layout<D, T>;
@@ -838,36 +933,41 @@ cudaError_t launch(Params p, const void* k, const void* v, const int* kn, const 
   }
   const int smem = L::prefix + (4 * p.batch * p.rtiles + 1) * 4 + 1024;  // + alignment of the base
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = flash_decode_kernel<D, T>;
+  auto kernel = flash_decode_kernel<D, T, Q8, IDX>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(tm_k, tm_v, p);
   return cudaGetLastError();
 }
 
-// Head dim 256 (bf16 or int8 caches), instantiated in flash_decode_d256.cu,
-// whose nvcc runs beside this file's.
-cudaError_t launch_d256(bool int8, const Params& p, const void* k, const void* v, const int* kn,
-                        const long long* kst, const int* vn, const long long* vst, int grid,
-                        cudaStream_t stream);
+// Head dim 256 (bf16 or int8 caches, int8_mma with q8, cache_batch_idx
+// with idx), instantiated in flash_decode_d256.cu, whose nvcc runs beside
+// this file's.
+cudaError_t launch_d256(bool int8, bool q8, bool idx, const Params& p, const void* k,
+                        const void* v, const int* kn, const long long* kst, const int* vn,
+                        const long long* vst, int grid, cudaStream_t stream);
 
 }  // namespace decode
 
 // flash_decode_d256.cu includes the kernel above and not the entry below.
 #ifndef LITE_DECODE_TEMPLATES_ONLY
 
-// q [B, Hk, R, D] bf16; k/v cache bases (bf16, or int8 when int8 != 0), each
+// q [B, Hk, R, D] bf16 (int8 with q_scale [B, Hk, R] fp32: int8_mma, int8
+// caches only); k/v cache bases (bf16, or int8 when int8 != 0), each
 // described by the sizes and element strides of its three outer dims in
 // increasing stride (kn/kst, vn/vst) and where slot, head and page sit among
 // them (k_dims/v_dims: 2 bits each, dims 1-3); the channel stride is 1.
 // table [B, table_stride] int32 or null; bound/low [B] int32 (low may be
-// null). out [B, Hk, R, D] bf16, lse [B, Hk, R] fp32; o_part [units + grid,
-// 16, D] and lse_part [units + grid, 16] fp32 scratch; tickets [units] int32,
+// null); batch_idx [B] int32, the cache's batch row of each q batch row, or
+// null (contiguous bf16 caches only). out [B, Hk, R, D] bf16, lse [B, Hk, R]
+// fp32; o_part [units + grid, 16, D] and lse_part [units + grid, 16] fp32
+// scratch; tickets [units] int32,
 // zero before the launch and after it. `grid` CTAs, chunks of at least
 // min_tiles key tiles. Returns the CUDA error (0 = success).
 extern "C" int lite_flash_decode(
     const void* q, const void* k, const void* v, const void* table, const void* bound,
-    const void* low, void* out, void* lse, void* o_part, void* lse_part, void* tickets,
+    const void* low, const void* batch_idx, const void* q_scale, void* out, void* lse,
+    void* o_part, void* lse_part, void* tickets,
     int kn1, int kn2, int kn3, long long kst1, long long kst2, long long kst3, int k_dims,
     int vn1, int vn2, int vn3, long long vst1, long long vst2, long long vst3, int v_dims,
     int batch, int kv_heads, int rows, int group, int head_dim, int capacity, int table_stride,
@@ -880,6 +980,8 @@ extern "C" int lite_flash_decode(
   p.table = static_cast<const int*>(table);
   p.bound = static_cast<const int*>(bound);
   p.low = static_cast<const int*>(low);
+  p.batch_idx = static_cast<const int*>(batch_idx);
+  p.q_scale = static_cast<const float*>(q_scale);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = static_cast<float*>(lse);
   p.o_part = static_cast<float*>(o_part);
@@ -906,14 +1008,24 @@ extern "C" int lite_flash_decode(
   const long long kst[3] = {kst1, kst2, kst3}, vst[3] = {vst1, vst2, vst3};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid < 1 || grid > decode::kMaxPieces) return static_cast<int>(cudaErrorInvalidValue);
+  const bool q8 = q_scale != nullptr;
+  const bool idx = batch_idx != nullptr;
+  if ((q8 && !int8) || (idx && (int8 || table != nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using bf16 = __nv_bfloat16;
   if (head_dim == 64) {
-    err = int8 ? decode::launch<64, uint8_t>(p, k, v, kn, kst, vn, vst, grid, s)
-               : decode::launch<64, __nv_bfloat16>(p, k, v, kn, kst, vn, vst, grid, s);
+    err = q8     ? decode::launch<64, uint8_t, true>(p, k, v, kn, kst, vn, vst, grid, s)
+          : int8 ? decode::launch<64, uint8_t>(p, k, v, kn, kst, vn, vst, grid, s)
+          : idx  ? decode::launch<64, bf16, false, true>(p, k, v, kn, kst, vn, vst, grid, s)
+                 : decode::launch<64, bf16>(p, k, v, kn, kst, vn, vst, grid, s);
   } else if (head_dim == 128) {
-    err = int8 ? decode::launch<128, uint8_t>(p, k, v, kn, kst, vn, vst, grid, s)
-               : decode::launch<128, __nv_bfloat16>(p, k, v, kn, kst, vn, vst, grid, s);
+    err = q8     ? decode::launch<128, uint8_t, true>(p, k, v, kn, kst, vn, vst, grid, s)
+          : int8 ? decode::launch<128, uint8_t>(p, k, v, kn, kst, vn, vst, grid, s)
+          : idx  ? decode::launch<128, bf16, false, true>(p, k, v, kn, kst, vn, vst, grid, s)
+                 : decode::launch<128, bf16>(p, k, v, kn, kst, vn, vst, grid, s);
   } else if (head_dim == 256) {
-    err = decode::launch_d256(int8 != 0, p, k, v, kn, kst, vn, vst, grid, s);
+    err = decode::launch_d256(int8 != 0, q8, idx, p, k, v, kn, kst, vn, vst, grid, s);
   } else {
     err = cudaErrorInvalidValue;
   }

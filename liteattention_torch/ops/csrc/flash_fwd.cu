@@ -1251,20 +1251,24 @@ extern "C" int lite_flash_fwd_coarse(
 
 // The MLA forward at V 512, the split-O kernel of mla_fwd.cu.
 cudaError_t lite_mla_fwd_v512(const void* q, const void* qv, const void* k, const void* v,
-                              void* out, void* lse, int batch, int heads, int kv_heads,
+                              void* out, void* lse, const void* kv_bound, const void* kv_low,
+                              bool bound_causal, int batch, int heads, int kv_heads,
                               int seqlen_q, int seqlen_k, int head_dim, float scale, bool causal,
                               cudaStream_t stream);
 
 // B1's MLA channels: q [B, H, Sq, DK], qv [B, H, Sq, DV] or null, k [B, Hk,
 // Sk, DK], v [B, Hk, Sk, DV], all bf16; out [B, H, Sq, DV] bf16, lse [B, H,
-// Sq] fp32. Built for (DK, DV, qv) = (192, 128, no) on B1's kernel, and (576,
-// 512, no) and (64, 512, yes) on mla_fwd.cu's; other shapes return
+// Sq] fp32; kv_bound and kv_low [B] int32 or null, the key range of
+// lite_flash_fwd_masked (with bound_causal). Built for (DK, DV, qv) = (192,
+// 128, no) on B1's kernel (the range is runtime data of its dense walk), and
+// (576, 512, no) and (64, 512, yes) on mla_fwd.cu's; other shapes return
 // cudaErrorInvalidValue. Returns the CUDA error (0 = success).
 extern "C" int lite_flash_fwd_mla(const void* q, const void* qv, const void* k,
-                                  const void* v, void* out, void* lse, int batch,
-                                  int heads, int kv_heads, int seqlen_q, int seqlen_k,
-                                  int head_dim, int head_dim_v, float scale, int causal,
-                                  int device, void* stream) {
+                                  const void* v, void* out, void* lse, const void* kv_bound,
+                                  const void* kv_low, int batch, int heads, int kv_heads,
+                                  int seqlen_q, int seqlen_k, int head_dim, int head_dim_v,
+                                  float scale, int causal, int bound_causal, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1277,11 +1281,17 @@ extern "C" int lite_flash_fwd_mla(const void* q, const void* qv, const void* k,
     p.kv_heads = kv_heads;
     p.seqlen_q = seqlen_q;
     p.seqlen_k = seqlen_k;
-    err = causal ? run<192, 128, true>(q, k, v, out, p, batch, scale, s)
-                 : run<192, 128, false>(q, k, v, out, p, batch, scale, s);
+    lite::Channels c{};
+    c.kv_bound = static_cast<const int*>(kv_bound);
+    c.kv_low = static_cast<const int*>(kv_low);
+    c.bound_causal = bound_causal != 0 && kv_bound != nullptr;
+    const bool diag = causal != 0 || c.bound_causal;  // the CAUSAL instantiation
+    c.bound_only = diag && causal == 0;
+    err = diag ? run<192, 128, true>(q, k, v, out, p, batch, scale, s, c)
+               : run<192, 128, false>(q, k, v, out, p, batch, scale, s, c);
   } else if (head_dim_v == 512 && ((head_dim == 576 && !has_qv) || (head_dim == 64 && has_qv))) {
-    err = lite_mla_fwd_v512(q, qv, k, v, out, lse, batch, heads, kv_heads, seqlen_q, seqlen_k,
-                            head_dim, scale, causal != 0, s);
+    err = lite_mla_fwd_v512(q, qv, k, v, out, lse, kv_bound, kv_low, bound_causal != 0, batch,
+                            heads, kv_heads, seqlen_q, seqlen_k, head_dim, scale, causal != 0, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -35,7 +35,21 @@
 //   under the next S.
 // Causal walks stop at the q-block's diagonal, and the q-blocks run in
 // reverse order so the longest walks start first; a block whose rows see no
-// key loads nothing. Epilogue: each warpgroup writes its normalised 256
+// key loads nothing.
+//
+// B1's key range (RANGE; the JAX kernel's has_bound, bound_causal and
+// has_low at these shapes, which flash_attn_with_kvcache's qv and Dv != D
+// steps reach): the keys of batch b are [kv_low[b], min(Sk, kv_bound[b])),
+// with bound_causal the diagonal at kv_bound[b] - Sq (the smaller of the two
+// offsets when causal too). Runtime data, read once per CTA into
+// key_mask.cuh's KeyRange as B1 reads it; the walk runs from tile low / 64
+// to the last tile the limit and the diagonal reach, and only the tiles
+// that cross the start, the limit or a row's diagonal are masked per
+// element. The RANGE instantiations are CAUSAL ones (a range without a
+// diagonal takes key_mask.cuh's kNoDiag), so the four without it keep
+// their code and their bits (the channels are a kernel argument of their
+// own: as a field of Params they cost the causal instantiations 5-6
+// registers, 222 -> 217 and 224 -> 218). Epilogue: each warpgroup writes its normalised 256
 // channels into the Q buffer in the 128-byte swizzle and stores them by TMA
 // (rows >= Sq are clipped); lse from each quad's first lane.
 #include "attention_fwd.cuh"
@@ -86,13 +100,14 @@ struct Smem {
 static_assert(Smem<true>::bytes + 1024 <= 232448 && Smem<false>::bytes + 1024 <= 232448,
               "shared memory of one CTA");
 
-template <bool QV, bool CAUSAL>
+template <bool QV, bool CAUSAL, bool RANGE = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mla_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_qv,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   const __grid_constant__ CUtensorMap tm_o, const Params p) {
+                   const __grid_constant__ CUtensorMap tm_o, const Params p,
+                   const Channels ch) {
   using L = Smem<QV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -108,34 +123,48 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bh = b * p.heads + h;
   const int bhk = b * p.kv_heads + h / (p.heads / p.kv_heads);
   const int q0 = qt * kRows;
-  int n = p.ktiles;  // tiles walked: to the diagonal when causal
+  // The keys [low, lim) and the diagonal offset: without RANGE [0, Sk) at
+  // Sk - Sq.
+  int low = 0, lim = p.seqlen_k, diag = p.causal_offset;
+  if constexpr (RANGE) {
+    const KeyRange r = key_range(ch, b, p.seqlen_q, p.seqlen_k, p.causal_offset);
+    low = r.low;
+    lim = r.lim;
+    diag = r.diag;
+  }
+  const int j0 = RANGE ? low / kKeys : 0;  // the walk's first tile
+  // Tiles walked: to the diagonal when causal.
+  int n = RANGE ? (lim + kKeys - 1) / kKeys : p.ktiles;
   if constexpr (CAUSAL) {
-    const int last = q0 + kRows - 1 + p.causal_offset;  // the last row's last key
+    const int last = q0 + kRows - 1 + (RANGE ? diag : p.causal_offset);  // the last row's last key
     n = last < 0 ? 0 : min(n, last / kKeys + 1);
   }
+  if constexpr (RANGE) n = max(n - j0, 0);
 
-  // Tile j's K (and with QV its V) into the K buffer or stage j % 2; V of
-  // tile j into the V buffer (not QV). Thread 0 or 128.
+  // Step j's K (and with QV its V), tile j0 + j, into the K buffer or stage
+  // j % 2; V of step j into the V buffer (not QV). Thread 0 or 128.
   auto load_k = [&](int j) {
     uint64_t* bar = &full[QV ? j & 1 : 0];
     unsigned char* dst = smem + L::k + (QV ? (j & 1) * L::kTile : 0);
     sm90::mbar_expect_tx(bar, kSAtoms * kAtom);
     if constexpr (QV) {
-      tma_load_3d(dst, &tm_k, bar, 0, j * kKeys, bhk);
+      tma_load_3d(dst, &tm_k, bar, 0, (j0 + j) * kKeys, bhk);
 #pragma unroll
       for (int a = 0; a < kVAtoms; ++a) {
-        tma_load_3d(dst + (1 + a) * kAtom, &tm_v, bar, 64 * a, j * kKeys, bhk);
+        tma_load_3d(dst + (1 + a) * kAtom, &tm_v, bar, 64 * a, (j0 + j) * kKeys, bhk);
       }
     } else {
 #pragma unroll
-      for (int a = 0; a < kSAtoms; ++a) tma_load_3d(dst + a * kAtom, &tm_k, bar, 64 * a, j * kKeys, bhk);
+      for (int a = 0; a < kSAtoms; ++a) {
+        tma_load_3d(dst + a * kAtom, &tm_k, bar, 64 * a, (j0 + j) * kKeys, bhk);
+      }
     }
   };
   auto load_v = [&](int j) {
     sm90::mbar_expect_tx(&full[1], kVAtoms * kAtom);
 #pragma unroll
     for (int a = 0; a < kVAtoms; ++a) {
-      tma_load_3d(smem + L::v + a * kAtom, &tm_v, &full[1], 64 * a, j * kKeys, bhk);
+      tma_load_3d(smem + L::v + a * kAtom, &tm_v, &full[1], 64 * a, (j0 + j) * kKeys, bhk);
     }
   };
 
@@ -176,7 +205,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t = lane % 4;
   const int r_lo = 16 * (warp % 4) + g;  // this thread's rows of the block: r_lo, r_lo + 8
   const int r_hi = r_lo + 8;
-  auto limit = [&](int r) {  // keys below it are valid for block row r
+  auto limit = [&](int r) {  // keys below it (and from low) are valid for block row r
+    if constexpr (RANGE) return CAUSAL ? min(lim, q0 + r + diag + 1) : lim;
     return CAUSAL ? min(p.seqlen_k, q0 + r + p.causal_offset + 1) : p.seqlen_k;
   };
   const int lim_lo = limit(r_lo);
@@ -212,11 +242,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::named_sync(kWgBar, 128);
         if (tw == 0) load_k(j + 1);
       }
-      const int t0 = j * kKeys;
+      const int t0 = (j0 + j) * kKeys;
       float mx_lo, mx_hi, alpha_lo, alpha_hi;
       mask_scores(
-          s, 1.f, t0 + kKeys > min(lim_lo, lim_hi), t0,
-          [&](int col, bool hi) { return col >= (hi ? lim_hi : lim_lo); }, mx_lo, mx_hi);
+          s, 1.f, t0 + kKeys > min(lim_lo, lim_hi) || (RANGE && t0 < low), t0,
+          [&](int col, bool hi) { return col >= (hi ? lim_hi : lim_lo) || (RANGE && col < low); },
+          mx_lo, mx_hi);
       softmax_rows(s, mx_lo, mx_hi, m_lo, m_hi, l_lo, l_hi, alpha_lo, alpha_hi, p.scale_log2);
       rescale_rows(o, alpha_lo, alpha_hi);
       uint32_t pf[kKeys / 16][4];
@@ -284,9 +315,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Tensor maps of q (and qv), k, v and out, then one launch over (q-blocks,
 // heads, batch).
-template <bool QV, bool CAUSAL>
+template <bool QV, bool CAUSAL, bool RANGE = false>
 cudaError_t launch(const void* q, const void* qv, const void* k, const void* v, void* out,
-                   Params p, int batch, int head_dim, cudaStream_t stream) {
+                   Params p, int batch, int head_dim, cudaStream_t stream,
+                   const Channels& ch = Channels{}) {
   CUtensorMap tm_q, tm_qv, tm_k, tm_v, tm_o;
   const int bh = batch * p.heads, bhk = batch * p.kv_heads;
   cudaError_t err;
@@ -298,12 +330,12 @@ cudaError_t launch(const void* q, const void* qv, const void* k, const void* v, 
       (err = sm90::make_tensor_map_3d(&tm_o, out, kDV, p.seqlen_q, bh, 64, kRows))) {
     return err;
   }
-  auto kernel = mla_fwd_kernel<QV, CAUSAL>;
+  auto kernel = mla_fwd_kernel<QV, CAUSAL, RANGE>;
   constexpr int smem = Smem<QV>::bytes + 1024;  // + alignment of the base
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seqlen_q + kRows - 1) / kRows, p.heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_qv, tm_k, tm_v, tm_o, p);
+  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_qv, tm_k, tm_v, tm_o, p, ch);
   return cudaGetLastError();
 }
 
@@ -311,9 +343,11 @@ cudaError_t launch(const void* q, const void* qv, const void* k, const void* v, 
 }  // namespace lite
 
 // (576, 512) with qv null, or (64, 512) with qv [B, H, Sq, 512]: the rest as
-// lite_flash_fwd_mla (flash_fwd.cu), which calls this for V 512.
+// lite_flash_fwd_mla (flash_fwd.cu), which calls this for V 512; kv_bound
+// and kv_low [B] int32 or null (with either, the RANGE instantiations).
 cudaError_t lite_mla_fwd_v512(const void* q, const void* qv, const void* k, const void* v,
-                              void* out, void* lse, int batch, int heads, int kv_heads,
+                              void* out, void* lse, const void* kv_bound, const void* kv_low,
+                              bool bound_causal, int batch, int heads, int kv_heads,
                               int seqlen_q, int seqlen_k, int head_dim, float scale, bool causal,
                               cudaStream_t stream) {
   using namespace lite::mla_fwd;
@@ -329,6 +363,16 @@ cudaError_t lite_mla_fwd_v512(const void* q, const void* qv, const void* k, cons
   p.ktiles = (seqlen_k + kKeys - 1) / kKeys;
   p.causal_offset = seqlen_k - seqlen_q;
   p.scale_log2 = scale * 1.4426950408889634f;
+  if (kv_bound != nullptr || kv_low != nullptr) {
+    lite::Channels ch{};
+    ch.kv_bound = static_cast<const int*>(kv_bound);
+    ch.kv_low = static_cast<const int*>(kv_low);
+    ch.bound_causal = bound_causal && kv_bound != nullptr;
+    ch.bound_only = !causal;  // no diagonal but bound_causal's (kNoDiag without it)
+    return qv != nullptr
+               ? launch<true, true, true>(q, qv, k, v, out, p, batch, head_dim, stream, ch)
+               : launch<false, true, true>(q, qv, k, v, out, p, batch, head_dim, stream, ch);
+  }
   if (qv != nullptr) {
     return causal ? launch<true, true>(q, qv, k, v, out, p, batch, head_dim, stream)
                   : launch<true, false>(q, qv, k, v, out, p, batch, head_dim, stream);

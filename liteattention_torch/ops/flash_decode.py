@@ -21,7 +21,10 @@ work is cut on the device, with no host sync: a unit is one (b, kv head,
 tiles of ``TILE_KEYS`` aligned to absolute positions, and CTA
 ``c`` of the ``grid`` takes the c-th of equal chunks of the flat sequence
 of all units' tiles (:func:`split_plan` is the same chunking in Python).
-Head dims 64, 128 and 256 (GPT-J's: 64-key tiles). The kernel decides
+Head dims 64, 128 and 256 (GPT-J's: 64-key tiles). With int8 caches,
+``int8_mma`` runs S = Q K^T on int8 q rows (:func:`quantize_rows`) as s8 x
+s8 products; a contiguous cache may be read at other batch rows than q's
+(``cache_batch_idx``), in place. The kernel decides
 its tile; the launches read it from the library (:func:`kernel_tile_keys`)
 and :func:`tile_keys` is the plain version's copy of it.
 The last piece of a split unit to finish merges the pieces; the ticket
@@ -46,6 +49,7 @@ TILE_KEYS = 128  # keys per tile of the kernel's ring (64 at head dim 256)
 HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
 MIN_SPLIT_KEYS = 256  # the least keys a chunk holds (unless chunks would be fewer than units)
 MAX_GRID = 512  # the kernel's most CTAs (a unit's pieces are merged in shared memory)
+MAX_PAIRS = 1024  # (b, 16-row tile) pairs of one launch (their prefix sits in shared memory)
 
 
 def tile_keys(d: int) -> int:
@@ -78,6 +82,16 @@ def unpack_rows(o: torch.Tensor, lse: torch.Tensor, h: int, sq: int):
     o = o.reshape(b, hk, sq, group, d).transpose(2, 3).reshape(b, h, sq, d)
     lse = lse.reshape(b, hk, sq, group).transpose(2, 3).reshape(b, h, sq)
     return o, lse
+
+
+def quantize_rows(qp: torch.Tensor):
+    """The int8_mma q of the JAX kernels: each packed row ``qp[..., r, :]``
+    (fp32 of the q handed over, the int8 caches' ``k_scale`` already folded
+    in) at scale ``max(|row|, 1e-30) / 127``, rounded half to even. Returns
+    (int8 rows, fp32 scales ``[..., R]``), equal bit for bit to JAX's."""
+    qf = qp.float()
+    scale = qf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 127.0
+    return torch.round(qf / scale).to(torch.int8), scale[..., 0]
 
 
 def _partial(s, valid, vf):
@@ -157,12 +171,15 @@ def decode_plain(
     grid: Optional[int] = None,
     keys_per_tile: Optional[int] = None,
     min_tiles: int = 1,
+    q_scale: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel on dense ``[B, Hk, S, D]`` K/V
     (any strides; int8 values as they are): fp32 scores in log2 space,
-    exact softmax. With ``grid`` (or ``num_splits`` n > 1: a grid of n CTAs
-    per unit, as the kernel sizes it) the keys are cut into the kernel's
-    own pieces (:func:`split_plan` with ``keys_per_tile``, by default the
+    exact softmax. With ``q_scale`` ``[B, Hk, R]`` (int8_mma: ``qp`` holds
+    int8 rows) each row's integer score, exact in fp32, takes its scale
+    before the softmax scale, as the JAX kernel's does. With ``grid`` (or
+    ``num_splits`` n > 1: a grid of n CTAs per unit, as the kernel sizes
+    it) the keys are cut into the kernel's own pieces (:func:`split_plan` with ``keys_per_tile``, by default the
     kernel's at this head dim, ``grid`` and ``min_tiles``), whose partials
     merge through
     :func:`~liteattention_torch.ops.combine.combine_attention`, the plain
@@ -171,6 +188,8 @@ def decode_plain(
     b, hk, rows, _ = qp.shape
     s_len = k.shape[2]
     s = torch.matmul(qp.float(), k.float().transpose(-1, -2))
+    if q_scale is not None:
+        s = s * q_scale.to(s.device, torch.float32)[..., None]
     if softcap > 0.0:
         s = softcap * torch.tanh(s * (scale / softcap)) * LOG2E
     else:
@@ -186,13 +205,14 @@ def decode_plain(
         valid = valid & (col >= low.to(dev).long()[:, None, None])
     valid = valid[:, None].expand(b, hk, rows, s_len)  # over the KV heads
     vf = v.float()
+    dtype = qp.dtype if q_scale is None else torch.float32  # int8 rows: fp32 out
     if grid is None and num_splits > 1:
         grid = num_splits * b * hk * -(-rows // ROWS_PER_UNIT)
     if grid is None:
         out, lse = _partial(s, valid, vf)
-        return out.to(qp.dtype), lse
+        return out.to(dtype), lse
     kt = keys_per_tile or tile_keys(qp.shape[-1])
-    return _plan_plain(s, valid, vf, qp.dtype, split_plan(
+    return _plan_plain(s, valid, vf, dtype, split_plan(
         bound, low, rows, group, causal, s_len, hk, kt, grid, min_tiles))
 
 
@@ -265,8 +285,12 @@ def launch_decode(
     capacity: int,
     table: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    batch_idx: Optional[torch.Tensor] = None,
+    q_scale: Optional[torch.Tensor] = None,
 ):
-    """Launch the kernel on packed rows ``qp`` ``[B, Hk, R, D]`` (bf16)
+    """Launch the kernel on packed rows ``qp`` ``[B, Hk, R, D]`` (bf16; int8
+    with ``q_scale`` ``[B, Hk, R]``, the int8_mma instantiation, int8 caches
+    only)
     against the cache at ``k``/``v``, whose (page or batch, slot or
     position, head) dims have sizes ``k_sizes`` and element strides
     ``k_strides`` / ``v_strides``, with a unit channel stride. With
@@ -274,15 +298,23 @@ def launch_decode(
     into as many chunks as whole multiples of the units fit (at least one
     chunk per unit, chunks of at least ``MIN_SPLIT_KEYS`` keys);
     ``num_splits`` n > 1 sizes the grid at n CTAs per unit (at most
-    ``MAX_GRID``), chunks of one tile or more. Adds no host sync. Returns (out bf16
-    ``[B, Hk, R, D]``, lse fp32 ``[B, Hk, R]``)."""
+    ``MAX_GRID``), chunks of one tile or more. A q of more than
+    ``MAX_PAIRS`` (b, 16-row tile) pairs is launched in pieces of whole q
+    positions (:func:`row_chunks`). ``batch_idx`` ``[B]`` (a
+    contiguous cache, ``k_sizes[0]`` its own batch): q's batch row ``b``
+    reads the cache's row ``batch_idx[b]`` in place. Adds no host sync. Returns (out bf16
+    ``[B, Hk, R, D]``, lse fp32 ``[B, Hk, R]``, the launches made)."""
     dev = qp.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if qp.dtype != torch.bfloat16:
-        raise TypeError("the decode kernel takes bf16 q")
+    if qp.dtype != (torch.bfloat16 if q_scale is None else torch.int8):
+        raise TypeError("the decode kernel takes bf16 q (int8 q with q_scale: int8_mma)")
     if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
         raise TypeError("the decode kernel takes bf16 or int8 caches (k and v alike)")
+    if q_scale is not None and k.dtype != torch.int8:
+        raise TypeError("int8_mma reads int8 caches")
+    if batch_idx is not None and table is not None:
+        raise ValueError("batch_idx selects rows of a contiguous cache, not of a page pool")
     b, hk, rows, d = qp.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not built (built: {HEAD_DIMS}; 80 and 96 are ROADMAP "
@@ -299,33 +331,59 @@ def launch_decode(
     v_n, v_st, v_dims = _map_dims(k_sizes, v_strides)
     if any(x * el % 16 for x in (*k_st, *v_st)) or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("TMA needs 16-byte aligned cache bases and strides")
-    qp = qp.contiguous()
-    _build.check_aligned(qp)
     i32 = dict(device=dev, dtype=torch.int32)
     bound = bound.to(**i32).contiguous()
     low = None if low is None else low.to(**i32).contiguous()
     table = None if table is None else table.to(**i32).contiguous()
-    units = b * hk * -(-rows // ROWS_PER_UNIT)
-    if num_splits > 1:
-        grid, min_tiles = min(num_splits * units, MAX_GRID), 1
-    else:
-        grid, min_tiles = _sm_count(dev.index), max(1, MIN_SPLIT_KEYS // kt)  # one CTA per SM
+    batch_idx = None if batch_idx is None else batch_idx.to(**i32).contiguous()
+    q_scale = None if q_scale is None else q_scale.to(dev, torch.float32).contiguous()
     stream = _build.stream(dev)
-    tickets, o_part, lse_part = _workspace(dev, stream, units, units + grid, d)
-    out = torch.empty_like(qp)
-    lse = torch.empty((b, hk, rows), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = _build.load_kernels().lite_flash_decode(
-        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(table), bound.data_ptr(),
-        ptr(low), out.data_ptr(), lse.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
-        tickets.data_ptr(), *k_n, *k_st, k_dims, *v_n, *v_st, v_dims,
-        b, hk, rows, group, d, capacity,
-        0 if table is None else table.shape[1], page_size, int(k_sizes[0]),
-        int(causal), 1 - rows // group, grid, min_tiles, int(k.dtype == torch.int8),
-        float(scale), float(softcap), dev.index, stream,
-    )
-    _build.check(err, "flash_decode")
-    return out, lse
+    sq = rows // group
+    outs, lses = [], []
+    for p0, p1 in row_chunks(b, rows, group):
+        # Positions [p0, p1): their rows, and the causal offset of the
+        # chunk's first row (1 - sq + p0).
+        r0, r1 = p0 * group, p1 * group
+        qc = qp[:, :, r0:r1].contiguous()
+        _build.check_aligned(qc)
+        qsc = None if q_scale is None else q_scale[:, :, r0:r1].contiguous()
+        n_rows = r1 - r0
+        units = b * hk * -(-n_rows // ROWS_PER_UNIT)
+        if num_splits > 1:
+            grid, min_tiles = min(num_splits * units, MAX_GRID), 1
+        else:
+            grid, min_tiles = _sm_count(dev.index), max(1, MIN_SPLIT_KEYS // kt)  # one CTA per SM
+        tickets, o_part, lse_part = _workspace(dev, stream, units, units + grid, d)
+        out = torch.empty(qc.shape, dtype=torch.bfloat16, device=dev)
+        lse = torch.empty((b, hk, n_rows), dtype=torch.float32, device=dev)
+        err = _build.load_kernels().lite_flash_decode(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(table), bound.data_ptr(), ptr(low),
+            ptr(batch_idx), ptr(qsc), out.data_ptr(), lse.data_ptr(), o_part.data_ptr(),
+            lse_part.data_ptr(), tickets.data_ptr(), *k_n, *k_st, k_dims, *v_n, *v_st, v_dims,
+            b, hk, n_rows, group, d, capacity,
+            0 if table is None else table.shape[1], page_size, int(k_sizes[0]),
+            int(causal), 1 - sq + p0, grid, min_tiles, int(k.dtype == torch.int8),
+            float(scale), float(softcap), dev.index, stream,
+        )
+        _build.check(err, "flash_decode")
+        outs.append(out)
+        lses.append(lse)
+    if len(outs) == 1:
+        return outs[0], lses[0], 1
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2), len(outs)
+
+
+def row_chunks(b: int, rows: int, group: int) -> List[Tuple[int, int]]:
+    """The q positions ``[p0, p1)`` of each launch of one decode call (rows
+    ``r // group``): whole positions, at most ``MAX_PAIRS`` (b, 16-row
+    tile) pairs a launch, since the kernel keeps each pair's tile prefix
+    and key range in shared memory beside its ring. One chunk for every
+    decode and short append step; a long q (a varlen batch padded to a
+    prefill chunk) takes several launches."""
+    sq = rows // group
+    per = max(1, (MAX_PAIRS // max(b, 1)) * ROWS_PER_UNIT // group)
+    return [(p0, min(sq, p0 + per)) for p0 in range(0, sq, per)]
 
 
 __all__ = [
@@ -333,6 +391,8 @@ __all__ = [
     "kernel_tile_keys",
     "launch_decode",
     "pack_rows",
+    "quantize_rows",
+    "row_chunks",
     "split_plan",
     "tile_keys",
     "unpack_rows",

@@ -65,7 +65,12 @@ kernel ``csrc/mla_fwd.cu:mla_fwd_kernel`` (B10's design: one CTA per 64 q
 rows, S over the 576 score channels computed once per 64-key tile by one
 warpgroup, O's 512 channels split over two; counted in
 ``flash_attention.mla_v512_launches``). Other pairs raise on the card
-(ROADMAP A11) and the backward raises.
+(ROADMAP B-i 7) and the backward raises. Through :func:`flash_attention_masked`
+they take B1's key range (``kv_bound``, ``kv_low``, ``bound_causal``): at
+(192, 128) as runtime data of B1's dense walk (counted in
+``flash_attention.mla_bound_launches``), at V 512 on the split-O kernel's
+RANGE instantiations (``flash_attention.mla_v512_bound_launches``); their
+other channels raise (ROADMAP A11).
 
 :func:`flash_attention_decode` is the decode entry (kernel B8, replacing
 ``liteattention_tpu/ops/flash_fwd.py:_decode_folded_kernel``): a few q rows
@@ -102,6 +107,7 @@ from liteattention_torch.ops.flash_decode import (
     decode_plain,
     launch_decode,
     pack_rows,
+    quantize_rows,
     unpack_rows,
 )
 from liteattention_torch.ops.segments import segment_walk
@@ -314,13 +320,14 @@ class _FlashAttentionMLA(torch.autograd.Function):
     shapes are inference-only, so the backward raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qv, scale, causal):
+    def forward(ctx, q, k, v, qv, scale, causal, kv_bound=None, kv_low=None, bound_causal=False):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         qv = None if qv is None else qv.contiguous()
+        rng = dict(kv_bound=kv_bound, kv_low=kv_low, bound_causal=bound_causal)
         if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, scale, causal, qv=qv)
+            out, lse = flash_attention_plain(q, k, v, scale, causal, qv=qv, **rng)
         else:
-            out, lse = _launch_mla(q, k, v, qv, scale, causal)
+            out, lse = _launch_mla(q, k, v, qv, scale, causal, **rng)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -335,7 +342,11 @@ class _FlashAttentionMLA(torch.autograd.Function):
 MLA_SHAPES = ((192, 128, False), (576, 512, False), (64, 512, True))
 
 
-def _launch_mla(q, k, v, qv, scale, causal):
+def _launch_mla(q, k, v, qv, scale, causal, kv_bound=None, kv_low=None, bound_causal=False):
+    """B1's MLA kernels on the card, with or without the key range; one
+    launch, counted in ``flash_attention.mla_launches`` /
+    ``.mla_v512_launches``, or with the range ``.mla_bound_launches`` /
+    ``.mla_v512_bound_launches``."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     tensors = [x for x in (q, k, v, qv) if x is not None]
@@ -346,20 +357,32 @@ def _launch_mla(q, k, v, qv, scale, causal):
     if (d, dv, qv is not None) not in MLA_SHAPES:
         raise NotImplementedError(
             f"flash_attention: no MLA kernel for D {d}, Dv {dv}, qv {qv is not None}; "
-            f"built (D, Dv, qv): {MLA_SHAPES} (ROADMAP A11)"
+            f"built (D, Dv, qv): {MLA_SHAPES} (ROADMAP B-i 7)"
         )
     _build.check_aligned(*tensors)
+
+    def per_batch(x):
+        return None if x is None else x.to(q.device, torch.int32).reshape(b).contiguous()
+
+    bound, low = per_batch(kv_bound), per_batch(kv_low)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = _build.load_kernels().lite_flash_fwd_mla(
-        q.data_ptr(), None if qv is None else qv.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d, dv,
-        float(scale), int(causal), q.device.index,
+        q.data_ptr(), ptr(qv), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        ptr(bound), ptr(low), b, h, k.shape[1], sq, k.shape[2], d, dv, float(scale),
+        int(causal), int(bound_causal and bound is not None), q.device.index,
         _build.stream(q.device),
     )
     _build.check(err, "flash_fwd_mla")
+    ranged = bound is not None or low is not None
     if dv == 512:
-        flash_attention.mla_v512_launches += 1
+        if ranged:
+            flash_attention.mla_v512_bound_launches += 1
+        else:
+            flash_attention.mla_v512_launches += 1
+    elif ranged:
+        flash_attention.mla_bound_launches += 1
     else:
         flash_attention.mla_launches += 1
     return out, lse
@@ -464,6 +487,8 @@ flash_attention.alibi_launches = 0
 flash_attention.segment_launches = 0
 flash_attention.mla_launches = 0
 flash_attention.mla_v512_launches = 0
+flash_attention.mla_bound_launches = 0
+flash_attention.mla_v512_bound_launches = 0
 flash_attention.dropout_launches = 0
 flash_attention.window_launches = 0
 
@@ -556,8 +581,10 @@ def flash_attention_masked(
     The channels take head dim 64, 80 or 128 on the card, and the key
     range alone (``kv_bound``, ``kv_low``, ``bound_causal``) 256 too,
     forwards (96, and the other channels or any gradient at 256, raise:
-    ROADMAP B-iii 4), and no ``qv``; segments do not combine with the
-    per-batch channels (ROADMAP A11).
+    ROADMAP B-iii 4); segments do not combine with the per-batch channels
+    (ROADMAP A11). The MLA shapes (``qv``, V's own head dim; forward only,
+    as in JAX) take the key range alone, on B1's MLA kernels; their other
+    channels raise (ROADMAP A11).
 
     ``dropout_p`` > 0 (with ``dropout_seed``, an int or int32 scalar,
     default 0): the JAX kernels' attention dropout, differentiable. B1
@@ -606,11 +633,24 @@ def flash_attention_masked(
         return flash_attention(q, k, v, scale=scale, causal=causal, return_lse=return_lse, qv=qv)
     _check_inputs(q, k, v, qv)
     if qv is not None or v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "flash_attention_masked: kv_bound, kv_low, alibi_slopes, segments, dropout, window, "
-            "attention_chunk and softcap with the MLA shapes (qv, V's own head dim) are not "
-            "ported (ROADMAP A11; the MLA shapes are inference-only, as in JAX)"
+        if alibi_slopes is not None or segments or dropout or windowed:
+            raise NotImplementedError(
+                "flash_attention_masked: alibi_slopes, segments, dropout, window, "
+                "attention_chunk and softcap with the MLA shapes (qv, V's own head dim) are not "
+                "ported (ROADMAP A11; the MLA shapes take the key range alone and are "
+                "inference-only, as in JAX)"
+            )
+        b = q.shape[0]
+        for name, x in (("kv_bound", kv_bound), ("kv_low", kv_low)):
+            if x is not None and tuple(x.shape) != (b,):
+                raise ValueError(f"{name} must be [B] = ({b},), got {tuple(x.shape)}")
+        if scale is None:
+            scale = 1.0 / (q.shape[-1] ** 0.5)
+        out, lse = _FlashAttentionMLA.apply(
+            q, k, v, qv, float(scale), bool(causal), kv_bound, kv_low,
+            bool(bound_causal and kv_bound is not None),
         )
+        return (out, lse) if return_lse else out
     seed = None
     if dropout:
         if attention_chunk:
@@ -640,40 +680,57 @@ def flash_attention_masked(
 
 
 def _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
-            v_scale, int8_mma, causal, num_splits, plain):
-    if int8_mma:
-        raise NotImplementedError(
-            "flash_attention_decode: int8_mma (int8 x int8 QK) is not ported (ROADMAP B8)"
-        )
+            v_scale, int8_mma, causal, num_splits, plain, cache_batch_idx=None):
     if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError("q must be [B, H, Sq, D], the caches [B, S, Hk, D] alike")
     b, h, sq, d = q.shape
-    s_max, hk = k_cache.shape[1], k_cache.shape[2]
-    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % hk:
+    b_cache, s_max, hk = k_cache.shape[:3]
+    if cache_batch_idx is not None and tuple(cache_batch_idx.shape) != (b,):
+        raise ValueError(f"cache_batch_idx must be [B] = ({b},), got "
+                         f"{tuple(cache_batch_idx.shape)}")
+    if (cache_batch_idx is None and b_cache != b) or k_cache.shape[3] != d or h % hk:
         raise ValueError(f"incompatible shapes {q.shape} / {k_cache.shape}")
     group = h // hk
     if scale is None:
         scale = d**-0.5
+    idx = None if cache_batch_idx is None else cache_batch_idx.to(q.device).long()
+    q_scale = None
     if k_cache.dtype == torch.int8:
         if k_scale is None or v_scale is None:
             raise ValueError("int8 caches need k_scale/v_scale [B, Hk, D] (ops/kv_quant)")
+        if idx is not None:
+            k_scale, v_scale = k_scale[idx], v_scale[idx]
         qf = q.float().reshape(b, hk, group, sq, d) * k_scale[:, :, None, None, :]
         q = qf.to(q.dtype).reshape(b, h, sq, d)
     qp = pack_rows(q, hk)
+    if int8_mma and k_cache.dtype == torch.int8:
+        qp, q_scale = quantize_rows(qp)
     if kv_bound is None:
         kv_bound = torch.full((b,), s_max, dtype=torch.int32, device=q.device)
     if plain or q.device.type == "cpu":
+        kc, vc = (k_cache, v_cache) if idx is None else (k_cache[idx], v_cache[idx])
         o, lse = decode_plain(
-            qp, k_cache.transpose(1, 2), v_cache.transpose(1, 2), kv_bound, kv_low,
-            group, causal, scale, softcap, num_splits,
+            qp, kc.transpose(1, 2), vc.transpose(1, 2), kv_bound, kv_low,
+            group, causal, scale, softcap, num_splits, q_scale=q_scale,
         )
+        o = o.to(q.dtype)
     else:
-        o, lse = launch_decode(
-            qp, k_cache, v_cache, (b, s_max, hk), k_cache.stride()[:3], v_cache.stride()[:3],
-            kv_bound, kv_low, group=group, causal=causal, scale=scale, softcap=softcap,
-            num_splits=num_splits, capacity=s_max,
+        if cache_batch_idx is not None and k_cache.dtype == torch.int8:
+            raise NotImplementedError(
+                "flash_attention_decode: cache_batch_idx with int8 caches is not built on the "
+                "card (JAX's flash_attn_with_kvcache refuses the combination)")
+        o, lse, n = launch_decode(
+            qp, k_cache, v_cache, (b_cache, s_max, hk), k_cache.stride()[:3],
+            v_cache.stride()[:3], kv_bound, kv_low, group=group, causal=causal, scale=scale,
+            softcap=softcap, num_splits=num_splits, capacity=s_max, batch_idx=cache_batch_idx,
+            q_scale=q_scale,
         )
-        flash_attention_decode.launches += 1
+        if q_scale is not None:
+            flash_attention_decode.int8_mma_launches += n
+        elif cache_batch_idx is not None:
+            flash_attention_decode.batch_idx_launches += n
+        else:
+            flash_attention_decode.launches += n
     if v_scale is not None:
         o = (o.float() * v_scale[:, :, None, :]).to(o.dtype)
     return unpack_rows(o, lse, h, sq)
@@ -692,6 +749,7 @@ def flash_attention_decode(
     int8_mma: bool = False,
     causal: bool = False,
     num_splits: int = 0,
+    cache_batch_idx: Optional[torch.Tensor] = None,
 ):
     """Decode with a short q against a KV cache (kernel B8), inference only.
 
@@ -707,16 +765,28 @@ def flash_attention_decode(
     int8 caches (``ops/kv_quant``) take ``k_scale``/``v_scale`` ``[B, Hk,
     D]``: q is multiplied by ``k_scale`` before the kernel and the
     output by ``v_scale`` after it, as in JAX; the kernel only casts int8
-    to bf16 after the load. ``int8_mma`` (an int8 x int8 QK product, a
-    reduced-precision mode of the TPU kernel) is not ported and raises.
+    to bf16 after the load. ``int8_mma`` (int8 caches; with bf16 caches it
+    does nothing, as in JAX): JAX's reduced-precision QK, each packed q row
+    quantized to int8 on the device as JAX does
+    (:func:`~liteattention_torch.ops.flash_decode.quantize_rows`) and S =
+    Q K^T taken as int8 x int8 -> int32 times the row's scale (the
+    kernel's int8_mma instantiation, counted in
+    ``flash_attention_decode.int8_mma_launches``); P V stays on the
+    dequant path in bf16, as in JAX.
 
     Port extensions: ``causal`` adds bottom-right causality per q
     position (row ``qi`` sees ``col < bound - Sq + qi + 1``), used by
     ``flash_attn_with_kvcache`` for appends; ``num_splits`` n > 1 sizes
     the kernel's grid at n CTAs per (b, KV head, 16-row tile), about n
     splits each at uniform lengths (0 or 1: one CTA per SM, the splits
-    balanced over the keys present). The JAX function's TPU knobs
-    (``block_sizes``, ``interpret``, ``folded``) have no counterpart.
+    balanced over the keys present); ``cache_batch_idx`` ``[B]``: q's
+    batch row ``b`` attends the caches' row ``cache_batch_idx[b]`` (the
+    caches may hold more rows than q), which the kernel reads in place,
+    never gathering the pool (the kernel's cache_batch_idx instantiation,
+    bf16 caches; counted in ``flash_attention_decode.batch_idx_launches``;
+    with int8 caches it raises on the card, as JAX's API refuses the
+    combination). The JAX function's TPU
+    knobs (``block_sizes``, ``interpret``, ``folded``) have no counterpart.
 
     Returns ``(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32)``. A
     row with no valid key gives out 0 and lse -inf. The wrapper runs the
@@ -724,22 +794,25 @@ def flash_attention_decode(
     q, bf16 or int8 caches, D 64, 128 or 256).
     """
     return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
-                   v_scale, int8_mma, causal, num_splits, plain=False)
+                   v_scale, int8_mma, causal, num_splits, False, cache_batch_idx)
 
 
 def flash_attention_decode_plain(
     q, k_cache, v_cache, kv_bound=None, kv_low=None, scale=None, softcap=0.0,
     k_scale=None, v_scale=None, int8_mma=False, causal=False, num_splits=0,
+    cache_batch_idx=None,
 ):
     """Plain PyTorch version of :func:`flash_attention_decode` on any
     device (fp32 scores, exact softmax; ``num_splits > 1`` cuts the keys
     into the kernel's pieces at that grid and merges them through
     ``combine_attention``)."""
     return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
-                   v_scale, int8_mma, causal, num_splits, plain=True)
+                   v_scale, int8_mma, causal, num_splits, True, cache_batch_idx)
 
 
 flash_attention_decode.launches = 0
+flash_attention_decode.batch_idx_launches = 0
+flash_attention_decode.int8_mma_launches = 0
 
 __all__ = [
     "dropout_keep_mask",

@@ -19,7 +19,9 @@ at 256). The q rows of
 each KV head are packed (q position, group member), so appends and paged
 prefill keep bottom-right causality per q position (``causal``: q row
 ``i`` sees positions ``< length - Sq + i + 1``). ``pages_per_step`` (a TPU DMA batching knob)
-is accepted and ignored; ``int8_mma`` is not ported and raises.
+is accepted and ignored. ``int8_mma`` (B9b over int8 pools) quantizes the
+packed q rows to int8 as JAX does and runs S = Q K^T as int8 x int8 ->
+int32 on the decode kernel's int8_mma instantiation.
 
 Each wrapper runs its plain PyTorch version (the pages gathered into a
 dense cache) for CPU tensors and the kernel for CUDA tensors.
@@ -31,11 +33,11 @@ from typing import Optional
 
 import torch
 
-from liteattention_torch.ops.flash_decode import decode_plain, launch_decode
+from liteattention_torch.ops.flash_decode import decode_plain, launch_decode, quantize_rows
 
 
 def _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal, return_lse,
-           k_scale, v_scale, num_splits, head_major, plain, counter):
+           k_scale, v_scale, num_splits, head_major, plain, counter, int8_mma=False):
     decode_rank = q.dim() == 3
     if decode_rank:
         q = q[:, None]
@@ -57,6 +59,9 @@ def _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal, return_lse
         qf = q.float().reshape(b, sq, hk, group, d) * k_scale[None, None, :, None, :]
         q = qf.to(q.dtype).reshape(b, sq, hq, d)
     qp = q.reshape(b, sq, hk, group, d).transpose(1, 2).reshape(b, hk, sq * group, d)
+    q_scale = None
+    if int8_mma and k_pages.dtype == torch.int8:
+        qp, q_scale = quantize_rows(qp)
     causal = causal and sq > 1
     if plain or q.device.type == "cpu":
         tbl = page_indices.long().clamp(0, num_pages - 1)
@@ -68,15 +73,19 @@ def _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal, return_lse
             return x[tbl].reshape(b, s_len, hk, d).transpose(1, 2)
 
         o, lse = decode_plain(qp, dense(k_pages), dense(v_pages), lengths, None, group,
-                              causal, scale, 0.0, num_splits)
+                              causal, scale, 0.0, num_splits, q_scale=q_scale)
+        o = o.to(q.dtype)
     else:
-        o, lse = launch_decode(
+        o, lse, n = launch_decode(
             qp, k_pages, v_pages, (num_pages, page_size, hk), strides(k_pages),
             strides(v_pages), lengths, None, group=group, causal=causal, scale=scale,
             softcap=0.0, num_splits=num_splits, capacity=page_indices.shape[1] * page_size,
-            table=page_indices, page_size=page_size,
+            table=page_indices, page_size=page_size, q_scale=q_scale,
         )
-        counter.launches += 1
+        if q_scale is not None:
+            counter.int8_mma_launches += n
+        else:
+            counter.launches += n
     if v_scale is not None:
         o = (o.float() * v_scale[None, :, None, :]).to(o.dtype)
     out = o.reshape(b, hk, sq, group, d).transpose(1, 2).reshape(b, sq, hq, d)
@@ -145,17 +154,19 @@ def paged_attention_folded(
     int8 pools (``ops/kv_quant.quantize_kv_pages``) take global
     ``k_scale``/``v_scale`` ``[Hk, D]``: q is multiplied by ``k_scale``
     before the kernel and the output by ``v_scale`` after it.
-    ``pages_per_step`` is a TPU DMA knob, accepted and ignored;
-    ``int8_mma`` raises (not ported, ROADMAP B9). ``num_splits``: KV
-    splits on the card (n > 1: n CTAs per unit; 0 or 1: one CTA per SM,
-    balanced over the keys present).
+    ``int8_mma`` (int8 pools; with bf16 pools it does nothing, as in JAX):
+    each packed q row is quantized to int8 as JAX does
+    (:func:`~liteattention_torch.ops.flash_decode.quantize_rows`) and QK^T
+    runs int8 x int8 -> int32 times the row's scale, P V on the dequant
+    path in bf16 (counted in ``paged_attention_folded.int8_mma_launches``).
+    ``pages_per_step`` is a TPU DMA knob, accepted and ignored.
+    ``num_splits``: KV splits on the card (n > 1: n CTAs per unit; 0 or 1:
+    one CTA per SM, balanced over the keys present).
     """
     del pages_per_step
-    if int8_mma:
-        raise NotImplementedError("paged_attention_folded: int8_mma is not ported (ROADMAP B9)")
     return _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal,
                   return_lse, k_scale, v_scale, num_splits, False, False,
-                  paged_attention_folded)
+                  paged_attention_folded, int8_mma)
 
 
 def paged_attention_folded_plain(q, k_pages, v_pages, lengths, page_indices, scale=None,
@@ -165,14 +176,13 @@ def paged_attention_folded_plain(q, k_pages, v_pages, lengths, page_indices, sca
     """Plain PyTorch version of :func:`paged_attention_folded` on any
     device."""
     del pages_per_step
-    if int8_mma:
-        raise NotImplementedError("paged_attention_folded: int8_mma is not ported (ROADMAP B9)")
     return _paged(q, k_pages, v_pages, lengths, page_indices, scale, causal,
-                  return_lse, k_scale, v_scale, num_splits, False, True, None)
+                  return_lse, k_scale, v_scale, num_splits, False, True, None, int8_mma)
 
 
 paged_attention.launches = 0
 paged_attention_folded.launches = 0
+paged_attention_folded.int8_mma_launches = 0
 
 __all__ = [
     "paged_attention",

@@ -1379,7 +1379,7 @@ def test_flash_fwd_mla_kernel(dev, b, h, hk, sq, sk, d, dv, use_qv, causal):
 def test_flash_fwd_mla_kernel_raises_on_other_shapes(dev):
     q = torch.zeros(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
     v = torch.zeros(1, 2, 64, 256, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="B-i 7"):
         flash_attention(q, q, v)
 
 
@@ -1791,3 +1791,148 @@ def test_benchmark_helpers_on_the_card(dev, tmp_path):
     hard_sync([x])
     out = profile_trace(torch.matmul, x, x, log_dir=str(tmp_path))
     assert os.path.getsize(os.path.join(out, "trace.json")) > 0
+
+
+# The kvcache API's rest: B8 reading a slot pool by cache_batch_idx, the
+# int8_mma instantiations of B8 / B9b, B1-MLA with the key range, and a
+# long q launched in pieces.
+@pytest.mark.parametrize("layout,sq,causal", [("bshd", 1, False), ("bhsd", 3, True),
+                                              ("bshd", 4, True)])
+def test_flash_decode_cache_batch_idx(dev, layout, sq, causal):
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+
+    slots, b, h, hk, s_max, d = 6, 3, 16, 4, 1000, 128
+    g = torch.Generator(device=dev).manual_seed(31 + sq)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+    kc = torch.randn(slots, s_max, hk, d, generator=g, device=dev).bfloat16()
+    vc = torch.randn(slots, s_max, hk, d, generator=g, device=dev).bfloat16()
+    if layout == "bhsd":
+        kc, vc = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (kc, vc))
+    idx = torch.tensor([4, 0, 3], dtype=torch.int32, device=dev)
+    kw = dict(kv_bound=torch.tensor([1000, 37, 611], dtype=torch.int32, device=dev),
+              kv_low=torch.tensor([0, 5, 100], dtype=torch.int32, device=dev), causal=causal)
+    n0 = flash_attention_decode.batch_idx_launches
+    out, lse = flash_attention_decode(q, kc, vc, cache_batch_idx=idx, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_decode.batch_idx_launches == n0 + 1
+    ro, rl = flash_attention_decode_plain(q, kc, vc, cache_batch_idx=idx, **kw)
+    _check_decode(out, lse, ro, rl)
+    # The slots read in place give the bits of the gathered caches.
+    go, gl = flash_attention_decode(q, kc[idx.long()], vc[idx.long()], **kw)
+    assert torch.equal(out, go) and torch.equal(lse, gl)
+
+
+@pytest.mark.parametrize("d,paged,sq", [(128, False, 1), (64, False, 1), (256, False, 1),
+                                        (128, True, 1), (128, False, 4), (256, True, 1)])
+def test_decode_int8_mma(dev, d, paged, sq):
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache, quantize_kv_pages
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention_folded,
+        paged_attention_folded_plain,
+    )
+
+    b, hk, group, s_max, psz = 4, 2, 4, 1024, 64
+    g = torch.Generator(device=dev).manual_seed(41 + d + sq)
+    bound = torch.tensor([1024, 300, 77, 650], dtype=torch.int32, device=dev)
+    if paged:
+        n_pages = b * s_max // psz
+        q = torch.randn(b, sq, hk * group, d, generator=g, device=dev).bfloat16()
+        kp, vp = (torch.randn(n_pages, psz, hk, d, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        pool = quantize_kv_pages(kp, vp)
+        table = torch.randperm(n_pages, generator=g, device=dev).reshape(b, -1).int()
+        args = (q, pool.k, pool.v, bound, table)
+        kw = dict(return_lse=True, causal=True, k_scale=pool.k_scale, v_scale=pool.v_scale)
+        fn, plain = paged_attention_folded, paged_attention_folded_plain
+    else:
+        q = torch.randn(b, hk * group, sq, d, generator=g, device=dev).bfloat16()
+        kc, vc = (torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        cache = quantize_kv_cache(kc, vc)
+        args = (q, cache.k, cache.v)
+        kw = dict(kv_bound=bound, causal=True, k_scale=cache.k_scale, v_scale=cache.v_scale)
+        fn, plain = flash_attention_decode, flash_attention_decode_plain
+    n0 = fn.int8_mma_launches
+    out, lse = fn(*args, int8_mma=True, **kw)
+    torch.cuda.synchronize()
+    assert fn.int8_mma_launches == n0 + 1
+    ro, rl = plain(*args, int8_mma=True, **kw)
+    _check_decode(out, lse, ro, rl)
+    exact = plain(*args, **kw)[0]
+    assert _rel_l2(out.float().reshape(1, 1, -1, d), exact.float().reshape(1, 1, -1, d))[0] < 8e-2
+
+
+@pytest.mark.parametrize("d,dv,use_qv", [(192, 128, False), (576, 512, False), (64, 512, True)])
+@pytest.mark.parametrize("bound_causal", [True, False])
+def test_flash_fwd_mla_key_range(dev, d, dv, use_qv, bound_causal):
+    """B1's MLA kernels with kv_bound / kv_low (and bound_causal) against
+    the plain version (B1's tolerances); a row with no key gives out 0 and
+    lse -inf; at (192, 128) a bound of Sk is the kernel without the
+    channels, bit for bit."""
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    b, h, hk, sq, sk = 3, 4, 1, 130, 700
+    g = torch.Generator(device=dev).manual_seed(d + dv + bound_causal)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).bfloat16()  # noqa: E731
+    q, k, v = mk(b, h, sq, d), mk(b, hk, sk, d), mk(b, hk, sk, dv)
+    qv = mk(b, h, sq, dv) if use_qv else None
+    bound = torch.tensor([700, 333, 64], dtype=torch.int32, device=dev)
+    low = torch.tensor([0, 70, 64], dtype=torch.int32, device=dev)  # batch 2: no key
+    kw = dict(kv_bound=bound, kv_low=low, bound_causal=bound_causal, qv=qv)
+    counter = "mla_v512_bound_launches" if dv == 512 else "mla_bound_launches"
+    n0 = getattr(flash_attention, counter)
+    out, lse = flash_attention_masked(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, counter) == n0 + 1
+    ro, rl = flash_attention_plain(q, k, v, 1.0 / d**0.5, **kw)
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse)) and not fin[2].any()
+    assert out[2].abs().max().item() == 0.0
+    diff = (out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)
+    assert diff.max().item() < 2e-2
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    if dv == 128 and not bound_causal:
+        full = torch.full((b,), sk, dtype=torch.int32, device=dev)
+        o1, l1 = flash_attention_masked(q, k, v, kv_bound=full, return_lse=True)
+        o2, l2 = flash_attention(q, k, v, return_lse=True)
+        assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+def test_kvcache_mla_pairs_outside_the_built_shapes_raise(dev):
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+
+    q = torch.zeros(2, 1, 4, 128, device=dev, dtype=torch.bfloat16)
+    kc = torch.zeros(2, 256, 1, 128, device=dev, dtype=torch.bfloat16)
+    vc = torch.zeros(2, 256, 1, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="B-i 7"):
+        flash_attn_with_kvcache(q, kc, vc, cache_seqlens=100)
+
+
+def test_flash_decode_long_q_in_pieces(dev):
+    # 8 x 700 causal rows at group 4: 1400 (b, 16-row tile) pairs, launched
+    # as two pieces of whole q positions (flash_decode.row_chunks).
+    from liteattention_torch.ops.flash_decode import row_chunks
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+
+    b, h, hk, sq, s_max, d = 8, 16, 4, 700, 2048, 128
+    g = torch.Generator(device=dev).manual_seed(51)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
+    kc, vc = (torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    bound = torch.randint(sq, s_max + 1, (b,), generator=g, device=dev).int()
+    n0 = flash_attention_decode.launches
+    out, lse = flash_attention_decode(q, kc, vc, kv_bound=bound, causal=True)
+    torch.cuda.synchronize()
+    assert len(row_chunks(b, sq * h // hk, h // hk)) == 2
+    assert flash_attention_decode.launches == n0 + 2
+    ro, rl = flash_attention_decode_plain(q, kc, vc, kv_bound=bound, causal=True)
+    _check_decode(out, lse, ro, rl)

@@ -110,9 +110,13 @@ def test_flash_attention_decode_int8_matches_jax():
     _close(pl, jl)
     with pytest.raises(ValueError, match="k_scale"):
         flash_attention_decode(t(q), pc.k, pc.v)
-    with pytest.raises(NotImplementedError, match="int8_mma"):
-        flash_attention_decode(t(q), pc.k, pc.v, k_scale=pc.k_scale, v_scale=pc.v_scale,
-                               int8_mma=True)
+    # int8_mma (int8 x int8 QK): JAX's rounds P to bf16 before P V, the
+    # plain version keeps fp32 (tests/test_torch_kvcache_rest.py).
+    jm, _ = jdecode(jnp.asarray(q), jc.k, jc.v, kv_bound=jnp.asarray(bound), k_scale=jc.k_scale,
+                    v_scale=jc.v_scale, interpret=True, int8_mma=True)
+    pm, _ = flash_attention_decode(t(q), pc.k, pc.v, kv_bound=t(bound), k_scale=pc.k_scale,
+                                   v_scale=pc.v_scale, int8_mma=True)
+    np.testing.assert_allclose(pm.numpy(), np.asarray(jm), atol=5e-3, rtol=0)
 
 
 def test_flash_attention_decode_int8_d256_matches_jax():

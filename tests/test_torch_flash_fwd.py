@@ -91,3 +91,30 @@ def test_unported_channels_raise():
         flash_attention(x, x, x, dropout_p=1.0)
     with pytest.raises(ValueError):
         flash_attention(x, x, x, block_sizes=BlockSizes(256, 128))
+
+
+@pytest.mark.parametrize("sq,sk,block_q,block_k", [(200, 300, 64, 64), (256, 640, 128, 256)])
+def test_skip_votes_ref_matches_jax(sq, sk, block_q, block_k):
+    # The vote oracles at two geometries: skip_votes_ref on its own tile
+    # grid, skip_votes_ref_fine with 128-wide fine tiles under the compute
+    # tile (compared on live positions, where its votes are specified).
+    from liteattention_tpu.ops.attention_ref import skip_votes_ref as jvotes
+    from liteattention_tpu.ops.attention_ref import skip_votes_ref_fine as jvotes_fine
+    from liteattention_torch.ops.attention_ref import skip_votes_ref, skip_votes_ref_fine
+
+    rng = np.random.RandomState(sq + sk)
+    base = rng.randn(2, 1, max(sq, sk), 64)
+    q = (base[:, :, :sq] + 0.3 * rng.randn(2, 2, sq, 64)).astype(np.float32)
+    k = (base[:, :, :sk] + 0.3 * rng.randn(2, 2, sk, 64)).astype(np.float32)
+    qt, kt = -(-sq // block_q), -(-sk // block_k)
+    mask = rng.rand(2, 2, qt, kt) < 0.7
+    for thr in (-3.0, 0.0):
+        jv = jvotes(jnp.asarray(q), jnp.asarray(k), jnp.asarray(mask), thr, block_q, block_k)
+        pv = skip_votes_ref(t(q), t(k), t(mask), thr, block_q, block_k)
+        assert pv.dtype == torch.int32
+        np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    fine = rng.rand(2, 2, -(-sq // 128), -(-sk // 128)) < 0.7
+    if block_q >= 128:
+        jf = jvotes_fine(q, k, fine, -2.0, block_q, block_k)
+        pf = skip_votes_ref_fine(q, k, fine, -2.0, block_q, block_k)
+        np.testing.assert_array_equal(pf[fine], jf[fine])

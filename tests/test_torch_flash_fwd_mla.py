@@ -115,7 +115,9 @@ def test_flash_attn_func_qv_default_scale_matches_jax():
 
 def test_mla_backward_raises_and_kvcache_mla_raises():
     """The MLA shapes are forward-only (JAX: "inference-only"); the kvcache
-    API's qv and other-Dv caches are not ported (ROADMAP A11)."""
+    API takes qv and other-Dv caches on the contiguous route without an
+    append (tests/test_torch_kvcache_rest.py) and raises where JAX
+    asserts."""
     rng = np.random.RandomState(2)
     q = t(rng.randn(1, 2, 64, 192).astype(np.float32)).requires_grad_()
     k = t(rng.randn(1, 2, 64, 192).astype(np.float32)).requires_grad_()
@@ -128,9 +130,9 @@ def test_mla_backward_raises_and_kvcache_mla_raises():
     with pytest.raises(NotImplementedError, match="forward-only"):
         out.sum().backward()
     kc = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="qv"):
-        flash_attn_with_kvcache(torch.zeros(1, 1, 2, 64), kc, kc, qv=torch.zeros(1, 1, 2, 64),
-                                cache_seqlens=4)
-    with pytest.raises(NotImplementedError, match="v_cache_head_dim"):
-        flash_attn_with_kvcache(torch.zeros(1, 1, 2, 64), kc, torch.zeros(1, 128, 2, 128),
-                                cache_seqlens=4)
+    new = torch.zeros(1, 1, 2, 64)
+    with pytest.raises(NotImplementedError, match="qv with k"):
+        flash_attn_with_kvcache(new, kc, kc, new, new, qv=new, cache_seqlens=4)
+    with pytest.raises(NotImplementedError, match="v_cache of its own head dim"):
+        flash_attn_with_kvcache(new, kc, torch.zeros(1, 128, 2, 128), cache_seqlens=4,
+                                page_table=torch.zeros(1, 1, dtype=torch.int32))

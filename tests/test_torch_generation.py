@@ -178,3 +178,29 @@ def test_sampling_matches_jax():
         t(logits), t(logits[:, :s]), t(draft).long(), torch.Generator().manual_seed(1), 0.8, 8
     )
     assert n.tolist() == [s + 1, s + 1]  # p == q: everything is accepted
+
+
+@pytest.mark.parametrize("causal,kv_heads", [(False, 4), (True, 2)])
+def test_mha_cross_attention_matches_jax(causal, kv_heads):
+    # MHA(cross_attn=True): q by Wq from x, k and v by Wkv from x_kv (5
+    # rows against 9), no rotary and no cache; a cache passed is not read,
+    # as in JAX.
+    rng = np.random.RandomState(21)
+    x, x_kv = rng.randn(2, 5, 128).astype(np.float32), rng.randn(2, 9, 128).astype(np.float32)
+    jmha = JMHA(128, 4, num_heads_kv=kv_heads, cross_attn=True, causal=causal,
+                rotary_emb_dim=32, dtype=jnp.float32)
+    params = jax.tree_util.tree_map(np.asarray, jmha.init(
+        jax.random.PRNGKey(3), jnp.asarray(x), jnp.asarray(x_kv)))
+    mha = MHA(128, 4, num_heads_kv=kv_heads, cross_attn=True, causal=causal, rotary_emb_dim=32,
+              layer_idx=0, dtype=torch.float32, device="cpu")
+    mha.load_state_dict(gpt_state_dict_from_jax(params))  # strict: Wq, Wkv, out_proj
+    jo = jmha.apply(params, jnp.asarray(x), jnp.asarray(x_kv))
+    jinf = JInferenceParams(max_seqlen=16, max_batch_size=2)
+    jo_cached = jmha.apply(params, jnp.asarray(x), jnp.asarray(x_kv), inference_params=jinf)
+    with torch.no_grad():
+        po = mha(t(x), x_kv=t(x_kv))
+        po_cached = mha(t(x), InferenceParams(max_seqlen=16, max_batch_size=2), x_kv=t(x_kv))
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(po_cached.numpy(), np.asarray(jo_cached), atol=2e-5, rtol=0)
+    with pytest.raises(ValueError, match="x_kv"):
+        mha(t(x))

@@ -2,7 +2,8 @@
 against the JAX package, every route the port takes: contiguous caches in
 both layouts with appends, leftpad, softcap, causal multi-token steps,
 forced KV splits, int8 caches; paged pools (bf16 and int8) with appends;
-and each argument that is not ported, which must raise naming itself.
+and each combination that JAX asserts away, which must raise naming
+itself (the rest of the API: tests/test_torch_kvcache_rest.py).
 
 fp32 numpy inputs from a seed; the JAX kernels run in interpret mode.
 Tolerance: 2e-5 absolute on outputs and lse (summation order only), the
@@ -157,19 +158,50 @@ def test_paged_int8_matches_jax():
 
 
 @pytest.mark.parametrize("name,kw", [
-    ("cu_seqlens_q", dict(cu_seqlens_q=torch.tensor([0, 1, 2]))),
-    ("cu_seqlens_k_new", dict(cu_seqlens_k_new=torch.tensor([0, 1, 2]))),
-    ("rotary_cos", dict(rotary_cos=torch.ones(8, 32), rotary_sin=torch.zeros(8, 32))),
-    ("cache_batch_idx", dict(cache_batch_idx=torch.tensor([1, 0]))),
     # Ported on the contiguous route (tests/test_torch_window_softcap.py);
     # the paged route refuses them, as JAX asserts.
     ("window_size", dict(window_size=(16, 0), page_table=torch.zeros(B, 1, dtype=torch.int32))),
     ("attention_chunk", dict(attention_chunk=64, page_table=torch.zeros(B, 1, dtype=torch.int32))),
-    ("qv", dict(qv=torch.zeros(B, 1, H, 64))),
     ("descales", dict(q_descale=torch.ones(1))),
-    ("int8_mma", dict(int8_mma=True)),
+    # Ported (tests/test_torch_kvcache_rest.py); the combinations JAX
+    # asserts away raise, naming the argument.
+    ("cache_batch_idx", dict(cache_batch_idx=torch.tensor([1, 0]),
+                             page_table=torch.zeros(B, 1, dtype=torch.int32))),
+    ("qv with page_table", dict(qv=torch.zeros(B, 1, H, 64),
+                                page_table=torch.zeros(B, 1, dtype=torch.int32))),
+    ("qv with k", dict(qv=torch.zeros(B, 1, H, 64), k=torch.zeros(B, 1, HK, 64),
+                       v=torch.zeros(B, 1, HK, 64))),
+    ("qv with num_splits", dict(qv=torch.zeros(B, 1, H, 64), num_splits=2)),
+    ("v_cache of its own head dim on the paged route",
+     dict(page_table=torch.zeros(B, 1, dtype=torch.int32), v_cache=torch.zeros(1, S_MAX, HK, 32))),
+    ("rotary_cos with int8", dict(rotary_cos=torch.ones(8, 32), rotary_sin=torch.zeros(8, 32),
+                                  int8=True)),
+    ("int8 caches", dict(cu_seqlens_q=torch.tensor([0, 1, 2]), max_seqlen_q=1, int8=True)),
 ])
 def test_unported_arguments_raise(name, kw):
     x = _inputs(11)
+    kc, vc = t(x["kc"]), t(x["vc"])
+    if kw.pop("int8", False):
+        c = pq.quantize_kv_cache(kc, vc)
+        kc, vc = c.k, c.v
+        kw.update(k_cache_scale=c.k_scale, v_cache_scale=c.v_scale)
+    vc = kw.pop("v_cache", vc)
+    q = t(x["q"])
+    if "cu_seqlens_q" in kw:
+        q = q[:, 0]
     with pytest.raises(NotImplementedError, match=name):
-        flash_attn_with_kvcache(t(x["q"]), t(x["kc"]), t(x["vc"]), cache_seqlens=5, **kw)
+        flash_attn_with_kvcache(q, kc, vc, cache_seqlens=5, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(cu_seqlens_q=torch.tensor([0, 1, 2])), "max_seqlen_q"),
+    (dict(cu_seqlens_k_new=torch.tensor([0, 1, 2])), "pass k and v"),
+    (dict(rotary_cos=torch.ones(8, 32)), "rotary_sin"),
+])
+def test_kvcache_arguments_checked(kw, match):
+    x = _inputs(12)
+    q = t(x["q"])
+    if "cu_seqlens_q" in kw:
+        q = q[:, 0]
+    with pytest.raises(ValueError, match=match):
+        flash_attn_with_kvcache(q, t(x["kc"]), t(x["vc"]), cache_seqlens=5, **kw)
