@@ -328,6 +328,30 @@ Phases (any failure exits non-zero and prints no result line):
    within rel-L2 8e-2 of the exact dequant path. Each new variant is timed
    beside its bound, its plain version and SDPA with a boolean mask where
    one call computes the same function.
+21. (Runs after 20.) The GPT-NeoX family at head dims 80 and 96: (a) B1's
+   bound_causal prefill at Pythia-2.8B's (8 x 32 x 1024 x 80) and
+   GPT-NeoX-20B's (8 x 64 x 1024 x 96) shapes over their serving caches,
+   the decode kernel (``flash_decode_hd.cu``) at their decode steps, bf16
+   and int8 (ragged and full lengths, beside SDPA ``enable_gqa``), and at
+   96 over a slot pool by ``cache_batch_idx``, a native page pool (B9b)
+   and a head-major one (B9a); B1's and B7's segment walks at 96 over 16
+   384 tokens of 8 packed causal documents (against each document alone)
+   and ALiBi at 96, forward and backward; each against its plain version,
+   timed beside its bound and a library call; the int8_mma decode kernel
+   alone beside the dequant one at the kvcache API shape; (b) Pythia-2.8B
+   (``gpt_neox_config(dim=2560, num_layers=32, num_heads=32, vocab=50304)``,
+   full width and depth) from an HF-named bf16 state dict built on the card
+   and remapped by ``remap_state_dict_hf_gpt_neox``, serving 8 requests of
+   1024 prompt tokens and 64 greedy tokens with bf16 and then int8 caches;
+   (c) GPT-NeoX-20B at full width, 12 of its 44 layers, 8 x (1024 + 32);
+   each run counted (one bound B1 launch a layer a prefill, one decode
+   launch a layer a step, nothing else), its step logits against a full
+   recompute and two planted faults above the limit; (d) the counted run at
+   GPT-NeoX-20B's attention: ``flash_attn_with_kvcache`` contiguous, by
+   ``cache_batch_idx`` and over native pages, ``paged_attention`` over
+   head-major pages, ``flash_attn_varlen_func`` and ALiBi ``flash_attn_func``
+   forward and backward: one launch of each, held against the plain
+   versions.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -6296,31 +6320,12 @@ def falcon_kernel_phase(dev):
         rnd(b, h, FALCON_PROMPT, d), kc, vc, dict(kv_bound=prompt, bound_causal=True),
         time_it=True)}
     q = rnd(b, h, 1, d)
-    kcs, vcs = kc.transpose(1, 2), vc.transpose(1, 2)
     lens = torch.randint(FALCON_PROMPT + 1, cap + 1, (b,), generator=g, device=dev).int()
-    keys = int(lens.sum())
-    need = (2 * keys * d * 2 + 2 * nbytes(q) + 4 * b * h, 4 * d * h * keys)
-    shape = f"{b}x{h}/1 rows of {d} (71 rows packed over one KV head), cache {cap}"
-    r = res["decode"] = check_decode(
-        f"B8 bf16 {shape}, lengths {lens.min().item()}-{lens.max().item()}",
-        flash_attention_decode, flash_attention_decode_plain, (q, kcs, vcs), dict(kv_bound=lens),
-        need, time_it=True)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    pad = (torch.arange(cap, device=dev) < lens[:, None])[:, None, None]
-    backend, r["library_ms"], r["timer"]["library_ms"] = sdpa_backend_ms(
-        "B8 Falcon ragged", lambda: sdpa(q, kc, vc, attn_mask=pad, enable_gqa=True))
-    r["library"] = f"SDPA enable_gqa, boolean key-padding mask ({backend})"
-    full = torch.full((b,), cap, dtype=torch.int32, device=dev)
-    need_full = (2 * b * cap * d * 2 + 2 * nbytes(q) + 4 * b * h, 4 * d * h * b * cap)
-    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
-        lambda: flash_attention_decode(q, kcs, vcs, kv_bound=full))
-    r["bound_ms_full_lengths"] = bound(need_full[1], need_full[0])[0]
-    backend_full, r["library_ms_full_lengths"], r["timer"]["library_ms_full_lengths"] = (
-        sdpa_backend_ms("B8 Falcon full", lambda: sdpa(q, kc, vc, enable_gqa=True)))
-    log(f"  decode B8 Falcon: SDPA (key-padding mask, {backend}) {fmt_ms(r['library_ms'])}; full "
-        f"lengths: device {r['ms_full_lengths']:.4f} ms, bound {r['bound_ms_full_lengths']:.4f} "
-        f"ms; SDPA ({backend_full}) {fmt_ms(r['library_ms_full_lengths'])}")
-    del kc, vc, kcs, vcs
+    res["decode"] = decode_row(
+        f"B8 bf16 {b}x{h}/1 rows of {d} (71 rows packed over one KV head), cache {cap}, lengths "
+        f"{lens.min().item()}-{lens.max().item()}", flash_attention_decode,
+        flash_attention_decode_plain, q, kc, vc, lens, cap)
+    del kc, vc
     torch.cuda.empty_cache()
     return res
 
@@ -6996,6 +7001,591 @@ def kvcache_rest_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 21
+
+# The GPT-NeoX family through gpt_neox_config(). Pythia-2.8B
+# (EleutherAI/pythia-2.8b config.json: hidden_size 2560, 32 layers, 32 heads
+# of 80, rotary_pct 0.25, vocab 50 304, use_parallel_residual, untied
+# embed_out) at full width and depth: 8 requests of 1024 prompt tokens and
+# 64 greedy tokens (its context is 2048), with bf16 and int8 caches.
+# GPT-NeoX-20B (EleutherAI/gpt-neox-20b: 6144, 44 layers, 64 heads of 96,
+# vocab 50 432) at full width and 12 of its 44 layers: the fp32 weights of
+# all 44 (82 GB) do not fit the card's 80 GB. 8 x (1024 + 32).
+PYTHIA_KW = dict(dim=2560, num_layers=32, num_heads=32, vocab=50304)
+PYTHIA_HEADS, NEOX_HEADS = 32, 64  # q heads (all KV heads too) of 80 and 96
+PYTHIA_BATCH, PYTHIA_PROMPT, PYTHIA_NEW = 8, 1024, 64
+NEOX_LAYERS, NEOX_BATCH, NEOX_PROMPT, NEOX_NEW = 12, 8, 1024, 32
+NEOX_SEED = 2121
+# The recompute check's planted faults (recompute_fault_readings): every
+# step this many positions late, and the prompt's last rows zeroed; GPT-J's
+# sizes, since rotary over a quarter of the head dim makes the attention
+# near uniform over the prompt there too.
+NEOX_FAULT_LATE, NEOX_FAULT_ROWS = 64, 64
+# GPT-NeoX-20B's attention over packed causal documents: 16 384 tokens in
+# 8 documents of 1024-3072 (B1's and B7's segment walks at 96), and ALiBi at
+# 96 (b, h, s; causal), forward and backward.
+NEOX_PACK = (16384, 64, 64, 96, (1024, 3072), 2311)
+NEOX_ALIBI_SHAPE = (2, 64, 2048)
+# The kvcache API's steps at GPT-NeoX-20B's attention: a slot pool, its live
+# slots by cache_batch_idx, and pages of 64 keys.
+NEOX_API_SLOTS, NEOX_API_PAGE = 16, 64
+
+
+def neox_hf_state_dict(cfg, dev, seed):
+    """An HF-named GPT-NeoX state dict (``GPTNeoXForCausalLM``'s keys) of
+    random bf16 tensors on the card from ``seed``: ``query_key_value``
+    head-interleaved as (heads, 3, head dim) rows, N(0, 1 / fan_in) weights,
+    small biases, unit norm scales, zero norm biases."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(out_f, in_f):
+        return (torch.randn(out_f, in_f, generator=g, device=dev, dtype=torch.bfloat16)
+                * in_f**-0.5)
+
+    def bias(n):
+        return torch.randn(n, generator=g, device=dev, dtype=torch.bfloat16) * 0.02
+
+    dim = cfg.dim
+    ffn = cfg.ffn_dim or 4 * dim
+    ones = lambda: torch.ones(dim, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    zeros = lambda: torch.zeros(dim, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    sd = {"gpt_neox.embed_in.weight": w(cfg.vocab_size, dim),
+          "gpt_neox.final_layer_norm.weight": ones(),
+          "gpt_neox.final_layer_norm.bias": zeros(),
+          "embed_out.weight": w(cfg.vocab_size, dim)}
+    for i in range(cfg.num_layers):
+        pre = f"gpt_neox.layers.{i}."
+        sd[pre + "attention.query_key_value.weight"] = w(3 * dim, dim)
+        sd[pre + "attention.query_key_value.bias"] = bias(3 * dim)
+        sd[pre + "attention.dense.weight"] = w(dim, dim)
+        sd[pre + "attention.dense.bias"] = bias(dim)
+        sd[pre + "mlp.dense_h_to_4h.weight"] = w(ffn, dim)
+        sd[pre + "mlp.dense_h_to_4h.bias"] = bias(ffn)
+        sd[pre + "mlp.dense_4h_to_h.weight"] = w(dim, ffn)
+        sd[pre + "mlp.dense_4h_to_h.bias"] = bias(dim)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[pre + norm + ".weight"] = ones()
+            sd[pre + norm + ".bias"] = zeros()
+    return sd
+
+
+def decode_row(label, fn, plain, q, kc, vc, lens, cap, kw=None, library=True):
+    """check_decode of a single-token step over a ``[B, Hk, cap, D]``
+    head-major cache (bf16, or int8 with ``kw``'s scales) at ``lens``,
+    timed beside its bound and SDPA (``enable_gqa``, a boolean key-padding
+    mask; the bf16 cache), then at full lengths beside SDPA without a
+    mask."""
+    import torch
+
+    b, h, _, d = q.shape
+    hk = kc.shape[1]
+    kw = dict(kw or {})
+    el = kc.element_size()
+    keys = int(lens.sum())
+    need = (2 * keys * hk * d * el + 2 * nbytes(q) + 4 * b * h, 4 * d * h * keys)
+    args = (q, kc.transpose(1, 2), vc.transpose(1, 2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r = check_decode(label, fn, plain, args, {"kv_bound": lens, **kw}, need, time_it=True)
+    if library:
+        pad = (torch.arange(cap, device=q.device) < lens[:, None])[:, None, None]
+        backend, r["library_ms"], r["timer"]["library_ms"] = sdpa_backend_ms(
+            label, lambda: sdpa(q, kc, vc, attn_mask=pad, enable_gqa=hk < h))
+        r["library"] = f"SDPA enable_gqa, boolean key-padding mask ({backend})"
+    full = torch.full((b,), cap, dtype=torch.int32, device=q.device)
+    r["ms_full_lengths"], _, r["timer"]["ms_full_lengths"] = device_ms(
+        lambda: fn(*args, kv_bound=full, **kw))
+    r["bound_ms_full_lengths"] = bound(4 * d * h * b * cap,
+                                       2 * b * cap * hk * d * el + 2 * nbytes(q) + 4 * b * h)[0]
+    if library:
+        _, r["library_ms_full_lengths"], r["timer"]["library_ms_full_lengths"] = (
+            sdpa_backend_ms(f"{label} full", lambda: sdpa(q, kc, vc, enable_gqa=hk < h)))
+    log(f"  decode {label}: SDPA (key-padding mask) {fmt_ms(r['library_ms'])}; full lengths "
+        f"{r['ms_full_lengths']:.4f} ms (bound {r['bound_ms_full_lengths']:.4f} ms), SDPA "
+        f"{fmt_ms(r.get('library_ms_full_lengths'))}")
+    return r
+
+
+def paged_inputs(kc, vc, lens, page, g):
+    """The head-major cache ``[B, Hk, cap, D]`` cut into pages of ``page``
+    keys (the last zero-filled past ``cap``) laid out at random: a native
+    pool ``[pages, page, Hk, D]``, a head-major pool ``[Hk, pages, page,
+    D]`` and the page table."""
+    import torch
+
+    b, hk, cap, d = kc.shape
+    pps = -(-cap // page)
+    perm = torch.randperm(b * pps, generator=g, device=kc.device)
+    table = perm.reshape(b, pps).int()
+
+    def native(x):
+        pool = torch.zeros(b * pps, page, hk, d, dtype=x.dtype, device=x.device)
+        rows = torch.zeros(b, pps * page, hk, d, dtype=x.dtype, device=x.device)
+        rows[:, :cap] = x.transpose(1, 2)
+        pool[perm] = rows.reshape(b * pps, page, hk, d)
+        return pool
+
+    kp, vp = native(kc), native(vc)
+    return kp, vp, kp.permute(2, 0, 1, 3).contiguous(), vp.permute(2, 0, 1, 3).contiguous(), table
+
+
+def int8_mma_kernel_times(dev, card):
+    """The decode kernel alone (``launch_decode`` on rows packed and folded
+    beforehand, so that the call launches nothing else) at the kvcache API
+    shape over int8 caches: the int8_mma instantiation and the dequant one,
+    contiguous (B8) and paged (B9b, pages of API_PAGE), each by queued_ms
+    in turns within this run."""
+    import torch
+    from liteattention_torch.ops.flash_decode import launch_decode, pack_rows, quantize_rows
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache, quantize_kv_pages
+
+    g = torch.Generator(device=dev).manual_seed(2131)
+    b, hq, hk, d, cap, page = API_B, API_HQ, API_HK, API_D, API_CACHE, API_PAGE
+    q = torch.randn(b, hq, 1, d, generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(b, cap, hk, d, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.randint(cap // 2, cap + 1, (b,), generator=g, device=dev).int()
+    c = quantize_kv_cache(kc, vc)
+    pps = cap // page
+    table = torch.randperm(b * pps, generator=g, device=dev).reshape(b, pps).int()
+    kp = torch.empty(b * pps, page, hk, d, dtype=torch.bfloat16, device=dev)
+    vp = torch.empty_like(kp)
+    kp[table.long().reshape(-1)] = kc.reshape(b * pps, page, hk, d)
+    vp[table.long().reshape(-1)] = vc.reshape(b * pps, page, hk, d)
+    pool = quantize_kv_pages(kp, vp)
+    group, scale = hq // hk, d**-0.5
+    res = {"shape": f"{b}x{hq}/{hk}x{d}, int8 cache {cap}, lengths {lens.min().item()}-"
+                    f"{lens.max().item()}, pages {page}", "card": card}
+    calls = {}
+    for form, ks, k8, v8, paged in (("contiguous", c.k_scale, c.k, c.v, False),
+                                    ("paged", pool.k_scale[None].expand(b, hk, d), pool.k,
+                                     pool.v, True)):
+        # The wrappers' fold: q times k_scale, rows packed (q position,
+        # group member); int8_mma then quantizes each row.
+        qf = q.float().reshape(b, hk, group, 1, d) * ks[:, :, None, None, :]
+        qp = pack_rows(qf.reshape(b, hq, 1, d).to(torch.bfloat16), hk)
+        q8, qs = quantize_rows(qp)
+        geo = dict(group=group, causal=True, scale=scale, softcap=0.0, num_splits=0,
+                   capacity=cap)
+        sizes = (b, cap, hk)
+        if paged:
+            sizes = (b * pps, page, hk)
+            geo.update(table=table, page_size=page)
+        for kind, rows, qsc in (("dequant", qp, None), ("int8_mma", q8, qs)):
+            calls[f"{form}_{kind}"] = (
+                lambda rows=rows, qsc=qsc, k8=k8, v8=v8, sizes=sizes, geo=geo: launch_decode(
+                    rows, k8, v8, sizes, k8.stride()[:3], v8.stride()[:3], lens, None,
+                    q_scale=qsc, **geo))
+    for name in list(calls) + list(calls)[::-1]:  # in turns: each twice
+        ms, timer = queued_ms(calls[name], 50)
+        res.setdefault(name + "_ms", []).append(ms)
+        res[name + "_timer"] = timer
+    keys = int(lens.sum())
+    for form in ("contiguous", "paged"):
+        for kind, el_q in (("dequant", 2), ("int8_mma", 1)):
+            nb = 2 * keys * hk * d + b * hq * d * (el_q + 2) + 4 * b * hq
+            res[f"{form}_{kind}_bound_ms"], res[f"{form}_{kind}_bound_by"] = bound(
+                4 * d * hq * keys, nb)
+        log(f"  {form} int8 cache, the decode kernel alone: int8_mma "
+            + " / ".join(f"{x:.4f}" for x in res[f"{form}_int8_mma_ms"]) + " ms, dequant "
+            + " / ".join(f"{x:.4f}" for x in res[f"{form}_dequant_ms"])
+            + f" ms ({res[f'{form}_int8_mma_timer']}; bound "
+            f"{res[f'{form}_int8_mma_bound_ms']:.4f} ms) [{card}]")
+    del kc, vc, kp, vp, c, pool
+    torch.cuda.empty_cache()
+    return res
+
+
+def neox_kernel_phase(dev, card):
+    """Phase 21 (a): the new instantiations at the GPT-NeoX family's shapes
+    against their plain versions, each timed beside its bound and a
+    library call: B1's bound_causal prefill at Pythia-2.8B (D 80) and
+    GPT-NeoX-20B (D 96) over their serving caches; B8 bf16 and int8 at
+    their decode steps (ragged and full lengths); at D 96 B8 over a slot
+    pool by cache_batch_idx, B9b over a native page pool, B9a over a
+    head-major one; B1's and B7's segment walks over packed documents and
+    ALiBi, forward and backward; then int8_mma beside the dequant kernel at
+    the kvcache API shape."""
+    import torch
+    from liteattention_torch.flash_attn_interface import varlen_segment_ids
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_fwd import (
+        flash_attention_decode,
+        flash_attention_decode_plain,
+    )
+    from liteattention_torch.ops.kv_quant import quantize_kv_cache_native
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_folded,
+        paged_attention_folded_plain,
+        paged_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(NEOX_SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    res = {}
+    for tag, b, h, d, prompt, new in (("pythia_d80", PYTHIA_BATCH, PYTHIA_HEADS, 80,
+                                       PYTHIA_PROMPT, PYTHIA_NEW),
+                                      ("neox20b_d96", NEOX_BATCH, NEOX_HEADS, 96, NEOX_PROMPT,
+                                       NEOX_NEW)):
+        cap = prompt + new
+        name = "Pythia-2.8B" if d == 80 else "GPT-NeoX-20B"
+        kc, vc = rnd(b, h, cap, d), rnd(b, h, cap, d)
+        plen = torch.full((b,), prompt, dtype=torch.int32, device=dev)
+        qp = rnd(b, h, prompt, d)
+        label = f"bound_causal prefill {b}x{h}x{prompt}x{d} over a {cap}-slot cache ({name})"
+        res[f"fwd_bound_{tag}"] = check_channels(label, qp, kc, vc,
+                                                 dict(kv_bound=plen, bound_causal=True),
+                                                 time_it=True)
+        if d == 96:
+            # B7's key range at 96 (its RANGE instantiations, diagonal and
+            # not): the prefill's gradient, and the bound alone, non-causal.
+            res["bwd_bound_d96"] = check_bwd_channels(
+                label, qp, kc, vc, rnd(b, h, prompt, d), dict(kv_bound=plen, bound_causal=True),
+                time_it=True)
+            lens2 = torch.randint(1, cap + 1, (b,), generator=g, device=dev).int()
+            n = min(256, prompt)
+            r = check_bwd_channels(f"bound {b}x{h}x{n}x{d} over {cap} keys, not causal",
+                                   qp[:, :, :n].contiguous(), kc, vc, rnd(b, h, n, d),
+                                   dict(kv_bound=lens2))
+            res["bwd_bound_d96"]["err"] = max(res["bwd_bound_d96"]["err"], r["err"])
+        del qp
+        q = rnd(b, h, 1, d)
+        lens = torch.randint(prompt + 1, cap + 1, (b,), generator=g, device=dev).int()
+        shape = f"{b}x{h}/{h}x{d}, cache {cap}, lengths {lens.min().item()}-{lens.max().item()}"
+        r = res[f"decode_{tag}"] = decode_row(f"B8 bf16 {shape} ({name})", flash_attention_decode,
+                                             flash_attention_decode_plain, q, kc, vc, lens, cap)
+        c8 = quantize_kv_cache_native(kc, vc)
+        r["int8"] = decode_row(f"B8 int8 {shape} ({name})", flash_attention_decode,
+                               flash_attention_decode_plain, q, c8.k, c8.v, lens, cap,
+                               dict(k_scale=c8.k_scale, v_scale=c8.v_scale), library=False)
+        r["err"] = max(r["err"], r["int8"]["err"])
+        del c8
+        if d == 96:
+            # B8 over a slot pool by cache_batch_idx: the live slots' rows of
+            # a pool twice the batch, read in place.
+            slots = NEOX_API_SLOTS
+            pick = torch.randperm(slots, generator=g, device=dev)[:b].int()
+            kpool = torch.zeros(slots, cap, h, d, dtype=torch.bfloat16, device=dev)
+            vpool = torch.zeros_like(kpool)
+            kpool[pick.long()] = kc.transpose(1, 2)
+            vpool[pick.long()] = vc.transpose(1, 2)
+            keys = int(lens.sum())
+            need = (2 * keys * h * d * 2 + 2 * nbytes(q) + 4 * b * h + 4 * b, 4 * d * h * keys)
+            pad = (torch.arange(cap, device=dev) < lens[:, None])[:, None, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            r = res["decode_batch_idx_d96"] = check_decode(
+                f"B8 cache_batch_idx {shape}, {b} of {slots} slots ({name})",
+                flash_attention_decode, flash_attention_decode_plain, (q, kpool, vpool),
+                dict(kv_bound=lens, cache_batch_idx=pick), need, time_it=True,
+                library=lambda: sdpa(q, kc, vc, attn_mask=pad))
+            r["library"] = "SDPA over the live slots' caches, boolean key-padding mask"
+            del kpool, vpool
+            # B9b / B9a: the same cache in pages of NEOX_API_PAGE keys.
+            kp, vp, kh, vh, table = paged_inputs(kc, vc, lens, NEOX_API_PAGE, g)
+            qb = q.transpose(1, 2).contiguous()  # [B, 1, H, D]
+            pneed = (need[0] - 4 * b + nbytes(table), need[1])
+            for key, fn, plain, kk, vv in (
+                    ("paged_folded_d96", paged_attention_folded, paged_attention_folded_plain, kp,
+                     vp),
+                    ("paged_d96", paged_attention, paged_attention_plain, kh, vh)):
+                layout = "native" if fn is paged_attention_folded else "head-major"
+                r = res[key] = check_decode(
+                    f"B9{'b' if layout == 'native' else 'a'} {shape}, {layout} pool of "
+                    f"{NEOX_API_PAGE}-key pages ({name})", fn, plain, (qb, kk, vv, lens, table),
+                    dict(return_lse=True, causal=True), pneed, time_it=True,
+                    library=lambda: sdpa(q, kc, vc, attn_mask=pad))
+                r["library"] = "SDPA over the dense cache, boolean key-padding mask"
+            del kp, vp, kh, vh
+        del kc, vc
+        torch.cuda.empty_cache()
+
+    # B1's and B7's segment walks at 96: GPT-NeoX-20B's attention over
+    # packed causal documents, against each document alone, then against
+    # their plain versions.
+    total, h, hk, d = NEOX_PACK[:4]
+    q, k, v, dout, lengths, cu = packed_docs(dev, NEOX_PACK)
+    res["docs_alone"] = docs_alone_check(f"GPT-NeoX-20B {len(lengths)} documents, {total} "
+                                         "tokens", q, k, v, dout, lengths, cu, None)
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True)
+    qh, kh, vh, dh = heads_first(q, k, v, dout)
+    label = f"segments causal 1x{h}/{hk}x{total}x{d}, GPT-NeoX-20B's {len(lengths)} documents"
+    res["fwd_segments_d96"] = check_channels(label, qh, kh, vh, kw, time_it=True)
+    res["bwd_segments_d96"] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    del q, k, v, dout, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+    # ALiBi at 96, causal, forward and backward.
+    b, h, s = NEOX_ALIBI_SHAPE
+    q, k, v, dout = (rnd(b, h, s, 96) for _ in range(4))
+    kw = dict(alibi_slopes=alibi_slopes(h).to(dev), causal=True)
+    label = f"ALiBi causal {b}x{h}x{s}x96"
+    res["fwd_alibi_d96"] = check_channels(label, q, k, v, kw, time_it=True)
+    res["bwd_alibi_d96"] = check_bwd_channels(label, q, k, v, dout, kw, time_it=True)
+    # The non-causal ALiBi instantiations, [B, H] slopes, Sq != Sk.
+    slopes = alibi_slopes(h).to(dev) * torch.linspace(1.0, 2.0, b, device=dev)[:, None]
+    kw = dict(alibi_slopes=slopes)
+    n = s // 8
+    qn, kn, vn, dn = (x[:, :, :m].contiguous() for x, m in ((q, n), (k, s // 2), (v, s // 2),
+                                                             (dout, n)))
+    label = f"ALiBi non-causal {b}x{h}x{n} over {s // 2} keys, [B, H] slopes"
+    r = check_channels(label, qn, kn, vn, kw)
+    res["fwd_alibi_d96"]["err"] = max(res["fwd_alibi_d96"]["err"], r["err"])
+    r = check_bwd_channels(label, qn, kn, vn, dn, kw)
+    res["bwd_alibi_d96"]["err"] = max(res["bwd_alibi_d96"]["err"], r["err"])
+    del q, k, v, dout, qn, kn, vn, dn
+    torch.cuda.empty_cache()
+    res["int8_mma_kernel"] = int8_mma_kernel_times(dev, card)
+    return res
+
+
+def neox_serve(dev, card, cfg, label, batch, prompt, new, seed, int8):
+    """GPT-NeoX at ``cfg`` from an HF-named bf16 state dict through
+    ``remap_state_dict_hf_gpt_neox`` (built on the card: one extra copy of
+    the weights beside the model's fp32 parameters), serving ``batch``
+    requests of ``prompt`` tokens and ``new`` greedy tokens (the counted
+    path: bf16 cache, then with ``int8`` an int8 one), each run's step
+    logits against a full recompute and two planted faults above its
+    limit. Returns (counts, stats)."""
+    import torch
+    from liteattention_torch.models.gpt import GPTLMHeadModel
+    from liteattention_torch.utils.generation import greedy_decode
+    from liteattention_torch.utils.pretrained import remap_state_dict_hf_gpt_neox
+
+    h, hd = cfg.num_heads, cfg.dim // cfg.num_heads
+    cap = prompt + new
+    log(f"  {label}: dim {cfg.dim}, {cfg.num_layers} layers, {h} heads x {hd}, rotary over "
+        f"{cfg.rotary_emb_dim}, parallel residual (two norms), ffn {4 * cfg.dim}, vocab "
+        f"{cfg.vocab_size}, untied head; fp32 master weights, bf16 compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    hf = neox_hf_state_dict(cfg, dev, seed)
+    sd = remap_state_dict_hf_gpt_neox(hf, cfg)
+    model.load_state_dict(sd)
+    # The remap's regrouping on the card: q head j is rows (j, 0, :) of the
+    # head-interleaved query_key_value, k (j, 1, :), v (j, 2, :).
+    qkv = hf["gpt_neox.layers.0.attention.query_key_value.weight"].reshape(h, 3, hd, -1)
+    wqkv = model.transformer.blocks[0].mha.Wqkv.weight.reshape(3, h, hd, -1)
+    check(torch.equal(wqkv, qkv.transpose(0, 1).float()),
+          f"{label} remap: Wqkv is not q | k | v of the head-interleaved query_key_value")
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    del hf, sd, qkv
+    torch.cuda.empty_cache()
+    log(f"  {n_params / 1e9:.3f} B parameters ({4 * n_params / 1e9:.1f} GB fp32); the HF-named "
+        f"checkpoint built in bf16 on the card, remapped and loaded in {load_s:.1f} s (peak "
+        f"{load_peak:.2f} GB); {batch} requests x {prompt} prompt tokens, {new} new tokens "
+        f"each, cache capacity {cap}")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=dev)
+    greedy_decode(model, ids[:1, :16], 2, 32)  # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = []
+    for quantize in (False, True) if int8 else (False,):
+        t0 = time.perf_counter()
+        timer = StepTimer(model)
+        toks = greedy_decode(timer, ids, new, cap, quantize_cache=quantize)
+        torch.cuda.synchronize()
+        runs.append(("int8" if quantize else "bf16", timer, toks,
+                     (time.perf_counter() - t0) * 1e3))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  launches during the {label} serving run"
+        f"{' (bf16 and int8 caches)' if int8 else ''}: {counts}")
+    n_decode = len(runs[0][1].calls) - 1
+    want_b1, want_b8 = len(runs) * cfg.num_layers, len(runs) * cfg.num_layers * n_decode
+    others = sum(n for name, n in counts.items() if name not in ("flash_fwd_bound", "flash_decode"))
+    check(n_decode == new - 1 and counts["flash_fwd_bound"] == want_b1
+          and counts["flash_decode"] == want_b8 and others == 0,
+          f"{label} serving: expected {want_b1} bound B1 launches (the prefills), {want_b8} "
+          "decode-kernel launches (one a layer a step) and no other")
+    stats = {"peak_gb": peak, "load_peak_gb": load_peak, "load_s": load_s,
+             "parameters_b": n_params / 1e9, "decode_steps": n_decode,
+             "layers": cfg.num_layers, "card": card}
+    for name, timer, toks, wall in runs:
+        sfx = "" if name == "bf16" else "_int8"
+        prefill_ms = timer.calls[0][1]
+        step_ms = [ms for _, ms in timer.calls[1:]]
+        dec_ms = statistics.median(step_ms)
+        stats.update({f"prefill_ms{sfx}": prefill_ms, f"decode_ms_per_step{sfx}": dec_ms,
+                      f"decode_tokens_per_s{sfx}": batch * 1e3 / dec_ms,
+                      f"end_to_end_tokens_per_s{sfx}": batch * new * 1e3 / wall})
+        log(f"  {name} cache: prefill {prefill_ms:.1f} ms ({batch * prompt / prefill_ms * 1e3:.0f}"
+            f" prompt tokens/s), decode {dec_ms:.2f} ms/step (median of {n_decode}; min "
+            f"{min(step_ms):.2f}, max {max(step_ms):.2f}) = {batch * 1e3 / dec_ms:.0f} tokens/s; "
+            f"end to end {wall:.0f} ms; peak memory {peak:.2f} GB [{card}]")
+    # Checks (their launches are not counted): each run's incremental decode
+    # against a full recompute without a cache over its tokens, and two
+    # planted faults in each cache held above the limit.
+    for name, timer, toks, _ in runs:
+        sfx = "" if name == "bf16" else "_int8"
+        with torch.inference_mode():
+            full = torch.cat([model(toks[i : i + 1, :-1])[:, prompt - 1 :].float()
+                              for i in range(batch)])
+        step_logits = timer.logits()
+        check(toks.shape == (batch, cap) and torch.isfinite(step_logits).all(),
+              f"{label} serving ({name}): bad greedy output")
+        e_full = rel_l2(step_logits, full)
+        agree = (step_logits.argmax(-1) == full.argmax(-1)).float().mean().item()
+        log(f"  {name} cache: incremental decode vs full recompute without a cache: logits "
+            f"rel-L2 {e_full:.3e} (limit {SERVE_RECOMPUTE_TOL}), argmax agreement {agree:.3f}")
+        check(e_full < SERVE_RECOMPUTE_TOL,
+              f"{label} incremental decode ({name} cache) disagrees with the recompute")
+        stats[f"recompute_rel_l2{sfx}"], stats[f"recompute_argmax_agreement{sfx}"] = e_full, agree
+        res = recompute_fault_readings(model, toks, full, step_logits, prompt=prompt,
+                                       capacity=cap, late_by=NEOX_FAULT_LATE,
+                                       rows=NEOX_FAULT_ROWS, quantize=name == "int8")
+        stats.update({f"{k}{sfx}": x for k, x in res.items()})
+        del full, step_logits
+    del model, runs
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def neox_attention_run(dev):
+    """Phase 21 (d), the counted run at GPT-NeoX-20B's attention (64 heads
+    of 96): through ``flash_attn_with_kvcache`` a contiguous single-token
+    step, a step on the live slots of a pool by ``cache_batch_idx`` and a
+    step over a native page pool (B9b); through ``ops.paged_attention`` a
+    step over a head-major pool (B9a); ``flash_attn_varlen_func`` over
+    NEOX_PACK's documents and ``flash_attn_func`` with ALiBi, each forward
+    and backward. One launch of each kernel and nothing else; then every
+    output against its plain version."""
+    import torch
+    from liteattention_torch import flash_attn_func, flash_attn_varlen_func
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_fwd import flash_attention_decode_plain
+    from liteattention_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_folded_plain,
+        paged_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(NEOX_SEED + 7)
+    b, h, d, cap, slots = NEOX_BATCH, NEOX_HEADS, 96, NEOX_PROMPT + NEOX_NEW, NEOX_API_SLOTS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, kn, vn = rnd(b, 1, h, d), rnd(b, 1, h, d), rnd(b, 1, h, d)
+    lens = torch.randint(NEOX_PROMPT, cap, (b,), generator=g, device=dev).int()
+    kc, vc = rnd(b, cap, h, d), rnd(b, cap, h, d)
+    kpool, vpool = rnd(slots, cap, h, d), rnd(slots, cap, h, d)
+    pick = torch.randperm(slots, generator=g, device=dev)[:b].int()
+    pps = -(-cap // NEOX_API_PAGE)
+    table = torch.randperm(b * pps, generator=g, device=dev).reshape(b, pps).int()
+    kp, vp = rnd(b * pps, NEOX_API_PAGE, h, d), rnd(b * pps, NEOX_API_PAGE, h, d)
+    kh, vh = kp.permute(2, 0, 1, 3).contiguous(), vp.permute(2, 0, 1, 3).contiguous()
+    pq, pk, pv, pdout, plens, pcu = packed_docs(dev, NEOX_PACK)
+    ab, ah, as_ = NEOX_ALIBI_SHAPE
+    aq, ak, av = (rnd(ab, as_, ah, d).requires_grad_() for _ in range(3))
+    adout = rnd(ab, as_, ah, d)
+    slopes = alibi_slopes(ah).to(dev)
+    ref_k, ref_pool = kc.clone(), kpool.clone()
+    torch.cuda.synchronize()
+    reset_counts()
+    # With k / v given the API returns (out, (k_cache, v_cache)).
+    out_c = flash_attn_with_kvcache(q, kc, vc, kn, vn, cache_seqlens=lens, causal=True)[0]
+    out_i = flash_attn_with_kvcache(q, kpool, vpool, kn, vn, cache_seqlens=lens,
+                                    cache_batch_idx=pick, causal=True)[0]
+    out_p = flash_attn_with_kvcache(q, kp, vp, kn, vn, cache_seqlens=lens, page_table=table,
+                                    causal=True)[0]
+    out_h = paged_attention(q[:, 0], kh, vh, lens, table)
+    out_v = flash_attn_varlen_func(pq, pk, pv, pcu, pcu, causal=True)
+    out_v.backward(pdout)
+    out_a = flash_attn_func(aq, ak, av, causal=True, alibi_slopes=slopes)
+    out_a.backward(adout)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  counted run (kvcache contiguous / cache_batch_idx / native pages, head-major pages, "
+        f"varlen and ALiBi forward and backward at 64 x 96): {counts}")
+    want = {"flash_decode": 1, "flash_decode_batch_idx": 1, "paged_decode_folded": 1,
+            "paged_decode": 1, "flash_fwd_segments": 1, "flash_bwd_segments": 1,
+            "flash_fwd_alibi": 1, "flash_bwd_alibi": 1}
+    check(all(counts[n] == want.get(n, 0) for n in counts),
+          f"phase 21's counted run: expected one launch each of {sorted(want)} and no other")
+    # Each step against its plain version on the same (appended) caches.
+    lens1 = lens + 1
+    errs = {}
+    for key, got, fn in (
+            ("contiguous", out_c, lambda: flash_attention_decode_plain(
+                q.transpose(1, 2), kc, vc, kv_bound=lens1)[0].transpose(1, 2)),
+            ("cache_batch_idx", out_i, lambda: flash_attention_decode_plain(
+                q.transpose(1, 2), kpool, vpool, kv_bound=lens1,
+                cache_batch_idx=pick)[0].transpose(1, 2)),
+            ("native_pages", out_p, lambda: paged_attention_folded_plain(q, kp, vp, lens1,
+                                                                         table)),
+            ("head_major_pages", out_h, lambda: paged_attention_plain(q[:, 0], kh, vh, lens,
+                                                                      table))):
+        ref = fn()
+        errs[key] = (got.float() - ref.float()).abs().max().item()
+        check(errs[key] < DECODE_TOL, f"phase 21's counted run: the {key} step disagrees with "
+                                      "its plain version")
+    # The appends landed where the plain versions read them, and nowhere else.
+    rows = torch.arange(b, device=dev)
+    ref_k[rows, lens.long()] = kn[:, 0]
+    ref_pool[pick.long(), lens.long()] = kn[:, 0]
+    check(torch.equal(kc, ref_k) and torch.equal(kpool, ref_pool),
+          "phase 21's counted run: the kvcache appends are not where they belong")
+    log("  counted run against the plain versions: max|out| err "
+        + ", ".join(f"{k_} {e:.3e}" for k_, e in errs.items()) + f" (limit {DECODE_TOL})")
+    del kc, vc, kpool, vpool, kp, vp, kh, vh, pq, pk, pv, aq, ak, av, ref_k, ref_pool
+    torch.cuda.empty_cache()
+    return counts, errs
+
+
+def neox_phase(dev, card):
+    """Phase 21: the decode kernel at head dims 80 and 96, and B1's and B7's
+    per-batch channels at 96, against their plain versions at the GPT-NeoX
+    family's shapes; Pythia-2.8B served at full width and depth (bf16 and
+    int8 caches); GPT-NeoX-20B at full width, NEOX_LAYERS layers; the
+    kvcache, paged and varlen calls at GPT-NeoX-20B's attention, counted."""
+    from liteattention_torch.models.configs import gpt_neox_config
+
+    t0 = time.perf_counter()
+    log(f"  (a) the new instantiations against their plain versions [{card}]")
+    kres = neox_kernel_phase(dev, card)
+    secs = {"a": time.perf_counter() - t0}
+    counts, stats = {}, {"part_seconds": secs}
+    log(f"  (b) Pythia-2.8B serving, full width and depth ((a) took {secs['a']:.1f} s)")
+    counts["pythia_serve"], stats["pythia_2p8b_serve"] = neox_serve(
+        dev, card, gpt_neox_config(**PYTHIA_KW), "Pythia-2.8B", PYTHIA_BATCH, PYTHIA_PROMPT,
+        PYTHIA_NEW, NEOX_SEED + 1, int8=True)
+    secs["b"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (c) GPT-NeoX-20B serving, full width, {NEOX_LAYERS} of 44 layers ((b) took "
+        f"{secs['b']:.1f} s)")
+    counts["neox_serve"], stats["gpt_neox_20b_serve"] = neox_serve(
+        dev, card, gpt_neox_config(num_layers=NEOX_LAYERS), f"GPT-NeoX-20B ({NEOX_LAYERS} layers)",
+        NEOX_BATCH, NEOX_PROMPT, NEOX_NEW, NEOX_SEED + 2, int8=False)
+    secs["c"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (d) the kvcache, paged and varlen calls at GPT-NeoX-20B's attention, counted ((c) "
+        f"took {secs['c']:.1f} s)")
+    counts["neox_attention"], stats["counted_run_max_err"] = neox_attention_run(dev)
+    secs["d"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  (d) took {secs['d']:.1f} s")
+    for key, serve, tag in (("pythia_2p8b_serve", stats["pythia_2p8b_serve"], "pythia_d80"),
+                            ("gpt_neox_20b_serve", stats["gpt_neox_20b_serve"], "neox20b_d96")):
+        serve["prefill_b1_share_by_kernel_times"] = (
+            serve["layers"] * kres[f"fwd_bound_{tag}"]["ms"] / serve["prefill_ms"])
+        serve["decode_b8_share_by_kernel_times"] = (
+            serve["layers"] * kres[f"decode_{tag}"]["ms"] / serve["decode_ms_per_step"])
+        log(f"  {key}: B1's share of the prefill by its time in (a) "
+            f"{serve['prefill_b1_share_by_kernel_times']:.1%}, B8's of a decode step "
+            f"{serve['decode_b8_share_by_kernel_times']:.1%}")
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -7417,6 +8007,9 @@ def main() -> int:
               "(varlen q, rotary, cache_batch_idx), DeepSeek-V3 MLA decode through qv, int8_mma")
         counts["kvcache_rest"], p20_kres, p20_stats = kvcache_rest_phase(dev, card)
         kres.update(p20_kres)
+        phase("phase 21: the GPT-NeoX family: the decode kernel at head dims 80 and 96, B1's and "
+              "B7's channels at 96; Pythia-2.8B and GPT-NeoX-20B served")
+        p21_counts, p21_kres, p21_stats = neox_phase(dev, card)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -7598,9 +8191,67 @@ def main() -> int:
             row.update(dkv=p14_kres["bwd_causal"]["flash_bwd_dkv"],
                        fwd_bwd=p14_kres["bwd_causal"]["fwd_bwd"])
         kernels.append(row)
+    # Head dims 80 and 96 (phase 21): each row's instantiation source, its
+    # kernel, the TPU kernel it replaces, the counter it shares with its
+    # row above, the phase-21 paths that run it at this head dim, and phase
+    # 21 (a)'s result.
+    hd = {
+        "flash_fwd_bound_d80": ("flash_fwd_hd.cu", "flash_fwd_kernel<80, 80, ...> (key range)",
+                                "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_bound",
+                                ("pythia_serve",), p21_kres["fwd_bound_pythia_d80"]),
+        "flash_fwd_bound_d96": ("flash_fwd_hd.cu", "flash_fwd_kernel<96, 96, ...> (key range)",
+                                "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_bound",
+                                ("neox_serve",), p21_kres["fwd_bound_neox20b_d96"]),
+        "flash_fwd_alibi_d96": ("flash_fwd_hd.cu", "flash_fwd_kernel<96, 96, ..., ALIBI>",
+                                "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_alibi",
+                                ("neox_attention",), p21_kres["fwd_alibi_d96"]),
+        "flash_bwd_bound_d96": ("flash_bwd_hd.cu", "flash_bwd_kernel<96, ..., RANGE>",
+                                "liteattention_tpu/ops/flash_bwd.py:55", "flash_bwd_bound",
+                                ("neox_attention",), p21_kres["bwd_bound_d96"]),
+        "flash_bwd_alibi_d96": ("flash_bwd_hd.cu", "flash_bwd_kernel<96, ..., RANGE, ALIBI>",
+                                "liteattention_tpu/ops/flash_bwd.py:55", "flash_bwd_alibi",
+                                ("neox_attention",), p21_kres["bwd_alibi_d96"]),
+        "flash_fwd_segments_d96": ("flash_fwd_segments.cu",
+                                   "flash_fwd_kernel<96, 96, ..., kSegment>",
+                                   "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_segments",
+                                   ("neox_attention",), p21_kres["fwd_segments_d96"]),
+        "flash_bwd_segments_d96": ("flash_bwd_segments.cu", "flash_bwd_segments_kernel<96, ...>",
+                                   "liteattention_tpu/ops/flash_bwd.py:55", "flash_bwd_segments",
+                                   ("neox_attention",), p21_kres["bwd_segments_d96"]),
+        "flash_decode_d80": ("flash_decode_hd.cu", "flash_decode_kernel<80, ...>",
+                             "liteattention_tpu/ops/flash_fwd.py:843", "flash_decode",
+                             ("pythia_serve",), p21_kres["decode_pythia_d80"]),
+        "flash_decode_d96": ("flash_decode_hd.cu", "flash_decode_kernel<96, ...>",
+                             "liteattention_tpu/ops/flash_fwd.py:843", "flash_decode",
+                             ("neox_serve", "neox_attention"), p21_kres["decode_neox20b_d96"]),
+        "flash_decode_batch_idx_d96": ("flash_decode_hd.cu",
+                                       "flash_decode_kernel<96, bf16, false, true>",
+                                       "liteattention_tpu/ops/flash_fwd.py:843",
+                                       "flash_decode_batch_idx", ("neox_attention",),
+                                       p21_kres["decode_batch_idx_d96"]),
+        "paged_decode_d96": ("flash_decode_hd.cu", "flash_decode_kernel<96, ...>",
+                             "liteattention_tpu/ops/paged_attention.py:40", "paged_decode",
+                             ("neox_attention",), p21_kres["paged_d96"]),
+        "paged_decode_folded_d96": ("flash_decode_hd.cu", "flash_decode_kernel<96, ...>",
+                                    "liteattention_tpu/ops/paged_attention.py:276",
+                                    "paged_decode_folded", ("neox_attention",),
+                                    p21_kres["paged_folded_d96"]),
+    }
+    for name, (src, kernel, replaces, counter, paths, r) in hd.items():
+        kernels.append(entry(name, src, kernel, replaces, r,
+                             {path: p21_counts[path][counter] for path in paths}))
+    # The int8_mma rows (phase 20) gain the kernel alone beside the dequant
+    # kernel, timed in turns at the kvcache API shape in phase 21.
+    mma = p21_kres["int8_mma_kernel"]
+    for row in kernels:
+        form = {"flash_decode_int8_mma": "contiguous",
+                "paged_decode_folded_int8_mma": "paged"}.get(row["name"])
+        if form is not None:
+            row["kernel_alone"] = {k: x for k, x in mma.items()
+                                   if k.startswith(form) or k in ("shape", "card")}
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
-                  (18, p18_stats), (19, p19_stats), (20, p20_stats)):
+                  (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -7620,6 +8271,7 @@ def main() -> int:
     log(f"vit-b/16: {json.dumps(p18_stats)}")
     log(f"falcon-7b serving: {json.dumps(p19_stats)}")
     log(f"kvcache api rest: {json.dumps(p20_stats)}")
+    log(f"gpt-neox family: {json.dumps(p21_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -68,10 +68,15 @@ equals the unsplit one up to rounding).
 Unlike JAX, the caches are updated in place (a copy of a multi-GB cache
 per step would cost more than the step); the return value keeps JAX's
 shape: ``out`` [, ``lse``] [, ``(k_cache, v_cache)`` when ``k`` is given].
-The fp8 descales raise, as JAX asserts. Head dim 256 (GPT-J) is built for
-``flash_attn_func`` and ``flash_attn_with_kvcache`` and their backward
-(B1, B7 and the decode kernel); its ALiBi, segments (so the varlen
-functions) and lite walks raise, naming ROADMAP B-iii 4. ALiBi with
+The fp8 descales raise, as JAX asserts. Head dims 80 and 96 (Pythia,
+GPT-NeoX) are built for every function here and their backward (B1, B7
+and the decode kernel, with ALiBi, segments and the key range); their
+dropout, window, softcap and lite walks raise, naming ROADMAP B-iii 4,
+and ``int8_mma`` raises there, as JAX's asserts ``d % 128 == 0``. Head
+dim 256 (GPT-J) is built for ``flash_attn_func`` and
+``flash_attn_with_kvcache`` and their backward (B1, B7 and the decode
+kernel); its ALiBi, segments (so the varlen functions) and lite walks
+raise, naming ROADMAP B-iii 4. ALiBi with
 ``attn_read_list`` raises, as every mask channel does on the skip path.
 
 ``flash_attn_varlen_func`` (and ``flash_attn_varlen_qkvpacked_func`` /
@@ -331,7 +336,8 @@ def flash_attn_varlen_func(
     the card it raises (segments with dropout are not built: ROADMAP B-i
     5). Window and softcap with segments are not built (ROADMAP B-i 3's
     rest) and raise, as do ``qv`` and the fp8 descales; so does a head dim
-    the segment kernels are not built for (64, 80 and 128 are; B-iii 4).
+    the segment kernels are not built for (64, 80, 96 and 128 are; B-iii
+    4).
     The packed
     layout is copied to ``[1, H, total, D]`` for the kernel (reading it in
     place is ROADMAP B-i 6).

@@ -103,8 +103,7 @@
 // runs over atom 1's zero padding too (48 of its 64 columns at D 80, 32 at
 // D 96: 12 % and 7 % more MMA work a step), so that both warpgroups issue
 // the same instruction outside a branch, and stores only its D - 64 real
-// columns. The RANGE and ALIBI instantiations are built at D 80, not 96
-// (GPT-NeoX-20B has no channel; ROADMAP B-iii).
+// columns. The RANGE, ALIBI and segment instantiations are built at both.
 //
 // What bounds it on the H100: tensor-core throughput (10 d FLOPs per
 // (q row, key) pair, against bytes read once that are a small share at
@@ -622,7 +621,7 @@ __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorM
                                         const Params& p, const Channels& c) {
   static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim must be 64, 80, 96 or 128");
   static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
-  static_assert(!SEG || (!RANGE && D != 96), "segments alone, at D 64, 80 and 128");
+  static_assert(!SEG || !RANGE, "segments alone");
   static_assert(!DROPOUT || (RANGE && !ALIBI && (D == 64 || D == 128)),
                 "dropout runs in the RANGE instantiations at D 64 and 128");
   static_assert(!(WINDOW || SOFTCAP) || (RANGE && !ALIBI && !DROPOUT && (D == 64 || D == 128)),
@@ -880,7 +879,7 @@ cudaError_t run_masked(const Args& a, const Channels& c, cudaStream_t stream) {
 
 // Head dims 80 and 96, defined in flash_bwd_hd.cu (whose nvcc runs beside
 // this file's): the channel-free backward (CAUSAL when `causal`), and the
-// RANGE / ALIBI instantiations at 80 (CAUSAL when `diag`). The segment
+// RANGE / ALIBI instantiations (CAUSAL when `diag`). The segment
 // instantiations and their entry are in flash_bwd_segments.cu.
 cudaError_t run_hd(int head_dim, bool causal, const Args& a, cudaStream_t stream);
 cudaError_t run_masked_hd(int head_dim, bool diag, const Args& a, const Channels& c,
@@ -957,7 +956,7 @@ extern "C" int lite_flash_bwd_masked(const void* q, const void* k, const void* v
     err = diag ? run_masked<64, true>(a, c, s) : run_masked<64, false>(a, c, s);
   } else if (head_dim == 128) {
     err = diag ? run_masked<128, true>(a, c, s) : run_masked<128, false>(a, c, s);
-  } else if (head_dim == 80) {
+  } else if (head_dim == 80 || head_dim == 96) {
     err = run_masked_hd(head_dim, diag, a, c, s);
   } else {
     err = cudaErrorInvalidValue;

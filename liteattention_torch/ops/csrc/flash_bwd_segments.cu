@@ -1,6 +1,6 @@
 // B7's segment channel (flash_bwd.cu:flash_bwd_segments_kernel, with the
 // pre and post kernels of the one pass): its instantiations at head dims
-// 64, 80 and 128 and its entry, in a source of their own so that nvcc
+// 64, 80, 96 and 128 and its entry, in a source of their own so that nvcc
 // compiles them beside flash_bwd.cu's (one nvcc per source, all started
 // together).
 #define LITE_BWD_TEMPLATES_ONLY
@@ -50,6 +50,8 @@ extern "C" int lite_flash_bwd_segments(const void* q, const void* k, const void*
     err = run_segments<64>(a, c, diag, s);
   } else if (head_dim == 80) {
     err = run_segments<80>(a, c, diag, s);
+  } else if (head_dim == 96) {
+    err = run_segments<96>(a, c, diag, s);
   } else if (head_dim == 128) {
     err = run_segments<128>(a, c, diag, s);
   } else {

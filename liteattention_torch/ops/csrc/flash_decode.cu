@@ -102,6 +102,19 @@
 // is unbounded on diffuse rows). q's int8 fragments take half the registers
 // of bf16 ones (at D 256, half the shared memory).
 //
+// Head dims 80 (Pythia) and 96 (GPT-NeoX-20B): two-atom rows, as in B1 at
+// these dims. A stored row is kDp = 128 channels (Layout): two 128-byte
+// atoms of bf16 or one of int8. The tensor maps' inner extent is D, so TMA
+// fills the rest of the row with zeros, and the tile, the ring, the
+// swizzle and the merge scratch are D 128's. S = Q K^T runs D / 16 k-steps
+// (5 or 6) and P V D / 8 n-blocks (10 or 12). No product reads the padding
+// but P V over int8 at D 80, whose permuted n-blocks (block 4 q + r holds
+// channels 32 q + 4 n + r) take 12 blocks, two of them half padding, never
+// written out. The merge scratch keeps D 128's pitch of 128 floats a row
+// (scratch_col's XOR stays inside it), and the merge of a split unit's
+// pieces covers D with kThreads / D whole rows a pass. int8_mma is not
+// built at 80 or 96: JAX's asserts d % 128 == 0.
+//
 // cache_batch_idx (IDX; contiguous bf16 caches): batch row b of q reads the
 // cache's row batch_idx[b], read by warp 0 as it enters each unit's tiles and
 // used as the TMA batch coordinate: the cache is read in place, never
@@ -156,12 +169,14 @@ constexpr int kTileKeys = 128;  // keys per ring tile: 16 per warp (64 at D 256:
 // Shared memory (byte offsets from a 1024-byte aligned base). A tile of kT
 // rows is stored as atoms of kT rows x kAtom bytes (128, or 64 for 64-byte
 // rows) in TMA's swizzle; a bf16 row of D 128 spans two atoms, of D 256
-// four.
+// four. At D 80 and 96 a row is stored as kDp = 128 channels, TMA's zeros
+// past D, so the layout is D 128's.
 template <int D, typename T>
 struct Layout {
   static constexpr int kStages = sizeof(T) == 1 ? 6 : 3;  // a ring of 192 KB at D 128 and 256
   static constexpr int kT = D == 256 ? 64 : kTileKeys;
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kDp = D == 80 || D == 96 ? 128 : D;  // channels of a stored row
+  static constexpr int kRowBytes = kDp * static_cast<int>(sizeof(T));
   static constexpr int kAtom = kRowBytes < 128 ? kRowBytes : 128;
   static constexpr int kTile = kT * kRowBytes;  // one K or V tile
   static constexpr int kStage = 2 * kTile;      // K, then V
@@ -174,10 +189,10 @@ struct Layout {
   static constexpr int qs = flag + 16;
   static constexpr int prefix = qs + (kQShared ? D / 16 * 32 * 16 : 0);  // [pairs + 1] tiles
                                 // before each pair, then [pairs][3] their lo, hi and bound
-  // Accumulator rows of every warp that one stage holds: the merge runs in
-  // kRows / kMergeRows rounds (one at D <= 128 in bf16, two in int8; two
-  // and four at D 256).
-  static constexpr int kMergeRows = kStage / (kWarps * D * 4);
+  // Accumulator rows of every warp that one stage holds (rows of kDp
+  // floats): the merge runs in kRows / kMergeRows rounds (one at D <= 128
+  // in bf16, two in int8; two and four at D 256).
+  static constexpr int kMergeRows = kStage / (kWarps * kDp * 4);
   static_assert(kMergeRows == 4 || kMergeRows == 8 || kMergeRows == kRows,
                 "a stage holds 4, 8 or 16 rows of the warps' accumulators");
   static_assert((kMaxPieces + 1) * kRows * 4 <= kStages * kStage, "the ring holds the weights");
@@ -279,10 +294,12 @@ template <int D, typename T, bool Q8 = false, bool IDX = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_decode_kernel(const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim must be 64, 128 or 256");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256,
+                "head dim must be 64, 80, 96, 128 or 256");
   using L = Layout<D, T>;
   constexpr bool kInt8 = sizeof(T) == 1;
   static_assert(!Q8 || kInt8, "int8_mma reads int8 caches");
+  static_assert(!Q8 || L::kDp == D, "int8_mma at D 64, 128 and 256");
   static_assert(!IDX || !kInt8, "cache_batch_idx reads bf16 caches");
   constexpr int kKStep = Q8 ? 32 : 16;  // channels of one S product step
   constexpr int kT = L::kT;
@@ -290,6 +307,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kMergeRows = L::kMergeRows;  // accumulator rows a stage holds
   constexpr int kKeysW = kT / kWarps;  // keys of a tile per warp
   constexpr int kNb = kKeysW / 8;      // 8-key score blocks per warp
+  constexpr int kDp = L::kDp;          // the merge scratch's row pitch
+  // O's n-blocks: D / 8, but int8 P V takes blocks of 32 channels at once
+  // (12 at D 80: channels 80-95 are padding, never written out).
+  constexpr int kAccN = kInt8 ? (D + 31) / 32 * 4 : D / 8;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -448,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t qf[kQShared ? 1 : D / kKStep][4];
   float qsc_lo = 0.f, qsc_hi = 0.f;  // Q8: the rows' q scales
   uint4* qs = reinterpret_cast<uint4*>(smem + L::qs);
-  float acc[D / 8][4];
+  float acc[kAccN][4];
   float m_lo, m_hi, l_lo, l_hi;
   auto enter = [&]() {
     lo = ranges[3 * cur.pair];
@@ -521,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       qsc_hi = r_hi < p.rows ? p.q_scale[bh * p.rows + r_hi] : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int i = 0; i < kAccN; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     m_lo = m_hi = -INFINITY;  // running row max (log2 space)
     l_lo = l_hi = 0.f;        // per-thread partial row sums
   };
@@ -681,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if constexpr (kInt8) {
         const int key = kw + sb * 16 + 2 * t;
 #pragma unroll
-        for (int qd = 0; qd < D / 32; ++qd) {
+        for (int qd = 0; qd < kAccN / 4; ++qd) {
           const int byte = 4 * g + 32 * qd;
           auto word = [&](int k) {
             return *reinterpret_cast<const uint32_t*>(vs + tile_off<D, T>(key + k, byte)) ^
@@ -728,20 +749,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       const size_t row0 = (static_cast<size_t>(cur.pair / p.rtiles) * hk + cur.h) * p.rows +
                           rt * kRows;
       const size_t slot = static_cast<size_t>(u) + c;
-      float* sm_o = reinterpret_cast<float*>(smem + stage * L::kStage);  // [kWarps][kMergeRows][D]
+      float* sm_o = reinterpret_cast<float*>(smem + stage * L::kStage);  // [warps][rows][kDp]
 #pragma unroll 1
       for (int half = 0; half < kRows / kMergeRows; ++half) {
         const int r0 = half * kMergeRows;  // the round's first row
         if (r0 >= nrows) break;
         lite::sm90::named_sync(kMergeBar, kThreads);  // the stage (or the last round) is read
-        float* my = sm_o + warp * kMergeRows * D;
+        float* my = sm_o + warp * kMergeRows * kDp;
         if constexpr (kMergeRows == 4) {  // int8 at D 256: the round holds one of g, g + 8, or none
           const bool hi_row = half >= 2;
           const int rr = g + (hi_row ? 8 : 0);
           if (rr / kMergeRows == half) {
-            float* row = my + (rr - r0) * D;
+            float* row = my + (rr - r0) * kDp;
 #pragma unroll
-            for (int jb = 0; jb < D / 8; ++jb) {
+            for (int jb = 0; jb < kAccN; ++jb) {
               const int col = 4 * (2 * t + 8 * (jb / 4)) + jb % 4;
               row[scratch_col(g, col)] = hi_row ? acc[jb][2] : acc[jb][0];
               row[scratch_col(g, col + 4)] = hi_row ? acc[jb][3] : acc[jb][1];
@@ -751,9 +772,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int hr = 0; hr < kMergeRows / 8; ++hr) {  // this thread's rows g and g + 8
           const bool hi_row = kMergeRows == 8 ? half == 1 : hr == 1;
-          float* row = my + (g + (hi_row ? 8 : 0) - r0) * D;
+          float* row = my + (g + (hi_row ? 8 : 0) - r0) * kDp;
 #pragma unroll
-          for (int jb = 0; jb < D / 8; ++jb) {
+          for (int jb = 0; jb < kAccN; ++jb) {
             const float v0 = hi_row ? acc[jb][2] : acc[jb][0];
             const float v1 = hi_row ? acc[jb][3] : acc[jb][1];
             if constexpr (kInt8) {  // the block's columns 2t and 2t + 1
@@ -779,7 +800,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int w = 0; w < kWarps; ++w) {
               const float sc = exp2f(sm_ml[w * kRows + r] - mx);
               l += sm_ml[(kWarps + w) * kRows + r] * sc;
-              o += sm_o[(w * kMergeRows + r - r0) * D + scratch_col(r, d)] * sc;
+              o += sm_o[(w * kMergeRows + r - r0) * kDp + scratch_col(r, d)] * sc;
             }
           }
           const bool none = !(l > 0.f);
@@ -842,7 +863,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* wts = reinterpret_cast<float*>(smem);
   float* lse_u = wts + kMaxPieces * kRows;
   constexpr int kStep = kThreads / D;  // rows a pass of the threads covers
+  constexpr int kPer = (kRows + kStep - 1) / kStep;  // passes
   const int d = ct % D;
+  // This thread's first row; at D 80 and 96 the threads past the last
+  // whole pass (kStep * D) idle.
+  const int r_first = kThreads % D == 0 || ct < kStep * D ? ct / D : kRows;
   for (int k = 0; k < pieces; ++k) {
     if (!sm_flag[k]) continue;
     const int u = sm_flag[2 + k];
@@ -878,21 +903,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     lite::sm90::named_sync(kMergeBar, kThreads);
     // out = sum of w o over the pieces: this thread's channel d of rows
     // ct / D + kStep k, every piece's loads of a row in flight together.
-    float o[kRows / kStep];
+    float o[kPer];
 #pragma unroll
-    for (int k2 = 0; k2 < kRows / kStep; ++k2) o[k2] = 0.f;
+    for (int k2 = 0; k2 < kPer; ++k2) o[k2] = 0.f;
 #pragma unroll 4
     for (int cc = 0; cc < np; ++cc) {
 #pragma unroll
-      for (int k2 = 0; k2 < kRows / kStep; ++k2) {
-        const int r = ct / D + kStep * k2;
+      for (int k2 = 0; k2 < kPer; ++k2) {
+        const int r = r_first + kStep * k2;
         const float w = r < nrows ? wts[cc * kRows + r] : 0.f;
         if (w != 0.f) o[k2] += w * __ldcg(p.o_part + ((slot0 + cc) * kRows + r) * D + d);
       }
     }
 #pragma unroll
-    for (int k2 = 0; k2 < kRows / kStep; ++k2) {
-      const int r = ct / D + kStep * k2;
+    for (int k2 = 0; k2 < kPer; ++k2) {
+      const int r = r_first + kStep * k2;
       if (r >= nrows) continue;
       p.out[(row0 + r) * D + d] = __float2bfloat16_rn(o[k2]);
       if (d == 0) p.lse[row0 + r] = lse_u[r];
@@ -947,16 +972,25 @@ cudaError_t launch_d256(bool int8, bool q8, bool idx, const Params& p, const voi
                         const void* v, const int* kn, const long long* kst, const int* vn,
                         const long long* vst, int grid, cudaStream_t stream);
 
+// Head dims 80 and 96 (bf16 or int8 caches, cache_batch_idx with idx; no
+// int8_mma), instantiated in flash_decode_hd.cu, whose nvcc runs beside
+// this file's.
+cudaError_t launch_hd(int head_dim, bool int8, bool idx, const Params& p, const void* k,
+                      const void* v, const int* kn, const long long* kst, const int* vn,
+                      const long long* vst, int grid, cudaStream_t stream);
+
 }  // namespace decode
 
-// flash_decode_d256.cu includes the kernel above and not the entry below.
+// flash_decode_d256.cu and flash_decode_hd.cu include the kernel above and
+// not the entry below.
 #ifndef LITE_DECODE_TEMPLATES_ONLY
 
-// q [B, Hk, R, D] bf16 (int8 with q_scale [B, Hk, R] fp32: int8_mma, int8
-// caches only); k/v cache bases (bf16, or int8 when int8 != 0), each
-// described by the sizes and element strides of its three outer dims in
-// increasing stride (kn/kst, vn/vst) and where slot, head and page sit among
-// them (k_dims/v_dims: 2 bits each, dims 1-3); the channel stride is 1.
+// q [B, Hk, R, D] bf16, D 64, 80, 96, 128 or 256 (int8 with q_scale [B,
+// Hk, R] fp32: int8_mma, int8 caches only, not at D 80 or 96); k/v cache
+// bases (bf16, or int8 when int8 != 0), each described by the sizes and
+// element strides of its three outer dims in increasing stride (kn/kst,
+// vn/vst) and where slot, head and page sit among them (k_dims/v_dims: 2
+// bits each, dims 1-3); the channel stride is 1.
 // table [B, table_stride] int32 or null; bound/low [B] int32 (low may be
 // null); batch_idx [B] int32, the cache's batch row of each q batch row, or
 // null (contiguous bf16 caches only). out [B, Hk, R, D] bf16, lse [B, Hk, R]
@@ -1026,6 +1060,8 @@ extern "C" int lite_flash_decode(
                  : decode::launch<128, bf16>(p, k, v, kn, kst, vn, vst, grid, s);
   } else if (head_dim == 256) {
     err = decode::launch_d256(int8 != 0, q8, idx, p, k, v, kn, kst, vn, vst, grid, s);
+  } else if ((head_dim == 80 || head_dim == 96) && !q8) {
+    err = decode::launch_hd(head_dim, int8 != 0, idx, p, k, v, kn, kst, vn, vst, grid, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -1038,6 +1074,8 @@ extern "C" int lite_flash_decode(
 extern "C" int lite_flash_decode_tile_keys(int head_dim) {
   switch (head_dim) {
     case 64: return decode::Layout<64, __nv_bfloat16>::kT;
+    case 80: return decode::Layout<80, __nv_bfloat16>::kT;
+    case 96: return decode::Layout<96, __nv_bfloat16>::kT;
     case 128: return decode::Layout<128, __nv_bfloat16>::kT;
     case 256: return decode::Layout<256, __nv_bfloat16>::kT;
     default: return 0;

@@ -15,8 +15,8 @@
 // lse -inf.
 //
 // B1's per-batch channels (the JAX kernel's has_bound, bound_causal, has_low
-// and has_alibi; dense walk at (DK, DV) = (64, 64), (80, 80) or (128,
-// 128)): the keys
+// and has_alibi; dense walk at (DK, DV) = (64, 64), (80, 80), (96, 96) or
+// (128, 128)): the keys
 // of batch b are [kv_low[b], min(Sk, kv_bound[b])), with bound_causal the
 // diagonal at kv_bound[b] - Sq (the smaller of the two offsets when causal
 // too); with ALIBI the scores take -slope[b, h] log2(e) |row + Sk - Sq -
@@ -626,7 +626,7 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorM
                 "the sparse walks visit 128-key fine tiles through a ring of three");
   static_assert(!ALIBI || (WALK == kDense && DK == DV && DK <= 128),
                 "ALiBi is a channel of the dense walk at D <= 128");
-  static_assert(!SEG || (DK == DV && DK != 96 && DK <= 128), "segments at D 64, 80 and 128");
+  static_assert(!SEG || (DK == DV && DK <= 128), "segments at D 64, 80, 96 and 128");
   static_assert(!DROPOUT || (WALK == kDense && !ALIBI && DK == DV && (DK == 64 || DK == 128)),
                 "dropout is a channel of the dense walk at D 64 and 128");
   static_assert(!(WINDOW || SOFTCAP) ||
@@ -1081,10 +1081,9 @@ cudaError_t run_dense(const void* q, const void* k, const void* v, void* out, co
   return run<D, D, CAUSAL>(q, k, v, out, p, batch, scale, stream, c);
 }
 
-// The dense walk at head dims 80 (with the channels) and 96 (without
-// ALiBi), CAUSAL when `diag`: defined in flash_fwd_hd.cu, whose nvcc runs
-// beside this file's. The segment walk's instantiations and entry are in
-// flash_fwd_segments.cu.
+// The dense walk at head dims 80 and 96 with the channels, CAUSAL when
+// `diag`: defined in flash_fwd_hd.cu, whose nvcc runs beside this file's.
+// The segment walk's instantiations and entry are in flash_fwd_segments.cu.
 cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, const void* v,
                          void* out, const Params& p, const Channels& c, int batch, float scale,
                          cudaStream_t stream);
@@ -1103,8 +1102,8 @@ cudaError_t run_dense_d256(bool diag, const void* q, const void* k, const void* 
 #ifndef LITE_FWD_TEMPLATES_ONLY
 
 // B1 with its per-batch channels: q [B, H, Sq, D], k and v [B, Hk, Sk, D],
-// out [B, H, Sq, D], all bf16 (D 64, 80 or 128; 96 and 256 without ALiBi); lse [B,
-// H, Sq] fp32; kv_bound and kv_low [B] int32 or null; alibi [B, H] fp32
+// out [B, H, Sq, D], all bf16 (D 64, 80, 96 or 128; 256 without ALiBi); lse
+// [B, H, Sq] fp32; kv_bound and kv_low [B] int32 or null; alibi [B, H] fp32
 // slopes or null. Keys of
 // batch b: [kv_low[b], min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq;
 // bound_causal (with kv_bound) bottom-right at kv_bound[b] - Sq. Returns the

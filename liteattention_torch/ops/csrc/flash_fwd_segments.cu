@@ -1,5 +1,5 @@
 // B1's segment channel (flash_fwd.cu:flash_fwd_kernel walking kSegment):
-// its instantiations at head dims 64, 80 and 128 and its entry, in a source
+// its instantiations at head dims 64, 80, 96 and 128 and its entry, in a source
 // of their own so that nvcc compiles them beside flash_fwd.cu's (one nvcc
 // per source, all started together).
 #define LITE_FWD_TEMPLATES_ONLY
@@ -19,7 +19,7 @@ cudaError_t run_segments(const void* q, const void* k, const void* v, void* out,
 }  // namespace lite
 
 // B1 with segment ids, batch 1: q [1, H, Sq, D], k and v [1, Hk, Sk, D],
-// out [1, H, Sq, D], all bf16 (D 64, 80 or 128); lse [1, H, Sq] fp32;
+// out [1, H, Sq, D], all bf16 (D 64, 80, 96 or 128); lse [1, H, Sq] fp32;
 // q_seg and k_seg int32, padded to whole 128-row tiles with their last id;
 // range int2 [Sq tiles]: the keys [x, y) each 128-row q-tile walks (every
 // key whose id one of its rows carries lies inside); k_span int2 [Sk
@@ -51,6 +51,8 @@ extern "C" int lite_flash_fwd_segments(const void* q, const void* k, const void*
     err = run_segments<64>(q, k, v, out, p, c, diag, scale, s);
   } else if (head_dim == 80) {
     err = run_segments<80>(q, k, v, out, p, c, diag, scale, s);
+  } else if (head_dim == 96) {
+    err = run_segments<96>(q, k, v, out, p, c, diag, scale, s);
   } else if (head_dim == 128) {
     err = run_segments<128>(q, k, v, out, p, c, diag, scale, s);
   } else {

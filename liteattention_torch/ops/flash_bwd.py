@@ -23,8 +23,8 @@ Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96,
 128 or 256 (:func:`check_head_dim`; at 256 the kernel of
 ``csrc/flash_bwd_d256.cu``: 64-key CTAs whose two warpgroups split dK, dV
 and dQ by columns, dQ added by float4 atomics), GQA, ragged Sq/Sk, ``Sq !=
-Sk``, causal or not, and B1's per-batch channels (at head dim 64, 80 or
-128) with JAX's
+Sk``, causal or not, and B1's per-batch channels (at head dim 64, 80, 96
+or 128) with JAX's
 meanings: the key range ``[kv_low[b], kv_bound[b])``
 with ``bound_causal`` and the ALiBi bias (``alibi_slopes`` ``[H]`` or
 ``[B, H]``), on the same kernel's RANGE / ALIBI instantiations (entry
@@ -310,13 +310,13 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# Head dims B1 and B7 are built for (BTLM's 80, GPT-NeoX-20B's 96, GPT-J's
-# 256); those of B1 with its key range alone (kv_bound, kv_low,
+# Head dims B1 and B7 are built for (Pythia's 80, GPT-NeoX-20B's 96,
+# GPT-J's 256); those of B1 with its key range alone (kv_bound, kv_low,
 # bound_causal: a KV cache's prefill and multi-token steps); those with
 # every channel (ALiBi, segments) forwards, and with any channel backwards.
 HEAD_DIMS = (64, 80, 96, 128, 256)
-RANGE_HEAD_DIMS = (64, 80, 128, 256)
-CHANNEL_HEAD_DIMS = (64, 80, 128)
+RANGE_HEAD_DIMS = (64, 80, 96, 128, 256)
+CHANNEL_HEAD_DIMS = (64, 80, 96, 128)
 
 
 def check_head_dim(d: int, channels: bool, name: str, key_range_only: bool = False) -> None:

@@ -21,10 +21,12 @@ work is cut on the device, with no host sync: a unit is one (b, kv head,
 tiles of ``TILE_KEYS`` aligned to absolute positions, and CTA
 ``c`` of the ``grid`` takes the c-th of equal chunks of the flat sequence
 of all units' tiles (:func:`split_plan` is the same chunking in Python).
-Head dims 64, 128 and 256 (GPT-J's: 64-key tiles). With int8 caches,
-``int8_mma`` runs S = Q K^T on int8 q rows (:func:`quantize_rows`) as s8 x
-s8 products; a contiguous cache may be read at other batch rows than q's
-(``cache_batch_idx``), in place. The kernel decides
+Head dims 64, 80, 96, 128 and 256 (80 and 96, Pythia's and GPT-NeoX's,
+store rows of 128 channels with TMA's zeros past D; GPT-J's 256 takes
+64-key tiles). With int8 caches, ``int8_mma`` runs S = Q K^T on int8 q
+rows (:func:`quantize_rows`) as s8 x s8 products (not at 80 or 96: JAX's
+int8_mma asserts ``d % 128 == 0``); a contiguous cache may be read at
+other batch rows than q's (``cache_batch_idx``), in place. The kernel decides
 its tile; the launches read it from the library (:func:`kernel_tile_keys`)
 and :func:`tile_keys` is the plain version's copy of it.
 The last piece of a split unit to finish merges the pieces; the ticket
@@ -46,7 +48,8 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 ROWS_PER_UNIT = 16  # q rows of a unit (one mma row tile)
 TILE_KEYS = 128  # keys per tile of the kernel's ring (64 at head dim 256)
-HEAD_DIMS = (64, 128, 256)  # head dims the kernel is built for
+HEAD_DIMS = (64, 80, 96, 128, 256)  # head dims the kernel is built for
+INT8_MMA_HEAD_DIMS = (64, 128, 256)  # those of its int8_mma instantiation
 MIN_SPLIT_KEYS = 256  # the least keys a chunk holds (unless chunks would be fewer than units)
 MAX_GRID = 512  # the kernel's most CTAs (a unit's pieces are merged in shared memory)
 MAX_PAIRS = 1024  # (b, 16-row tile) pairs of one launch (their prefix sits in shared memory)
@@ -317,8 +320,10 @@ def launch_decode(
         raise ValueError("batch_idx selects rows of a contiguous cache, not of a page pool")
     b, hk, rows, d = qp.shape
     if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built (built: {HEAD_DIMS}; 80 and 96 are ROADMAP "
-                         "B-iii 2)")
+        raise ValueError(f"head dim {d} not built (built: {HEAD_DIMS}; ROADMAP B-iii 4)")
+    if q_scale is not None and d not in INT8_MMA_HEAD_DIMS:
+        raise ValueError(f"int8_mma at head dim {d} not built (built: {INT8_MMA_HEAD_DIMS}): "
+                         "JAX's int8_mma asserts d % 128 == 0, so no JAX path runs it here")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the caches need a unit channel stride")
     el = k.element_size()

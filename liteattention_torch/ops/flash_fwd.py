@@ -578,10 +578,10 @@ def flash_attention_masked(
     seen only by the rows of its id (with ``causal``, at or below the
     bottom-right diagonal too). Any ids are taken; ids in order apart from
     negative markers (a packed batch) walk only their segments' tiles.
-    The channels take head dim 64, 80 or 128 on the card, and the key
+    The channels take head dim 64, 80, 96 or 128 on the card, and the key
     range alone (``kv_bound``, ``kv_low``, ``bound_causal``) 256 too,
-    forwards (96, and the other channels or any gradient at 256, raise:
-    ROADMAP B-iii 4); segments do not combine with the per-batch channels
+    forwards (the other channels or any gradient at 256 raise: ROADMAP
+    B-iii 4); segments do not combine with the per-batch channels
     (ROADMAP A11). The MLA shapes (``qv``, V's own head dim; forward only,
     as in JAX) take the key range alone, on B1's MLA kernels; their other
     channels raise (ROADMAP A11).
@@ -791,7 +791,8 @@ def flash_attention_decode(
     Returns ``(out [B, H, Sq, D] in q's dtype, lse [B, H, Sq] fp32)``. A
     row with no valid key gives out 0 and lse -inf. The wrapper runs the
     plain version for CPU tensors and the kernel for CUDA tensors (bf16
-    q, bf16 or int8 caches, D 64, 128 or 256).
+    q, bf16 or int8 caches, D 64, 80, 96, 128 or 256; ``int8_mma`` at 64,
+    128 or 256).
     """
     return _decode(q, k_cache, v_cache, kv_bound, kv_low, scale, softcap, k_scale,
                    v_scale, int8_mma, causal, num_splits, False, cache_batch_idx)

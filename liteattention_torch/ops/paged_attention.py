@@ -14,8 +14,8 @@ Both launch the split-KV decode kernel of
 pools' strides: the pool is read in place, never transposed or copied,
 one TMA box per page where pages are smaller than the kernel's key tile
 (pages of a multiple of 8 keys; others raise on the card). Head dims 64,
-128 and 256 on the card (``flash_decode.HEAD_DIMS``; the key tile is 64
-at 256). The q rows of
+80, 96, 128 and 256 on the card (``flash_decode.HEAD_DIMS``; the key tile
+is 64 at 256; ``int8_mma`` at 64, 128 and 256). The q rows of
 each KV head are packed (q position, group member), so appends and paged
 prefill keep bottom-right causality per q position (``causal``: q row
 ``i`` sees positions ``< length - Sq + i + 1``). ``pages_per_step`` (a TPU DMA batching knob)

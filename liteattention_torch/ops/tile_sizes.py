@@ -49,9 +49,9 @@ def get_block_sizes(
     Hopper (gsize 1 for the lite kernel). ``head_dim`` and
     ``dtype_bytes`` are accepted for call-site parity with the JAX
     package. The kernels take bf16: B1 and B7 at head dims 64, 80, 96,
-    128 and 256 (their channels at 64, 80 and 128; B1's key range also at
-    256), the decode kernel at 64, 128 and 256, the lite and MLA kernels
-    at the dims their modules name.
+    128 and 256 (their channels at 64, 80, 96 and 128; B1's key range also
+    at 256), the decode kernel at 64, 80, 96, 128 and 256, the lite and
+    MLA kernels at the dims their modules name.
     """
     del head_dim, dtype_bytes
     if kind not in ("dense", "lite"):

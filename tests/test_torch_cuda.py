@@ -172,6 +172,13 @@ CHANNEL_CASES = [
     ((2, 4, 2, 300, 300, 80), None, None, True, False, "h", "d"),
     ((2, 8, 2, 1, 1059, 80), [1059, 500], None, False, True, "h", "d"),
     ((2, 8, 8, 130, 1000, 80), [1000, 600], None, False, True, "bh", "d"),
+    # Head dim 96 (GPT-NeoX-20B): its prefill into the cache, a left-padded
+    # append, ALiBi causal, at a cached step and non-causal.
+    ((2, 8, 8, 300, 1000, 96), [300, 1000], None, False, True, None, None),
+    ((3, 4, 2, 200, 700, 96), [700, 260, 128], [0, 100, 129], False, True, None, None),
+    ((2, 4, 2, 300, 300, 96), None, None, True, False, "h", None),
+    ((2, 8, 2, 1, 1059, 96), [1059, 500], None, False, True, "bh", "d"),
+    ((2, 4, 4, 300, 140, 96), None, None, False, False, "bh", "d"),
     # Head dim 256 (GPT-J): the key range alone (MHA's prefill into the
     # cache, its multi-token steps, a left-padded append, rows with no key).
     ((2, 4, 4, 300, 1000, 256), [300, 1000], None, False, True, None, None),
@@ -286,6 +293,13 @@ BWD_CHANNEL_CASES = [
     ((3, 4, 2, 140, 500, 80), [500, 300, 270], [5, 128, 140], False, True, None),
     ((2, 4, 1, 300, 300, 80), None, None, True, False, "bh"),
     ((2, 8, 2, 4, 1059, 80), [1059, 700], [0, 3], False, True, "bh"),
+    # Head dim 96 (GPT-NeoX-20B): the same three, and the bound and ALiBi
+    # without a diagonal.
+    ((3, 4, 2, 140, 500, 96), [500, 300, 270], [5, 128, 140], False, True, None),
+    ((2, 4, 1, 300, 300, 96), None, None, True, False, "bh"),
+    ((2, 8, 2, 4, 1059, 96), [1059, 700], [0, 3], False, True, "bh"),
+    ((3, 4, 2, 200, 300, 96), [300, 131, 7], None, False, False, None),
+    ((2, 4, 2, 130, 300, 96), None, None, False, False, "h"),
 ]
 
 
@@ -407,10 +421,10 @@ BWD_SHAPES = SHAPES + [
 ]
 
 
-# Head dims B1 and B7 are not built at, and B1's channels at 96: both
-# wrappers raise before a launch, naming the ROADMAP item.
+# Head dims B1 and B7 are not built at, with and without B1's channels:
+# both wrappers raise before a launch, naming the ROADMAP item.
 @pytest.mark.parametrize("d,channels", [(32, False), (72, False), (112, True), (160, False),
-                                        (96, True)])
+                                        (144, True)])
 def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
     q, k, v = _qkv(dev, 1, 2, 2, 64, 64, d)
     kw = dict(kv_bound=torch.tensor([40], dtype=torch.int32, device=dev)) if channels else {}
@@ -427,9 +441,9 @@ def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
 
 def test_head_dim_256_channels_raise(dev):
     # At head dim 256 B1 takes its key range (above) but not ALiBi or
-    # segments, B7 no channel, the lite walks nothing, and the decode kernel
-    # is not built at 80 or 96: each raises before a launch, naming its
-    # ROADMAP item.
+    # segments, B7 no channel, the lite walks nothing; the decode kernel is
+    # not built at 112, nor int8_mma at 80 or 96 (JAX's asserts d % 128 ==
+    # 0): each raises before a launch.
     from liteattention_torch.modules.mha import alibi_slopes
     from liteattention_torch.ops.flash_fwd import flash_attention_decode
 
@@ -452,11 +466,18 @@ def test_head_dim_256_channels_raise(dev):
         lite_flash_attention(q, k, v, fidx, count, 0.0, mask)
     assert (flash_attention.alibi_launches, flash_attention.segment_launches,
             flash_bwd.launches, flash_bwd.bound_launches, lite_flash_attention.launches) == n0
+    cache = torch.zeros(1, 64, 2, 112, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head dim 112 not built.*ROADMAP B-iii 4"):
+        flash_attention_decode(torch.zeros(1, 2, 1, 112, dtype=torch.bfloat16, device=dev),
+                               cache, cache)
+    n0 = (flash_attention_decode.launches, flash_attention_decode.int8_mma_launches)
     for d in (80, 96):
-        cache = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16, device=dev)
-        with pytest.raises(ValueError, match=f"head dim {d} not built.*ROADMAP B-iii 2"):
+        cache = torch.zeros(1, 64, 2, d, dtype=torch.int8, device=dev)
+        one = torch.ones(1, 2, d, device=dev)
+        with pytest.raises(ValueError, match=f"int8_mma at head dim {d} not built.*JAX"):
             flash_attention_decode(torch.zeros(1, 2, 1, d, dtype=torch.bfloat16, device=dev),
-                                   cache, cache)
+                                   cache, cache, k_scale=one, v_scale=one, int8_mma=True)
+    assert (flash_attention_decode.launches, flash_attention_decode.int8_mma_launches) == n0
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -518,6 +539,8 @@ SEG_CASES = [
     (4, 2, 64, False, "docs"), (4, 2, 64, True, "docs"), (8, 2, 128, True, "docs"),
     (4, 4, 80, True, "docs"), (4, 1, 128, False, "unsorted"), (2, 2, 80, True, "unsorted"),
     (4, 2, 64, False, "cross"), (2, 2, 128, False, "empty"),
+    # Head dim 96 (GPT-NeoX-20B's packed documents).
+    (8, 8, 96, True, "docs"), (4, 2, 96, False, "unsorted"), (2, 2, 96, False, "cross"),
 ]
 
 
@@ -645,14 +668,36 @@ def test_varlen_kernels_match_documents_alone(dev):
 
 
 def test_segments_raise_at_head_dim_96(dev):
+    # Segments at head dim 96 launch B1's and B7's segment kernels, held
+    # against the plain versions; dropout and the window at 96 still raise
+    # before a launch, naming ROADMAP B-iii 4.
     q, k, v = _qkv(dev, 1, 2, 2, 64, 64, 96)
-    ids = torch.zeros(1, 64, device=dev)
+    ids = torch.zeros(1, 64, dtype=torch.int32, device=dev)
+    ids[:, 40:] = 1
     seg = dict(q_segments=ids, kv_segments=ids)
-    with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
-        flash_attention_masked(q, k, v, **seg)
-    with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
-        flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 64, device=dev), q, 96**-0.5, False,
-                            **seg)
+    n0 = (flash_attention.segment_launches, flash_bwd.segment_launches)
+    out, lse = flash_attention_masked(q, k, v, return_lse=True, **seg)
+    do = torch.ones_like(q)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, 96**-0.5, False, **seg)
+    torch.cuda.synchronize()
+    assert (flash_attention.segment_launches, flash_bwd.segment_launches) == (n0[0] + 1,
+                                                                               n0[1] + 1)
+    ro, rl = flash_attention_plain(q, k, v, **seg)
+    assert (out.float() - ro.float()).abs().max().item() < 2e-2
+    assert (lse - rl).abs().max().item() < 1e-3
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, 96**-0.5, False)
+    for got, ref in ((dq, flash_bwd_dq_plain(*args, **seg)),
+                     *zip((dk, dv), flash_bwd_dkv_plain(*args, **seg))):
+        _check_grad(got, ref)
+    n1 = (flash_attention.launches, flash_attention.dropout_launches,
+          flash_attention.window_launches)
+    with pytest.raises(NotImplementedError, match="head dim 96.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="head dim 96.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, window=(16, 0))
+    assert (flash_attention.launches, flash_attention.dropout_launches,
+            flash_attention.window_launches) == n1
 
 
 # B2's Kt: 1, odd, 15/16 around a 16-byte load, the denoise-compaction
@@ -944,6 +989,16 @@ DECODE_CASES = [
     (3, 16, 2, 1, 777, 256, True, "bhsd", False, 30.0, 5),
     (2, 8, 2, 4, 600, 256, False, "bshd", True, 0.0, 3),
     (2, 4, 1, 16, 300, 256, True, "bhsd", True, 0.0, 0),
+    # Head dims 80 (Pythia-2.8B: 32 heads, no GQA) and 96 (GPT-NeoX-20B: 64
+    # heads): rows of 128 stored channels, TMA's zeros past D.
+    (8, 32, 32, 1, 2048, 80, False, "bhsd", False, 0.0, 0),
+    (8, 32, 32, 1, 2048, 80, True, "bhsd", False, 0.0, 0),
+    (8, 64, 64, 1, 2048, 96, False, "bhsd", False, 0.0, 0),
+    (8, 64, 64, 1, 2048, 96, True, "bhsd", False, 0.0, 0),
+    (3, 16, 2, 1, 777, 80, False, "bshd", False, 30.0, 5),
+    (3, 16, 2, 1, 777, 96, True, "bshd", False, 30.0, 5),
+    (2, 8, 2, 4, 600, 96, False, "bshd", True, 0.0, 3),
+    (2, 4, 1, 16, 300, 80, True, "bhsd", True, 0.0, 0),
 ]
 
 
@@ -993,6 +1048,11 @@ def test_flash_decode_kernel(dev, b, h, hk, sq, s_max, d, int8, layout, causal, 
     (True, True, 64, 1, 256, 2),
     (True, False, 16, 4, 256, 4),
     (False, False, 128, 1, 256, 1),
+    (True, False, 256, 1, 96, 1),  # head dims 80 and 96
+    (True, True, 64, 1, 80, 1),
+    (True, True, 16, 4, 96, 2),
+    (False, False, 16, 3, 96, 4),
+    (False, False, 64, 1, 80, 1),
 ])
 def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
     from liteattention_torch.ops.kv_quant import quantize_kv_pages
@@ -1035,20 +1095,22 @@ def test_paged_decode_kernel(dev, folded, int8, page_size, sq, d, group):
     assert (lse - rl).abs().max().item() < 1e-3
 
 
-# (int8, causal, grid): ragged lengths with an empty row, a row shorter than
-# one key tile and a full one; the grid at one CTA per SM (0) or
-# forced to 3 CTAs per unit, so units are split and merged in the kernel.
-@pytest.mark.parametrize("int8,causal,splits", [
-    (False, False, 0), (True, False, 0), (False, True, 3), (True, True, 3),
+# (int8, causal, grid, d): ragged lengths with an empty row, a row shorter
+# than one key tile and a full one; the grid at one CTA per SM (0) or
+# forced to 3 CTAs per unit, so units are split and merged in the kernel
+# (at D 80 and 96 by 256 / D whole rows a pass).
+@pytest.mark.parametrize("int8,causal,splits,d", [
+    (False, False, 0, 128), (True, False, 0, 128), (False, True, 3, 128), (True, True, 3, 128),
+    (False, False, 3, 80), (True, False, 3, 80), (False, True, 3, 96), (True, False, 0, 96),
 ])
-def test_flash_decode_ragged_one_launch(dev, int8, causal, splits):
+def test_flash_decode_ragged_one_launch(dev, int8, causal, splits, d):
     from liteattention_torch.ops.flash_fwd import (
         flash_attention_decode,
         flash_attention_decode_plain,
     )
     from liteattention_torch.ops.kv_quant import quantize_kv_cache
 
-    b, h, hk, sq, s_max, d = 6, 16, 4, 2 if causal else 1, 2048, 128
+    b, h, hk, sq, s_max = 6, 16, 4, 2 if causal else 1, 2048
     g = torch.Generator(device=dev).manual_seed(11 + int8)
     q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
     kc = torch.randn(b, s_max, hk, d, generator=g, device=dev).bfloat16()
@@ -1083,7 +1145,8 @@ def test_decode_tile_keys_match_the_kernel(dev):
     from liteattention_torch.ops.flash_decode import HEAD_DIMS, kernel_tile_keys, tile_keys
 
     assert [kernel_tile_keys(d) for d in HEAD_DIMS] == [tile_keys(d) for d in HEAD_DIMS]
-    assert kernel_tile_keys(80) == kernel_tile_keys(96) == 0
+    assert 80 in HEAD_DIMS and 96 in HEAD_DIMS
+    assert kernel_tile_keys(112) == kernel_tile_keys(32) == 0
 
 
 def test_paged_decode_small_pages_and_raises(dev):
@@ -1796,15 +1859,16 @@ def test_benchmark_helpers_on_the_card(dev, tmp_path):
 # The kvcache API's rest: B8 reading a slot pool by cache_batch_idx, the
 # int8_mma instantiations of B8 / B9b, B1-MLA with the key range, and a
 # long q launched in pieces.
-@pytest.mark.parametrize("layout,sq,causal", [("bshd", 1, False), ("bhsd", 3, True),
-                                              ("bshd", 4, True)])
-def test_flash_decode_cache_batch_idx(dev, layout, sq, causal):
+@pytest.mark.parametrize("layout,sq,causal,d", [("bshd", 1, False, 128), ("bhsd", 3, True, 128),
+                                                ("bshd", 4, True, 128), ("bshd", 1, False, 80),
+                                                ("bhsd", 3, True, 96)])
+def test_flash_decode_cache_batch_idx(dev, layout, sq, causal, d):
     from liteattention_torch.ops.flash_fwd import (
         flash_attention_decode,
         flash_attention_decode_plain,
     )
 
-    slots, b, h, hk, s_max, d = 6, 3, 16, 4, 1000, 128
+    slots, b, h, hk, s_max = 6, 3, 16, 4, 1000
     g = torch.Generator(device=dev).manual_seed(31 + sq)
     q = torch.randn(b, h, sq, d, generator=g, device=dev).bfloat16()
     kc = torch.randn(slots, s_max, hk, d, generator=g, device=dev).bfloat16()

@@ -162,8 +162,8 @@ def test_paged_attention_folded_d256_matches_jax(int8):
 
 def test_decode_tile_keys_per_head_dim():
     # The kernel's key tile, which sizes its splits (and split_plan's): 64
-    # at head dim 256, 128 at 64 and 128.
-    assert [tile_keys(d) for d in HEAD_DIMS] == [128, 128, 64]
+    # at head dim 256, 128 at 64, 80, 96 and 128.
+    assert [tile_keys(d) for d in HEAD_DIMS] == [128, 128, 128, 128, 64]
 
 
 def test_flash_attention_decode_causal_rows():

@@ -230,18 +230,14 @@ def test_gradient_through_a_channel_raises(channel):
 def test_wrappers_take_the_built_head_dims(d):
     # B1's and B7's wrappers check the head dim with check_head_dim before
     # any launch: 64, 80, 96, 128 and 256 pass; with B1's channels all but
-    # 96 and 256, and B1's key range alone (forwards) all but 96.
+    # 256, and B1's key range alone (forwards) all five.
     check_head_dim(d, False, "flash_attention")
-    if d in (96, 256):
+    if d == 256:
         with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
             check_head_dim(d, True, "flash_attention")
     else:
         check_head_dim(d, True, "flash_attention")
-    if d == 96:
-        with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
-            check_head_dim(d, True, "flash_attention", key_range_only=True)
-    else:
-        check_head_dim(d, True, "flash_attention", key_range_only=True)
+    check_head_dim(d, True, "flash_attention", key_range_only=True)
     assert d in HEAD_DIMS
 
 

@@ -131,8 +131,8 @@ def test_head_dim_256_channels_raise():
         with pytest.raises(ValueError, match="alibi_slopes and segments at head dim 256.*"
                                              "ROADMAP B-iii 4"):
             check_head_dim(256, True, name)
-    with pytest.raises(ValueError, match="kv_bound and kv_low at head dim 96.*ROADMAP B-iii 4"):
-        check_head_dim(96, True, "flash_attention", key_range_only=True)
+    with pytest.raises(ValueError, match="head dim 112 not built.*ROADMAP B-iii 4"):
+        check_head_dim(112, True, "flash_attention", key_range_only=True)
     cu = torch.tensor([0, 40, 64], dtype=torch.int32)
     x = torch.zeros(64, 2, 256)
     with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):

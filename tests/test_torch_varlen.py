@@ -241,9 +241,9 @@ def test_varlen_raises():
     ):
         with pytest.raises(exc, match=match):
             flash_attn_varlen_func(q, k, v, cu, cu, **kw)
-    q96 = torch.zeros(q.shape[0], 2, 96)
-    with pytest.raises(ValueError, match="head dim 96.*ROADMAP B-iii 4"):
-        flash_attn_varlen_func(q96, q96, q96, cu, cu)
+    q112 = torch.zeros(q.shape[0], 2, 112)
+    with pytest.raises(ValueError, match="head dim 112.*ROADMAP B-iii 4"):
+        flash_attn_varlen_func(q112, q112, q112, cu, cu)
     other = cu.clone()
     other[1] += 1
     with pytest.raises(ValueError, match="same packing"):
