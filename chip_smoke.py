@@ -22,7 +22,8 @@ Phases (any failure exits non-zero and prints no result line):
    rel-L2 over each tensor and over every 128-row block, dK and dV bit for
    bit over two runs. Times of each kernel beside its plain version, its
    bound and SDPA's flash kernels where one call computes the same
-   function (aten's flash backward for B7); B1 at the Wan self- and
+   function (aten's flash backward for B7; for B3 FlexAttention over the
+   same live tiles, which casts no votes); B1 at the Wan self- and
    cross-attention shapes, causal at GPT-2 small and at the serving
    prefill (beside SDPA ``enable_gqa`` where a backend takes it), by CUDA
    events and by profiler device time.
@@ -87,8 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
    its plain version; (d) ``fold_h=8`` (B5) equal to unfolded B3; (e)
    ``FlashBlocksparseAttention``'s kernel route against the plain exact path and
    ``SeqParallelLiteAttention``'s two merged splits against one call. Then
-   B4, B5 and B6 (beside ``index_select``) timed, and B2 / B3 with their
-   new channels.
+   B4 and B5 (beside FlexAttention over their live tiles) and B6 (beside
+   ``index_select``) timed, and B2 / B3 with their new channels.
 7. MLA at DeepSeek-V3's published widths (128 heads, kv_lora_rank 512 +
    rope 64 = 576 latent channels, v 128; random bf16 inputs from a seed):
    (a) ``flash_mla_with_kvcache`` (kernel B10) for 64 requests of one
@@ -352,6 +353,32 @@ Phases (any failure exits non-zero and prints no result line):
    head-major pages, ``flash_attn_varlen_func`` and ALiBi ``flash_attn_func``
    forward and backward: one launch of each, held against the plain
    versions.
+22. (Runs after 21.) ``parallel/`` on torch.distributed. The parent
+   (whose phase 1 built every kernel) spawns two ranks that share card 0
+   over gloo: (a) the phase-3 Wan2.1-14B slice (full width, 2 blocks, the
+   same seeds) with ``sp_axis``, 32 760 tokens split over the ranks (16 380
+   keys and their mask tiles each), CFG, 4 steps voting at phase 3 (c2)'s
+   thresholds, through ``denoise`` one step at a time (the counted run:
+   B1, B2 and B3 on each rank); step 1 (every tile live) against phase
+   3's single-card model by rel-L2, each later step's first
+   sequence-parallel attention call against the plain versions over each
+   rank's own live tiles (the merged out, B2's schedule bit for bit, the
+   new mask shard outside the vote margin), the whole masks' sparsity per
+   step; (b) OPT-1.3B (facebook/opt-1.3b's config.json: hidden 2048, 24
+   layers, 32 heads, ffn 8192, vocab 50 272; random weights from a seed)
+   through ``gpt_tp_apply`` at tp 2, each rank holding only its shard:
+   8 prompts of 512 tokens and 16 greedy tokens by recompute (the counted
+   run: one causal B1 launch a layer a step), the prompt logits against
+   the one-rank ``GPTLMHeadModel`` and the greedy tokens equal to its
+   (a differing token only where its two best logits lie within
+   GREEDY_TIE); (c) Ulysses at Llama-3-8B's attention (1 x 32/8 x 16 384 x
+   128, causal), forward and backward against B1 / B7 over the whole
+   sequence. Then one rank over NCCL runs every new entry point against
+   its one-card form (bit for bit where the path runs the same kernels)
+   and ring attention, forward and backward: gloo aborts a rank on CUDA
+   point-to-point, so the ring runs across ranks only on the CPU. The ranks' times are printed as they are: two ranks share
+   one card, so they are no measure of parallel speed. The kernels line's
+   launches gain these paths (summed over the ranks).
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -1027,7 +1054,8 @@ def check_lite(q, k, v, m, label, time_it=False):
         res["bound_ms"], res["bound_by"] = bound(
             4 * d * live, nbytes(q, k, v, out, lse, fidx, count, m) + votes_bytes
         )
-        res["library_ms"] = None
+        res["library_ms"], res["library"], res["library_rel_l2"] = flex_tiles_ms(
+            f"B3 {label}", q, k, v, m, ro)
         log(
             f"  B3 {label}: kernel {res['ms']:.3f} ms (no votes "
             f"{res['ms_novote']:.3f} ms), plain {res['plain_ms']:.3f} ms, "
@@ -2383,7 +2411,10 @@ def engine_phase(dev, full, card):
     rows_f = (s - torch.arange(kt, device=dev) * 128).clamp(max=128)
     live_f = int((band.long() * rows_f[:, None] * rows_f[None, :]).sum())
     io = nbytes(qh, kh, vh, qh, fl)  # q, k, v in; out (q's size), lse out
-    coarse = {"err": max(err_c[0], err_s[0]), "library_ms": None}
+    coarse = {"err": max(err_c[0], err_s[0])}
+    fine_c = mask_c.repeat_interleave(bq // 128, -2).repeat_interleave(bk // 128, -1)
+    coarse["library_ms"], coarse["library"], _ = flex_tiles_ms(
+        "(c) coarse B4", qh, kh, vh, fine_c[..., :kt, :kt].contiguous(), ro_c)
     coarse["ms"] = cuda_ms(lambda: lite_flash_attention(
         qh, kh, vh, idx_c, count_c, thr_c, block_sizes=BlockSizes(bq, bk), fine_schedule=False))
     coarse["plain_ms"] = plain_c_ms
@@ -2399,7 +2430,8 @@ def engine_phase(dev, full, card):
     coarse["coarse_sparsity"] = 1 - mask_c.float().mean().item()
     kres["lite_flash_fwd_coarse"] = coarse
     unfolded = cuda_ms(lambda: lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band))
-    hf = {"err": err_f[0], "library_ms": None, "plain_ms": plain_f_ms, "ms_unfolded_b3": unfolded}
+    hf = {"err": err_f[0], "plain_ms": plain_f_ms, "ms_unfolded_b3": unfolded}
+    hf["library_ms"], hf["library"], _ = flex_tiles_ms("(d) B5", qh, kh, vh, band, ro_f)
     hf["ms"] = cuda_ms(lambda: lite_flash_attention(qh, kh, vh, fidx, count, thr_f, band,
                                                     fold_h=FOLD_H))
     hf["bound_ms"], hf["bound_by"] = bound(
@@ -3383,6 +3415,59 @@ def flex_attention_call(q, k, kw):
             + (f" (the window {given} hides no key at this shape)"
                if given is not None and not kept else ""))
     return _FLEX[key], what
+
+
+def flex_tiles_ms(label, q, k, v, live, ro):
+    """FlexAttention (torch.compile) over the 128 x 128 tiles ``live``
+    ``[B, H, Qt, Kt]`` marks, the library call of the lite rows (B3, B4,
+    B5: the same attention over the same live tiles; FlexAttention casts
+    no votes): its out against the plain version's ``ro`` (rel-L2 within
+    LIBRARY_TOL), its device time and what it is. The BlockMask lists the
+    live tiles; those a ragged last q- or key tile cuts are partial."""
+    import os
+
+    import torch
+    import torch._dynamo.config
+    import torch._inductor.config
+    from liteattention_torch.ops._build import BUILD_ROOT
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+
+    if "fn" not in _FLEX:
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(BUILD_ROOT / "inductor"))
+        os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_ROOT / "triton"))
+        torch._inductor.config.compile_threads = 1
+        torch._dynamo.config.recompile_limit = 64
+        torch._dynamo.config.fail_on_recompile_limit_hit = True
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    sq, sk, tile = q.shape[2], k.shape[2], 128
+    qt, kt = live.shape[-2:]
+    whole = torch.ones(qt, kt, dtype=torch.bool, device=live.device)
+    if sq % tile:
+        whole[-1] = False
+    if sk % tile:
+        whole[:, -1] = False
+    full, part = live & whole, live & ~whole
+
+    def ordered(blocks):
+        return (blocks.sum(-1).int(),
+                torch.argsort(blocks.int(), dim=-1, descending=True, stable=True).int())
+
+    block = BlockMask.from_kv_blocks(*ordered(part), *ordered(full), BLOCK_SIZE=tile,
+                                     mask_mod=lambda b, h, qi, ki: ki >= 0, seq_lengths=(sq, sk))
+    fn = _FLEX["fn"]
+    t0 = time.perf_counter()
+    out = fn(q, k, v, block_mask=block)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    err = rel_l2(out, ro)
+    check(err < LIBRARY_TOL, f"{label}: FlexAttention's out is {err:.3e} off the plain version")
+    del out
+    ms, _, timer = device_ms(lambda: fn(q, k, v, block_mask=block))
+    what = (f"FlexAttention (torch.compile, Triton) over the live 128 x 128 tiles as its "
+            f"BlockMask (no votes; {timer})")
+    log(f"  {label}: {what}: {ms:.4f} ms (compiled in {compile_s:.1f} s), rel-L2 {err:.3e} "
+        "against the plain version")
+    return ms, what, err
 
 
 def flex_fwd_ms(label, q, k, v, kw, ro):
@@ -7586,6 +7671,536 @@ def neox_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 22
+
+# Two ranks share the one card over gloo. On torch 2.11.0+cu128 (an H100)
+# gloo carries CUDA tensors for all_reduce, broadcast, all_to_all_single,
+# all_gather_into_tensor and reduce_scatter_tensor, and a
+# DeviceMesh("cuda") over it; its point-to-point calls (batch_isend_irecv,
+# send, recv) abort the rank ("writev: Bad address": the TCP pair is handed
+# the device pointer). So Ulysses (two all_to_all_single) runs at two
+# ranks, and ring attention, whose hops are batch_isend_irecv, runs on the
+# card at world size 1 over NCCL, beside every other new entry point.
+SP_RANKS = 2
+SP_STEPS = 4
+SP_THRESHOLDS = [0.0, 0.0, 1.0, 1.0]  # phase 3 (c2)'s, a vote every step
+SP_STEP1_TOL = SLICE_AB_TOL  # rel-L2 of step 1's latents, two ranks vs one card
+# facebook/opt-1.3b config.json: hidden 2048, 24 layers, 32 heads, ffn
+# 8192, vocab 50 272, 2048 positions (opt_config's defaults beside these).
+OPT_KW = dict(dim=2048, num_layers=24, num_heads=32)
+OPT_BATCH, OPT_PROMPT, OPT_NEW = 8, 512, 16
+OPT_SEED = 2323
+OPT_TP_TOL = 2e-2  # rel-L2 of a rank's logits shard against the one-rank model's slice
+# Greedy ties: where the one-rank model's two best logits lie closer than
+# this, a different choice at tp 2 (summed in another order) is a tie.
+GREEDY_TIE = 5e-2
+PAR_ATTN = (1, 32, 8, 16384, 128)  # Llama-3-8B's attention, causal: ring, Ulysses
+PAR_SP_SHAPE = (1, 40, 8192, 128)  # world size 1: make_seq_parallel_attention at Wan's heads
+PAR_WAN_GRID = (4, 60, 104)  # world size 1: a 1-block Wan2.1-14B, 6240 tokens
+PAR_TIMEOUT = 900  # seconds a spawned rank may take
+
+
+def _rank_log(rank, msg):
+    log(f"  [rank {rank}] {msg}")
+
+
+def _wan_sp_slice(dev, mesh, card, rank):
+    """(a) Wan2.1-14B at full width (2 blocks) sequence-parallel over the
+    mesh: denoise with CFG, SP_STEPS steps, a vote every step, driven one
+    step at a time through ``denoise(step_range=)`` (the counted run); each
+    step's first sequence-parallel attention call recorded."""
+    import torch
+    from liteattention_torch.models import WanConfig, WanModel, denoise
+    from liteattention_torch.parallel import seq_parallel as sp_module
+
+    cfg = dataclasses.replace(WanConfig(), num_layers=SLICE_LAYERS, sp_axis="sp")
+    model = WanModel(cfg, device=dev, mesh=mesh)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(0))  # phase 3's weights
+    model.requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(1)
+    frames, hh, ww = SLICE_GRID
+    noise = torch.randn(1, frames, hh, ww, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    null = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev).bfloat16()
+    common = dict(num_steps=SP_STEPS, guidance_scale=5.0, thresholds=SP_THRESHOLDS)
+    denoise(model, noise, text, null, num_steps=1, enable_skipping=False)  # warm-up
+    real_step = sp_module._local_step
+    calls, steps_ms, sparsity, xs = [], [], [], [noise]
+
+    def recording_step(state, q, k, v, threshold, group, block_sizes, emit_votes, schedule):
+        out, lse, new_state = real_step(state, q, k, v, threshold, group, block_sizes,
+                                        emit_votes, schedule)
+        if len(calls) == len(steps_ms):  # the step's first call: block 0, cond
+            calls.append(dict(state=state, q=q, k=k, v=v, thr=float(threshold),
+                              schedule=schedule, out=out, lse=lse, new_state=new_state))
+        return out, lse, new_state
+
+    sp_module._local_step = recording_step
+    st_c = st_u = None
+    try:
+        torch.distributed.barrier()
+        reset_counts()
+        for j in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, tel = denoise(model, xs[-1], text, null, **common, step_range=(j, j + 1),
+                             initial_states=st_c, initial_states_uncond=st_u)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            st_c, st_u = tel["final_states"], tel["final_states_uncond"]
+            sparsity.append(float(tel["sparsity_per_step"][-1]))
+            xs.append(x)
+        counts = read_counts()
+    finally:
+        sp_module._local_step = real_step
+    check(all(torch.isfinite(x).all() for x in xs[1:]), "sequence-parallel latents not finite")
+    _rank_log(rank, f"(a) Wan2.1-14B width, 2 blocks, {SP_STEPS} steps with CFG over "
+              f"{SP_RANKS} ranks: global sparsity per step {[round(s, 4) for s in sparsity]}; "
+              f"ms per step {[round(t, 1) for t in steps_ms]} (two ranks share one card: no "
+              f"measure of parallel speed) [{card}]")
+    _rank_log(rank, f"(a) launches during the counted run: {counts}")
+    # Each block, CFG, step: B2 and B3 for the self-attention, B1 for the
+    # cross-attention.
+    want = SLICE_LAYERS * 2 * SP_STEPS
+    got = [counts[n] for n in ("flash_fwd", "schedule_pack", "lite_flash_fwd")]
+    check(got == [want] * 3, f"(a): B1 / B2 / B3 launched {got} times, not {want} each")
+    return model, (noise, text, null), xs, calls, counts, dict(
+        sparsity_per_step=sparsity, ms_per_step=steps_ms)
+
+
+def _wan_step1_single_card(dev, inputs, x1, card, rank):
+    """Step 1 (every tile live) of the single-card model of phase 3 on the
+    same seed against the two ranks' step 1."""
+    import torch
+    from liteattention_torch.models import WanConfig, WanModel, denoise
+
+    cfg = dataclasses.replace(WanConfig(), num_layers=SLICE_LAYERS)
+    one = WanModel(cfg, device=dev)
+    one.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    one.requires_grad_(False)
+    noise, text, null = inputs
+    x, _ = denoise(one, noise, text, null, num_steps=SP_STEPS, guidance_scale=5.0,
+                   thresholds=SP_THRESHOLDS, step_range=(0, 1))
+    err = rel_l2(x1.float(), x.float())
+    _rank_log(rank, f"(a) step 1 on {SP_RANKS} ranks vs phase 3's single-card model: rel-L2 "
+              f"{err:.3e} (bound {SP_STEP1_TOL})")
+    check(err < SP_STEP1_TOL, "(a) the sequence-parallel step 1 departs from one card")
+    del one
+    torch.cuda.empty_cache()
+    return err
+
+
+def _check_sp_call(j, call, group, rank):
+    """A later step's recorded sequence-parallel call recomputed by the
+    plain versions over this rank's own live tiles: the packer's schedule
+    bit for bit, the merged out (OUT_TOL) and lse (LSE_TOL, -inf on the
+    same rows), and the new mask shard (tiles may differ only where a vote
+    lies within MARGIN of the threshold)."""
+    import torch
+    from liteattention_torch.ops.combine import combine_attention_psum
+    from liteattention_torch.ops.lite_flash_fwd import lite_flash_attention_plain, vote_headroom
+    from liteattention_torch.ops.mask import update_mask
+    from liteattention_torch.ops.schedule_pack import pack_schedule_plain
+
+    m = call["state"].do_mask
+    fidx, count = pack_schedule_plain(m)
+    if call["schedule"] is not None:
+        check(all(torch.equal(a, b) for a, b in zip(call["schedule"], (fidx, count))),
+              f"(a) step {j + 1}: B2's schedule differs from its plain version")
+    q, k, v, thr = call["q"], call["k"], call["v"], call["thr"]
+    ro, rl, rv = lite_flash_attention_plain(q, k, v, fidx, count, thr, m)
+    po, pl = combine_attention_psum(ro, rl, group)
+    err_o = (call["out"].float() - po.float()).abs().max().item()
+    seen = torch.isfinite(pl)
+    same_rows = torch.equal(seen, torch.isfinite(call["lse"]))
+    err_l = (call["lse"] - pl)[seen].abs().max().item() if seen.any() else 0.0
+    head = vote_headroom(q, k, fidx, count)
+    valid = torch.arange(m.shape[-1], device=m.device) < count[..., None]
+    margin = torch.where(valid, (head - thr).abs(), torch.full_like(head, math.inf))
+    near = torch.full(m.shape, math.inf, device=m.device)
+    near.scatter_reduce_(-1, fidx.long(), margin, reduce="amin")
+    want = update_mask(call["state"], rv).do_mask
+    diff = want != call["new_state"].do_mask
+    bad = int((diff & (near >= MARGIN)).sum())
+    _rank_log(rank, f"(a) step {j + 1}, block 0 (cond): the merged out against the plain versions "
+              f"over this rank's live tiles max|err| {err_o:.3e} (bound {OUT_TOL}), merged lse "
+              f"{err_l:.3e} (bound {LSE_TOL}, -inf rows the same: {same_rows}); new mask shard: "
+              f"{int(diff.sum())} tiles differ, {bad} outside the {MARGIN} margin; shard sparsity "
+              f"{1 - m.float().mean().item():.4f}")
+    check(err_o < OUT_TOL and err_l < LSE_TOL and same_rows and bad == 0,
+          f"(a) step {j + 1} disagrees with its plain versions")
+    return err_o, err_l
+
+
+def _opt_tp_run(dev, group, card, rank):
+    """(b) OPT-1.3B at full width and depth, tensor-parallel over the
+    group: every rank builds the one-rank model from the seed, keeps its
+    reference (prompt logits, greedy tokens by recompute), slices its shard
+    of the weights and drops the model; then the counted run serves
+    OPT_BATCH prompts of OPT_PROMPT tokens and OPT_NEW greedy tokens by
+    recompute through gpt_tp_apply."""
+    import torch
+    from liteattention_torch.models import GPTLMHeadModel, opt_config
+    from liteattention_torch.models.gpt import gpt_tp_apply, gpt_tp_state_dict
+    from liteattention_torch.parallel._collectives import all_gather_dim
+
+    cfg = opt_config(**OPT_KW)
+    tp, r = group.size(), group.rank()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(OPT_SEED))
+    model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.randint(0, cfg.vocab_size, (OPT_BATCH, OPT_PROMPT),
+                        generator=torch.Generator(device=dev).manual_seed(OPT_SEED + 1), device=dev)
+    v_loc = cfg.vocab_size // tp
+    with torch.no_grad():
+        ref_prompt = model(ids)[..., r * v_loc:(r + 1) * v_loc].clone()
+        ref_seq, ref_last = ids, []
+        for _ in range(OPT_NEW):
+            last = model(ref_seq)[:, -1]
+            ref_last.append(last)
+            ref_seq = torch.cat([ref_seq, last.argmax(-1, keepdim=True)], dim=1)
+        shard = {k: v.clone() for k, v in gpt_tp_state_dict(cfg, model.state_dict(), r, tp).items()}
+    del model
+    torch.cuda.empty_cache()
+    shard_params = sum(v.numel() for v in shard.values())
+    with torch.no_grad():  # warm-up: the first call builds gpt_tp_apply's meta skeleton
+        gpt_tp_apply(cfg, shard, ids, group)
+    torch.distributed.barrier(group)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        seq, step_ms, prompt_local = ids, [], None
+        for i in range(OPT_NEW):
+            t1 = time.perf_counter()
+            local = gpt_tp_apply(cfg, shard, seq, group)
+            if prompt_local is None:
+                prompt_local = local
+            last = all_gather_dim(local[:, -1].contiguous(), 1, group)
+            seq = torch.cat([seq, last.argmax(-1, keepdim=True)], dim=1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    err = rel_l2(prompt_local, ref_prompt)
+    tp_tokens, ref_tokens = seq[:, OPT_PROMPT:], ref_seq[:, OPT_PROMPT:]
+    same = tp_tokens == ref_tokens
+    diverged = [(b, int((~same[b]).nonzero()[0])) for b in range(OPT_BATCH) if not same[b].all()]
+    gaps = []
+    for b, t in diverged:  # the first difference of each sequence must be a tie
+        top2 = ref_last[t][b].float().topk(2).values
+        gaps.append(float(top2[0] - top2[1]))
+    _rank_log(rank, f"(b) OPT-1.3B ({n_params / 1e9:.3f} B parameters, this rank's shard "
+              f"{shard_params / 1e9:.3f} B) at tp {tp}: prompt logits shard vs the one-rank model's "
+              f"rel-L2 {err:.3e} (bound {OPT_TP_TOL}); greedy tokens equal in "
+              f"{int(same.all(-1).sum())} of {OPT_BATCH} sequences, first differences "
+              f"{diverged} at top-2 gaps {[round(gp, 4) for gp in gaps]} (ties below {GREEDY_TIE}); "
+              f"{total_ms / OPT_NEW:.1f} ms per recompute step (prompt step {step_ms[0]:.1f} ms; two "
+              f"ranks share one card) [{card}]")
+    _rank_log(rank, f"(b) launches during the counted run: {counts}")
+    check(err < OPT_TP_TOL, "(b) the tensor-parallel logits depart from the one-rank model")
+    check(all(gp < GREEDY_TIE for gp in gaps), "(b) a greedy token differs where no tie is")
+    want = cfg.num_layers * OPT_NEW
+    check(counts["flash_fwd"] == want,
+          f"(b) {counts['flash_fwd']} causal B1 launches, not {want} (one a layer a step)")
+    return counts, dict(logits_rel_l2=err, sequences_equal=int(same.all(-1).sum()),
+                        first_differences=diverged, top2_gaps=gaps,
+                        ms_per_recompute_step=total_ms / OPT_NEW, params=n_params,
+                        shard_params=shard_params)
+
+
+def _attn_inputs(dev, seed, grad=False):
+    import torch
+
+    b, h, hk, s, d = PAR_ATTN
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, n, s, d, generator=g, device=dev).bfloat16()
+               for n in (h, hk, hk))
+    dout = torch.randn(b, h, s, d, generator=g, device=dev).bfloat16()
+    if grad:
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+    return q, k, v, dout
+
+
+def _one_card_grads(q, k, v, dout):
+    """B1 and B7 over the whole sequence (flash_attention's autograd)."""
+    import torch
+    from liteattention_torch.ops.flash_fwd import flash_attention
+
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qs, ks, vs, causal=True)
+    out.backward(dout)
+    return out.detach(), (qs.grad, ks.grad, vs.grad)
+
+
+def _context_parallel(name, fn, dev, mesh, rank, card):
+    """``fn`` (ring_self_attention or ulysses_self_attention) causal at
+    PAR_ATTN, forward and backward, counted, against B1 and B7 over the
+    whole sequence on this card."""
+    import torch
+
+    q, k, v, dout = _attn_inputs(dev, 4545, grad=True)
+    fn(q, k, v, mesh, "sp", causal=True).backward(dout)  # warm-up
+    for x in (q, k, v):
+        x.grad = None
+    torch.distributed.barrier(mesh.get_group("sp"))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(q, k, v, mesh, "sp", causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    ref, grads = _one_card_grads(q, k, v, dout)
+    err_o = rel_l2(out.detach(), ref)
+    err_g = max(rel_l2(x.grad, gr) for x, gr in zip((q, k, v), grads))
+    n = mesh.get_group("sp").size()
+    _rank_log(rank, f"{name} over {n} rank(s), 1x{PAR_ATTN[1]}/{PAR_ATTN[2]}x{PAR_ATTN[3]}x"
+              f"{PAR_ATTN[4]} causal: out vs B1 over the whole sequence rel-L2 {err_o:.3e}, "
+              f"dq/dk/dv vs B7 worst rel-L2 {err_g:.3e} (bound {BWD_TOL}); forward + backward "
+              f"{ms:.1f} ms; launches {counts} [{card}]")
+    check(err_o < BWD_TOL and err_g < BWD_TOL, f"{name} disagrees with one card")
+    check(counts["flash_fwd"] > 0 and counts["flash_bwd_dq"] > 0,
+          f"{name}: B1 or B7 never launched")
+    return counts, dict(out_rel_l2=err_o, grad_rel_l2=err_g, ms=ms, ranks=n)
+
+
+def _pair_body(rank, dev, mesh, card):
+    """The two gloo ranks: (a) Wan sequence parallel, (b) OPT tensor
+    parallel, (c) Ulysses."""
+    import torch
+    from liteattention_torch.parallel import ulysses_self_attention
+
+    group = mesh.get_group("sp")
+    out = {"counts": {}, "stats": {}}
+    model, inputs, xs, calls, counts, stats = _wan_sp_slice(dev, mesh, card, rank)
+    out["counts"]["sp_wan"] = counts
+    del model
+    torch.cuda.empty_cache()
+    errs = [_check_sp_call(j, call, group, rank) for j, call in enumerate(calls) if j > 0]
+    stats["later_steps_out_err"] = [e[0] for e in errs]
+    stats["later_steps_lse_err"] = [e[1] for e in errs]
+    if rank == 0:
+        stats["step1_rel_l2_vs_one_card"] = _wan_step1_single_card(dev, inputs, xs[1], card, rank)
+    torch.distributed.barrier(group)
+    del calls, xs
+    torch.cuda.empty_cache()
+    out["stats"]["wan_sp"] = stats
+    out["counts"]["tp_opt"], out["stats"]["opt_tp"] = _opt_tp_run(dev, group, card, rank)
+    torch.cuda.empty_cache()
+    out["counts"]["ulysses"], out["stats"]["ulysses"] = _context_parallel(
+        "Ulysses", ulysses_self_attention, dev, mesh, rank, card)
+    return out
+
+
+def _nccl1_body(rank, dev, mesh, card):
+    """World size 1 over NCCL: every new entry point against its one-card
+    form (the comparisons are bit for bit where the path runs the same
+    kernels on the same inputs), then ring attention, counted."""
+    import torch
+    import torch.nn.functional as F
+    from liteattention_torch.lite_attention import lite_attention_step
+    from liteattention_torch.models import (
+        GPTLMHeadModel, WanConfig, WanModel, denoise, opt_config)
+    from liteattention_torch.models.gpt import gpt_tp_apply, gpt_tp_state_dict
+    from liteattention_torch.modules import MHA, GatedMlp, ParallelMHA, ParallelMLP
+    from liteattention_torch.modules.mha import parallel_mha_state_dict
+    from liteattention_torch.modules.mlp import parallel_mlp_state_dict
+    from liteattention_torch.ops.combine import combine_attention, combine_attention_psum
+    from liteattention_torch.ops.flash_fwd import flash_attention
+    from liteattention_torch.ops.mask import init_mask
+    from liteattention_torch.parallel import (
+        make_seq_parallel_attention, ring_attention_local, ring_self_attention,
+        ulysses_attention_local, ulysses_self_attention)
+    from liteattention_torch.parallel import tensor_parallel as tpm
+
+    group = mesh.get_group("sp")
+    g = torch.Generator(device=dev).manual_seed(5656)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    same = {}
+    b, h, s, d = PAR_SP_SHAPE
+    o, l_ = rnd(b, h, s, d), torch.randn(b, h, s, generator=g, device=dev)
+    po, pl = combine_attention_psum(o, l_, group)
+    co, cl = combine_attention(o[None], l_[None])
+    same["combine_attention_psum"] = torch.equal(po, co) and torch.equal(pl, cl)
+    init_fn, step_fn = make_seq_parallel_attention(mesh, "sp")
+    q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
+    st = init_fn(b, h, s, s, d)
+    one = init_mask(b, h, s, s, 128, 128, device=dev)
+    ok = True
+    for thr in (0.0, 1.0):
+        so, _, st = step_fn(st, q, k, v, thr)
+        oo, one = lite_attention_step(one, q, k, v, thr)
+        ok = ok and torch.equal(so, oo) and torch.equal(st.do_mask, one.do_mask)
+    same["make_seq_parallel_attention"] = ok
+    cfg = dataclasses.replace(WanConfig(), num_layers=1)
+    wan_sp = WanModel(dataclasses.replace(cfg, sp_axis="sp"), device=dev, mesh=mesh)
+    wan_sp.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    wan_one = WanModel(cfg, device=dev)
+    wan_one.load_state_dict(wan_sp.state_dict())
+    noise = torch.randn(1, *PAR_WAN_GRID, cfg.in_channels, generator=g, device=dev).bfloat16()
+    text, null = rnd(1, cfg.text_len, cfg.text_dim), rnd(1, cfg.text_len, cfg.text_dim)
+    with torch.no_grad():
+        xs, ts = denoise(wan_sp, noise, text, null, num_steps=2, thresholds=[0.0, 1.0])
+        xo, to = denoise(wan_one, noise, text, null, num_steps=2, thresholds=[0.0, 1.0])
+    same["WanModel(sp_axis) denoise"] = (torch.equal(xs, xo) and torch.equal(
+        ts["sparsity_per_step"], to["sparsity_per_step"]))
+    del wan_sp, wan_one
+    qa, ka, va, dout = _attn_inputs(dev, 4646)
+    ro, rl = ring_attention_local(qa, ka, va, group, causal=True, return_lse=True)
+    fo, fl = flash_attention(qa, ka, va, causal=True, return_lse=True)
+    same["ring_attention_local"] = torch.equal(ro, fo) and torch.equal(rl, fl)
+    same["ulysses_attention_local"] = torch.equal(
+        ulysses_attention_local(qa, ka, va, group, causal=True), fo)
+    same["ulysses_self_attention"] = torch.equal(
+        ulysses_self_attention(qa, ka, va, mesh, "sp", causal=True), fo)
+    del qa, ka, va, dout
+    x, w, b = rnd(4, 256, 1024), rnd(2048, 1024), rnd(2048)
+    emb, pos, ids = rnd(4096, 1024), rnd(512, 1024), torch.randint(0, 4096, (4, 256), device=dev)
+    same["column_parallel_dense"] = all(torch.equal(y, F.linear(x, w, b)) for y in (
+        tpm.column_parallel_dense(x, w, b), tpm.column_parallel_dense(x, w, b, group)))
+    # The row-parallel bias is added after the sum, as in JAX (not in the GEMM).
+    same["row_parallel_dense"] = all(torch.equal(y, F.linear(x, w) + b) for y in (
+        tpm.row_parallel_dense(x, w, b, group), tpm.row_parallel_dense(x, w, b, group, True)))
+    look = F.embedding(ids, emb)
+    same["vocab_parallel_embedding"] = torch.equal(tpm.vocab_parallel_embedding(ids, emb, group),
+                                                   look)
+    same["column_parallel_embedding"] = torch.equal(tpm.column_parallel_embedding(ids, emb), look)
+    same["parallel_gpt2_embeddings"] = torch.equal(
+        tpm.parallel_gpt2_embeddings(ids, emb, pos, group=group), look + pos[:256])
+    same["vocab_parallel_logits"] = torch.equal(tpm.vocab_parallel_logits(x, emb), x @ emb.T)
+    close = {}  # rel-L2: the out-projection bias added after the sum, not in the GEMM
+    with torch.no_grad():
+        dim, heads = OPT_KW["dim"], OPT_KW["num_heads"]  # OPT-1.3B's attention and MLP widths
+        xm = rnd(4, 512, dim)
+        mha = MHA(dim, heads, causal=True, device=dev)
+        pmha = ParallelMHA(dim, heads, group, causal=True, device=dev)
+        pmha.load_state_dict(parallel_mha_state_dict(mha.state_dict(), heads, 0, 1))
+        close["ParallelMHA"] = rel_l2(pmha(xm), mha(xm))
+        mlp = GatedMlp(dim, 4 * dim, device=dev)
+        pmlp = ParallelMLP(dim, 4 * dim, group, activation=F.silu, gated=True, device=dev)
+        pmlp.load_state_dict(parallel_mlp_state_dict(mlp.state_dict(), 0, 1, gated=True))
+        same["ParallelMLP"] = torch.equal(pmlp(xm), mlp(xm))
+        ocfg = opt_config(**{**OPT_KW, "num_layers": 2})
+        gpt = GPTLMHeadModel(ocfg, device=dev)
+        gpt.reset_parameters(torch.Generator(device=dev).manual_seed(OPT_SEED))
+        ids = torch.randint(0, ocfg.vocab_size, (4, 512), device=dev)
+        close["gpt_tp_apply"] = rel_l2(
+            gpt_tp_apply(ocfg, gpt_tp_state_dict(ocfg, gpt.state_dict(), 0, 1), ids, group),
+            gpt(ids))
+    _rank_log(rank, f"every new entry point at world size 1 over NCCL against its one-card form: "
+              f"bit for bit {same}; rel-L2 {close} (bound {OPT_TP_TOL})")
+    check(all(same.values()) and all(e < OPT_TP_TOL for e in close.values()),
+          "a new entry point at world size 1 departs from its one-card form")
+    del gpt, mha, pmha, mlp, pmlp
+    torch.cuda.empty_cache()
+    counts, stats = _context_parallel("ring attention", ring_self_attention, dev, mesh, rank, card)
+    return {"counts": {"ring_nccl1": counts},
+            "stats": {"ring": stats, "world1_equal": same, "world1_rel_l2": close}}
+
+
+def parallel_rank(rank, world, backend, out_dir, card):
+    """A spawned rank of phase 22: joins the group through a file in
+    ``out_dir``, runs its part, writes its counts and stats (or its
+    failure) to ``out_dir``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    path = Path(out_dir) / f"{backend}{world}_rank{rank}.json"
+    try:
+        dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                                world_size=world)
+        mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("sp",))
+        body = _pair_body if world > 1 else _nccl1_body
+        result = body(rank, dev, mesh, card)
+        dist.barrier()
+        path.write_text(json.dumps(result))
+    except Exception as e:  # noqa: BLE001 -- reported to the parent, which fails
+        import traceback
+
+        path.write_text(json.dumps({"error": f"{type(e).__name__}: {e}",
+                                    "trace": traceback.format_exc()}))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(world, backend, card):
+    """Run ``world`` ranks of phase 22 over ``backend``; every rank's
+    result (a failure of any fails the phase; every process is stopped)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=parallel_rank, args=(r, world, backend, out_dir, card))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + PAR_TIMEOUT
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        results = []
+        for r, p in enumerate(procs):
+            f = Path(out_dir) / f"{backend}{world}_rank{r}.json"
+            res = json.loads(f.read_text()) if f.exists() else {
+                "error": f"no result (exit code {p.exitcode})"}
+            if "error" in res:
+                log(res.get("trace", ""))
+            check("error" not in res and p.exitcode == 0,
+                  f"phase 22: {backend} rank {r} of {world} failed: {res.get('error')}")
+            results.append(res)
+    return results
+
+
+def parallel_phase(dev, card):
+    """Phase 22: parallel/ on torch.distributed. Two ranks on the one card
+    over gloo run (a) Wan2.1-14B-width sequence-parallel denoising, (b)
+    OPT-1.3B tensor-parallel greedy serving and (c) Ulysses at Llama-3-8B's
+    attention; one rank over NCCL runs every new entry point against its
+    one-card form and ring attention (gloo has no CUDA point-to-point)."""
+    import torch
+
+    log(f"  ring attention: world size 1 over NCCL (gloo has no CUDA point-to-point: "
+        f"batch_isend_irecv aborts a rank); Ulysses: {SP_RANKS} ranks over gloo "
+        f"(all_to_all_single carries CUDA tensors)")
+    log(f"  every kernel the ranks load was built in phase 1: "
+        f"{torch.cuda.device_count()} card(s), {SP_RANKS} ranks sharing card 0")
+    t0 = time.perf_counter()
+    pair = _spawn_ranks(SP_RANKS, "gloo", card)
+    t1 = time.perf_counter()
+    solo = _spawn_ranks(1, "nccl", card)
+    t2 = time.perf_counter()
+    counts = {}
+    for path in ("sp_wan", "tp_opt", "ulysses"):
+        per_rank = [r["counts"][path] for r in pair]
+        counts[path] = {name: sum(c[name] for c in per_rank) for name in per_rank[0]}
+    counts["ring_nccl1"] = solo[0]["counts"]["ring_nccl1"]
+    stats = {"ranks": [r["stats"] for r in pair], "nccl1": solo[0]["stats"],
+             "seconds": {"gloo_pair": t1 - t0, "nccl_world1": t2 - t1}}
+    log(f"  phase 22 launches (summed over ranks): {counts}")
+    return counts, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -8010,6 +8625,11 @@ def main() -> int:
         phase("phase 21: the GPT-NeoX family: the decode kernel at head dims 80 and 96, B1's and "
               "B7's channels at 96; Pythia-2.8B and GPT-NeoX-20B served")
         p21_counts, p21_kres, p21_stats = neox_phase(dev, card)
+        phase("phase 22: parallel/ on torch.distributed: Wan2.1-14B sequence-parallel and "
+              "OPT-1.3B tensor-parallel at two ranks on the card (gloo), Ulysses; every new entry "
+              "point and ring attention at world size 1 (NCCL)")
+        p22_counts, p22_stats = parallel_phase(dev, card)
+        counts.update(p22_counts)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -8251,7 +8871,8 @@ def main() -> int:
                                    if k.startswith(form) or k in ("shape", "card")}
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
-                  (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats)):
+                  (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats),
+                  (22, p22_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -8272,6 +8893,8 @@ def main() -> int:
     log(f"falcon-7b serving: {json.dumps(p19_stats)}")
     log(f"kvcache api rest: {json.dumps(p20_stats)}")
     log(f"gpt-neox family: {json.dumps(p21_stats)}")
+    log(f"parallel (two ranks on one card; times are no measure of parallel speed): "
+        f"{json.dumps(p22_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -41,12 +41,18 @@ fixed capacity, the expert weights in ``cfg.dtype`` and the router in
 fp32, as in JAX), and :func:`gpt_loss_fn` adds the blocks' Switch
 load-balance losses at ``moe_aux_weight``.
 
-Not ported yet: the tensor-parallel forward (``gpt_tp_apply``, ROADMAP A15).
+Tensor parallelism (inference): ``GPTLMHeadModel(cfg, group=g)`` is one
+rank's shard of the model over the ``torch.distributed`` group ``g``
+(vocab-split embedding and head, ``ParallelMHA`` / ``ParallelMLP``
+blocks) and returns that rank's logits shard; :func:`gpt_tp_state_dict`
+slices a single-device ``state_dict`` into a rank's shard, and
+:func:`gpt_tp_apply` is JAX's functional form of the same forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -60,11 +66,21 @@ from liteattention_torch.losses.cross_entropy import cross_entropy_loss
 from liteattention_torch.models.convert import state_dict_from_flax
 from liteattention_torch.modules.block import Block
 from liteattention_torch.modules.dense import Dense
-from liteattention_torch.modules.mha import MHA, InferenceParams
-from liteattention_torch.modules.mlp import GatedMlp, Mlp
+from liteattention_torch.modules.mha import (
+    MHA,
+    InferenceParams,
+    ParallelMHA,
+    parallel_mha_state_dict,
+)
+from liteattention_torch.modules.mlp import GatedMlp, Mlp, ParallelMLP, parallel_mlp_state_dict
 from liteattention_torch.modules.moe import MoEMlp
 from liteattention_torch.ops.activations import gelu_approx
 from liteattention_torch.ops.norms import layer_norm, rms_norm
+from liteattention_torch.parallel.tensor_parallel import (
+    parallel_gpt2_embeddings,
+    shard_cols,
+    shard_rows,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,32 +140,43 @@ class GPTConfig:
         )
 
 
-def _block(cfg: GPTConfig, layer_idx: int, device) -> Block:
+def _mlp_activation(cfg: GPTConfig):
+    """The plain MLP's activation: ReLU (OPT), exact GELU or tanh GELU."""
+    if cfg.mlp_relu:
+        return F.relu
+    return F.gelu if cfg.mlp_gelu_exact else gelu_approx
+
+
+def _block(cfg: GPTConfig, layer_idx: int, device, group=None) -> Block:
     head_dim = cfg.dim // cfg.num_heads
-    mha = MHA(
-        cfg.dim, cfg.num_heads, num_heads_kv=cfg.num_heads_kv, causal=True,
-        qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias,
-        softmax_scale=1.0 / head_dim if cfg.scale_qk_dot_by_d else None,
-        rotary_emb_dim=cfg.rotary_emb_dim, rotary_emb_base=cfg.rotary_emb_base,
-        rotary_emb_interleaved=cfg.rotary_emb_interleaved, use_alibi=cfg.use_alibi,
-        dropout=cfg.dropout, layer_idx=layer_idx, dtype=cfg.dtype, device=device,
-    )
+    scale = 1.0 / head_dim if cfg.scale_qk_dot_by_d else None
     ffn = cfg.ffn_dim or 4 * cfg.dim
-    if cfg.moe_experts > 0:
-        mlp = MoEMlp(cfg.dim, ffn, num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                     capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype, device=device)
-    elif cfg.gated_mlp:
-        mlp = GatedMlp(cfg.dim, ffn, bias1=cfg.mlp_bias, bias2=cfg.mlp_bias,
-                       dtype=cfg.dtype, device=device)
+    if group is not None:  # the configurations _check_tp lets through
+        mha = ParallelMHA(cfg.dim, cfg.num_heads, group, num_heads_kv=cfg.num_heads_kv,
+                          qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias,
+                          softmax_scale=scale, causal=True, dtype=cfg.dtype, device=device)
+        mlp = ParallelMLP(cfg.dim, ffn, group,
+                          activation=F.silu if cfg.gated_mlp else _mlp_activation(cfg),
+                          gated=cfg.gated_mlp, bias1=cfg.mlp_bias, bias2=cfg.mlp_bias,
+                          dtype=cfg.dtype, device=device)
     else:
-        if cfg.mlp_relu:
-            act = F.relu
-        elif cfg.mlp_gelu_exact:
-            act = F.gelu
+        mha = MHA(
+            cfg.dim, cfg.num_heads, num_heads_kv=cfg.num_heads_kv, causal=True,
+            qkv_proj_bias=cfg.attn_bias, out_proj_bias=cfg.attn_bias, softmax_scale=scale,
+            rotary_emb_dim=cfg.rotary_emb_dim, rotary_emb_base=cfg.rotary_emb_base,
+            rotary_emb_interleaved=cfg.rotary_emb_interleaved, use_alibi=cfg.use_alibi,
+            dropout=cfg.dropout, layer_idx=layer_idx, dtype=cfg.dtype, device=device,
+        )
+        if cfg.moe_experts > 0:
+            mlp = MoEMlp(cfg.dim, ffn, num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
+                         device=device)
+        elif cfg.gated_mlp:
+            mlp = GatedMlp(cfg.dim, ffn, bias1=cfg.mlp_bias, bias2=cfg.mlp_bias,
+                           dtype=cfg.dtype, device=device)
         else:
-            act = gelu_approx
-        mlp = Mlp(cfg.dim, ffn, activation=act, bias1=cfg.mlp_bias,
-                  bias2=cfg.mlp_bias, dtype=cfg.dtype, device=device)
+            mlp = Mlp(cfg.dim, ffn, activation=_mlp_activation(cfg), bias1=cfg.mlp_bias,
+                      bias2=cfg.mlp_bias, dtype=cfg.dtype, device=device)
     return Block(
         cfg.dim, mha, mlp, prenorm=cfg.prenorm, parallel_block=cfg.parallel_block,
         parallel_block_tied_norm=cfg.parallel_block_tied_norm,
@@ -183,19 +210,30 @@ def _replaying(blk: nn.Module, generator: torch.Generator):
 
 class GPTModel(nn.Module):
     """Embedding + block stack + final norm; ``forward(input_ids)`` ->
-    hidden ``[B, S, dim]`` in ``cfg.dtype``."""
+    hidden ``[B, S, dim]`` in ``cfg.dtype``. With ``group`` (a
+    ``torch.distributed`` group of ``tp`` ranks) this rank's shard: the
+    word embedding's ``vocab / tp`` rows and the position table's ``dim /
+    tp`` features (summed by one ``all_reduce``,
+    :func:`~liteattention_torch.parallel.tensor_parallel.parallel_gpt2_embeddings`),
+    ``ParallelMHA`` / ``ParallelMLP`` blocks; deterministic and uncached."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, group=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.group = group
+        tp = 1
+        if group is not None:
+            tp = group.size()
+            _check_tp(cfg, tp)
         f32 = dict(dtype=torch.float32, device=device)
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.word_embed_proj_dim or cfg.dim, **f32)
+        self.wte = nn.Embedding(cfg.vocab_size // tp, cfg.word_embed_proj_dim or cfg.dim, **f32)
         if cfg.word_embed_proj_dim:
             self.project_in = Dense(cfg.word_embed_proj_dim, cfg.dim, False, cfg.dtype, device)
         if cfg.max_position_embeddings:
-            self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.dim, **f32)
-        self.blocks = nn.ModuleList(_block(cfg, i, device) for i in range(cfg.num_layers))
+            self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.dim // tp, **f32)
+        self.blocks = nn.ModuleList(_block(cfg, i, device, group)
+                                    for i in range(cfg.num_layers))
         if cfg.prenorm:  # the post-norm stack ends normalized already
             self.ln_f_scale = nn.Parameter(torch.ones(cfg.dim, device=device))
             if not cfg.use_rms_norm:
@@ -210,12 +248,22 @@ class GPTModel(nn.Module):
         if drop and generator is None:
             raise ValueError("GPT: dropout (deterministic=False) requires a torch.Generator "
                              "(generator=)")
-        x = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
-        if cfg.embeddings_multiplier != 1.0:
-            x = x * cfg.embeddings_multiplier
+        if self.group is not None and (inference_params is not None or drop):
+            raise NotImplementedError("tensor-parallel GPT: deterministic and uncached only, "
+                                      "as JAX's gpt_tp_apply")
+        if self.group is not None:
+            wte = self.wte.weight.to(cfg.dtype)
+            if cfg.embeddings_multiplier != 1.0:
+                wte = wte * cfg.embeddings_multiplier
+            wpe = self.wpe.weight.to(cfg.dtype) if cfg.max_position_embeddings else None
+            x = parallel_gpt2_embeddings(input_ids, wte, wpe, group=self.group)
+        else:
+            x = F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
+            if cfg.embeddings_multiplier != 1.0:
+                x = x * cfg.embeddings_multiplier
         if cfg.word_embed_proj_dim:
             x = self.project_in(x)
-        if cfg.max_position_embeddings:
+        if cfg.max_position_embeddings and self.group is None:
             offset = inference_params.seqlen_offset if inference_params is not None else 0
             pos = torch.arange(offset, offset + input_ids.shape[1], device=input_ids.device)
             x = x + F.embedding(pos, self.wpe.weight).to(cfg.dtype)[None]
@@ -240,17 +288,22 @@ class GPTModel(nn.Module):
 
 class GPTLMHeadModel(nn.Module):
     """``GPTModel`` + LM head; ``forward(input_ids)`` -> fp32 logits
-    ``[B, S, vocab]``. Parameters go on ``device`` (default ``cuda``)."""
+    ``[B, S, vocab]``. Parameters go on ``device`` (default ``cuda``).
+    With ``group`` this rank's tensor-parallel shard (see
+    :class:`GPTModel`; its state dict from :func:`gpt_tp_state_dict`),
+    whose head is its ``vocab / tp`` rows: the logits shard ``[B, S, vocab
+    / tp]``, vocab rows ``[rank vocab / tp, (rank + 1) vocab / tp)``."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, group=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.transformer = GPTModel(cfg, device)
+        self.transformer = GPTModel(cfg, device, group)
         if cfg.word_embed_proj_dim:
             self.project_out = Dense(cfg.dim, cfg.word_embed_proj_dim, False, cfg.dtype, device)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.dim, cfg.vocab_size, cfg.lm_head_bias, cfg.dtype, device)
+            vocab = cfg.vocab_size // (1 if group is None else group.size())
+            self.lm_head = Dense(cfg.dim, vocab, cfg.lm_head_bias, cfg.dtype, device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -341,10 +394,91 @@ def gpt_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     return state_dict_from_flax(params)
 
 
+def _check_tp(cfg: GPTConfig, tp: int) -> None:
+    """The configurations the tensor-parallel forward runs (JAX's, whose
+    function asserts the same), with every split even."""
+    if cfg.rotary_emb_dim or cfg.use_alibi:
+        raise NotImplementedError("gpt_tp_apply: learned positions only (no rotary, no ALiBi), "
+                                  "as in JAX")
+    if not cfg.prenorm or cfg.word_embed_proj_dim or cfg.moe_experts:
+        raise NotImplementedError("gpt_tp_apply: pre-norm dense blocks only (not the OPT-350m "
+                                  "post-norm / projected-embedding layout, not MoE), as in JAX")
+    hk = cfg.num_heads_kv or cfg.num_heads
+    ffn = cfg.ffn_dim or 4 * cfg.dim
+    splits = {"vocab_size": cfg.vocab_size, "num_heads": cfg.num_heads, "num_heads_kv": hk,
+              "ffn_dim": ffn}
+    if cfg.max_position_embeddings:
+        splits["dim (the position table's features)"] = cfg.dim
+    for name, size in splits.items():
+        if size % tp:
+            raise ValueError(f"gpt_tp_apply: {name} {size} does not divide by tp={tp}")
+
+
+def gpt_tp_state_dict(cfg: GPTConfig, state_dict: Dict[str, torch.Tensor], rank: int,
+                      tp: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of a :class:`GPTLMHeadModel` ``state_dict``:
+    the ``state_dict`` of ``GPTLMHeadModel(cfg, group=g)`` over ``tp``
+    ranks. The word embedding's (and an untied head's) vocab rows, the
+    position table's feature columns, each block's attention by
+    :func:`~liteattention_torch.modules.mha.parallel_mha_state_dict` and MLP
+    by :func:`~liteattention_torch.modules.mlp.parallel_mlp_state_dict`;
+    norms stay whole. A JAX GPT tree goes through
+    :func:`gpt_state_dict_from_jax` first. ``ValueError`` where the vocab,
+    the heads or the ffn do not split evenly (JAX's ``gpt_tp_apply``
+    slices ``size // tp`` and drops the rest)."""
+    _check_tp(cfg, tp)
+    out = {}
+    for key, w in state_dict.items():
+        if key in ("transformer.wte.weight", "lm_head.weight", "lm_head.bias"):
+            out[key] = shard_rows(w, rank, tp)
+        elif key == "transformer.wpe.weight":
+            out[key] = shard_cols(w, rank, tp)
+        elif ".mha." not in key and ".mlp." not in key:
+            out[key] = w
+    for i in range(cfg.num_layers):
+        for name, shard in (
+            ("mha", lambda sd: parallel_mha_state_dict(sd, cfg.num_heads, rank, tp,
+                                                       cfg.num_heads_kv)),
+            ("mlp", lambda sd: parallel_mlp_state_dict(sd, rank, tp, cfg.gated_mlp)),
+        ):
+            pre = f"transformer.blocks.{i}.{name}."
+            sub = {k[len(pre):]: w for k, w in state_dict.items() if k.startswith(pre)}
+            out.update({pre + k: w for k, w in shard(sub).items()})
+    return {k: w.contiguous() for k, w in out.items()}
+
+
+def gpt_tp_apply(cfg: GPTConfig, params: Dict[str, torch.Tensor], input_ids: torch.Tensor,
+                 group) -> torch.Tensor:
+    """Megatron tensor-parallel forward of :class:`GPTLMHeadModel` over
+    ``group`` (JAX ``gpt_tp_apply``), deterministic (inference): the
+    forward of ``GPTLMHeadModel(cfg, group=group)`` with ``params``, this
+    rank's :func:`gpt_tp_state_dict` (on the device the ids are on). Every
+    rank of ``group`` calls with the same ``input_ids`` ``[B, S]``.
+
+    Returns this rank's fp32 logits shard ``[B, S, V / tp]`` (vocab rows
+    ``[rank V / tp, (rank + 1) V / tp)``): all-gather the last dim for the
+    whole logits. Unlike JAX's function, the MLP applies the config's
+    activation (ReLU for OPT, exact GELU with ``mlp_gelu_exact``; JAX
+    always applies tanh GELU) and an uneven split raises.
+    """
+    return torch.func.functional_call(_tp_skeleton(cfg, group), params, (input_ids,),
+                                      strict=True)
+
+
+@functools.lru_cache(maxsize=8)
+def _tp_skeleton(cfg: GPTConfig, group) -> GPTLMHeadModel:
+    """``GPTLMHeadModel(cfg, group=group)`` without storage (the meta
+    device), built once: the first build imports ``torch._dynamo`` (the meta
+    ``normal_`` of the embeddings goes through it), seconds of a call."""
+    return GPTLMHeadModel(cfg, device="meta", group=group)
+
+
 __all__ = [
     "GPTConfig",
     "GPTModel",
     "GPTLMHeadModel",
     "gpt_loss_fn",
     "gpt_state_dict_from_jax",
+    "gpt_tp_apply",
+    "gpt_tp_state_dict",
 ]

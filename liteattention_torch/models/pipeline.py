@@ -40,10 +40,15 @@ def flow_timesteps(
     return sigmas * t_max
 
 
-def _sparsity_of(states) -> torch.Tensor:
-    return torch.stack(
-        [1.0 - s.do_mask.float().mean() for s in states.values()]
-    ).mean()
+def _sparsity_of(states, group=None) -> torch.Tensor:
+    """The mean over layers of each mask's skipped share; with ``group``
+    (sequence parallel: each state a rank's equal shard) of the whole
+    mask's, the ranks' shares averaged by an ``all_reduce``."""
+    live = torch.stack([s.do_mask.float().mean() for s in states.values()])
+    if group is not None:
+        torch.distributed.all_reduce(live, group=group)
+        live = live / group.size()
+    return (1.0 - live).mean()
 
 
 def _compact(states, kv_compact):
@@ -99,7 +104,13 @@ def denoise(
         call, when the token count is a multiple of 128 (JAX's static
         gate: there is no union-density readback, unlike
         :class:`~liteattention_torch.LiteAttention`). The latents do not
-        change.
+        change. A sequence-parallel model (``cfg.sp_axis``) does not
+        compact, as in JAX.
+
+    With ``cfg.sp_axis`` every rank of the model's sequence-parallel group
+    calls with the same inputs, the states are each rank's mask shards
+    (default :func:`init_skip_states` with the model's mesh), and the
+    sparsity is the whole masks', the same on every rank.
 
     Returns:
       (denoised latents, telemetry with ``sparsity_per_step`` (sparsity
@@ -117,12 +128,14 @@ def denoise(
     sigma_next = torch.cat([sigmas[1:], torch.zeros(1)])
     use_cfg = null_text is not None
 
+    mesh = getattr(model, "mesh", None)
+    group = mesh.get_group(cfg.sp_axis) if mesh is not None else None
     states_c = states_u = None
     if enable_skipping:
-        states_c = initial_states or init_skip_states(cfg, b, grid, noise.device)
+        states_c = initial_states or init_skip_states(cfg, b, grid, noise.device, mesh)
         if use_cfg:
             states_u = initial_states_uncond or init_skip_states(
-                cfg, b, grid, noise.device
+                cfg, b, grid, noise.device, mesh
             )
 
     lo, hi = step_range if step_range is not None else (0, num_steps)
@@ -132,7 +145,7 @@ def denoise(
     stride = max(1, min(vote_stride, n)) if enable_skipping else 1
     pt, ph, pw = cfg.patch_size
     n_tok = (grid[0] // pt) * (grid[1] // ph) * (grid[2] // pw)
-    use_kvc = kv_compact and n_tok % VOTE_TILE == 0
+    use_kvc = kv_compact and n_tok % VOTE_TILE == 0 and group is None
     sched_c, sched_u = _compact(states_c, use_kvc), _compact(states_u, use_kvc)
 
     cond = dict(image_ctx=image_ctx, latent_cond=latent_cond)
@@ -160,7 +173,7 @@ def denoise(
             # The masks may have shrunk: recompact for the next steps.
             sched_c, sched_u = _compact(states_c, use_kvc), _compact(states_u, use_kvc)
         trace.append(
-            _sparsity_of(states_c) if enable_skipping
+            _sparsity_of(states_c, group) if enable_skipping
             else torch.zeros((), device=x.device)
         )
     sparsity_trace = torch.stack(trace)

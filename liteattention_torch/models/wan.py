@@ -35,7 +35,19 @@ exact fp32 softmax statistics of a strided sample of query rows; after a
 forward, ``WanModel.intermediates`` holds them per layer under the JAX
 names ``attn_entropy`` and ``attn_tile_excess``, differentiable.
 
-Not ported yet (it raises): sequence parallelism (``sp_axis``).
+Sequence parallelism (``cfg.sp_axis``, a dim name of the ``DeviceMesh``
+the model is built with, ``WanModel(cfg, mesh=mesh)``): the ranks of that
+dim split the keys of every self-attention that runs with a skip state.
+Each rank computes q for every token and K/V for its own contiguous token
+shard (rope at those tokens' global positions), holds the k-tiles of its
+shard of each layer's mask (:func:`init_skip_states` with ``mesh``), and
+merges its partial attention with the others'
+(:func:`~liteattention_torch.parallel.seq_parallel.seq_parallel_attention_step`);
+everything else runs whole on every rank, so every rank returns the whole
+output. The token count must split evenly over the ranks; a shard need
+not be a whole number of 128-key tiles (its mask is tiled from its own
+first key, as JAX's ``shard_map`` tiles each shard). Dense calls (no skip
+state) run whole on every rank, as in JAX.
 """
 
 from __future__ import annotations
@@ -57,7 +69,10 @@ from liteattention_torch.lite_attention import (
 from liteattention_torch.models.convert import state_dict_from_flax
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.flash_fwd import LOG2E, flash_attention
+from liteattention_torch.ops.mask import init_mask
 from liteattention_torch.ops.tile_sizes import VOTE_TILE, BlockSizes, get_block_sizes
+from liteattention_torch.parallel._collectives import shard_dim
+from liteattention_torch.parallel.seq_parallel import seq_parallel_attention_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,9 +267,10 @@ class WanSelfAttention(nn.Module):
     """3D-RoPE self-attention: lite kernel with a mask state, dense
     kernel without."""
 
-    def __init__(self, cfg: WanConfig, device=None):
+    def __init__(self, cfg: WanConfig, device=None, sp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.sp_group = sp_group
         inner = cfg.num_heads * cfg.head_dim
         self.q = _dense(cfg.dim, inner, cfg.dtype, device)
         self.k = _dense(cfg.dim, inner, cfg.dtype, device)
@@ -268,17 +284,26 @@ class WanSelfAttention(nn.Module):
                 schedule=None):
         cfg = self.cfg
         b, n, _ = x.shape
-        q, k, v = self.q(x), self.k(x), self.v(x)
+        sp = self.sp_group is not None and state is not None
+        xk, fk = x, freqs
+        if sp:  # K/V of this rank's token shard only
+            xk, fk = shard_dim(x, 1, self.sp_group), shard_dim(freqs, 0, self.sp_group)
+        q, k, v = self.q(x), self.k(xk), self.v(xk)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         q = apply_rope(q.reshape(b, n, cfg.num_heads, cfg.head_dim), freqs)
-        k = apply_rope(k.reshape(b, n, cfg.num_heads, cfg.head_dim), freqs)
+        k = apply_rope(k.reshape(b, xk.shape[1], cfg.num_heads, cfg.head_dim), fk)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), _bhsd(v, cfg.num_heads)
         self.probe = (
             _attention_probe(qh, kh, cfg.attn_probe_rows)
             if cfg.attn_probe_rows > 0 and state is None else {}
         )
-        if state is None:
+        if sp:
+            oh, new_state = seq_parallel_attention_step(
+                state, qh, kh, vh, threshold, self.sp_group,
+                cfg.attn_block_sizes("lite"), emit_votes=emit_votes, schedule=schedule,
+            )
+        elif state is None:
             oh = flash_attention(qh, kh, vh, block_sizes=cfg.attn_block_sizes("dense"))
             new_state = None
         else:
@@ -344,11 +369,11 @@ def _modulate(x, shift, scale):
 class WanBlock(nn.Module):
     """adaLN-modulated DiT block: self-attn -> cross-attn -> FFN."""
 
-    def __init__(self, cfg: WanConfig, device=None):
+    def __init__(self, cfg: WanConfig, device=None, sp_group=None):
         super().__init__()
         self.cfg = cfg
         self.mod_bias = nn.Parameter(torch.zeros(6, cfg.dim, device=device))
-        self.self_attn = WanSelfAttention(cfg, device)
+        self.self_attn = WanSelfAttention(cfg, device, sp_group)
         self.cross_attn = WanCrossAttention(cfg, device)
         # norm3 is affine (Wan's cross_attn_norm); norm1/norm2 are not.
         self.norm3 = nn.LayerNorm(cfg.dim, eps=cfg.eps, device=device)
@@ -397,7 +422,10 @@ class WanModel(nn.Module):
     (velocity prediction ``[B, F, H, W, C_out]``, new skip states or
     None). ``image_dim`` builds the image projection ``img_proj``; it is
     required with ``cfg.i2v_decoupled``. Parameters go on ``device``
-    (default ``cuda``).
+    (default ``cuda``). With ``cfg.sp_axis``, ``mesh`` is the
+    ``DeviceMesh`` whose dim of that name splits the self-attention keys
+    (the skip states then hold each rank's mask shard:
+    :func:`init_skip_states` with ``mesh``).
 
     With ``cfg.attn_probe_rows`` a forward leaves ``self.intermediates``:
     ``{"attn_entropy": [...], "attn_tile_excess": [...]}``, one 0-d tensor
@@ -405,11 +433,15 @@ class WanModel(nn.Module):
     ``intermediates`` collection).
     """
 
-    def __init__(self, cfg: WanConfig, device=None, image_dim: Optional[int] = None):
+    def __init__(self, cfg: WanConfig, device=None, image_dim: Optional[int] = None,
+                 mesh=None):
         super().__init__()
         device = resolve_device(device)
-        if cfg.sp_axis:
-            raise NotImplementedError("WanModel: sp_axis is not ported yet")
+        if cfg.sp_axis and mesh is None:
+            raise ValueError("WanModel: cfg.sp_axis needs the DeviceMesh (mesh=) whose dim "
+                             f"{cfg.sp_axis!r} splits the keys")
+        self.mesh = mesh if cfg.sp_axis else None
+        sp_group = mesh.get_group(cfg.sp_axis) if cfg.sp_axis else None
         if cfg.i2v_decoupled and image_dim is None:
             raise ValueError("WanModel: cfg.i2v_decoupled needs image_dim (the image token width)")
         self.cfg = cfg
@@ -423,7 +455,7 @@ class WanModel(nn.Module):
         self.time_mlp_2 = nn.Linear(cfg.dim, cfg.dim, **f32)
         self.time_mod = nn.Linear(cfg.dim, 6 * cfg.dim, **f32)
         self.blocks = nn.ModuleList(
-            WanBlock(cfg, device) for _ in range(cfg.num_layers)
+            WanBlock(cfg, device, sp_group) for _ in range(cfg.num_layers)
         )
         self.final_mod_bias = nn.Parameter(torch.zeros(2, cfg.dim, device=device))
         self.proj_out = _dense(cfg.dim, pt * ph * pw * cfg.out_channels, cfg.dtype, device)
@@ -523,15 +555,31 @@ class WanModel(nn.Module):
 
 
 def init_skip_states(
-    cfg: WanConfig, batch: int, grid: Tuple[int, int, int], device=None
+    cfg: WanConfig, batch: int, grid: Tuple[int, int, int], device=None, mesh=None
 ) -> Dict[int, Any]:
     """Per-layer skip-mask states for a latent grid (one persistent
-    LiteAttention state per block), on ``device`` (default ``cuda``)."""
+    LiteAttention state per block), on ``device`` (default ``cuda``).
+
+    With ``cfg.sp_axis`` and ``mesh``, each state is this rank's mask
+    shard: the k-tiles of its contiguous shard of the tokens, tiled from
+    the shard's first token, ``[B, H, Qt, cdiv(N / n, 128)]``. (JAX puts
+    the whole mask's k-tile axis on the mesh, which needs ``cdiv(N, 128)``
+    divisible by ``n``; the shards are the same wherever it is.)"""
     n = (
         (grid[0] // cfg.patch_size[0])
         * (grid[1] // cfg.patch_size[1])
         * (grid[2] // cfg.patch_size[2])
     )
+    if cfg.sp_axis is not None and mesh is not None:
+        ranks = mesh.get_group(cfg.sp_axis).size()
+        if n % ranks:
+            raise ValueError(f"init_skip_states: {n} tokens do not split evenly over the "
+                             f"{ranks} sequence-parallel ranks")
+        return {
+            i: init_mask(batch, cfg.num_heads, n, n // ranks, VOTE_TILE, VOTE_TILE,
+                         device=device)
+            for i in range(cfg.num_layers)
+        }
     return {
         i: lite_attention_init(
             batch, cfg.num_heads, n, n, cfg.head_dim, 2,

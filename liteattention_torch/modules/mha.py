@@ -53,6 +53,7 @@ from liteattention_torch.layers.rotary import RotaryEmbedding
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
 from liteattention_torch.ops.kv_quant import quantize_rows_native
+from liteattention_torch.parallel.tensor_parallel import shard_cols, shard_rows
 
 
 @dataclasses.dataclass
@@ -118,6 +119,7 @@ class MHA(nn.Module):
         dtype=torch.bfloat16,
         device=None,
         cross_attn: bool = False,
+        head_dim: Optional[int] = None,
     ):
         super().__init__()
         self.cross_attn = cross_attn
@@ -125,7 +127,7 @@ class MHA(nn.Module):
         self.dropout = float(dropout)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
-        self.head_dim = embed_dim // num_heads
+        self.head_dim = head_dim or embed_dim // num_heads
         self.softmax_scale = softmax_scale
         self.causal = causal
         self.layer_idx = layer_idx
@@ -223,4 +225,76 @@ class MHA(nn.Module):
         )
 
 
-__all__ = ["MHA", "InferenceParams", "alibi_slopes", "draw_dropout_seed"]
+class ParallelMHA(nn.Module):
+    """Tensor-parallel MHA (JAX ``modules/mha.py:ParallelMHA``): the heads
+    split over ``group``'s ``n`` ranks. This rank holds an :class:`MHA` of
+    ``num_heads / n`` q heads and ``num_heads_kv / n`` KV heads of the full
+    model's head dim (``local_mha``: its ``Wqkv`` the column-parallel
+    projection, its ``out_proj`` the row-parallel one, without bias),
+    attends with no collective, and the ``all_reduce`` of the output
+    projection's partial sums is followed by ``out_bias``. Inference only
+    (ROADMAP A15b). Parameters go on ``device`` (default ``cuda``).
+    """
+
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        group,
+        num_heads_kv: Optional[int] = None,
+        qkv_proj_bias: bool = True,
+        out_proj_bias: bool = True,
+        softmax_scale: Optional[float] = None,
+        causal: bool = False,
+        rotary_emb_dim: int = 0,
+        dtype=torch.bfloat16,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        tp = group.size()
+        hk = num_heads_kv or num_heads
+        if num_heads % tp or hk % tp:
+            raise ValueError(f"ParallelMHA: {num_heads} heads / {hk} KV heads do not split "
+                             f"over {tp} ranks")
+        self.group = group
+        self.local_mha = MHA(
+            embed_dim, num_heads // tp, num_heads_kv=hk // tp, qkv_proj_bias=qkv_proj_bias,
+            out_proj_bias=False, softmax_scale=softmax_scale, causal=causal,
+            rotary_emb_dim=rotary_emb_dim, dtype=dtype, device=device,
+            head_dim=embed_dim // num_heads,
+        )
+        self.out_bias = (nn.Parameter(torch.zeros(embed_dim, device=device))
+                         if out_proj_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.local_mha(x)
+        torch.distributed.all_reduce(out, group=self.group)
+        if self.out_bias is not None:
+            out = out + self.out_bias.to(out.dtype)
+        return out
+
+
+def parallel_mha_state_dict(state_dict, num_heads: int, rank: int, tp: int,
+                            num_heads_kv: Optional[int] = None):
+    """An :class:`MHA`'s ``state_dict`` (``Wqkv``, ``out_proj``) -> rank
+    ``rank``'s :class:`ParallelMHA` ``state_dict`` of ``tp`` ranks: its q,
+    k and v heads of ``Wqkv`` (weight and bias), its input columns of
+    ``out_proj``, and ``out_proj``'s bias as ``out_bias``. A JAX
+    ``ParallelMHA`` rank's own Flax tree converts as it is
+    (:func:`~liteattention_torch.models.convert.state_dict_from_flax`)."""
+    hk = num_heads_kv or num_heads
+    w = state_dict["Wqkv.weight"]
+    d = w.shape[0] // (num_heads + 2 * hk)
+    sections = [num_heads * d, hk * d, hk * d]
+    out = {"local_mha.Wqkv.weight": shard_rows(w, rank, tp, sections),
+           "local_mha.out_proj.weight": shard_cols(state_dict["out_proj.weight"], rank, tp)}
+    if "Wqkv.bias" in state_dict:
+        out["local_mha.Wqkv.bias"] = shard_rows(state_dict["Wqkv.bias"], rank, tp, sections)
+    if "out_proj.bias" in state_dict:
+        out["out_bias"] = state_dict["out_proj.bias"]
+    return out
+
+
+__all__ = ["MHA", "InferenceParams", "ParallelMHA", "alibi_slopes", "draw_dropout_seed",
+           "parallel_mha_state_dict"]

@@ -25,8 +25,8 @@ back bf16, where JAX keeps it fp32 (``preferred_element_type``); the GELU
 and the combine run in fp32 either way.
 
 The expert-parallel forms (``moe_forward_expert_parallel``,
-``moe_apply_sharded``) wait for the port's ``parallel/`` (ROADMAP A15)
-and raise.
+``moe_apply_sharded``) wait for the training half of the port's
+``parallel/`` (ROADMAP A15b) and raise.
 """
 
 from __future__ import annotations
@@ -158,18 +158,16 @@ def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, top_k: int = 2
 
 
 def moe_forward_expert_parallel(*args, **kwargs):
-    """Expert parallelism (two all_to_all hops a layer in JAX) waits for the
-    port's ``parallel/`` (ROADMAP A15)."""
+    """Expert parallelism (two all_to_all hops a layer in JAX) is not
+    ported yet (ROADMAP A15b)."""
     raise NotImplementedError(
-        "moe_forward_expert_parallel: expert parallelism needs the port's parallel/ "
-        "(ROADMAP A15), which is not ported yet")
+        "moe_forward_expert_parallel: expert parallelism is not ported yet (ROADMAP A15b)")
 
 
 def moe_apply_sharded(*args, **kwargs):
-    """The sharded MoE entry waits for the port's ``parallel/`` (ROADMAP A15)."""
+    """The sharded MoE entry is not ported yet (ROADMAP A15b)."""
     raise NotImplementedError(
-        "moe_apply_sharded: expert parallelism needs the port's parallel/ (ROADMAP A15), "
-        "which is not ported yet")
+        "moe_apply_sharded: expert parallelism is not ported yet (ROADMAP A15b)")
 
 
 class MoEMlp(nn.Module):

@@ -5,7 +5,7 @@ from liteattention_torch.ops.attention_ref import (
     attention_ref,
     skip_votes_ref_gather,
 )
-from liteattention_torch.ops.combine import combine_attention
+from liteattention_torch.ops.combine import combine_attention, combine_attention_psum
 from liteattention_torch.ops.flash_bwd import flash_attention_bwd
 from liteattention_torch.ops.flash_fwd import (
     flash_attention,
@@ -41,6 +41,7 @@ __all__ = [
     "flash_attention_bwd",
     "paged_attention",
     "combine_attention",
+    "combine_attention_psum",
     "lite_flash_attention",
     "mla_decode",
     "SkipMaskState",

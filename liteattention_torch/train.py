@@ -24,7 +24,7 @@ trainer groups fill ``TrainConfig`` (``learning_rate`` is ``--lr``,
 ``checkpoint_dir`` ``--ckpt-dir``, ``warmup_steps`` defaults to a tenth of
 the steps). Keys of features not ported yet raise: ``run.data_parallel``
 and the trainer's ``shard_opt_state`` / ``shard_grads`` /
-``grad_comm_dtype`` (ROADMAP A15).
+``grad_comm_dtype`` (ROADMAP A15b).
 
   python -m liteattention_torch.train --config configs/config.yaml \\
       experiment=gpt2s-moe run.steps=20 --device cpu
@@ -97,7 +97,7 @@ def apply_config_tree(args):
     args.metrics_jsonl = r.get("metrics_jsonl", args.metrics_jsonl)
     if r.get("data_parallel"):
         raise NotImplementedError("run.data_parallel: data parallelism is not ported yet "
-                                  "(ROADMAP A15)")
+                                  "(ROADMAP A15b)")
     if args.model not in ("gpt2", "llama"):
         raise ValueError(f"model.family {args.model!r}: gpt2 or llama")
     fields = [f.name for f in dataclasses.fields(TrainConfig)]

@@ -95,7 +95,7 @@ class Trainer:
                 or config.grad_comm_dtype is not None):
             raise NotImplementedError(
                 "Trainer: mesh, shard_opt_state, shard_grads and grad_comm_dtype "
-                "(data parallelism, ZeRO) are not ported yet (ROADMAP A15)"
+                "(data parallelism, ZeRO) are not ported yet (ROADMAP A15b)"
             )
         self.device = resolve_device(device)
         params = dict(model.named_parameters())

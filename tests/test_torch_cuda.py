@@ -2000,3 +2000,75 @@ def test_flash_decode_long_q_in_pieces(dev):
     assert flash_attention_decode.launches == n0 + 2
     ro, rl = flash_attention_decode_plain(q, kc, vc, kv_bound=bound, causal=True)
     _check_decode(out, lse, ro, rl)
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """A one-rank gloo group in this process (gloo carries CUDA tensors for
+    the collectives these paths take at one rank) and its DeviceMesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield DeviceMesh("cuda", [0], mesh_dim_names=("sp",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_seq_parallel_at_one_rank_is_the_engine(dev, world1):
+    """make_seq_parallel_attention at one rank runs B2 and B3 as
+    lite_attention_step does, and the merge of one partial changes no bit."""
+    from liteattention_torch.lite_attention import lite_attention_step
+    from liteattention_torch.ops.mask import init_mask
+    from liteattention_torch.parallel import make_seq_parallel_attention
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    q, k, v = (torch.randn(1, 8, 2000, 128, generator=g, device=dev).bfloat16() for _ in range(3))
+    init_fn, step_fn = make_seq_parallel_attention(world1, "sp")
+    with pytest.raises(ValueError, match="must divide evenly"):
+        init_fn(1, 8, 2000, 2000, 128)
+    st = init_mask(1, 8, 2000, 2000, 128, 128, device=dev)
+    one = st
+    for thr in (0.0, 1.0):
+        so, sl, st = step_fn(st, q, k, v, thr)
+        oo, ol, one = lite_attention_step(one, q, k, v, thr, return_lse=True)
+        assert torch.equal(so, oo) and torch.equal(sl, ol)
+        assert torch.equal(st.do_mask, one.do_mask)
+
+
+def test_ring_and_ulysses_at_one_rank_are_b1_and_b7(dev, world1):
+    from liteattention_torch.parallel import ring_self_attention, ulysses_self_attention
+
+    g = torch.Generator(device=dev).manual_seed(72)
+    q = torch.randn(1, 8, 1000, 128, generator=g, device=dev).bfloat16().requires_grad_()
+    k, v = (torch.randn(1, 2, 1000, 128, generator=g, device=dev).bfloat16().requires_grad_()
+            for _ in range(2))
+    dout = torch.randn(1, 8, 1000, 128, generator=g, device=dev).bfloat16()
+    ref = flash_attention(q, k, v, causal=True)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for fn in (ring_self_attention, ulysses_self_attention):
+        out = fn(q, k, v, world1, "sp", causal=True)
+        assert torch.equal(out, ref)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        for a, b in zip(got, want):
+            assert _rel_l2(a, b)[0] < 1e-2
+
+
+def test_gpt_tp_apply_at_one_rank(dev, world1):
+    from liteattention_torch.models import GPTConfig, GPTLMHeadModel
+    from liteattention_torch.models.gpt import gpt_tp_apply, gpt_tp_state_dict
+
+    cfg = GPTConfig(vocab_size=1024, max_position_embeddings=512, dim=512, num_layers=2,
+                    num_heads=8, mlp_relu=True)
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(73))
+    ids = torch.randint(0, 1024, (2, 300), device=dev)
+    with torch.no_grad():
+        ref = model(ids)
+        got = gpt_tp_apply(cfg, gpt_tp_state_dict(cfg, model.state_dict(), 0, 1), ids,
+                           world1.get_group("sp"))
+    err = ((got - ref).norm() / ref.norm()).item()
+    assert got.shape == ref.shape and err < 2e-2  # the out-projection bias added after the sum

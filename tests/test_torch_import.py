@@ -31,6 +31,7 @@ def test_imports_with_jax_blocked():
         "import liteattention_torch.utils.benchmark, liteattention_torch.models.vit\n"
         "import liteattention_torch.modules.moe, liteattention_torch.layers.patch_embed\n"
         "from liteattention_torch.training import config_tree, metrics, diagnostics\n"
+        "import liteattention_torch.parallel, liteattention_torch.parallel.tensor_parallel\n"
         "import chip_smoke\n"
         "loaded = {m.split('.')[0] for m in sys.modules if sys.modules[m]}\n"
         "assert not loaded & {'jax', 'flax', 'liteattention_tpu'}, loaded\n"
@@ -77,19 +78,21 @@ NOT_PORTED = set()
 
 
 # Names of the JAX subpackages that the port does not have yet (ROADMAP
-# queue A): the psum-merge and the unmerged vote oracle, the TPU-only
-# schedule unpacker, and the tensor-parallel MHA and MLP (A15).
+# queue A): the unmerged vote oracle, the TPU-only schedule unpacker, and
+# pipeline parallelism (A15b).
 NOT_PORTED_SUBPACKAGES = {
     "skip_votes_ref",
-    "combine_attention_psum",
     "unpack_schedule",
-    "ParallelMHA",
-    "ParallelMLP",
+    "pipeline_apply",
+    "pipeline_apply_local",
 }
 
 # Names the port's subpackages export beside JAX's: the two ALiBi families'
-# configs, which the JAX package keeps in models/configs.py only.
-PORT_EXTRAS = {"models/__init__.py": {"baichuan_config", "btlm_config"}}
+# configs, which the JAX package keeps in models/configs.py only, and the
+# sequence-parallel step, which the JAX module has but its package does
+# not export.
+PORT_EXTRAS = {"models/__init__.py": {"baichuan_config", "btlm_config"},
+               "parallel/__init__.py": {"seq_parallel_attention_step"}}
 
 
 @pytest.mark.parametrize(
@@ -97,7 +100,9 @@ PORT_EXTRAS = {"models/__init__.py": {"baichuan_config", "btlm_config"}}
                 "modules/__init__.py", "layers/__init__.py", "training/__init__.py",
                 "utils/__init__.py", "modules/moe.py", "training/config_tree.py",
                 "training/metrics.py", "training/diagnostics.py", "utils/benchmark.py",
-                "utils/pretrained.py", "models/vit.py", "layers/patch_embed.py"]
+                "utils/pretrained.py", "models/vit.py", "layers/patch_embed.py",
+                "parallel/__init__.py", "parallel/seq_parallel.py", "parallel/ring_attention.py",
+                "parallel/tensor_parallel.py", "ops/combine.py"]
 )
 def test_exports_match_the_jax_package(relpath):
     import importlib

@@ -143,10 +143,12 @@ def test_denoise_dense_equals_full_mask_lite(models):
 
 
 def test_unported_options_raise():
-    # Only sequence parallelism waits (ROADMAP A15); remat and the probe
-    # are ported (tests/test_torch_wan_train.py), as are the I2V inputs
-    # (tests/test_torch_wan_i2v.py).
+    # Every option is ported: remat and the probe
+    # (tests/test_torch_wan_train.py), the I2V inputs
+    # (tests/test_torch_wan_i2v.py) and sequence parallelism
+    # (tests/test_torch_parallel.py), which needs the DeviceMesh whose dim
+    # sp_axis names.
     for opt in (dict(remat=True), dict(attn_probe_rows=4)):
         WanModel(dataclasses.replace(WanConfig.tiny(), **opt), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs the DeviceMesh"):
         WanModel(dataclasses.replace(WanConfig.tiny(), sp_axis="sp"), device="cpu")
