@@ -379,6 +379,23 @@ Phases (any failure exits non-zero and prints no result line):
    point-to-point, so the ring runs across ranks only on the CPU. The ranks' times are printed as they are: two ranks share
    one card, so they are no measure of parallel speed. The kernels line's
    launches gain these paths (summed over the ranks).
+23. (Runs after 22.) The training half of parallel/ at two ranks sharing
+   the card over gloo: (a) ``train.py`` with ``run.data_parallel=true`` on
+   phase 17's gpt2s-moe run (GPT-2 small's width and depth, 4 experts,
+   8 x 1024 tokens a global batch), 4 steps of ZeRO-2 with the bfloat16
+   wire, then 2 steps each of plain data parallelism and ZeRO-1, each
+   against the one-rank run on the same batches (loss, grad norm, the
+   gathered parameters, bit-equal on the ranks; each rank's AdamW state
+   about half the one rank's under ZeRO); (b) OPT-1.3B at tp 2, one
+   training forward and backward of 2 x 1024 tokens through
+   ``GPTLMHeadModel(cfg, group=g)`` and ``parallel_cross_entropy_loss``,
+   the loss and every gradient shard against the dense model; (c)
+   ``pipeline_apply`` over GPT-2 XL's 48 blocks at pp 2, 4 x 1024 tokens
+   in 4 microbatches, the output and each stage's gradients against the
+   blocks run one after another; (d) ``moe_apply_sharded`` at ep 2 at
+   GPT-2 small MoE's layer, 8 x 1024 tokens a rank, against
+   ``moe_forward`` over each rank's tokens. B1's and B7's launches are
+   counted on each rank in (a)-(c) and added to the kernels line.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -8104,10 +8121,10 @@ def _nccl1_body(rank, dev, mesh, card):
             "stats": {"ring": stats, "world1_equal": same, "world1_rel_l2": close}}
 
 
-def parallel_rank(rank, world, backend, out_dir, card):
-    """A spawned rank of phase 22: joins the group through a file in
-    ``out_dir``, runs its part, writes its counts and stats (or its
-    failure) to ``out_dir``."""
+def parallel_rank(rank, world, backend, out_dir, card, body=None):
+    """A spawned rank of phase 22 or 23: joins the group through a file in
+    ``out_dir``, runs its part (``body``; phase 22's by default), writes
+    its counts and stats (or its failure) to ``out_dir``."""
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.distributed as dist
@@ -8122,7 +8139,8 @@ def parallel_rank(rank, world, backend, out_dir, card):
         dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank,
                                 world_size=world)
         mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("sp",))
-        body = _pair_body if world > 1 else _nccl1_body
+        if body is None:
+            body = _pair_body if world > 1 else _nccl1_body
         result = body(rank, dev, mesh, card)
         dist.barrier()
         path.write_text(json.dumps(result))
@@ -8137,16 +8155,18 @@ def parallel_rank(rank, world, backend, out_dir, card):
             dist.destroy_process_group()
 
 
-def _spawn_ranks(world, backend, card):
-    """Run ``world`` ranks of phase 22 over ``backend``; every rank's
-    result (a failure of any fails the phase; every process is stopped)."""
+def _spawn_ranks(world, backend, card, body=None, label="phase 22"):
+    """Run ``world`` ranks of ``body`` (phase 22's by default) over
+    ``backend``; every rank's result (a failure of any fails the phase;
+    every process is stopped)."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as out_dir:
-        procs = [ctx.Process(target=parallel_rank, args=(r, world, backend, out_dir, card))
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, world, backend, out_dir, card, body))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -8167,7 +8187,7 @@ def _spawn_ranks(world, backend, card):
             if "error" in res:
                 log(res.get("trace", ""))
             check("error" not in res and p.exitcode == 0,
-                  f"phase 22: {backend} rank {r} of {world} failed: {res.get('error')}")
+                  f"{label}: {backend} rank {r} of {world} failed: {res.get('error')}")
             results.append(res)
     return results
 
@@ -8199,6 +8219,516 @@ def parallel_phase(dev, card):
              "seconds": {"gloo_pair": t1 - t0, "nccl_world1": t2 - t1}}
     log(f"  phase 22 launches (summed over ranks): {counts}")
     return counts, stats
+
+
+# ---------------------------------------------------------------- phase 23
+
+# The training half of parallel/ at two ranks sharing the one card over gloo
+# (NCCL refuses two ranks on one device), each at the published width of a
+# model the repo trains or serves. Times of two ranks on one card over gloo
+# are no measure of parallel speed: gloo stages every CUDA collective
+# through the host.
+# (a) run.data_parallel through train.py: phase 17's gpt2s-moe run (GPT-2
+# small's width and depth, 4 experts top-2, 8 x 1024 tokens a global
+# batch), 4 steps of ZeRO-2 with the bfloat16 wire, then 2 steps each of
+# plain data parallelism, ZeRO-1 and ZeRO-2 (its reduce-scatter: the wire
+# takes the all-reduce); each against the unmodified one-rank run on the
+# same global batches (the ranks' MoE layers route the global batch as one
+# device does, modules/moe.py:data_parallel_routing). Tolerances are JAX's
+# own for its data-parallel step against one device
+# (tests/test_training.py): loss 2e-3 absolute and grad norm 2e-2
+# relative; with the bfloat16 wire JAX's bounds for that wire, 2e-2 and
+# 5e-2. Once the parameters have moved (the steps after the first update
+# with lr > 0), the grad norm within DP_MOVED_GN_RTOL: these early AdamW
+# steps amplify rounding, so that at step 4 two runs of the same
+# ZeRO-2 + bf16 code already part by 2.27e-2-3.14e-2 and the data-parallel
+# run lies 1.87e-2-5.21e-2 from the one rank (3 x 2 pairs; dp_spread.py on
+# the H100), against 1.0e-3 and less at the initial parameters. The update
+# (the parameters less their initial values) within DP_UPDATE_TOL rel-L2 of
+# the one-rank run's: an update skipped reads 1, one of the wrong sign 2,
+# ZeRO slices never gathered back 1 (half of them 0.7); the first step's lr
+# is 0, so the loss and the grad norm of a 2-step run see no update. The
+# sound run reads about 0.18 on the H100: the one rank multiplies 8192 rows
+# where a rank multiplies 4096, so the bf16 products round otherwise, and
+# AdamW's first steps, near sign(g), flip the elements whose gradient is
+# that noise. Before the runs, the routing itself is held
+# exactly: at GPT-2 small MoE's layer (768 wide, 4 experts top-2) over 8 x
+# 1024 bf16 tokens, each rank's half routed over the group takes the same
+# experts and drops the same (token, slot) pairs as one device routing
+# all of them, at the model's capacity factor and at DP_ROUTE_FACTORS' 0.5
+# (many drops); the ranks' aux losses average to the whole batch's within
+# EP_AUX_RTOL. Routing each half alone is logged beside it.
+DP_BASE = [o for o in MOE_OVERRIDES if not o.startswith("run.steps=")]
+DP_RUNS = [("zero2_bf16", 4, ["trainer.shard_grads=true", "trainer.grad_comm_dtype=bfloat16"]),
+           ("plain", 2, []), ("zero1", 2, ["trainer.shard_opt_state=true"]),
+           ("zero2", 2, ["trainer.shard_grads=true"])]
+DP_LOSS_ATOL, DP_GN_RTOL = 2e-3, 2e-2
+DP_BF16_LOSS_ATOL, DP_BF16_GN_RTOL = 2e-2, 5e-2
+DP_MOVED_GN_RTOL = 0.1
+DP_UPDATE_TOL = 0.5
+DP_ROUTE_FACTORS = (1.25, 0.5)
+# ZeRO-1/2 hold each AdamW state tensor's half on a rank.
+DP_STATE_SHARE = 0.55
+# (b) OPT-1.3B (phase 22's model, full depth) at tp 2: one training
+# forward and backward, 2 x 1024 tokens, through GPTLMHeadModel(cfg,
+# group=g) and parallel_cross_entropy_loss, against the one-rank dense
+# model with cross_entropy_loss: the loss 1e-2 relative; all the rank's
+# gradient shards together within SMALL_GRAD_TOL (5e-2 rel-L2: both bf16,
+# the row-parallel sums of bf16 partials in another order), and each
+# tensor within GRAD_TENSOR_TOL (a norm's bias gradient is a sum over
+# tokens that mostly cancels, so its rounding reads large; a missing sum
+# over the ranks or a wrong shard reads 0.5 or more). The witness that
+# the gap is bf16's rounding: at this shape the dense bf16 model's
+# gradient shards lie 4.64e-2 from the same model's in fp32
+# (tp_grad_witness.py on the H100), and the tensor-parallel shards read
+# 4.03e-2-4.04e-2 from the dense bf16 ones in every run.
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 2, 1024
+TP_LOSS_RTOL = 1e-2
+GRAD_TENSOR_TOL = 0.2
+# (c) pipeline_apply at pp 2 over GPT-2 XL's 48 blocks
+# (openai-community/gpt2-xl config.json: n_embd 1600, n_layer 48, n_head
+# 25), 24 a stage, 4 x 1024 tokens in 4 microbatches, forward and backward,
+# against the same stages run one after another on one rank, microbatch by
+# microbatch: the output rel-L2 1e-6 (the same kernels on the same shapes;
+# the hop copies), the stage's gradients together 1e-2 (B7's dQ adds by
+# atomics, and the two accumulate the microbatches in other orders) and
+# each tensor within GRAD_TENSOR_TOL.
+PP_DIM, PP_LAYERS, PP_HEADS = 1600, 48, 25
+PP_BATCH, PP_SEQ, PP_MICRO = 4, 1024, 4
+PP_OUT_TOL, PP_GRAD_TOL = 1e-6, 1e-2
+# (d) moe_apply_sharded at ep 2: GPT-2 small MoE's layer (768 -> 3072, 4
+# experts, 2 a rank, bf16 experts, the fp32 router), 8 x 1024 tokens a
+# rank, against moe_forward on one rank over each rank's tokens at the same
+# capacity: the output and the gradients 2e-2 rel-L2 (MOE_LAYER_TOL; the
+# experts' products over other row counts), the aux loss 1e-5 relative.
+EP_TOKENS, EP_DIM, EP_HIDDEN, EP_EXPERTS = 8 * 1024, 768, 3072, 4
+EP_AUX_RTOL = 1e-5
+PP_SEED, TP_TRAIN_SEED, EP_SEED = 2424, 2525, 2626
+
+
+def _param_sums(params):
+    """Per tensor (sum, sum of squares) in float64: equal on two ranks
+    that hold the same bits."""
+    return {k: [float(v.double().sum()), float(v.double().square().sum())]
+            for k, v in params.items()}
+
+
+def _dp_train_run(rank, card, name, steps, extra, data_parallel=True):
+    """One ``liteattention_torch.train.run`` of DP_BASE for ``steps``
+    steps (the counted run when data-parallel; without ``data_parallel``
+    the one-rank run, and at 0 steps the initial parameters): its records,
+    its parameters (a copy), the AdamW state bytes this rank holds and the
+    launches."""
+    import torch
+    from liteattention_torch import train as train_cli
+    from liteattention_torch.training.trainer import warmup_cosine_lr
+
+    root = str(ROOT / "configs" / "config.yaml")
+    argv = ["--config", root, *DP_BASE, f"run.steps={steps}",
+            *(["run.data_parallel=true", *extra] if data_parallel else []),
+            "--device", "cuda", "--log-every", "1"]
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = []
+    trainer = train_cli.run(argv, log_fn=recs.append)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    state_bytes = sum(v.numel() * v.element_size() for st in trainer.opt.state.values()
+                      for v in st.values() if torch.is_tensor(v))
+    params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    lrs = [warmup_cosine_lr(trainer.cfg, i) for i in range(steps)]
+    out = dict(recs=[{k: r[k] for k in ("loss", "grad_norm", "steps_per_s")} for r in recs],
+               state_bytes=state_bytes, world=trainer.world, lrs=lrs, lr_sum=sum(lrs),
+               ms_per_step=[1e3 / r["steps_per_s"] for r in recs])
+    if data_parallel:
+        _rank_log(rank, f"(a) {name}: {steps} steps at dp {trainer.world} "
+                  f"(ZeRO split dims {sum(d is not None for d in trainer.shard_dims.values())} of "
+                  f"{len(trainer.shard_dims) or len(params)} tensors, wire "
+                  f"{trainer.comm_dtype}): loss {[round(r['loss'], 4) for r in recs]}, ms/step "
+                  f"{[round(m, 1) for m in out['ms_per_step']]}, AdamW state on this rank "
+                  f"{state_bytes / 1e9:.3f} GB; launches {counts['flash_fwd']} B1, "
+                  f"{counts['flash_bwd_dq']} B7 [{card}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return out, params, counts
+
+
+def _dp_routing_check(dev, group, card, rank):
+    """(a)'s routing: each rank's half of 8 x 1024 tokens routed over the
+    group against one device routing all of them (and against the half
+    routed alone)."""
+    import torch
+    import torch.distributed as dist
+    from liteattention_torch.modules.moe import _route_indices, capacity_for, init_moe_params
+
+    g = torch.Generator(device=dev).manual_seed(EP_SEED + 1)
+    params = init_moe_params(g, EP_DIM, EP_HIDDEN, EP_EXPERTS, torch.bfloat16, device=dev)
+    x = torch.randn(EP_TOKENS, EP_DIM, generator=g, device=dev).bfloat16()
+    n, r = group.size(), group.rank()
+    t = EP_TOKENS // n
+    mine = slice(r * t, (r + 1) * t)
+    out = {}
+    for factor in DP_ROUTE_FACTORS:
+        cap = capacity_for(EP_TOKENS, EP_EXPERTS, 2, factor)
+        _, e_all, _, _, k_all, aux_all = _route_indices(x, params["router"], 2, cap)
+        _, e_dp, _, _, k_dp, aux_dp = _route_indices(x[mine], params["router"], 2, cap, group)
+        _, _, _, _, k_alone, _ = _route_indices(x[mine], params["router"], 2,
+                                                capacity_for(t, EP_EXPERTS, 2, factor))
+        aux_dp = aux_dp.clone()
+        dist.all_reduce(aux_dp, group=group)
+        aux_err = abs(float(aux_dp) / n - float(aux_all)) / float(aux_all)
+        moved = int((e_dp != e_all[mine]).sum()) + int((k_dp != k_all[mine]).sum())
+        alone = int((k_alone != k_all[mine]).sum())
+        out[str(factor)] = dict(dropped=float(1 - k_all.float().mean()), moved=moved,
+                                moved_alone=alone, aux_rel_err=aux_err)
+        _rank_log(rank, f"(a) routing at capacity factor {factor} ({cap} slots an expert, "
+                  f"{out[str(factor)]['dropped']:.4f} of (token, slot) pairs dropped): this "
+                  f"rank's {t} tokens routed over the group differ from one device's in {moved} "
+                  f"experts and drops, routed alone in {alone} drops; aux rel {aux_err:.2e} "
+                  f"[{card}]")
+        check(moved == 0, f"(a) routing over the group departs from one device's at {factor}")
+        check(aux_err <= EP_AUX_RTOL, f"(a) the ranks' aux losses at {factor} do not average "
+              "to one device's")
+    check(out["0.5"]["moved_alone"] > 0, "(a) routing alone drops what one device drops: "
+          "the check cannot tell the two apart")
+    return out
+
+
+def _dp_phase(rank, group, card):
+    """(a): the data-parallel runs on both ranks; on rank 0 the one-rank
+    runs on the same global batches, and the checks."""
+    import torch
+    import torch.distributed as dist
+
+    routing = _dp_routing_check(torch.device("cuda", 0), group, card, rank)
+    counts, runs, params = {}, {}, {}
+    for name, steps, extra in DP_RUNS:
+        runs[name], params[name], c = _dp_train_run(rank, card, name, steps, extra)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        runs[name]["param_sums"] = _param_sums(params[name])
+    stats = {"runs": runs, "routing": routing}
+    failed = []
+    if rank == 0:
+        refs = {}
+        _, init, _ = _dp_train_run(rank, card, "initial", 0, [], data_parallel=False)
+
+        def update(p):
+            return torch.cat([(p[k].float() - v.float()).flatten() for k, v in init.items()])
+
+        for steps in sorted({s for _, s, _ in DP_RUNS}):
+            refs[steps], ref_params, _ = _dp_train_run(rank, card, "one rank", steps, [],
+                                                       data_parallel=False)
+            for name, s, _ in DP_RUNS:
+                if s != steps:
+                    continue
+                run, got = runs[name], params[name]
+                worst = max((float((got[k].float() - v.float()).abs().max()), k)
+                            for k, v in ref_params.items())
+                rel = rel_l2(torch.cat([v.float().flatten() for v in got.values()]),
+                             torch.cat([v.float().flatten() for v in ref_params.values()]))
+                upd = rel_l2(update(got), update(ref_params))
+                dl = [abs(a["loss"] - b["loss"]) for a, b in zip(run["recs"], refs[steps]["recs"])]
+                dg = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                      for a, b in zip(run["recs"], refs[steps]["recs"])]
+                share = run["state_bytes"] / refs[steps]["state_bytes"]
+                loss_tol, gn_tol = ((DP_BF16_LOSS_ATOL, DP_BF16_GN_RTOL) if "bf16" in name
+                                    else (DP_LOSS_ATOL, DP_GN_RTOL))
+                lrs = refs[steps]["lrs"]
+                gn_tols = [DP_MOVED_GN_RTOL if sum(lrs[:i]) > 0 else gn_tol
+                           for i in range(len(dg))]
+                _rank_log(rank, f"(a) {name} against the one-rank run: loss |diff| "
+                          f"{[f'{x:.2e}' for x in dl]} (bound {loss_tol}), grad norm rel "
+                          f"{[f'{x:.2e}' for x in dg]} (bounds {gn_tols}); the update's rel-L2 "
+                          f"{upd:.3e} (bound {DP_UPDATE_TOL}); parameters: largest |diff| "
+                          f"{worst[0]:.3e} in {worst[1]} (sum of lr {refs[steps]['lr_sum']:.2e}), "
+                          f"rel-L2 of all {rel:.3e}; AdamW state on a rank {share:.4f} of the "
+                          f"one rank's {refs[steps]['state_bytes'] / 1e9:.3f} GB")
+                # Every run logs before a failure is raised.
+                failed += [f"(a) {name}: {what}" for ok, what in (
+                    (max(dl) <= loss_tol, "the loss departs from one rank's"),
+                    (all(d <= b for d, b in zip(dg, gn_tols)),
+                     "the grad norm departs from one rank's"),
+                    (upd <= DP_UPDATE_TOL, "the update departs from one rank's"),
+                    ((share <= DP_STATE_SHARE) == (name != "plain"),
+                     f"the AdamW state a rank holds is {share:.3f} of one rank's")) if not ok]
+                run.update(loss_abs_diff=dl, grad_norm_rel_diff=dg, update_rel_l2=upd,
+                           param_max_abs_diff=worst[0], param_rel_l2=rel, state_share=share)
+            del ref_params
+            torch.cuda.empty_cache()
+        del init
+        stats["one_rank"] = refs
+    dist.barrier(group)
+    check(not failed, "; ".join(failed))
+    want = 12 * sum(s for _, s, _ in DP_RUNS)
+    check(counts["flash_fwd"] == want and counts["flash_bwd_dq"] == want,
+          f"(a) {counts['flash_fwd']} B1 and {counts['flash_bwd_dq']} B7 launches on rank "
+          f"{rank}, not {want} each (12 a step)")
+    del params
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def tp_grad_apart(got, want):
+    """(b)'s comparison of gradient shards: per tensor rel-L2, and all the
+    tensors together (float64, on ``want``'s device)."""
+    import torch
+
+    errs, diff2, ref2 = {}, 0.0, 0.0
+    for k, w in want.items():
+        g, w = got[k].double().to(w.device), w.double()
+        if k.endswith("Wqkv.bias"):  # q | k | v local: the k part's exact gradient is 0
+            dl = w.shape[0] // 3
+            keep = torch.cat([torch.arange(dl), torch.arange(2 * dl, 3 * dl)]).to(w.device)
+            g, w = g[keep], w[keep]
+        errs[k] = rel_l2(g, w)
+        diff2 += float((g - w).square().sum())
+        ref2 += float(w.square().sum())
+    return errs, math.sqrt(diff2 / ref2)
+
+
+def _tp_train_step(dev, group, card, rank):
+    """(b): OPT-1.3B at tp 2, one training forward and backward."""
+    import torch
+    from liteattention_torch.losses import cross_entropy_loss, parallel_cross_entropy_loss
+    from liteattention_torch.models import GPTLMHeadModel, opt_config
+    from liteattention_torch.models.gpt import gpt_tp_state_dict
+
+    cfg = opt_config(**OPT_KW)
+    tp, r = group.size(), group.rank()
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(TP_TRAIN_SEED))
+    ids = torch.randint(0, cfg.vocab_size, (TP_TRAIN_BATCH, TP_TRAIN_SEQ), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(TP_TRAIN_SEED + 1))
+    dense_loss = cross_entropy_loss(model(ids)[:, :-1], ids[:, 1:])
+    dense_loss.backward()
+    grads = gpt_tp_state_dict(cfg, {k: p.grad for k, p in model.named_parameters()}, r, tp)
+    grads = {k: v.clone() for k, v in grads.items()}
+    shard = {k: v.detach().clone() for k, v in
+             gpt_tp_state_dict(cfg, {k: p.detach() for k, p in model.named_parameters()},
+                               r, tp).items()}
+    dense_loss = dense_loss.item()
+    del model
+    torch.cuda.empty_cache()
+    tp_model = GPTLMHeadModel(cfg, device=dev, group=group)
+    tp_model.load_state_dict(shard)
+    del shard
+    torch.distributed.barrier(group)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = parallel_cross_entropy_loss(tp_model(ids)[:, :-1], ids[:, 1:], group)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    errs, whole = tp_grad_apart({k: p.grad for k, p in tp_model.named_parameters()}, grads)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    loss_err = abs(float(loss) - dense_loss) / dense_loss
+    _rank_log(rank, f"(b) OPT-1.3B at tp {tp}, {TP_TRAIN_BATCH} x {TP_TRAIN_SEQ} tokens: loss "
+              f"{float(loss):.5f} against the dense model's {dense_loss:.5f} (rel {loss_err:.2e}, "
+              f"bound {TP_LOSS_RTOL}); {len(errs)} gradient shards: together rel-L2 {whole:.3e} "
+              f"(bound {SMALL_GRAD_TOL}), the largest alone {worst[1]:.3e} ({worst[0]}; bound "
+              f"{GRAD_TENSOR_TOL}); {ms:.1f} ms forward and "
+              f"backward (two ranks share one card); launches {counts['flash_fwd']} B1, "
+              f"{counts['flash_bwd_dq']} B7 [{card}]")
+    check(loss_err <= TP_LOSS_RTOL, "(b) the tensor-parallel loss departs from the dense model's")
+    check(whole <= SMALL_GRAD_TOL, "(b) the gradient shards depart from the dense model's")
+    check(worst[1] <= GRAD_TENSOR_TOL, f"(b) the gradient of {worst[0]} departs from the dense "
+          "model's shard")
+    check(counts["flash_fwd"] == cfg.num_layers and counts["flash_bwd_dq"] == cfg.num_layers,
+          f"(b) {counts['flash_fwd']} B1 and {counts['flash_bwd_dq']} B7 launches, not "
+          f"{cfg.num_layers} each")
+    del tp_model, grads
+    torch.cuda.empty_cache()
+    return counts, dict(loss=float(loss), dense_loss=dense_loss, loss_rel_err=loss_err,
+                        grad_shards=len(errs), grad_rel_l2=whole, worst_grad=list(worst), ms=ms)
+
+
+def _block_stage(blocks):
+    """A pipeline stage over pre-norm ``blocks``: an nn.Module carrying the
+    residual stream between stages as one tensor (each stage starts its
+    first block with no separate residual)."""
+    import torch
+
+    class Stage(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.blocks = torch.nn.ModuleList(blocks)
+
+        def forward(self, x):
+            h, res = x, None
+            for blk in self.blocks:
+                h, res = blk(h, res)
+            return (h.float() + res).to(x.dtype)
+
+    return Stage()
+
+
+def _pipeline_run(dev, mesh, card, rank):
+    """(c): pipeline_apply over GPT-2 XL's blocks at pp 2."""
+    import torch
+    from liteattention_torch.models import GPTLMHeadModel, gpt2_config
+    from liteattention_torch.parallel import pipeline_apply
+
+    group = mesh.get_group("sp")
+    n, r = group.size(), group.rank()
+    cfg = gpt2_config(dim=PP_DIM, num_layers=PP_LAYERS, num_heads=PP_HEADS)
+    model = GPTLMHeadModel(cfg, device=dev)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(PP_SEED))
+    blocks = list(model.transformer.blocks)
+    per = PP_LAYERS // n
+    stages = [_block_stage(blocks[i * per:(i + 1) * per]) for i in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(PP_SEED + 1)
+    x = torch.randn(PP_BATCH, PP_SEQ, PP_DIM, generator=gen, device=dev).to(cfg.dtype)
+    cot = torch.randn(PP_BATCH, PP_SEQ, PP_DIM, generator=gen, device=dev)
+    mb = PP_BATCH // PP_MICRO
+    ref = []
+    for i in range(PP_MICRO):  # the sequential model, microbatch by microbatch
+        y = x[i * mb:(i + 1) * mb]
+        for st in stages:
+            y = st(y)
+        (y.float() * cot[i * mb:(i + 1) * mb]).sum().backward()
+        ref.append(y.detach())
+    ref = torch.cat(ref)
+    mine = stages[r]
+    ref_grads = {k: p.grad.clone() for k, p in mine.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    for i, st in enumerate(stages):
+        if i != r:
+            st.requires_grad_(False)
+    torch.cuda.empty_cache()
+    torch.distributed.barrier(group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    y = pipeline_apply(mine, None, x, mesh, "sp", num_microbatches=PP_MICRO)
+    (y.float() * cot).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out_err = rel_l2(y.float(), ref.float())
+    errs = {k: rel_l2(p.grad, ref_grads[k]) for k, p in mine.named_parameters()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    whole = rel_l2(torch.cat([p.grad.flatten() for p in mine.parameters()]),
+                   torch.cat([ref_grads[k].flatten() for k, _ in mine.named_parameters()]))
+    _rank_log(rank, f"(c) GPT-2 XL's {PP_LAYERS} blocks at pp {n} ({per} a stage), "
+              f"{PP_BATCH} x {PP_SEQ} tokens in {PP_MICRO} microbatches: output rel-L2 against "
+              f"the sequential blocks {out_err:.3e} (bound {PP_OUT_TOL}); this stage's "
+              f"{len(errs)} gradients together {whole:.3e} (bound {PP_GRAD_TOL}), the largest "
+              f"alone {worst[1]:.3e} ({worst[0]}; bound {GRAD_TENSOR_TOL}); {ms:.1f} ms forward "
+              f"and backward (two ranks share one card, "
+              f"{PP_MICRO + n - 1} ticks), peak {peak:.1f} GB on this rank; launches "
+              f"{counts['flash_fwd']} B1, {counts['flash_bwd_dq']} B7 [{card}]")
+    check(out_err <= PP_OUT_TOL, "(c) the pipeline's output departs from the sequential blocks'")
+    check(whole <= PP_GRAD_TOL, "(c) the stage's gradients depart from the sequential model's")
+    check(worst[1] <= GRAD_TENSOR_TOL, f"(c) the gradient of {worst[0]} departs from the "
+          "sequential model's")
+    want = per * PP_MICRO
+    check(counts["flash_fwd"] == want and counts["flash_bwd_dq"] == want,
+          f"(c) {counts['flash_fwd']} B1 and {counts['flash_bwd_dq']} B7 launches, not {want} "
+          f"each ({per} blocks x {PP_MICRO} microbatches)")
+    del model, blocks, stages, mine, ref_grads, y
+    torch.cuda.empty_cache()
+    return counts, dict(out_rel_l2=out_err, grad_rel_l2=whole, grad_rel_l2_worst=list(worst),
+                        ms=ms, peak_gb=peak,
+                        depth=PP_LAYERS, batch=PP_BATCH, microbatches=PP_MICRO)
+
+
+def _ep_run(dev, mesh, card, rank):
+    """(d): moe_apply_sharded at ep 2 against moe_forward over each rank's
+    tokens at the same capacity."""
+    import torch
+    from liteattention_torch.modules.moe import capacity_for, init_moe_params, moe_apply_sharded
+    from liteattention_torch.modules.moe import moe_forward
+
+    n = mesh.get_group("sp").size()
+    gen = torch.Generator(device=dev).manual_seed(EP_SEED)
+    params = init_moe_params(gen, EP_DIM, EP_HIDDEN, EP_EXPERTS, dtype=torch.bfloat16,
+                             device=dev)
+    x = torch.randn(n * EP_TOKENS, EP_DIM, generator=gen, device=dev).to(torch.bfloat16)
+    cot = torch.randn(n * EP_TOKENS, EP_DIM, generator=gen, device=dev)
+    cap = capacity_for(EP_TOKENS, EP_EXPERTS, 2, 1.25)
+
+    def grads_of(run):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        xx = x.detach().clone().requires_grad_()
+        y, aux = run(p, xx)
+        ((y.float() * cot).sum() + 0.01 * aux).backward()
+        return y.detach(), float(aux), {"x": xx.grad, **{k: v.grad for k, v in p.items()}}
+
+    def one_rank(p, xx):
+        outs = [moe_forward(p, xx[i * EP_TOKENS:(i + 1) * EP_TOKENS], 2, capacity=cap)
+                for i in range(n)]
+        return torch.cat([o[0] for o in outs]), sum(o[1] for o in outs) / n
+
+    y_ref, aux_ref, g_ref = grads_of(one_rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux, g = grads_of(lambda p, xx: moe_apply_sharded(p, xx, mesh, "sp", capacity=cap))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    errs = {"y": rel_l2(y.float(), y_ref.float()),
+            **{k: rel_l2(v.float(), g_ref[k].float()) for k, v in g.items()}}
+    aux_err = abs(aux - aux_ref) / abs(aux_ref)
+    _rank_log(rank, f"(d) moe_apply_sharded at ep {n} ({EP_EXPERTS} experts, {EP_DIM} -> "
+              f"{EP_HIDDEN}, {EP_TOKENS} tokens a rank, capacity {cap}): rel-L2 against "
+              f"moe_forward over each rank's tokens {json.dumps({k: f'{v:.2e}' for k, v in errs.items()})} "
+              f"(bound {MOE_LAYER_TOL}), aux {aux:.6f} against {aux_ref:.6f} (rel {aux_err:.1e}, "
+              f"bound {EP_AUX_RTOL}); {ms:.1f} ms forward and backward [{card}]")
+    check(max(errs.values()) <= MOE_LAYER_TOL, "(d) the expert-parallel layer departs from "
+          "moe_forward")
+    check(aux_err <= EP_AUX_RTOL, "(d) the expert-parallel aux loss departs from moe_forward's")
+    del params, x, g, g_ref
+    torch.cuda.empty_cache()
+    return dict(rel_l2=errs, aux=aux, aux_ref=aux_ref, aux_rel_err=aux_err, capacity=cap, ms=ms)
+
+
+def _training_pair_body(rank, dev, mesh, card):
+    """Phase 23's two gloo ranks: (a) data parallelism through train.py,
+    (b) a tensor-parallel training step, (c) the pipeline, (d) expert
+    parallelism."""
+    group = mesh.get_group("sp")
+    out = {"counts": {}, "stats": {}}
+    t0 = time.perf_counter()
+    out["counts"]["dp_train"], out["stats"]["dp"] = _dp_phase(rank, group, card)
+    t1 = time.perf_counter()
+    out["counts"]["tp_train"], out["stats"]["tp_train"] = _tp_train_step(dev, group, card, rank)
+    t2 = time.perf_counter()
+    out["counts"]["pp_blocks"], out["stats"]["pp"] = _pipeline_run(dev, mesh, card, rank)
+    t3 = time.perf_counter()
+    out["stats"]["ep"] = _ep_run(dev, mesh, card, rank)
+    t4 = time.perf_counter()
+    out["stats"]["seconds"] = {"dp": t1 - t0, "tp_train": t2 - t1, "pp": t3 - t2, "ep": t4 - t3}
+    _rank_log(rank, f"sub-phase seconds {json.dumps({k: round(v, 1) for k, v in out['stats']['seconds'].items()})}")
+    return out
+
+
+def training_parallel_phase(dev, card):
+    """Phase 23: the training half of parallel/ at two ranks on the card
+    over gloo: (a) train.py run.data_parallel (ZeRO-2 with the bfloat16
+    wire, plain, ZeRO-1, ZeRO-2), (b) OPT-1.3B's tensor-parallel training step, (c)
+    pipeline_apply over GPT-2 XL's blocks, (d) moe_apply_sharded."""
+    import torch
+
+    log(f"  {SP_RANKS} ranks sharing card 0 over gloo (NCCL refuses two ranks on one device); "
+        f"their times are no measure of parallel speed; {torch.cuda.device_count()} card(s)")
+    pair = _spawn_ranks(SP_RANKS, "gloo", card, body=_training_pair_body, label="phase 23")
+    runs = [r["stats"]["dp"]["runs"] for r in pair]
+    for name, _, _ in DP_RUNS:
+        sums = [rr[name].pop("param_sums") for rr in runs]
+        check(all(x == sums[0] for x in sums[1:]),
+              f"(a) {name}: the ranks end with different parameters")
+    log(f"  (a) every rank ends each data-parallel run with the same parameters (float64 sums "
+        f"and sums of squares of all {len(sums[0])} tensors equal)")
+    counts = {}
+    for path in ("dp_train", "tp_train", "pp_blocks"):
+        per_rank = [r["counts"][path] for r in pair]
+        counts[path] = {name: sum(c[name] for c in per_rank) for name in per_rank[0]}
+    log(f"  phase 23 launches (summed over ranks): "
+        f"{json.dumps({p: {k: c[k] for k in ('flash_fwd', 'flash_bwd_dq')} for p, c in counts.items()})}")
+    return counts, {"ranks": [r["stats"] for r in pair]}
 
 
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
@@ -8630,6 +9160,12 @@ def main() -> int:
               "point and ring attention at world size 1 (NCCL)")
         p22_counts, p22_stats = parallel_phase(dev, card)
         counts.update(p22_counts)
+        phase("phase 23: the training half of parallel/ at two ranks on the card (gloo): "
+              "run.data_parallel with ZeRO-1/2 and the bfloat16 wire at gpt2s-moe, OPT-1.3B's "
+              "tensor-parallel training step, pipeline_apply over GPT-2 XL's blocks, "
+              "moe_apply_sharded")
+        p23_counts, p23_stats = training_parallel_phase(dev, card)
+        counts.update(p23_counts)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -8872,7 +9408,7 @@ def main() -> int:
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
                   (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats),
-                  (22, p22_stats)):
+                  (22, p22_stats), (23, p23_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -8895,6 +9431,8 @@ def main() -> int:
     log(f"gpt-neox family: {json.dumps(p21_stats)}")
     log(f"parallel (two ranks on one card; times are no measure of parallel speed): "
         f"{json.dumps(p22_stats)}")
+    log(f"parallel training (two ranks on one card; times are no measure of parallel speed): "
+        f"{json.dumps(p23_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -325,19 +325,20 @@ def flash_attn_varlen_func(
     each q-tile walks only its sequences' keys. ``seqused_q``/``seqused_k``
     keep each sequence's first tokens (the other q rows give out 0 and lse
     -inf); ``attention_chunk`` folds chunk membership into the ids, as JAX
-    does, so it is differentiable too. Causal (and the chunk) compare
-    positions on the packed axis, which needs the same packing of q and k:
-    ``cu_seqlens_q`` equal to ``cu_seqlens_k`` (checked on the host when
-    they are not one tensor). ``max_seqlen_*``, ``num_splits``,
+    does, so it is differentiable too. Causal, the window and the chunk
+    compare positions on the packed axis, which needs the same packing of
+    q and k: ``cu_seqlens_q`` equal to ``cu_seqlens_k`` (checked on the host
+    when they are not one tensor). ``max_seqlen_*``, ``num_splits``,
     ``pack_gqa``, ``deterministic``, ``sm_margin`` and ``block_sizes`` are
     accepted and ignored. ``dropout_p`` / ``dropout_seed``: attention
     dropout on the packed axis (the keep mask's rows and columns are packed
     positions, as in JAX); the plain versions take it on the CPU, and on
     the card it raises (segments with dropout are not built: ROADMAP B-i
-    5). Window and softcap with segments are not built (ROADMAP B-i 3's
-    rest) and raise, as do ``qv`` and the fp8 descales; so does a head dim
-    the segment kernels are not built for (64, 80, 96 and 128 are; B-iii
-    4).
+    5). ``window_size`` and ``softcap`` likewise: the plain versions take
+    them on the CPU, and on the card B1 has no segment instantiation with
+    them yet, so they raise there (ROADMAP B-i 3's rest). ``qv`` and the
+    fp8 descales raise on every device; so does a head dim the segment
+    kernels are not built for (64, 80, 96 and 128 are; B-iii 4).
     The packed
     layout is copied to ``[1, H, total, D]`` for the kernel (reading it in
     place is ROADMAP B-i 6).
@@ -351,25 +352,22 @@ def flash_attn_varlen_func(
     if q_descale is not None or k_descale is not None or v_descale is not None:
         raise NotImplementedError("flash_attn_varlen_func: fp8 descales are not supported")
     window = None if tuple(window_size) == (-1, -1) else tuple(window_size)
-    for name, used in (("window_size", window is not None), ("softcap", bool(softcap))):
-        if used:
-            raise NotImplementedError(f"flash_attn_varlen_func: {name} with segments is not "
-                                      "built (ROADMAP B-i 3's rest)")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError("q must be [total_q, H, D] and k, v [total_k, Hk, D]")
     check_head_dim(q.shape[-1], True, "flash_attn_varlen_func")
     tq, tk = q.shape[0], k.shape[0]
-    if causal or attention_chunk:
+    if causal or window is not None or attention_chunk:
         if tq != tk or (cu_seqlens_q is not cu_seqlens_k
                         and not torch.equal(cu_seqlens_q.cpu(), cu_seqlens_k.cpu())):
-            raise ValueError("flash_attn_varlen_func: causal and attention_chunk need the same "
-                             "packing of q and k (cu_seqlens_q == cu_seqlens_k)")
+            raise ValueError("flash_attn_varlen_func: causal, window_size and attention_chunk "
+                             "need the same packing of q and k (cu_seqlens_q == cu_seqlens_k)")
     seg_q, seg_k = varlen_segment_ids(cu_seqlens_q.to(q.device), cu_seqlens_k.to(q.device),
                                       tq, tk, seqused_q, seqused_k, attention_chunk)
     out, lse = flash_attention_masked(
         q.transpose(0, 1)[None], k.transpose(0, 1)[None], v.transpose(0, 1)[None],
         q_segments=seg_q[None], kv_segments=seg_k[None], scale=softmax_scale, causal=causal,
-        return_lse=True, dropout_p=dropout_p, dropout_seed=dropout_seed,
+        window=window, softcap=softcap, return_lse=True, dropout_p=dropout_p,
+        dropout_seed=dropout_seed,
     )
     out = out[0].transpose(0, 1).contiguous()
     return (out, lse[0]) if return_softmax_lse else out

@@ -41,12 +41,14 @@ fixed capacity, the expert weights in ``cfg.dtype`` and the router in
 fp32, as in JAX), and :func:`gpt_loss_fn` adds the blocks' Switch
 load-balance losses at ``moe_aux_weight``.
 
-Tensor parallelism (inference): ``GPTLMHeadModel(cfg, group=g)`` is one
-rank's shard of the model over the ``torch.distributed`` group ``g``
-(vocab-split embedding and head, ``ParallelMHA`` / ``ParallelMLP``
-blocks) and returns that rank's logits shard; :func:`gpt_tp_state_dict`
-slices a single-device ``state_dict`` into a rank's shard, and
-:func:`gpt_tp_apply` is JAX's functional form of the same forward.
+Tensor parallelism: ``GPTLMHeadModel(cfg, group=g)`` is one rank's shard
+of the model over the ``torch.distributed`` group ``g`` (vocab-split
+embedding and head, ``ParallelMHA`` / ``ParallelMLP`` blocks) and returns
+that rank's logits shard; :func:`gpt_tp_state_dict` slices a
+single-device ``state_dict`` into a rank's shard, and :func:`gpt_tp_apply`
+is JAX's functional form of the same forward. Both train (deterministic
+and uncached) with
+:func:`~liteattention_torch.losses.cross_entropy.parallel_cross_entropy_loss`.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ from liteattention_torch.modules.mlp import GatedMlp, Mlp, ParallelMLP, parallel
 from liteattention_torch.modules.moe import MoEMlp
 from liteattention_torch.ops.activations import gelu_approx
 from liteattention_torch.ops.norms import layer_norm, rms_norm
+from liteattention_torch.parallel._collectives import copy_to_group
 from liteattention_torch.parallel.tensor_parallel import (
     parallel_gpt2_embeddings,
     shard_cols,
@@ -337,6 +340,10 @@ class GPTLMHeadModel(nn.Module):
         hidden = self.transformer(input_ids, inference_params, deterministic, generator)
         if cfg.word_embed_proj_dim:
             hidden = self.project_out(hidden)
+        if self.transformer.group is not None:
+            # Each rank's head covers its vocab rows only: the hidden
+            # state's gradient is summed over the ranks.
+            hidden = copy_to_group(hidden, self.transformer.group)
         if cfg.tie_embeddings:
             logits = hidden @ self.transformer.wte.weight.to(hidden.dtype).T
         else:
@@ -450,10 +457,15 @@ def gpt_tp_state_dict(cfg: GPTConfig, state_dict: Dict[str, torch.Tensor], rank:
 def gpt_tp_apply(cfg: GPTConfig, params: Dict[str, torch.Tensor], input_ids: torch.Tensor,
                  group) -> torch.Tensor:
     """Megatron tensor-parallel forward of :class:`GPTLMHeadModel` over
-    ``group`` (JAX ``gpt_tp_apply``), deterministic (inference): the
-    forward of ``GPTLMHeadModel(cfg, group=group)`` with ``params``, this
-    rank's :func:`gpt_tp_state_dict` (on the device the ids are on). Every
-    rank of ``group`` calls with the same ``input_ids`` ``[B, S]``.
+    ``group`` (JAX ``gpt_tp_apply``), deterministic: the forward of
+    ``GPTLMHeadModel(cfg, group=group)`` with ``params``, this rank's
+    :func:`gpt_tp_state_dict` (on the device the ids are on). Every rank of
+    ``group`` calls with the same ``input_ids`` ``[B, S]``. Differentiable:
+    the gradient of a rank's ``params`` is its shard of the whole model's
+    gradient (whole for the norms and the output biases), with the loss
+    taken over the whole logits, as
+    :func:`~liteattention_torch.losses.cross_entropy.parallel_cross_entropy_loss`
+    takes it.
 
     Returns this rank's fp32 logits shard ``[B, S, V / tp]`` (vocab rows
     ``[rank V / tp, (rank + 1) V / tp)``): all-gather the last dim for the

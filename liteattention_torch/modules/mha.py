@@ -53,6 +53,7 @@ from liteattention_torch.layers.rotary import RotaryEmbedding
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.flash_fwd import flash_attention_decode, flash_attention_masked
 from liteattention_torch.ops.kv_quant import quantize_rows_native
+from liteattention_torch.parallel._collectives import all_reduce, copy_to_group
 from liteattention_torch.parallel.tensor_parallel import shard_cols, shard_rows
 
 
@@ -232,8 +233,10 @@ class ParallelMHA(nn.Module):
     model's head dim (``local_mha``: its ``Wqkv`` the column-parallel
     projection, its ``out_proj`` the row-parallel one, without bias),
     attends with no collective, and the ``all_reduce`` of the output
-    projection's partial sums is followed by ``out_bias``. Inference only
-    (ROADMAP A15b). Parameters go on ``device`` (default ``cuda``).
+    projection's partial sums is followed by ``out_bias``. Differentiable:
+    the input's gradient is summed over the group (Megatron's copy to the
+    group), so it is whole on every rank. Parameters go on ``device``
+    (default ``cuda``).
     """
 
     def __init__(
@@ -268,8 +271,7 @@ class ParallelMHA(nn.Module):
                          if out_proj_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.local_mha(x)
-        torch.distributed.all_reduce(out, group=self.group)
+        out = all_reduce(self.local_mha(copy_to_group(x, self.group)), self.group)
         if self.out_bias is not None:
             out = out + self.out_bias.to(out.dtype)
         return out

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from liteattention_torch.device import resolve_device
 from liteattention_torch.modules.dense import Dense
 from liteattention_torch.ops.activations import gelu_approx
+from liteattention_torch.parallel._collectives import all_reduce, copy_to_group
 from liteattention_torch.parallel.tensor_parallel import shard_cols, shard_rows
 
 
@@ -61,8 +62,9 @@ class ParallelMLP(nn.Module):
     and an ``all_reduce`` sums the ranks' outputs. JAX's has no bias; with
     ``bias1`` ``fc1`` carries this rank's rows of the up bias, and with
     ``bias2`` the down bias ``out_bias`` is added after the sum (OPT's
-    MLP). Inference only (ROADMAP A15b). ``in_features`` is the input
-    width, which Flax reads from the first input.
+    MLP). Differentiable: the input's gradient is summed over the group.
+    ``in_features`` is the input width, which Flax reads from the first
+    input.
     """
 
     def __init__(self, in_features: int, hidden_features: int, group,
@@ -85,14 +87,13 @@ class ParallelMLP(nn.Module):
                          if bias2 else None)
 
     def forward(self, x):
-        y = self.fc1(x)
+        y = self.fc1(copy_to_group(x, self.group))
         if self.gated:
             gate, up = y.chunk(2, dim=-1)
             y = self.activation(gate) * up
         else:
             y = self.activation(y)
-        y = self.fc2(y)
-        torch.distributed.all_reduce(y, group=self.group)
+        y = all_reduce(self.fc2(y), self.group)
         if self.out_bias is not None:
             y = y + self.out_bias.to(y.dtype)
         return y

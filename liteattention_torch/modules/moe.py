@@ -24,9 +24,21 @@ the experts run in the weights' dtype. On the card a bf16 product comes
 back bf16, where JAX keeps it fp32 (``preferred_element_type``); the GELU
 and the combine run in fp32 either way.
 
-The expert-parallel forms (``moe_forward_expert_parallel``,
-``moe_apply_sharded``) wait for the training half of the port's
-``parallel/`` (ROADMAP A15b) and raise.
+Expert parallelism (``moe_forward_expert_parallel``, ``moe_apply_sharded``)
+is JAX's GShard schedule on a ``torch.distributed`` group: each rank routes
+its own tokens into ``[E, C, D]``, one ``all_to_all`` sends each expert's
+slots to the rank that holds it (``[E / n, n C, D]``), the rank's ``E /
+n`` experts run, and a second ``all_to_all`` brings the outputs home for
+the combine. Both exchanges are differentiable.
+
+Data parallelism routes as one device routes the global batch (JAX's
+data-parallel step is one ``jit`` over it): inside
+:func:`data_parallel_routing`, each rank's tokens are its slice of the
+global batch in rank order, and :class:`MoEMlp` takes the capacity from
+the global token count, each (token, slot)'s position in the global
+slot-major order (one ``all_reduce`` of the ranks' per-slot expert
+counts), and the load-balance loss's routed fractions over the global
+batch, so that the ranks' aux losses average to the global one.
 """
 
 from __future__ import annotations
@@ -36,11 +48,19 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from liteattention_torch.device import resolve_device
 from liteattention_torch.ops.activations import gelu_approx
+from liteattention_torch.parallel._collectives import (
+    all_reduce,
+    all_to_all,
+    copy_to_group,
+    gather_dim,
+    scatter_dim,
+)
 
 
 @contextlib.contextmanager
@@ -75,11 +95,15 @@ def capacity_for(tokens: int, num_experts: int, top_k: int, capacity_factor: flo
     return max(1, int(capacity_factor * top_k * tokens / num_experts))
 
 
-def _route_indices(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int):
+def _route_indices(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int,
+                   group=None):
     """Routing of ``x`` ``[T, D]``: (probs ``[T, E]`` fp32, experts ``[T, k]``,
     gates ``[T, k]`` fp32 normalised over the k choices, positions ``[T, k]``
     within each expert's buffer in slot-major order, keep ``[T, k]``
-    (position < capacity), aux loss)."""
+    (position < capacity), aux loss). With ``group``, ``x`` is this rank's
+    slice of the batch: keep and the aux loss's routed fractions are the
+    whole batch's, the positions this rank's own (each at most the global
+    one, so a kept token's is below the capacity and below ``T``)."""
     t = x.shape[0]
     e = router.shape[1]
     with _true_fp32():
@@ -98,9 +122,25 @@ def _route_indices(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: 
     onehot = F.one_hot(experts.T.reshape(-1), e)  # [k T, E], slot-major rows
     before = torch.cumsum(onehot, dim=0) - onehot
     pos = before.gather(1, experts.T.reshape(-1, 1)).reshape(top_k, t).T
-    keep = pos < capacity
-    # Switch load balance: routed fraction of first choices times mean prob.
-    f = F.one_hot(experts[:, 0], e).float().mean(0)
+    if group is None:
+        keep = pos < capacity
+        # Switch load balance: routed fraction of first choices times mean prob.
+        f = F.one_hot(experts[:, 0], e).float().mean(0)
+    else:
+        # Every rank's assignments per (slot, expert); a token's global
+        # position adds the other ranks' in earlier slots and the lower
+        # ranks' in its own slot.
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        counts = torch.zeros((n, top_k, e), dtype=torch.float32, device=x.device)
+        counts[r] = onehot.view(top_k, t, e).sum(1).float()
+        dist.all_reduce(counts, group=group)
+        total = counts.sum(0)
+        others = total - counts[r]
+        offset = (torch.cumsum(others, 0) - others + counts[:r].sum(0)).long()
+        keep = pos + offset.gather(1, experts.T).T < capacity
+        f = total[0] / (n * t)
+    # With group, this rank's part: the ranks' aux losses average to the
+    # global batch's.
     aux = e * torch.sum(f * probs.mean(0))
     return probs, experts, gates, pos, keep, aux
 
@@ -128,46 +168,118 @@ def _experts_apply(wi: torch.Tensor, wo: torch.Tensor, xd: torch.Tensor) -> torc
         return torch.bmm(h.to(wo.dtype), wo).float()
 
 
-def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, top_k: int = 2,
-                capacity_factor: float = 1.25, capacity: Optional[int] = None,
-                stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device MoE FFN: ``x`` ``[T, D]`` -> ``(y [T, D] in x's dtype,
-    aux_loss)``. ``stats``, when given, receives the routing's ``dropped``
-    share (of (token, slot) pairs past the capacity, a device tensor) and
-    its ``capacity``."""
+def _dispatch(x: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int,
+              group=None):
+    """Route ``x`` ``[T, D]`` and gather the kept tokens into the experts'
+    buffers: (``xd`` ``[E, C, D]`` fp32, the routing the combine needs,
+    keep ``[T, k]``, aux loss). With ``group`` (see :func:`_route_indices`)
+    a buffer holds ``min(capacity, T)`` slots: a rank may hold any share of
+    an expert's global capacity."""
     t, d = x.shape
-    router, wi, wo = params["router"], params["wi"], params["wo"]
     e = router.shape[1]
-    if capacity is None:
-        capacity = capacity_for(t, e, top_k, capacity_factor)
-    _, experts, gates, pos, keep, aux = _route_indices(x, router, top_k, capacity)
-    slot = experts * capacity + pos  # [T, k] flat (expert, position) index
+    _, experts, gates, pos, keep, aux = _route_indices(x, router, top_k, capacity, group)
+    slots = capacity if group is None else min(capacity, t)
+    slot = experts * slots + pos  # [T, k] flat (expert, position) index
     tok = torch.arange(t, device=x.device)[:, None].expand_as(experts)
-    kept_slot, kept_tok = slot[keep], tok[keep]
-    xd = x.new_zeros((e * capacity, d), dtype=torch.float32)
-    xd = xd.index_copy(0, kept_slot, x.float()[kept_tok])
-    yd = _experts_apply(wi, wo, xd.view(e, capacity, d)).reshape(e * capacity, d)
+    xd = x.new_zeros((e * slots, d), dtype=torch.float32)
+    xd = xd.index_copy(0, slot[keep], x.float()[tok[keep]])
+    return xd.view(e, slots, d), (slot, gates, keep), aux
+
+
+def _combine(yd: torch.Tensor, routing) -> torch.Tensor:
+    """The gate-weighted sum of each token's kept slots of ``yd`` ``[E, C,
+    D]``: ``[T, D]`` fp32."""
+    slot, gates, keep = routing
+    yd = yd.reshape(-1, yd.shape[-1])
     # Dropped slots read any row and are weighted 0.
     w = torch.where(keep, gates, torch.zeros_like(gates))
     picked = yd[torch.where(keep, slot, torch.zeros_like(slot))]  # [T, k, D]
-    y = (w[..., None] * picked).sum(1)
+    return (w[..., None] * picked).sum(1)
+
+
+def moe_forward(params: Dict[str, torch.Tensor], x: torch.Tensor, top_k: int = 2,
+                capacity_factor: float = 1.25, capacity: Optional[int] = None,
+                stats: Optional[dict] = None, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-device MoE FFN: ``x`` ``[T, D]`` -> ``(y [T, D] in x's dtype,
+    aux_loss)``. ``stats``, when given, receives the routing's ``dropped``
+    share (of (token, slot) pairs past the capacity, a device tensor) and
+    its ``capacity``. With a data-parallel ``group``, ``x`` is this rank's
+    slice of the batch, routed as one device routes the whole batch (the
+    capacity from its token count); ``aux_loss`` is this rank's part, and
+    the ranks' parts average to the whole batch's."""
+    router, wi, wo = params["router"], params["wi"], params["wo"]
+    if capacity is None:
+        tokens = x.shape[0] * (1 if group is None else dist.get_world_size(group))
+        capacity = capacity_for(tokens, router.shape[1], top_k, capacity_factor)
+    xd, routing, aux = _dispatch(x, router, top_k, capacity, group)
+    y = _combine(_experts_apply(wi, wo, xd), routing)
     if stats is not None:
-        stats["dropped"] = 1.0 - keep.float().mean()
+        stats["dropped"] = 1.0 - routing[2].float().mean()
         stats["capacity"] = capacity
     return y.to(x.dtype), aux
 
 
-def moe_forward_expert_parallel(*args, **kwargs):
-    """Expert parallelism (two all_to_all hops a layer in JAX) is not
-    ported yet (ROADMAP A15b)."""
-    raise NotImplementedError(
-        "moe_forward_expert_parallel: expert parallelism is not ported yet (ROADMAP A15b)")
+def moe_forward_expert_parallel(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    group,
+    top_k: int = 2,
+    capacity_factor: float = 1.25,
+    capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's part of the expert-parallel MoE (JAX's ``shard_map``
+    body): ``x`` ``[T_local, D]`` are the rank's tokens, ``params["router"]``
+    ``[D, E]`` is whole on every rank and ``wi`` / ``wo`` hold the rank's
+    ``E / n`` experts (rank ``r`` the experts ``[r E / n, (r + 1) E / n)``).
+    The capacity comes from the local token count. Returns the rank's
+    ``(y [T_local, D], aux)``, the aux loss averaged over the group. The
+    gradients of the rank's experts are whole (every rank's tokens
+    routed to them); the router's is this rank's tokens' part."""
+    n = dist.get_world_size(group)
+    router, wi, wo = params["router"], params["wi"], params["wo"]
+    e = wi.shape[0] * n
+    if router.shape[1] != e:
+        raise ValueError(f"the router has {router.shape[1]} experts, the ranks hold {e}")
+    if capacity is None:
+        capacity = capacity_for(x.shape[0], e, top_k, capacity_factor)
+    xd, routing, aux = _dispatch(x, router, top_k, capacity)
+    xd = all_to_all(xd, 0, 1, group)  # [E / n, n C, D]: every rank's slots of my experts
+    yd = all_to_all(_experts_apply(wi, wo, xd), 1, 0, group)  # [E, C, D], home again
+    y = _combine(yd, routing)
+    return y.to(x.dtype), all_reduce(aux, group) / n
 
 
-def moe_apply_sharded(*args, **kwargs):
-    """The sharded MoE entry is not ported yet (ROADMAP A15b)."""
-    raise NotImplementedError(
-        "moe_apply_sharded: expert parallelism is not ported yet (ROADMAP A15b)")
+def moe_apply_sharded(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    mesh,
+    dim: str = "ep",
+    top_k: int = 2,
+    capacity_factor: float = 1.25,
+    capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the dim ``dim`` of ``mesh`` (JAX
+    ``moe_apply_sharded``): ``params`` and the tokens ``x`` ``[T, D]`` whole
+    on every rank; rank ``r`` takes its ``T / n`` tokens and its ``E / n``
+    experts. The capacity comes from the local token count, so the result
+    equals :func:`moe_forward`'s where no token overflows. Returns ``(y
+    [T, D], aux)`` whole on every rank; the gradients with respect to
+    ``params`` and ``x`` are whole on every rank. ``ValueError`` where the
+    experts or the tokens do not split over the dim."""
+    group = mesh.get_group(dim)
+    n = dist.get_world_size(group)
+    e = params["router"].shape[1]
+    if e % n or x.shape[0] % n:
+        raise ValueError(f"{e} experts and {x.shape[0]} tokens must both split over the "
+                         f"{dim!r} dim's {n} ranks")
+    if capacity is None:
+        capacity = capacity_for(x.shape[0] // n, e, top_k, capacity_factor)
+    local = {"router": copy_to_group(params["router"], group),
+             "wi": scatter_dim(params["wi"], 0, group),
+             "wo": scatter_dim(params["wo"], 0, group)}
+    y, aux = moe_forward_expert_parallel(local, scatter_dim(x, 0, group), group, top_k=top_k,
+                                         capacity=capacity)
+    return gather_dim(y, 0, group), aux
 
 
 class MoEMlp(nn.Module):
@@ -176,7 +288,8 @@ class MoEMlp(nn.Module):
     ``moe.wi`` and ``moe.wo`` (``dtype``), the names of JAX's
     ``mlp/moe/{router,wi,wo}``. After a forward, ``aux_loss`` holds the
     Switch load-balance loss (JAX sows it as ``losses/moe_aux``) and
-    ``dropped`` the share of (token, slot) pairs past the capacity."""
+    ``dropped`` the share of (token, slot) pairs past the capacity (this
+    rank's, inside :func:`data_parallel_routing`)."""
 
     def __init__(self, dim: int, hidden: int, num_experts: int = 8, top_k: int = 2,
                  capacity_factor: float = 1.25, dtype=torch.float32, device=None):
@@ -191,6 +304,8 @@ class MoEMlp(nn.Module):
         self.aux_loss: Optional[torch.Tensor] = None
         self.dropped: Optional[torch.Tensor] = None
         self.capacity: Optional[int] = None
+        # The data-parallel group to route over (data_parallel_routing).
+        self.route_group = None
         self.reset_parameters(torch.Generator(device=device).manual_seed(0))
 
     @torch.no_grad()
@@ -205,13 +320,32 @@ class MoEMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stats: dict = {}
         y, self.aux_loss = moe_forward(dict(self.moe.items()), x.reshape(-1, x.shape[-1]),
-                                       self.top_k, self.capacity_factor, stats=stats)
+                                       self.top_k, self.capacity_factor, stats=stats,
+                                       group=self.route_group)
         self.dropped, self.capacity = stats["dropped"], stats["capacity"]
         return y.reshape(x.shape)
 
 
+@contextlib.contextmanager
+def data_parallel_routing(model: nn.Module, group):
+    """Inside the block (forward and backward, since a recomputed block
+    routes again), every :class:`MoEMlp` of ``model`` takes its tokens as
+    this rank's slice of a batch split over ``group`` in rank order, and
+    routes as one device routes that whole batch (see the module's note).
+    With ``group`` None nothing changes."""
+    moes = [m for m in model.modules() if isinstance(m, MoEMlp)] if group is not None else []
+    for m in moes:
+        m.route_group = group
+    try:
+        yield
+    finally:
+        for m in moes:
+            m.route_group = None
+
+
 __all__ = [
     "MoEMlp",
+    "data_parallel_routing",
     "init_moe_params",
     "moe_forward",
     "moe_forward_expert_parallel",

@@ -46,7 +46,7 @@ import torch.distributed as dist
 
 from liteattention_torch.ops.flash_bwd import flash_attention_bwd
 from liteattention_torch.ops.flash_fwd import flash_attention
-from liteattention_torch.parallel._collectives import all_gather_dim, shard_dim
+from liteattention_torch.parallel._collectives import gather_dim, scatter_dim
 
 _FULL, _DIAG, _SKIP = 0, 1, 2
 
@@ -253,38 +253,10 @@ def ulysses_attention_local(
     return _HeadToSeq.apply(out, group)
 
 
-class _ShardSeq(torch.autograd.Function):
-    """The rank's sequence shard of a tensor every rank holds whole; the
-    gradient is gathered, so it is whole on every rank."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return shard_dim(x, 2, group).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_gather_dim(g, 2, ctx.group), None
-
-
-class _GatherSeq(torch.autograd.Function):
-    """The whole sequence from every rank's shard; the gradient of the
-    (replicated) whole is sliced back to the rank's shard."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather_dim(x, 2, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return shard_dim(g, 2, ctx.group).contiguous(), None
-
-
 def _global(local_fn, q, k, v, mesh, axis_name, **kw):
     group = mesh.get_group(axis_name)
-    qs, ks, vs = (_ShardSeq.apply(x, group) for x in (q, k, v))
-    return _GatherSeq.apply(local_fn(qs, ks, vs, group, **kw), group)
+    qs, ks, vs = (scatter_dim(x, 2, group) for x in (q, k, v))
+    return gather_dim(local_fn(qs, ks, vs, group, **kw), 2, group)
 
 
 def ring_self_attention(

@@ -16,8 +16,13 @@ inside ``shard_map``, with JAX's ``psum`` / ``all_gather`` /
 Weights are ``nn.Linear``'s ``[out, in]`` (JAX's kernels are ``[in,
 out]``); embedding tables ``[rows, dim]`` in both. The collectives run in
 the tensors' own dtype, on their own device: the group's backend carries
-them. Inference only: nothing here has a gradient through the
-collectives (ROADMAP A15b).
+them.
+
+Every function is differentiable, with Megatron's conjugate collectives
+(``parallel/_collectives.py``): a rank's gradient of its shard is its
+slice of the whole model's gradient, and the gradient of a tensor every
+rank holds alike (a bias added after a sum, a replicated input passed
+through ``copy_to_group``) is the whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from liteattention_torch.parallel._collectives import (
     all_gather_dim,
     all_reduce,
+    copy_to_group,
     reduce_scatter_dim,
 )
 
@@ -44,7 +50,9 @@ def column_parallel_dense(
     """``x @ w_local.T (+ b_local)``: the output's features split as
     ``w_local`` ``[out / n, in]``. With ``gather_input_group`` the input is
     first all-gathered over the sequence dim (it arrives sequence-split:
-    Megatron sequence parallelism)."""
+    Megatron sequence parallelism; its gradient is reduce-scattered back).
+    Without it, ``x``'s gradient is this rank's part; where ``x`` is whole
+    on every rank, pass it through ``copy_to_group`` first to sum it."""
     if gather_input_group is not None:
         x = all_gather_dim(x, x.dim() - 2, gather_input_group)
     return F.linear(x, w_local, b_local)
@@ -59,12 +67,16 @@ def row_parallel_dense(
 ) -> torch.Tensor:
     """``sum over ranks (x_local @ w_local.T) (+ b)``, ``w_local`` ``[out,
     in / n]``; ``scatter_output`` reduce-scatters over the sequence dim
-    instead (the output sequence-split)."""
+    instead (the output sequence-split; ``b``'s gradient, from each rank's
+    sequence slice, is then summed over the group)."""
     if group is None:
         raise ValueError("row_parallel_dense needs the tensor-parallel group")
     partial = F.linear(x_local, w_local)
-    y = (reduce_scatter_dim(partial, partial.dim() - 2, group) if scatter_output
-         else all_reduce(partial, group))
+    if scatter_output:
+        y = reduce_scatter_dim(partial, partial.dim() - 2, group)
+        b = None if b is None else copy_to_group(b, group)
+    else:
+        y = all_reduce(partial, group)
     if b is not None:
         y = y + b
     return y
@@ -133,7 +145,8 @@ def parallel_gpt2_embeddings(
 
 def vocab_parallel_logits(x: torch.Tensor, word_emb_local: torch.Tensor) -> torch.Tensor:
     """The tied LM head against the vocab-split table: this rank's logits
-    ``[.., V / n]`` (no collective)."""
+    ``[.., V / n]`` (no collective). ``x``'s gradient is this rank's part,
+    as for :func:`column_parallel_dense`."""
     return x @ word_emb_local.T
 
 

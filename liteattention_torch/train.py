@@ -22,12 +22,24 @@ data, metrics_jsonl) take the place of the flags (a key the tree holds
 wins over its flag, null included), and the optimizer and
 trainer groups fill ``TrainConfig`` (``learning_rate`` is ``--lr``,
 ``checkpoint_dir`` ``--ckpt-dir``, ``warmup_steps`` defaults to a tenth of
-the steps). Keys of features not ported yet raise: ``run.data_parallel``
-and the trainer's ``shard_opt_state`` / ``shard_grads`` /
-``grad_comm_dtype`` (ROADMAP A15b).
+the steps; ``shard_opt_state``, ``shard_grads`` and ``grad_comm_dtype``
+among them).
 
   python -m liteattention_torch.train --config configs/config.yaml \\
       experiment=gpt2s-moe run.steps=20 --device cpu
+
+``run.data_parallel=true`` (or ``--data-parallel``) trains data-parallel
+over every rank of the default process group: the one already set up,
+else one set up from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``) over ``--dist-backend`` (``nccl``, the default, one card a
+rank; ``gloo`` also takes two ranks on one card, which NCCL refuses). Each
+rank builds the same model from the same seed and takes its slice of
+each global batch (``training/trainer.py``); a world of one rank trains
+as without the option, as in JAX.
+
+  python -m torch.distributed.run --nproc_per_node 2 -m liteattention_torch.train \\
+      --config configs/config.yaml experiment=gpt2s-moe run.data_parallel=true \\
+      trainer.shard_grads=true --dist-backend gloo
 """
 
 from __future__ import annotations
@@ -37,8 +49,11 @@ import dataclasses
 import itertools
 import json
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from liteattention_torch.models.configs import gpt2_config, llama_config
 from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_loss_fn
@@ -65,6 +80,11 @@ def parse_args(argv=None):
     ap.add_argument("--seqlen", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="data parallelism over the default process group's ranks")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default="nccl",
+                    help="with --data-parallel, the backend of a process group set up from "
+                         "torchrun's environment")
     ap.add_argument("--data", default=None,
                     help="token memmap file (uint16) to train on; default: synthetic batches")
     ap.add_argument("--metrics-jsonl", default=None,
@@ -95,9 +115,7 @@ def apply_config_tree(args):
     args.seqlen = r.get("seqlen", args.seqlen)
     args.data = r.get("data", args.data)
     args.metrics_jsonl = r.get("metrics_jsonl", args.metrics_jsonl)
-    if r.get("data_parallel"):
-        raise NotImplementedError("run.data_parallel: data parallelism is not ported yet "
-                                  "(ROADMAP A15b)")
+    args.data_parallel = r.get("data_parallel", args.data_parallel)
     if args.model not in ("gpt2", "llama"):
         raise ValueError(f"model.family {args.model!r}: gpt2 or llama")
     fields = [f.name for f in dataclasses.fields(TrainConfig)]
@@ -106,6 +124,30 @@ def apply_config_tree(args):
     args.lr = kwargs.pop("learning_rate", args.lr)
     args.ckpt_dir = kwargs.pop("checkpoint_dir", args.ckpt_dir)
     return kwargs, m.get("moe_experts", 0)
+
+
+def data_parallel_mesh(device: torch.device, backend: str):
+    """``(mesh, device)``: the ``("dp",)`` mesh over every rank of the
+    default process group (set up from torchrun's environment over
+    ``backend`` when none is), and this rank's device; no mesh for a world
+    of one rank. A failed setup raises."""
+    if not dist.is_initialized():
+        missing = [k for k in ("RANK", "WORLD_SIZE") if k not in os.environ]
+        if missing:
+            raise RuntimeError(f"data parallelism: no process group is set up and the "
+                               f"torchrun environment lacks {missing}")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend, init_method="env://")
+    world = dist.get_world_size()
+    print(f"data parallel over {world} rank(s) ({dist.get_backend()})")
+    if world == 1:
+        return None, device
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device.type, list(range(world)), mesh_dim_names=("dp",)), device
 
 
 def run(argv=None, log_fn=None) -> Trainer:
@@ -120,6 +162,9 @@ def run(argv=None, log_fn=None) -> Trainer:
     elif args.overrides:
         raise SystemExit(f"overrides without --config: {args.overrides}")
     device = torch.device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh, device = data_parallel_mesh(device, args.dist_backend)
     if args.model == "gpt2":
         cfg = gpt2_config(dim=args.dim, num_layers=args.layers, num_heads=args.heads,
                           vocab=args.vocab, max_pos=max(args.seqlen, 1024))
@@ -137,7 +182,7 @@ def run(argv=None, log_fn=None) -> Trainer:
                        warmup_steps=tcfg_kwargs.pop("warmup_steps", max(args.steps // 10, 1)),
                        total_steps=args.steps, checkpoint_dir=args.ckpt_dir, **tcfg_kwargs)
     trainer = Trainer(model, lambda m, batch: gpt_loss_fn(m, batch, batch), tcfg,
-                      device=device)
+                      device=device, mesh=mesh)
     start = trainer.restore_or_init()
     if start:
         print(f"resumed at step {start}")
@@ -149,12 +194,14 @@ def run(argv=None, log_fn=None) -> Trainer:
         batches = synthetic_lm_batches(cfg.vocab_size, args.batch_size, args.seqlen)
     if args.overfit_batch:
         batches = itertools.repeat(next(batches))
-    jsonl = JsonlLogger(args.metrics_jsonl) if args.metrics_jsonl else None
+    # Under data parallelism every rank logs the same records; rank 0 writes them.
+    lead = trainer.rank == 0
+    jsonl = JsonlLogger(args.metrics_jsonl) if args.metrics_jsonl and lead else None
     sinks = [s for s in (log_fn, jsonl) if s is not None]
     try:
         step = trainer.fit(batches, num_steps=args.steps, log_every=args.log_every,
                            tokens_per_batch=args.batch_size * args.seqlen,
-                           log_fn=TeeLogger(*sinks, printer=log_fn is None))
+                           log_fn=TeeLogger(*sinks, printer=log_fn is None and lead))
     finally:
         if jsonl is not None:
             jsonl.close()

@@ -178,14 +178,20 @@ def test_cli_maps_the_tree_onto_the_trainer_as_jax(monkeypatch):
     assert args.model == "gpt2" and args.layers == 4 and args.seqlen == 256
     assert kwargs["warmup_steps"] == 10 and kwargs["weight_decay"] == 0.1
     assert "learning_rate" not in kwargs and "checkpoint_dir" not in kwargs
-    # Keys of unported features raise; at their defaults they pass.
-    for override, match in (("trainer.shard_opt_state=true", "not ported"),
-                            ("trainer.grad_comm_dtype=bfloat16", "not ported"),
-                            ("run.data_parallel=true", "A15")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_cli.run(["--config", ROOT_CFG, override, "model.dim=16", "model.num_layers=1",
-                           "model.num_heads=1", "model.vocab=32", "run.steps=1",
-                           "run.seqlen=8", "run.batch_size=1", "--device", "cpu"])
+    # The mesh keys reach the Trainer (without a mesh they change nothing,
+    # as in JAX); run.data_parallel without a process group or torchrun's
+    # environment raises.
+    tiny = ["model.dim=16", "model.num_layers=1", "model.num_heads=1", "model.vocab=32",
+            "run.steps=1", "run.seqlen=8", "run.batch_size=1", "--device", "cpu"]
+    for override, field, value in (("trainer.shard_opt_state=true", "shard_opt_state", True),
+                                   ("trainer.grad_comm_dtype=bfloat16", "grad_comm_dtype",
+                                    "bfloat16")):
+        trainer = train_cli.run(["--config", ROOT_CFG, override, *tiny])
+        assert getattr(trainer.cfg, field) == value and trainer.world == 1
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="no process group"):
+        train_cli.run(["--config", ROOT_CFG, "run.data_parallel=true", *tiny])
     with pytest.raises(SystemExit):
         train_cli.run(["model.dim=16", "--device", "cpu"])  # overrides need --config
 

@@ -1698,6 +1698,19 @@ def test_flash_window_raises_where_not_built(dev):
         out.float().sum().backward()
 
 
+def test_varlen_window_and_softcap_raise_on_the_card(dev):
+    # flash_attn_varlen_func takes window_size and softcap on the CPU (the
+    # plain versions); B1 has no segment instantiation with them, so the
+    # card refuses them rather than falling back.
+    from liteattention_torch import flash_attn_varlen_func
+
+    lens = [70, 58]
+    cu = torch.tensor([0, 70, 128], dtype=torch.int32, device=dev)
+    q, k, v = (x[0].transpose(0, 1) for x in _qkv(dev, 1, 2, 2, sum(lens), sum(lens), 64))
+    with pytest.raises(NotImplementedError, match="window and softcap with segments.*B-i 3"):
+        flash_attn_varlen_func(q, k, v, cu, cu, causal=True, window_size=(16, 0), softcap=5.0)
+
+
 # ------------------------------------------------- MoE, ViT, Falcon's group
 # The model paths of chip_smoke.py phases 17-19 in small: each on the card
 # (bf16 products, the kernels) against the same module on the CPU (fp32,

@@ -77,14 +77,11 @@ def _jax_all(relpath):
 NOT_PORTED = set()
 
 
-# Names of the JAX subpackages that the port does not have yet (ROADMAP
-# queue A): the unmerged vote oracle, the TPU-only schedule unpacker, and
-# pipeline parallelism (A15b).
+# Names of the JAX subpackages that the port does not have: the unmerged
+# vote oracle and the TPU-only schedule unpacker.
 NOT_PORTED_SUBPACKAGES = {
     "skip_votes_ref",
     "unpack_schedule",
-    "pipeline_apply",
-    "pipeline_apply_local",
 }
 
 # Names the port's subpackages export beside JAX's: the two ALiBi families'
@@ -102,7 +99,8 @@ PORT_EXTRAS = {"models/__init__.py": {"baichuan_config", "btlm_config"},
                 "training/metrics.py", "training/diagnostics.py", "utils/benchmark.py",
                 "utils/pretrained.py", "models/vit.py", "layers/patch_embed.py",
                 "parallel/__init__.py", "parallel/seq_parallel.py", "parallel/ring_attention.py",
-                "parallel/tensor_parallel.py", "ops/combine.py"]
+                "parallel/tensor_parallel.py", "parallel/pipeline.py", "ops/combine.py",
+                "losses/__init__.py", "losses/cross_entropy.py"]
 )
 def test_exports_match_the_jax_package(relpath):
     import importlib

@@ -148,10 +148,30 @@ def test_init_moe_params_scales_and_dtypes():
     assert abs(p["wo"].float().std().item() - 1 / 16) < 0.005
 
 
-def test_expert_parallel_functions_raise_naming_a15():
-    for fn in (moe.moe_forward_expert_parallel, moe.moe_apply_sharded):
-        with pytest.raises(NotImplementedError, match="A15"):
-            fn({}, torch.zeros(4, 4), "ep")
+def test_expert_parallel_functions_raise_naming_a15(tmp_path):
+    # Expert parallelism is ported (held against JAX at 2 and 4 ranks in
+    # tests/test_torch_parallel_training.py). On a one-rank group here:
+    # moe_apply_sharded is moe_forward, and a router whose experts the
+    # ranks do not hold raises.
+    import torch.distributed as dist
+
+    class OneDimMesh:
+        def get_group(self, dim):
+            return dist.group.WORLD
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        p = moe.init_moe_params(torch.Generator().manual_seed(1), 8, 16, 4, device="cpu")
+        x = torch.randn(32, 8, generator=torch.Generator().manual_seed(2))
+        y, aux = moe.moe_apply_sharded(p, x, OneDimMesh(), "ep")
+        y1, aux1 = moe.moe_forward(p, x)
+        assert torch.equal(y, y1) and torch.equal(aux, aux1)
+        with pytest.raises(ValueError, match="the router has 4 experts, the ranks hold 3"):
+            moe.moe_forward_expert_parallel(dict(p, wi=p["wi"][:3], wo=p["wo"][:3]), x,
+                                            dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
 
 
 def _tiny_moe_gpt(seed=0, **kw):

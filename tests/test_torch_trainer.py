@@ -128,10 +128,16 @@ def test_checkpoint_resume(jax_run, tmp_path):
 
 
 def test_trainer_raises_on_mesh_options():
+    # The mesh options are ported (tests/test_torch_data_parallel.py); as in
+    # JAX they change nothing without a mesh. A wire dtype that names no
+    # float dtype raises.
     model = GPTLMHeadModel(dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32), device="cpu")
     for kw in (dict(shard_opt_state=True), dict(shard_grads=True), dict(grad_comm_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            Trainer(model, _loss, TrainConfig(**kw), device="cpu")
+        trainer = Trainer(model, _loss, TrainConfig(**kw), device="cpu")
+        assert trainer.world == 1 and not trainer.shard_dims
+    for bad in ("int8", "float7"):
+        with pytest.raises(ValueError, match="names no float dtype"):
+            Trainer(model, _loss, TrainConfig(grad_comm_dtype=bad), device="cpu")
 
 
 def test_data_functions_bit_equal(tmp_path):

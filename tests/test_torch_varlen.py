@@ -34,6 +34,7 @@ from liteattention_torch.ops.flash_bwd import (  # noqa: E402
 )
 from liteattention_torch.ops.flash_fwd import (  # noqa: E402
     check_dropout,
+    check_window,
     flash_attention,
     flash_attention_masked,
 )
@@ -96,6 +97,43 @@ def test_varlen_matches_jax(name):
     assert np.all(po.numpy().transpose(1, 0, 2)[~fin] == 0.0)
     if "seqused_q" in kw:  # dead rows, the phantom segment's among them
         assert not fin.all() and not fin[:, -TAIL:].any()
+
+
+def test_varlen_window_and_softcap_match_jax():
+    """JAX's own case (``tests/test_parity_extras.py::
+    test_varlen_window_and_softcap``: lengths 70 and 58, causal, window (16,
+    0), cap 5.0) at head dim 64, the varlen function's least built one:
+    out, lse and the gradients against JAX's varlen function within TOL,
+    and out within JAX's 3e-4 of the float64 oracle."""
+    lens, h, d, window, cap = [70, 58], 2, 64, (16, 0), 5.0
+    rng = np.random.RandomState(144)
+    q, k, v, do = (rng.randn(sum(lens), h, d).astype(np.float32) for _ in range(4))
+    cu = np.asarray([0, 70, 128], np.int32)
+    kw = dict(causal=True, window_size=window, softcap=cap)
+
+    def jax_fn(a, b, c):
+        return jfai.flash_attn_varlen_func(a, b, c, jnp.asarray(cu), jnp.asarray(cu),
+                                           return_softmax_lse=True, block_sizes=BS, **kw)
+
+    (jo, jl), vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp((jnp.asarray(do), jnp.zeros_like(jl)))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    po, pl = flash_attn_varlen_func(tq, tk, tv, t(cu), t(cu), return_softmax_lse=True, **kw)
+    po.backward(t(do))
+    np.testing.assert_allclose(po.detach().numpy(), np.asarray(jo), atol=TOL, rtol=0)
+    np.testing.assert_allclose(pl.detach().numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    for g, r, n in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL, rtol=0, err_msg=f"d{n}")
+    off = 0
+    for n in lens:
+        qf, kf, vf = (x[off:off + n].astype(np.float64) for x in (q, k, v))
+        s = cap * np.tanh(np.einsum("qhd,khd->hqk", qf, kf) / np.sqrt(d) / cap)
+        row, col = np.arange(n)[:, None], np.arange(n)[None, :]
+        s = np.where(((col <= row) & (col >= row - window[0]))[None], s, -1e30)
+        p = np.exp(s - s.max(-1, keepdims=True))
+        ref = np.einsum("hqk,khd->qhd", p / p.sum(-1, keepdims=True), vf)
+        np.testing.assert_allclose(po.detach().numpy()[off:off + n], ref, atol=3e-4, rtol=0)
+        off += n
 
 
 @pytest.mark.parametrize("name", ["noncausal_gqa", "causal_mha_seqused", "causal_chunk"])
@@ -234,8 +272,6 @@ def test_segment_walk_pads_with_the_last_id():
 def test_varlen_raises():
     q, k, v, _, cu = (t(x) for x in _packed(1, 2, 2, 64))
     for kw, exc, match in (
-        (dict(window_size=(8, 0)), NotImplementedError, "B-i 3's rest"),
-        (dict(softcap=5.0), NotImplementedError, "B-i 3's rest"),
         (dict(qv=q), NotImplementedError, "qv"),
         (dict(q_descale=torch.ones(1)), NotImplementedError, "descale"),
     ):
@@ -248,6 +284,16 @@ def test_varlen_raises():
     other[1] += 1
     with pytest.raises(ValueError, match="same packing"):
         flash_attn_varlen_func(q, k, v, cu, other, causal=True)
+    # Window and softcap are taken by the plain versions (held against JAX
+    # in test_varlen_window_and_softcap_match_jax); a window needs the same
+    # packing, and on the card segments with either raise (B-i 3's rest).
+    with pytest.raises(ValueError, match="same packing"):
+        flash_attn_varlen_func(q, k, v, cu, other, window_size=(8, 0))
+    for kw in (dict(window_size=(8, 0)), dict(softcap=5.0)):
+        assert flash_attn_varlen_func(q, k, v, cu, cu, **kw).shape == q.shape
+        with pytest.raises(NotImplementedError, match="with segments.*B-i 3's rest"):
+            check_window(q.shape[-1], "window_size" in kw, "softcap" in kw, False, True, False,
+                         "flash_attention")
     # Non-causal cross packing is taken.
     assert flash_attn_varlen_func(q, k, v, cu, other).shape == q.shape
     # Dropout is taken on the packed axis by the plain versions, as JAX's

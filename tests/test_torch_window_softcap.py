@@ -352,10 +352,15 @@ def test_skip_path_and_varlen_refuse_the_channels():
     for kw in (dict(window_size=(16, 0)), dict(softcap=5.0), dict(attention_chunk=64)):
         with pytest.raises(ValueError, match="composes with none"):
             flash_attn_func(t(q), t(k), t(v), attn_read_list=m, **kw)
+    # The varlen functions take window and softcap on the CPU (held against
+    # JAX in tests/test_torch_varlen.py); on the card segments with either
+    # are not built and raise (B-i 3's rest).
     cu = torch.tensor([0, 100, 256], dtype=torch.int32)
     for kw in (dict(window_size=(16, 0)), dict(softcap=5.0)):
+        assert flash_attn_varlen_func(t(q[0]), t(k[0]), t(v[0]), cu, cu, **kw).shape == q[0].shape
         with pytest.raises(NotImplementedError, match="B-i 3's rest"):
-            flash_attn_varlen_func(t(q[0]), t(k[0]), t(v[0]), cu, cu, **kw)
+            check_window(64, "window_size" in kw, "softcap" in kw, False, True, False,
+                         "flash_attention")
 
 
 KV_B, KV_SMAX, KV_H, KV_HK = 2, 300, 8, 2
