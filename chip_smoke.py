@@ -396,6 +396,25 @@ Phases (any failure exits non-zero and prints no result line):
    GPT-2 small MoE's layer, 8 x 1024 tokens a rank, against
    ``moe_forward`` over each rank's tokens. B1's and B7's launches are
    counted on each rank in (a)-(c) and added to the kernels line.
+24. (Runs after 23.) The varlen functions with the window, softcap and
+   dropout channels over packed documents, on B1's and B7's segment
+   instantiations of those channels (head dims 64 and 128): (a)
+   Mistral-7B's attention (32/8 x 128, sliding window 4096) over 16 384
+   tokens in four documents, two longer than the window, causal, against
+   each document alone through the dense window walk; (b) Gemma-2-27B's
+   (32/16 x 128, scale 144^-0.5, cap 50) over 8192 tokens, its local layer
+   (cap and window 4096) and its global one (the cap alone); (c)
+   BERT-large's unpadded batch (phase 13's, 16 x 64) with dropout 0.1, and
+   the keep mask read back through B1's out and B7's dV bit for bit. Each
+   kernel against its plain version (out, lse, dQ / dK / dV, every 128-row
+   block), timed beside its bound over the visible pairs, its plain
+   version and one PyTorch call (FlexAttention with the document and
+   window BlockMask and the cap's score_mod; SDPA efficient with the
+   block-diagonal mask and dropout 0.1); the counted run is the four
+   calls, forward and backward, each exactly one launch of B1's and of
+   B7's instantiation with no plain version; dropout with the window or
+   the cap, and these channels at head dim 96, raise naming their ROADMAP
+   item before any launch.
 9. A JSON line of kernel results (launches read on each path's counted
    run, every counter set to 0 just before it), the nvidia-smi line, and
    the result line ``{"ok": true, "device": {...}}``.
@@ -670,9 +689,11 @@ def kernel_wrappers():
     128), the split-O MLA kernel at V 512, B1 with dropout and B1 with the
     window / chunk / softcap channels; flash_bwd B7, B7 with the bound /
     low channels, B7 with ALiBi, B7 with dropout and B7 with the window /
-    softcap channels; the MLA kernels with B1's key range, the decode kernel
-    reading a slot pool by ``cache_batch_idx``, and its int8_mma
-    instantiation, contiguous and paged)."""
+    softcap channels; the segment walks of B1 and B7 with the window /
+    chunk / softcap channels and with dropout; the MLA kernels with B1's
+    key range, the decode kernel reading a slot pool by
+    ``cache_batch_idx``, and its int8_mma instantiation, contiguous and
+    paged)."""
     from liteattention_torch.ops.flash_bwd import flash_bwd
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_decode
     from liteattention_torch.ops.kv_compact import compact_kv
@@ -701,6 +722,10 @@ def kernel_wrappers():
             "flash_bwd_dropout": (flash_bwd, "dropout_launches"),
             "flash_fwd_window": (flash_attention, "window_launches"),
             "flash_bwd_window": (flash_bwd, "window_launches"),
+            "flash_fwd_segments_window": (flash_attention, "segment_window_launches"),
+            "flash_bwd_segments_window": (flash_bwd, "segment_window_launches"),
+            "flash_fwd_segments_dropout": (flash_attention, "segment_dropout_launches"),
+            "flash_bwd_segments_dropout": (flash_bwd, "segment_dropout_launches"),
             "flash_decode": (flash_attention_decode, "launches"),
             "paged_decode": (paged_attention, "launches"),
             "paged_decode_folded": (paged_attention_folded, "launches"),
@@ -1771,22 +1796,42 @@ def decode_kernel_phase(dev):
         need(1, extra=2 * nbytes(x["ks"])), time_it=True,
     )
     tbl_bytes = nbytes(x["table"])
+    # The paged rows' library call: SDPA (enable_gqa) over the same keys as a
+    # dense cache (the pages gathered by the table), with the key-padding
+    # mask; held to the kernel's output first, so that it computes the same
+    # function.
+    kd, vd = (pg[x["table"].long()].reshape(b, s, hk, d).transpose(1, 2)
+              for pg in (x["kp"], x["vp"]))
+
+    def paged_library():
+        return sdpa(q4, kd, vd, attn_mask=pad, enable_gqa=True)
+
+    lib_err = rel_l2(paged_library().transpose(1, 2),
+                     paged_attention_folded(x["q"], x["kp"], x["vp"], lens, x["table"]))
+    check(lib_err < LIBRARY_TOL, f"SDPA over the gathered pages is {lib_err:.3e} off B9b")
+    paged_lib_text = ("SDPA enable_gqa over the dense cache (the pages gathered), boolean "
+                      f"key-padding mask (SDPA's own backend choice; rel-L2 {lib_err:.2e} to B9b)")
     res["paged_decode_folded"] = check_decode(
         f"B9b paged bf16 {shape}, pages {API_PAGE}", paged_attention_folded,
         paged_attention_folded_plain, (x["q"], x["kp"], x["vp"], lens, x["table"]),
-        dict(return_lse=True), need(2, extra=tbl_bytes), time_it=True,
+        dict(return_lse=True), need(2, extra=tbl_bytes), time_it=True, library=paged_library,
     )
+    res["paged_decode_folded"]["library"] = paged_lib_text
     res["paged_decode_folded"]["int8"] = check_decode(
         f"B9b paged int8 {shape}", paged_attention_folded, paged_attention_folded_plain,
         (x["q"], x["kp8"], x["vp8"], lens, x["table"]),
         dict(return_lse=True, k_scale=x["kps"], v_scale=x["vps"]),
         need(1, extra=tbl_bytes + 2 * nbytes(x["kps"])), time_it=True,
     )
+    res["paged_decode_folded"]["int8"]["library"] = (
+        "none: no one PyTorch call attends over an int8 cache with its scales")
     res["paged_decode"] = check_decode(
         f"B9a paged head-major bf16 {shape}", paged_attention, paged_attention_plain,
         (x["q"][:, 0], x["kh"], x["vh"], lens, x["table"]), dict(return_lse=True),
-        need(2, extra=tbl_bytes), time_it=True,
+        need(2, extra=tbl_bytes), time_it=True, library=paged_library,
     )
+    res["paged_decode"]["library"] = paged_lib_text
+    del kd, vd
     for r in res.values():
         r.setdefault("library_ms", None)
     # D 64 with one q head per KV head (GPT-2-class MHA), and causal Sq 4
@@ -3299,13 +3344,20 @@ def hidden_keys(b, sk, dev, kv_bound=None, kv_low=None, q_segments=None, kv_segm
 
 def segment_kernel_call(q, k, v, scale, kw):
     """B1's segment kernel alone on the ids' precomputed walk (no ranges
-    computed in the call)."""
+    computed in the call), with the window / chunk / softcap or dropout
+    channels of ``kw`` (the seed a tensor on the card: no copy in the
+    call)."""
     from liteattention_torch.ops import flash_fwd
+    from liteattention_torch.ops.flash_bwd import window_arg
     from liteattention_torch.ops.segments import segment_walk
 
     walk = segment_walk(kw["q_segments"], kw["kv_segments"])
+    ch = {n: kw[n] for n in ("dropout_p", "dropout_seed", "attention_chunk", "softcap")
+          if kw.get(n) is not None}
+    ch["window"] = window_arg(kw.get("window"))
     return lambda: flash_fwd._launch(q, k, v, scale, kw.get("causal", False), walk=walk,
-                                     q_segments=kw["q_segments"], kv_segments=kw["kv_segments"])
+                                     q_segments=kw["q_segments"], kv_segments=kw["kv_segments"],
+                                     **ch)
 
 
 # Phase 16's channels, whose rows take the MUFU bound and FlexAttention.
@@ -3348,7 +3400,9 @@ _FLEX = {}
 def flex_attention_call(q, k, kw):
     """PyTorch's FlexAttention under torch.compile (its Triton kernels)
     with phase 16's channels (``kw``: causal, window, attention_chunk,
-    softcap, scale; no key range): a function of (q, k, v) and what it is.
+    softcap, scale; no key range) and phase 24's segment ids (batch 1: a
+    key is seen by the rows of its id, the document mask read from the ids
+    on the card): a function of (q, k, v) and what it is.
     The window's and the chunk's BlockMask let it skip the tiles they hide,
     as B1's walk does; the cap is its score_mod. The library call of the
     window / chunk / softcap rows, used nowhere in the port. The mods hold
@@ -3389,7 +3443,21 @@ def flex_attention_call(q, k, kw):
         right = -1
     chunk, cap = kw.get("attention_chunk", 0), kw.get("softcap") or 0.0
     scale = kw.get("scale") or q.shape[-1] ** -0.5
-    key = (tuple(q.shape), tuple(k.shape), causal, left, right, chunk, cap, scale)
+    tile = 128
+    qb, kb = -(-sq // tile), -(-sk // tile)
+    docs = None
+    if kw.get("q_segments") is not None:
+        # The ids padded to whole tiles with ids no row and key share; the
+        # cache keeps one BlockMask per ids (their sums as its key).
+        qs = torch.nn.functional.pad(kw["q_segments"].reshape(-1).int(), (0, qb * tile - sq),
+                                     value=-3)
+        ks = torch.nn.functional.pad(kw["kv_segments"].reshape(-1).int(), (0, kb * tile - sk),
+                                     value=-4)
+        pos_w = torch.arange(1, qs.numel() + 1, device=dev, dtype=torch.int64)
+        docs = (qs, ks, int((qs.long() * pos_w).sum()),
+                int((ks.long() * torch.arange(1, ks.numel() + 1, device=dev)).sum()))
+    key = (tuple(q.shape), tuple(k.shape), causal, left, right, chunk, cap, scale,
+           docs and docs[2:])
     if key not in _FLEX:
 
         def mask_mod(b, h, qi, ki):
@@ -3401,10 +3469,10 @@ def flex_attention_call(q, k, kw):
                 keep = keep & (ki <= pos + right)
             if chunk:  # pos >= 0 here, so // floors
                 keep = keep & (ki // chunk == pos // chunk)
+            if docs is not None:
+                keep = keep & (docs[0][qi] == docs[1][ki])
             return keep
 
-        tile = 128
-        qb, kb = -(-sq // tile), -(-sk // tile)
         ki = torch.arange(kb * tile, device=dev)
         seen = torch.empty(qb, kb, dtype=torch.int64, device=dev)
         for i in range(0, qb, 8):
@@ -3425,8 +3493,9 @@ def flex_attention_call(q, k, kw):
         _FLEX[key] = lambda q_, k_, v_: fn(q_, k_, v_, score_mod=score_mod, block_mask=block,
                                            scale=scale, enable_gqa=gqa)
     kept = given is not None and (left, right) != (-1, -1)
-    what = " and ".join(n for n, on in (("causal", causal), (f"window {given}", kept),
-                                         (f"chunk {chunk}", chunk)) if on)
+    what = " and ".join(n for n, on in (("document", docs is not None), ("causal", causal),
+                                         (f"window {given}", kept), (f"chunk {chunk}", chunk))
+                        if on)
     what = (f"FlexAttention (torch.compile, Triton) with a {what or 'full'} BlockMask"
             + (f" and a cap {cap} tanh score_mod" if cap else "")
             + (f" (the window {given} hides no key at this shape)"
@@ -3636,8 +3705,12 @@ def check_channels(label, q, k, v, kw, time_it=False):
         # the efficient backend, as the backward's: K/V expanded
         kl, vl, gqa = k.repeat_interleave(h // hk, 1), v.repeat_interleave(h // hk, 1), False
     sdpa_key = "sdpa" if flex else "library"
+    drop = kw.get("dropout_p", 0.0)
+    if drop:
+        kind += f" and dropout_p {drop} (Philox: another mask, the same work)"
     backend, res[sdpa_key + "_ms"], t_lib = sdpa_backend_ms(
-        f"B1 {label}", lambda: sdpa(q, kl, vl, attn_mask=mask, scale=scale, enable_gqa=gqa))
+        f"B1 {label}", lambda: sdpa(q, kl, vl, attn_mask=mask, scale=scale, enable_gqa=gqa,
+                                    dropout_p=drop))
     res[sdpa_key] = None if backend is None else f"SDPA {backend} with {kind} ({t_lib})"
     del mask, kl, vl
     sdpa_lib = "n/a" if backend is None else f"{res[sdpa_key + '_ms']:.4f} ms {res[sdpa_key]}"
@@ -4018,11 +4091,11 @@ ALIBI_TRAIN_LAYERS, ALIBI_TRAIN_BATCH, ALIBI_TRAIN_SEQ = 2, 4, 2048
 ALIBI_TRAIN_STEPS, ALIBI_TRAIN_LR = 3, 1e-4
 
 
-def sdpa_bwd_backend_ms(label, q, k, v, dout, mask, scale):
+def sdpa_bwd_backend_ms(label, q, k, v, dout, mask, scale, dropout_p=0.0):
     """One PyTorch call of the same backward: SDPA's backward (the
     memory-efficient backend first, then cuDNN and math) with ``mask``
-    (boolean or additive), K/V expanded to the q heads, through
-    torch.autograd.grad of its forward; (backend, device ms of the
+    (boolean or additive) and ``dropout_p``, K/V expanded to the q heads,
+    through torch.autograd.grad of its forward; (backend, device ms of the
     backward alone, timer), or (None, None, None) when no backend takes
     it."""
     import torch
@@ -4036,7 +4109,7 @@ def sdpa_bwd_backend_ms(label, q, k, v, dout, mask, scale):
     for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel(backend):
-                out = sdpa(qg, kg, vg, attn_mask=mask, scale=scale)
+                out = sdpa(qg, kg, vg, attn_mask=mask, scale=scale, dropout_p=dropout_p)
 
             def call():
                 return torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True)
@@ -4114,8 +4187,11 @@ def check_bwd_channels(label, q, k, v, dout, kw, time_it=False, keep=False):
             mask = (-slopes * dist).masked_fill(~vis, -torch.inf).to(q.dtype)
             kind = "an additive ALiBi bias"
         sdpa_key = "sdpa" if flex else "library"
+        drop = ch.get("dropout_p", 0.0)
+        if drop:
+            kind += f" and dropout_p {drop} (Philox: another mask, the same work)"
         backend, res[sdpa_key + "_ms"], t_lib = sdpa_bwd_backend_ms(
-            f"B7 {label}", q, k, v, dout, mask, scale)
+            f"B7 {label}", q, k, v, dout, mask, scale, drop)
         res[sdpa_key] = (None if backend is None
                          else f"SDPA {backend} backward with {kind} ({t_lib})")
         del mask
@@ -4920,27 +4996,31 @@ def heads_first(*xs):
     return [x.detach().transpose(0, 1)[None].contiguous() for x in xs]
 
 
-def docs_alone_check(label, q, k, v, dout, lengths, cu, scale):
+def docs_alone_check(label, q, k, v, dout, lengths, cu, scale, window=None):
     """flash_attn_varlen_func over the packed causal documents (forward and
     autograd backward) against each document alone through causal B1 / B7
-    (``flash_attention``), concatenated: rel-L2 of out, dq, dk, dv within
-    PACKED_DOC_TOL. Returns the rel-L2s."""
+    (``flash_attention``; with ``window`` the dense window walk,
+    ``flash_attention_masked``), concatenated: rel-L2 of out, dq, dk, dv
+    within PACKED_DOC_TOL. Returns the rel-L2s."""
     import torch
     from liteattention_torch import flash_attn_varlen_func
-    from liteattention_torch.ops.flash_fwd import flash_attention
+    from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked
 
-    out = flash_attn_varlen_func(q, k, v, cu, cu, softmax_scale=scale, causal=True)
+    out = flash_attn_varlen_func(q, k, v, cu, cu, softmax_scale=scale, causal=True,
+                                 window_size=window or (-1, -1))
     got = [out.detach(), *torch.autograd.grad(out, (q, k, v), dout)]
     want = [[], [], [], []]
     for a, n in zip(cu[:-1].tolist(), lengths):
         parts = [x.detach()[a : a + n].transpose(0, 1)[None].contiguous().requires_grad_()
                  for x in (q, k, v)]
-        o = flash_attention(*parts, scale=scale, causal=True)
+        o = (flash_attention(*parts, scale=scale, causal=True) if window is None
+             else flash_attention_masked(*parts, scale=scale, causal=True, window=window))
         grads = torch.autograd.grad(o, parts, dout[a : a + n].transpose(0, 1)[None])
         for i, x in enumerate((o, *grads)):
             want[i].append(x.detach()[0].transpose(0, 1))
     rels = {n: rel_l2(g_, torch.cat(w)) for n, g_, w in zip(("out", "dq", "dk", "dv"), got, want)}
-    log(f"  {label}: the packed documents vs each alone (causal B1 / B7), rel-L2 "
+    log(f"  {label}: the packed documents vs each alone (causal B1 / B7"
+        + (f", window {window}" if window else "") + "), rel-L2 "
         + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()) + f" (limit {PACKED_DOC_TOL})")
     check(max(rels.values()) < PACKED_DOC_TOL, f"{label}: the packed documents differ from each "
           "document alone")
@@ -5235,11 +5315,15 @@ def gptj_kernel_phase(dev):
     n_pages = b * cap // GPTJ_PAGE
     kp, vp = (x.contiguous().reshape(n_pages, GPTJ_PAGE, h, d) for x in (kcs, vcs))
     table = torch.randperm(n_pages, generator=g, device=dev).reshape(b, -1).int()
+    # Its library call: SDPA over the dense cache the pages were cut from
+    # (the same keys), with the key-padding mask, as the B8 row's.
     res["paged_folded"] = check_decode(
         f"B9b bf16 {shape}, native pool, pages of {GPTJ_PAGE}", paged_attention_folded,
         paged_attention_folded_plain, (q[:, :, 0], kp, vp, lens, table),
-        dict(return_lse=True), need(2, extra=nbytes(table)), time_it=True)
-    res["paged_folded"]["library_ms"] = None
+        dict(return_lse=True), need(2, extra=nbytes(table)), time_it=True,
+        library=lambda: sdpa(q, kc, vc, attn_mask=pad))
+    res["paged_folded"]["library"] = ("torch SDPA over the dense cache, boolean key-padding "
+                                      "mask (SDPA's own backend choice)")
     del kc, vc, kcs, vcs, kp, vp
     torch.cuda.empty_cache()
     return res
@@ -8731,17 +8815,266 @@ def training_parallel_phase(dev, card):
     return counts, {"ranks": [r["stats"] for r in pair]}
 
 
+# ---------------------------------------------------------------- phase 24
+
+# The varlen functions with their window, softcap and dropout channels over
+# packed documents: B1's and B7's segment walks with those channels
+# (flash_fwd_segments_channels.cu, flash_bwd_segments_channels.cu).
+# (a) Mistral-7B's attention (mistralai/Mistral-7B-v0.1 config.json: 32 q
+# heads, 8 KV heads, head dim 128, sliding_window 4096): 16 384 packed tokens
+# in seeded documents of 512-8192 tokens (5544, 2695, 3379, 4766: two longer
+# than the window, which then cuts inside them), causal, window (4095, 0).
+MISTRAL_PACK = (16384, 32, 8, 128, (512, 8192), 2426)
+MISTRAL_VARLEN_WINDOW = (4095, 0)
+# (b) Gemma-2-27B's attention (google/gemma-2-27b config.json: 32 q heads, 16
+# KV heads, head dim 128, attn_logit_softcapping 50, sliding_window 4096,
+# query_pre_attn_scalar 144, so the scale is 144^-0.5): 8192 packed tokens
+# in seeded documents of 1024-6144 tokens (1561, 1685, 4946), causal; a local
+# layer (cap and window) and a global one (the cap alone).
+GEMMA2_27B_PACK = (8192, 32, 16, 128, (1024, 6144), 2527)
+GEMMA2_27B_SOFTCAP, GEMMA2_27B_WINDOW, GEMMA2_27B_SCALE = 50.0, (4095, 0), 144**-0.5
+# (c) BERT-large's attention (google-bert/bert-large-uncased config.json: 16
+# heads of 64, attention_probs_dropout_prob 0.1) over phase 13's unpadded
+# batch, non-causal, dropout 0.1 (phase 15's seed); its keep mask read back
+# over READBACK_DOCS documents of 64 tokens at the same heads.
+BERT_ATTN_DROPOUT = 0.1
+READBACK_DOCS = 140
+
+
+def varlen_channel_kernel_phase(dev):
+    """Phase 24 (a)-(c): B1's and B7's segment walks with the window / cap
+    and with dropout against their plain versions (out, lse, dQ / dK / dV
+    and every 128-row block; dK, dV bit-stable), each timed beside its
+    bound over the visible pairs, its plain version and one PyTorch call of
+    the same function (FlexAttention with the document and window
+    BlockMask and the cap's score_mod; SDPA's efficient backend with the
+    block-diagonal mask and dropout); (a) against each document alone
+    through the dense window walk. Returns the kernels line's four entries
+    and the phase's stats."""
+    import torch
+    from liteattention_torch.flash_attn_interface import varlen_segment_ids
+    from liteattention_torch.utils.padding import unpad_input
+
+    win_f, win_b, drop_f, drop_b, stats = {}, {}, {}, {}, {}
+    # (a) Mistral-7B: documents against each alone, then the kernels.
+    total, h, hk, d = MISTRAL_PACK[:4]
+    q, k, v, dout, lengths, cu = packed_docs(dev, MISTRAL_PACK)
+    cut = sum(n > MISTRAL_VARLEN_WINDOW[0] + 1 for n in lengths)
+    check(cut >= 2, f"phase 24 (a): {cut} documents longer than the window, want 2")
+    label = (f"segments + window {MISTRAL_VARLEN_WINDOW} causal 1x{h}/{hk}x{total}x{d}, "
+             f"Mistral-7B's {len(lengths)} documents")
+    stats["mistral_7b_docs"] = {"lengths": lengths, **docs_alone_check(
+        label, q, k, v, dout, lengths, cu, None, window=MISTRAL_VARLEN_WINDOW)}
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True,
+              window=MISTRAL_VARLEN_WINDOW)
+    qh, kh, vh, dh = heads_first(q, k, v, dout)
+    win_f["mistral_7b_docs"] = check_channels(label, qh, kh, vh, kw, time_it=True)
+    win_b["mistral_7b_docs"] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    del q, k, v, dout, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    # (b) Gemma-2-27B: the local layer (cap and window) and the global one.
+    total, h, hk, d = GEMMA2_27B_PACK[:4]
+    q, k, v, dout, lengths, cu = packed_docs(dev, GEMMA2_27B_PACK, grad=False)
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    qh, kh, vh, dh = heads_first(q, k, v, dout)
+    stats["gemma2_27b_docs"] = {"lengths": lengths}
+    for key, extra in (("gemma2_27b_local", dict(window=GEMMA2_27B_WINDOW)),
+                       ("gemma2_27b_global", {})):
+        kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True,
+                  softcap=GEMMA2_27B_SOFTCAP, scale=GEMMA2_27B_SCALE, **extra)
+        label = (f"segments + softcap {GEMMA2_27B_SOFTCAP}"
+                 + (f" + window {GEMMA2_27B_WINDOW}" if extra else "")
+                 + f" causal 1x{h}/{hk}x{total}x{d}, Gemma-2-27B's {len(lengths)} documents "
+                 f"({key.split('_')[-1]} layer)")
+        win_f[key] = check_channels(label, qh, kh, vh, kw, time_it=True)
+        win_b[key] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    del q, k, v, dout, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    # (c) BERT-large's unpadded batch with dropout 0.1.
+    _, mask, total, g = bert_padded_mask(dev)
+    h, d = 16, 64
+    x = [torch.randn(BERT_BATCH, BERT_SEQ, h, d, generator=g, device=dev).to(torch.bfloat16)
+         for _ in range(4)]
+    packed = [unpad_input(t, mask, max_tokens=total)[0] for t in x]
+    cu = unpad_input(x[0], mask, max_tokens=total)[2]
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device=dev)
+    kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], dropout_p=BERT_ATTN_DROPOUT,
+              dropout_seed=seed)
+    qh, kh, vh, dh = heads_first(*packed)
+    label = (f"segments + dropout {BERT_ATTN_DROPOUT} 1x{h}x{total}x{d}, BERT-large's "
+             f"{BERT_BATCH} sequences")
+    drop_f["bert_large_unpadded"] = check_channels(label, qh, kh, vh, kw, time_it=True)
+    drop_b["bert_large_unpadded"] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    for r in (drop_f["bert_large_unpadded"], drop_b["bert_large_unpadded"]):
+        # The keep hash's integer instructions are operations too: the bound is the
+        # larger of it and the tensor-core / bytes bound.
+        r["int_bound_ms"] = int_bound_ms(r["visible_pairs"])
+        r["tensor_bound_ms"], r["tensor_bound_by"] = r["bound_ms"], r["bound_by"]
+        if r["int_bound_ms"] > r["bound_ms"]:
+            r["bound_ms"], r["bound_by"] = r["int_bound_ms"], "operations"
+    stats["bert_dropout_readback"] = varlen_dropout_readback(dev)
+    del x, packed, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+    kres = {"flash_fwd_segments_window": _channel_entry(win_f, "mistral_7b_docs"),
+            "flash_bwd_segments_window": _channel_entry(win_b, "mistral_7b_docs"),
+            "flash_fwd_segments_dropout": _channel_entry(drop_f, "bert_large_unpadded"),
+            "flash_bwd_segments_dropout": _channel_entry(drop_b, "bert_large_unpadded")}
+    return kres, stats
+
+
+def varlen_dropout_readback(dev):
+    """Phase 24 (c): the segment walks' keep mask read back through the
+    varlen function, bit for bit. READBACK_DOCS documents of 64 tokens at
+    BERT-large's 16 heads of 64, q = k = 0 (P uniform over a row's
+    document), V one-hot over each document's keys and dO one-hot over its
+    rows: B1's out[i, j] must equal keep[i, s + j] (1 / (1 - p)) / 64 and
+    B7's dV[s + j, c] be nonzero exactly where keep[s + c, s + j] (s the
+    document's first token), keep the plain version's mask on the packed
+    axis (dropout_keep_mask at bh = h, packed rows and columns). The dropped
+    share must lie within 4 sigma of p. Returns the share and the count."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.ops.flash_fwd import dropout_keep_mask
+
+    h, d, p = 16, 64, BERT_ATTN_DROPOUT
+    total = 64 * READBACK_DOCS
+    cu = torch.arange(0, total + 1, 64, dtype=torch.int32, device=dev)
+    q = torch.zeros(total, h, d, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    k = torch.zeros(total, h, d, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    eye = torch.eye(64, d, dtype=torch.bfloat16, device=dev).repeat(READBACK_DOCS, 1)
+    v = eye[:, None].expand(total, h, d).contiguous().requires_grad_()
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device=dev)
+    out = flash_attn_varlen_func(q, k, v, cu, cu, dropout_p=p, dropout_seed=seed)
+    out.backward(eye[:, None].expand(total, h, d))
+    cols = (torch.arange(total, device=dev) // 64 * 64)[:, None] + torch.arange(64, device=dev)
+    kept = 0
+    for hi in range(h):
+        keep = dropout_keep_mask(DROPOUT_SEED, hi, 0, 0, (total, total), p, device=dev)
+        mine = torch.gather(keep, 1, cols)
+        want = (mine.float() * (1.0 / (1.0 - p)) / 64).bfloat16()
+        check(torch.equal(out[:, hi, :64].detach(), want),
+              f"phase 24 read-back (head {hi}): B1's keep mask is not the plain version's")
+        check(torch.equal(v.grad[:, hi, :64] != 0, torch.gather(keep.t(), 1, cols)),
+              f"phase 24 read-back (head {hi}): B7's keep mask is not the plain version's")
+        kept += int(mine.sum())
+        del keep
+    n = total * 64 * h
+    share = 1.0 - kept / n
+    sigma = (p * (1.0 - p) / n) ** 0.5
+    log(f"  read-back: {n} scores of {READBACK_DOCS} documents of 64 tokens x {h} heads through "
+        f"flash_attn_varlen_func: B1's out and B7's dV carry the plain version's keep mask bit "
+        f"for bit; dropped share {share:.5f} ({(share - p) / sigma:+.2f} sigma)")
+    check(abs(share - p) < 4 * sigma, f"phase 24: dropped share {share} is not p {p} +- 4 sigma")
+    return {"scores": n, "dropped_share": share}
+
+
+def varlen_channel_counted_run(dev):
+    """Phase 24's counted run, the main path: flash_attn_varlen_func forward
+    and backward (autograd) at (a) Mistral-7B's window, (b) Gemma-2-27B's
+    local and global layers and (c) BERT-large's unpadded batch with
+    dropout (through unpad_input and pad_input), every plain version
+    forbidden. Each call is one launch of B1's and one of B7's segment
+    instantiation of its channels and nothing else."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.utils.padding import pad_input, unpad_input
+
+    _, mask, total, g = bert_padded_mask(dev)
+    x = torch.randn(BERT_BATCH, BERT_SEQ, 16, 64, generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    seed = torch.tensor([DROPOUT_SEED], dtype=torch.int32, device=dev)
+    mistral, gemma = packed_docs(dev, MISTRAL_PACK), packed_docs(dev, GEMMA2_27B_PACK)
+
+    def bert():
+        p, idx, cu, _ = unpad_input(x, mask, max_tokens=total)
+        out = flash_attn_varlen_func(p, p, p, cu, cu, dropout_p=BERT_ATTN_DROPOUT,
+                                     dropout_seed=seed)
+        pad_input(out, idx, BERT_BATCH, BERT_SEQ).float().square().sum().backward()
+
+    def docs(data, **kw):
+        q, k, v, dout, _, cu = data
+        return lambda: flash_attn_varlen_func(q, k, v, cu, cu, causal=True, **kw).backward(dout)
+
+    calls = [("mistral_7b_window", docs(mistral, window_size=MISTRAL_VARLEN_WINDOW), "window"),
+             ("gemma2_27b_local", docs(gemma, window_size=GEMMA2_27B_WINDOW,
+                                       softcap=GEMMA2_27B_SOFTCAP,
+                                       softmax_scale=GEMMA2_27B_SCALE), "window"),
+             ("gemma2_27b_global", docs(gemma, softcap=GEMMA2_27B_SOFTCAP,
+                                        softmax_scale=GEMMA2_27B_SCALE), "window"),
+             ("bert_large_dropout", bert, "dropout")]
+    torch.cuda.synchronize()
+    reset_counts()
+    with plain_forbidden():
+        for name, call, kind in calls:
+            before = read_counts()
+            call()
+            delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+            want = {f"flash_fwd_segments_{kind}": 1, f"flash_bwd_segments_{kind}": 1}
+            check(delta == want, f"phase 24's counted run: {name} launched {delta}, want {want}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  counted run (Mistral-7B window, Gemma-2-27B local and global, BERT-large dropout; "
+        f"forward and backward through flash_attn_varlen_func): {counts}")
+    del mistral, gemma, x
+    torch.cuda.empty_cache()
+    return counts
+
+
+def varlen_channel_phase(dev, card):
+    """Phase 24: the varlen functions with the window, softcap and dropout
+    channels over packed documents at Mistral-7B's, Gemma-2-27B's and
+    BERT-large's attention; the combinations not built still raise."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+
+    t0 = time.perf_counter()
+    log(f"  (a)-(c) B1's and B7's segment walks with the channels against their plain versions "
+        f"[{card}]")
+    kres, stats = varlen_channel_kernel_phase(dev)
+    counts = varlen_channel_counted_run(dev)
+    # The combinations left out raise before any launch, naming their item.
+    cu = torch.tensor([0, 100, 256], dtype=torch.int32, device=dev)
+    qs = torch.zeros(256, 4, 128, dtype=torch.bfloat16, device=dev)
+    q96 = torch.zeros(256, 4, 96, dtype=torch.bfloat16, device=dev)
+    refused = {}
+    for name, args, kw, item in (
+            ("dropout_with_window", (qs,) * 3, dict(causal=True, window_size=(64, 0),
+                                                    dropout_p=0.1), "B-i 3's rest"),
+            ("dropout_with_softcap", (qs,) * 3, dict(softcap=30.0, dropout_p=0.1),
+             "B-i 3's rest"),
+            ("window_at_d96", (q96,) * 3, dict(causal=True, window_size=(64, 0)), "B-iii 4"),
+            ("dropout_at_d96", (q96,) * 3, dict(dropout_p=0.1), "B-iii 4")):
+        before, err = read_counts(), None
+        try:
+            flash_attn_varlen_func(*args, cu, cu, **kw)
+        except NotImplementedError as e:
+            err = refused[name] = str(e)
+        check(err is not None and f"ROADMAP {item}" in err,
+              f"phase 24: {name} did not raise naming ROADMAP {item} ({err})")
+        check(read_counts() == before, f"phase 24: {name} launched a kernel before it raised")
+    log(f"  refused before any launch: {sorted(refused)}")
+    stats["refused"] = refused
+    stats["part_seconds"] = {"all": time.perf_counter() - t0}
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
 # coarse schedule, B3, B4 and B5; "attention_fwd_kernel" the mma.sync loop
 # that B4 ran on before, kept for older checkouts; "mla_decode_kernel"
-# B10; "flash_fwd_dropout_kernel" B1's dropout channel and
-# "flash_fwd_window_kernel" its window / chunk / softcap channels, whose B7
+# B10; "flash_fwd_dropout_kernel" B1's dropout channel,
+# "flash_fwd_window_kernel" its window / chunk / softcap channels and
+# "flash_fwd_segments_channels_kernel" the segment walk with them, whose B7
 # sides "flash_bwd" names).
 AB_KERNELS = ("flash_fwd_kernel", "attention_fwd_kernel", "flash_decode_kernel",
               "mla_fwd_kernel", "mla_decode_kernel", "flash_bwd", "kv_compact_kernel",
-              "pack_schedule_kernel", "flash_fwd_dropout_kernel", "flash_fwd_window_kernel")
+              "pack_schedule_kernel", "flash_fwd_dropout_kernel", "flash_fwd_window_kernel",
+              "flash_fwd_segments_channels_kernel")
 
 
 def digest_of_digests(*digests):
@@ -8785,7 +9118,11 @@ def ab_times(reps):
     with B7's dK / dV digests); digests of causal B1's out and lse and
     B7's dK / dV at 2 x 16 x 1024 at head dim 64 and at 80, 96 and 256
     where the checkout builds them (``b1_d80_digest``, ``b7_d80_dkv_digest``,
-    ...; with their times), and of the decode kernel's ragged B8 bf16 and
+    ...; with their times), of B1's and B7's segment walks over four packed
+    causal documents at head dims 64 and 128 and of the dense walk's window
+    / softcap and dropout instantiations where the checkout has them
+    (``b1_segments_d64_digest``, ``b7_window_d128_dkv_digest``, ...; with
+    their times), and of the decode kernel's ragged B8 bf16 and
     int8 and B9b outputs (``b8_digest``). It calls only entry points every version
     of the port has since the decode kernel (the channels only where they
     exist), so checkouts can be timed in turns on one card (older, newer,
@@ -8923,6 +9260,62 @@ def ab_times(reps):
             channels[f"b7_{name}_dkv_digest"] = digest(*cbwd()[1:])
             del cq, ck, cv, cdo, co, clse
 
+    # B1's and B7's segment walks (checkouts since they exist) over packed
+    # causal documents, and the dense walk's window / softcap and dropout
+    # instantiations (since they exist) at GPT-2 small's and a D 128 shape:
+    # digests of out, lse and dK / dV, and device times, so that a checkout
+    # that adds instantiations beside them can be seen to leave them as
+    # they were.
+    seg = {}
+    if hasattr(flash_attention, "segment_launches"):
+        from liteattention_torch.ops.flash_fwd import flash_attention_masked
+        from liteattention_torch.ops.segments import segment_walk
+
+        lengths = torch.tensor([700, 1300, 96, 1900], device=dev)
+        ids = torch.repeat_interleave(torch.arange(4, device=dev), lengths).int()[None]
+        for sd in (64, 128):
+            sq_, sk_, sv_, sdo = (torch.randn(1, 8, ids.shape[1], sd, generator=g,
+                                              device=dev).bfloat16() for _ in range(4))
+            skw = dict(q_segments=ids, kv_segments=ids)
+            so, slse = flash_attention_masked(sq_, sk_, sv_, causal=True, return_lse=True, **skw)
+            walk = segment_walk(ids, ids)
+
+            def sbwd(sq_=sq_, sk_=sk_, sv_=sv_, so=so, slse=slse, sdo=sdo, sd=sd, skw=skw,
+                     walk=walk):
+                return flash_attention_bwd(sq_, sk_, sv_, so, slse, sdo, sd**-0.5, True,
+                                           segment_walk=walk, **skw)
+
+            seg[f"b1_segments_d{sd}_digest"] = digest(so, slse)
+            seg[f"b7_segments_d{sd}_dkv_digest"] = digest(*sbwd()[1:])
+            # The kernels alone, on the precomputed walk (the ranges' small
+            # ops would time the host).
+            seg[f"b1_segments_d{sd}_ms"] = device_ms(segment_kernel_call(
+                sq_, sk_, sv_, sd**-0.5, dict(skw, causal=True)), reps)[0]
+            seg[f"b7_segments_d{sd}_ms"] = device_ms(sbwd, reps)[0]
+            del sq_, sk_, sv_, sdo, so, slse
+    if hasattr(flash_attention, "window_launches"):
+        from liteattention_torch.ops.flash_fwd import flash_attention_masked
+
+        for name, shape, wkw in (
+                ("window_softcap_d64", (8, 12, 1024, 64), dict(window=(255, 0), softcap=30.0)),
+                ("window_d128", (2, 8, 2048, 128), dict(window=(511, 0))),
+                ("dropout_d128", (2, 8, 2048, 128),
+                 dict(dropout_p=0.1, dropout_seed=torch.tensor([7], device=dev).int()))):
+            wq, wk, wv, wdo = (torch.randn(*shape, generator=g, device=dev).bfloat16()
+                               for _ in range(4))
+            wo, wlse = flash_attention_masked(wq, wk, wv, causal=True, return_lse=True, **wkw)
+
+            def wbwd(wq=wq, wk=wk, wv=wv, wo=wo, wlse=wlse, wdo=wdo, wkw=wkw):
+                return flash_attention_bwd(wq, wk, wv, wo, wlse, wdo, wq.shape[-1] ** -0.5, True,
+                                           **wkw)
+
+            seg[f"b1_{name}_digest"] = digest(wo, wlse)
+            seg[f"b7_{name}_dkv_digest"] = digest(*wbwd()[1:])
+            seg[f"b1_{name}_ms"] = device_ms(lambda: flash_attention_masked(
+                wq, wk, wv, causal=True, **wkw), reps)[0]
+            seg[f"b7_{name}_ms"] = device_ms(wbwd, reps)[0]
+            del wq, wk, wv, wdo, wo, wlse
+
     def b1_device_ms(b, hq, hk, sq, sk, d, causal):
         bq = torch.randn(b, hq, sq, d, generator=g, device=dev).bfloat16()
         bk, bv = (torch.randn(b, hk, sk, d, generator=g, device=dev).bfloat16() for _ in range(2))
@@ -9041,7 +9434,7 @@ def ab_times(reps):
             q, k, v, fidx, count, -1.0, mask, fold_h=FOLD_H), reps),
         "sparsity": 1.0 - mask.float().mean().item(),
         "b8_ms": b8_ms, "b8_kernel_ms": b8_kernel_ms, "b8_timer": b8_timer, **decode, **bwd,
-        **b1, **channels, **b2, **b4, **b10, **mla, **b6, **digests, **hd,
+        **b1, **channels, **seg, **b2, **b4, **b10, **mla, **b6, **digests, **hd,
     }))
     return 0
 
@@ -9166,6 +9559,11 @@ def main() -> int:
               "moe_apply_sharded")
         p23_counts, p23_stats = training_parallel_phase(dev, card)
         counts.update(p23_counts)
+        phase("phase 24: the varlen functions with window, softcap and dropout over packed "
+              "documents: Mistral-7B's window, Gemma-2-27B's local and global layers, BERT-large's "
+              "dropout 0.1")
+        counts["varlen_channels"], p24_kres, p24_stats = varlen_channel_phase(dev, card)
+        kres.update(p24_kres)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -9303,6 +9701,18 @@ def main() -> int:
         "paged_decode_folded_int8_mma": ("flash_decode.cu",
                                          "flash_decode_kernel<D, uint8_t, true>",
                                          "liteattention_tpu/ops/paged_attention.py:276"),
+        "flash_fwd_segments_window": ("flash_fwd_segments_channels.cu",
+                                      "flash_fwd_segments_channels_kernel<D, CAUSAL, WINDOW, "
+                                      "SOFTCAP, false>", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_bwd_segments_window": ("flash_bwd_segments_channels.cu",
+                                      "flash_bwd_segments_channels_kernel<D, CAUSAL, false, "
+                                      "WINDOW, SOFTCAP>", "liteattention_tpu/ops/flash_bwd.py:55"),
+        "flash_fwd_segments_dropout": ("flash_fwd_segments_channels.cu",
+                                       "flash_fwd_segments_channels_kernel<D, CAUSAL, false, "
+                                       "false, true>", "liteattention_tpu/ops/flash_fwd.py:84"),
+        "flash_bwd_segments_dropout": ("flash_bwd_segments_channels.cu",
+                                       "flash_bwd_segments_channels_kernel<D, CAUSAL, true, "
+                                       "false, false>", "liteattention_tpu/ops/flash_bwd.py:55"),
     }
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -9408,7 +9818,7 @@ def main() -> int:
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
                   (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats),
-                  (22, p22_stats), (23, p23_stats)):
+                  (22, p22_stats), (23, p23_stats), (24, p24_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -9433,6 +9843,7 @@ def main() -> int:
         f"{json.dumps(p22_stats)}")
     log(f"parallel training (two ranks on one card; times are no measure of parallel speed): "
         f"{json.dumps(p23_stats)}")
+    log(f"varlen channels: {json.dumps(p24_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

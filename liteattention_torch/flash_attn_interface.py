@@ -332,11 +332,15 @@ def flash_attn_varlen_func(
     ``pack_gqa``, ``deterministic``, ``sm_margin`` and ``block_sizes`` are
     accepted and ignored. ``dropout_p`` / ``dropout_seed``: attention
     dropout on the packed axis (the keep mask's rows and columns are packed
-    positions, as in JAX); the plain versions take it on the CPU, and on
-    the card it raises (segments with dropout are not built: ROADMAP B-i
-    5). ``window_size`` and ``softcap`` likewise: the plain versions take
-    them on the CPU, and on the card B1 has no segment instantiation with
-    them yet, so they raise there (ROADMAP B-i 3's rest). ``qv`` and the
+    positions, as in JAX). ``window_size`` and ``softcap``: the sliding
+    window about the packed position and the logit cap. On the card each of
+    them, and the window with the cap, runs B1's and B7's segment
+    instantiations of those channels at head dim 64 or 128 (counted in
+    ``flash_attention.segment_dropout_launches`` /
+    ``.segment_window_launches`` and ``flash_bwd``'s counters of the same
+    names); dropout with the window or the cap raises there (ROADMAP B-i
+    3's rest), and so do these channels at head dim 80 or 96 (B-iii 4).
+    The plain versions take every combination on the CPU. ``qv`` and the
     fp8 descales raise on every device; so does a head dim the segment
     kernels are not built for (64, 80, 96 and 128 are; B-iii 4).
     The packed

@@ -68,7 +68,14 @@
 // thread's two keys' ids read once; a step whose 64 rows and the k-tile's
 // keys all carry one id skips it (each 64-row block's and each k-tile's
 // least and largest id come from the wrapper). Rows with lse -inf (no key
-// of their id) add 0 to dQ, dK and dV.
+// of their id) add 0 to dQ, dK and dV. The segment walk takes the dropout,
+// window and softcap channels below too (at D 64 and 128: DROPOUT, WINDOW,
+// SOFTCAP or both of the last two; kernel flash_bwd_segments_channels_kernel
+// and entry lite_flash_bwd_segments_channels in
+// flash_bwd_segments_channels.cu): a CTA walks the q-steps of its segments'
+// rows that the window reaches, the element test takes the ids and the
+// window together on the steps that need either, and dropout regenerates
+// B1's bit at b = 0.
 //
 // Attention dropout (the DROPOUT instantiations: the RANGE walk at D 64 and
 // 128; kernel flash_bwd_dropout_kernel, entry lite_flash_bwd_dropout in
@@ -451,7 +458,15 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
         // channel's bound moves out of reach: one branch-free test on every
         // tile (on an H100 faster than testing the tile flags per element).
         bool masked;
-        if constexpr (WINDOW) {
+        if constexpr (SEG && WINDOW) {
+          const int row = row0 + qc;
+          masked = key_masked<CAUSAL>(key, row, ragged ? p.seqlen_k : kNoBound,
+                                      diag ? p.causal_offset : kNoBound, 0,
+                                      seg_test ? __ldg(c.q_seg + row) : 0,
+                                      seg_test ? ((e >> 1) & 1 ? kid_hi : kid_lo) : 0,
+                                      win_test ? make_int2(row + win_lo, row + win_hi + 1)
+                                               : make_int2(-kNoBound, kNoBound));
+        } else if constexpr (WINDOW) {
           const int row = row0 + qc;
           masked = key_masked<CAUSAL>(key, row, ragged ? r.lim : kNoBound,
                                       diag ? diag_off : kNoBound, ragged ? r.low : 0,
@@ -613,7 +628,8 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
 
 // One CTA of the main kernel (flash_bwd_kernel; with SEG
 // flash_bwd_segments_kernel, with DROPOUT flash_bwd_dropout_kernel, with
-// WINDOW or SOFTCAP flash_bwd_window_kernel).
+// WINDOW or SOFTCAP flash_bwd_window_kernel, with SEG and any of them
+// flash_bwd_segments_channels_kernel).
 template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG, bool DROPOUT = false,
           bool WINDOW = false, bool SOFTCAP = false>
 __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
@@ -621,11 +637,12 @@ __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorM
                                         const Params& p, const Channels& c) {
   static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim must be 64, 80, 96 or 128");
   static_assert(RANGE || !ALIBI, "ALiBi runs in the RANGE instantiations");
-  static_assert(!SEG || !RANGE, "segments alone");
-  static_assert(!DROPOUT || (RANGE && !ALIBI && (D == 64 || D == 128)),
-                "dropout runs in the RANGE instantiations at D 64 and 128");
-  static_assert(!(WINDOW || SOFTCAP) || (RANGE && !ALIBI && !DROPOUT && (D == 64 || D == 128)),
-                "window and softcap run in the RANGE instantiations at D 64 and 128");
+  static_assert(!SEG || !RANGE, "segments without the key range");
+  static_assert(!DROPOUT || ((RANGE || SEG) && !ALIBI && (D == 64 || D == 128)),
+                "dropout runs in the RANGE and segment instantiations at D 64 and 128");
+  static_assert(!(WINDOW || SOFTCAP) ||
+                    ((RANGE || SEG) && !ALIBI && !DROPOUT && (D == 64 || D == 128)),
+                "window and softcap run in the RANGE and segment instantiations at D 64 and 128");
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -663,13 +680,13 @@ __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorM
   Window wnd{};
   if constexpr (WINDOW) {
     wnd = window_of(c, b, p.seqlen_q, p.seqlen_k);
+    int q_end = SEG ? q_first + nq : qtiles;  // inside the segments' rows
     if (wnd.right >= 0) {
       q_first = max(q_first, min(qtiles, max(k0 - wnd.right - wnd.off, 0) / kRows));
     }
-    int q_end = qtiles;
     if (wnd.left >= 0) {
       const int rows_end = k0 + kKeys + wnd.left - wnd.off;
-      q_end = rows_end <= 0 ? 0 : min(qtiles, (rows_end + kRows - 1) / kRows);
+      q_end = rows_end <= 0 ? 0 : min(q_end, (rows_end + kRows - 1) / kRows);
     }
     nq = max(q_end - q_first, 0);
   }
@@ -735,6 +752,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __grid_constant__ CUtensorMap tm_do, const Params p,
                             const Channels c) {
   bwd_cta<D, CAUSAL, true, false, false, false, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v, tm_do, p, c);
+}
+
+// The segment walk with dropout, or the window and / or softcap channels
+// (instantiated in flash_bwd_segments_channels.cu).
+template <int D, bool CAUSAL, bool DROPOUT, bool WINDOW, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_segments_channels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                       const __grid_constant__ CUtensorMap tm_k,
+                                       const __grid_constant__ CUtensorMap tm_v,
+                                       const __grid_constant__ CUtensorMap tm_do, const Params p,
+                                       const Channels c) {
+  bwd_cta<D, CAUSAL, false, false, true, DROPOUT, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v, tm_do, p, c);
 }
 
 template <int D, bool CAUSAL>
@@ -803,7 +832,9 @@ struct Args {
 template <int D, bool CAUSAL, bool RANGE, bool ALIBI, bool SEG, bool DROPOUT, bool WINDOW,
           bool SOFTCAP>
 auto main_kernel() {
-  if constexpr (SEG) {
+  if constexpr (SEG && (DROPOUT || WINDOW || SOFTCAP)) {
+    return flash_bwd_segments_channels_kernel<D, CAUSAL, DROPOUT, WINDOW, SOFTCAP>;
+  } else if constexpr (SEG) {
     return flash_bwd_segments_kernel<D, CAUSAL>;
   } else if constexpr (DROPOUT) {
     return flash_bwd_dropout_kernel<D, CAUSAL>;

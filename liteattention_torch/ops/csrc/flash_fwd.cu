@@ -62,7 +62,16 @@
 // tiles where the keys' ids (each k-tile's least and largest, from the
 // wrapper) and the warp's 16 rows' ids (read once per CTA) are not all one
 // id, which inside a document is none but the tiles that cross a boundary.
-// Rows whose id no key carries get out 0, lse -inf.
+// Rows whose id no key carries get out 0, lse -inf. The segment walk takes
+// the window, softcap and dropout channels below too (at D 64 and 128, one
+// of WINDOW, SOFTCAP, both, or DROPOUT; kernel
+// flash_fwd_segments_channels_kernel and entry
+// lite_flash_fwd_segments_channels in flash_fwd_segments_channels.cu), as
+// the varlen functions pass them over packed documents: the walk is the
+// segment range narrowed by the q-tile's window union, the per-element test
+// checks the ids and the row's interval together (key_mask.cuh), on the
+// tiles where either test needs it, and dropout hashes packed positions
+// (b = 0), the dense walk's bits.
 //
 // Attention dropout (DROPOUT; the JAX kernel's dropout_p, dense walk at D 64
 // and 128, with the key range; kernel flash_fwd_dropout_kernel and entry
@@ -562,6 +571,10 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p,
       s, 1.f, mask, col0,
       [&](int col, bool hi) {
         const int row = hi ? r_hi : r_lo;
+        if constexpr (SEG && WINDOW) {
+          return key_masked<CAUSAL>(col, row, lim, diag, r.low, hi ? seg.q_hi : seg.q_lo,
+                                    __ldg(seg.k_seg + col), hi ? win.hi : win.lo);
+        }
         if constexpr (SEG) {
           return key_masked<CAUSAL>(col, row, lim, diag, r.low, hi ? seg.q_hi : seg.q_lo,
                                     __ldg(seg.k_seg + col));
@@ -597,7 +610,8 @@ __device__ __forceinline__ void drop_scores(float (&s)[NB][4], int tile, uint32_
 
 // One CTA of B1 (flash_fwd_kernel; with DROPOUT flash_fwd_dropout_kernel,
 // flash_fwd_dropout.cu; with WINDOW or SOFTCAP flash_fwd_window_kernel,
-// flash_fwd_window.cu).
+// flash_fwd_window.cu; the segment walk with any of them
+// flash_fwd_segments_channels_kernel, flash_fwd_segments_channels.cu).
 template <int DK, int DV, bool CAUSAL, int WALK, bool VOTES, bool FOLD, bool ALIBI, bool DROPOUT,
           bool WINDOW = false, bool SOFTCAP = false>
 __device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
@@ -627,11 +641,13 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorM
   static_assert(!ALIBI || (WALK == kDense && DK == DV && DK <= 128),
                 "ALiBi is a channel of the dense walk at D <= 128");
   static_assert(!SEG || (DK == DV && DK <= 128), "segments at D 64, 80, 96 and 128");
-  static_assert(!DROPOUT || (WALK == kDense && !ALIBI && DK == DV && (DK == 64 || DK == 128)),
-                "dropout is a channel of the dense walk at D 64 and 128");
-  static_assert(!(WINDOW || SOFTCAP) ||
-                    (WALK == kDense && !ALIBI && !DROPOUT && DK == DV && (DK == 64 || DK == 128)),
-                "window and softcap are channels of the dense walk at D 64 and 128");
+  static_assert(!DROPOUT || ((WALK == kDense || SEG) && !ALIBI && DK == DV &&
+                              (DK == 64 || DK == 128)),
+                "dropout is a channel of the dense and segment walks at D 64 and 128");
+  static_assert(!(WINDOW || SOFTCAP) || ((WALK == kDense || SEG) && !ALIBI && !DROPOUT &&
+                                         DK == DV && (DK == 64 || DK == 128)),
+                "window and softcap are channels of the dense and segment walks at D 64 and "
+                "128");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -657,7 +673,8 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorM
     range.lim = min(keys.y, p.seqlen_k);
   }
   // WINDOW: the walk narrows to the keys the q-tile's valid rows' windows
-  // reach (their union, uniform over the CTA).
+  // reach (their union, uniform over the CTA); on the segment walk, inside
+  // the q-tile's segment range.
   Window wnd{};
   if constexpr (WINDOW) {
     wnd = window_of(c, b, p.seqlen_q, p.seqlen_k);

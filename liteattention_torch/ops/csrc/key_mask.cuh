@@ -49,6 +49,16 @@ __device__ __forceinline__ bool key_masked(int key, int row, int lim, int diag, 
   return key_masked<CAUSAL>(key, row, lim, diag, low) || key < win.x || key >= win.y;
 }
 
+// Segment ids and the window together (the segment walks with WINDOW; the
+// varlen functions' window over packed documents): same id, inside the
+// row's interval, at or below the diagonal, in one test.
+template <bool CAUSAL>
+__device__ __forceinline__ bool key_masked(int key, int row, int lim, int diag, int low, int q_id,
+                                           int k_id, int2 win) {
+  return key_masked<CAUSAL>(key, row, lim, diag, low, q_id, k_id) || key < win.x ||
+         key >= win.y;
+}
+
 // B1's per-batch channels, forwards (B1's dense walk) and backwards (B7's
 // RANGE / ALIBI instantiations); null when absent: keys [kv_low[b],
 // kv_bound[b]), the diagonal at kv_bound[b] - Sq with bound_causal (alone,
@@ -68,17 +78,17 @@ struct Channels {
   const int2* k_span;
   const int2* q_span;
   // Attention dropout (the DROPOUT instantiations of B1's dense walk and
-  // B7's RANGE one): the int32 seed on the device, the least kept hash
-  // (dropout_keep) and 1 / (1 - p).
+  // B7's RANGE one, and of both segment walks): the int32 seed on the
+  // device, the least kept hash (dropout_keep) and 1 / (1 - p).
   const int* dropout_seed;
   uint32_t dropout_min;
   float dropout_scale;
   // The window channel (the WINDOW instantiations of B1's dense walk and
-  // B7's RANGE one): row r at position pos = r + off (off = kv_bound[b] -
-  // Sq with kv_bound, else Sk - Sq) sees keys [pos - win_left, pos +
-  // win_right] (-1: that side unbounded) and, with chunk > 0 (B1 only),
-  // keys [floor(pos / chunk) chunk, + chunk). SOFTCAP: cap > 0, the scores
-  // become cap tanh(s scale / cap) before the mask.
+  // B7's RANGE one, and of both segment walks): row r at position pos = r
+  // + off (off = kv_bound[b] - Sq with kv_bound, else Sk - Sq) sees keys
+  // [pos - win_left, pos + win_right] (-1: that side unbounded) and, with
+  // chunk > 0 (B1 only), keys [floor(pos / chunk) chunk, + chunk). SOFTCAP:
+  // cap > 0, the scores become cap tanh(s scale / cap) before the mask.
   int win_left, win_right, chunk;
   float cap;
 };

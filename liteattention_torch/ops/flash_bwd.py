@@ -36,7 +36,14 @@ it back, as B1 does, so P is recomputed from the scores B1 summed. The
 segment channel (``q_segments`` / ``kv_segments``, batch 1) runs the
 kernel's segment instantiation (entry ``lite_flash_bwd_segments``, counted
 in ``flash_bwd.segment_launches``): each 128-key tile walks only the q rows
-its ids can meet (:mod:`liteattention_torch.ops.segments`). Attention
+its ids can meet (:mod:`liteattention_torch.ops.segments`); with dropout,
+the window or the cap (the varlen functions' channels; head dim 64 or 128)
+it runs the segment instantiations of those channels (source
+``csrc/flash_bwd_segments_channels.cu``, entry
+``lite_flash_bwd_segments_channels``, counted in
+``flash_bwd.segment_dropout_launches`` and
+``flash_bwd.segment_window_launches``), whose tiles walk the rows their
+ids and the window both reach. Attention
 dropout runs the kernel's DROPOUT instantiation (source
 ``csrc/flash_bwd_dropout.cu``, entry ``lite_flash_bwd_dropout``, counted in
 ``flash_bwd.dropout_launches``; the key range with it): each score
@@ -338,14 +345,14 @@ def check_head_dim(d: int, channels: bool, name: str, key_range_only: bool = Fal
 DROPOUT_HEAD_DIMS = (64, 128)
 
 
-def check_dropout(d: int, alibi: bool, segments: bool, name: str) -> None:
+def check_dropout(d: int, alibi: bool, name: str) -> None:
     """Raise ``NotImplementedError`` unless B1's and B7's dropout
-    instantiations take this call on the card: the dense walk at head dim
-    64 or 128, with or without the key range; not ALiBi or segments with
-    dropout (ROADMAP B-i 5), nor another head dim (B-iii 4)."""
-    if alibi or segments:
-        what = "alibi_slopes" if alibi else "segments (varlen)"
-        raise NotImplementedError(f"{name}: {what} with dropout is not built on the card "
+    instantiations take this call on the card: the dense walk (with or
+    without the key range) or the segment walk, at head dim 64 or 128; not
+    ALiBi with dropout (ROADMAP B-i 5), nor another head dim (B-iii 4).
+    Dropout with the window or the cap is ``check_window``'s refusal."""
+    if alibi:
+        raise NotImplementedError(f"{name}: alibi_slopes with dropout is not built on the card "
                                   "(ROADMAP B-i 5)")
     if d not in DROPOUT_HEAD_DIMS:
         raise NotImplementedError(f"{name}: dropout at head dim {d} is not built on the card "
@@ -357,17 +364,16 @@ def check_dropout(d: int, alibi: bool, segments: bool, name: str) -> None:
 WINDOW_HEAD_DIMS = (64, 128)
 
 
-def check_window(d: int, window: bool, softcap: bool, alibi: bool, segments: bool,
-                 dropout: bool, name: str) -> None:
+def check_window(d: int, window: bool, softcap: bool, alibi: bool, dropout: bool,
+                 name: str) -> None:
     """Raise ``NotImplementedError`` unless B1's and B7's window / softcap
     instantiations take this call on the card (``window``: the window or
-    ``attention_chunk`` is in use, ``softcap`` the cap): the dense walk at
-    head dim 64 or 128, with or without the key range; not with ALiBi,
-    segments or dropout (ROADMAP B-i 3's rest), nor at another head dim
-    (B-iii 4)."""
+    ``attention_chunk`` is in use, ``softcap`` the cap): the dense walk
+    (with or without the key range) or the segment walk, at head dim 64 or
+    128; not with ALiBi or dropout (ROADMAP B-i 3's rest), nor at another
+    head dim (B-iii 4)."""
     what = " and ".join(n for n, on in (("window", window), ("softcap", softcap)) if on)
-    others = [n for n, on in (("alibi_slopes", alibi), ("segments (varlen)", segments),
-                              ("dropout", dropout)) if on]
+    others = [n for n, on in (("alibi_slopes", alibi), ("dropout", dropout)) if on]
     if others:
         raise NotImplementedError(f"{name}: {what} with {', '.join(others)} is not built on the "
                                   "card (ROADMAP B-i 3's rest)")
@@ -427,7 +433,8 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
     ``[B, H]`` or ``[H]``) on the RANGE / ALIBI instantiations, with segment
     ids (``[1, Sq]``, ``[1, Sk]``; ``segment_walk`` their
     :class:`~liteattention_torch.ops.segments.SegmentWalk` if the forward
-    made it) on the segment kernel, with ``dropout_p`` > 0 (the forward's
+    made it) on the segment kernel (with dropout, the window or the cap on
+    its instantiations of them), with ``dropout_p`` > 0 (the forward's
     ``dropout_seed``) on the DROPOUT instantiations (the key range too),
     with ``window`` (left, right) or ``softcap`` > 0 on the WINDOW /
     SOFTCAP instantiations (the key range too)."""
@@ -443,9 +450,9 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
     windowed = window is not None or softcap > 0.0
     if windowed:
         check_window(q.shape[-1], window is not None, softcap > 0.0, alibi_slopes is not None,
-                     q_segments is not None, dropout, "flash_bwd")
+                     dropout, "flash_bwd")
     if dropout:
-        check_dropout(q.shape[-1], alibi_slopes is not None, q_segments is not None, "flash_bwd")
+        check_dropout(q.shape[-1], alibi_slopes is not None, "flash_bwd")
     plain = (kv_bound is None and kv_low is None and alibi_slopes is None and not dropout
              and not windowed)
     _check_cuda(q, k, v, o, lse, dout, channels=not plain or q_segments is not None)
@@ -453,7 +460,8 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
         if segment_walk is None:
             segment_walk = segments.segment_walk(q_segments.to(q.device),
                                                  kv_segments.to(q.device))
-        return _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, segment_walk)
+        return _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, segment_walk,
+                                   dropout_p, dropout_seed, window, softcap)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     sq_pad = -(-sq // TILE_Q) * TILE_Q
@@ -507,24 +515,42 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
     return dq, dk, dv
 
 
-def _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, walk):
+def _flash_bwd_segments(q, k, v, o, lse, dout, scale, causal, walk, dropout_p=0.0,
+                        dropout_seed=None, window=None, softcap=0.0):
     """B7's segment kernel (batch 1; three launches), counted in
-    ``flash_bwd.segment_launches``."""
+    ``flash_bwd.segment_launches``; with dropout in
+    ``.segment_dropout_launches``, with the window and / or the cap in
+    ``.segment_window_launches``."""
     _, h, sq, d = q.shape
     sq_pad = -(-sq // TILE_Q) * TILE_Q
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dq_accum = torch.empty((1, h, sq_pad, d), dtype=torch.float32, device=q.device)
     lse2 = torch.empty((1, h, sq_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
-    err = _build.load_kernels().lite_flash_bwd_segments(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_accum.data_ptr(), lse2.data_ptr(),
-        delta.data_ptr(), walk.q.data_ptr(), walk.k.data_ptr(), walk.bwd_range.data_ptr(),
-        walk.q_span.data_ptr(), walk.k_span.data_ptr(), h, k.shape[1], sq, k.shape[2], d,
-        float(scale), int(causal), q.device.index, _build.stream(q.device),
-    )
-    _build.check(err, "flash_bwd_segments")
-    flash_bwd.segment_launches += 1
+    lib = _build.load_kernels()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_accum.data_ptr(),
+            lse2.data_ptr(), delta.data_ptr(), walk.q.data_ptr(), walk.k.data_ptr(),
+            walk.bwd_range.data_ptr(), walk.q_span.data_ptr(), walk.k_span.data_ptr())
+    dims = (h, k.shape[1], sq, k.shape[2], d, float(scale), int(causal))
+    dev = (q.device.index, _build.stream(q.device))
+    if dropout_p == 0.0 and window is None and softcap == 0.0:
+        _build.check(lib.lite_flash_bwd_segments(*ptrs, *dims, *dev), "flash_bwd_segments")
+        flash_bwd.segment_launches += 1
+        return dq, dk, dv
+    if dropout_p > 0.0:
+        seed = dropout_seed_tensor(dropout_seed, q.device)
+        err = lib.lite_flash_bwd_segments_channels(
+            *ptrs, seed.data_ptr(), *dims, -1, -1, 0.0, dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p), *dev)
+        _build.check(err, "flash_bwd_segments_channels")
+        flash_bwd.segment_dropout_launches += 1
+        return dq, dk, dv
+    left, right = (min(x, WINDOW_SIDE_MAX) for x in (window or (-1, -1)))
+    err = lib.lite_flash_bwd_segments_channels(*ptrs, None, *dims, left, right, float(softcap),
+                                               0, 1.0, *dev)
+    _build.check(err, "flash_bwd_segments_channels")
+    flash_bwd.segment_window_launches += 1
     return dq, dk, dv
 
 
@@ -532,6 +558,8 @@ flash_bwd.launches = 0
 flash_bwd.bound_launches = 0
 flash_bwd.alibi_launches = 0
 flash_bwd.segment_launches = 0
+flash_bwd.segment_window_launches = 0
+flash_bwd.segment_dropout_launches = 0
 flash_bwd.dropout_launches = 0
 flash_bwd.window_launches = 0
 
@@ -557,15 +585,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
     :class:`~liteattention_torch.ops.segments.SegmentWalk` of those ids, if
     it made one. ``dropout_p`` and ``dropout_seed``: the forward's
     attention dropout, whose keep mask B7 regenerates (``o`` is the dropped
-    output, so delta is too); on the card head dim 64 or 128, not with
-    ALiBi or segments (``NotImplementedError`` naming ROADMAP B-i 5 or
-    B-iii 4). ``window`` (left, right; -1 unbounded) and ``softcap``: the
+    output, so delta is too); on the card head dim 64 or 128, with the
+    key range or segments, not with ALiBi (``NotImplementedError`` naming
+    ROADMAP B-i 5 or B-iii 4). ``window`` (left, right; -1 unbounded) and
+    ``softcap``: the
     forward's sliding window (about ``pos = row + kv_bound[b] - Sq`` with
     ``kv_bound``, else ``row + Sk - Sq``) and logit cap ``softcap *
     tanh(s / softcap)``, whose derivative ``1 - tanh^2`` dS takes, as in
-    JAX; on the card head dim 64 or 128, not with ALiBi, segments or
-    dropout (``NotImplementedError`` naming ROADMAP B-i 3's rest or
-    B-iii 4). ``attention_chunk`` has no backward, as in JAX.
+    JAX; on the card head dim 64 or 128, with the key range or segments,
+    not with ALiBi or dropout (``NotImplementedError`` naming ROADMAP B-i
+    3's rest or B-iii 4). ``attention_chunk`` has no backward, as in JAX.
     """
     if softcap < 0.0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")

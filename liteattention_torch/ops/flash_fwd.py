@@ -37,7 +37,15 @@ is seen by the rows of its id) runs B1's segment walk (entry
 ``lite_flash_fwd_segments``, counted in ``flash_attention.segment_launches``):
 each 128-row q-tile walks only the key range its ids can meet
 (:mod:`liteattention_torch.ops.segments`), and its gradient B7's segment
-kernel (``flash_bwd.segment_launches``). Attention dropout (``dropout_p``,
+kernel (``flash_bwd.segment_launches``). With dropout, the window, the
+chunk or the cap (what the varlen functions pass over packed documents;
+head dim 64 or 128) the segment walk runs its instantiations of those
+channels (source ``csrc/flash_fwd_segments_channels.cu``, entry
+``lite_flash_fwd_segments_channels``, counted in
+``flash_attention.segment_dropout_launches`` and
+``.segment_window_launches``; the gradient in ``flash_bwd``'s counters of
+the same names): the segment range narrowed by the window, the ids and the
+window tested together per element. Attention dropout (``dropout_p``,
 ``dropout_seed``) runs B1's dropout instantiation (source
 ``csrc/flash_fwd_dropout.cu``, entry ``lite_flash_fwd_dropout``, counted in
 ``flash_attention.dropout_launches``): the dense walk, with the key range,
@@ -394,10 +402,11 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     """B1 on the card, with or without its channels; one launch, counted
     in ``flash_attention.launches``, ``.bound_launches`` (bound or low),
     ``.alibi_launches``, ``.segment_launches`` (with segments ``walk``
-    is the ids' :class:`~liteattention_torch.ops.segments.SegmentWalk`),
-    ``.dropout_launches`` (dropout, with or without the key range) or
-    ``.window_launches`` (window, chunk and / or softcap, with or without
-    the key range)."""
+    is the ids' :class:`~liteattention_torch.ops.segments.SegmentWalk`;
+    with dropout ``.segment_dropout_launches``, with the window, chunk
+    and / or softcap ``.segment_window_launches``), ``.dropout_launches``
+    (dropout, with or without the key range) or ``.window_launches``
+    (window, chunk and / or softcap, with or without the key range)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -406,16 +415,16 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     windowed = window is not None or attention_chunk > 0 or softcap > 0.0
     if windowed:
         check_window(d, window is not None or attention_chunk > 0, softcap > 0.0,
-                     alibi_slopes is not None, q_segments is not None, dropout_p > 0.0,
-                     "flash_attention")
+                     alibi_slopes is not None, dropout_p > 0.0, "flash_attention")
     if dropout_p > 0.0:
-        check_dropout(d, alibi_slopes is not None, q_segments is not None, "flash_attention")
+        check_dropout(d, alibi_slopes is not None, "flash_attention")
     check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None
                    or q_segments is not None, "flash_attention",
                    key_range_only=alibi_slopes is None and q_segments is None)
     _build.check_aligned(q, k, v)
     if q_segments is not None:
-        return _launch_segments(q, k, v, scale, causal, walk)
+        return _launch_segments(q, k, v, scale, causal, walk, dropout_p, dropout_seed, window,
+                                attention_chunk, softcap)
 
     def per_batch(x):
         return None if x is None else x.to(q.device, torch.int32).reshape(b).contiguous()
@@ -464,20 +473,39 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
     return out, lse
 
 
-def _launch_segments(q, k, v, scale, causal, walk):
+def _launch_segments(q, k, v, scale, causal, walk, dropout_p=0.0, dropout_seed=None,
+                     window=None, attention_chunk=0, softcap=0.0):
     """B1's segment walk (batch 1): one launch, counted in
-    ``flash_attention.segment_launches``."""
+    ``flash_attention.segment_launches``; with dropout in
+    ``.segment_dropout_launches``, with the window, the chunk and / or the
+    cap in ``.segment_window_launches``."""
     _, h, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((1, h, sq), dtype=torch.float32, device=q.device)
-    err = _build.load_kernels().lite_flash_fwd_segments(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        walk.q.data_ptr(), walk.k.data_ptr(), walk.fwd_range.data_ptr(), walk.k_span.data_ptr(),
-        h, k.shape[1], sq, k.shape[2], d, float(scale), int(causal), q.device.index,
-        _build.stream(q.device),
-    )
-    _build.check(err, "flash_fwd_segments")
-    flash_attention.segment_launches += 1
+    lib = _build.load_kernels()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            walk.q.data_ptr(), walk.k.data_ptr(), walk.fwd_range.data_ptr(),
+            walk.k_span.data_ptr())
+    dims = (h, k.shape[1], sq, k.shape[2], d, float(scale), int(causal))
+    dev = (q.device.index, _build.stream(q.device))
+    if dropout_p == 0.0 and window is None and not attention_chunk and softcap == 0.0:
+        _build.check(lib.lite_flash_fwd_segments(*ptrs, *dims, *dev), "flash_fwd_segments")
+        flash_attention.segment_launches += 1
+        return out, lse
+    if dropout_p > 0.0:
+        seed = dropout_seed_tensor(dropout_seed, q.device)
+        err = lib.lite_flash_fwd_segments_channels(
+            *ptrs, seed.data_ptr(), *dims, -1, -1, 0, 0.0, dropout_threshold(dropout_p),
+            1.0 / (1.0 - dropout_p), *dev)
+        _build.check(err, "flash_fwd_segments_channels")
+        flash_attention.segment_dropout_launches += 1
+        return out, lse
+    left, right = (min(x, WINDOW_SIDE_MAX) for x in (window or (-1, -1)))
+    err = lib.lite_flash_fwd_segments_channels(
+        *ptrs, None, *dims, left, right, min(int(attention_chunk), WINDOW_SIDE_MAX),
+        float(softcap), 0, 1.0, *dev)
+    _build.check(err, "flash_fwd_segments_channels")
+    flash_attention.segment_window_launches += 1
     return out, lse
 
 
@@ -485,6 +513,8 @@ flash_attention.launches = 0
 flash_attention.bound_launches = 0
 flash_attention.alibi_launches = 0
 flash_attention.segment_launches = 0
+flash_attention.segment_window_launches = 0
+flash_attention.segment_dropout_launches = 0
 flash_attention.mla_launches = 0
 flash_attention.mla_v512_launches = 0
 flash_attention.mla_bound_launches = 0
@@ -594,9 +624,12 @@ def flash_attention_masked(
     instantiations (counted in ``flash_attention.dropout_launches`` and
     ``flash_bwd.dropout_launches``): head dim 64 or 128, causal or not,
     with the key range (``kv_bound``, ``kv_low``, ``bound_causal``) or
-    without; with ALiBi or segments it raises ``NotImplementedError``
-    naming ROADMAP B-i 5, at another head dim B-iii 4. The plain versions
-    take it with every channel. A seed without ``dropout_p`` does
+    without, or with segments (the segment walk's dropout instantiations,
+    counted in ``flash_attention.segment_dropout_launches`` and
+    ``flash_bwd.segment_dropout_launches``); with ALiBi it raises
+    ``NotImplementedError`` naming ROADMAP B-i 5, with the window or the
+    cap B-i 3's rest, at another head dim B-iii 4. The plain versions take
+    it with every channel. A seed without ``dropout_p`` does
     nothing, as in JAX.
 
     ``window`` (left, right; -1: that side unbounded; (-1, -1) is no
@@ -613,10 +646,12 @@ def flash_attention_masked(
     they run B1's and B7's window instantiations (counted in
     ``flash_attention.window_launches`` and ``flash_bwd.window_launches``):
     head dim 64 or 128, causal or not, with the key range (``kv_bound``,
-    ``kv_low``, ``bound_causal``) or without; with ALiBi, segments or
-    dropout they raise ``NotImplementedError`` naming ROADMAP B-i 3's
-    rest, at another head dim B-iii 4. The plain versions take them with
-    every channel.
+    ``kv_low``, ``bound_causal``) or without, or with segments (the
+    segment walk's window instantiations, counted in
+    ``flash_attention.segment_window_launches`` and
+    ``flash_bwd.segment_window_launches``); with ALiBi or dropout they
+    raise ``NotImplementedError`` naming ROADMAP B-i 3's rest, at another
+    head dim B-iii 4. The plain versions take them with every channel.
     ``block_sizes`` is a tiling knob of the JAX kernel, accepted and
     ignored (B1 runs 128 x 128)."""
     del block_sizes

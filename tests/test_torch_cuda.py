@@ -1575,9 +1575,9 @@ def test_flash_dropout_raises_where_not_built(dev):
     with pytest.raises(NotImplementedError, match="alibi_slopes with dropout.*B-i 5"):
         flash_attention_masked(q, k, v, alibi_slopes=torch.ones(4, device=dev), dropout_p=0.1)
     seg = torch.zeros(1, 64, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="segments.*B-i 5"):
+    with pytest.raises(NotImplementedError, match="window with dropout.*B-i 3's rest"):
         flash_attention_masked(q[:1], k[:1], v[:1], q_segments=seg, kv_segments=seg,
-                               dropout_p=0.1)
+                               dropout_p=0.1, window=(8, 0))
 
 
 # The window, attention_chunk and softcap channels (B1's and B7's WINDOW /
@@ -1689,26 +1689,177 @@ def test_flash_window_raises_where_not_built(dev):
     with pytest.raises(NotImplementedError, match="window with dropout.*B-i 3's rest"):
         flash_attention_masked(q, k, v, window=(8, 0), dropout_p=0.1)
     seg = torch.zeros(1, 64, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="window with segments.*B-i 3's rest"):
+    with pytest.raises(NotImplementedError, match="softcap with dropout.*B-i 3's rest"):
         flash_attention_masked(q[:1], k[:1], v[:1], q_segments=seg, kv_segments=seg,
-                               window=(8, 0))
+                               softcap=5.0, dropout_p=0.1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
     out = flash_attention_masked(qg, kg, vg, attention_chunk=32, causal=True)
     with pytest.raises(NotImplementedError, match="attention_chunk is forward-only"):
         out.float().sum().backward()
 
 
-def test_varlen_window_and_softcap_raise_on_the_card(dev):
-    # flash_attn_varlen_func takes window_size and softcap on the CPU (the
-    # plain versions); B1 has no segment instantiation with them, so the
-    # card refuses them rather than falling back.
+def test_varlen_window_and_softcap_run_on_the_card(dev):
+    # flash_attn_varlen_func with window_size and softcap (JAX's own case,
+    # lengths 70 and 58) runs B1's and B7's segment instantiations of the
+    # two channels, forward and backward, and matches the plain versions.
     from liteattention_torch import flash_attn_varlen_func
 
     lens = [70, 58]
     cu = torch.tensor([0, 70, 128], dtype=torch.int32, device=dev)
-    q, k, v = (x[0].transpose(0, 1) for x in _qkv(dev, 1, 2, 2, sum(lens), sum(lens), 64))
-    with pytest.raises(NotImplementedError, match="window and softcap with segments.*B-i 3"):
-        flash_attn_varlen_func(q, k, v, cu, cu, causal=True, window_size=(16, 0), softcap=5.0)
+    q, k, v = (x[0].transpose(0, 1).contiguous().requires_grad_()
+               for x in _qkv(dev, 1, 2, 2, sum(lens), sum(lens), 64))
+    do = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, window_size=(16, 0), softcap=5.0)
+    n0 = (flash_attention.segment_window_launches, flash_bwd.segment_window_launches)
+    out = flash_attn_varlen_func(q, k, v, cu, cu, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.segment_window_launches,
+            flash_bwd.segment_window_launches) == (n0[0] + 1, n0[1] + 1)
+    ids = torch.tensor([[0] * 70 + [1] * 58], dtype=torch.int32, device=dev)
+    heads = [x.detach().transpose(0, 1)[None] for x in (q, k, v, do)]
+    ch = dict(q_segments=ids, kv_segments=ids, window=(16, 0), softcap=5.0)
+    ro, lse = flash_attention_plain(*heads[:3], causal=True, **ch)
+    assert (out.detach().transpose(0, 1)[None].float() - ro.float()).abs().max().item() < 2e-2
+    delta = (out.detach().transpose(0, 1)[None].float() * heads[3].float()).sum(-1)
+    args = (*heads[:3], heads[3], lse, delta, 64**-0.5, True)
+    for got, ref in ((q.grad, flash_bwd_dq_plain(*args, **ch)),
+                     *zip((k.grad, v.grad), flash_bwd_dkv_plain(*args, **ch))):
+        _check_grad(got.transpose(0, 1)[None], ref)
+
+
+# The segment walk with the varlen functions' channels (B1's and B7's
+# segment instantiations of the window / chunk / softcap and dropout
+# channels, head dims 64 and 128): (h, hk, d, causal, ids as _seg_inputs
+# makes them, window, attention_chunk, softcap, dropout_p). Windows narrower
+# than a tile and longer than a document, a chunk, the cap with and without
+# the window, dropout; dead rows and keys, ids in no order, Sq != Sk and a
+# q-tile whose id no key has.
+SEG_CHANNEL_CASES = [
+    (4, 2, 64, True, "docs", (40, 0), 0, 0.0, 0.0),
+    (8, 2, 128, True, "docs", (300, 0), 0, 0.0, 0.0),
+    (4, 4, 128, False, "docs", (20, 7), 0, 0.0, 0.0),
+    (4, 2, 64, True, "docs", None, 64, 0.0, 0.0),
+    (4, 2, 128, True, "docs", None, 0, 50.0, 0.0),
+    (8, 2, 128, True, "docs", (100, 0), 0, 50.0, 0.0),
+    (4, 2, 64, False, "unsorted", (33, 3), 0, 5.0, 0.0),
+    (2, 2, 64, False, "cross", (-1, 50), 0, 0.0, 0.0),
+    (2, 2, 128, False, "empty", (64, 0), 0, 30.0, 0.0),
+    (4, 2, 64, False, "docs", None, 0, 0.0, 0.1),
+    (8, 2, 128, True, "docs", None, 0, 0.0, 0.1),
+    (4, 1, 128, False, "unsorted", None, 0, 0.0, 0.5),
+    (2, 2, 64, False, "cross", None, 0, 0.0, 0.1),
+    (2, 2, 128, True, "empty", None, 0, 0.0, 0.1),
+]
+
+
+@pytest.mark.parametrize("h,hk,d,causal,kind,window,chunk,cap,p", SEG_CHANNEL_CASES)
+def test_flash_segment_channel_kernels(dev, h, hk, d, causal, kind, window, chunk, cap, p):
+    q, k, v, seg = _seg_inputs(dev, h, hk, d, kind)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                     device=dev).to(torch.bfloat16)
+    ch = dict(seg, window=window, softcap=cap)
+    if p:
+        ch.update(dropout_p=p, dropout_seed=4321)
+    fwd_kw = dict(ch, attention_chunk=chunk)
+    counter = "segment_dropout_launches" if p else "segment_window_launches"
+    n_fwd, n_bwd = getattr(flash_attention, counter), getattr(flash_bwd, counter)
+    out, lse = flash_attention_masked(q, k, v, causal=causal, return_lse=True, **fwd_kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, counter) == n_fwd + 1
+    ro, rl = flash_attention_plain(q, k, v, causal=causal, **fwd_kw)
+    diff = (out.float() - ro.float()).abs() / ro.float().abs().clamp_min(1.0)
+    assert diff.max().item() < 2e-2
+    assert _rel_l2(out, ro)[1] < 2e-2
+    fin = torch.isfinite(rl)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse[fin] - rl[fin]).abs().max().item() < 1e-3
+    if not fin.all():
+        assert out[~fin].abs().max().item() == 0.0
+    assert torch.equal(out, flash_attention_masked(q, k, v, causal=causal, **fwd_kw))
+    if chunk:  # forward-only, as in JAX
+        return
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **ch)
+    torch.cuda.synchronize()
+    assert getattr(flash_bwd, counter) == n_bwd + 1
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, d**-0.5, causal)
+    rq = flash_bwd_dq_plain(*args, **ch)
+    rk, rv = flash_bwd_dkv_plain(*args, **ch)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        _check_grad(got, ref)
+    unseen = ~torch.isin(seg["kv_segments"][0], seg["q_segments"][0])
+    if unseen.any():
+        assert dk[0][:, unseen].abs().max().item() == 0.0
+        assert dv[0][:, unseen].abs().max().item() == 0.0
+    if not fin.all():
+        assert dq[~fin].abs().max().item() == 0.0
+    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, out, lse, do, d**-0.5, causal, **ch)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _check_grad(dq2, rq)
+
+
+@pytest.mark.parametrize("d,p", [(64, 0.1), (128, 0.5)])
+def test_varlen_dropout_reads_back_the_keep_mask(dev, d, p):
+    # Documents of 64 tokens, q = k = 0 (P uniform over a row's document),
+    # V one-hot over the document's keys and dO one-hot over its rows: B1's
+    # out[i, j] = keep[i, s + j] / (1 - p) / 64 bit for bit, and B7's dV[s
+    # + j, c] is nonzero exactly where keep[s + c, s + j] (s the document's
+    # first token), the keep mask that of the plain version on the packed
+    # axis (dropout_keep_mask at bh = h, rows and columns packed positions).
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.ops.flash_fwd import dropout_keep_mask
+
+    n_docs, h, seed = 20, 3, 2468
+    total = 64 * n_docs
+    cu = torch.arange(0, total + 1, 64, dtype=torch.int32, device=dev)
+    q = torch.zeros(total, h, d, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    k = torch.zeros(total, h, d, dtype=torch.bfloat16, device=dev, requires_grad=True)
+    eye = torch.eye(64, d, dtype=torch.bfloat16, device=dev).repeat(n_docs, 1)
+    v = eye[:, None].expand(total, h, d).contiguous().requires_grad_()
+    n0 = (flash_attention.segment_dropout_launches, flash_bwd.segment_dropout_launches)
+    out = flash_attn_varlen_func(q, k, v, cu, cu, dropout_p=p, dropout_seed=seed)
+    out.backward(eye[:, None].expand(total, h, d))
+    torch.cuda.synchronize()
+    assert (flash_attention.segment_dropout_launches,
+            flash_bwd.segment_dropout_launches) == (n0[0] + 1, n0[1] + 1)
+    doc = torch.arange(total, device=dev) // 64 * 64
+    cols = doc[:, None] + torch.arange(64, device=dev)[None]
+    for hi in range(h):
+        keep = dropout_keep_mask(seed, hi, 0, 0, (total, total), p, device=dev)
+        mine = torch.gather(keep, 1, cols)  # keep[i, s + j]
+        want = (mine.float() * (1.0 / (1.0 - p)) / 64).bfloat16()
+        assert torch.equal(out[:, hi, :64].detach(), want)
+        dv_hit = v.grad[:, hi, :64] != 0  # [key s + j, c]
+        assert torch.equal(dv_hit, torch.gather(keep.t(), 1, cols))  # keep[s + c, s + j]
+
+
+def test_varlen_packed_forms_take_the_channels(dev):
+    # The qkvpacked and kvpacked forms give the unpacked call's bits with
+    # each of the varlen channels; dropout with the window still raises on
+    # the card, naming ROADMAP B-i 3's rest.
+    from liteattention_torch import (
+        flash_attn_varlen_func,
+        flash_attn_varlen_kvpacked_func,
+        flash_attn_varlen_qkvpacked_func,
+    )
+
+    lengths = [300, 1, 128, 500, 77]
+    cu = torch.tensor([0, *torch.tensor(lengths).cumsum(0).tolist()], dtype=torch.int32,
+                      device=dev)
+    total, h, d = sum(lengths), 4, 128
+    q, k, v = (x[0].transpose(0, 1).contiguous() for x in _qkv(dev, 1, h, h, total, total, d))
+    for kw in (dict(causal=True, window_size=(100, 0)), dict(causal=True, softcap=30.0),
+               dict(causal=True, window_size=(100, 0), softcap=30.0),
+               dict(dropout_p=0.1, dropout_seed=5)):
+        want = flash_attn_varlen_func(q, k, v, cu, cu, **kw)
+        qkv = torch.stack([q, k, v], 1)
+        assert torch.equal(flash_attn_varlen_qkvpacked_func(qkv, cu, **kw), want)
+        assert torch.equal(flash_attn_varlen_kvpacked_func(q, qkv[:, 1:], cu, cu, **kw), want)
+    with pytest.raises(NotImplementedError, match="window with dropout.*B-i 3's rest"):
+        flash_attn_varlen_func(q, k, v, cu, cu, causal=True, window_size=(100, 0),
+                               dropout_p=0.1)
 
 
 # ------------------------------------------------- MoE, ViT, Falcon's group

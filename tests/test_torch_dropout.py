@@ -229,19 +229,19 @@ def test_channels_with_dropout_match_jax(name):
     po.backward(t(do))
     for g, r, n in zip((tq.grad, tk.grad, tv.grad), jg, "qkv"):
         _close(g, r, f"d{n}")
-    # The card takes the key range with dropout, and raises with ALiBi or
-    # segments (ROADMAP B-i 5).
-    if "alibi" in kw or "segments" in kw:
+    # The card takes the key range and segments with dropout, and raises
+    # with ALiBi (ROADMAP B-i 5).
+    if "alibi" in kw:
         with pytest.raises(NotImplementedError, match="B-i 5"):
-            check_dropout(d, "alibi" in kw, "segments" in kw, "flash_attention")
+            check_dropout(d, True, "flash_attention")
     else:
-        check_dropout(d, False, False, "flash_attention")
+        check_dropout(d, False, "flash_attention")
 
 
 def test_dropout_other_head_dims_raise_on_the_card_only():
     for d in (80, 96, 256):
         with pytest.raises(NotImplementedError, match=f"head dim {d}.*B-iii 4"):
-            check_dropout(d, False, False, "flash_attention")
+            check_dropout(d, False, "flash_attention")
     # The plain versions take them: at head dim 80 against JAX.
     q, k, v, _ = _inputs(3, 1, 2, 2, 130, 130, 80)
     jo = jflash(*(jnp.asarray(x) for x in (q, k, v)), causal=True, dropout_p=P_DROP,

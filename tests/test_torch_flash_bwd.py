@@ -138,6 +138,6 @@ def test_unported_channels_raise():
     assert all(g.shape == x.shape for g in flash_attention_bwd(x, x, x, x, lse, x, 0.125, False,
                                                                window=(4, 4)))
     with pytest.raises(NotImplementedError, match="B-iii 4"):
-        check_window(96, True, False, False, False, False, "flash_bwd")
+        check_window(96, True, False, False, False, "flash_bwd")
     with pytest.raises(TypeError):
         flash_attention_bwd(x, x, x, x, lse, x, 0.125, False, not_a_channel=1)

@@ -344,21 +344,21 @@ def test_unported_channels_and_shapes_raise():
     lse = torch.zeros(2, 2, 128)
     args = (x, x, x, x, lse, x, 0.125, False)
     # Window and softcap are ported (tests/test_torch_window_softcap.py): the
-    # plain one pass takes them; on the card not with segments (ROADMAP B-i
-    # 3's rest) nor at head dim 80 (B-iii 4).
+    # plain one pass takes them; on the card with segments too, but not with
+    # dropout (ROADMAP B-i 3's rest) nor at head dim 80 (B-iii 4).
     for name, val in (("window", (4, 4)), ("softcap", 5.0)):
         grads = flash_attention_bwd(*args, **{name: val})
         assert all(g.shape == x.shape and torch.isfinite(g).all() for g, x in zip(grads, args))
-        with pytest.raises(NotImplementedError, match=f"{name} with segments.*B-i 3's rest"):
-            check_window(64, name == "window", name == "softcap", False, True, False, "flash_bwd")
+        with pytest.raises(NotImplementedError, match=f"{name} with dropout.*B-i 3's rest"):
+            check_window(64, name == "window", name == "softcap", False, True, "flash_bwd")
         with pytest.raises(NotImplementedError, match=f"{name} at head dim 80.*B-iii 4"):
-            check_window(80, name == "window", name == "softcap", False, False, False, "flash_bwd")
+            check_window(80, name == "window", name == "softcap", False, False, "flash_bwd")
     # Dropout is ported (tests/test_torch_dropout.py): a seed alone does
     # nothing, as in JAX; on the card head dims 64 and 128 are built.
     for a, b in zip(flash_attention_bwd(*args, dropout_seed=3), flash_attention_bwd(*args)):
         assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="head dim 80.*B-iii 4"):
-        check_dropout(80, False, False, "flash_bwd")
+        check_dropout(80, False, "flash_bwd")
     # Segments (ported): batch 1, both ids, not with the per-batch channels.
     seg = dict(q_segments=torch.zeros(1, 128), kv_segments=torch.zeros(1, 128))
     with pytest.raises(ValueError, match="batch of 1"):

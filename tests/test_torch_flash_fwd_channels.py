@@ -262,13 +262,13 @@ def test_channel_shapes_and_unported_channels():
         out = flash_attention_masked(q, k, v, alibi_slopes=torch.ones(4), **kw)
         assert out.shape == q.shape and torch.isfinite(out).all()
         with pytest.raises(NotImplementedError, match=f"{name} with alibi_slopes.*B-i 3's rest"):
-            check_window(64, name == "window", name == "softcap", True, False, False, "fwd")
+            check_window(64, name == "window", name == "softcap", True, False, "fwd")
         with pytest.raises(NotImplementedError, match=f"{name} at head dim 96.*B-iii 4"):
-            check_window(96, name == "window", name == "softcap", False, False, False, "fwd")
+            check_window(96, name == "window", name == "softcap", False, False, "fwd")
     # Dropout is ported (tests/test_torch_dropout.py); with ALiBi it is not
     # built on the card (ROADMAP B-i 5), and runs here on the plain version.
     with pytest.raises(NotImplementedError, match="alibi_slopes with dropout.*B-i 5"):
-        check_dropout(64, True, False, "flash_attention")
+        check_dropout(64, True, "flash_attention")
     alibi = flash_attention_masked(q, k, v, alibi_slopes=torch.ones(4), dropout_p=0.1)
     assert alibi.shape == q.shape and torch.isfinite(alibi).all()
     # Segments (ported): batch 1 as in JAX, both ids, not with the per-batch

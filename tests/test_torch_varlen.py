@@ -32,6 +32,7 @@ from liteattention_torch.ops.flash_bwd import (  # noqa: E402
     flash_bwd_dkv_plain,
     flash_bwd_dq_plain,
 )
+from liteattention_torch.ops.dropout import dropout_threshold  # noqa: E402
 from liteattention_torch.ops.flash_fwd import (  # noqa: E402
     check_dropout,
     check_window,
@@ -134,6 +135,145 @@ def test_varlen_window_and_softcap_match_jax():
         ref = np.einsum("hqk,khd->qhd", p / p.sum(-1, keepdims=True), vf)
         np.testing.assert_allclose(po.detach().numpy()[off:off + n], ref, atol=3e-4, rtol=0)
         off += n
+
+
+# Attention dropout on the packed axis (p 0.1, seed 7), alone and with the
+# window and the cap, causal and not: (extra arguments).
+DROPOUT_CASES = {
+    "dropout_causal": dict(causal=True),
+    "dropout_noncausal": dict(causal=False),
+    "dropout_window_softcap_causal": dict(causal=True, window_size=(16, 0), softcap=5.0),
+    "dropout_window_softcap_noncausal": dict(causal=False, window_size=(16, 0), softcap=5.0),
+}
+
+
+@pytest.mark.parametrize("name", list(DROPOUT_CASES))
+def test_varlen_dropout_matches_jax(name):
+    """flash_attn_varlen_func with dropout against JAX's on JAX's lengths 70
+    and 58 (head dim 64, JAX in interpret mode): out, lse and the gradients
+    through jax.vjp within TOL. The keep mask's rows and columns are packed
+    positions on both sides, so a mask that moved by one row or column
+    would differ by O(1)."""
+    lens, h, d = [70, 58], 2, 64
+    rng = np.random.RandomState(len(name))
+    q, k, v, do = (rng.randn(sum(lens), h, d).astype(np.float32) for _ in range(4))
+    cu = np.asarray([0, 70, 128], np.int32)
+    kw = dict(dropout_p=0.1, **DROPOUT_CASES[name])
+
+    def jax_fn(a, b, c):
+        return jfai.flash_attn_varlen_func(a, b, c, jnp.asarray(cu), jnp.asarray(cu),
+                                           return_softmax_lse=True, block_sizes=BS,
+                                           dropout_seed=jnp.int32(7), **kw)
+
+    (jo, jl), vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp((jnp.asarray(do), jnp.zeros_like(jl)))
+    tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
+    n0 = (flash_attention.segment_dropout_launches, flash_attention.segment_window_launches)
+    po, pl = flash_attn_varlen_func(tq, tk, tv, t(cu), t(cu), return_softmax_lse=True,
+                                    dropout_seed=7, **kw)
+    po.backward(t(do))
+    # the CPU runs the plain versions
+    assert (flash_attention.segment_dropout_launches,
+            flash_attention.segment_window_launches) == n0
+    np.testing.assert_allclose(po.detach().numpy(), np.asarray(jo), atol=TOL, rtol=0)
+    np.testing.assert_allclose(pl.detach().numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    for g, r, n in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL, rtol=0, err_msg=f"d{n}")
+    # Dropout moved the output: the same call without it differs.
+    plain = flash_attn_varlen_func(t(q), t(k), t(v), t(cu), t(cu),
+                                   **{n: x for n, x in kw.items() if n != "dropout_p"})
+    assert (po.detach() - plain).abs().max().item() > 1e-2
+
+
+class _Entries:
+    """A stand-in for the kernel library: records each entry called and its
+    arguments, and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+# The card's table for the varlen functions' channels at the segment walk:
+# (head dim, window, softcap, dropout, alibi) -> the ROADMAP item a refusal
+# names, or None where B1's and B7's segment instantiations of the channels
+# take the call (Mistral-7B's window, Gemma-2's cap with and without it,
+# BERT's dropout).
+CARD_TABLE = [
+    (64, True, False, False, False, None),
+    (128, True, False, False, False, None),
+    (128, True, True, False, False, None),
+    (64, False, True, False, False, None),
+    (128, False, True, False, False, None),
+    (64, False, False, True, False, None),
+    (128, False, False, True, False, None),
+    (64, True, False, True, False, "B-i 3's rest"),
+    (128, False, True, True, False, "B-i 3's rest"),
+    (64, True, True, False, True, "B-i 3's rest"),
+    (64, False, False, True, True, "B-i 5"),
+    (80, True, False, False, False, "B-iii 4"),
+    (96, False, True, False, False, "B-iii 4"),
+    (96, False, False, True, False, "B-iii 4"),
+    (256, True, True, False, False, "B-iii 4"),
+]
+
+
+@pytest.mark.parametrize("d,window,softcap,dropout,alibi,item", CARD_TABLE)
+def test_card_checks_of_the_varlen_channels(monkeypatch, d, window, softcap, dropout, alibi,
+                                            item):
+    # The checks B1's and B7's wrappers make on the card before a launch;
+    # where they pass, the segment walk's launchers call the channels' entry
+    # (a stand-in library records it) with the channels' arguments, and
+    # count it under the segment counters of that channel.
+    from liteattention_torch.ops import _build
+    from liteattention_torch.ops import flash_bwd as bwd_mod
+    from liteattention_torch.ops import flash_fwd as fwd_mod
+
+    def card_checks(name):
+        if window or softcap:
+            check_window(d, window, softcap, alibi, dropout, name)
+        if dropout:
+            check_dropout(d, alibi, name)
+
+    if item is not None:
+        for name in ("flash_attention", "flash_bwd"):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+                card_checks(name)
+        return
+    card_checks("flash_attention")
+    card_checks("flash_bwd")
+    lib = _Entries()
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    ids = torch.tensor([[0] * 70 + [1] * 58], dtype=torch.int32)
+    walk = segment_walk(ids, ids)
+    q = torch.zeros(1, 4, 128, d, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 128, d, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 128)
+    kw = dict(dropout_p=0.1 if dropout else 0.0, dropout_seed=7 if dropout else None,
+              window=(4095, 0) if window else None, softcap=50.0 if softcap else 0.0)
+    kind = "dropout" if dropout else "window"
+    counters = [(fwd_mod.flash_attention, f"segment_{kind}_launches"),
+                (bwd_mod.flash_bwd, f"segment_{kind}_launches"),
+                (fwd_mod.flash_attention, "segment_launches"),
+                (bwd_mod.flash_bwd, "segment_launches")]
+    before = [getattr(fn, attr) for fn, attr in counters]
+    fwd_mod._launch_segments(q, kv, kv, 0.125, True, walk, **kw)
+    bwd_mod._flash_bwd_segments(q, kv, kv, q, lse, q, 0.125, True, walk, **kw)
+    assert [getattr(fn, attr) - n for (fn, attr), n in zip(counters, before)] == [1, 1, 0, 0]
+    (fwd_name, fwd_args), (bwd_name, bwd_args) = lib.calls
+    assert (fwd_name, bwd_name) == ("lite_flash_fwd_segments_channels",
+                                    "lite_flash_bwd_segments_channels")
+    assert len(fwd_args) == len(_build.SIGNATURES[fwd_name])
+    assert len(bwd_args) == len(_build.SIGNATURES[bwd_name])
+    # (seed pointer, ..., win_left, win_right, [chunk,] softcap, keep_threshold, keep_scale)
+    assert (fwd_args[9] is None) == (not dropout) and (bwd_args[17] is None) == (not dropout)
+    sides = (4095, 0) if window else (-1, -1)
+    assert fwd_args[17:19] == sides and fwd_args[19] == 0 and bwd_args[25:27] == sides
+    assert fwd_args[20] == bwd_args[27] == kw["softcap"]
+    assert fwd_args[21] == bwd_args[28] == (dropout_threshold(0.1) if dropout else 0)
 
 
 @pytest.mark.parametrize("name", ["noncausal_gqa", "causal_mha_seqused", "causal_chunk"])
@@ -286,21 +426,26 @@ def test_varlen_raises():
         flash_attn_varlen_func(q, k, v, cu, other, causal=True)
     # Window and softcap are taken by the plain versions (held against JAX
     # in test_varlen_window_and_softcap_match_jax); a window needs the same
-    # packing, and on the card segments with either raise (B-i 3's rest).
+    # packing. On the card the segment walk takes either, not with dropout
+    # (B-i 3's rest; the table in test_card_checks_of_the_varlen_channels).
     with pytest.raises(ValueError, match="same packing"):
         flash_attn_varlen_func(q, k, v, cu, other, window_size=(8, 0))
     for kw in (dict(window_size=(8, 0)), dict(softcap=5.0)):
         assert flash_attn_varlen_func(q, k, v, cu, cu, **kw).shape == q.shape
-        with pytest.raises(NotImplementedError, match="with segments.*B-i 3's rest"):
-            check_window(q.shape[-1], "window_size" in kw, "softcap" in kw, False, True, False,
+        check_window(q.shape[-1], "window_size" in kw, "softcap" in kw, False, False,
+                     "flash_attention")
+        with pytest.raises(NotImplementedError, match="with dropout.*B-i 3's rest"):
+            check_window(q.shape[-1], "window_size" in kw, "softcap" in kw, False, True,
                          "flash_attention")
     # Non-causal cross packing is taken.
     assert flash_attn_varlen_func(q, k, v, cu, other).shape == q.shape
     # Dropout is taken on the packed axis by the plain versions, as JAX's
-    # varlen takes it; segments with dropout are not built on the card
-    # (ROADMAP B-i 5).
+    # varlen takes it (held against JAX in
+    # test_varlen_dropout_matches_jax); on the card the segment walk takes it,
+    # not with ALiBi (ROADMAP B-i 5).
     drop = flash_attn_varlen_func(q, k, v, cu, cu, dropout_p=0.1, dropout_seed=7, causal=True)
     assert drop.shape == q.shape and not torch.equal(
         drop, flash_attn_varlen_func(q, k, v, cu, cu, causal=True))
-    with pytest.raises(NotImplementedError, match="segments.*B-i 5"):
-        check_dropout(q.shape[-1], False, True, "flash_attention")
+    check_dropout(q.shape[-1], False, "flash_attention")
+    with pytest.raises(NotImplementedError, match="alibi_slopes with dropout.*B-i 5"):
+        check_dropout(q.shape[-1], True, "flash_attention")

@@ -296,18 +296,19 @@ def test_gradient_through_attention_chunk_raises(api_call):
     (80, False, True, {}, "B-iii 4"),
     (256, True, True, {}, "B-iii 4"),
     (64, True, False, dict(alibi=True), "B-i 3's rest"),
-    (128, False, True, dict(segments=True), "B-i 3's rest"),
+    (128, False, True, dict(alibi=True, dropout=True), "B-i 3's rest"),
     (64, True, True, dict(dropout=True), "B-i 3's rest"),
 ])
 def test_card_combinations_left_out_raise(d, window, softcap, others, item):
     # On the card B1's and B7's window instantiations take head dims 64 and
-    # 128, with or without the key range; the rest raises naming its
-    # ROADMAP item (checked before any launch, on the host).
-    kw = {**dict(alibi=False, segments=False, dropout=False), **others}
+    # 128, with or without the key range, on the dense and the segment
+    # walks; the rest raises naming its ROADMAP item (checked before any
+    # launch, on the host).
+    kw = {**dict(alibi=False, dropout=False), **others}
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_window(d, window, softcap, kw["alibi"], kw["segments"], kw["dropout"], "flash_bwd")
+        check_window(d, window, softcap, kw["alibi"], kw["dropout"], "flash_bwd")
     for dd in WINDOW_HEAD_DIMS:
-        check_window(dd, True, True, False, False, False, "flash_bwd")
+        check_window(dd, True, True, False, False, "flash_bwd")
 
 
 # flash_attn_func and its packed forms, [B, S, H, D].
@@ -353,14 +354,15 @@ def test_skip_path_and_varlen_refuse_the_channels():
         with pytest.raises(ValueError, match="composes with none"):
             flash_attn_func(t(q), t(k), t(v), attn_read_list=m, **kw)
     # The varlen functions take window and softcap on the CPU (held against
-    # JAX in tests/test_torch_varlen.py); on the card segments with either
-    # are not built and raise (B-i 3's rest).
+    # JAX in tests/test_torch_varlen.py), and on the card too (the segment
+    # walk's instantiations: check_window passes); with dropout they raise
+    # there (B-i 3's rest).
     cu = torch.tensor([0, 100, 256], dtype=torch.int32)
     for kw in (dict(window_size=(16, 0)), dict(softcap=5.0)):
         assert flash_attn_varlen_func(t(q[0]), t(k[0]), t(v[0]), cu, cu, **kw).shape == q[0].shape
+        check_window(64, "window_size" in kw, "softcap" in kw, False, False, "flash_attention")
         with pytest.raises(NotImplementedError, match="B-i 3's rest"):
-            check_window(64, "window_size" in kw, "softcap" in kw, False, True, False,
-                         "flash_attention")
+            check_window(64, "window_size" in kw, "softcap" in kw, False, True, "flash_attention")
 
 
 KV_B, KV_SMAX, KV_H, KV_HK = 2, 300, 8, 2
