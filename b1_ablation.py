@@ -146,8 +146,8 @@ def producer_warp(s):
     """A ninth warp issues every load (288 threads: ptxas caps registers at
     224), the consumers never wait on an empty barrier."""
     s = edit(s, REFILL, "")
-    s = edit(s, "__global__ void __launch_bounds__(kThreads, 1)",
-             "__global__ void __launch_bounds__(kThreads + 32, 1)")
+    s = edit(s, "__global__ void __launch_bounds__(kThreads, 1)\n    flash_fwd_kernel(",
+             "__global__ void __launch_bounds__(kThreads + 32, 1)\n    flash_fwd_kernel(")
     s = edit(s, LAUNCH, LAUNCH.replace("kThreads, smem", "kThreads + 32, smem"))
     return edit(s, """  if (threadIdx.x == 0) {
     sm90::mbar_expect_tx(q_full, L::kQ);""", """  if (__shfl_sync(0xffffffffu, threadIdx.x / 32, 0) == kWarps) {

@@ -2926,8 +2926,10 @@ PROBE_ROWS = 64
 # budget, bisection steps.
 CAL_STEPS, CAL_BUDGET, CAL_ITERS = 4, 0.05, 3
 # The trained proxy at the JAX artifact's 4k settings (CALIBRATION_R5_4K.json:
-# 16 frames of 32 x 32 latents -> 4096 tokens).
-PROXY_ARGS = ["--train-steps", "3000", "--eval-steps", "24", "--entropy-reg", "0.05",
+# 16 frames of 32 x 32 latents -> 4096 tokens), trained for 1500 of its 3000
+# steps: the steps are host-bound, and at 3000 the whole smoke ran ~1090 s of
+# its 1200 s limit on the H100's host (its checks are the same at either).
+PROXY_ARGS = ["--train-steps", "1500", "--eval-steps", "24", "--entropy-reg", "0.05",
               "--entropy-target", "4.5", "--tile-reg", "0.03"]
 # The headline geometry's band curve (the example's default 73 728 tokens).
 E2E_ARGS = ["--modes", "band", "--steps", "2"]
@@ -3400,9 +3402,12 @@ _FLEX = {}
 def flex_attention_call(q, k, kw):
     """PyTorch's FlexAttention under torch.compile (its Triton kernels)
     with phase 16's channels (``kw``: causal, window, attention_chunk,
-    softcap, scale; no key range) and phase 24's segment ids (batch 1: a
-    key is seen by the rows of its id, the document mask read from the ids
-    on the card): a function of (q, k, v) and what it is.
+    softcap, scale), phase 24's segment ids (batch 1: a key is seen by the
+    rows of its id, the document mask read from the ids on the card) and
+    B1's key range (kv_bound, kv_low, bound_causal: the mask reads each
+    batch's bound from the tensor, and the window's position is taken from
+    the bound, as the plain version's): a function of (q, k, v) and what it
+    is.
     The window's and the chunk's BlockMask let it skip the tiles they hide,
     as B1's walk does; the cap is its score_mod. The library call of the
     window / chunk / softcap rows, used nowhere in the port. The mods hold
@@ -3437,10 +3442,14 @@ def flex_attention_call(q, k, kw):
     off, causal = sk - sq, kw.get("causal", False)
     given = window_arg(kw.get("window"))
     left, right = given or (-1, -1)
-    if left >= sq - 1 + off:  # the last row's window reaches key 0
-        left = -1
-    if right >= (0 if causal else sk - 1 - off):  # the first row's reaches the last key
-        right = -1
+    bound_t, low_t = kw.get("kv_bound"), kw.get("kv_low")
+    ranged = bound_t is not None or low_t is not None
+    bound_causal = bound_t is not None and kw.get("bound_causal", False)
+    if not ranged:  # (with a key range each side stays: the bound moves the rows)
+        if left >= sq - 1 + off:  # the last row's window reaches key 0
+            left = -1
+        if right >= (0 if causal else sk - 1 - off):  # the first row's reaches the last key
+            right = -1
     chunk, cap = kw.get("attention_chunk", 0), kw.get("softcap") or 0.0
     scale = kw.get("scale") or q.shape[-1] ** -0.5
     tile = 128
@@ -3456,13 +3465,29 @@ def flex_attention_call(q, k, kw):
         pos_w = torch.arange(1, qs.numel() + 1, device=dev, dtype=torch.int64)
         docs = (qs, ks, int((qs.long() * pos_w).sum()),
                 int((ks.long() * torch.arange(1, ks.numel() + 1, device=dev)).sum()))
+    nb = q.shape[0] if ranged else 1
+    rng = None
+    if ranged:
+        # Each batch's [low, bound) (unset: [0, Sk)); the cache keeps one
+        # BlockMask per range, keyed by its values.
+        lim = (torch.full((nb,), sk, device=dev) if bound_t is None
+               else bound_t.reshape(-1).to(dev).long())
+        first = (torch.zeros(nb, dtype=torch.long, device=dev) if low_t is None
+                 else low_t.reshape(-1).to(dev).long())
+        rng = (lim, first, tuple(lim.tolist()), tuple(first.tolist()))
     key = (tuple(q.shape), tuple(k.shape), causal, left, right, chunk, cap, scale,
-           docs and docs[2:])
+           docs and docs[2:], rng and (rng[2:], bound_causal))
     if key not in _FLEX:
 
         def mask_mod(b, h, qi, ki):
+            keep = ki <= qi + off if causal else ki >= 0
             pos = qi + off
-            keep = ki <= pos if causal else ki >= 0
+            if rng is not None:
+                lim_b = rng[0][b]
+                keep = keep & (ki >= rng[1][b])
+                keep = keep & (ki < (lim_b - sq + qi + 1 if bound_causal else lim_b))
+                if bound_t is not None:  # the window's rows sit against the bound
+                    pos = qi + lim_b - sq
             if left >= 0:
                 keep = keep & (ki >= pos - left)
             if right >= 0:
@@ -3474,17 +3499,19 @@ def flex_attention_call(q, k, kw):
             return keep
 
         ki = torch.arange(kb * tile, device=dev)
-        seen = torch.empty(qb, kb, dtype=torch.int64, device=dev)
-        for i in range(0, qb, 8):
-            qi = torch.arange(i * tile, min(i + 8, qb) * tile, device=dev)[:, None]
-            vis = mask_mod(None, None, qi, ki[None]) & (qi < sq) & (ki[None] < sk)
-            seen[i : i + 8] = vis.reshape(-1, tile, kb, tile).sum((1, 3))
+        seen = torch.empty(nb, qb, kb, dtype=torch.int64, device=dev)
+        for bi in range(nb):
+            b_t = torch.tensor(bi, device=dev)
+            for i in range(0, qb, 8):
+                qi = torch.arange(i * tile, min(i + 8, qb) * tile, device=dev)[:, None]
+                vis = mask_mod(b_t, None, qi, ki[None]) & (qi < sq) & (ki[None] < sk)
+                seen[bi, i : i + 8] = vis.reshape(-1, tile, kb, tile).sum((1, 3))
         full, part = seen == tile * tile, (seen > 0) & (seen < tile * tile)
 
         def ordered(blocks):
-            return (blocks.sum(-1).int()[None, None],
+            return (blocks.sum(-1).int()[:, None],
                     torch.argsort(blocks.int(), dim=-1, descending=True, stable=True).int()[
-                        None, None])
+                        :, None])
 
         block = BlockMask.from_kv_blocks(*ordered(part), *ordered(full), BLOCK_SIZE=tile,
                                          mask_mod=mask_mod, seq_lengths=(sq, sk))
@@ -3494,6 +3521,7 @@ def flex_attention_call(q, k, kw):
                                            scale=scale, enable_gqa=gqa)
     kept = given is not None and (left, right) != (-1, -1)
     what = " and ".join(n for n, on in (("document", docs is not None), ("causal", causal),
+                                         ("per-batch key range", ranged),
                                          (f"window {given}", kept), (f"chunk {chunk}", chunk))
                         if on)
     what = (f"FlexAttention (torch.compile, Triton) with a {what or 'full'} BlockMask"
@@ -3621,8 +3649,8 @@ def check_channels(label, q, k, v, kw, time_it=False):
     same over the batch the mask is one [1, H, Sq, Sk] that SDPA broadcasts
     (BTLM's prefill would not fit a [B, H, Sq, Sk] bias beside the plain
     version). With a key range (``kv_bound`` / ``kv_low``) the window / chunk
-    rows' library call is SDPA with the band as a boolean mask: FlexAttention
-    takes no key range here."""
+    rows' library call is SDPA with the band as a boolean mask, and with the
+    cap FlexAttention with the range in its mask."""
     import torch
     from liteattention_torch.ops.flash_fwd import flash_attention_masked, flash_attention_plain
 
@@ -3673,7 +3701,8 @@ def check_channels(label, q, k, v, kw, time_it=False):
     windowed = any(kw.get(n) for n in WINDOW_CHANNELS)
     if windowed:
         mufu_bound(res, kw, pairs)
-    flex = windowed and kw.get("kv_bound") is None and kw.get("kv_low") is None
+    ranged = kw.get("kv_bound") is not None or kw.get("kv_low") is not None
+    flex = windowed and (kw.get("softcap") or not ranged)
     if flex:
         # The window / chunk / cap: the MUFU bound beside the tensor cores',
         # and FlexAttention as the library call (SDPA with the band as a
@@ -4996,31 +5025,33 @@ def heads_first(*xs):
     return [x.detach().transpose(0, 1)[None].contiguous() for x in xs]
 
 
-def docs_alone_check(label, q, k, v, dout, lengths, cu, scale, window=None):
+def docs_alone_check(label, q, k, v, dout, lengths, cu, scale, window=None, softcap=0.0):
     """flash_attn_varlen_func over the packed causal documents (forward and
     autograd backward) against each document alone through causal B1 / B7
-    (``flash_attention``; with ``window`` the dense window walk,
-    ``flash_attention_masked``), concatenated: rel-L2 of out, dq, dk, dv
-    within PACKED_DOC_TOL. Returns the rel-L2s."""
+    (``flash_attention``; with ``window`` or ``softcap`` the dense window
+    walk, ``flash_attention_masked``), concatenated: rel-L2 of out, dq, dk,
+    dv within PACKED_DOC_TOL. Returns the rel-L2s."""
     import torch
     from liteattention_torch import flash_attn_varlen_func
     from liteattention_torch.ops.flash_fwd import flash_attention, flash_attention_masked
 
     out = flash_attn_varlen_func(q, k, v, cu, cu, softmax_scale=scale, causal=True,
-                                 window_size=window or (-1, -1))
+                                 window_size=window or (-1, -1), softcap=softcap)
     got = [out.detach(), *torch.autograd.grad(out, (q, k, v), dout)]
     want = [[], [], [], []]
     for a, n in zip(cu[:-1].tolist(), lengths):
         parts = [x.detach()[a : a + n].transpose(0, 1)[None].contiguous().requires_grad_()
                  for x in (q, k, v)]
-        o = (flash_attention(*parts, scale=scale, causal=True) if window is None
-             else flash_attention_masked(*parts, scale=scale, causal=True, window=window))
+        o = (flash_attention(*parts, scale=scale, causal=True) if window is None and not softcap
+             else flash_attention_masked(*parts, scale=scale, causal=True, window=window,
+                                         softcap=softcap))
         grads = torch.autograd.grad(o, parts, dout[a : a + n].transpose(0, 1)[None])
         for i, x in enumerate((o, *grads)):
             want[i].append(x.detach()[0].transpose(0, 1))
     rels = {n: rel_l2(g_, torch.cat(w)) for n, g_, w in zip(("out", "dq", "dk", "dv"), got, want)}
     log(f"  {label}: the packed documents vs each alone (causal B1 / B7"
-        + (f", window {window}" if window else "") + "), rel-L2 "
+        + (f", window {window}" if window else "") + (f", cap {softcap}" if softcap else "")
+        + "), rel-L2 "
         + ", ".join(f"{n} {r:.2e}" for n, r in rels.items()) + f" (limit {PACKED_DOC_TOL})")
     check(max(rels.values()) < PACKED_DOC_TOL, f"{label}: the packed documents differ from each "
           "document alone")
@@ -9062,6 +9093,464 @@ def varlen_channel_phase(dev, card):
     return counts, kres, stats
 
 
+# ---------------------------------------------------------------- phase 25
+
+# Head dim 256 with the window, the cap, the key range and segments: B1's
+# and B7's D 256 instantiations of those channels (flash_fwd_d256_window.cu,
+# flash_fwd_d256_segments.cu, flash_bwd_d256.cu's RANGE,
+# flash_bwd_d256_window.cu, flash_bwd_d256_segments.cu).
+# Gemma-2-9B's attention (google/gemma-2-9b config.json: num_attention_heads
+# 16, num_key_value_heads 8, head_dim 256, query_pre_attn_scalar 256, so
+# the scale is 256^-0.5, attn_logit_softcapping 50.0, sliding_window 4096 on
+# every other layer: window (4095, 0), as phase 16 takes Gemma-2's).
+GEMMA2_9B = dict(heads=16, kv_heads=8, d=256)
+GEMMA2_9B_SCALE, GEMMA2_9B_SOFTCAP, GEMMA2_9B_WINDOW = 256**-0.5, 50.0, (4095, 0)
+# (a) its training shape, 1 x 8192 tokens (max_position_embeddings 8192).
+GEMMA2_9B_TRAIN = 8192
+# (b) served: 8 requests of 2048-6000 prompt tokens (from the seed: 3607,
+# 5278, 4111, 3045, 4769, 4965, 4429, 5838, six longer than the window)
+# into 8192-slot bf16 caches, prefilled in one call, then 32 single-token
+# steps, every 8th held against a full recompute.
+GEMMA2_SERVE = dict(batch=8, capacity=8192, prompt=(2048, 6000), steps=32, seed=2609,
+                    check_every=8)
+# (c) Gemma-3-4B's local layer (google/gemma-3-4b-pt config.json,
+# text_config: num_attention_heads 8, num_key_value_heads 4, head_dim 256,
+# query_pre_attn_scalar 256, sliding_window 1024: window (1023, 0), no
+# cap), 1 x 16 384 tokens (its context is 128k; cut for the smoke's time).
+GEMMA3_4B = dict(heads=8, kv_heads=4, d=256)
+GEMMA3_4B_TOKENS, GEMMA3_4B_WINDOW = 16384, (1023, 0)
+# (d) Gemma-2-9B's packed documents: 8192 tokens in four seeded documents
+# (1570, 1177, 4280, 1165; two longer than the 4096-key window cannot fit in
+# 8192 tokens, one does, and the window cuts inside it), causal.
+GEMMA2_9B_PACK = (8192, 16, 8, 256, (1024, 6144), 2637)
+# (e) Gemma-7B's attention (google/gemma-7b config.json:
+# num_attention_heads 16, num_key_value_heads 16, head_dim 256): a padded
+# fine-tuning batch of 8 x 2048, lengths 512-2048 from the seed (1168, 1981,
+# 565, 1390, 1283, 1717, 930, 2044), causal, and its unpadded form through
+# the varlen function.
+GEMMA7B = dict(heads=16, kv_heads=16, d=256, batch=8, seq=2048, min_len=512, seed=2701)
+
+
+def gemma_kernel_phase(dev):
+    """Phase 25 (a), (c)-(e): B1's and B7's D 256 instantiations of the
+    window / cap, the key range and segments against their plain versions
+    (out, lse, dQ / dK / dV and every 128-row block; dK, dV bit-stable),
+    each timed beside its bound over the visible pairs (and the MUFU bound
+    with the cap), its plain version and one PyTorch call (FlexAttention
+    with the window / document BlockMask and the cap's score_mod; SDPA's
+    efficient backend with the boolean mask for the key range and
+    segments alone); (d) against each document alone through (a)'s dense
+    walk, (e)'s unpadded batch against the padded one on its valid rows.
+    Returns the kernels line's entries and the phase's stats."""
+    import torch
+    from liteattention_torch import flash_attn_varlen_func
+    from liteattention_torch.flash_attn_interface import varlen_segment_ids
+    from liteattention_torch.ops.flash_fwd import flash_attention_masked
+    from liteattention_torch.utils.padding import unpad_input
+
+    win_f, win_b, seg_win_f, seg_win_b, stats = {}, {}, {}, {}, {}
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(2525)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    # (a) Gemma-2-9B's training shape: the local and the global layer.
+    h, hk, d, n = GEMMA2_9B["heads"], GEMMA2_9B["kv_heads"], GEMMA2_9B["d"], GEMMA2_9B_TRAIN
+    q, k, v, dout = rnd(1, h, n, d), rnd(1, hk, n, d), rnd(1, hk, n, d), rnd(1, h, n, d)
+    for key, extra in (("gemma2_9b_local", dict(window=GEMMA2_9B_WINDOW)),
+                       ("gemma2_9b_global", {})):
+        kw = dict(causal=True, softcap=GEMMA2_9B_SOFTCAP, scale=GEMMA2_9B_SCALE, **extra)
+        label = (f"softcap {GEMMA2_9B_SOFTCAP}"
+                 + (f" + window {GEMMA2_9B_WINDOW}" if extra else "")
+                 + f" causal 1x{h}/{hk}x{n}x{d}, Gemma-2-9B's {key.split('_')[-1]} layer")
+        win_f[key] = check_channels(label, q, k, v, kw, time_it=True)
+        win_b[key] = check_bwd_channels(label, q, k, v, dout, kw, time_it=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # (c) Gemma-3-4B's local layer over 16 384 tokens.
+    h, hk, d, n = GEMMA3_4B["heads"], GEMMA3_4B["kv_heads"], GEMMA3_4B["d"], GEMMA3_4B_TOKENS
+    q, k, v, dout = rnd(1, h, n, d), rnd(1, hk, n, d), rnd(1, hk, n, d), rnd(1, h, n, d)
+    kw = dict(causal=True, window=GEMMA3_4B_WINDOW, scale=256**-0.5)
+    label = f"window {GEMMA3_4B_WINDOW} causal 1x{h}/{hk}x{n}x{d}, Gemma-3-4B's local layer"
+    win_f["gemma3_4b_local"] = check_channels(label, q, k, v, kw, time_it=True)
+    win_b["gemma3_4b_local"] = check_bwd_channels(label, q, k, v, dout, kw, time_it=True)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+
+    # (d) Gemma-2-9B's packed documents: each alone through (a)'s dense
+    # walk, then the segment kernels.
+    total, h, hk, d = GEMMA2_9B_PACK[:4]
+    q, k, v, dout, lengths, cu = packed_docs(dev, GEMMA2_9B_PACK)
+    cut = sum(x > GEMMA2_9B_WINDOW[0] + 1 for x in lengths)
+    check(cut >= 1, f"phase 25 (d): no document longer than the window ({lengths})")
+    seg_q, seg_k = varlen_segment_ids(cu, cu, total, total)
+    qh, kh, vh, dh = heads_first(q, k, v, dout)
+    stats["gemma2_9b_docs"] = {"lengths": lengths}
+    for key, extra in (("gemma2_9b_docs_local", dict(window=GEMMA2_9B_WINDOW)),
+                       ("gemma2_9b_docs_global", {})):
+        label = (f"segments + softcap {GEMMA2_9B_SOFTCAP}"
+                 + (f" + window {GEMMA2_9B_WINDOW}" if extra else "")
+                 + f" causal 1x{h}/{hk}x{total}x{d}, Gemma-2-9B's {len(lengths)} documents "
+                 f"({key.split('_')[-1]} layer)")
+        stats["gemma2_9b_docs"][key] = docs_alone_check(
+            label, q, k, v, dout, lengths, cu, GEMMA2_9B_SCALE, window=extra.get("window"),
+            softcap=GEMMA2_9B_SOFTCAP)
+        kw = dict(q_segments=seg_q[None], kv_segments=seg_k[None], causal=True,
+                  softcap=GEMMA2_9B_SOFTCAP, scale=GEMMA2_9B_SCALE, **extra)
+        seg_win_f[key] = check_channels(label, qh, kh, vh, kw, time_it=True)
+        seg_win_b[key] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    del q, k, v, dout, qh, kh, vh, dh
+    torch.cuda.empty_cache()
+
+    # (e) Gemma-7B's padded fine-tuning batch: B1's and B7's key range, then
+    # the same batch unpadded through the varlen function (the segment walk
+    # alone at 256), its valid rows against the padded call's.
+    cfg = GEMMA7B
+    b, s, h, d = cfg["batch"], cfg["seq"], cfg["heads"], cfg["d"]
+    gl = torch.Generator().manual_seed(cfg["seed"])
+    lens = torch.randint(cfg["min_len"], s + 1, (b,), generator=gl).to(dev, torch.int32)
+    q, k, v, dout = (rnd(b, h, s, d) for _ in range(4))
+    kw = dict(kv_bound=lens, causal=True)
+    label = (f"bound causal {b}x{h}x{s}x{d}, Gemma-7B's padded batch (lengths "
+             f"{lens.tolist()})")
+    res["bound_fwd"] = check_channels(label, q, k, v, kw, time_it=True)
+    res["bound_bwd"] = check_bwd_channels(label, q, k, v, dout, kw, time_it=True)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None]).to(torch.int32)
+    n_tok = int(lens.sum())
+    packed = [unpad_input(x.transpose(1, 2), mask, max_tokens=n_tok)[0] for x in (q, k, v, dout)]
+    idx, cu_e = unpad_input(q.transpose(1, 2), mask, max_tokens=n_tok)[1:3]
+    seg_e_q, seg_e_k = varlen_segment_ids(cu_e, cu_e, n_tok, n_tok)
+    qh, kh, vh, dh = heads_first(*packed)
+    kw = dict(q_segments=seg_e_q[None], kv_segments=seg_e_k[None], causal=True)
+    label = f"segments causal 1x{h}x{n_tok}x{d}, Gemma-7B's batch unpadded"
+    res["segments_fwd"] = check_channels(label, qh, kh, vh, kw, time_it=True)
+    res["segments_bwd"] = check_bwd_channels(label, qh, kh, vh, dh, kw, time_it=True)
+    padded = flash_attention_masked(q, k, v, kv_bound=lens, causal=True).transpose(1, 2)
+    unpadded = flash_attn_varlen_func(*packed[:3], cu_e, cu_e, causal=True)
+    err = rel_l2(unpadded, padded.reshape(-1, h, d)[idx.long()])
+    log(f"  Gemma-7B's batch: the varlen call on its {n_tok} valid tokens against the padded "
+        f"call's valid rows: rel-L2 {err:.2e} (limit {PACKED_DOC_TOL})")
+    check(err < PACKED_DOC_TOL, "phase 25 (e): the unpadded batch differs from the padded one")
+    stats["gemma7b_batch"] = {"lengths": lens.tolist(), "unpadded_vs_padded_rel_l2": err}
+    del q, k, v, dout, packed, qh, kh, vh, dh, padded, unpadded
+    torch.cuda.empty_cache()
+    kres = {"flash_fwd_window_d256": _channel_entry(win_f, "gemma2_9b_local"),
+            "flash_bwd_window_d256": _channel_entry(win_b, "gemma2_9b_local"),
+            "flash_fwd_segments_window_d256": _channel_entry(seg_win_f, "gemma2_9b_docs_local"),
+            "flash_bwd_segments_window_d256": _channel_entry(seg_win_b, "gemma2_9b_docs_local"),
+            "flash_fwd_segments_d256": _channel_entry({"gemma7b_unpadded": res["segments_fwd"]},
+                                                      "gemma7b_unpadded"),
+            "flash_bwd_segments_d256": _channel_entry({"gemma7b_unpadded": res["segments_bwd"]},
+                                                      "gemma7b_unpadded"),
+            "flash_fwd_bound_d256": res["bound_fwd"],
+            "flash_bwd_bound_d256": _channel_entry({"gemma7b_padded": res["bound_bwd"]},
+                                                   "gemma7b_padded")}
+    return kres, stats
+
+
+def gemma2_serve_inputs(dev):
+    """Phase 25 (b)'s inputs, bf16 from the seed: the prompts' lengths,
+    their packed q [T, 16, 256], k and v [T, 8, 256] and cu_seqlens, each
+    step's q [8, 1, 16, 256], k and v [8, 1, 8, 256], and two layers'
+    head-major caches [8, 8, 8192, 256] (local, global)."""
+    import torch
+
+    cfg = GEMMA2_SERVE
+    b, cap, steps = cfg["batch"], cfg["capacity"], cfg["steps"]
+    h, hk, d = GEMMA2_9B["heads"], GEMMA2_9B["kv_heads"], GEMMA2_9B["d"]
+    gl = torch.Generator().manual_seed(cfg["seed"])
+    lens = torch.randint(cfg["prompt"][0], cfg["prompt"][1] + 1, (b,), generator=gl)
+    g = torch.Generator(device=dev).manual_seed(cfg["seed"])
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    total = int(lens.sum())
+    cu = torch.tensor([0, *itertools.accumulate(lens.tolist())], dtype=torch.int32, device=dev)
+    prompt = (rnd(total, h, d), rnd(total, hk, d), rnd(total, hk, d))
+    step_qkv = [(rnd(b, 1, h, d), rnd(b, 1, hk, d), rnd(b, 1, hk, d)) for _ in range(steps)]
+    caches = {layer: (torch.zeros(b, hk, cap, d, dtype=torch.bfloat16, device=dev),
+                      torch.zeros(b, hk, cap, d, dtype=torch.bfloat16, device=dev))
+              for layer in ("local", "global")}
+    return lens.to(dev, torch.int32), cu, prompt, step_qkv, caches
+
+
+def gemma2_serve_run(dev, inputs, call_step):
+    """Phase 25 (b), the counted run of the serving path: the two layers'
+    ragged prefill in one flash_attn_with_kvcache call each (packed q by
+    cu_seqlens_q, the new keys by cu_seqlens_k_new), then GEMMA2_SERVE's
+    single-token steps through both layers, every plain version forbidden.
+    ``call_step(layer, ...)`` is the API call. Returns the prefill's and
+    the checked steps' outputs for the recompute."""
+    import torch
+
+    lens, cu, prompt, step_qkv, caches = inputs
+    every = GEMMA2_SERVE["check_every"]
+    kept = {"prefill": {}, "steps": []}
+    with plain_forbidden():
+        for layer in ("local", "global"):
+            kept["prefill"][layer] = call_step(layer, *prompt, cache_seqlens=0, cu=cu,
+                                               max_q=int(lens.max()))
+        cur = lens.clone()
+        for i, (q1, k1, v1) in enumerate(step_qkv):
+            outs = {layer: call_step(layer, q1, k1, v1, cache_seqlens=cur)
+                    for layer in ("local", "global")}
+            if (i + 1) % every == 0:
+                kept["steps"].append((i, cur.clone(), q1, outs))
+            cur = cur + 1
+    torch.cuda.synchronize()
+    return kept
+
+
+def gemma2_serve_phase(dev):
+    """Phase 25 (b): Gemma-2-9B's local and global layers served through
+    flash_attn_with_kvcache (attention only): the counted run (each local
+    call one launch of B1's window instantiation, each global one the decode
+    kernel's at 256 with the cap: the prefill's padded q in its row chunks,
+    a step one launch; nothing else), then the prefill and every 8th step
+    against a full recompute through the plain version (each request's keys
+    written apart from the caches), the local step's kernel against its
+    plain version and timed, and the calls' times. Returns the counts, the
+    kernels line's extra shapes and the stats."""
+    import torch
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+    from liteattention_torch.ops.flash_decode import row_chunks
+    from liteattention_torch.ops.flash_fwd import flash_attention_plain
+
+    cfg = GEMMA2_SERVE
+    b, steps = cfg["batch"], cfg["steps"]
+    h, hk, d = GEMMA2_9B["heads"], GEMMA2_9B["kv_heads"], GEMMA2_9B["d"]
+    inputs = gemma2_serve_inputs(dev)
+    lens, cu, prompt, step_qkv, caches = inputs
+    long = int((lens > GEMMA2_9B_WINDOW[0] + 1).sum())
+    check(long >= b // 2, f"phase 25 (b): {long} prompts longer than the window, want most")
+    chan = {"local": dict(window_size=GEMMA2_9B_WINDOW), "global": {}}
+
+    def call_step(layer, q, k, v, cache_seqlens, cu=None, max_q=None):
+        kc, vc = caches[layer]
+        kw = dict(causal=True, softcap=GEMMA2_9B_SOFTCAP, softmax_scale=GEMMA2_9B_SCALE,
+                  return_softmax_lse=True, kv_cache_layout="bhsd", **chan[layer])
+        if cu is not None:
+            kw.update(cu_seqlens_q=cu, cu_seqlens_k_new=cu, max_seqlen_q=max_q,
+                      max_seqlen_k_new=max_q)
+        out, lse, _ = flash_attn_with_kvcache(q, kc, vc, k, v, cache_seqlens=cache_seqlens,
+                                              **kw)
+        return out, lse
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kept = gemma2_serve_run(dev, inputs, call_step)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    chunks = len(row_chunks(b, int(lens.max()) * (h // hk), h // hk))
+    want = {"flash_fwd_window": 1 + steps, "flash_decode": chunks + steps}
+    got = {n: c for n, c in counts.items() if c}
+    log(f"  (b) counted run: Gemma-2-9B's local and global layers, {b} prompts of "
+        f"{lens.tolist()} tokens prefilled in one call each, then {steps} single-token steps "
+        f"({run_s:.1f} s): {got}")
+    check(got == want, f"phase 25 (b)'s counted run launched {got}, want {want}")
+
+    # The full recompute: each request's keys and values written apart from
+    # the caches, in order, the plain version over them.
+    hist_k = torch.zeros(b, hk, cfg["capacity"], d, dtype=torch.bfloat16, device=dev)
+    hist_v = torch.zeros_like(hist_k)
+    for i, n in enumerate(lens.tolist()):
+        a = int(cu[i])
+        hist_k[i, :, :n] = prompt[1][a:a + n].transpose(0, 1)
+        hist_v[i, :, :n] = prompt[2][a:a + n].transpose(0, 1)
+    for j, (_, k1, v1) in enumerate(step_qkv):
+        pos = (lens + j).long()
+        hist_k[torch.arange(b, device=dev), :, pos] = k1[:, 0]
+        hist_v[torch.arange(b, device=dev), :, pos] = v1[:, 0]
+    errs = {}
+
+    def held(name, layer, out, ref):
+        err = rel_l2(out, ref)
+        errs[f"{name}_{layer}"] = err
+        check(err < DECODE_REL_TOL, f"phase 25 (b) {name} ({layer}): rel-L2 {err:.3e} to the "
+              f"full recompute (limit {DECODE_REL_TOL})")
+
+    for layer in ("local", "global"):
+        out, _ = kept["prefill"][layer]
+        refs = []
+        for i, n in enumerate(lens.tolist()):
+            a = int(cu[i])
+            ro, _ = flash_attention_plain(
+                prompt[0][a:a + n].transpose(0, 1)[None], hist_k[i:i + 1, :, :n],
+                hist_v[i:i + 1, :, :n], scale=GEMMA2_9B_SCALE, causal=True,
+                softcap=GEMMA2_9B_SOFTCAP, window=chan[layer].get("window_size"))
+            refs.append(ro[0].transpose(0, 1))
+        held("prefill", layer, out, torch.cat(refs))
+        del refs
+    for i, cur, q1, outs in kept["steps"]:
+        for layer in ("local", "global"):
+            ro, _ = flash_attention_plain(
+                q1.transpose(1, 2), hist_k, hist_v, kv_bound=cur + 1, bound_causal=True,
+                scale=GEMMA2_9B_SCALE, softcap=GEMMA2_9B_SOFTCAP,
+                window=chan[layer].get("window_size"))
+            held(f"step_{i + 1}", layer, outs[layer][0].transpose(1, 2), ro)
+    log("  (b) against a full recompute through the plain version (each request's own keys, "
+        f"written apart from the caches; limit rel-L2 {DECODE_REL_TOL}): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    stats = {"prompt_lengths": lens.tolist(), "counted_run_s": run_s, "recompute_rel_l2": errs}
+    # Times: each layer's prefill (the call and B1's kernel alone on the
+    # padded q), one single-token step each; the cache is written in place
+    # at the same positions with the same values on every repeat.
+    last = lens + steps - 1
+    q1, k1, v1 = step_qkv[-1]
+    for layer in ("local", "global"):
+        stats[f"{layer}_prefill_ms"], _, timer = device_ms(
+            lambda layer=layer: call_step(layer, *prompt, cache_seqlens=0, cu=cu,
+                                          max_q=int(lens.max())), reps=3)
+        stats[f"{layer}_step_ms"] = device_ms(
+            lambda layer=layer: call_step(layer, q1, k1, v1, cache_seqlens=last))[0]
+    stats["timer"] = timer
+    log(f"  (b) prefill ({b} requests, {int(lens.sum())} tokens): local {stats['local_prefill_ms']:.3f}"
+        f" ms (B1 window), global {stats['global_prefill_ms']:.3f} ms (the decode kernel over "
+        f"the padded q, {chunks} launches); a single-token step: local "
+        f"{stats['local_step_ms']:.4f} ms, global {stats['global_step_ms']:.4f} ms ({timer})")
+    # B1's window instantiation on the local step, against its plain version
+    # over the cache, timed beside its bound.
+    kc, vc = caches["local"]
+    extra = {"kvcache_local_step": check_channels(
+        f"kvcache single-token local step, {b}x{h}/{hk}x{d} over {cfg['capacity']} slots",
+        q1.transpose(1, 2), kc, vc,
+        dict(kv_bound=last + 1, bound_causal=True, window=GEMMA2_9B_WINDOW,
+             softcap=GEMMA2_9B_SOFTCAP, scale=GEMMA2_9B_SCALE), time_it=True)}
+    del inputs, caches, hist_k, hist_v, kept
+    torch.cuda.empty_cache()
+    return counts, extra, stats
+
+
+def gemma_train_counted_run(dev):
+    """Phase 25's counted run of the training calls, the main path: (a)
+    flash_attn_func at Gemma-2-9B's local and global layers, (c) at
+    Gemma-3-4B's local layer, (d) flash_attn_varlen_func over Gemma-2-9B's
+    packed documents (both layers), (e) flash_attention_masked over
+    Gemma-7B's padded batch and flash_attn_varlen_func over it unpadded,
+    each forward and backward (autograd), every plain version forbidden.
+    Each call is exactly one launch of B1's and one of B7's D 256
+    instantiation of its channels."""
+    import torch
+    from liteattention_torch import flash_attn_func, flash_attn_varlen_func
+    from liteattention_torch.ops.flash_fwd import flash_attention_masked
+    from liteattention_torch.utils.padding import unpad_input
+
+    g = torch.Generator(device=dev).manual_seed(2526)
+
+    def rnd(*shape, grad=True):
+        x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+        return x.requires_grad_() if grad else x
+
+    def dense(n, h, hk, **kw):  # [B, S, H, D], as flash_attn_func takes them
+        q, k, v = rnd(1, n, h, 256), rnd(1, n, hk, 256), rnd(1, n, hk, 256)
+        do = rnd(1, n, h, 256, grad=False)
+        return lambda: flash_attn_func(q, k, v, causal=True, **kw).backward(do)
+
+    g2 = dict(softcap=GEMMA2_9B_SOFTCAP, softmax_scale=GEMMA2_9B_SCALE)
+    n2, h2, hk2 = GEMMA2_9B_TRAIN, GEMMA2_9B["heads"], GEMMA2_9B["kv_heads"]
+    docs = packed_docs(dev, GEMMA2_9B_PACK)
+
+    def varlen(**kw):
+        q, k, v, do, _, cu = docs
+        return lambda: flash_attn_varlen_func(q, k, v, cu, cu, causal=True, **kw).backward(do)
+
+    cfg = GEMMA7B
+    b, s, h = cfg["batch"], cfg["seq"], cfg["heads"]
+    gl = torch.Generator().manual_seed(cfg["seed"])
+    lens = torch.randint(cfg["min_len"], s + 1, (b,), generator=gl).to(dev, torch.int32)
+    x7 = [rnd(b, h, s, 256) for _ in range(3)]
+    do7 = rnd(b, h, s, 256, grad=False)
+    mask = (torch.arange(s, device=dev)[None] < lens[:, None]).to(torch.int32)
+    n_tok = int(lens.sum())
+
+    def padded():
+        flash_attention_masked(*x7, kv_bound=lens, causal=True).backward(do7)
+
+    def unpadded():
+        p = [unpad_input(x.transpose(1, 2), mask, max_tokens=n_tok) for x in (*x7, do7)]
+        cu = p[0][2]
+        out = flash_attn_varlen_func(p[0][0], p[1][0], p[2][0], cu, cu, causal=True)
+        out.backward(p[3][0])
+
+    calls = [("gemma2_9b_local", dense(n2, h2, hk2, window_size=GEMMA2_9B_WINDOW, **g2),
+              "window"),
+             ("gemma2_9b_global", dense(n2, h2, hk2, **g2), "window"),
+             ("gemma3_4b_local", dense(GEMMA3_4B_TOKENS, GEMMA3_4B["heads"],
+                                       GEMMA3_4B["kv_heads"], window_size=GEMMA3_4B_WINDOW,
+                                       softmax_scale=256**-0.5), "window"),
+             ("gemma2_9b_docs_local", varlen(window_size=GEMMA2_9B_WINDOW, **g2),
+              "segments_window"),
+             ("gemma2_9b_docs_global", varlen(**g2), "segments_window"),
+             ("gemma7b_padded", padded, "bound"),
+             ("gemma7b_unpadded", unpadded, "segments")]
+    torch.cuda.synchronize()
+    reset_counts()
+    with plain_forbidden():
+        for name, call, kind in calls:
+            before = read_counts()
+            call()
+            delta = {n: c - before[n] for n, c in read_counts().items() if c != before[n]}
+            want = {f"flash_fwd_{kind}": 1, f"flash_bwd_{kind}": 1}
+            check(delta == want, f"phase 25's counted run: {name} launched {delta}, want {want}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  counted run (flash_attn_func at Gemma-2-9B's two layers and Gemma-3-4B's local one, "
+        f"flash_attn_varlen_func over Gemma-2-9B's documents, Gemma-7B's batch padded and "
+        f"unpadded; forward and backward): {counts}")
+    del docs, x7, do7
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gemma_phase(dev, card):
+    """Phase 25: head dim 256 with the window, the cap, the key range and
+    segments at Gemma-2-9B's, Gemma-3-4B's and Gemma-7B's attention; the
+    combinations not built still raise."""
+    import torch
+    from liteattention_torch.modules.mha import alibi_slopes
+    from liteattention_torch.ops.flash_fwd import flash_attention_masked
+
+    t0 = time.perf_counter()
+    log(f"  (a), (c)-(e) B1's and B7's D 256 channels against their plain versions [{card}]")
+    kres, stats = gemma_kernel_phase(dev)
+    secs = {"kernels": time.perf_counter() - t0}
+    log("  (b) Gemma-2-9B served through flash_attn_with_kvcache")
+    counts = {}
+    counts["gemma2_9b_serve"], extra, stats["serve"] = gemma2_serve_phase(dev)
+    shapes = kres["flash_fwd_window_d256"]["shapes"]
+    shapes.update(extra)
+    kres["flash_fwd_window_d256"]["err"] = max(r["err"] for r in shapes.values())
+    secs["serve"] = time.perf_counter() - t0 - secs["kernels"]
+    counts["gemma_train"] = gemma_train_counted_run(dev)
+    # The combinations left out raise before any launch, naming their item.
+    q = torch.zeros(1, 4, 128, 256, dtype=torch.bfloat16, device=dev)
+    q96 = torch.zeros(1, 4, 128, 96, dtype=torch.bfloat16, device=dev)
+    refused = {}
+    for name, args, kw, item, kind in (
+            ("alibi_at_d256", (q,) * 3, dict(alibi_slopes=alibi_slopes(4).to(dev)), "B-iii 4",
+             ValueError),
+            ("dropout_at_d256", (q,) * 3, dict(dropout_p=0.1), "B-iii 4", NotImplementedError),
+            ("window_at_d96", (q96,) * 3, dict(causal=True, window=(64, 0)), "B-iii 4",
+             NotImplementedError)):
+        before, err = read_counts(), None
+        try:
+            flash_attention_masked(*args, **kw)
+        except kind as e:
+            err = refused[name] = str(e)
+        check(err is not None and f"ROADMAP {item}" in err,
+              f"phase 25: {name} did not raise naming ROADMAP {item} ({err})")
+        check(read_counts() == before, f"phase 25: {name} launched a kernel before it raised")
+    log(f"  refused before any launch: {sorted(refused)}")
+    stats["refused"] = refused
+    secs["all"] = time.perf_counter() - t0
+    stats["part_seconds"] = secs
+    return counts, kres, stats
+
+
 # Kernels whose ptxas registers and spills ab_times reports ("flash_bwd"
 # names the one-pass backward kernel and the two kernels it replaced;
 # "flash_fwd_kernel" B1's wgmma kernel and, walking a live-tile list or a
@@ -9308,6 +9797,45 @@ def ab_times(reps):
             def wbwd(wq=wq, wk=wk, wv=wv, wo=wo, wlse=wlse, wdo=wdo, wkw=wkw):
                 return flash_attention_bwd(wq, wk, wv, wo, wlse, wdo, wq.shape[-1] ** -0.5, True,
                                            **wkw)
+
+            seg[f"b1_{name}_digest"] = digest(wo, wlse)
+            seg[f"b7_{name}_dkv_digest"] = digest(*wbwd()[1:])
+            seg[f"b1_{name}_ms"] = device_ms(lambda: flash_attention_masked(
+                wq, wk, wv, causal=True, **wkw), reps)[0]
+            seg[f"b7_{name}_ms"] = device_ms(wbwd, reps)[0]
+            del wq, wk, wv, wdo, wo, wlse
+    # Head dim 256's channels (checkouts since they exist): the window and
+    # cap, the key range, and the segment walk alone and with the window and
+    # cap, digests and times as above.
+    from liteattention_torch.ops import flash_bwd as channels_module
+
+    if 256 in getattr(channels_module, "WINDOW_HEAD_DIMS", ()):
+        from liteattention_torch.ops.flash_fwd import flash_attention_masked
+
+        # A generator of its own, so that the inputs drawn after this block
+        # are the same for checkouts with and without it.
+        g256 = torch.Generator(device=dev).manual_seed(2560)
+        lengths = torch.tensor([500, 700, 96, 752], device=dev)
+        ids = torch.repeat_interleave(torch.arange(4, device=dev), lengths).int()[None]
+        for name, shape, wkw in (
+                ("window_softcap_d256", (1, 16, 8, 2048),
+                 dict(window=(511, 0), softcap=50.0, scale=256**-0.5)),
+                ("bound_d256", (2, 8, 8, 1024),
+                 dict(kv_bound=torch.tensor([1024, 700], dtype=torch.int32, device=dev))),
+                ("segments_d256", (1, 8, 4, 2048), dict(q_segments=ids, kv_segments=ids)),
+                ("segments_window_softcap_d256", (1, 8, 4, 2048),
+                 dict(q_segments=ids, kv_segments=ids, window=(255, 0), softcap=30.0))):
+            b_, h_, hk_, n_ = shape
+            wq, wdo = (torch.randn(b_, h_, n_, 256, generator=g256, device=dev).bfloat16()
+                       for _ in range(2))
+            wk, wv = (torch.randn(b_, hk_, n_, 256, generator=g256, device=dev).bfloat16()
+                      for _ in range(2))
+            wo, wlse = flash_attention_masked(wq, wk, wv, causal=True, return_lse=True, **wkw)
+            bkw = {n: x for n, x in wkw.items() if n != "scale"}
+            wscale = wkw.get("scale", 256**-0.5)
+
+            def wbwd(wq=wq, wk=wk, wv=wv, wo=wo, wlse=wlse, wdo=wdo, bkw=bkw, wscale=wscale):
+                return flash_attention_bwd(wq, wk, wv, wo, wlse, wdo, wscale, True, **bkw)
 
             seg[f"b1_{name}_digest"] = digest(wo, wlse)
             seg[f"b7_{name}_dkv_digest"] = digest(*wbwd()[1:])
@@ -9564,6 +10092,9 @@ def main() -> int:
               "dropout 0.1")
         counts["varlen_channels"], p24_kres, p24_stats = varlen_channel_phase(dev, card)
         kres.update(p24_kres)
+        phase("phase 25: head dim 256 with the window, the cap, the key range and segments: "
+              "Gemma-2-9B's and Gemma-3-4B's attention, Gemma-7B's padded batch")
+        p25_counts, p25_kres, p25_stats = gemma_phase(dev, card)
         phase()
     except SmokeError as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -9751,12 +10282,57 @@ def main() -> int:
                                      "paged_decode_folded", p14_kres["paged_folded"]),
     }
     for name, (src, kernel, replaces, counter, r) in d256.items():
-        row = entry(name, src, kernel, replaces, r,
-                    {path: c[counter] for path, c in p14_counts.items()})
+        paths = {path: c[counter] for path, c in p14_counts.items()}
+        # Phase 25's paths run at head dim 256 too: its prefill-free B1
+        # bound calls (Gemma-7B's padded batch) and its global layer's
+        # decode steps.
+        paths.update({f"phase 25 {path}": c[counter] for path, c in p25_counts.items()})
+        row = entry(name, src, kernel, replaces, r, paths)
         if name == "flash_bwd_d256":
             row.update(dkv=p14_kres["bwd_causal"]["flash_bwd_dkv"],
                        fwd_bwd=p14_kres["bwd_causal"]["fwd_bwd"])
+        if name == "flash_fwd_bound_d256":
+            row["gemma7b_padded"] = p25_kres["flash_fwd_bound_d256"]
+            row["max_abs_err"] = max(row["max_abs_err"], p25_kres["flash_fwd_bound_d256"]["err"])
         kernels.append(row)
+    # Head dim 256's channels (phase 25): each row's instantiation source,
+    # its kernel, the TPU kernel it replaces and the counter it shares with
+    # its D 64 / 128 row; its launches are phase 25's paths' (every path
+    # there runs at 256 only).
+    gemma = {
+        "flash_fwd_window_d256": ("flash_fwd_d256_window.cu",
+                                  "flash_fwd_window_kernel<256, CAUSAL, WINDOW, SOFTCAP>",
+                                  "liteattention_tpu/ops/flash_fwd.py:84", "flash_fwd_window"),
+        "flash_bwd_window_d256": ("flash_bwd_d256_window.cu",
+                                  "flash_bwd_d256_channels_kernel<CAUSAL, true, false, WINDOW, "
+                                  "SOFTCAP>", "liteattention_tpu/ops/flash_bwd.py:55",
+                                  "flash_bwd_window"),
+        "flash_fwd_segments_window_d256": ("flash_fwd_d256_segments.cu",
+                                           "flash_fwd_segments_channels_kernel<256, CAUSAL, "
+                                           "WINDOW, SOFTCAP, false>",
+                                           "liteattention_tpu/ops/flash_fwd.py:84",
+                                           "flash_fwd_segments_window"),
+        "flash_bwd_segments_window_d256": ("flash_bwd_d256_segments.cu",
+                                           "flash_bwd_d256_channels_kernel<CAUSAL, false, true, "
+                                           "WINDOW, SOFTCAP>",
+                                           "liteattention_tpu/ops/flash_bwd.py:55",
+                                           "flash_bwd_segments_window"),
+        "flash_fwd_segments_d256": ("flash_fwd_d256_segments.cu",
+                                    "flash_fwd_kernel<256, 256, CAUSAL, kSegment>",
+                                    "liteattention_tpu/ops/flash_fwd.py:84",
+                                    "flash_fwd_segments"),
+        "flash_bwd_segments_d256": ("flash_bwd_d256_segments.cu",
+                                    "flash_bwd_d256_channels_kernel<CAUSAL, false, true, false, "
+                                    "false>", "liteattention_tpu/ops/flash_bwd.py:55",
+                                    "flash_bwd_segments"),
+        "flash_bwd_bound_d256": ("flash_bwd_d256.cu",
+                                 "flash_bwd_d256_channels_kernel<CAUSAL, true, false, false, "
+                                 "false> (RANGE)", "liteattention_tpu/ops/flash_bwd.py:55",
+                                 "flash_bwd_bound"),
+    }
+    for name, (src, kernel, replaces, counter) in gemma.items():
+        kernels.append(entry(name, src, kernel, replaces, p25_kres[name],
+                             {path: c[counter] for path, c in p25_counts.items()}))
     # Head dims 80 and 96 (phase 21): each row's instantiation source, its
     # kernel, the TPU kernel it replaces, the counter it shares with its
     # row above, the phase-21 paths that run it at this head dim, and phase
@@ -9818,7 +10394,7 @@ def main() -> int:
     for n, st in ((10, p10_stats), (11, p11_stats), (12, p12_stats), (13, p13_stats),
                   (14, p14_stats), (15, p15_stats), (16, p16_stats), (17, p17_stats),
                   (18, p18_stats), (19, p19_stats), (20, p20_stats), (21, p21_stats),
-                  (22, p22_stats), (23, p23_stats), (24, p24_stats)):
+                  (22, p22_stats), (23, p23_stats), (24, p24_stats), (25, p25_stats)):
         st["seconds"] = seconds[f"phase {n}"]
     log(f"phase seconds (phase 1: the build included): {json.dumps(seconds)}")
     log(f"training: {json.dumps(train_stats)}")
@@ -9844,6 +10420,7 @@ def main() -> int:
     log(f"parallel training (two ranks on one card; times are no measure of parallel speed): "
         f"{json.dumps(p23_stats)}")
     log(f"varlen channels: {json.dumps(p24_stats)}")
+    log(f"head dim 256 channels (gemma): {json.dumps(p25_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -73,10 +73,12 @@ GPT-NeoX) are built for every function here and their backward (B1, B7
 and the decode kernel, with ALiBi, segments and the key range); their
 dropout, window, softcap and lite walks raise, naming ROADMAP B-iii 4,
 and ``int8_mma`` raises there, as JAX's asserts ``d % 128 == 0``. Head
-dim 256 (GPT-J) is built for ``flash_attn_func`` and
-``flash_attn_with_kvcache`` and their backward (B1, B7 and the decode
-kernel); its ALiBi, segments (so the varlen functions) and lite walks
-raise, naming ROADMAP B-iii 4. ALiBi with
+dim 256 (GPT-J, Gemma-2, Gemma-3) is built for ``flash_attn_func``, the
+varlen functions and ``flash_attn_with_kvcache`` and their backward (B1,
+B7 and the decode kernel), with the key range, segments, the window /
+``attention_chunk`` and softcap (Gemma-2's local and global layers, Gemma-3's
+local ones); its ALiBi, dropout and lite walks raise, naming ROADMAP B-iii
+4. ALiBi with
 ``attn_read_list`` raises, as every mask channel does on the skip path.
 
 ``flash_attn_varlen_func`` (and ``flash_attn_varlen_qkvpacked_func`` /
@@ -335,14 +337,16 @@ def flash_attn_varlen_func(
     positions, as in JAX). ``window_size`` and ``softcap``: the sliding
     window about the packed position and the logit cap. On the card each of
     them, and the window with the cap, runs B1's and B7's segment
-    instantiations of those channels at head dim 64 or 128 (counted in
+    instantiations of those channels (counted in
     ``flash_attention.segment_dropout_launches`` /
     ``.segment_window_launches`` and ``flash_bwd``'s counters of the same
-    names); dropout with the window or the cap raises there (ROADMAP B-i
-    3's rest), and so do these channels at head dim 80 or 96 (B-iii 4).
-    The plain versions take every combination on the CPU. ``qv`` and the
-    fp8 descales raise on every device; so does a head dim the segment
-    kernels are not built for (64, 80, 96 and 128 are; B-iii 4).
+    names): the window and the cap at head dim 64, 128 or 256 (Gemma's),
+    dropout at 64 or 128; dropout with the window or the cap raises there
+    (ROADMAP B-i 3's rest), and so do the window and the cap at head dim 80
+    or 96, and dropout at 80, 96 or 256 (B-iii 4). The plain versions take
+    every combination on the CPU. ``qv`` and the fp8 descales raise on
+    every device; so does a head dim the segment kernels are not built for
+    (64, 80, 96, 128 and 256 are; B-iii 4).
     The packed
     layout is copied to ``[1, H, total, D]`` for the kernel (reading it in
     place is ROADMAP B-i 6).
@@ -358,7 +362,7 @@ def flash_attn_varlen_func(
     window = None if tuple(window_size) == (-1, -1) else tuple(window_size)
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError("q must be [total_q, H, D] and k, v [total_k, Hk, D]")
-    check_head_dim(q.shape[-1], True, "flash_attn_varlen_func")
+    check_head_dim(q.shape[-1], False, "flash_attn_varlen_func")
     tq, tk = q.shape[0], k.shape[0]
     if causal or window is not None or attention_chunk:
         if tq != tk or (cu_seqlens_q is not cu_seqlens_k
@@ -504,8 +508,10 @@ def flash_attn_with_kvcache(
     ``attention_chunk`` c, about the same position ``pos = cache_seqlens +
     S_new_k - S_new + i``: keys ``[pos - left, pos + right]`` and
     ``[floor(pos / c) c, + c)``, on the contiguous route (B1's window
-    instantiation, as in JAX), not with int8 caches (window) or
-    ``num_splits`` > 1 (chunk), as JAX asserts.
+    instantiation, as in JAX; on the card at head dims 64, 128 and 256, so
+    Gemma-2's and Gemma-3's local layers), not with int8 caches (window) or
+    ``num_splits`` > 1 (chunk), as JAX asserts. ``softcap`` alone (a
+    Gemma-2 global layer) goes to the decode kernel, at 256 too.
 
     ``rotary_cos`` / ``rotary_sin`` ``[seqlen_ro, rd / 2]`` rotate q and the
     new k before the append, as JAX does (:func:`_apply_rotary_batched`):

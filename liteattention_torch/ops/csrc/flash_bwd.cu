@@ -111,6 +111,8 @@
 // D 96: 12 % and 7 % more MMA work a step), so that both warpgroups issue
 // the same instruction outside a branch, and stores only its D - 64 real
 // columns. The RANGE, ALIBI and segment instantiations are built at both.
+// At head dim 256 B7 is flash_bwd_d256.cu's kernel of its own, with the
+// RANGE, WINDOW / SOFTCAP and segment channels as template flags there.
 //
 // What bounds it on the H100: tensor-core throughput (10 d FLOPs per
 // (q row, key) pair, against bytes read once that are a small share at
@@ -273,6 +275,87 @@ struct Walk {
     return (q_first + i) * kRows;
   }
 };
+
+// The walk's q-tiles for KEYS keys from k0 (flash_bwd_d256.cu's 64-key
+// CTAs; bwd_cta below spells out the same policy at 128 keys, since
+// calling this there changes ptxas's register allocation of its
+// instantiations): the first and their count. CAUSAL starts at the
+// diagonal (the range's with RANGE); SEG keeps the q rows whose segments
+// meet the keys of span tile `span` (ops/segments.py's row range, per 128
+// keys); WINDOW reads the window into `wnd` and keeps the q rows whose
+// window reaches the keys, row + off + right >= k0 and row + off - left <
+// k0 + KEYS (each end of a row's window is nondecreasing in the row: B1's
+// window_range, mirrored); RANGE walks nothing when the keys lie wholly
+// past the limit or below the low key (their dK and dV rows are stored as
+// zeros).
+template <int KEYS, bool CAUSAL, bool RANGE, bool SEG, bool WINDOW>
+__device__ __forceinline__ int2 walk_rows(const Params& p, const Channels& c,
+                                          const KeyRange& range, Window& wnd, int b, int k0,
+                                          int span) {
+  const int qtiles = p.seqlen_q_pad / kRows;
+  int q_first = 0;
+  if constexpr (CAUSAL) {  // the first q-tile whose last row reaches the first key
+    const int x = k0 - (RANGE ? range.diag : p.causal_offset);
+    q_first = x < 0 ? 0 : min(qtiles, x / kRows);
+  }
+  int nq = qtiles - q_first;
+  if constexpr (SEG) {
+    const int2 rows = segment_range(c, span);
+    q_first = max(q_first, rows.x / kRows);
+    nq = max(min(qtiles, (rows.y + kRows - 1) / kRows) - q_first, 0);
+  }
+  if constexpr (WINDOW) {
+    wnd = window_of(c, b, p.seqlen_q, p.seqlen_k);
+    int q_end = SEG ? q_first + nq : qtiles;  // inside the segments' rows
+    if (wnd.right >= 0) {
+      q_first = max(q_first, min(qtiles, max(k0 - wnd.right - wnd.off, 0) / kRows));
+    }
+    if (wnd.left >= 0) {
+      const int rows_end = k0 + KEYS + wnd.left - wnd.off;
+      q_end = rows_end <= 0 ? 0 : min(q_end, (rows_end + kRows - 1) / kRows);
+    }
+    nq = max(q_end - q_first, 0);
+  }
+  if (RANGE && (k0 >= range.lim || k0 + KEYS <= range.low)) nq = 0;
+  return make_int2(q_first, nq);
+}
+
+// Whether entry (key, row) of a step is hidden: key_masked with the
+// channels' bounds, each moved out of reach where its flag says the step's
+// keys cannot cross it (ragged: the range's limit and low key, else Sk;
+// diag: the diagonal, the range's with RANGE; seg_test: the row's id
+// against the key's `kid`; win_test: the row's window [row + win_lo, row +
+// win_hi]). One branch-free test on every tile (on an H100 faster than
+// testing the tile flags per element). The D 256 kernel's; consume spells
+// out the same dispatch (as walk_rows, to keep its register allocation).
+template <bool CAUSAL, bool RANGE, bool SEG, bool WINDOW>
+__device__ __forceinline__ bool entry_masked(const Params& p, const Channels& c,
+                                             const KeyRange& r, int diag_off, int key, int row,
+                                             bool ragged, bool diag, bool seg_test, int kid,
+                                             bool win_test, int win_lo, int win_hi) {
+  if constexpr (SEG && WINDOW) {
+    return key_masked<CAUSAL>(key, row, ragged ? p.seqlen_k : kNoBound,
+                              diag ? p.causal_offset : kNoBound, 0,
+                              seg_test ? __ldg(c.q_seg + row) : 0, seg_test ? kid : 0,
+                              win_test ? make_int2(row + win_lo, row + win_hi + 1)
+                                       : make_int2(-kNoBound, kNoBound));
+  } else if constexpr (WINDOW) {
+    return key_masked<CAUSAL>(key, row, ragged ? r.lim : kNoBound, diag ? diag_off : kNoBound,
+                              ragged ? r.low : 0,
+                              win_test ? make_int2(row + win_lo, row + win_hi + 1)
+                                       : make_int2(-kNoBound, kNoBound));
+  } else if constexpr (RANGE) {
+    return key_masked<CAUSAL>(key, row, ragged ? r.lim : kNoBound, diag ? diag_off : kNoBound,
+                              ragged ? r.low : 0);
+  } else if constexpr (SEG) {
+    return key_masked<CAUSAL>(key, row, ragged ? p.seqlen_k : kNoBound,
+                              diag ? p.causal_offset : kNoBound, 0,
+                              seg_test ? __ldg(c.q_seg + row) : 0, seg_test ? kid : 0);
+  } else {
+    return key_masked<CAUSAL>(key, row, ragged ? p.seqlen_k : kNoBound,
+                              diag ? p.causal_offset : kNoBound);
+  }
+}
 
 // K and V of the CTA's k-tile, once.
 template <int D>
@@ -454,6 +537,9 @@ __device__ __forceinline__ void consume(const CUtensorMap& tm_q, const CUtensorM
       for (int e = 8 * k; e < 8 * k + 8; ++e) {
         const int qc = 8 * (e / 4) + 2 * t + (e & 1);
         const int key = key_lo + 8 * ((e >> 1) & 1);
+        // Off the ragged tile and the tiles that cross the diagonal, that
+        // channel's bound moves out of reach: one branch-free test on every
+        // tile (on an H100 faster than testing the tile flags per element).
         // Off the ragged tile and the tiles that cross the diagonal, that
         // channel's bound moves out of reach: one branch-free test on every
         // tile (on an H100 faster than testing the tile flags per element).
@@ -676,7 +762,8 @@ __device__ __forceinline__ void bwd_cta(const CUtensorMap& tm_q, const CUtensorM
   }
   // WINDOW: only the q rows whose window reaches the k-tile, row + off +
   // right >= k0 and row + off - left < k0 + kKeys (each end of a row's
-  // window is nondecreasing in the row): B1's window_range, mirrored.
+  // window is nondecreasing in the row): B1's window_range, mirrored. The
+  // narrowing is walk_rows's, written out.
   Window wnd{};
   if constexpr (WINDOW) {
     wnd = window_of(c, b, p.seqlen_q, p.seqlen_k);
@@ -916,9 +1003,19 @@ cudaError_t run_hd(int head_dim, bool causal, const Args& a, cudaStream_t stream
 cudaError_t run_masked_hd(int head_dim, bool diag, const Args& a, const Channels& c,
                           cudaStream_t stream);
 
-// Head dim 256, channel-free (CAUSAL when `causal`): the 64-key kernel of
-// flash_bwd_d256.cu, whose nvcc runs beside this file's.
+// Head dim 256 (CAUSAL when `causal` / `diag`): the 64-key kernel of
+// flash_bwd_d256.cu, whose nvcc runs beside this file's, channel-free and
+// with B1's key range (not ALiBi); its window / softcap instantiations
+// (flash_bwd_d256_window.cu), and its segment walk alone or with the window /
+// softcap (flash_bwd_d256_segments.cu; not dropout), each its own nvcc.
 cudaError_t run_d256(bool causal, const Args& a, cudaStream_t stream);
+cudaError_t run_masked_d256(bool diag, const Args& a, const Channels& c, cudaStream_t stream);
+cudaError_t run_window_d256(bool diag, const Args& a, const Channels& c, bool window,
+                            cudaStream_t stream);
+cudaError_t run_segments_d256(bool causal, const Args& a, const Channels& c,
+                              cudaStream_t stream);
+cudaError_t run_segment_channels_d256(bool causal, const Args& a, const Channels& c, bool window,
+                                      cudaStream_t stream);
 
 }  // namespace bwd
 }  // namespace lite
@@ -956,7 +1053,7 @@ extern "C" int lite_flash_bwd(const void* q, const void* k, const void* v, const
 
 // B7 with B1's per-batch channels: as lite_flash_bwd, plus kv_bound and
 // kv_low [B] int32 or null and alibi [B, H] fp32 slopes or null (at most
-// 256 q-heads per kv-head with ALiBi). Keys of batch b: [kv_low[b],
+// 256 q-heads per kv-head with ALiBi; none at head dim 256). Keys of batch b: [kv_low[b],
 // min(Sk, kv_bound[b])); causal bottom-right at Sk - Sq; bound_causal (with
 // kv_bound) bottom-right at kv_bound[b] - Sq. lse is the forward's (B1's
 // with the same channels).
@@ -989,6 +1086,8 @@ extern "C" int lite_flash_bwd_masked(const void* q, const void* k, const void* v
     err = diag ? run_masked<128, true>(a, c, s) : run_masked<128, false>(a, c, s);
   } else if (head_dim == 80 || head_dim == 96) {
     err = run_masked_hd(head_dim, diag, a, c, s);
+  } else if (head_dim == 256) {
+    err = run_masked_d256(diag, a, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }

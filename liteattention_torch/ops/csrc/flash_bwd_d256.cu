@@ -1,9 +1,14 @@
-// B7 (flash_bwd.cu) at head dim 256 (GPT-J-6B): a main kernel of its own,
-// flash_bwd_d256_kernel, in a source of its own so that nvcc compiles it
-// beside flash_bwd.cu's (one nvcc per source, all started together). The
+// B7 (flash_bwd.cu) at head dim 256 (GPT-J-6B, Gemma): a main kernel of its
+// own, flash_bwd_d256_kernel, in a source of its own so that nvcc compiles
+// it beside flash_bwd.cu's (one nvcc per source, all started together). The
 // delta and dQ passes are flash_bwd.cu's, and the function is B7's one
 // pass: dQ (B7a, _dq_kernel) and dK / dV (B7b, _dkv_kernel, the GQA group
-// summed), channel-free, causal or not.
+// summed), causal or not. The channels are flash_bwd_d256_channels_kernel,
+// the same body (d256_cta) with template flags: B1's key range (RANGE, this
+// file), the window / softcap over the range (flash_bwd_d256_window.cu), and
+// the segment walk alone or with them (flash_bwd_d256_segments.cu): what
+// flash_bwd.cu's RANGE / WINDOW / SOFTCAP / segment instantiations take at D
+// 64 and 128, but ALiBi and dropout.
 //
 // Why a kernel of its own. flash_bwd.cu's CTA owns 128 keys, 64 per
 // warpgroup, and each warpgroup keeps its keys' dK and dV over every column
@@ -40,6 +45,24 @@
 // FLOP a byte, under the card's ~295: the loads come mostly from L2 (the
 // 64-key CTAs of a head read the same Q and dO), and the products of a
 // step wait on its softmax (no overlap across steps).
+//
+// The channels, as flash_bwd.cu's bwd_cta takes them. RANGE: the CTA reads
+// its batch's KeyRange once (key_mask.cuh:key_range), starts a causal walk
+// at the range's diagonal, walks nothing when its 64 keys lie wholly past
+// the limit or below the low key, and tests the limit and the low key per
+// element only where its keys cross them. WINDOW: only the 64-row steps
+// whose rows' windows reach the CTA's keys (bwd_cta's rows, mirrored from
+// B1's window_range, at 64 keys), and the per-element test only where a
+// warp's 16 keys and the warpgroup's 32 rows are not all inside each other's
+// windows. SOFTCAP: B1's capped scores t = tanh(s scale / cap)
+// (key_mask.cuh:softcap_tanh), P = exp2(cap t log2(e) - lse2), dS = P (dP -
+// delta) (1 - t^2) scale. SEG (batch 1): ops/segments.py's row range and id
+// span are per 128 keys, so a 64-key CTA walks the q rows of the 128-key
+// tile that holds it and tests its keys against that tile's span (both
+// supersets: sound, at most a few steps more); each 64-row step's span is
+// its own. Each channel's state is a few registers (the range, the window's
+// two bounds, the cap's two constants, the keys' ids); no shared memory is
+// added, and the channel-free kernel keeps its code.
 #define LITE_BWD_TEMPLATES_ONLY
 #include "flash_bwd.cu"
 
@@ -50,6 +73,7 @@ namespace d256 {
 constexpr int D = 256;
 constexpr int kAtoms = D / 64;
 constexpr int kKeys = 64;           // keys per CTA
+constexpr int kSpanKeys = 128;      // keys of the segment walk's row ranges and id spans
 constexpr int kStages = 2;          // Q / dO ring depth
 constexpr int kCols = D / 2;        // dK, dV and dQ columns of each warpgroup
 constexpr int kWgRows = kRows / 2;  // a step's rows whose S^T and dP^T each warpgroup computes
@@ -107,13 +131,15 @@ __device__ __forceinline__ void load_step(const CUtensorMap& tm_q, const CUtenso
 // One CTA per (64-key tile, b, kv-head), k-tile slowest (the longest causal
 // walks start first); the walk is flash_bwd.cu's (Walk: the group's q-heads
 // in turn, 64-row steps from the k-tile's diagonal, or non-causal from a
-// q-tile that moves with the k-tile).
-template <bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
-                          const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v,
-                          const __grid_constant__ CUtensorMap tm_do, const Params p) {
+// q-tile that moves with the k-tile), narrowed by the channels: RANGE the
+// key range of `c`, SEG its segment ids, WINDOW its window, SOFTCAP its cap.
+template <bool CAUSAL, bool RANGE, bool SEG, bool WINDOW, bool SOFTCAP>
+__device__ __forceinline__ void d256_cta(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                         const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                         const Params& p, const Channels& c) {
+  static_assert(!SEG || !RANGE, "segments without the key range");
+  static_assert(!(WINDOW || SOFTCAP) || RANGE || SEG,
+                "window and softcap run in the RANGE and segment instantiations");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -125,14 +151,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = (blockIdx.x % bhk) / p.kv_heads;
   const int hk = blockIdx.x % p.kv_heads;
   const int k0 = kt * kKeys;
-  const int qtiles = p.seqlen_q_pad / kRows;
   const int group = p.heads / p.kv_heads;
-  int q_first = 0;
-  if constexpr (CAUSAL) {  // the first q-tile whose last row reaches the k-tile's first key
-    const int x = k0 - p.causal_offset;
-    q_first = x < 0 ? 0 : min(qtiles, x / kRows);
-  }
-  const int nq = qtiles - q_first;
+  const KeyRange range = RANGE ? key_range(c, b, p.seqlen_q, p.seqlen_k, p.causal_offset)
+                               : KeyRange{0, p.seqlen_k, p.causal_offset, 0};
+  // flash_bwd.cu's walk at 64 keys; SEG: the q rows of the 128-key tile
+  // that holds them.
+  Window wnd{};
+  const int2 rows =
+      walk_rows<kKeys, CAUSAL, RANGE, SEG, WINDOW>(p, c, range, wnd, b, k0, k0 / kSpanKeys);
+  const int q_first = rows.x, nq = rows.y;
   const int ktiles = (p.seqlen_k + kKeys - 1) / kKeys;
   const Walk walk{b * p.heads + hk * group, q_first, nq, CAUSAL ? 0 : kt * nq / ktiles};
   const int n_iter = group * nq;
@@ -156,7 +183,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = (tw % 32) / 4;
   const int t = tw % 4;
   const int key_lo = k0 + 16 * warp + g;  // this thread's keys: key_lo, key_lo + 8
-  const bool ragged = k0 + kKeys > p.seqlen_k;
+  // Keys that cross the range's limit (or, RANGE, its low key) test it per
+  // element; the diagonal is the range's (the bound's with bound_causal).
+  const bool ragged = RANGE ? k0 + kKeys > range.lim || k0 < range.low : k0 + kKeys > p.seqlen_k;
+  const int diag_off = RANGE ? range.diag : p.causal_offset;
+  // SEG: this thread's keys' ids and the 128-key tile's least and largest
+  // (the ids are padded to whole 128-key tiles).
+  int kid_lo = 0, kid_hi = 0;
+  int2 k_span{};
+  if constexpr (SEG) {
+    kid_lo = __ldg(c.k_seg + key_lo);
+    kid_hi = __ldg(c.k_seg + key_lo + 8);
+    k_span = __ldg(c.k_span + k0 / kSpanKeys);
+  }
+  // WINDOW: key - row must lie in [win_lo, win_hi] (the row's window about
+  // pos = row + wnd.off). SOFTCAP: tanh's exp2 argument per raw score and
+  // cap log2(e), as B1's.
+  int win_lo = -kNoBound, win_hi = kNoBound;
+  if constexpr (WINDOW) {
+    if (wnd.left >= 0) win_lo = wnd.off - wnd.left;
+    if (wnd.right >= 0) win_hi = wnd.off + wnd.right;
+  }
+  float cap_k = 0.f, cap_log2 = 0.f;
+  if constexpr (SOFTCAP) {
+    cap_k = 2.f * p.scale_log2 / c.cap;
+    cap_log2 = c.cap * kLog2e;
+  }
   const uint32_t k_addr = sm90::smem_u32(smem + Smem::k);
   const uint32_t pt_addr = sm90::smem_u32(smem + Smem::pt);
   const uint32_t dst_addr = sm90::smem_u32(smem + Smem::dst);
@@ -228,15 +280,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     // P^T (masked entries 0) and dS^T; off the ragged tile and the tiles
     // that cross this warp's diagonal the test's bounds move out of reach.
     // s[4 j + 2 i + c] is key key_lo + 8 i, row 32 wg + 8 j + 2 t + c.
-    const bool diag = CAUSAL && k0 + 16 * warp + 15 > row0 + wg * kWgRows + p.causal_offset;
+    const bool diag = CAUSAL && k0 + 16 * warp + 15 > row0 + wg * kWgRows + diag_off;
+    // SEG: the step's rows and the 128-key tile's keys are not all of one
+    // segment.
+    const bool seg_test = SEG && !one_segment(k_span, __ldg(c.q_span + row0 / kRows));
+    // WINDOW: this warp's 16 keys and the warpgroup's 32 rows are not all
+    // inside each other's windows (key - row spans [k - r - 31, k + 15 - r]
+    // from the warp's first key k and the warpgroup's first row r).
+    const int kr0 = k0 + 16 * warp - (row0 + wg * kWgRows);
+    const bool win_test = WINDOW && (kr0 - (kWgRows - 1) < win_lo || kr0 + 15 > win_hi);
 #pragma unroll
     for (int e = 0; e < kWgRows / 2; ++e) {
       const int qc = wg * kWgRows + 8 * (e / 4) + 2 * t + (e & 1);
       const int key = key_lo + 8 * ((e >> 1) & 1);
-      const bool masked = key_masked<CAUSAL>(key, row0 + qc, ragged ? p.seqlen_k : kNoBound,
-                                             diag ? p.causal_offset : kNoBound);
-      s[e] = masked ? 0.f : ex2(s[e] * p.scale_log2 - lse2[qc]);
-      dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;
+      const bool masked = entry_masked<CAUSAL, RANGE, SEG, WINDOW>(
+          p, c, range, diag_off, key, row0 + qc, ragged, diag, seg_test,
+          (e >> 1) & 1 ? kid_hi : kid_lo, win_test, win_lo, win_hi);
+      if constexpr (SOFTCAP) {
+        // The cap's derivative 1 - tanh^2, taken before the mask as JAX
+        // takes it, times the scale.
+        const float tc = softcap_tanh(s[e] * cap_k);
+        s[e] = masked ? 0.f : ex2(fmaf(cap_log2, tc, -lse2[qc]));
+        dp[e] = s[e] * (dp[e] - delta[qc]) * (p.scale * fmaf(-tc, tc, 1.f));
+      } else {
+        s[e] = masked ? 0.f : ex2(s[e] * p.scale_log2 - lse2[qc]);
+        dp[e] = s[e] * (dp[e] - delta[qc]) * p.scale;
+      }
     }
     // Both as bf16 into shared memory, [key][row], 128-byte swizzle.
 #pragma unroll
@@ -311,10 +380,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The three launches: delta (flash_bwd.cu's bwd_pre_kernel), the main
-// kernel, dQ to bf16 (flash_bwd.cu's bwd_post_kernel).
+// The channel-free main kernel (GPT-J's).
 template <bool CAUSAL>
-cudaError_t run(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do, const Params p) {
+  d256_cta<CAUSAL, false, false, false, false>(tm_q, tm_k, tm_v, tm_do, p, Channels{});
+}
+
+// The channels: B1's key range (this file), the window / softcap over it
+// (flash_bwd_d256_window.cu), the segment walk alone or with them
+// (flash_bwd_d256_segments.cu).
+template <bool CAUSAL, bool RANGE, bool SEG, bool WINDOW, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_d256_channels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ CUtensorMap tm_do, const Params p,
+                                   const Channels c) {
+  d256_cta<CAUSAL, RANGE, SEG, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v, tm_do, p, c);
+}
+
+// The three launches: delta (flash_bwd.cu's bwd_pre_kernel), the main
+// kernel (channel-free, or the instantiation of the channels in `c`), dQ to
+// bf16 (flash_bwd.cu's bwd_post_kernel).
+template <bool CAUSAL, bool RANGE = false, bool SEG = false, bool WINDOW = false,
+          bool SOFTCAP = false>
+cudaError_t run(const Args& a, cudaStream_t stream, const Channels& c = Channels{}) {
   const int sq_pad = (a.seqlen_q + kRows - 1) / kRows * kRows;
   const int rows = a.batch * a.heads * sq_pad;
   constexpr int kPreThreads = 256;
@@ -351,12 +445,19 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
   p.causal_offset = a.seqlen_k - a.seqlen_q;
   p.scale = a.scale;
   p.scale_log2 = a.scale * kLog2e;
-  auto kernel = flash_bwd_d256_kernel<CAUSAL>;
   constexpr int smem = Smem::bytes + 1024;  // + alignment of the base
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   const int ktiles = (a.seqlen_k + kKeys - 1) / kKeys;
-  kernel<<<ktiles * bhk, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  if constexpr (RANGE || SEG || WINDOW || SOFTCAP) {
+    auto kernel = flash_bwd_d256_channels_kernel<CAUSAL, RANGE, SEG, WINDOW, SOFTCAP>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<ktiles * bhk, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p, c);
+  } else {
+    auto kernel = flash_bwd_d256_kernel<CAUSAL>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<ktiles * bhk, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   bwd_post_kernel<D><<<dim3(sq_pad / kRows, bh), 256, 0, stream>>>(
@@ -367,9 +468,22 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
 
 }  // namespace d256
 
+// flash_bwd_d256_window.cu and flash_bwd_d256_segments.cu include the
+// templates above and none of the functions below.
+#ifndef LITE_BWD_D256_TEMPLATES_ONLY
+
 cudaError_t run_d256(bool causal, const Args& a, cudaStream_t stream) {
   return causal ? d256::run<true>(a, stream) : d256::run<false>(a, stream);
 }
+
+// B1's key range (kv_bound, kv_low, bound_causal; the RANGE instantiations,
+// CAUSAL when `diag`); no ALiBi at 256.
+cudaError_t run_masked_d256(bool diag, const Args& a, const Channels& c, cudaStream_t stream) {
+  if (c.alibi != nullptr) return cudaErrorInvalidValue;
+  return diag ? d256::run<true, true>(a, stream, c) : d256::run<false, true>(a, stream, c);
+}
+
+#endif  // LITE_BWD_D256_TEMPLATES_ONLY
 
 }  // namespace bwd
 }  // namespace lite

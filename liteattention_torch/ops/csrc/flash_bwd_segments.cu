@@ -2,7 +2,7 @@
 // pre and post kernels of the one pass): its instantiations at head dims
 // 64, 80, 96 and 128 and its entry, in a source of their own so that nvcc
 // compiles them beside flash_bwd.cu's (one nvcc per source, all started
-// together).
+// together); head dim 256's are flash_bwd_d256_segments.cu's.
 #define LITE_BWD_TEMPLATES_ONLY
 #include "flash_bwd.cu"
 
@@ -19,9 +19,10 @@ cudaError_t run_segments(const Args& a, const Channels& c, bool causal, cudaStre
 }  // namespace lite
 
 // B7 with segment ids, batch 1: as lite_flash_bwd (dq_accum, lse2 and
-// delta scratch), plus q_seg and k_seg int32, padded to whole 128-row tiles
-// with their last id; range int2 [Sk tiles]: the q rows [x, y) each 128-key
-// tile walks (every row whose id one of its keys carries lies inside);
+// delta scratch; D 64, 80, 96, 128 or 256), plus q_seg and k_seg int32,
+// padded to whole 128-row tiles with their last id; range int2 [Sk / 128
+// tiles]: the q rows [x, y) each 128-key tile walks (every row whose id one
+// of its keys carries lies inside);
 // q_span int2 [Sq rounded up to 64, / 64] and k_span int2 [Sk tiles]: each
 // 64-row q block's and each 128-key tile's least and largest id. lse is
 // the forward's (B1's with the same ids). Returns the CUDA error of the
@@ -54,6 +55,8 @@ extern "C" int lite_flash_bwd_segments(const void* q, const void* k, const void*
     err = run_segments<96>(a, c, diag, s);
   } else if (head_dim == 128) {
     err = run_segments<128>(a, c, diag, s);
+  } else if (head_dim == 256) {
+    err = run_segments_d256(diag, a, c, s);
   } else {
     err = cudaErrorInvalidValue;
   }

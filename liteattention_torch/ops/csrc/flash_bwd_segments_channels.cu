@@ -6,7 +6,8 @@
 // sixteen instantiations (head dims 64 and 128, causal or not; the window,
 // the cap, both, or dropout) and its entry, in a source of their own so that
 // nvcc compiles them beside flash_bwd_segments.cu's (one nvcc per source, all
-// started together).
+// started together); head dim 256's six (no dropout) are
+// flash_bwd_d256_segments.cu's.
 #define LITE_BWD_TEMPLATES_ONLY
 #include "flash_bwd.cu"
 
@@ -34,11 +35,12 @@ cudaError_t run_segment_channels(const Args& a, const Channels& c, bool window,
 
 // B7 with segment ids and the dropout, window or softcap channels, batch 1:
 // as lite_flash_bwd_segments (dq_accum, lse2 and delta scratch; q_seg, k_seg,
-// range, q_span and k_span; D 64 or 128), plus the forward's window sides
-// win_left and win_right (-1: unbounded; at most 2^29) and softcap (0: none),
-// as lite_flash_bwd_window takes them; or its seed (one int32 on the device,
-// null without dropout), keep_threshold = ceil(float32(p) 2^24) and keep_scale
-// = 1 / (1 - p), as lite_flash_bwd_dropout takes them. Either dropout or at
+// range, q_span and k_span; D 64 or 128, or 256 without dropout), plus the
+// forward's window sides win_left and win_right (-1: unbounded; at most
+// 2^29) and softcap (0: none), as lite_flash_bwd_window takes them; or its
+// seed (one int32 on the device, null without dropout), keep_threshold =
+// ceil(float32(p) 2^24) and keep_scale = 1 / (1 - p), as
+// lite_flash_bwd_dropout takes them. Either dropout or at
 // least one of the other two must be on, not both. o and lse are B1's with
 // the same ids and channels. Returns the CUDA error of the launches (0 =
 // success).
@@ -81,6 +83,8 @@ extern "C" int lite_flash_bwd_segments_channels(
   } else if (head_dim == 128) {
     err = diag ? run_segment_channels<128, true>(a, c, window, s)
                : run_segment_channels<128, false>(a, c, window, s);
+  } else if (head_dim == 256) {
+    err = run_segment_channels_d256(diag, a, c, window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

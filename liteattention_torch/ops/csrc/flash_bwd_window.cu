@@ -5,7 +5,7 @@
 // twelve instantiations (head dims 64 and 128, causal or not; the window,
 // the cap, or both) and its entry, in a source of their own so that nvcc
 // compiles them beside flash_bwd.cu's (one nvcc per source, all started
-// together).
+// together); head dim 256's are flash_bwd_d256_window.cu's.
 #define LITE_BWD_TEMPLATES_ONLY
 #include "flash_bwd.cu"
 
@@ -27,7 +27,7 @@ cudaError_t run_window(const Args& a, const Channels& c, bool window, cudaStream
 
 // B7 with the window and softcap channels: as lite_flash_bwd_masked without
 // ALiBi (dq_accum, lse2 and delta scratch; kv_bound and kv_low [B] int32 or
-// null; causal, bound_causal; D 64 or 128), plus the forward's window sides
+// null; causal, bound_causal; D 64, 128 or 256), plus the forward's window sides
 // win_left and win_right (-1: unbounded; at most 2^29) and softcap (0:
 // none); at least one of them on. lse is B1's with the same channels.
 // Returns the CUDA error of the launches (0 = success).
@@ -63,6 +63,8 @@ extern "C" int lite_flash_bwd_window(const void* q, const void* k, const void* v
     err = diag ? run_window<64, true>(a, c, window, s) : run_window<64, false>(a, c, window, s);
   } else if (head_dim == 128) {
     err = diag ? run_window<128, true>(a, c, window, s) : run_window<128, false>(a, c, window, s);
+  } else if (head_dim == 256) {
+    err = run_window_d256(diag, a, c, window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -64,9 +64,10 @@
 // id, which inside a document is none but the tiles that cross a boundary.
 // Rows whose id no key carries get out 0, lse -inf. The segment walk takes
 // the window, softcap and dropout channels below too (at D 64 and 128, one
-// of WINDOW, SOFTCAP, both, or DROPOUT; kernel
-// flash_fwd_segments_channels_kernel and entry
-// lite_flash_fwd_segments_channels in flash_fwd_segments_channels.cu), as
+// of WINDOW, SOFTCAP, both, or DROPOUT; at 256 all but DROPOUT; kernel
+// flash_fwd_segments_channels_kernel, instantiated with the entry
+// lite_flash_fwd_segments_channels in flash_fwd_segments_channels.cu and at
+// 256 in flash_fwd_d256_segments.cu), as
 // the varlen functions pass them over packed documents: the walk is the
 // segment range narrowed by the q-tile's window union, the per-element test
 // checks the ids and the row's interval together (key_mask.cuh), on the
@@ -88,9 +89,10 @@
 // D 64 is bound by integer issue unless the products hide it.
 //
 // The window channel (WINDOW; the JAX kernel's window and attention_chunk,
-// dense walk at D 64 and 128, with the key range; kernel
-// flash_fwd_window_kernel and entry lite_flash_fwd_window in
-// flash_fwd_window.cu): row r at pos = r + kv_bound[b] - Sq (with kv_bound;
+// dense walk at D 64, 128 and 256, with the key range; kernel
+// flash_fwd_window_kernel, instantiated with the entry lite_flash_fwd_window
+// in flash_fwd_window.cu and at 256 in flash_fwd_d256_window.cu): row r at
+// pos = r + kv_bound[b] - Sq (with kv_bound;
 // else r + Sk - Sq) sees the keys [pos - left, pos + right] (a side at -1
 // unbounded) and, with chunk c, [floor(pos / c) c, + c): one interval a row
 // (key_mask.cuh's row_window), each end nondecreasing in the row. So the
@@ -125,8 +127,11 @@
 // KB in all; S = Q K^T is m64n64 over 16 k-steps and P V one wgmma at N =
 // 256. O takes 128 of a thread's registers (64 x 256 fp32 a warpgroup), S 32
 // and P 16. The key range (bound, low, bound_causal) is runtime data, so
-// the two instantiations (causal or not, flash_fwd_d256.cu) take it; ALiBi
-// and segments are not built at 256.
+// the two instantiations (causal or not, flash_fwd_d256.cu) take it. The
+// window / chunk and softcap channels on the dense walk
+// (flash_fwd_d256_window.cu) and the segment walk alone or with them
+// (flash_fwd_d256_segments.cu) are built at 256 too (Gemma-2's and Gemma-3's
+// head dim), on the same 64-key tiles; ALiBi and dropout are not.
 //
 // One CTA per (b, h, 128-row q-tile), 256 threads: two consumer warpgroups
 // of 64 q rows each. O, S and P take 186 of a thread's 255 registers at D
@@ -539,6 +544,9 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p,
                                              float& alpha_lo, float& alpha_hi, Vote&& vote) {
   constexpr int kKeys = 8 * NB;
   const int col0 = tile * kKeys;
+  // SEG: the spans are per 128 keys (ops/segments.py); a 64-key tile (D
+  // 256) reads the span of the 128-key tile that holds it, a superset.
+  const int span = kKeys == 64 ? tile >> 1 : tile;
   if constexpr (ALIBI) {
     const int t = threadIdx.x % 4;
     const int d_lo = r_lo + p.causal_offset - col0 - 2 * t;  // the distance to key col0 + 2 t
@@ -564,7 +572,7 @@ __device__ __forceinline__ void tile_softmax(float (&s)[NB][4], const Params& p,
   const int diag = DENSE ? r.diag : p.causal_offset;
   const bool mask = dead || col0 + kKeys > lim || (DENSE && col0 < r.low) ||
                     (CAUSAL && col0 + kKeys - 1 > warp_row0 + diag) ||
-                    (SEG && !one_segment(__ldg(seg.k_span + tile), seg.warp)) ||
+                    (SEG && !one_segment(__ldg(seg.k_span + span), seg.warp)) ||
                     (WINDOW && (col0 < win.inside_x || col0 + kKeys > win.inside_y));
   float mx_lo, mx_hi;
   mask_scores(
@@ -640,14 +648,15 @@ __device__ __forceinline__ void fwd_cta(const CUtensorMap& tm_q, const CUtensorM
                 "the sparse walks visit 128-key fine tiles through a ring of three");
   static_assert(!ALIBI || (WALK == kDense && DK == DV && DK <= 128),
                 "ALiBi is a channel of the dense walk at D <= 128");
-  static_assert(!SEG || (DK == DV && DK <= 128), "segments at D 64, 80, 96 and 128");
+  static_assert(!SEG || (DK == DV && (DK <= 128 || DK == 256)),
+                "segments at D 64, 80, 96, 128 and 256");
   static_assert(!DROPOUT || ((WALK == kDense || SEG) && !ALIBI && DK == DV &&
                               (DK == 64 || DK == 128)),
                 "dropout is a channel of the dense and segment walks at D 64 and 128");
   static_assert(!(WINDOW || SOFTCAP) || ((WALK == kDense || SEG) && !ALIBI && !DROPOUT &&
-                                         DK == DV && (DK == 64 || DK == 128)),
-                "window and softcap are channels of the dense and segment walks at D 64 and "
-                "128");
+                                         DK == DV && (DK == 64 || DK == 128 || DK == 256)),
+                "window and softcap are channels of the dense and segment walks at D 64, 128 "
+                "and 256");
   using L = Smem<DK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -1036,6 +1045,33 @@ __global__ void __launch_bounds__(kThreads, 1)
   fwd_cta<DK, DV, CAUSAL, WALK, VOTES, FOLD, ALIBI, false>(tm_q, tm_k, tm_v, tm_o, p, c);
 }
 
+// The dense walk with the window / chunk and softcap channels (instantiated
+// in flash_fwd_window.cu at D 64 and 128, flash_fwd_d256_window.cu at 256).
+template <int D, bool CAUSAL, bool WINDOW, bool SOFTCAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_window_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_o, const Params p,
+                            const Channels c) {
+  fwd_cta<D, D, CAUSAL, kDense, false, false, false, false, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v,
+                                                                            tm_o, p, c);
+}
+
+// The segment walk with the window / chunk, softcap or dropout channels
+// (instantiated in flash_fwd_segments_channels.cu at D 64 and 128,
+// flash_fwd_d256_segments.cu at 256, without dropout).
+template <int D, bool CAUSAL, bool WINDOW, bool SOFTCAP, bool DROPOUT>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_segments_channels_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                       const __grid_constant__ CUtensorMap tm_k,
+                                       const __grid_constant__ CUtensorMap tm_v,
+                                       const __grid_constant__ CUtensorMap tm_o, const Params p,
+                                       const Channels c) {
+  fwd_cta<D, D, CAUSAL, kSegment, false, false, false, DROPOUT, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v,
+                                                                                tm_o, p, c);
+}
+
 // Tensor maps of q, k, v and out, then one launch of `kernel` (B1's
 // instantiation at (DK, DV), FOLD heads a CTA) over (q-tiles, heads / fold,
 // batch).
@@ -1098,6 +1134,77 @@ cudaError_t run_dense(const void* q, const void* k, const void* v, void* out, co
   return run<D, D, CAUSAL>(q, k, v, out, p, batch, scale, stream, c);
 }
 
+template <int D, bool WINDOW, bool SOFTCAP>
+cudaError_t run_window(const void* q, const void* k, const void* v, void* out, const Params& p,
+                       const Channels& c, bool diag, int batch, float scale, cudaStream_t stream) {
+  return diag ? launch<D, D, false>(flash_fwd_window_kernel<D, true, WINDOW, SOFTCAP>, q, k, v,
+                                    out, p, batch, scale, stream, c)
+              : launch<D, D, false>(flash_fwd_window_kernel<D, false, WINDOW, SOFTCAP>, q, k, v,
+                                    out, p, batch, scale, stream, c);
+}
+
+// The window instantiation of the channels in use: the window (with or
+// without the chunk), the cap, or both.
+template <int D>
+cudaError_t run_window_channels(const void* q, const void* k, const void* v, void* out,
+                                const Params& p, const Channels& c, bool diag, bool window,
+                                int batch, float scale, cudaStream_t stream) {
+  if (window && c.cap > 0.f) {
+    return run_window<D, true, true>(q, k, v, out, p, c, diag, batch, scale, stream);
+  }
+  if (window) return run_window<D, true, false>(q, k, v, out, p, c, diag, batch, scale, stream);
+  return run_window<D, false, true>(q, k, v, out, p, c, diag, batch, scale, stream);
+}
+
+// The segment walk (batch 1) without further channels.
+template <int D>
+cudaError_t run_segments(const void* q, const void* k, const void* v, void* out, const Params& p,
+                         const Channels& c, bool causal, float scale, cudaStream_t stream) {
+  return causal ? run<D, D, true, kSegment>(q, k, v, out, p, 1, scale, stream, c)
+                : run<D, D, false, kSegment>(q, k, v, out, p, 1, scale, stream, c);
+}
+
+template <int D, bool WINDOW, bool SOFTCAP, bool DROPOUT>
+cudaError_t launch_segment_channels(const void* q, const void* k, const void* v, void* out,
+                                    const Params& p, const Channels& c, bool causal,
+                                    float scale, cudaStream_t stream) {
+  return causal
+             ? launch<D, D, false>(flash_fwd_segments_channels_kernel<D, true, WINDOW, SOFTCAP,
+                                                                      DROPOUT>,
+                                   q, k, v, out, p, 1, scale, stream, c)
+             : launch<D, D, false>(flash_fwd_segments_channels_kernel<D, false, WINDOW, SOFTCAP,
+                                                                      DROPOUT>,
+                                   q, k, v, out, p, 1, scale, stream, c);
+}
+
+// The segment walk's instantiation of the channels in use: dropout (not
+// built at 256), or the window (with or without the chunk), the cap, or
+// both.
+template <int D>
+cudaError_t run_segment_channels(const void* q, const void* k, const void* v, void* out,
+                                 const Params& p, const Channels& c, bool causal, bool window,
+                                 float scale, cudaStream_t stream) {
+  // launch_segment_channels<D, WINDOW, SOFTCAP, DROPOUT>
+  if (c.dropout_seed != nullptr) {
+    if constexpr (D == 256) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_segment_channels<D, false, false, true>(q, k, v, out, p, c, causal, scale,
+                                                            stream);
+    }
+  }
+  if (window && c.cap > 0.f) {
+    return launch_segment_channels<D, true, true, false>(q, k, v, out, p, c, causal, scale,
+                                                         stream);
+  }
+  if (window) {
+    return launch_segment_channels<D, true, false, false>(q, k, v, out, p, c, causal, scale,
+                                                          stream);
+  }
+  return launch_segment_channels<D, false, true, false>(q, k, v, out, p, c, causal, scale,
+                                                        stream);
+}
+
 // The dense walk at head dims 80 and 96 with the channels, CAUSAL when
 // `diag`: defined in flash_fwd_hd.cu, whose nvcc runs beside this file's.
 // The segment walk's instantiations and entry are in flash_fwd_segments.cu.
@@ -1111,6 +1218,20 @@ cudaError_t run_dense_hd(int head_dim, bool diag, const void* q, const void* k, 
 cudaError_t run_dense_d256(bool diag, const void* q, const void* k, const void* v, void* out,
                            const Params& p, const Channels& c, int batch, float scale,
                            cudaStream_t stream);
+
+// Head dim 256 with the window / chunk / softcap channels on the dense walk
+// (run_window_channels<256>; flash_fwd_d256_window.cu), and the segment walk
+// alone or with them (run_segments<256>, run_segment_channels<256>;
+// flash_fwd_d256_segments.cu): each its own nvcc.
+cudaError_t run_window_d256(const void* q, const void* k, const void* v, void* out,
+                            const Params& p, const Channels& c, bool diag, bool window, int batch,
+                            float scale, cudaStream_t stream);
+cudaError_t run_segments_d256(const void* q, const void* k, const void* v, void* out,
+                              const Params& p, const Channels& c, bool causal, float scale,
+                              cudaStream_t stream);
+cudaError_t run_segment_channels_d256(const void* q, const void* k, const void* v, void* out,
+                                      const Params& p, const Channels& c, bool causal,
+                                      bool window, float scale, cudaStream_t stream);
 
 }  // namespace fwd
 }  // namespace lite

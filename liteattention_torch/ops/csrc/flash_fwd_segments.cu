@@ -1,25 +1,13 @@
 // B1's segment channel (flash_fwd.cu:flash_fwd_kernel walking kSegment):
 // its instantiations at head dims 64, 80, 96 and 128 and its entry, in a source
 // of their own so that nvcc compiles them beside flash_fwd.cu's (one nvcc
-// per source, all started together).
+// per source, all started together); head dim 256's are
+// flash_fwd_d256_segments.cu's.
 #define LITE_FWD_TEMPLATES_ONLY
 #include "flash_fwd.cu"
 
-namespace lite {
-namespace fwd {
-
-template <int D>
-cudaError_t run_segments(const void* q, const void* k, const void* v, void* out, const Params& p,
-                         const Channels& c, bool causal, float scale, cudaStream_t stream) {
-  return causal ? run<D, D, true, kSegment>(q, k, v, out, p, 1, scale, stream, c)
-                : run<D, D, false, kSegment>(q, k, v, out, p, 1, scale, stream, c);
-}
-
-}  // namespace fwd
-}  // namespace lite
-
 // B1 with segment ids, batch 1: q [1, H, Sq, D], k and v [1, Hk, Sk, D],
-// out [1, H, Sq, D], all bf16 (D 64, 80, 96 or 128); lse [1, H, Sq] fp32;
+// out [1, H, Sq, D], all bf16 (D 64, 80, 96, 128 or 256); lse [1, H, Sq] fp32;
 // q_seg and k_seg int32, padded to whole 128-row tiles with their last id;
 // range int2 [Sq tiles]: the keys [x, y) each 128-row q-tile walks (every
 // key whose id one of its rows carries lies inside); k_span int2 [Sk
@@ -55,6 +43,8 @@ extern "C" int lite_flash_fwd_segments(const void* q, const void* k, const void*
     err = run_segments<96>(q, k, v, out, p, c, diag, scale, s);
   } else if (head_dim == 128) {
     err = run_segments<128>(q, k, v, out, p, c, diag, scale, s);
+  } else if (head_dim == 256) {
+    err = run_segments_d256(q, k, v, out, p, c, diag, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

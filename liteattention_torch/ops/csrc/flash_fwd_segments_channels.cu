@@ -1,76 +1,25 @@
 // B1's segment walk with the window, attention_chunk, softcap and dropout
-// channels (flash_fwd.cu:fwd_cta walking kSegment with WINDOW, SOFTCAP or
-// DROPOUT; the Pallas kernel's has_segments with window, softcap and
-// dropout_p, liteattention_tpu/ops/flash_fwd.py:_fwd_kernel, as the varlen
-// functions pass them over packed documents): its kernel, its sixteen
-// instantiations (head dims 64 and 128, causal or not; the window with or
-// without the chunk, the cap, both, or dropout) and its entry, in a source of
-// their own so that nvcc compiles them beside flash_fwd_segments.cu's (one
-// nvcc per source, all started together).
+// channels (flash_fwd.cu:flash_fwd_segments_channels_kernel, fwd_cta walking
+// kSegment with WINDOW, SOFTCAP or DROPOUT; the Pallas kernel's has_segments
+// with window, softcap and dropout_p, liteattention_tpu/ops/flash_fwd.py:
+// _fwd_kernel, as the varlen functions pass them over packed documents): its
+// sixteen instantiations at head dims 64 and 128 (causal or not; the window
+// with or without the chunk, the cap, both, or dropout) and its entry, in a
+// source of their own so that nvcc compiles them beside
+// flash_fwd_segments.cu's (one nvcc per source, all started together); head
+// dim 256's six (no dropout) are flash_fwd_d256_segments.cu's.
 #define LITE_FWD_TEMPLATES_ONLY
 #include "flash_fwd.cu"
 
-namespace lite {
-namespace fwd {
-
-template <int D, bool CAUSAL, bool WINDOW, bool SOFTCAP, bool DROPOUT>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_segments_channels_kernel(const __grid_constant__ CUtensorMap tm_q,
-                                       const __grid_constant__ CUtensorMap tm_k,
-                                       const __grid_constant__ CUtensorMap tm_v,
-                                       const __grid_constant__ CUtensorMap tm_o, const Params p,
-                                       const Channels c) {
-  fwd_cta<D, D, CAUSAL, kSegment, false, false, false, DROPOUT, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v,
-                                                                                tm_o, p, c);
-}
-
-template <int D, bool WINDOW, bool SOFTCAP, bool DROPOUT>
-cudaError_t launch_segment_channels(const void* q, const void* k, const void* v, void* out,
-                                    const Params& p, const Channels& c, bool causal,
-                                    float scale, cudaStream_t stream) {
-  return causal
-             ? launch<D, D, false>(flash_fwd_segments_channels_kernel<D, true, WINDOW, SOFTCAP,
-                                                                      DROPOUT>,
-                                   q, k, v, out, p, 1, scale, stream, c)
-             : launch<D, D, false>(flash_fwd_segments_channels_kernel<D, false, WINDOW, SOFTCAP,
-                                                                      DROPOUT>,
-                                   q, k, v, out, p, 1, scale, stream, c);
-}
-
-// The instantiation of the channels in use: dropout, or the window (with or
-// without the chunk), the cap, or both.
-template <int D>
-cudaError_t run_segment_channels(const void* q, const void* k, const void* v, void* out,
-                                 const Params& p, const Channels& c, bool causal, bool window,
-                                 float scale, cudaStream_t stream) {
-  // launch_segment_channels<D, WINDOW, SOFTCAP, DROPOUT>
-  if (c.dropout_seed != nullptr) {
-    return launch_segment_channels<D, false, false, true>(q, k, v, out, p, c, causal, scale,
-                                                          stream);
-  }
-  if (window && c.cap > 0.f) {
-    return launch_segment_channels<D, true, true, false>(q, k, v, out, p, c, causal, scale,
-                                                         stream);
-  }
-  if (window) {
-    return launch_segment_channels<D, true, false, false>(q, k, v, out, p, c, causal, scale,
-                                                          stream);
-  }
-  return launch_segment_channels<D, false, true, false>(q, k, v, out, p, c, causal, scale,
-                                                        stream);
-}
-
-}  // namespace fwd
-}  // namespace lite
-
 // B1 with segment ids and the window / chunk / softcap or dropout channels,
 // batch 1: as lite_flash_fwd_segments (q [1, H, Sq, D], k and v [1, Hk, Sk,
-// D], out [1, H, Sq, D], all bf16, D 64 or 128; lse [1, H, Sq] fp32; q_seg,
-// k_seg, range and k_span), plus the window's sides win_left and win_right
-// (-1: unbounded; at most 2^29), chunk (0: none) and softcap (0: none) about
-// pos = row + Sk - Sq, as lite_flash_fwd_window takes them; or seed (one
-// int32 on the device, null without dropout), keep_threshold = ceil(float32(p)
-// 2^24) and keep_scale = 1 / (1 - p), as lite_flash_fwd_dropout takes them.
+// D], out [1, H, Sq, D], all bf16, D 64 or 128, or 256 without dropout; lse
+// [1, H, Sq] fp32; q_seg, k_seg, range and k_span), plus the window's sides
+// win_left and win_right (-1: unbounded; at most 2^29), chunk (0: none) and
+// softcap (0: none) about pos = row + Sk - Sq, as lite_flash_fwd_window
+// takes them; or seed (one int32 on the device, null without dropout),
+// keep_threshold = ceil(float32(p) 2^24) and keep_scale = 1 / (1 - p), as
+// lite_flash_fwd_dropout takes them.
 // Either dropout or at least one of the other three must be on, not both.
 // lse is dropout-free. Returns the CUDA error of the launch (0 = success).
 extern "C" int lite_flash_fwd_segments_channels(
@@ -113,6 +62,8 @@ extern "C" int lite_flash_fwd_segments_channels(
     err = run_segment_channels<64>(q, k, v, out, p, c, diag, window, scale, s);
   } else if (head_dim == 128) {
     err = run_segment_channels<128>(q, k, v, out, p, c, diag, window, scale, s);
+  } else if (head_dim == 256) {
+    err = run_segment_channels_d256(q, k, v, out, p, c, diag, window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,56 +1,17 @@
-// B1's window, attention_chunk and softcap channels (flash_fwd.cu:fwd_cta
-// with WINDOW and / or SOFTCAP, the dense walk with the key range; the
-// Pallas kernel's window, attention_chunk and softcap,
-// liteattention_tpu/ops/flash_fwd.py:_fwd_kernel): its kernel, its twelve
-// instantiations (head dims 64 and 128, causal or not; the window with or
+// B1's window, attention_chunk and softcap channels (flash_fwd.cu:
+// flash_fwd_window_kernel, fwd_cta with WINDOW and / or SOFTCAP, the dense
+// walk with the key range; the Pallas kernel's window, attention_chunk and
+// softcap, liteattention_tpu/ops/flash_fwd.py:_fwd_kernel): its twelve
+// instantiations at head dims 64 and 128 (causal or not; the window with or
 // without the chunk, the cap, or both) and its entry, in a source of their
 // own so that nvcc compiles them beside flash_fwd.cu's (one nvcc per source,
-// all started together).
+// all started together); head dim 256's six are flash_fwd_d256_window.cu's.
 #define LITE_FWD_TEMPLATES_ONLY
 #include "flash_fwd.cu"
 
-namespace lite {
-namespace fwd {
-
-template <int D, bool CAUSAL, bool WINDOW, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_window_kernel(const __grid_constant__ CUtensorMap tm_q,
-                            const __grid_constant__ CUtensorMap tm_k,
-                            const __grid_constant__ CUtensorMap tm_v,
-                            const __grid_constant__ CUtensorMap tm_o, const Params p,
-                            const Channels c) {
-  fwd_cta<D, D, CAUSAL, kDense, false, false, false, false, WINDOW, SOFTCAP>(tm_q, tm_k, tm_v,
-                                                                            tm_o, p, c);
-}
-
-template <int D, bool WINDOW, bool SOFTCAP>
-cudaError_t run_window(const void* q, const void* k, const void* v, void* out, const Params& p,
-                       const Channels& c, bool diag, int batch, float scale, cudaStream_t stream) {
-  return diag ? launch<D, D, false>(flash_fwd_window_kernel<D, true, WINDOW, SOFTCAP>, q, k, v,
-                                    out, p, batch, scale, stream, c)
-              : launch<D, D, false>(flash_fwd_window_kernel<D, false, WINDOW, SOFTCAP>, q, k, v,
-                                    out, p, batch, scale, stream, c);
-}
-
-// The instantiation of the channels in use: the window (with or without the
-// chunk), the cap, or both.
-template <int D>
-cudaError_t run_window_channels(const void* q, const void* k, const void* v, void* out,
-                                const Params& p, const Channels& c, bool diag, bool window,
-                                int batch, float scale, cudaStream_t stream) {
-  if (window && c.cap > 0.f) {
-    return run_window<D, true, true>(q, k, v, out, p, c, diag, batch, scale, stream);
-  }
-  if (window) return run_window<D, true, false>(q, k, v, out, p, c, diag, batch, scale, stream);
-  return run_window<D, false, true>(q, k, v, out, p, c, diag, batch, scale, stream);
-}
-
-}  // namespace fwd
-}  // namespace lite
-
 // B1 with the window, attention_chunk and softcap channels: as
 // lite_flash_fwd_masked without ALiBi (q [B, H, Sq, D], k and v [B, Hk, Sk,
-// D], out [B, H, Sq, D], all bf16, D 64 or 128; lse [B, H, Sq] fp32;
+// D], out [B, H, Sq, D], all bf16, D 64, 128 or 256; lse [B, H, Sq] fp32;
 // kv_bound and kv_low [B] int32 or null; causal, bound_causal), plus the
 // window's sides win_left and win_right (-1: unbounded; at most 2^29),
 // chunk (0: none) and softcap (0: none). Row r sees keys [pos - win_left,
@@ -93,6 +54,8 @@ extern "C" int lite_flash_fwd_window(const void* q, const void* k, const void* v
     err = run_window_channels<64>(q, k, v, out, p, c, diag, window, batch, scale, s);
   } else if (head_dim == 128) {
     err = run_window_channels<128>(q, k, v, out, p, c, diag, window, batch, scale, s);
+  } else if (head_dim == 256) {
+    err = run_window_d256(q, k, v, out, p, c, diag, window, batch, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

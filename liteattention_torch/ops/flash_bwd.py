@@ -22,12 +22,15 @@ rounded to the input dtype (bf16 on the card) before they feed a product.
 Takes bf16 on the card (any float dtype on the CPU), head dim 64, 80, 96,
 128 or 256 (:func:`check_head_dim`; at 256 the kernel of
 ``csrc/flash_bwd_d256.cu``: 64-key CTAs whose two warpgroups split dK, dV
-and dQ by columns, dQ added by float4 atomics), GQA, ragged Sq/Sk, ``Sq !=
-Sk``, causal or not, and B1's per-batch channels (at head dim 64, 80, 96
-or 128) with JAX's
+and dQ by columns, dQ added by float4 atomics, with the key range, the
+window / softcap and segments as template flags of its channel
+instantiations, ``csrc/flash_bwd_d256_{window,segments}.cu``; not ALiBi
+or dropout), GQA, ragged Sq/Sk, ``Sq != Sk``, causal or not, and B1's
+per-batch channels with JAX's
 meanings: the key range ``[kv_low[b], kv_bound[b])``
 with ``bound_causal`` and the ALiBi bias (``alibi_slopes`` ``[H]`` or
-``[B, H]``), on the same kernel's RANGE / ALIBI instantiations (entry
+``[B, H]``; head dim 64, 80, 96 or 128), on the same kernel's RANGE /
+ALIBI instantiations (entry
 ``lite_flash_bwd_masked``; launches counted in ``flash_bwd.bound_launches``,
 and with ALiBi in ``flash_bwd.alibi_launches``; ``flash_bwd.launches``
 counts the channel-free kernel). With ``bound_causal`` the ALiBi scores
@@ -36,9 +39,10 @@ it back, as B1 does, so P is recomputed from the scores B1 summed. The
 segment channel (``q_segments`` / ``kv_segments``, batch 1) runs the
 kernel's segment instantiation (entry ``lite_flash_bwd_segments``, counted
 in ``flash_bwd.segment_launches``): each 128-key tile walks only the q rows
-its ids can meet (:mod:`liteattention_torch.ops.segments`); with dropout,
-the window or the cap (the varlen functions' channels; head dim 64 or 128)
-it runs the segment instantiations of those channels (source
+its ids can meet (:mod:`liteattention_torch.ops.segments`); with dropout
+(head dim 64 or 128), the window or the cap (64, 128 or 256: the varlen
+functions' channels) it runs the segment instantiations of those channels
+(source
 ``csrc/flash_bwd_segments_channels.cu``, entry
 ``lite_flash_bwd_segments_channels``, counted in
 ``flash_bwd.segment_dropout_launches`` and
@@ -318,27 +322,24 @@ def flash_bwd_plain(q, k, v, o, lse, dout, scale, causal, **channels):
 
 
 # Head dims B1 and B7 are built for (Pythia's 80, GPT-NeoX-20B's 96,
-# GPT-J's 256); those of B1 with its key range alone (kv_bound, kv_low,
-# bound_causal: a KV cache's prefill and multi-token steps); those with
-# every channel (ALiBi, segments) forwards, and with any channel backwards.
+# GPT-J's and Gemma's 256), each with the key range (kv_bound, kv_low,
+# bound_causal) and segments, forwards and backwards; those of ALiBi. The
+# window / softcap and dropout take their own (WINDOW_HEAD_DIMS,
+# DROPOUT_HEAD_DIMS).
 HEAD_DIMS = (64, 80, 96, 128, 256)
-RANGE_HEAD_DIMS = (64, 80, 96, 128, 256)
-CHANNEL_HEAD_DIMS = (64, 80, 96, 128)
+ALIBI_HEAD_DIMS = (64, 80, 96, 128)
 
 
-def check_head_dim(d: int, channels: bool, name: str, key_range_only: bool = False) -> None:
+def check_head_dim(d: int, alibi: bool, name: str) -> None:
     """Raise ``ValueError`` unless B1 and B7 are built at head dim ``d``
-    (with B1's per-batch channels when ``channels``; ``key_range_only``:
-    they are B1's key range alone, forwards), naming the ROADMAP item that
-    would build it. Both wrappers call it before a launch."""
+    (with ALiBi when ``alibi``; the key range and segments at every one of
+    ``HEAD_DIMS``), naming the ROADMAP item that would build it. Both
+    wrappers call it before a launch."""
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not built (built: {HEAD_DIMS}; ROADMAP B-iii 4)")
-    built = RANGE_HEAD_DIMS if key_range_only else CHANNEL_HEAD_DIMS
-    if channels and d not in built:
-        what = "kv_bound and kv_low" if key_range_only else \
-            "kv_bound, kv_low, alibi_slopes and segments"
-        raise ValueError(f"{name}: {what} at head dim {d} not built (built: {built}; "
-                         "ROADMAP B-iii 4)")
+    if alibi and d not in ALIBI_HEAD_DIMS:
+        raise ValueError(f"{name}: alibi_slopes at head dim {d} not built (built: "
+                         f"{ALIBI_HEAD_DIMS}; ROADMAP B-iii 4)")
 
 
 # Head dims of B1's and B7's dropout instantiations.
@@ -360,8 +361,9 @@ def check_dropout(d: int, alibi: bool, name: str) -> None:
 
 
 # Head dims of B1's and B7's window / softcap instantiations (one set: the
-# window, the chunk and the cap are flags of the same kernels).
-WINDOW_HEAD_DIMS = (64, 128)
+# window, the chunk and the cap are flags of the same kernels; 256 is
+# Gemma-2's and Gemma-3's).
+WINDOW_HEAD_DIMS = (64, 128, 256)
 
 
 def check_window(d: int, window: bool, softcap: bool, alibi: bool, dropout: bool,
@@ -369,9 +371,9 @@ def check_window(d: int, window: bool, softcap: bool, alibi: bool, dropout: bool
     """Raise ``NotImplementedError`` unless B1's and B7's window / softcap
     instantiations take this call on the card (``window``: the window or
     ``attention_chunk`` is in use, ``softcap`` the cap): the dense walk
-    (with or without the key range) or the segment walk, at head dim 64 or
-    128; not with ALiBi or dropout (ROADMAP B-i 3's rest), nor at another
-    head dim (B-iii 4)."""
+    (with or without the key range) or the segment walk, at head dim 64,
+    128 or 256; not with ALiBi or dropout (ROADMAP B-i 3's rest), nor at
+    another head dim (B-iii 4)."""
     what = " and ".join(n for n, on in (("window", window), ("softcap", softcap)) if on)
     others = [n for n, on in (("alibi_slopes", alibi), ("dropout", dropout)) if on]
     if others:
@@ -399,7 +401,7 @@ def check_segments(q_segments, kv_segments, b: int, sq: int, sk: int, per_batch:
                                   "not ported yet (ROADMAP A11)")
 
 
-def _check_cuda(q, k, v, o, lse, dout, channels):
+def _check_cuda(q, k, v, o, lse, dout, alibi):
     if any(x.device != q.device for x in (k, v, o, lse, dout)):
         raise ValueError("flash_bwd: all inputs must be on one device")
     if q.device.type != "cuda":
@@ -408,7 +410,7 @@ def _check_cuda(q, k, v, o, lse, dout, channels):
         raise TypeError("the CUDA kernels take bf16 q, k, v, o, dout")
     if lse.dtype != torch.float32:
         raise TypeError("lse must be fp32")
-    check_head_dim(q.shape[-1], channels, "flash_bwd")
+    check_head_dim(q.shape[-1], alibi, "flash_bwd")
     if not all(x.is_contiguous() for x in (q, k, v, o, lse, dout)):
         raise ValueError("the CUDA kernels take contiguous tensors")
     _build.check_aligned(q, k, v, o, dout)
@@ -455,7 +457,7 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool, kv_bound=None, 
         check_dropout(q.shape[-1], alibi_slopes is not None, "flash_bwd")
     plain = (kv_bound is None and kv_low is None and alibi_slopes is None and not dropout
              and not windowed)
-    _check_cuda(q, k, v, o, lse, dout, channels=not plain or q_segments is not None)
+    _check_cuda(q, k, v, o, lse, dout, alibi=alibi_slopes is not None)
     if q_segments is not None:
         if segment_walk is None:
             segment_walk = segments.segment_walk(q_segments.to(q.device),
@@ -592,9 +594,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
     forward's sliding window (about ``pos = row + kv_bound[b] - Sq`` with
     ``kv_bound``, else ``row + Sk - Sq``) and logit cap ``softcap *
     tanh(s / softcap)``, whose derivative ``1 - tanh^2`` dS takes, as in
-    JAX; on the card head dim 64 or 128, with the key range or segments,
-    not with ALiBi or dropout (``NotImplementedError`` naming ROADMAP B-i
-    3's rest or B-iii 4). ``attention_chunk`` has no backward, as in JAX.
+    JAX; on the card head dim 64, 128 or 256, with the key range or
+    segments, not with ALiBi or dropout (``NotImplementedError`` naming
+    ROADMAP B-i 3's rest or B-iii 4). The key range and segments take every
+    built head dim, 256 (Gemma's) included; ALiBi not 256 (B-iii 4).
+    ``attention_chunk`` has no backward, as in JAX.
     """
     if softcap < 0.0:
         raise ValueError(f"softcap must be >= 0, got {softcap}")
@@ -618,10 +622,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float, causal: bool, kv_boun
 
 
 __all__ = [
-    "CHANNEL_HEAD_DIMS",
+    "ALIBI_HEAD_DIMS",
     "DROPOUT_HEAD_DIMS",
     "HEAD_DIMS",
-    "RANGE_HEAD_DIMS",
     "WINDOW_HEAD_DIMS",
     "causal_mask",
     "check_dropout",

@@ -37,10 +37,12 @@ is seen by the rows of its id) runs B1's segment walk (entry
 ``lite_flash_fwd_segments``, counted in ``flash_attention.segment_launches``):
 each 128-row q-tile walks only the key range its ids can meet
 (:mod:`liteattention_torch.ops.segments`), and its gradient B7's segment
-kernel (``flash_bwd.segment_launches``). With dropout, the window, the
-chunk or the cap (what the varlen functions pass over packed documents;
-head dim 64 or 128) the segment walk runs its instantiations of those
-channels (source ``csrc/flash_fwd_segments_channels.cu``, entry
+kernel (``flash_bwd.segment_launches``). With dropout (head dim 64 or
+128), the window, the chunk or the cap (64, 128 or 256: what the varlen
+functions pass over packed documents) the segment walk runs its
+instantiations of those channels (source
+``csrc/flash_fwd_segments_channels.cu``, at 256
+``csrc/flash_fwd_d256_segments.cu``; entry
 ``lite_flash_fwd_segments_channels``, counted in
 ``flash_attention.segment_dropout_launches`` and
 ``.segment_window_launches``; the gradient in ``flash_bwd``'s counters of
@@ -53,7 +55,8 @@ drops each score's P after the row sum by the counter hash of
 :func:`dropout_keep_mask` (about eleven integer instructions a score, one
 integer compare against :func:`dropout_threshold`), and its gradient runs
 B7's. The window, ``attention_chunk`` and softcap channels run B1's window
-instantiations (source ``csrc/flash_fwd_window.cu``, entry
+instantiations (source ``csrc/flash_fwd_window.cu``, at head dim 256
+``csrc/flash_fwd_d256_window.cu``; entry
 ``lite_flash_fwd_window``, counted in ``flash_attention.window_launches``):
 the dense walk, with the key range, narrowed to the keys the q-tile's rows'
 windows and chunks reach (a tile is masked per element only where it
@@ -418,9 +421,7 @@ def _launch(q, k, v, scale, causal, kv_bound=None, kv_low=None, bound_causal=Fal
                      alibi_slopes is not None, dropout_p > 0.0, "flash_attention")
     if dropout_p > 0.0:
         check_dropout(d, alibi_slopes is not None, "flash_attention")
-    check_head_dim(d, kv_bound is not None or kv_low is not None or alibi_slopes is not None
-                   or q_segments is not None, "flash_attention",
-                   key_range_only=alibi_slopes is None and q_segments is None)
+    check_head_dim(d, alibi_slopes is not None, "flash_attention")
     _build.check_aligned(q, k, v)
     if q_segments is not None:
         return _launch_segments(q, k, v, scale, causal, walk, dropout_p, dropout_seed, window,
@@ -608,11 +609,10 @@ def flash_attention_masked(
     seen only by the rows of its id (with ``causal``, at or below the
     bottom-right diagonal too). Any ids are taken; ids in order apart from
     negative markers (a packed batch) walk only their segments' tiles.
-    The channels take head dim 64, 80, 96 or 128 on the card, and the key
-    range alone (``kv_bound``, ``kv_low``, ``bound_causal``) 256 too,
-    forwards (the other channels or any gradient at 256 raise: ROADMAP
-    B-iii 4); segments do not combine with the per-batch channels
-    (ROADMAP A11). The MLA shapes (``qv``, V's own head dim; forward only,
+    On the card the key range and segments take head dim 64, 80, 96, 128
+    and 256, forwards and backwards, and ALiBi all but 256 (ROADMAP B-iii
+    4); segments do not combine with the per-batch channels (ROADMAP
+    A11). The MLA shapes (``qv``, V's own head dim; forward only,
     as in JAX) take the key range alone, on B1's MLA kernels; their other
     channels raise (ROADMAP A11).
 
@@ -645,7 +645,9 @@ def flash_attention_masked(
     forward-only, as in JAX: a gradient through it raises. On the card
     they run B1's and B7's window instantiations (counted in
     ``flash_attention.window_launches`` and ``flash_bwd.window_launches``):
-    head dim 64 or 128, causal or not, with the key range (``kv_bound``,
+    head dim 64, 128 or 256 (Gemma-2's and Gemma-3's; B7 at 256 is
+    ``csrc/flash_bwd_d256.cu``'s kernel), causal or not, with the key range
+    (``kv_bound``,
     ``kv_low``, ``bound_causal``) or without, or with segments (the
     segment walk's window instantiations, counted in
     ``flash_attention.segment_window_launches`` and

@@ -300,6 +300,15 @@ BWD_CHANNEL_CASES = [
     ((2, 8, 2, 4, 1059, 96), [1059, 700], [0, 3], False, True, "bh"),
     ((3, 4, 2, 200, 300, 96), [300, 131, 7], None, False, False, None),
     ((2, 4, 2, 130, 300, 96), None, None, False, False, "h"),
+    # Head dim 256 (Gemma-7B's padded fine-tuning batch, GPT-J's cached
+    # steps): 64-key CTAs, bounds inside a 64-key tile and on its edge, 64
+    # keys wholly below kv_low, rows that see no key, bound_causal with and
+    # without causal.
+    ((3, 4, 2, 200, 300, 256), [300, 131, 7], None, False, False, None),
+    ((3, 4, 2, 140, 500, 256), [500, 300, 270], [5, 128, 140], False, True, None),
+    ((2, 2, 1, 100, 300, 256), [350, 160], None, True, True, None),
+    ((4, 2, 2, 150, 260, 256), [0, 100, 90, 64], [0, 100, 120, 0], False, True, None),
+    ((2, 8, 8, 4, 1059, 256), [1059, 700], [0, 3], False, True, None),
 ]
 
 
@@ -440,32 +449,38 @@ def test_flash_kernels_raise_at_head_dims_not_built(dev, d, channels):
 
 
 def test_head_dim_256_channels_raise(dev):
-    # At head dim 256 B1 takes its key range (above) but not ALiBi or
-    # segments, B7 no channel, the lite walks nothing; the decode kernel is
-    # not built at 112, nor int8_mma at 80 or 96 (JAX's asserts d % 128 ==
-    # 0): each raises before a launch.
+    # At head dim 256 B1 and B7 take the key range, segments, the window and
+    # the cap (above and below) but not ALiBi or dropout; the lite walks
+    # nothing; the decode kernel is not built at 112, nor int8_mma at 80 or
+    # 96 (JAX's asserts d % 128 == 0): each raises before a launch.
     from liteattention_torch.modules.mha import alibi_slopes
     from liteattention_torch.ops.flash_fwd import flash_attention_decode
 
     q, k, v = _qkv(dev, 1, 2, 2, 128, 128, 256)
     ids = torch.zeros(1, 128, dtype=torch.int32, device=dev)
-    bound = torch.tensor([100], dtype=torch.int32, device=dev)
     lse = torch.zeros(1, 2, 128, device=dev)
-    n0 = (flash_attention.alibi_launches, flash_attention.segment_launches, flash_bwd.launches,
-          flash_bwd.bound_launches, lite_flash_attention.launches)
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
-        flash_attention_masked(q, k, v, alibi_slopes=alibi_slopes(2).to(dev))
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
-        flash_attention_masked(q, k, v, q_segments=ids, kv_segments=ids)
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
-        flash_attention_bwd(q, k, v, q, lse, q, 256**-0.5, False, kv_bound=bound)
+    slopes = alibi_slopes(2).to(dev)
+    counters = ((flash_attention, "alibi_launches"), (flash_attention, "dropout_launches"),
+                (flash_attention, "segment_dropout_launches"), (flash_bwd, "alibi_launches"),
+                (flash_bwd, "dropout_launches"), (flash_bwd, "segment_dropout_launches"),
+                (lite_flash_attention, "launches"))
+    n0 = [getattr(fn, name) for fn, name in counters]
+    with pytest.raises(ValueError, match="alibi_slopes at head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, alibi_slopes=slopes)
+    with pytest.raises(ValueError, match="alibi_slopes at head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_bwd(q, k, v, q, lse, q, 256**-0.5, False, alibi_slopes=slopes)
+    with pytest.raises(NotImplementedError, match="dropout at head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="dropout at head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_masked(q, k, v, q_segments=ids, kv_segments=ids, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="dropout at head dim 256.*ROADMAP B-iii 4"):
+        flash_attention_bwd(q, k, v, q, lse, q, 256**-0.5, False, dropout_p=0.1)
     mask = torch.ones(1, 2, 1, 1, dtype=torch.bool, device=dev)
     fidx = torch.zeros(1, 2, 1, 1, dtype=torch.int32, device=dev)
     count = torch.ones(1, 2, 1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
         lite_flash_attention(q, k, v, fidx, count, 0.0, mask)
-    assert (flash_attention.alibi_launches, flash_attention.segment_launches,
-            flash_bwd.launches, flash_bwd.bound_launches, lite_flash_attention.launches) == n0
+    assert [getattr(fn, name) for fn, name in counters] == n0
     cache = torch.zeros(1, 64, 2, 112, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head dim 112 not built.*ROADMAP B-iii 4"):
         flash_attention_decode(torch.zeros(1, 2, 1, 112, dtype=torch.bfloat16, device=dev),
@@ -541,6 +556,10 @@ SEG_CASES = [
     (4, 2, 64, False, "cross"), (2, 2, 128, False, "empty"),
     # Head dim 96 (GPT-NeoX-20B's packed documents).
     (8, 8, 96, True, "docs"), (4, 2, 96, False, "unsorted"), (2, 2, 96, False, "cross"),
+    # Head dim 256 (Gemma-7B's packed documents): 64-key tiles reading the
+    # spans of 128 keys, 64-key CTAs the rows of their 128-key tile.
+    (4, 4, 256, True, "docs"), (4, 2, 256, False, "unsorted"), (2, 2, 256, False, "cross"),
+    (2, 1, 256, True, "empty"),
 ]
 
 
@@ -1602,6 +1621,19 @@ WINDOW_CASES = [
     ((2, 4, 2, 513, 513, 64), True, None, None, False, (255, 0), 0, 50.0),
     ((2, 8, 2, 4, 1059, 128), False, [1059, 700], [0, 3], True, (256, 0), 0, 50.0),
     ((2, 4, 2, 300, 700, 128), False, [700, 450], [0, 130], True, None, 100, 20.0),
+    # Head dim 256 (Gemma-2's and Gemma-3's): 64-key tiles; windows narrower
+    # than a tile and spanning several, edges inside a 64-key tile, the
+    # chunk, the cap alone and with the window (Gemma-2's cap 50), the key
+    # range with rows that see no key, a cached single-token step.
+    ((2, 4, 2, 300, 555, 256), False, None, None, False, (20, 5), 0, 0.0),
+    ((1, 8, 4, 1000, 1000, 256), True, None, None, False, (255, 0), 0, 0.0),
+    ((1, 4, 2, 500, 300, 256), True, None, None, False, (40, 0), 0, 0.0),
+    ((2, 4, 4, 257, 257, 256), True, None, None, False, None, 96, 0.0),
+    ((2, 4, 2, 300, 555, 256), False, None, None, False, None, 0, 5.0),
+    ((1, 16, 8, 700, 700, 256), True, None, None, False, (300, 0), 0, 50.0),
+    ((1, 8, 4, 700, 700, 256), True, None, None, False, None, 0, 50.0),
+    ((3, 4, 2, 140, 500, 256), False, [500, 300, 60], [5, 64, 0], True, (40, 3), 0, 0.0),
+    ((2, 16, 8, 1, 1059, 256), False, [1059, 700], [0, 3], True, (256, 0), 0, 50.0),
 ]
 
 
@@ -1679,6 +1711,58 @@ def test_flash_window_kvcache_routes(dev):
         lens = lens + s_new
 
 
+def test_flash_window_kvcache_routes_d256(dev):
+    # Gemma-2 served at head dim 256: a ragged prefill by cu_seqlens_q into
+    # 1000-slot caches, then single-token steps; the local layer (window and
+    # cap) on B1's window instantiation at every step, the global layer (the
+    # cap) on the decode kernel; each against the plain version over the
+    # same cache.
+    from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache
+    from liteattention_torch.ops.flash_fwd import flash_attention_decode
+
+    b, hk, h, cap, d = 2, 2, 4, 1000, 256
+    g = torch.Generator(device=dev).manual_seed(256)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    for layer, kw in (("local", dict(window_size=(200, 0), softcap=50.0)),
+                      ("global", dict(softcap=50.0))):
+        kc, vc = mk(b, cap, hk, d), mk(b, cap, hk, d)
+        prompts = [500, 333]
+        cu = torch.tensor([0, 500, 833], dtype=torch.int32, device=dev)
+        q, kn, vn = mk(833, h, d), mk(833, hk, d), mk(833, hk, d)
+        n_win, n_dec = flash_attention.window_launches, flash_attention_decode.launches
+        out, lse, _ = flash_attn_with_kvcache(
+            q, kc, vc, kn, vn, cache_seqlens=0, cu_seqlens_q=cu, cu_seqlens_k_new=cu,
+            max_seqlen_q=500, causal=True, softmax_scale=d**-0.5, return_softmax_lse=True,
+            **kw)
+        lens = torch.tensor(prompts, dtype=torch.int32, device=dev)
+        for i, n in enumerate(prompts):
+            a = cu[i].item()
+            ro, rl = flash_attention_plain(
+                q[a:a + n].transpose(0, 1)[None], kc[i:i + 1, :n].transpose(1, 2),
+                vc[i:i + 1, :n].transpose(1, 2), causal=True, scale=d**-0.5,
+                window=kw.get("window_size"), softcap=50.0)
+            assert (out[a:a + n].transpose(0, 1)[None].float() - ro.float()).abs().max() < 2e-2
+            assert (lse[:, a:a + n][None] - rl).abs().max().item() < 1e-3
+        for _ in range(3):
+            q1, k1, v1 = mk(b, 1, h, d), mk(b, 1, hk, d), mk(b, 1, hk, d)
+            out, lse, _ = flash_attn_with_kvcache(q1, kc, vc, k1, v1, cache_seqlens=lens,
+                                                  causal=True, softmax_scale=d**-0.5,
+                                                  return_softmax_lse=True, **kw)
+            ro, rl = flash_attention_plain(
+                q1.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), kv_bound=lens + 1,
+                bound_causal=True, scale=d**-0.5, window=kw.get("window_size"), softcap=50.0)
+            assert (out.transpose(1, 2).float() - ro.float()).abs().max().item() < 2e-2
+            assert (lse - rl).abs().max().item() < 1e-3
+            lens = lens + 1
+        torch.cuda.synchronize()
+        if layer == "local":
+            assert flash_attention.window_launches - n_win == 4
+            assert flash_attention_decode.launches == n_dec
+        else:
+            assert flash_attention.window_launches == n_win
+            assert flash_attention_decode.launches - n_dec >= 4
+
+
 def test_flash_window_raises_where_not_built(dev):
     q, k, v = _qkv(dev, 1, 4, 2, 64, 64, 96)
     with pytest.raises(NotImplementedError, match="window at head dim 96.*B-iii 4"):
@@ -1750,6 +1834,15 @@ SEG_CHANNEL_CASES = [
     (4, 1, 128, False, "unsorted", None, 0, 0.0, 0.5),
     (2, 2, 64, False, "cross", None, 0, 0.0, 0.1),
     (2, 2, 128, True, "empty", None, 0, 0.0, 0.1),
+    # Head dim 256 (Gemma-2's packed documents): the window, the cap and
+    # both, the chunk; ids in no order, Sq != Sk, an empty q-tile.
+    (4, 2, 256, True, "docs", (40, 0), 0, 0.0, 0.0),
+    (4, 2, 256, True, "docs", None, 0, 50.0, 0.0),
+    (8, 4, 256, True, "docs", (100, 0), 0, 50.0, 0.0),
+    (4, 4, 256, True, "docs", None, 64, 0.0, 0.0),
+    (4, 2, 256, False, "unsorted", (33, 3), 0, 5.0, 0.0),
+    (2, 2, 256, False, "cross", (-1, 50), 0, 0.0, 0.0),
+    (2, 2, 256, False, "empty", (64, 0), 0, 30.0, 0.0),
 ]
 
 

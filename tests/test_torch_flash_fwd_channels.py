@@ -229,15 +229,15 @@ def test_gradient_through_a_channel_raises(channel):
 @pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_wrappers_take_the_built_head_dims(d):
     # B1's and B7's wrappers check the head dim with check_head_dim before
-    # any launch: 64, 80, 96, 128 and 256 pass; with B1's channels all but
-    # 256, and B1's key range alone (forwards) all five.
+    # any launch: 64, 80, 96, 128 and 256 pass, with the key range and
+    # segments forwards and backwards; with ALiBi all but 256.
     check_head_dim(d, False, "flash_attention")
+    check_head_dim(d, False, "flash_bwd")
     if d == 256:
-        with pytest.raises(ValueError, match="ROADMAP B-iii 4"):
+        with pytest.raises(ValueError, match="alibi_slopes at head dim 256.*ROADMAP B-iii 4"):
             check_head_dim(d, True, "flash_attention")
     else:
         check_head_dim(d, True, "flash_attention")
-    check_head_dim(d, True, "flash_attention", key_range_only=True)
     assert d in HEAD_DIMS
 
 

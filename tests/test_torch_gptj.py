@@ -34,9 +34,8 @@ from liteattention_torch.flash_attn_interface import flash_attn_varlen_func  # n
 from liteattention_torch.models import configs  # noqa: E402
 from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_state_dict_from_jax  # noqa: E402
 from liteattention_torch.ops.flash_bwd import (  # noqa: E402
-    CHANNEL_HEAD_DIMS,
+    ALIBI_HEAD_DIMS,
     HEAD_DIMS,
-    RANGE_HEAD_DIMS,
     check_head_dim,
 )
 from liteattention_torch.utils import generation, remap_state_dict_hf_gptj  # noqa: E402
@@ -121,19 +120,17 @@ def test_gptj_remap_matches_jax_and_hf():
 
 
 def test_head_dim_256_channels_raise():
-    # Built at 256: B1 and B7 without channels, B1 with its key range alone
-    # (a KV cache's prefill). Not built: ALiBi, segments (the varlen
-    # functions), and B7 with any channel.
-    assert 256 in HEAD_DIMS and 256 in RANGE_HEAD_DIMS and 256 not in CHANNEL_HEAD_DIMS
+    # Built at 256: B1 and B7 without channels, with the key range, segments
+    # (the varlen functions), the window and the cap, forwards and
+    # backwards. Not built: ALiBi (ROADMAP B-iii 4).
+    assert 256 in HEAD_DIMS and 256 not in ALIBI_HEAD_DIMS
     check_head_dim(256, False, "flash_attention")
-    check_head_dim(256, True, "flash_attention", key_range_only=True)
     for name in ("flash_attention", "flash_bwd"):
-        with pytest.raises(ValueError, match="alibi_slopes and segments at head dim 256.*"
-                                             "ROADMAP B-iii 4"):
+        with pytest.raises(ValueError, match="alibi_slopes at head dim 256.*ROADMAP B-iii 4"):
             check_head_dim(256, True, name)
     with pytest.raises(ValueError, match="head dim 112 not built.*ROADMAP B-iii 4"):
-        check_head_dim(112, True, "flash_attention", key_range_only=True)
+        check_head_dim(112, False, "flash_attention")
     cu = torch.tensor([0, 40, 64], dtype=torch.int32)
-    x = torch.zeros(64, 2, 256)
-    with pytest.raises(ValueError, match="head dim 256.*ROADMAP B-iii 4"):
-        flash_attn_varlen_func(x, x, x, cu, cu, 40, 40)
+    x = torch.randn(64, 2, 256, generator=torch.Generator().manual_seed(0))
+    out = flash_attn_varlen_func(x, x, x, cu, cu, 40, 40)
+    assert out.shape == x.shape and torch.isfinite(out).all()

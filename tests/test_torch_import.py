@@ -47,7 +47,8 @@ def test_imports_with_jax_blocked():
 
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "b1_ablation.py", ROOT / "gptj_fault_sweep.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "b1_ablation.py", ROOT / "gptj_fault_sweep.py",
+       ROOT / "b7_d256_batch.py"],
     ids=lambda p: p.name,
 )
 def test_no_jax_imports(path):

@@ -49,11 +49,11 @@ from liteattention_torch.flash_attn_interface import flash_attn_with_kvcache  # 
 from liteattention_torch.models import configs  # noqa: E402
 from liteattention_torch.models.gpt import GPTLMHeadModel, gpt_state_dict_from_jax  # noqa: E402
 from liteattention_torch.ops.flash_bwd import (  # noqa: E402
-    CHANNEL_HEAD_DIMS,
-    RANGE_HEAD_DIMS,
+    ALIBI_HEAD_DIMS,
     flash_attention_bwd,
     flash_bwd,
 )
+from liteattention_torch.ops.flash_bwd import HEAD_DIMS as ATTN_HEAD_DIMS  # noqa: E402
 from liteattention_torch.ops.flash_decode import HEAD_DIMS, INT8_MMA_HEAD_DIMS  # noqa: E402
 from liteattention_torch.ops.flash_fwd import (  # noqa: E402
     flash_attention,
@@ -108,7 +108,7 @@ def test_gpt_neox_family_configs():
     # neither (JAX's asserts d % 128 == 0), B1's and B7's channels at 96.
     for d in (80, 96):
         assert d in HEAD_DIMS and d not in INT8_MMA_HEAD_DIMS
-        assert d in CHANNEL_HEAD_DIMS and d in RANGE_HEAD_DIMS
+        assert d in ALIBI_HEAD_DIMS and d in ATTN_HEAD_DIMS
 
 
 # ------------------------------------------------------- decode (B8 / B9)

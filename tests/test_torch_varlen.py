@@ -199,8 +199,8 @@ class _Entries:
 # The card's table for the varlen functions' channels at the segment walk:
 # (head dim, window, softcap, dropout, alibi) -> the ROADMAP item a refusal
 # names, or None where B1's and B7's segment instantiations of the channels
-# take the call (Mistral-7B's window, Gemma-2's cap with and without it,
-# BERT's dropout).
+# take the call (Mistral-7B's window, Gemma-2's cap with and without it at
+# head dims 128 and 256, BERT's dropout).
 CARD_TABLE = [
     (64, True, False, False, False, None),
     (128, True, False, False, False, None),
@@ -216,7 +216,10 @@ CARD_TABLE = [
     (80, True, False, False, False, "B-iii 4"),
     (96, False, True, False, False, "B-iii 4"),
     (96, False, False, True, False, "B-iii 4"),
-    (256, True, True, False, False, "B-iii 4"),
+    (256, False, False, True, False, "B-iii 4"),
+    (256, True, False, False, False, None),
+    (256, False, True, False, False, None),
+    (256, True, True, False, False, None),
 ]
 
 
